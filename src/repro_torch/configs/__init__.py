@@ -1,0 +1,26 @@
+"""Model configs of the port: the paper's own models.
+
+``get_config(name)`` -> full config; ``get_smoke_config(name)`` -> the
+reduced same-family config for CPU tests.  The ten assigned architectures
+of the JAX package are later slices.
+"""
+import importlib
+
+PAPER_IDS = ["h1d-lm-53m", "h1d-lm-144m", "h1d-lra-encoder"]
+
+_MODULES = {name: "h1d_lm" for name in PAPER_IDS}
+
+
+def _module(name: str):
+    if name not in _MODULES:
+        raise NotImplementedError(
+            f"config {name!r} is not ported yet; available: {PAPER_IDS}")
+    return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
+
+
+def get_config(name: str):
+    return _module(name).CONFIGS[name]()
+
+
+def get_smoke_config(name: str):
+    return _module(name).SMOKES[name]()

@@ -1,0 +1,22 @@
+"""Core H-Transformer-1D hierarchical attention and decode cache."""
+from . import hierarchy
+from .h1d_attention import (h1d_attention, h1d_attention_mha, fold_kv_heads,
+                            unfold_kv_heads)
+from .h1d_decode import (H1DCache, init_cache, prefill_cache, update_cache,
+                         decode_attend, update_cache_uniform,
+                         decode_attend_uniform)
+
+__all__ = [
+    "hierarchy",
+    "h1d_attention",
+    "h1d_attention_mha",
+    "fold_kv_heads",
+    "unfold_kv_heads",
+    "H1DCache",
+    "init_cache",
+    "prefill_cache",
+    "update_cache",
+    "decode_attend",
+    "update_cache_uniform",
+    "decode_attend_uniform",
+]

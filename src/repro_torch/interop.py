@@ -1,0 +1,61 @@
+"""Parameters of the JAX package in the port's layout.
+
+``params_from_jax`` takes the JAX LM's parameter tree with every leaf
+already converted to a numpy array (``jax.tree.map(np.asarray, params)``
+on the caller's side), so this module imports neither ``jax`` nor the
+JAX package.  The dense JAX stack keeps its layers stacked on a leading
+axis (it scans over them); the port keeps one dictionary per layer.
+Every projection has the same (d_in, d_out) layout in both packages, so
+no weight is transposed.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from . import resolve_device
+from .models.common import ModelConfig
+
+# what every layer must hold: block -> entries
+_LAYER_KEYS = {"ln1": ("g",), "attn": ("wq", "wkv", "wo"), "ln2": ("g",),
+               "mlp": ("wg", "wu", "wd")}
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, *,
+                    device=None) -> Dict[str, Any]:
+    """JAX LM parameters (numpy leaves) -> the port's parameter tree on
+    ``device`` (default ``cuda``).  Carries ``embed.w``, ``final_norm.g``,
+    ``lm_head.w`` (untied heads only) and per layer ``ln1.g``, ``ln2.g``,
+    ``attn.{wq,wkv,wo}`` (with any bias and q/k norms) and
+    ``mlp.{wg,wu,wd}``."""
+    dev = resolve_device(device)
+    layers = tree["layers"]
+    if isinstance(layers, dict):          # the scanned stack: unstack
+        n = np.asarray(layers["ln1"]["g"]).shape[0]
+        layers = [_map(lambda a, i=i: np.asarray(a)[i], layers)
+                  for i in range(n)]
+    if len(layers) != cfg.num_layers:
+        raise ValueError(f"tree holds {len(layers)} layers, cfg has "
+                         f"{cfg.num_layers}")
+    for i, lp in enumerate(layers):
+        missing = [f"layers[{i}].{b}.{k}" for b, keys in _LAYER_KEYS.items()
+                   for k in keys if k not in lp.get(b, {})]
+        if missing:
+            raise KeyError(f"JAX tree lacks {missing}")
+    out: Dict[str, Any] = {"embed": {"w": tree["embed"]["w"]},
+                           "final_norm": {"g": tree["final_norm"]["g"]},
+                           "layers": layers}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = {"w": tree["lm_head"]["w"]}
+    return _map(lambda a: torch.from_numpy(np.array(a, copy=True)).to(dev),
+                out)

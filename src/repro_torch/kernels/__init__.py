@@ -1,0 +1,47 @@
+"""Hand-written CUDA kernels for Hopper and their plain PyTorch versions.
+
+Four kernels carry the serving path of the paper LM (sources in
+``csrc/``, built by ``_build`` with ``nvcc`` at first use):
+
+======================== ============================== ==================
+wrapper                  replaces (repro/kernels/...)   plain version
+======================== ============================== ==================
+band_attention_fwd       h1d_block.band_attention_fwd   band_attention_fwd_ref
+band_attention_sub_fwd   h1d_block.band_attention_sub_fwd
+                                                        band_attention_sub_fwd_ref
+decode_attend_fused      h1d_decode_kernel.decode_attend_fused
+                                                        decode_attend_ref
+update_cache_fused       h1d_decode_kernel.update_cache_fused
+                                                        update_cache_ref
+======================== ============================== ==================
+"""
+from .h1d_block import (band_attention_fwd, band_attention_sub_fwd,
+                        band_attention_fwd_ref, band_attention_sub_fwd_ref,
+                        band_mask, MODES, SUB_MODE)
+from .h1d_decode_kernel import (decode_attend_fused, update_cache_fused,
+                                decode_attend_ref, update_cache_ref)
+from .ops import band_attention
+
+#: (kernel wrapper, its plain version) for every kernel of the package
+KERNELS = {
+    "band_attention_fwd": (band_attention_fwd, band_attention_fwd_ref),
+    "band_attention_sub_fwd": (band_attention_sub_fwd,
+                               band_attention_sub_fwd_ref),
+    "decode_attend_fused": (decode_attend_fused, decode_attend_ref),
+    "update_cache_fused": (update_cache_fused, update_cache_ref),
+}
+
+
+def reset_counts() -> None:
+    """Set every kernel's launch count and every plain version's call
+    count to 0."""
+    for kernel, plain in KERNELS.values():
+        kernel.launches = 0
+        plain.calls = 0
+
+
+__all__ = ["band_attention", "band_attention_fwd", "band_attention_sub_fwd",
+           "band_attention_fwd_ref", "band_attention_sub_fwd_ref",
+           "band_mask", "decode_attend_fused", "update_cache_fused",
+           "decode_attend_ref", "update_cache_ref", "MODES", "SUB_MODE",
+           "KERNELS", "reset_counts"]

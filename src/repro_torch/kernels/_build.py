@@ -1,0 +1,124 @@
+"""Build and load the hand-written CUDA kernels.
+
+Every ``csrc/*.cu`` is compiled on first use with ``nvcc`` for Hopper
+(``sm_90a``) into a shared library with a plain C interface and loaded
+with ``ctypes``.  Libraries go to ``build/kernels/`` at the repository
+root, named by the hash of the source and the flags, so an edited
+source is rebuilt and an unchanged one is loaded as it is.
+
+Nothing here runs at import time: the CPU tests import every module of
+the package on a machine without ``nvcc`` or a card.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_LOADED: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME:
+        cand = Path(CUDA_HOME) / "bin" / "nvcc"
+        if cand.exists():
+            return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (CUDA_HOME or PATH); the CUDA "
+                           "kernels are built on the machine with the card")
+    return found
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+
+
+def build(names: Iterable[str]) -> Dict[str, Path]:
+    """Compile the named sources that have no up-to-date library, one
+    ``nvcc`` per source, all started together.  Returns the library
+    paths; raises with the compiler's output if a build fails."""
+    names = list(names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = {n: _target(n) for n in names}
+    todo = [n for n in names if not out[n].exists()]
+    if not todo:
+        return out
+    nvcc = _nvcc()
+    procs = {}
+    for n in todo:
+        tmp = out[n].with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for n, (tmp, p) in procs.items():
+        log, _ = p.communicate()
+        if p.returncode != 0:
+            failed.append(f"{n}.cu:\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out[n])
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return out
+
+
+def sources():
+    """Stems of every kernel source under ``csrc/``."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def library(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
+    """The loaded kernel library built from ``csrc/<name>.cu``, with the
+    ``argtypes`` of each launcher in ``signatures`` declared (every
+    launcher returns its ``cudaGetLastError()`` as an int)."""
+    lib = _LOADED.get(name)
+    if lib is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"kernel library {name!r} needs a CUDA card "
+                               "and none is available")
+        lib = ctypes.CDLL(str(build([name])[name]))
+        for fn, argtypes in signatures.items():
+            f = getattr(lib, fn)
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+        _LOADED[name] = lib
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise when a launcher returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+
+
+def stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def expect(t: torch.Tensor, name: str, shape, dtype=torch.float32) -> None:
+    """Validate a kernel operand: CUDA, dtype, exact shape, contiguous."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")

@@ -1,0 +1,241 @@
+// Banded block attention forward for H-Transformer-1D, Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernels of repro/kernels/h1d_block.py:
+//   * h1d_band_fwd     <- band_attention_fwd (_fwd_kernel), mode l0_causal;
+//   * h1d_band_sub_fwd <- band_attention_sub_fwd (_fwd_sub_kernel), the
+//     fine-q causal level l >= 1 (fine queries x 2^l-coarser keys).
+// Both return the unnormalised float32 triple (y, dn, m) of one level:
+//   s = q.k (q pre-scaled), s -> NEG_INF where band_mask fails or w <= 0,
+//   m = max(rowmax s, -1e30), a = exp(s - m), y = a @ v, dn = sum a * w.
+// A row with every key masked gives m = -1e30, y = 0, dn = 0.
+//
+// What bounds it on the H100: memory.  A query row attends at most 2*nr
+// keys (nr for a coarse level), so one row costs ~4*nr*d FLOPs against
+// ~2*d*4 bytes of q and y: at nr=16, d=64 that is ~8 FLOP per byte, far
+// below the card's fp32 ridge (67 TFLOP/s over 3.35 TB/s = 20).  The
+// level's least time is its bytes (q, k, v, w read once; y, dn, m
+// written once) over the memory rate.
+//
+// Design: one CTA per (batch row b, tile of TQ query rows).  The CTA
+// stages the tile's key window (its own keys plus the nr-row prev halo
+// at level 0; the coarse blocks I-1 of its query blocks at a sub level)
+// in shared memory once and reuses it for every GQA group g, so K/V are
+// read from HBM about once per tile and never copied per group.  A warp
+// takes one query row at a time: lane j scores key j (keys in chunks of
+// 32), the softmax max and the dn sum are warp shuffles, and each lane
+// accumulates y for output columns lane, lane+32, ....  The k rows in
+// shared memory are padded to d+1 floats so the 32 lanes reading 32
+// different keys hit 32 different banks.  Plain fp32 FMA on CUDA cores
+// (no TF32: the port is held to fp32 parity), expf not __expf.
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr float NEG_INF = -3.0e38f;   // h1d_block.NEG_INF
+constexpr float MIN_M = -1e30f;       // h1d_block._MIN_M
+constexpr int TQ = 64;                // query rows per CTA
+constexpr int WARPS = 8;
+constexpr int MAXC = 4;               // key chunks of 32 per row: nk <= 128
+constexpr int MAXU = 4;               // output column chunks: dv <= 128
+constexpr unsigned FULL = 0xffffffffu;
+
+enum Mode { L0_BIDIR = 0, L0_CAUSAL = 1, COARSE_BIDIR = 2, COARSE_CAUSAL = 3 };
+
+__device__ __forceinline__ int floordiv(int a, int b) {
+  int q = a / b;
+  return (q * b > a) ? q - 1 : q;
+}
+
+__device__ __forceinline__ int floormod(int a, int b) {
+  int r = a % b;
+  return r < 0 ? r + b : r;
+}
+
+// Port of repro/kernels/h1d_block.py band_mask for global row/col indices.
+__device__ __forceinline__ bool band_mask(int qi, int ki, int nr, int mode,
+                                          int lk) {
+  const bool inb = ki >= 0 && ki < lk;
+  const int diff = floordiv(qi, nr) - floordiv(ki, nr);
+  bool allow;
+  if (mode == L0_BIDIR) {
+    allow = abs(diff) <= 1;
+  } else if (mode == L0_CAUSAL) {
+    allow = (diff == 0 && ki <= qi) || diff == 1;
+  } else {
+    const int half = nr / 2;
+    const bool base = mode == COARSE_CAUSAL ? diff == 1 : abs(diff) == 1;
+    const bool sub_excl = diff == 1 && floormod(qi, nr) < half &&
+                          floormod(ki, nr) >= half;
+    const bool sup_excl = diff == -1 && floormod(qi, nr) >= half &&
+                          floormod(ki, nr) < half;
+    allow = base && !sub_excl && !sup_excl;
+  }
+  return allow && inb;
+}
+
+// First key of query row i: level 0 reads its own block and the one
+// before; a sub level (ratio >= 2) reads coarse block I-1 of its fine
+// query block I = i / (nr * ratio).
+template <bool SUB>
+__device__ __forceinline__ int key_start(int i, int nr, int ratio) {
+  return SUB ? (i / (nr * ratio) - 1) * nr : (i / nr) * nr - nr;
+}
+
+template <bool SUB>
+__global__ void __launch_bounds__(WARPS * 32)
+band_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ w,
+                float* __restrict__ y, float* __restrict__ dn,
+                float* __restrict__ m, int G, int Lq, int Lk, int d, int dv,
+                int nr, int ratio) {
+  extern __shared__ float smem[];
+  const int b = blockIdx.y;
+  const int t0 = blockIdx.x * TQ;
+  const int rows = min(TQ, Lq - t0);
+  const int nk = SUB ? nr : 2 * nr;
+  const int kbase = key_start<SUB>(t0, nr, ratio);
+  const int nwin = key_start<SUB>(t0 + rows - 1, nr, ratio) + nk - kbase;
+  const int ks = d + 1;
+  float* k_s = smem;
+  float* v_s = k_s + nwin * ks;
+  float* w_s = v_s + nwin * dv;
+  float* q_s = w_s + nwin;
+
+  // stage the key window; rows outside [0, Lk) read as zero (their
+  // weight 0 and band_mask's in-range test mask them out)
+  for (int e = threadIdx.x; e < nwin * d; e += blockDim.x) {
+    const int r = e / d, c = e % d, j = kbase + r;
+    k_s[r * ks + c] = (j >= 0 && j < Lk) ? k[((size_t)b * Lk + j) * d + c]
+                                         : 0.f;
+  }
+  for (int e = threadIdx.x; e < nwin * dv; e += blockDim.x) {
+    const int r = e / dv, c = e % dv, j = kbase + r;
+    v_s[e] = (j >= 0 && j < Lk) ? v[((size_t)b * Lk + j) * dv + c] : 0.f;
+  }
+  for (int r = threadIdx.x; r < nwin; r += blockDim.x) {
+    const int j = kbase + r;
+    w_s[r] = (j >= 0 && j < Lk) ? w[(size_t)b * Lk + j] : 0.f;
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* qw = q_s + warp * d;
+  const int mode = SUB ? COARSE_CAUSAL : L0_CAUSAL;
+  for (int item = warp; item < G * rows; item += WARPS) {
+    const int g = item / rows;
+    const int i = t0 + item % rows;
+    const size_t row = ((size_t)b * G + g) * Lq + i;
+    for (int c = lane; c < d; c += 32) qw[c] = q[row * d + c];
+    __syncwarp();
+    const int k0 = key_start<SUB>(i, nr, ratio) - kbase;   // window offset
+    const int qm = SUB ? i / ratio : i;                      // mask row
+
+    float s[MAXC];
+    float mx = NEG_INF;
+#pragma unroll
+    for (int ch = 0; ch < MAXC; ++ch) {
+      const int jj = lane + 32 * ch;
+      s[ch] = NEG_INF;
+      if (jj < nk) {
+        const float* kr = k_s + (k0 + jj) * ks;
+        float acc = 0.f;
+        for (int c = 0; c < d; ++c) acc = fmaf(qw[c], kr[c], acc);
+        const bool allow = band_mask(qm, kbase + k0 + jj, nr, mode, Lk) &&
+                           w_s[k0 + jj] > 0.f;
+        s[ch] = allow ? acc : NEG_INF;
+      }
+      mx = fmaxf(mx, s[ch]);
+    }
+    for (int off = 16; off; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
+    const float mrow = fmaxf(mx, MIN_M);
+
+    float a[MAXC];
+    float dsum = 0.f;
+#pragma unroll
+    for (int ch = 0; ch < MAXC; ++ch) {
+      const int jj = lane + 32 * ch;
+      a[ch] = 0.f;
+      if (jj < nk) {
+        a[ch] = expf(s[ch] - mrow);
+        dsum = fmaf(a[ch], w_s[k0 + jj], dsum);
+      }
+    }
+    for (int off = 16; off; off >>= 1)
+      dsum += __shfl_xor_sync(FULL, dsum, off);
+
+    float acc_y[MAXU];
+#pragma unroll
+    for (int u = 0; u < MAXU; ++u) acc_y[u] = 0.f;
+#pragma unroll
+    for (int ch = 0; ch < MAXC; ++ch) {
+      if (32 * ch >= nk) break;
+      const int n = min(32, nk - 32 * ch);
+      for (int src = 0; src < n; ++src) {
+        const float aj = __shfl_sync(FULL, a[ch], src);
+        const float* vr = v_s + (k0 + 32 * ch + src) * dv;
+#pragma unroll
+        for (int u = 0; u < MAXU; ++u) {
+          const int c = lane + 32 * u;
+          if (c < dv) acc_y[u] = fmaf(aj, vr[c], acc_y[u]);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < MAXU; ++u) {
+      const int c = lane + 32 * u;
+      if (c < dv) y[row * dv + c] = acc_y[u];
+    }
+    if (lane == 0) {
+      dn[row] = dsum;
+      m[row] = mrow;
+    }
+    __syncwarp();
+  }
+}
+
+template <bool SUB>
+int launch(const float* q, const float* k, const float* v, const float* w,
+           float* y, float* dn, float* m, int B, int G, int Lq, int Lk, int d,
+           int dv, int nr, int ratio, cudaStream_t stream) {
+  if (d < 1 || dv < 1 || dv > 32 * MAXU || (SUB ? nr : 2 * nr) > 32 * MAXC ||
+      TQ % nr != 0)
+    return (int)cudaErrorInvalidValue;
+  const int nwin_max = TQ + nr;
+  const size_t smem = ((size_t)nwin_max * (d + 1) + (size_t)nwin_max * dv +
+                       nwin_max + (size_t)WARPS * d) * sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        band_fwd_kernel<SUB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid((Lq + TQ - 1) / TQ, B);
+  band_fwd_kernel<SUB><<<grid, WARPS * 32, smem, stream>>>(
+      q, k, v, w, y, dn, m, G, Lq, Lk, d, dv, nr, ratio);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// q (B,G,L,d) pre-scaled, k (B,L,d), v (B,L,dv) pre-weighted, w (B,L)
+// -> y (B,G,L,dv), dn (B,G,L), m (B,G,L); mode l0_causal.
+extern "C" int h1d_band_fwd(const float* q, const float* k, const float* v,
+                            const float* w, float* y, float* dn, float* m,
+                            int B, int G, int L, int d, int dv, int nr,
+                            void* stream) {
+  return launch<false>(q, k, v, w, y, dn, m, B, G, L, L, d, dv, nr, 1,
+                       (cudaStream_t)stream);
+}
+
+// q (B,G,Lq,d), coarse k (B,Lk,d), v (B,Lk,dv), w (B,Lk), Lq = Lk*ratio
+// -> y (B,G,Lq,dv), dn (B,G,Lq), m (B,G,Lq); mode sub.
+extern "C" int h1d_band_sub_fwd(const float* q, const float* k,
+                                const float* v, const float* w, float* y,
+                                float* dn, float* m, int B, int G, int Lq,
+                                int Lk, int d, int dv, int nr, int ratio,
+                                void* stream) {
+  return launch<true>(q, k, v, w, y, dn, m, B, G, Lq, Lk, d, dv, nr, ratio,
+                      (cudaStream_t)stream);
+}

@@ -1,0 +1,133 @@
+"""Where a serving step's time goes on the card: ``torch.profiler`` over
+one batched prefill and a run of decode steps of the paper LM.
+
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+        [--arch h1d-lm-53m] [--rows 8] [--prompt 1024] [--max-len 2048]
+
+Seeded random weights and tokens.  For each phase it prints, per call,
+the host wall time (ending in a synchronize, measured without the
+profiler), the summed device time of the kernels it ran (measured under
+it), the device busy share (device time over wall time; one stream, so
+kernels do not overlap) and the device time by kernel, grouped into this
+package's four kernels, matrix products and the rest.
+Needs a CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from collections import defaultdict
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch import resolve_device
+from repro_torch.configs import get_config
+from repro_torch.models import get_model
+
+OWN = {"band_fwd_kernel<false>": "band_attention_fwd",
+       "band_fwd_kernel<true>": "band_attention_sub_fwd",
+       "decode_attend_kernel": "decode_attend_fused",
+       "update_cache_kernel": "update_cache_fused"}
+
+
+def _group(name: str) -> str:
+    for key, label in OWN.items():
+        if key in name:
+            return label
+    low = name.lower()
+    if "gemm" in low or "gemv" in low or "cutlass" in low or "xmma" in low:
+        return "matmul"
+    return "other"
+
+
+def _wall_ms(fn, calls: int) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / calls
+
+
+def profiled(fn, calls: int):
+    """Per-call numbers of ``fn``: the wall time of ``calls`` calls run
+    without the profiler (its tracing slows the host), then the device
+    time of ``calls`` more under it."""
+    wall_ms = _wall_ms(fn, calls)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        profiled_wall_ms = _wall_ms(fn, calls)
+    by_group = defaultdict(float)
+    kernels = []
+    for evt in prof.key_averages():
+        us = evt.self_device_time_total
+        if us <= 0 or evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        by_group[_group(evt.key)] += us / calls / 1e3
+        kernels.append((us / calls / 1e3, evt.count // calls, evt.key[:90]))
+    device_ms = sum(by_group.values())
+    kernels.sort(reverse=True)
+    return {"wall_ms": wall_ms, "profiled_wall_ms": profiled_wall_ms,
+            "device_ms": device_ms,
+            "busy_share": device_ms / wall_ms if wall_ms else 0.0,
+            "device_ms_by_group": dict(sorted(by_group.items(),
+                                              key=lambda kv: -kv[1])),
+            "top_kernels": [{"ms": ms, "launches": n, "name": k}
+                            for ms, n, k in kernels[:12]]}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="h1d-lm-53m")
+    ap.add_argument("--rows", type=int, default=8)
+    ap.add_argument("--prompt", type=int, default=1024)
+    ap.add_argument("--max-len", type=int, default=2048)
+    ap.add_argument("--decode-steps", type=int, default=20)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default=None, help="also write the JSON here")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(None)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(args.arch)
+    fns = get_model(cfg)
+    params = fns.init(cfg, seed=args.seed, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    tokens = torch.randint(0, cfg.vocab_size, (args.rows, args.prompt),
+                           generator=gen, device=dev)
+    batch = {"tokens": tokens}
+    state = {}
+
+    @torch.inference_mode()
+    def prefill():
+        state["out"] = fns.prefill(params, cfg, batch, args.max_len)
+
+    prefill()                                           # warm-up
+    res = {"device": torch.cuda.get_device_name(dev), "arch": cfg.name,
+           "rows": args.rows, "prompt": args.prompt,
+           "max_len": args.max_len}
+    res["prefill"] = profiled(prefill, 3)
+
+    logits, caches, pos = state["out"]
+    tok = logits.argmax(-1)
+
+    @torch.inference_mode()
+    def decode():
+        nonlocal tok, pos
+        lg, _ = fns.decode_step(params, cfg, caches, tok, pos)
+        tok = lg.argmax(-1)
+        pos = pos + 1
+
+    decode()                                            # warm-up
+    res["decode_step"] = profiled(decode, args.decode_steps)
+    text = json.dumps(res)
+    print(text)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(text + "\n")
+    return res
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,126 @@
+"""Shared model components: config, dense projection, RMSNorm, RoPE,
+activation.
+
+Port of ``repro.models.common``.  ``ModelConfig`` mirrors the JAX
+dataclass field for field with the same defaults, so a config built for
+one package reads the same in the other; fields of families or features
+this slice does not serve are carried but rejected where used.
+Parameters are plain dictionaries of tensors; a dense weight has shape
+(d_in, d_out) and is applied as ``x @ w``, as in the JAX package.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+
+@dataclasses.dataclass
+class ModelConfig:
+    name: str = "model"
+    family: str = "dense"        # dense | moe | encdec | vlm | audio | ssm | hybrid
+    num_layers: int = 4
+    d_model: int = 256
+    num_heads: int = 4
+    num_kv_heads: int = 4
+    head_dim: int = 64
+    d_ff: int = 1024
+    vocab_size: int = 1024
+    # --- attention ---------------------------------------------------------
+    attention: str = "h1d"       # h1d | full
+    nr: int = 16                 # N_r, the paper's single hyper-parameter
+    causal_mode: str = "fine-q"  # fine-q (leak-free) | coarse-q
+    attn_impl: str = "jnp"       # JAX backend choice; the port picks its
+                                 # kernels by device and ignores it
+    attn_tq: Optional[int] = None  # JAX tile override; ignored by the port
+    decode_impl: str = "jnp"     # JAX backend choice; ignored by the port
+    cache_dtype: str = "fp32"    # paged KV-page storage: fp32 | int8
+    cache_quant_levels: int = -1
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    sliding_window: int = 0
+    global_every: int = 0
+    rope_theta: float = 10_000.0
+    # --- FFN / MoE ---------------------------------------------------------
+    mlp_activation: str = "swiglu"   # swiglu | geglu
+    moe_experts: int = 0
+    moe_top_k: int = 0
+    moe_d_ff: int = 0
+    moe_shared_d_ff: int = 0
+    moe_dense_residual: bool = False
+    moe_capacity_factor: float = 1.25
+    moe_aux_loss: float = 0.01
+    # --- SSM (mamba2 / hybrid) ---------------------------------------------
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_conv_width: int = 4
+    ssm_chunk: int = 64
+    hybrid_attn_every: int = 6
+    # --- encoder-decoder ----------------------------------------------------
+    encoder_layers: int = 0
+    # --- frontends ----------------------------------------------------------
+    prefix_len: int = 0
+    # --- numerics / misc ----------------------------------------------------
+    dtype: str = "float32"
+    tie_embeddings: bool = False
+    remat: bool = False
+    force_loop: bool = False
+    seq_parallel_residual: bool = True
+    remat_policy: str = "dots"
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, *,
+               scale: Optional[float] = None, dtype=torch.float32):
+    """2D projection weight (d_in, d_out), drawn on the CPU from ``gen``
+    (so the same seed gives the same weights on every device)."""
+    s = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    return {"w": torch.randn((d_in, d_out), generator=gen, dtype=dtype) * s}
+
+
+def dense(p, x: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` (+ bias) with ``w`` of shape (d_in, d_out)."""
+    y = x @ p["w"].to(x.dtype)
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
+
+
+def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.to(torch.float32)
+    var = (x32 * x32).mean(-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * p["g"].to(torch.float32)).to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """Half-split rotary embedding.  x: (B, S, H, D); positions: (B, S)."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, device=x.device)           # (D/2,)
+    ang = positions[..., None].to(torch.float32) * freqs    # (B, S, D/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def activation(name: str):
+    if name == "swiglu":
+        return F.silu
+    if name == "geglu":
+        return lambda x: F.gelu(x, approximate="tanh")
+    raise ValueError(name)

@@ -1,0 +1,161 @@
+"""Decoder-only transformer LM (family ``dense``): forward, prefill and
+single-token decode.
+
+Port of ``repro.models.transformer`` for the paper LM.  The JAX stack
+scans over layer-stacked parameters; here ``params["layers"]`` is a list
+with one dictionary per layer and the decode caches are a per-layer list,
+so the engine's slot axis of a cache array is axis 0 (axis 1 in the
+scanned JAX layout).  The slice is forward-only: the entry points run
+under ``torch.inference_mode()``.  MoE, SSM, hybrid and VLM families are
+later slices.
+
+Parameters (all (d_in, d_out) projections applied as ``x @ w``)::
+
+    {"embed": {"w": (V, d)}, "final_norm": {"g": (d,)},
+     ["lm_head": {"w": (d, V)}]        # only without tied embeddings
+     "layers": [{"ln1": {"g"}, "attn": {"wq", "wkv", "wo"},
+                 "ln2": {"g"}, "mlp": {"wg", "wu", "wd"}}, ...]}
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List
+
+import torch
+
+from .. import resolve_device
+from .attention import (attn_init, attn_apply, attn_decode,
+                        init_decode_cache, prefill_into_cache)
+from .common import ModelConfig, dense, dense_init, rmsnorm
+from .ffn import mlp_init, mlp
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family != "dense" or cfg.moe_experts > 0 or cfg.prefix_len:
+        raise NotImplementedError(
+            f"family={cfg.family!r} (moe_experts={cfg.moe_experts}, "
+            f"prefix_len={cfg.prefix_len}) is not ported yet; this slice "
+            "serves the dense decoder")
+
+
+def block_init(gen: torch.Generator, cfg: ModelConfig, dtype):
+    return {"ln1": {"g": torch.ones((cfg.d_model,), dtype=dtype)},
+            "attn": attn_init(gen, cfg, dtype),
+            "ln2": {"g": torch.ones((cfg.d_model,), dtype=dtype)},
+            "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, dtype)}
+
+
+def lm_init(cfg: ModelConfig, *, seed: int = 0, device=None) -> Dict[str, Any]:
+    """Random parameters drawn from ``seed`` on the CPU, then moved to
+    ``device`` (default ``cuda``): one seed gives the same weights on
+    every device."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    dtype = cfg.torch_dtype
+    gen = torch.Generator().manual_seed(seed)
+    params: Dict[str, Any] = {
+        "embed": {"w": torch.randn((cfg.vocab_size, cfg.d_model),
+                                   generator=gen, dtype=dtype) * 0.02},
+        "final_norm": {"g": torch.ones((cfg.d_model,), dtype=dtype)},
+        "layers": [block_init(gen, cfg, dtype)
+                   for _ in range(cfg.num_layers)],
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size,
+                                       scale=0.02, dtype=dtype)
+    return to_device(params, dev)
+
+
+def to_device(tree, device):
+    """Move every tensor of a parameter tree to ``device``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, device) for v in tree]
+    return tree.to(device)
+
+
+def _embed_tokens(params, cfg: ModelConfig, tokens):
+    return params["embed"]["w"][tokens].to(cfg.torch_dtype)
+
+
+def _logits(params, cfg: ModelConfig, h):
+    h = rmsnorm(params["final_norm"], h)
+    if cfg.tie_embeddings:
+        logits = h @ params["embed"]["w"].to(h.dtype).T
+    else:
+        logits = dense(params["lm_head"], h)
+    return logits.to(torch.float32)
+
+
+def _block_apply(lp, cfg: ModelConfig, h, positions):
+    h = h + attn_apply(lp["attn"], cfg, rmsnorm(lp["ln1"], h), positions)
+    return h + mlp(lp["mlp"], rmsnorm(lp["ln2"], h), cfg.mlp_activation)
+
+
+@torch.inference_mode()
+def lm_forward(params, cfg: ModelConfig, tokens):
+    """Teacher-forced causal forward.  tokens (B, S) -> (logits (B, S, V),
+    aux_loss), aux_loss being 0 for the dense family."""
+    _check_family(cfg)
+    B, S = tokens.shape
+    h = _embed_tokens(params, cfg, tokens)
+    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    for lp in params["layers"]:
+        h = _block_apply(lp, cfg, h, positions)
+    return _logits(params, cfg, h), 0.0
+
+
+@torch.inference_mode()
+def lm_prefill(params, cfg: ModelConfig, tokens, Lmax: int, *,
+               true_len=None):
+    """Teacher-forced pass over the prompt that also builds the decode
+    caches.  Returns (last_logits (B, V), caches (list per layer),
+    next_pos (B,) int32).
+
+    ``true_len`` (int, or a per-row (B,) tensor): logical prompt lengths
+    when ``tokens`` is right-padded to a length bucket; logits and
+    next_pos then refer to position ``true_len - 1`` of each row.  The
+    padded tail is never attended by decode (causal attention) and each
+    of its cache rows is overwritten before its position comes up."""
+    _check_family(cfg)
+    B, S = tokens.shape
+    dev = tokens.device
+    h = _embed_tokens(params, cfg, tokens)
+    positions = torch.arange(S, device=dev)[None].expand(B, S)
+    caches: List = []
+    for lp in params["layers"]:
+        a, cache = prefill_into_cache(lp["attn"], cfg,
+                                      rmsnorm(lp["ln1"], h), positions, Lmax)
+        h = h + a
+        h = h + mlp(lp["mlp"], rmsnorm(lp["ln2"], h), cfg.mlp_activation)
+        caches.append(cache)
+    if true_len is None:
+        tl = torch.full((B,), S, dtype=torch.int32, device=dev)
+    else:
+        tl = torch.as_tensor(true_len, dtype=torch.int32,
+                             device=dev).expand(B).contiguous()
+    # per-row logical lengths: gather each row's last true token
+    last = h[torch.arange(B, device=dev), tl.long() - 1][:, None]
+    return _logits(params, cfg, last)[:, 0], caches, tl
+
+
+@torch.inference_mode()
+def lm_decode_step(params, cfg: ModelConfig, caches, token, t):
+    """One decode step.  token (B,) int, t (B,) int32 positions.  Updates
+    each layer's cache in place; returns (logits (B, V), caches)."""
+    h = _embed_tokens(params, cfg, token[:, None])
+    for i, lp in enumerate(params["layers"]):
+        a, caches[i] = attn_decode(lp["attn"], cfg, rmsnorm(lp["ln1"], h), t,
+                                   caches[i])
+        h = h + a
+        h = h + mlp(lp["mlp"], rmsnorm(lp["ln2"], h), cfg.mlp_activation)
+    return _logits(params, cfg, h)[:, 0], caches
+
+
+def lm_init_decode_caches(params, cfg: ModelConfig, B: int, Lmax: int):
+    """Fresh (zero) decode caches, one per layer, on the parameters'
+    device."""
+    _check_family(cfg)
+    dev = params["embed"]["w"].device
+    return [init_decode_cache(cfg, B, Lmax, dtype=cfg.torch_dtype, device=dev)
+            for _ in range(cfg.num_layers)]
