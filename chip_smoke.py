@@ -5,19 +5,32 @@
 
 Phases (each raises on failure; nothing is caught):
 
-1. build the four CUDA kernels from ``src/repro_torch/kernels/csrc``,
+1. build the six CUDA kernels from ``src/repro_torch/kernels/csrc``,
    one ``nvcc`` per source, started together;
-2. hold each kernel against its plain PyTorch version on the card at the
-   shapes of the serving path below, and time both with CUDA events
-   around the call (``ms``, wrapper included) and the kernel alone with
-   torch.profiler (``device_ms``);
-3. serve the paper LM ``h1d-lm-53m`` at full width (seeded random
+2. hold each forward and decode kernel against its plain PyTorch version
+   on the card at the shapes of the serving path below, and time both
+   with CUDA events around the call (``ms``, wrapper included) and the
+   kernel alone with torch.profiler (``device_ms``);
+3. the same for the two backward kernels at the training path's shapes
+   (8 rows x 8 kv-heads, L=1024, every sub level), from the forward
+   kernels' saved outputs and seeded random cotangents; both fp32 paths
+   are also measured against the float64 gradient of the same level
+   (autograd of a dense masked forward) and reported;
+4. serve the paper LM ``h1d-lm-53m`` at full width (seeded random
    weights) with ``ServeEngine(slots=8, max_len=2048)``: 16 requests with
    seeded prompt lengths in 64..1500 and 32 greedy tokens each; every
-   kernel must have launched and no plain version may have run;
-4. for two served requests, hold the teacher-forced logits of the kernel
+   serving kernel must have launched and no plain version may have run;
+5. for two served requests, hold the teacher-forced logits of the kernel
    path against the plain path on the card, and the decode path against
-   the full forward.
+   the full forward;
+6. train ``h1d-lm-53m`` at full width and depth from seeded random
+   weights for 20 AdamW steps on ``ZipfLM(seed=0)`` batches of 8 x 1024
+   through ``repro_torch.train.loop.train``: every loss finite, the mean
+   of the last five below the first; every band kernel of both passes
+   launched and no plain version run; tokens/s over the wall time of the
+   steps after the first;
+7. the whole model's ``lm_loss`` gradient for one 2 x 1024 batch on the
+   kernel path against the plain path on the card, leaf by leaf.
 
 Tolerances.  Attention outputs: |kernel - plain| <= 1e-5 * max(1,
 |plain|): both are fp32 with TF32 off and differ only in summation order
@@ -25,7 +38,16 @@ Tolerances.  Attention outputs: |kernel - plain| <= 1e-5 * max(1,
 with 2**l because values and key weights are pairwise sums, so the bound
 is relative above magnitude 1.  Cache update: bit-exact (the same fp32
 adds and exact halvings in the same order).  Logits: 1e-3 absolute over
-six layers and a 32768-way tied head.
+six layers and a 32768-way tied head.  Backward kernels (dq, dk, dv,
+dw, gmn): 1e-4 * max(1, |plain|), where |plain| of an entry of dq, dk or
+dv is the largest magnitude in its row: dK sums over up to nq * G = 512
+query rows at ratio 32, its terms cancel in single columns, and fp32
+rounding is bounded by the size of the terms, not by one column's sum
+(phase 3 reports both fp32 paths' distance from the float64 answer,
+and the elementwise-scaled error, beside it).  Parameter gradients:
+each leaf within 1e-4 of that leaf's largest |plain| (no floor of 1:
+every gradient entry at init is far below 1), and within 1e-4 * max(1,
+|plain|) elementwise.
 
 Output: a ``{"kernels": [...]}`` line, the card's name and power limit
 from nvidia-smi, and as the last line
@@ -55,7 +77,10 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 
 ATTN_TOL = 1e-5
+GRAD_TOL = 1e-4
 LOGIT_TOL = 1e-3
+BWD_LAUNCH = ("one launch is one wrapper call of two kernels: dQ, then "
+              "dK/dV/dW")
 
 # serving path of h1d-lm-53m: 8 prompts x 8 kv-heads, head_dim 64, nr 16
 B, G, L, D, NR = 64, 1, 1024, 64, 16
@@ -102,29 +127,49 @@ def device_ms(fn, iters: int = 10) -> float:
                ) / iters / 1e3
 
 
-def compare(name: str, got, want, tol: float):
-    """Max absolute error, and the bound check scaled by max(1, |want|)."""
-    worst_abs = worst_scaled = 0.0
-    for x, y in zip(got, want):
+def errors(name: str, got, want, scale=()):
+    """Max absolute, max scaled and max elementwise-scaled error of
+    ``got`` against ``want``.  Scaled: |got - want| / max(1, |want|) with
+    |want| elementwise, or the largest magnitude of the row (last axis)
+    where ``scale`` says "row", or |got - want| / max |want| over the
+    whole tensor, with no floor of 1, where it says "tensor".  The third
+    number always scales elementwise (it shows what the others are
+    for)."""
+    worst_abs = worst_scaled = worst_elem = 0.0
+    for i, (x, y) in enumerate(zip(got, want)):
         assert x.shape == y.shape, (name, x.shape, y.shape)
-        assert torch.isfinite(x).all(), f"{name}: non-finite kernel output"
+        assert torch.isfinite(x).all(), f"{name}: non-finite output"
         diff = (x.double() - y.double()).abs()
+        mag = y.double().abs()
+        elem = float((diff / mag.clamp(min=1.0)).max())
+        how = scale[i] if i < len(scale) else "elem"
+        if how == "tensor":
+            top = float(mag.max())
+            assert top > 0, f"{name}: all-zero reference"
+            scaled = float(diff.max()) / top
+        else:
+            if how == "row" and mag.dim() > 1:
+                mag = mag.amax(-1, keepdim=True)
+            scaled = float((diff / mag.clamp(min=1.0)).max())
         worst_abs = max(worst_abs, float(diff.max()))
-        scaled = diff / y.double().abs().clamp(min=1.0)
-        worst_scaled = max(worst_scaled, float(scaled.max()))
+        worst_scaled = max(worst_scaled, scaled)
+        worst_elem = max(worst_elem, elem)
+    return worst_abs, worst_scaled, worst_elem
+
+
+def compare(name: str, got, want, tol: float, scale=()):
+    """:func:`errors`, failing when the scaled error exceeds ``tol``."""
+    worst_abs, worst_scaled, worst_elem = errors(name, got, want, scale)
     if worst_scaled > tol:
         raise AssertionError(f"{name}: kernel disagrees with its plain "
                              f"version: scaled error {worst_scaled:.3g} > "
                              f"{tol:g} (max abs {worst_abs:.3g})")
-    return worst_abs
+    return worst_abs, worst_scaled, worst_elem
 
 
-def phase_kernels(dev):
-    from repro_torch.core import hierarchy as hc
-    from repro_torch.core import h1d_decode as hd
-    from repro_torch.kernels import h1d_block as hb
-    from repro_torch.kernels import h1d_decode_kernel as dk
-
+def band_inputs(dev):
+    """Seeded (gen, randn, q, k, v, w) of the band kernels' checks: 64 rows,
+    every third right-padded over its last 200 keys, as in prefill."""
     gen = torch.Generator(device=dev).manual_seed(1)
 
     def randn(*shape):
@@ -135,21 +180,36 @@ def phase_kernels(dev):
     w = torch.ones((B, L), device=dev)
     w[::3, L - 200:] = 0.0          # right-padded prompts, as in prefill
     v = randn(B, L, D) * w[..., None]
+    return gen, randn, q, k, v, w
+
+
+def band_pairs(dev, mode, Lk, ratio, wk):
+    """(query, key) pairs the band admits on this run's weights."""
+    from repro_torch.kernels import h1d_block as hb
+    i = torch.arange(L, device=dev)[:, None]
+    j = torch.arange(Lk, device=dev)[None, :]
+    allow = hb.band_mask(i, j, NR, mode, Lk, ratio)
+    return int((allow[None] & (wk > 0)[:, None, :]).sum()) * G
+
+
+def phase_kernels(dev):
+    from repro_torch.core import hierarchy as hc
+    from repro_torch.core import h1d_decode as hd
+    from repro_torch.kernels import h1d_block as hb
+    from repro_torch.kernels import h1d_decode_kernel as dk
+
+    gen, randn, q, k, v, w = band_inputs(dev)
     f4 = 4
 
     rows = []
 
     # -- level 0 --------------------------------------------------------
     def pairs(mode, Lk, ratio, wk):
-        """(query, key) pairs the band admits on this run's weights."""
-        i = torch.arange(L, device=dev)[:, None]
-        j = torch.arange(Lk, device=dev)[None, :]
-        allow = hb.band_mask(i, j, NR, mode, Lk, ratio)
-        return int((allow[None] & (wk > 0)[:, None, :]).sum()) * G
+        return band_pairs(dev, mode, Lk, ratio, wk)
 
     ker = hb.band_attention_fwd(q, k, v, w, nr=NR)
     ref = hb.band_attention_fwd_ref(q, k, v, w, nr=NR)
-    err = compare("band_attention_fwd", ker, ref, ATTN_TOL)
+    err, *_ = compare("band_attention_fwd", ker, ref, ATTN_TOL)
     nbytes = f4 * (q.numel() + k.numel() + v.numel() + w.numel()
                    + B * G * L * (D + 2))
     bms, by = bound(nbytes, pairs("l0_causal", L, 1, w) * (4 * D + 3))
@@ -179,8 +239,8 @@ def phase_kernels(dev):
         args = (q, kc.contiguous(), vc.contiguous(), wc.contiguous())
         ker = hb.band_attention_sub_fwd(*args, nr=NR, ratio=ratio)
         ref = hb.band_attention_sub_fwd_ref(*args, nr=NR, ratio=ratio)
-        e = compare(f"band_attention_sub_fwd ratio={ratio}", ker, ref,
-                    ATTN_TOL)
+        e, *_ = compare(f"band_attention_sub_fwd ratio={ratio}", ker, ref,
+                        ATTN_TOL)
         sub["err"] = max(sub["err"], e)
         sub["ms"] += time_ms(lambda: hb.band_attention_sub_fwd(
             *args, nr=NR, ratio=ratio))
@@ -212,7 +272,7 @@ def phase_kernels(dev):
     t[:4] = torch.tensor([0, NR - 1, NR, LMAX - 1], dtype=torch.int32)
     ker = dk.decode_attend_fused(cache, qd, t, nr=NR)
     ref = dk.decode_attend_ref(cache, qd, t, nr=NR)
-    err = compare("decode_attend_fused", [ker], [ref], ATTN_TOL)
+    err, *_ = compare("decode_attend_fused", [ker], [ref], ATTN_TOL)
     Md = hc.num_levels(LMAX, NR)
     K = (Md + 1) * NR
     nbytes = f4 * (R * K * 2 * D + qd.numel() + R + R * G * D)
@@ -261,14 +321,151 @@ def phase_kernels(dev):
     return rows
 
 
+def exact_grads(fwd, cot, mode, ratio):
+    """Float64 (dq, dk, dv, dw) of one band level, by autograd of a dense
+    masked forward on the same inputs and cotangents: a witness, written
+    apart from both fp32 paths, of the answer they round (``amax``'s
+    backward splits a tie's cotangent evenly, as the kernels' 1/c does).
+    Also returns the rows whose two largest admitted scores lie within
+    1e-6 of each other, where fp32 may pick another maximum."""
+    from repro_torch.kernels import h1d_block as hb
+    x = [t.double().requires_grad_(True) for t in fwd]
+    q, k, v, w = x
+    Lq, Lk = q.shape[-2], k.shape[-2]
+    i = torch.arange(Lq, device=q.device)[:, None]
+    j = torch.arange(Lk, device=q.device)[None, :]
+    allow = (hb.band_mask(i, j, NR, mode, Lk, ratio)[None, None]
+             & (w > 0)[:, None, None, :])
+    s = torch.where(allow, torch.einsum("bgid,bjd->bgij", q, k), hb.NEG_INF)
+    m = torch.clamp(s.amax(-1), min=hb._MIN_M)
+    a = torch.exp(s - m[..., None])
+    y = torch.einsum("bgij,bjv->bgiv", a, v)
+    dn = torch.einsum("bgij,bj->bgi", a, w)
+    grads = torch.autograd.grad((y, dn, m), x, [c.double() for c in cot])
+    top = s.detach().topk(min(2, Lk), dim=-1).values
+    near = int(((top[..., 1] > hb._MIN_M)
+                & (top[..., 0] - top[..., 1] < 1e-6)).sum()) if Lk > 1 else 0
+    return grads, near
+
+
+def phase_bwd_kernels(dev):
+    """The two backward kernels against their plain versions at the
+    training path's shapes: level 0 and every sub level of L=1024, from
+    the forward kernels' saved outputs and seeded random cotangents.
+    Both fp32 paths are also held against :func:`exact_grads`, reported
+    beside them (the grounds of the row-scaled bound)."""
+    from repro_torch.core import hierarchy as hc
+    from repro_torch.kernels import h1d_block as hb
+    from repro_torch.kernels import h1d_block_bwd as hbb
+
+    _, randn, q, k, v, w = band_inputs(dev)
+    f4 = 4
+    # dq, dk, dv are stacks of vectors; dw and gmn scalars per row
+    rows3 = ("row", "row", "row")
+
+    def one(forward, kernel, plain, fwd, label, mode, **kw):
+        out = forward(*fwd, **kw)
+        cot = tuple(randn(*t.shape) for t in out)
+        args = (*fwd, *out, *cot)
+        got = kernel(*args, **kw)
+        want = plain(*args, **kw)
+        err, scaled, elem = compare(label, got, want, GRAD_TOL, rows3)
+        ratio = kw.get("ratio", 1)
+        exact, near = exact_grads(fwd, cot, mode, ratio)
+        witness = dict(ratio=ratio, near_ties=near)
+        for who, res in (("kernel", got), ("plain", want)):
+            e = errors(label, res[:4], exact, rows3)
+            witness[who] = dict(abs=e[0], row_scaled=e[1], elem_scaled=e[2])
+        del exact
+        if witness["kernel"]["row_scaled"] > GRAD_TOL:
+            raise AssertionError(f"{label}: kernel is {witness['kernel']}"
+                                 f" from the float64 gradient ({near} "
+                                 f"near-tied rows)")
+        log(f"{label} vs float64: kernel abs {witness['kernel']['abs']:.3g}"
+            f" row {witness['kernel']['row_scaled']:.3g} elem "
+            f"{witness['kernel']['elem_scaled']:.3g}; plain abs "
+            f"{witness['plain']['abs']:.3g} row "
+            f"{witness['plain']['row_scaled']:.3g} elem "
+            f"{witness['plain']['elem_scaled']:.3g}; near ties {near}")
+        nbytes = f4 * (sum(t.numel() for t in args)
+                       + sum(t.numel() for t in got))
+        return dict(err=err, scaled=scaled, elem=elem, nbytes=nbytes,
+                    witness=witness,
+                    ms=time_ms(lambda: kernel(*args, **kw)),
+                    device_ms=device_ms(lambda: kernel(*args, **kw)),
+                    plain_ms=time_ms(lambda: plain(*args, **kw)))
+
+    # a (query, key) pair: recompute s (2d) and a, da (2dv + 2), and the
+    # dq, dk (2d each), dv (2dv) and dw (2) sums
+    per_pair = 6 * D + 4 * D + 5
+    rows = []
+    r = one(hb.band_attention_fwd, hbb.band_attention_bwd,
+            hbb.band_attention_bwd_ref, (q, k, v, w), "band_attention_bwd",
+            "l0_causal", nr=NR)
+    bms, by = bound(r["nbytes"],
+                    band_pairs(dev, "l0_causal", L, 1, w) * per_pair)
+    rows.append(dict(
+        name="band_attention_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/h1d_block_bwd.cu",
+        replaces="src/repro/kernels/h1d_block_bwd.py:541",
+        max_abs_err=r["err"], max_scaled_err=r["scaled"],
+        max_elementwise_scaled_err=r["elem"], f64_witness=[r["witness"]],
+        ms=r["ms"], device_ms=r["device_ms"], plain_ms=r["plain_ms"],
+        bound_ms=bms, bound_by=by, library_ms=None, note=BWD_LAUNCH))
+    log(f"band_attention_bwd: max abs err {r['err']:.3g}, scaled "
+        f"{r['scaled']:.3g} (elementwise {r['elem']:.3g})")
+
+    M = hc.num_levels(L, NR)
+    kc, vc, wc = k, v, w
+    tot = dict(err=0.0, scaled=0.0, elem=0.0, ms=0.0, device_ms=0.0,
+               plain_ms=0.0, nbytes=0, flops=0, witness=[])
+    for lvl in range(1, M):
+        ratio = 1 << lvl
+        kc, _ = hc.coarsen_weighted_mean(kc, wc)
+        vc = hc.coarsen_sum(vc, axis=-2)
+        wc = hc.coarsen_sum(wc, axis=-1)
+        fwd = (q, kc.contiguous(), vc.contiguous(), wc.contiguous())
+        r = one(hb.band_attention_sub_fwd, hbb.band_attention_sub_bwd,
+                hbb.band_attention_sub_bwd_ref, fwd,
+                f"band_attention_sub_bwd ratio={ratio}", "sub", nr=NR,
+                ratio=ratio)
+        for key in ("ms", "device_ms", "plain_ms", "nbytes"):
+            tot[key] += r[key]
+        tot["err"] = max(tot["err"], r["err"])
+        tot["scaled"] = max(tot["scaled"], r["scaled"])
+        tot["elem"] = max(tot["elem"], r["elem"])
+        tot["witness"].append(r["witness"])
+        tot["flops"] += band_pairs(dev, "sub", L // ratio, ratio,
+                                   wc) * per_pair
+        log(f"band_attention_sub_bwd ratio {ratio}: max abs err "
+            f"{r['err']:.3g}, scaled {r['scaled']:.3g} (elementwise "
+            f"{r['elem']:.3g}), {r['ms']:.3f} ms")
+    bms, by = bound(tot["nbytes"], tot["flops"])
+    rows.append(dict(
+        name="band_attention_sub_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/h1d_block_bwd.cu",
+        replaces="src/repro/kernels/h1d_block_bwd.py:399",
+        max_abs_err=tot["err"], max_scaled_err=tot["scaled"],
+        max_elementwise_scaled_err=tot["elem"], f64_witness=tot["witness"],
+        ms=tot["ms"], device_ms=tot["device_ms"], plain_ms=tot["plain_ms"],
+        bound_ms=bms, bound_by=by, library_ms=None,
+        note=f"sum over the {M - 1} sub levels (ratio 2..{1 << (M - 1)}) "
+             f"of one L={L} training step's attention; {BWD_LAUNCH}"))
+    return rows
+
+
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the four kernel call sites to their plain versions (the
-    comparison path of phase 4; the port itself has no such switch)."""
+    """Route the six kernel call sites to their plain versions (the
+    comparison path of phases 5 and 7; the port itself has no such
+    switch)."""
     from repro_torch.kernels import h1d_block as hb
+    from repro_torch.kernels import h1d_block_bwd as hbb
     from repro_torch.kernels import h1d_decode_kernel as dk
     swaps = [(hb, "band_attention_fwd", hb.band_attention_fwd_ref),
              (hb, "band_attention_sub_fwd", hb.band_attention_sub_fwd_ref),
+             (hbb, "band_attention_bwd", hbb.band_attention_bwd_ref),
+             (hbb, "band_attention_sub_bwd", hbb.band_attention_sub_bwd_ref),
              (dk, "decode_attend_fused", dk.decode_attend_ref),
              (dk, "update_cache_fused", dk.update_cache_ref)]
     saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
@@ -329,7 +526,7 @@ def phase_serve(dev):
     counts = {n: k.launches for n, (k, _) in kernels.KERNELS.items()}
     plain = {n: p.calls for n, (_, p) in kernels.KERNELS.items()}
 
-    missing = [n for n, c in counts.items() if c == 0]
+    missing = [n for n in kernels.SERVE_KERNELS if counts[n] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the serving path: "
                              f"{missing}")
@@ -402,6 +599,97 @@ def phase_logits(cfg, params, fns, reqs, dev):
         f"(<= {LOGIT_TOL})")
 
 
+def phase_train(dev):
+    """20 AdamW steps of h1d-lm-53m at full width and depth, 8 x 1024."""
+    import tempfile
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.data import ZipfLM
+    from repro_torch.train import TrainConfig, tokens_per_s, train
+
+    cfg = get_config("h1d-lm-53m")
+    steps, batch, seq = 20, 8, 1024
+    data = ZipfLM(vocab_size=cfg.vocab_size, seq_len=seq,
+                  batch_per_host=batch, seed=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        tc = TrainConfig(peak_lr=3e-4, warmup=5, ckpt_every=0, ckpt_dir=tmp,
+                         log_every=5)
+        kernels.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, metrics = train(cfg, tc, data, steps, device=dev, log=log)
+        wall = time.perf_counter() - t0
+    counts = {n: k.launches for n, (k, _) in kernels.KERNELS.items()}
+    plain = {n: p.calls for n, (_, p) in kernels.KERNELS.items()}
+    missing = [n for n in kernels.TRAIN_KERNELS if counts[n] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the training path: "
+                             f"{missing}")
+    if any(plain.values()):
+        raise AssertionError(f"plain versions ran on the training path: "
+                             f"{plain}")
+    losses = [h["loss"] for h in metrics["history"]]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if not np.mean(losses[-5:]) < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    hist = metrics["history"]
+    log(f"train: first step {hist[0]['step_ms']:.1f} ms (warm-up; "
+        f"tokens_per_s below counts the steps after it)")
+    stats = dict(steps=steps, batch=batch, seq=seq, wall_s=wall,
+                 tokens_per_s=tokens_per_s(hist, batch * seq),
+                 steady_wall_s=hist[-1]["end_s"] - hist[0]["end_s"],
+                 median_step_ms=float(np.median([h["step_ms"]
+                                                 for h in hist[1:]])),
+                 loss_first=losses[0], loss_last5_mean=float(
+                     np.mean(losses[-5:])), losses=losses,
+                 launches={n: counts[n] for n in kernels.TRAIN_KERNELS})
+    log(f"train: {json.dumps(stats)}")
+    return counts
+
+
+def phase_grads(dev):
+    """lm_loss gradient of one 2 x 1024 batch, kernel path vs plain."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import ZipfLM
+    from repro_torch.models import get_model
+    from repro_torch.train import batch_to_device
+    from repro_torch.tree import (tree_flatten_with_paths, tree_leaves,
+                                  tree_unflatten_like)
+
+    cfg = get_config("h1d-lm-53m")
+    fns = get_model(cfg)
+    params = fns.init(cfg, seed=1, device=dev)
+    batch = batch_to_device(ZipfLM(vocab_size=cfg.vocab_size, seq_len=1024,
+                                   batch_per_host=2, seed=0).batch(0), dev)
+    leaves = tree_leaves(params)
+
+    def grads():
+        ps = [p.detach().requires_grad_(True) for p in leaves]
+        loss, _ = fns.loss(tree_unflatten_like(params, ps), cfg, batch)
+        return float(loss.detach()), torch.autograd.grad(loss, ps)
+
+    loss_k, got = grads()
+    with plain_kernels():
+        loss_p, want = grads()
+    paths = [p for p, _ in tree_flatten_with_paths(params)]
+    worst = (0.0, 0.0, 0.0, "")
+    for path, a, b in zip(paths, got, want):
+        err, scaled, elem = compare(f"grad {path}", [a], [b], GRAD_TOL,
+                                    ("tensor",))
+        if elem > GRAD_TOL:
+            raise AssertionError(f"grad {path}: elementwise-scaled error "
+                                 f"{elem:.3g} > {GRAD_TOL:g}")
+        if scaled >= worst[1]:
+            worst = (err, scaled, elem, path)
+    tops = sorted(float(b.abs().max()) for b in want)
+    log(f"grads: loss {loss_k:.6f} kernel vs {loss_p:.6f} plain; "
+        f"{len(paths)} leaves, largest |grad| per leaf from {tops[0]:.3g} "
+        f"(median {tops[len(tops) // 2]:.3g}) to {tops[-1]:.3g}; worst "
+        f"error {worst[1]:.3g} of its leaf's largest |grad| (abs "
+        f"{worst[0]:.3g}, elementwise-scaled {worst[2]:.3g}) at {worst[3]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
@@ -421,12 +709,18 @@ def main() -> int:
     libs = _build.build(_build.sources())
     log(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f}s")
 
-    rows = phase_kernels(dev)
-    cfg, params, fns, reqs, counts = phase_serve(dev)
-    for row in rows:
-        row["launches"] = counts[row["name"]]
-        row["kernel_ms"] = row["ms"]
+    rows = phase_kernels(dev) + phase_bwd_kernels(dev)
+    cfg, params, fns, reqs, serve_counts = phase_serve(dev)
     phase_logits(cfg, params, fns, reqs, dev)
+    del params, fns, reqs
+    train_counts = phase_train(dev)
+    phase_grads(dev)
+    for row in rows:
+        by_path = {"serve": serve_counts[row["name"]],
+                   "train": train_counts[row["name"]]}
+        row["launches"] = sum(by_path.values())
+        row["launches_by_path"] = by_path
+        row["kernel_ms"] = row["ms"]
 
     print(json.dumps({"kernels": rows}))
     smi = subprocess.run(

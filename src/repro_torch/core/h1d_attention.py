@@ -12,6 +12,13 @@ values and weights (pairwise sums).  Each level's ``(y, dn, m)`` is folded
 into one running accumulator by a log-sum-exp shift
 (:func:`_stream_combine`).  The bidirectional and coarse-q modes raise
 ``NotImplementedError`` until their slice.
+
+Differentiable end to end: ``band_attention`` carries the backward
+kernels, and every max and floor here is ``torch.maximum``, which splits
+the gradient of a tie 0.5/0.5 like JAX's ``lax.max`` (``torch.clamp``
+would give it all to the input).  The floors are ``full_like`` tensors:
+a scalar tensor made from a host value would cost a synchronizing copy
+to the card at every call.
 """
 from __future__ import annotations
 
@@ -67,10 +74,12 @@ def h1d_attention(q, k, v, *, nr: int = 16, causal: bool = False,
         allow = (w > 0)[:, None, None, :] & hc.causal_block_mask(
             L, device=q.device)[None, None]
         s = torch.where(allow, s, NEG_INF)
-        m = torch.clamp(s.amax(-1, keepdim=True), min=_MIN_M)
+        m = s.amax(-1, keepdim=True)
+        m = torch.maximum(m, torch.full_like(m, _MIN_M))
         a = torch.exp(s - m)
-        z = torch.einsum("bgqk,bkv->bgqv", a, v) / torch.clamp(
-            torch.einsum("bgqk,bk->bgq", a, w), min=1e-9)[..., None]
+        den = torch.einsum("bgqk,bk->bgq", a, w)
+        den = torch.maximum(den, torch.full_like(den, 1e-9))
+        z = torch.einsum("bgqk,bkv->bgqv", a, v) / den[..., None]
         return z.to(out_dtype)
 
     acc = band_attention(q, k, v, w, nr=nr, mode="l0_causal")
@@ -84,7 +93,7 @@ def h1d_attention(q, k, v, *, nr: int = 16, causal: bool = False,
         acc = _stream_combine(acc, yl, dl, ml)
 
     y, d, _ = acc
-    z = y / torch.clamp(d, min=1e-9)[..., None]
+    z = y / torch.maximum(d, torch.full_like(d, 1e-9))[..., None]
     return z.to(out_dtype)
 
 

@@ -90,7 +90,11 @@ def coarsen_weighted_mean(x: torch.Tensor, w: torch.Tensor):
 
     xw = coarsen_sum(x * bcast(w)[..., None], axis=-2)
     ws = coarsen_sum(w, axis=-1)
-    return xw / torch.clamp(bcast(ws), min=1.0)[..., None], ws
+    # torch.maximum, not clamp: a weight sum of exactly 1 (a real token
+    # paired with a padded one) ties with the floor, and JAX's maximum
+    # splits that gradient 0.5/0.5
+    wsb = bcast(ws)
+    return xw / torch.maximum(wsb, torch.full_like(wsb, 1.0))[..., None], ws
 
 
 def block(x: torch.Tensor, n: int, axis: int = -2) -> torch.Tensor:

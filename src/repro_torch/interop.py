@@ -17,18 +17,11 @@ import torch
 
 from . import resolve_device
 from .models.common import ModelConfig
+from .tree import tree_map
 
 # what every layer must hold: block -> entries
 _LAYER_KEYS = {"ln1": ("g",), "attn": ("wq", "wkv", "wo"), "ln2": ("g",),
                "mlp": ("wg", "wu", "wd")}
-
-
-def _map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_map(fn, v) for v in tree]
-    return fn(tree)
 
 
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, *,
@@ -42,7 +35,7 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, *,
     layers = tree["layers"]
     if isinstance(layers, dict):          # the scanned stack: unstack
         n = np.asarray(layers["ln1"]["g"]).shape[0]
-        layers = [_map(lambda a, i=i: np.asarray(a)[i], layers)
+        layers = [tree_map(lambda a, i=i: np.asarray(a)[i], layers)
                   for i in range(n)]
     if len(layers) != cfg.num_layers:
         raise ValueError(f"tree holds {len(layers)} layers, cfg has "
@@ -57,5 +50,5 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, *,
                            "layers": layers}
     if not cfg.tie_embeddings:
         out["lm_head"] = {"w": tree["lm_head"]["w"]}
-    return _map(lambda a: torch.from_numpy(np.array(a, copy=True)).to(dev),
-                out)
+    return tree_map(
+        lambda a: torch.from_numpy(np.array(a, copy=True)).to(dev), out)

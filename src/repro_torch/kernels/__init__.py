@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels for Hopper and their plain PyTorch versions.
 
-Four kernels carry the serving path of the paper LM (sources in
-``csrc/``, built by ``_build`` with ``nvcc`` at first use):
+Six kernels carry the serving and training paths of the paper LM
+(sources in ``csrc/``, built by ``_build`` with ``nvcc`` at first use):
 
 ======================== ============================== ==================
 wrapper                  replaces (repro/kernels/...)   plain version
@@ -9,6 +9,10 @@ wrapper                  replaces (repro/kernels/...)   plain version
 band_attention_fwd       h1d_block.band_attention_fwd   band_attention_fwd_ref
 band_attention_sub_fwd   h1d_block.band_attention_sub_fwd
                                                         band_attention_sub_fwd_ref
+band_attention_bwd       h1d_block_bwd.band_attention_bwd
+                                                        band_attention_bwd_ref
+band_attention_sub_bwd   h1d_block_bwd.band_attention_sub_bwd
+                                                        band_attention_sub_bwd_ref
 decode_attend_fused      h1d_decode_kernel.decode_attend_fused
                                                         decode_attend_ref
 update_cache_fused       h1d_decode_kernel.update_cache_fused
@@ -18,6 +22,9 @@ update_cache_fused       h1d_decode_kernel.update_cache_fused
 from .h1d_block import (band_attention_fwd, band_attention_sub_fwd,
                         band_attention_fwd_ref, band_attention_sub_fwd_ref,
                         band_mask, MODES, SUB_MODE)
+from .h1d_block_bwd import (band_attention_bwd, band_attention_sub_bwd,
+                            band_attention_bwd_ref,
+                            band_attention_sub_bwd_ref)
 from .h1d_decode_kernel import (decode_attend_fused, update_cache_fused,
                                 decode_attend_ref, update_cache_ref)
 from .ops import band_attention
@@ -27,9 +34,18 @@ KERNELS = {
     "band_attention_fwd": (band_attention_fwd, band_attention_fwd_ref),
     "band_attention_sub_fwd": (band_attention_sub_fwd,
                                band_attention_sub_fwd_ref),
+    "band_attention_bwd": (band_attention_bwd, band_attention_bwd_ref),
+    "band_attention_sub_bwd": (band_attention_sub_bwd,
+                               band_attention_sub_bwd_ref),
     "decode_attend_fused": (decode_attend_fused, decode_attend_ref),
     "update_cache_fused": (update_cache_fused, update_cache_ref),
 }
+
+#: the kernels a serving run launches and those a training step launches
+SERVE_KERNELS = ("band_attention_fwd", "band_attention_sub_fwd",
+                 "decode_attend_fused", "update_cache_fused")
+TRAIN_KERNELS = ("band_attention_fwd", "band_attention_sub_fwd",
+                 "band_attention_bwd", "band_attention_sub_bwd")
 
 
 def reset_counts() -> None:
@@ -42,6 +58,8 @@ def reset_counts() -> None:
 
 __all__ = ["band_attention", "band_attention_fwd", "band_attention_sub_fwd",
            "band_attention_fwd_ref", "band_attention_sub_fwd_ref",
+           "band_attention_bwd", "band_attention_sub_bwd",
+           "band_attention_bwd_ref", "band_attention_sub_bwd_ref",
            "band_mask", "decode_attend_fused", "update_cache_fused",
            "decode_attend_ref", "update_cache_ref", "MODES", "SUB_MODE",
-           "KERNELS", "reset_counts"]
+           "KERNELS", "SERVE_KERNELS", "TRAIN_KERNELS", "reset_counts"]

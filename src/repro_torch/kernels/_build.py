@@ -3,8 +3,9 @@
 Every ``csrc/*.cu`` is compiled on first use with ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface and loaded
 with ``ctypes``.  Libraries go to ``build/kernels/`` at the repository
-root, named by the hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is loaded as it is.
+root, named by the hash of the source, the shared ``csrc/*.cuh``
+headers and the flags, so an edited source is rebuilt and an unchanged
+one is loaded as it is.
 
 Nothing here runs at import time: the CPU tests import every module of
 the package on a machine without ``nvcc`` or a card.
@@ -43,8 +44,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """Library path keyed by the source, every shared header and the
+    flags, so an edit to any of them rebuilds."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 

@@ -30,57 +30,16 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "h1d_band.cuh"
+
 namespace {
 
-constexpr float NEG_INF = -3.0e38f;   // h1d_block.NEG_INF
-constexpr float MIN_M = -1e30f;       // h1d_block._MIN_M
+using namespace h1d;
+
 constexpr int TQ = 64;                // query rows per CTA
 constexpr int WARPS = 8;
 constexpr int MAXC = 4;               // key chunks of 32 per row: nk <= 128
 constexpr int MAXU = 4;               // output column chunks: dv <= 128
-constexpr unsigned FULL = 0xffffffffu;
-
-enum Mode { L0_BIDIR = 0, L0_CAUSAL = 1, COARSE_BIDIR = 2, COARSE_CAUSAL = 3 };
-
-__device__ __forceinline__ int floordiv(int a, int b) {
-  int q = a / b;
-  return (q * b > a) ? q - 1 : q;
-}
-
-__device__ __forceinline__ int floormod(int a, int b) {
-  int r = a % b;
-  return r < 0 ? r + b : r;
-}
-
-// Port of repro/kernels/h1d_block.py band_mask for global row/col indices.
-__device__ __forceinline__ bool band_mask(int qi, int ki, int nr, int mode,
-                                          int lk) {
-  const bool inb = ki >= 0 && ki < lk;
-  const int diff = floordiv(qi, nr) - floordiv(ki, nr);
-  bool allow;
-  if (mode == L0_BIDIR) {
-    allow = abs(diff) <= 1;
-  } else if (mode == L0_CAUSAL) {
-    allow = (diff == 0 && ki <= qi) || diff == 1;
-  } else {
-    const int half = nr / 2;
-    const bool base = mode == COARSE_CAUSAL ? diff == 1 : abs(diff) == 1;
-    const bool sub_excl = diff == 1 && floormod(qi, nr) < half &&
-                          floormod(ki, nr) >= half;
-    const bool sup_excl = diff == -1 && floormod(qi, nr) >= half &&
-                          floormod(ki, nr) < half;
-    allow = base && !sub_excl && !sup_excl;
-  }
-  return allow && inb;
-}
-
-// First key of query row i: level 0 reads its own block and the one
-// before; a sub level (ratio >= 2) reads coarse block I-1 of its fine
-// query block I = i / (nr * ratio).
-template <bool SUB>
-__device__ __forceinline__ int key_start(int i, int nr, int ratio) {
-  return SUB ? (i / (nr * ratio) - 1) * nr : (i / nr) * nr - nr;
-}
 
 template <bool SUB>
 __global__ void __launch_bounds__(WARPS * 32)
@@ -138,9 +97,7 @@ band_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int jj = lane + 32 * ch;
       s[ch] = NEG_INF;
       if (jj < nk) {
-        const float* kr = k_s + (k0 + jj) * ks;
-        float acc = 0.f;
-        for (int c = 0; c < d; ++c) acc = fmaf(qw[c], kr[c], acc);
+        const float acc = dot_qk(qw, k_s + (k0 + jj) * ks, d);
         const bool allow = band_mask(qm, kbase + k0 + jj, nr, mode, Lk) &&
                            w_s[k0 + jj] > 0.f;
         s[ch] = allow ? acc : NEG_INF;

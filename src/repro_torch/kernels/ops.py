@@ -1,23 +1,71 @@
-"""``band_attention``: one hierarchy level of banded block attention.
+"""``band_attention``: one hierarchy level of banded block attention,
+differentiable.
 
-Port of ``repro.kernels.ops.band_attention`` for the forward pass.  The
+Port of ``repro.kernels.ops.band_attention`` and its custom VJP.  The
 backend is chosen by the tensors' device, not by an option: a CPU tensor
-runs the plain PyTorch version, a CUDA tensor the hand-written kernel
-(``h1d_block``).  There is no fallback from the kernel to the plain
-version.  Gradients (the reference's custom VJP) come with the training
-slice.
+runs the plain PyTorch versions, a CUDA tensor the hand-written kernels
+(``h1d_block`` forward, ``h1d_block_bwd`` backward).  There is no
+fallback from a kernel to a plain version.
+
+One ``torch.autograd.Function`` per mode wraps the forward: it saves the
+inputs and the outputs ``(q, k, v, w, y, dn, m)`` -- the whole residual,
+as the reference's ``_fwd`` -- and its backward returns ``(dq, dk, dv,
+dw)``.  All three outputs are differentiable (``_stream_combine``
+consumes ``m``).  The forward and backward callables are looked up as
+module attributes at call time, so rerouting ``h1d_block.<name>`` /
+``h1d_block_bwd.<name>`` reroutes this path too.
 """
 from __future__ import annotations
 
-from . import h1d_block
+import torch
+
+from . import h1d_block, h1d_block_bwd
+
+
+class _BandL0(torch.autograd.Function):
+    """Level 0, mode ``l0_causal``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, w, nr):
+        y, dn, m = h1d_block.band_attention_fwd(q, k, v, w, nr=nr,
+                                                mode="l0_causal")
+        ctx.save_for_backward(q, k, v, w, y, dn, m)
+        ctx.nr = nr
+        return y, dn, m
+
+    @staticmethod
+    def backward(ctx, gy, gdn, gm):
+        dq, dk, dv, dw, _ = h1d_block_bwd.band_attention_bwd(
+            *ctx.saved_tensors, gy, gdn, gm, nr=ctx.nr, mode="l0_causal")
+        return dq, dk, dv, dw, None
+
+
+class _BandSub(torch.autograd.Function):
+    """A fine-q causal level l >= 1, mode ``sub`` with ``ratio = 2**l``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, w, nr, ratio):
+        y, dn, m = h1d_block.band_attention_sub_fwd(q, k, v, w, nr=nr,
+                                                    ratio=ratio)
+        ctx.save_for_backward(q, k, v, w, y, dn, m)
+        ctx.nr, ctx.ratio = nr, ratio
+        return y, dn, m
+
+    @staticmethod
+    def backward(ctx, gy, gdn, gm):
+        dq, dk, dv, dw, _ = h1d_block_bwd.band_attention_sub_bwd(
+            *ctx.saved_tensors, gy, gdn, gm, nr=ctx.nr, ratio=ctx.ratio)
+        return dq, dk, dv, dw, None, None
 
 
 def band_attention(q, k, v, w, *, nr: int, mode: str,
                    ratio: int = 1) -> h1d_block.Triple:
     """Returns float32 ``(y, dn, m)`` for one level.  ``mode='sub'``
     (with ``ratio=2**l``) is the fine-q causal coarse level: ``q`` keeps
-    the fine length while ``k``/``v``/``w`` are ``ratio`` times coarser."""
+    the fine length while ``k``/``v``/``w`` are ``ratio`` times coarser.
+    Modes other than ``l0_causal`` and ``sub`` raise
+    ``NotImplementedError``."""
     if mode == h1d_block.SUB_MODE:
-        return h1d_block.band_attention_sub_fwd(q, k, v, w, nr=nr,
-                                                ratio=ratio)
-    return h1d_block.band_attention_fwd(q, k, v, w, nr=nr, mode=mode)
+        return _BandSub.apply(q, k, v, w, nr, ratio)
+    h1d_block._check_mode(mode)
+    return _BandL0.apply(q, k, v, w, nr)

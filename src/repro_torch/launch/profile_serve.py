@@ -9,7 +9,7 @@ the host wall time (ending in a synchronize, measured without the
 profiler), the summed device time of the kernels it ran (measured under
 it), the device busy share (device time over wall time; one stream, so
 kernels do not overlap) and the device time by kernel, grouped into this
-package's four kernels, matrix products and the rest.
+package's kernels, matrix products and the rest.
 Needs a CUDA card.
 """
 from __future__ import annotations
@@ -28,6 +28,10 @@ from repro_torch.models import get_model
 
 OWN = {"band_fwd_kernel<false>": "band_attention_fwd",
        "band_fwd_kernel<true>": "band_attention_sub_fwd",
+       "band_dq_kernel<false>": "band_attention_bwd",
+       "band_dkvw_kernel<false>": "band_attention_bwd",
+       "band_dq_kernel<true>": "band_attention_sub_bwd",
+       "band_dkvw_kernel<true>": "band_attention_sub_bwd",
        "decode_attend_kernel": "decode_attend_fused",
        "update_cache_kernel": "update_cache_fused"}
 

@@ -1,0 +1,107 @@
+"""Where a training step's time goes on the card: ``torch.profiler`` over
+the forward, backward and optimizer parts of an AdamW step of the paper
+LM.
+
+    PYTHONPATH=src python -m repro_torch.launch.profile_train \
+        [--arch h1d-lm-53m] [--batch 8] [--seq 1024] [--out PATH]
+
+Seeded random weights and ``ZipfLM`` tokens.  The method is
+``profile_serve``'s: for each part, the host wall time per call (ending
+in a synchronize, measured without the profiler), the summed device time
+of the kernels it ran (measured under it), the busy share (device time
+over wall time; one stream, so kernels do not overlap) and the device
+time by group: matrix products, this package's band kernels of the
+forward and of the backward, and the rest (eager elementwise ops,
+reductions, copies).  The parts are the loss (forward), the gradient of
+a fresh forward's loss (backward), and the optimizer update, then the
+whole ``make_train_step`` step.  Needs a CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs import get_config
+from repro_torch.data import ZipfLM
+from repro_torch.launch.profile_serve import profiled
+from repro_torch.models import get_model
+from repro_torch.optim import apply_updates
+from repro_torch.train import (TrainConfig, batch_to_device, init_state,
+                               make_optimizer, make_train_step)
+from repro_torch.tree import tree_leaves, tree_unflatten_like
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="h1d-lm-53m")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=1024)
+    ap.add_argument("--calls", type=int, default=3)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default=None, help="also write the JSON here")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(None)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(args.arch)
+    tc = TrainConfig(peak_lr=3e-4, warmup=5, ckpt_every=0)
+    state = init_state(cfg, tc, seed=args.seed, device=dev)
+    fns = get_model(cfg)
+    opt = make_optimizer(tc)
+    batch = batch_to_device(
+        ZipfLM(vocab_size=cfg.vocab_size, seq_len=args.seq,
+               batch_per_host=args.batch, seed=args.seed).batch(0), dev)
+    leaves = [p.detach().requires_grad_(True)
+              for p in tree_leaves(state.params)]
+    params = tree_unflatten_like(state.params, leaves)
+    graphs = []
+
+    def loss():
+        return fns.loss(params, cfg, batch)[0]
+
+    def forward():          # the graph is built, then freed with the loss
+        loss()
+
+    def backward():
+        torch.autograd.grad(graphs.pop(), leaves)
+
+    grads = tree_unflatten_like(
+        state.params, list(torch.autograd.grad(loss(), leaves)))
+
+    def optimizer():
+        upd, _ = opt.update(grads, state.opt_state, state.params)
+        apply_updates(state.params, upd)
+
+    step_fn = make_train_step(cfg, tc)
+
+    def step():
+        step_fn(state, batch)
+
+    res = {"device": torch.cuda.get_device_name(dev), "arch": cfg.name,
+           "batch": args.batch, "seq": args.seq}
+    with torch.no_grad():
+        optimizer()                                      # warm-up
+        res["optimizer"] = profiled(optimizer, args.calls)
+    forward()                                            # warm-up
+    res["forward"] = profiled(forward, args.calls)
+    # each backward call consumes the graph of a forward run beforehand,
+    # for the unprofiled and then the profiled calls
+    graphs.extend(loss() for _ in range(2 * args.calls))
+    res["backward"] = profiled(backward, args.calls)
+    step()                                               # warm-up
+    res["step"] = profiled(step, args.calls)
+    res["tokens_per_s"] = (args.batch * args.seq
+                           / (res["step"]["wall_ms"] / 1e3))
+    text = json.dumps(res)
+    print(text)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(text + "\n")
+    return res
+
+
+if __name__ == "__main__":
+    main()

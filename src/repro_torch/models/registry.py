@@ -1,9 +1,8 @@
-"""Unified model API: init / forward / prefill / decode_step /
+"""Unified model API: init / forward / loss / prefill / decode_step /
 init_caches.
 
 Port of ``repro.models.registry`` for the decoder-only stack.  The
-training loss comes with the training slice and the encoder-decoder
-family later.
+encoder-decoder family comes later.
 """
 from __future__ import annotations
 
@@ -16,6 +15,7 @@ from . import transformer as T
 class ModelFns(NamedTuple):
     init: Callable          # (cfg, *, seed, device) -> params
     forward: Callable       # (params, cfg, tokens) -> (logits, aux)
+    loss: Callable          # (params, cfg, batch) -> (loss, metrics)
     prefill: Callable       # (params, cfg, batch, Lmax, *, true_len=None)
                             #   -> (logits, caches, pos)
     decode_step: Callable   # (params, cfg, caches, token, t)
@@ -31,6 +31,6 @@ def get_model(cfg: ModelConfig) -> ModelFns:
     if cfg.family == "encdec":
         raise NotImplementedError("the encoder-decoder family is not "
                                   "ported yet")
-    return ModelFns(init=T.lm_init, forward=T.lm_forward,
+    return ModelFns(init=T.lm_init, forward=T.lm_forward, loss=T.lm_loss,
                     prefill=_lm_prefill, decode_step=T.lm_decode_step,
                     init_caches=T.lm_init_decode_caches)

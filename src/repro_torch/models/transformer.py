@@ -1,13 +1,14 @@
-"""Decoder-only transformer LM (family ``dense``): forward, prefill and
-single-token decode.
+"""Decoder-only transformer LM (family ``dense``): forward, training
+loss, prefill and single-token decode.
 
 Port of ``repro.models.transformer`` for the paper LM.  The JAX stack
 scans over layer-stacked parameters; here ``params["layers"]`` is a list
 with one dictionary per layer and the decode caches are a per-layer list,
 so the engine's slot axis of a cache array is axis 0 (axis 1 in the
-scanned JAX layout).  The slice is forward-only: the entry points run
-under ``torch.inference_mode()``.  MoE, SSM, hybrid and VLM families are
-later slices.
+scanned JAX layout).  ``lm_forward`` and ``lm_loss`` are differentiable
+(the band kernels carry their backward); prefill and decode run under
+``torch.inference_mode()``.  MoE, SSM, hybrid and VLM families are later
+slices.
 
 Parameters (all (d_in, d_out) projections applied as ``x @ w``)::
 
@@ -23,6 +24,7 @@ from typing import Any, Dict, List
 import torch
 
 from .. import resolve_device
+from ..tree import tree_map
 from .attention import (attn_init, attn_apply, attn_decode,
                         init_decode_cache, prefill_into_cache)
 from .common import ModelConfig, dense, dense_init, rmsnorm
@@ -62,16 +64,7 @@ def lm_init(cfg: ModelConfig, *, seed: int = 0, device=None) -> Dict[str, Any]:
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size,
                                        scale=0.02, dtype=dtype)
-    return to_device(params, dev)
-
-
-def to_device(tree, device):
-    """Move every tensor of a parameter tree to ``device``."""
-    if isinstance(tree, dict):
-        return {k: to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [to_device(v, device) for v in tree]
-    return tree.to(device)
+    return tree_map(lambda t: t.to(dev), params)
 
 
 def _embed_tokens(params, cfg: ModelConfig, tokens):
@@ -92,7 +85,6 @@ def _block_apply(lp, cfg: ModelConfig, h, positions):
     return h + mlp(lp["mlp"], rmsnorm(lp["ln2"], h), cfg.mlp_activation)
 
 
-@torch.inference_mode()
 def lm_forward(params, cfg: ModelConfig, tokens):
     """Teacher-forced causal forward.  tokens (B, S) -> (logits (B, S, V),
     aux_loss), aux_loss being 0 for the dense family."""
@@ -103,6 +95,26 @@ def lm_forward(params, cfg: ModelConfig, tokens):
     for lp in params["layers"]:
         h = _block_apply(lp, cfg, h, positions)
     return _logits(params, cfg, h), 0.0
+
+
+def lm_loss(params, cfg: ModelConfig, batch):
+    """batch: tokens (B, S) [+ loss_mask (B, S)].  Next-token cross
+    entropy through ``logsumexp``; returns (loss, {"nll", "aux",
+    "ntok"})."""
+    tokens = batch["tokens"]
+    logits, aux = lm_forward(params, cfg, tokens)
+    tgt = tokens[:, 1:].long()
+    lgt = logits[:, :-1]
+    mask = batch.get("loss_mask")
+    mask = (torch.ones(tgt.shape, dtype=torch.float32, device=lgt.device)
+            if mask is None else mask[:, 1:].to(torch.float32))
+    logz = torch.logsumexp(lgt, dim=-1)
+    gold = torch.gather(lgt, -1, tgt[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    ntok = mask.sum()
+    denom = torch.clamp(ntok, min=1.0)
+    loss = nll.sum() / denom + aux
+    return loss, {"nll": nll.sum() / denom, "aux": aux, "ntok": ntok}
 
 
 @torch.inference_mode()

@@ -1,0 +1,184 @@
+"""Optimizers on tensor trees: AdamW and Adafactor, with global-norm
+clipping and learning-rate schedules.
+
+Port of ``repro.optim.adamw``: the same (init, update) convention and the
+same float32 arithmetic, step for step::
+
+    opt = adamw(lr_schedule, weight_decay=0.1)
+    state = opt.init(params)
+    updates, state = opt.update(grads, state, params)
+    params = apply_updates(params, updates)
+
+Parameters, gradients and states are trees of tensors (``repro_torch.
+tree``); step counters are int32 scalars on the parameters' device, so a
+step never waits on the host.  Weight decay applies to every leaf, norms
+included, as in the reference.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, NamedTuple, Optional
+
+import torch
+
+from ..tree import tree_leaves, tree_map, tree_unflatten_like
+
+F32 = torch.float32
+
+
+class Optimizer(NamedTuple):
+    init: Callable
+    update: Callable
+
+
+def apply_updates(params, updates):
+    return tree_map(lambda p, u: p + u.to(p.dtype), params, updates)
+
+
+def global_norm(tree) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(x.to(F32)))
+                          for x in tree_leaves(tree)))
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    norm = global_norm(grads)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    return tree_map(lambda g: g * scale.to(g.dtype), grads), norm
+
+
+# ---------------------------------------------------------------------------
+# schedules
+# ---------------------------------------------------------------------------
+
+def cosine_schedule(peak_lr: float, warmup: int, total: int,
+                    floor: float = 0.1):
+    def lr(step):
+        step = torch.as_tensor(step, dtype=F32)
+        warm = peak_lr * step / max(warmup, 1)
+        frac = torch.clamp((step - warmup) / max(total - warmup, 1), 0.0, 1.0)
+        cos = peak_lr * (floor + (1 - floor) * 0.5
+                         * (1 + torch.cos(math.pi * frac)))
+        return torch.where(step < warmup, warm, cos)
+    return lr
+
+
+def linear_schedule(peak_lr: float, warmup: int, total: int):
+    def lr(step):
+        step = torch.as_tensor(step, dtype=F32)
+        warm = peak_lr * step / max(warmup, 1)
+        dec = peak_lr * torch.clamp(1.0 - (step - warmup)
+                                    / max(total - warmup, 1), 0.0, 1.0)
+        return torch.where(step < warmup, warm, dec)
+    return lr
+
+
+def _step0(params) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.int32,
+                       device=tree_leaves(params)[0].device)
+
+
+def _per_leaf(upd, grads, *trees):
+    """Apply ``upd(g, *leaves)`` -> (update, *new_leaves) leaf by leaf and
+    return the update tree and one new tree per entry of ``trees``."""
+    flat = [tree_leaves(t) for t in (grads, *trees)]
+    out = [upd(*leaves) for leaves in zip(*flat)]
+    return [tree_unflatten_like(grads, [o[i] for o in out])
+            for i in range(len(out[0]))]
+
+
+# ---------------------------------------------------------------------------
+# AdamW
+# ---------------------------------------------------------------------------
+
+class AdamWState(NamedTuple):
+    step: torch.Tensor
+    mu: Any
+    nu: Any
+
+
+def adamw(lr: Callable, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
+          clip_norm: Optional[float] = 1.0) -> Optimizer:
+    def init(params):
+        def zeros(p):
+            return torch.zeros_like(p, dtype=F32)
+        return AdamWState(_step0(params), tree_map(zeros, params),
+                          tree_map(zeros, params))
+
+    def update(grads, state, params):
+        if clip_norm is not None:
+            grads, _ = clip_by_global_norm(grads, clip_norm)
+        step = state.step + 1
+        stepf = step.to(F32)
+        lr_t = lr(step)
+        bc1 = 1 - b1 ** stepf
+        bc2 = 1 - b2 ** stepf
+
+        def upd(g, m, v, p):
+            g = g.to(F32)
+            m = b1 * m + (1 - b1) * g
+            v = b2 * v + (1 - b2) * g * g
+            u = -(lr_t * ((m / bc1) / (torch.sqrt(v / bc2) + eps)
+                          + weight_decay * p.to(F32)))
+            return u, m, v
+
+        updates, mu, nu = _per_leaf(upd, grads, state.mu, state.nu, params)
+        return updates, AdamWState(step, mu, nu)
+
+    return Optimizer(init, update)
+
+
+# ---------------------------------------------------------------------------
+# Adafactor (factored second moment)
+# ---------------------------------------------------------------------------
+
+class AdafactorState(NamedTuple):
+    step: torch.Tensor
+    vr: Any     # row factors (or the full v below 2-D)
+    vc: Any     # column factors
+
+
+def adafactor(lr: Callable, decay=0.8, eps=1e-30,
+              clip_threshold=1.0) -> Optimizer:
+    def _factored(p):
+        return p.ndim >= 2
+
+    def init(params):
+        def vr_init(p):
+            shape = p.shape[:-1] if _factored(p) else p.shape
+            return torch.zeros(shape, dtype=F32, device=p.device)
+
+        def vc_init(p):
+            shape = (p.shape[:-2] + p.shape[-1:]) if _factored(p) else (1,)
+            return torch.zeros(shape, dtype=F32, device=p.device)
+
+        return AdafactorState(_step0(params), tree_map(vr_init, params),
+                              tree_map(vc_init, params))
+
+    def update(grads, state, params):
+        step = state.step + 1
+        stepf = step.to(F32)
+        beta = 1.0 - stepf ** (-decay)
+        lr_t = lr(step)
+
+        def upd(g, vr, vc, p):
+            g = g.to(F32)
+            g2 = g * g + eps
+            if _factored(p):
+                vr = beta * vr + (1 - beta) * g2.mean(dim=-1)
+                vc = beta * vc + (1 - beta) * g2.mean(dim=-2)
+                rfac = torch.rsqrt(
+                    vr / torch.clamp(vr.mean(dim=-1, keepdim=True), min=eps)
+                )[..., None]
+                cfac = torch.rsqrt(vc)[..., None, :]
+                u = g * rfac * cfac
+            else:
+                vr = beta * vr + (1 - beta) * g2
+                u = g * torch.rsqrt(vr)
+            rms = torch.sqrt(torch.mean(u * u))
+            u = u / torch.clamp(rms / clip_threshold, min=1.0)
+            return -lr_t * u, vr, vc
+
+        updates, vr, vc = _per_leaf(upd, grads, state.vr, state.vc, params)
+        return updates, AdafactorState(step, vr, vc)
+
+    return Optimizer(init, update)

@@ -4,12 +4,17 @@ count nowhere on a CPU run.  On a machine with a card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-These cover shapes the serving smoke (``chip_smoke.py``) does not: GQA
-groups G > 1, nr = 8, head widths that are not a multiple of 32, weight-0
-keys and fully masked rows, every mask edge of the decode positions.
-Tolerances as in ``chip_smoke.py``: attention within 1e-5 scaled by
-max(1, |plain|) (fp32 on both sides, another summation order), cache
-updates bit-exact.
+These cover shapes the smoke (``chip_smoke.py``) does not: GQA groups
+G > 1, nr from 4 to 32, head widths that are not a multiple of 32 and up
+to 128, weight-0 keys and fully masked rows, every mask edge of the
+decode positions, every sub level up to ratio 32.  Tolerances as in
+``chip_smoke.py``: attention forward within 1e-5 scaled by max(1,
+|plain|) (fp32 on both sides, another summation order), cache updates
+bit-exact, backward within 1e-4 scaled by max(1, |plain|) where |plain|
+of a gradient vector's entry is the largest magnitude of that vector
+(a key's dK sums up to nq * G = 512 rows whose terms cancel in single
+columns; fp32 rounding is bounded by the terms' size, not by one
+column's sum).
 """
 import numpy as np
 import pytest
@@ -19,12 +24,15 @@ torch = pytest.importorskip("torch")
 from repro_torch import kernels  # noqa: E402
 from repro_torch.core import h1d_decode as hd  # noqa: E402
 from repro_torch.core import hierarchy as hc  # noqa: E402
+from repro_torch.core.h1d_attention import h1d_attention  # noqa: E402
 from repro_torch.kernels import h1d_block as hb  # noqa: E402
+from repro_torch.kernels import h1d_block_bwd as hbb  # noqa: E402
 from repro_torch.kernels import h1d_decode_kernel as dk  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
 TOL = 1e-5
+BWD_TOL = 1e-4
 
 
 @pytest.fixture
@@ -47,6 +55,23 @@ def _randn(gen, dev, *shape):
     return torch.randn(shape, generator=gen, device=dev)
 
 
+def _close_grads(got, want):
+    """(dq, dk, dv, dw, gmn): the first three are rows of vectors, scaled
+    by their row's largest magnitude; dw and gmn elementwise."""
+    for i, (x, y) in enumerate(zip(got, want)):
+        assert x.shape == y.shape and x.dtype == y.dtype
+        assert torch.isfinite(x).all()
+        mag = y.double().abs()
+        if i < 3:
+            mag = mag.amax(-1, keepdim=True)
+        err = ((x.double() - y.double()).abs() / mag.clamp(min=1.0)).max()
+        assert float(err) <= BWD_TOL, (i, float(err))
+
+
+def _cotangents(gen, dev, out):
+    return [_randn(gen, dev, *t.shape) for t in out]
+
+
 @pytest.mark.parametrize("B,G,L,d,dv,nr", [
     (3, 1, 64, 64, 64, 16), (2, 2, 128, 16, 16, 8), (2, 4, 32, 40, 24, 8),
     (1, 2, 256, 128, 128, 32), (2, 1, 64, 8, 72, 4)])
@@ -64,6 +89,87 @@ def test_band_fwd_matches_plain(dev, B, G, L, d, dv, nr):
     y, dn, m = got
     assert torch.all(m[-1, :, :nr] == hb._MIN_M)
     assert not y[-1, :, :nr].any() and not dn[-1, :, :nr].any()
+
+
+BWD_L0 = [(3, 1, 64, 64, 64, 16), (2, 2, 128, 16, 16, 8),
+          (2, 4, 32, 40, 24, 8), (1, 2, 256, 128, 128, 32),
+          (2, 1, 64, 8, 72, 4), (2, 3, 512, 64, 64, 16)]
+
+
+@pytest.mark.parametrize("B,G,L,d,dv,nr", BWD_L0)
+def test_band_bwd_matches_plain(dev, B, G, L, d, dv, nr):
+    """Level-0 backward from the forward kernel's saved outputs, random
+    cotangents on y, dn and m; padded tails and fully masked rows."""
+    gen = torch.Generator(device=dev).manual_seed(7 * L + G)
+    q = _randn(gen, dev, B, G, L, d) / d ** 0.5
+    k = _randn(gen, dev, B, L, d)
+    w = torch.ones((B, L), device=dev)
+    w[0, L // 2:] = 0.0
+    w[-1, : 2 * nr] = 0.0
+    v = _randn(gen, dev, B, L, dv) * w[..., None]
+    out = hb.band_attention_fwd(q, k, v, w, nr=nr)
+    args = (q, k, v, w, *out, *_cotangents(gen, dev, out))
+    got = hbb.band_attention_bwd(*args, nr=nr)
+    _close_grads(got, hbb.band_attention_bwd_ref(*args, nr=nr))
+    # fully masked rows route nothing; no atomics: identical bits again
+    assert not got[4][-1, :, :nr].any() and not got[0][-1, :, :nr].any()
+    for a, b in zip(got, hbb.band_attention_bwd(*args, nr=nr)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("G,L,d,nr", [(1, 1024, 64, 16), (2, 128, 16, 8),
+                                      (4, 256, 40, 4), (3, 64, 128, 4),
+                                      (2, 2048, 128, 32)])
+def test_band_sub_bwd_matches_plain_every_level(dev, G, L, d, nr):
+    """Every sub level of a hierarchy (ratio 2 up to L / (2 nr), so 32
+    at the first and last cases) on the coarsened chain."""
+    gen = torch.Generator(device=dev).manual_seed(G * L + d)
+    B = 2
+    q = _randn(gen, dev, B, G, L, d) / d ** 0.5
+    kc = _randn(gen, dev, B, L, d)
+    wc = torch.ones((B, L), device=dev)
+    wc[1, L - L // 3:] = 0.0
+    vc = _randn(gen, dev, B, L, d) * wc[..., None]
+    for lvl in range(1, hc.num_levels(L, nr)):
+        kc, _ = hc.coarsen_weighted_mean(kc, wc)
+        vc = hc.coarsen_sum(vc)
+        wc = hc.coarsen_sum(wc, axis=-1)
+        fwd = (q, kc.contiguous(), vc.contiguous(), wc.contiguous())
+        out = hb.band_attention_sub_fwd(*fwd, nr=nr, ratio=1 << lvl)
+        args = (*fwd, *out, *_cotangents(gen, dev, out))
+        _close_grads(hbb.band_attention_sub_bwd(*args, nr=nr, ratio=1 << lvl),
+                     hbb.band_attention_sub_bwd_ref(*args, nr=nr,
+                                                    ratio=1 << lvl))
+
+
+def test_h1d_attention_grads_on_card_match_plain(dev):
+    """The whole operator's gradient on the kernels against the plain
+    versions on the card (the backward kernels under autograd)."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    B, G, L, D = 4, 2, 512, 64
+    x = [_randn(gen, dev, B, G, L, D), _randn(gen, dev, B, L, D),
+         _randn(gen, dev, B, L, D)]
+    kw = torch.ones((B, L), device=dev)
+    kw[0, 400:] = 0.0
+    r = _randn(gen, dev, B, G, L, D)
+
+    def grads():
+        ts = [t.clone().requires_grad_(True) for t in x]
+        z = h1d_attention(*ts, nr=16, causal=True, kv_weight=kw)
+        return torch.autograd.grad((z * r).sum(), ts)
+    kernels.reset_counts()
+    got = grads()
+    assert kernels.band_attention_bwd.launches == 1
+    assert kernels.band_attention_sub_bwd.launches == hc.num_levels(L, 16) - 1
+    swaps = [(hb, "band_attention_fwd", hb.band_attention_fwd_ref),
+             (hb, "band_attention_sub_fwd", hb.band_attention_sub_fwd_ref),
+             (hbb, "band_attention_bwd", hbb.band_attention_bwd_ref),
+             (hbb, "band_attention_sub_bwd", hbb.band_attention_sub_bwd_ref)]
+    with pytest.MonkeyPatch.context() as mp:
+        for mod, name, fn in swaps:
+            mp.setattr(mod, name, fn)
+        want = grads()
+    _close_grads(got, want)
 
 
 @pytest.mark.parametrize("G,L,d,nr", [(1, 256, 64, 16), (2, 128, 16, 8),
@@ -168,6 +274,36 @@ def test_smoke_engine_on_card_matches_cpu(dev):
         eng.run()
         outs[device] = [r.out_tokens for r in reqs]
         if device == "cuda":
-            for kernel, plain in kernels.KERNELS.values():
+            for name in kernels.SERVE_KERNELS:
+                kernel, plain = kernels.KERNELS[name]
                 assert kernel.launches > 0 and plain.calls == 0
     assert outs["cuda"] == outs["cpu"]
+
+
+def test_smoke_training_on_card_matches_cpu(dev):
+    """Three AdamW steps of the smoke model on the card (every band
+    kernel launched in both passes, no plain version run) give the CPU
+    path's losses within 1e-4."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import ZipfLM
+    from repro_torch.train import TrainConfig, init_state, make_train_step
+    from repro_torch.train import batch_to_device
+
+    cfg = get_smoke_config("h1d-lm-53m")
+    tc = TrainConfig(peak_lr=1e-3, warmup=1, total_steps=10)
+    data = ZipfLM(vocab_size=cfg.vocab_size, seq_len=128, batch_per_host=4,
+                  seed=5)
+    losses = {}
+    for device in ("cpu", "cuda"):
+        state = init_state(cfg, tc, seed=1, device=device)
+        step = make_train_step(cfg, tc)
+        kernels.reset_counts()
+        losses[device] = []
+        for i in range(3):
+            state, m = step(state, batch_to_device(data.batch(i), device))
+            losses[device].append(float(m["loss"]))
+        if device == "cuda":
+            for name in kernels.TRAIN_KERNELS:
+                kernel, plain = kernels.KERNELS[name]
+                assert kernel.launches > 0 and plain.calls == 0, name
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], atol=1e-4)

@@ -143,9 +143,11 @@ def _port_files():
 
 
 _LAUNCHES = {"band_attention_fwd", "band_attention_sub_fwd",
+             "band_attention_bwd", "band_attention_sub_bwd",
              "decode_attend_fused", "update_cache_fused", "band_attention",
-             "h1d_band_fwd", "h1d_band_sub_fwd", "h1d_decode_attend",
-             "h1d_update_cache", "check"}
+             "h1d_band_fwd", "h1d_band_sub_fwd", "h1d_band_bwd",
+             "h1d_band_sub_bwd", "h1d_decode_attend", "h1d_update_cache",
+             "check"}
 
 
 def _called_names(node):
@@ -199,6 +201,13 @@ def test_wrappers_raise_on_cuda_request_without_card():
             kernels.band_attention_fwd(q, k, v, w, nr=8)
         with pytest.raises(RuntimeError):
             kernels.band_attention_sub_fwd(q, k[:, :16], v[:, :16], w[:, :16],
+                                           nr=8, ratio=2)
+        m = _meta(B, 1, L)
+        with pytest.raises(RuntimeError):
+            kernels.band_attention_bwd(q, k, v, w, q, m, m, q, m, m, nr=8)
+        with pytest.raises(RuntimeError):
+            kernels.band_attention_sub_bwd(q, k[:, :16], v[:, :16],
+                                           w[:, :16], q, m, m, q, m, m,
                                            nr=8, ratio=2)
         cache = thd.H1DCache(_meta(B, L, d), _meta(B, L, d),
                              (_meta(B, L // 2, d),), (_meta(B, L // 2, d),))
