@@ -5,7 +5,7 @@
 
 Phases (each raises on failure; nothing is caught):
 
-1. build the six CUDA kernels from ``src/repro_torch/kernels/csrc``,
+1. build the ten CUDA kernels from ``src/repro_torch/kernels/csrc``,
    one ``nvcc`` per source, started together;
 2. hold each forward and decode kernel against its plain PyTorch version
    on the card at the shapes of the serving path below, and time both
@@ -16,6 +16,12 @@ Phases (each raises on failure; nothing is caught):
    kernels' saved outputs and seeded random cotangents; both fp32 paths
    are also measured against the float64 gradient of the same level
    (autograd of a dense masked forward) and reported;
+   The four paged decode kernels are held against their plain versions
+   at paged serving shapes: 64 rows (8 slots x 8 kv-heads), G=1, d=64,
+   nr=16, max_len 2048, pools of 1024+2 pages x 8 heads at every level,
+   seeded page tables with private write pages and two inactive slots on
+   the TRASH page; an fp32 pool, an int8 pool with every level
+   quantized and a mixed pool (``quant_levels=3``);
 4. serve the paper LM ``h1d-lm-53m`` at full width (seeded random
    weights) with ``ServeEngine(slots=8, max_len=2048)``: 16 requests with
    seeded prompt lengths in 64..1500 and 32 greedy tokens each; every
@@ -23,6 +29,19 @@ Phases (each raises on failure; nothing is caught):
 5. for two served requests, hold the teacher-forced logits of the kernel
    path against the plain path on the card, and the decode path against
    the full forward;
+5b. paged serving of the same model, workload ``paged-prefix``: 16
+   requests, each a shared seeded 1000-token prefix plus a unique tail of
+   16..500 tokens (seed 1), requests 14 and 15 repeating the prompts of
+   0 and 1 and submitted right after them (so their frontier pages are
+   shared and then copied on write), 32 greedy tokens each, through (a)
+   the dense engine (the oracle), (b) a paged fp32 engine with 1024
+   pages, (c) a paged fp32 engine small enough to preempt (swap) and (d)
+   a paged int8 engine (every level) with the largest pool whose bytes
+   fit (c)'s.  #7/#9 must have launched in (b) and (c), #8/#10 in (d),
+   no plain version anywhere; (c) must preempt, copy on write, hit the
+   prefix registry and end with no page in use; (b) and (c) must give
+   (a)'s tokens for every request whose teacher-forced top-2 margins all
+   exceed 1e-3; (d)'s token-match rate against (a) is reported;
 6. train ``h1d-lm-53m`` at full width and depth from seeded random
    weights for 20 AdamW steps on ``ZipfLM(seed=0)`` batches of 8 x 1024
    through ``repro_torch.train.loop.train``: every loss finite, the mean
@@ -37,7 +56,10 @@ Tolerances.  Attention outputs: |kernel - plain| <= 1e-5 * max(1,
 (~1e-7 relative), but the unnormalised (y, dn) of a coarse level grow
 with 2**l because values and key weights are pairwise sums, so the bound
 is relative above magnitude 1.  Cache update: bit-exact (the same fp32
-adds and exact halvings in the same order).  Logits: 1e-3 absolute over
+adds and exact halvings in the same order); the paged updates on every
+pool row but the TRASH page's, which the inactive rows write at once
+(the TPU ran those writes in turn, the card races them; no output reads
+them), payload and scales, int8 rounding included.  Logits: 1e-3 absolute over
 six layers and a 32768-way tied head.  Backward kernels (dq, dk, dv,
 dw, gmn): 1e-4 * max(1, |plain|), where |plain| of an entry of dq, dk or
 dv is the largest magnitude in its row: dK sums over up to nq * G = 512
@@ -321,6 +343,198 @@ def phase_kernels(dev):
     return rows
 
 
+# paged serving shapes: 8 slots x 8 kv-heads, 1024 + ZERO/TRASH pages
+SLOTS, HKV, PAGES, TRASH = 8, 8, 1024, 1
+
+
+def paged_pools(dev, gen, M):
+    """Seeded pools at every level: fp32, int8 at every level, and mixed
+    (levels 0-2 int8); the int8 levels hold the fp32 pool quantized per
+    row, as prefill writes them."""
+    from repro_torch.core import h1d_decode as hd
+    from repro_torch.core import quantization as qz
+    rows = (PAGES + 2) * HKV
+    k = [torch.randn((rows, NR, D), generator=gen, device=dev)
+         for _ in range(M)]
+    v = [torch.randn((rows, NR, D), generator=gen, device=dev) * 2 ** l
+         for l in range(M)]
+    fp32 = hd.PagedH1DCache(k[0], v[0], tuple(k[1:]), tuple(v[1:]))
+
+    def quant(nq):
+        ks, vs, kscs, vscs = [], [], [], []
+        for l in range(M):
+            if l < nq:
+                qk, sk = qz.quantize_int8(k[l], axis=-1)
+                qv, sv = qz.quantize_int8(v[l], axis=-1)
+                ks.append(qk)
+                vs.append(qv)
+                kscs.append(sk[..., 0].contiguous())
+                vscs.append(sv[..., 0].contiguous())
+            else:
+                ks.append(k[l].clone())
+                vs.append(v[l].clone())
+                kscs.append(torch.ones((rows, NR), device=dev))
+                vscs.append(torch.ones((rows, NR), device=dev))
+        return hd.QuantPagedH1DCache(ks[0], vs[0], tuple(ks[1:]),
+                                     tuple(vs[1:]), kscs[0], vscs[0],
+                                     tuple(kscs[1:]), tuple(vscs[1:]))
+
+    return fp32, quant(M), quant(3)
+
+
+def paged_tables(dev, M, step=0):
+    """Tables of one tick as ``PagePool.build_tables`` lays them out:
+    slots 0-5 active at seeded positions (edge cases first) plus
+    ``step``, with seeded read pages and private write pages; slots 6
+    and 7 inactive, every band and every write on the TRASH page."""
+    rng = np.random.default_rng(100)
+    t = np.zeros((SLOTS,), np.int64)
+    t[:6] = [0, NR - 1, LMAX - 1, *rng.integers(NR, LMAX - 1, 3)]
+    t[:6] = np.minimum(t[:6] + step, LMAX - 1)
+    attend = np.full((SLOTS, 1 + M), TRASH, np.int64)
+    update = np.full((SLOTS, M), TRASH, np.int64)
+    upages = np.stack([rng.permutation(PAGES)[:6] + 2 for _ in range(M)], 1)
+    for s in range(6):
+        attend[s] = rng.integers(2, PAGES + 2, 1 + M)
+        if t[s] // NR < 1:
+            attend[s, 1] = TRASH
+        for l in range(1, M):
+            if t[s] // (NR << l) < 1:
+                attend[s, 1 + l] = TRASH
+        update[s] = upages[s]
+    heads = np.arange(HKV)[None, :, None]
+
+    def physical(pages):
+        rows = pages[:, None, :] * HKV + heads       # (slots, heads, cols)
+        return torch.as_tensor(rows.reshape(SLOTS * HKV, -1),
+                               dtype=torch.int32, device=dev).contiguous()
+    tt = torch.as_tensor(np.repeat(t, HKV), dtype=torch.int32, device=dev)
+    return tt, physical(attend), physical(update)
+
+
+def pool_clone(p):
+    return type(p)(*[tuple(a.clone() for a in x) if isinstance(x, tuple)
+                     else x.clone() for x in p])
+
+
+def pool_arrays(p):
+    return [a for x in p for a in (x if isinstance(x, tuple) else (x,))]
+
+
+def same_outside_trash(a, b):
+    """Every pool row but the TRASH page's (which the inactive rows
+    write at once) equal bit for bit."""
+    rows = slice(TRASH * HKV, (TRASH + 1) * HKV)
+    for x, y in zip(pool_arrays(a), pool_arrays(b)):
+        keep = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
+        keep[rows] = False
+        if not torch.equal(x[keep], y[keep]):
+            return False
+    return True
+
+
+def phase_paged_kernels(dev):
+    """#7-#10 against their plain versions at paged serving shapes."""
+    from repro_torch.core import hierarchy as hc
+    from repro_torch.kernels import h1d_decode_kernel as dk
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    M = hc.num_levels(LMAX, NR)
+    fp32, int8, mixed = paged_pools(dev, gen, M)
+    t, bidx, utab = paged_tables(dev, M)
+    qd = torch.randn((R, G, D), generator=gen, device=dev)
+    K = (M + 1) * NR
+    flops = R * G * K * (4 * D + 4)
+    small = 4 * (qd.numel() + R + bidx.numel() + R * G * D)
+    rows = []
+
+    def lvl_bytes(qmask_levels):
+        """Bytes of one gathered key row plus value row per band."""
+        per = []
+        for band in range(M + 1):
+            l = 0 if band < 2 else band - 1
+            per.append(2 * D + 8 if l < qmask_levels else 8 * D)
+        return NR * sum(per)
+
+    row_bytes = {"fp32": lvl_bytes(0), "int8": lvl_bytes(M),
+                 "mixed": lvl_bytes(3)}
+    for name, kernel, plain, pools in (
+            ("decode_attend_paged", dk.decode_attend_paged,
+             dk.decode_attend_paged_ref, [("fp32", fp32)]),
+            ("decode_attend_paged_quant", dk.decode_attend_paged_quant,
+             dk.decode_attend_paged_quant_ref,
+             [("int8", int8), ("mixed", mixed)])):
+        err = 0.0
+        for label, pool in pools:
+            got = kernel(pool, qd, t, bidx, nr=NR)
+            want = plain(pool, qd, t, bidx, nr=NR)
+            e, *_ = compare(f"{name} ({label})", [got], [want], ATTN_TOL)
+            err = max(err, e)
+        label, pool = pools[0]
+        bms, by = bound(R * row_bytes[label] + small, flops)
+        rows.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/h1d_decode.cu",
+            replaces={"decode_attend_paged":
+                      "src/repro/kernels/h1d_decode_kernel.py:426",
+                      "decode_attend_paged_quant":
+                      "src/repro/kernels/h1d_decode_kernel.py:482"}[name],
+            max_abs_err=err,
+            ms=time_ms(lambda: kernel(pool, qd, t, bidx, nr=NR)),
+            device_ms=device_ms(lambda: kernel(pool, qd, t, bidx, nr=NR)),
+            plain_ms=time_ms(lambda: plain(pool, qd, t, bidx, nr=NR)),
+            bound_ms=bms, bound_by=by, library_ms=None,
+            note=f"timed on the {label} pool; checked on "
+                 f"{[p for p, _ in pools]}"))
+        log(f"{name}: max abs err {err:.3g} ({[p for p, _ in pools]})")
+
+    kn = torch.randn((R, D), generator=gen, device=dev)
+    vn = torch.randn((R, D), generator=gen, device=dev)
+    for name, kernel, plain, pools in (
+            ("update_cache_paged", dk.update_cache_paged,
+             dk.update_cache_paged_ref, [("fp32", fp32)]),
+            ("update_cache_paged_quant", dk.update_cache_paged_quant,
+             dk.update_cache_paged_quant_ref,
+             [("int8", int8), ("mixed", mixed)])):
+        for label, pool in pools:
+            a, b = pool_clone(pool), pool_clone(pool)
+            for step in range(3):    # chained: later writes read earlier
+                ts, _, ut = paged_tables(dev, M, step)
+                kernel(a, kn + step, vn - step, ts, ut)
+                plain(b, kn + step, vn - step, ts, ut)
+            if not same_outside_trash(a, b):
+                raise AssertionError(f"{name} ({label}) is not bit-exact "
+                                     f"against its plain version outside "
+                                     f"the TRASH page")
+            del a, b
+        label, pool = pools[0]
+        if name == "update_cache_paged":
+            # sibling row read, selected row written, per level
+            per_row = M * 2 * 2 * D * 4
+        else:
+            # pair (and its two scales) read and rewritten, per level
+            per_row = M * 2 * (2 * 2 * D + 2 * 2 * 4)
+        bms, by = bound(4 * (2 * R * D + R + utab.numel()) + R * per_row,
+                        R * M * 2 * D * 8)
+        rows.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/h1d_decode.cu",
+            replaces={"update_cache_paged":
+                      "src/repro/kernels/h1d_decode_kernel.py:567",
+                      "update_cache_paged_quant":
+                      "src/repro/kernels/h1d_decode_kernel.py:678"}[name],
+            max_abs_err=0.0,
+            ms=time_ms(lambda: kernel(pool, kn, vn, t, utab)),
+            device_ms=device_ms(lambda: kernel(pool, kn, vn, t, utab)),
+            plain_ms=time_ms(lambda: plain(pool, kn, vn, t, utab)),
+            bound_ms=bms, bound_by=by, library_ms=None,
+            note=f"timed on the {label} pool; bit-exact outside TRASH "
+                 f"over 3 chained ticks on {[p for p, _ in pools]}"))
+        log(f"{name}: bit-exact outside TRASH over 3 chained ticks "
+            f"({[p for p, _ in pools]})")
+    return rows
+
+
 def exact_grads(fwd, cot, mode, ratio):
     """Float64 (dq, dk, dv, dw) of one band level, by autograd of a dense
     masked forward on the same inputs and cotangents: a witness, written
@@ -456,7 +670,7 @@ def phase_bwd_kernels(dev):
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the six kernel call sites to their plain versions (the
+    """Route the ten kernel call sites to their plain versions (the
     comparison path of phases 5 and 7; the port itself has no such
     switch)."""
     from repro_torch.kernels import h1d_block as hb
@@ -467,7 +681,13 @@ def plain_kernels():
              (hbb, "band_attention_bwd", hbb.band_attention_bwd_ref),
              (hbb, "band_attention_sub_bwd", hbb.band_attention_sub_bwd_ref),
              (dk, "decode_attend_fused", dk.decode_attend_ref),
-             (dk, "update_cache_fused", dk.update_cache_ref)]
+             (dk, "update_cache_fused", dk.update_cache_ref),
+             (dk, "decode_attend_paged", dk.decode_attend_paged_ref),
+             (dk, "decode_attend_paged_quant",
+              dk.decode_attend_paged_quant_ref),
+             (dk, "update_cache_paged", dk.update_cache_paged_ref),
+             (dk, "update_cache_paged_quant",
+              dk.update_cache_paged_quant_ref)]
     saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
     for m, n, f in swaps:
         setattr(m, n, f)
@@ -599,6 +819,165 @@ def phase_logits(cfg, params, fns, reqs, dev):
         f"(<= {LOGIT_TOL})")
 
 
+def paged_prefix_workload(vocab: int):
+    """``paged-prefix``: 16 prompts, each one shared seeded 1000-token
+    prefix (not page-aligned) plus a unique tail of 16..500 tokens (seed
+    1); prompts 14 and 15 repeat 0 and 1.  Returned in submission order,
+    the repeats right behind their originals so that both are admitted
+    in one tick and share their frontier pages until the first write.
+    Entries are (uid, prompt)."""
+    prefix = np.random.default_rng(0).integers(0, vocab, 1000)
+    rng = np.random.default_rng(1)
+    prompts = [np.concatenate([prefix, rng.integers(0, vocab, int(n))])
+               .astype(np.int32) for n in rng.integers(16, 501, 14)]
+    prompts += [prompts[0], prompts[1]]
+    order = [0, 14, 1, 15] + list(range(2, 14))
+    return [(i, prompts[i]) for i in order]
+
+
+PAGED_NEW = 32
+SMALL_POOL = 160
+
+
+def run_engine(eng, workload, fns):
+    """Serve ``workload`` to the end; returns (outputs by uid, stats).
+    Prefill and decode calls are timed with a synchronize on each side;
+    the kernel counts are set to 0 just before the run."""
+    from repro_torch import kernels
+    from repro_torch.serve import Request
+
+    ticks = {"prefill": [], "decode": []}
+
+    def timed(kind, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            ticks[kind].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+    eng.fns = fns._replace(prefill=timed("prefill", fns.prefill),
+                           decode_step=timed("decode", fns.decode_step))
+    reqs = {uid: Request(uid=uid, prompt=p, max_new_tokens=PAGED_NEW)
+            for uid, p in workload}
+    for uid, _ in workload:
+        eng.submit(reqs[uid])
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    peak = 0
+    while eng.queue or eng.active.any():
+        eng.step()
+        peak = max(peak, int(eng.active.sum()))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {n: k.launches for n, (k, _) in kernels.KERNELS.items()}
+    plain = {n: p.calls for n, (_, p) in kernels.KERNELS.items()}
+    if any(plain.values()):
+        raise AssertionError(f"plain versions ran while serving: {plain}")
+    outs = {uid: list(r.out_tokens) for uid, r in reqs.items()}
+    for uid, out in outs.items():
+        if len(out) != PAGED_NEW:
+            raise AssertionError(f"request {uid}: {len(out)} tokens")
+    ntok = sum(len(o) for o in outs.values())
+    stats = dict(tokens=ntok, wall_s=wall, tokens_per_s=ntok / wall,
+                 peak_concurrency=peak, prefill_calls=len(ticks["prefill"]),
+                 decode_ticks=len(ticks["decode"]),
+                 decode_ms_per_tick=float(np.median(ticks["decode"])),
+                 launches={n: c for n, c in counts.items() if c})
+    if eng.paged:
+        st = eng.pool.stats
+        stats.update(pool_pages=eng.pool.usable(0),
+                     shared=st.shared_maps, prefix_hits=st.prefix_hits,
+                     prefix_misses=st.prefix_misses, cow=st.cow_copies,
+                     evictions=st.evictions, preemptions=eng.preemptions,
+                     occupancy_end=eng.pool.occupancy())
+    return outs, stats, counts
+
+
+def phase_paged_serve(cfg, params, fns, dev):
+    """Workload ``paged-prefix`` through the dense oracle and three paged
+    engines; returns the launches of the paged engines summed."""
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve import paged_cache as pc
+
+    workload = paged_prefix_workload(cfg.vocab_size)
+    kw = dict(slots=8, max_len=LMAX)
+
+    def bytes_of(pages, quant_levels=0):
+        pool = pc.PagePool(slots=8, max_len=LMAX, nr=cfg.nr,
+                           pool_pages=pages, quant_levels=quant_levels)
+        return pc.pool_bytes(pc.init_paged_caches(cfg, pool, device="meta"))
+
+    budget = bytes_of(SMALL_POOL)
+    int8_pages = SMALL_POOL          # as bench_serve.py's _fit_pages
+    while bytes_of(int8_pages + 1, -1) <= budget:
+        int8_pages += 1
+    engines = {
+        "a_dense": dict(),
+        "b_paged_fp32": dict(paged=True, pool_pages=PAGES),
+        "c_paged_fp32_small": dict(paged=True, pool_pages=SMALL_POOL),
+        "d_paged_int8": dict(paged=True, pool_pages=int8_pages,
+                             cache_dtype="int8", quant_levels=-1)}
+    outs, stats, total = {}, {}, {}
+    for name, extra in engines.items():
+        eng = ServeEngine(cfg, params, **kw, **extra)
+        outs[name], stats[name], counts = run_engine(eng, workload, fns)
+        if eng.paged:
+            stats[name]["pool_bytes"] = pc.pool_bytes(eng.caches)
+            for n, c in counts.items():
+                total[n] = total.get(n, 0) + c
+        del eng
+        torch.cuda.empty_cache()
+        log(f"paged-prefix {name}: {json.dumps(stats[name])}")
+
+    def launched(name, kernels_):
+        return all(stats[name]["launches"].get(k, 0) > 0 for k in kernels_)
+    fp32_k = ("decode_attend_paged", "update_cache_paged")
+    int8_k = ("decode_attend_paged_quant", "update_cache_paged_quant")
+    for name, need in (("b_paged_fp32", fp32_k),
+                       ("c_paged_fp32_small", fp32_k),
+                       ("d_paged_int8", int8_k)):
+        if not launched(name, need):
+            raise AssertionError(f"{name}: {need} not launched: "
+                                 f"{stats[name]['launches']}")
+    c = stats["c_paged_fp32_small"]
+    if not (c["preemptions"] > 0 and c["cow"] > 0 and c["prefix_hits"] > 0
+            and c["occupancy_end"] == 0.0):
+        raise AssertionError(f"(c) with {SMALL_POOL} pages did not preempt, "
+                             f"copy on write and share: {c}")
+    if stats["d_paged_int8"]["pool_bytes"] > budget:
+        raise AssertionError("(d) exceeds (c)'s bytes")
+
+    # greedy equality, guarded by the teacher-forced top-2 margins
+    prompts = dict(workload)
+    guarded = []
+    with torch.inference_mode():
+        for uid, out in sorted(outs["a_dense"].items()):
+            seq = np.concatenate([prompts[uid], np.asarray(out[:-1],
+                                                           np.int32)])
+            lg, _ = fns.forward(params, cfg, torch.as_tensor(
+                seq[None], dtype=torch.long, device=dev))
+            top2 = lg[0, len(prompts[uid]) - 1:].topk(2, dim=-1).values
+            if float((top2[:, 0] - top2[:, 1]).min()) > LOGIT_TOL:
+                guarded.append(uid)
+    for name in ("b_paged_fp32", "c_paged_fp32_small"):
+        bad = [u for u in guarded if outs[name][u] != outs["a_dense"][u]]
+        if bad:
+            raise AssertionError(f"{name}: requests {bad} differ from the "
+                                 f"dense engine")
+    ref = outs["a_dense"]
+    hit = sum(x == y for u in ref for x, y in zip(outs["d_paged_int8"][u],
+                                                  ref[u]))
+    rate = hit / sum(len(o) for o in ref.values())
+    log(f"paged-prefix: pools {SMALL_POOL} fp32 pages (c) and {int8_pages} "
+        f"int8 pages (d) in {budget} B; {len(guarded)}/{len(ref)} requests "
+        f"guarded (top-2 margins > {LOGIT_TOL}), (b) and (c) equal to (a) "
+        f"on all of them; (d) token-match rate vs (a) {rate:.4f}")
+    return total
+
+
 def phase_train(dev):
     """20 AdamW steps of h1d-lm-53m at full width and depth, 8 x 1024."""
     import tempfile
@@ -709,14 +1088,17 @@ def main() -> int:
     libs = _build.build(_build.sources())
     log(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f}s")
 
-    rows = phase_kernels(dev) + phase_bwd_kernels(dev)
+    rows = (phase_kernels(dev) + phase_paged_kernels(dev)
+            + phase_bwd_kernels(dev))
     cfg, params, fns, reqs, serve_counts = phase_serve(dev)
     phase_logits(cfg, params, fns, reqs, dev)
+    paged_counts = phase_paged_serve(cfg, params, fns, dev)
     del params, fns, reqs
     train_counts = phase_train(dev)
     phase_grads(dev)
     for row in rows:
         by_path = {"serve": serve_counts[row["name"]],
+                   "paged": paged_counts.get(row["name"], 0),
                    "train": train_counts[row["name"]]}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path

@@ -19,12 +19,14 @@ __all__ = ["resolve_device"]
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``cuda`` unless ``device`` says
-    otherwise.  Raises when CUDA is asked for and no card is present."""
+    otherwise.  Raises when CUDA is asked for and no card is present.
+    ``meta`` is accepted where only shapes matter (sizing a cache pool
+    by its bytes without allocating it)."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "repro_torch runs on a CUDA card by default and none is "
             "available; pass device='cpu' to run the plain PyTorch path")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev

@@ -14,6 +14,16 @@ token, whose K/V must already be written by ``update_cache``.
 ``update_cache`` changes the cache in place and returns it.  Both entry
 points go through the wrappers in ``kernels.h1d_decode_kernel``, which
 run the plain version on CPU tensors and the CUDA kernel on CUDA tensors.
+
+The paged pool (``serve/paged_cache.py``) replaces each level's
+(B, L_l, D) slab with a pool of nr-row pages (NP_l, nr, D) and hands the
+decode entry points the physical page row of every block they touch as
+a small per-tick table (:class:`PageTables`); the math is the dense
+cache's with the block reads and writes routed through the tables.  A
+:class:`QuantPagedH1DCache` stores any subset of levels as int8 pages
+with one float32 absmax scale per cached row (``core.quantization``);
+``update_cache_paged`` and ``decode_attend_paged`` dispatch on the pool
+type, as the reference does.  Pool updates are in place too.
 """
 from __future__ import annotations
 
@@ -77,6 +87,129 @@ def decode_attend(cache: H1DCache, q, t, *, nr: int,
     """Batched single-token attention.  q (B, G, D), t (B,) per-row
     positions.  Returns (B, G, Dv) in q.dtype."""
     return dk.decode_attend_fused(cache, q, t, nr=nr,
+                                  softmax_scale=softmax_scale)
+
+
+# ---------------------------------------------------------------------------
+# paged cache pool (serving-memory subsystem, serve/paged_cache.py)
+# ---------------------------------------------------------------------------
+
+class PagedH1DCache(NamedTuple):
+    """Per-layer paged pools.  ``k``/``v``: (NP0, nr, D/Dv) fine pages;
+    ``ck[l-1]``/``cv[l-1]``: (NP_l, nr, ...) level-l coarse pages.  A
+    page is one pool row: ``nr`` consecutive level-l rows of ONE cache
+    row (batch*kv-head).  The logical (slot, level, block) -> pool row
+    map lives in ``serve.paged_cache.PagePool`` (host)."""
+    k: torch.Tensor
+    v: torch.Tensor
+    ck: Tuple[torch.Tensor, ...]
+    cv: Tuple[torch.Tensor, ...]
+
+
+class PageTables(NamedTuple):
+    """Per-tick device indirection tables, built on the host.
+
+    ``attend``: (R, 2 + levels) int32 -- physical pool rows of the own
+    level-0 page, the previous level-0 page and each level's ``I_l - 1``
+    page (columns of masked-out bands hold any in-range row).
+    ``update``: (R, 1 + levels) int32 -- physical pool rows of the
+    token's ancestor pages (column l holds the page of row ``t >> l``);
+    inactive engine rows point at a trash page."""
+    attend: torch.Tensor
+    update: torch.Tensor
+
+
+class QuantPagedH1DCache(NamedTuple):
+    """Quantized paged pools: the page geometry of
+    :class:`PagedH1DCache`, but any subset of levels stores its pages as
+    int8 with one float32 symmetric absmax scale PER CACHED ROW, scale
+    arrays (NP_l, nr) beside the (NP_l, nr, D) data.  Scale arrays exist
+    for every level (fp32 levels carry all-ones scales that are never
+    read); which levels are int8 is read off the data dtypes
+    (:func:`quant_level_flags`)."""
+    k: torch.Tensor
+    v: torch.Tensor
+    ck: Tuple[torch.Tensor, ...]
+    cv: Tuple[torch.Tensor, ...]
+    ksc: torch.Tensor               # (NP0, nr) f32 per-row scales for k
+    vsc: torch.Tensor               # (NP0, nr)
+    cksc: Tuple[torch.Tensor, ...]  # (NP_l, nr) per coarse level
+    cvsc: Tuple[torch.Tensor, ...]
+
+
+pool_levels = dk.pool_levels
+
+
+def quant_level_flags(pool: QuantPagedH1DCache) -> Tuple[bool, ...]:
+    """Per-level "is int8" flags (index 0 = fine), from the dtypes."""
+    return tuple(a.dtype == torch.int8 for a in (pool.k, *pool.ck))
+
+
+def init_paged_pool(num_pages, nr: int, D: int, Dv: int, *,
+                    dtype=torch.float32, device=None) -> PagedH1DCache:
+    """Zeroed pools on ``device`` (default ``cuda``).  ``num_pages``:
+    per-level pool sizes (index 0 = fine, index l = coarse level l); its
+    length fixes the number of hierarchy levels."""
+    dev = resolve_device(device)
+
+    def z(n, d):
+        return torch.zeros((n, nr, d), dtype=dtype, device=dev)
+
+    return PagedH1DCache(k=z(num_pages[0], D), v=z(num_pages[0], Dv),
+                         ck=tuple(z(n, D) for n in num_pages[1:]),
+                         cv=tuple(z(n, Dv) for n in num_pages[1:]))
+
+
+def init_quant_paged_pool(num_pages, nr: int, D: int, Dv: int, *,
+                          dtype=torch.float32, quant=None,
+                          device=None) -> QuantPagedH1DCache:
+    """Zeroed quantized pools.  ``quant``: per-level bools (index 0 =
+    fine); ``None`` quantizes every level.  Scales start at 1.0, so zero
+    pages dequantize to exact zeros."""
+    dev = resolve_device(device)
+    if quant is None:
+        quant = (True,) * len(num_pages)
+
+    def data(n, d, is_q):
+        return torch.zeros((n, nr, d), dtype=torch.int8 if is_q else dtype,
+                           device=dev)
+
+    def sc(n):
+        return torch.ones((n, nr), dtype=torch.float32, device=dev)
+
+    rest = list(enumerate(num_pages[1:], 1))
+    return QuantPagedH1DCache(
+        k=data(num_pages[0], D, quant[0]), v=data(num_pages[0], Dv, quant[0]),
+        ck=tuple(data(n, D, quant[l]) for l, n in rest),
+        cv=tuple(data(n, Dv, quant[l]) for l, n in rest),
+        ksc=sc(num_pages[0]), vsc=sc(num_pages[0]),
+        cksc=tuple(sc(n) for _, n in rest),
+        cvsc=tuple(sc(n) for _, n in rest))
+
+
+def update_cache_paged(pool, k_new, v_new, t, utab):
+    """Paged batched append, in place.  ``k_new`` (R, D), ``v_new`` (R,
+    Dv), ``t`` (R,) int32 global positions, ``utab`` (R, 1 + levels)
+    int32 physical page rows (:class:`PageTables`).  The ancestor-chain
+    math of :func:`update_cache`; a :class:`QuantPagedH1DCache` rewrites
+    each level's sibling pair through quantize (fresh per-row scales)
+    and carries the pre-quantization f32 pair upward."""
+    if isinstance(pool, QuantPagedH1DCache):
+        return dk.update_cache_paged_quant(pool, k_new, v_new, t, utab)
+    return dk.update_cache_paged(pool, k_new, v_new, t, utab)
+
+
+def decode_attend_paged(pool, q, t, bidx, *, nr: int,
+                        softmax_scale=None) -> torch.Tensor:
+    """Paged batched single-token attention.  ``q`` (R, G, D), ``t``
+    (R,) int32, ``bidx`` (R, 2 + levels) int32 physical page rows.  The
+    bands, masks and single-max combine of :func:`decode_attend`; a
+    :class:`QuantPagedH1DCache` dequantizes each gathered row with its
+    per-row scale before the band math."""
+    if isinstance(pool, QuantPagedH1DCache):
+        return dk.decode_attend_paged_quant(pool, q, t, bidx, nr=nr,
+                                            softmax_scale=softmax_scale)
+    return dk.decode_attend_paged(pool, q, t, bidx, nr=nr,
                                   softmax_scale=softmax_scale)
 
 

@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels for Hopper and their plain PyTorch versions.
 
-Six kernels carry the serving and training paths of the paper LM
-(sources in ``csrc/``, built by ``_build`` with ``nvcc`` at first use):
+Ten kernels carry the serving (dense slots, paged and int8 pools) and
+training paths of the paper LM (sources in ``csrc/``, built by
+``_build`` with ``nvcc`` at first use):
 
 ======================== ============================== ==================
 wrapper                  replaces (repro/kernels/...)   plain version
@@ -17,6 +18,15 @@ decode_attend_fused      h1d_decode_kernel.decode_attend_fused
                                                         decode_attend_ref
 update_cache_fused       h1d_decode_kernel.update_cache_fused
                                                         update_cache_ref
+decode_attend_paged      h1d_decode_kernel.decode_attend_paged
+                                                        decode_attend_paged_ref
+decode_attend_paged_quant
+                         h1d_decode_kernel.decode_attend_paged_quant
+                                                        decode_attend_paged_quant_ref
+update_cache_paged       h1d_decode_kernel.update_cache_paged
+                                                        update_cache_paged_ref
+update_cache_paged_quant h1d_decode_kernel.update_cache_paged_quant
+                                                        update_cache_paged_quant_ref
 ======================== ============================== ==================
 """
 from .h1d_block import (band_attention_fwd, band_attention_sub_fwd,
@@ -26,7 +36,13 @@ from .h1d_block_bwd import (band_attention_bwd, band_attention_sub_bwd,
                             band_attention_bwd_ref,
                             band_attention_sub_bwd_ref)
 from .h1d_decode_kernel import (decode_attend_fused, update_cache_fused,
-                                decode_attend_ref, update_cache_ref)
+                                decode_attend_ref, update_cache_ref,
+                                decode_attend_paged, decode_attend_paged_ref,
+                                decode_attend_paged_quant,
+                                decode_attend_paged_quant_ref,
+                                update_cache_paged, update_cache_paged_ref,
+                                update_cache_paged_quant,
+                                update_cache_paged_quant_ref)
 from .ops import band_attention
 
 #: (kernel wrapper, its plain version) for every kernel of the package
@@ -39,11 +55,21 @@ KERNELS = {
                                band_attention_sub_bwd_ref),
     "decode_attend_fused": (decode_attend_fused, decode_attend_ref),
     "update_cache_fused": (update_cache_fused, update_cache_ref),
+    "decode_attend_paged": (decode_attend_paged, decode_attend_paged_ref),
+    "decode_attend_paged_quant": (decode_attend_paged_quant,
+                                  decode_attend_paged_quant_ref),
+    "update_cache_paged": (update_cache_paged, update_cache_paged_ref),
+    "update_cache_paged_quant": (update_cache_paged_quant,
+                                 update_cache_paged_quant_ref),
 }
 
-#: the kernels a serving run launches and those a training step launches
+#: the kernels a dense-slot serving run launches, those a paged serving
+#: run adds (#7/#9 on fp32 pools, #8/#10 on int8 pools) and those a
+#: training step launches
 SERVE_KERNELS = ("band_attention_fwd", "band_attention_sub_fwd",
                  "decode_attend_fused", "update_cache_fused")
+PAGED_SERVE_KERNELS = ("decode_attend_paged", "decode_attend_paged_quant",
+                       "update_cache_paged", "update_cache_paged_quant")
 TRAIN_KERNELS = ("band_attention_fwd", "band_attention_sub_fwd",
                  "band_attention_bwd", "band_attention_sub_bwd")
 
@@ -61,5 +87,10 @@ __all__ = ["band_attention", "band_attention_fwd", "band_attention_sub_fwd",
            "band_attention_bwd", "band_attention_sub_bwd",
            "band_attention_bwd_ref", "band_attention_sub_bwd_ref",
            "band_mask", "decode_attend_fused", "update_cache_fused",
-           "decode_attend_ref", "update_cache_ref", "MODES", "SUB_MODE",
-           "KERNELS", "SERVE_KERNELS", "TRAIN_KERNELS", "reset_counts"]
+           "decode_attend_ref", "update_cache_ref", "decode_attend_paged",
+           "decode_attend_paged_ref", "decode_attend_paged_quant",
+           "decode_attend_paged_quant_ref", "update_cache_paged",
+           "update_cache_paged_ref", "update_cache_paged_quant",
+           "update_cache_paged_quant_ref", "MODES", "SUB_MODE", "KERNELS",
+           "SERVE_KERNELS", "PAGED_SERVE_KERNELS", "TRAIN_KERNELS",
+           "reset_counts"]

@@ -1,7 +1,7 @@
 """Single-token decode on the hierarchical KV cache: plain versions and
 CUDA kernel wrappers.
 
-Port of the dense-cache kernels of ``repro.kernels.h1d_decode_kernel``:
+Port of the decode kernels of ``repro.kernels.h1d_decode_kernel``:
 
 * :func:`decode_attend_fused` -- every cache row ``r`` (slots x kv-heads)
   attends, at its position ``t[r]``, its own level-0 block (causal), the
@@ -13,13 +13,24 @@ Port of the dense-cache kernels of ``repro.kernels.h1d_decode_kernel``:
   children, for every level.  Updates the cache IN PLACE (the JAX
   version returns a new cache; PyTorch lets the port save the copy) and
   returns it.
+* :func:`decode_attend_paged` / :func:`update_cache_paged` -- the same
+  bodies over a paged pool (``core.h1d_decode.PagedH1DCache``): block
+  reads come from the page table ``bidx`` (R, 2 + levels), the sibling
+  pair of level l from page ``utab[r, l]`` at in-page pair
+  ``(t >> (l+1)) & (nr/2 - 1)``.
+* :func:`decode_attend_paged_quant` / :func:`update_cache_paged_quant`
+  -- the int8 pool (``QuantPagedH1DCache``): rows dequantized with their
+  per-row scales before the band math; the update dequantizes the pair,
+  puts in the new row and requantizes both rows in place with fresh
+  absmax scales, carrying the f32 pair before quantization upward.
+  fp32 levels of a mixed pool leave their scales untouched.
 
-``cache`` is a ``core.h1d_decode.H1DCache``.  Each wrapper chooses by the
-device of its tensors: CPU tensors take the plain version (mirrors of the
-jnp paths ``core.h1d_decode.decode_attend`` and ``_update_one``), CUDA
+Each wrapper chooses by the device of its tensors: CPU tensors take the
+plain version (mirrors of the jnp paths of ``core.h1d_decode``), CUDA
 tensors launch the kernels in ``csrc/h1d_decode.cu``.
 ``<wrapper>.launches`` counts kernel launches and ``<plain>.calls``
-counts runs of the plain version.
+counts runs of the plain version.  The page tables are trusted: the
+host builds them from ``serve.paged_cache.PagePool``.
 """
 from __future__ import annotations
 
@@ -29,16 +40,25 @@ import math
 import torch
 
 from ..core import hierarchy as hc
+from ..core import quantization as qz
 from . import _build
 
 _MIN_M = -1e30
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _PP = ctypes.POINTER(ctypes.c_void_p)
+_F = ctypes.c_float
 _SIGNATURES = {
     "h1d_decode_attend": [_P, _P, _P, _PP, _PP, _P, _P] + [_I] * 7
-                         + [ctypes.c_float, _P],
+                         + [_F, _P],
+    "h1d_decode_attend_paged": [_P, _PP, _PP, _P, _P, _P] + [_I] * 6
+                               + [_F, _P],
+    "h1d_decode_attend_paged_quant": [_P, _PP, _PP, _PP, _PP, _I, _P, _P,
+                                      _P] + [_I] * 6 + [_F, _P],
     "h1d_update_cache": [_P, _P, _P, _PP, _PP] + [_I] * 5 + [_P],
+    "h1d_update_cache_paged": [_P, _P, _P, _P, _PP, _PP] + [_I] * 5 + [_P],
+    "h1d_update_cache_paged_quant": [_P, _P, _P, _P, _PP, _PP, _PP, _PP]
+                                    + [_I] * 6 + [_P],
 }
 
 
@@ -62,49 +82,40 @@ def _block_read_rows(arr, blk, size):
     return arr.reshape(R, L // size, size, D)[rows, blk]
 
 
-def decode_attend_ref(cache, q, t, *, nr: int, softmax_scale=None):
-    """Plain PyTorch batched single-token attention (mirror of the jnp
-    path of ``repro.core.h1d_decode.decode_attend``).  q (R, G, D), t
-    (R,) positions.  Returns (R, G, Dv) in q.dtype."""
-    decode_attend_ref.calls += 1
+def _attend_bands(q, t, nr: int, nbands: int, read, softmax_scale):
+    """The band math shared by every plain attend: ``read(band)`` gives
+    the band's f32 (keys (R, nr, D), values (R, nr, Dv)); masks and
+    weights depend on ``t`` alone."""
     f32 = torch.float32
     R, G, D = q.shape
     scale = softmax_scale if softmax_scale is not None else 1 / math.sqrt(D)
     qs = q.to(f32) * scale
     t = t.to(torch.long)
-    Lmax = cache.k.shape[-2]
-    M = hc.num_levels(Lmax, nr)
     dev = q.device
     j = torch.arange(nr, device=dev)
+    blk0 = torch.div(t, nr, rounding_mode="floor")
+    ones = torch.ones((R, nr), dtype=f32, device=dev)
 
     logits, values, weights = [], [], []
-
-    def band(keys, vals, mask, wgt):
-        s = torch.einsum("bgd,bkd->bgk", qs, keys.to(f32))
+    for band in range(nbands):
+        keys, vals = read(band)
+        if band == 0:          # own level-0 block, causal within the block
+            mask, wgt = blk0[:, None] * nr + j[None, :] <= t[:, None], ones
+        elif band == 1:        # previous level-0 block
+            mask, wgt = (blk0 >= 1)[:, None].expand(R, nr), ones
+        else:                  # coarse level l: block I_l - 1, quadrant mask
+            l = band - 1
+            span = nr << l
+            Il = torch.div(t, span, rounding_mode="floor")
+            first_half_q = (t % span) < (span // 2)
+            key_last_half = j >= nr // 2
+            mask = (Il >= 1)[:, None] & ~(first_half_q[:, None]
+                                          & key_last_half[None, :])
+            wgt = torch.full((R, nr), float(1 << l), dtype=f32, device=dev)
+        s = torch.einsum("bgd,bkd->bgk", qs, keys)
         logits.append(torch.where(mask[:, None, :], s, hc.NEG_INF))
-        values.append(vals.to(f32))
+        values.append(vals)
         weights.append(torch.where(mask, wgt, 0.0))
-
-    blk0 = torch.div(t, nr, rounding_mode="floor")
-    pos = blk0[:, None] * nr + j[None, :]
-    ones = torch.ones((R, nr), dtype=f32, device=dev)
-    band(_block_read_rows(cache.k, blk0, nr),
-         _block_read_rows(cache.v, blk0, nr), pos <= t[:, None], ones)
-    prev = torch.clamp(blk0 - 1, min=0)
-    band(_block_read_rows(cache.k, prev, nr),
-         _block_read_rows(cache.v, prev, nr),
-         (blk0 >= 1)[:, None].expand(R, nr), ones)
-    for l in range(1, M):
-        span = nr << l
-        Il = torch.div(t, span, rounding_mode="floor")
-        blk = torch.clamp(Il - 1, min=0)
-        first_half_q = (t % span) < (span // 2)
-        key_last_half = j >= nr // 2
-        mask = (Il >= 1)[:, None] & ~(first_half_q[:, None]
-                                      & key_last_half[None, :])
-        band(_block_read_rows(cache.ck[l - 1], blk, nr),
-             _block_read_rows(cache.cv[l - 1], blk, nr),
-             mask, torch.full((R, nr), float(1 << l), dtype=f32, device=dev))
 
     s = torch.cat(logits, dim=-1)                      # (R, G, K)
     vcat = torch.cat(values, dim=-2)                   # (R, K, Dv)
@@ -114,6 +125,32 @@ def decode_attend_ref(cache, q, t, *, nr: int, softmax_scale=None):
     num = torch.einsum("bgk,bkv->bgv", a, vcat)
     den = torch.einsum("bgk,bk->bg", a, wcat)
     return (num / torch.clamp(den, min=1e-9)[..., None]).to(q.dtype)
+
+
+def decode_attend_ref(cache, q, t, *, nr: int, softmax_scale=None):
+    """Plain PyTorch batched single-token attention (mirror of the jnp
+    path of ``repro.core.h1d_decode.decode_attend``).  q (R, G, D), t
+    (R,) positions.  Returns (R, G, Dv) in q.dtype."""
+    decode_attend_ref.calls += 1
+    f32 = torch.float32
+    t = t.to(torch.long)
+    M = hc.num_levels(cache.k.shape[-2], nr)
+
+    def read(band):
+        if band < 2:
+            blk = torch.div(t, nr, rounding_mode="floor")
+            if band == 1:
+                blk = torch.clamp(blk - 1, min=0)
+            k, v = cache.k, cache.v
+        else:
+            l = band - 1
+            blk = torch.clamp(torch.div(t, nr << l, rounding_mode="floor")
+                              - 1, min=0)
+            k, v = cache.ck[l - 1], cache.cv[l - 1]
+        return (_block_read_rows(k, blk, nr).to(f32),
+                _block_read_rows(v, blk, nr).to(f32))
+
+    return _attend_bands(q, t, nr, 2 + max(M - 1, 0), read, softmax_scale)
 
 
 decode_attend_ref.calls = 0
@@ -139,6 +176,123 @@ def update_cache_ref(cache, k_new, v_new, t):
 
 
 update_cache_ref.calls = 0
+
+
+def pool_levels(pool):
+    """Per level l = 0..M-1 of a paged pool: (k, v, k scales, v scales),
+    the scales None for an fp32 level (never read, never written)."""
+    ks, vs = [pool.k, *pool.ck], [pool.v, *pool.cv]
+    if not hasattr(pool, "ksc"):
+        return [(k, v, None, None) for k, v in zip(ks, vs)]
+    kscs, vscs = [pool.ksc, *pool.cksc], [pool.vsc, *pool.cvsc]
+    return [(k, v, ksc, vsc) if k.dtype == torch.int8 else (k, v, None, None)
+            for k, v, ksc, vsc in zip(ks, vs, kscs, vscs)]
+
+
+def _paged_attend_ref(pool, q, t, bidx, nr, softmax_scale):
+    f32 = torch.float32
+    lv = pool_levels(pool)
+    bidx = bidx.to(torch.long)
+
+    def deq(arr, sc, idx):
+        x = arr[idx].to(f32)
+        return x if sc is None else x * sc[idx][..., None]
+
+    def read(band):
+        k, v, ksc, vsc = lv[0 if band < 2 else band - 1]
+        idx = bidx[:, band]
+        return deq(k, ksc, idx), deq(v, vsc, idx)
+
+    return _attend_bands(q, t, nr, 1 + len(lv), read, softmax_scale)
+
+
+def decode_attend_paged_ref(pool, q, t, bidx, *, nr: int,
+                            softmax_scale=None):
+    """Plain paged attention (mirror of the jnp path of
+    ``repro.core.h1d_decode.decode_attend_paged``): the dense bands with
+    block reads through ``bidx`` (R, 2 + levels)."""
+    decode_attend_paged_ref.calls += 1
+    return _paged_attend_ref(pool, q, t, bidx, nr, softmax_scale)
+
+
+decode_attend_paged_ref.calls = 0
+
+
+def decode_attend_paged_quant_ref(pool, q, t, bidx, *, nr: int,
+                                  softmax_scale=None):
+    """Plain quantized paged attention (mirror of
+    ``repro.core.h1d_decode._decode_attend_paged_quant_jnp``): each
+    gathered int8 row times its per-row scale, then the fp32 bands."""
+    decode_attend_paged_quant_ref.calls += 1
+    return _paged_attend_ref(pool, q, t, bidx, nr, softmax_scale)
+
+
+decode_attend_paged_quant_ref.calls = 0
+
+
+def update_cache_paged_ref(pool, k_new, v_new, t, utab):
+    """Plain paged ancestor update, in place (mirror of the fp32 jnp path
+    of ``repro.core.h1d_decode.update_cache_paged``).  k_new (R, D),
+    v_new (R, Dv), t (R,), utab (R, 1 + levels)."""
+    update_cache_paged_ref.calls += 1
+    t = t.to(torch.long)
+    utab = utab.to(torch.long)
+    nr = pool.k.shape[-2]
+    row0 = t % nr
+    pool.k[utab[:, 0], row0] = k_new.to(pool.k.dtype)
+    pool.v[utab[:, 0], row0] = v_new.to(pool.v.dtype)
+    page, base, k_lo, v_lo = utab[:, 0], row0 & ~1, pool.k, pool.v
+    for l, (ckl, cvl) in enumerate(zip(pool.ck, pool.cv), start=1):
+        rowl = (t >> l) % nr
+        ckl[utab[:, l], rowl] = (k_lo[page, base] + k_lo[page, base + 1]) * 0.5
+        cvl[utab[:, l], rowl] = v_lo[page, base] + v_lo[page, base + 1]
+        page, base, k_lo, v_lo = utab[:, l], rowl & ~1, ckl, cvl
+    return pool
+
+
+update_cache_paged_ref.calls = 0
+
+
+def update_cache_paged_quant_ref(pool, k_new, v_new, t, utab):
+    """Plain quantized paged update, in place (mirror of
+    ``repro.core.h1d_decode._update_cache_paged_quant_jnp``): every level
+    rewrites its whole sibling pair -- dequantize, put in the new row,
+    requantize both rows with fresh per-row scales -- and carries the f32
+    pair before quantization (mean for k, sum for v).  fp32 levels write
+    the pair as it is and leave their scales untouched."""
+    update_cache_paged_quant_ref.calls += 1
+    f32 = torch.float32
+    t = t.to(torch.long)
+    utab = utab.to(torch.long)
+    nr = pool.k.shape[-2]
+    R = t.shape[0]
+    two = torch.arange(2, device=t.device)
+    carry_k, carry_v = k_new.to(f32), v_new.to(f32)
+    for l, (k, v, ksc, vsc) in enumerate(pool_levels(pool)):
+        page = utab[:, l, None].expand(R, 2)
+        rows2 = (((t >> l) % nr) & ~1)[:, None] + two[None, :]     # (R, 2)
+        pk = k[page, rows2].to(f32)                              # (R, 2, D)
+        pv = v[page, rows2].to(f32)
+        if ksc is not None:
+            pk = pk * ksc[page, rows2][..., None]
+            pv = pv * vsc[page, rows2][..., None]
+        sel = (two[None, :] == ((t >> l) & 1)[:, None])[..., None]
+        pk = torch.where(sel, carry_k[:, None, :], pk)
+        pv = torch.where(sel, carry_v[:, None, :], pv)
+        if ksc is not None:
+            qk, sk = qz.quantize_int8(pk, axis=-1)
+            qv, sv = qz.quantize_int8(pv, axis=-1)
+            k[page, rows2], v[page, rows2] = qk, qv
+            ksc[page, rows2], vsc[page, rows2] = sk[..., 0], sv[..., 0]
+        else:
+            k[page, rows2] = pk.to(k.dtype)
+            v[page, rows2] = pv.to(v.dtype)
+        carry_k = (pk[:, 0] + pk[:, 1]) * 0.5
+        carry_v = pv[:, 0] + pv[:, 1]
+    return pool
+
+
+update_cache_paged_quant_ref.calls = 0
 
 
 # ---------------------------------------------------------------------------
@@ -210,3 +364,144 @@ def update_cache_fused(cache, k_new, v_new, t):
 
 
 update_cache_fused.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# paged kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check_pool(pool, nr: int, D: int, Dv: int, quant: bool):
+    """Validate a paged pool's levels; returns (ks, vs, kscs, vscs,
+    qmask).  Levels of an fp32 pool are float32; a quantized pool's
+    levels are int8 (with (NP_l, nr) f32 scales) or float32."""
+    ks, vs = [pool.k, *pool.ck], [pool.v, *pool.cv]
+    if not 1 <= len(ks) <= 32:
+        raise ValueError(f"pool has {len(ks)} levels; 1..32 supported")
+    kscs = vscs = None
+    if quant:
+        kscs, vscs = [pool.ksc, *pool.cksc], [pool.vsc, *pool.cvsc]
+    qmask = 0
+    for l, (k, v) in enumerate(zip(ks, vs)):
+        n = k.shape[0]
+        is_q = quant and k.dtype == torch.int8
+        dt = torch.int8 if is_q else torch.float32
+        _build.expect(k, f"pool level {l} k", (n, nr, D), dt)
+        _build.expect(v, f"pool level {l} v", (n, nr, Dv), dt)
+        if is_q:
+            qmask |= 1 << l
+            _build.expect(kscs[l], f"pool level {l} k scales", (n, nr))
+            _build.expect(vscs[l], f"pool level {l} v scales", (n, nr))
+    return ks, vs, kscs, vscs, qmask
+
+
+def _attend_paged_launch(fn, pool, q, t, bidx, nr, softmax_scale, quant):
+    lib = _lib()
+    R, G, D = q.shape
+    Dv = pool.v.shape[-1]
+    ks, vs, kscs, vscs, qmask = _check_pool(pool, nr, D, Dv, quant)
+    _build.expect(q, "q", (R, G, D))
+    _build.expect(t, "t", (R,), torch.int32)
+    _build.expect(bidx, "bidx", (R, 1 + len(ks)), torch.int32)
+    scale = softmax_scale if softmax_scale is not None else 1 / math.sqrt(D)
+    out = torch.empty((R, G, Dv), dtype=torch.float32, device=q.device)
+    head = (q.data_ptr(), _ptrs(ks), _ptrs(vs))
+    tail = (t.data_ptr(), bidx.data_ptr(), out.data_ptr(), R, G, D, Dv, nr,
+            len(ks), float(scale), _build.stream())
+    if quant:
+        err = lib.h1d_decode_attend_paged_quant(
+            *head, _ptrs(kscs), _ptrs(vscs), qmask, *tail)
+    else:
+        err = lib.h1d_decode_attend_paged(*head, *tail)
+    _build.check(err, fn)
+    return out
+
+
+def decode_attend_paged(pool, q, t, bidx, *, nr: int, softmax_scale=None):
+    """Paged single-token attention.  ``pool`` a ``PagedH1DCache``; q
+    (R, G, D), t (R,) int32, bidx (R, 2 + levels) int32.  CPU tensors take
+    :func:`decode_attend_paged_ref`; CUDA tensors launch
+    ``h1d_decode_attend_paged``."""
+    if q.device.type == "cpu":
+        return decode_attend_paged_ref(pool, q, t, bidx, nr=nr,
+                                       softmax_scale=softmax_scale)
+    out = _attend_paged_launch("h1d_decode_attend_paged", pool, q, t, bidx,
+                               nr, softmax_scale, quant=False)
+    decode_attend_paged.launches += 1
+    return out
+
+
+decode_attend_paged.launches = 0
+
+
+def decode_attend_paged_quant(pool, q, t, bidx, *, nr: int,
+                              softmax_scale=None):
+    """Quantized paged attention.  ``pool`` a ``QuantPagedH1DCache``.  CPU
+    tensors take :func:`decode_attend_paged_quant_ref`; CUDA tensors
+    launch ``h1d_decode_attend_paged_quant``."""
+    if q.device.type == "cpu":
+        return decode_attend_paged_quant_ref(pool, q, t, bidx, nr=nr,
+                                             softmax_scale=softmax_scale)
+    out = _attend_paged_launch("h1d_decode_attend_paged_quant", pool, q, t,
+                               bidx, nr, softmax_scale, quant=True)
+    decode_attend_paged_quant.launches += 1
+    return out
+
+
+decode_attend_paged_quant.launches = 0
+
+
+def _update_paged_launch(fn, pool, k_new, v_new, t, utab, quant):
+    lib = _lib()
+    R, D = k_new.shape
+    Dv = v_new.shape[-1]
+    nr = pool.k.shape[-2]
+    ks, vs, kscs, vscs, qmask = _check_pool(pool, nr, D, Dv, quant)
+    _build.expect(k_new, "k_new", (R, D))
+    _build.expect(v_new, "v_new", (R, Dv))
+    _build.expect(t, "t", (R,), torch.int32)
+    _build.expect(utab, "utab", (R, len(ks)), torch.int32)
+    if nr < 2 or nr & (nr - 1):
+        raise ValueError(f"nr={nr}: pages must hold a power of two >= 2 rows")
+    if quant and D + Dv > 1024:
+        raise ValueError(f"D + Dv = {D + Dv} > 1024 (one column per thread)")
+    head = (k_new.data_ptr(), v_new.data_ptr(), t.data_ptr(),
+            utab.data_ptr(), _ptrs(ks), _ptrs(vs))
+    tail = (R, D, Dv, nr, len(ks), _build.stream())
+    if quant:
+        err = lib.h1d_update_cache_paged_quant(
+            *head, _ptrs(kscs), _ptrs(vscs), qmask, *tail)
+    else:
+        err = lib.h1d_update_cache_paged(*head, *tail)
+    _build.check(err, fn)
+    return pool
+
+
+def update_cache_paged(pool, k_new, v_new, t, utab):
+    """In-place paged append.  k_new (R, D), v_new (R, Dv), t (R,) int32,
+    utab (R, 1 + levels) int32.  CPU tensors take
+    :func:`update_cache_paged_ref`; CUDA tensors launch
+    ``h1d_update_cache_paged``.  Returns ``pool``."""
+    if k_new.device.type == "cpu":
+        return update_cache_paged_ref(pool, k_new, v_new, t, utab)
+    _update_paged_launch("h1d_update_cache_paged", pool, k_new, v_new, t,
+                         utab, quant=False)
+    update_cache_paged.launches += 1
+    return pool
+
+
+update_cache_paged.launches = 0
+
+
+def update_cache_paged_quant(pool, k_new, v_new, t, utab):
+    """In-place quantized paged append.  CPU tensors take
+    :func:`update_cache_paged_quant_ref`; CUDA tensors launch
+    ``h1d_update_cache_paged_quant``.  Returns ``pool``."""
+    if k_new.device.type == "cpu":
+        return update_cache_paged_quant_ref(pool, k_new, v_new, t, utab)
+    _update_paged_launch("h1d_update_cache_paged_quant", pool, k_new, v_new,
+                         t, utab, quant=True)
+    update_cache_paged_quant.launches += 1
+    return pool
+
+
+update_cache_paged_quant.launches = 0

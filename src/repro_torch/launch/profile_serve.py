@@ -2,9 +2,15 @@
 one batched prefill and a run of decode steps of the paper LM.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
-        [--arch h1d-lm-53m] [--rows 8] [--prompt 1024] [--max-len 2048]
+        [--arch h1d-lm-53m] [--rows 8] [--prompt 1024] [--max-len 2048] \
+        [--paged [--cache-dtype int8]]
 
-Seeded random weights and tokens.  For each phase it prints, per call,
+Seeded random weights and tokens.  ``--paged`` also profiles a paged
+decode tick over the same prompts (a dense-equivalent page pool filled
+from the prefill; ``--cache-dtype int8`` quantizes every level): the
+tick's host work (``prepare_tick``, page copies, ``build_tables`` and
+the one table copy to the card) and its decode step, reported beside
+the dense step as ``paged_decode_step``.  For each phase it prints, per call,
 the host wall time (ending in a synchronize, measured without the
 profiler), the summed device time of the kernels it ran (measured under
 it), the device busy share (device time over wall time; one stream, so
@@ -19,12 +25,15 @@ import json
 import time
 from collections import defaultdict
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config
+from repro_torch.core import hierarchy as hc
 from repro_torch.models import get_model
+from repro_torch.serve import paged_cache as pc
 
 OWN = {"band_fwd_kernel<false>": "band_attention_fwd",
        "band_fwd_kernel<true>": "band_attention_sub_fwd",
@@ -32,13 +41,18 @@ OWN = {"band_fwd_kernel<false>": "band_attention_fwd",
        "band_dkvw_kernel<false>": "band_attention_bwd",
        "band_dq_kernel<true>": "band_attention_sub_bwd",
        "band_dkvw_kernel<true>": "band_attention_sub_bwd",
-       "decode_attend_kernel": "decode_attend_fused",
-       "update_cache_kernel": "update_cache_fused"}
+       "decode_attend_kernel<false,false>": "decode_attend_fused",
+       "decode_attend_kernel<true,false>": "decode_attend_paged",
+       "decode_attend_kernel<true,true>": "decode_attend_paged_quant",
+       "update_cache_kernel<false>": "update_cache_fused",
+       "update_cache_kernel<true>": "update_cache_paged",
+       "update_cache_quant_kernel": "update_cache_paged_quant"}
 
 
 def _group(name: str) -> str:
+    compact = name.replace(" ", "")
     for key, label in OWN.items():
-        if key in name:
+        if key in compact:
             return label
     low = name.lower()
     if "gemm" in low or "gemv" in low or "cutlass" in low or "xmma" in low:
@@ -81,6 +95,46 @@ def profiled(fn, calls: int):
                             for ms, n, k in kernels[:12]]}
 
 
+def paged_tick(params, cfg, fns, tokens, args, dev):
+    """A paged decode tick over the prompts in ``tokens``: one slot per
+    row in a dense-equivalent pool filled from a fresh prefill; each call
+    prepares the write pages, applies their copies, builds and copies the
+    tables and runs the decode step."""
+    rows, Hkv = tokens.shape[0], cfg.num_kv_heads
+    pool = pc.PagePool(
+        slots=rows, max_len=args.max_len, nr=cfg.nr,
+        pool_pages=rows * (hc.padded_length(args.max_len, cfg.nr) // cfg.nr),
+        quant_levels=-1 if args.cache_dtype == "int8" else 0)
+    caches = pc.init_paged_caches(cfg, pool, device=dev)
+    with torch.inference_mode():
+        logits, dense, pos = fns.prefill(params, cfg, {"tokens": tokens},
+                                         args.max_len)
+        host = tokens.cpu().numpy().astype(np.int32)
+        writes = [(s, pool.admit(s, host[s])) for s in range(rows)]
+        pc.scatter_prefill(caches, dense, writes, Hkv, cfg.nr)
+    del dense
+    state = {"tok": logits.argmax(-1), "pos": pos}
+    pos_host = np.full((rows,), tokens.shape[1], np.int64)
+    active = np.ones((rows,), bool)
+
+    @torch.inference_mode()
+    def tick():
+        copies = {}
+        for s in range(rows):
+            pool.prepare_tick(s, int(pos_host[s]), copies)
+        pc.apply_copies(caches, copies, Hkv)
+        tabs = pc.tables_to_device(*pool.build_tables(pos_host, active, Hkv),
+                                   dev)
+        lg, _ = fns.decode_step(params, cfg, caches, state["tok"],
+                                state["pos"], page_tables=tabs)
+        state["tok"] = lg.argmax(-1)
+        state["pos"] = state["pos"] + 1
+        pos_host[:] += 1
+
+    tick()                                              # warm-up
+    return tick
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="h1d-lm-53m")
@@ -89,6 +143,10 @@ def main(argv=None):
     ap.add_argument("--max-len", type=int, default=2048)
     ap.add_argument("--decode-steps", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--paged", action="store_true",
+                    help="also profile a paged decode tick")
+    ap.add_argument("--cache-dtype", default="fp32", choices=["fp32", "int8"],
+                    help="page storage of the --paged pool")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args(argv)
 
@@ -125,6 +183,11 @@ def main(argv=None):
 
     decode()                                            # warm-up
     res["decode_step"] = profiled(decode, args.decode_steps)
+    if args.paged:
+        res["cache_dtype"] = args.cache_dtype
+        res["paged_decode_step"] = profiled(
+            paged_tick(params, cfg, fns, tokens, args, dev),
+            args.decode_steps)
     text = json.dumps(res)
     print(text)
     if args.out:

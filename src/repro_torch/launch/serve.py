@@ -6,7 +6,13 @@ seeded random weights.
 
 runs on the CUDA card; ``--device cpu`` runs the plain PyTorch path (use
 it with ``--smoke``).  Prompt lengths are drawn from ``--seed`` in
-``[--min-prompt, --max-prompt]``.
+``[--min-prompt, --max-prompt]``.  ``--paged`` serves from the paged
+page pool (``--pool-pages``, prefix sharing, copy on write, swap
+preemption) and ``--cache-dtype int8`` stores its pages as int8
+(``--quant-levels``):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --paged \
+        --cache-dtype int8 --requests 8 --slots 4 --max-len 512
 """
 from __future__ import annotations
 
@@ -35,12 +41,40 @@ def main(argv=None):
     ap.add_argument("--min-prompt", type=int, default=8)
     ap.add_argument("--max-prompt", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--paged", action="store_true",
+                    help="serve from the paged hierarchical cache pool "
+                         "(prefix sharing, copy on write, preemption) "
+                         "instead of one dense cache slab per slot")
+    ap.add_argument("--pool-pages", type=int, default=None,
+                    help="paged pool size in nr-row level-0 pages "
+                         "(default: dense-equivalent)")
+    ap.add_argument("--cache-dtype", default=None, choices=["fp32", "int8"],
+                    help="paged page storage (int8: per-row absmax scales; "
+                         "requires --paged)")
+    ap.add_argument("--quant-levels", type=int, default=None,
+                    help="with --cache-dtype int8: quantize hierarchy "
+                         "levels [0, n); -1 = all")
+    ap.add_argument("--token-budget", type=int, default=None,
+                    help="per-tick token budget (decode slots + admitted "
+                         "prefill chunks)")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="admit long prompts on a chunk of this many "
+                         "tokens and stream the rest through decode")
+    ap.add_argument("--lookahead", type=int, default=0,
+                    help="admission may skip up to this many queued "
+                         "requests that do not fit")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
     params = get_model(cfg).init(cfg, seed=args.seed, device=dev)
-    eng = ServeEngine(cfg, params, slots=args.slots, max_len=args.max_len)
+    eng = ServeEngine(cfg, params, slots=args.slots, max_len=args.max_len,
+                      paged=args.paged, pool_pages=args.pool_pages,
+                      cache_dtype=args.cache_dtype,
+                      quant_levels=args.quant_levels,
+                      token_budget=args.token_budget,
+                      prefill_chunk=args.prefill_chunk,
+                      lookahead=args.lookahead)
     rng = np.random.default_rng(args.seed)
     reqs = []
     for i in range(args.requests):
@@ -61,6 +95,13 @@ def main(argv=None):
             else "cpu")
     print(f"[serve] {cfg.name} on {name}: {len(reqs)} requests, {total} "
           f"tokens, {dt:.3f}s ({total / dt:.1f} tok/s)")
+    if args.paged:
+        st = eng.pool.stats
+        print(f"[serve] paged ({eng.cache_dtype}): pages="
+              f"{eng.pool.usable(0)} shared={st.shared_maps} "
+              f"cow={st.cow_copies} evict={st.evictions} "
+              f"preempt={eng.preemptions} hit_rate="
+              f"{st.prefix_hit_rate():.3f}")
     return reqs
 
 

@@ -3,8 +3,11 @@ single-token decode paths.
 
 Port of the h1d branches of ``repro.models.attention``.  The decode cache
 of a layer is a ``core.h1d_decode.H1DCache`` with ``batch * kv_heads``
-folded into its rows (row ``b*Hkv + h``).  Full, sliding-window and paged
-attention are later slices and raise ``NotImplementedError``.
+folded into its rows (row ``b*Hkv + h``); on the paged path it is a
+per-layer page pool (``core.h1d_decode.PagedH1DCache`` or
+``QuantPagedH1DCache``) addressed through per-tick page tables.  Full and
+sliding-window attention are later slices and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -97,9 +100,14 @@ def init_decode_cache(cfg: ModelConfig, B: int, Lmax: int, *,
                                  device=device)
 
 
-def attn_decode(p, cfg: ModelConfig, x, t, cache):
+def attn_decode(p, cfg: ModelConfig, x, t, cache, *, page_tables=None):
     """Single-token decode.  x: (B, 1, d); t: (B,) int32 current position.
-    Updates ``cache`` in place; returns (out (B, 1, d), cache)."""
+    Updates ``cache`` in place; returns (out (B, 1, d), cache).
+
+    ``page_tables`` (``core.h1d_decode.PageTables``) switches to the
+    paged pool: ``cache`` is then a ``PagedH1DCache`` (or, with int8
+    pages, a ``QuantPagedH1DCache``) and the tables route every block
+    read and write; the core entry points dispatch on the pool type."""
     _check_supported(cfg)
     B = x.shape[0]
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -108,7 +116,13 @@ def attn_decode(p, cfg: ModelConfig, x, t, cache):
     q1 = q[:, 0].reshape(B * hkv, G, hd).contiguous()
     k1 = k[:, 0].reshape(B * hkv, hd).contiguous()
     v1 = v[:, 0].reshape(B * hkv, hd).contiguous()
-    if B == 1:
+    if page_tables is not None:
+        tt = t.to(torch.int32).repeat_interleave(hkv)
+        cache = h1d_decode.update_cache_paged(cache, k1, v1, tt,
+                                              page_tables.update)
+        z = h1d_decode.decode_attend_paged(cache, q1, tt, page_tables.attend,
+                                           nr=cfg.nr)
+    elif B == 1:
         # uniform position: the scalar t is broadcast per row into the
         # same kernels as the batched path
         cache = h1d_decode.update_cache_uniform(cache, k1, v1, t[0])

@@ -18,8 +18,8 @@ class ModelFns(NamedTuple):
     loss: Callable          # (params, cfg, batch) -> (loss, metrics)
     prefill: Callable       # (params, cfg, batch, Lmax, *, true_len=None)
                             #   -> (logits, caches, pos)
-    decode_step: Callable   # (params, cfg, caches, token, t)
-                            #   -> (logits, caches)
+    decode_step: Callable   # (params, cfg, caches, token, t, *,
+                            #  page_tables=None) -> (logits, caches)
     init_caches: Callable   # (params, cfg, B, Lmax) -> caches
 
 

@@ -152,13 +152,19 @@ def lm_prefill(params, cfg: ModelConfig, tokens, Lmax: int, *,
 
 
 @torch.inference_mode()
-def lm_decode_step(params, cfg: ModelConfig, caches, token, t):
+def lm_decode_step(params, cfg: ModelConfig, caches, token, t, *,
+                   page_tables=None):
     """One decode step.  token (B,) int, t (B,) int32 positions.  Updates
-    each layer's cache in place; returns (logits (B, V), caches)."""
+    each layer's cache in place; returns (logits (B, V), caches).
+
+    ``page_tables`` (``core.h1d_decode.PageTables``) switches the layers
+    onto the paged pools (``caches`` then holds one pool per layer);
+    every layer writes the same positions, so one table pair serves the
+    whole stack."""
     h = _embed_tokens(params, cfg, token[:, None])
     for i, lp in enumerate(params["layers"]):
         a, caches[i] = attn_decode(lp["attn"], cfg, rmsnorm(lp["ln1"], h), t,
-                                   caches[i])
+                                   caches[i], page_tables=page_tables)
         h = h + a
         h = h + mlp(lp["mlp"], rmsnorm(lp["ln2"], h), cfg.mlp_activation)
     return _logits(params, cfg, h)[:, 0], caches

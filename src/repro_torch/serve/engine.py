@@ -1,38 +1,50 @@
-"""Batched serving engine on dense cache slots: continuous batching over
-prefill + single-token decode with hierarchical KV caches.
+"""Batched serving engine: continuous batching over prefill +
+single-token decode with hierarchical KV caches, on dense cache slots or
+a paged page pool.
 
-Port of ``repro.serve.engine.ServeEngine`` for dense slots and greedy
-decoding, with the reference's semantics:
+Port of ``repro.serve.engine.ServeEngine`` for greedy decoding, with the
+reference's semantics:
 
 * admission is planned per tick by the continuous-batching scheduler
   (``serve/scheduler.py``: token budget, chunked prefill, lookahead);
 * prompts are right-padded to power-of-two length buckets (capped at
   ``max_len``) and every planned request of one bucket is prefilled in
   one batched call whose row count is padded to a power of two;
-* a slot owns ``Hkv`` consecutive rows of every cache array; admission
-  writes the prefilled rows of a group in one pass;
+* on dense slots a slot owns ``Hkv`` consecutive rows of every cache
+  array; admission writes the prefilled rows of a group in one pass;
+* ``paged=True`` serves from the paged pool (``serve/paged_cache.py``):
+  device memory is bounded by ``pool_pages``, not ``slots * max_len``;
+  prompt-prefix pages are shared across requests with copy-on-write,
+  and pool exhaustion preempts the newest request (requeued; ``swap``
+  snapshots restore it bit-exact, ``recompute`` re-prefills) instead of
+  failing.  ``cache_dtype='int8'`` stores the pages as int8 with per-row
+  scales (``quant_levels``: levels ``[0, n)``, -1 = all).  The dense
+  slot path stays as the oracle;
 * prompts longer than ``max_len - 1`` are rejected or tail-truncated at
   ``submit`` (``overflow``);
 * generation ends at ``max_new_tokens``, a full cache, or a stop token
   (kept in ``out_tokens``);
 * finished and idle slots are frozen (their position stops advancing),
   so their cache writes stay in range;
-* per-tick bookkeeping reads a host-side numpy mirror of the positions.
+* per-tick bookkeeping reads a host-side numpy mirror of the positions;
+  a paged tick builds its two page tables once on the host and copies
+  them to the card in one non-blocking transfer shared by every layer.
 
-Everything runs under ``torch.inference_mode()``.  Paged pools, int8
-pages, sampling, sequence parallelism and telemetry are later slices and
-raise ``NotImplementedError``.
+Everything runs under ``torch.inference_mode()``.  Sampling, sequence
+parallelism and telemetry are later slices and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..core import hierarchy as hc
 from ..models import ModelConfig, get_model
+from . import paged_cache as pc
 from .scheduler import ContinuousBatchingScheduler, QueueEntry
 
 
@@ -49,27 +61,68 @@ class ServeEngine:
     """``overflow`` policy for prompts longer than ``max_len - 1``:
     ``'error'`` rejects at ``submit()``; ``'truncate'`` keeps the LAST
     ``max_len - 1`` prompt tokens.  The engine runs on the device of
-    ``params``."""
+    ``params``.
+
+    ``paged=True`` serves from per-layer pools of ``pool_pages`` nr-row
+    pages (default: the dense-equivalent ``slots * max_len / nr``) plus
+    proportionally sized coarse-level pools; it requires a uniform h1d
+    attention stack and is host-local (``mesh`` must be None).
+    ``prefix_sharing`` maps bit-identical prompt-prefix pages once
+    across requests, copy-on-write.  ``preempt_mode`` is ``'swap'``
+    (snapshot the victim's pages to host memory) or ``'recompute'``.
+    ``cache_dtype`` (default ``cfg.cache_dtype``) is ``'fp32'`` or
+    ``'int8'`` (requires ``paged=True``); ``quant_levels`` (default
+    ``cfg.cache_quant_levels``) limits int8 to levels ``[0, n)``.
+    ``token_budget`` / ``lookahead`` / ``prefill_chunk`` tune the
+    scheduler for either path."""
 
     def __init__(self, cfg: ModelConfig, params, *, slots: int = 8,
                  max_len: int = 512, greedy: bool = True,
-                 overflow: str = "error", paged: bool = False,
-                 cache_dtype: Optional[str] = None, mesh=None,
+                 overflow: str = "error", mesh=None, paged: bool = False,
+                 pool_pages: Optional[int] = None, prefix_sharing: bool = True,
                  token_budget: Optional[int] = None, lookahead: int = 0,
-                 prefill_chunk: Optional[int] = None):
+                 prefill_chunk: Optional[int] = None,
+                 preempt_mode: str = "swap",
+                 cache_dtype: Optional[str] = None,
+                 quant_levels: Optional[int] = None):
+        if preempt_mode not in ("swap", "recompute"):
+            raise ValueError(f"unknown preempt_mode {preempt_mode!r}")
+        if cache_dtype is None:
+            cache_dtype = cfg.cache_dtype
+        if cache_dtype not in ("fp32", "int8"):
+            raise ValueError(f"unknown cache_dtype {cache_dtype!r}")
+        if quant_levels is None:
+            quant_levels = cfg.cache_quant_levels
+        if cache_dtype == "int8" and not paged:
+            raise ValueError("cache_dtype='int8' requires paged=True: the "
+                             "dense slab cache has no per-page scale "
+                             "side-band")
+        if overflow not in ("error", "truncate"):
+            raise ValueError(f"unknown overflow policy {overflow!r}")
+        if paged:
+            if mesh is not None:
+                raise ValueError("paged serving is host-local: the page "
+                                 "tables are host state; use either "
+                                 "paged=True or mesh=, not both")
+            if (cfg.attention != "h1d" or cfg.sliding_window > 0
+                    or cfg.global_every > 0
+                    or cfg.family not in ("dense", "moe", "vlm")):
+                raise ValueError(
+                    "paged serving requires a uniform h1d attention stack "
+                    f"(family={cfg.family!r}, attention={cfg.attention!r}, "
+                    f"sliding_window={cfg.sliding_window}, "
+                    f"global_every={cfg.global_every})")
+        if mesh is not None:
+            raise NotImplementedError("sequence-parallel serving is not "
+                                      "ported yet")
         if not greedy:
             raise NotImplementedError("sampling is not ported yet; the "
                                       "engine decodes greedily")
-        if paged or mesh is not None:
-            raise NotImplementedError("paged and sequence-parallel serving "
-                                      "are not ported yet")
-        if (cache_dtype or cfg.cache_dtype) != "fp32":
-            raise NotImplementedError("int8 cache pages are not ported yet")
-        if overflow not in ("error", "truncate"):
-            raise ValueError(f"unknown overflow policy {overflow!r}")
         if cfg.attention != "h1d" or cfg.causal_mode != "fine-q":
             raise NotImplementedError(
                 "the ported engine serves h1d fine-q attention")
+        self.cache_dtype = cache_dtype
+        self.quant_levels = quant_levels
         self.cfg = cfg
         self.params = params
         self.overflow = overflow
@@ -81,8 +134,24 @@ class ServeEngine:
         self.sched = ContinuousBatchingScheduler(
             token_budget=token_budget, lookahead=lookahead,
             prefill_chunk=prefill_chunk)
+        self.paged = paged
+        self.pool = None
         with torch.inference_mode():
-            self.caches = self.fns.init_caches(params, cfg, slots, max_len)
+            if paged:
+                if pool_pages is None:       # dense-equivalent
+                    pool_pages = slots * (self.Lmax // cfg.nr)
+                self.pool = pc.PagePool(
+                    slots=slots, max_len=max_len, nr=cfg.nr,
+                    pool_pages=pool_pages,
+                    quant_levels=(quant_levels if cache_dtype == "int8"
+                                  else 0))
+                self.prefix_sharing = prefix_sharing
+                self.preempt_mode = preempt_mode
+                self.caches = pc.init_paged_caches(cfg, self.pool,
+                                                   device=self.device)
+            else:
+                self.caches = self.fns.init_caches(params, cfg, slots,
+                                                   max_len)
             self.tokens = torch.zeros((slots,), dtype=torch.int32,
                                       device=self.device)
             self.pos = torch.zeros((slots,), dtype=torch.int32,
@@ -95,6 +164,12 @@ class ServeEngine:
         # chunked prefill: prompt tokens still to stream through decode
         # ticks per slot (their logits are discarded)
         self.feed: List[List[int]] = [[] for _ in range(slots)]
+        # admission prompt per slot (preemption rebuilds the resume
+        # prompt from it) and admission serial (preemption victim order)
+        self._admitted: List[Optional[np.ndarray]] = [None] * slots
+        self._admit_serial: Dict[int, int] = {}
+        self._serial = 0
+        self.preemptions = 0
         self.queue: List[QueueEntry] = []
 
     # ------------------------------------------------------------------
@@ -121,14 +196,66 @@ class ServeEngine:
     def _stopped(self, req: Request, tok: int) -> bool:
         return bool(req.stop_tokens) and tok in req.stop_tokens
 
+    def _set_slots(self, slots: List[int], tok: List[int], pos: List[int]):
+        """Scatter tokens and positions of ``slots`` on the device."""
+        if not slots:
+            return
+        idx = torch.as_tensor(slots, dtype=torch.long, device=self.device)
+        self.tokens[idx] = torch.as_tensor(tok, dtype=torch.int32,
+                                           device=self.device)
+        self.pos[idx] = torch.as_tensor(pos, dtype=torch.int32,
+                                        device=self.device)
+
+    def _activate(self, s: int):
+        self.active[s] = True
+        self._serial += 1
+        self._admit_serial[s] = self._serial
+
     # -- admission -----------------------------------------------------
+    def _can_admit_fn(self) -> Callable[[QueueEntry], bool]:
+        """Admission feasibility for the scheduler.  The paged probe
+        commits its per-level net page need on success, so entries
+        planned earlier in the SAME tick count against later ones."""
+        if not self.paged:
+            return lambda e: True
+        planned = [0] * self.pool.M
+
+        def can(e: QueueEntry) -> bool:
+            chunk = e.prompt[:self.sched.chunk_len(len(e.prompt))]
+            need = self.pool.net_need(np.asarray(chunk, np.int32),
+                                      share=self.prefix_sharing)
+            if all(need[l] + planned[l] <= self.pool.available(l)
+                   for l in range(self.pool.M)):
+                for l in range(self.pool.M):
+                    planned[l] += need[l]
+                return True
+            return False
+
+        return can
+
     def _admit(self):
+        """Plan this tick's admissions and run one batched prefill per
+        planned bucket group.  Swap-preempted entries restore first (no
+        prefill; their pages scatter straight back), scanned over the
+        same lookahead window."""
         free = [s for s in range(self.slots) if not self.active[s]]
         if not free or not self.queue:
             return
+        j = 0
+        while free and j < min(len(self.queue), self.sched.lookahead + 1):
+            entry = self.queue[j]
+            if entry.restore is not None and self._try_restore(entry,
+                                                               free[0]):
+                free.pop(0)
+                self.queue.pop(j)
+            else:
+                j += 1
+        if not free or not self.queue:
+            return
+        can = self._can_admit_fn()
         groups, self.queue = self.sched.plan(
             self.queue, len(free), int(self.active.sum()), self._bucket_len,
-            lambda e: True)
+            lambda e: e.restore is None and can(e))
         for group in groups:
             self._admit_group(group, free)
 
@@ -148,36 +275,51 @@ class ServeEngine:
             true_len=torch.as_tensor(ns, device=self.device))
         dst = free[:g]
         del free[:g]
+
+        kept = [True] * g
+        if self.paged:
+            kept = self._paged_admit_writes(group, dst, caches)
+            if not any(kept):
+                return
         nxt = logits.argmax(-1).to(torch.int32).cpu().numpy()
 
-        # slot s owns rows [s*r, (s+1)*r) of every cache array, r = Hkv
-        r = self.cfg.num_kv_heads
-        rows = torch.as_tensor(
-            np.concatenate([np.arange(s * r, (s + 1) * r) for s in dst]),
-            device=self.device)
-        for full, one in zip(self.caches, caches):
-            for fa, oa in zip((full.k, full.v, *full.ck, *full.cv),
-                              (one.k, one.v, *one.ck, *one.cv)):
-                fa.index_copy_(0, rows, oa[:g * r])
+        if not self.paged:
+            # slot s owns rows [s*r, (s+1)*r) of every cache array
+            r = self.cfg.num_kv_heads
+            rows = torch.as_tensor(
+                np.concatenate([np.arange(s * r, (s + 1) * r) for s in dst]),
+                device=self.device)
+            for full, one in zip(self.caches, caches):
+                for fa, oa in zip((full.k, full.v, *full.ck, *full.cv),
+                                  (one.k, one.v, *one.ck, *one.cv)):
+                    fa.index_copy_(0, rows, oa[:g * r])
 
         slot_w: List[int] = []
         tok_w: List[int] = []
         pos_w: List[int] = []
         for i, entry in enumerate(group.entries):
+            if not kept[i]:
+                continue
             s = dst[i]
             req = entry.req
             chunk_n = int(ns[i])
             self.pos_host[s] = chunk_n
+            self._admitted[s] = entry.prompt
             slot_w.append(s)
             pos_w.append(chunk_n)
             remainder = list(entry.prompt[chunk_n:].tolist())
+            if entry.resume_token is not None:
+                # preemption-resume: the next input was sampled before
+                # the preemption -- never re-sample it
+                remainder.append(int(entry.resume_token))
             if remainder:
-                # chunked prefill: the next input is known, the sampled
-                # token is dropped and the tail streams through decode
+                # chunked prefill (or resume): the next input is known,
+                # the sampled token is dropped and the tail streams
+                # through the decode ticks
                 tok_w.append(remainder[0])
                 self.feed[s] = remainder[1:]
                 self.req[s] = req
-                self.active[s] = True
+                self._activate(s)
                 continue
             tok_w.append(int(nxt[i]))
             self.feed[s] = []
@@ -191,17 +333,131 @@ class ServeEngine:
             if done:
                 self._release(s)
             else:
-                self.active[s] = True
-        idx = torch.as_tensor(slot_w, dtype=torch.long, device=self.device)
-        self.tokens[idx] = torch.as_tensor(tok_w, dtype=torch.int32,
-                                           device=self.device)
-        self.pos[idx] = torch.as_tensor(pos_w, dtype=torch.int32,
-                                        device=self.device)
+                self._activate(s)
+        self._set_slots(slot_w, tok_w, pos_w)
 
+    def _paged_admit_writes(self, group, dst, caches) -> List[bool]:
+        """Map pool pages for every entry (prefix-sharing aware) and
+        scatter the freshly prefilled blocks into the registry-missed
+        pages.  An entry the pool cannot hold is unwound and requeued at
+        the head.  Returns the per-entry kept mask."""
+        writes = []
+        kept = [False] * len(group.entries)
+        failed = []
+        for i, (entry, chunk) in enumerate(zip(group.entries,
+                                               group.chunks)):
+            s = dst[i]
+            try:
+                w = self.pool.admit(s, np.asarray(chunk, np.int32),
+                                    share=self.prefix_sharing)
+                writes.append((i, w))
+                kept[i] = True
+            except pc.PoolExhausted:
+                self.pool.release_slot(s)
+                failed.append(entry)
+        # requeue unwound entries as a block, preserving arrival order
+        self.queue[:0] = failed
+        if writes:
+            pc.scatter_prefill(self.caches, caches, writes,
+                               self.cfg.num_kv_heads, self.cfg.nr)
+        return kept
+
+    # -- release / preemption ------------------------------------------
     def _release(self, s: int):
+        """Finish a slot: free its pages, clear bookkeeping."""
         self.active[s] = False
         self.req[s] = None
         self.feed[s] = []
+        self._admitted[s] = None
+        self._admit_serial.pop(s, None)
+        if self.paged:
+            self.pool.release_slot(s)
+
+    def _preempt(self, victim: int):
+        """Evict a running request from its slot (pool pressure) and
+        requeue it at the HEAD.  ``swap`` snapshots its pages to host
+        memory and restores them bit-exact at re-admission; ``recompute``
+        folds the generated tokens into a resume prompt and re-prefills
+        (the recomputed cache matches the decode-built one to ~1e-6, so
+        greedy continuations may drift at argmax near-ties); the already
+        sampled next input rides along as ``resume_token``."""
+        req = self.req[victim]
+        base = self._admitted[victim]
+        if self.preempt_mode == "swap":
+            snap = pc.snapshot_slot(self.caches, self.pool, victim,
+                                    self.cfg.num_kv_heads)
+            entry = QueueEntry(
+                req=req, prompt=base,
+                restore={"pos": int(self.pos_host[victim]),
+                         "tok": int(self.tokens[victim]),
+                         "feed": list(self.feed[victim]), "pages": snap})
+        elif req.out_tokens:
+            prompt = np.concatenate(
+                [base, np.asarray(req.out_tokens[:-1], np.int32)])
+            entry = QueueEntry(req=req, prompt=prompt.astype(np.int32),
+                               resume_token=int(req.out_tokens[-1]))
+        else:
+            # recompute mode, still prefilling: redo the whole prompt
+            entry = QueueEntry(req=req, prompt=base)
+        self.queue.insert(0, entry)
+        self._release(victim)
+        self.preemptions += 1
+
+    def _try_restore(self, entry: QueueEntry, s: int) -> bool:
+        """Swap-in a preempted entry into free slot ``s``; False when
+        the pool cannot hold its pages yet."""
+        snap = entry.restore["pages"]
+        need = {l: len(entry_l[0]) for l, entry_l in snap.items()}
+        if any(n > self.pool.available(l) for l, n in need.items()):
+            return False
+        try:
+            pc.restore_slot(self.caches, self.pool, s, snap,
+                            self.cfg.num_kv_heads)
+        except pc.PoolExhausted:       # estimate raced; unwind
+            self.pool.release_slot(s)
+            return False
+        self.req[s] = entry.req
+        self._admitted[s] = entry.prompt
+        self.feed[s] = list(entry.restore["feed"])
+        self.pos_host[s] = entry.restore["pos"]
+        self._set_slots([s], [int(entry.restore["tok"])],
+                        [int(entry.restore["pos"])])
+        self._activate(s)
+        return True
+
+    def _paged_prepare(self):
+        """Allocate / copy-on-write this tick's write-set pages for every
+        active slot, preempting the newest request on pool exhaustion."""
+        copies: Dict[int, List[Tuple[int, int]]] = {}
+
+        def flush():
+            # preemption snapshots read the pools: pending copies
+            # (possibly the victim's own) must land first
+            nonlocal copies
+            if copies:
+                pc.apply_copies(self.caches, copies, self.cfg.num_kv_heads)
+                copies = {}
+
+        order = sorted((serial, s) for s, serial in
+                       self._admit_serial.items())
+        for _, s in order:
+            if not self.active[s]:
+                continue
+            while True:
+                try:
+                    self.pool.prepare_tick(s, int(self.pos_host[s]), copies)
+                    break
+                except pc.PoolExhausted:
+                    victim = self.sched.choose_victim(self._admit_serial)
+                    if victim == s and len(self._admit_serial) == 1:
+                        raise RuntimeError(
+                            "page pool exhausted with a single active "
+                            "request; increase pool_pages") from None
+                    flush()
+                    self._preempt(victim)
+                    if victim == s:    # newest == self: requeued, move on
+                        break
+        flush()
 
     # -- tick ----------------------------------------------------------
     @torch.inference_mode()
@@ -211,8 +467,19 @@ class ServeEngine:
         self._admit()
         if not self.active.any():
             return 0
-        logits, self.caches = self.fns.decode_step(
-            self.params, self.cfg, self.caches, self.tokens, self.pos)
+        if self.paged:
+            self._paged_prepare()
+            if not self.active.any():        # everything preempted
+                return 0
+            tabs = pc.tables_to_device(
+                *self.pool.build_tables(self.pos_host, self.active,
+                                        self.cfg.num_kv_heads), self.device)
+            logits, self.caches = self.fns.decode_step(
+                self.params, self.cfg, self.caches, self.tokens, self.pos,
+                page_tables=tabs)
+        else:
+            logits, self.caches = self.fns.decode_step(
+                self.params, self.cfg, self.caches, self.tokens, self.pos)
         nxt = logits.argmax(-1).to(torch.int32)
         self.tokens = nxt
         # freeze finished and idle slots: only slots active for THIS

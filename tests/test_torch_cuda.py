@@ -7,10 +7,12 @@ count nowhere on a CPU run.  On a machine with a card:
 These cover shapes the smoke (``chip_smoke.py``) does not: GQA groups
 G > 1, nr from 4 to 32, head widths that are not a multiple of 32 and up
 to 128, weight-0 keys and fully masked rows, every mask edge of the
-decode positions, every sub level up to ratio 32.  Tolerances as in
-``chip_smoke.py``: attention forward within 1e-5 scaled by max(1,
-|plain|) (fp32 on both sides, another summation order), cache updates
-bit-exact, backward within 1e-4 scaled by max(1, |plain|) where |plain|
+decode positions, every sub level up to ratio 32, paged pools with int8,
+mixed and fp32 levels.  Tolerances as in ``chip_smoke.py``: attention
+forward within 1e-5 scaled by max(1, |plain|) (fp32 on both sides,
+another summation order), cache updates bit-exact (paged ones outside
+the TRASH page, whose rows several inactive rows write at once),
+backward within 1e-4 scaled by max(1, |plain|) where |plain|
 of a gradient vector's entry is the largest magnitude of that vector
 (a key's dK sums up to nq * G = 512 rows whose terms cancel in single
 columns; fp32 rounding is bounded by the terms' size, not by one
@@ -307,3 +309,148 @@ def test_smoke_training_on_card_matches_cpu(dev):
                 kernel, plain = kernels.KERNELS[name]
                 assert kernel.launches > 0 and plain.calls == 0, name
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# paged pools (#7-#10)
+# ---------------------------------------------------------------------------
+
+def _paged_pool(gen, dev, M, nr, npages, D, Dv, quant):
+    """Random pool: ``quant`` None for fp32, else per-level int8 flags."""
+    def lvl(l, d, is_q):
+        if is_q:
+            return torch.randint(-127, 128, (npages, nr, d), generator=gen,
+                                 device=dev, dtype=torch.int8)
+        return _randn(gen, dev, npages, nr, d) * 2 ** l
+
+    def sc():
+        return torch.rand((npages, nr), generator=gen, device=dev) * 0.05 \
+            + 1e-3
+
+    flags = quant or (False,) * M
+    k = [lvl(l, D, flags[l]) for l in range(M)]
+    v = [lvl(l, Dv, flags[l]) for l in range(M)]
+    if quant is None:
+        return hd.PagedH1DCache(k[0], v[0], tuple(k[1:]), tuple(v[1:]))
+    ks = [sc() if flags[l] else torch.ones((npages, nr), device=dev)
+          for l in range(M)]
+    vs = [sc() if flags[l] else torch.ones((npages, nr), device=dev)
+          for l in range(M)]
+    return hd.QuantPagedH1DCache(k[0], v[0], tuple(k[1:]), tuple(v[1:]),
+                                 ks[0], vs[0], tuple(ks[1:]), tuple(vs[1:]))
+
+
+def _quant(pattern, M):
+    return {None: None, "all": (True,) * M,
+            "ql1": (True,) + (False,) * (M - 1),
+            "ql2": (True, True) + (False,) * (M - 2)}[pattern]
+
+
+def _pool_clone(p):
+    return type(p)(*[tuple(a.clone() for a in x) if isinstance(x, tuple)
+                     else x.clone() for x in p])
+
+
+def _pool_arrays(p):
+    return [a for x in p for a in (x if isinstance(x, tuple) else (x,))]
+
+
+@pytest.mark.parametrize("Lmax,nr,G,D,Dv,quant", [
+    (2048, 16, 1, 64, 64, None), (2048, 16, 1, 64, 64, "all"),
+    (256, 8, 4, 16, 16, "ql1"), (512, 16, 2, 40, 24, "ql2"),
+    (128, 4, 2, 16, 16, "all"), (256, 32, 3, 64, 64, None)])
+def test_paged_attend_matches_plain(dev, Lmax, nr, G, D, Dv, quant):
+    gen = torch.Generator(device=dev).manual_seed(Lmax + nr + G)
+    M = hc.num_levels(Lmax, nr)
+    ts = _ts(Lmax, nr)
+    R, npages = len(ts), 3 * len(ts) + 2
+    pool = _paged_pool(gen, dev, M, nr, npages, D, Dv, _quant(quant, M))
+    t = torch.tensor(ts, dtype=torch.int32, device=dev)
+    bidx = torch.randint(0, npages, (R, 1 + M), generator=gen, device=dev,
+                         dtype=torch.int32)
+    q = _randn(gen, dev, R, G, D)
+    kernel, plain = ((dk.decode_attend_paged, dk.decode_attend_paged_ref)
+                     if quant is None else
+                     (dk.decode_attend_paged_quant,
+                      dk.decode_attend_paged_quant_ref))
+    _close([kernel(pool, q, t, bidx, nr=nr)],
+           [plain(pool, q, t, bidx, nr=nr)])
+
+
+@pytest.mark.parametrize("Lmax,nr,D,Dv,quant", [
+    (2048, 16, 64, 64, None), (2048, 16, 64, 64, "all"),
+    (128, 8, 16, 40, "ql1"), (256, 4, 24, 8, "ql2"), (256, 32, 64, 64, None)])
+def test_paged_update_bit_exact_outside_trash(dev, Lmax, nr, D, Dv, quant):
+    """Five chained appends from 8 rows, two of them inactive (their
+    update rows all on the TRASH page, as the engine builds them): the
+    kernel equals the plain version bit for bit on every pool row except
+    TRASH's, and a second run of the kernel gives the same bits there."""
+    gen = torch.Generator(device=dev).manual_seed(Lmax + nr)
+    M = hc.num_levels(Lmax, nr)
+    R, npages, trash = 8, 40, 1
+    base = _paged_pool(gen, dev, M, nr, npages, D, Dv, _quant(quant, M))
+    a, b, c = _pool_clone(base), _pool_clone(base), _pool_clone(base)
+    kernel, plain = ((dk.update_cache_paged, dk.update_cache_paged_ref)
+                     if quant is None else
+                     (dk.update_cache_paged_quant,
+                      dk.update_cache_paged_quant_ref))
+    for step in range(5):
+        t = torch.randint(0, Lmax, (R,), generator=gen, device=dev,
+                          dtype=torch.int32)
+        utab = torch.stack([torch.randperm(npages - 2, generator=gen,
+                                           device=dev)[:R] + 2
+                            for _ in range(M)], 1).to(torch.int32)
+        utab[R - 2:] = trash
+        kn, vn = _randn(gen, dev, R, D), _randn(gen, dev, R, Dv)
+        kernel(a, kn, vn, t, utab)
+        kernel(c, kn, vn, t, utab)
+        plain(b, kn, vn, t, utab)
+        for x, y, z in zip(_pool_arrays(a), _pool_arrays(b),
+                           _pool_arrays(c)):
+            keep = torch.ones(x.shape[0], dtype=torch.bool, device=dev)
+            keep[trash] = False
+            assert torch.equal(x[keep], y[keep])
+            assert torch.equal(x[keep], z[keep])
+            assert torch.isfinite(x.float()).all()
+
+
+def test_paged_smoke_engines_on_card_match_cpu(dev):
+    """The smoke model served from paged pools on the card (fp32 with
+    prefix sharing, copy on write and swap preemption; int8 at every
+    level) gives the CPU's tokens, through #7/#9 and #8/#10 alone."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import get_model
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg = get_smoke_config("h1d-lm-53m")
+    rng = np.random.default_rng(7)
+    pre = rng.integers(0, cfg.vocab_size, 21).astype(np.int32)
+    prompts = [np.concatenate([pre, rng.integers(0, cfg.vocab_size, n)
+                               .astype(np.int32)]) for n in (3, 9, 14, 5)]
+    prompts += [prompts[0], prompts[1]]
+    runs = {"fp32": (dict(pool_pages=8, lookahead=4),
+                     ("decode_attend_paged", "update_cache_paged")),
+            "int8": (dict(cache_dtype="int8"),
+                     ("decode_attend_paged_quant",
+                      "update_cache_paged_quant"))}
+    for name, (kw, used) in runs.items():
+        outs = {}
+        for device in ("cpu", "cuda"):
+            params = get_model(cfg).init(cfg, seed=2, device=device)
+            eng = ServeEngine(cfg, params, slots=4, max_len=64, paged=True,
+                              **kw)
+            reqs = [Request(uid=i, prompt=p, max_new_tokens=8)
+                    for i, p in enumerate(prompts)]
+            for r in reqs:
+                eng.submit(r)
+            kernels.reset_counts()
+            eng.run()
+            outs[device] = [r.out_tokens for r in reqs]
+            if device == "cuda":
+                for k in used:
+                    kernel, plain = kernels.KERNELS[k]
+                    assert kernel.launches > 0 and plain.calls == 0, k
+                assert eng.pool.stats.shared_maps > 0
+                if name == "fp32":
+                    assert eng.preemptions > 0
+        assert outs["cuda"] == outs["cpu"], name

@@ -216,5 +216,20 @@ def test_wrappers_raise_on_cuda_request_without_card():
             kernels.decode_attend_fused(cache, _meta(B, 1, d), t, nr=8)
         with pytest.raises(RuntimeError):
             kernels.update_cache_fused(cache, _meta(B, d), _meta(B, d), t)
+        pool = thd.PagedH1DCache(_meta(6, 8, d), _meta(6, 8, d),
+                                 (_meta(6, 8, d),), (_meta(6, 8, d),))
+        qpool = thd.QuantPagedH1DCache(*pool, _meta(6, 8), _meta(6, 8),
+                                       (_meta(6, 8),), (_meta(6, 8),))
+        bidx = torch.empty((B, 3), dtype=torch.int32, device="meta")
+        utab = torch.empty((B, 2), dtype=torch.int32, device="meta")
+        for p, attend, update in (
+                (pool, kernels.decode_attend_paged,
+                 kernels.update_cache_paged),
+                (qpool, kernels.decode_attend_paged_quant,
+                 kernels.update_cache_paged_quant)):
+            with pytest.raises(RuntimeError):
+                attend(p, _meta(B, 1, d), t, bidx, nr=8)
+            with pytest.raises(RuntimeError):
+                update(p, _meta(B, d), _meta(B, d), t, utab)
     for kernel, plain in kernels.KERNELS.values():
         assert kernel.launches == 0 and plain.calls == 0

@@ -5,6 +5,8 @@ Greedy tokens are compared exactly.  So that a near-tie (two logits
 closer than the 1e-4 model tolerance) fails loudly instead of flaking,
 every generated token's top-2 logit margin is checked to exceed 1e-3 on
 the port's teacher-forced logits."""
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 
@@ -121,11 +123,26 @@ def test_overflow_policy_and_frozen_idle_slots(smoke):
 
 
 def test_unported_engine_options_raise(smoke):
+    """Sampling and sequence-parallel serving are later slices."""
     cfg, params, tcfg, tparams = smoke
-    for kw in (dict(greedy=False), dict(paged=True),
-               dict(cache_dtype="int8"), dict(mesh=object())):
+    for kw in (dict(greedy=False), dict(mesh=object())):
         with pytest.raises(NotImplementedError):
             ServeEngine(tcfg, tparams, **kw)
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(cache_dtype="int8"), "requires paged=True"),
+    (dict(paged=True, preempt_mode="evict"), "unknown preempt_mode"),
+    (dict(paged=True, mesh=SimpleNamespace(shape={"data": 1})),
+     "host-local"),
+    (dict(paged=True, cache_dtype="bf16"), "unknown cache_dtype")])
+def test_paged_option_validation_matches_reference(smoke, kw, match):
+    """The paged options fail with the reference engine's ValueErrors."""
+    cfg, params, tcfg, tparams = smoke
+    for engine, p, c in ((JaxEngine, params, cfg),
+                         (ServeEngine, tparams, tcfg)):
+        with pytest.raises(ValueError, match=match):
+            engine(c, p, slots=2, max_len=64, **kw)
 
 
 @pytest.mark.parametrize("budget,lookahead,chunk", [
