@@ -10,12 +10,19 @@ Phases (each raises on failure; nothing is caught):
 2. hold each forward and decode kernel against its plain PyTorch version
    on the card at the shapes of the serving path below, and time both
    with CUDA events around the call (``ms``, wrapper included) and the
-   kernel alone with torch.profiler (``device_ms``);
+   kernel alone with torch.profiler (``device_ms``); #1 in each band
+   mode, one row per mode: ``l0_causal`` at the serving shapes,
+   ``l0_bidir``, ``coarse_bidir`` and ``coarse_causal`` at the LRA
+   path's (8 sequences x 8 heads, G=1, L=2048, d=64, nr=16, each
+   sequence right-padded to a seeded true length in 500..2000; the
+   coarse modes at every coarse level 1..6 of the coarsened chain,
+   queries coarsened too);
 3. the same for the two backward kernels at the training path's shapes
-   (8 rows x 8 kv-heads, L=1024, every sub level), from the forward
-   kernels' saved outputs and seeded random cotangents; both fp32 paths
-   are also measured against the float64 gradient of the same level
-   (autograd of a dense masked forward) and reported;
+   (8 rows x 8 kv-heads, L=1024, every sub level) and #3 in the three
+   modes above at the LRA shapes, from the forward kernels' saved
+   outputs and seeded random cotangents; both fp32 paths are also
+   measured against the float64 gradient of the same level (autograd
+   of a dense masked forward) and reported;
    The four paged decode kernels are held against their plain versions
    at paged serving shapes: 64 rows (8 slots x 8 kv-heads), G=1, d=64,
    nr=16, max_len 2048, pools of 1024+2 pages x 8 heads at every level,
@@ -49,7 +56,26 @@ Phases (each raises on failure; nothing is caught):
    launched and no plain version run; tokens/s over the wall time of the
    steps after the first;
 7. the whole model's ``lm_loss`` gradient for one 2 x 1024 batch on the
-   kernel path against the plain path on the card, leaf by leaf.
+   kernel path against the plain path on the card, leaf by leaf;
+8. ``lra``: the paper's LRA encoder ``h1d-lra-encoder`` at full width
+   and depth (6 x 512, 8 heads, FFN 2048, nr 16, vocab 256) from seeded
+   random weights: (a) classify one held-out ``ListOps(seq_len=2048,
+   batch_per_host=64, seed=999)`` batch under inference mode, logits
+   within 1e-3 of the plain path's, wall per call and classifications
+   per second; (b) 10 AdamW steps (warmup 10 and weight decay 0.01 as
+   ``benchmarks/bench_lra_listops.py``, peak 3e-4 as phase 6: the
+   bench's 2e-3 suits its 64-wide model, and at full width the loss
+   rises under it) on ``ListOps(seq_len=2048, batch_per_host=32,
+   seed=0)`` batches: every loss finite, the
+   mean of the last five below the first, median step ms, tokens/s, mean
+   true length, peak memory, and the busy share of one step; in (a) and
+   (b) every bidirectional mode of #1 (and of #3 in (b)) launched and no
+   plain version run; (c) the encoder's ``classifier_loss`` gradient for
+   a 2 x 2048 batch, kernel against plain path, leaf by leaf as in 7;
+   (d) ``h1d-lm-53m`` with ``causal_mode='coarse-q'``: 3 AdamW steps
+   through ``train`` (#1 and #3 in ``l0_causal`` and ``coarse_causal``
+   launched, no plain version run), then its ``lm_loss`` gradient at
+   2 x 1024 as in 7.
 
 Tolerances.  Attention outputs: |kernel - plain| <= 1e-5 * max(1,
 |plain|): both are fp32 with TF32 off and differ only in summation order
@@ -80,6 +106,7 @@ package is missing beside this file.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import subprocess
@@ -107,6 +134,11 @@ BWD_LAUNCH = ("one launch is one wrapper call of two kernels: dQ, then "
 # serving path of h1d-lm-53m: 8 prompts x 8 kv-heads, head_dim 64, nr 16
 B, G, L, D, NR = 64, 1, 1024, 64, 16
 R, LMAX = 64, 2048
+# LRA path of h1d-lra-encoder: 8 ListOps sequences x 8 heads, L 2048
+LRA_L = 2048
+NEW_MODES = ("l0_bidir", "coarse_bidir", "coarse_causal")
+NUM_CLASSES = 10            # ListOps answers 0..9
+LRA_PEAK_LR = 3e-4          # TrainConfig.peak_lr, as phase 6
 
 
 def log(msg: str) -> None:
@@ -205,13 +237,96 @@ def band_inputs(dev):
     return gen, randn, q, k, v, w
 
 
-def band_pairs(dev, mode, Lk, ratio, wk):
+def band_pairs(dev, mode, Lk, ratio, wk, Lq=L):
     """(query, key) pairs the band admits on this run's weights."""
     from repro_torch.kernels import h1d_block as hb
-    i = torch.arange(L, device=dev)[:, None]
+    i = torch.arange(Lq, device=dev)[:, None]
     j = torch.arange(Lk, device=dev)[None, :]
     allow = hb.band_mask(i, j, NR, mode, Lk, ratio)
     return int((allow[None] & (wk > 0)[:, None, :]).sum()) * G
+
+
+def lra_band_inputs(dev):
+    """Seeded (randn, q, k, v, w) at the LRA path's shapes: 8 sequences x
+    8 heads, L 2048, each sequence right-padded to a true length in
+    500..2000 (its 8 heads alike), as ListOps batches are."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    lens = torch.randint(500, 2001, (B // 8,), generator=gen, device=dev)
+    w = (torch.arange(LRA_L, device=dev)[None]
+         < lens.repeat_interleave(8)[:, None]).float()
+    q = randn(B, G, LRA_L, D) / math.sqrt(D)
+    k = randn(B, LRA_L, D)
+    v = randn(B, LRA_L, D) * w[..., None]
+    return randn, q, k, v, w
+
+
+def lra_levels(mode, q, k, v, w):
+    """(level, (q, k, v, w)) of every launch of ``mode`` in one encoder
+    (or coarse-q) attention: level 0 for l0_bidir; the coarse levels 1..6
+    of the coarsened chain (queries too, as h1d_attention runs them)."""
+    from repro_torch.core import hierarchy as hc
+    if mode.startswith("l0"):
+        return [(0, (q, k, v, w))]
+    out = []
+    qc, kc, vc, wc = q, k, v, w
+    for lvl in range(1, hc.num_levels(LRA_L, NR)):
+        kc, _ = hc.coarsen_weighted_mean(kc, wc)
+        qc, _ = hc.coarsen_weighted_mean(qc, wc)
+        vc = hc.coarsen_sum(vc, axis=-2)
+        wc = hc.coarsen_sum(wc, axis=-1)
+        out.append((lvl, tuple(t.contiguous() for t in (qc, kc, vc, wc))))
+    return out
+
+
+def phase_mode_kernels(dev):
+    """#1 in the three modes of the LRA and coarse-q paths against its
+    plain version, at the LRA path's shapes: one row per mode, summed
+    over its levels."""
+    from repro_torch.kernels import h1d_block as hb
+
+    _, q, k, v, w = lra_band_inputs(dev)
+    rows = []
+    for mode in NEW_MODES:
+        tot = dict(err=0.0, ms=0.0, device_ms=0.0, plain_ms=0.0, nbytes=0,
+                   flops=0)
+        levels = lra_levels(mode, q, k, v, w)
+        for lvl, args in levels:
+            ker = hb.band_attention_fwd(*args, nr=NR, mode=mode)
+            ref = hb.band_attention_fwd_ref(*args, nr=NR, mode=mode)
+            e, *_ = compare(f"band_attention_fwd {mode} level {lvl}", ker,
+                            ref, ATTN_TOL)
+            tot["err"] = max(tot["err"], e)
+            tot["ms"] += time_ms(lambda: hb.band_attention_fwd(
+                *args, nr=NR, mode=mode))
+            tot["device_ms"] += device_ms(lambda: hb.band_attention_fwd(
+                *args, nr=NR, mode=mode))
+            tot["plain_ms"] += time_ms(lambda: hb.band_attention_fwd_ref(
+                *args, nr=NR, mode=mode))
+            Lq = args[0].shape[-2]
+            tot["flops"] += band_pairs(dev, mode, Lq, 1, args[3],
+                                       Lq=Lq) * (4 * D + 3)
+            tot["nbytes"] += 4 * (sum(t.numel() for t in args)
+                                  + B * G * Lq * (D + 2))
+            log(f"band_attention_fwd {mode} level {lvl} (L={Lq}): max abs "
+                f"err {e:.3g}")
+        bms, by = bound(tot["nbytes"], tot["flops"])
+        span = ("level 0" if len(levels) == 1 else
+                f"the {len(levels)} coarse levels (L={LRA_L >> 1}.."
+                f"{LRA_L >> len(levels)})")
+        rows.append(dict(
+            name=f"band_attention_fwd[{mode}]", mode=mode, route="cuda",
+            source="src/repro_torch/kernels/csrc/h1d_block.cu",
+            replaces="src/repro/kernels/h1d_block.py:299",
+            max_abs_err=tot["err"], ms=tot["ms"],
+            device_ms=tot["device_ms"], plain_ms=tot["plain_ms"],
+            bound_ms=bms, bound_by=by, library_ms=None,
+            note=f"sum over {span} of one L={LRA_L} attention, 64 rows "
+                 f"padded to true lengths 500..2000"))
+    return rows
 
 
 def phase_kernels(dev):
@@ -229,14 +344,15 @@ def phase_kernels(dev):
     def pairs(mode, Lk, ratio, wk):
         return band_pairs(dev, mode, Lk, ratio, wk)
 
-    ker = hb.band_attention_fwd(q, k, v, w, nr=NR)
-    ref = hb.band_attention_fwd_ref(q, k, v, w, nr=NR)
+    ker = hb.band_attention_fwd(q, k, v, w, nr=NR, mode="l0_causal")
+    ref = hb.band_attention_fwd_ref(q, k, v, w, nr=NR, mode="l0_causal")
     err, *_ = compare("band_attention_fwd", ker, ref, ATTN_TOL)
     nbytes = f4 * (q.numel() + k.numel() + v.numel() + w.numel()
                    + B * G * L * (D + 2))
     bms, by = bound(nbytes, pairs("l0_causal", L, 1, w) * (4 * D + 3))
     rows.append(dict(
-        name="band_attention_fwd", route="cuda",
+        name="band_attention_fwd[l0_causal]", mode="l0_causal",
+        route="cuda",
         source="src/repro_torch/kernels/csrc/h1d_block.cu",
         replaces="src/repro/kernels/h1d_block.py:299",
         max_abs_err=err,
@@ -577,7 +693,8 @@ def phase_bwd_kernels(dev):
     # dq, dk, dv are stacks of vectors; dw and gmn scalars per row
     rows3 = ("row", "row", "row")
 
-    def one(forward, kernel, plain, fwd, label, mode, **kw):
+    def one(forward, kernel, plain, fwd, label, mask_mode, randn=randn,
+            **kw):
         out = forward(*fwd, **kw)
         cot = tuple(randn(*t.shape) for t in out)
         args = (*fwd, *out, *cot)
@@ -585,7 +702,7 @@ def phase_bwd_kernels(dev):
         want = plain(*args, **kw)
         err, scaled, elem = compare(label, got, want, GRAD_TOL, rows3)
         ratio = kw.get("ratio", 1)
-        exact, near = exact_grads(fwd, cot, mode, ratio)
+        exact, near = exact_grads(fwd, cot, mask_mode, ratio)
         witness = dict(ratio=ratio, near_ties=near)
         for who, res in (("kernel", got), ("plain", want)):
             e = errors(label, res[:4], exact, rows3)
@@ -615,11 +732,12 @@ def phase_bwd_kernels(dev):
     rows = []
     r = one(hb.band_attention_fwd, hbb.band_attention_bwd,
             hbb.band_attention_bwd_ref, (q, k, v, w), "band_attention_bwd",
-            "l0_causal", nr=NR)
+            "l0_causal", nr=NR, mode="l0_causal")
     bms, by = bound(r["nbytes"],
                     band_pairs(dev, "l0_causal", L, 1, w) * per_pair)
     rows.append(dict(
-        name="band_attention_bwd", route="cuda",
+        name="band_attention_bwd[l0_causal]", mode="l0_causal",
+        route="cuda",
         source="src/repro_torch/kernels/csrc/h1d_block_bwd.cu",
         replaces="src/repro/kernels/h1d_block_bwd.py:541",
         max_abs_err=r["err"], max_scaled_err=r["scaled"],
@@ -665,7 +783,56 @@ def phase_bwd_kernels(dev):
         bound_ms=bms, bound_by=by, library_ms=None,
         note=f"sum over the {M - 1} sub levels (ratio 2..{1 << (M - 1)}) "
              f"of one L={L} training step's attention; {BWD_LAUNCH}"))
+
+    # the three modes of the LRA and coarse-q paths, at the LRA shapes
+    lra_randn, q, k, v, w = lra_band_inputs(dev)
+    for mode in NEW_MODES:
+        tot = dict(err=0.0, scaled=0.0, elem=0.0, ms=0.0, device_ms=0.0,
+                   plain_ms=0.0, nbytes=0, flops=0, witness=[])
+        levels = lra_levels(mode, q, k, v, w)
+        for lvl, fwd in levels:
+            Lq = fwd[0].shape[-2]
+            r = one(hb.band_attention_fwd, hbb.band_attention_bwd,
+                    hbb.band_attention_bwd_ref, fwd,
+                    f"band_attention_bwd {mode} level {lvl}", mode,
+                    randn=lra_randn, nr=NR, mode=mode)
+            for key in ("ms", "device_ms", "plain_ms", "nbytes"):
+                tot[key] += r[key]
+            for key in ("err", "scaled", "elem"):
+                tot[key] = max(tot[key], r[key])
+            tot["witness"].append(dict(r["witness"], level=lvl))
+            tot["flops"] += band_pairs(dev, mode, Lq, 1, fwd[3],
+                                       Lq=Lq) * per_pair
+            log(f"band_attention_bwd {mode} level {lvl} (L={Lq}): max abs "
+                f"err {r['err']:.3g}, scaled {r['scaled']:.3g} "
+                f"(elementwise {r['elem']:.3g}), {r['ms']:.3f} ms")
+        bms, by = bound(tot["nbytes"], tot["flops"])
+        span = ("level 0" if len(levels) == 1 else
+                f"the {len(levels)} coarse levels (L={LRA_L >> 1}.."
+                f"{LRA_L >> len(levels)})")
+        rows.append(dict(
+            name=f"band_attention_bwd[{mode}]", mode=mode, route="cuda",
+            source="src/repro_torch/kernels/csrc/h1d_block_bwd.cu",
+            replaces="src/repro/kernels/h1d_block_bwd.py:541",
+            max_abs_err=tot["err"], max_scaled_err=tot["scaled"],
+            max_elementwise_scaled_err=tot["elem"],
+            f64_witness=tot["witness"], ms=tot["ms"],
+            device_ms=tot["device_ms"], plain_ms=tot["plain_ms"],
+            bound_ms=bms, bound_by=by, library_ms=None,
+            note=f"sum over {span} of one L={LRA_L} attention, 64 rows "
+                 f"padded to true lengths 500..2000; {BWD_LAUNCH}"))
     return rows
+
+
+def path_counts():
+    """Launches since the last ``reset_counts``, keyed as the kernel
+    rows are: by wrapper, and for #1 and #3 also by
+    ``name[mode]``."""
+    from repro_torch import kernels
+    out = {n: k.launches for n, (k, _) in kernels.KERNELS.items()}
+    for (n, mode), c in kernels.mode_launches().items():
+        out[f"{n}[{mode}]"] = c
+    return out
 
 
 @contextlib.contextmanager
@@ -743,7 +910,7 @@ def phase_serve(dev):
     eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {n: k.launches for n, (k, _) in kernels.KERNELS.items()}
+    counts = path_counts()
     plain = {n: p.calls for n, (_, p) in kernels.KERNELS.items()}
 
     missing = [n for n in kernels.SERVE_KERNELS if counts[n] == 0]
@@ -872,7 +1039,7 @@ def run_engine(eng, workload, fns):
         peak = max(peak, int(eng.active.sum()))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {n: k.launches for n, (k, _) in kernels.KERNELS.items()}
+    counts = path_counts()
     plain = {n: p.calls for n, (_, p) in kernels.KERNELS.items()}
     if any(plain.values()):
         raise AssertionError(f"plain versions ran while serving: {plain}")
@@ -998,7 +1165,7 @@ def phase_train(dev):
         t0 = time.perf_counter()
         _, metrics = train(cfg, tc, data, steps, device=dev, log=log)
         wall = time.perf_counter() - t0
-    counts = {n: k.launches for n, (k, _) in kernels.KERNELS.items()}
+    counts = path_counts()
     plain = {n: p.calls for n, (_, p) in kernels.KERNELS.items()}
     missing = [n for n in kernels.TRAIN_KERNELS if counts[n] == 0]
     if missing:
@@ -1027,25 +1194,18 @@ def phase_train(dev):
     return counts
 
 
-def phase_grads(dev):
-    """lm_loss gradient of one 2 x 1024 batch, kernel path vs plain."""
-    from repro_torch.configs import get_config
-    from repro_torch.data import ZipfLM
-    from repro_torch.models import get_model
-    from repro_torch.train import batch_to_device
+def grads_against_plain(label, params, loss_of):
+    """The gradient of ``loss_of(params)`` on the kernel path against the
+    plain path on the card, leaf by leaf: each leaf within GRAD_TOL of
+    its largest |plain|, and elementwise within GRAD_TOL * max(1,
+    |plain|)."""
     from repro_torch.tree import (tree_flatten_with_paths, tree_leaves,
                                   tree_unflatten_like)
-
-    cfg = get_config("h1d-lm-53m")
-    fns = get_model(cfg)
-    params = fns.init(cfg, seed=1, device=dev)
-    batch = batch_to_device(ZipfLM(vocab_size=cfg.vocab_size, seq_len=1024,
-                                   batch_per_host=2, seed=0).batch(0), dev)
     leaves = tree_leaves(params)
 
     def grads():
         ps = [p.detach().requires_grad_(True) for p in leaves]
-        loss, _ = fns.loss(tree_unflatten_like(params, ps), cfg, batch)
+        loss = loss_of(tree_unflatten_like(params, ps))
         return float(loss.detach()), torch.autograd.grad(loss, ps)
 
     loss_k, got = grads()
@@ -1054,19 +1214,197 @@ def phase_grads(dev):
     paths = [p for p, _ in tree_flatten_with_paths(params)]
     worst = (0.0, 0.0, 0.0, "")
     for path, a, b in zip(paths, got, want):
-        err, scaled, elem = compare(f"grad {path}", [a], [b], GRAD_TOL,
-                                    ("tensor",))
+        err, scaled, elem = compare(f"{label} grad {path}", [a], [b],
+                                    GRAD_TOL, ("tensor",))
         if elem > GRAD_TOL:
-            raise AssertionError(f"grad {path}: elementwise-scaled error "
-                                 f"{elem:.3g} > {GRAD_TOL:g}")
+            raise AssertionError(f"{label} grad {path}: elementwise-scaled "
+                                 f"error {elem:.3g} > {GRAD_TOL:g}")
         if scaled >= worst[1]:
             worst = (err, scaled, elem, path)
     tops = sorted(float(b.abs().max()) for b in want)
-    log(f"grads: loss {loss_k:.6f} kernel vs {loss_p:.6f} plain; "
+    log(f"{label} grads: loss {loss_k:.6f} kernel vs {loss_p:.6f} plain; "
         f"{len(paths)} leaves, largest |grad| per leaf from {tops[0]:.3g} "
         f"(median {tops[len(tops) // 2]:.3g}) to {tops[-1]:.3g}; worst "
         f"error {worst[1]:.3g} of its leaf's largest |grad| (abs "
         f"{worst[0]:.3g}, elementwise-scaled {worst[2]:.3g}) at {worst[3]}")
+
+
+def phase_grads(dev):
+    """lm_loss gradient of one 2 x 1024 batch, kernel path vs plain."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import ZipfLM
+    from repro_torch.models import get_model
+    from repro_torch.train import batch_to_device
+
+    cfg = get_config("h1d-lm-53m")
+    fns = get_model(cfg)
+    params = fns.init(cfg, seed=1, device=dev)
+    batch = batch_to_device(ZipfLM(vocab_size=cfg.vocab_size, seq_len=1024,
+                                   batch_per_host=2, seed=0).batch(0), dev)
+    grads_against_plain("lm", params,
+                        lambda p: fns.loss(p, cfg, batch)[0])
+
+
+def need_launched(label, counts, pairs):
+    """Every (kernel, mode) of ``pairs`` launched, and no plain version
+    ran, in the run ``counts`` were read after."""
+    from repro_torch import kernels
+    missing = [f"{n}[{m}]" for n, m in pairs if not counts.get(f"{n}[{m}]")]
+    if missing:
+        raise AssertionError(f"{label}: kernels not launched: {missing}")
+    plain = {n: p.calls for n, (_, p) in kernels.KERNELS.items() if p.calls}
+    if plain:
+        raise AssertionError(f"{label}: plain versions ran: {plain}")
+
+
+def phase_lra(dev):
+    """``h1d-lra-encoder`` at full width and depth from seeded random
+    weights: (a) classify a held-out ListOps batch, (b) train 10 AdamW
+    steps, (c) the whole model's gradient against the plain path, (d)
+    the coarse-q LM's training steps and gradient.  Returns the launches
+    of (a) + (b) and of (d)'s training."""
+    from repro_torch import kernels, optim
+    from repro_torch.configs import get_config
+    from repro_torch.data import ListOps, ZipfLM
+    from repro_torch.launch.profile_serve import profiled
+    from repro_torch.models import (classifier_init, classifier_logits,
+                                    classifier_loss, get_model)
+    from repro_torch.train import TrainConfig, batch_to_device, train
+    from repro_torch.tree import tree_leaves, tree_unflatten_like
+
+    cfg = get_config("h1d-lra-encoder")
+    params = classifier_init(cfg, NUM_CLASSES, seed=0, device=dev)
+    fwd_pairs = [p for p in kernels.LRA_KERNELS
+                 if p[0] == "band_attention_fwd"]
+
+    # (a) classify one held-out batch, 64 x 2048
+    held = batch_to_device(ListOps(seq_len=LRA_L, batch_per_host=64,
+                                   seed=999).batch(0), dev)
+
+    def classify():
+        with torch.inference_mode():
+            return classifier_logits(params, cfg, held["tokens"],
+                                     held["mask"])
+    classify()                      # warm-up (cuBLAS, allocator)
+    kernels.reset_counts()
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = classify()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    counts = path_counts()
+    need_launched("lra classify", counts, fwd_pairs)
+    with plain_kernels():
+        want = classify()
+    if logits.shape != (64, NUM_CLASSES) or not torch.isfinite(logits).all():
+        raise AssertionError(f"lra classify: bad logits {logits.shape}")
+    diff = float((logits - want).abs().max())
+    if diff > LOGIT_TOL:
+        raise AssertionError(f"lra classify: logits differ by {diff:.3g} > "
+                             f"{LOGIT_TOL}")
+    prof = profiled(classify, 2)
+    ms = float(np.median(walls))
+    stats = dict(rows=64, seq=LRA_L, wall_ms_per_call=walls,
+                 classifications_per_s=64 / (ms / 1e3),
+                 mean_true_len=float(held["mask"].sum(1).mean()),
+                 kernel_vs_plain_max_abs=diff,
+                 device_ms=prof["device_ms"], busy_share=prof["busy_share"],
+                 device_ms_by_group=prof["device_ms_by_group"],
+                 launches={k: c for k, c in counts.items() if c})
+    log(f"lra classify: {json.dumps(stats)}")
+
+    # (b) 10 AdamW steps at 32 x 2048: bench_lra_listops.py's warmup and
+    # weight decay, the port trainer's default peak (the bench's 2e-3 is
+    # sized for its 64-wide model: at full width the loss rises under it)
+    steps, batch = 10, 32
+    data = ListOps(seq_len=LRA_L, batch_per_host=batch, seed=0)
+    batches = [batch_to_device(data.batch(i), dev) for i in range(steps)]
+    opt = optim.adamw(optim.cosine_schedule(LRA_PEAK_LR, 10, steps),
+                      weight_decay=0.01)
+    state = [params, opt.init(params)]
+
+    def step(b):
+        ps, opt_state = state
+        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(ps)]
+        loss, _ = classifier_loss(tree_unflatten_like(ps, leaves), cfg, b)
+        grads = torch.autograd.grad(loss, leaves)
+        upd, opt_state = opt.update(tree_unflatten_like(ps, list(grads)),
+                                    opt_state, ps)
+        state[:] = [optim.apply_updates(ps, upd), opt_state]
+        return loss.detach()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    losses, step_ms = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        losses.append(float(step(b)))       # waits for the device
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    train_counts = path_counts()
+    need_launched("lra train", train_counts, kernels.LRA_KERNELS)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"lra train: non-finite loss: {losses}")
+    if not np.mean(losses[-5:]) < losses[0]:
+        raise AssertionError(f"lra train: loss did not fall: {losses}")
+    prof = profiled(lambda: step(batches[-1]), 1)
+    stats = dict(steps=steps, batch=batch, seq=LRA_L, losses=losses,
+                 loss_first=losses[0],
+                 loss_last5_mean=float(np.mean(losses[-5:])),
+                 step_ms=step_ms,
+                 median_step_ms=float(np.median(step_ms[1:])),
+                 tokens_per_s=batch * LRA_L * (steps - 1)
+                 / (sum(step_ms[1:]) / 1e3),
+                 mean_true_len=float(np.mean([float(b["mask"].sum(1).mean())
+                                              for b in batches])),
+                 max_memory_allocated=peak,
+                 step_device_ms=prof["device_ms"],
+                 step_busy_share=prof["busy_share"],
+                 step_device_ms_by_group=prof["device_ms_by_group"],
+                 launches={k: c for k, c in train_counts.items() if c})
+    log(f"lra train: {json.dumps(stats)}")
+    for k, c in train_counts.items():
+        counts[k] = counts.get(k, 0) + c
+    del state, batches
+
+    # (c) the whole encoder's gradient, 2 x 2048, kernel vs plain path
+    params = classifier_init(cfg, NUM_CLASSES, seed=1, device=dev)
+    gb = batch_to_device(ListOps(seq_len=LRA_L, batch_per_host=2,
+                                 seed=7).batch(0), dev)
+    grads_against_plain("lra", params,
+                        lambda p: classifier_loss(p, cfg, gb)[0])
+    del params
+
+    # (d) the coarse-q LM: 3 AdamW steps through train(), then its
+    # gradient at 2 x 1024 against the plain path
+    import tempfile
+    lm = get_config("h1d-lm-53m")
+    with tempfile.TemporaryDirectory() as tmp:
+        tc = TrainConfig(peak_lr=3e-4, warmup=2, ckpt_every=0, ckpt_dir=tmp,
+                         attn_causal_mode="coarse-q")
+        kernels.reset_counts()
+        _, metrics = train(lm, tc, ZipfLM(vocab_size=lm.vocab_size,
+                                          seq_len=1024, batch_per_host=8,
+                                          seed=0), 3, device=dev, log=log)
+    cq_counts = path_counts()
+    need_launched("coarse-q train", cq_counts, kernels.COARSE_Q_KERNELS)
+    cq_losses = [h["loss"] for h in metrics["history"]]
+    if not all(math.isfinite(x) for x in cq_losses):
+        raise AssertionError(f"coarse-q train: non-finite loss {cq_losses}")
+    log(f"coarse-q train: losses {cq_losses}, step ms "
+        f"{[h['step_ms'] for h in metrics['history']]}, launches "
+        f"{ {k: c for k, c in cq_counts.items() if c} }")
+    cq = dataclasses.replace(lm, causal_mode="coarse-q")
+    fns = get_model(cq)
+    params = fns.init(cq, seed=1, device=dev)
+    zb = batch_to_device(ZipfLM(vocab_size=cq.vocab_size, seq_len=1024,
+                                batch_per_host=2, seed=0).batch(0), dev)
+    grads_against_plain("coarse-q lm", params,
+                        lambda p: fns.loss(p, cq, zb)[0])
+    return counts, cq_counts
 
 
 def main() -> int:
@@ -1088,18 +1426,22 @@ def main() -> int:
     libs = _build.build(_build.sources())
     log(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f}s")
 
-    rows = (phase_kernels(dev) + phase_paged_kernels(dev)
-            + phase_bwd_kernels(dev))
+    rows = (phase_kernels(dev) + phase_mode_kernels(dev)
+            + phase_paged_kernels(dev) + phase_bwd_kernels(dev))
     cfg, params, fns, reqs, serve_counts = phase_serve(dev)
     phase_logits(cfg, params, fns, reqs, dev)
     paged_counts = phase_paged_serve(cfg, params, fns, dev)
     del params, fns, reqs
     train_counts = phase_train(dev)
     phase_grads(dev)
+    lra_counts, cq_counts = phase_lra(dev)
     for row in rows:
-        by_path = {"serve": serve_counts[row["name"]],
-                   "paged": paged_counts.get(row["name"], 0),
-                   "train": train_counts[row["name"]]}
+        key = row["name"]
+        by_path = {"serve": serve_counts.get(key, 0),
+                   "paged": paged_counts.get(key, 0),
+                   "train": train_counts.get(key, 0),
+                   "lra": lra_counts.get(key, 0),
+                   "coarse_q_train": cq_counts.get(key, 0)}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         row["kernel_ms"] = row["ms"]

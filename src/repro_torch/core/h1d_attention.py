@@ -1,17 +1,28 @@
-"""H-Transformer-1D hierarchical attention, leak-free causal form.
+"""H-Transformer-1D hierarchical attention.
 
-Port of ``repro.core.h1d_attention`` for ``causal=True,
-causal_mode='fine-q'`` (the paper LM's serving path): fine queries attend
-coarse keys and values, exactly consistent with the incremental decode
-in ``h1d_decode``.  ``q``: (B, G, L, D), ``k``/``v``: (B, L, D) with the
-caller folding ``batch * kv_heads`` into B and the GQA group into G.
+Port of ``repro.core.h1d_attention``.  ``q``: (B, G, L, D), ``k``/``v``:
+(B, L, D) with the caller folding ``batch * kv_heads`` into B and the GQA
+group into G.  Modes:
 
-Level 0 runs ``band_attention(mode='l0_causal')``; each level l >= 1 runs
-``mode='sub'`` with ``ratio=2**l`` on the coarsened keys (weighted mean),
-values and weights (pairwise sums).  Each level's ``(y, dn, m)`` is folded
-into one running accumulator by a log-sum-exp shift
-(:func:`_stream_combine`).  The bidirectional and coarse-q modes raise
-``NotImplementedError`` until their slice.
+* ``causal=False`` -- the paper's encoder attention (symmetric
+  coarsening of Q, K, V; Eq. 25-29): level 0 runs
+  ``band_attention(mode='l0_bidir')``, each level l >= 1 coarsens the
+  queries too (weighted mean) and runs ``mode='coarse_bidir'``, and its
+  ``(y, dn, m)`` is prolonged back to the fine rows by
+  :func:`hierarchy.interp_repeat`.
+* ``causal=True, causal_mode='coarse-q'`` -- the paper-style decoder with
+  coarsened queries, the same with ``l0_causal`` / ``coarse_causal``.
+  Coarse query rows average future tokens of their cluster, so the
+  attention weights leak future information (kept as the paper-faithful
+  reference; see DESIGN.md).
+* ``causal=True, causal_mode='fine-q'`` (the paper LM's serving path) --
+  fine queries attend coarse keys and values, exactly consistent with
+  the incremental decode in ``h1d_decode``: level 0 runs ``l0_causal``,
+  each level l >= 1 ``mode='sub'`` with ``ratio=2**l``.
+
+Keys coarsen by a weighted mean, values and weights by pairwise sums.
+Each level's ``(y, dn, m)`` is folded into one running accumulator by a
+log-sum-exp shift (:func:`_stream_combine`).
 
 Differentiable end to end: ``band_attention`` carries the backward
 kernels, and every max and floor here is ``torch.maximum``, which splits
@@ -49,10 +60,11 @@ def h1d_attention(q, k, v, *, nr: int = 16, causal: bool = False,
                   causal_mode: str = "fine-q",
                   kv_weight: Optional[torch.Tensor] = None,
                   softmax_scale: Optional[float] = None) -> torch.Tensor:
-    """Hierarchical attention.  Returns (B, G, L, Dv) in ``v.dtype``."""
-    if not causal or causal_mode != "fine-q":
-        raise NotImplementedError(
-            "this slice ports causal=True, causal_mode='fine-q' only")
+    """Hierarchical attention.  Returns (B, G, L, Dv) in ``v.dtype``.
+    ``causal_mode`` ('fine-q' or 'coarse-q') matters only when
+    ``causal`` is true."""
+    if causal_mode not in ("fine-q", "coarse-q"):
+        raise ValueError(f"unknown causal_mode {causal_mode!r}")
     B, G, L, D = q.shape
     if tuple(k.shape[:2]) != (B, L) or tuple(v.shape[:2]) != (B, L):
         raise ValueError(f"k/v must be (B, L, D): {tuple(k.shape)}, "
@@ -71,8 +83,9 @@ def h1d_attention(q, k, v, *, nr: int = 16, causal: bool = False,
 
     if M == 0:  # single block: exact dense attention
         s = torch.einsum("bgqd,bkd->bgqk", q, k)
-        allow = (w > 0)[:, None, None, :] & hc.causal_block_mask(
-            L, device=q.device)[None, None]
+        allow = (w > 0)[:, None, None, :]
+        if causal:
+            allow = allow & hc.causal_block_mask(L, device=q.device)
         s = torch.where(allow, s, NEG_INF)
         m = s.amax(-1, keepdim=True)
         m = torch.maximum(m, torch.full_like(m, _MIN_M))
@@ -82,14 +95,30 @@ def h1d_attention(q, k, v, *, nr: int = 16, causal: bool = False,
         z = torch.einsum("bgqk,bkv->bgqv", a, v) / den[..., None]
         return z.to(out_dtype)
 
-    acc = band_attention(q, k, v, w, nr=nr, mode="l0_causal")
+    acc = band_attention(q, k, v, w, nr=nr,
+                         mode="l0_causal" if causal else "l0_bidir")
+    fine_q = causal and causal_mode == "fine-q"
+    coarse_mode = "coarse_causal" if causal else "coarse_bidir"
     kc, vc, wc = k, v, w
+    qc, wq = q, w
     for l in range(1, M):
         kc, _ = hc.coarsen_weighted_mean(kc, wc)
         vc = hc.coarsen_sum(vc, axis=-2)
         wc = hc.coarsen_sum(wc, axis=-1)
-        yl, dl, ml = band_attention(q, kc, vc, wc, nr=nr, mode="sub",
-                                    ratio=1 << l)
+        if fine_q:
+            yl, dl, ml = band_attention(q, kc, vc, wc, nr=nr, mode="sub",
+                                        ratio=1 << l)
+        else:
+            # paper-faithful: coarsen the queries too, then prolong the
+            # coarse rows' (y, dn, m) back to their 2**l fine rows
+            qc, _ = hc.coarsen_weighted_mean(qc, wq)
+            wq = hc.coarsen_sum(wq, axis=-1)
+            yl, dl, ml = band_attention(qc, kc, vc, wc, nr=nr,
+                                        mode=coarse_mode)
+            rep = 1 << l
+            yl = hc.interp_repeat(yl, rep, axis=-2)
+            dl = hc.interp_repeat(dl, rep, axis=-1)
+            ml = hc.interp_repeat(ml, rep, axis=-1)
         acc = _stream_combine(acc, yl, dl, ml)
 
     y, d, _ = acc

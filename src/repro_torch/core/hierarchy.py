@@ -27,6 +27,7 @@ __all__ = [
     "shift_blocks",
     "quadrant_mask",
     "causal_block_mask",
+    "interp_repeat",
 ]
 
 NEG_INF = float(np.finfo(np.float32).min)
@@ -152,3 +153,13 @@ def quadrant_mask(nq: int, nk: int, kind: str, device=None) -> torch.Tensor:
 def causal_block_mask(n: int, device=None) -> torch.Tensor:
     """Lower-triangular (n, n) allowed-mask for level-0 diagonal blocks."""
     return torch.ones((n, n), dtype=torch.bool, device=device).tril()
+
+
+def interp_repeat(x: torch.Tensor, factor: int,
+                  axis: int = -2) -> torch.Tensor:
+    """Piecewise-constant prolongation P^(l) (Eq. 38-40): repeat rows.
+    ``repeat_interleave``, so autograd sums a coarse row's cotangent over
+    its ``factor`` fine rows."""
+    if factor == 1:
+        return x
+    return x.repeat_interleave(factor, dim=axis)

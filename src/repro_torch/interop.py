@@ -1,6 +1,7 @@
 """Parameters of the JAX package in the port's layout.
 
-``params_from_jax`` takes the JAX LM's parameter tree with every leaf
+``params_from_jax`` takes the JAX LM's or the JAX encoder classifier's
+parameter tree with every leaf
 already converted to a numpy array (``jax.tree.map(np.asarray, params)``
 on the caller's side), so this module imports neither ``jax`` nor the
 JAX package.  The dense JAX stack keeps its layers stacked on a leading
@@ -26,11 +27,12 @@ _LAYER_KEYS = {"ln1": ("g",), "attn": ("wq", "wkv", "wo"), "ln2": ("g",),
 
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, *,
                     device=None) -> Dict[str, Any]:
-    """JAX LM parameters (numpy leaves) -> the port's parameter tree on
-    ``device`` (default ``cuda``).  Carries ``embed.w``, ``final_norm.g``,
-    ``lm_head.w`` (untied heads only) and per layer ``ln1.g``, ``ln2.g``,
-    ``attn.{wq,wkv,wo}`` (with any bias and q/k norms) and
-    ``mlp.{wg,wu,wd}``."""
+    """JAX LM or classifier parameters (numpy leaves) -> the port's
+    parameter tree on ``device`` (default ``cuda``).  Carries ``embed.w``,
+    ``final_norm.g``, ``lm_head.w`` (untied heads only), the classifier's
+    ``head.w`` (and ``head.b``) when the tree has a ``head``, and per
+    layer ``ln1.g``, ``ln2.g``, ``attn.{wq,wkv,wo}`` (with any bias and
+    q/k norms) and ``mlp.{wg,wu,wd}``."""
     dev = resolve_device(device)
     layers = tree["layers"]
     if isinstance(layers, dict):          # the scanned stack: unstack
@@ -50,5 +52,8 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, *,
                            "layers": layers}
     if not cfg.tie_embeddings:
         out["lm_head"] = {"w": tree["lm_head"]["w"]}
+    if "head" in tree:
+        out["head"] = {k: tree["head"][k] for k in ("w", "b")
+                       if k in tree["head"]}
     return tree_map(
         lambda a: torch.from_numpy(np.array(a, copy=True)).to(dev), out)

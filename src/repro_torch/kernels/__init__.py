@@ -1,8 +1,13 @@
 """Hand-written CUDA kernels for Hopper and their plain PyTorch versions.
 
 Ten kernels carry the serving (dense slots, paged and int8 pools) and
-training paths of the paper LM (sources in ``csrc/``, built by
-``_build`` with ``nvcc`` at first use):
+training paths of the paper LM and the classify and train paths of the
+LRA encoder (sources in ``csrc/``, built by ``_build`` with ``nvcc`` at
+first use).  ``band_attention_fwd`` and ``band_attention_bwd`` take every
+band mode: ``l0_causal`` (the LM's level 0), ``l0_bidir`` and
+``coarse_bidir`` (the encoder's level 0 and coarse levels) and
+``coarse_causal`` (the coarse-q decoder's coarse levels); the ``sub``
+kernels run the fine-q LM's coarse levels.
 
 ======================== ============================== ==================
 wrapper                  replaces (repro/kernels/...)   plain version
@@ -73,13 +78,33 @@ PAGED_SERVE_KERNELS = ("decode_attend_paged", "decode_attend_paged_quant",
 TRAIN_KERNELS = ("band_attention_fwd", "band_attention_sub_fwd",
                  "band_attention_bwd", "band_attention_sub_bwd")
 
+#: (kernel, mode) pairs: those the LRA encoder's classification launches
+#: (its training adds the backward of each), and those a coarse-q LM's
+#: training step launches
+LRA_KERNELS = (("band_attention_fwd", "l0_bidir"),
+               ("band_attention_fwd", "coarse_bidir"),
+               ("band_attention_bwd", "l0_bidir"),
+               ("band_attention_bwd", "coarse_bidir"))
+COARSE_Q_KERNELS = (("band_attention_fwd", "l0_causal"),
+                    ("band_attention_fwd", "coarse_causal"),
+                    ("band_attention_bwd", "l0_causal"),
+                    ("band_attention_bwd", "coarse_causal"))
+
 
 def reset_counts() -> None:
-    """Set every kernel's launch count and every plain version's call
-    count to 0."""
+    """Set every kernel's launch count (and its count per mode, where it
+    keeps one) and every plain version's call count to 0."""
     for kernel, plain in KERNELS.values():
         kernel.launches = 0
         plain.calls = 0
+        if hasattr(kernel, "mode_launches"):
+            kernel.mode_launches = {}
+
+
+def mode_launches() -> dict:
+    """Launches per (kernel, mode) since the last :func:`reset_counts`."""
+    return {(name, mode): n for name, (kernel, _) in KERNELS.items()
+            for mode, n in getattr(kernel, "mode_launches", {}).items()}
 
 
 __all__ = ["band_attention", "band_attention_fwd", "band_attention_sub_fwd",
@@ -93,4 +118,5 @@ __all__ = ["band_attention", "band_attention_fwd", "band_attention_sub_fwd",
            "update_cache_paged_ref", "update_cache_paged_quant",
            "update_cache_paged_quant_ref", "MODES", "SUB_MODE", "KERNELS",
            "SERVE_KERNELS", "PAGED_SERVE_KERNELS", "TRAIN_KERNELS",
-           "reset_counts"]
+           "LRA_KERNELS", "COARSE_Q_KERNELS", "reset_counts",
+           "mode_launches"]

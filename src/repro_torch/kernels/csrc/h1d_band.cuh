@@ -46,9 +46,18 @@ __device__ __forceinline__ bool band_mask(int qi, int ki, int nr, int mode,
   return allow && inb;
 }
 
-// First key of query row i: level 0 reads its own block and the one
-// before; a sub level (ratio >= 2) reads coarse block I-1 of its fine
-// query block I = i / (nr * ratio).
+// Keys of a query row's band from its first key on: coarse_causal and a
+// sub level (which masks as coarse_causal) read the block before the
+// row's own, l0_causal that block and its own, a bidirectional mode
+// those two and the block after (prev, own, next).
+__host__ __device__ __forceinline__ int band_keys(int mode, int nr) {
+  return mode == COARSE_CAUSAL ? nr : mode == L0_CAUSAL ? 2 * nr : 3 * nr;
+}
+
+// First key of query row i: the first key of the block before the row's
+// own (level 0, and a coarse level with coarsened queries); a sub level
+// (ratio >= 2) reads coarse block I-1 of its fine query block
+// I = i / (nr * ratio), which at ratio 1 is the same rule.
 template <bool SUB>
 __device__ __forceinline__ int key_start(int i, int nr, int ratio) {
   return SUB ? (i / (nr * ratio) - 1) * nr : (i / nr) * nr - nr;

@@ -1,7 +1,8 @@
 // Banded block attention forward for H-Transformer-1D, Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of repro/kernels/h1d_block.py:
-//   * h1d_band_fwd     <- band_attention_fwd (_fwd_kernel), mode l0_causal;
+//   * h1d_band_fwd     <- band_attention_fwd (_fwd_kernel), every band
+//     mode: l0_causal, l0_bidir, coarse_bidir, coarse_causal;
 //   * h1d_band_sub_fwd <- band_attention_sub_fwd (_fwd_sub_kernel), the
 //     fine-q causal level l >= 1 (fine queries x 2^l-coarser keys).
 // Both return the unnormalised float32 triple (y, dn, m) of one level:
@@ -9,21 +10,25 @@
 //   m = max(rowmax s, -1e30), a = exp(s - m), y = a @ v, dn = sum a * w.
 // A row with every key masked gives m = -1e30, y = 0, dn = 0.
 //
-// What bounds it on the H100: memory.  A query row attends at most 2*nr
-// keys (nr for a coarse level), so one row costs ~4*nr*d FLOPs against
-// ~2*d*4 bytes of q and y: at nr=16, d=64 that is ~8 FLOP per byte, far
-// below the card's fp32 ridge (67 TFLOP/s over 3.35 TB/s = 20).  The
-// level's least time is its bytes (q, k, v, w read once; y, dn, m
-// written once) over the memory rate.
+// What bounds it on the H100: memory.  A query row attends at most 3*nr
+// keys (2*nr causal, nr for a causal coarse level), so one row costs
+// ~6*nr*d FLOPs against ~2*d*4 bytes of q and y: at nr=16, d=64 that is
+// ~12 FLOP per byte, below the card's fp32 ridge (67 TFLOP/s over
+// 3.35 TB/s = 20).  The level's least time is its bytes (q, k, v, w
+// read once; y, dn, m written once) over the memory rate.
 //
 // Design: one CTA per (batch row b, tile of TQ query rows).  The CTA
 // stages the tile's key window (its own keys plus the nr-row prev halo
-// at level 0; the coarse blocks I-1 of its query blocks at a sub level)
-// in shared memory once and reuses it for every GQA group g, so K/V are
+// at level 0, and the nr-row next halo in a bidirectional mode; the
+// coarse blocks I-1 of its query blocks at a sub level and in
+// coarse_causal, which runs the sub body at ratio 1) in shared memory
+// once and reuses it for every GQA group g, so K/V are
 // read from HBM about once per tile and never copied per group.  A warp
 // takes one query row at a time: lane j scores key j (keys in chunks of
 // 32), the softmax max and the dn sum are warp shuffles, and each lane
-// accumulates y for output columns lane, lane+32, ....  The k rows in
+// accumulates y for output columns lane, lane+32, ....  coarse_bidir
+// stages and scores its own block, which band_mask then drops entirely
+// (skipping it is left to a later optimisation).  The k rows in
 // shared memory are padded to d+1 floats so the 32 lanes reading 32
 // different keys hit 32 different banks.  Plain fp32 FMA on CUDA cores
 // (no TF32: the port is held to fp32 parity), expf not __expf.
@@ -41,18 +46,22 @@ constexpr int WARPS = 8;
 constexpr int MAXC = 4;               // key chunks of 32 per row: nk <= 128
 constexpr int MAXU = 4;               // output column chunks: dv <= 128
 
-template <bool SUB>
+// One instantiation per band mode, so band_mask folds to that mode's
+// tests; coarse_causal is the sub body (SUB) at any ratio, ratio 1 for
+// the coarse-q level, ratio 2**l for a fine-q sub level.
+template <int MODE>
 __global__ void __launch_bounds__(WARPS * 32)
 band_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ w,
                 float* __restrict__ y, float* __restrict__ dn,
                 float* __restrict__ m, int G, int Lq, int Lk, int d, int dv,
                 int nr, int ratio) {
+  constexpr bool SUB = MODE == COARSE_CAUSAL;
   extern __shared__ float smem[];
   const int b = blockIdx.y;
   const int t0 = blockIdx.x * TQ;
   const int rows = min(TQ, Lq - t0);
-  const int nk = SUB ? nr : 2 * nr;
+  const int nk = band_keys(MODE, nr);
   const int kbase = key_start<SUB>(t0, nr, ratio);
   const int nwin = key_start<SUB>(t0 + rows - 1, nr, ratio) + nk - kbase;
   const int ks = d + 1;
@@ -80,7 +89,6 @@ band_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   float* qw = q_s + warp * d;
-  const int mode = SUB ? COARSE_CAUSAL : L0_CAUSAL;
   for (int item = warp; item < G * rows; item += WARPS) {
     const int g = item / rows;
     const int i = t0 + item % rows;
@@ -98,7 +106,7 @@ band_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       s[ch] = NEG_INF;
       if (jj < nk) {
         const float acc = dot_qk(qw, k_s + (k0 + jj) * ks, d);
-        const bool allow = band_mask(qm, kbase + k0 + jj, nr, mode, Lk) &&
+        const bool allow = band_mask(qm, kbase + k0 + jj, nr, MODE, Lk) &&
                            w_s[k0 + jj] > 0.f;
         s[ch] = allow ? acc : NEG_INF;
       }
@@ -152,24 +160,26 @@ band_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <bool SUB>
+// The key window of a CTA spans at most TQ - nr + nk keys: its query
+// rows cover TQ / nr blocks and each reads nk keys from its first one.
+template <int MODE>
 int launch(const float* q, const float* k, const float* v, const float* w,
            float* y, float* dn, float* m, int B, int G, int Lq, int Lk, int d,
            int dv, int nr, int ratio, cudaStream_t stream) {
-  if (d < 1 || dv < 1 || dv > 32 * MAXU || (SUB ? nr : 2 * nr) > 32 * MAXC ||
-      TQ % nr != 0)
+  const int nk = band_keys(MODE, nr);
+  if (d < 1 || dv < 1 || dv > 32 * MAXU || nk > 32 * MAXC || TQ % nr != 0)
     return (int)cudaErrorInvalidValue;
-  const int nwin_max = TQ + nr;
+  const int nwin_max = TQ - nr + nk;
   const size_t smem = ((size_t)nwin_max * (d + 1) + (size_t)nwin_max * dv +
                        nwin_max + (size_t)WARPS * d) * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        band_fwd_kernel<SUB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        band_fwd_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid((Lq + TQ - 1) / TQ, B);
-  band_fwd_kernel<SUB><<<grid, WARPS * 32, smem, stream>>>(
+  band_fwd_kernel<MODE><<<grid, WARPS * 32, smem, stream>>>(
       q, k, v, w, y, dn, m, G, Lq, Lk, d, dv, nr, ratio);
   return (int)cudaGetLastError();
 }
@@ -177,13 +187,30 @@ int launch(const float* q, const float* k, const float* v, const float* w,
 }  // namespace
 
 // q (B,G,L,d) pre-scaled, k (B,L,d), v (B,L,dv) pre-weighted, w (B,L)
-// -> y (B,G,L,dv), dn (B,G,L), m (B,G,L); mode l0_causal.
+// -> y (B,G,L,dv), dn (B,G,L), m (B,G,L); mode is an h1d::Mode.
+// coarse_causal reads only the block before a row's own: the sub body
+// at ratio 1.
 extern "C" int h1d_band_fwd(const float* q, const float* k, const float* v,
                             const float* w, float* y, float* dn, float* m,
                             int B, int G, int L, int d, int dv, int nr,
-                            void* stream) {
-  return launch<false>(q, k, v, w, y, dn, m, B, G, L, L, d, dv, nr, 1,
-                       (cudaStream_t)stream);
+                            int mode, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (mode) {
+    case h1d::L0_BIDIR:
+      return launch<h1d::L0_BIDIR>(q, k, v, w, y, dn, m, B, G, L, L, d, dv,
+                                   nr, 1, st);
+    case h1d::L0_CAUSAL:
+      return launch<h1d::L0_CAUSAL>(q, k, v, w, y, dn, m, B, G, L, L, d, dv,
+                                    nr, 1, st);
+    case h1d::COARSE_BIDIR:
+      return launch<h1d::COARSE_BIDIR>(q, k, v, w, y, dn, m, B, G, L, L, d,
+                                       dv, nr, 1, st);
+    case h1d::COARSE_CAUSAL:
+      return launch<h1d::COARSE_CAUSAL>(q, k, v, w, y, dn, m, B, G, L, L, d,
+                                        dv, nr, 1, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // q (B,G,Lq,d), coarse k (B,Lk,d), v (B,Lk,dv), w (B,Lk), Lq = Lk*ratio
@@ -193,6 +220,6 @@ extern "C" int h1d_band_sub_fwd(const float* q, const float* k,
                                 float* dn, float* m, int B, int G, int Lq,
                                 int Lk, int d, int dv, int nr, int ratio,
                                 void* stream) {
-  return launch<true>(q, k, v, w, y, dn, m, B, G, Lq, Lk, d, dv, nr, ratio,
-                      (cudaStream_t)stream);
+  return launch<h1d::COARSE_CAUSAL>(q, k, v, w, y, dn, m, B, G, Lq, Lk, d,
+                                    dv, nr, ratio, (cudaStream_t)stream);
 }

@@ -2,7 +2,8 @@
 //
 // Replaces the Pallas TPU kernels of repro/kernels/h1d_block_bwd.py:
 //   * h1d_band_bwd     <- band_attention_bwd (_dq_kernel, _dkvw_kernel),
-//     mode l0_causal;
+//     every band mode: l0_causal, l0_bidir, coarse_bidir and
+//     coarse_causal (the last on the sub bodies at ratio 1);
 //   * h1d_band_sub_bwd <- band_attention_sub_bwd (_dq_sub_kernel and both
 //     the wide and the deep dK/dV/dW kernels), the fine-q causal level.
 // Math (h1d_block_bwd.py:10-30), per level and query row i, from the
@@ -33,10 +34,12 @@
 //     warp reductions.  It writes dq and gmn.
 //   * dK/dV/dW pass (band_dkvw_kernel): one CTA per (b, tile of keys).
 //     Every key j is read by a contiguous run of query rows: [j, end of
-//     the next nr-block) at level 0 (its own block from row j on, plus
-//     the next block that sees it as "prev"), and the nq = nr*ratio fine
-//     rows of block J+1 at a sub level (J = j / nr) -- at ratio 32 that
-//     is 512 rows for 16 keys.  The CTA streams those rows through shared
+//     the next nr-block) in l0_causal (its own block from row j on, plus
+//     the next block that sees it as "prev"), the blocks J-1, J and J+1
+//     in a bidirectional mode (J = j / nr; band_mask then decides each
+//     pair), and the nq = nr*ratio fine rows of block J+1 at a sub level
+//     -- at ratio 32 that is 512 rows for 16 keys.  The CTA streams those
+//     rows through shared
 //     memory in chunks of QC, for each group g in turn; a warp owns some
 //     keys, lane i holds query i of a 32-row slice, and dk/dv accumulate
 //     per lane over output columns in shared memory owned by that warp.
@@ -61,21 +64,28 @@ constexpr int WARPS = 8;
 constexpr int MAXC = 4;               // key chunks of 32 per row: nk <= 128
 constexpr int MAXU = 4;               // column chunks of 32: d, dv <= 128
 
-// Query rows [lo, hi) that read key j (the transpose of key_start).
-template <bool SUB>
+// Query rows [lo, hi) that read key j (the transpose of key_start and
+// band_keys); both bounds grow with j.  As in the forward, every kernel
+// here has one instantiation per band mode and coarse_causal is the sub
+// body (at ratio 1 for the coarse-q level, 2**l for a fine-q sub level).
+template <int MODE>
 __device__ __forceinline__ void query_range(int j, int nr, int ratio, int Lq,
                                             int* lo, int* hi) {
-  if (SUB) {
-    const int nq = nr * ratio, J = j / nr;
+  const int J = j / nr;
+  if (MODE == COARSE_CAUSAL) {
+    const int nq = nr * ratio;
     *lo = (J + 1) * nq;
     *hi = min(Lq, (J + 2) * nq);
-  } else {
+  } else if (MODE == L0_CAUSAL) {
     *lo = j;
-    *hi = min(Lq, (j / nr + 2) * nr);
+    *hi = min(Lq, (J + 2) * nr);
+  } else {
+    *lo = max(0, (J - 1) * nr);
+    *hi = min(Lq, (J + 2) * nr);
   }
 }
 
-template <bool SUB>
+template <int MODE>
 __global__ void __launch_bounds__(WARPS * 32)
 band_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, const float* __restrict__ w,
@@ -84,11 +94,12 @@ band_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ gdn, const float* __restrict__ gm,
                float* __restrict__ dq, float* __restrict__ gmn, int G,
                int Lq, int Lk, int d, int dv, int nr, int ratio) {
+  constexpr bool SUB = MODE == COARSE_CAUSAL;
   extern __shared__ float smem[];
   const int b = blockIdx.y;
   const int t0 = blockIdx.x * TQ;
   const int rows = min(TQ, Lq - t0);
-  const int nk = SUB ? nr : 2 * nr;
+  const int nk = band_keys(MODE, nr);
   const int kbase = key_start<SUB>(t0, nr, ratio);
   const int nwin = key_start<SUB>(t0 + rows - 1, nr, ratio) + nk - kbase;
   const int ks = d + 1, vs = dv + 1;
@@ -119,7 +130,6 @@ band_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   float* qw = q_w + warp * d;
   float* gw = g_w + warp * dv;
-  const int mode = SUB ? COARSE_CAUSAL : L0_CAUSAL;
   for (int item = warp; item < G * rows; item += WARPS) {
     const int g = item / rows;
     const int i = t0 + item % rows;
@@ -150,7 +160,7 @@ band_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       hit[ch] = false;
       if (jj < nk) {
         const int r = k0 + jj;
-        const bool allow = band_mask(qm, kbase + r, nr, mode, Lk) &&
+        const bool allow = band_mask(qm, kbase + r, nr, MODE, Lk) &&
                            w_s[r] > 0.f;
         const float s = allow ? dot_qk(qw, k_s + r * ks, d) : NEG_INF;
         a[ch] = expf(s - m_i);
@@ -194,7 +204,7 @@ band_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <bool SUB>
+template <int MODE>
 __global__ void __launch_bounds__(WARPS * 32)
 band_dkvw_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ w,
@@ -203,6 +213,7 @@ band_dkvw_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  float* __restrict__ dk, float* __restrict__ dvo,
                  float* __restrict__ dw, int G, int Lq, int Lk, int d,
                  int dv, int nr, int ratio, int tk) {
+  constexpr bool SUB = MODE == COARSE_CAUSAL;
   extern __shared__ float smem[];
   const int b = blockIdx.y;
   const int j0 = blockIdx.x * tk;
@@ -236,11 +247,10 @@ band_dkvw_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   // the query rows of this key tile: lo and hi grow with j
   int qlo, qhi, unused;
-  query_range<SUB>(j0, nr, ratio, Lq, &qlo, &unused);
-  query_range<SUB>(j0 + keys - 1, nr, ratio, Lq, &unused, &qhi);
+  query_range<MODE>(j0, nr, ratio, Lq, &qlo, &unused);
+  query_range<MODE>(j0 + keys - 1, nr, ratio, Lq, &unused, &qhi);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int mode = SUB ? COARSE_CAUSAL : L0_CAUSAL;
   for (int g = 0; g < G; ++g) {
     const size_t base_row = ((size_t)b * G + g) * Lq;
     for (int c0 = qlo; c0 < qhi; c0 += QC) {
@@ -266,7 +276,7 @@ band_dkvw_kernel(const float* __restrict__ q, const float* __restrict__ k,
         if (!(w_s[kk] > 0.f)) continue;
         const int j = j0 + kk;
         int lo, hi;
-        query_range<SUB>(j, nr, ratio, Lq, &lo, &hi);
+        query_range<MODE>(j, nr, ratio, Lq, &lo, &hi);
         lo = max(lo, c0);
         hi = min(hi, c0 + nqc);
         if (lo >= hi) continue;
@@ -282,7 +292,7 @@ band_dkvw_kernel(const float* __restrict__ q, const float* __restrict__ k,
           if (i < hi) {
             const int r = i - c0;
             const bool allow =
-                band_mask(SUB ? i / ratio : i, j, nr, mode, Lk);
+                band_mask(SUB ? i / ratio : i, j, nr, MODE, Lk);
             const float s = allow ? dot_qk(q_s + r * ks, kr, d) : NEG_INF;
             const float m_i = m_s[r];
             a = expf(s - m_i);
@@ -336,38 +346,40 @@ int set_smem(Kernel kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <bool SUB>
+template <int MODE>
 int launch(const float* q, const float* k, const float* v, const float* w,
            const float* y, const float* dn, const float* m, const float* gy,
            const float* gdn, const float* gm, float* dq, float* gmn,
            float* dk, float* dv_out, float* dw, int B, int G, int Lq, int Lk,
            int d, int dv, int nr, int ratio, cudaStream_t stream) {
+  const int nk = band_keys(MODE, nr);
   if (d < 1 || dv < 1 || d > 32 * MAXU || dv > 32 * MAXU ||
-      (SUB ? nr : 2 * nr) > 32 * MAXC || TQ % nr != 0)
+      nk > 32 * MAXC || TQ % nr != 0)
     return (int)cudaErrorInvalidValue;
-  const int nwin_max = TQ + nr;
+  const int nwin_max = TQ - nr + nk;    // as the forward's key window
   const size_t smem_dq = ((size_t)nwin_max * (d + 1) +
                           (size_t)nwin_max * (dv + 1) + nwin_max +
                           (size_t)WARPS * (d + dv)) * sizeof(float);
-  int e = set_smem(band_dq_kernel<SUB>, smem_dq);
+  int e = set_smem(band_dq_kernel<MODE>, smem_dq);
   if (e) return e;
-  band_dq_kernel<SUB><<<dim3((Lq + TQ - 1) / TQ, B), WARPS * 32, smem_dq,
-                        stream>>>(q, k, v, w, y, dn, m, gy, gdn, gm, dq, gmn,
-                                  G, Lq, Lk, d, dv, nr, ratio);
+  band_dq_kernel<MODE><<<dim3((Lq + TQ - 1) / TQ, B), WARPS * 32, smem_dq,
+                         stream>>>(q, k, v, w, y, dn, m, gy, gdn, gm, dq, gmn,
+                                   G, Lq, Lk, d, dv, nr, ratio);
   e = (int)cudaGetLastError();
   if (e) return e;
 
-  // a sub level takes one coarse block per CTA (at least a key per warp)
-  const int tk = SUB ? (nr > WARPS ? nr : WARPS) : TK_L0;
+  // a sub level (and coarse_causal) takes one coarse block per CTA (at
+  // least a key per warp)
+  const int tk = MODE == COARSE_CAUSAL ? (nr > WARPS ? nr : WARPS) : TK_L0;
   const size_t smem_kv = ((size_t)tk * (d + 1) + (size_t)tk * (dv + 1) + tk +
                           (size_t)tk * (d + dv) + tk +
                           (size_t)QC * (d + 1) + (size_t)QC * (dv + 1) +
                           3 * QC) * sizeof(float);
-  e = set_smem(band_dkvw_kernel<SUB>, smem_kv);
+  e = set_smem(band_dkvw_kernel<MODE>, smem_kv);
   if (e) return e;
-  band_dkvw_kernel<SUB><<<dim3((Lk + tk - 1) / tk, B), WARPS * 32, smem_kv,
-                          stream>>>(q, k, v, w, m, gy, gdn, gmn, dk, dv_out,
-                                    dw, G, Lq, Lk, d, dv, nr, ratio, tk);
+  band_dkvw_kernel<MODE><<<dim3((Lk + tk - 1) / tk, B), WARPS * 32, smem_kv,
+                           stream>>>(q, k, v, w, m, gy, gdn, gmn, dk, dv_out,
+                                     dw, G, Lq, Lk, d, dv, nr, ratio, tk);
   return (int)cudaGetLastError();
 }
 
@@ -376,16 +388,35 @@ int launch(const float* q, const float* k, const float* v, const float* w,
 // Saved q (B,G,L,d), k (B,L,d), v (B,L,dv), w (B,L), y (B,G,L,dv),
 // dn/m (B,G,L) and cotangents gy (B,G,L,dv), gdn/gm (B,G,L)
 // -> dq (B,G,L,d), gmn (B,G,L), dk (B,L,d), dv (B,L,dv), dw (B,L);
-// mode l0_causal.
+// mode is an h1d::Mode (coarse_causal on the sub bodies at ratio 1).
 extern "C" int h1d_band_bwd(const float* q, const float* k, const float* v,
                             const float* w, const float* y, const float* dn,
                             const float* m, const float* gy,
                             const float* gdn, const float* gm, float* dq,
                             float* gmn, float* dk, float* dv_out, float* dw,
                             int B, int G, int L, int d, int dv, int nr,
-                            void* stream) {
-  return launch<false>(q, k, v, w, y, dn, m, gy, gdn, gm, dq, gmn, dk, dv_out,
-                       dw, B, G, L, L, d, dv, nr, 1, (cudaStream_t)stream);
+                            int mode, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (mode) {
+    case h1d::L0_BIDIR:
+      return launch<h1d::L0_BIDIR>(q, k, v, w, y, dn, m, gy, gdn, gm, dq, gmn,
+                                   dk, dv_out, dw, B, G, L, L, d, dv, nr, 1,
+                                   st);
+    case h1d::L0_CAUSAL:
+      return launch<h1d::L0_CAUSAL>(q, k, v, w, y, dn, m, gy, gdn, gm, dq,
+                                    gmn, dk, dv_out, dw, B, G, L, L, d, dv,
+                                    nr, 1, st);
+    case h1d::COARSE_BIDIR:
+      return launch<h1d::COARSE_BIDIR>(q, k, v, w, y, dn, m, gy, gdn, gm, dq,
+                                       gmn, dk, dv_out, dw, B, G, L, L, d,
+                                       dv, nr, 1, st);
+    case h1d::COARSE_CAUSAL:
+      return launch<h1d::COARSE_CAUSAL>(q, k, v, w, y, dn, m, gy, gdn, gm, dq,
+                                        gmn, dk, dv_out, dw, B, G, L, L, d,
+                                        dv, nr, 1, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // The same for mode sub: fine q (B,G,Lq,d) against coarse k (B,Lk,d),
@@ -399,7 +430,7 @@ extern "C" int h1d_band_sub_bwd(const float* q, const float* k,
                                 float* dw, int B, int G, int Lq, int Lk,
                                 int d, int dv, int nr, int ratio,
                                 void* stream) {
-  return launch<true>(q, k, v, w, y, dn, m, gy, gdn, gm, dq, gmn, dk, dv_out,
-                      dw, B, G, Lq, Lk, d, dv, nr, ratio,
-                      (cudaStream_t)stream);
+  return launch<h1d::COARSE_CAUSAL>(q, k, v, w, y, dn, m, gy, gdn, gm, dq,
+                                    gmn, dk, dv_out, dw, B, G, Lq, Lk, d, dv,
+                                    nr, ratio, (cudaStream_t)stream);
 }

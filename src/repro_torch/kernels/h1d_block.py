@@ -8,10 +8,13 @@ query attends a band of keys under ``band_mask`` and keys with weight
 ``y (B, G, L, dv)``, ``dn (B, G, L)``, ``m (B, G, L)`` that
 ``core.h1d_attention`` folds across levels.
 
-Modes of this slice: ``l0_causal`` (level 0) and ``sub`` (a fine-q causal
-level ``l >= 1``: fine queries of length ``Lq`` against the level-l
-coarse keys of length ``Lq / ratio``, ``ratio = 2**l``).  The other modes
-of the reference (``l0_bidir``, ``coarse_*``) raise ``NotImplementedError``.
+Modes: ``l0_causal`` and ``l0_bidir`` (level 0 of the causal LM and of
+the bidirectional encoder), ``coarse_bidir`` and ``coarse_causal`` (a
+coarse level ``l >= 1`` with coarsened queries: the encoder's and the
+coarse-q decoder's) and ``sub`` (a fine-q causal level ``l >= 1``: fine
+queries of length ``Lq`` against the level-l coarse keys of length
+``Lq / ratio``, ``ratio = 2**l``).  A query block reads its own key
+block and the one before; a bidirectional mode also the one after.
 
 Each wrapper chooses by the device of its tensors: a CPU tensor takes the
 plain PyTorch version (a mirror of ``ops._blocked_jnp`` /
@@ -34,13 +37,14 @@ _MIN_M = -1e30
 
 MODES = ("l0_bidir", "l0_causal", "coarse_bidir", "coarse_causal")
 SUB_MODE = "sub"
-PORTED_MODES = ("l0_causal", SUB_MODE)
+#: the C launcher's mode codes (``enum Mode`` in ``csrc/h1d_band.cuh``)
+_MODE_CODES = {m: i for i, m in enumerate(MODES)}
 
 Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "h1d_band_fwd": [_P] * 7 + [_I] * 6 + [_P],
+    "h1d_band_fwd": [_P] * 7 + [_I] * 7 + [_P],
     "h1d_band_sub_fwd": [_P] * 7 + [_I] * 8 + [_P],
 }
 
@@ -76,12 +80,24 @@ def band_mask(qi, ki, nr: int, mode: str, lk: int, ratio: int = 1):
 
 
 def _check_mode(mode: str) -> None:
-    if mode not in PORTED_MODES:
-        if mode in MODES:
-            raise NotImplementedError(
-                f"band mode {mode!r} is not ported yet (this slice ports "
-                f"{PORTED_MODES})")
+    if mode not in MODES and mode != SUB_MODE:
         raise ValueError(f"unknown band mode {mode!r}")
+
+
+def band_offsets(mode: str) -> Tuple[int, ...]:
+    """Key blocks a query block reads, relative to its own: the block
+    itself and the one before, and in a bidirectional mode the one after
+    (``ops._blocked_jnp``'s ``add(0); add(-1); if not causal: add(1)``)."""
+    return (0, -1) if mode.endswith("causal") else (0, -1, 1)
+
+
+def check_window(mode: str, nr: int) -> None:
+    """The kernels stage at most 128 keys a row (``MAXC`` chunks of 32):
+    a bidirectional mode's three-block window needs ``3 * nr <= 128``."""
+    if len(band_offsets(mode)) * nr > 128:
+        raise ValueError(f"mode {mode!r} reads {len(band_offsets(mode))} "
+                         f"key blocks of nr={nr} a row; the kernels take "
+                         f"at most 128 keys")
 
 
 # ---------------------------------------------------------------------------
@@ -90,9 +106,9 @@ def _check_mode(mode: str) -> None:
 
 def band_attention_fwd_ref(q, k, v, w, *, nr: int,
                            mode: str = "l0_causal") -> Triple:
-    """Plain PyTorch level-0 band attention (mirror of
-    ``repro.kernels.ops._blocked_jnp``).  q (B,G,L,d) pre-scaled, k
-    (B,L,d), v (B,L,dv) pre-weighted, w (B,L)."""
+    """Plain PyTorch band attention of one level in any mode but ``sub``
+    (mirror of ``repro.kernels.ops._blocked_jnp``).  q (B,G,L,d)
+    pre-scaled, k (B,L,d), v (B,L,dv) pre-weighted, w (B,L)."""
     _check_mode(mode)
     if mode == SUB_MODE:
         raise ValueError("mode 'sub' goes through band_attention_sub_fwd_ref")
@@ -106,7 +122,7 @@ def band_attention_fwd_ref(q, k, v, w, *, nr: int,
     nb = qb.shape[-3]
     dev = q.device
     terms = []
-    for offset in (0, -1):
+    for offset in band_offsets(mode):
         kt = hc.shift_blocks(kb, offset)
         vt = hc.shift_blocks(vb, offset)
         wt = hc.shift_blocks(wb, offset, block_axis=-2)
@@ -117,8 +133,10 @@ def band_attention_fwd_ref(q, k, v, w, *, nr: int,
         s = torch.einsum("bgnqd,bnkd->bgnqk", qb, kt)
         allow = allow[None, None] & (wt > 0)[:, None, :, None, :]
         terms.append((torch.where(allow, s, NEG_INF), vt, wt))
-    m = torch.clamp(torch.maximum(terms[0][0].amax(-1), terms[1][0].amax(-1)),
-                    min=_MIN_M)
+    m = terms[0][0].amax(-1)
+    for s, _, _ in terms[1:]:
+        m = torch.maximum(m, s.amax(-1))
+    m = torch.clamp(m, min=_MIN_M)
     y = dn = None
     for s, vt, wt in terms:
         a = torch.exp(s - m[..., None])
@@ -183,13 +201,16 @@ def _outputs(q, dv):
 
 def band_attention_fwd(q, k, v, w, *, nr: int,
                        mode: str = "l0_causal") -> Triple:
-    """Level-0 band attention (mode ``l0_causal``).  CPU tensors take
-    :func:`band_attention_fwd_ref`; CUDA tensors launch ``h1d_band_fwd``."""
+    """Band attention of one level in any mode but ``sub``.  CPU tensors
+    take :func:`band_attention_fwd_ref`; CUDA tensors launch
+    ``h1d_band_fwd`` (``coarse_causal`` runs the sub body at ratio 1
+    there).  ``.mode_launches`` counts the launches per mode."""
     if q.device.type == "cpu":
         return band_attention_fwd_ref(q, k, v, w, nr=nr, mode=mode)
     _check_mode(mode)
     if mode == SUB_MODE:
         raise ValueError("mode 'sub' goes through band_attention_sub_fwd")
+    check_window(mode, nr)
     lib = _lib()
     B, G, L, d = q.shape
     dv = v.shape[-1]
@@ -202,12 +223,16 @@ def band_attention_fwd(q, k, v, w, *, nr: int,
     _build.check(lib.h1d_band_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
         y.data_ptr(), dn.data_ptr(), m.data_ptr(),
-        B, G, L, d, dv, nr, _build.stream()), "h1d_band_fwd")
+        B, G, L, d, dv, nr, _MODE_CODES[mode], _build.stream()),
+        "h1d_band_fwd")
     band_attention_fwd.launches += 1
+    counts = band_attention_fwd.mode_launches
+    counts[mode] = counts.get(mode, 0) + 1
     return y, dn, m
 
 
 band_attention_fwd.launches = 0
+band_attention_fwd.mode_launches = {}
 
 
 def band_attention_sub_fwd(q, k, v, w, *, nr: int, ratio: int) -> Triple:

@@ -16,8 +16,16 @@ cotangents ``(gy, gdn, gm)`` of ``(y, dn, m)``, per query row ``i``::
 ``c_i`` counts the keys of row i's band that tie at the max (JAX's
 ``reduce_max`` VJP splits the max's cotangent equally among them); the
 per-row scale ``gmn_i = gmh_i / c_i`` (0 for a fully masked row) is
-returned beside the four gradients.  Modes of this slice: ``l0_causal``
-and ``sub``; the others raise ``NotImplementedError`` as the forward does.
+returned beside the four gradients.  The kernels find the ties as
+``s_ij == m_i``: they recompute ``s`` with the forward's own FMA chain,
+so their ``s`` max is ``m`` bit for bit.  The plain versions take the
+ties at the row max of their own recomputed scores, which on the CPU
+path (plain forward, plain backward) is the saved ``m`` bit for bit too;
+handed a kernel forward's ``m``, whose scores another summation order
+rounded, they still route the max's cotangent to the row's argmax
+instead of dropping it where the two differ in the last bit.  Every mode of the forward:
+``band_attention_bwd`` takes the four band modes, ``band_attention_sub_bwd``
+the fine-q ``sub`` level.
 
 Each wrapper chooses by the device of its tensors: a CPU tensor takes the
 plain PyTorch version (the same block layout and einsums as
@@ -45,7 +53,7 @@ Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "h1d_band_bwd": [_P] * 15 + [_I] * 6 + [_P],
+    "h1d_band_bwd": [_P] * 15 + [_I] * 7 + [_P],
     "h1d_band_sub_bwd": [_P] * 15 + [_I] * 8 + [_P],
 }
 
@@ -59,10 +67,20 @@ def _gmh(y, dn, gy, gdn, gm):
     return gm - ((gy * y).sum(-1) + gdn * dn)
 
 
-def _score_grads(s, mb, gyb, gdnb, vt, wt):
-    """(a, ind, da) of one band from its masked scores."""
+def _row_max(scores):
+    """The clamped row max over all bands of a row, as the forward forms
+    ``m``, from the plain backward's recomputed masked scores."""
+    top = scores[0].amax(-1)
+    for s in scores[1:]:
+        top = torch.maximum(top, s.amax(-1))
+    return torch.clamp(top, min=hb._MIN_M)
+
+
+def _score_grads(s, mb, top, gyb, gdnb, vt, wt):
+    """(a, ind, da) of one band from its masked scores, the saved row max
+    ``mb`` and the recomputed one ``top`` (where the ties are taken)."""
     a = torch.exp(s - mb[..., None])
-    ind = (s == mb[..., None]).to(torch.float32)
+    ind = (s == top[..., None]).to(torch.float32)
     da = (torch.einsum("bgnqv,bnkv->bgnqk", gyb, vt)
           + gdnb[..., None] * wt[:, None, :, None, :])
     return a, ind, da
@@ -83,9 +101,10 @@ def _key_grads(ds, a, qb, gyb, gdnb):
 
 def band_attention_bwd_ref(q, k, v, w, y, dn, m, gy, gdn, gm, *, nr: int,
                            mode: str = "l0_causal") -> Grads:
-    """Plain PyTorch level-0 backward on the block layout of
-    ``band_attention_fwd_ref``: the band of query block n is key block n
-    (offset 0) and key block n-1 (offset -1)."""
+    """Plain PyTorch backward of one level in any mode but ``sub``, on
+    the block layout of ``band_attention_fwd_ref``: the band of query
+    block n is key block n (offset 0), key block n-1 (offset -1) and, in
+    a bidirectional mode, key block n+1 (offset +1)."""
     hb._check_mode(mode)
     if mode == hb.SUB_MODE:
         raise ValueError("mode 'sub' goes through band_attention_sub_bwd_ref")
@@ -103,8 +122,8 @@ def band_attention_bwd_ref(q, k, v, w, y, dn, m, gy, gdn, gm, *, nr: int,
     gmhb = hc.block(_gmh(y, dn, gy.to(f32), gdn.to(f32), gm.to(f32)), nr,
                     axis=-1)
     nb = qb.shape[-3]
-    bands = []
-    for offset in (0, -1):
+    terms = []
+    for offset in hb.band_offsets(mode):
         kt = hc.shift_blocks(kb, offset)
         vt = hc.shift_blocks(vb, offset)
         wt = hc.shift_blocks(wb, offset, block_axis=-2)
@@ -114,14 +133,16 @@ def band_attention_bwd_ref(q, k, v, w, y, dn, m, gy, gdn, gm, *, nr: int,
         allow = hb.band_mask(qi, ki, nr, mode, L)
         s = torch.einsum("bgnqd,bnkd->bgnqk", qb, kt)
         allow = allow[None, None] & (wt > 0)[:, None, :, None, :]
-        s = torch.where(allow, s, hb.NEG_INF)
-        bands.append((offset, kt, *_score_grads(s, mb, gyb, gdnb, vt, wt)))
+        terms.append((offset, kt, vt, wt, torch.where(allow, s, hb.NEG_INF)))
+    top = _row_max([t[-1] for t in terms])
+    bands = [(offset, kt, *_score_grads(s, mb, top, gyb, gdnb, vt, wt))
+             for offset, kt, vt, wt, s in terms]
     gmn = _row_scale(gmhb, [ind for *_, ind, _ in bands])
     dq = dk = dv = dw = None
     for offset, kt, a, ind, da in bands:
         ds = a * da + gmn[..., None] * ind
         dqt = torch.einsum("bgnqk,bnkd->bgnqd", ds, kt)
-        # key block n-1 fed query block n: shift its gradient back
+        # key block n+offset fed query block n: shift its gradient back
         dkt, dvt, dwt = (hc.shift_blocks(t, -offset, block_axis=ax)
                          for t, ax in zip(_key_grads(ds, a, qb, gyb, gdnb),
                                           (-3, -3, -2)))
@@ -165,7 +186,7 @@ def band_attention_sub_bwd_ref(q, k, v, w, y, dn, m, gy, gdn, gm, *,
     s = torch.einsum("bgnqd,bnkd->bgnqk", qb, kt)
     allow = allow[None, None] & (wt > 0)[:, None, :, None, :]
     s = torch.where(allow, s, hb.NEG_INF)
-    a, ind, da = _score_grads(s, mb, gyb, gdnb, vt, wt)
+    a, ind, da = _score_grads(s, mb, _row_max([s]), gyb, gdnb, vt, wt)
     gmn = _row_scale(gmhb, [ind])
     ds = a * da + gmn[..., None] * ind
     dq = torch.einsum("bgnqk,bnkd->bgnqd", ds, kt)
@@ -213,16 +234,18 @@ def _outputs(q, k, v):
 
 def band_attention_bwd(q, k, v, w, y, dn, m, gy, gdn, gm, *, nr: int,
                        mode: str = "l0_causal") -> Grads:
-    """Level-0 backward (mode ``l0_causal``).  CPU tensors take
+    """Backward of one level in any mode but ``sub``.  CPU tensors take
     :func:`band_attention_bwd_ref`; CUDA tensors launch ``h1d_band_bwd``
-    (a dQ kernel, then a dK/dV/dW kernel).  Returns (dq, dk, dv, dw,
-    gmn)."""
+    (a dQ kernel, then a dK/dV/dW kernel; ``coarse_causal`` runs the sub
+    bodies at ratio 1).  Returns (dq, dk, dv, dw, gmn).
+    ``.mode_launches`` counts the launches per mode."""
     if q.device.type == "cpu":
         return band_attention_bwd_ref(q, k, v, w, y, dn, m, gy, gdn, gm,
                                       nr=nr, mode=mode)
     hb._check_mode(mode)
     if mode == hb.SUB_MODE:
         raise ValueError("mode 'sub' goes through band_attention_sub_bwd")
+    hb.check_window(mode, nr)
     lib = _lib()
     B, G, L, d = q.shape
     hc.validate_h1d_shape(L, nr)
@@ -234,12 +257,16 @@ def band_attention_bwd(q, k, v, w, y, dn, m, gy, gdn, gm, *, nr: int,
         y.data_ptr(), dn.data_ptr(), m.data_ptr(), gy.data_ptr(),
         gdn.data_ptr(), gm.data_ptr(), dq.data_ptr(), gmn.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
-        B, G, L, d, v.shape[-1], nr, _build.stream()), "h1d_band_bwd")
+        B, G, L, d, v.shape[-1], nr, hb._MODE_CODES[mode], _build.stream()),
+        "h1d_band_bwd")
     band_attention_bwd.launches += 1
+    counts = band_attention_bwd.mode_launches
+    counts[mode] = counts.get(mode, 0) + 1
     return out
 
 
 band_attention_bwd.launches = 0
+band_attention_bwd.mode_launches = {}
 
 
 def band_attention_sub_bwd(q, k, v, w, y, dn, m, gy, gdn, gm, *, nr: int,

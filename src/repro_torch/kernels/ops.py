@@ -7,11 +7,11 @@ runs the plain PyTorch versions, a CUDA tensor the hand-written kernels
 (``h1d_block`` forward, ``h1d_block_bwd`` backward).  There is no
 fallback from a kernel to a plain version.
 
-One ``torch.autograd.Function`` per mode wraps the forward: it saves the
-inputs and the outputs ``(q, k, v, w, y, dn, m)`` -- the whole residual,
-as the reference's ``_fwd`` -- and its backward returns ``(dq, dk, dv,
-dw)``.  All three outputs are differentiable (``_stream_combine``
-consumes ``m``).  The forward and backward callables are looked up as
+One ``torch.autograd.Function`` for the four band modes and one for
+``sub`` wrap the forward: each saves the inputs and the outputs ``(q, k,
+v, w, y, dn, m)`` -- the whole residual, as the reference's ``_fwd`` --
+and its backward returns ``(dq, dk, dv, dw)``.  All three outputs are
+differentiable (``_stream_combine`` consumes ``m``).  The forward and backward callables are looked up as
 module attributes at call time, so rerouting ``h1d_block.<name>`` /
 ``h1d_block_bwd.<name>`` reroutes this path too.
 """
@@ -22,22 +22,22 @@ import torch
 from . import h1d_block, h1d_block_bwd
 
 
-class _BandL0(torch.autograd.Function):
-    """Level 0, mode ``l0_causal``."""
+class _Band(torch.autograd.Function):
+    """One level in a band mode (``l0_*`` or ``coarse_*``); the mode is a
+    non-differentiable argument, as ``nr`` is."""
 
     @staticmethod
-    def forward(ctx, q, k, v, w, nr):
-        y, dn, m = h1d_block.band_attention_fwd(q, k, v, w, nr=nr,
-                                                mode="l0_causal")
+    def forward(ctx, q, k, v, w, nr, mode):
+        y, dn, m = h1d_block.band_attention_fwd(q, k, v, w, nr=nr, mode=mode)
         ctx.save_for_backward(q, k, v, w, y, dn, m)
-        ctx.nr = nr
+        ctx.nr, ctx.mode = nr, mode
         return y, dn, m
 
     @staticmethod
     def backward(ctx, gy, gdn, gm):
         dq, dk, dv, dw, _ = h1d_block_bwd.band_attention_bwd(
-            *ctx.saved_tensors, gy, gdn, gm, nr=ctx.nr, mode="l0_causal")
-        return dq, dk, dv, dw, None
+            *ctx.saved_tensors, gy, gdn, gm, nr=ctx.nr, mode=ctx.mode)
+        return dq, dk, dv, dw, None, None
 
 
 class _BandSub(torch.autograd.Function):
@@ -63,9 +63,10 @@ def band_attention(q, k, v, w, *, nr: int, mode: str,
     """Returns float32 ``(y, dn, m)`` for one level.  ``mode='sub'``
     (with ``ratio=2**l``) is the fine-q causal coarse level: ``q`` keeps
     the fine length while ``k``/``v``/``w`` are ``ratio`` times coarser.
-    Modes other than ``l0_causal`` and ``sub`` raise
-    ``NotImplementedError``."""
+    The four band modes (``l0_causal``, ``l0_bidir``, ``coarse_causal``,
+    ``coarse_bidir``) keep one length for queries and keys; an unknown
+    mode raises ``ValueError``."""
     if mode == h1d_block.SUB_MODE:
         return _BandSub.apply(q, k, v, w, nr, ratio)
     h1d_block._check_mode(mode)
-    return _BandL0.apply(q, k, v, w, nr)
+    return _Band.apply(q, k, v, w, nr, mode)

@@ -35,12 +35,15 @@ from repro_torch.core import hierarchy as hc
 from repro_torch.models import get_model
 from repro_torch.serve import paged_cache as pc
 
-OWN = {"band_fwd_kernel<false>": "band_attention_fwd",
-       "band_fwd_kernel<true>": "band_attention_sub_fwd",
-       "band_dq_kernel<false>": "band_attention_bwd",
-       "band_dkvw_kernel<false>": "band_attention_bwd",
-       "band_dq_kernel<true>": "band_attention_sub_bwd",
-       "band_dkvw_kernel<true>": "band_attention_sub_bwd",
+# band kernels are instantiated per h1d::Mode; the coarse_causal ones
+# (<3>) run the sub levels and #1 / #3 in coarse_causal alike.  The first
+# key contained in a kernel's name wins.
+OWN = {"band_fwd_kernel<3>": "band_attention_sub_fwd",
+       "band_fwd_kernel<": "band_attention_fwd",
+       "band_dq_kernel<3>": "band_attention_sub_bwd",
+       "band_dkvw_kernel<3>": "band_attention_sub_bwd",
+       "band_dq_kernel<": "band_attention_bwd",
+       "band_dkvw_kernel<": "band_attention_bwd",
        "decode_attend_kernel<false,false>": "decode_attend_fused",
        "decode_attend_kernel<true,false>": "decode_attend_paged",
        "decode_attend_kernel<true,true>": "decode_attend_paged_quant",

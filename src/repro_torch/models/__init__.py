@@ -1,3 +1,5 @@
-"""The paper's decoder LM (dense family) in PyTorch."""
+"""The paper's models in PyTorch: the decoder LM (dense family) and the
+LRA encoder classifier."""
 from .common import ModelConfig
 from .registry import get_model, ModelFns
+from .classifier import classifier_init, classifier_logits, classifier_loss

@@ -1,13 +1,15 @@
-"""Attention layer of the paper LM: H1D attention with prefill and
-single-token decode paths.
+"""Attention layer of the paper's models: H1D attention for training
+and encoding (causal for the LM, bidirectional for the LRA encoder),
+with prefill and single-token decode paths for the LM.
 
 Port of the h1d branches of ``repro.models.attention``.  The decode cache
 of a layer is a ``core.h1d_decode.H1DCache`` with ``batch * kv_heads``
 folded into its rows (row ``b*Hkv + h``); on the paged path it is a
 per-layer page pool (``core.h1d_decode.PagedH1DCache`` or
-``QuantPagedH1DCache``) addressed through per-tick page tables.  Full and
+``QuantPagedH1DCache``) addressed through per-tick page tables.  Prefill
+and decode serve fine-q attention only (coarse-q serving, full and
 sliding-window attention are later slices and raise
-``NotImplementedError``.
+``NotImplementedError``).
 """
 from __future__ import annotations
 
@@ -60,9 +62,16 @@ def _project_qkv(p, cfg: ModelConfig, x, positions):
     return q, k, v
 
 
-def _attend(p, cfg: ModelConfig, q, k, v, kv_weight):
-    """Causal H1D attention over projected (B,S,H,hd) heads and the
-    output projection.  Pads S to ``nr * 2**k`` with weight-0 keys."""
+def _check_fine_q(cfg: ModelConfig) -> None:
+    if cfg.causal_mode != "fine-q":
+        raise NotImplementedError(
+            f"prefill and decode serve fine-q attention; causal_mode="
+            f"{cfg.causal_mode!r} is trained and encoded, not served")
+
+
+def _attend(p, cfg: ModelConfig, q, k, v, kv_weight, causal: bool):
+    """H1D attention over projected (B,S,H,hd) heads and the output
+    projection.  Pads S to ``nr * 2**k`` with weight-0 keys."""
     B, S = q.shape[:2]
     Lp = hc.padded_length(S, cfg.nr)
     pad = Lp - S
@@ -75,20 +84,19 @@ def _attend(p, cfg: ModelConfig, q, k, v, kv_weight):
                                         (0, pad))
     elif pad:
         w[:, S:] = 0.0
-    z = h1d_attention_mha(q, k, v, nr=cfg.nr, causal=True,
+    z = h1d_attention_mha(q, k, v, nr=cfg.nr, causal=causal,
                           causal_mode=cfg.causal_mode, kv_weight=w)[:, :S]
     return dense(p["wo"], z.reshape(B, S, -1))
 
 
 def attn_apply(p, cfg: ModelConfig, x, positions, *, causal=True,
                kv_weight=None):
-    """Training/encoding attention (causal only in this slice).
-    x: (B, S, d); positions: (B, S)."""
+    """Training/encoding attention, causal (the LM, fine-q or coarse-q
+    by ``cfg.causal_mode``) or bidirectional (the encoder).  x: (B, S,
+    d); positions: (B, S); kv_weight: (B, S) key weights (0 = padding)."""
     _check_supported(cfg)
-    if not causal:
-        raise NotImplementedError("bidirectional attention is not ported yet")
     q, k, v = _project_qkv(p, cfg, x, positions)
-    return _attend(p, cfg, q, k, v, kv_weight)
+    return _attend(p, cfg, q, k, v, kv_weight, causal)
 
 
 def init_decode_cache(cfg: ModelConfig, B: int, Lmax: int, *,
@@ -109,6 +117,7 @@ def attn_decode(p, cfg: ModelConfig, x, t, cache, *, page_tables=None):
     pages, a ``QuantPagedH1DCache``) and the tables route every block
     read and write; the core entry points dispatch on the pool type."""
     _check_supported(cfg)
+    _check_fine_q(cfg)
     B = x.shape[0]
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     G = hq // hkv
@@ -139,10 +148,11 @@ def prefill_into_cache(p, cfg: ModelConfig, x, positions, Lmax: int):
     """Run attention over a prefix AND build the decode cache.
     Returns (out (B, S, d), cache)."""
     _check_supported(cfg)
+    _check_fine_q(cfg)
     B, S, _ = x.shape
     hkv, hd = cfg.num_kv_heads, cfg.head_dim
     q, k, v = _project_qkv(p, cfg, x, positions)
-    out = _attend(p, cfg, q, k, v, None)
+    out = _attend(p, cfg, q, k, v, None, True)
     kf = k.permute(0, 2, 1, 3).reshape(B * hkv, S, hd)
     vf = v.permute(0, 2, 1, 3).reshape(B * hkv, S, hd)
     cache = h1d_decode.prefill_cache(kf, vf, hc.padded_length(Lmax, cfg.nr),

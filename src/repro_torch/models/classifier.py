@@ -1,0 +1,80 @@
+"""Encoder classifier for LRA-style tasks (paper section 8.1).
+
+Port of ``repro.models.classifier``: a bidirectional H1D encoder
+(embedding, pre-norm blocks with RoPE positions, final RMSNorm), masked
+mean pooling over the true tokens and a linear ``head`` to
+``num_classes`` -- the configuration the paper uses on the Long Range
+Arena benchmark (``h1d-lra-encoder``).  Differentiable: the band kernels
+of the bidirectional and coarse modes carry their backward.
+
+Parameters::
+
+    {"embed": {"w": (V, d)}, "final_norm": {"g": (d,)},
+     "head": {"w": (d, num_classes)},
+     "layers": [{"ln1": {"g"}, "attn": {"wq", "wkv", "wo"},
+                 "ln2": {"g"}, "mlp": {"wg", "wu", "wd"}}, ...]}
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from .. import resolve_device
+from ..tree import tree_map
+from .attention import attn_apply
+from .common import ModelConfig, dense, dense_init, rmsnorm
+from .ffn import mlp
+from .transformer import block_init
+
+
+def classifier_init(cfg: ModelConfig, num_classes: int, *, seed: int = 0,
+                    device=None) -> Dict[str, Any]:
+    """Random parameters drawn from ``seed`` with an explicit
+    ``torch.Generator`` on the CPU, then moved to ``device`` (default
+    ``cuda``), as ``lm_init``."""
+    dev = resolve_device(device)
+    dtype = cfg.torch_dtype
+    gen = torch.Generator().manual_seed(seed)
+    params: Dict[str, Any] = {
+        "embed": {"w": torch.randn((cfg.vocab_size, cfg.d_model),
+                                   generator=gen, dtype=dtype) * 0.02},
+        "layers": [block_init(gen, cfg, dtype)
+                   for _ in range(cfg.num_layers)],
+        "final_norm": {"g": torch.ones((cfg.d_model,), dtype=dtype)},
+        "head": dense_init(gen, cfg.d_model, num_classes, dtype=dtype),
+    }
+    return tree_map(lambda t: t.to(dev), params)
+
+
+def classifier_logits(params, cfg: ModelConfig, tokens, mask=None):
+    """tokens (B, S) int, mask (B, S) 0/1 or None -> float32 logits
+    (B, num_classes).  The mask weights the keys of every layer and the
+    mean pooling."""
+    B, S = tokens.shape
+    h = params["embed"]["w"][tokens.long()].to(cfg.torch_dtype)
+    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    for lp in params["layers"]:
+        h = h + attn_apply(lp["attn"], cfg, rmsnorm(lp["ln1"], h), positions,
+                           causal=False, kv_weight=mask)
+        h = h + mlp(lp["mlp"], rmsnorm(lp["ln2"], h), cfg.mlp_activation)
+    h = rmsnorm(params["final_norm"], h)
+    if mask is not None:
+        w = mask[..., None].to(h.dtype)
+        pooled = (h * w).sum(1) / torch.clamp(w.sum(1), min=1.0)
+    else:
+        pooled = h.mean(1)
+    return dense(params["head"], pooled).to(torch.float32)
+
+
+def classifier_loss(params, cfg: ModelConfig, batch):
+    """batch: tokens (B, S), label (B,) [, mask (B, S)].  Mean
+    cross-entropy through ``logsumexp``; returns (loss, {"acc"})."""
+    logits = classifier_logits(params, cfg, batch["tokens"],
+                               batch.get("mask"))
+    labels = batch["label"].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[:, None])[:, 0]
+    loss = (logz - gold).mean()
+    acc = (logits.argmax(-1) == labels).to(torch.float32).mean()
+    return loss, {"acc": acc}

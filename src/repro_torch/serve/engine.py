@@ -30,8 +30,8 @@ reference's semantics:
   a paged tick builds its two page tables once on the host and copies
   them to the card in one non-blocking transfer shared by every layer.
 
-Everything runs under ``torch.inference_mode()``.  Sampling, sequence
-parallelism and telemetry are later slices and raise
+Everything runs under ``torch.inference_mode()``.  Sampling, coarse-q
+attention, sequence parallelism and telemetry are later slices and raise
 ``NotImplementedError``.
 """
 from __future__ import annotations

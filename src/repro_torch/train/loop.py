@@ -47,7 +47,7 @@ class TrainConfig:
     log_every: int = 10
     seed: int = 0
     watchdog_factor: float = 3.0      # straggler alarm threshold
-    attn_causal_mode: Optional[str] = None  # fine-q (coarse-q: later slice)
+    attn_causal_mode: Optional[str] = None  # fine-q | coarse-q
 
 
 def resolve_model_config(cfg: ModelConfig, tc: TrainConfig) -> ModelConfig:

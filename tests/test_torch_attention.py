@@ -143,8 +143,20 @@ def test_mha_fold_order_and_parity():
 @pytest.mark.parametrize("mode", ["l0_bidir", "coarse_causal",
                                   "coarse_bidir"])
 def test_unported_modes_raise(mode):
-    q, k, v, w = _t(*_inputs(1, 1, 32, 8, seed=0))
-    with pytest.raises(NotImplementedError):
-        tops.band_attention(q, k, v, w, nr=8, mode=mode)
-    with pytest.raises(NotImplementedError):
-        tatt.h1d_attention(q, k, v, nr=8, causal=False)
+    """The modes past ``l0_causal`` and ``sub`` run (they once raised
+    ``NotImplementedError``): one level through ``ops.band_attention``
+    against ``ops._blocked_jnp``, and the operator that uses the mode
+    against the JAX operator.  An unknown mode raises ``ValueError``."""
+    q, k, v, w = _inputs(2, 1, 64, 8, seed=1, pad=20)
+    v = v * w[..., None]
+    ref = _jit(jops._blocked_jnp, nr=8, mode=mode)(q, k, v, w)
+    _close(ref, tops.band_attention(*_t(q, k, v, w), nr=8, mode=mode))
+    causal = mode.endswith("causal")
+    want = _jit(jatt.h1d_attention, nr=8, causal=causal,
+                causal_mode="coarse-q")(q, k, v, kv_weight=w)
+    got = tatt.h1d_attention(*_t(q, k, v), nr=8, causal=causal,
+                             causal_mode="coarse-q",
+                             kv_weight=torch.from_numpy(w))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    with pytest.raises(ValueError):
+        tops.band_attention(*_t(q, k, v, w), nr=8, mode="l1_bidir")

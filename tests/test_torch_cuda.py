@@ -5,10 +5,10 @@ count nowhere on a CPU run.  On a machine with a card:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 These cover shapes the smoke (``chip_smoke.py``) does not: GQA groups
-G > 1, nr from 4 to 32, head widths that are not a multiple of 32 and up
-to 128, weight-0 keys and fully masked rows, every mask edge of the
-decode positions, every sub level up to ratio 32, paged pools with int8,
-mixed and fp32 levels.  Tolerances as in ``chip_smoke.py``: attention
+G > 1, nr from 4 to 32, every band mode, head widths that are not a
+multiple of 32 and up to 128, weight-0 keys and fully masked rows, every
+mask edge of the decode positions, every sub level up to ratio 32, paged
+pools with int8, mixed and fp32 levels.  Tolerances as in ``chip_smoke.py``: attention
 forward within 1e-5 scaled by max(1, |plain|) (fp32 on both sides,
 another summation order), cache updates bit-exact (paged ones outside
 the TRASH page, whose rows several inactive rows write at once),
@@ -193,6 +193,131 @@ def test_band_sub_fwd_matches_plain_every_level(dev, G, L, d, nr):
                hb.band_attention_sub_fwd_ref(*args, nr=nr, ratio=1 << lvl))
 
 
+# ---------------------------------------------------------------------------
+# the bidirectional and coarse modes of #1 and #3
+# ---------------------------------------------------------------------------
+
+NEW_MODES = ("l0_bidir", "coarse_bidir", "coarse_causal")
+
+
+def _lra_operands(gen, dev, B, G, L, d, dv, nr):
+    """Rows right-padded to seeded true lengths (row 0 at nr + 3, so most
+    of its coarse rows are fully masked), v pre-weighted."""
+    q = _randn(gen, dev, B, G, L, d) / d ** 0.5
+    k = _randn(gen, dev, B, L, d)
+    lens = torch.randint(L // 4, L + 1, (B,), generator=gen, device=dev)
+    lens[0] = nr + 3
+    w = (torch.arange(L, device=dev)[None] < lens[:, None]).float()
+    v = _randn(gen, dev, B, L, dv) * w[..., None]
+    return q, k, v, w
+
+
+@pytest.mark.parametrize("mode", NEW_MODES)
+@pytest.mark.parametrize("B,G,L,d,dv,nr", [
+    (3, 1, 256, 64, 64, 16), (2, 2, 128, 16, 16, 8), (2, 4, 32, 40, 24, 8),
+    (2, 2, 64, 128, 128, 32), (2, 1, 64, 8, 72, 4), (4, 1, 32, 64, 64, 16)])
+def test_band_new_modes_match_plain(dev, mode, B, G, L, d, dv, nr):
+    """Forward and backward of each new mode against their plain
+    versions: padded rows, fully masked rows, L = 2 blocks; the backward
+    twice gives identical bits (no atomics)."""
+    gen = torch.Generator(device=dev).manual_seed(L + G + d)
+    q, k, v, w = _lra_operands(gen, dev, B, G, L, d, dv, nr)
+    kernels.reset_counts()
+    out = hb.band_attention_fwd(q, k, v, w, nr=nr, mode=mode)
+    _close(out, hb.band_attention_fwd_ref(q, k, v, w, nr=nr, mode=mode))
+    y, dn, m = out
+    assert torch.all(m[0, :, 3 * nr:] == hb._MIN_M)
+    assert not y[0, :, 3 * nr:].any() and not dn[0, :, 3 * nr:].any()
+    args = (q, k, v, w, *out, *_cotangents(gen, dev, out))
+    got = hbb.band_attention_bwd(*args, nr=nr, mode=mode)
+    _close_grads(got, hbb.band_attention_bwd_ref(*args, nr=nr, mode=mode))
+    assert not got[4][0, :, 3 * nr:].any() and not got[0][0, :, 3 * nr:].any()
+    for a, b in zip(got, hbb.band_attention_bwd(*args, nr=nr, mode=mode)):
+        assert torch.equal(a, b)
+    assert hb.band_attention_fwd.mode_launches == {mode: 1}
+    assert hbb.band_attention_bwd.mode_launches == {mode: 2}
+
+
+@pytest.mark.parametrize("causal,causal_mode", [(False, "fine-q"),
+                                                (True, "coarse-q")])
+def test_h1d_attention_new_modes_grads_on_card_match_plain(dev, causal,
+                                                           causal_mode):
+    """The encoder and coarse-q operators on the kernels (every coarse
+    level of L = 512 on coarsened queries), output and gradient, against
+    the plain versions on the card."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    B, G, L, D = 4, 1, 512, 64
+    x = [_randn(gen, dev, B, G, L, D), _randn(gen, dev, B, L, D),
+         _randn(gen, dev, B, L, D)]
+    kw = torch.ones((B, L), device=dev)
+    kw[0, 130:] = 0.0
+    kw[2, 400:] = 0.0
+    r = _randn(gen, dev, B, G, L, D)
+
+    def run():
+        ts = [t.clone().requires_grad_(True) for t in x]
+        z = h1d_attention(*ts, nr=16, causal=causal, causal_mode=causal_mode,
+                          kv_weight=kw)
+        return (z.detach(), *torch.autograd.grad((z * r).sum(), ts))
+    kernels.reset_counts()
+    got = run()
+    coarse = "coarse_causal" if causal else "coarse_bidir"
+    l0 = "l0_causal" if causal else "l0_bidir"
+    levels = hc.num_levels(L, 16) - 1
+    for kernel in (hb.band_attention_fwd, hbb.band_attention_bwd):
+        assert kernel.mode_launches == {l0: 1, coarse: levels}
+    assert hb.band_attention_sub_fwd.launches == 0
+    swaps = [(hb, "band_attention_fwd", hb.band_attention_fwd_ref),
+             (hbb, "band_attention_bwd", hbb.band_attention_bwd_ref)]
+    with pytest.MonkeyPatch.context() as mp:
+        for mod, name, fn in swaps:
+            mp.setattr(mod, name, fn)
+        want = run()
+    _close(got[:1], want[:1])
+    _close_grads(got[1:], want[1:])
+
+
+def test_smoke_classifier_on_card_matches_cpu(dev):
+    """The smoke encoder's logits and three AdamW losses on a ListOps
+    batch, card (bidirectional modes launched, no plain version run)
+    against CPU."""
+    from repro_torch import optim
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import ListOps
+    from repro_torch.models import classifier_init, classifier_loss
+    from repro_torch.train import batch_to_device
+    from repro_torch.tree import tree_leaves, tree_unflatten_like
+
+    cfg = get_smoke_config("h1d-lra-encoder")
+    data = ListOps(seq_len=256, batch_per_host=4, seed=0, max_depth=4,
+                   breadth=3)
+    losses = {}
+    for device in ("cpu", "cuda"):
+        params = classifier_init(cfg, 10, seed=1, device=device)
+        opt = optim.adamw(optim.cosine_schedule(2e-3, 10, 3),
+                          weight_decay=0.01)
+        state = opt.init(params)
+        kernels.reset_counts()
+        losses[device] = []
+        for i in range(3):
+            leaves = [t.detach().requires_grad_(True)
+                      for t in tree_leaves(params)]
+            loss, _ = classifier_loss(tree_unflatten_like(params, leaves),
+                                      cfg, batch_to_device(data.batch(i),
+                                                           device))
+            g = torch.autograd.grad(loss, leaves)
+            upd, state = opt.update(tree_unflatten_like(params, list(g)),
+                                    state, params)
+            params = optim.apply_updates(params, upd)
+            losses[device].append(float(loss.detach()))
+        if device == "cuda":
+            counts = kernels.mode_launches()
+            for key in kernels.LRA_KERNELS:
+                assert counts.get(key, 0) > 0, key
+            assert not any(p.calls for _, p in kernels.KERNELS.values())
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], atol=1e-4)
+
+
 def _ts(Lmax, nr):
     M = hc.num_levels(Lmax, nr)
     span = nr << max(M - 1, 1)
@@ -249,8 +374,19 @@ def test_wrappers_validate_operands(dev):
                               .transpose(1, 2), k, w, nr=8)
     with pytest.raises(ValueError):            # wrong dtype
         hb.band_attention_fwd(q.double(), k, k, w, nr=8)
-    with pytest.raises(NotImplementedError):   # mode of a later slice
-        hb.band_attention_fwd(q, k, k, w, nr=8, mode="l0_bidir")
+    with pytest.raises(ValueError):            # unknown mode
+        hb.band_attention_fwd(q, k, k, w, nr=8, mode="l1_bidir")
+    q64 = torch.zeros((1, 1, 128, 8), device=dev)
+    k64 = torch.zeros((1, 128, 8), device=dev)
+    w64 = torch.ones((1, 128), device=dev)
+    for mode in ("l0_bidir", "coarse_bidir"):  # 3 * 64 keys a row > 128
+        with pytest.raises(ValueError):
+            hb.band_attention_fwd(q64, k64, k64, w64, nr=64, mode=mode)
+        out = hb.band_attention_fwd_ref(q64, k64, k64, w64, nr=64,
+                                        mode=mode)
+        with pytest.raises(ValueError):
+            hbb.band_attention_bwd(q64, k64, k64, w64, *out, *out, nr=64,
+                                   mode=mode)
 
 
 def test_smoke_engine_on_card_matches_cpu(dev):
