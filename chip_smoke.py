@@ -5,7 +5,7 @@
 
 Phases (each raises on failure; nothing is caught):
 
-1. build the ten CUDA kernels from ``src/repro_torch/kernels/csrc``,
+1. build the twelve CUDA kernels from ``src/repro_torch/kernels/csrc``,
    one ``nvcc`` per source, started together;
 2. hold each forward and decode kernel against its plain PyTorch version
    on the card at the shapes of the serving path below, and time both
@@ -49,6 +49,27 @@ Phases (each raises on failure; nothing is caught):
    prefix registry and end with no page in use; (b) and (c) must give
    (a)'s tokens for every request whose teacher-forced top-2 margins all
    exceed 1e-3; (d)'s token-match rate against (a) is reported;
+5c. ``sp``, sequence-parallel serving of the same model and weights with
+   each layer's cache split along its sequence axis into d shards on the
+   card: (a) #11 and #12 against their plain versions at serving shapes
+   (R=64 rows = 8 slots x 8 kv-heads, G=1, d=64, nr=16, max_len 2048) on
+   every shard at d=2 and d=4, seeded positions including 0, 15, 16,
+   every shard edge s*Lloc - 1 and s*Lloc, 2047 and the out-of-range
+   2048; #11's merged output against #5 on the unsharded cache; #12
+   bit-exact per shard (slabs and carries) and the whole SP update (with
+   the d=4 deep-level #6 step) against #6 on the unsharded cache; each
+   timed as one shard's call at d=4, its bound counted from what that
+   shard's call needs; phase 4's 16 prompts as one batch padded to the
+   2048 bucket, prefilled in a 4-way ``sp_scope`` and densely: logits
+   within 1e-3, the SP caches (through ``shard_cache`` and
+   ``unshard_cache``) within 1e-4 row-scaled, layer 0's bit-exact;
+   (b) ``ServeEngine(slots=8,
+   max_len=2048, mesh=make_mesh((4,), ("data",)))`` on phase 4's 16
+   requests, (c) d=2 on its first 4 and (d) slots=1, d=4 on its first:
+   every request whose teacher-forced top-2 margins all exceed 1e-3 must
+   give phase 4's tokens, #11, #12, #6 and #1 / #2 under SP prefill
+   must have launched and no plain version run; tokens/s, decode ms per
+   tick and prefill ms per call beside the dense engine's;
 6. train ``h1d-lm-53m`` at full width and depth from seeded random
    weights for 20 AdamW steps on ``ZipfLM(seed=0)`` batches of 8 x 1024
    through ``repro_torch.train.loop.train``: every loss finite, the mean
@@ -128,6 +149,10 @@ FP32_FLOPS = 67e12
 ATTN_TOL = 1e-5
 GRAD_TOL = 1e-4
 LOGIT_TOL = 1e-3
+# SP prefill caches against the dense prefill's, scaled by each row's
+# largest |value|: both are fp32 but sum the attention of the layers
+# below in another order (halo merge, gathered deep levels)
+CACHE_TOL = 1e-4
 BWD_LAUNCH = ("one launch is one wrapper call of two kernels: dQ, then "
               "dK/dV/dW")
 
@@ -837,7 +862,7 @@ def path_counts():
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the ten kernel call sites to their plain versions (the
+    """Route the twelve kernel call sites to their plain versions (the
     comparison path of phases 5 and 7; the port itself has no such
     switch)."""
     from repro_torch.kernels import h1d_block as hb
@@ -854,7 +879,9 @@ def plain_kernels():
               dk.decode_attend_paged_quant_ref),
              (dk, "update_cache_paged", dk.update_cache_paged_ref),
              (dk, "update_cache_paged_quant",
-              dk.update_cache_paged_quant_ref)]
+              dk.update_cache_paged_quant_ref),
+             (dk, "decode_attend_partial", dk.decode_attend_partial_ref),
+             (dk, "update_cache_partial", dk.update_cache_partial_ref)]
     saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
     for m, n, f in swaps:
         setattr(m, n, f)
@@ -936,7 +963,7 @@ def phase_serve(dev):
         decode_ms_per_tick=float(np.median(ticks["decode"])),
         launches=counts)
     log(f"serve: {json.dumps(stats)}")
-    return cfg, params, fns, reqs, counts
+    return cfg, params, fns, reqs, counts, stats
 
 
 def phase_logits(cfg, params, fns, reqs, dev):
@@ -1050,6 +1077,7 @@ def run_engine(eng, workload, fns):
     ntok = sum(len(o) for o in outs.values())
     stats = dict(tokens=ntok, wall_s=wall, tokens_per_s=ntok / wall,
                  peak_concurrency=peak, prefill_calls=len(ticks["prefill"]),
+                 prefill_ms_per_call=float(np.mean(ticks["prefill"])),
                  decode_ticks=len(ticks["decode"]),
                  decode_ms_per_tick=float(np.median(ticks["decode"])),
                  launches={n: c for n, c in counts.items() if c})
@@ -1142,6 +1170,265 @@ def phase_paged_serve(cfg, params, fns, dev):
         f"int8 pages (d) in {budget} B; {len(guarded)}/{len(ref)} requests "
         f"guarded (top-2 margins > {LOGIT_TOL}), (b) and (c) equal to (a) "
         f"on all of them; (d) token-match rate vs (a) {rate:.4f}")
+    return total
+
+
+def sp_positions(dev, gen, d):
+    """R seeded positions in [0, LMAX], the first ones at the mask and
+    shard edges: 0, 15, 16, 2047, the out-of-range 2048 (owned by the
+    last shard) and s*Lloc - 1, s*Lloc at every shard edge."""
+    t = torch.randint(0, LMAX + 1, (R,), generator=gen, device=dev,
+                      dtype=torch.int32)
+    edges = [0, NR - 1, NR, LMAX - 1, LMAX]
+    for s in range(1, d):
+        edges += [s * LMAX // d - 1, s * LMAX // d]
+    t[:len(edges)] = torch.tensor(edges, dtype=torch.int32)
+    return t
+
+
+def partial_keys(t, owned, nlev):
+    """Key rows that #11 needs on one shard for rows at positions ``t``
+    with band ownership bits ``owned``: those the decode band masks let
+    through (``_attend_bands``' rules) in a band the shard owns."""
+    t = t.long()[:, None]
+    j = torch.arange(NR, device=t.device)[None]
+    need = []
+    for band in range(nlev + 1):
+        if band == 0:
+            m = (t // NR) * NR + j <= t
+        elif band == 1:
+            m = (t // NR >= 1).expand(-1, NR)
+        else:
+            span = NR << (band - 1)
+            m = (t // span >= 1) & ~((t % span < span // 2) & (j >= NR // 2))
+        need.append(m & (owned[:, band:band + 1] > 0))
+    return int(torch.cat(need, 1).sum())
+
+
+def phase_sp_kernels(dev):
+    """#11 and #12 against their plain versions on every shard at d=2 and
+    d=4; #11 merged against #5 and the whole SP update against #6 on the
+    unsharded cache.  Rows timed as one shard's call at d=4."""
+    from repro_torch.core import h1d_decode as hd
+    from repro_torch.core import hierarchy as hc
+    from repro_torch.kernels import h1d_decode_kernel as dk
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import sp_attention as sp
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def clone(c, nlev=None):
+        nc = len(c.ck) if nlev is None else nlev - 1
+        return hd.H1DCache(c.k.clone(), c.v.clone(),
+                           tuple(a.clone() for a in c.ck[:nc]),
+                           tuple(a.clone() for a in c.cv[:nc]))
+
+    dense = hd.prefill_cache(randn(R, LMAX, D), randn(R, LMAX, D), LMAX, NR)
+    qd = randn(R, G, D)
+    kn, vn = randn(R, D), randn(R, D)
+    nlev = hc.num_levels(LMAX, NR)
+    err = {"attend": 0.0, "merged": 0.0}
+    for d in (2, 4):
+        mesh = make_mesh((d,), ("data",), device=dev)
+        sc = sp.shard_cache(dense, mesh, NR)
+        t = sp_positions(dev, gen, d)
+        tabs = sp.sp_tables(t.cpu().numpy(), nr=NR, Lmax=LMAX, d=d,
+                            device=dev)
+        nsh = sp.sp_sharded_levels(LMAX, NR, d)
+        for s, sh in enumerate(sc.shards):
+            args = (sh, qd, t, tabs.bidx[s], tabs.owned[s])
+            e, *_ = compare(f"decode_attend_partial d={d} shard {s}",
+                            dk.decode_attend_partial(*args, nr=NR),
+                            dk.decode_attend_partial_ref(*args, nr=NR),
+                            ATTN_TOL)
+            err["attend"] = max(err["attend"], e)
+            a, b = clone(sh, nsh), clone(sh, nsh)
+            upd = (kn, vn, tabs.t_loc[s], tabs.upd_owned[s])
+            _, ak, av = dk.update_cache_partial(a, *upd)
+            _, bk, bv = dk.update_cache_partial_ref(b, *upd)
+            for x, y in zip((a.k, a.v, *a.ck, *a.cv, ak, av),
+                            (b.k, b.v, *b.ck, *b.cv, bk, bv)):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"update_cache_partial d={d} shard "
+                                         f"{s} is not bit-exact")
+        with sp.sp_scope(mesh):
+            merged = hd.decode_attend(sc, qd, t, nr=NR, tables=tabs)
+        e, *_ = compare(f"SP attend d={d} vs decode_attend_fused", [merged],
+                        [dk.decode_attend_fused(dense, qd, t, nr=NR)],
+                        ATTN_TOL)
+        err["merged"] = max(err["merged"], e)
+        one = clone(dense)
+        with sp.sp_scope(mesh):
+            hd.update_cache(sc, kn, vn, t, tables=tabs)
+        dk.update_cache_fused(one, kn, vn, t)
+        back = sp.unshard_cache(sc)
+        for x, y in zip((back.k, back.v, *back.ck, *back.cv),
+                        (one.k, one.v, *one.ck, *one.cv)):
+            if not torch.equal(x, y):
+                raise AssertionError(f"SP update d={d} is not bit-exact "
+                                     f"against update_cache_fused")
+        log(f"sp d={d}: #11 max abs err {err['attend']:.3g} (merged vs #5 "
+            f"{err['merged']:.3g}); #12 and the SP update bit-exact "
+            f"({nsh} sharded levels of {nlev}"
+            f"{', deep levels by #6' if nsh < nlev else ''})")
+
+    # timed at d=4, the last pass's arrays: one shard's call.  The bound
+    # counts what this shard's call needs: the key and value rows of the
+    # keys it owns and the masks let through, each read once
+    s = d - 1
+    sh = sc.shards[s]
+    args = (sh, qd, t, tabs.bidx[s], tabs.owned[s])
+    keys = partial_keys(t, tabs.owned[s], nlev)
+    f4 = 4
+    nbytes = f4 * (keys * 2 * D + qd.numel() + R * (1 + 2 * (nlev + 1))
+                   + R * G * (D + 2))
+    bms, by = bound(nbytes, keys * G * (4 * D + 4))
+    with sp.sp_scope(mesh):
+        layer_ms = time_ms(lambda: hd.decode_attend(sc, qd, t, nr=NR,
+                                                    tables=tabs))
+    rows = [dict(
+        name="decode_attend_partial", route="cuda",
+        source="src/repro_torch/kernels/csrc/h1d_decode.cu",
+        replaces="src/repro/kernels/h1d_decode_kernel.py:267",
+        max_abs_err=err["attend"], merged_max_abs_err=err["merged"],
+        ms=time_ms(lambda: dk.decode_attend_partial(*args, nr=NR)),
+        device_ms=device_ms(lambda: dk.decode_attend_partial(*args, nr=NR)),
+        plain_ms=time_ms(lambda: dk.decode_attend_partial_ref(*args, nr=NR)),
+        bound_ms=bms, bound_by=by, library_ms=None,
+        sp_layer_attend_ms=layer_ms,
+        note=f"shard {s}'s call at d={d} (R={R}, Lmax {LMAX}): {keys} of "
+             f"{R * (nlev + 1) * NR} band keys owned and unmasked, the "
+             f"bound's; sp_layer_attend_ms: one layer's {d} calls and "
+             f"their merge")]
+    upd = (clone(sh, nsh), kn, vn, tabs.t_loc[s], tabs.upd_owned[s])
+    # owner rows read their new row and one sibling and write one row a
+    # level; every row's carry is written
+    own = int(tabs.upd_owned[s].sum())
+    nbytes = f4 * (2 * own * D + 2 * R + own * nsh * 2 * 2 * D + 2 * R * D)
+    bms, by = bound(nbytes, own * nsh * 2 * D)
+    rows.append(dict(
+        name="update_cache_partial", route="cuda",
+        source="src/repro_torch/kernels/csrc/h1d_decode.cu",
+        replaces="src/repro/kernels/h1d_decode_kernel.py:807",
+        max_abs_err=0.0,
+        ms=time_ms(lambda: dk.update_cache_partial(*upd)),
+        device_ms=device_ms(lambda: dk.update_cache_partial(*upd)),
+        plain_ms=time_ms(lambda: dk.update_cache_partial_ref(*upd)),
+        bound_ms=bms, bound_by=by, library_ms=None,
+        note=f"shard {s}'s call at d={d}: its {nsh} sharded levels of "
+             f"{nlev}, {own} of {R} rows its own"))
+    return rows
+
+
+def phase_sp_prefill(cfg, params, fns, reqs, dev):
+    """Phase 4's 16 prompts as one batch right-padded to the 2048
+    bucket, prefilled inside a 4-way ``sp_scope`` and densely: the SP
+    logits within LOGIT_TOL of the dense ones, and every layer's SP
+    caches, after ``shard_cache`` and ``unshard_cache``, within
+    CACHE_TOL of the dense caches (layer 0's bit-exact: its keys and
+    values come before any attention)."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import sp_attention as sp
+
+    toks = np.zeros((len(reqs), LMAX), np.int64)
+    for i, r in enumerate(reqs):
+        toks[i, :len(r.prompt)] = r.prompt
+    batch = {"tokens": torch.as_tensor(toks, device=dev)}
+    tl = torch.as_tensor([len(r.prompt) for r in reqs], dtype=torch.int32,
+                         device=dev)
+    mesh = make_mesh((4,), ("data",), device=dev)
+    with torch.inference_mode():
+        lg_d, c_d, _ = fns.prefill(params, cfg, batch, LMAX, true_len=tl)
+        sp.DISPATCHES.clear()
+        with sp.sp_scope(mesh):
+            lg_s, c_s, _ = fns.prefill(params, cfg, batch, LMAX, true_len=tl)
+    if sp.DISPATCHES.get("h1d_attention") != cfg.num_layers:
+        raise AssertionError(f"sp prefill: {sp.DISPATCHES} SP operator "
+                             f"calls for {cfg.num_layers} layers")
+    e_logits = errors("sp prefill logits", [lg_s], [lg_d])[0]   # max abs
+    if e_logits > LOGIT_TOL:
+        raise AssertionError(f"sp prefill: logits differ from the dense "
+                             f"prefill's by {e_logits:.3g} > {LOGIT_TOL}")
+    worst = 0.0
+    for layer, (a, b) in enumerate(zip(c_s, c_d)):
+        back = sp.unshard_cache(sp.shard_cache(a, mesh, cfg.nr))
+        got = (back.k, back.v, *back.ck, *back.cv)
+        want = (b.k, b.v, *b.ck, *b.cv)
+        if layer == 0:
+            if not all(torch.equal(x, y) for x, y in zip(got, want)):
+                raise AssertionError("sp prefill: layer 0's caches are not "
+                                     "bit-exact")
+            continue
+        _, e, _ = compare(f"sp prefill caches, layer {layer}", got, want,
+                          CACHE_TOL, scale=("row",) * len(got))
+        worst = max(worst, e)
+    log(f"sp prefill d=4 at the {LMAX} bucket ({len(reqs)} prompts): logits "
+        f"max abs diff {e_logits:.3g} (<= {LOGIT_TOL}); caches layer 0 "
+        f"bit-exact, layers 1..{cfg.num_layers - 1} row-scaled "
+        f"{worst:.3g} (<= {CACHE_TOL})")
+
+
+def phase_sp_serve(cfg, params, fns, reqs, dense_stats, dev):
+    """Phase 4's requests through sequence-parallel engines: (b) d=4 with
+    8 slots, (c) d=2 on the first 4 requests, (d) d=4 with one slot on
+    the first.  Returns the launches of the three runs summed."""
+    from repro_torch import kernels
+    from repro_torch.core import hierarchy as hc
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import sp_attention as sp
+    from repro_torch.serve import ServeEngine
+
+    guarded = []                  # phase 5b's rule: top-2 margins > 1e-3
+    with torch.inference_mode():
+        for r in reqs:
+            seq = np.concatenate([r.prompt, np.asarray(r.out_tokens[:-1],
+                                                       np.int32)])
+            lg, _ = fns.forward(params, cfg, torch.as_tensor(
+                seq[None], dtype=torch.long, device=dev))
+            top2 = lg[0, len(r.prompt) - 1:].topk(2, dim=-1).values
+            if float((top2[:, 0] - top2[:, 1]).min()) > LOGIT_TOL:
+                guarded.append(r.uid)
+    want = {r.uid: list(r.out_tokens) for r in reqs}
+    phase_sp_prefill(cfg, params, fns, reqs, dev)
+    runs = {"b_d4": (4, 8, reqs), "c_d2": (2, 8, reqs[:4]),
+            "d_d4_slots1": (4, 1, reqs[:1])}
+    total = {}
+    for name, (d, slots, rs) in runs.items():
+        eng = ServeEngine(cfg, params, slots=slots, max_len=LMAX,
+                          mesh=make_mesh((d,), ("data",), device=dev))
+        sp.DISPATCHES.clear()
+        outs, stats, counts = run_engine(
+            eng, [(r.uid, r.prompt) for r in rs], fns)
+        # #6 runs on the replicated deep levels, which d=2 does not have
+        deep = (sp.sp_sharded_levels(LMAX, cfg.nr, d)
+                < hc.num_levels(LMAX, cfg.nr))
+        missing = [k for k in kernels.SP_SERVE_KERNELS if counts[k] == 0
+                   and (deep or k != "update_cache_fused")]
+        if missing or counts["decode_attend_fused"]:
+            raise AssertionError(f"sp {name}: kernels {missing} not launched "
+                                 f"or #5 launched: {counts}")
+        if not sp.DISPATCHES.get("h1d_attention"):
+            raise AssertionError(f"sp {name}: no prefill ran sharded")
+        bad = [u for u in outs if u in guarded and outs[u] != want[u]]
+        if bad:
+            raise AssertionError(f"sp {name}: requests {bad} differ from "
+                                 f"phase 4's tokens")
+        for n, c in counts.items():
+            total[n] = total.get(n, 0) + c
+        stats.update(shards=d, slots=slots, guarded=sum(u in guarded
+                                                        for u in outs),
+                     sp_dispatches=dict(sp.DISPATCHES))
+        del eng
+        torch.cuda.empty_cache()
+        log(f"sp {name}: {json.dumps(stats)}")
+    log(f"sp: every margin-guarded request ({len(guarded)} of {len(reqs)}) "
+        f"gave phase 4's tokens; dense engine (phase 4, same call): "
+        f"{dense_stats['tokens_per_s']:.1f} tokens/s, decode "
+        f"{dense_stats['decode_ms_per_tick']:.2f} ms/tick, prefill "
+        f"{dense_stats['prefill_ms_per_call']:.2f} ms/call")
     return total
 
 
@@ -1428,9 +1715,16 @@ def main() -> int:
 
     rows = (phase_kernels(dev) + phase_mode_kernels(dev)
             + phase_paged_kernels(dev) + phase_bwd_kernels(dev))
-    cfg, params, fns, reqs, serve_counts = phase_serve(dev)
+    t_sp = time.perf_counter()
+    rows += phase_sp_kernels(dev)
+    sp_s = time.perf_counter() - t_sp
+    cfg, params, fns, reqs, serve_counts, serve_stats = phase_serve(dev)
     phase_logits(cfg, params, fns, reqs, dev)
     paged_counts = phase_paged_serve(cfg, params, fns, dev)
+    t_sp = time.perf_counter()
+    sp_counts = phase_sp_serve(cfg, params, fns, reqs, serve_stats, dev)
+    sp_s += time.perf_counter() - t_sp
+    log(f"phase sp took {sp_s:.1f}s (kernel rows and serving)")
     del params, fns, reqs
     train_counts = phase_train(dev)
     phase_grads(dev)
@@ -1439,12 +1733,14 @@ def main() -> int:
         key = row["name"]
         by_path = {"serve": serve_counts.get(key, 0),
                    "paged": paged_counts.get(key, 0),
+                   "sp": sp_counts.get(key, 0),
                    "train": train_counts.get(key, 0),
                    "lra": lra_counts.get(key, 0),
                    "coarse_q_train": cq_counts.get(key, 0)}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         row["kernel_ms"] = row["ms"]
+    log(f"all phases took {time.perf_counter() - t0:.1f}s, build included")
 
     print(json.dumps({"kernels": rows}))
     smi = subprocess.run(

@@ -2,8 +2,9 @@
 
 The JAX package ``repro`` is the reference; this package mirrors its
 subpackage layout and function names (``core/``, ``kernels/``,
-``models/``, ``serve/``, ``launch/``) so each ported function sits at
-the same path as its counterpart.  It imports ``torch`` and numpy only.
+``models/``, ``parallel/``, ``serve/``, ``launch/``) so each ported
+function sits at the same path as its counterpart.  It imports
+``torch`` and numpy only.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no card and no such argument they raise instead of quietly running

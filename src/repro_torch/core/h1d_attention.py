@@ -24,6 +24,12 @@ Keys coarsen by a weighted mean, values and weights by pairwise sums.
 Each level's ``(y, dn, m)`` is folded into one running accumulator by a
 log-sum-exp shift (:func:`_stream_combine`).
 
+Inside ``parallel.sp_attention.sp_scope(mesh)`` a sequence whose local
+slab ``L/d`` holds a whole ``nr``-row block runs the whole hierarchy
+sharded over the mesh (``sp_h1d_attention``: local kernels, halo
+epilogue, gathered deep levels; forward only).  Shorter sequences stay
+on the single-launch kernels.
+
 Differentiable end to end: ``band_attention`` carries the backward
 kernels, and every max and floor here is ``torch.maximum``, which splits
 the gradient of a tie 0.5/0.5 like JAX's ``lax.max`` (``torch.clamp``
@@ -69,6 +75,14 @@ def h1d_attention(q, k, v, *, nr: int = 16, causal: bool = False,
     if tuple(k.shape[:2]) != (B, L) or tuple(v.shape[:2]) != (B, L):
         raise ValueError(f"k/v must be (B, L, D): {tuple(k.shape)}, "
                          f"{tuple(v.shape)} against q {tuple(q.shape)}")
+    from ..parallel.sp_attention import (sp_ctx, sp_h1d_attention,
+                                         sp_shardable)
+    mesh = sp_ctx()
+    if mesh is not None and sp_shardable(L, mesh.d, nr):
+        return sp_h1d_attention(
+            q, k, v, mesh=mesh, nr=nr, causal=causal,
+            causal_mode=causal_mode, kv_weight=kv_weight,
+            softmax_scale=softmax_scale)
     M = hc.num_levels(L, nr)
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(D)
     f32 = torch.float32

@@ -15,6 +15,12 @@ token, whose K/V must already be written by ``update_cache``.
 points go through the wrappers in ``kernels.h1d_decode_kernel``, which
 run the plain version on CPU tensors and the CUDA kernel on CUDA tensors.
 
+A sequence-sharded cache (``parallel.sp_attention.SPCache``, one slab per
+shard) is decoded inside ``sp_scope(mesh)``: every entry point below then
+routes through ``parallel.sp_attention`` (per-shard partial kernels over
+the owned blocks, merged with one pmax and one psum; ``tables`` carries
+the tick's shard geometry, built once and shared by every layer).
+
 The paged pool (``serve/paged_cache.py``) replaces each level's
 (B, L_l, D) slab with a pool of nr-row pages (NP_l, nr, D) and hands the
 decode entry points the physical page row of every block they touch as
@@ -76,16 +82,49 @@ def prefill_cache(k, v, Lmax: int, nr: int) -> H1DCache:
     return H1DCache(k=kf, v=vf, ck=tuple(ck), cv=tuple(cv))
 
 
-def update_cache(cache: H1DCache, k_new, v_new, t) -> H1DCache:
+def _sp_decode_ctx(cache, tables):
+    """The active SP mesh when ``cache`` is sequence-sharded, else None
+    (a dense cache stays on the single-launch kernels).  A sharded cache
+    outside a scope of its shard count, or without the tick's
+    ``sp_tables``, raises."""
+    from ..parallel import sp_attention as sp
+    if not isinstance(cache, sp.SPCache):
+        return None
+    mesh = sp.sp_ctx()
+    if mesh is None or mesh.d != len(cache.shards):
+        raise ValueError(f"a cache of {len(cache.shards)} shards is decoded "
+                         f"inside sp_scope(mesh) of as many shards")
+    if tables is None:
+        raise ValueError("a sharded cache is decoded with the tick's shard "
+                         "geometry: pass tables=sp_tables(t, ...)")
+    return mesh
+
+
+def update_cache(cache: H1DCache, k_new, v_new, t, *, tables=None):
     """Batched in-place cache update.  k_new (B, D), v_new (B, Dv), t
-    (B,) int32."""
+    (B,) int32.  A sharded cache inside ``sp_scope(mesh)`` runs
+    ``sp_update_cache`` with the tick's ``tables``: each token's
+    ancestors are written on their owning shard only."""
+    mesh = _sp_decode_ctx(cache, tables)
+    if mesh is not None:
+        from ..parallel.sp_attention import sp_update_cache
+        return sp_update_cache(cache, k_new, v_new, t, mesh=mesh,
+                               tables=tables)
     return dk.update_cache_fused(cache, k_new, v_new, t)
 
 
-def decode_attend(cache: H1DCache, q, t, *, nr: int,
-                  softmax_scale=None) -> torch.Tensor:
+def decode_attend(cache: H1DCache, q, t, *, nr: int, softmax_scale=None,
+                  tables=None) -> torch.Tensor:
     """Batched single-token attention.  q (B, G, D), t (B,) per-row
-    positions.  Returns (B, G, Dv) in q.dtype."""
+    positions.  Returns (B, G, Dv) in q.dtype.  A sharded cache inside
+    ``sp_scope(mesh)`` runs ``sp_decode_attend`` with the tick's
+    ``tables``."""
+    mesh = _sp_decode_ctx(cache, tables)
+    if mesh is not None:
+        from ..parallel.sp_attention import sp_decode_attend
+        return sp_decode_attend(cache, q, t, nr=nr,
+                                softmax_scale=softmax_scale, mesh=mesh,
+                                tables=tables)
     return dk.decode_attend_fused(cache, q, t, nr=nr,
                                   softmax_scale=softmax_scale)
 
@@ -213,20 +252,24 @@ def decode_attend_paged(pool, q, t, bidx, *, nr: int,
                                   softmax_scale=softmax_scale)
 
 
-def _broadcast_t(cache: H1DCache, t) -> torch.Tensor:
-    return torch.as_tensor(t, dtype=torch.int32, device=cache.k.device
-                           ).expand(cache.k.shape[0]).contiguous()
+def _broadcast_t(rows: torch.Tensor, t) -> torch.Tensor:
+    """The scalar position ``t`` once per row of ``rows``."""
+    return torch.as_tensor(t, dtype=torch.int32, device=rows.device
+                           ).expand(rows.shape[0]).contiguous()
 
 
-def update_cache_uniform(cache: H1DCache, k_new, v_new, t) -> H1DCache:
+def update_cache_uniform(cache: H1DCache, k_new, v_new, t, *,
+                         tables=None) -> H1DCache:
     """k_new (B, D), v_new (B, Dv), t a scalar position shared by every
-    row: broadcast per row into the same kernel as :func:`update_cache`."""
-    return dk.update_cache_fused(cache, k_new, v_new, _broadcast_t(cache, t))
+    row: broadcast per row into :func:`update_cache` (a sharded cache
+    included)."""
+    return update_cache(cache, k_new, v_new, _broadcast_t(k_new, t),
+                        tables=tables)
 
 
 def decode_attend_uniform(cache: H1DCache, q, t, *, nr: int,
-                          softmax_scale=None) -> torch.Tensor:
+                          softmax_scale=None, tables=None) -> torch.Tensor:
     """q (B, G, D), t a scalar position shared by every row: broadcast
-    per row into the same kernel as :func:`decode_attend`."""
-    return dk.decode_attend_fused(cache, q, _broadcast_t(cache, t), nr=nr,
-                                  softmax_scale=softmax_scale)
+    per row into :func:`decode_attend` (a sharded cache included)."""
+    return decode_attend(cache, q, _broadcast_t(q, t), nr=nr,
+                         softmax_scale=softmax_scale, tables=tables)

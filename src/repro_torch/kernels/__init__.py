@@ -1,9 +1,9 @@
 """Hand-written CUDA kernels for Hopper and their plain PyTorch versions.
 
-Ten kernels carry the serving (dense slots, paged and int8 pools) and
-training paths of the paper LM and the classify and train paths of the
-LRA encoder (sources in ``csrc/``, built by ``_build`` with ``nvcc`` at
-first use).  ``band_attention_fwd`` and ``band_attention_bwd`` take every
+Twelve kernels carry the serving (dense slots, paged and int8 pools,
+sequence-parallel shards) and training paths of the paper LM and the
+classify and train paths of the LRA encoder (sources in ``csrc/``, built
+by ``_build`` with ``nvcc`` at first use).  ``band_attention_fwd`` and ``band_attention_bwd`` take every
 band mode: ``l0_causal`` (the LM's level 0), ``l0_bidir`` and
 ``coarse_bidir`` (the encoder's level 0 and coarse levels) and
 ``coarse_causal`` (the coarse-q decoder's coarse levels); the ``sub``
@@ -32,6 +32,10 @@ update_cache_paged       h1d_decode_kernel.update_cache_paged
                                                         update_cache_paged_ref
 update_cache_paged_quant h1d_decode_kernel.update_cache_paged_quant
                                                         update_cache_paged_quant_ref
+decode_attend_partial    h1d_decode_kernel.decode_attend_partial
+                                                        decode_attend_partial_ref
+update_cache_partial     h1d_decode_kernel.update_cache_partial
+                                                        update_cache_partial_ref
 ======================== ============================== ==================
 """
 from .h1d_block import (band_attention_fwd, band_attention_sub_fwd,
@@ -47,7 +51,11 @@ from .h1d_decode_kernel import (decode_attend_fused, update_cache_fused,
                                 decode_attend_paged_quant_ref,
                                 update_cache_paged, update_cache_paged_ref,
                                 update_cache_paged_quant,
-                                update_cache_paged_quant_ref)
+                                update_cache_paged_quant_ref,
+                                decode_attend_partial,
+                                decode_attend_partial_ref,
+                                update_cache_partial,
+                                update_cache_partial_ref)
 from .ops import band_attention
 
 #: (kernel wrapper, its plain version) for every kernel of the package
@@ -66,15 +74,22 @@ KERNELS = {
     "update_cache_paged": (update_cache_paged, update_cache_paged_ref),
     "update_cache_paged_quant": (update_cache_paged_quant,
                                  update_cache_paged_quant_ref),
+    "decode_attend_partial": (decode_attend_partial,
+                              decode_attend_partial_ref),
+    "update_cache_partial": (update_cache_partial, update_cache_partial_ref),
 }
 
 #: the kernels a dense-slot serving run launches, those a paged serving
-#: run adds (#7/#9 on fp32 pools, #8/#10 on int8 pools) and those a
-#: training step launches
+#: run adds (#7/#9 on fp32 pools, #8/#10 on int8 pools), those a
+#: sequence-parallel serving run launches (#6 on the replicated deep
+#: levels) and those a training step launches
 SERVE_KERNELS = ("band_attention_fwd", "band_attention_sub_fwd",
                  "decode_attend_fused", "update_cache_fused")
 PAGED_SERVE_KERNELS = ("decode_attend_paged", "decode_attend_paged_quant",
                        "update_cache_paged", "update_cache_paged_quant")
+SP_SERVE_KERNELS = ("band_attention_fwd", "band_attention_sub_fwd",
+                    "decode_attend_partial", "update_cache_partial",
+                    "update_cache_fused")
 TRAIN_KERNELS = ("band_attention_fwd", "band_attention_sub_fwd",
                  "band_attention_bwd", "band_attention_sub_bwd")
 
@@ -116,7 +131,10 @@ __all__ = ["band_attention", "band_attention_fwd", "band_attention_sub_fwd",
            "decode_attend_paged_ref", "decode_attend_paged_quant",
            "decode_attend_paged_quant_ref", "update_cache_paged",
            "update_cache_paged_ref", "update_cache_paged_quant",
-           "update_cache_paged_quant_ref", "MODES", "SUB_MODE", "KERNELS",
-           "SERVE_KERNELS", "PAGED_SERVE_KERNELS", "TRAIN_KERNELS",
+           "update_cache_paged_quant_ref", "decode_attend_partial",
+           "decode_attend_partial_ref", "update_cache_partial",
+           "update_cache_partial_ref", "MODES", "SUB_MODE", "KERNELS",
+           "SERVE_KERNELS", "PAGED_SERVE_KERNELS", "SP_SERVE_KERNELS",
+           "TRAIN_KERNELS",
            "LRA_KERNELS", "COARSE_Q_KERNELS", "reset_counts",
            "mode_launches"]

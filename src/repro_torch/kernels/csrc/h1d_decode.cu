@@ -7,25 +7,45 @@
 //   * h1d_update_cache              <- update_cache_fused (_update_kernel);
 //   * h1d_update_cache_paged        <- update_cache_paged;
 //   * h1d_update_cache_paged_quant  <- update_cache_paged_quant
-//                                      (_update_paged_quant_kernel).
+//                                      (_update_paged_quant_kernel);
+//   * h1d_decode_attend_partial     <- decode_attend_partial
+//                                      (_attend_partial_kernel);
+//   * h1d_update_cache_partial      <- update_cache_partial
+//                                      (_update_partial_kernel).
 //
 // decode_attend: each cache row r (slots x kv-heads) attends, at position
 // t[r], its own level-0 block (causal), the previous level-0 block, and
 // one coarse block I_l - 1 per level l = 1..M-1 under the quadrant mask,
 // with weight 2^l in the denominator only.  One max over all bands, then
-// o = (a @ v) / max(a . w, 1e-9).  The dense and the paged kernels share
-// this body; only the addressor `band_row` differs: dense reads block
-// (row, level, block) of the row's own slab (clamped as the TPU kernel's
-// index maps are), paged reads pool row bidx[r, band] * nr + j.  The int8
-// variant dequantizes each key and value row with its per-row scale
-// before the dot product (float(q) * scale, as the plain version does);
-// fp32 levels of a mixed pool never read their scales.
+// o = (a @ v) / max(a . w, 1e-9).  The dense, the paged and the
+// sequence-parallel kernels share this body; only the addressor
+// `band_row` differs: dense reads block (row, level, block) of the row's
+// own slab (clamped as the TPU kernel's index maps are), paged reads pool
+// row bidx[r, band] * nr + j, and local reads block bidx[r, band] of the
+// row's slab in one shard's level array, whose row count per level the
+// caller passes (a sharded level holds (Lmax >> l) / d rows, a replicated
+// one Lmax >> l).  The local variant (#11) also masks each band by its
+// ownership bit owned[r, band], reads nothing of a band that is unowned
+// or masked whole and no key row that is masked, and writes the
+// unnormalised partial num = a @ v, den = a . w and m = max(rowmax,
+// -1e30) for the cross-shard merge; t stays global, so every mask
+// compares global positions.  The int8 variant dequantizes each key and
+// value row with its per-row scale before the dot product (float(q) *
+// scale, as the plain version does); fp32 levels of a mixed pool never
+// read their scales.
 //
 // update_cache: per level l = 0..nlev-1 the token's ancestor t >> l sits
 // in one sibling pair at row (t >> l) & 1; that row takes the carried
 // value, and the next level's carry is the pair's mean (k) or sum (v).
 // Dense: pair min(t >> (l+1), npairs-1) of the row's slab; paged: pair
 // (t >> (l+1)) & (nr/2 - 1) of page utab[r, l].  Writes are in place.
+// The partial update (#12) is the dense one on one shard's sharded levels
+// at the shard-local t_loc (clamped low only, so the pair index clamps and
+// the sibling parity (t_loc >> l) & 1 stays the unclamped one): only rows
+// with owned[r] != 0 write, and every row emits the pair mean / sum after
+// its last level, the carried row of the first replicated level (on a
+// non-owner row it comes from the unchanged pair, finite, and the caller
+// masks it out).
 // The int8 variant dequantizes the pair, puts in the new row, and
 // requantizes both rows with fresh absmax per-row scales (the rounding of
 // core/quantization.py: scale = max(amax, 1e-12) * float32(1/127), q =
@@ -71,12 +91,15 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr float QMAX = 127.0f;
 constexpr float RECIP_QMAX = (float)(1.0 / 127.0);
 constexpr float QEPS = (float)1e-12;
+// band addressors of the attend body
+constexpr int ADDR_DENSE = 0, ADDR_PAGED = 1, ADDR_LOCAL = 2;
 
 struct Levels {            // every level l = 0..nlev-1, level 0 = fine
   const void* k[MAXLEV];
   const void* v[MAXLEV];
   const float* ksc[MAXLEV];   // per-row scales of int8 levels
   const float* vsc[MAXLEV];
+  int rows[MAXLEV];           // LOCAL: rows of level l in a shard's slab
   unsigned qmask;             // bit l set: level l stores int8 rows
 };
 
@@ -104,12 +127,17 @@ __device__ __forceinline__ int band_level(int band) {
 }
 
 // Row, in its level's (rows, width) array, of key j of `band` for cache
-// row r at position t.
-template <bool PAGED>
+// row r at position t; `rows_l` is the LOCAL slab's row count of the
+// band's level.
+template <int ADDR>
 __device__ __forceinline__ size_t band_row(int r, int band, int j, int t,
                                            const int* bidx, int nbands,
-                                           int Lmax, int nr) {
-  if (PAGED) return (size_t)bidx[(size_t)r * nbands + band] * nr + j;
+                                           int Lmax, int nr, int rows_l) {
+  if (ADDR == ADDR_PAGED)
+    return (size_t)bidx[(size_t)r * nbands + band] * nr + j;
+  if (ADDR == ADDR_LOCAL)
+    return (size_t)r * rows_l +
+           (size_t)bidx[(size_t)r * nbands + band] * nr + j;
   const int l = band_level(band);
   const int Ll = Lmax >> l;
   const int nbl = Ll / nr;
@@ -118,6 +146,16 @@ __device__ __forceinline__ size_t band_row(int r, int band, int j, int t,
   else if (band == 1) blk = max(t / nr - 1, 0);
   else blk = min(max(t / (nr << l) - 1, 0), nbl - 1);
   return (size_t)r * Ll + (size_t)blk * nr + j;
+}
+
+// LOCAL: whether any key of `band` counts for a row at position t whose
+// band ownership bits are own_r: the band is owned, and not masked whole
+// (band 1 before the second fine block, a coarse band before I_l = 1).
+__device__ __forceinline__ bool band_live(int band, int t, int nr,
+                                          const int* own_r) {
+  if (own_r[band] <= 0) return false;
+  if (band == 0) return true;
+  return t / (band == 1 ? nr : nr << band_level(band)) >= 1;
 }
 
 // First row of the sibling pair that holds ancestor t >> l.
@@ -133,11 +171,15 @@ __device__ __forceinline__ size_t pair_row(int r, int l, int t,
   return (size_t)r * Ll + 2 * (size_t)pair;
 }
 
-template <bool PAGED, bool QUANT>
+// out: normalised (R, G, Dv); LOCAL: the partial num there, den and m
+// (R, G) in den_out / m_out.
+template <int ADDR, bool QUANT>
 __global__ void __launch_bounds__(THREADS)
 decode_attend_kernel(const float* __restrict__ q, Levels lv,
                      const int* __restrict__ tpos,
-                     const int* __restrict__ bidx, float* __restrict__ out,
+                     const int* __restrict__ bidx,
+                     const int* __restrict__ owned, float* __restrict__ out,
+                     float* __restrict__ den_out, float* __restrict__ m_out,
                      int G, int Lmax, int D, int Dv, int nr, int nlev,
                      float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -164,7 +206,17 @@ decode_attend_kernel(const float* __restrict__ q, Levels lv,
   for (int kk = threadIdx.x; kk < K; kk += blockDim.x) {
     const int band = kk / nr, j = kk % nr;
     const int l = band_level(band);
-    const size_t row = band_row<PAGED>(r, band, j, t, bidx, nbands, Lmax, nr);
+    if (ADDR == ADDR_LOCAL &&
+        !band_live(band, t, nr, owned + (size_t)r * nbands)) {
+      // nothing of the band counts on this shard: read none of it (its
+      // weights a = exp(NEG_INF - m) are exactly 0 either way)
+      w_s[kk] = 0.f;
+      vrow[kk] = nullptr;
+      for (int g = 0; g < G; ++g) s_s[g * K + kk] = NEG_INF;
+      continue;
+    }
+    const size_t row = band_row<ADDR>(r, band, j, t, bidx, nbands, Lmax, nr,
+                                      lv.rows[l]);
     bool mask;
     float wgt;
     if (band == 0) {
@@ -188,6 +240,10 @@ decode_attend_kernel(const float* __restrict__ q, Levels lv,
       vsc_s[kk] = lv.vsc[l][row];
     } else {
       vrow[kk] = static_cast<const float*>(lv.v[l]) + row * Dv;
+    }
+    if (ADDR == ADDR_LOCAL && !mask) {   // a masked key of a live band
+      for (int g = 0; g < G; ++g) s_s[g * K + kk] = NEG_INF;
+      continue;
     }
     for (int g = 0; g < G; ++g) {
       const float* qg = q_s + g * D;
@@ -220,7 +276,13 @@ decode_attend_kernel(const float* __restrict__ q, Levels lv,
       den = fmaf(a, w_s[kk], den);
     }
     den = warp_sum(den);
-    if (lane == 0) den_s[g] = den;
+    if (lane == 0) {
+      den_s[g] = den;
+      if (ADDR == ADDR_LOCAL) {
+        den_out[(size_t)r * G + g] = den;
+        m_out[(size_t)r * G + g] = m;
+      }
+    }
   }
   __syncthreads();
 
@@ -241,23 +303,36 @@ decode_attend_kernel(const float* __restrict__ q, Levels lv,
             acc = fmaf(ag[kk], static_cast<const float*>(vrow[kk])[c], acc);
         }
       }
+    } else if (ADDR == ADDR_LOCAL) {
+      for (int k0 = 0; k0 < K; k0 += nr) {
+        if (!vrow[k0]) continue;     // a band that is not live adds 0
+        for (int kk = k0; kk < k0 + nr; ++kk)
+          acc = fmaf(ag[kk], static_cast<const float*>(vrow[kk])[c], acc);
+      }
     } else {
       for (int kk = 0; kk < K; ++kk)
         acc = fmaf(ag[kk], static_cast<const float*>(vrow[kk])[c], acc);
     }
-    out[(size_t)r * G * Dv + o] = acc / fmaxf(den_s[g], 1e-9f);
+    out[(size_t)r * G * Dv + o] =
+        ADDR == ADDR_LOCAL ? acc : acc / fmaxf(den_s[g], 1e-9f);
   }
 }
 
-template <bool PAGED>
+// PARTIAL: only rows with owned[r] != 0 write; every row's carry after
+// the last level goes to carry_k / carry_v (R, D / Dv).
+template <bool PAGED, bool PARTIAL>
 __global__ void update_cache_kernel(const float* __restrict__ knew,
                                     const float* __restrict__ vnew,
                                     const int* __restrict__ tpos,
                                     const int* __restrict__ utab,
+                                    const int* __restrict__ owned,
                                     MutLevels lv, int Lmax, int D, int Dv,
-                                    int nr, int nlev) {
+                                    int nr, int nlev,
+                                    float* __restrict__ carry_k,
+                                    float* __restrict__ carry_v) {
   const int r = blockIdx.x;
   const int t = tpos[r];
+  const bool own = !PARTIAL || owned[r] != 0;
   for (int c = threadIdx.x; c < D + Dv; c += blockDim.x) {
     const bool is_k = c < D;
     const int col = is_k ? c : c - D;
@@ -269,13 +344,16 @@ __global__ void update_cache_kernel(const float* __restrict__ knew,
       float* base = static_cast<float*>(is_k ? lv.k[l] : lv.v[l]) +
                     row0 * width + col;
       const float other = base[(size_t)(1 - sel) * width];
-      base[(size_t)sel * width] = carry;
-      if (l + 1 < nlev) {
-        const float lo = sel ? other : carry;
-        const float hi = sel ? carry : other;
+      float mine = carry;
+      if (own) base[(size_t)sel * width] = carry;
+      else mine = base[(size_t)sel * width];
+      if (PARTIAL || l + 1 < nlev) {
+        const float lo = sel ? other : mine;
+        const float hi = sel ? mine : other;
         carry = is_k ? __fmul_rn(__fadd_rn(lo, hi), 0.5f) : __fadd_rn(lo, hi);
       }
     }
+    if (PARTIAL) (is_k ? carry_k : carry_v)[(size_t)r * width + col] = carry;
   }
 }
 
@@ -367,21 +445,23 @@ size_t attend_smem(int G, int D, int nlev, int nr) {
          (size_t)(G * D + G * K + 2 * K + G) * sizeof(float);
 }
 
-template <bool PAGED, bool QUANT>
+template <int ADDR, bool QUANT>
 int launch_attend(const float* q, const Levels& lv, const int* t,
-                  const int* bidx, float* out, int R, int G, int Lmax, int D,
-                  int Dv, int nr, int nlev, float scale, void* stream) {
+                  const int* bidx, const int* owned, float* out, float* den,
+                  float* m, int R, int G, int Lmax, int D, int Dv, int nr,
+                  int nlev, float scale, void* stream) {
   if (nlev < 1 || nlev > MAXLEV || R < 1) return (int)cudaErrorInvalidValue;
   const size_t smem = attend_smem(G, D, nlev, nr);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        decode_attend_kernel<PAGED, QUANT>,
+        decode_attend_kernel<ADDR, QUANT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  decode_attend_kernel<PAGED, QUANT>
+  decode_attend_kernel<ADDR, QUANT>
       <<<R, THREADS, smem, (cudaStream_t)stream>>>(
-          q, lv, t, bidx, out, G, Lmax, D, Dv, nr, nlev, scale);
+          q, lv, t, bidx, owned, out, den, m, G, Lmax, D, Dv, nr, nlev,
+          scale);
   return (int)cudaGetLastError();
 }
 
@@ -431,8 +511,9 @@ extern "C" int h1d_decode_attend(const float* q, const float* k,
     lv.k[l + 1] = ck[l];
     lv.v[l + 1] = cv[l];
   }
-  return launch_attend<false, false>(q, lv, t, nullptr, out, R, G, Lmax, D,
-                                     Dv, nr, ncoarse + 1, scale, stream);
+  return launch_attend<ADDR_DENSE, false>(q, lv, t, nullptr, nullptr, out,
+                                          nullptr, nullptr, R, G, Lmax, D,
+                                          Dv, nr, ncoarse + 1, scale, stream);
 }
 
 // Paged pools: ks[l]/vs[l] level l's (NP_l, nr, D/Dv) f32 pages for
@@ -444,8 +525,9 @@ extern "C" int h1d_decode_attend_paged(const float* q, const void* const* ks,
                                        int nlev, float scale, void* stream) {
   if (nlev < 1 || nlev > MAXLEV) return (int)cudaErrorInvalidValue;
   const Levels lv = read_levels(ks, vs, nullptr, nullptr, 0u, nlev);
-  return launch_attend<true, false>(q, lv, t, bidx, out, R, G, 0, D, Dv, nr,
-                                    nlev, scale, stream);
+  return launch_attend<ADDR_PAGED, false>(q, lv, t, bidx, nullptr, out,
+                                          nullptr, nullptr, R, G, 0, D, Dv,
+                                          nr, nlev, scale, stream);
 }
 
 // As h1d_decode_attend_paged; level l stores int8 pages when bit l of
@@ -457,8 +539,9 @@ extern "C" int h1d_decode_attend_paged_quant(
     int nr, int nlev, float scale, void* stream) {
   if (nlev < 1 || nlev > MAXLEV) return (int)cudaErrorInvalidValue;
   const Levels lv = read_levels(ks, vs, kscs, vscs, (unsigned)qmask, nlev);
-  return launch_attend<true, true>(q, lv, t, bidx, out, R, G, 0, D, Dv, nr,
-                                   nlev, scale, stream);
+  return launch_attend<ADDR_PAGED, true>(q, lv, t, bidx, nullptr, out,
+                                         nullptr, nullptr, R, G, 0, D, Dv, nr,
+                                         nlev, scale, stream);
 }
 
 // k_new (R,D), v_new (R,Dv), t (R,) int32; ks[l]/vs[l] are level l's
@@ -470,8 +553,9 @@ extern "C" int h1d_update_cache(const float* knew, const float* vnew,
   if (nlev < 1 || nlev > MAXLEV || R < 1) return (int)cudaErrorInvalidValue;
   const MutLevels lv = write_levels(ks, vs, nullptr, nullptr, 0u, nlev);
   const int threads = min(1024, ((D + Dv + 31) / 32) * 32);
-  update_cache_kernel<false><<<R, threads, 0, (cudaStream_t)stream>>>(
-      knew, vnew, t, nullptr, lv, Lmax, D, Dv, 0, nlev);
+  update_cache_kernel<false, false><<<R, threads, 0, (cudaStream_t)stream>>>(
+      knew, vnew, t, nullptr, nullptr, lv, Lmax, D, Dv, 0, nlev, nullptr,
+      nullptr);
   return (int)cudaGetLastError();
 }
 
@@ -486,8 +570,9 @@ extern "C" int h1d_update_cache_paged(const float* knew, const float* vnew,
     return (int)cudaErrorInvalidValue;
   const MutLevels lv = write_levels(ks, vs, nullptr, nullptr, 0u, nlev);
   const int threads = min(1024, ((D + Dv + 31) / 32) * 32);
-  update_cache_kernel<true><<<R, threads, 0, (cudaStream_t)stream>>>(
-      knew, vnew, t, utab, lv, 0, D, Dv, nr, nlev);
+  update_cache_kernel<true, false><<<R, threads, 0, (cudaStream_t)stream>>>(
+      knew, vnew, t, utab, nullptr, lv, 0, D, Dv, nr, nlev, nullptr,
+      nullptr);
   return (int)cudaGetLastError();
 }
 
@@ -504,5 +589,41 @@ extern "C" int h1d_update_cache_paged_quant(
                                     nlev);
   update_cache_quant_kernel<<<R, threads, 0, (cudaStream_t)stream>>>(
       knew, vnew, t, utab, lv, D, Dv, nr, nlev);
+  return (int)cudaGetLastError();
+}
+
+// One shard's slab: ks[l]/vs[l] level l's (R, rows[l], D/Dv) f32 arrays
+// for l = 0..nlev-1 (rows: host array, each a multiple of nr); bidx and
+// owned (R, nlev+1) int32 local block index and ownership bit per band; t
+// (R,) global positions -> num (R,G,Dv), den (R,G), m (R,G), unnormalised.
+extern "C" int h1d_decode_attend_partial(
+    const float* q, const void* const* ks, const void* const* vs,
+    const int* rows, const int* t, const int* bidx, const int* owned,
+    float* num, float* den, float* m, int R, int G, int D, int Dv, int nr,
+    int nlev, float scale, void* stream) {
+  if (nlev < 1 || nlev > MAXLEV) return (int)cudaErrorInvalidValue;
+  Levels lv = read_levels(ks, vs, nullptr, nullptr, 0u, nlev);
+  for (int l = 0; l < nlev; ++l) lv.rows[l] = rows[l];
+  return launch_attend<ADDR_LOCAL, false>(q, lv, t, bidx, owned, num, den, m,
+                                          R, G, 0, D, Dv, nr, nlev, scale,
+                                          stream);
+}
+
+// One shard's sharded levels: ks[l]/vs[l] (R, Lloc>>l, D/Dv) for
+// l = 0..nlev-1, updated in place on rows with owned[r] != 0; t_loc (R,)
+// shard-local positions (may exceed Lloc) -> carry_k (R,D), carry_v
+// (R,Dv).
+extern "C" int h1d_update_cache_partial(const float* knew, const float* vnew,
+                                        const int* t_loc, const int* owned,
+                                        void* const* ks, void* const* vs,
+                                        float* carry_k, float* carry_v,
+                                        int R, int Lloc, int D, int Dv,
+                                        int nlev, void* stream) {
+  if (nlev < 1 || nlev > MAXLEV || R < 1) return (int)cudaErrorInvalidValue;
+  const MutLevels lv = write_levels(ks, vs, nullptr, nullptr, 0u, nlev);
+  const int threads = min(1024, ((D + Dv + 31) / 32) * 32);
+  update_cache_kernel<false, true><<<R, threads, 0, (cudaStream_t)stream>>>(
+      knew, vnew, t_loc, nullptr, owned, lv, Lloc, D, Dv, 0, nlev, carry_k,
+      carry_v);
   return (int)cudaGetLastError();
 }

@@ -24,13 +24,23 @@ Port of the decode kernels of ``repro.kernels.h1d_decode_kernel``:
   puts in the new row and requantizes both rows in place with fresh
   absmax scales, carrying the f32 pair before quantization upward.
   fp32 levels of a mixed pool leave their scales untouched.
+* :func:`decode_attend_partial` / :func:`update_cache_partial` -- the
+  dense bodies on ONE shard's slab of a sequence-sharded cache
+  (``parallel.sp_attention``): the attend reads each band's block at the
+  shard-local index ``bidx[r, band]`` (its level array holds that
+  level's local rows), masks the bands the shard does not own and
+  returns the unnormalised partial ``(num, den, m)`` for the cross-shard
+  merge; the update writes only the rows the shard owns, at the
+  shard-local position ``t_loc``, and returns the carried row of the
+  first replicated level.
 
 Each wrapper chooses by the device of its tensors: CPU tensors take the
 plain version (mirrors of the jnp paths of ``core.h1d_decode``), CUDA
 tensors launch the kernels in ``csrc/h1d_decode.cu``.
 ``<wrapper>.launches`` counts kernel launches and ``<plain>.calls``
-counts runs of the plain version.  The page tables are trusted: the
-host builds them from ``serve.paged_cache.PagePool``.
+counts runs of the plain version.  The page tables and the shard
+geometry are trusted: the host builds them from
+``serve.paged_cache.PagePool`` and ``parallel.sp_attention.sp_tables``.
 """
 from __future__ import annotations
 
@@ -59,6 +69,10 @@ _SIGNATURES = {
     "h1d_update_cache_paged": [_P, _P, _P, _P, _PP, _PP] + [_I] * 5 + [_P],
     "h1d_update_cache_paged_quant": [_P, _P, _P, _P, _PP, _PP, _PP, _PP]
                                     + [_I] * 6 + [_P],
+    "h1d_decode_attend_partial": [_P, _PP, _PP] + [_P] * 7 + [_I] * 6
+                                 + [_F, _P],
+    "h1d_update_cache_partial": [_P, _P, _P, _P, _PP, _PP, _P, _P]
+                                + [_I] * 5 + [_P],
 }
 
 
@@ -82,10 +96,13 @@ def _block_read_rows(arr, blk, size):
     return arr.reshape(R, L // size, size, D)[rows, blk]
 
 
-def _attend_bands(q, t, nr: int, nbands: int, read, softmax_scale):
+def _attend_bands(q, t, nr: int, nbands: int, read, softmax_scale,
+                  owned=None):
     """The band math shared by every plain attend: ``read(band)`` gives
     the band's f32 (keys (R, nr, D), values (R, nr, Dv)); masks and
-    weights depend on ``t`` alone."""
+    weights depend on ``t`` alone.  With ``owned`` (R, nbands) each band
+    is also masked by its ownership bit and the unnormalised ``(num,
+    den, m)`` are returned instead of the output."""
     f32 = torch.float32
     R, G, D = q.shape
     scale = softmax_scale if softmax_scale is not None else 1 / math.sqrt(D)
@@ -112,6 +129,8 @@ def _attend_bands(q, t, nr: int, nbands: int, read, softmax_scale):
             mask = (Il >= 1)[:, None] & ~(first_half_q[:, None]
                                           & key_last_half[None, :])
             wgt = torch.full((R, nr), float(1 << l), dtype=f32, device=dev)
+        if owned is not None:
+            mask = mask & (owned[:, band] > 0)[:, None]
         s = torch.einsum("bgd,bkd->bgk", qs, keys)
         logits.append(torch.where(mask[:, None, :], s, hc.NEG_INF))
         values.append(vals)
@@ -124,6 +143,8 @@ def _attend_bands(q, t, nr: int, nbands: int, read, softmax_scale):
     a = torch.exp(s - m)
     num = torch.einsum("bgk,bkv->bgv", a, vcat)
     den = torch.einsum("bgk,bk->bg", a, wcat)
+    if owned is not None:
+        return num, den, m[..., 0]
     return (num / torch.clamp(den, min=1e-9)[..., None]).to(q.dtype)
 
 
@@ -141,6 +162,8 @@ def decode_attend_ref(cache, q, t, *, nr: int, softmax_scale=None):
             blk = torch.div(t, nr, rounding_mode="floor")
             if band == 1:
                 blk = torch.clamp(blk - 1, min=0)
+            else:           # the kernels' clamp of an out-of-range t
+                blk = torch.clamp(blk, max=cache.k.shape[-2] // nr - 1)
             k, v = cache.k, cache.v
         else:
             l = band - 1
@@ -156,26 +179,87 @@ def decode_attend_ref(cache, q, t, *, nr: int, softmax_scale=None):
 decode_attend_ref.calls = 0
 
 
-def update_cache_ref(cache, k_new, v_new, t):
-    """Plain PyTorch ancestor update, in place (mirror of the jnp
-    ``repro.core.h1d_decode._update_one`` over rows).  k_new (R, D),
-    v_new (R, Dv), t (R,) positions in [0, Lmax)."""
-    update_cache_ref.calls += 1
+def _update_pairs(cache, k_new, v_new, t, owned=None):
+    """The ancestor walk shared by the plain dense updates, in place: at
+    level l the token's ancestor ``t >> l`` sits in sibling pair
+    ``min(t >> (l+1), npairs - 1)`` (the kernels' clamp, so an
+    out-of-range ``t`` writes the last pair as they do) at row
+    ``(t >> l) & 1``; the next level's carry is the pair's mean (k) or sum
+    (v).  With ``owned`` (R,) only its nonzero rows write, and the carry
+    past the last level is returned."""
     R = k_new.shape[0]
     rows = torch.arange(R, device=k_new.device)
     t = t.to(torch.long)
-    cache.k[rows, t] = k_new.to(cache.k.dtype)
-    cache.v[rows, t] = v_new.to(cache.v.dtype)
-    k_lo, v_lo = cache.k, cache.v
-    for l, (ckl, cvl) in enumerate(zip(cache.ck, cache.cv), start=1):
-        c = t >> l                  # this token's ancestor at level l
-        ckl[rows, c] = (k_lo[rows, 2 * c] + k_lo[rows, 2 * c + 1]) * 0.5
-        cvl[rows, c] = v_lo[rows, 2 * c] + v_lo[rows, 2 * c + 1]
-        k_lo, v_lo = ckl, cvl
+    write = None if owned is None else (owned != 0)[:, None]
+    carry_k, carry_v = k_new.to(cache.k.dtype), v_new.to(cache.v.dtype)
+    nlev = 1 + len(cache.ck)
+    for l, (k, v) in enumerate(zip((cache.k, *cache.ck),
+                                   (cache.v, *cache.cv))):
+        lo = 2 * torch.clamp(t >> (l + 1), max=k.shape[1] // 2 - 1)
+        hi = lo + 1
+        row = lo + ((t >> l) & 1)
+        if write is not None:
+            carry_k = torch.where(write, carry_k, k[rows, row])
+            carry_v = torch.where(write, carry_v, v[rows, row])
+        k[rows, row] = carry_k
+        v[rows, row] = carry_v
+        if owned is not None or l + 1 < nlev:
+            carry_k = (k[rows, lo] + k[rows, hi]) * 0.5     # Eq. 25/26
+            carry_v = v[rows, lo] + v[rows, hi]             # Eq. 27
+    return carry_k, carry_v
+
+
+def update_cache_ref(cache, k_new, v_new, t):
+    """Plain PyTorch ancestor update, in place (mirror of the jnp
+    ``repro.core.h1d_decode._update_one`` over rows, with the kernels'
+    pair clamp).  k_new (R, D), v_new (R, Dv), t (R,) positions."""
+    update_cache_ref.calls += 1
+    _update_pairs(cache, k_new, v_new, t)
     return cache
 
 
 update_cache_ref.calls = 0
+
+
+def decode_attend_partial_ref(cache, q, t, bidx, owned, *, nr: int,
+                              softmax_scale=None):
+    """Plain partial attention on one shard's slab (mirror of
+    ``repro.kernels.h1d_decode_kernel._attend_partial_kernel``).  Level l
+    of ``cache`` holds that level's local rows; band ``b`` reads block
+    ``bidx[:, b]`` of its level (band 0/1 the fine level, band ``b >= 2``
+    coarse level ``b - 1``) and counts only where ``owned[:, b]`` is set;
+    ``t`` (R,) stays global.  Returns float32 ``(num (R, G, Dv), den (R,
+    G), m (R, G))``, ``m`` floored at -1e30."""
+    decode_attend_partial_ref.calls += 1
+    f32 = torch.float32
+    ks, vs = (cache.k, *cache.ck), (cache.v, *cache.cv)
+    bidx = bidx.to(torch.long)
+
+    def read(band):
+        l = max(band - 1, 0)
+        return (_block_read_rows(ks[l], bidx[:, band], nr).to(f32),
+                _block_read_rows(vs[l], bidx[:, band], nr).to(f32))
+
+    return _attend_bands(q, t, nr, 1 + len(ks), read, softmax_scale,
+                         owned=owned)
+
+
+decode_attend_partial_ref.calls = 0
+
+
+def update_cache_partial_ref(cache, k_new, v_new, t_loc, owned):
+    """Plain partial ancestor update on one shard's sharded levels, in
+    place (mirror of ``_update_partial_kernel``): only rows with
+    ``owned != 0`` write, at the shard-local ``t_loc`` (the pair index
+    clamps, the sibling parity keeps the unclamped bits).  Returns
+    ``(cache, carry_k (R, D), carry_v (R, Dv))``, the pair mean / sum
+    past the last level (from the unchanged pair on non-owner rows)."""
+    update_cache_partial_ref.calls += 1
+    carry_k, carry_v = _update_pairs(cache, k_new, v_new, t_loc, owned)
+    return cache, carry_k, carry_v
+
+
+update_cache_partial_ref.calls = 0
 
 
 def pool_levels(pool):
@@ -505,3 +589,85 @@ def update_cache_paged_quant(pool, k_new, v_new, t, utab):
 
 
 update_cache_paged_quant.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# sequence-parallel kernel wrappers (one shard's slab)
+# ---------------------------------------------------------------------------
+
+def decode_attend_partial(cache, q, t, bidx, owned, *, nr: int,
+                          softmax_scale=None):
+    """Partial attention on one shard's slab.  q (R, G, D), t (R,) int32
+    global positions, bidx and owned (R, 2 + levels) int32; level l of
+    ``cache`` is (R, rows_l, D/Dv) with rows_l a multiple of nr.  CPU
+    tensors take :func:`decode_attend_partial_ref`; CUDA tensors launch
+    ``h1d_decode_attend_partial``.  Returns float32 ``(num, den, m)``."""
+    if q.device.type == "cpu":
+        return decode_attend_partial_ref(cache, q, t, bidx, owned, nr=nr,
+                                         softmax_scale=softmax_scale)
+    lib = _lib()
+    R, G, D = q.shape
+    Dv = cache.v.shape[-1]
+    ks, vs = [cache.k, *cache.ck], [cache.v, *cache.cv]
+    if len(ks) > 32:
+        raise ValueError(f"cache has {len(ks)} levels; 1..32 supported")
+    rows = []
+    for l, (k, v) in enumerate(zip(ks, vs)):
+        n = k.shape[1]
+        if n < nr or n % nr:
+            raise ValueError(f"level {l} holds {n} rows, not a positive "
+                             f"multiple of nr={nr}")
+        _build.expect(k, f"level {l} k", (R, n, D))
+        _build.expect(v, f"level {l} v", (R, n, Dv))
+        rows.append(n)
+    _build.expect(q, "q", (R, G, D))
+    _build.expect(t, "t", (R,), torch.int32)
+    _build.expect(bidx, "bidx", (R, 1 + len(ks)), torch.int32)
+    _build.expect(owned, "owned", (R, 1 + len(ks)), torch.int32)
+    scale = softmax_scale if softmax_scale is not None else 1 / math.sqrt(D)
+    f32 = torch.float32
+    num = torch.empty((R, G, Dv), dtype=f32, device=q.device)
+    den = torch.empty((R, G), dtype=f32, device=q.device)
+    m = torch.empty((R, G), dtype=f32, device=q.device)
+    _build.check(lib.h1d_decode_attend_partial(
+        q.data_ptr(), _ptrs(ks), _ptrs(vs), (ctypes.c_int * len(rows))(*rows),
+        t.data_ptr(), bidx.data_ptr(), owned.data_ptr(), num.data_ptr(),
+        den.data_ptr(), m.data_ptr(), R, G, D, Dv, nr, len(ks), float(scale),
+        _build.stream()), "h1d_decode_attend_partial")
+    decode_attend_partial.launches += 1
+    return num, den, m
+
+
+decode_attend_partial.launches = 0
+
+
+def update_cache_partial(cache, k_new, v_new, t_loc, owned):
+    """In-place partial append on one shard's sharded levels.  k_new (R,
+    D), v_new (R, Dv), t_loc and owned (R,) int32.  CPU tensors take
+    :func:`update_cache_partial_ref`; CUDA tensors launch
+    ``h1d_update_cache_partial``.  Returns ``(cache, carry_k,
+    carry_v)``."""
+    if k_new.device.type == "cpu":
+        return update_cache_partial_ref(cache, k_new, v_new, t_loc, owned)
+    lib = _lib()
+    R, D = k_new.shape
+    Dv = v_new.shape[-1]
+    Lloc = _check_cache(cache, R, D, Dv)
+    _build.expect(k_new, "k_new", (R, D))
+    _build.expect(v_new, "v_new", (R, Dv))
+    _build.expect(t_loc, "t_loc", (R,), torch.int32)
+    _build.expect(owned, "owned", (R,), torch.int32)
+    ks = [cache.k, *cache.ck]
+    vs = [cache.v, *cache.cv]
+    carry_k = torch.empty((R, D), dtype=torch.float32, device=k_new.device)
+    carry_v = torch.empty((R, Dv), dtype=torch.float32, device=k_new.device)
+    _build.check(lib.h1d_update_cache_partial(
+        k_new.data_ptr(), v_new.data_ptr(), t_loc.data_ptr(),
+        owned.data_ptr(), _ptrs(ks), _ptrs(vs), carry_k.data_ptr(),
+        carry_v.data_ptr(), R, Lloc, D, Dv, len(ks), _build.stream()),
+        "h1d_update_cache_partial")
+    update_cache_partial.launches += 1
+    return cache, carry_k, carry_v
+
+
+update_cache_partial.launches = 0

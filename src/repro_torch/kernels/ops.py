@@ -14,6 +14,11 @@ and its backward returns ``(dq, dk, dv, dw)``.  All three outputs are
 differentiable (``_stream_combine`` consumes ``m``).  The forward and backward callables are looked up as
 module attributes at call time, so rerouting ``h1d_block.<name>`` /
 ``h1d_block_bwd.<name>`` reroutes this path too.
+
+Inside ``parallel.sp_attention.sp_scope(mesh)`` a level whose local
+query slab holds a whole query block runs sharded over the mesh
+(``sp_band_attention``, forward only); shorter shapes stay on the
+single-launch kernels.
 """
 from __future__ import annotations
 
@@ -66,7 +71,15 @@ def band_attention(q, k, v, w, *, nr: int, mode: str,
     The four band modes (``l0_causal``, ``l0_bidir``, ``coarse_causal``,
     ``coarse_bidir``) keep one length for queries and keys; an unknown
     mode raises ``ValueError``."""
+    from ..parallel.sp_attention import (sp_band_attention, sp_ctx,
+                                         sp_shardable)
+    mesh = sp_ctx()
+    if mesh is not None and sp_shardable(q.shape[-2], mesh.d, nr, mode,
+                                         ratio):
+        return sp_band_attention(q, k, v, w, nr=nr, mode=mode, ratio=ratio,
+                                 mesh=mesh)
     if mode == h1d_block.SUB_MODE:
         return _BandSub.apply(q, k, v, w, nr, ratio)
     h1d_block._check_mode(mode)
     return _Band.apply(q, k, v, w, nr, mode)
+

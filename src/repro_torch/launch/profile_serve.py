@@ -3,19 +3,23 @@ one batched prefill and a run of decode steps of the paper LM.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         [--arch h1d-lm-53m] [--rows 8] [--prompt 1024] [--max-len 2048] \
-        [--paged [--cache-dtype int8]]
+        [--paged [--cache-dtype int8]] [--sp-data N]
 
 Seeded random weights and tokens.  ``--paged`` also profiles a paged
 decode tick over the same prompts (a dense-equivalent page pool filled
 from the prefill; ``--cache-dtype int8`` quantizes every level): the
 tick's host work (``prepare_tick``, page copies, ``build_tables`` and
 the one table copy to the card) and its decode step, reported beside
-the dense step as ``paged_decode_step``.  For each phase it prints, per call,
-the host wall time (ending in a synchronize, measured without the
-profiler), the summed device time of the kernels it ran (measured under
-it), the device busy share (device time over wall time; one stream, so
-kernels do not overlap) and the device time by kernel, grouped into this
-package's kernels, matrix products and the rest.
+the dense step as ``paged_decode_step``.  ``--sp-data N`` also profiles
+a sequence-parallel decode tick: the prefilled caches split into ``N``
+shards on the card, each call building the tick's shard geometry on the
+host (one copy to the card) and running the decode step inside
+``sp_scope``, reported as ``sp_decode_step``.  For each phase it
+prints, per call, the host wall time (ending in a synchronize, measured
+without the profiler), the summed device time of the kernels it ran
+(measured under it), the device busy share (device time over wall time;
+one stream, so kernels do not overlap) and the device time by kernel,
+grouped into this package's kernels, matrix products and the rest.
 Needs a CUDA card.
 """
 from __future__ import annotations
@@ -32,7 +36,9 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.core import hierarchy as hc
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import get_model
+from repro_torch.parallel import sp_attention as sp
 from repro_torch.serve import paged_cache as pc
 
 # band kernels are instantiated per h1d::Mode; the coarse_causal ones
@@ -44,11 +50,13 @@ OWN = {"band_fwd_kernel<3>": "band_attention_sub_fwd",
        "band_dkvw_kernel<3>": "band_attention_sub_bwd",
        "band_dq_kernel<": "band_attention_bwd",
        "band_dkvw_kernel<": "band_attention_bwd",
-       "decode_attend_kernel<false,false>": "decode_attend_fused",
-       "decode_attend_kernel<true,false>": "decode_attend_paged",
-       "decode_attend_kernel<true,true>": "decode_attend_paged_quant",
-       "update_cache_kernel<false>": "update_cache_fused",
-       "update_cache_kernel<true>": "update_cache_paged",
+       "decode_attend_kernel<0,false>": "decode_attend_fused",
+       "decode_attend_kernel<1,false>": "decode_attend_paged",
+       "decode_attend_kernel<1,true>": "decode_attend_paged_quant",
+       "decode_attend_kernel<2,false>": "decode_attend_partial",
+       "update_cache_kernel<false,false>": "update_cache_fused",
+       "update_cache_kernel<true,false>": "update_cache_paged",
+       "update_cache_kernel<false,true>": "update_cache_partial",
        "update_cache_quant_kernel": "update_cache_paged_quant"}
 
 
@@ -138,6 +146,37 @@ def paged_tick(params, cfg, fns, tokens, args, dev):
     return tick
 
 
+def sp_tick(params, cfg, fns, tokens, args, dev):
+    """A sequence-parallel decode tick over the prompts in ``tokens``:
+    one slot per row, the prefilled caches split into ``--sp-data``
+    shards; each call builds the tick's shard geometry on the host and
+    copies it to the card once, then runs the decode step in the SP
+    scope."""
+    mesh = make_mesh((args.sp_data,), ("data",), device=dev)
+    Lmax = hc.padded_length(args.max_len, cfg.nr)
+    with torch.inference_mode():
+        logits, dense, pos = fns.prefill(params, cfg, {"tokens": tokens},
+                                         args.max_len)
+        caches = [sp.shard_cache(c, mesh, cfg.nr) for c in dense]
+    del dense
+    state = {"tok": logits.argmax(-1), "pos": pos}
+    pos_host = np.full((tokens.shape[0],), tokens.shape[1], np.int64)
+
+    @torch.inference_mode()
+    def tick():
+        tabs = sp.sp_tables(np.repeat(pos_host, cfg.num_kv_heads),
+                            nr=cfg.nr, Lmax=Lmax, d=args.sp_data, device=dev)
+        with sp.sp_scope(mesh):
+            lg, _ = fns.decode_step(params, cfg, caches, state["tok"],
+                                    state["pos"], sp_tables=tabs)
+        state["tok"] = lg.argmax(-1)
+        state["pos"] = state["pos"] + 1
+        pos_host[:] += 1
+
+    tick()                                              # warm-up
+    return tick
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="h1d-lm-53m")
@@ -150,6 +189,9 @@ def main(argv=None):
                     help="also profile a paged decode tick")
     ap.add_argument("--cache-dtype", default="fp32", choices=["fp32", "int8"],
                     help="page storage of the --paged pool")
+    ap.add_argument("--sp-data", type=int, default=1,
+                    help="also profile a sequence-parallel decode tick over "
+                         "N shards")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args(argv)
 
@@ -191,6 +233,10 @@ def main(argv=None):
         res["paged_decode_step"] = profiled(
             paged_tick(params, cfg, fns, tokens, args, dev),
             args.decode_steps)
+    if args.sp_data > 1:
+        res["sp_data"] = args.sp_data
+        res["sp_decode_step"] = profiled(
+            sp_tick(params, cfg, fns, tokens, args, dev), args.decode_steps)
     text = json.dumps(res)
     print(text)
     if args.out:

@@ -13,6 +13,14 @@ preemption) and ``--cache-dtype int8`` stores its pages as int8
 
     PYTHONPATH=src python -m repro_torch.launch.serve --paged \
         --cache-dtype int8 --requests 8 --slots 4 --max-len 512
+
+``--sp-data N`` splits each layer's cache along its sequence axis into
+``N`` shards on the one device and serves through the sequence-parallel
+kernels (``parallel/sp_attention.py``):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --sp-data 4 \
+        --requests 16 --slots 8 --new-tokens 32 --max-len 2048 \
+        --max-prompt 1500
 """
 from __future__ import annotations
 
@@ -24,6 +32,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import get_model
 from repro_torch.serve import Request, ServeEngine
 
@@ -63,13 +72,20 @@ def main(argv=None):
     ap.add_argument("--lookahead", type=int, default=0,
                     help="admission may skip up to this many queued "
                          "requests that do not fit")
+    ap.add_argument("--sp-data", type=int, default=1,
+                    help="sequence-parallel degree: split the hierarchical "
+                         "KV cache over an N-way 'data' axis and run the "
+                         "decode kernels per shard")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
     params = get_model(cfg).init(cfg, seed=args.seed, device=dev)
+    mesh = (make_mesh((args.sp_data,), ("data",), device=dev)
+            if args.sp_data > 1 else None)
     eng = ServeEngine(cfg, params, slots=args.slots, max_len=args.max_len,
-                      paged=args.paged, pool_pages=args.pool_pages,
+                      mesh=mesh, paged=args.paged,
+                      pool_pages=args.pool_pages,
                       cache_dtype=args.cache_dtype,
                       quant_levels=args.quant_levels,
                       token_budget=args.token_budget,
@@ -93,8 +109,9 @@ def main(argv=None):
     total = sum(len(r.out_tokens) for r in reqs)
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu")
-    print(f"[serve] {cfg.name} on {name}: {len(reqs)} requests, {total} "
-          f"tokens, {dt:.3f}s ({total / dt:.1f} tok/s)")
+    sp_note = f", {args.sp_data} shards" if args.sp_data > 1 else ""
+    print(f"[serve] {cfg.name} on {name}{sp_note}: {len(reqs)} requests, "
+          f"{total} tokens, {dt:.3f}s ({total / dt:.1f} tok/s)")
     if args.paged:
         st = eng.pool.stats
         print(f"[serve] paged ({eng.cache_dtype}): pages="

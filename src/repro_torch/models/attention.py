@@ -108,14 +108,17 @@ def init_decode_cache(cfg: ModelConfig, B: int, Lmax: int, *,
                                  device=device)
 
 
-def attn_decode(p, cfg: ModelConfig, x, t, cache, *, page_tables=None):
+def attn_decode(p, cfg: ModelConfig, x, t, cache, *, page_tables=None,
+                sp_tables=None):
     """Single-token decode.  x: (B, 1, d); t: (B,) int32 current position.
     Updates ``cache`` in place; returns (out (B, 1, d), cache).
 
     ``page_tables`` (``core.h1d_decode.PageTables``) switches to the
     paged pool: ``cache`` is then a ``PagedH1DCache`` (or, with int8
     pages, a ``QuantPagedH1DCache``) and the tables route every block
-    read and write; the core entry points dispatch on the pool type."""
+    read and write; the core entry points dispatch on the pool type.  A
+    sequence-sharded cache (``parallel.sp_attention.SPCache``, inside
+    ``sp_scope``) takes the tick's shard geometry ``sp_tables``."""
     _check_supported(cfg)
     _check_fine_q(cfg)
     B = x.shape[0]
@@ -134,12 +137,15 @@ def attn_decode(p, cfg: ModelConfig, x, t, cache, *, page_tables=None):
     elif B == 1:
         # uniform position: the scalar t is broadcast per row into the
         # same kernels as the batched path
-        cache = h1d_decode.update_cache_uniform(cache, k1, v1, t[0])
-        z = h1d_decode.decode_attend_uniform(cache, q1, t[0], nr=cfg.nr)
+        cache = h1d_decode.update_cache_uniform(cache, k1, v1, t[0],
+                                                tables=sp_tables)
+        z = h1d_decode.decode_attend_uniform(cache, q1, t[0], nr=cfg.nr,
+                                             tables=sp_tables)
     else:
         tt = t.to(torch.int32).repeat_interleave(hkv)
-        cache = h1d_decode.update_cache(cache, k1, v1, tt)
-        z = h1d_decode.decode_attend(cache, q1, tt, nr=cfg.nr)
+        cache = h1d_decode.update_cache(cache, k1, v1, tt, tables=sp_tables)
+        z = h1d_decode.decode_attend(cache, q1, tt, nr=cfg.nr,
+                                     tables=sp_tables)
     z = z.reshape(B, 1, hq * hd)
     return dense(p["wo"], z), cache
 

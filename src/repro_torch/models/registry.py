@@ -19,7 +19,8 @@ class ModelFns(NamedTuple):
     prefill: Callable       # (params, cfg, batch, Lmax, *, true_len=None)
                             #   -> (logits, caches, pos)
     decode_step: Callable   # (params, cfg, caches, token, t, *,
-                            #  page_tables=None) -> (logits, caches)
+                            #  page_tables=None, sp_tables=None)
+                            #   -> (logits, caches)
     init_caches: Callable   # (params, cfg, B, Lmax) -> caches
 
 

@@ -153,18 +153,20 @@ def lm_prefill(params, cfg: ModelConfig, tokens, Lmax: int, *,
 
 @torch.inference_mode()
 def lm_decode_step(params, cfg: ModelConfig, caches, token, t, *,
-                   page_tables=None):
+                   page_tables=None, sp_tables=None):
     """One decode step.  token (B,) int, t (B,) int32 positions.  Updates
     each layer's cache in place; returns (logits (B, V), caches).
 
     ``page_tables`` (``core.h1d_decode.PageTables``) switches the layers
     onto the paged pools (``caches`` then holds one pool per layer);
     every layer writes the same positions, so one table pair serves the
-    whole stack."""
+    whole stack.  ``sp_tables`` (``parallel.sp_attention.SPTables``) is
+    the same for sequence-sharded caches, decoded inside ``sp_scope``."""
     h = _embed_tokens(params, cfg, token[:, None])
     for i, lp in enumerate(params["layers"]):
         a, caches[i] = attn_decode(lp["attn"], cfg, rmsnorm(lp["ln1"], h), t,
-                                   caches[i], page_tables=page_tables)
+                                   caches[i], page_tables=page_tables,
+                                   sp_tables=sp_tables)
         h = h + a
         h = h + mlp(lp["mlp"], rmsnorm(lp["ln2"], h), cfg.mlp_activation)
     return _logits(params, cfg, h)[:, 0], caches

@@ -20,6 +20,14 @@ reference's semantics:
   failing.  ``cache_dtype='int8'`` stores the pages as int8 with per-row
   scales (``quant_levels``: levels ``[0, n)``, -1 = all).  The dense
   slot path stays as the oracle;
+* ``mesh=`` (``launch.mesh.make_mesh((d,), ("data",))``) serves with
+  the hierarchical cache split along its sequence axis over the mesh's
+  ``d`` shards (``parallel/sp_attention.py``): each layer's cache is one
+  slab per shard, prefill runs the band kernels per shard with a halo
+  exchange, and every decode tick runs the partial attend and update
+  kernels per shard, merged across shards; the tick's shard geometry is
+  built once on the host and copied to the card in one transfer shared
+  by every layer;
 * prompts longer than ``max_len - 1`` are rejected or tail-truncated at
   ``submit`` (``overflow``);
 * generation ends at ``max_new_tokens``, a full cache, or a stop token
@@ -31,7 +39,7 @@ reference's semantics:
   them to the card in one non-blocking transfer shared by every layer.
 
 Everything runs under ``torch.inference_mode()``.  Sampling, coarse-q
-attention, sequence parallelism and telemetry are later slices and raise
+attention and telemetry are later slices and raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -44,6 +52,7 @@ import torch
 
 from ..core import hierarchy as hc
 from ..models import ModelConfig, get_model
+from ..parallel import sp_attention as sp
 from . import paged_cache as pc
 from .scheduler import ContinuousBatchingScheduler, QueueEntry
 
@@ -74,11 +83,20 @@ class ServeEngine:
     ``'int8'`` (requires ``paged=True``); ``quant_levels`` (default
     ``cfg.cache_quant_levels``) limits int8 to levels ``[0, n)``.
     ``token_budget`` / ``lookahead`` / ``prefill_chunk`` tune the
-    scheduler for either path."""
+    scheduler for either path.
+
+    ``mesh`` (an ``SPMesh`` on the engine's device, whose axis must be
+    ``sp_axis``) enables sequence-parallel serving: the dense slot
+    caches are split along their sequence axis over the mesh's ``d``
+    shards and prefill and decode run inside ``sp_scope(mesh)``.
+    Requires ``attention='h1d'`` and a padded ``max_len`` that is a
+    multiple of ``d * nr`` (one level-0 block per shard); a 1-way mesh
+    serves as without one."""
 
     def __init__(self, cfg: ModelConfig, params, *, slots: int = 8,
                  max_len: int = 512, greedy: bool = True,
-                 overflow: str = "error", mesh=None, paged: bool = False,
+                 overflow: str = "error", mesh=None, sp_axis: str = "data",
+                 paged: bool = False,
                  pool_pages: Optional[int] = None, prefix_sharing: bool = True,
                  token_budget: Optional[int] = None, lookahead: int = 0,
                  prefill_chunk: Optional[int] = None,
@@ -112,9 +130,22 @@ class ServeEngine:
                     f"(family={cfg.family!r}, attention={cfg.attention!r}, "
                     f"sliding_window={cfg.sliding_window}, "
                     f"global_every={cfg.global_every})")
-        if mesh is not None:
-            raise NotImplementedError("sequence-parallel serving is not "
-                                      "ported yet")
+        if mesh is not None and mesh.axis != sp_axis:
+            raise ValueError(f"the mesh shards over axis {mesh.axis!r}, the "
+                             f"engine over sp_axis={sp_axis!r}")
+        sp_d = mesh.d if mesh is not None else 1
+        if sp_d > 1:
+            if cfg.attention != "h1d":
+                raise ValueError(
+                    "SP serving shards the hierarchical cache's sequence "
+                    f"axis; attention={cfg.attention!r} has no such cache")
+            Lp = hc.padded_length(max_len, cfg.nr)
+            if not sp.sp_shardable(Lp, sp_d, cfg.nr):
+                raise ValueError(
+                    f"SP serving: padded max_len {Lp} cannot keep one "
+                    f"nr={cfg.nr} block per shard on a {sp_d}-way "
+                    f"'{sp_axis}' axis; use fewer shards or a longer "
+                    f"max_len")
         if not greedy:
             raise NotImplementedError("sampling is not ported yet; the "
                                       "engine decodes greedily")
@@ -131,6 +162,11 @@ class ServeEngine:
         self.max_len = max_len
         self.Lmax = hc.padded_length(max_len, cfg.nr)
         self.device = params["embed"]["w"].device
+        self.mesh = mesh
+        self.sp_d = sp_d
+        if sp_d > 1 and mesh.devices[0] != self.device:
+            raise ValueError(f"the mesh's shards sit on {mesh.devices[0]}, "
+                             f"the parameters on {self.device}")
         self.sched = ContinuousBatchingScheduler(
             token_budget=token_budget, lookahead=lookahead,
             prefill_chunk=prefill_chunk)
@@ -152,6 +188,9 @@ class ServeEngine:
             else:
                 self.caches = self.fns.init_caches(params, cfg, slots,
                                                    max_len)
+                if sp_d > 1:
+                    self.caches = [sp.shard_cache(c, mesh, cfg.nr)
+                                   for c in self.caches]
             self.tokens = torch.zeros((slots,), dtype=torch.int32,
                                       device=self.device)
             self.pos = torch.zeros((slots,), dtype=torch.int32,
@@ -270,9 +309,10 @@ class ServeEngine:
             prompts[i, :len(chunk)] = chunk
             ns[i] = len(chunk)
         batch = {"tokens": torch.as_tensor(prompts, device=self.device)}
-        logits, caches, _ = self.fns.prefill(
-            self.params, self.cfg, batch, self.max_len,
-            true_len=torch.as_tensor(ns, device=self.device))
+        with sp.sp_scope(self.mesh):
+            logits, caches, _ = self.fns.prefill(
+                self.params, self.cfg, batch, self.max_len,
+                true_len=torch.as_tensor(ns, device=self.device))
         dst = free[:g]
         del free[:g]
 
@@ -290,6 +330,9 @@ class ServeEngine:
                 np.concatenate([np.arange(s * r, (s + 1) * r) for s in dst]),
                 device=self.device)
             for full, one in zip(self.caches, caches):
+                if self.sp_d > 1:      # one slice per shard and level
+                    sp.scatter_rows(full, one, rows)
+                    continue
                 for fa, oa in zip((full.k, full.v, *full.ck, *full.cv),
                                   (one.k, one.v, *one.ck, *one.cv)):
                     fa.index_copy_(0, rows, oa[:g * r])
@@ -477,6 +520,17 @@ class ServeEngine:
             logits, self.caches = self.fns.decode_step(
                 self.params, self.cfg, self.caches, self.tokens, self.pos,
                 page_tables=tabs)
+        elif self.sp_d > 1:
+            # every row of a slot decodes its position; the geometry of
+            # this tick serves every layer
+            tabs = sp.sp_tables(
+                np.repeat(self.pos_host, self.cfg.num_kv_heads),
+                nr=self.cfg.nr, Lmax=self.Lmax, d=self.sp_d,
+                device=self.device)
+            with sp.sp_scope(self.mesh):
+                logits, self.caches = self.fns.decode_step(
+                    self.params, self.cfg, self.caches, self.tokens,
+                    self.pos, sp_tables=tabs)
         else:
             logits, self.caches = self.fns.decode_step(
                 self.params, self.cfg, self.caches, self.tokens, self.pos)

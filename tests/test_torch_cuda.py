@@ -590,3 +590,132 @@ def test_paged_smoke_engines_on_card_match_cpu(dev):
                 if name == "fp32":
                     assert eng.preemptions > 0
         assert outs["cuda"] == outs["cpu"], name
+
+
+# ---------------------------------------------------------------------------
+# sequence-parallel shards (#11, #12)
+# ---------------------------------------------------------------------------
+
+def _sp_ts(Lmax, nr, d):
+    """Mask edges, every shard edge s*Lloc - 1 and s*Lloc, the last
+    position and the out-of-range Lmax."""
+    ts = set(_ts(Lmax, nr)) | {Lmax - 1, Lmax}
+    for s in range(1, d):
+        ts |= {s * Lmax // d - 1, s * Lmax // d}
+    return sorted(ts)
+
+
+@pytest.mark.parametrize("d", [2, 4])
+@pytest.mark.parametrize("Lmax,nr,G,D,Dv", [
+    (2048, 16, 1, 64, 64), (256, 8, 4, 16, 16), (512, 16, 2, 40, 24)])
+def test_sp_partial_kernels_match_plain(dev, d, Lmax, nr, G, D, Dv):
+    """#11 against its plain version on every shard's slab (1e-5 scaled)
+    and merged against #5 on the unsharded cache; #12 bit-exact on every
+    shard (slabs and carries), and the whole SP update (with the
+    deep-level #6 step where levels replicate) against #6 on the
+    unsharded cache."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import sp_attention as sp
+
+    gen = torch.Generator(device=dev).manual_seed(Lmax + d)
+    ts = _sp_ts(Lmax, nr, d)
+    R = len(ts)
+    dense = hd.prefill_cache(_randn(gen, dev, R, Lmax, D),
+                             _randn(gen, dev, R, Lmax, Dv), Lmax, nr)
+    mesh = make_mesh((d,), ("data",))
+    sc = sp.shard_cache(dense, mesh, nr)
+    q = _randn(gen, dev, R, G, D)
+    t = torch.tensor(ts, dtype=torch.int32, device=dev)
+    tabs = sp.sp_tables(np.array(ts), nr=nr, Lmax=Lmax, d=d, device=dev)
+    for s, sh in enumerate(sc.shards):
+        got = dk.decode_attend_partial(sh, q, t, tabs.bidx[s],
+                                       tabs.owned[s], nr=nr)
+        want = dk.decode_attend_partial_ref(sh, q, t, tabs.bidx[s],
+                                            tabs.owned[s], nr=nr)
+        _close(got, want)
+    kernels.reset_counts()
+    with sp.sp_scope(mesh):
+        merged = hd.decode_attend(sc, q, t, nr=nr, tables=tabs)
+    assert kernels.KERNELS["decode_attend_partial"][0].launches == d
+    _close([merged], [dk.decode_attend_fused(dense, q, t, nr=nr)])
+
+    nsh = sp.sp_sharded_levels(Lmax, nr, d)
+    kn, vn = _randn(gen, dev, R, D), _randn(gen, dev, R, Dv)
+    for s, sh in enumerate(sc.shards):
+        def slab(c):
+            return hd.H1DCache(c.k.clone(), c.v.clone(),
+                               tuple(a.clone() for a in c.ck[:nsh - 1]),
+                               tuple(a.clone() for a in c.cv[:nsh - 1]))
+        a, b = slab(sh), slab(sh)
+        _, ak, av = dk.update_cache_partial(a, kn, vn, tabs.t_loc[s],
+                                            tabs.upd_owned[s])
+        _, bk, bv = dk.update_cache_partial_ref(b, kn, vn, tabs.t_loc[s],
+                                                tabs.upd_owned[s])
+        for x, y in zip((a.k, a.v, *a.ck, *a.cv, ak, av),
+                        (b.k, b.v, *b.ck, *b.cv, bk, bv)):
+            assert torch.equal(x, y)
+    with sp.sp_scope(mesh):
+        hd.update_cache(sc, kn, vn, t, tables=tabs)
+    dk.update_cache_fused(dense, kn, vn, t)
+    back = sp.unshard_cache(sc)
+    for x, y in zip((back.k, back.v, *back.ck, *back.cv),
+                    (dense.k, dense.v, *dense.ck, *dense.cv)):
+        assert torch.equal(x, y)
+
+
+def test_sp_wrappers_validate_operands(dev):
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import sp_attention as sp
+
+    dense = hd.init_cache(2, 64, 8, 8, 8, device=dev)
+    sh = sp.shard_cache(dense, make_mesh((2,), ("data",)), 8).shards[0]
+    q = torch.zeros((2, 1, 8), device=dev)
+    t = torch.zeros((2,), dtype=torch.int32, device=dev)
+    tab = torch.zeros((2, 4), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):            # bidx of the wrong width
+        dk.decode_attend_partial(sh, q, t, tab[:, :3].contiguous(), tab,
+                                 nr=8)
+    with pytest.raises(ValueError):            # int64 ownership bits
+        dk.decode_attend_partial(sh, q, t, tab, tab.long(), nr=8)
+    with pytest.raises(ValueError):            # level rows not nr-blocks
+        dk.decode_attend_partial(sh, q, t, tab, tab, nr=16)
+    kn = torch.zeros((2, 8), device=dev)
+    with pytest.raises(ValueError):            # int64 positions
+        dk.update_cache_partial(sh, kn, kn, t.long(), t)
+
+
+def test_sp_smoke_engine_on_card_matches_dense(dev):
+    """The smoke model served over 2 and 4 shards on the card gives the
+    dense engine's greedy tokens (#11, #12 and the band kernels launched,
+    #5 not, no plain version run); slots=1 at d=4 takes the uniform
+    path and the deep-level carry (#6; at d=2 every level is sharded)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import get_model
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg = get_smoke_config("h1d-lm-53m")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 12, 30, 9, 17, 40)]
+    params = get_model(cfg).init(cfg, seed=2, device=dev)
+
+    def serve(slots, mesh=None):
+        eng = ServeEngine(cfg, params, slots=slots, max_len=64, mesh=mesh)
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=6)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        kernels.reset_counts()
+        eng.run()
+        return [r.out_tokens for r in reqs]
+
+    for d, slots in ((2, 3), (4, 1)):
+        want = serve(slots)
+        got = serve(slots, make_mesh((d,), ("data",)))
+        for name in kernels.SP_SERVE_KERNELS:
+            launches = kernels.KERNELS[name][0].launches
+            assert launches > 0 or (d, name) == (2, "update_cache_fused")
+        assert kernels.KERNELS["decode_attend_fused"][0].launches == 0
+        assert not any(p.calls for _, p in kernels.KERNELS.values())
+        assert got == want

@@ -147,6 +147,8 @@ _LAUNCHES = {"band_attention_fwd", "band_attention_sub_fwd",
              "decode_attend_fused", "update_cache_fused", "band_attention",
              "h1d_band_fwd", "h1d_band_sub_fwd", "h1d_band_bwd",
              "h1d_band_sub_bwd", "h1d_decode_attend", "h1d_update_cache",
+             "decode_attend_partial", "update_cache_partial",
+             "h1d_decode_attend_partial", "h1d_update_cache_partial",
              "check"}
 
 

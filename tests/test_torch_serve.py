@@ -123,11 +123,12 @@ def test_overflow_policy_and_frozen_idle_slots(smoke):
 
 
 def test_unported_engine_options_raise(smoke):
-    """Sampling and sequence-parallel serving are later slices."""
+    """Sampling is a later slice.  (Sequence-parallel serving is ported:
+    ``tests/test_torch_sp.py``; a mesh over several devices is refused
+    by ``SPMesh`` itself.)"""
     cfg, params, tcfg, tparams = smoke
-    for kw in (dict(greedy=False), dict(mesh=object())):
-        with pytest.raises(NotImplementedError):
-            ServeEngine(tcfg, tparams, **kw)
+    with pytest.raises(NotImplementedError):
+        ServeEngine(tcfg, tparams, greedy=False)
 
 
 @pytest.mark.parametrize("kw,match", [
