@@ -22,7 +22,11 @@ Phases (each raises on failure; nothing is caught):
    modes above at the LRA shapes, from the forward kernels' saved
    outputs and seeded random cotangents; both fp32 paths are also
    measured against the float64 gradient of the same level (autograd
-   of a dense masked forward) and reported;
+   of a dense masked forward) and reported.  The #2 and #4 rows and the
+   ``coarse_causal`` rows of #1 and #3 log each level (ratio, device ms,
+   bound ms) on a line of its own, and their bound counts only what the
+   work needs (``h1d_block.sub_bytes``): the rows with a live key and
+   the key blocks some row reads, every output written;
    The four paged decode kernels are held against their plain versions
    at paged serving shapes: 64 rows (8 slots x 8 kv-heads), G=1, d=64,
    nr=16, max_len 2048, pools of 1024+2 pages x 8 heads at every level,
@@ -155,6 +159,7 @@ LOGIT_TOL = 1e-3
 CACHE_TOL = 1e-4
 BWD_LAUNCH = ("one launch is one wrapper call of two kernels: dQ, then "
               "dK/dV/dW")
+SUB_BWD_LAUNCH = "one launch is one wrapper call of one fused kernel"
 
 # serving path of h1d-lm-53m: 8 prompts x 8 kv-heads, head_dim 64, nr 16
 B, G, L, D, NR = 64, 1, 1024, 64, 16
@@ -327,17 +332,22 @@ def phase_mode_kernels(dev):
             tot["err"] = max(tot["err"], e)
             tot["ms"] += time_ms(lambda: hb.band_attention_fwd(
                 *args, nr=NR, mode=mode))
-            tot["device_ms"] += device_ms(lambda: hb.band_attention_fwd(
-                *args, nr=NR, mode=mode))
+            dms = device_ms(lambda: hb.band_attention_fwd(*args, nr=NR,
+                                                          mode=mode))
+            tot["device_ms"] += dms
             tot["plain_ms"] += time_ms(lambda: hb.band_attention_fwd_ref(
                 *args, nr=NR, mode=mode))
             Lq = args[0].shape[-2]
-            tot["flops"] += band_pairs(dev, mode, Lq, 1, args[3],
-                                       Lq=Lq) * (4 * D + 3)
-            tot["nbytes"] += 4 * (sum(t.numel() for t in args)
-                                  + B * G * Lq * (D + 2))
+            flops = band_pairs(dev, mode, Lq, 1, args[3], Lq=Lq) * (4 * D + 3)
+            nbytes = (hb.sub_bytes(args[3], nr=NR, ratio=1, G=G, d=D, dv=D)
+                      if mode == "coarse_causal" else
+                      4 * (sum(t.numel() for t in args)
+                           + B * G * Lq * (D + 2)))
+            tot["flops"] += flops
+            tot["nbytes"] += nbytes
             log(f"band_attention_fwd {mode} level {lvl} (L={Lq}): max abs "
-                f"err {e:.3g}")
+                f"err {e:.3g}; device {dms:.4f} ms, bound "
+                f"{bound(nbytes, flops)[0]:.5f} ms")
         bms, by = bound(tot["nbytes"], tot["flops"])
         span = ("level 0" if len(levels) == 1 else
                 f"the {len(levels)} coarse levels (L={LRA_L >> 1}.."
@@ -393,7 +403,7 @@ def phase_kernels(dev):
     M = hc.num_levels(L, NR)
     kc, vc, wc = k, v, w
     sub = dict(err=0.0, ms=0.0, device_ms=0.0, plain_ms=0.0, nbytes=0,
-               flops=0)
+               flops=0, levels=[])
     for lvl in range(1, M):
         ratio = 1 << lvl
         kc, _ = hc.coarsen_weighted_mean(kc, wc)
@@ -407,15 +417,20 @@ def phase_kernels(dev):
         sub["err"] = max(sub["err"], e)
         sub["ms"] += time_ms(lambda: hb.band_attention_sub_fwd(
             *args, nr=NR, ratio=ratio))
-        sub["device_ms"] += device_ms(lambda: hb.band_attention_sub_fwd(
-            *args, nr=NR, ratio=ratio))
+        dms = device_ms(lambda: hb.band_attention_sub_fwd(*args, nr=NR,
+                                                          ratio=ratio))
+        sub["device_ms"] += dms
         sub["plain_ms"] += time_ms(lambda: hb.band_attention_sub_fwd_ref(
             *args, nr=NR, ratio=ratio))
-        Lk = L // ratio
-        sub["flops"] += pairs("sub", Lk, ratio, wc) * (4 * D + 3)
-        sub["nbytes"] += f4 * (q.numel() + 2 * B * Lk * D + B * Lk
-                               + B * G * L * (D + 2))
-        log(f"band_attention_sub_fwd ratio {ratio}: max abs err {e:.3g}")
+        flops = pairs("sub", L // ratio, ratio, wc) * (4 * D + 3)
+        # the rows with a live key and the key blocks some row reads
+        nbytes = hb.sub_bytes(args[3], nr=NR, ratio=ratio, G=G, d=D, dv=D)
+        sub["flops"] += flops
+        sub["nbytes"] += nbytes
+        lb = bound(nbytes, flops)[0]
+        sub["levels"].append(dict(ratio=ratio, device_ms=dms, bound_ms=lb))
+        log(f"band_attention_sub_fwd ratio {ratio}: max abs err {e:.3g}; "
+            f"device {dms:.4f} ms, bound {lb:.5f} ms")
     bms, by = bound(sub["nbytes"], sub["flops"])
     rows.append(dict(
         name="band_attention_sub_fwd", route="cuda",
@@ -423,9 +438,10 @@ def phase_kernels(dev):
         replaces="src/repro/kernels/h1d_block.py:245",
         max_abs_err=sub["err"], ms=sub["ms"], device_ms=sub["device_ms"],
         plain_ms=sub["plain_ms"],
-        bound_ms=bms, bound_by=by, library_ms=None,
+        bound_ms=bms, bound_by=by, library_ms=None, levels=sub["levels"],
         note=f"sum over the {M - 1} sub levels (ratio 2..{1 << (M - 1)}) "
-             f"of one L={L} prefill"))
+             f"of one L={L} prefill; bytes of the rows with a live key "
+             f"and the key blocks some row reads"))
 
     # -- decode attend and update on a filled cache ----------------------
     cache = hd.prefill_cache(randn(R, LMAX, D), randn(R, LMAX, D), LMAX, NR)
@@ -743,8 +759,13 @@ def phase_bwd_kernels(dev):
             f"{witness['plain']['abs']:.3g} row "
             f"{witness['plain']['row_scaled']:.3g} elem "
             f"{witness['plain']['elem_scaled']:.3g}; near ties {near}")
-        nbytes = f4 * (sum(t.numel() for t in args)
-                       + sum(t.numel() for t in got))
+        if mask_mode in ("sub", "coarse_causal"):
+            # the rows with a live key and the key blocks some row reads
+            nbytes = hb.sub_bytes(fwd[3], nr=NR, ratio=ratio, G=G, d=D,
+                                  dv=D, backward=True)
+        else:
+            nbytes = f4 * (sum(t.numel() for t in args)
+                           + sum(t.numel() for t in got))
         return dict(err=err, scaled=scaled, elem=elem, nbytes=nbytes,
                     witness=witness,
                     ms=time_ms(lambda: kernel(*args, **kw)),
@@ -775,7 +796,7 @@ def phase_bwd_kernels(dev):
     M = hc.num_levels(L, NR)
     kc, vc, wc = k, v, w
     tot = dict(err=0.0, scaled=0.0, elem=0.0, ms=0.0, device_ms=0.0,
-               plain_ms=0.0, nbytes=0, flops=0, witness=[])
+               plain_ms=0.0, nbytes=0, flops=0, witness=[], levels=[])
     for lvl in range(1, M):
         ratio = 1 << lvl
         kc, _ = hc.coarsen_weighted_mean(kc, wc)
@@ -792,11 +813,15 @@ def phase_bwd_kernels(dev):
         tot["scaled"] = max(tot["scaled"], r["scaled"])
         tot["elem"] = max(tot["elem"], r["elem"])
         tot["witness"].append(r["witness"])
-        tot["flops"] += band_pairs(dev, "sub", L // ratio, ratio,
-                                   wc) * per_pair
+        flops = band_pairs(dev, "sub", L // ratio, ratio, wc) * per_pair
+        tot["flops"] += flops
+        lb = bound(r["nbytes"], flops)[0]
+        tot["levels"].append(dict(ratio=ratio, device_ms=r["device_ms"],
+                                  bound_ms=lb))
         log(f"band_attention_sub_bwd ratio {ratio}: max abs err "
             f"{r['err']:.3g}, scaled {r['scaled']:.3g} (elementwise "
-            f"{r['elem']:.3g}), {r['ms']:.3f} ms")
+            f"{r['elem']:.3g}), {r['ms']:.3f} ms; device "
+            f"{r['device_ms']:.4f} ms, bound {lb:.5f} ms")
     bms, by = bound(tot["nbytes"], tot["flops"])
     rows.append(dict(
         name="band_attention_sub_bwd", route="cuda",
@@ -805,9 +830,11 @@ def phase_bwd_kernels(dev):
         max_abs_err=tot["err"], max_scaled_err=tot["scaled"],
         max_elementwise_scaled_err=tot["elem"], f64_witness=tot["witness"],
         ms=tot["ms"], device_ms=tot["device_ms"], plain_ms=tot["plain_ms"],
-        bound_ms=bms, bound_by=by, library_ms=None,
+        bound_ms=bms, bound_by=by, library_ms=None, levels=tot["levels"],
         note=f"sum over the {M - 1} sub levels (ratio 2..{1 << (M - 1)}) "
-             f"of one L={L} training step's attention; {BWD_LAUNCH}"))
+             f"of one L={L} training step's attention; {SUB_BWD_LAUNCH}; "
+             f"bytes of the rows with a live key and the key blocks some "
+             f"row reads"))
 
     # the three modes of the LRA and coarse-q paths, at the LRA shapes
     lra_randn, q, k, v, w = lra_band_inputs(dev)
@@ -826,11 +853,13 @@ def phase_bwd_kernels(dev):
             for key in ("err", "scaled", "elem"):
                 tot[key] = max(tot[key], r[key])
             tot["witness"].append(dict(r["witness"], level=lvl))
-            tot["flops"] += band_pairs(dev, mode, Lq, 1, fwd[3],
-                                       Lq=Lq) * per_pair
+            flops = band_pairs(dev, mode, Lq, 1, fwd[3], Lq=Lq) * per_pair
+            tot["flops"] += flops
             log(f"band_attention_bwd {mode} level {lvl} (L={Lq}): max abs "
                 f"err {r['err']:.3g}, scaled {r['scaled']:.3g} "
-                f"(elementwise {r['elem']:.3g}), {r['ms']:.3f} ms")
+                f"(elementwise {r['elem']:.3g}), {r['ms']:.3f} ms; device "
+                f"{r['device_ms']:.4f} ms, bound "
+                f"{bound(r['nbytes'], flops)[0]:.5f} ms")
         bms, by = bound(tot["nbytes"], tot["flops"])
         span = ("level 0" if len(levels) == 1 else
                 f"the {len(levels)} coarse levels (L={LRA_L >> 1}.."
@@ -845,7 +874,9 @@ def phase_bwd_kernels(dev):
             device_ms=tot["device_ms"], plain_ms=tot["plain_ms"],
             bound_ms=bms, bound_by=by, library_ms=None,
             note=f"sum over {span} of one L={LRA_L} attention, 64 rows "
-                 f"padded to true lengths 500..2000; {BWD_LAUNCH}"))
+                 f"padded to true lengths 500..2000; "
+                 + (SUB_BWD_LAUNCH if mode == "coarse_causal"
+                    else BWD_LAUNCH)))
     return rows
 
 

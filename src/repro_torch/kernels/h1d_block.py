@@ -101,6 +101,99 @@ def check_window(mode: str, nr: int) -> None:
 
 
 # ---------------------------------------------------------------------------
+# launch geometry of the sub level (and coarse_causal, ratio 1)
+# ---------------------------------------------------------------------------
+#
+# Host mirrors of what ``csrc/h1d_band.cuh`` computes for the sub-level
+# kernels: query block I (nq = nr * ratio rows) reads key block I - 1
+# alone; a row at position p < nq / 2 of its block ("first half") reads
+# the block's first nr / 2 keys only.  A row with no live key, and a key
+# block no row reads, is never read.
+
+#: rows of a kernel tile, and the backward's most CTAs (a cluster) a block
+SUB_TQ = 64
+SUB_MAX_SPLIT = 8
+
+
+def sub_block_flags(w, nr: int):
+    """(B, ceil(Lk / nr)) int flags of each key block: 1 when a key of its
+    first half has w > 0 (its query block's first-half rows are live), 2
+    when any key has (the other rows are)."""
+    B, Lk = w.shape
+    nb = -(-Lk // nr)
+    wb = torch.zeros((B, nb * nr), dtype=torch.bool, device=w.device)
+    wb[:, :Lk] = w > 0
+    wb = wb.view(B, nb, nr)
+    return (wb[..., : nr // 2].any(-1).int() * 3) | (wb.any(-1).int() * 2)
+
+
+def sub_live_rows(w, nr: int, ratio: int):
+    """(B, Lq) bool: the rows of a sub level (Lq = Lk * ratio) that have a
+    key with w > 0 in their band, the only rows the kernels read."""
+    Lq = w.shape[1] * ratio
+    nq = nr * ratio
+    i = torch.arange(Lq, device=w.device)
+    flags = sub_block_flags(w, nr)
+    blk = i // nq - 1
+    bit = torch.where(i % nq < nq // 2, 1, 2)
+    f = flags[:, blk.clamp(min=0)]
+    return (blk >= 0) & ((f & bit) != 0)
+
+
+def sub_bwd_splits(G: int, nq: int) -> int:
+    """CTAs (one cluster) over which the backward splits a block's G * nq
+    rows: runs of a multiple of SUB_TQ rows, at most SUB_MAX_SPLIT."""
+    if nq < SUB_TQ:
+        return 1
+    s, units = 1, G * (nq // SUB_TQ)
+    while 2 * s <= SUB_MAX_SPLIT and units % (2 * s) == 0:
+        s *= 2
+    return s
+
+
+def sub_pair_items(rows: int, p0: int, nq: int, nkg: int, nkgh: int):
+    """(row, key group, lanes) of every item of the score pass on a tile of
+    ``rows`` rows from position ``p0`` of its query block: a row pair
+    against 4 keys.  First-half pairs take ``nkgh`` groups (the keys of
+    the block's first half), the others ``nkg``."""
+    pairs = rows // 2
+    if nkgh == nkg:
+        return [(2 * k, g, nkg) for k in range(pairs) for g in range(nkg)]
+    hs = nq // 2
+    nf = rows // 4 if hs < rows else (pairs if p0 < hs else 0)
+    out = []
+    for first, n, width in ((True, nf, nkgh), (False, pairs - nf, nkg)):
+        for k in range(n):
+            if hs < rows:
+                row = (2 * (k // (hs // 2)) + (0 if first else 1)) * hs \
+                    + 2 * (k % (hs // 2))
+            else:
+                row = 2 * k
+            out += [(row, g, width) for g in range(width)]
+    return out
+
+
+def sub_bytes(w, *, nr: int, ratio: int, G: int, d: int, dv: int,
+              backward: bool = False) -> int:
+    """Bytes one sub-level call must move: q (and gy, y, and m, dn, gdn,
+    gm in the backward) of the live rows, k and v of the key blocks some
+    row reads, w of the blocks a query block maps to, every output once."""
+    B, Lk = w.shape
+    Lq = Lk * ratio
+    live = int(sub_live_rows(w, nr, ratio).sum()) * G
+    # the last key block has no query block after it
+    blocks = int((sub_block_flags(w, nr)[:, :-1] != 0).sum())
+    wread = B * max(-(-Lk // nr) - 1, 0) * nr
+    if backward:
+        rows_in = live * (d + 2 * dv + 4)
+        out = B * G * Lq * (d + 1) + B * Lk * (d + dv + 1)
+    else:
+        rows_in = live * d
+        out = B * G * Lq * (dv + 2)
+    return 4 * (rows_in + blocks * nr * (d + dv) + wread + out)
+
+
+# ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
 

@@ -237,7 +237,7 @@ def band_attention_bwd(q, k, v, w, y, dn, m, gy, gdn, gm, *, nr: int,
     """Backward of one level in any mode but ``sub``.  CPU tensors take
     :func:`band_attention_bwd_ref`; CUDA tensors launch ``h1d_band_bwd``
     (a dQ kernel, then a dK/dV/dW kernel; ``coarse_causal`` runs the sub
-    bodies at ratio 1).  Returns (dq, dk, dv, dw, gmn).
+    level's one fused kernel at ratio 1).  Returns (dq, dk, dv, dw, gmn).
     ``.mode_launches`` counts the launches per mode."""
     if q.device.type == "cpu":
         return band_attention_bwd_ref(q, k, v, w, y, dn, m, gy, gdn, gm,
@@ -273,7 +273,9 @@ def band_attention_sub_bwd(q, k, v, w, y, dn, m, gy, gdn, gm, *, nr: int,
                            ratio: int) -> Grads:
     """Fine-q causal level backward (mode ``sub``).  CPU tensors take
     :func:`band_attention_sub_bwd_ref`; CUDA tensors launch
-    ``h1d_band_sub_bwd``.  Returns (dq, dk, dv, dw, gmn)."""
+    ``h1d_band_sub_bwd`` (one fused kernel: dq, gmn and the key block's
+    dk, dv, dw from one recomputation of each score).  Returns (dq, dk,
+    dv, dw, gmn)."""
     if q.device.type == "cpu":
         return band_attention_sub_bwd_ref(q, k, v, w, y, dn, m, gy, gdn, gm,
                                           nr=nr, ratio=ratio)

@@ -41,13 +41,12 @@ from repro_torch.models import get_model
 from repro_torch.parallel import sp_attention as sp
 from repro_torch.serve import paged_cache as pc
 
-# band kernels are instantiated per h1d::Mode; the coarse_causal ones
-# (<3>) run the sub levels and #1 / #3 in coarse_causal alike.  The first
-# key contained in a kernel's name wins.
-OWN = {"band_fwd_kernel<3>": "band_attention_sub_fwd",
+# the sub-level kernels (sub_fwd_kernel, sub_bwd_kernel) also run #1 / #3
+# in coarse_causal; the other band modes are band_*_kernel<mode>.  The
+# first key contained in a kernel's name wins.
+OWN = {"sub_fwd_kernel<": "band_attention_sub_fwd",
        "band_fwd_kernel<": "band_attention_fwd",
-       "band_dq_kernel<3>": "band_attention_sub_bwd",
-       "band_dkvw_kernel<3>": "band_attention_sub_bwd",
+       "sub_bwd_kernel<": "band_attention_sub_bwd",
        "band_dq_kernel<": "band_attention_bwd",
        "band_dkvw_kernel<": "band_attention_bwd",
        "decode_attend_kernel<0,false>": "decode_attend_fused",

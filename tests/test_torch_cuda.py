@@ -193,6 +193,108 @@ def test_band_sub_fwd_matches_plain_every_level(dev, G, L, d, nr):
                hb.band_attention_sub_fwd_ref(*args, nr=nr, ratio=1 << lvl))
 
 
+def _sub_level(ratio, nr):
+    """Forward, backward and both plain versions of one fine-q level, or
+    of coarse_causal (the same kernels) at ratio 1."""
+    if ratio == 1:
+        kw = dict(nr=nr, mode="coarse_causal")
+        return (hb.band_attention_fwd, hb.band_attention_fwd_ref,
+                hbb.band_attention_bwd, hbb.band_attention_bwd_ref, kw)
+    kw = dict(nr=nr, ratio=ratio)
+    return (hb.band_attention_sub_fwd, hb.band_attention_sub_fwd_ref,
+            hbb.band_attention_sub_bwd, hbb.band_attention_sub_bwd_ref, kw)
+
+
+@pytest.mark.parametrize("G,L,d,dv,nr", [
+    (1, 256, 64, 64, 16), (2, 128, 40, 24, 8), (4, 64, 128, 128, 4),
+    (3, 512, 16, 16, 32), (1, 128, 8, 72, 2)])
+def test_band_sub_ties_dead_rows_and_bits_every_level(dev, G, L, d, dv, nr):
+    """Forced ties: q and k integer-valued (every score exact in any
+    summation order) and each key repeated at the next position, so rows
+    tie exactly at their max.  At every sub level and in coarse_causal:
+    #2 within 1e-5 and #4 within 1e-4 (row-scaled) of their plain
+    versions; each row's tie share gmn * c sums to its gmh (c the exact
+    tie count, gmn 0 where c is 0); query block 0 and the rows of dead key
+    blocks give m = -1e30, y = 0, dn = 0, dq = 0, gmn = 0; two backward
+    calls give identical bits."""
+    gen = torch.Generator(device=dev).manual_seed(G * L + nr)
+    B = 3
+    q = torch.randint(-3, 4, (B, G, L, d), generator=gen,
+                      device=dev).float() * 0.125
+    ties = 0
+    for ratio in [1] + [1 << l for l in range(1, hc.num_levels(L, nr))]:
+        Lk, nq = L // ratio, nr * ratio
+        k = torch.randint(-3, 4, (B, Lk, d), generator=gen,
+                          device=dev).float()
+        k[:, 1::2] = k[:, 0::2]
+        w = torch.rand((B, Lk), generator=gen, device=dev) + 0.5
+        w[0, Lk // 2:] = 0.0                     # a padded tail
+        w[1, : 2 * nr] = 0.0                     # key blocks 0, 1 dead
+        v = _randn(gen, dev, B, Lk, dv) * w[..., None]
+        fwd, fwd_ref, bwd, bwd_ref, kw = _sub_level(ratio, nr)
+        out = fwd(q, k, v, w, **kw)
+        _close(out, fwd_ref(q, k, v, w, **kw))
+        y, dn, m = out
+        dead = [(slice(None), slice(0, nq))]
+        if Lk >= 3 * nr:
+            dead.append((1, slice(nq, 3 * nq)))
+        for rows in dead:
+            b, i = rows
+            assert torch.all(m[b, :, i] == hb._MIN_M)
+            assert not y[b, :, i].any() and not dn[b, :, i].any()
+        cot = _cotangents(gen, dev, out)
+        args = (q, k, v, w, *out, *cot)
+        got = bwd(*args, **kw)
+        _close_grads(got, bwd_ref(*args, **kw))
+        for a, b2 in zip(got, bwd(*args, **kw)):
+            assert torch.equal(a, b2)
+        dq, gmn = got[0], got[4]
+        for b, i in dead:
+            assert not dq[b, :, i].any() and not gmn[b, :, i].any()
+        # exact scores: the tie count and each row's tie share
+        i = torch.arange(L, device=dev)[:, None]
+        j = torch.arange(Lk, device=dev)[None, :]
+        allow = (hb.band_mask(i, j, nr, "sub", Lk, ratio)[None, None]
+                 & (w > 0)[:, None, None, :])
+        s = torch.einsum("bgid,bjd->bgij", q.double(), k.double())
+        c = ((s == m.double()[..., None]) & allow).sum(-1).double()
+        gy, gdn, gm = (t.double() for t in cot)
+        gmh = gm - ((gy * y.double()).sum(-1) + gdn * dn.double())
+        share = gmn.double() * c
+        assert torch.allclose(share, torch.where(c > 0, gmh, 0.0),
+                              rtol=1e-5, atol=1e-5)
+        assert not gmn[c == 0].any()
+        ties += int((c >= 2).sum())
+    assert ties > 0
+
+
+def test_band_sub_lm_shape_every_level(dev):
+    """#2 and #4 at the LM path's shapes (64 rows = 8 sequences x 8 kv
+    heads, G = 1, L = 1024, d = 64, nr = 16, every third row padded by
+    200) on the coarsened chain, every sub level, against their plain
+    versions; #4 twice gives identical bits."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    B, G, L, D, nr = 64, 1, 1024, 64, 16
+    q = _randn(gen, dev, B, G, L, D) / D ** 0.5
+    kc = _randn(gen, dev, B, L, D)
+    wc = torch.ones((B, L), device=dev)
+    wc[::3, L - 200:] = 0.0
+    vc = _randn(gen, dev, B, L, D) * wc[..., None]
+    for lvl in range(1, hc.num_levels(L, nr)):
+        kc, _ = hc.coarsen_weighted_mean(kc, wc)
+        vc = hc.coarsen_sum(vc)
+        wc = hc.coarsen_sum(wc, axis=-1)
+        fwd = (q, kc.contiguous(), vc.contiguous(), wc.contiguous())
+        kw = dict(nr=nr, ratio=1 << lvl)
+        out = hb.band_attention_sub_fwd(*fwd, **kw)
+        _close(out, hb.band_attention_sub_fwd_ref(*fwd, **kw))
+        args = (*fwd, *out, *_cotangents(gen, dev, out))
+        got = hbb.band_attention_sub_bwd(*args, **kw)
+        _close_grads(got, hbb.band_attention_sub_bwd_ref(*args, **kw))
+        for a, b in zip(got, hbb.band_attention_sub_bwd(*args, **kw)):
+            assert torch.equal(a, b)
+
+
 # ---------------------------------------------------------------------------
 # the bidirectional and coarse modes of #1 and #3
 # ---------------------------------------------------------------------------
