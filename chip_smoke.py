@@ -23,10 +23,12 @@ Phases (each raises on failure; nothing is caught):
    outputs and seeded random cotangents; both fp32 paths are also
    measured against the float64 gradient of the same level (autograd
    of a dense masked forward) and reported.  The #2 and #4 rows and the
-   ``coarse_causal`` rows of #1 and #3 log each level (ratio, device ms,
-   bound ms) on a line of its own, and their bound counts only what the
-   work needs (``h1d_block.sub_bytes``): the rows with a live key and
-   the key blocks some row reads, every output written;
+   coarse rows of #1 and #3 log each level (ratio or level, device ms,
+   bound ms) on a line of its own and list it under ``levels``; every
+   band row's bound counts only what the work needs
+   (``h1d_block.sub_bytes``, ``h1d_block.band_bytes``): the rows with a
+   live key and the key blocks some row reads, every output written,
+   and ``bound_all_rows_ms`` beside it counts every row and key;
    The four paged decode kernels are held against their plain versions
    at paged serving shapes: 64 rows (8 slots x 8 kv-heads), G=1, d=64,
    nr=16, max_len 2048, pools of 1024+2 pages x 8 heads at every level,
@@ -312,6 +314,21 @@ def lra_levels(mode, q, k, v, w):
     return out
 
 
+LIVE_NOTE = ("bound_ms counts the rows with a live key and the key blocks "
+             "some row reads (band_bytes / sub_bytes), bound_all_rows_ms "
+             "every row and key")
+
+
+def live_bytes(w, mode, backward=False):
+    """Bytes one band-mode call must move, live rows only."""
+    from repro_torch.kernels import h1d_block as hb
+    if mode == "coarse_causal":
+        return hb.sub_bytes(w, nr=NR, ratio=1, G=G, d=D, dv=D,
+                            backward=backward)
+    return hb.band_bytes(w, nr=NR, mode=mode, G=G, d=D, dv=D,
+                         backward=backward)
+
+
 def phase_mode_kernels(dev):
     """#1 in the three modes of the LRA and coarse-q paths against its
     plain version, at the LRA path's shapes: one row per mode, summed
@@ -322,7 +339,7 @@ def phase_mode_kernels(dev):
     rows = []
     for mode in NEW_MODES:
         tot = dict(err=0.0, ms=0.0, device_ms=0.0, plain_ms=0.0, nbytes=0,
-                   flops=0)
+                   flops=0, all_bytes=0, levels=[])
         levels = lra_levels(mode, q, k, v, w)
         for lvl, args in levels:
             ker = hb.band_attention_fwd(*args, nr=NR, mode=mode)
@@ -339,15 +356,18 @@ def phase_mode_kernels(dev):
                 *args, nr=NR, mode=mode))
             Lq = args[0].shape[-2]
             flops = band_pairs(dev, mode, Lq, 1, args[3], Lq=Lq) * (4 * D + 3)
-            nbytes = (hb.sub_bytes(args[3], nr=NR, ratio=1, G=G, d=D, dv=D)
-                      if mode == "coarse_causal" else
-                      4 * (sum(t.numel() for t in args)
-                           + B * G * Lq * (D + 2)))
+            nbytes = live_bytes(args[3], mode)
+            all_bytes = 4 * (sum(t.numel() for t in args)
+                             + B * G * Lq * (D + 2))
             tot["flops"] += flops
             tot["nbytes"] += nbytes
+            tot["all_bytes"] += all_bytes
+            lb = bound(nbytes, flops)[0]
+            tot["levels"].append(dict(level=lvl, L=Lq, device_ms=dms,
+                                      bound_ms=lb))
             log(f"band_attention_fwd {mode} level {lvl} (L={Lq}): max abs "
-                f"err {e:.3g}; device {dms:.4f} ms, bound "
-                f"{bound(nbytes, flops)[0]:.5f} ms")
+                f"err {e:.3g}; device {dms:.4f} ms, bound {lb:.5f} ms "
+                f"(live rows; every row {bound(all_bytes, flops)[0]:.5f})")
         bms, by = bound(tot["nbytes"], tot["flops"])
         span = ("level 0" if len(levels) == 1 else
                 f"the {len(levels)} coarse levels (L={LRA_L >> 1}.."
@@ -359,8 +379,10 @@ def phase_mode_kernels(dev):
             max_abs_err=tot["err"], ms=tot["ms"],
             device_ms=tot["device_ms"], plain_ms=tot["plain_ms"],
             bound_ms=bms, bound_by=by, library_ms=None,
+            bound_all_rows_ms=bound(tot["all_bytes"], tot["flops"])[0],
+            levels=tot["levels"],
             note=f"sum over {span} of one L={LRA_L} attention, 64 rows "
-                 f"padded to true lengths 500..2000"))
+                 f"padded to true lengths 500..2000; {LIVE_NOTE}"))
     return rows
 
 
@@ -382,9 +404,10 @@ def phase_kernels(dev):
     ker = hb.band_attention_fwd(q, k, v, w, nr=NR, mode="l0_causal")
     ref = hb.band_attention_fwd_ref(q, k, v, w, nr=NR, mode="l0_causal")
     err, *_ = compare("band_attention_fwd", ker, ref, ATTN_TOL)
-    nbytes = f4 * (q.numel() + k.numel() + v.numel() + w.numel()
-                   + B * G * L * (D + 2))
-    bms, by = bound(nbytes, pairs("l0_causal", L, 1, w) * (4 * D + 3))
+    all_bytes = f4 * (q.numel() + k.numel() + v.numel() + w.numel()
+                      + B * G * L * (D + 2))
+    flops = pairs("l0_causal", L, 1, w) * (4 * D + 3)
+    bms, by = bound(live_bytes(w, "l0_causal"), flops)
     rows.append(dict(
         name="band_attention_fwd[l0_causal]", mode="l0_causal",
         route="cuda",
@@ -396,7 +419,8 @@ def phase_kernels(dev):
                                                           nr=NR)),
         plain_ms=time_ms(lambda: hb.band_attention_fwd_ref(q, k, v, w,
                                                            nr=NR)),
-        bound_ms=bms, bound_by=by, library_ms=None))
+        bound_ms=bms, bound_by=by, library_ms=None,
+        bound_all_rows_ms=bound(all_bytes, flops)[0], note=LIVE_NOTE))
     log(f"band_attention_fwd: max abs err {err:.3g}")
 
     # -- sub levels 1..M-1 on the coarsened chain, as h1d_attention runs
@@ -759,14 +783,16 @@ def phase_bwd_kernels(dev):
             f"{witness['plain']['abs']:.3g} row "
             f"{witness['plain']['row_scaled']:.3g} elem "
             f"{witness['plain']['elem_scaled']:.3g}; near ties {near}")
-        if mask_mode in ("sub", "coarse_causal"):
-            # the rows with a live key and the key blocks some row reads
+        # the rows with a live key and the key blocks some row reads
+        all_bytes = f4 * (sum(t.numel() for t in args)
+                          + sum(t.numel() for t in got))
+        if mask_mode == "sub":
             nbytes = hb.sub_bytes(fwd[3], nr=NR, ratio=ratio, G=G, d=D,
                                   dv=D, backward=True)
         else:
-            nbytes = f4 * (sum(t.numel() for t in args)
-                           + sum(t.numel() for t in got))
+            nbytes = live_bytes(fwd[3], mask_mode, backward=True)
         return dict(err=err, scaled=scaled, elem=elem, nbytes=nbytes,
+                    all_bytes=all_bytes,
                     witness=witness,
                     ms=time_ms(lambda: kernel(*args, **kw)),
                     device_ms=device_ms(lambda: kernel(*args, **kw)),
@@ -779,8 +805,8 @@ def phase_bwd_kernels(dev):
     r = one(hb.band_attention_fwd, hbb.band_attention_bwd,
             hbb.band_attention_bwd_ref, (q, k, v, w), "band_attention_bwd",
             "l0_causal", nr=NR, mode="l0_causal")
-    bms, by = bound(r["nbytes"],
-                    band_pairs(dev, "l0_causal", L, 1, w) * per_pair)
+    flops = band_pairs(dev, "l0_causal", L, 1, w) * per_pair
+    bms, by = bound(r["nbytes"], flops)
     rows.append(dict(
         name="band_attention_bwd[l0_causal]", mode="l0_causal",
         route="cuda",
@@ -789,7 +815,9 @@ def phase_bwd_kernels(dev):
         max_abs_err=r["err"], max_scaled_err=r["scaled"],
         max_elementwise_scaled_err=r["elem"], f64_witness=[r["witness"]],
         ms=r["ms"], device_ms=r["device_ms"], plain_ms=r["plain_ms"],
-        bound_ms=bms, bound_by=by, library_ms=None, note=BWD_LAUNCH))
+        bound_ms=bms, bound_by=by, library_ms=None,
+        bound_all_rows_ms=bound(r["all_bytes"], flops)[0],
+        note=f"{BWD_LAUNCH}; {LIVE_NOTE}"))
     log(f"band_attention_bwd: max abs err {r['err']:.3g}, scaled "
         f"{r['scaled']:.3g} (elementwise {r['elem']:.3g})")
 
@@ -840,7 +868,8 @@ def phase_bwd_kernels(dev):
     lra_randn, q, k, v, w = lra_band_inputs(dev)
     for mode in NEW_MODES:
         tot = dict(err=0.0, scaled=0.0, elem=0.0, ms=0.0, device_ms=0.0,
-                   plain_ms=0.0, nbytes=0, flops=0, witness=[])
+                   plain_ms=0.0, nbytes=0, flops=0, witness=[], all_bytes=0,
+                   levels=[])
         levels = lra_levels(mode, q, k, v, w)
         for lvl, fwd in levels:
             Lq = fwd[0].shape[-2]
@@ -848,18 +877,22 @@ def phase_bwd_kernels(dev):
                     hbb.band_attention_bwd_ref, fwd,
                     f"band_attention_bwd {mode} level {lvl}", mode,
                     randn=lra_randn, nr=NR, mode=mode)
-            for key in ("ms", "device_ms", "plain_ms", "nbytes"):
+            for key in ("ms", "device_ms", "plain_ms", "nbytes",
+                        "all_bytes"):
                 tot[key] += r[key]
             for key in ("err", "scaled", "elem"):
                 tot[key] = max(tot[key], r[key])
             tot["witness"].append(dict(r["witness"], level=lvl))
             flops = band_pairs(dev, mode, Lq, 1, fwd[3], Lq=Lq) * per_pair
             tot["flops"] += flops
+            lb = bound(r["nbytes"], flops)[0]
+            tot["levels"].append(dict(level=lvl, L=Lq,
+                                      device_ms=r["device_ms"], bound_ms=lb))
             log(f"band_attention_bwd {mode} level {lvl} (L={Lq}): max abs "
                 f"err {r['err']:.3g}, scaled {r['scaled']:.3g} "
                 f"(elementwise {r['elem']:.3g}), {r['ms']:.3f} ms; device "
-                f"{r['device_ms']:.4f} ms, bound "
-                f"{bound(r['nbytes'], flops)[0]:.5f} ms")
+                f"{r['device_ms']:.4f} ms, bound {lb:.5f} ms (live rows; "
+                f"every row {bound(r['all_bytes'], flops)[0]:.5f})")
         bms, by = bound(tot["nbytes"], tot["flops"])
         span = ("level 0" if len(levels) == 1 else
                 f"the {len(levels)} coarse levels (L={LRA_L >> 1}.."
@@ -873,10 +906,12 @@ def phase_bwd_kernels(dev):
             f64_witness=tot["witness"], ms=tot["ms"],
             device_ms=tot["device_ms"], plain_ms=tot["plain_ms"],
             bound_ms=bms, bound_by=by, library_ms=None,
+            bound_all_rows_ms=bound(tot["all_bytes"], tot["flops"])[0],
+            levels=tot["levels"],
             note=f"sum over {span} of one L={LRA_L} attention, 64 rows "
                  f"padded to true lengths 500..2000; "
                  + (SUB_BWD_LAUNCH if mode == "coarse_causal"
-                    else BWD_LAUNCH)))
+                    else BWD_LAUNCH) + f"; {LIVE_NOTE}"))
     return rows
 
 

@@ -1,8 +1,9 @@
 // Band structure shared by the forward (h1d_block.cu) and backward
 // (h1d_block_bwd.cu) kernels of the banded block attention, so the two
-// passes cannot drift apart: the mask, the first key of a query row, the
-// masking constants, the score's summation order and the launch geometry
-// of the fine-q sub level.
+// passes cannot drift apart: the mask (band_admits, the port of
+// repro/kernels/h1d_block.py band_mask with the block difference known),
+// the masking constants, the score's summation order and the launch
+// geometry of every band body.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -15,61 +16,6 @@ constexpr float MIN_M = -1e30f;       // h1d_block._MIN_M
 constexpr unsigned FULL = 0xffffffffu;
 
 enum Mode { L0_BIDIR = 0, L0_CAUSAL = 1, COARSE_BIDIR = 2, COARSE_CAUSAL = 3 };
-
-__device__ __forceinline__ int floordiv(int a, int b) {
-  int q = a / b;
-  return (q * b > a) ? q - 1 : q;
-}
-
-__device__ __forceinline__ int floormod(int a, int b) {
-  int r = a % b;
-  return r < 0 ? r + b : r;
-}
-
-// Port of repro/kernels/h1d_block.py band_mask for global row/col indices.
-__device__ __forceinline__ bool band_mask(int qi, int ki, int nr, int mode,
-                                          int lk) {
-  const bool inb = ki >= 0 && ki < lk;
-  const int diff = floordiv(qi, nr) - floordiv(ki, nr);
-  bool allow;
-  if (mode == L0_BIDIR) {
-    allow = abs(diff) <= 1;
-  } else if (mode == L0_CAUSAL) {
-    allow = (diff == 0 && ki <= qi) || diff == 1;
-  } else {
-    const int half = nr / 2;
-    const bool base = mode == COARSE_CAUSAL ? diff == 1 : abs(diff) == 1;
-    const bool sub_excl = diff == 1 && floormod(qi, nr) < half &&
-                          floormod(ki, nr) >= half;
-    const bool sup_excl = diff == -1 && floormod(qi, nr) >= half &&
-                          floormod(ki, nr) < half;
-    allow = base && !sub_excl && !sup_excl;
-  }
-  return allow && inb;
-}
-
-// Keys of a query row's band from its first key on, in the modes of the
-// row-per-warp bodies: l0_causal reads the block before the row's own and
-// its own, a bidirectional mode those two and the block after.
-__host__ __device__ __forceinline__ int band_keys(int mode, int nr) {
-  return mode == L0_CAUSAL ? 2 * nr : 3 * nr;
-}
-
-// First key of query row i: the first key of the block before its own.
-__device__ __forceinline__ int key_start(int i, int nr) {
-  return (i / nr) * nr - nr;
-}
-
-// The score s = q . k, as one fmaf chain in column order.  Every pass
-// computes it in this order (here, or four keys at a time in dot_tile and
-// dot_tile2), so the backward's recomputed s is bit for bit the forward's
-// and the argmax test s == m finds the forward's maximum.
-__device__ __forceinline__ float dot_qk(const float* qr, const float* kr,
-                                        int d) {
-  float acc = 0.f;
-  for (int c = 0; c < d; ++c) acc = fmaf(qr[c], kr[c], acc);
-  return acc;
-}
 
 // ---------------------------------------------------------------------------
 // Fine-q sub level (and coarse_causal, the same structure at ratio 1)
@@ -179,8 +125,11 @@ __device__ __forceinline__ const float4& ld4(const float* p) {
 
 // acc[r][t] = a_r . b_t for R rows of a (stride as) and 4 rows of b
 // (stride bs) over n4 columns (a multiple of 4): each one fmaf chain over
-// c = 0, 1, ... in order from 0.f -- dot_qk's order.  Columns past d are
-// zero in both operands and add exact zeros.
+// c = 0, 1, ... in order from 0.f.  Every pass computes a score s = q . k
+// in this order (here or in dot_tile2), so the backward's recomputed s is
+// bit for bit the forward's and the argmax test s == m finds the
+// forward's maximum.  Columns past d are zero in both operands and add
+// exact zeros.
 template <int R>
 __device__ __forceinline__ void dot_tile(const float* a, int as,
                                          const float* b, int bs, int n4,
@@ -209,8 +158,8 @@ __device__ __forceinline__ void dot_tile(const float* a, int as,
 }
 
 // dot_tile of (a, b) into acc and of (e, f) into acc2 in one loop over
-// the same n4 columns: two independent sets of chains, each in dot_qk's
-// order.
+// the same n4 columns: two independent sets of chains, each in
+// dot_tile's order.
 template <int R>
 __device__ __forceinline__ void dot_tile2(const float* a, int as,
                                           const float* b, int bs,
@@ -251,16 +200,12 @@ __device__ __forceinline__ void dot_tile2(const float* a, int as,
   }
 }
 
-// acc[r][c] = sum_j p[r][j] * x[j][c] for R rows of p (stride ps), 4
+// acc[r][c] += sum_j p[r][j] * x[j][c] for R rows of p (stride ps), 4
 // columns of x (stride xs), j < jl (a multiple of 4).
 template <int R>
-__device__ __forceinline__ void apply_tile(const float* p, int ps,
-                                           const float* x, int xs, int jl,
-                                           float (&acc)[R][4]) {
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+__device__ __forceinline__ void apply_tile_add(const float* p, int ps,
+                                               const float* x, int xs, int jl,
+                                               float (&acc)[R][4]) {
 #pragma unroll 4
   for (int j = 0; j < jl; j += 4) {
     float4 a[R], v[4];
@@ -279,6 +224,18 @@ __device__ __forceinline__ void apply_tile(const float* p, int ps,
         acc[r][3] = fmaf(at, v[t].w, acc[r][3]);
       }
   }
+}
+
+// acc[r][c] = sum_j p[r][j] * x[j][c], as apply_tile_add from zero.
+template <int R>
+__device__ __forceinline__ void apply_tile(const float* p, int ps,
+                                           const float* x, int xs, int jl,
+                                           float (&acc)[R][4]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+  apply_tile_add<R>(p, ps, x, xs, jl, acc);
 }
 
 __host__ __forceinline__ bool aligned16(const void* p) {
@@ -346,6 +303,219 @@ __device__ __forceinline__ void store4(float* row, int c, int n, bool vec,
 #pragma unroll
   for (int t = 0; t < 4; ++t)
     if (c + t < n) row[c + t] = x[t];
+}
+
+// ---------------------------------------------------------------------------
+// l0_causal, l0_bidir, coarse_bidir
+// ---------------------------------------------------------------------------
+//
+// Query block I reads the key blocks I + off for the band offsets of its
+// mode: l0_causal -1, 0; l0_bidir -1, 0, +1; coarse_bidir -1, +1 (its own
+// block is masked whole there).  Band b of a row is the key block at
+// offset band_off(mode, b).  A key block's info comes from its weights;
+// a row is live when a key its mask admits has w > 0, and a dead row is
+// never read.  The score pass gives a row pair 2 * nr / 4 lanes in two
+// slots (a power of two, whatever the number of bands), each lane one
+// group of 4 keys in each band of its slot, and combines the bands in
+// registers and over the pair's lanes; groups the mask masks whole for
+// both rows are not computed.  Mirrored by repro_torch.kernels.h1d_block
+// (band_row_live, band_admits, band_group_range, band_row_range,
+// lane_item, band_fwd_tq, band_dkvw_tiles).
+
+constexpr int BAND_THREADS = 128;
+constexpr int BAND_TQ = 32;       // query rows a tile, at most
+constexpr int BAND_KEYS = 32;     // backward dK/dV/dW: keys a CTA, at most
+constexpr int BAND_KV_TQ = 32;    // backward dK/dV/dW: reader rows a chunk
+constexpr int BAND_MAX_NR = 64;   // the largest block the bodies take
+// Lane slots a row pair of the score pass takes, W = BAND_SLOTS * nr / 4
+// lanes: slot sl computes the bands sl, sl + BAND_SLOTS, ...
+constexpr int BAND_SLOTS = 2;
+constexpr int FILL_CTAS = 264;    // two CTAs for each of the H100's 132 SMs
+constexpr size_t SMEM_MAX = 232448;   // a CTA's shared memory on the H100
+
+__host__ __device__ __forceinline__ int band_count(int mode) {
+  return mode == L0_BIDIR ? 3 : 2;
+}
+
+__host__ __device__ __forceinline__ int band_off(int mode, int b) {
+  return mode == COARSE_BIDIR ? 2 * b - 1 : b - 1;
+}
+
+// Item `it` of a score pass with W lanes a row pair (W a power of two up
+// to 32): its row pair and its lane j (0 .. W-1) among the pair's.  In
+// each warp the lanes of a pair differ in lane bit 0 and in the bits above
+// the pair's, so the 8 lanes of one phase of a 16-byte shared load hold
+// the lanes j, j ^ 1 of four pairs: their key rows, 4 apart at a stride of
+// d + 4 floats, fall in different banks (consecutive lanes would put j
+// and j ^ 2 in one phase, in the same banks).  The items cover
+// lane_groups(npairs, W) warps.
+__device__ __forceinline__ void lane_item(int it, int W, int* pair, int* j) {
+  if (W == 1) {
+    *pair = it;
+    *j = 0;
+    return;
+  }
+  const int P = 32 / W, l = it & 31;
+  *pair = (it >> 5) * P + ((l >> 1) & (P - 1));
+  *j = (l & 1) | ((l >> 1) / P << 1);
+}
+
+__device__ __forceinline__ int lane_groups(int npairs, int W) {
+  return W == 1 ? (npairs + 31) / 32 : (npairs * W + 31) / 32;
+}
+
+// Lane offset of the o-th xor step (o = 1, 2, 4, ... < W) among a pair's
+// lanes.
+__device__ __forceinline__ int lane_xor(int o, int W) {
+  return o == 1 ? 1 : o * (32 / W);
+}
+
+// Key blocks of a tile's window (the forward and the dQ pass): the blocks
+// its rows lie in, the one before and, in a bidirectional mode, the one
+// after.
+__host__ __device__ __forceinline__ int band_window_blocks(int mode, int tq,
+                                                           int nr) {
+  return (tq > nr ? tq / nr : 1) + (mode == L0_CAUSAL ? 1 : 2);
+}
+
+// A key block's info: bit 0 a key of its first half (the first nr / 2)
+// has w > 0, bit 1 a key of its second half has; bits 8 on: the first key
+// with w > 0 (nr if none).  0 stands for a block out of range too.
+__device__ __forceinline__ int block_info(const float* wb, int nr) {
+  int bits = 0, first = nr;
+  for (int j = nr - 1; j >= 0; --j)
+    if (wb[j] > 0.f) {
+      bits |= j < nr / 2 ? 1 : 2;
+      first = j;
+    }
+  return bits | first << 8;
+}
+
+// Whether the row at position p of its block has a key with w > 0 that
+// band_mask admits, from the info of the blocks before, at and after its
+// own.
+template <int MODE>
+__device__ __forceinline__ bool band_row_live(int p, int nr, int prev,
+                                              int own, int next) {
+  if (MODE == L0_CAUSAL) return (prev & 3) || ((own & 3) && (own >> 8) <= p);
+  if (MODE == L0_BIDIR) return ((prev | own | next) & 3) != 0;
+  return p < nr / 2 ? ((prev & 1) || (next & 3)) : ((prev & 3) || (next & 2));
+}
+
+// band_mask for a row at position pq of its block and the key at position
+// pk of the block at offset `off` from the row's (both positions in [0,
+// nr), the key block in range): the mask with the block difference known.
+template <int MODE>
+__host__ __device__ __forceinline__ bool band_admits(int off, int pq, int pk,
+                                                     int nr) {
+  if (MODE == L0_CAUSAL) return off < 0 || pk <= pq;
+  if (MODE == COARSE_BIDIR)
+    return off < 0 ? !(pq < nr / 2 && pk >= nr / 2)
+                   : !(pq >= nr / 2 && pk < nr / 2);
+  return true;
+}
+
+// Key groups [lo, hi) of band offset `off` that band_mask admits for some
+// of the rows at positions p .. p + rows - 1 of one block.
+template <int MODE>
+__host__ __device__ __forceinline__ void band_group_range(int off, int p,
+                                                          int rows, int nr,
+                                                          int* lo, int* hi) {
+  const int half = nr / 2;
+  *lo = 0;
+  *hi = key_groups(nr);
+  if (MODE == L0_CAUSAL && off == 0 && key_groups(p + rows) < *hi)
+    *hi = key_groups(p + rows);
+  if (MODE == COARSE_BIDIR && off < 0 && p + rows <= half)
+    *hi = key_groups(half);
+  if (MODE == COARSE_BIDIR && off > 0 && p >= half) *lo = half / 4;
+}
+
+// Positions [lo, hi) of the rows of a reader block that band_mask admits
+// for some key of group kg of the key block at offset `off` from theirs.
+template <int MODE>
+__host__ __device__ __forceinline__ void band_row_range(int off, int kg,
+                                                        int nr, int* lo,
+                                                        int* hi) {
+  const int half = nr / 2;
+  *lo = 0;
+  *hi = nr;
+  if (MODE == L0_CAUSAL && off == 0) *lo = 4 * kg;
+  if (MODE == COARSE_BIDIR && off < 0 && 4 * kg >= half) *lo = half;
+  if (MODE == COARSE_BIDIR && off > 0 && 4 * kg + 3 < half) *hi = half;
+}
+
+// Shared floats of the forward at tq rows a tile.
+__host__ __device__ __forceinline__ size_t band_fwd_floats(int mode, int tq,
+                                                           int d, int dv,
+                                                           int nr) {
+  const size_t nwb = band_window_blocks(mode, tq, nr), nkw = nwb * nr + 4;
+  const size_t qs = round4(d) + 4;
+  const size_t as = band_count(mode) * 4 * key_groups(nr) + 4;
+  return tq * qs + nkw * qs + nkw * round4(dv) + tq * as + nkw + nwb + tq;
+}
+
+// Shared floats of the dQ pass at tq rows a tile.
+__host__ __device__ __forceinline__ size_t band_dq_floats(int mode, int tq,
+                                                          int d, int dv,
+                                                          int nr) {
+  const size_t nwb = band_window_blocks(mode, tq, nr), nkw = nwb * nr + 4;
+  const size_t qs = round4(d) + 4, gs = round4(dv) + 4;
+  const size_t as = band_count(mode) * 4 * key_groups(nr) + 4;
+  const size_t uni = tq * gs > tq * as ? tq * gs : tq * as;
+  return tq * qs + tq * gs + uni + nkw * qs + nkw * gs + nkw + 4 * tq + nwb +
+         tq;
+}
+
+// Shared floats of the dK/dV/dW pass: nkb key blocks, tq reader rows a
+// chunk.
+__host__ __device__ __forceinline__ size_t band_dkvw_floats(int mode, int nkb,
+                                                            int tq, int d,
+                                                            int dv, int nr) {
+  const size_t nk = (size_t)nkb * 4 * key_groups(nr);
+  const size_t d4 = round4(d), dv4 = round4(dv), qs = d4 + 4, gs = dv4 + 4;
+  const size_t xs = 2 * band_count(mode) * 4 * key_groups(nr) + 4;
+  return nk * (d4 + dv4 + 1) + tq * qs + tq * gs + tq * xs + nkb * nr + tq +
+         nkb + tq;
+}
+
+// Rows a tile of the forward (backward = false) or the dQ pass: BAND_TQ,
+// halved down to 16 while the grid has fewer than FILL_CTAS CTAs or the
+// tile's shared memory exceeds SMEM_MAX; 0 when 16 rows do not fit.
+__host__ __forceinline__ int band_fwd_tq(int mode, int B, int G, int L,
+                                         int d, int dv, int nr,
+                                         bool backward) {
+  auto bytes = [&](int t) {
+    return 4 * (backward ? band_dq_floats(mode, t, d, dv, nr)
+                         : band_fwd_floats(mode, t, d, dv, nr));
+  };
+  int tq = BAND_TQ;
+  while (tq > 16 && (bytes(tq) > SMEM_MAX ||
+                     (long long)B * G * ((L + tq - 1) / tq) < FILL_CTAS))
+    tq /= 2;
+  return bytes(tq) <= SMEM_MAX ? tq : 0;
+}
+
+// Key blocks a CTA of the dK/dV/dW pass (up to BAND_KEYS keys, halved
+// while the grid has fewer than FILL_CTAS CTAs) and reader rows a chunk
+// (BAND_KV_TQ, halved while half of them still hold a group's readers or
+// the shared memory exceeds SMEM_MAX); *tq = 0 when nothing fits.
+__host__ __forceinline__ void band_dkvw_tiles(int mode, int B, int L, int d,
+                                              int dv, int nr, int* nkb,
+                                              int* tq) {
+  const int nb = L / nr;
+  int n = BAND_KEYS > nr ? BAND_KEYS / nr : 1;
+  while (n > nb) n /= 2;
+  while (n > 1 && (long long)B * ((nb + n - 1) / n) < FILL_CTAS) n /= 2;
+  const int readers = (n + (mode == L0_CAUSAL ? 1 : 2)) * nr;
+  int t = BAND_KV_TQ;
+  auto bytes = [&](int kb, int tt) {
+    return 4 * band_dkvw_floats(mode, kb, tt, d, dv, nr);
+  };
+  while (t > 16 && (t / 2 >= readers || bytes(n, t) > SMEM_MAX)) t /= 2;
+  while (n > 1 && bytes(n, t) > SMEM_MAX) n /= 2;
+  *nkb = n;
+  *tq = bytes(n, t) <= SMEM_MAX ? t : 0;
 }
 
 }  // namespace h1d

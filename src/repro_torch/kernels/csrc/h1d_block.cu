@@ -18,30 +18,38 @@
 // of the rows that have a live key, the key blocks some row reads, every
 // output written once) over the memory rate.
 //
-// Two designs:
+// One design in two kernels, both on tiles of rows in shared memory with
+// 128 threads.  A tile's key weights come first: each key block's info
+// (block_info: which halves hold a key with w > 0) decides which rows are
+// live (band_row_live); a dead row is written as m = -1e30, y = 0, dn = 0
+// without reading q, k or v, and a tile of dead rows returns after that.
+// Live rows and live key blocks are copied into shared memory with
+// cp.async (16 bytes a thread, no register staging; scalar loads where a
+// row is not 16-byte aligned).  Scores are 2-row x 4-key register tiles
+// of fmaf chains over float4 loads, in dot_tile's column order, so the
+// backward's recomputed s is the forward's bit for bit; the row max and dn are
+// shuffles among the lanes of a row pair; y = a @ v is a 4-row x 4-column
+// register tile, stored as float4.
 //   * l0_causal, l0_bidir, coarse_bidir (band_fwd_kernel): one CTA per
-//     (batch row b, tile of TQ query rows) stages the tile's key window
-//     (own keys, the nr-row prev halo, and the next halo in a
-//     bidirectional mode) in shared memory once and reuses it for every
-//     GQA group g.  A warp takes one query row at a time: lane j scores
-//     key j, the softmax max and the dn sum are warp shuffles, and each
-//     lane accumulates y for output columns lane, lane+32, ....  k rows
-//     are padded to d+1 floats so 32 lanes reading 32 keys hit 32 banks.
+//     (b, g, tile of 16-32 rows; 16 where the grid would not fill the
+//     card, band_fwd_tq) stages its window: the key blocks before, at and
+//     (bidirectional) after its rows.  A row pair takes 2 * nr/4 lanes in
+//     two slots; a lane scores one group of 4 keys in each band of its
+//     slot (slot 0 the block before and, in l0_bidir, the block after;
+//     slot 1 the other) and the bands combine in registers and over the
+//     pair's lanes (a power of two, whatever the number of bands).  Lanes
+//     sit so that an 8-lane phase of a 16-byte shared load reads key rows
+//     in distinct banks (lane_item).  The mask is tested per band with the
+//     block difference known (band_admits), and key groups it masks whole
+//     are not computed: the own block above the diagonal (l0_causal), the
+//     second half of the block before for first-half rows and the first
+//     half of the block after for the others (coarse_bidir, which never
+//     reads the own block: 1.5 nr keys a row).
 //   * the sub level and coarse_causal (sub_fwd_kernel, the same structure
 //     at ratio 1): query block I reads exactly key block I-1, so a CTA
 //     takes a tile of SUB_TQ rows of one (b, g) and the one to SUB_TQ/nq
-//     key blocks they read.  The tile's key weights come first: a block
-//     none of whose keys has w > 0 (and query block 0, which has none) is
-//     dead, its rows written as m = -1e30, y = 0, dn = 0 without reading q,
-//     k or v; a tile of dead rows returns after that.  Live rows and
-//     blocks are copied into shared memory with cp.async (16 bytes a
-//     thread, no register staging).  Scores are 2-row x 4-key register
-//     tiles of fmaf chains over float4 loads, in dot_qk's order, so m is
-//     the row-per-warp body's bit for bit; first-half rows take only the
-//     key groups of the first nr/2 keys (the masked quadrant is not
-//     computed); the row max and dn are shuffles among the lanes of a row
-//     pair.  y = a @ v is a 4-row x 4-column register tile over float4
-//     loads of a and v, stored as float4.
+//     key blocks they read; first-half rows take only the key groups of
+//     the first nr/2 keys.
 // Plain fp32 FMA on CUDA cores (no TF32 and no wgmma: the port is held to
 // fp32 parity), expf not __expf.
 #include <cuda_runtime.h>
@@ -53,153 +61,250 @@ namespace {
 
 using namespace h1d;
 
-constexpr int TQ = 64;                // query rows per CTA
-constexpr int WARPS = 8;
-constexpr int MAXC = 4;               // key chunks of 32 per row: nk <= 128
-constexpr int MAXU = 4;               // output column chunks: dv <= 128
+// Input row layouts that may be copied 16 bytes at a time.
+enum { VEC_Q = 1, VEC_K = 2, VEC_V = 4 };
 
-// One instantiation per band mode, so band_mask folds to that mode's
-// tests.  Lq (the rows) and Lk (the keys) are equal in these modes; as
-// one argument the body compiled to slower code on the H100.
-template <int MODE>
-__global__ void __launch_bounds__(WARPS * 32)
+// l0_causal, l0_bidir, coarse_bidir: one CTA per (b, g, tile of tq rows).
+// RY: rows of a y register tile, 4 unless nr is 2.
+template <int MODE, int RY>
+__global__ void __launch_bounds__(BAND_THREADS)
 band_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ w,
                 float* __restrict__ y, float* __restrict__ dn,
                 float* __restrict__ m, int G, int Lq, int Lk, int d, int dv,
-                int nr) {
-  extern __shared__ float smem[];
+                int nr, int tq, int vec_in, int vec_y) {
+  constexpr int NB = MODE == L0_BIDIR ? 3 : 2;  // bands a row reads
+  constexpr int SLOTS = BAND_SLOTS;
+  constexpr int BPT = (NB + SLOTS - 1) / SLOTS; // bands a slot
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x;
   const int b = blockIdx.y;
-  const int t0 = blockIdx.x * TQ;
-  const int rows = min(TQ, Lq - t0);
-  const int nk = band_keys(MODE, nr);
-  const int kbase = key_start(t0, nr);
-  const int nwin = key_start(t0 + rows - 1, nr) + nk - kbase;
-  const int ks = d + 1;
-  float* k_s = smem;
-  float* v_s = k_s + nwin * ks;
-  float* w_s = v_s + nwin * dv;
-  float* q_s = w_s + nwin;
+  const int tiles = (Lq + tq - 1) / tq;
+  const int g = blockIdx.x / tiles;
+  const int t0 = (blockIdx.x - g * tiles) * tq;
+  const int rows = min(tq, Lq - t0);
+  const int nkg = key_groups(nr), nk4 = 4 * nkg;
+  const int d4 = round4(d), dv4 = round4(dv);
+  const int qs = d4 + 4, as = NB * nk4 + 4;
+  const int I0 = t0 / nr;                       // first query block
+  // window blocks I0 - 1 .. the last row's block (+1 bidirectional)
+  const int nwb = (t0 + rows - 1) / nr - I0 + (MODE == L0_CAUSAL ? 2 : 3);
+  const int nwbm = band_window_blocks(MODE, tq, nr);
+  const int nkw = nwbm * nr + 4;
+  const int kb0 = (I0 - 1) * nr;                // first key of the window
+  float* q_s = smem;                            // tq x qs
+  float* k_s = q_s + tq * qs;                   // nkw x qs
+  float* v_s = k_s + nkw * qs;                  // nkw x dv4
+  float* a_s = v_s + nkw * dv4;                 // tq x as: a, band by band
+  float* w_s = a_s + tq * as;                   // nkw
+  int* blk_s = reinterpret_cast<int*>(w_s + nkw);   // block_info a block
+  int* row_s = blk_s + nwbm;                    // 1: the row is live
+  const size_t row0 = ((size_t)b * G + g) * Lq + t0;
 
-  // stage the key window; rows outside [0, Lk) read as zero (their
-  // weight 0 and band_mask's in-range test mask them out)
-  for (int e = threadIdx.x; e < nwin * d; e += blockDim.x) {
-    const int r = e / d, c = e % d, j = kbase + r;
-    k_s[r * ks + c] = (j >= 0 && j < Lk) ? k[((size_t)b * Lk + j) * d + c]
-                                         : 0.f;
-  }
-  for (int e = threadIdx.x; e < nwin * dv; e += blockDim.x) {
-    const int r = e / dv, c = e % dv, j = kbase + r;
-    v_s[e] = (j >= 0 && j < Lk) ? v[((size_t)b * Lk + j) * dv + c] : 0.f;
-  }
-  for (int r = threadIdx.x; r < nwin; r += blockDim.x) {
-    const int j = kbase + r;
-    w_s[r] = (j >= 0 && j < Lk) ? w[(size_t)b * Lk + j] : 0.f;
+  // the window's key weights first: block info, then the live rows
+  for (int r = tid; r < nkw; r += BAND_THREADS) {
+    const int j = kb0 + r;
+    w_s[r] = (r < nwb * nr && j >= 0 && j < Lk) ? w[(size_t)b * Lk + j]
+                                                : 0.f;
   }
   __syncthreads();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* qw = q_s + warp * d;
-  for (int item = warp; item < G * rows; item += WARPS) {
-    const int g = item / rows;
-    const int i = t0 + item % rows;
-    const size_t row = ((size_t)b * G + g) * Lq + i;
-    for (int c = lane; c < d; c += 32) qw[c] = q[row * d + c];
-    __syncwarp();
-    const int k0 = key_start(i, nr) - kbase;                 // window offset
-
-    float s[MAXC];
-    float mx = NEG_INF;
-#pragma unroll
-    for (int ch = 0; ch < MAXC; ++ch) {
-      const int jj = lane + 32 * ch;
-      s[ch] = NEG_INF;
-      if (jj < nk) {
-        const float acc = dot_qk(qw, k_s + (k0 + jj) * ks, d);
-        const bool allow = band_mask(i, kbase + k0 + jj, nr, MODE, Lk) &&
-                           w_s[k0 + jj] > 0.f;
-        s[ch] = allow ? acc : NEG_INF;
-      }
-      mx = fmaxf(mx, s[ch]);
+  if (tid < nwb) blk_s[tid] = block_info(w_s + tid * nr, nr);
+  __syncthreads();
+  int live = 0;
+  for (int r = tid; r < rows; r += BAND_THREADS) {
+    const int i = t0 + r, wb = i / nr - I0 + 1;
+    const int f = band_row_live<MODE>(i - (i / nr) * nr, nr, blk_s[wb - 1],
+                                      blk_s[wb],
+                                      wb + 1 < nwb ? blk_s[wb + 1] : 0);
+    row_s[r] = f;
+    live |= f;
+  }
+  if (!__syncthreads_or(live)) {                // every row dead
+    for (int e = tid; e < rows * dv; e += BAND_THREADS)
+      y[row0 * dv + e] = 0.f;
+    for (int r = tid; r < rows; r += BAND_THREADS) {
+      dn[row0 + r] = 0.f;
+      m[row0 + r] = MIN_M;
     }
-    for (int off = 16; off; off >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
-    const float mrow = fmaxf(mx, MIN_M);
+    return;
+  }
 
-    float a[MAXC];
-    float dsum = 0.f;
+  stage_rows(q_s, qs, rows, d, vec_in & VEC_Q, [&](int r) -> const float* {
+    return row_s[r] ? q + (row0 + r) * d : nullptr;
+  });
+  auto key_src = [&](int r, const float* base, int n) -> const float* {
+    const bool lv = r < nwb * nr && (blk_s[r / nr] & 3);
+    return lv ? base + ((size_t)b * Lk + kb0 + r) * n : nullptr;
+  };
+  stage_rows(k_s, qs, nwb * nr + 4, d, vec_in & VEC_K,
+             [&](int r) { return key_src(r, k, d); });
+  stage_rows(v_s, dv4, nwb * nr + 4, dv, vec_in & VEC_V,
+             [&](int r) { return key_src(r, v, dv); });
+  cp_async_wait();
+  __syncthreads();
+
+  // scores, row max, a = exp(s - m) and dn per (row pair, lane slot, key
+  // group): W = SLOTS * nkg lanes a row pair, slot sl takes the bands sl,
+  // sl + SLOTS, ..., combined in registers
+  const int W = SLOTS * nkg;
+  const int total = 32 * lane_groups(rows / 2, W);
+  for (int base = 0; base < total; base += BAND_THREADS) {
+    int pair, j;
+    lane_item(base + tid, W, &pair, &j);
+    const bool active = pair < rows / 2;
+    const int r0 = active ? 2 * pair : 0, sl = j / nkg;
+    const int kl = 4 * (j - sl * nkg);
+    const int i0 = t0 + r0, p = i0 % nr, wb0 = i0 / nr - I0 + 1;
+    const int f0 = active ? row_s[r0] : 0, f1 = active ? row_s[r0 + 1] : 0;
+    float s[BPT][2][4];
+    unsigned allow = 0;                         // bit (u * 2 + rr) * 4 + t
 #pragma unroll
-    for (int ch = 0; ch < MAXC; ++ch) {
-      const int jj = lane + 32 * ch;
-      a[ch] = 0.f;
-      if (jj < nk) {
-        a[ch] = expf(s[ch] - mrow);
-        dsum = fmaf(a[ch], w_s[k0 + jj], dsum);
-      }
+    for (int u = 0; u < BPT; ++u) {
+      const int bb = sl + SLOTS * u;
+      const int off = band_off(MODE, bb), wb = wb0 + off;
+      int glo = 0, ghi = 0;
+      if (bb < NB) band_group_range<MODE>(off, p, 2, nr, &glo, &ghi);
+      const bool need = (f0 | f1) && bb < NB && (blk_s[wb] & 3) &&
+                        kl >= 4 * glo && kl < 4 * ghi;
+      if (need)
+        dot_tile<2>(q_s + r0 * qs, qs, k_s + (wb * nr + kl) * qs, qs, d4,
+                    s[u]);
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const int jw = wb * nr + kl + t;
+          const bool ok = need && (rr ? f1 : f0) && kl + t < nr &&
+                          w_s[jw] > 0.f &&
+                          band_admits<MODE>(off, p + rr, kl + t, nr);
+          if (ok) allow |= 1u << ((u * 2 + rr) * 4 + t);
+        }
     }
-    for (int off = 16; off; off >>= 1)
-      dsum += __shfl_xor_sync(FULL, dsum, off);
-
-    float acc_y[MAXU];
+    float mrow[2], dsum[2];
 #pragma unroll
-    for (int u = 0; u < MAXU; ++u) acc_y[u] = 0.f;
+    for (int rr = 0; rr < 2; ++rr) {
+      float mx = NEG_INF;
 #pragma unroll
-    for (int ch = 0; ch < MAXC; ++ch) {
-      if (32 * ch >= nk) break;
-      const int n = min(32, nk - 32 * ch);
-      for (int src = 0; src < n; ++src) {
-        const float aj = __shfl_sync(FULL, a[ch], src);
-        const float* vr = v_s + (k0 + 32 * ch + src) * dv;
+      for (int u = 0; u < BPT; ++u)
 #pragma unroll
-        for (int u = 0; u < MAXU; ++u) {
-          const int c = lane + 32 * u;
-          if (c < dv) acc_y[u] = fmaf(aj, vr[c], acc_y[u]);
+        for (int t = 0; t < 4; ++t) {
+          const bool ok = (allow >> ((u * 2 + rr) * 4 + t)) & 1u;
+          s[u][rr][t] = ok ? s[u][rr][t] : NEG_INF;
+          mx = fmaxf(mx, s[u][rr][t]);
+        }
+      for (int o = 1; o < W; o <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, lane_xor(o, W)));
+      mrow[rr] = fmaxf(mx, MIN_M);
+      float sum = 0.f;
+#pragma unroll
+      for (int u = 0; u < BPT; ++u) {
+        const int bb = sl + SLOTS * u;
+        const float* wk = w_s + (wb0 + band_off(MODE, bb)) * nr + kl;
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          s[u][rr][t] = expf(s[u][rr][t] - mrow[rr]);       // now a
+          if (bb < NB) sum = fmaf(s[u][rr][t], wk[t], sum);
+        }
+      }
+      for (int o = 1; o < W; o <<= 1)
+        sum += __shfl_xor_sync(FULL, sum, lane_xor(o, W));
+      dsum[rr] = sum;
+    }
+    if (active) {
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+#pragma unroll
+        for (int u = 0; u < BPT; ++u)
+          if (sl + SLOTS * u < NB)
+            *reinterpret_cast<float4*>(a_s + (r0 + rr) * as +
+                                       (sl + SLOTS * u) * nk4 + kl) =
+                make_float4(s[u][rr][0], s[u][rr][1], s[u][rr][2],
+                            s[u][rr][3]);
+        if (j == 0) {
+          m[row0 + r0 + rr] = mrow[rr];
+          dn[row0 + r0 + rr] = dsum[rr];
         }
       }
     }
+  }
+  __syncthreads();
+
+  // y = a @ v: RY rows x 4 columns a thread, over each live band's
+  // admitted key groups
+  const int ncg = dv4 / 4;
+  for (int e = tid; e < rows / RY * ncg; e += BAND_THREADS) {
+    const int rg = e / ncg, c = (e - rg * ncg) * 4;
+    const int r0 = rg * RY, i0 = t0 + r0, p = i0 % nr;
+    const int wb0 = i0 / nr - I0 + 1;
+    float acc[RY][4];
+    int any = 0;
 #pragma unroll
-    for (int u = 0; u < MAXU; ++u) {
-      const int c = lane + 32 * u;
-      if (c < dv) y[row * dv + c] = acc_y[u];
+    for (int rr = 0; rr < RY; ++rr) {
+      any |= row_s[r0 + rr];
+#pragma unroll
+      for (int t = 0; t < 4; ++t) acc[rr][t] = 0.f;
     }
-    if (lane == 0) {
-      dn[row] = dsum;
-      m[row] = mrow;
+#pragma unroll
+    for (int bb = 0; bb < NB; ++bb) {
+      const int off = band_off(MODE, bb), wb = wb0 + off;
+      int glo, ghi;
+      band_group_range<MODE>(off, p, RY, nr, &glo, &ghi);
+      if (any && (blk_s[wb] & 3) && glo < ghi)
+        apply_tile_add<RY>(a_s + r0 * as + bb * nk4 + 4 * glo, as,
+                           v_s + (wb * nr + 4 * glo) * dv4 + c, dv4,
+                           4 * (ghi - glo), acc);
     }
-    __syncwarp();
+#pragma unroll
+    for (int rr = 0; rr < RY; ++rr)
+      store4(y + (row0 + r0 + rr) * dv, c, dv, vec_y, acc[rr]);
   }
 }
 
-// The key window of a CTA spans at most TQ - nr + nk keys: its query
-// rows cover TQ / nr blocks and each reads nk keys from its first one.
+template <int MODE, int RY>
+int launch_ry(const float* q, const float* k, const float* v, const float* w,
+              float* y, float* dn, float* m, int B, int G, int L, int d,
+              int dv, int nr, int tq, cudaStream_t stream) {
+  const size_t smem = band_fwd_floats(MODE, tq, d, dv, nr) * sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        band_fwd_kernel<MODE, RY>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int vec_in = (aligned16(q) && d % 4 == 0 ? VEC_Q : 0) |
+                     (aligned16(k) && d % 4 == 0 ? VEC_K : 0) |
+                     (aligned16(v) && dv % 4 == 0 ? VEC_V : 0);
+  const int vec_y = aligned16(y) && dv % 4 == 0;
+  const dim3 grid(G * ((L + tq - 1) / tq), B);
+  // Lq and Lk stay two arguments: as one, the body compiled to slower code
+  band_fwd_kernel<MODE, RY><<<grid, BAND_THREADS, smem, stream>>>(
+      q, k, v, w, y, dn, m, G, L, L, d, dv, nr, tq, vec_in, vec_y);
+  return (int)cudaGetLastError();
+}
+
+// nr a power of two in [2, BAND_MAX_NR]; any d and dv whose 16-row tile
+// fits the card's shared memory (band_fwd_tq).
 template <int MODE>
 int launch(const float* q, const float* k, const float* v, const float* w,
            float* y, float* dn, float* m, int B, int G, int L, int d, int dv,
            int nr, cudaStream_t stream) {
-  const int nk = band_keys(MODE, nr);
-  if (d < 1 || dv < 1 || dv > 32 * MAXU || nk > 32 * MAXC || TQ % nr != 0)
+  if (d < 1 || dv < 1 || nr < 2 || nr > BAND_MAX_NR || (nr & (nr - 1)) ||
+      L % nr)
     return (int)cudaErrorInvalidValue;
-  const int nwin_max = TQ - nr + nk;
-  const size_t smem = ((size_t)nwin_max * (d + 1) + (size_t)nwin_max * dv +
-                       nwin_max + (size_t)WARPS * d) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        band_fwd_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 grid((L + TQ - 1) / TQ, B);
-  band_fwd_kernel<MODE><<<grid, WARPS * 32, smem, stream>>>(
-      q, k, v, w, y, dn, m, G, L, L, d, dv, nr);
-  return (int)cudaGetLastError();
+  if (B == 0 || G == 0 || L == 0) return 0;
+  const int tq = band_fwd_tq(MODE, B, G, L, d, dv, nr, false);
+  if (tq == 0) return (int)cudaErrorInvalidValue;
+  if (nr >= 4)
+    return launch_ry<MODE, 4>(q, k, v, w, y, dn, m, B, G, L, d, dv, nr, tq,
+                              stream);
+  return launch_ry<MODE, 2>(q, k, v, w, y, dn, m, B, G, L, d, dv, nr, tq,
+                            stream);
 }
 
 // ---------------------------------------------------------------------------
 // sub level and coarse_causal
 // ---------------------------------------------------------------------------
-
-// Input row layouts that may be copied 16 bytes at a time.
-enum { VEC_Q = 1, VEC_K = 2, VEC_V = 4 };
 
 // RY: rows of a y register tile, 4 unless a query block has 2 rows.
 template <int RY>

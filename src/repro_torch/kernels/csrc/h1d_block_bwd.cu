@@ -18,9 +18,8 @@
 // with c_i the number of keys of row i's whole band that tie at the max
 // (JAX's reduce_max VJP splits the max's cotangent equally among ties);
 // gmn_i = gmh_i / c_i, or 0 when c_i == 0 (a fully masked row).  The
-// scores are recomputed in the forward's own fmaf order (dot_qk and
-// dot_tile in h1d_band.cuh), so s == m finds exactly the forward's
-// maximum.
+// scores are recomputed in the forward's own fmaf order (dot_tile in
+// h1d_band.cuh), so s == m finds exactly the forward's maximum.
 //
 // What bounds it on the H100: memory, as the forward.  A (query, key)
 // pair costs ~6d + 4dv FLOPs against the rows' bytes read once: at nr=16,
@@ -28,31 +27,38 @@
 // least time counts q, gy, y of the rows that have a live key, the key
 // blocks some row reads, and every output written once.
 //
-// No atomics anywhere: two runs give identical bits.
-//   * l0_causal, l0_bidir, coarse_bidir: two kernels per level on one
-//     stream.  The dQ pass (band_dq_kernel) has the forward's layout: one
-//     CTA per (b, tile of TQ query rows) stages the key window and loops
-//     over the GQA groups; a warp takes one query row, lane j holds key
-//     j, and the row's delta, tie count and gmn are warp reductions.  The
-//     dK/dV/dW pass (band_dkvw_kernel) takes one CTA per (b, tile of
-//     keys): every key j is read by a contiguous run of query rows
-//     ([j, end of the next nr-block) in l0_causal, the blocks J-1, J and
-//     J+1 in a bidirectional mode), which the CTA streams through shared
-//     memory in chunks of QC for each group g in turn; a warp owns some
-//     keys and lane i holds query i of a 32-row slice.
+// No atomics anywhere: two runs give identical bits.  Both designs stage
+// only live rows and live key blocks (block_info, band_row_live in
+// h1d_band.cuh) with cp.async and score on 2-row x 4-key register tiles
+// in dot_tile's order (dot_tile2 runs q.k and gy.v side by side).
+//   * l0_causal, l0_bidir, coarse_bidir: two kernels per call on one
+//     stream (layout (b) of the two the design allowed).  A key block is
+//     read by 2 (l0_causal: J, J+1; coarse_bidir: J-1, J+1) or 3 query
+//     blocks, and G groups, so a fused kernel would have to sum every key
+//     block over neighbouring CTAs: a cluster holds at most 8 CTAs in a
+//     fixed partition, so a run of tiles would still share its edge blocks
+//     with the next cluster.  Two kernels keep every sum inside one CTA in
+//     a fixed order.  The dQ pass (band_dq_kernel) has the forward's grid,
+//     window and lane layout and computes, per row, delta, the tie count
+//     over the row's whole band (the bands combined in registers, then
+//     over the row pair's lanes), gmn, ds and dq = ds @ k; dead rows get dq
+//     = 0, gmn = 0 unread.  It also writes each live row's a and ds (every
+//     band, key groups of 4) to a scratch tensor the wrapper allocates, so
+//     every score is computed once.  The dK/dV/dW pass (band_dkvw_kernel)
+//     takes one CTA per run of up to 32 keys (whole blocks; fewer where
+//     the grid would not fill the card), streams its reader blocks' q, gy,
+//     a and ds through shared memory, group by group, in chunks of 16-32
+//     rows, skipping rows that read no live key of the CTA, and each
+//     thread owns a 4-key x 4-column tile of dk or dv (and dw) summed in
+//     shared memory, band by band, over the admitted rows.
 //   * the sub level and coarse_causal (sub_bwd_kernel, one kernel): key
 //     block J is read by query block J+1 alone, so one CTA per (b, J)
 //     owns the rows of that query block (nq = nr * ratio per group) and
 //     computes everything from one recomputation of each score: per row
 //     delta, the tie count and gmn (the row's band is block J), dq; for
-//     block J dk, dv and dw.  q, gy and y of a row are read once, with
-//     cp.async into shared memory, and only for rows with a live key; a
-//     dead block (no key with w > 0, and query block 0) writes dq = 0,
-//     gmn = 0 and zero key gradients without reading its rows.  Scores
-//     and gy . v are 2-row x 4-key register tiles in dot_tile's order
-//     (first-half rows skip the masked quadrant), dq a 4-row x 4-column
-//     tile, and each thread owns a 4-key x 4-column tile of dk or dv (and
-//     dw) accumulated in shared memory over the CTA's row tiles.  At deep
+//     block J dk, dv and dw.  A dead block (no key with w > 0, and query
+//     block 0) writes dq = 0, gmn = 0 and zero key gradients without
+//     reading its rows; first-half rows skip the masked quadrant.  At deep
 //     levels (nq >= 128 at G = 1) a block's rows split over up to 8 CTAs
 //     of one thread block cluster, which add their partial dk, dv, dw
 //     through distributed shared memory in rank order, so the sum is
@@ -69,279 +75,9 @@ namespace {
 using namespace h1d;
 namespace cg = cooperative_groups;
 
-constexpr int TQ = 64;                // dQ pass: query rows per CTA
-constexpr int QC = 64;                // dK/dV/dW pass: query rows per chunk
-constexpr int TK = 32;                // dK/dV/dW pass: keys per CTA
-constexpr int WARPS = 8;
-constexpr int MAXC = 4;               // key chunks of 32 per row: nk <= 128
-constexpr int MAXU = 4;               // column chunks of 32: d, dv <= 128
-
-// Query rows [lo, hi) that read key j (the transpose of key_start and
-// band_keys); both bounds grow with j.  As in the forward, every kernel
-// here has one instantiation per band mode.
-template <int MODE>
-__device__ __forceinline__ void query_range(int j, int nr, int L, int* lo,
-                                            int* hi) {
-  const int J = j / nr;
-  if (MODE == L0_CAUSAL) {
-    *lo = j;
-    *hi = min(L, (J + 2) * nr);
-  } else {
-    *lo = max(0, (J - 1) * nr);
-    *hi = min(L, (J + 2) * nr);
-  }
-}
-
-template <int MODE>
-__global__ void __launch_bounds__(WARPS * 32)
-band_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, const float* __restrict__ w,
-               const float* __restrict__ y, const float* __restrict__ dn,
-               const float* __restrict__ m, const float* __restrict__ gy,
-               const float* __restrict__ gdn, const float* __restrict__ gm,
-               float* __restrict__ dq, float* __restrict__ gmn, int G,
-               int L, int d, int dv, int nr) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * TQ;
-  const int rows = min(TQ, L - t0);
-  const int nk = band_keys(MODE, nr);
-  const int kbase = key_start(t0, nr);
-  const int nwin = key_start(t0 + rows - 1, nr) + nk - kbase;
-  const int ks = d + 1, vs = dv + 1;
-  float* k_s = smem;
-  float* v_s = k_s + nwin * ks;
-  float* w_s = v_s + nwin * vs;
-  float* q_w = w_s + nwin;
-  float* g_w = q_w + WARPS * d;
-
-  // key window; rows outside [0, L) read as zero (masked by weight 0
-  // and band_mask's in-range test)
-  for (int e = threadIdx.x; e < nwin * d; e += blockDim.x) {
-    const int r = e / d, c = e % d, j = kbase + r;
-    k_s[r * ks + c] = (j >= 0 && j < L) ? k[((size_t)b * L + j) * d + c]
-                                        : 0.f;
-  }
-  for (int e = threadIdx.x; e < nwin * dv; e += blockDim.x) {
-    const int r = e / dv, c = e % dv, j = kbase + r;
-    v_s[r * vs + c] = (j >= 0 && j < L) ? v[((size_t)b * L + j) * dv + c]
-                                        : 0.f;
-  }
-  for (int r = threadIdx.x; r < nwin; r += blockDim.x) {
-    const int j = kbase + r;
-    w_s[r] = (j >= 0 && j < L) ? w[(size_t)b * L + j] : 0.f;
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* qw = q_w + warp * d;
-  float* gw = g_w + warp * dv;
-  for (int item = warp; item < G * rows; item += WARPS) {
-    const int g = item / rows;
-    const int i = t0 + item % rows;
-    const size_t row = ((size_t)b * G + g) * L + i;
-    for (int c = lane; c < d; c += 32) qw[c] = q[row * d + c];
-    float part = 0.f;
-    for (int c = lane; c < dv; c += 32) {
-      const float gv = gy[row * dv + c];
-      gw[c] = gv;
-      part = fmaf(gv, y[row * dv + c], part);
-    }
-    __syncwarp();
-    for (int off = 16; off; off >>= 1)
-      part += __shfl_xor_sync(FULL, part, off);
-    const float gdn_i = gdn[row], m_i = m[row];
-    const float gmh = gm[row] - (part + gdn_i * dn[row]);
-    const int k0 = key_start(i, nr) - kbase;                 // window offset
-
-    float a[MAXC], da[MAXC];
-    bool hit[MAXC];
-    int cnt = 0;
-#pragma unroll
-    for (int ch = 0; ch < MAXC; ++ch) {
-      const int jj = lane + 32 * ch;
-      a[ch] = 0.f;
-      da[ch] = 0.f;
-      hit[ch] = false;
-      if (jj < nk) {
-        const int r = k0 + jj;
-        const bool allow = band_mask(i, kbase + r, nr, MODE, L) &&
-                           w_s[r] > 0.f;
-        const float s = allow ? dot_qk(qw, k_s + r * ks, d) : NEG_INF;
-        a[ch] = expf(s - m_i);
-        hit[ch] = s == m_i;
-        float acc = 0.f;
-        const float* vr = v_s + r * vs;
-        for (int c = 0; c < dv; ++c) acc = fmaf(gw[c], vr[c], acc);
-        da[ch] = acc + gdn_i * w_s[r];
-        cnt += hit[ch];
-      }
-    }
-    for (int off = 16; off; off >>= 1)
-      cnt += __shfl_xor_sync(FULL, cnt, off);
-    const float gmn_i = cnt > 0 ? gmh / (float)cnt : 0.f;
-
-    float acc_q[MAXU];
-#pragma unroll
-    for (int u = 0; u < MAXU; ++u) acc_q[u] = 0.f;
-#pragma unroll
-    for (int ch = 0; ch < MAXC; ++ch) {
-      if (32 * ch >= nk) break;
-      const float ds = a[ch] * da[ch] + gmn_i * (hit[ch] ? 1.f : 0.f);
-      const int n = min(32, nk - 32 * ch);
-      for (int src = 0; src < n; ++src) {
-        const float dsj = __shfl_sync(FULL, ds, src);
-        const float* kr = k_s + (k0 + 32 * ch + src) * ks;
-#pragma unroll
-        for (int u = 0; u < MAXU; ++u) {
-          const int c = lane + 32 * u;
-          if (c < d) acc_q[u] = fmaf(dsj, kr[c], acc_q[u]);
-        }
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < MAXU; ++u) {
-      const int c = lane + 32 * u;
-      if (c < d) dq[row * d + c] = acc_q[u];
-    }
-    if (lane == 0) gmn[row] = gmn_i;
-    __syncwarp();
-  }
-}
-
-template <int MODE>
-__global__ void __launch_bounds__(WARPS * 32)
-band_dkvw_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ w,
-                 const float* __restrict__ m, const float* __restrict__ gy,
-                 const float* __restrict__ gdn, const float* __restrict__ gmn,
-                 float* __restrict__ dk, float* __restrict__ dvo,
-                 float* __restrict__ dw, int G, int L, int d, int dv,
-                 int nr, int tk) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.y;
-  const int j0 = blockIdx.x * tk;
-  const int keys = min(tk, L - j0);
-  const int ks = d + 1, vs = dv + 1;
-  float* k_s = smem;                       // tk x (d+1)
-  float* v_s = k_s + tk * ks;              // tk x (dv+1)
-  float* w_s = v_s + tk * vs;              // tk
-  float* dk_s = w_s + tk;                  // tk x d    accumulators
-  float* dv_s = dk_s + tk * d;             // tk x dv
-  float* dw_s = dv_s + tk * dv;            // tk
-  float* q_s = dw_s + tk;                  // QC x (d+1)  query chunk
-  float* g_s = q_s + QC * ks;              // QC x (dv+1)
-  float* m_s = g_s + QC * vs;              // QC
-  float* gdn_s = m_s + QC;                 // QC
-  float* gmn_s = gdn_s + QC;               // QC
-
-  for (int e = threadIdx.x; e < keys * d; e += blockDim.x) {
-    const int r = e / d, c = e % d;
-    k_s[r * ks + c] = k[((size_t)b * L + j0 + r) * d + c];
-    dk_s[e] = 0.f;
-  }
-  for (int e = threadIdx.x; e < keys * dv; e += blockDim.x) {
-    const int r = e / dv, c = e % dv;
-    v_s[r * vs + c] = v[((size_t)b * L + j0 + r) * dv + c];
-    dv_s[e] = 0.f;
-  }
-  for (int r = threadIdx.x; r < keys; r += blockDim.x) {
-    w_s[r] = w[(size_t)b * L + j0 + r];
-    dw_s[r] = 0.f;
-  }
-  // the query rows of this key tile: lo and hi grow with j
-  int qlo, qhi, unused;
-  query_range<MODE>(j0, nr, L, &qlo, &unused);
-  query_range<MODE>(j0 + keys - 1, nr, L, &unused, &qhi);
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int g = 0; g < G; ++g) {
-    const size_t base_row = ((size_t)b * G + g) * L;
-    for (int c0 = qlo; c0 < qhi; c0 += QC) {
-      const int nqc = min(QC, qhi - c0);
-      __syncthreads();              // the previous chunk is consumed
-      for (int e = threadIdx.x; e < nqc * d; e += blockDim.x) {
-        const int r = e / d, c = e % d;
-        q_s[r * ks + c] = q[(base_row + c0 + r) * d + c];
-      }
-      for (int e = threadIdx.x; e < nqc * dv; e += blockDim.x) {
-        const int r = e / dv, c = e % dv;
-        g_s[r * vs + c] = gy[(base_row + c0 + r) * dv + c];
-      }
-      for (int r = threadIdx.x; r < nqc; r += blockDim.x) {
-        m_s[r] = m[base_row + c0 + r];
-        gdn_s[r] = gdn[base_row + c0 + r];
-        gmn_s[r] = gmn[base_row + c0 + r];
-      }
-      __syncthreads();
-
-      for (int kk = warp; kk < keys; kk += WARPS) {
-        // a key of weight <= 0 is masked for every row: a = 0, no tie
-        if (!(w_s[kk] > 0.f)) continue;
-        const int j = j0 + kk;
-        int lo, hi;
-        query_range<MODE>(j, nr, L, &lo, &hi);
-        lo = max(lo, c0);
-        hi = min(hi, c0 + nqc);
-        if (lo >= hi) continue;
-        const float* kr = k_s + kk * ks;
-        const float* vr = v_s + kk * vs;
-        float adk[MAXU], adv[MAXU];
-#pragma unroll
-        for (int u = 0; u < MAXU; ++u) adk[u] = adv[u] = 0.f;
-        float adw = 0.f;
-        for (int base = lo; base < hi; base += 32) {
-          const int i = base + lane;
-          float a = 0.f, ds = 0.f;
-          if (i < hi) {
-            const int r = i - c0;
-            const bool allow = band_mask(i, j, nr, MODE, L);
-            const float s = allow ? dot_qk(q_s + r * ks, kr, d) : NEG_INF;
-            const float m_i = m_s[r];
-            a = expf(s - m_i);
-            const float* gr = g_s + r * vs;
-            float acc = 0.f;
-            for (int c = 0; c < dv; ++c) acc = fmaf(gr[c], vr[c], acc);
-            const float da = acc + gdn_s[r] * w_s[kk];
-            ds = a * da + gmn_s[r] * (s == m_i ? 1.f : 0.f);
-            adw = fmaf(a, gdn_s[r], adw);
-          }
-          const int n = min(32, hi - base);
-          for (int src = 0; src < n; ++src) {
-            const float dsi = __shfl_sync(FULL, ds, src);
-            const float ai = __shfl_sync(FULL, a, src);
-            const int r = base + src - c0;
-            const float* qr = q_s + r * ks;
-            const float* gr = g_s + r * vs;
-#pragma unroll
-            for (int u = 0; u < MAXU; ++u) {
-              const int c = lane + 32 * u;
-              if (c < d) adk[u] = fmaf(dsi, qr[c], adk[u]);
-              if (c < dv) adv[u] = fmaf(ai, gr[c], adv[u]);
-            }
-          }
-        }
-        for (int off = 16; off; off >>= 1)
-          adw += __shfl_xor_sync(FULL, adw, off);
-#pragma unroll
-        for (int u = 0; u < MAXU; ++u) {
-          const int c = lane + 32 * u;
-          if (c < d) dk_s[kk * d + c] += adk[u];
-          if (c < dv) dv_s[kk * dv + c] += adv[u];
-        }
-        if (lane == 0) dw_s[kk] += adw;
-      }
-    }
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < keys * d; e += blockDim.x)
-    dk[((size_t)b * L + j0) * d + e] = dk_s[e];
-  for (int e = threadIdx.x; e < keys * dv; e += blockDim.x)
-    dvo[((size_t)b * L + j0) * dv + e] = dv_s[e];
-  for (int r = threadIdx.x; r < keys; r += blockDim.x)
-    dw[(size_t)b * L + j0 + r] = dw_s[r];
-}
-
+// Row layouts that may be read or written 16 bytes at a time.
+enum { VEC_Q = 1, VEC_K = 2, VEC_V = 4, VEC_Y = 8, VEC_GY = 16 };
+enum { VEC_DQ = 1, VEC_DK = 2, VEC_DV = 4, VEC_DW = 8 };
 
 template <typename Kernel>
 int set_smem(Kernel kernel, size_t bytes) {
@@ -350,47 +86,493 @@ int set_smem(Kernel kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// dQ pass of l0_causal, l0_bidir, coarse_bidir: the forward's grid and
+// window (one CTA per (b, g, tile of tq rows)).  Per row: delta, gmh, the
+// tie count over the row's whole band (every band, combined in registers
+// and then over the row pair's lanes), gmn, ds and dq = ds @ k; each live
+// row's a and ds go to dsa for the dK/dV/dW pass.  RY: rows of a dq
+// register tile, 4 unless nr is 2.
+template <int MODE, int RY>
+__global__ void __launch_bounds__(BAND_THREADS)
+band_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ w,
+               const float* __restrict__ y, const float* __restrict__ dn,
+               const float* __restrict__ m, const float* __restrict__ gy,
+               const float* __restrict__ gdn, const float* __restrict__ gm,
+               float* __restrict__ dq, float* __restrict__ gmn,
+               float* __restrict__ dsa, int G, int Lq, int Lk, int d, int dv,
+               int nr, int tq, int vec_in, int vec_out) {
+  constexpr int NB = MODE == L0_BIDIR ? 3 : 2;  // bands a row reads
+  constexpr int SLOTS = BAND_SLOTS;
+  constexpr int BPT = (NB + SLOTS - 1) / SLOTS; // bands a slot
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x;
+  const int b = blockIdx.y;
+  const int tiles = (Lq + tq - 1) / tq;
+  const int g = blockIdx.x / tiles;
+  const int t0 = (blockIdx.x - g * tiles) * tq;
+  const int rows = min(tq, Lq - t0);
+  const int nkg = key_groups(nr), nk4 = 4 * nkg;
+  const int d4 = round4(d), dv4 = round4(dv);
+  const int qs = d4 + 4, gs = dv4 + 4, as = NB * nk4 + 4, S = NB * nk4;
+  const int I0 = t0 / nr;
+  const int nwb = (t0 + rows - 1) / nr - I0 + (MODE == L0_CAUSAL ? 2 : 3);
+  const int nwbm = band_window_blocks(MODE, tq, nr);
+  const int nkw = nwbm * nr + 4;
+  const int kb0 = (I0 - 1) * nr;
+  float* q_s = smem;                            // tq x qs
+  float* g_s = q_s + tq * qs;                   // tq x gs: gy
+  float* u_s = g_s + tq * gs;                   // tq x gs: y, then ds
+  float* ds_s = u_s;                            // tq x as
+  float* k_s = u_s + max(tq * gs, tq * as);     // nkw x qs
+  float* v_s = k_s + nkw * qs;                  // nkw x gs
+  float* w_s = v_s + nkw * gs;                  // nkw
+  float* m_s = w_s + nkw;                       // tq each: m, gdn, gm / gmh, dn
+  float* gdn_s = m_s + tq;
+  float* gm_s = gdn_s + tq;
+  float* dn_s = gm_s + tq;
+  int* blk_s = reinterpret_cast<int*>(dn_s + tq);   // block_info a block
+  int* row_s = blk_s + nwbm;                    // 1: the row is live
+  const size_t row0 = ((size_t)b * G + g) * Lq + t0;
+
+  for (int r = tid; r < nkw; r += BAND_THREADS) {
+    const int j = kb0 + r;
+    w_s[r] = (r < nwb * nr && j >= 0 && j < Lk) ? w[(size_t)b * Lk + j]
+                                                : 0.f;
+  }
+  __syncthreads();
+  if (tid < nwb) blk_s[tid] = block_info(w_s + tid * nr, nr);
+  __syncthreads();
+  int live = 0;
+  for (int r = tid; r < rows; r += BAND_THREADS) {
+    const int i = t0 + r, wb = i / nr - I0 + 1;
+    const int f = band_row_live<MODE>(i - (i / nr) * nr, nr, blk_s[wb - 1],
+                                      blk_s[wb],
+                                      wb + 1 < nwb ? blk_s[wb + 1] : 0);
+    row_s[r] = f;
+    live |= f;
+  }
+  if (!__syncthreads_or(live)) {                // every row dead
+    for (int e = tid; e < rows * d; e += BAND_THREADS)
+      dq[row0 * d + e] = 0.f;
+    for (int r = tid; r < rows; r += BAND_THREADS) gmn[row0 + r] = 0.f;
+    return;
+  }
+
+  auto src = [&](const float* base, int r, int n) -> const float* {
+    return row_s[r] ? base + (row0 + r) * n : nullptr;
+  };
+  stage_rows(q_s, qs, rows, d, vec_in & VEC_Q,
+             [&](int r) { return src(q, r, d); });
+  stage_rows(g_s, gs, rows, dv, vec_in & VEC_GY,
+             [&](int r) { return src(gy, r, dv); });
+  stage_rows(u_s, gs, rows, dv, vec_in & VEC_Y,
+             [&](int r) { return src(y, r, dv); });
+  auto key_src = [&](int r, const float* base, int n) -> const float* {
+    const bool lv = r < nwb * nr && (blk_s[r / nr] & 3);
+    return lv ? base + ((size_t)b * Lk + kb0 + r) * n : nullptr;
+  };
+  stage_rows(k_s, qs, nwb * nr + 4, d, vec_in & VEC_K,
+             [&](int r) { return key_src(r, k, d); });
+  stage_rows(v_s, gs, nwb * nr + 4, dv, vec_in & VEC_V,
+             [&](int r) { return key_src(r, v, dv); });
+  // the row scalars load while the copies are in flight
+  for (int r = tid; r < tq; r += BAND_THREADS) {
+    const bool lv = r < rows && row_s[r];
+    m_s[r] = lv ? m[row0 + r] : 0.f;
+    gdn_s[r] = lv ? gdn[row0 + r] : 0.f;
+    gm_s[r] = lv ? gm[row0 + r] : 0.f;
+    dn_s[r] = lv ? dn[row0 + r] : 0.f;
+  }
+  cp_async_wait();
+  __syncthreads();
+
+  // gmh = gm - (gy . y + gdn * dn), two lanes a row
+  for (int e = tid; e < 2 * tq; e += BAND_THREADS) {
+    const int r = e / 2, h = e % 2;
+    float part = 0.f;
+    if (r < rows)
+      for (int c = 4 * h; c < dv4; c += 8) {
+        const float4 x = ld4(g_s + r * gs + c), z = ld4(u_s + r * gs + c);
+        part = fmaf(x.x, z.x, part);
+        part = fmaf(x.y, z.y, part);
+        part = fmaf(x.z, z.z, part);
+        part = fmaf(x.w, z.w, part);
+      }
+    part += __shfl_xor_sync(FULL, part, 1);
+    if (h == 0 && r < rows) gm_s[r] = gm_s[r] - (part + gdn_s[r] * dn_s[r]);
+  }
+  __syncthreads();                              // y is read: u_s takes ds
+
+  // scores and gy . v per (row pair, lane slot, key group): W = SLOTS *
+  // nkg lanes a row pair, slot sl takes the bands sl, sl + SLOTS, ...; the
+  // tie count over the whole band (the thread's bands, then the row pair's
+  // lanes), gmn and ds
+  const int W = SLOTS * nkg;
+  const int total = 32 * lane_groups(rows / 2, W);
+  for (int base = 0; base < total; base += BAND_THREADS) {
+    int pair, j;
+    lane_item(base + tid, W, &pair, &j);
+    const bool active = pair < rows / 2;
+    const int r0 = active ? 2 * pair : 0, sl = j / nkg;
+    const int kl = 4 * (j - sl * nkg);
+    const int i0 = t0 + r0, p = i0 % nr, wb0 = i0 / nr - I0 + 1;
+    const int f0 = active ? row_s[r0] : 0, f1 = active ? row_s[r0 + 1] : 0;
+    float s[BPT][2][4], da[BPT][2][4];
+    unsigned allow = 0;                         // bit (u * 2 + rr) * 4 + t
+#pragma unroll
+    for (int u = 0; u < BPT; ++u) {
+      const int bb = sl + SLOTS * u;
+      const int off = band_off(MODE, bb), wb = wb0 + off;
+      int glo = 0, ghi = 0;
+      if (bb < NB) band_group_range<MODE>(off, p, 2, nr, &glo, &ghi);
+      const bool need = (f0 | f1) && bb < NB && (blk_s[wb] & 3) &&
+                        kl >= 4 * glo && kl < 4 * ghi;
+      if (need) {
+        const int kr = wb * nr + kl;
+        if (d4 == dv4) {
+          dot_tile2<2>(q_s + r0 * qs, qs, k_s + kr * qs, qs, g_s + r0 * gs,
+                       gs, v_s + kr * gs, gs, d4, s[u], da[u]);
+        } else {
+          dot_tile<2>(q_s + r0 * qs, qs, k_s + kr * qs, qs, d4, s[u]);
+          dot_tile<2>(g_s + r0 * gs, gs, v_s + kr * gs, gs, dv4, da[u]);
+        }
+      }
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const int jw = wb * nr + kl + t;
+          const bool ok = need && (rr ? f1 : f0) && kl + t < nr &&
+                          w_s[jw] > 0.f &&
+                          band_admits<MODE>(off, p + rr, kl + t, nr);
+          if (ok) allow |= 1u << ((u * 2 + rr) * 4 + t);
+        }
+    }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const float m_r = m_s[r0 + rr], gdn_r = gdn_s[r0 + rr];
+      unsigned hit = 0;
+      int cnt = 0;
+#pragma unroll
+      for (int u = 0; u < BPT; ++u)
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const unsigned bit = 1u << ((u * 2 + rr) * 4 + t);
+          const float sc = (allow & bit) ? s[u][rr][t] : NEG_INF;
+          s[u][rr][t] = expf(sc - m_r);                    // now a
+          if (sc == m_r) {
+            hit |= bit;
+            ++cnt;
+          }
+        }
+      for (int o = 1; o < W; o <<= 1)
+        cnt += __shfl_xor_sync(FULL, cnt, lane_xor(o, W));
+      const float gmn_r = cnt > 0 ? gm_s[r0 + rr] / (float)cnt : 0.f;
+#pragma unroll
+      for (int u = 0; u < BPT; ++u) {
+        const int bb = sl + SLOTS * u;
+        if (bb >= NB) continue;
+        const float* wk = w_s + (wb0 + band_off(MODE, bb)) * nr + kl;
+        float ds[4];
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const unsigned bit = 1u << ((u * 2 + rr) * 4 + t);
+          ds[t] = (allow & bit)
+                      ? s[u][rr][t] * (da[u][rr][t] + gdn_r * wk[t]) +
+                            ((hit & bit) ? gmn_r : 0.f)
+                      : 0.f;
+        }
+        if (active) {
+          const float4 d4v = make_float4(ds[0], ds[1], ds[2], ds[3]);
+          *reinterpret_cast<float4*>(ds_s + (r0 + rr) * as + bb * nk4 + kl) =
+              d4v;
+          if (rr ? f1 : f0) {                   // for the dK/dV/dW pass
+            float* xr = dsa + (row0 + r0 + rr) * (2 * S) + bb * nk4 + kl;
+            *reinterpret_cast<float4*>(xr) = d4v;
+            *reinterpret_cast<float4*>(xr + S) =
+                make_float4(s[u][rr][0], s[u][rr][1], s[u][rr][2],
+                            s[u][rr][3]);
+          }
+        }
+      }
+      if (active && j == 0) gmn[row0 + r0 + rr] = gmn_r;
+    }
+  }
+  __syncthreads();
+
+  // dq = ds @ k: RY rows x 4 columns a thread, over each live band's
+  // admitted key groups
+  const int ncg = d4 / 4;
+  for (int e = tid; e < rows / RY * ncg; e += BAND_THREADS) {
+    const int rg = e / ncg, c = (e - rg * ncg) * 4;
+    const int r0 = rg * RY, i0 = t0 + r0, p = i0 % nr;
+    const int wb0 = i0 / nr - I0 + 1;
+    float acc[RY][4];
+    int any = 0;
+#pragma unroll
+    for (int rr = 0; rr < RY; ++rr) {
+      any |= row_s[r0 + rr];
+#pragma unroll
+      for (int t = 0; t < 4; ++t) acc[rr][t] = 0.f;
+    }
+#pragma unroll
+    for (int bb = 0; bb < NB; ++bb) {
+      const int off = band_off(MODE, bb), wb = wb0 + off;
+      int glo, ghi;
+      band_group_range<MODE>(off, p, RY, nr, &glo, &ghi);
+      if (any && (blk_s[wb] & 3) && glo < ghi)
+        apply_tile_add<RY>(ds_s + r0 * as + bb * nk4 + 4 * glo, as,
+                           k_s + (wb * nr + 4 * glo) * qs + c, qs,
+                           4 * (ghi - glo), acc);
+    }
+#pragma unroll
+    for (int rr = 0; rr < RY; ++rr)
+      store4(dq + (row0 + r0 + rr) * d, c, d, vec_out & VEC_DQ, acc[rr]);
+  }
+}
+
+// dK/dV/dW pass of l0_causal, l0_bidir, coarse_bidir: one CTA per (b, run
+// of nkb key blocks J0 ..).  Its readers are the query blocks J0 - 1 (not
+// in l0_causal) to J0 + nkb, every group g; the CTA streams them through
+// shared memory in chunks of tq rows (g, then rows, in order): q, gy and
+// the a and ds the dQ pass wrote for the row (dsa: ds then a of every
+// band), and adds ds^T q, a^T gy and a^T gdn into its keys' sums in
+// shared memory, each key's sum in one fixed order.  Rows with no live
+// key among the CTA's are not read.
+template <int MODE>
+__global__ void __launch_bounds__(BAND_THREADS)
+band_dkvw_kernel(const float* __restrict__ q, const float* __restrict__ w,
+                 const float* __restrict__ gy, const float* __restrict__ gdn,
+                 const float* __restrict__ dsa, float* __restrict__ dk,
+                 float* __restrict__ dvo, float* __restrict__ dw, int G,
+                 int Lq, int Lk, int d, int dv, int nr, int nkb, int tq,
+                 int vec_in, int vec_out) {
+  constexpr int NB = MODE == L0_BIDIR ? 3 : 2;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x;
+  const int b = blockIdx.y;
+  const int nbk = Lk / nr, nbq = Lq / nr;
+  const int J0 = blockIdx.x * nkb;
+  const int nkh = min(nkb, nbk - J0);           // key blocks of this CTA
+  const int keys = nkh * nr;
+  const int nkg = key_groups(nr), nk4 = 4 * nkg;
+  const int d4 = round4(d), dv4 = round4(dv);
+  const int qs = d4 + 4, gs = dv4 + 4;
+  const int S = NB * nk4, xs = 2 * S + 4;       // a row of dsa: ds | a
+  const int nk = nkb * nk4;
+  const size_t kb = (size_t)b * Lk + (size_t)J0 * nr;   // first key
+  float* P = smem;                    // dk nk x d4, dv nk x dv4, dw nk
+  float* q_s = P + nk * (d4 + dv4 + 1);         // tq x qs
+  float* g_s = q_s + tq * qs;                   // tq x gs: gy
+  float* x_s = g_s + tq * gs;                   // tq x xs: ds | a
+  float* w_s = x_s + tq * xs;                   // nkb * nr
+  float* gdn_s = w_s + nkb * nr;                // tq
+  int* blk_s = reinterpret_cast<int*>(gdn_s + tq);  // block_info a block
+  int* row_s = blk_s + nkb;                     // 1: reads a live key here
+
+  for (int r = tid; r < nkb * nr; r += BAND_THREADS)
+    w_s[r] = r < keys ? w[kb + r] : 0.f;
+  __syncthreads();
+  int flag = 0;
+  if (tid < nkb) {
+    flag = tid < nkh ? block_info(w_s + tid * nr, nr) : 0;
+    blk_s[tid] = flag;
+  }
+  if (!__syncthreads_or(flag & 3)) {
+    // no key here has w > 0: every gradient of these keys is 0
+    for (int e = tid; e < keys * d; e += BAND_THREADS) dk[kb * d + e] = 0.f;
+    for (int e = tid; e < keys * dv; e += BAND_THREADS)
+      dvo[kb * dv + e] = 0.f;
+    for (int e = tid; e < keys; e += BAND_THREADS) dw[kb + e] = 0.f;
+    return;
+  }
+  for (int e = tid; e < nk * (d4 + dv4 + 1); e += BAND_THREADS) P[e] = 0.f;
+  auto info = [&](int J) { return J >= J0 && J < J0 + nkh ? blk_s[J - J0]
+                                                           : 0; };
+
+  const int rlo = max(0, J0 - (MODE == L0_CAUSAL ? 0 : 1)) * nr;
+  const int rhi = min(nbq, J0 + nkh + 1) * nr;
+  const int nd4 = d4 / 4, nv4 = dv4 / 4;
+  for (int g = 0; g < G; ++g) {
+    const size_t rowg = ((size_t)b * G + g) * Lq;
+    for (int f0 = rlo; f0 < rhi; f0 += tq) {
+      const int rows = min(tq, rhi - f0);
+      int live = 0;
+      for (int r = tid; r < rows; r += BAND_THREADS) {
+        const int i = f0 + r, I = i / nr;
+        const int f = band_row_live<MODE>(i - I * nr, nr, info(I - 1),
+                                          info(I), info(I + 1));
+        row_s[r] = f;
+        live |= f;
+      }
+      if (!__syncthreads_or(live)) continue;
+      auto src = [&](const float* base, int r, int n) -> const float* {
+        return row_s[r] ? base + (rowg + f0 + r) * n : nullptr;
+      };
+      stage_rows(q_s, qs, rows, d, vec_in & VEC_Q,
+                 [&](int r) { return src(q, r, d); });
+      stage_rows(g_s, gs, rows, dv, vec_in & VEC_GY,
+                 [&](int r) { return src(gy, r, dv); });
+      stage_rows(x_s, xs, rows, 2 * S, true,
+                 [&](int r) { return src(dsa, r, 2 * S); });
+      for (int r = tid; r < rows; r += BAND_THREADS)
+        gdn_s[r] = row_s[r] ? gdn[rowg + f0 + r] : 0.f;
+      cp_async_wait();
+      __syncthreads();
+
+      // dk += ds^T q, dv += a^T gy, dw += a^T gdn: a thread owns 4 keys x 4
+      // columns of dk or dv (the dv tile of columns 0..3 also keeps dw);
+      // per band, the reader block's rows that band_mask admits, in order.
+      // Dead rows add exact zeros (their q, gy, a and ds are zero).
+      for (int e = tid; e < nkh * nkg * (nd4 + nv4); e += BAND_THREADS) {
+        const bool isk = e < nkh * nkg * nd4;
+        const int e2 = isk ? e : e - nkh * nkg * nd4;
+        const int n4 = isk ? nd4 : nv4;
+        const int grp = e2 / n4, c = (e2 - grp * n4) * 4;
+        const int rel = grp / nkg, kg = grp - rel * nkg;
+        if (!(blk_s[rel] & 3)) continue;        // dead block: sums stay 0
+        const float* sp = x_s + (isk ? 0 : S) + 4 * kg;
+        const float* xp = (isk ? q_s : g_s) + c;
+        const int rs = isk ? qs : gs, ps = isk ? d4 : dv4;
+        float* pp = (isk ? P : P + nk * d4) + (rel * nk4 + 4 * kg) * ps + c;
+        float* pw = P + nk * (d4 + dv4) + rel * nk4 + 4 * kg;
+        float acc[4][4], accw[4];
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const float4 x = ld4(pp + t * ps);
+          acc[t][0] = x.x;
+          acc[t][1] = x.y;
+          acc[t][2] = x.z;
+          acc[t][3] = x.w;
+          accw[t] = pw[t];
+        }
+#pragma unroll
+        for (int bb = 0; bb < NB; ++bb) {
+          const int off = band_off(MODE, bb), I = J0 + rel - off;
+          int plo, phi;
+          band_row_range<MODE>(off, kg, nr, &plo, &phi);
+          const int lo = max(I * nr + plo, f0) - f0;
+          const int hi = min(I * nr + phi, f0 + rows) - f0;
+#pragma unroll 4
+          for (int i = lo; i < hi; ++i) {
+            const float4 sv = ld4(sp + i * xs + bb * nk4);
+            const float4 xv = ld4(xp + i * rs);
+#pragma unroll
+            for (int t = 0; t < 4; ++t) {
+              const float st = lane4(sv, t);
+              acc[t][0] = fmaf(st, xv.x, acc[t][0]);
+              acc[t][1] = fmaf(st, xv.y, acc[t][1]);
+              acc[t][2] = fmaf(st, xv.z, acc[t][2]);
+              acc[t][3] = fmaf(st, xv.w, acc[t][3]);
+            }
+            if (!isk && c == 0) {               // dw rides on the dv tile
+              const float gd = gdn_s[i];
+#pragma unroll
+              for (int t = 0; t < 4; ++t)
+                accw[t] = fmaf(lane4(sv, t), gd, accw[t]);
+            }
+          }
+        }
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          *reinterpret_cast<float4*>(pp + t * ps) =
+              make_float4(acc[t][0], acc[t][1], acc[t][2], acc[t][3]);
+          if (!isk && c == 0) pw[t] = accw[t];
+        }
+      }
+      __syncthreads();                          // the next chunk reuses rows
+    }
+  }
+
+  // this CTA's keys: dk and dv rows 4 columns an item, then dw
+  for (int e = tid; e < keys * (nd4 + nv4); e += BAND_THREADS) {
+    const bool isk = e < keys * nd4;
+    const int e2 = isk ? e : e - keys * nd4, n4 = isk ? nd4 : nv4;
+    const int t = e2 / n4, c = (e2 - t * n4) * 4;
+    const int pr = t / nr * nk4 + t % nr;       // the key's row of P
+    float x[4];
+    const float4 p4 = ld4((isk ? P + pr * d4 : P + nk * d4 + pr * dv4) + c);
+    x[0] = p4.x;
+    x[1] = p4.y;
+    x[2] = p4.z;
+    x[3] = p4.w;
+    if (isk)
+      store4(dk + (kb + t) * d, c, d, vec_out & VEC_DK, x);
+    else
+      store4(dvo + (kb + t) * dv, c, dv, vec_out & VEC_DV, x);
+  }
+  for (int t = tid; t < keys; t += BAND_THREADS)
+    dw[kb + t] = P[nk * (d4 + dv4) + t / nr * nk4 + t % nr];
+}
+
+template <int MODE, int RY>
+int launch_ry(const float* q, const float* k, const float* v, const float* w,
+              const float* y, const float* dn, const float* m,
+              const float* gy, const float* gdn, const float* gm, float* dq,
+              float* gmn, float* dk, float* dv_out, float* dw, float* dsa,
+              int B, int G, int L, int d, int dv, int nr, int tq, int nkb,
+              int tk, cudaStream_t stream) {
+  const size_t smem_dq = band_dq_floats(MODE, tq, d, dv, nr) * sizeof(float);
+  const size_t smem_kv =
+      band_dkvw_floats(MODE, nkb, tk, d, dv, nr) * sizeof(float);
+  int e = set_smem(band_dq_kernel<MODE, RY>, smem_dq);
+  if (e) return e;
+  e = set_smem(band_dkvw_kernel<MODE>, smem_kv);
+  if (e) return e;
+  const int vec_in = (aligned16(q) && d % 4 == 0 ? VEC_Q : 0) |
+                     (aligned16(k) && d % 4 == 0 ? VEC_K : 0) |
+                     (aligned16(v) && dv % 4 == 0 ? VEC_V : 0) |
+                     (aligned16(y) && dv % 4 == 0 ? VEC_Y : 0) |
+                     (aligned16(gy) && dv % 4 == 0 ? VEC_GY : 0);
+  const int vec_out = (aligned16(dq) && d % 4 == 0 ? VEC_DQ : 0) |
+                      (aligned16(dk) && d % 4 == 0 ? VEC_DK : 0) |
+                      (aligned16(dv_out) && dv % 4 == 0 ? VEC_DV : 0);
+  // Lq and Lk stay two arguments: as one, the body compiled to slower code
+  band_dq_kernel<MODE, RY><<<dim3(G * ((L + tq - 1) / tq), B), BAND_THREADS,
+                             smem_dq, stream>>>(
+      q, k, v, w, y, dn, m, gy, gdn, gm, dq, gmn, dsa, G, L, L, d, dv, nr, tq,
+      vec_in, vec_out);
+  e = (int)cudaGetLastError();
+  if (e) return e;
+  const int nbk = L / nr;
+  band_dkvw_kernel<MODE><<<dim3((nbk + nkb - 1) / nkb, B), BAND_THREADS,
+                           smem_kv, stream>>>(
+      q, w, gy, gdn, dsa, dk, dv_out, dw, G, L, L, d, dv, nr, nkb, tk, vec_in,
+      vec_out);
+  return (int)cudaGetLastError();
+}
+
+// nr a power of two in [2, BAND_MAX_NR]; any d and dv whose 16-row tiles
+// fit the card's shared memory (band_fwd_tq, band_dkvw_tiles).
 template <int MODE>
 int launch(const float* q, const float* k, const float* v, const float* w,
            const float* y, const float* dn, const float* m, const float* gy,
            const float* gdn, const float* gm, float* dq, float* gmn,
-           float* dk, float* dv_out, float* dw, int B, int G, int L, int d,
-           int dv, int nr, cudaStream_t stream) {
-  const int nk = band_keys(MODE, nr);
-  if (d < 1 || dv < 1 || d > 32 * MAXU || dv > 32 * MAXU ||
-      nk > 32 * MAXC || TQ % nr != 0)
+           float* dk, float* dv_out, float* dw, float* dsa, int B, int G,
+           int L, int d, int dv, int nr, cudaStream_t stream) {
+  if (d < 1 || dv < 1 || nr < 2 || nr > BAND_MAX_NR || (nr & (nr - 1)) ||
+      L % nr || dsa == nullptr || !aligned16(dsa))
     return (int)cudaErrorInvalidValue;
-  const int nwin_max = TQ - nr + nk;    // as the forward's key window
-  const size_t smem_dq = ((size_t)nwin_max * (d + 1) +
-                          (size_t)nwin_max * (dv + 1) + nwin_max +
-                          (size_t)WARPS * (d + dv)) * sizeof(float);
-  int e = set_smem(band_dq_kernel<MODE>, smem_dq);
-  if (e) return e;
-  band_dq_kernel<MODE><<<dim3((L + TQ - 1) / TQ, B), WARPS * 32, smem_dq,
-                         stream>>>(q, k, v, w, y, dn, m, gy, gdn, gm, dq, gmn,
-                                   G, L, d, dv, nr);
-  e = (int)cudaGetLastError();
-  if (e) return e;
-
-  const size_t smem_kv = ((size_t)TK * (d + 1) + (size_t)TK * (dv + 1) + TK +
-                          (size_t)TK * (d + dv) + TK +
-                          (size_t)QC * (d + 1) + (size_t)QC * (dv + 1) +
-                          3 * QC) * sizeof(float);
-  e = set_smem(band_dkvw_kernel<MODE>, smem_kv);
-  if (e) return e;
-  band_dkvw_kernel<MODE><<<dim3((L + TK - 1) / TK, B), WARPS * 32, smem_kv,
-                           stream>>>(q, k, v, w, m, gy, gdn, gmn, dk, dv_out,
-                                     dw, G, L, d, dv, nr, TK);
-  return (int)cudaGetLastError();
+  if (B == 0 || G == 0 || L == 0) return 0;
+  const int tq = band_fwd_tq(MODE, B, G, L, d, dv, nr, true);
+  int nkb, tk;
+  band_dkvw_tiles(MODE, B, L, d, dv, nr, &nkb, &tk);
+  if (tq == 0 || tk == 0) return (int)cudaErrorInvalidValue;
+  if (nr >= 4)
+    return launch_ry<MODE, 4>(q, k, v, w, y, dn, m, gy, gdn, gm, dq, gmn, dk,
+                              dv_out, dw, dsa, B, G, L, d, dv, nr, tq, nkb,
+                              tk, stream);
+  return launch_ry<MODE, 2>(q, k, v, w, y, dn, m, gy, gdn, gm, dq, gmn, dk,
+                            dv_out, dw, dsa, B, G, L, d, dv, nr, tq, nkb, tk,
+                            stream);
 }
 
 // ---------------------------------------------------------------------------
 // sub level and coarse_causal
 // ---------------------------------------------------------------------------
-
-// Row layouts that may be read or written 16 bytes at a time.
-enum { VEC_Q = 1, VEC_K = 2, VEC_V = 4, VEC_Y = 8, VEC_GY = 16 };
-enum { VEC_DQ = 1, VEC_DK = 2, VEC_DV = 4, VEC_DW = 8 };
 
 // Shared floats of sub_bwd_kernel at tq rows a tile (layout below).
 size_t sub_bwd_floats(int tq, int d, int dv, int nr) {
@@ -807,27 +989,31 @@ int launch_sub(const float* q, const float* k, const float* v,
 // Saved q (B,G,L,d), k (B,L,d), v (B,L,dv), w (B,L), y (B,G,L,dv),
 // dn/m (B,G,L) and cotangents gy (B,G,L,dv), gdn/gm (B,G,L)
 // -> dq (B,G,L,d), gmn (B,G,L), dk (B,L,d), dv (B,L,dv), dw (B,L);
-// mode is an h1d::Mode (coarse_causal on the sub body at ratio 1).
+// mode is an h1d::Mode (coarse_causal on the sub body at ratio 1).  dsa:
+// scratch of B*G*L rows of 2 * band_count(mode) * 4 * key_groups(nr)
+// floats, 16-byte aligned, for l0_causal, l0_bidir and coarse_bidir
+// (unused in coarse_causal).
 extern "C" int h1d_band_bwd(const float* q, const float* k, const float* v,
                             const float* w, const float* y, const float* dn,
                             const float* m, const float* gy,
                             const float* gdn, const float* gm, float* dq,
                             float* gmn, float* dk, float* dv_out, float* dw,
-                            int B, int G, int L, int d, int dv, int nr,
-                            int mode, void* stream) {
+                            float* dsa, int B, int G, int L, int d, int dv,
+                            int nr, int mode, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   switch (mode) {
     case h1d::L0_BIDIR:
       return launch<h1d::L0_BIDIR>(q, k, v, w, y, dn, m, gy, gdn, gm, dq, gmn,
-                                   dk, dv_out, dw, B, G, L, d, dv, nr, st);
+                                   dk, dv_out, dw, dsa, B, G, L, d, dv, nr,
+                                   st);
     case h1d::L0_CAUSAL:
       return launch<h1d::L0_CAUSAL>(q, k, v, w, y, dn, m, gy, gdn, gm, dq,
-                                    gmn, dk, dv_out, dw, B, G, L, d, dv, nr,
-                                    st);
+                                    gmn, dk, dv_out, dw, dsa, B, G, L, d, dv,
+                                    nr, st);
     case h1d::COARSE_BIDIR:
       return launch<h1d::COARSE_BIDIR>(q, k, v, w, y, dn, m, gy, gdn, gm, dq,
-                                       gmn, dk, dv_out, dw, B, G, L, d, dv,
-                                       nr, st);
+                                       gmn, dk, dv_out, dw, dsa, B, G, L, d,
+                                       dv, nr, st);
     case h1d::COARSE_CAUSAL:
       return launch_sub(q, k, v, w, y, dn, m, gy, gdn, gm, dq, gmn, dk,
                         dv_out, dw, B, G, L, L, d, dv, nr, 1, st);

@@ -51,9 +51,9 @@ _SIGNATURES = {
 
 def band_mask(qi, ki, nr: int, mode: str, lk: int, ratio: int = 1):
     """Allowed-mask from *global* row/col indices (broadcastable integer
-    tensors).  The single source of the band structure, shared by the
-    plain versions here and, line for line, by ``band_mask`` in
-    ``csrc/h1d_block.cu``.
+    tensors).  The single source of the band structure of the plain
+    versions here; the kernels test it per band with the block difference
+    known (``band_admits``, held to this mask by the geometry tests).
 
     ``mode='sub'``: ``qi`` are fine query indices, ``ki`` level-l coarse
     key indices, ``ratio = 2**l``; ``qi // ratio`` maps a fine query to
@@ -91,13 +91,299 @@ def band_offsets(mode: str) -> Tuple[int, ...]:
     return (0, -1) if mode.endswith("causal") else (0, -1, 1)
 
 
-def check_window(mode: str, nr: int) -> None:
-    """The kernels stage at most 128 keys a row (``MAXC`` chunks of 32):
-    a bidirectional mode's three-block window needs ``3 * nr <= 128``."""
-    if len(band_offsets(mode)) * nr > 128:
-        raise ValueError(f"mode {mode!r} reads {len(band_offsets(mode))} "
-                         f"key blocks of nr={nr} a row; the kernels take "
-                         f"at most 128 keys")
+def check_window(mode: str, nr: int, d: int, dv: int) -> None:
+    """What the kernels take: nr a power of two up to ``BAND_MAX_NR``
+    (64) in every mode, and any d and dv whose smallest tiles fit the
+    H100's shared memory: 16 rows a tile in the forward, dQ and dK/dV/dW
+    passes of ``l0_causal``, ``l0_bidir`` and ``coarse_bidir``
+    (``band_fwd_tq``, ``band_dkvw_tiles``); ``coarse_causal`` runs the
+    sub bodies at ratio 1 (a forward tile of 64 rows, backward tiles down
+    to 16)."""
+    if nr > BAND_MAX_NR:
+        raise ValueError(f"mode {mode!r}: the kernels take nr <= "
+                         f"{BAND_MAX_NR}, got {nr}")
+    if mode in BAND_CODES:
+        big = 4 * max(band_fwd_floats(mode, 16, d, dv, nr),
+                      band_dq_floats(mode, 16, d, dv, nr),
+                      band_dkvw_floats(mode, 1, 16, d, dv, nr))
+    else:
+        big = 4 * max(sub_fwd_floats(d, dv, nr, 1),
+                      sub_bwd_floats(16, d, dv, nr))
+    if big > SMEM_MAX:
+        raise ValueError(f"mode {mode!r} at nr={nr}, d={d}, dv={dv} needs "
+                         f"{big} bytes of shared memory at 16 rows a tile; "
+                         f"the H100 gives a CTA {SMEM_MAX}")
+
+
+# ---------------------------------------------------------------------------
+# launch geometry of l0_causal, l0_bidir and coarse_bidir
+# ---------------------------------------------------------------------------
+#
+# Host mirrors of what ``csrc/h1d_band.cuh`` computes for these bodies:
+# query block I reads key blocks I + off, band b at offset
+# ``band_off(mode, b)``; a key block's info says which of its halves hold
+# a key with w > 0, and a row with no such key that its mask admits is
+# never read.  The score pass gives a row pair 2 nr / 4 lanes in two
+# slots, one group of 4 keys in each of its slot's bands; key groups the
+# mask masks whole are not computed.
+
+#: mode codes of the three bodies (``enum Mode``)
+BAND_CODES = {m: _MODE_CODES[m] for m in ("l0_bidir", "l0_causal",
+                                          "coarse_bidir")}
+BAND_TQ = 32
+BAND_KEYS = 32
+BAND_KV_TQ = 32
+BAND_MAX_NR = 64
+BAND_SLOTS = 2
+FILL_CTAS = 264
+SMEM_MAX = 232448
+
+
+def _round4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def _key_groups(n: int) -> int:
+    return (n + 3) // 4
+
+
+def band_count(mode: str) -> int:
+    return 3 if mode == "l0_bidir" else 2
+
+
+def band_off(mode: str, b: int) -> int:
+    return 2 * b - 1 if mode == "coarse_bidir" else b - 1
+
+
+def band_window_blocks(mode: str, tq: int, nr: int) -> int:
+    return (tq // nr if tq > nr else 1) + (1 if mode == "l0_causal" else 2)
+
+
+def band_block_info(w, nr: int):
+    """(B, L / nr) ints of each key block: bit 0 a key of its first half
+    has w > 0, bit 1 a key of its second half has; from bit 8 on the
+    first key with w > 0 (nr if none)."""
+    B, L = w.shape
+    wb = (w > 0).view(B, L // nr, nr)
+    bits = (wb[..., : nr // 2].any(-1).int()
+            | (wb[..., nr // 2:].any(-1).int() * 2))
+    pos = torch.arange(nr, device=w.device)
+    first = torch.where(wb, pos, nr).amin(-1)
+    return bits | (first << 8)
+
+
+def band_row_live(mode: str, p, nr: int, prev, own, nxt):
+    """Whether rows at positions ``p`` of their blocks have a key with
+    w > 0 that ``band_mask`` admits, from the infos of the blocks before,
+    at and after their own (0 for a block out of range)."""
+    if mode == "l0_causal":
+        return ((prev & 3) != 0) | (((own & 3) != 0) & ((own >> 8) <= p))
+    if mode == "l0_bidir":
+        return ((prev | own | nxt) & 3) != 0
+    first = p < nr // 2
+    return torch.where(first, ((prev & 1) != 0) | ((nxt & 3) != 0),
+                       ((prev & 3) != 0) | ((nxt & 2) != 0))
+
+
+def band_live_rows(w, nr: int, mode: str):
+    """(B, L) bool: the rows that have a key with w > 0 in their band,
+    the only rows the kernels read."""
+    B, L = w.shape
+    info = band_block_info(w, nr)
+    pad = torch.zeros((B, 1), dtype=info.dtype, device=w.device)
+    full = torch.cat([pad, info, pad], dim=1)           # blocks -1 .. NB
+    i = torch.arange(L, device=w.device)
+    blk = i // nr + 1
+    return band_row_live(mode, i % nr, nr, full[:, blk - 1], full[:, blk],
+                         full[:, blk + 1])
+
+
+def band_admits(mode: str, off: int, pq, pk, nr: int):
+    """``band_mask`` for rows at positions ``pq`` of their block and keys
+    at positions ``pk`` of the block at offset ``off`` (a band of the
+    mode) from theirs (``band_admits`` in ``csrc/h1d_band.cuh``)."""
+    half = nr // 2
+    if mode == "l0_causal":
+        return (pk <= pq) | (off < 0)
+    if mode == "coarse_bidir":
+        if off < 0:
+            return ~((pq < half) & (pk >= half))
+        return ~((pq >= half) & (pk < half))
+    return torch.ones_like(pq + pk, dtype=torch.bool)
+
+
+def band_group_range(mode: str, off: int, p: int, rows: int, nr: int):
+    """Key groups [lo, hi) of band offset ``off`` that ``band_mask``
+    admits for some row at positions p .. p + rows - 1 of one block."""
+    half = nr // 2
+    lo, hi = 0, _key_groups(nr)
+    if mode == "l0_causal" and off == 0:
+        hi = min(hi, _key_groups(p + rows))
+    if mode == "coarse_bidir" and off < 0 and p + rows <= half:
+        hi = _key_groups(half)
+    if mode == "coarse_bidir" and off > 0 and p >= half:
+        lo = half // 4
+    return lo, hi
+
+
+def band_row_range(mode: str, off: int, kg: int, nr: int):
+    """Positions [lo, hi) of a reader block's rows that ``band_mask``
+    admits for some key of group kg of the key block at offset ``off``
+    from theirs (the dK/dV/dW pass's sums)."""
+    half = nr // 2
+    lo, hi = 0, nr
+    if mode == "l0_causal" and off == 0:
+        lo = 4 * kg
+    if mode == "coarse_bidir" and off < 0 and 4 * kg >= half:
+        lo = half
+    if mode == "coarse_bidir" and off > 0 and 4 * kg + 3 < half:
+        hi = half
+    return lo, hi
+
+
+def lane_item(it: int, W: int):
+    """(row pair, lane j among the pair's W) of item ``it`` of a score pass:
+    in each warp a pair's lanes differ in lane bit 0 and the bits above
+    the pair's (``lane_item`` in ``csrc/h1d_band.cuh``)."""
+    if W == 1:
+        return it, 0
+    P, l = 32 // W, it & 31
+    return (it >> 5) * P + ((l >> 1) & (P - 1)), (l & 1) | ((l >> 1) // P << 1)
+
+
+def lane_xor(o: int, W: int) -> int:
+    """Lane offset of the o-th xor step among a row pair's lanes."""
+    return 1 if o == 1 else o * (32 // W)
+
+
+def lane_groups(npairs: int, W: int) -> int:
+    return -(-npairs // 32) if W == 1 else -(-(npairs * W) // 32)
+
+
+def band_pair_items(mode: str, t0: int, rows: int, nr: int):
+    """(item, row, lanes, [(off, kg), ...]) of every active item of the
+    score pass (the forward's and the dQ pass's) on the tile of ``rows``
+    rows from row t0: a row pair against group kg of the bands of its lane
+    slot (W = slots * nr / 4 lanes a row pair, slot sl takes bands sl, sl
+    + slots, ...), less the groups the mask masks whole for both rows."""
+    nkg = _key_groups(nr)
+    slots = BAND_SLOTS
+    W = slots * nkg
+    out = []
+    for it in range(32 * lane_groups(rows // 2, W)):
+        pair, j = lane_item(it, W)
+        if pair >= rows // 2:
+            continue
+        r0, sl, kg = 2 * pair, j // nkg, j % nkg
+        p = (t0 + r0) % nr
+        groups = []
+        for b in range(sl, band_count(mode), slots):
+            off = band_off(mode, b)
+            lo, hi = band_group_range(mode, off, p, 2, nr)
+            if lo <= kg < hi:
+                groups.append((off, kg))
+        out.append((it, r0, W, groups))
+    return out
+
+
+def band_fwd_floats(mode: str, tq: int, d: int, dv: int, nr: int) -> int:
+    nwb = band_window_blocks(mode, tq, nr)
+    nkw = nwb * nr + 4
+    qs = _round4(d) + 4
+    as_ = band_count(mode) * 4 * _key_groups(nr) + 4
+    return tq * qs + nkw * qs + nkw * _round4(dv) + tq * as_ + nkw + nwb + tq
+
+
+def band_dq_floats(mode: str, tq: int, d: int, dv: int, nr: int) -> int:
+    nwb = band_window_blocks(mode, tq, nr)
+    nkw = nwb * nr + 4
+    qs, gs = _round4(d) + 4, _round4(dv) + 4
+    as_ = band_count(mode) * 4 * _key_groups(nr) + 4
+    return (tq * qs + tq * gs + max(tq * gs, tq * as_) + nkw * qs + nkw * gs
+            + nkw + 4 * tq + nwb + tq)
+
+
+def band_row_slots(mode: str, nr: int) -> int:
+    """Floats of one row's band in the backward's a / ds scratch: every
+    band's key groups of 4."""
+    return band_count(mode) * 4 * _key_groups(nr)
+
+
+def band_dkvw_floats(mode: str, nkb: int, tq: int, d: int, dv: int,
+                     nr: int) -> int:
+    nk = nkb * 4 * _key_groups(nr)
+    d4, dv4 = _round4(d), _round4(dv)
+    qs, gs, xs = d4 + 4, dv4 + 4, 2 * band_row_slots(mode, nr) + 4
+    return (nk * (d4 + dv4 + 1) + tq * qs + tq * gs + tq * xs + nkb * nr
+            + tq + nkb + tq)
+
+
+def band_fwd_tq(mode: str, B: int, G: int, L: int, d: int, dv: int,
+                nr: int, backward: bool = False) -> int:
+    """Rows a tile of the forward (or of the dQ pass): BAND_TQ, halved to
+    16 while the grid has fewer than FILL_CTAS CTAs or the tile exceeds
+    the shared memory; 0 when 16 rows do not fit."""
+    floats = band_dq_floats if backward else band_fwd_floats
+    tq = BAND_TQ
+    while tq > 16 and (4 * floats(mode, tq, d, dv, nr) > SMEM_MAX
+                       or B * G * -(-L // tq) < FILL_CTAS):
+        tq //= 2
+    return tq if 4 * floats(mode, tq, d, dv, nr) <= SMEM_MAX else 0
+
+
+def band_dkvw_tiles(mode: str, B: int, L: int, d: int, dv: int, nr: int):
+    """(key blocks a CTA, reader rows a chunk) of the dK/dV/dW pass; the
+    rows are 0 when nothing fits."""
+    nb = L // nr
+    n = BAND_KEYS // nr if BAND_KEYS > nr else 1
+    while n > nb:
+        n //= 2
+    while n > 1 and B * -(-nb // n) < FILL_CTAS:
+        n //= 2
+    readers = (n + (1 if mode == "l0_causal" else 2)) * nr
+
+    def nbytes(kb, t):
+        return 4 * band_dkvw_floats(mode, kb, t, d, dv, nr)
+    t = BAND_KV_TQ
+    while t > 16 and (t // 2 >= readers or nbytes(n, t) > SMEM_MAX):
+        t //= 2
+    while n > 1 and nbytes(n, t) > SMEM_MAX:
+        n //= 2
+    return n, (t if nbytes(n, t) <= SMEM_MAX else 0)
+
+
+def band_dkvw_ctas(mode: str, L: int, nr: int, nkb: int):
+    """(first key block, key blocks, reader rows [lo, hi)) of every CTA
+    of the dK/dV/dW pass along one sequence."""
+    nb = L // nr
+    out = []
+    for J0 in range(0, nb, nkb):
+        nkh = min(nkb, nb - J0)
+        lo = max(0, J0 - (0 if mode == "l0_causal" else 1)) * nr
+        out.append((J0, nkh, (lo, min(nb, J0 + nkh + 1) * nr)))
+    return out
+
+
+def band_bytes(w, *, nr: int, mode: str, G: int, d: int, dv: int,
+               backward: bool = False) -> int:
+    """Bytes one call in ``l0_causal``, ``l0_bidir`` or ``coarse_bidir``
+    must move: q (and gy, y, and m, dn, gdn, gm in the backward) of the
+    live rows, k and v of the key blocks some live row reads, w, every
+    output once."""
+    B, L = w.shape
+    live = int(band_live_rows(w, nr, mode).sum()) * G
+    info = band_block_info(w, nr)
+    # a key block with a key of w > 0 is read by its own block's rows, or
+    # in coarse_bidir by a neighbour's
+    blocks = int(((info & 3) != 0).sum()) if L // nr > 1 or \
+        mode != "coarse_bidir" else 0
+    if backward:
+        rows_in = live * (d + 2 * dv + 4)
+        out = B * G * L * (d + 1) + B * L * (d + dv + 1)
+    else:
+        rows_in = live * d
+        out = B * G * L * (dv + 2)
+    return 4 * (rows_in + blocks * nr * (d + dv) + B * L + out)
 
 
 # ---------------------------------------------------------------------------
@@ -171,6 +457,23 @@ def sub_pair_items(rows: int, p0: int, nq: int, nkg: int, nkgh: int):
                 row = 2 * k
             out += [(row, g, width) for g in range(width)]
     return out
+
+
+def sub_fwd_floats(d: int, dv: int, nr: int, ratio: int) -> int:
+    """Shared floats of the sub-level forward (``sub_fwd_smem``)."""
+    nq = nr * ratio
+    nkw = (1 if nq >= SUB_TQ else SUB_TQ // nq) * nr + 4
+    qs, as_ = _round4(d) + 4, 4 * _key_groups(nr) + 4
+    return (SUB_TQ * qs + nkw * qs + nkw * _round4(dv) + SUB_TQ * as_ + nkw
+            + 2 * SUB_TQ)
+
+
+def sub_bwd_floats(tq: int, d: int, dv: int, nr: int) -> int:
+    """Shared floats of the sub-level backward at tq rows a tile."""
+    d4, dv4, nk4 = _round4(d), _round4(dv), 4 * _key_groups(nr)
+    qs, gs, as_ = d4 + 4, dv4 + 4, nk4 + 4
+    return (tq * qs + tq * gs + max(tq * gs, 2 * tq * as_) + nk4 * qs
+            + nk4 * gs + nk4 * (d4 + dv4 + 1) + nk4 + 6 * tq)
 
 
 def sub_bytes(w, *, nr: int, ratio: int, G: int, d: int, dv: int,
@@ -303,10 +606,10 @@ def band_attention_fwd(q, k, v, w, *, nr: int,
     _check_mode(mode)
     if mode == SUB_MODE:
         raise ValueError("mode 'sub' goes through band_attention_sub_fwd")
-    check_window(mode, nr)
-    lib = _lib()
     B, G, L, d = q.shape
     dv = v.shape[-1]
+    check_window(mode, nr, d, dv)
+    lib = _lib()
     hc.validate_h1d_shape(L, nr)
     _build.expect(q, "q", (B, G, L, d))
     _build.expect(k, "k", (B, L, d))

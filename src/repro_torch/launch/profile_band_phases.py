@@ -1,19 +1,29 @@
-"""Where a CTA of the sub-level backward kernel (#4, ``sub_bwd_kernel`` in
-``kernels/csrc/h1d_block_bwd.cu``) spends its time, phase by phase.
+"""Where a CTA of a band kernel spends its time, phase by phase.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_band_phases \
-        [--out PATH]
+        [--kernel sub_bwd|band_fwd|band_bwd] [--out PATH]
 
-Builds a copy of ``h1d_block_bwd.cu`` with ``%globaltimer`` stamps
-written by thread 0 of every CTA at its phase boundaries (start, key
-weights read, key block copies issued, rows staged, delta, scores, dq,
-dk/dv, end), runs it once at the LM path's shapes (64 rows = 8 sequences
-x 8 kv heads, G=1, L=1024, d=64, nr=16, every third row padded by 200)
-at every sub level, and prints for each phase the mean and 90th
-percentile over the CTAs that reached the end, and the quartiles of the
-CTAs' start times (waves of resident CTAs show as steps).  The stamps
-are inserted at fixed lines of the source; the script fails if one is
-not found.  Needs a CUDA card and ``nvcc``.
+Builds a copy of the kernel's source with ``%globaltimer`` stamps taken
+by thread 0 of every CTA at its phase boundaries, runs it once and
+prints for each phase the mean and 90th percentile over the CTAs that
+reached the end, and the quartiles of the CTAs' start times (waves of
+resident CTAs show as steps).  A phase's time is the time since the
+stamp before it, summed over the loop iterations that pass it.
+
+* ``sub_bwd`` (default): #4's ``sub_bwd_kernel`` in
+  ``kernels/csrc/h1d_block_bwd.cu`` at the LM path's shapes (64 rows = 8
+  sequences x 8 kv heads, G=1, L=1024, d=64, nr=16, every third row
+  padded by 200), every sub level: start, key weights read, key block
+  copies issued, rows staged, delta, scores, dq, dk/dv, end.
+* ``band_fwd``: #1's ``band_fwd_kernel`` (``h1d_block.cu``) and
+  ``band_bwd``: #3's ``band_dq_kernel`` and ``band_dkvw_kernel``
+  (``h1d_block_bwd.cu``), in ``l0_causal`` at the LM shapes above and in
+  ``l0_bidir`` and ``coarse_bidir`` (level 1, L=1024) at the LRA path's
+  (64 rows = 8 ListOps-length sequences x 8 heads, L=2048, true lengths
+  500..2000).
+
+The stamps are inserted at fixed lines of the sources; the script fails
+if one is not found.  Needs a CUDA card and ``nvcc``.
 """
 from __future__ import annotations
 
@@ -31,92 +41,227 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import h1d_block as hb
 from repro_torch.kernels import h1d_block_bwd as hbb
 
-PHASES = ("start", "weights", "keys issued", "rows staged", "delta",
-          "scores", "dq", "dk/dv", "end")
 MAX_CTAS = 1 << 17
 
-# (text of the source, stamp index): the stamp goes before a comment
-# line, after any other text
-ANCHORS = [
-    ("  int* id_s = row_s + tq;                     // the row's index in "
-     "(B,G,Lq)\n", 0),
-    ("    if (w_s[j] > 0.f) flag |= j < half ? 3 : 2;\n", 1),
-    ("  const int nd4 = d4 / 4, nv4 = dv4 / 4;\n", 2),
-    ("    cp_async_wait();\n    __syncthreads();\n", 3),
-    ("    __syncthreads();                          // y is read: u_s takes "
-     "a, ds\n", 4),
-    ("    // dq = ds @ k", 5),
-    ("    // dk += ds^T q", 6),
-    ("    __syncthreads();                          // the next tile reuses "
-     "the rows\n", 7),
-    ("  if (S > 1) cg::this_cluster().sync();       // peers' P stays until "
-     "read\n", 8),
-]
+# Per instrumented kernel: its stamp array, its phases (the name of the
+# phase that ends at each stamp; stamp 0 is the start) and the anchors
+# (text of the source, stamp, where: "after" the text, "before" it or at
+# an offset into it).
+SUB_BWD = dict(
+    name="sub_bwd_kernel", array="g_sub",
+    phases=("start", "weights", "keys issued", "rows staged", "delta",
+            "scores", "dq", "dk/dv", "end"),
+    anchors=[
+        ("  int* id_s = row_s + tq;                     // the row's index "
+         "in (B,G,Lq)\n", 0, "after"),
+        ("    if (w_s[j] > 0.f) flag |= j < half ? 3 : 2;\n", 1, "after"),
+        ("nullptr;\n  });\n  const int nd4 = d4 / 4, nv4 = dv4 / 4;\n", 2,
+         "after"),
+        ("    cp_async_wait();\n    __syncthreads();\n", 3, "after"),
+        ("    __syncthreads();                          // y is read: u_s "
+         "takes a, ds\n", 4, "after"),
+        ("\n    // dq = ds @ k", 5, 1),
+        ("\n    // dk += ds^T q", 6, 1),
+        ("    __syncthreads();                          // the next tile "
+         "reuses the rows\n", 7, "after"),
+        ("  if (S > 1) cg::this_cluster().sync();       // peers' P stays "
+         "until read\n", 8, "after"),
+    ])
+BAND_FWD = dict(
+    name="band_fwd_kernel", array="g_fwd",
+    phases=("start", "weights, live rows", "copies issued", "staged",
+            "scores", "y, end"),
+    anchors=[
+        ("  // the window's key weights first: block info, then the live "
+         "rows\n", 0, "before"),
+        ("  stage_rows(q_s, qs, rows, d, vec_in & VEC_Q, [&](int r) -> "
+         "const float* {\n    return row_s[r] ? q + (row0 + r) * d", 1,
+         "before"),
+        ("  cp_async_wait();\n  __syncthreads();\n\n  // scores, row max, "
+         "a = exp(s - m) and dn per (row pair, lane slot, key\n", 2,
+         "before"),
+        ("  // scores, row max, a = exp(s - m) and dn per (row pair, lane "
+         "slot, key\n", 3, "before"),
+        ("  // y = a @ v: RY rows x 4 columns a thread, over each live "
+         "band's\n", 4, "before"),
+        ("vec_y, acc[rr]);\n  }\n}\n\ntemplate <int MODE, int RY>\nint "
+         "launch_ry(", 5, len("vec_y, acc[rr]);\n  }\n")),
+    ])
+BAND_DQ = dict(
+    name="band_dq_kernel", array="g_dq",
+    phases=("start", "weights, live rows", "copies issued", "staged",
+            "delta", "scores, ties", "dq, end"),
+    anchors=[
+        ("  int* row_s = blk_s + nwbm;                    // 1: the row is "
+         "live\n  const size_t row0 = ((size_t)b * G + g) * Lq + t0;\n", 0,
+         "after"),
+        ("  auto src = [&](const float* base, int r, int n) -> const float* "
+         "{\n    return row_s[r] ? base + (row0 + r) * n", 1, "before"),
+        ("  cp_async_wait();\n  __syncthreads();\n\n  // gmh = gm", 2,
+         "before"),
+        ("\n  // gmh = gm - (gy . y + gdn * dn), two lanes a row\n", 3, 1),
+        ("  __syncthreads();                              // y is read: u_s "
+         "takes ds\n", 4, "after"),
+        ("  // dq = ds @ k: RY rows x 4 columns a thread, over each live "
+         "band's\n", 5, "before"),
+        ("      store4(dq + (row0 + r0 + rr) * d, c, d, vec_out & VEC_DQ, "
+         "acc[rr]);\n  }\n", 6, "after"),
+    ])
+BAND_DKVW = dict(
+    name="band_dkvw_kernel", array="g_kv",
+    phases=("start", "weights", "sums zeroed", "chunk: live rows",
+            "chunk: staged", "chunk: dk/dv", "writes, end"),
+    anchors=[
+        ("  int* row_s = blk_s + nkb;                     // 1: reads a live "
+         "key here\n", 0, "after"),
+        ("  for (int e = tid; e < nk * (d4 + dv4 + 1); e += BAND_THREADS) "
+         "P[e] = 0.f;\n", 1, "before"),
+        ("  auto info = [&](int J) {", 2, "before"),
+        ("      if (!__syncthreads_or(live)) continue;\n", 3, "after"),
+        ("      cp_async_wait();\n      __syncthreads();\n", 4, "after"),
+        ("      __syncthreads();                          // the next chunk "
+         "reuses rows\n", 5, "after"),
+        ("    dw[kb + t] = P[nk * (d4 + dv4) + t / nr * nk4 + t % nr];\n", 6,
+         "after"),
+    ])
+TARGETS = {"sub_bwd": ("h1d_block_bwd", [SUB_BWD]),
+           "band_fwd": ("h1d_block", [BAND_FWD]),
+           "band_bwd": ("h1d_block_bwd", [BAND_DQ, BAND_DKVW])}
 
 
-def _stamp(k: int) -> str:
-    return ("if (threadIdx.x == 0) g_stamp[blockIdx.y * gridDim.x + "
-            f"blockIdx.x][{k}] = now_ns();\n")
+def _stamp(spec, k: int) -> str:
+    slot = f"{spec['array']}[blockIdx.y * gridDim.x + blockIdx.x]"
+    if k == 0:
+        return ("unsigned long long ph_last = now_ns();\n"
+                f"if (threadIdx.x == 0) {slot}[0] = ph_last;\n")
+    return ("if (threadIdx.x == 0) { const unsigned long long ph_t = "
+            f"now_ns(); {slot}[{k}] += ph_t - ph_last; ph_last = ph_t; }}\n")
 
 
-def instrumented_source() -> str:
-    src = (_build.CSRC / "h1d_block_bwd.cu").read_text()
-    head = ("__device__ unsigned long long g_stamp[%d][%d];\n"
-            "__device__ __forceinline__ unsigned long long now_ns() {\n"
+def instrumented_source(stem: str, specs) -> str:
+    src = (_build.CSRC / f"{stem}.cu").read_text()
+    head = ("__device__ __forceinline__ unsigned long long now_ns() {\n"
             "  unsigned long long t;\n"
-            "  asm volatile(\"mov.u64 %%0, %%globaltimer;\" : \"=l\"(t));\n"
-            "  return t;\n}\n" % (MAX_CTAS, len(PHASES)))
+            "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t));\n"
+            "  return t;\n}\n")
+    for spec in specs:
+        head += (f"__device__ unsigned long long {spec['array']}"
+                 f"[{MAX_CTAS}][{len(spec['phases'])}];\n")
     src = src.replace("namespace {\n", head + "namespace {\n", 1)
-    for line, k in ANCHORS:
-        if line not in src:
-            raise RuntimeError(f"anchor for stamp {k} not found: {line!r}")
-        if line.startswith("    // "):       # stamp before a comment line
-            src = src.replace(line, _stamp(k) + line, 1)
-        else:
-            src = src.replace(line, line + _stamp(k), 1)
-    return src + ('\nextern "C" int read_stamps(void* dst, int n) {\n'
-                  '  return (int)cudaMemcpyFromSymbol(dst, g_stamp, '
-                  '(size_t)n * %d * 8);\n}\n'
-                  'extern "C" int clear_stamps() {\n'
-                  '  void* p;\n'
-                  '  cudaError_t e = cudaGetSymbolAddress(&p, g_stamp);\n'
-                  '  return (int)(e ? e : cudaMemset(p, 0, sizeof(g_stamp)));'
-                  '\n}\n' % len(PHASES))
+    for spec in specs:
+        for line, k, where in spec["anchors"]:
+            if src.count(line) != 1:
+                raise RuntimeError(f"{spec['name']}: anchor for stamp {k} "
+                                   f"found {src.count(line)} times: "
+                                   f"{line!r}")
+            at = {"before": 0, "after": len(line)}.get(where, where)
+            new = line[:at] + _stamp(spec, k) + line[at:]
+            src = src.replace(line, new, 1)
+    tail = ""
+    for i, spec in enumerate(specs):
+        arr, n = spec["array"], len(spec["phases"])
+        tail += (f'\nextern "C" int read_stamps{i}(void* dst, int ctas) {{\n'
+                 f'  return (int)cudaMemcpyFromSymbol(dst, {arr}, '
+                 f'(size_t)ctas * {n} * 8);\n}}\n'
+                 f'extern "C" int clear_stamps{i}() {{\n'
+                 f'  void* p;\n'
+                 f'  cudaError_t e = cudaGetSymbolAddress(&p, {arr});\n'
+                 f'  return (int)(e ? e : cudaMemset(p, 0, sizeof({arr})));'
+                 f'\n}}\n')
+    return src + tail
 
 
-def build() -> ctypes.CDLL:
-    out = _build.BUILD_DIR / "phases"
+def build(kernel: str) -> ctypes.CDLL:
+    stem, specs = TARGETS[kernel]
+    out = _build.BUILD_DIR / f"phases_{kernel}"
     out.mkdir(parents=True, exist_ok=True)
-    (out / "h1d_block_bwd.cu").write_text(instrumented_source())
+    (out / f"{stem}.cu").write_text(instrumented_source(stem, specs))
     shutil.copy(_build.CSRC / "h1d_band.cuh", out / "h1d_band.cuh")
-    lib_path = out / "h1d_block_bwd_phases.so"
+    lib_path = out / f"{stem}_phases.so"
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib_path),
-                    str(out / "h1d_block_bwd.cu")], check=True)
+                    str(out / f"{stem}.cu")], check=True)
     lib = ctypes.CDLL(str(lib_path))
-    lib.h1d_band_sub_bwd.argtypes = hbb._SIGNATURES["h1d_band_sub_bwd"]
-    lib.h1d_band_sub_bwd.restype = ctypes.c_int
-    lib.read_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    lib.read_stamps.restype = ctypes.c_int
-    lib.clear_stamps.restype = ctypes.c_int
+    sigs = hbb._SIGNATURES if stem == "h1d_block_bwd" else hb._SIGNATURES
+    for fn, argtypes in sigs.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    for i in range(len(specs)):
+        getattr(lib, f"read_stamps{i}").argtypes = [ctypes.c_void_p,
+                                                    ctypes.c_int]
+        getattr(lib, f"read_stamps{i}").restype = ctypes.c_int
+        getattr(lib, f"clear_stamps{i}").restype = ctypes.c_int
     return lib
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default=None)
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_band_phases needs a CUDA card")
-    lib = build()
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(1)
-    B, G, L, D, NR = 64, 1, 1024, 64, 16
+def summarize(spec, stamps, label):
+    """Per-phase mean and p90 over the CTAs that reached the end."""
+    done = stamps[:, -1] > 0
+    t = stamps[done].astype(np.int64)
+    row = {"kernel": spec["name"], "case": label, "ctas": len(stamps),
+           "ctas_live": int(done.sum()), "phases": {}}
+    if not done.any():
+        return row
+    t0 = t[:, 0].min()
+    row["span_us"] = float((t[:, 0] + t[:, 1:].sum(1)).max() - t0) / 1e3
+    for a in range(1, len(spec["phases"])):
+        us = t[:, a] / 1e3
+        row["phases"][spec["phases"][a]] = dict(
+            mean_us=float(us.mean()), p90_us=float(np.percentile(us, 90)))
+    row["start_quartiles_us"] = [
+        float(x) for x in np.percentile((t[:, 0] - t0) / 1e3,
+                                        [0, 25, 50, 75, 100])]
+    print(f"{spec['name']} {label}: {row['ctas_live']} of {row['ctas']} "
+          f"CTAs reach the end; span {row['span_us']:.1f} us; start "
+          f"quartiles {np.round(row['start_quartiles_us'], 1).tolist()} us")
+    for name, p in row["phases"].items():
+        print(f"  {name:22s} mean {p['mean_us']:6.2f} us  p90 "
+              f"{p['p90_us']:6.2f} us")
+    return row
+
+
+def _lm_inputs(dev, gen):
+    B, G, L, D = 64, 1, 1024, 64
     q = torch.randn(B, G, L, D, generator=gen, device=dev) / D ** 0.5
     k = torch.randn(B, L, D, generator=gen, device=dev)
     w = torch.ones(B, L, device=dev)
     w[::3, L - 200:] = 0.0
     v = torch.randn(B, L, D, generator=gen, device=dev) * w[..., None]
-    res = {"device": torch.cuda.get_device_name(0), "levels": []}
+    return q, k, v, w
+
+
+def _lra_inputs(dev, gen):
+    B, G, L, D = 64, 1, 2048, 64
+    lens = torch.randint(500, 2001, (B // 8,), generator=gen, device=dev)
+    w = (torch.arange(L, device=dev)[None]
+         < lens.repeat_interleave(8)[:, None]).float()
+    q = torch.randn(B, G, L, D, generator=gen, device=dev) / D ** 0.5
+    k = torch.randn(B, L, D, generator=gen, device=dev)
+    v = torch.randn(B, L, D, generator=gen, device=dev) * w[..., None]
+    return q, k, v, w
+
+
+def _run(lib, specs, launch, label, ctas):
+    """Warm, clear, run once, read every spec's stamps."""
+    launch()
+    torch.cuda.synchronize()
+    for i in range(len(specs)):
+        _build.check(getattr(lib, f"clear_stamps{i}")(), "clear_stamps")
+    launch()
+    torch.cuda.synchronize()
+    rows = []
+    for i, spec in enumerate(specs):
+        st = np.zeros((ctas[i], len(spec["phases"])), dtype=np.uint64)
+        _build.check(getattr(lib, f"read_stamps{i}")(st.ctypes.data,
+                                                     ctas[i]), "read_stamps")
+        rows.append(summarize(spec, st, label))
+    return rows
+
+
+def profile_sub_bwd(lib, dev, gen):
+    NR = 16
+    q, k, v, w = _lm_inputs(dev, gen)
+    B, G, L, D = q.shape
+    rows = []
     kc, vc, wc = k, v, w
     for lvl in range(1, hc.num_levels(L, NR)):
         ratio = 1 << lvl
@@ -132,35 +277,80 @@ def main(argv=None):
                  torch.empty_like(fwd[1]), torch.empty_like(fwd[2]),
                  torch.empty_like(fwd[3]))
         ctas = Lk // NR * hb.sub_bwd_splits(G, NR * ratio) * B
-        stamps = np.zeros((ctas, len(PHASES)), dtype=np.uint64)
-        for run in range(2):                      # warm, then the one read
-            if run:                               # dead CTAs stamp no end
-                torch.cuda.synchronize()
-                _build.check(lib.clear_stamps(), "clear_stamps")
+
+        def launch():
             _build.check(lib.h1d_band_sub_bwd(
                 *[t.data_ptr() for t in ins + grads], B, G, L, Lk, D, D, NR,
                 ratio, _build.stream()), "h1d_band_sub_bwd (instrumented)")
-        torch.cuda.synchronize()
-        _build.check(lib.read_stamps(stamps.ctypes.data, ctas), "read_stamps")
-        done = stamps[:, -1] > 0
-        t = stamps[done].astype(np.int64)
-        t0 = t[:, 0].min()
-        row = {"ratio": ratio, "ctas": ctas, "ctas_live": int(done.sum()),
-               "span_us": float(t[:, -1].max() - t0) / 1e3, "phases": {}}
-        for a in range(1, len(PHASES)):
-            us = (t[:, a] - t[:, a - 1]) / 1e3
-            row["phases"][f"{PHASES[a - 1]} -> {PHASES[a]}"] = dict(
-                mean_us=float(us.mean()), p90_us=float(np.percentile(us, 90)))
-        row["start_quartiles_us"] = [
-            float(x) for x in np.percentile((t[:, 0] - t0) / 1e3,
-                                            [0, 25, 50, 75, 100])]
-        res["levels"].append(row)
-        print(f"ratio {ratio}: {row['ctas_live']} of {ctas} CTAs reach the "
-              f"end; span {row['span_us']:.1f} us; start quartiles "
-              f"{np.round(row['start_quartiles_us'], 1).tolist()} us")
-        for name, p in row["phases"].items():
-            print(f"  {name:26s} mean {p['mean_us']:6.2f} us  p90 "
-                  f"{p['p90_us']:6.2f} us")
+        rows += _run(lib, [SUB_BWD], launch, f"ratio {ratio}", [ctas])
+    return rows
+
+
+def _band_cases(dev, gen):
+    """(mode, label, (q, k, v, w)) of the band kernels' profiled calls."""
+    cases = [("l0_causal", "LM l0_causal L=1024", _lm_inputs(dev, gen))]
+    q, k, v, w = _lra_inputs(dev, gen)
+    cases.append(("l0_bidir", "LRA l0_bidir L=2048", (q, k, v, w)))
+    kc, _ = hc.coarsen_weighted_mean(k, w)
+    qc, _ = hc.coarsen_weighted_mean(q, w)
+    vc = hc.coarsen_sum(v, axis=-2)
+    wc = hc.coarsen_sum(w, axis=-1)
+    cases.append(("coarse_bidir", "LRA coarse_bidir level 1 L=1024",
+                  tuple(t.contiguous() for t in (qc, kc, vc, wc))))
+    return cases
+
+
+def profile_band(lib, dev, gen, backward):
+    NR = 16
+    rows = []
+    for mode, label, args in _band_cases(dev, gen):
+        q, k, v, w = args
+        B, G, L, D = q.shape
+        code = hb._MODE_CODES[mode]
+        out = hb.band_attention_fwd_ref(q, k, v, w, nr=NR, mode=mode)
+        tq = hb.band_fwd_tq(mode, B, G, L, D, D, NR, backward=backward)
+        ctas = [G * -(-L // tq) * B]
+        if not backward:
+            def launch():
+                _build.check(lib.h1d_band_fwd(
+                    *[t.data_ptr() for t in (*args, *out)], B, G, L, D, D,
+                    NR, code, _build.stream()), "h1d_band_fwd (instrumented)")
+            rows += _run(lib, [BAND_FWD], launch, label, ctas)
+            continue
+        nkb, _ = hb.band_dkvw_tiles(mode, B, L, D, D, NR)
+        ctas.append(-(-(L // NR) // nkb) * B)
+        cot = [torch.randn(t.shape, generator=gen, device=dev) for t in out]
+        grads = (torch.empty_like(q), torch.empty(B, G, L, device=dev),
+                 torch.empty_like(k), torch.empty_like(v),
+                 torch.empty_like(w),
+                 torch.empty(B, G, L, 2 * hb.band_row_slots(mode, NR),
+                             device=dev))
+
+        def launch():
+            _build.check(lib.h1d_band_bwd(
+                *[t.data_ptr() for t in (*args, *out, *cot, *grads)], B, G,
+                L, D, D, NR, code, _build.stream()),
+                "h1d_band_bwd (instrumented)")
+        rows += _run(lib, [BAND_DQ, BAND_DKVW], launch, label, ctas)
+    return rows
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--kernel", choices=sorted(TARGETS), default="sub_bwd")
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_band_phases needs a CUDA card")
+    lib = build(args.kernel)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    res = {"device": torch.cuda.get_device_name(0), "kernel": args.kernel}
+    if args.kernel == "sub_bwd":
+        res["levels"] = profile_sub_bwd(lib, dev, gen)
+    else:
+        res["cases"] = profile_band(lib, dev, gen,
+                                    backward=args.kernel == "band_bwd")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(res, f, indent=1)

@@ -340,6 +340,76 @@ def test_band_new_modes_match_plain(dev, mode, B, G, L, d, dv, nr):
     assert hbb.band_attention_bwd.mode_launches == {mode: 2}
 
 
+BAND_MODES = ("l0_causal", "l0_bidir", "coarse_bidir")
+
+
+@pytest.mark.parametrize("mode", BAND_MODES)
+@pytest.mark.parametrize("B,G,L,d,dv,nr", [
+    (3, 1, 256, 64, 64, 16), (2, 4, 128, 40, 24, 8), (2, 2, 512, 64, 64, 64),
+    (2, 1, 128, 256, 256, 16), (3, 3, 64, 16, 16, 2), (3, 1, 128, 32, 72, 4)])
+def test_band_ties_dead_tiles_quadrants_and_bits(dev, mode, B, G, L, d, dv,
+                                                 nr):
+    """The l0_causal, l0_bidir and coarse_bidir bodies on exact scores (q
+    and k integer-valued, so every score is exact in any summation order)
+    with a key of each block repeated in a block the same rows read (the
+    block after in l0_causal and l0_bidir, two blocks on in coarse_bidir),
+    so rows tie at their max across two key blocks; dead rows at the head
+    and in the middle of a row, blocks with one live half; G up to 4, nr
+    up to 64, d = dv = 256.  #1 within 1e-5 and #3 within 1e-4 of their
+    plain versions; every row whose band has no key with w > 0 gives m =
+    -1e30, y = 0, dn = 0, dq = 0, gmn = 0; each row's tie share gmn * c
+    sums to its gmh (c the exact tie count over the whole band); two
+    backward calls give identical bits."""
+    gen = torch.Generator(device=dev).manual_seed(L + 7 * G + nr + d)
+    nb = L // nr
+    q = torch.randint(-3, 4, (B, G, L, d), generator=gen,
+                      device=dev).float() * 0.125
+    k = torch.randint(-3, 4, (B, L, d), generator=gen, device=dev).float()
+    if mode == "coarse_bidir":
+        k[:, 2 * nr::nr] = k[:, 0:L - 2 * nr:nr].clone()
+    else:
+        k[:, nr::nr] = k[:, nr - 1:L - 1:nr].clone()
+    w = torch.rand((B, L), generator=gen, device=dev) + 0.5
+    w[1, : L // 4] = 0.0                          # a dead head
+    w[-1, L // 2: L // 2 + L // 4] = 0.0          # dead rows in the middle
+    if nb >= 7:                                   # one live half a block
+        w[0, 3 * nr: 3 * nr + nr // 2] = 0.0
+        w[0, 5 * nr + nr // 2: 6 * nr] = 0.0
+    v = _randn(gen, dev, B, L, dv) * w[..., None]
+    kw = dict(nr=nr, mode=mode)
+    out = hb.band_attention_fwd(q, k, v, w, **kw)
+    _close(out, hb.band_attention_fwd_ref(q, k, v, w, **kw))
+    y, dn, m = out
+    i = torch.arange(L, device=dev)[:, None]
+    j = torch.arange(L, device=dev)[None, :]
+    allow = (hb.band_mask(i, j, nr, mode, L)[None, None]
+             & (w > 0)[:, None, None, :])
+    dead = (~allow.any(-1)).expand(B, G, L)
+    assert dead.any() and not dead.all()
+    assert torch.all(m[dead] == hb._MIN_M)
+    assert not y[dead].any() and not dn[dead].any()
+    cot = _cotangents(gen, dev, out)
+    args = (q, k, v, w, *out, *cot)
+    got = hbb.band_attention_bwd(*args, **kw)
+    _close_grads(got, hbb.band_attention_bwd_ref(*args, **kw))
+    for a, b in zip(got, hbb.band_attention_bwd(*args, **kw)):
+        assert torch.equal(a, b)
+    dq, gmn = got[0], got[4]
+    assert not dq[dead].any() and not gmn[dead].any()
+    # exact scores: the tie count over the whole band and each row's share
+    s = torch.einsum("bgid,bjd->bgij", q.double(), k.double())
+    top = (s == m.double()[..., None]) & allow
+    c = top.sum(-1).double()
+    gy, gdn, gm = (t.double() for t in cot)
+    gmh = gm - ((gy * y.double()).sum(-1) + gdn * dn.double())
+    assert torch.allclose(gmn.double() * c, torch.where(c > 0, gmh, 0.0),
+                          rtol=1e-5, atol=1e-5)
+    assert not gmn[c == 0].any()
+    # some rows tie at their max across two key blocks
+    blocks = (top.view(B, G, L, nb, nr).any(-1)).sum(-1)
+    assert int((blocks >= 2).sum()) > 0
+
+
 @pytest.mark.parametrize("causal,causal_mode", [(False, "fine-q"),
                                                 (True, "coarse-q")])
 def test_h1d_attention_new_modes_grads_on_card_match_plain(dev, causal,
@@ -478,17 +548,32 @@ def test_wrappers_validate_operands(dev):
         hb.band_attention_fwd(q.double(), k, k, w, nr=8)
     with pytest.raises(ValueError):            # unknown mode
         hb.band_attention_fwd(q, k, k, w, nr=8, mode="l1_bidir")
-    q64 = torch.zeros((1, 1, 128, 8), device=dev)
-    k64 = torch.zeros((1, 128, 8), device=dev)
+    # outside the envelope: nr > 64 in every mode, and a bidirectional
+    # window of 3 x 64 keys at d = dv = 128, whose 16-row tiles exceed the
+    # card's 227 KB of shared memory
+    q128 = torch.zeros((1, 1, 256, 8), device=dev)
+    k128 = torch.zeros((1, 256, 8), device=dev)
+    w128 = torch.ones((1, 256), device=dev)
+    qw = torch.zeros((1, 1, 128, 128), device=dev)
+    kw = torch.zeros((1, 128, 128), device=dev)
     w64 = torch.ones((1, 128), device=dev)
-    for mode in ("l0_bidir", "coarse_bidir"):  # 3 * 64 keys a row > 128
+    bad = [(mode, q128, k128, w128, 128) for mode in hb.MODES]
+    bad += [(mode, qw, kw, w64, 64) for mode in ("l0_bidir", "coarse_bidir")]
+    for mode, qb, kb, wb, nr in bad:
         with pytest.raises(ValueError):
-            hb.band_attention_fwd(q64, k64, k64, w64, nr=64, mode=mode)
-        out = hb.band_attention_fwd_ref(q64, k64, k64, w64, nr=64,
-                                        mode=mode)
+            hb.band_attention_fwd(qb, kb, kb, wb, nr=nr, mode=mode)
+        out = hb.band_attention_fwd_ref(qb, kb, kb, wb, nr=nr, mode=mode)
         with pytest.raises(ValueError):
-            hbb.band_attention_bwd(q64, k64, k64, w64, *out, *out, nr=64,
+            hbb.band_attention_bwd(qb, kb, kb, wb, *out, *out, nr=nr,
                                    mode=mode)
+    # a window of 3 x 64 keys at d = 8 is inside it now
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q64 = _randn(gen, dev, 1, 1, 128, 8)
+    k64 = _randn(gen, dev, 1, 128, 8)
+    for mode in ("l0_bidir", "coarse_bidir"):
+        _close(hb.band_attention_fwd(q64, k64, k64, w64, nr=64, mode=mode),
+               hb.band_attention_fwd_ref(q64, k64, k64, w64, nr=64,
+                                         mode=mode))
 
 
 def test_smoke_engine_on_card_matches_cpu(dev):
