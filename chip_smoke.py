@@ -34,7 +34,9 @@ Phases (each raises on failure; nothing is caught):
    nr=16, max_len 2048, pools of 1024+2 pages x 8 heads at every level,
    seeded page tables with private write pages and two inactive slots on
    the TRASH page; an fp32 pool, an int8 pool with every level
-   quantized and a mixed pool (``quant_levels=3``);
+   quantized and a mixed pool (``quant_levels=3``); #7's bound counts
+   the key and value rows its band masks let through
+   (``bound_all_rows_ms``: every band's rows);
 4. serve the paper LM ``h1d-lm-53m`` at full width (seeded random
    weights) with ``ServeEngine(slots=8, max_len=2048)``: 16 requests with
    seeded prompt lengths in 64..1500 and 32 greedy tokens each; every
@@ -653,8 +655,15 @@ def phase_paged_kernels(dev):
             err = max(err, e)
         label, pool = pools[0]
         bms, by = bound(R * row_bytes[label] + small, flops)
+        extra = {}
+        if name == "decode_attend_paged":
+            # the keys the band masks let through, each key and value row
+            # read once; every band's rows beside it
+            keys = partial_keys(t, None, M)
+            extra = dict(bound_all_rows_ms=bms, live_keys=keys)
+            bms, by = bound(keys * 8 * D + small, keys * G * (4 * D + 4))
         rows.append(dict(
-            name=name, route="cuda",
+            **extra, name=name, route="cuda",
             source="src/repro_torch/kernels/csrc/h1d_decode.cu",
             replaces={"decode_attend_paged":
                       "src/repro/kernels/h1d_decode_kernel.py:426",
@@ -1255,7 +1264,8 @@ def sp_positions(dev, gen, d):
 def partial_keys(t, owned, nlev):
     """Key rows that #11 needs on one shard for rows at positions ``t``
     with band ownership bits ``owned``: those the decode band masks let
-    through (``_attend_bands``' rules) in a band the shard owns."""
+    through (``_attend_bands``' rules) in a band the shard owns (every
+    band where ``owned`` is None: what #7 needs)."""
     t = t.long()[:, None]
     j = torch.arange(NR, device=t.device)[None]
     need = []
@@ -1267,7 +1277,8 @@ def partial_keys(t, owned, nlev):
         else:
             span = NR << (band - 1)
             m = (t // span >= 1) & ~((t % span < span // 2) & (j >= NR // 2))
-        need.append(m & (owned[:, band:band + 1] > 0))
+        need.append(m if owned is None else m & (owned[:, band:band + 1]
+                                                  > 0))
     return int(torch.cat(need, 1).sum())
 
 

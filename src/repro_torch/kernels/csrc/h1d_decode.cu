@@ -17,22 +17,24 @@
 // t[r], its own level-0 block (causal), the previous level-0 block, and
 // one coarse block I_l - 1 per level l = 1..M-1 under the quadrant mask,
 // with weight 2^l in the denominator only.  One max over all bands, then
-// o = (a @ v) / max(a . w, 1e-9).  The dense, the paged and the
-// sequence-parallel kernels share this body; only the addressor
-// `band_row` differs: dense reads block (row, level, block) of the row's
-// own slab (clamped as the TPU kernel's index maps are), paged reads pool
-// row bidx[r, band] * nr + j, and local reads block bidx[r, band] of the
-// row's slab in one shard's level array, whose row count per level the
-// caller passes (a sharded level holds (Lmax >> l) / d rows, a replicated
-// one Lmax >> l).  The local variant (#11) also masks each band by its
-// ownership bit owned[r, band], reads nothing of a band that is unowned
-// or masked whole and no key row that is masked, and writes the
-// unnormalised partial num = a @ v, den = a . w and m = max(rowmax,
-// -1e30) for the cross-shard merge; t stays global, so every mask
-// compares global positions.  The int8 variant dequantizes each key and
-// value row with its per-row scale before the dot product (float(q) *
-// scale, as the plain version does); fp32 levels of a mixed pool never
-// read their scales.
+// o = (a @ v) / max(a . w, 1e-9).  Two bodies compute it:
+//   * decode_attend_kernel<ADDR, QUANT> (#5 dense, #8 int8 paged): one
+//     CTA per row, each thread scores whole keys from device memory; the
+//     addressor `band_row` reads block (row, level, block) of the row's
+//     own slab (clamped as the TPU kernel's index maps are) or pool row
+//     bidx[r, band] * nr + j; int8 rows are dequantized with their
+//     per-row scale (float(q) * scale, as the plain version does), and
+//     fp32 levels of a mixed pool never read their scales.
+//   * attend_staged_kernel<ADDR> (#7 paged, #11 one shard's slab): each
+//     live band's block is one contiguous run of rows (page bidx[r, band]
+//     of the pool, or block bidx[r, band] of the row's slab in one shard's
+//     level array, whose row count per level the caller passes: a sharded
+//     level holds (Lmax >> l) / d rows, a replicated one Lmax >> l), staged
+//     in shared memory by bulk copies before any compute.  #11 also masks
+//     each band by its ownership bit owned[r, band] and writes the
+//     unnormalised partial num = a @ v, den = a . w and m = max(rowmax,
+//     -1e30) for the cross-shard merge; t stays global, so every mask
+//     compares global positions.
 //
 // update_cache: per level l = 0..nlev-1 the token's ancestor t >> l sits
 // in one sibling pair at row (t >> l) & 1; that row takes the carried
@@ -63,21 +65,44 @@
 // write and allocates fresh ones before the tick).
 //
 // What bounds them on the H100: neither bytes nor FLOPs.  At 64 rows and
-// Lmax 2048, attend reads (M+1)*nr key and value rows per row, ~4 MB in
-// all (int8: a quarter), and update touches ~2*nlev rows per row, well
-// under 1 MB: a few microseconds of memory traffic, so each launch is
-// bound by its launch latency and the serial chain inside one CTA.
-// Design: one CTA per cache row, no staging beyond the row's scores;
-// every thread scores whole keys (dot over D from device memory, which
-// the L1 keeps), the max and the denominator are warp reductions over a
-// few hundred scores, and the output columns are computed by one thread
-// each.  The update kernels give each thread one column and walk the
-// ancestor chain in registers; the int8 one adds a block absmax per
-// level (warp maxima combined by an integer atomicMax on the non-negative
-// float bits, which is exact and order-free).
+// Lmax 2048, attend reads at most (M+1)*nr key and value rows per row, ~4
+// MB in all (int8: a quarter), and update touches ~2*nlev rows per row,
+// well under 1 MB: a few microseconds of memory traffic, so each launch
+// is bound by its launch latency and the chain of dependent steps inside
+// one CTA.  The old attend body (#5, #8) is that chain: every thread
+// scores whole keys (dot over D from device memory), the max and the
+// denominator are warp reductions, and each output column walks every
+// key through a pointer read, a load and an fmaf.
+// The staged body (#7, #11) cuts the chain to three memory round trips
+// (the first parameter read, t and bidx, one bulk copy) and a few
+// shared-memory steps: warp 0 reads t, bidx and owned, keeps of each band
+// only the prefix of rows its mask lets through (band 0 the rows up to
+// t, a coarse band in its first quadrant the first half, nothing of a
+// band masked whole or not owned) and, with everything resident, issues
+// every live band's key copy, then its value copy (cp.async.bulk onto
+// one mbarrier per slot, or 4-byte cp.async where a block is not 16-byte
+// aligned), so the values arrive while the keys are scored.  One warp per
+// band (or chunk of rows): scores with a few lanes per key and float4
+// loads, the vector order rotated per key so that the keys of a quarter
+// warp hit distinct banks, each key vector reused across up to 4 query
+// groups, a running max per warp; one block-wide max; then a @ v with
+// lane j computing the weight of key j (and a . w) once and handing it
+// to the warp's lane groups by shuffle, each group adding every P-th key
+// over its column vectors, the groups summed by xor-shuffles; the warps'
+// partials and denominators are added in warp order (no atomics: two
+// calls give the same bits).  Where all live bands do not fit in shared
+// memory, chunks of rows stream through a ring of stages, keys first
+// (all scores, so the single max stays exact), then values (attend_plan,
+// mirrored by the wrappers' plan_attend_stages).
+// The update kernels give each thread one column and walk the ancestor
+// chain in registers; the int8 one adds a block absmax per level (warp
+// maxima combined by an integer atomicMax on the non-negative float
+// bits, which is exact and order-free).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -127,17 +152,13 @@ __device__ __forceinline__ int band_level(int band) {
 }
 
 // Row, in its level's (rows, width) array, of key j of `band` for cache
-// row r at position t; `rows_l` is the LOCAL slab's row count of the
-// band's level.
+// row r at position t (the old attend body: dense or paged).
 template <int ADDR>
 __device__ __forceinline__ size_t band_row(int r, int band, int j, int t,
                                            const int* bidx, int nbands,
-                                           int Lmax, int nr, int rows_l) {
+                                           int Lmax, int nr) {
   if (ADDR == ADDR_PAGED)
     return (size_t)bidx[(size_t)r * nbands + band] * nr + j;
-  if (ADDR == ADDR_LOCAL)
-    return (size_t)r * rows_l +
-           (size_t)bidx[(size_t)r * nbands + band] * nr + j;
   const int l = band_level(band);
   const int Ll = Lmax >> l;
   const int nbl = Ll / nr;
@@ -148,14 +169,16 @@ __device__ __forceinline__ size_t band_row(int r, int band, int j, int t,
   return (size_t)r * Ll + (size_t)blk * nr + j;
 }
 
-// LOCAL: whether any key of `band` counts for a row at position t whose
-// band ownership bits are own_r: the band is owned, and not masked whole
-// (band 1 before the second fine block, a coarse band before I_l = 1).
-__device__ __forceinline__ bool band_live(int band, int t, int nr,
-                                          const int* own_r) {
-  if (own_r[band] <= 0) return false;
-  if (band == 0) return true;
-  return t / (band == 1 ? nr : nr << band_level(band)) >= 1;
+// Rows of `band` that count for a row at position t: a prefix of the
+// band's nr rows (band 0: those up to t; band 1: all once t passes the
+// first block; a coarse band: none before I_l = 1, then the first half
+// while t is in the first half of its span, else all).
+__host__ __device__ __forceinline__ int band_rows(int band, int t, int nr) {
+  if (band == 0) return t % nr + 1;
+  if (band == 1) return t / nr >= 1 ? nr : 0;
+  const int span = nr << (band - 1);
+  if (t / span < 1) return 0;
+  return (t % span) < span / 2 ? nr / 2 : nr;
 }
 
 // First row of the sibling pair that holds ancestor t >> l.
@@ -171,15 +194,12 @@ __device__ __forceinline__ size_t pair_row(int r, int l, int t,
   return (size_t)r * Ll + 2 * (size_t)pair;
 }
 
-// out: normalised (R, G, Dv); LOCAL: the partial num there, den and m
-// (R, G) in den_out / m_out.
+// out: normalised (R, G, Dv).
 template <int ADDR, bool QUANT>
 __global__ void __launch_bounds__(THREADS)
 decode_attend_kernel(const float* __restrict__ q, Levels lv,
                      const int* __restrict__ tpos,
-                     const int* __restrict__ bidx,
-                     const int* __restrict__ owned, float* __restrict__ out,
-                     float* __restrict__ den_out, float* __restrict__ m_out,
+                     const int* __restrict__ bidx, float* __restrict__ out,
                      int G, int Lmax, int D, int Dv, int nr, int nlev,
                      float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -206,17 +226,7 @@ decode_attend_kernel(const float* __restrict__ q, Levels lv,
   for (int kk = threadIdx.x; kk < K; kk += blockDim.x) {
     const int band = kk / nr, j = kk % nr;
     const int l = band_level(band);
-    if (ADDR == ADDR_LOCAL &&
-        !band_live(band, t, nr, owned + (size_t)r * nbands)) {
-      // nothing of the band counts on this shard: read none of it (its
-      // weights a = exp(NEG_INF - m) are exactly 0 either way)
-      w_s[kk] = 0.f;
-      vrow[kk] = nullptr;
-      for (int g = 0; g < G; ++g) s_s[g * K + kk] = NEG_INF;
-      continue;
-    }
-    const size_t row = band_row<ADDR>(r, band, j, t, bidx, nbands, Lmax, nr,
-                                      lv.rows[l]);
+    const size_t row = band_row<ADDR>(r, band, j, t, bidx, nbands, Lmax, nr);
     bool mask;
     float wgt;
     if (band == 0) {
@@ -240,10 +250,6 @@ decode_attend_kernel(const float* __restrict__ q, Levels lv,
       vsc_s[kk] = lv.vsc[l][row];
     } else {
       vrow[kk] = static_cast<const float*>(lv.v[l]) + row * Dv;
-    }
-    if (ADDR == ADDR_LOCAL && !mask) {   // a masked key of a live band
-      for (int g = 0; g < G; ++g) s_s[g * K + kk] = NEG_INF;
-      continue;
     }
     for (int g = 0; g < G; ++g) {
       const float* qg = q_s + g * D;
@@ -276,13 +282,7 @@ decode_attend_kernel(const float* __restrict__ q, Levels lv,
       den = fmaf(a, w_s[kk], den);
     }
     den = warp_sum(den);
-    if (lane == 0) {
-      den_s[g] = den;
-      if (ADDR == ADDR_LOCAL) {
-        den_out[(size_t)r * G + g] = den;
-        m_out[(size_t)r * G + g] = m;
-      }
-    }
+    if (lane == 0) den_s[g] = den;
   }
   __syncthreads();
 
@@ -303,18 +303,11 @@ decode_attend_kernel(const float* __restrict__ q, Levels lv,
             acc = fmaf(ag[kk], static_cast<const float*>(vrow[kk])[c], acc);
         }
       }
-    } else if (ADDR == ADDR_LOCAL) {
-      for (int k0 = 0; k0 < K; k0 += nr) {
-        if (!vrow[k0]) continue;     // a band that is not live adds 0
-        for (int kk = k0; kk < k0 + nr; ++kk)
-          acc = fmaf(ag[kk], static_cast<const float*>(vrow[kk])[c], acc);
-      }
     } else {
       for (int kk = 0; kk < K; ++kk)
         acc = fmaf(ag[kk], static_cast<const float*>(vrow[kk])[c], acc);
     }
-    out[(size_t)r * G * Dv + o] =
-        ADDR == ADDR_LOCAL ? acc : acc / fmaxf(den_s[g], 1e-9f);
+    out[(size_t)r * G * Dv + o] = acc / fmaxf(den_s[g], 1e-9f);
   }
 }
 
@@ -447,9 +440,8 @@ size_t attend_smem(int G, int D, int nlev, int nr) {
 
 template <int ADDR, bool QUANT>
 int launch_attend(const float* q, const Levels& lv, const int* t,
-                  const int* bidx, const int* owned, float* out, float* den,
-                  float* m, int R, int G, int Lmax, int D, int Dv, int nr,
-                  int nlev, float scale, void* stream) {
+                  const int* bidx, float* out, int R, int G, int Lmax, int D,
+                  int Dv, int nr, int nlev, float scale, void* stream) {
   if (nlev < 1 || nlev > MAXLEV || R < 1) return (int)cudaErrorInvalidValue;
   const size_t smem = attend_smem(G, D, nlev, nr);
   if (smem > 48 * 1024) {
@@ -460,8 +452,582 @@ int launch_attend(const float* q, const Levels& lv, const int* t,
   }
   decode_attend_kernel<ADDR, QUANT>
       <<<R, THREADS, smem, (cudaStream_t)stream>>>(
-          q, lv, t, bidx, owned, out, den, m, G, Lmax, D, Dv, nr, nlev,
-          scale);
+          q, lv, t, bidx, out, G, Lmax, D, Dv, nr, nlev, scale);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// staged attend (#7, #11)
+// ---------------------------------------------------------------------------
+
+constexpr int SMEM_LIMIT = 232448;   // shared memory a block may use (H100)
+constexpr int WARPS = THREADS / 32;
+static_assert(MAXLEV + 1 <= 64, "the set-up reads two bands a lane");
+
+// Shared memory of one CTA of attend_staged_kernel, in bytes from the
+// start: `stages` mbarriers; a ring of `stages` slots of `cr` rows x
+// max(D, Dv) floats; the scaled query (Gq x D, Gq = G rounded up to the
+// 4 groups a key vector serves, zeros past G); scores (G x K); each
+// warp's output partial (WARPS x G x Dv); each group's running max per
+// warp and each warp's partial denominator (2 x WARPS x G); the
+// live-band table.  The partials and the maxima start 16-byte aligned.
+// K = (nlev + 1) * nr.  vw: 4 where D and Dv are multiples of 4 (float4
+// loads), else 1; team: lanes that score one key; vlanes: lanes that
+// share one key in a @ v (a power of two >= Dv / vw, at most 32).
+struct AttendPlan {
+  int stages, cr, slot, quantum, resident, vw, team, vlanes;
+  int off_ring, off_q, off_s, off_red, off_gs, off_tab, smem;
+};
+
+__host__ __device__ __forceinline__ int ceil_to(int n, int m) {
+  return (n + m - 1) / m * m;
+}
+
+inline AttendPlan attend_layout(int G, int D, int Dv, int nr, int nlev,
+                                int stages, int cr, int quantum) {
+  AttendPlan p{};
+  const int nb = nlev + 1, K = nb * nr;
+  p.stages = stages;
+  p.cr = cr;
+  p.quantum = quantum;
+  p.resident = stages == 2 * nb && cr == nr;
+  p.vw = D % 4 == 0 && Dv % 4 == 0 ? 4 : 1;
+  p.slot = ceil_to(cr * max(D, Dv), 4);
+  const int nc = D / p.vw;     // key vectors; a lane scores >= 4 of them
+  p.team = 1;
+  while (p.team < 8 && nc % (2 * p.team) == 0 && nc / (2 * p.team) >= 4)
+    p.team *= 2;
+  p.vlanes = 1;
+  while (p.vlanes < Dv / p.vw && p.vlanes < 32) p.vlanes *= 2;
+  long off = ceil_to(stages * 8, 16);
+  p.off_ring = (int)off;
+  off += 4L * stages * p.slot;
+  p.off_q = (int)off;
+  off += 4L * (G == 1 ? 1 : ceil_to(G, 4)) * D;
+  p.off_s = (int)off;
+  off += 4L * G * K;
+  off = ceil_to((int)off, 16);
+  p.off_red = (int)off;
+  off += 4L * WARPS * G * Dv;
+  off = ceil_to((int)off, 16);
+  p.off_gs = (int)off;
+  off += 4L * 2 * WARPS * G;
+  p.off_tab = (int)off;
+  off += 4L * (6 * (nb + 1) + 3);
+  p.smem = off > SMEM_LIMIT ? SMEM_LIMIT + 1 : (int)off;
+  return p;
+}
+
+// The launch plan: every live band's keys and values resident at once
+// (2 (nlev + 1) slots of nr rows) where that fits; else a ring of as many
+// stages as fit, its chunks halved from nr rows while fewer than 2 fit
+// (never below `quantum` rows, the granule that keeps every bulk copy a
+// multiple of 16 bytes when D or Dv is not a multiple of 4).  stages = 0:
+// not even one chunk fits.
+inline AttendPlan attend_plan(int G, int D, int Dv, int nr, int nlev) {
+  const int nb = nlev + 1;
+  const int quantum = (D % 4 == 0 && Dv % 4 == 0) || nr % 4 ? 1 : 4;
+  AttendPlan p = attend_layout(G, D, Dv, nr, nlev, 2 * nb, nr, quantum);
+  if (p.smem <= SMEM_LIMIT) return p;
+  for (int cr = nr;; cr /= 2) {
+    const int most = 2 * nb * ((nr + cr - 1) / cr);
+    const AttendPlan none = attend_layout(G, D, Dv, nr, nlev, 0, cr, quantum);
+    const int per = 4 * none.slot + 8;
+    const int fit = none.smem > SMEM_LIMIT ? 0 : (SMEM_LIMIT - none.smem) / per;
+    int S = fit < most ? fit : most;
+    while (S > 0 &&
+           attend_layout(G, D, Dv, nr, nlev, S, cr, quantum).smem > SMEM_LIMIT)
+      --S;
+    p = attend_layout(G, D, Dv, nr, nlev, S, cr, quantum);
+    p.resident = 0;
+    if (S >= 2 || cr % 2 || (cr / 2) % quantum) return p;
+  }
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* ptr) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" :: "r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+
+// One bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) that completes its bytes on `bar`, after announcing them.
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
+                                          int bytes, uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+// This thread's arrival on `bar` once its earlier cp.async are done.
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+template <int N>
+using Groups = std::integral_constant<int, N>;
+
+static_assert(THREADS / 32 == 8, "group_max reads 8 warp maxima");
+
+// The single max of one group from its 8 warp maxima (16-byte aligned),
+// floored at MIN_M.
+__device__ __forceinline__ float group_max(const float* wm) {
+  const float4 a = *reinterpret_cast<const float4*>(wm);
+  const float4 b = *reinterpret_cast<const float4*>(wm + 4);
+  return fmaxf(fmaxf(fmaxf(fmaxf(a.x, a.y), fmaxf(a.z, a.w)),
+                     fmaxf(fmaxf(b.x, b.y), fmaxf(b.z, b.w))), MIN_M);
+}
+
+// VW floats from p (16-byte aligned where VW = 4).
+template <int VW>
+struct Vec {
+  float x[VW];
+  __device__ __forceinline__ static Vec load(const float* p) {
+    Vec v;
+    if constexpr (VW == 4) {
+      const float4 f = *reinterpret_cast<const float4*>(p);
+      v.x[0] = f.x; v.x[1] = f.y; v.x[2] = f.z; v.x[3] = f.w;
+    } else {
+      v.x[0] = *p;
+    }
+    return v;
+  }
+  __device__ __forceinline__ void store(float* p) const {
+    if constexpr (VW == 4)
+      *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+    else
+      *p = x[0];
+  }
+};
+
+// out: normalised (R, G, Dv); LOCAL: the partial num there, den and m
+// (R, G) in den_out / m_out.  bulk: every block 16-byte aligned (the
+// launcher checks the level pointers and the plan's quantum).  VW = the
+// plan's vw.  The parameters the first warp reads come first, the 1.2 KB
+// of level pointers last (other constant-cache lines).
+template <int ADDR, int VW>
+__global__ void __launch_bounds__(THREADS, 1)
+attend_staged_kernel(const int* __restrict__ tpos,
+                     const int* __restrict__ bidx,
+                     const int* __restrict__ owned,
+                     const float* __restrict__ q, float* __restrict__ out,
+                     float* __restrict__ den_out, float* __restrict__ m_out,
+                     int G, int D, int Dv, int nr, int nlev, float scale,
+                     int bulk, AttendPlan p, Levels lv) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  float* ring = reinterpret_cast<float*>(smem + p.off_ring);
+  float* q_s = reinterpret_cast<float*>(smem + p.off_q);
+  float* s_s = reinterpret_cast<float*>(smem + p.off_s);
+  float* red = reinterpret_cast<float*>(smem + p.off_red);   // (WARPS, G, Dv)
+  float* wmax = reinterpret_cast<float*>(smem + p.off_gs);   // (G, WARPS)
+  float* dpart = wmax + WARPS * G;                             // (WARPS, G)
+  int* tab = reinterpret_cast<int*>(smem + p.off_tab);
+  const int nb = nlev + 1, K = nb * nr, NB = nb + 1;
+  // per live band i: band, first row of its block in the level array,
+  // first key, staged rows, rows that count, first chunk; then the
+  // live-band, key and chunk counts
+  int* tb_band = tab;
+  int* tb_row = tab + NB;
+  int* tb_kst = tab + 2 * NB;
+  int* tb_cnt = tab + 3 * NB;
+  int* tb_tru = tab + 4 * NB;
+  int* tb_ch0 = tab + 5 * NB;
+  int* tb_n = tab + 6 * NB;
+  const int r = blockIdx.x, tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int S = p.stages, cr = p.cr, Gq = G == 1 ? 1 : ceil_to(G, 4);
+
+  // resident: the keys of band b (key chunk c, the c-th live band
+  // tb_band[c]) in slot b, its values in slot nb + b, each slot used
+  // once; else item i (key chunk i < nch, value chunk i - nch) in slot
+  // i % S, used for the (i / S)-th time.  ib: the item's live band.
+  auto slot_of = [&](int item, int nch, int ib) {
+    return p.resident ? (item < nch ? 0 : nb) + tb_band[ib] : item % S;
+  };
+  auto parity_of = [&](int item) { return p.resident ? 0 : (item / S) & 1; };
+  auto issue = [&](int i, int nl, int nch) {
+    const bool isv = i >= nch;
+    const int c = isv ? i - nch : i;
+    int ib = 0;
+    while (ib + 1 < nl && tb_ch0[ib + 1] <= c) ++ib;
+    const int part = c - tb_ch0[ib];
+    const int rows = min(cr, tb_cnt[ib] - part * cr);
+    const int l = band_level(tb_band[ib]);
+    const int width = isv ? Dv : D;
+    const float* src = static_cast<const float*>(isv ? lv.v[l] : lv.k[l]) +
+                       ((size_t)tb_row[ib] + (size_t)part * cr) * width;
+    const int s = slot_of(i, nch, ib);
+    float* dst = ring + (size_t)s * p.slot;
+    if (bulk) {
+      bulk_copy(dst, src, rows * width * 4, bar + s);
+    } else {
+      for (int e = tid; e < rows * width; e += THREADS)
+        cp_async4(dst + e, src + e);
+      cp_async_arrive(bar + s);
+    }
+  };
+  // bulk: warp 0's lanes issue one item each; else every thread copies
+  auto fill = [&](int i0, int i1, int nl, int nch) {
+    if (bulk) {
+      if (warp == 0) {
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        for (int i = i0 + lane; i < i1; i += 32) issue(i, nl, nch);
+      }
+    } else {
+      for (int i = i0; i < i1; ++i) issue(i, nl, nch);
+    }
+  };
+
+  // the live bands, their staged rows and chunks; resident and bulk:
+  // each live band's lane issues its key copy as soon as it knows its
+  // rows, and its value copy after the table.  Every load of t, bidx,
+  // owned and the level pointers (nb <= 33: two bands a lane) is issued
+  // before the barrier set-up, whose asm the compiler does not move loads
+  // across.
+  if (warp == 0) {
+    const int t = tpos[r];
+    int blk2[2] = {0, 0}, own2[2] = {1, 1};
+    const float* kl2[2];
+    const float* vl2[2];
+    int rows2[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int b = h * 32 + lane, l = band_level(min(b, nb - 1));
+      if (b < nb) {
+        blk2[h] = bidx[(size_t)r * nb + b];
+        if (ADDR == ADDR_LOCAL) own2[h] = owned[(size_t)r * nb + b];
+      }
+      kl2[h] = static_cast<const float*>(lv.k[l]);
+      vl2[h] = static_cast<const float*>(lv.v[l]);
+      rows2[h] = ADDR == ADDR_LOCAL ? lv.rows[l] : 0;
+    }
+    for (int s = lane; s < S; s += 32) mbar_init(bar + s, bulk ? 1 : THREADS);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    __syncwarp();
+    int nk = 0, nc = 0, nl = 0;
+    for (int b0 = 0; b0 < nb; b0 += 32) {
+      const int h = b0 / 32, b = b0 + lane, blk = blk2[h];
+      const float* kl = kl2[h];
+      const float* vl = vl2[h];
+      int tru = 0;
+      if (b < nb) {
+        tru = band_rows(b, t, nr);
+        if (own2[h] <= 0) tru = 0;
+      }
+      const int cnt = tru ? min(nr, ceil_to(tru, p.quantum)) : 0;
+      const int row = r * rows2[h] + blk * nr;
+      const bool early = bulk && p.resident && tru > 0;
+      if (early)                        // keys first: the scores wait on them
+        bulk_copy(ring + (size_t)b * p.slot, kl + (size_t)row * D,
+                  cnt * D * 4, bar + b);
+      const int nchk = (cnt + cr - 1) / cr;
+      int kc = cnt, cc = nchk;                  // inclusive scans
+      for (int off = 1; off < 32; off <<= 1) {
+        const int a = __shfl_up_sync(FULL, kc, off);
+        const int c = __shfl_up_sync(FULL, cc, off);
+        if (lane >= off) {
+          kc += a;
+          cc += c;
+        }
+      }
+      const unsigned live = __ballot_sync(FULL, tru > 0);
+      if (tru > 0) {
+        const int i = nl + __popc(live & ((1u << lane) - 1));
+        tb_band[i] = b;
+        tb_row[i] = row;
+        tb_kst[i] = nk + kc - cnt;
+        tb_cnt[i] = cnt;
+        tb_tru[i] = tru;
+        tb_ch0[i] = nc + cc - nchk;
+      }
+      if (early)
+        bulk_copy(ring + (size_t)(nb + b) * p.slot, vl + (size_t)row * Dv,
+                  cnt * Dv * 4, bar + nb + b);
+      nk += __shfl_sync(FULL, kc, 31);
+      nc += __shfl_sync(FULL, cc, 31);
+      nl += __popc(live);
+    }
+    if (lane == 0) {
+      tb_kst[nl] = nk;
+      tb_ch0[nl] = nc;
+      tb_n[0] = nl;
+      tb_n[1] = nk;
+      tb_n[2] = nc;
+    }
+    __syncwarp();
+    if (bulk && !p.resident)
+      for (int i = lane; i < min(S, 2 * nc); i += 32) issue(i, nl, nc);
+  } else {
+    for (int e = tid - 32; e < Gq * D; e += THREADS - 32) {
+      const int g = e / D;
+      q_s[e] = g < G ? q[(size_t)r * G * D + e] * scale : 0.f;
+    }
+    for (int e = tid - 32; e < WARPS * G * Dv; e += THREADS - 32) red[e] = 0.f;
+    for (int e = tid - 32; e < 2 * WARPS * G; e += THREADS - 32)
+      wmax[e] = e < WARPS * G ? NEG_INF : 0.f;
+  }
+  __syncthreads();
+  // setup done
+
+  const int nl = tb_n[0], nch = tb_n[2], nitems = 2 * nch;
+  int issued = p.resident ? nitems : min(S, nitems);
+  if (!bulk) fill(0, issued, nl, nch);
+  // after a batch that ends at item `end`, the next S items may be issued
+  auto refill = [&](int end) {
+    const int want = min(end + S, nitems);
+    if (want <= issued) return;
+    __syncthreads();
+    fill(issued, want, nl, nch);
+    issued = want;
+  };
+  // chunk c: its band ib (the c-th live band in the resident plan, else
+  // scanned for), first row in the band, rows staged, rows that count,
+  // first key
+  struct Chunk { int ib, j0, n, tru, k0; };
+  auto chunk = [&](int c) {
+    int ib = p.resident ? c : 0;
+    while (ib + 1 < nl && tb_ch0[ib + 1] <= c) ++ib;
+    Chunk ch;
+    ch.ib = ib;
+    ch.j0 = (c - tb_ch0[ib]) * cr;
+    ch.n = min(cr, tb_cnt[ib] - ch.j0);
+    ch.tru = tb_tru[ib] - ch.j0;
+    ch.k0 = tb_kst[ib] + ch.j0;
+    return ch;
+  };
+  const int batch = p.resident ? nch : S;
+
+  // scores: one warp per key chunk; `team` lanes per key, each over the
+  // key's vectors lt, lt + team, ... in an order rotated by the key, so
+  // that the keys of a quarter warp read distinct banks
+  const int T = p.team, KP = 32 / T, lt = lane % T, kq = lane / T;
+  const int ncv = D / VW, ncl = ncv / T;
+  auto score = [&](auto groups, int c0, int c1) {
+    constexpr int GC = decltype(groups)::value;
+    for (int c = c0 + warp; c < c1; c += WARPS) {
+      const Chunk ch = chunk(c);
+      const int s = slot_of(c, nch, ch.ib);
+      mbar_wait(bar + s, parity_of(c));
+      const float* kb = ring + (size_t)s * p.slot;
+      float mx[GC];
+#pragma unroll
+      for (int i = 0; i < GC; ++i) mx[i] = NEG_INF;
+      for (int j0 = 0; j0 < ch.n; j0 += KP) {     // warp-uniform
+        const int j = j0 + kq;
+        const bool mask = j < ch.tru && j < ch.n;
+        const int rot = j % ncl;
+        for (int g0 = 0; g0 < G; g0 += GC) {
+          float acc[GC];
+#pragma unroll
+          for (int i = 0; i < GC; ++i) acc[i] = 0.f;
+          if (mask) {
+            for (int cc = 0; cc < ncl; ++cc) {
+              const int ci = cc + rot < ncl ? cc + rot : cc + rot - ncl;
+              const int cv = ci * T + lt;
+              const Vec<VW> kv = Vec<VW>::load(kb + j * D + cv * VW);
+#pragma unroll
+              for (int i = 0; i < GC; ++i) {
+                const Vec<VW> qv =
+                    Vec<VW>::load(q_s + (g0 + i) * D + cv * VW);
+#pragma unroll
+                for (int e = 0; e < VW; ++e)
+                  acc[i] = fmaf(qv.x[e], kv.x[e], acc[i]);
+              }
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < GC; ++i) {
+            for (int off = T / 2; off; off >>= 1)
+              acc[i] += __shfl_xor_sync(FULL, acc[i], off);
+            if (g0 + i < G) {
+              const float sc = mask ? acc[i] : NEG_INF;
+              if (j < ch.n && lt == 0) s_s[(g0 + i) * K + ch.k0 + j] = sc;
+              if constexpr (GC == 1) mx[0] = fmaxf(mx[0], sc);
+              else wmax[(g0 + i) * WARPS + warp] = fmaxf(
+                  warp_max(sc), wmax[(g0 + i) * WARPS + warp]);
+            }
+          }
+        }
+      }
+      if constexpr (GC == 1) {
+        const float m = warp_max(mx[0]);
+        if (lane == 0) wmax[warp] = fmaxf(wmax[warp], m);
+      }
+    }
+  };
+  for (int c0 = 0; c0 < nch; c0 += batch) {
+    const int c1 = min(c0 + batch, nch);
+    if (G == 1) score(Groups<1>{}, c0, c1);
+    else score(Groups<4>{}, c0, c1);
+    refill(c1);
+  }
+  __syncthreads();
+  // scores done
+
+  // a @ v: one warp per value chunk.  Lane j holds the weights a =
+  // exp(s - m) of the chunk's keys j, j + 32, ... and adds a . w to the
+  // warp's denominator; the warp's lanes form P = 32 / vlanes groups, group
+  // h takes keys j = h (mod P) (their weights by shuffle) and its lanes
+  // the column vectors lane % vlanes, + vlanes, ...; the groups' sums are
+  // added by xor-shuffles, and the warp's partial accumulates in red.
+  const int VL = p.vlanes, P = 32 / VL, grp = lane / VL, ncv_v = Dv / VW;
+  auto accumulate = [&](auto groups, int c0, int c1) {
+    constexpr int GC = decltype(groups)::value;
+    for (int g0 = 0; g0 < G; g0 += GC) {
+      float m[GC], dn[GC];
+#pragma unroll
+      for (int i = 0; i < GC; ++i) {
+        m[i] = g0 + i < G ? group_max(wmax + (g0 + i) * WARPS) : MIN_M;
+        dn[i] = 0.f;
+      }
+      for (int cv0 = 0; cv0 < ncv_v; cv0 += VL) {      // warp-uniform
+        const int cv = cv0 + lane % VL;
+        const bool act = cv < ncv_v;
+        Vec<VW> acc[GC];
+#pragma unroll
+        for (int i = 0; i < GC; ++i) acc[i] = Vec<VW>{};
+        for (int c = c0 + warp; c < c1; c += WARPS) {
+          const Chunk ch = chunk(c);
+          const int s = slot_of(nch + c, nch, ch.ib);
+          mbar_wait(bar + s, parity_of(nch + c));
+          const float* vb = ring + (size_t)s * p.slot + cv * VW;
+          const float wgt = (float)(1 << band_level(tb_band[ch.ib]));
+          for (int jb = 0; jb < ch.n; jb += 32) {
+            const int jl = jb + lane;             // this lane's key
+            float a[GC];
+#pragma unroll
+            for (int i = 0; i < GC; ++i) {
+              a[i] = jl < ch.n && g0 + i < G
+                  ? expf(s_s[(g0 + i) * K + ch.k0 + jl] - m[i]) : 0.f;
+              if (cv0 == 0 && jl < ch.tru) dn[i] = fmaf(a[i], wgt, dn[i]);
+            }
+            const int jn = min(32, ch.n - jb);
+#pragma unroll 4
+            for (int j = grp; j < ((jn + P - 1) / P) * P; j += P) {
+              Vec<VW> v{};
+              if (act && j < jn) v = Vec<VW>::load(vb + (size_t)(jb + j) * Dv);
+#pragma unroll
+              for (int i = 0; i < GC; ++i) {
+                const float aj = __shfl_sync(FULL, a[i], j & 31);
+#pragma unroll
+                for (int e = 0; e < VW; ++e)
+                  acc[i].x[e] = fmaf(aj, v.x[e], acc[i].x[e]);
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < GC; ++i) {
+#pragma unroll
+          for (int e = 0; e < VW; ++e)
+            for (int off = 16; off >= VL; off >>= 1)
+              acc[i].x[e] += __shfl_xor_sync(FULL, acc[i].x[e], off);
+          if (grp == 0 && act && g0 + i < G) {
+            float* dst = red + (warp * G + g0 + i) * Dv + cv * VW;
+            if (!p.resident) {             // a later batch adds to it
+              const Vec<VW> x = Vec<VW>::load(dst);
+#pragma unroll
+              for (int e = 0; e < VW; ++e) acc[i].x[e] += x.x[e];
+            }
+            acc[i].store(dst);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < GC; ++i) {
+        const float d = warp_sum(dn[i]);
+        if (lane == 0 && g0 + i < G) dpart[warp * G + g0 + i] += d;
+      }
+    }
+  };
+  for (int c0 = 0; c0 < nch; c0 += batch) {
+    const int c1 = min(c0 + batch, nch);
+    if (G == 1) accumulate(Groups<1>{}, c0, c1);
+    else accumulate(Groups<4>{}, c0, c1);
+    refill(nch + c1);
+  }
+  __syncthreads();
+  // output partials done
+
+  // the warps' partials and denominators added in warp order, VW outputs
+  // a thread
+  for (int o = tid * VW; o < G * Dv; o += THREADS * VW) {
+    const int g = o / Dv;
+    Vec<VW> acc = Vec<VW>::load(red + o);
+    float den = dpart[g];
+#pragma unroll
+    for (int w = 1; w < WARPS; ++w) {
+      const Vec<VW> x = Vec<VW>::load(red + w * G * Dv + o);
+#pragma unroll
+      for (int e = 0; e < VW; ++e) acc.x[e] += x.x[e];
+      den += dpart[w * G + g];
+    }
+    float* dst = out + (size_t)r * G * Dv + o;
+    if (ADDR == ADDR_LOCAL) {
+      acc.store(dst);
+      if (o % Dv == 0) {
+        den_out[(size_t)r * G + g] = den;
+        m_out[(size_t)r * G + g] = group_max(wmax + g * WARPS);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < VW; ++e) acc.x[e] /= fmaxf(den, 1e-9f);
+      acc.store(dst);
+    }
+  }
+}
+
+template <int ADDR>
+int launch_staged(const float* q, const Levels& lv, const int* t,
+                  const int* bidx, const int* owned, float* out, float* den,
+                  float* m, int R, int G, int D, int Dv, int nr, int nlev,
+                  float scale, void* stream) {
+  if (nlev < 1 || nlev > MAXLEV || R < 1 || G < 1 || D < 1 || Dv < 1 ||
+      nr < 1)
+    return (int)cudaErrorInvalidValue;
+  const AttendPlan p = attend_plan(G, D, Dv, nr, nlev);
+  if (p.stages < 1) return (int)cudaErrorInvalidValue;
+  bool aligned = true;
+  for (int l = 0; l < nlev; ++l)
+    aligned = aligned && reinterpret_cast<uintptr_t>(lv.k[l]) % 16 == 0 &&
+              reinterpret_cast<uintptr_t>(lv.v[l]) % 16 == 0;
+  const int bulk =
+      aligned && (p.quantum == 4 || (D % 4 == 0 && Dv % 4 == 0)) ? 1 : 0;
+  auto kernel = p.vw == 4 ? attend_staged_kernel<ADDR, 4>
+                          : attend_staged_kernel<ADDR, 1>;
+  if (p.smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<R, THREADS, p.smem, (cudaStream_t)stream>>>(
+      t, bidx, owned, q, out, den, m, G, D, Dv, nr, nlev, scale, bulk, p, lv);
   return (int)cudaGetLastError();
 }
 
@@ -511,9 +1077,9 @@ extern "C" int h1d_decode_attend(const float* q, const float* k,
     lv.k[l + 1] = ck[l];
     lv.v[l + 1] = cv[l];
   }
-  return launch_attend<ADDR_DENSE, false>(q, lv, t, nullptr, nullptr, out,
-                                          nullptr, nullptr, R, G, Lmax, D,
-                                          Dv, nr, ncoarse + 1, scale, stream);
+  return launch_attend<ADDR_DENSE, false>(q, lv, t, nullptr, out, R, G,
+                                          Lmax, D, Dv, nr, ncoarse + 1, scale,
+                                          stream);
 }
 
 // Paged pools: ks[l]/vs[l] level l's (NP_l, nr, D/Dv) f32 pages for
@@ -525,9 +1091,9 @@ extern "C" int h1d_decode_attend_paged(const float* q, const void* const* ks,
                                        int nlev, float scale, void* stream) {
   if (nlev < 1 || nlev > MAXLEV) return (int)cudaErrorInvalidValue;
   const Levels lv = read_levels(ks, vs, nullptr, nullptr, 0u, nlev);
-  return launch_attend<ADDR_PAGED, false>(q, lv, t, bidx, nullptr, out,
-                                          nullptr, nullptr, R, G, 0, D, Dv,
-                                          nr, nlev, scale, stream);
+  return launch_staged<ADDR_PAGED>(q, lv, t, bidx, nullptr, out, nullptr,
+                                   nullptr, R, G, D, Dv, nr, nlev, scale,
+                                   stream);
 }
 
 // As h1d_decode_attend_paged; level l stores int8 pages when bit l of
@@ -539,9 +1105,8 @@ extern "C" int h1d_decode_attend_paged_quant(
     int nr, int nlev, float scale, void* stream) {
   if (nlev < 1 || nlev > MAXLEV) return (int)cudaErrorInvalidValue;
   const Levels lv = read_levels(ks, vs, kscs, vscs, (unsigned)qmask, nlev);
-  return launch_attend<ADDR_PAGED, true>(q, lv, t, bidx, nullptr, out,
-                                         nullptr, nullptr, R, G, 0, D, Dv, nr,
-                                         nlev, scale, stream);
+  return launch_attend<ADDR_PAGED, true>(q, lv, t, bidx, out, R, G, 0, D,
+                                         Dv, nr, nlev, scale, stream);
 }
 
 // k_new (R,D), v_new (R,Dv), t (R,) int32; ks[l]/vs[l] are level l's
@@ -604,9 +1169,8 @@ extern "C" int h1d_decode_attend_partial(
   if (nlev < 1 || nlev > MAXLEV) return (int)cudaErrorInvalidValue;
   Levels lv = read_levels(ks, vs, nullptr, nullptr, 0u, nlev);
   for (int l = 0; l < nlev; ++l) lv.rows[l] = rows[l];
-  return launch_attend<ADDR_LOCAL, false>(q, lv, t, bidx, owned, num, den, m,
-                                          R, G, 0, D, Dv, nr, nlev, scale,
-                                          stream);
+  return launch_staged<ADDR_LOCAL>(q, lv, t, bidx, owned, num, den, m, R, G,
+                                   D, Dv, nr, nlev, scale, stream);
 }
 
 // One shard's sharded levels: ks[l]/vs[l] (R, Lloc>>l, D/Dv) for
@@ -626,4 +1190,19 @@ extern "C" int h1d_update_cache_partial(const float* knew, const float* vnew,
       knew, vnew, t_loc, nullptr, owned, lv, Lloc, D, Dv, 0, nlev, carry_k,
       carry_v);
   return (int)cudaGetLastError();
+}
+
+// The staged attend's launch plan (#7, #11) for the host's mirror
+// (kernels/h1d_decode_kernel.plan_attend_stages): out[0..3] = stages,
+// rows a chunk, row quantum, shared memory bytes.
+extern "C" int h1d_decode_attend_plan(int G, int D, int Dv, int nr, int nlev,
+                                      int* out) {
+  if (nlev < 1 || nlev > MAXLEV || G < 1 || D < 1 || Dv < 1 || nr < 1)
+    return (int)cudaErrorInvalidValue;
+  const AttendPlan p = attend_plan(G, D, Dv, nr, nlev);
+  out[0] = p.stages;
+  out[1] = p.cr;
+  out[2] = p.quantum;
+  out[3] = p.smem;
+  return 0;
 }

@@ -36,7 +36,10 @@ Port of the decode kernels of ``repro.kernels.h1d_decode_kernel``:
 
 Each wrapper chooses by the device of its tensors: CPU tensors take the
 plain version (mirrors of the jnp paths of ``core.h1d_decode``), CUDA
-tensors launch the kernels in ``csrc/h1d_decode.cu``.
+tensors launch the kernels in ``csrc/h1d_decode.cu``.  #7 and #11 run
+its staged attend body, which copies only the rows each band's mask
+lets through (:func:`attend_band_rows`) into shared memory, laid out by
+:func:`plan_attend_stages`.
 ``<wrapper>.launches`` counts kernel launches and ``<plain>.calls``
 counts runs of the plain version.  The page tables and the shard
 geometry are trusted: the host builds them from
@@ -46,7 +49,9 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..core import hierarchy as hc
@@ -73,6 +78,7 @@ _SIGNATURES = {
                                  + [_F, _P],
     "h1d_update_cache_partial": [_P, _P, _P, _P, _PP, _PP, _P, _P]
                                 + [_I] * 5 + [_P],
+    "h1d_decode_attend_plan": [_I] * 5 + [_P],
 }
 
 
@@ -86,6 +92,100 @@ def _ptrs(tensors):
 
 
 # ---------------------------------------------------------------------------
+# the staged attend's geometry (#7, #11): host mirrors of csrc/h1d_decode.cu
+# ---------------------------------------------------------------------------
+
+SMEM_LIMIT = 232448      # shared memory one block may use on the H100
+_THREADS = 256
+
+
+def attend_band_rows(t, nr: int, nbands: int, owned=None, quantum: int = 1):
+    """Rows of each band that the staged attend copies for rows at
+    positions ``t`` (R,): the prefix of the band's ``nr`` rows whose keys
+    the decode masks let through (``band_rows`` in the source: band 0 the
+    rows up to ``t % nr``; band 1 all once ``t >= nr``; coarse band
+    ``l + 1`` none before ``t >= nr << l``, then the first half while
+    ``t`` is in the first half of its span, else all), 0 where ``owned``
+    (R, nbands) is not set, rounded up to ``quantum`` rows.  Every key
+    outside these prefixes has weight exactly 0.  Returns an (R, nbands)
+    int64 numpy array."""
+    t = np.asarray(t, np.int64)[:, None]
+    rows = np.zeros((t.shape[0], nbands), np.int64)
+    rows[:, :1] = t % nr + 1
+    if nbands > 1:
+        rows[:, 1:2] = np.where(t // nr >= 1, nr, 0)
+    for band in range(2, nbands):
+        span = nr << (band - 1)
+        rows[:, band:band + 1] = np.where(
+            t // span < 1, 0, np.where(t % span < span // 2, nr // 2, nr))
+    if owned is not None:
+        rows = np.where(np.asarray(owned) > 0, rows, 0)
+    return np.where(rows > 0, np.minimum(nr, -(-rows // quantum) * quantum),
+                    0)
+
+
+class AttendStages(NamedTuple):
+    stages: int          # ring slots (2 (nlev + 1) when all bands fit)
+    chunk_rows: int      # rows a slot holds
+    quantum: int         # staged rows are rounded up to a multiple
+    smem: int            # shared memory bytes of one CTA
+    resident: bool       # every band's keys and values staged at once
+
+
+def _ceil_to(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _attend_smem(G, D, Dv, nr, nlev, stages, cr):
+    """``attend_layout``'s sum: mbarriers, the ring, the scaled query (G
+    rounded up to 4 groups past 1), scores, each warp's output partial,
+    each group's max per warp and each warp's denominator (both 16-byte
+    aligned), the live-band table."""
+    nb = nlev + 1
+    warps = _THREADS // 32
+    gq = 1 if G == 1 else _ceil_to(G, 4)
+    slot = _ceil_to(cr * max(D, Dv), 4)
+    off = _ceil_to(8 * stages, 16) + 4 * (stages * slot + gq * D + G * nb * nr)
+    off = _ceil_to(_ceil_to(off, 16) + 4 * warps * G * Dv, 16)
+    return off + 4 * (2 * warps * G + 6 * (nb + 1) + 3)
+
+
+def plan_attend_stages(G: int, D: int, Dv: int, nr: int,
+                       nlev: int) -> AttendStages:
+    """The staged attend's launch plan, as ``attend_plan`` in
+    ``csrc/h1d_decode.cu`` computes it: every band's keys and values
+    resident (2 (nlev + 1) slots of nr rows) where that fits in
+    :data:`SMEM_LIMIT`; else a ring of as many slots as fit, its chunks
+    halved from nr rows while fewer than 2 fit (never below the row
+    quantum, 4 where D or Dv is not a multiple of 4 and nr is).  Raises
+    ``ValueError`` with the sizes where not even one chunk fits."""
+    nb = nlev + 1
+    quantum = 1 if (D % 4 == 0 and Dv % 4 == 0) or nr % 4 else 4
+    smem = _attend_smem(G, D, Dv, nr, nlev, 2 * nb, nr)
+    if smem <= SMEM_LIMIT:
+        return AttendStages(2 * nb, nr, quantum, smem, True)
+    cr = nr
+    while True:
+        most = 2 * nb * -(-nr // cr)
+        fixed = _attend_smem(G, D, Dv, nr, nlev, 0, cr)
+        per = 4 * _ceil_to(cr * max(D, Dv), 4) + 8
+        S = 0 if fixed > SMEM_LIMIT else min(most, (SMEM_LIMIT - fixed)
+                                              // per)
+        while S > 0 and _attend_smem(G, D, Dv, nr, nlev, S, cr) > SMEM_LIMIT:
+            S -= 1
+        if S >= 2 or cr % 2 or (cr // 2) % quantum:
+            break
+        cr //= 2
+    if S < 1:
+        raise ValueError(
+            f"decode attend: G={G}, D={D}, Dv={Dv}, nr={nr}, {nlev} levels "
+            f"need {_attend_smem(G, D, Dv, nr, nlev, 1, cr)} bytes of shared "
+            f"memory with one {cr}-row stage; the H100 gives {SMEM_LIMIT}")
+    return AttendStages(S, cr, quantum, _attend_smem(G, D, Dv, nr, nlev, S,
+                                                     cr), False)
+
+
+# ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
 
@@ -96,14 +196,20 @@ def _block_read_rows(arr, blk, size):
     return arr.reshape(R, L // size, size, D)[rows, blk]
 
 
+def _work_dtype(x):
+    """float32, or float64 for float64 operands (the plain versions
+    evaluated exactly, as tests of ill-conditioned inputs need)."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
 def _attend_bands(q, t, nr: int, nbands: int, read, softmax_scale,
                   owned=None):
     """The band math shared by every plain attend: ``read(band)`` gives
-    the band's f32 (keys (R, nr, D), values (R, nr, Dv)); masks and
-    weights depend on ``t`` alone.  With ``owned`` (R, nbands) each band
-    is also masked by its ownership bit and the unnormalised ``(num,
-    den, m)`` are returned instead of the output."""
-    f32 = torch.float32
+    the band's keys (R, nr, D) and values (R, nr, Dv) in ``q``'s working
+    dtype; masks and weights depend on ``t`` alone.  With ``owned`` (R,
+    nbands) each band is also masked by its ownership bit and the
+    unnormalised ``(num, den, m)`` are returned instead of the output."""
+    f32 = _work_dtype(q)
     R, G, D = q.shape
     scale = softmax_scale if softmax_scale is not None else 1 / math.sqrt(D)
     qs = q.to(f32) * scale
@@ -231,7 +337,7 @@ def decode_attend_partial_ref(cache, q, t, bidx, owned, *, nr: int,
     ``t`` (R,) stays global.  Returns float32 ``(num (R, G, Dv), den (R,
     G), m (R, G))``, ``m`` floored at -1e30."""
     decode_attend_partial_ref.calls += 1
-    f32 = torch.float32
+    f32 = _work_dtype(q)
     ks, vs = (cache.k, *cache.ck), (cache.v, *cache.cv)
     bidx = bidx.to(torch.long)
 
@@ -274,7 +380,7 @@ def pool_levels(pool):
 
 
 def _paged_attend_ref(pool, q, t, bidx, nr, softmax_scale):
-    f32 = torch.float32
+    f32 = _work_dtype(q)
     lv = pool_levels(pool)
     bidx = bidx.to(torch.long)
 
@@ -486,6 +592,8 @@ def _attend_paged_launch(fn, pool, q, t, bidx, nr, softmax_scale, quant):
     _build.expect(q, "q", (R, G, D))
     _build.expect(t, "t", (R,), torch.int32)
     _build.expect(bidx, "bidx", (R, 1 + len(ks)), torch.int32)
+    if not quant:
+        plan_attend_stages(G, D, Dv, nr, len(ks))
     scale = softmax_scale if softmax_scale is not None else 1 / math.sqrt(D)
     out = torch.empty((R, G, Dv), dtype=torch.float32, device=q.device)
     head = (q.data_ptr(), _ptrs(ks), _ptrs(vs))
@@ -624,6 +732,7 @@ def decode_attend_partial(cache, q, t, bidx, owned, *, nr: int,
     _build.expect(t, "t", (R,), torch.int32)
     _build.expect(bidx, "bidx", (R, 1 + len(ks)), torch.int32)
     _build.expect(owned, "owned", (R, 1 + len(ks)), torch.int32)
+    plan_attend_stages(G, D, Dv, nr, len(ks))
     scale = softmax_scale if softmax_scale is not None else 1 / math.sqrt(D)
     f32 = torch.float32
     num = torch.empty((R, G, Dv), dtype=f32, device=q.device)

@@ -1,14 +1,16 @@
 """Where a CTA of a band kernel spends its time, phase by phase.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_band_phases \
-        [--kernel sub_bwd|band_fwd|band_bwd] [--out PATH]
+        [--kernel sub_bwd|band_fwd|band_bwd|decode_paged|decode_partial] \
+        [--csrc DIR] [--out PATH]
 
 Builds a copy of the kernel's source with ``%globaltimer`` stamps taken
 by thread 0 of every CTA at its phase boundaries, runs it once and
 prints for each phase the mean and 90th percentile over the CTAs that
 reached the end, and the quartiles of the CTAs' start times (waves of
 resident CTAs show as steps).  A phase's time is the time since the
-stamp before it, summed over the loop iterations that pass it.
+stamp before it, summed over the loop iterations that pass it; the sums
+stay in registers until the last stamp, where thread 0 stores them.
 
 * ``sub_bwd`` (default): #4's ``sub_bwd_kernel`` in
   ``kernels/csrc/h1d_block_bwd.cu`` at the LM path's shapes (64 rows = 8
@@ -21,9 +23,24 @@ stamp before it, summed over the loop iterations that pass it.
   ``l0_bidir`` and ``coarse_bidir`` (level 1, L=1024) at the LRA path's
   (64 rows = 8 ListOps-length sequences x 8 heads, L=2048, true lengths
   500..2000).
+* ``decode_paged``: #7 (``h1d_decode_attend_paged``) at the paged
+  serving shapes of ``chip_smoke.py`` (64 rows = 8 slots x 8 kv heads,
+  G=1, Lmax 2048, nr=16, d=64, 1026 pages a level; 6 slots at seeded
+  positions, 2 inactive on the TRASH page), and ``decode_partial``: #11
+  (``h1d_decode_attend_partial``) on shard 3 of a 4-way split of a
+  prefilled 64-row cache at seeded positions.  In ``csrc/h1d_decode.cu``
+  that is ``attend_staged_kernel``, step by step on thread 0's path
+  (warp 0, key slot 0): t and bidx in hand, the key copies, the table and
+  the value copies, setup; per chunk of its warp the wait for the keys,
+  the scores, the sync; the max, the wait for the values, the weights,
+  the keys of a @ v, the warp's reduction, the sync; the combine;
+  a source without it (``--csrc`` of an older tree) is stamped in its
+  ``decode_attend_kernel``: start, scores, max and den, a @ v and end.
 
-The stamps are inserted at fixed lines of the sources; the script fails
-if one is not found.  Needs a CUDA card and ``nvcc``.
+``--csrc DIR`` stamps the sources in DIR instead of this package's
+(e.g. a parent commit's, to compare the two in one call).  The stamps
+are inserted at fixed lines of the sources; the script fails if one is
+not found.  Needs a CUDA card and ``nvcc``.
 """
 from __future__ import annotations
 
@@ -32,14 +49,17 @@ import ctypes
 import json
 import shutil
 import subprocess
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from repro_torch.core import h1d_decode as hd
 from repro_torch.core import hierarchy as hc
 from repro_torch.kernels import _build
 from repro_torch.kernels import h1d_block as hb
 from repro_torch.kernels import h1d_block_bwd as hbb
+from repro_torch.kernels import h1d_decode_kernel as dk
 
 MAX_CTAS = 1 << 17
 
@@ -124,22 +144,81 @@ BAND_DKVW = dict(
         ("    dw[kb + t] = P[nk * (d4 + dv4) + t / nr * nk4 + t % nr];\n", 6,
          "after"),
     ])
+ATTEND_STAGED = dict(
+    name="attend_staged_kernel", array="g_att",
+    phases=("start", "t used", "key copies", "table, value copies",
+            "setup sync", "S: chunk, wait keys", "S: keys", "S: sync",
+            "V: max", "V: chunk, wait values", "V: weights", "V: keys",
+            "V: reduce, store", "V: sync", "combine, end"),
+    anchors=[
+        ("  // the live bands, their staged rows and chunks; resident and "
+         "bulk:\n", 0, "before"),
+        ("      const int cnt = tru ? min(nr, ceil_to(tru, p.quantum)) : 0;\n",
+         1, "after"),
+        ("                  cnt * D * 4, bar + b);\n", 2, "after"),
+        ("                  cnt * Dv * 4, bar + nb + b);\n", 3, "after"),
+        ("  __syncthreads();\n  // setup done\n", 4, "after"),
+        ("      mbar_wait(bar + s, parity_of(c));\n      const float* kb = "
+         "ring + (size_t)s * p.slot;\n", 5, "after"),
+        ("      if constexpr (GC == 1) {\n        const float m = "
+         "warp_max(mx[0]);", 6, "before"),
+        ("  __syncthreads();\n  // scores done\n", 7, "after"),
+        ("      for (int cv0 = 0; cv0 < ncv_v; cv0 += VL) {      // "
+         "warp-uniform\n", 8, "before"),
+        ("          mbar_wait(bar + s, parity_of(nch + c));\n          const "
+         "float* vb = ring + (size_t)s * p.slot + cv * VW;\n", 9, "after"),
+        ("            const int jn = min(32, ch.n - jb);\n", 10, "before"),
+        ("                  acc[i].x[e] = fmaf(aj, v.x[e], acc[i].x[e]);\n"
+         "              }\n            }\n", 11, "after"),
+        ("#pragma unroll\n      for (int i = 0; i < GC; ++i) {\n        "
+         "const float d = warp_sum(dn[i]);", 12, "before"),
+        ("  __syncthreads();\n  // output partials done\n", 13, "after"),
+        ("      for (int e = 0; e < VW; ++e) acc.x[e] /= fmaxf(den, 1e-9f);\n"
+         "      acc.store(dst);\n    }\n  }\n", 14, "after"),
+    ])
+# the attend body before the staged one (#5/#7/#8/#11 in one template)
+ATTEND_OLD = dict(
+    name="decode_attend_kernel", array="g_att",
+    phases=("start", "q, scores", "max, den", "a @ v, end"),
+    anchors=[
+        ("  for (int e = threadIdx.x; e < G * D; e += blockDim.x)\n    "
+         "q_s[e] = q[(size_t)r * G * D + e] * scale;\n", 0, "before"),
+        ("      s_s[g * K + kk] = mask ? acc : NEG_INF;\n    }\n  }\n  "
+         "__syncthreads();\n", 1, "after"),
+        ("  __syncthreads();\n\n  for (int o = threadIdx.x; o < G * Dv; "
+         "o += blockDim.x) {\n", 2, len("  __syncthreads();\n")),
+        ("        ADDR == ADDR_LOCAL ? acc : acc / fmaxf(den_s[g], 1e-9f);"
+         "\n  }\n", 3, "after"),
+    ])
 TARGETS = {"sub_bwd": ("h1d_block_bwd", [SUB_BWD]),
            "band_fwd": ("h1d_block", [BAND_FWD]),
-           "band_bwd": ("h1d_block_bwd", [BAND_DQ, BAND_DKVW])}
+           "band_bwd": ("h1d_block_bwd", [BAND_DQ, BAND_DKVW]),
+           "decode_paged": ("h1d_decode", [ATTEND_STAGED]),
+           "decode_partial": ("h1d_decode", [ATTEND_STAGED])}
+SIGNATURES = {"h1d_block": hb._SIGNATURES, "h1d_block_bwd": hbb._SIGNATURES,
+              "h1d_decode": dk._SIGNATURES}
 
 
 def _stamp(spec, k: int) -> str:
-    slot = f"{spec['array']}[blockIdx.y * gridDim.x + blockIdx.x]"
+    """Stamp k: every thread adds the time since its last stamp to a
+    register; at the last stamp thread 0 stores its start and its sums
+    (one store each, so the stamps add no memory round trip to the
+    chain they measure)."""
+    n = len(spec["phases"])
     if k == 0:
-        return ("unsigned long long ph_last = now_ns();\n"
-                f"if (threadIdx.x == 0) {slot}[0] = ph_last;\n")
-    return ("if (threadIdx.x == 0) { const unsigned long long ph_t = "
-            f"now_ns(); {slot}[{k}] += ph_t - ph_last; ph_last = ph_t; }}\n")
+        return ("unsigned long long ph_last = now_ns(), ph_t0 = ph_last, "
+                f"ph_acc[{n}] = {{}};\n")
+    out = ("{ const unsigned long long ph_t = now_ns(); "
+           f"ph_acc[{k}] += ph_t - ph_last; ph_last = ph_t; }}\n")
+    if k == n - 1:
+        slot = f"{spec['array']}[blockIdx.y * gridDim.x + blockIdx.x]"
+        out += (f"if (threadIdx.x == 0) {{ {slot}[0] = ph_t0; "
+                + "".join(f"{slot}[{i}] = ph_acc[{i}]; " for i in range(1, n))
+                + "}\n")
+    return out
 
 
-def instrumented_source(stem: str, specs) -> str:
-    src = (_build.CSRC / f"{stem}.cu").read_text()
+def instrumented_source(src: str, specs) -> str:
     head = ("__device__ __forceinline__ unsigned long long now_ns() {\n"
             "  unsigned long long t;\n"
             "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t));\n"
@@ -171,31 +250,37 @@ def instrumented_source(stem: str, specs) -> str:
     return src + tail
 
 
-def build(kernel: str) -> ctypes.CDLL:
+def build(kernel: str, csrc: Path):
+    """The instrumented library of ``kernel`` built from the sources in
+    ``csrc``, and the specs it was stamped with."""
     stem, specs = TARGETS[kernel]
+    src = (csrc / f"{stem}.cu").read_text()
+    if stem == "h1d_decode" and "attend_staged_kernel" not in src:
+        specs = [ATTEND_OLD]
     out = _build.BUILD_DIR / f"phases_{kernel}"
     out.mkdir(parents=True, exist_ok=True)
-    (out / f"{stem}.cu").write_text(instrumented_source(stem, specs))
-    shutil.copy(_build.CSRC / "h1d_band.cuh", out / "h1d_band.cuh")
+    (out / f"{stem}.cu").write_text(instrumented_source(src, specs))
+    shutil.copy(csrc / "h1d_band.cuh", out / "h1d_band.cuh")
     lib_path = out / f"{stem}_phases.so"
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib_path),
                     str(out / f"{stem}.cu")], check=True)
     lib = ctypes.CDLL(str(lib_path))
-    sigs = hbb._SIGNATURES if stem == "h1d_block_bwd" else hb._SIGNATURES
-    for fn, argtypes in sigs.items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = ctypes.c_int
+    for fn, argtypes in SIGNATURES[stem].items():
+        f = getattr(lib, fn, None)      # an older source may lack one
+        if f is not None:
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
     for i in range(len(specs)):
         getattr(lib, f"read_stamps{i}").argtypes = [ctypes.c_void_p,
                                                     ctypes.c_int]
         getattr(lib, f"read_stamps{i}").restype = ctypes.c_int
         getattr(lib, f"clear_stamps{i}").restype = ctypes.c_int
-    return lib
+    return lib, specs
 
 
 def summarize(spec, stamps, label):
     """Per-phase mean and p90 over the CTAs that reached the end."""
-    done = stamps[:, -1] > 0
+    done = stamps[:, 0] > 0          # the start is stored at the end
     t = stamps[done].astype(np.int64)
     row = {"kernel": spec["name"], "case": label, "ctas": len(stamps),
            "ctas_live": int(done.sum()), "phases": {}}
@@ -335,19 +420,75 @@ def profile_band(lib, dev, gen, backward):
     return rows
 
 
+def profile_decode(lib, specs, dev, gen, partial):
+    """One call of #7 or #11 through its wrapper, with the instrumented
+    library in place of the built one."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import sp_attention as sp
+
+    R, G, Lmax, D, NR, HKV, PAGES, TRASH = 64, 1, 2048, 64, 16, 8, 1024, 1
+    M = hc.num_levels(Lmax, NR)
+    q = torch.randn((R, G, D), generator=gen, device=dev)
+    rng = np.random.default_rng(100)
+    if partial:
+        dense = hd.prefill_cache(
+            torch.randn((R, Lmax, D), generator=gen, device=dev),
+            torch.randn((R, Lmax, D), generator=gen, device=dev), Lmax, NR)
+        sc = sp.shard_cache(dense, make_mesh((4,), ("data",), device=dev),
+                            NR)
+        t = rng.integers(0, Lmax + 1, R)
+        tabs = sp.sp_tables(t, nr=NR, Lmax=Lmax, d=4, device=dev)
+        args = (sc.shards[3], q, torch.as_tensor(t, dtype=torch.int32,
+                                                 device=dev),
+                tabs.bidx[3], tabs.owned[3])
+        fn, label = dk.decode_attend_partial, "shard 3 of 4, R=64, Lmax 2048"
+    else:
+        rows = (PAGES + 2) * HKV
+        ks = [torch.randn((rows, NR, D), generator=gen, device=dev)
+              for _ in range(M)]
+        vs = [torch.randn((rows, NR, D), generator=gen, device=dev)
+              for _ in range(M)]
+        pool = hd.PagedH1DCache(ks[0], vs[0], tuple(ks[1:]), tuple(vs[1:]))
+        slots = R // HKV
+        t = np.zeros(slots, np.int64)
+        t[:6] = [0, NR - 1, Lmax - 1, *rng.integers(NR, Lmax - 1, 3)]
+        pages = rng.integers(2, PAGES + 2, (slots, 1 + M))
+        pages[6:] = TRASH
+        bidx = (pages[:, None, :] * HKV
+                + np.arange(HKV)[None, :, None]).reshape(R, 1 + M)
+        args = (pool, q, torch.as_tensor(np.repeat(t, HKV), dtype=torch.int32,
+                                         device=dev),
+                torch.as_tensor(bidx, dtype=torch.int32, device=dev))
+        fn, label = dk.decode_attend_paged, "paged, R=64, Lmax 2048"
+    built = _build._LOADED.get("h1d_decode")
+    _build._LOADED["h1d_decode"] = lib
+    rows = _run(lib, specs, lambda: fn(*args, nr=NR), label, [R])
+    if built is None:
+        del _build._LOADED["h1d_decode"]
+    else:
+        _build._LOADED["h1d_decode"] = built
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernel", choices=sorted(TARGETS), default="sub_bwd")
+    ap.add_argument("--csrc", type=Path, default=_build.CSRC,
+                    help="directory of the kernel sources to stamp")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_band_phases needs a CUDA card")
-    lib = build(args.kernel)
+    lib, specs = build(args.kernel, args.csrc)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
-    res = {"device": torch.cuda.get_device_name(0), "kernel": args.kernel}
+    res = {"device": torch.cuda.get_device_name(0), "kernel": args.kernel,
+           "csrc": str(args.csrc)}
     if args.kernel == "sub_bwd":
         res["levels"] = profile_sub_bwd(lib, dev, gen)
+    elif args.kernel.startswith("decode_"):
+        res["cases"] = profile_decode(lib, specs, dev, gen,
+                                      partial=args.kernel == "decode_partial")
     else:
         res["cases"] = profile_band(lib, dev, gen,
                                     backward=args.kernel == "band_bwd")

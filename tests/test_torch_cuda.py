@@ -700,6 +700,144 @@ def test_paged_attend_matches_plain(dev, Lmax, nr, G, D, Dv, quant):
            [plain(pool, q, t, bidx, nr=nr)])
 
 
+def _misaligned(x):
+    """``x``'s values in a contiguous tensor that starts 4 bytes past a
+    16-byte boundary, so the staged attend takes its cp.async copies."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:]
+    flat.copy_(x.reshape(-1))
+    return flat.view(x.shape)
+
+
+def _double(c):
+    """A cache or pool with every array in float64."""
+    return type(c)(*[tuple(a.double() for a in x) if isinstance(x, tuple)
+                     else x.double() for x in c])
+
+
+def _close_exact(got, want64, row_scaled=()):
+    """``_close`` against the plain version evaluated in float64.  The
+    staged cases reach 12 levels of D = Dv = 256, where the fp32 plain
+    version is itself up to 2.5e-5 from the exact answer (values that sum
+    2048 rows), so two fp32 evaluations can differ by more than TOL while
+    both are right; the exact one is the yardstick there.  Outputs whose
+    index is in ``row_scaled`` are scaled by their row's largest
+    magnitude (the last axis) instead of their own: #11's numerator sums
+    terms up to ~400 into entries near 1, where any fp32 order, the plain
+    version's too, is ~2e-5 off element by element but ~1e-6 off for the
+    row."""
+    for i, (x, y) in enumerate(zip(got, want64)):
+        assert x.shape == y.shape and torch.isfinite(x).all()
+        mag = y.abs()
+        if i in row_scaled:
+            mag = mag.amax(-1, keepdim=True)
+        err = ((x.double() - y).abs() / mag.clamp(min=1.0)).max()
+        assert float(err) <= TOL, (i, float(err))
+
+
+# the ring (13 bands of D = Dv = 256 at G = 4 exceed 227 KB: nr 32 streams
+# keys and values, nr 16 values), D / Dv that are not multiples of 4
+# (bulk copies of whole 4-row granules; nr 2: cp.async), blocks that are
+# not 16-byte aligned (cp.async)
+STAGED = [(65536, 32, 4, 256, 256, False), (32768, 16, 4, 256, 256, False),
+          (256, 8, 2, 5, 7, False), (64, 2, 1, 3, 5, False),
+          (512, 16, 3, 64, 40, True)]
+
+
+@pytest.mark.parametrize("Lmax,nr,G,D,Dv,misalign", STAGED)
+def test_paged_attend_ring_trash_rows_and_bits(dev, Lmax, nr, G, D, Dv,
+                                               misalign):
+    """#7's staged body against its plain version (in float64) at shapes
+    off the main path, with two inactive rows as the engine builds them
+    (t = 0, every band on the TRASH page, whose rows hold large values),
+    and identical bits on a second call.  Keys are unit normals at every
+    level (a coarse key is a mean), values scale by 2^l (a sum)."""
+    gen = torch.Generator(device=dev).manual_seed(Lmax + nr + D)
+    M = hc.num_levels(Lmax, nr)
+    ts = _ts(Lmax, nr) + [0, 0]
+    R, npages, trash = len(ts), 3 * len(ts) + 2, 1
+    k = [_randn(gen, dev, npages, nr, D) for _ in range(M)]
+    v = [_randn(gen, dev, npages, nr, Dv) * 2 ** l for l in range(M)]
+    pool = hd.PagedH1DCache(k[0], v[0], tuple(k[1:]), tuple(v[1:]))
+    for a in _pool_arrays(pool):
+        a[trash] = 1e3 * _randn(gen, dev, *a[trash].shape)
+    if misalign:
+        pool = type(pool)(*[tuple(_misaligned(a) for a in x)
+                            if isinstance(x, tuple) else _misaligned(x)
+                            for x in pool])
+    t = torch.tensor(ts, dtype=torch.int32, device=dev)
+    bidx = torch.randint(2, npages, (R, 1 + M), generator=gen, device=dev,
+                         dtype=torch.int32)
+    bidx[R - 2:] = trash
+    q = _randn(gen, dev, R, G, D)
+    got = dk.decode_attend_paged(pool, q, t, bidx, nr=nr)
+    _close_exact([got], [dk.decode_attend_paged_ref(
+        _double(pool), q.double(), t, bidx, nr=nr)])
+    assert torch.equal(got, dk.decode_attend_paged(pool, q, t, bidx, nr=nr))
+    assert dk.plan_attend_stages(G, D, Dv, nr, M).resident == (Lmax < 32768)
+
+
+@pytest.mark.parametrize("d", [2, 4])
+@pytest.mark.parametrize("Lmax,nr,G,D,Dv,misalign", STAGED[1:])
+def test_sp_partial_ring_rows_owning_nothing_and_bits(dev, d, Lmax, nr, G,
+                                                      D, Dv, misalign):
+    """#11's staged body against its plain version (in float64) on every
+    shard at shapes off the main path, with rows whose bands are all
+    unowned (num = den = 0, m = -1e30), and identical bits on a second
+    call."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import sp_attention as sp
+
+    gen = torch.Generator(device=dev).manual_seed(Lmax + d + D)
+    ts = _sp_ts(Lmax, nr, d)
+    R = len(ts)
+    dense = hd.prefill_cache(_randn(gen, dev, R, Lmax, D),
+                             _randn(gen, dev, R, Lmax, Dv), Lmax, nr)
+    sc = sp.shard_cache(dense, make_mesh((d,), ("data",)), nr)
+    del dense
+    q = _randn(gen, dev, R, G, D)
+    t = torch.tensor(ts, dtype=torch.int32, device=dev)
+    tabs = sp.sp_tables(np.array(ts), nr=nr, Lmax=Lmax, d=d, device=dev)
+    for s, sh in enumerate(sc.shards):
+        if misalign:
+            sh = hd.H1DCache(_misaligned(sh.k), _misaligned(sh.v),
+                             tuple(_misaligned(a) for a in sh.ck),
+                             tuple(_misaligned(a) for a in sh.cv))
+        owned = tabs.owned[s].clone()
+        owned[:2] = 0
+        args = (sh, q, t, tabs.bidx[s], owned)
+        got = dk.decode_attend_partial(*args, nr=nr)
+        _close_exact(got, dk.decode_attend_partial_ref(
+            _double(sh), q.double(), *args[2:], nr=nr), row_scaled=(0,))
+        num, den, m = got
+        assert (num[:2] == 0).all() and (den[:2] == 0).all()
+        assert (m[:2] == -1e30).all()
+        for x, y in zip(got, dk.decode_attend_partial(*args, nr=nr)):
+            assert torch.equal(x, y)
+
+
+def test_attend_plan_mirrors_the_launcher(dev):
+    """``plan_attend_stages`` equals the launcher's own plan (stages, rows
+    a chunk, row quantum, shared memory) at every card test's shape and
+    past the envelope, where both refuse."""
+    import ctypes
+
+    lib = dk._lib()
+    shapes = [(G, D, Dv, nr, nlev) for G in (1, 2, 3, 4, 9)
+              for D, Dv in ((64, 64), (16, 16), (40, 24), (5, 7), (3, 5),
+                            (256, 256), (64, 40), (1024, 1024))
+              for nr in (2, 4, 8, 16, 32, 64) for nlev in (1, 4, 7, 12, 32)]
+    out = (ctypes.c_int * 4)()
+    for G, D, Dv, nr, nlev in shapes + [(1, 60000, 60000, 16, 5)]:
+        assert lib.h1d_decode_attend_plan(G, D, Dv, nr, nlev, out) == 0
+        try:
+            plan = dk.plan_attend_stages(G, D, Dv, nr, nlev)
+        except ValueError:
+            assert out[0] == 0, (G, D, Dv, nr, nlev)
+            continue
+        assert (plan.stages, plan.chunk_rows, plan.quantum, plan.smem) == \
+            tuple(out), (G, D, Dv, nr, nlev)
+
+
 @pytest.mark.parametrize("Lmax,nr,D,Dv,quant", [
     (2048, 16, 64, 64, None), (2048, 16, 64, 64, "all"),
     (128, 8, 16, 40, "ql1"), (256, 4, 24, 8, "ql2"), (256, 32, 64, 64, None)])

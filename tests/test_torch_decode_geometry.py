@@ -1,0 +1,272 @@
+"""The staged decode attend's geometry (``kernels.h1d_decode_kernel``'s
+host mirrors of ``csrc/h1d_decode.cu``) against the JAX reference's
+decode kernels, run in interpret mode on numpy inputs.
+
+#7 (``decode_attend_paged``) and #11 (``decode_attend_partial``) copy,
+of each band, only the prefix of rows that :func:`attend_band_rows`
+names, and nothing of a band that is masked whole or not owned.  Here,
+for every position of three (Lmax, nr) geometries, that rule equals the
+reference kernel's own masks (read out of its output: zero keys and
+queries give every counted key the weight 1, and one-hot values name
+the keys), and changing every row the rule leaves out leaves the
+reference's output bit-identical, while changing one row it keeps does
+not.  The launch plan's envelope is checked at every card test's
+shape.  The kernels themselves run only on the card
+(``tests/test_torch_cuda.py``)."""
+import functools
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import h1d_decode as jhd  # noqa: E402
+from repro.kernels import h1d_decode_kernel as jdk  # noqa: E402
+from repro_torch.core import hierarchy as hc  # noqa: E402
+from repro_torch.kernels import h1d_decode_kernel as tdk  # noqa: E402
+from repro_torch.parallel import sp_attention as sp  # noqa: E402
+
+CASES = [(256, 8), (2048, 16), (512, 32)]
+# rows of one interpret call on a slab: interpret mode's time per grid
+# step grows with the arrays it is given, so a call takes few rows (and
+# the calls of one shape share one compiled kernel)
+CHUNK = 512
+
+
+@functools.lru_cache(maxsize=None)
+def _attend_paged(nr):
+    return jax.jit(functools.partial(jdk.decode_attend_paged, nr=nr,
+                                     interpret=True))
+
+
+@functools.lru_cache(maxsize=None)
+def _attend_partial(nr, t_hi):
+    return jax.jit(functools.partial(jdk.decode_attend_partial, nr=nr,
+                                     t_hi=t_hi, interpret=True))
+
+
+def _prefix(rows, nr):
+    """(R, nbands, nr) masks of the prefixes ``rows`` (R, nbands)."""
+    return np.arange(nr)[None, None, :] < rows[:, :, None]
+
+
+def _paged(levels):
+    k, v = zip(*levels)
+    return jhd.PagedH1DCache(k=jnp.asarray(k[0]), v=jnp.asarray(v[0]),
+                             ck=tuple(map(jnp.asarray, k[1:])),
+                             cv=tuple(map(jnp.asarray, v[1:])))
+
+
+def _slab(levels):
+    k, v = zip(*levels)
+    return jhd.H1DCache(k=jnp.asarray(k[0]), v=jnp.asarray(v[0]),
+                        ck=tuple(map(jnp.asarray, k[1:])),
+                        cv=tuple(map(jnp.asarray, v[1:])))
+
+
+def _one_band_tables(Lmax, nb):
+    """Rows (t, band) for t in 0..Lmax-1: block 1 for that band, block 0
+    (zeros) for the others."""
+    t = np.repeat(np.arange(Lmax, dtype=np.int32), nb)
+    band = np.tile(np.arange(nb), Lmax)
+    bidx = np.zeros((Lmax * nb, nb), np.int32)
+    bidx[np.arange(Lmax * nb), band] = 1
+    return t, band, bidx
+
+
+@pytest.mark.parametrize("Lmax,nr", CASES)
+def test_band_rows_equal_paged_masks(Lmax, nr):
+    """Per band, the keys the JAX paged kernel counts (one-hot values on
+    page 1, every other band on a zero page, zero keys and query: o > 0
+    exactly where a key counts) are the prefix ``attend_band_rows``
+    names, at every position."""
+    M = hc.num_levels(Lmax, nr)
+    nb = M + 1
+    t, band, bidx = _one_band_tables(Lmax, nb)
+    k = np.zeros((2, nr, 2), np.float32)
+    v = np.stack([np.zeros((nr, nr), np.float32), np.eye(nr,
+                                                         dtype=np.float32)])
+    o = np.asarray(_attend_paged(nr)(
+        _paged([(k, v)] * M), jnp.zeros((len(t), 1, 2)), jnp.asarray(t),
+        jnp.asarray(bidx)))[:, 0]
+    rows = tdk.attend_band_rows(t, nr, nb)[np.arange(len(t)), band]
+    np.testing.assert_array_equal(o > 0, np.arange(nr)[None] < rows[:, None])
+    # every band counts somewhere, and band 0 always
+    assert (rows.reshape(Lmax, nb) > 0).any(0).all()
+    assert (rows.reshape(Lmax, nb)[:, 0] > 0).all()
+
+
+def _perturb(levels, keep, rng, scale=1e4):
+    """Every row outside ``keep`` (per level, a mask over the rows of its
+    (..., rows, width) arrays) moved by up to ``scale``."""
+    out = []
+    for (k, v), kp in zip(levels, keep):
+        out.append(tuple(
+            a + np.where(kp[..., None], 0.0, scale * rng.standard_normal(
+                a.shape)).astype(np.float32) for a in (k, v)))
+    return out
+
+
+@pytest.mark.parametrize("Lmax,nr", CASES)
+def test_rows_left_out_do_not_change_paged_output(Lmax, nr):
+    """Every row t in 0..Lmax-1 reads private pages; moving every page
+    row that ``attend_band_rows`` leaves out leaves the JAX paged
+    kernel's output bit-identical; moving band 0's first row, which it
+    always keeps, changes every output."""
+    rng = np.random.default_rng(Lmax + nr)
+    M = hc.num_levels(Lmax, nr)
+    nb = M + 1
+    R, G, D = Lmax, 2, 4
+    t = np.arange(R, dtype=np.int32)
+    # level 0: own pages 0..R-1, previous R..2R-1; level l: pages 0..R-1
+    bidx = np.tile(np.arange(R, dtype=np.int32)[:, None], (1, nb))
+    bidx[:, 1] += R
+    levels = [(rng.standard_normal((2 * R if l == 0 else R, nr, D)),
+               rng.standard_normal((2 * R if l == 0 else R, nr, D)) * 2 ** l)
+              for l in range(M)]
+    levels = [(k.astype(np.float32), v.astype(np.float32))
+              for k, v in levels]
+    q = rng.standard_normal((R, G, D)).astype(np.float32)
+    rows = tdk.attend_band_rows(t, nr, nb)
+    keep = [np.zeros((a.shape[0], nr), bool) for a, _ in levels]
+    for b in range(nb):
+        keep[max(b - 1, 0)][bidx[:, b]] |= _prefix(rows, nr)[:, b]
+
+    def run(lv):
+        return np.asarray(_attend_paged(nr)(
+            _paged(lv), jnp.asarray(q), jnp.asarray(t), jnp.asarray(bidx)))
+    want = run(levels)
+    np.testing.assert_array_equal(run(_perturb(levels, keep, rng)), want)
+    first = [np.ones_like(kp) for kp in keep]
+    first[0][:R, 0] = False
+    assert (run(_perturb(levels, first, rng)) != want).any(-1).all()
+
+
+def _bits(nr):
+    """Value rows that spell their index: row j is 2^j in column 0 (j <
+    16) or 2^(j - 16) in column 1, so a sum of distinct rows is exact."""
+    v = np.zeros((nr, 2), np.float32)
+    j = np.arange(nr)
+    v[j < 16, 0] = 2.0 ** j[j < 16]
+    v[j >= 16, 1] = 2.0 ** (j[j >= 16] - 16)
+    return v
+
+
+@pytest.mark.parametrize("d", [2, 4])
+@pytest.mark.parametrize("Lmax,nr", CASES)
+def test_band_rows_equal_partial_masks(Lmax, nr, d):
+    """Per band and shard, the keys the JAX partial kernel counts under
+    ``sp_tables``' ownership (block 1 of every level spells its rows'
+    indices, the other bands read a zero block 0; num then holds the
+    counted keys' bits) are the prefix ``attend_band_rows`` names with
+    that ownership, at every position."""
+    M = hc.num_levels(Lmax, nr)
+    nb = M + 1
+    t, band, bidx = _one_band_tables(Lmax, nb)
+    owned = sp.sp_tables(t, nr=nr, Lmax=Lmax, d=d, device="cpu").owned
+    R = len(t)
+    k = np.zeros((CHUNK, 2 * nr, 2), np.float32)
+    v = np.zeros((CHUNK, 2 * nr, 2), np.float32)
+    v[:, nr:] = _bits(nr)
+    slab = _slab([(k, v)] * M)
+    for s in range(d):
+        own = owned[s].numpy()
+        for r0 in range(0, R, CHUNK):
+            rs = slice(r0, r0 + CHUNK)
+            num, den, m = _attend_partial(nr, Lmax - 1)(
+                slab, jnp.zeros((CHUNK, 1, 2)), jnp.asarray(t[rs]),
+                jnp.asarray(bidx[rs]), jnp.asarray(own[rs]))
+            num = np.asarray(num)[:, 0].astype(np.int64)
+            got = (num[:, 0] | num[:, 1] << 16)[:, None] >> np.arange(nr) & 1
+            rows = tdk.attend_band_rows(t[rs], nr, nb, owned=own[rs])
+            rows = rows[np.arange(CHUNK), band[rs]]
+            np.testing.assert_array_equal(
+                got == 1, np.arange(nr)[None] < rows[:, None])
+    # across the shards every counted key is counted once
+    total = sum(tdk.attend_band_rows(t, nr, nb, owned=owned[s].numpy())
+                for s in range(d))
+    np.testing.assert_array_equal(total, tdk.attend_band_rows(t, nr, nb))
+
+
+@pytest.mark.parametrize("d", [2, 4])
+@pytest.mark.parametrize("Lmax,nr", CASES)
+def test_rows_left_out_do_not_change_partial_output(Lmax, nr, d):
+    """On every shard's slab, for rows t in 0..Lmax-1 with ``sp_tables``'
+    block indices and ownership: moving every slab row that
+    ``attend_band_rows`` leaves out leaves the JAX partial kernel's
+    (num, den, m) bit-identical; moving every row it keeps changes each
+    row that keeps one."""
+    rng = np.random.default_rng(Lmax + nr + d)
+    M = hc.num_levels(Lmax, nr)
+    nb = M + 1
+    nsh = sp.sp_sharded_levels(Lmax, nr, d)
+    G, D = 2, 2
+    for t0 in range(0, Lmax, CHUNK // 2):
+        t = np.arange(t0, min(t0 + CHUNK // 2, Lmax), dtype=np.int32)
+        R = len(t)
+        tabs = sp.sp_tables(t, nr=nr, Lmax=Lmax, d=d, device="cpu")
+        q = rng.standard_normal((R, G, D)).astype(np.float32)
+        for s in range(d):
+            bidx, own = tabs.bidx[s].numpy(), tabs.owned[s].numpy()
+            levels = []
+            for l in range(M):
+                n = (Lmax >> l) // d if l < nsh else Lmax >> l
+                levels.append(tuple(
+                    (rng.standard_normal((R, n, D)) * 2 ** (l * i)).astype(
+                        np.float32) for i in (0, 1)))
+            rows = tdk.attend_band_rows(t, nr, nb, owned=own)
+            keep = [np.zeros(a.shape[:2], bool) for a, _ in levels]
+            for b in range(nb):
+                j = bidx[:, b, None] * nr + np.arange(nr)[None]
+                np.put_along_axis(keep[max(b - 1, 0)], j, _prefix(
+                    rows, nr)[:, b] | np.take_along_axis(
+                        keep[max(b - 1, 0)], j, 1), 1)
+
+            def run(lv):
+                return [np.asarray(x) for x in _attend_partial(nr, Lmax - 1)(
+                    _slab(lv), jnp.asarray(q), jnp.asarray(t),
+                    jnp.asarray(bidx), jnp.asarray(own))]
+            want = run(levels)
+            for got, w in zip(run(_perturb(levels, keep, rng)), want):
+                np.testing.assert_array_equal(got, w)
+            moved = run(_perturb(levels, [~kp for kp in keep], rng, 1.0))
+            counts = rows.sum(1) > 0
+            assert (moved[0] != want[0]).any((1, 2))[counts].all()
+            assert (moved[0] == want[0]).all((1, 2))[~counts].all()
+
+
+# every shape of the card tests (tests/test_torch_cuda.py): G, D, Dv, nr,
+# Lmax; the last two need a ring (13 bands of D = Dv = 256 at G = 4)
+CARD_SHAPES = [(1, 64, 64, 16, 2048), (3, 64, 64, 32, 256),
+               (4, 16, 16, 8, 256), (2, 40, 24, 16, 512),
+               (1, 16, 16, 8, 64), (2, 16, 16, 16, 16), (2, 5, 7, 8, 256),
+               (1, 3, 5, 2, 64), (3, 64, 40, 16, 512),
+               (4, 256, 256, 16, 32768), (4, 256, 256, 32, 65536)]
+
+
+@pytest.mark.parametrize("G,D,Dv,nr,Lmax", CARD_SHAPES)
+def test_plan_attend_stages_takes_every_card_shape(G, D, Dv, nr, Lmax):
+    nlev = hc.num_levels(Lmax, nr)
+    plan = tdk.plan_attend_stages(G, D, Dv, nr, nlev)
+    assert 1 <= plan.stages and plan.smem <= tdk.SMEM_LIMIT
+    assert plan.chunk_rows % plan.quantum == 0 and nr % plan.chunk_rows == 0
+    assert plan.quantum == (4 if (D % 4 or Dv % 4) and nr % 4 == 0 else 1)
+    # resident: a slot per band for keys and for values, nr rows each
+    assert plan.resident == (Lmax < 32768)
+    if plan.resident:
+        assert (plan.stages, plan.chunk_rows) == (2 * (nlev + 1), nr)
+    else:
+        assert plan.stages >= 2
+        bigger = tdk._attend_smem(G, D, Dv, nr, nlev, plan.stages + 1,
+                                  plan.chunk_rows)
+        assert bigger > tdk.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("G,D,Dv,nr,nlev", [
+    (1, 60000, 60000, 16, 5), (1000, 64, 64, 64, 32)])
+def test_plan_attend_stages_raises_past_the_card(G, D, Dv, nr, nlev):
+    with pytest.raises(ValueError, match=r"bytes of shared memory"):
+        tdk.plan_attend_stages(G, D, Dv, nr, nlev)
