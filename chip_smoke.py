@@ -34,9 +34,10 @@ Phases (each raises on failure; nothing is caught):
    nr=16, max_len 2048, pools of 1024+2 pages x 8 heads at every level,
    seeded page tables with private write pages and two inactive slots on
    the TRASH page; an fp32 pool, an int8 pool with every level
-   quantized and a mixed pool (``quant_levels=3``); #7's bound counts
-   the key and value rows its band masks let through
-   (``bound_all_rows_ms``: every band's rows);
+   quantized and a mixed pool (``quant_levels=3``); #7's and #8's bounds
+   count the key and value rows their band masks let through (#8, timed
+   on the int8 pool: int8 rows and their scales;
+   ``bound_all_rows_ms``: every band's rows);
 4. serve the paper LM ``h1d-lm-53m`` at full width (seeded random
    weights) with ``ServeEngine(slots=8, max_len=2048)``: 16 requests with
    seeded prompt lengths in 64..1500 and 32 greedy tokens each; every
@@ -655,13 +656,13 @@ def phase_paged_kernels(dev):
             err = max(err, e)
         label, pool = pools[0]
         bms, by = bound(R * row_bytes[label] + small, flops)
-        extra = {}
-        if name == "decode_attend_paged":
-            # the keys the band masks let through, each key and value row
-            # read once; every band's rows beside it
-            keys = partial_keys(t, None, M)
-            extra = dict(bound_all_rows_ms=bms, live_keys=keys)
-            bms, by = bound(keys * 8 * D + small, keys * G * (4 * D + 4))
+        # the keys the band masks let through, each key and value row read
+        # once (int8: its D bytes and 4-byte scale); every band's rows
+        # beside it
+        keys = partial_keys(t, None, M)
+        extra = dict(bound_all_rows_ms=bms, live_keys=keys)
+        live_row = 8 * D if label == "fp32" else 2 * D + 8
+        bms, by = bound(keys * live_row + small, keys * G * (4 * D + 4))
         rows.append(dict(
             **extra, name=name, route="cuda",
             source="src/repro_torch/kernels/csrc/h1d_decode.cu",

@@ -18,23 +18,25 @@
 // one coarse block I_l - 1 per level l = 1..M-1 under the quadrant mask,
 // with weight 2^l in the denominator only.  One max over all bands, then
 // o = (a @ v) / max(a . w, 1e-9).  Two bodies compute it:
-//   * decode_attend_kernel<ADDR, QUANT> (#5 dense, #8 int8 paged): one
-//     CTA per row, each thread scores whole keys from device memory; the
-//     addressor `band_row` reads block (row, level, block) of the row's
-//     own slab (clamped as the TPU kernel's index maps are) or pool row
-//     bidx[r, band] * nr + j; int8 rows are dequantized with their
-//     per-row scale (float(q) * scale, as the plain version does), and
-//     fp32 levels of a mixed pool never read their scales.
-//   * attend_staged_kernel<ADDR> (#7 paged, #11 one shard's slab): each
-//     live band's block is one contiguous run of rows (page bidx[r, band]
-//     of the pool, or block bidx[r, band] of the row's slab in one shard's
-//     level array, whose row count per level the caller passes: a sharded
-//     level holds (Lmax >> l) / d rows, a replicated one Lmax >> l), staged
-//     in shared memory by bulk copies before any compute.  #11 also masks
-//     each band by its ownership bit owned[r, band] and writes the
-//     unnormalised partial num = a @ v, den = a . w and m = max(rowmax,
-//     -1e30) for the cross-shard merge; t stays global, so every mask
-//     compares global positions.
+//   * decode_attend_kernel (#5, dense slabs): one CTA per row, each thread
+//     scores whole keys from device memory; `band_row` reads block (row,
+//     level, block) of the row's own slab, clamped as the TPU kernel's
+//     index maps are.
+//   * attend_staged_kernel<ADDR, VW> (#7 ADDR_PAGED, #11 ADDR_LOCAL, #8
+//     ADDR_QPAGED): each live band's block is one contiguous run of rows
+//     (page bidx[r, band] of the pool, or block bidx[r, band] of the row's
+//     slab in one shard's level array, whose row count per level the
+//     caller passes: a sharded level holds (Lmax >> l) / d rows, a
+//     replicated one Lmax >> l), staged in shared memory by bulk copies
+//     before any compute.  #11 also masks each band by its ownership bit
+//     owned[r, band] and writes the unnormalised partial num = a @ v, den =
+//     a . w and m = max(rowmax, -1e30) for the cross-shard merge; t stays
+//     global, so every mask compares global positions.  #8's int8 bands
+//     stage their int8 rows with the block's run of per-row scales in the
+//     slot an f32 block takes, and are dequantized on the read from shared
+//     memory (float(q) * scale, rounded, then the fmaf, as the plain
+//     version orders it); fp32 levels of a mixed pool take the f32 path in
+//     the same launch and never read their scales.
 //
 // update_cache: per level l = 0..nlev-1 the token's ancestor t >> l sits
 // in one sibling pair at row (t >> l) & 1; that row takes the carried
@@ -48,7 +50,7 @@
 // its last level, the carried row of the first replicated level (on a
 // non-owner row it comes from the unchanged pair, finite, and the caller
 // masks it out).
-// The int8 variant dequantizes the pair, puts in the new row, and
+// The int8 variant (#10) dequantizes the pair, puts in the new row, and
 // requantizes both rows with fresh absmax per-row scales (the rounding of
 // core/quantization.py: scale = max(amax, 1e-12) * float32(1/127), q =
 // clamp(rint(x / scale), -127, 127), IEEE division, round half to even);
@@ -69,19 +71,21 @@
 // MB in all (int8: a quarter), and update touches ~2*nlev rows per row,
 // well under 1 MB: a few microseconds of memory traffic, so each launch
 // is bound by its launch latency and the chain of dependent steps inside
-// one CTA.  The old attend body (#5, #8) is that chain: every thread
-// scores whole keys (dot over D from device memory), the max and the
+// one CTA.  The old attend body (#5) is that chain: every thread scores
+// whole keys (dot over D from device memory), the max and the
 // denominator are warp reductions, and each output column walks every
 // key through a pointer read, a load and an fmaf.
-// The staged body (#7, #11) cuts the chain to three memory round trips
+// The staged body (#7, #8, #11) cuts the chain to three memory round trips
 // (the first parameter read, t and bidx, one bulk copy) and a few
 // shared-memory steps: warp 0 reads t, bidx and owned, keeps of each band
 // only the prefix of rows its mask lets through (band 0 the rows up to
 // t, a coarse band in its first quadrant the first half, nothing of a
 // band masked whole or not owned) and, with everything resident, issues
 // every live band's key copy, then its value copy (cp.async.bulk onto
-// one mbarrier per slot, or 4-byte cp.async where a block is not 16-byte
-// aligned), so the values arrive while the keys are scored.  One warp per
+// one mbarrier per slot, an int8 block's rows and scales as two copies on
+// one arrival; where a block is not 16-byte aligned, 4-byte cp.async of
+// f32 rows or plain loads of int8 ones), so the values arrive while the
+// keys are scored.  One warp per
 // band (or chunk of rows): scores with a few lanes per key and float4
 // loads, the vector order rotated per key so that the keys of a quarter
 // warp hit distinct banks, each key vector reused across up to 4 query
@@ -94,10 +98,19 @@
 // memory, chunks of rows stream through a ring of stages, keys first
 // (all scores, so the single max stays exact), then values (attend_plan,
 // mirrored by the wrappers' plan_attend_stages).
-// The update kernels give each thread one column and walk the ancestor
-// chain in registers; the int8 one adds a block absmax per level (warp
-// maxima combined by an integer atomicMax on the non-negative float
-// bits, which is exact and order-free).
+// The f32 update kernels (#6, #9, #12) give each thread one column and
+// walk the ancestor chain in registers, one memory round trip a level.
+// The int8 update (#10) is bound by the same latency, and a level's
+// requantize needs each row's absmax first.  Every level's pair sits where
+// t and utab[r] alone say, so update_cache_quant_kernel reads them, puts
+// every level's pair (and scales) in flight at once into shared memory,
+// and then runs the chain with no memory round trip between levels: one
+// warp per chain (k or v; the two never meet), C columns a lane; the
+// carry chain itself is a
+// select and an add a level, and what hangs off it -- each row's absmax
+// over the warp (exact and order-free), the IEEE divisions and the
+// stores -- runs after it: one lane a level for the maxima, four warps a
+// chain for the requantize, so no level waits on another's.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -116,8 +129,9 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr float QMAX = 127.0f;
 constexpr float RECIP_QMAX = (float)(1.0 / 127.0);
 constexpr float QEPS = (float)1e-12;
-// band addressors of the attend body
-constexpr int ADDR_DENSE = 0, ADDR_PAGED = 1, ADDR_LOCAL = 2;
+// addressors of the staged attend body: a paged pool of f32 levels (#7),
+// one shard's slab (#11), a paged pool whose levels may be int8 (#8)
+constexpr int ADDR_PAGED = 1, ADDR_LOCAL = 2, ADDR_QPAGED = 3;
 
 struct Levels {            // every level l = 0..nlev-1, level 0 = fine
   const void* k[MAXLEV];
@@ -151,14 +165,10 @@ __device__ __forceinline__ int band_level(int band) {
   return band < 2 ? 0 : band - 1;
 }
 
-// Row, in its level's (rows, width) array, of key j of `band` for cache
-// row r at position t (the old attend body: dense or paged).
-template <int ADDR>
+// Row, in its level's (R, Lmax >> l, width) array, of key j of `band`
+// for cache row r at position t (#5's dense slabs).
 __device__ __forceinline__ size_t band_row(int r, int band, int j, int t,
-                                           const int* bidx, int nbands,
                                            int Lmax, int nr) {
-  if (ADDR == ADDR_PAGED)
-    return (size_t)bidx[(size_t)r * nbands + band] * nr + j;
   const int l = band_level(band);
   const int Ll = Lmax >> l;
   const int nbl = Ll / nr;
@@ -194,12 +204,10 @@ __device__ __forceinline__ size_t pair_row(int r, int l, int t,
   return (size_t)r * Ll + 2 * (size_t)pair;
 }
 
-// out: normalised (R, G, Dv).
-template <int ADDR, bool QUANT>
+// #5 on dense slabs; out: normalised (R, G, Dv).
 __global__ void __launch_bounds__(THREADS)
 decode_attend_kernel(const float* __restrict__ q, Levels lv,
-                     const int* __restrict__ tpos,
-                     const int* __restrict__ bidx, float* __restrict__ out,
+                     const int* __restrict__ tpos, float* __restrict__ out,
                      int G, int Lmax, int D, int Dv, int nr, int nlev,
                      float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -207,16 +215,13 @@ decode_attend_kernel(const float* __restrict__ q, Levels lv,
   const int t = tpos[r];
   const int nbands = nlev + 1;
   const int K = nbands * nr;
-  // value rows as pointers; the output loop reads them with the row type
-  // fixed per band (a branch per key, or a row index multiply per key,
-  // serializes the loads of the dependent fmaf chain and ran markedly
-  // slower)
-  const void** vrow = reinterpret_cast<const void**>(smem);   // (K,)
+  // value rows as pointers (a row index multiply per key serializes the
+  // loads of the dependent fmaf chain and ran markedly slower)
+  const float** vrow = reinterpret_cast<const float**>(smem);   // (K,)
   float* q_s = reinterpret_cast<float*>(vrow + K);   // (G, D) scaled query
   float* s_s = q_s + G * D;          // (G, K) masked scores, then weights a
   float* w_s = s_s + G * K;          // (K,) band weights, 0 where masked
-  float* vsc_s = w_s + K;            // (K,) value row scales (int8 rows)
-  float* den_s = vsc_s + K;          // (G,)
+  float* den_s = w_s + K;            // (G,)
 
   for (int e = threadIdx.x; e < G * D; e += blockDim.x)
     q_s[e] = q[(size_t)r * G * D + e] * scale;
@@ -226,7 +231,7 @@ decode_attend_kernel(const float* __restrict__ q, Levels lv,
   for (int kk = threadIdx.x; kk < K; kk += blockDim.x) {
     const int band = kk / nr, j = kk % nr;
     const int l = band_level(band);
-    const size_t row = band_row<ADDR>(r, band, j, t, bidx, nbands, Lmax, nr);
+    const size_t row = band_row(r, band, j, t, Lmax, nr);
     bool mask;
     float wgt;
     if (band == 0) {
@@ -244,25 +249,12 @@ decode_attend_kernel(const float* __restrict__ q, Levels lv,
       wgt = (float)(1 << l);
     }
     w_s[kk] = mask ? wgt : 0.f;
-    const bool qz = QUANT && ((lv.qmask >> l) & 1u);
-    if (qz) {
-      vrow[kk] = static_cast<const int8_t*>(lv.v[l]) + row * Dv;
-      vsc_s[kk] = lv.vsc[l][row];
-    } else {
-      vrow[kk] = static_cast<const float*>(lv.v[l]) + row * Dv;
-    }
+    vrow[kk] = static_cast<const float*>(lv.v[l]) + row * Dv;
+    const float* krow = static_cast<const float*>(lv.k[l]) + row * D;
     for (int g = 0; g < G; ++g) {
       const float* qg = q_s + g * D;
       float acc = 0.f;
-      if (qz) {
-        const int8_t* krow = static_cast<const int8_t*>(lv.k[l]) + row * D;
-        const float ks = lv.ksc[l][row];
-        for (int c = 0; c < D; ++c)
-          acc = fmaf(qg[c], __fmul_rn((float)krow[c], ks), acc);
-      } else {
-        const float* krow = static_cast<const float*>(lv.k[l]) + row * D;
-        for (int c = 0; c < D; ++c) acc = fmaf(qg[c], krow[c], acc);
-      }
+      for (int c = 0; c < D; ++c) acc = fmaf(qg[c], krow[c], acc);
       s_s[g * K + kk] = mask ? acc : NEG_INF;
     }
   }
@@ -290,23 +282,7 @@ decode_attend_kernel(const float* __restrict__ q, Levels lv,
     const int g = o / Dv, c = o % Dv;
     const float* ag = s_s + g * K;
     float acc = 0.f;
-    if (QUANT) {
-      int kk = 0;
-      for (int band = 0; band < nbands; ++band) {
-        if ((lv.qmask >> band_level(band)) & 1u) {
-          for (int j = 0; j < nr; ++j, ++kk)
-            acc = fmaf(ag[kk], __fmul_rn(
-                (float)static_cast<const int8_t*>(vrow[kk])[c], vsc_s[kk]),
-                acc);
-        } else {
-          for (int j = 0; j < nr; ++j, ++kk)
-            acc = fmaf(ag[kk], static_cast<const float*>(vrow[kk])[c], acc);
-        }
-      }
-    } else {
-      for (int kk = 0; kk < K; ++kk)
-        acc = fmaf(ag[kk], static_cast<const float*>(vrow[kk])[c], acc);
-    }
+    for (int kk = 0; kk < K; ++kk) acc = fmaf(ag[kk], vrow[kk][c], acc);
     out[(size_t)r * G * Dv + o] = acc / fmaxf(den_s[g], 1e-9f);
   }
 }
@@ -350,114 +326,14 @@ __global__ void update_cache_kernel(const float* __restrict__ knew,
   }
 }
 
-__device__ __forceinline__ int8_t quantize(float x, float s) {
-  return (int8_t)fminf(fmaxf(rintf(__fdiv_rn(x, s)), -QMAX), QMAX);
-}
-
-// One column per thread (blockDim.x >= D + Dv, a multiple of 32).
-__global__ void update_cache_quant_kernel(const float* __restrict__ knew,
-                                          const float* __restrict__ vnew,
-                                          const int* __restrict__ tpos,
-                                          const int* __restrict__ utab,
-                                          MutLevels lv, int D, int Dv, int nr,
-                                          int nlev) {
-  __shared__ unsigned amax_s[4];     // float bits: k row 0, 1; v row 0, 1
-  const int r = blockIdx.x;
-  const int t = tpos[r];
-  const int c = threadIdx.x;
-  const bool live = c < D + Dv;
-  const bool is_k = c < D;
-  const int col = is_k ? c : c - D;
-  const int width = is_k ? D : Dv;
-  const int lane = threadIdx.x % 32;
-  float carry = 0.f;
-  if (live)
-    carry = is_k ? knew[(size_t)r * D + col] : vnew[(size_t)r * Dv + col];
-  for (int l = 0; l < nlev; ++l) {
-    const size_t row0 = pair_row<true>(r, l, t, utab, nlev, 0, nr);
-    const int sel = (t >> l) & 1;
-    const bool qz = (lv.qmask >> l) & 1u;       // uniform over the block
-    float x0 = 0.f, x1 = 0.f;
-    if (live) {
-      if (qz) {
-        const int8_t* b = static_cast<const int8_t*>(is_k ? lv.k[l] : lv.v[l])
-                          + row0 * width + col;
-        const float* sc = (is_k ? lv.ksc[l] : lv.vsc[l]) + row0;
-        x0 = __fmul_rn((float)b[0], sc[0]);
-        x1 = __fmul_rn((float)b[width], sc[1]);
-      } else {
-        const float* b = static_cast<const float*>(is_k ? lv.k[l] : lv.v[l])
-                         + row0 * width + col;
-        x0 = b[0];
-        x1 = b[width];
-      }
-      if (sel) x1 = carry; else x0 = carry;
-    }
-    if (qz) {
-      if (threadIdx.x < 4) amax_s[threadIdx.x] = 0u;
-      __syncthreads();
-      const float a[4] = {live && is_k ? fabsf(x0) : 0.f,
-                          live && is_k ? fabsf(x1) : 0.f,
-                          live && !is_k ? fabsf(x0) : 0.f,
-                          live && !is_k ? fabsf(x1) : 0.f};
-      for (int i = 0; i < 4; ++i) {
-        const float m = warp_max(a[i]);
-        if (lane == 0) atomicMax(&amax_s[i], __float_as_uint(m));
-      }
-      __syncthreads();
-      if (live) {
-        const int i = is_k ? 0 : 2;
-        const float s0 = __fmul_rn(fmaxf(__uint_as_float(amax_s[i]), QEPS),
-                                   RECIP_QMAX);
-        const float s1 = __fmul_rn(fmaxf(__uint_as_float(amax_s[i + 1]),
-                                         QEPS), RECIP_QMAX);
-        int8_t* b = static_cast<int8_t*>(is_k ? lv.k[l] : lv.v[l]) +
-                    row0 * width + col;
-        b[0] = quantize(x0, s0);
-        b[width] = quantize(x1, s1);
-        if (col == 0) {
-          float* sc = (is_k ? lv.ksc[l] : lv.vsc[l]) + row0;
-          sc[0] = s0;
-          sc[1] = s1;
-        }
-      }
-      __syncthreads();               // amax_s is reset at the next level
-    } else if (live) {
-      float* b = static_cast<float*>(is_k ? lv.k[l] : lv.v[l]) +
-                 row0 * width + col;
-      b[0] = x0;
-      b[width] = x1;
-    }
-    carry = is_k ? __fmul_rn(__fadd_rn(x0, x1), 0.5f) : __fadd_rn(x0, x1);
-  }
-}
-
 size_t attend_smem(int G, int D, int nlev, int nr) {
   const int K = (nlev + 1) * nr;
   return (size_t)K * sizeof(void*) +
-         (size_t)(G * D + G * K + 2 * K + G) * sizeof(float);
-}
-
-template <int ADDR, bool QUANT>
-int launch_attend(const float* q, const Levels& lv, const int* t,
-                  const int* bidx, float* out, int R, int G, int Lmax, int D,
-                  int Dv, int nr, int nlev, float scale, void* stream) {
-  if (nlev < 1 || nlev > MAXLEV || R < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = attend_smem(G, D, nlev, nr);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        decode_attend_kernel<ADDR, QUANT>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  decode_attend_kernel<ADDR, QUANT>
-      <<<R, THREADS, smem, (cudaStream_t)stream>>>(
-          q, lv, t, bidx, out, G, Lmax, D, Dv, nr, nlev, scale);
-  return (int)cudaGetLastError();
+         (size_t)(G * D + G * K + K + G) * sizeof(float);
 }
 
 // ---------------------------------------------------------------------------
-// staged attend (#7, #11)
+// staged attend (#7, #8, #11)
 // ---------------------------------------------------------------------------
 
 constexpr int SMEM_LIMIT = 232448;   // shared memory a block may use (H100)
@@ -472,10 +348,13 @@ static_assert(MAXLEV + 1 <= 64, "the set-up reads two bands a lane");
 // warp and each warp's partial denominator (2 x WARPS x G); the
 // live-band table.  The partials and the maxima start 16-byte aligned.
 // K = (nlev + 1) * nr.  vw: 4 where D and Dv are multiples of 4 (float4
-// loads), else 1; team: lanes that score one key; vlanes: lanes that
-// share one key in a @ v (a power of two >= Dv / vw, at most 32).
+// loads, or 4 int8 values), else 1; team: lanes that score one key;
+// vlanes: lanes that share one key in a @ v (a power of two >= Dv / vw,
+// at most 32).  A slot of an int8 band holds the block's per-row scales
+// (cr floats) and, `qoff` floats in, its int8 rows; the slot is never
+// smaller than an f32 block's, so the plan keeps the f32 plan's shape.
 struct AttendPlan {
-  int stages, cr, slot, quantum, resident, vw, team, vlanes;
+  int stages, cr, slot, quantum, resident, vw, team, vlanes, qoff;
   int off_ring, off_q, off_s, off_red, off_gs, off_tab, smem;
 };
 
@@ -483,8 +362,15 @@ __host__ __device__ __forceinline__ int ceil_to(int n, int m) {
   return (n + m - 1) / m * m;
 }
 
+// Rows of width W int8 values whose bytes are a multiple of 16.
+__host__ __device__ __forceinline__ int rows16(int W) {
+  int q = 1;
+  while ((q * W) % 16) q *= 2;
+  return q;
+}
+
 inline AttendPlan attend_layout(int G, int D, int Dv, int nr, int nlev,
-                                int stages, int cr, int quantum) {
+                                int stages, int cr, int quantum, bool quant) {
   AttendPlan p{};
   const int nb = nlev + 1, K = nb * nr;
   p.stages = stages;
@@ -493,6 +379,10 @@ inline AttendPlan attend_layout(int G, int D, int Dv, int nr, int nlev,
   p.resident = stages == 2 * nb && cr == nr;
   p.vw = D % 4 == 0 && Dv % 4 == 0 ? 4 : 1;
   p.slot = ceil_to(cr * max(D, Dv), 4);
+  if (quant) {
+    p.qoff = ceil_to(cr, 4);
+    p.slot = max(p.slot, p.qoff + ceil_to((cr * max(D, Dv) + 3) / 4, 4));
+  }
   const int nc = D / p.vw;     // key vectors; a lane scores >= 4 of them
   p.team = 1;
   while (p.team < 8 && nc % (2 * p.team) == 0 && nc / (2 * p.team) >= 4)
@@ -522,23 +412,32 @@ inline AttendPlan attend_layout(int G, int D, int Dv, int nr, int nlev,
 // (2 (nlev + 1) slots of nr rows) where that fits; else a ring of as many
 // stages as fit, its chunks halved from nr rows while fewer than 2 fit
 // (never below `quantum` rows, the granule that keeps every bulk copy a
-// multiple of 16 bytes when D or Dv is not a multiple of 4).  stages = 0:
-// not even one chunk fits.
-inline AttendPlan attend_plan(int G, int D, int Dv, int nr, int nlev) {
+// multiple of 16 bytes: 4 rows when D or Dv is not a multiple of 4; with
+// int8 levels (`quant`) the rows whose 4-byte scales and D- and Dv-byte
+// rows are all multiples of 16, 4 or more; 1 where nr is not a multiple,
+// and then no bulk copies).  stages = 0: not even one chunk fits.
+inline AttendPlan attend_plan(int G, int D, int Dv, int nr, int nlev,
+                              bool quant) {
   const int nb = nlev + 1;
-  const int quantum = (D % 4 == 0 && Dv % 4 == 0) || nr % 4 ? 1 : 4;
-  AttendPlan p = attend_layout(G, D, Dv, nr, nlev, 2 * nb, nr, quantum);
+  int quantum = (D % 4 == 0 && Dv % 4 == 0) || nr % 4 ? 1 : 4;
+  if (quant) {
+    quantum = max(4, max(rows16(D), rows16(Dv)));
+    if (nr % quantum) quantum = 1;
+  }
+  AttendPlan p = attend_layout(G, D, Dv, nr, nlev, 2 * nb, nr, quantum,
+                               quant);
   if (p.smem <= SMEM_LIMIT) return p;
   for (int cr = nr;; cr /= 2) {
     const int most = 2 * nb * ((nr + cr - 1) / cr);
-    const AttendPlan none = attend_layout(G, D, Dv, nr, nlev, 0, cr, quantum);
+    const AttendPlan none =
+        attend_layout(G, D, Dv, nr, nlev, 0, cr, quantum, quant);
     const int per = 4 * none.slot + 8;
     const int fit = none.smem > SMEM_LIMIT ? 0 : (SMEM_LIMIT - none.smem) / per;
     int S = fit < most ? fit : most;
-    while (S > 0 &&
-           attend_layout(G, D, Dv, nr, nlev, S, cr, quantum).smem > SMEM_LIMIT)
+    while (S > 0 && attend_layout(G, D, Dv, nr, nlev, S, cr, quantum,
+                                  quant).smem > SMEM_LIMIT)
       --S;
-    p = attend_layout(G, D, Dv, nr, nlev, S, cr, quantum);
+    p = attend_layout(G, D, Dv, nr, nlev, S, cr, quantum, quant);
     p.resident = 0;
     if (S >= 2 || cr % 2 || (cr / 2) % quantum) return p;
   }
@@ -565,12 +464,17 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
       "}\n" :: "r"(smem_u32(bar)), "r"(parity) : "memory");
 }
 
-// One bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
-// aligned) that completes its bytes on `bar`, after announcing them.
-__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
-                                          int bytes, uint64_t* bar) {
+// This thread's arrival on `bar`, announcing `bytes` of bulk copies
+// that complete on it.
+__device__ __forceinline__ void bulk_expect(uint64_t* bar, int bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
                :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// One bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) that completes its bytes on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          int bytes, uint64_t* bar) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];"
@@ -578,9 +482,41 @@ __device__ __forceinline__ void bulk_copy(float* dst, const float* src,
       : "memory");
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+// One bulk copy that completes on `bar`, after announcing its bytes.
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
+                                          int bytes, uint64_t* bar) {
+  bulk_expect(bar, bytes);
+  bulk_load(dst, src, bytes, bar);
+}
+
+// An int8 block of `rows` rows of width W, row `row` on, into a slot: its
+// scales at the slot's start, its rows `qoff` floats in; one arrival
+// announces both copies.
+__device__ __forceinline__ void bulk_copy8(float* slot, const void* data,
+                                           const float* sc, size_t row,
+                                           int rows, int W, int qoff,
+                                           uint64_t* bar) {
+  bulk_expect(bar, rows * (W + 4));
+  bulk_load(slot, sc + row, rows * 4, bar);
+  bulk_load(slot + qoff, static_cast<const int8_t*>(data) + row * W,
+            rows * W, bar);
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
                :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+// This thread's arrival on `bar` (its earlier shared-memory stores
+// released to the threads that wait on it).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+               :: "r"(smem_u32(bar)) : "memory");
 }
 
 // This thread's arrival on `bar` once its earlier cp.async are done.
@@ -617,6 +553,25 @@ struct Vec {
     }
     return v;
   }
+  // VW int8 values from p (4-byte aligned where VW = 4), each dequantized
+  // as the plain version does: float(q) * scale, rounded.  float(q) comes
+  // exactly from a byte permute that puts q + 128 into the mantissa of
+  // 2^23, less 2^23 + 128 (full-rate integer and add instructions where a
+  // conversion instruction runs at a quarter of their rate)
+  __device__ __forceinline__ static Vec load8(const int8_t* p, float sc) {
+    Vec v;
+    if constexpr (VW == 4) {
+      const unsigned w = *reinterpret_cast<const unsigned*>(p) ^ 0x80808080u;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        v.x[e] = __fmul_rn(
+            __fsub_rn(__uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540 | e)),
+                      8388736.f), sc);
+    } else {
+      v.x[0] = __fmul_rn((float)*p, sc);
+    }
+    return v;
+  }
   __device__ __forceinline__ void store(float* p) const {
     if constexpr (VW == 4)
       *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
@@ -627,9 +582,11 @@ struct Vec {
 
 // out: normalised (R, G, Dv); LOCAL: the partial num there, den and m
 // (R, G) in den_out / m_out.  bulk: every block 16-byte aligned (the
-// launcher checks the level pointers and the plan's quantum).  VW = the
-// plan's vw.  The parameters the first warp reads come first, the 1.2 KB
-// of level pointers last (other constant-cache lines).
+// launcher checks the level and scale pointers and the plan's quantum).
+// VW = the plan's vw.  QPAGED: level l holds int8 rows where bit l of
+// lv.qmask is set (whole bands, so every branch on it is warp-uniform).
+// The parameters the first warp reads come first, the level pointers
+// last (other constant-cache lines).
 template <int ADDR, int VW>
 __global__ void __launch_bounds__(THREADS, 1)
 attend_staged_kernel(const int* __restrict__ tpos,
@@ -662,6 +619,9 @@ attend_staged_kernel(const int* __restrict__ tpos,
   const int r = blockIdx.x, tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int S = p.stages, cr = p.cr, Gq = G == 1 ? 1 : ceil_to(G, 4);
+  auto is8 = [&](int l) {
+    return ADDR == ADDR_QPAGED && ((lv.qmask >> l) & 1u);
+  };
 
   // resident: the keys of band b (key chunk c, the c-th live band
   // tb_band[c]) in slot b, its values in slot nb + b, each slot used
@@ -680,10 +640,25 @@ attend_staged_kernel(const int* __restrict__ tpos,
     const int rows = min(cr, tb_cnt[ib] - part * cr);
     const int l = band_level(tb_band[ib]);
     const int width = isv ? Dv : D;
-    const float* src = static_cast<const float*>(isv ? lv.v[l] : lv.k[l]) +
-                       ((size_t)tb_row[ib] + (size_t)part * cr) * width;
+    const size_t row = (size_t)tb_row[ib] + (size_t)part * cr;
     const int s = slot_of(i, nch, ib);
     float* dst = ring + (size_t)s * p.slot;
+    if (is8(l)) {
+      const void* data = isv ? lv.v[l] : lv.k[l];
+      const float* sc = isv ? lv.vsc[l] : lv.ksc[l];
+      if (bulk) {
+        bulk_copy8(dst, data, sc, row, rows, width, p.qoff, bar + s);
+      } else {                     // plain loads: rows of any width
+        const int8_t* src = static_cast<const int8_t*>(data) + row * width;
+        int8_t* d8 = reinterpret_cast<int8_t*>(dst + p.qoff);
+        for (int e = tid; e < rows * width; e += THREADS) d8[e] = src[e];
+        for (int e = tid; e < rows; e += THREADS) dst[e] = sc[row + e];
+        mbar_arrive(bar + s);
+      }
+      return;
+    }
+    const float* src =
+        static_cast<const float*>(isv ? lv.v[l] : lv.k[l]) + row * width;
     if (bulk) {
       bulk_copy(dst, src, rows * width * 4, bar + s);
     } else {
@@ -712,9 +687,11 @@ attend_staged_kernel(const int* __restrict__ tpos,
   // across.
   if (warp == 0) {
     const int t = tpos[r];
-    int blk2[2] = {0, 0}, own2[2] = {1, 1};
+    int blk2[2] = {0, 0}, own2[2] = {1, 1}, lev2[2];
     const float* kl2[2];
     const float* vl2[2];
+    const float* ks2[2] = {nullptr, nullptr};
+    const float* vs2[2] = {nullptr, nullptr};
     int rows2[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -723,8 +700,13 @@ attend_staged_kernel(const int* __restrict__ tpos,
         blk2[h] = bidx[(size_t)r * nb + b];
         if (ADDR == ADDR_LOCAL) own2[h] = owned[(size_t)r * nb + b];
       }
+      lev2[h] = l;
       kl2[h] = static_cast<const float*>(lv.k[l]);
       vl2[h] = static_cast<const float*>(lv.v[l]);
+      if (ADDR == ADDR_QPAGED) {
+        ks2[h] = lv.ksc[l];
+        vs2[h] = lv.vsc[l];
+      }
       rows2[h] = ADDR == ADDR_LOCAL ? lv.rows[l] : 0;
     }
     for (int s = lane; s < S; s += 32) mbar_init(bar + s, bulk ? 1 : THREADS);
@@ -743,7 +725,11 @@ attend_staged_kernel(const int* __restrict__ tpos,
       const int cnt = tru ? min(nr, ceil_to(tru, p.quantum)) : 0;
       const int row = r * rows2[h] + blk * nr;
       const bool early = bulk && p.resident && tru > 0;
-      if (early)                        // keys first: the scores wait on them
+      const bool q8 = is8(lev2[h]);
+      if (early && q8)
+        bulk_copy8(ring + (size_t)b * p.slot, kl, ks2[h], row, cnt, D,
+                   p.qoff, bar + b);
+      else if (early)                   // keys first: the scores wait on them
         bulk_copy(ring + (size_t)b * p.slot, kl + (size_t)row * D,
                   cnt * D * 4, bar + b);
       const int nchk = (cnt + cr - 1) / cr;
@@ -766,7 +752,10 @@ attend_staged_kernel(const int* __restrict__ tpos,
         tb_tru[i] = tru;
         tb_ch0[i] = nc + cc - nchk;
       }
-      if (early)
+      if (early && q8)
+        bulk_copy8(ring + (size_t)(nb + b) * p.slot, vl, vs2[h], row, cnt, Dv,
+                   p.qoff, bar + nb + b);
+      else if (early)
         bulk_copy(ring + (size_t)(nb + b) * p.slot, vl + (size_t)row * Dv,
                   cnt * Dv * 4, bar + nb + b);
       nk += __shfl_sync(FULL, kc, 31);
@@ -825,7 +814,8 @@ attend_staged_kernel(const int* __restrict__ tpos,
 
   // scores: one warp per key chunk; `team` lanes per key, each over the
   // key's vectors lt, lt + team, ... in an order rotated by the key, so
-  // that the keys of a quarter warp read distinct banks
+  // that the keys of a quarter warp read distinct banks; an int8 chunk's
+  // keys dequantized on the read
   const int T = p.team, KP = 32 / T, lt = lane % T, kq = lane / T;
   const int ncv = D / VW, ncl = ncv / T;
   auto score = [&](auto groups, int c0, int c1) {
@@ -835,46 +825,58 @@ attend_staged_kernel(const int* __restrict__ tpos,
       const int s = slot_of(c, nch, ch.ib);
       mbar_wait(bar + s, parity_of(c));
       const float* kb = ring + (size_t)s * p.slot;
+      const bool q8 = is8(band_level(tb_band[ch.ib]));
+      const int8_t* kb8 = reinterpret_cast<const int8_t*>(kb + p.qoff);
       float mx[GC];
 #pragma unroll
       for (int i = 0; i < GC; ++i) mx[i] = NEG_INF;
-      for (int j0 = 0; j0 < ch.n; j0 += KP) {     // warp-uniform
-        const int j = j0 + kq;
-        const bool mask = j < ch.tru && j < ch.n;
-        const int rot = j % ncl;
-        for (int g0 = 0; g0 < G; g0 += GC) {
-          float acc[GC];
+      // the chunk's dtype a compile-time branch (a run-time one is
+      // if-converted: both loads issued)
+      auto keys = [&](auto int8) {
+        for (int j0 = 0; j0 < ch.n; j0 += KP) {     // warp-uniform
+          const int j = j0 + kq;
+          const bool mask = j < ch.tru && j < ch.n;
+          const int rot = j % ncl;
+          for (int g0 = 0; g0 < G; g0 += GC) {
+            float acc[GC];
 #pragma unroll
-          for (int i = 0; i < GC; ++i) acc[i] = 0.f;
-          if (mask) {
-            for (int cc = 0; cc < ncl; ++cc) {
-              const int ci = cc + rot < ncl ? cc + rot : cc + rot - ncl;
-              const int cv = ci * T + lt;
-              const Vec<VW> kv = Vec<VW>::load(kb + j * D + cv * VW);
+            for (int i = 0; i < GC; ++i) acc[i] = 0.f;
+            if (mask) {
+              const float ks = decltype(int8)::value ? kb[j] : 0.f;
+              for (int cc = 0; cc < ncl; ++cc) {
+                const int ci = cc + rot < ncl ? cc + rot : cc + rot - ncl;
+                const int cv = ci * T + lt;
+                const Vec<VW> kv =
+                    decltype(int8)::value
+                        ? Vec<VW>::load8(kb8 + j * D + cv * VW, ks)
+                        : Vec<VW>::load(kb + j * D + cv * VW);
 #pragma unroll
-              for (int i = 0; i < GC; ++i) {
-                const Vec<VW> qv =
-                    Vec<VW>::load(q_s + (g0 + i) * D + cv * VW);
+                for (int i = 0; i < GC; ++i) {
+                  const Vec<VW> qv =
+                      Vec<VW>::load(q_s + (g0 + i) * D + cv * VW);
 #pragma unroll
-                for (int e = 0; e < VW; ++e)
-                  acc[i] = fmaf(qv.x[e], kv.x[e], acc[i]);
+                  for (int e = 0; e < VW; ++e)
+                    acc[i] = fmaf(qv.x[e], kv.x[e], acc[i]);
+                }
+              }
+            }
+#pragma unroll
+            for (int i = 0; i < GC; ++i) {
+              for (int off = T / 2; off; off >>= 1)
+                acc[i] += __shfl_xor_sync(FULL, acc[i], off);
+              if (g0 + i < G) {
+                const float sc = mask ? acc[i] : NEG_INF;
+                if (j < ch.n && lt == 0) s_s[(g0 + i) * K + ch.k0 + j] = sc;
+                if constexpr (GC == 1) mx[0] = fmaxf(mx[0], sc);
+                else wmax[(g0 + i) * WARPS + warp] = fmaxf(
+                    warp_max(sc), wmax[(g0 + i) * WARPS + warp]);
               }
             }
           }
-#pragma unroll
-          for (int i = 0; i < GC; ++i) {
-            for (int off = T / 2; off; off >>= 1)
-              acc[i] += __shfl_xor_sync(FULL, acc[i], off);
-            if (g0 + i < G) {
-              const float sc = mask ? acc[i] : NEG_INF;
-              if (j < ch.n && lt == 0) s_s[(g0 + i) * K + ch.k0 + j] = sc;
-              if constexpr (GC == 1) mx[0] = fmaxf(mx[0], sc);
-              else wmax[(g0 + i) * WARPS + warp] = fmaxf(
-                  warp_max(sc), wmax[(g0 + i) * WARPS + warp]);
-            }
-          }
         }
-      }
+      };
+      if (q8) keys(std::true_type{});
+      else keys(std::false_type{});
       if constexpr (GC == 1) {
         const float m = warp_max(mx[0]);
         if (lane == 0) wmax[warp] = fmaxf(wmax[warp], m);
@@ -917,6 +919,10 @@ attend_staged_kernel(const int* __restrict__ tpos,
           const int s = slot_of(nch + c, nch, ch.ib);
           mbar_wait(bar + s, parity_of(nch + c));
           const float* vb = ring + (size_t)s * p.slot + cv * VW;
+          const bool q8 = is8(band_level(tb_band[ch.ib]));
+          const float* vsc = ring + (size_t)s * p.slot;
+          const int8_t* vb8 = reinterpret_cast<const int8_t*>(vsc + p.qoff) +
+                              cv * VW;
           const float wgt = (float)(1 << band_level(tb_band[ch.ib]));
           for (int jb = 0; jb < ch.n; jb += 32) {
             const int jl = jb + lane;             // this lane's key
@@ -928,18 +934,25 @@ attend_staged_kernel(const int* __restrict__ tpos,
               if (cv0 == 0 && jl < ch.tru) dn[i] = fmaf(a[i], wgt, dn[i]);
             }
             const int jn = min(32, ch.n - jb);
+            auto values = [&](auto int8) {
 #pragma unroll 4
-            for (int j = grp; j < ((jn + P - 1) / P) * P; j += P) {
-              Vec<VW> v{};
-              if (act && j < jn) v = Vec<VW>::load(vb + (size_t)(jb + j) * Dv);
+              for (int j = grp; j < ((jn + P - 1) / P) * P; j += P) {
+                Vec<VW> v{};
+                if (act && j < jn)
+                  v = decltype(int8)::value
+                          ? Vec<VW>::load8(vb8 + (jb + j) * Dv, vsc[jb + j])
+                          : Vec<VW>::load(vb + (size_t)(jb + j) * Dv);
 #pragma unroll
-              for (int i = 0; i < GC; ++i) {
-                const float aj = __shfl_sync(FULL, a[i], j & 31);
+                for (int i = 0; i < GC; ++i) {
+                  const float aj = __shfl_sync(FULL, a[i], j & 31);
 #pragma unroll
-                for (int e = 0; e < VW; ++e)
-                  acc[i].x[e] = fmaf(aj, v.x[e], acc[i].x[e]);
+                  for (int e = 0; e < VW; ++e)
+                    acc[i].x[e] = fmaf(aj, v.x[e], acc[i].x[e]);
+                }
               }
-            }
+            };
+            if (q8) values(std::true_type{});
+            else values(std::false_type{});
           }
         }
 #pragma unroll
@@ -1011,14 +1024,20 @@ int launch_staged(const float* q, const Levels& lv, const int* t,
   if (nlev < 1 || nlev > MAXLEV || R < 1 || G < 1 || D < 1 || Dv < 1 ||
       nr < 1)
     return (int)cudaErrorInvalidValue;
-  const AttendPlan p = attend_plan(G, D, Dv, nr, nlev);
+  const bool quant = ADDR == ADDR_QPAGED && lv.qmask != 0;
+  const AttendPlan p = attend_plan(G, D, Dv, nr, nlev, quant);
   if (p.stages < 1) return (int)cudaErrorInvalidValue;
+  auto at16 = [](const void* a) {
+    return reinterpret_cast<uintptr_t>(a) % 16 == 0;
+  };
   bool aligned = true;
-  for (int l = 0; l < nlev; ++l)
-    aligned = aligned && reinterpret_cast<uintptr_t>(lv.k[l]) % 16 == 0 &&
-              reinterpret_cast<uintptr_t>(lv.v[l]) % 16 == 0;
-  const int bulk =
-      aligned && (p.quantum == 4 || (D % 4 == 0 && Dv % 4 == 0)) ? 1 : 0;
+  for (int l = 0; l < nlev; ++l) {
+    aligned = aligned && at16(lv.k[l]) && at16(lv.v[l]);
+    if (quant && ((lv.qmask >> l) & 1u))
+      aligned = aligned && at16(lv.ksc[l]) && at16(lv.vsc[l]);
+  }
+  const int bulk = aligned && (p.quantum > 1 || (!quant && D % 4 == 0 &&
+                                                 Dv % 4 == 0)) ? 1 : 0;
   auto kernel = p.vw == 4 ? attend_staged_kernel<ADDR, 4>
                           : attend_staged_kernel<ADDR, 1>;
   if (p.smem > 48 * 1024) {
@@ -1029,6 +1048,257 @@ int launch_staged(const float* q, const Levels& lv, const int* t,
   kernel<<<R, THREADS, p.smem, (cudaStream_t)stream>>>(
       t, bidx, owned, q, out, den, m, G, D, Dv, nr, nlev, scale, bulk, p, lv);
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// int8 paged update (#10)
+// ---------------------------------------------------------------------------
+
+// Bytes of one level in a chain's shared memory: its sibling pair as
+// staged (two rows of W f32 or int8 values); an int8 level then its two
+// staged scales, the f32 pair after the carry is put in, and each lane's
+// absmax of both rows (2 x 32 floats).  Every part 16-byte aligned.
+__host__ __device__ __forceinline__ int pair_bytes(int W, bool q8) {
+  return q8 ? ceil_to(2 * W, 16) + 16 + ceil_to(8 * W, 16) + 256
+            : ceil_to(8 * W, 16);
+}
+
+__host__ __device__ __forceinline__ int chain_bytes(int W, unsigned qmask,
+                                                    int nlev) {
+  int n = 0;
+  for (int l = 0; l < nlev; ++l) n += pair_bytes(W, (qmask >> l) & 1u);
+  return n;
+}
+
+__device__ __forceinline__ int8_t quantize(float x, float s) {
+  return (int8_t)fminf(fmaxf(rintf(__fdiv_rn(x, s)), -QMAX), QMAX);
+}
+
+// First row, in its page, of the sibling pair that holds ancestor t >> l
+// (l up to 31: a shift by 32 is 0 here, not undefined).
+__device__ __forceinline__ int pair_in_page(int t, int l, int nr) {
+  return 2 * ((l < 31 ? t >> (l + 1) : 0) & (nr / 2 - 1));
+}
+
+// `bytes` from src into dst (16-byte aligned) by one thread: 16-byte
+// cp.async where src and bytes allow it, else 4-byte, else plain byte
+// loads (int8 rows of odd width or at an odd address).
+__device__ __forceinline__ void lane_stage(unsigned char* dst,
+                                           const unsigned char* src,
+                                           int bytes) {
+  const unsigned a = (unsigned)reinterpret_cast<uintptr_t>(src) |
+                     (unsigned)bytes;
+  if (a % 16 == 0)
+    for (int e = 0; e < bytes; e += 16) cp_async16(dst + e, src + e);
+  else if (a % 4 == 0)
+    for (int e = 0; e < bytes; e += 4) cp_async4(dst + e, src + e);
+  else
+    for (int e = 0; e < bytes; ++e) dst[e] = src[e];
+}
+
+// One CTA per cache row; warps 2i and 2i + 1 serve the row's k and v
+// chains (the two never meet).  Lane i holds columns i, i + 32, ... (C of
+// them).  The sibling pairs of every level (and an int8 level's two
+// scales) sit where t and utab[r] alone say, so lane l of warps 0 and 1
+// reads t and utab[r, l] and puts level l's pair in flight at once with
+// every other lane's.  Then, with no memory round trip between levels:
+//   A. warps 0 and 1 run the carry chain: per level the pair dequantized,
+//      the carry put in, an f32 level stored, an int8 level's f32 pair
+//      and each lane's absmax of both rows kept in shared memory, the
+//      pair's mean (k) or sum (v) carried;
+//   B. lane l takes int8 level l's row maxima over the 32 lanes (exact,
+//      in any order) and its two fresh scales, and stores the scales;
+//   C. every int8 level is requantized and stored, level l by the warps
+//      of part l % UPD_PARTS, no level waiting on another (the IEEE
+//      divisions are most of the work).
+constexpr int UPD_PARTS = 4;
+
+template <int C>
+__global__ void __launch_bounds__(64 * UPD_PARTS)
+update_cache_quant_kernel(const float* __restrict__ knew,
+                          const float* __restrict__ vnew,
+                          const int* __restrict__ tpos,
+                          const int* __restrict__ utab, MutLevels lv, int D,
+                          int Dv, int nr, int nlev) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int r = blockIdx.x, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const bool is_k = warp % 2 == 0;
+  const int part = warp / 2;
+  const int W = is_k ? D : Dv;
+  const int t = tpos[r];
+  const int upage = lane < nlev ? utab[(size_t)r * nlev + lane] : 0;
+  unsigned char* buf = smem + (is_k ? 0 : chain_bytes(D, lv.qmask, nlev));
+  const int q2 = ceil_to(2 * W, 16), f8 = ceil_to(8 * W, 16);
+  if (part == 0) {
+    const float* fresh = (is_k ? knew : vnew) + (size_t)r * W;
+    float carry[C];
+#pragma unroll
+    for (int i = 0; i < C; ++i)
+      carry[i] = lane + 32 * i < W ? fresh[lane + 32 * i] : 0.f;
+    // lane l: level l's first pair row and its offset
+    const bool q8l = lane < nlev && ((lv.qmask >> lane) & 1u);
+    const size_t row0l = (size_t)upage * nr + pair_in_page(t, lane, nr);
+    const int offl = chain_bytes(W, lv.qmask, lane < nlev ? lane : 0);
+    if (lane < nlev) {
+      const int es = q8l ? 1 : 4;
+      lane_stage(buf + offl,
+                 static_cast<const unsigned char*>(is_k ? lv.k[lane]
+                                                        : lv.v[lane]) +
+                     row0l * W * es,
+                 2 * W * es);
+      if (q8l) {
+        const float* sc = (is_k ? lv.ksc[lane] : lv.vsc[lane]) + row0l;
+        cp_async4(buf + offl + q2, sc);
+        cp_async4(buf + offl + q2 + 4, sc + 1);
+      }
+    }
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    __syncwarp();
+
+    // A: the carry chain.  Level l + 1's pair is read (and dequantized)
+    // before level l's stores, which the compiler must otherwise keep
+    // ahead of any later shared-memory read.
+    auto pair_at = [&](int l, int off, float (&x0)[C], float (&x1)[C]) {
+      if ((lv.qmask >> l) & 1u) {
+        const int8_t* pr = reinterpret_cast<const int8_t*>(buf + off);
+        const float* sc = reinterpret_cast<const float*>(buf + off + q2);
+        const float s0 = sc[0], s1 = sc[1];
+#pragma unroll
+        for (int i = 0; i < C; ++i) {
+          const int c = lane + 32 * i;
+          x0[i] = c < W ? __fmul_rn((float)pr[c], s0) : 0.f;
+          x1[i] = c < W ? __fmul_rn((float)pr[W + c], s1) : 0.f;
+        }
+      } else {
+        const float* pr = reinterpret_cast<const float*>(buf + off);
+#pragma unroll
+        for (int i = 0; i < C; ++i) {
+          const int c = lane + 32 * i;
+          x0[i] = c < W ? pr[c] : 0.f;
+          x1[i] = c < W ? pr[W + c] : 0.f;
+        }
+      }
+    };
+    float y0[C], y1[C];
+    pair_at(0, 0, y0, y1);
+    for (int l = 0, off = 0; l < nlev; ++l) {
+      const bool q8 = (lv.qmask >> l) & 1u;
+      const int sel = (t >> l) & 1;
+      const int next = off + pair_bytes(W, q8);
+      float x0[C], x1[C];
+#pragma unroll
+      for (int i = 0; i < C; ++i) {   // columns past W: carry 0, stay 0
+        x0[i] = sel ? y0[i] : carry[i];
+        x1[i] = sel ? carry[i] : y1[i];
+      }
+      if (l + 1 < nlev) pair_at(l + 1, next, y0, y1);
+      if (q8) {
+        float* xs = reinterpret_cast<float*>(buf + off + q2 + 16);
+        float m0 = 0.f, m1 = 0.f;
+#pragma unroll
+        for (int i = 0; i < C; ++i) {
+          const int c = lane + 32 * i;
+          if (c < W) {
+            xs[c] = x0[i];
+            xs[W + c] = x1[i];
+          }
+          m0 = fmaxf(m0, fabsf(x0[i]));
+          m1 = fmaxf(m1, fabsf(x1[i]));
+        }
+        float* pm = reinterpret_cast<float*>(buf + off + q2 + 16 + f8);
+        pm[lane] = m0;
+        pm[32 + lane] = m1;
+      } else {
+        const size_t row0 =
+            (size_t)__shfl_sync(FULL, upage, l) * nr + pair_in_page(t, l, nr);
+        float* b = static_cast<float*>(is_k ? lv.k[l] : lv.v[l]) + row0 * W;
+#pragma unroll
+        for (int i = 0; i < C; ++i) {
+          const int c = lane + 32 * i;
+          if (c < W) {
+            b[c] = x0[i];
+            b[W + c] = x1[i];
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < C; ++i)
+        carry[i] = is_k ? __fmul_rn(__fadd_rn(x0[i], x1[i]), 0.5f)
+                        : __fadd_rn(x0[i], x1[i]);
+      off = next;
+    }
+    __syncwarp();
+
+    // B: lane l, int8 level l's scales (its maxima read in a rotated
+    // order, so the 32 lanes hit 32 banks), in place of the staged ones
+    if (q8l) {
+      const float* pm =
+          reinterpret_cast<const float*>(buf + offl + q2 + 16 + f8);
+      float m0 = 0.f, m1 = 0.f;
+      for (int i = 0; i < 32; ++i) {
+        const int j = (i + lane) % 32;
+        m0 = fmaxf(m0, pm[j]);
+        m1 = fmaxf(m1, pm[32 + j]);
+      }
+      const float s0 = __fmul_rn(fmaxf(m0, QEPS), RECIP_QMAX);
+      const float s1 = __fmul_rn(fmaxf(m1, QEPS), RECIP_QMAX);
+      float* ss = reinterpret_cast<float*>(buf + offl + q2);
+      ss[0] = s0;
+      ss[1] = s1;
+      float* sc = (is_k ? lv.ksc[lane] : lv.vsc[lane]) + row0l;
+      sc[0] = s0;
+      sc[1] = s1;
+    }
+  }
+  __syncthreads();
+
+  // C: this part's int8 levels requantized and stored, the next one's f32
+  // pair and scales read before this one's stores
+  auto next8 = [&](int l, int& off) {    // this part's first int8 level >= l
+    for (; l < nlev && !(((lv.qmask >> l) & 1u) && l % UPD_PARTS == part);
+         ++l)
+      off += pair_bytes(W, (lv.qmask >> l) & 1u);
+    return l;
+  };
+  auto f32_pair = [&](int off, float (&z0)[C], float (&z1)[C], float& s0,
+                      float& s1) {
+    const float* ss = reinterpret_cast<const float*>(buf + off + q2);
+    s0 = ss[0];
+    s1 = ss[1];
+#pragma unroll
+    for (int i = 0; i < C; ++i) {
+      const int c = lane + 32 * i;
+      z0[i] = c < W ? ss[4 + c] : 0.f;
+      z1[i] = c < W ? ss[4 + W + c] : 0.f;
+    }
+  };
+  int off = 0;
+  int l = next8(0, off);
+  float z0[C], z1[C], s0 = 1.f, s1 = 1.f;
+  if (l < nlev) f32_pair(off, z0, z1, s0, s1);
+  while (l < nlev) {
+    int8_t q0[C], q1[C];
+#pragma unroll
+    for (int i = 0; i < C; ++i) {
+      q0[i] = quantize(z0[i], s0);
+      q1[i] = quantize(z1[i], s1);
+    }
+    const size_t row0 =
+        (size_t)__shfl_sync(FULL, upage, l) * nr + pair_in_page(t, l, nr);
+    int8_t* b = static_cast<int8_t*>(is_k ? lv.k[l] : lv.v[l]) + row0 * W;
+    off += pair_bytes(W, true);
+    const int ln = next8(l + 1, off);
+    if (ln < nlev) f32_pair(off, z0, z1, s0, s1);
+#pragma unroll
+    for (int i = 0; i < C; ++i) {
+      const int c = lane + 32 * i;
+      if (c < W) {
+        b[c] = q0[i];
+        b[W + c] = q1[i];
+      }
+    }
+    l = ln;
+  }
 }
 
 Levels read_levels(const void* const* ks, const void* const* vs,
@@ -1069,7 +1339,8 @@ extern "C" int h1d_decode_attend(const float* q, const float* k,
                                  float* out, int R, int G, int Lmax, int D,
                                  int Dv, int nr, int ncoarse, float scale,
                                  void* stream) {
-  if (ncoarse < 0 || ncoarse + 1 > MAXLEV) return (int)cudaErrorInvalidValue;
+  if (ncoarse < 0 || ncoarse + 1 > MAXLEV || R < 1)
+    return (int)cudaErrorInvalidValue;
   Levels lv{};
   lv.k[0] = k;
   lv.v[0] = v;
@@ -1077,9 +1348,16 @@ extern "C" int h1d_decode_attend(const float* q, const float* k,
     lv.k[l + 1] = ck[l];
     lv.v[l + 1] = cv[l];
   }
-  return launch_attend<ADDR_DENSE, false>(q, lv, t, nullptr, out, R, G,
-                                          Lmax, D, Dv, nr, ncoarse + 1, scale,
-                                          stream);
+  const size_t smem = attend_smem(G, D, ncoarse + 1, nr);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        decode_attend_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  decode_attend_kernel<<<R, THREADS, smem, (cudaStream_t)stream>>>(
+      q, lv, t, out, G, Lmax, D, Dv, nr, ncoarse + 1, scale);
+  return (int)cudaGetLastError();
 }
 
 // Paged pools: ks[l]/vs[l] level l's (NP_l, nr, D/Dv) f32 pages for
@@ -1105,8 +1383,9 @@ extern "C" int h1d_decode_attend_paged_quant(
     int nr, int nlev, float scale, void* stream) {
   if (nlev < 1 || nlev > MAXLEV) return (int)cudaErrorInvalidValue;
   const Levels lv = read_levels(ks, vs, kscs, vscs, (unsigned)qmask, nlev);
-  return launch_attend<ADDR_PAGED, true>(q, lv, t, bidx, out, R, G, 0, D,
-                                         Dv, nr, nlev, scale, stream);
+  return launch_staged<ADDR_QPAGED>(q, lv, t, bidx, nullptr, out, nullptr,
+                                    nullptr, R, G, D, Dv, nr, nlev, scale,
+                                    stream);
 }
 
 // k_new (R,D), v_new (R,Dv), t (R,) int32; ks[l]/vs[l] are level l's
@@ -1142,17 +1421,34 @@ extern "C" int h1d_update_cache_paged(const float* knew, const float* vnew,
 }
 
 // As h1d_update_cache_paged with int8 levels (bit l of qmask) and their
-// per-row scales kscs[l]/vscs[l] (NP_l, nr), rewritten in place.
+// per-row scales kscs[l]/vscs[l] (NP_l, nr), rewritten in place.  D and
+// Dv up to 1024 (32 columns a lane), and one row's staged pairs, every
+// level's k and v pair and scales (chain_bytes), within SMEM_LIMIT.
 extern "C" int h1d_update_cache_paged_quant(
     const float* knew, const float* vnew, const int* t, const int* utab,
     void* const* ks, void* const* vs, void* const* kscs, void* const* vscs,
     int qmask, int R, int D, int Dv, int nr, int nlev, void* stream) {
-  const int threads = ((D + Dv + 31) / 32) * 32;
-  if (nlev < 1 || nlev > MAXLEV || R < 1 || nr < 2 || threads > 1024)
+  if (nlev < 1 || nlev > MAXLEV || R < 1 || nr < 2 || D < 1 || Dv < 1 ||
+      D > 1024 || Dv > 1024)
     return (int)cudaErrorInvalidValue;
   const MutLevels lv = write_levels(ks, vs, kscs, vscs, (unsigned)qmask,
                                     nlev);
-  update_cache_quant_kernel<<<R, threads, 0, (cudaStream_t)stream>>>(
+  const int smem = chain_bytes(D, lv.qmask, nlev) +
+                   chain_bytes(Dv, lv.qmask, nlev);
+  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  const int cols = (max(D, Dv) + 31) / 32;
+  auto kernel = cols <= 1 ? update_cache_quant_kernel<1>
+              : cols <= 2 ? update_cache_quant_kernel<2>
+              : cols <= 4 ? update_cache_quant_kernel<4>
+              : cols <= 8 ? update_cache_quant_kernel<8>
+              : cols <= 16 ? update_cache_quant_kernel<16>
+                           : update_cache_quant_kernel<32>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<R, 64 * UPD_PARTS, smem, (cudaStream_t)stream>>>(
       knew, vnew, t, utab, lv, D, Dv, nr, nlev);
   return (int)cudaGetLastError();
 }
@@ -1192,14 +1488,15 @@ extern "C" int h1d_update_cache_partial(const float* knew, const float* vnew,
   return (int)cudaGetLastError();
 }
 
-// The staged attend's launch plan (#7, #11) for the host's mirror
-// (kernels/h1d_decode_kernel.plan_attend_stages): out[0..3] = stages,
-// rows a chunk, row quantum, shared memory bytes.
+// The staged attend's launch plan (#7, #8, #11) for the host's mirror
+// (kernels/h1d_decode_kernel.plan_attend_stages): quant != 0 for a pool
+// with int8 levels; out[0..3] = stages, rows a chunk, row quantum, shared
+// memory bytes.
 extern "C" int h1d_decode_attend_plan(int G, int D, int Dv, int nr, int nlev,
-                                      int* out) {
+                                      int quant, int* out) {
   if (nlev < 1 || nlev > MAXLEV || G < 1 || D < 1 || Dv < 1 || nr < 1)
     return (int)cudaErrorInvalidValue;
-  const AttendPlan p = attend_plan(G, D, Dv, nr, nlev);
+  const AttendPlan p = attend_plan(G, D, Dv, nr, nlev, quant != 0);
   out[0] = p.stages;
   out[1] = p.cr;
   out[2] = p.quantum;

@@ -36,10 +36,12 @@ Port of the decode kernels of ``repro.kernels.h1d_decode_kernel``:
 
 Each wrapper chooses by the device of its tensors: CPU tensors take the
 plain version (mirrors of the jnp paths of ``core.h1d_decode``), CUDA
-tensors launch the kernels in ``csrc/h1d_decode.cu``.  #7 and #11 run
-its staged attend body, which copies only the rows each band's mask
+tensors launch the kernels in ``csrc/h1d_decode.cu``.  #7, #8 and #11
+run its staged attend body, which copies only the rows each band's mask
 lets through (:func:`attend_band_rows`) into shared memory, laid out by
-:func:`plan_attend_stages`.
+:func:`plan_attend_stages` (int8 rows with their scales, dequantized on
+the read); #10 stages every level's sibling pair before its carry chain
+(:func:`update_quant_smem`).
 ``<wrapper>.launches`` counts kernel launches and ``<plain>.calls``
 counts runs of the plain version.  The page tables and the shard
 geometry are trusted: the host builds them from
@@ -78,7 +80,7 @@ _SIGNATURES = {
                                  + [_F, _P],
     "h1d_update_cache_partial": [_P, _P, _P, _P, _PP, _PP, _P, _P]
                                 + [_I] * 5 + [_P],
-    "h1d_decode_attend_plan": [_I] * 5 + [_P],
+    "h1d_decode_attend_plan": [_I] * 6 + [_P],
 }
 
 
@@ -92,7 +94,8 @@ def _ptrs(tensors):
 
 
 # ---------------------------------------------------------------------------
-# the staged attend's geometry (#7, #11): host mirrors of csrc/h1d_decode.cu
+# the staged attend's geometry (#7, #8, #11) and #10's staging: host mirrors
+# of csrc/h1d_decode.cu
 # ---------------------------------------------------------------------------
 
 SMEM_LIMIT = 232448      # shared memory one block may use on the H100
@@ -136,7 +139,26 @@ def _ceil_to(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def _attend_smem(G, D, Dv, nr, nlev, stages, cr):
+def _slot(cr, D, Dv, quant):
+    """Floats of one ring slot: ``cr`` f32 rows, or (``quant``) at least
+    an int8 block's ``cr`` scales and, 16-byte aligned after them, its
+    int8 rows."""
+    slot = _ceil_to(cr * max(D, Dv), 4)
+    if quant:
+        slot = max(slot, _ceil_to(cr, 4) + _ceil_to(-(-cr * max(D, Dv) // 4),
+                                                     4))
+    return slot
+
+
+def _rows16(W: int) -> int:
+    """Rows of W int8 values whose bytes are a multiple of 16."""
+    q = 1
+    while (q * W) % 16:
+        q *= 2
+    return q
+
+
+def _attend_smem(G, D, Dv, nr, nlev, stages, cr, quant=False):
     """``attend_layout``'s sum: mbarriers, the ring, the scaled query (G
     rounded up to 4 groups past 1), scores, each warp's output partial,
     each group's max per warp and each warp's denominator (both 16-byte
@@ -144,34 +166,48 @@ def _attend_smem(G, D, Dv, nr, nlev, stages, cr):
     nb = nlev + 1
     warps = _THREADS // 32
     gq = 1 if G == 1 else _ceil_to(G, 4)
-    slot = _ceil_to(cr * max(D, Dv), 4)
+    slot = _slot(cr, D, Dv, quant)
     off = _ceil_to(8 * stages, 16) + 4 * (stages * slot + gq * D + G * nb * nr)
     off = _ceil_to(_ceil_to(off, 16) + 4 * warps * G * Dv, 16)
     return off + 4 * (2 * warps * G + 6 * (nb + 1) + 3)
 
 
-def plan_attend_stages(G: int, D: int, Dv: int, nr: int,
-                       nlev: int) -> AttendStages:
+def attend_quantum(D: int, Dv: int, nr: int, quant: bool = False) -> int:
+    """Rows a staged band is rounded up to, so that every bulk copy is a
+    multiple of 16 bytes: f32 levels 4 where D or Dv is not a multiple of
+    4 (and nr is), else 1; a pool with int8 levels (``quant``) the rows
+    whose 4-byte scales and D- and Dv-byte int8 rows all fill 16 bytes (4
+    at D = 64), or 1 where nr is not a multiple of it (no bulk copies
+    then)."""
+    if quant:
+        q = max(4, _rows16(D), _rows16(Dv))
+        return 1 if nr % q else q
+    return 1 if (D % 4 == 0 and Dv % 4 == 0) or nr % 4 else 4
+
+
+def plan_attend_stages(G: int, D: int, Dv: int, nr: int, nlev: int,
+                       quant: bool = False) -> AttendStages:
     """The staged attend's launch plan, as ``attend_plan`` in
-    ``csrc/h1d_decode.cu`` computes it: every band's keys and values
-    resident (2 (nlev + 1) slots of nr rows) where that fits in
-    :data:`SMEM_LIMIT`; else a ring of as many slots as fit, its chunks
-    halved from nr rows while fewer than 2 fit (never below the row
-    quantum, 4 where D or Dv is not a multiple of 4 and nr is).  Raises
-    ``ValueError`` with the sizes where not even one chunk fits."""
+    ``csrc/h1d_decode.cu`` computes it (``quant``: the pool has int8
+    levels): every band's keys and values resident (2 (nlev + 1) slots of
+    nr rows) where that fits in :data:`SMEM_LIMIT`; else a ring of as many
+    slots as fit, its chunks halved from nr rows while fewer than 2 fit
+    (never below :func:`attend_quantum`).  Raises ``ValueError`` with the
+    sizes where not even one chunk fits."""
     nb = nlev + 1
-    quantum = 1 if (D % 4 == 0 and Dv % 4 == 0) or nr % 4 else 4
-    smem = _attend_smem(G, D, Dv, nr, nlev, 2 * nb, nr)
+    quantum = attend_quantum(D, Dv, nr, quant)
+    smem = _attend_smem(G, D, Dv, nr, nlev, 2 * nb, nr, quant)
     if smem <= SMEM_LIMIT:
         return AttendStages(2 * nb, nr, quantum, smem, True)
     cr = nr
     while True:
         most = 2 * nb * -(-nr // cr)
-        fixed = _attend_smem(G, D, Dv, nr, nlev, 0, cr)
-        per = 4 * _ceil_to(cr * max(D, Dv), 4) + 8
+        fixed = _attend_smem(G, D, Dv, nr, nlev, 0, cr, quant)
+        per = 4 * _slot(cr, D, Dv, quant) + 8
         S = 0 if fixed > SMEM_LIMIT else min(most, (SMEM_LIMIT - fixed)
                                               // per)
-        while S > 0 and _attend_smem(G, D, Dv, nr, nlev, S, cr) > SMEM_LIMIT:
+        while S > 0 and _attend_smem(G, D, Dv, nr, nlev, S, cr,
+                                     quant) > SMEM_LIMIT:
             S -= 1
         if S >= 2 or cr % 2 or (cr // 2) % quantum:
             break
@@ -179,10 +215,28 @@ def plan_attend_stages(G: int, D: int, Dv: int, nr: int,
     if S < 1:
         raise ValueError(
             f"decode attend: G={G}, D={D}, Dv={Dv}, nr={nr}, {nlev} levels "
-            f"need {_attend_smem(G, D, Dv, nr, nlev, 1, cr)} bytes of shared "
-            f"memory with one {cr}-row stage; the H100 gives {SMEM_LIMIT}")
+            f"need {_attend_smem(G, D, Dv, nr, nlev, 1, cr, quant)} bytes of "
+            f"shared memory with one {cr}-row stage; the H100 gives "
+            f"{SMEM_LIMIT}")
     return AttendStages(S, cr, quantum, _attend_smem(G, D, Dv, nr, nlev, S,
-                                                     cr), False)
+                                                     cr, quant), False)
+
+
+UPDATE_MAX_WIDTH = 1024     # #10: 32 columns a lane of a chain's warp
+
+
+def update_quant_smem(D: int, Dv: int, qmask: int, nlev: int) -> int:
+    """Shared memory #10 takes for one cache row (``chain_bytes`` in the
+    source): per level its k pair and its v pair as staged, two rows of
+    f32 or int8 values each; an int8 level (bit l of ``qmask``) also the
+    two staged scales, the f32 pair once the carry is put in and each
+    lane's absmax of both rows (2 x 32 floats); every part 16-byte
+    aligned."""
+    def pair(W, q8):
+        return (_ceil_to(2 * W, 16) + 16 + _ceil_to(8 * W, 16) + 256 if q8
+                else _ceil_to(8 * W, 16))
+    return sum(pair(D, qmask >> l & 1) + pair(Dv, qmask >> l & 1)
+               for l in range(nlev))
 
 
 # ---------------------------------------------------------------------------
@@ -592,8 +646,7 @@ def _attend_paged_launch(fn, pool, q, t, bidx, nr, softmax_scale, quant):
     _build.expect(q, "q", (R, G, D))
     _build.expect(t, "t", (R,), torch.int32)
     _build.expect(bidx, "bidx", (R, 1 + len(ks)), torch.int32)
-    if not quant:
-        plan_attend_stages(G, D, Dv, nr, len(ks))
+    plan_attend_stages(G, D, Dv, nr, len(ks), quant=qmask != 0)
     scale = softmax_scale if softmax_scale is not None else 1 / math.sqrt(D)
     out = torch.empty((R, G, Dv), dtype=torch.float32, device=q.device)
     head = (q.data_ptr(), _ptrs(ks), _ptrs(vs))
@@ -654,8 +707,16 @@ def _update_paged_launch(fn, pool, k_new, v_new, t, utab, quant):
     _build.expect(utab, "utab", (R, len(ks)), torch.int32)
     if nr < 2 or nr & (nr - 1):
         raise ValueError(f"nr={nr}: pages must hold a power of two >= 2 rows")
-    if quant and D + Dv > 1024:
-        raise ValueError(f"D + Dv = {D + Dv} > 1024 (one column per thread)")
+    if quant:
+        if max(D, Dv) > UPDATE_MAX_WIDTH:
+            raise ValueError(f"D={D}, Dv={Dv}: the int8 update takes widths "
+                             f"up to {UPDATE_MAX_WIDTH} (32 columns a lane)")
+        smem = update_quant_smem(D, Dv, qmask, len(ks))
+        if smem > SMEM_LIMIT:
+            raise ValueError(
+                f"D={D}, Dv={Dv}, {len(ks)} levels (int8 mask {qmask:#x}): "
+                f"one row's sibling pairs need {smem} bytes of shared "
+                f"memory; the H100 gives {SMEM_LIMIT}")
     head = (k_new.data_ptr(), v_new.data_ptr(), t.data_ptr(),
             utab.data_ptr(), _ptrs(ks), _ptrs(vs))
     tail = (R, D, Dv, nr, len(ks), _build.stream())

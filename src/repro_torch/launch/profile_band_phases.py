@@ -1,7 +1,8 @@
 """Where a CTA of a band kernel spends its time, phase by phase.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_band_phases \
-        [--kernel sub_bwd|band_fwd|band_bwd|decode_paged|decode_partial] \
+        [--kernel sub_bwd|band_fwd|band_bwd|decode_paged|decode_partial|
+                  decode_paged_quant|update_paged_quant] \
         [--csrc DIR] [--out PATH]
 
 Builds a copy of the kernel's source with ``%globaltimer`` stamps taken
@@ -36,6 +37,20 @@ stay in registers until the last stamp, where thread 0 stores them.
   the keys of a @ v, the warp's reduction, the sync; the combine;
   a source without it (``--csrc`` of an older tree) is stamped in its
   ``decode_attend_kernel``: start, scores, max and den, a @ v and end.
+* ``decode_paged_quant``: #8 (``h1d_decode_attend_paged_quant``) at the
+  same shapes on an int8 pool (every level int8, rows quantized per row
+  from seeded normals), stamped in the staged body as above; a source
+  whose #8 still runs ``decode_attend_kernel`` (``launch_attend<
+  ADDR_PAGED, true>``) is stamped there.
+* ``update_paged_quant``: #10 (``h1d_update_cache_paged_quant``) on that
+  int8 pool with ``chip_smoke.py``'s update tables (private write pages,
+  2 inactive slots on TRASH), ``update_cache_quant_kernel``: t and utab
+  read and every level's pair copy issued, the pairs staged, the carry
+  chain over the levels (pass A), the scales and the block's sync (B),
+  thread 0's share of the requantize and stores (C);
+  a source with the older body (a block absmax by ``atomicMax``) is
+  stamped per level: the pair loaded, the block absmax, the requantize
+  and stores, the carry and end.
 
 ``--csrc DIR`` stamps the sources in DIR instead of this package's
 (e.g. a parent commit's, to compare the two in one call).  The stamps
@@ -65,8 +80,9 @@ MAX_CTAS = 1 << 17
 
 # Per instrumented kernel: its stamp array, its phases (the name of the
 # phase that ends at each stamp; stamp 0 is the start) and the anchors
-# (text of the source, stamp, where: "after" the text, "before" it or at
-# an offset into it).
+# (text of the source, or a tuple of texts of which the first found is
+# used (this tree's and an older one's), stamp, where: "after" the text,
+# "before" it or at an offset into it).
 SUB_BWD = dict(
     name="sub_bwd_kernel", array="g_sub",
     phases=("start", "weights", "keys issued", "rows staged", "delta",
@@ -168,15 +184,17 @@ ATTEND_STAGED = dict(
         ("          mbar_wait(bar + s, parity_of(nch + c));\n          const "
          "float* vb = ring + (size_t)s * p.slot + cv * VW;\n", 9, "after"),
         ("            const int jn = min(32, ch.n - jb);\n", 10, "before"),
-        ("                  acc[i].x[e] = fmaf(aj, v.x[e], acc[i].x[e]);\n"
-         "              }\n            }\n", 11, "after"),
+        (("            else values(std::false_type{});\n",
+          "                  acc[i].x[e] = fmaf(aj, v.x[e], acc[i].x[e]);\n"
+          "              }\n            }\n"), 11, "after"),
         ("#pragma unroll\n      for (int i = 0; i < GC; ++i) {\n        "
          "const float d = warp_sum(dn[i]);", 12, "before"),
         ("  __syncthreads();\n  // output partials done\n", 13, "after"),
         ("      for (int e = 0; e < VW; ++e) acc.x[e] /= fmaxf(den, 1e-9f);\n"
          "      acc.store(dst);\n    }\n  }\n", 14, "after"),
     ])
-# the attend body before the staged one (#5/#7/#8/#11 in one template)
+# the attend body before the staged one (#5/#7/#8/#11 in one template in
+# older trees, later #5/#8 alone)
 ATTEND_OLD = dict(
     name="decode_attend_kernel", array="g_att",
     phases=("start", "q, scores", "max, den", "a @ v, end"),
@@ -187,14 +205,45 @@ ATTEND_OLD = dict(
          "__syncthreads();\n", 1, "after"),
         ("  __syncthreads();\n\n  for (int o = threadIdx.x; o < G * Dv; "
          "o += blockDim.x) {\n", 2, len("  __syncthreads();\n")),
-        ("        ADDR == ADDR_LOCAL ? acc : acc / fmaxf(den_s[g], 1e-9f);"
-         "\n  }\n", 3, "after"),
+        ("acc / fmaxf(den_s[g], 1e-9f);\n  }\n", 3, "after"),
+    ])
+# #10 with every level's pairs staged before the chain, in three passes
+UPDATE_QUANT = dict(
+    name="update_cache_quant_kernel", array="g_upd",
+    phases=("start", "t, utab; pairs issued", "pairs staged",
+            "A: carry chain", "B: scales, sync", "C: requantize, end"),
+    anchors=[
+        ("  const bool is_k = warp % 2 == 0;\n", 0, "before"),
+        ('    asm volatile("cp.async.wait_all;" ::: "memory");\n', 1,
+         "before"),
+        ('    asm volatile("cp.async.wait_all;" ::: "memory");\n'
+         "    __syncwarp();\n", 2, "after"),
+        ("    __syncwarp();\n\n    // B: lane l", 3, "before"),
+        ("  // C: this part's int8 levels requantized", 4, "before"),
+        ("    l = ln;\n  }\n}\n", 5, len("    l = ln;\n  }\n")),
+    ])
+# #10's body before it: one level a memory round trip, a block absmax
+UPDATE_QUANT_OLD = dict(
+    name="update_cache_quant_kernel", array="g_upd",
+    phases=("start", "L: pair loaded", "L: block absmax",
+            "L: quantize, store", "L: carry, end"),
+    anchors=[
+        ("  float carry = 0.f;\n  if (live)\n", 0, "before"),
+        ("      if (sel) x1 = carry; else x0 = carry;\n    }\n", 1, "after"),
+        ("        if (lane == 0) atomicMax(&amax_s[i], __float_as_uint(m));\n"
+         "      }\n      __syncthreads();\n", 2, "after"),
+        ("      __syncthreads();               // amax_s is reset at the "
+         "next level\n", 3, "after"),
+        ("    carry = is_k ? __fmul_rn(__fadd_rn(x0, x1), 0.5f) : "
+         "__fadd_rn(x0, x1);\n  }\n", 4, "after"),
     ])
 TARGETS = {"sub_bwd": ("h1d_block_bwd", [SUB_BWD]),
            "band_fwd": ("h1d_block", [BAND_FWD]),
            "band_bwd": ("h1d_block_bwd", [BAND_DQ, BAND_DKVW]),
            "decode_paged": ("h1d_decode", [ATTEND_STAGED]),
-           "decode_partial": ("h1d_decode", [ATTEND_STAGED])}
+           "decode_partial": ("h1d_decode", [ATTEND_STAGED]),
+           "decode_paged_quant": ("h1d_decode", [ATTEND_STAGED]),
+           "update_paged_quant": ("h1d_decode", [UPDATE_QUANT])}
 SIGNATURES = {"h1d_block": hb._SIGNATURES, "h1d_block_bwd": hbb._SIGNATURES,
               "h1d_decode": dk._SIGNATURES}
 
@@ -229,6 +278,8 @@ def instrumented_source(src: str, specs) -> str:
     src = src.replace("namespace {\n", head + "namespace {\n", 1)
     for spec in specs:
         for line, k, where in spec["anchors"]:
+            if isinstance(line, tuple):
+                line = next((x for x in line if src.count(x) == 1), line[0])
             if src.count(line) != 1:
                 raise RuntimeError(f"{spec['name']}: anchor for stamp {k} "
                                    f"found {src.count(line)} times: "
@@ -255,8 +306,13 @@ def build(kernel: str, csrc: Path):
     ``csrc``, and the specs it was stamped with."""
     stem, specs = TARGETS[kernel]
     src = (csrc / f"{stem}.cu").read_text()
-    if stem == "h1d_decode" and "attend_staged_kernel" not in src:
+    if kernel.startswith("decode_") and "attend_staged_kernel" not in src:
         specs = [ATTEND_OLD]
+    if kernel == "decode_paged_quant" and "launch_attend<ADDR_PAGED, true>" \
+            in src:
+        specs = [ATTEND_OLD]
+    if kernel == "update_paged_quant" and "atomicMax(&amax_s" in src:
+        specs = [UPDATE_QUANT_OLD]
     out = _build.BUILD_DIR / f"phases_{kernel}"
     out.mkdir(parents=True, exist_ok=True)
     (out / f"{stem}.cu").write_text(instrumented_source(src, specs))
@@ -420,9 +476,11 @@ def profile_band(lib, dev, gen, backward):
     return rows
 
 
-def profile_decode(lib, specs, dev, gen, partial):
-    """One call of #7 or #11 through its wrapper, with the instrumented
-    library in place of the built one."""
+def profile_decode(lib, specs, dev, gen, kernel):
+    """One call of #7, #11, #8 or #10 (``kernel`` as ``--kernel``)
+    through its wrapper, with the instrumented library in place of the
+    built one."""
+    from repro_torch.core import quantization as qz
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.parallel import sp_attention as sp
 
@@ -430,7 +488,7 @@ def profile_decode(lib, specs, dev, gen, partial):
     M = hc.num_levels(Lmax, NR)
     q = torch.randn((R, G, D), generator=gen, device=dev)
     rng = np.random.default_rng(100)
-    if partial:
+    if kernel == "decode_partial":
         dense = hd.prefill_cache(
             torch.randn((R, Lmax, D), generator=gen, device=dev),
             torch.randn((R, Lmax, D), generator=gen, device=dev), Lmax, NR)
@@ -449,17 +507,45 @@ def profile_decode(lib, specs, dev, gen, partial):
         vs = [torch.randn((rows, NR, D), generator=gen, device=dev)
               for _ in range(M)]
         pool = hd.PagedH1DCache(ks[0], vs[0], tuple(ks[1:]), tuple(vs[1:]))
+        if kernel != "decode_paged":       # every level int8, per-row scales
+            qk, qv = zip(*[(qz.quantize_int8(k, axis=-1),
+                            qz.quantize_int8(v, axis=-1))
+                           for k, v in zip(ks, vs)])
+            data = [[x[0] for x in qk], [x[0] for x in qv]]
+            sc = [[x[1][..., 0].contiguous() for x in y] for y in (qk, qv)]
+            pool = hd.QuantPagedH1DCache(
+                data[0][0], data[1][0], tuple(data[0][1:]),
+                tuple(data[1][1:]), sc[0][0], sc[1][0], tuple(sc[0][1:]),
+                tuple(sc[1][1:]))
         slots = R // HKV
         t = np.zeros(slots, np.int64)
         t[:6] = [0, NR - 1, Lmax - 1, *rng.integers(NR, Lmax - 1, 3)]
         pages = rng.integers(2, PAGES + 2, (slots, 1 + M))
         pages[6:] = TRASH
-        bidx = (pages[:, None, :] * HKV
-                + np.arange(HKV)[None, :, None]).reshape(R, 1 + M)
-        args = (pool, q, torch.as_tensor(np.repeat(t, HKV), dtype=torch.int32,
-                                         device=dev),
-                torch.as_tensor(bidx, dtype=torch.int32, device=dev))
-        fn, label = dk.decode_attend_paged, "paged, R=64, Lmax 2048"
+        upages = np.stack([rng.permutation(PAGES)[:slots] + 2
+                           for _ in range(M)], 1)
+        upages[6:] = TRASH
+
+        def physical(pg):
+            return torch.as_tensor(
+                (pg[:, None, :] * HKV + np.arange(HKV)[None, :, None])
+                .reshape(R, -1), dtype=torch.int32, device=dev)
+        tt = torch.as_tensor(np.repeat(t, HKV), dtype=torch.int32,
+                             device=dev)
+        args = (pool, q, tt, physical(pages))
+        fn, label = {
+            "decode_paged": (dk.decode_attend_paged, "paged, R=64, Lmax "
+                                                     "2048"),
+            "decode_paged_quant": (dk.decode_attend_paged_quant,
+                                   "int8 paged, R=64, Lmax 2048")}.get(
+            kernel, (None, None))
+        if kernel == "update_paged_quant":
+            kn = torch.randn((R, D), generator=gen, device=dev)
+            args = (pool, kn, -kn, tt, physical(upages))
+            label = "int8 paged update, R=64, Lmax 2048"
+
+            def fn(*a, nr):
+                return dk.update_cache_paged_quant(*a)
     built = _build._LOADED.get("h1d_decode")
     _build._LOADED["h1d_decode"] = lib
     rows = _run(lib, specs, lambda: fn(*args, nr=NR), label, [R])
@@ -486,9 +572,8 @@ def main(argv=None):
            "csrc": str(args.csrc)}
     if args.kernel == "sub_bwd":
         res["levels"] = profile_sub_bwd(lib, dev, gen)
-    elif args.kernel.startswith("decode_"):
-        res["cases"] = profile_decode(lib, specs, dev, gen,
-                                      partial=args.kernel == "decode_partial")
+    elif args.kernel.startswith(("decode_", "update_")):
+        res["cases"] = profile_decode(lib, specs, dev, gen, args.kernel)
     else:
         res["cases"] = profile_band(lib, dev, gen,
                                     backward=args.kernel == "band_bwd")

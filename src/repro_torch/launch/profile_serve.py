@@ -42,17 +42,17 @@ from repro_torch.parallel import sp_attention as sp
 from repro_torch.serve import paged_cache as pc
 
 # the sub-level kernels (sub_fwd_kernel, sub_bwd_kernel) also run #1 / #3
-# in coarse_causal; the other band modes are band_*_kernel<mode>.  #7 and
-# #11 run attend_staged_kernel<ADDR, VW>, #5 and #8 decode_attend_kernel<
-# ADDR, QUANT>.  The first key contained in a kernel's name wins.
+# in coarse_causal; the other band modes are band_*_kernel<mode>.  #7, #11
+# and #8 run attend_staged_kernel<ADDR, VW> (ADDR 1, 2 and 3), #5
+# decode_attend_kernel.  The first key contained in a kernel's name wins.
 OWN = {"sub_fwd_kernel<": "band_attention_sub_fwd",
        "band_fwd_kernel<": "band_attention_fwd",
        "sub_bwd_kernel<": "band_attention_sub_bwd",
        "band_dq_kernel<": "band_attention_bwd",
        "band_dkvw_kernel<": "band_attention_bwd",
-       "decode_attend_kernel<0,false>": "decode_attend_fused",
+       "decode_attend_kernel(": "decode_attend_fused",
        "attend_staged_kernel<1,": "decode_attend_paged",
-       "decode_attend_kernel<1,true>": "decode_attend_paged_quant",
+       "attend_staged_kernel<3,": "decode_attend_paged_quant",
        "attend_staged_kernel<2,": "decode_attend_partial",
        "update_cache_kernel<false,false>": "update_cache_fused",
        "update_cache_kernel<true,false>": "update_cache_paged",

@@ -815,10 +815,61 @@ def test_sp_partial_ring_rows_owning_nothing_and_bits(dev, d, Lmax, nr, G,
             assert torch.equal(x, y)
 
 
+# #8's staged body on int8 pools off the main path (G, D, Dv, nr, Lmax,
+# int8 levels, misaligned): the ring (13 bands of D = Dv = 256), odd
+# widths at nr 8 (plain loads) and nr 16 (bulk copies of whole bands), a
+# mixed pool, pools whose int8 rows start 1 byte and whose scales start 4
+# bytes past a 16-byte boundary (plain loads), the main path's shape
+QUANT_STAGED = [(65536, 32, 4, 256, 256, "all", False),
+                (256, 8, 2, 5, 7, "all", False),
+                (256, 16, 2, 5, 7, "all", False),
+                (512, 16, 3, 64, 40, "ql2", False),
+                (512, 16, 3, 64, 40, "all", True),
+                (2048, 16, 1, 64, 64, "all", True)]
+
+
+@pytest.mark.parametrize("Lmax,nr,G,D,Dv,quant,misalign", QUANT_STAGED)
+def test_paged_quant_attend_staged_ring_odd_misaligned_and_bits(
+        dev, Lmax, nr, G, D, Dv, quant, misalign):
+    """#8 on the staged body against its plain version (in float64 on the
+    same int8 rows and scales) with two inactive rows on the TRASH page
+    (large rows and scales there), and identical bits on a second
+    call."""
+    gen = torch.Generator(device=dev).manual_seed(Lmax + nr + D + 8)
+    M = hc.num_levels(Lmax, nr)
+    ts = _ts(Lmax, nr) + [0, 0]
+    R, npages, trash = len(ts), 3 * len(ts) + 2, 1
+    pool = _paged_pool(gen, dev, M, nr, npages, D, Dv, _quant(quant, M))
+    for a in _pool_arrays(pool):
+        if a.dtype == torch.int8:
+            a[trash] = 127
+        elif a.dim() == 2:
+            a[trash] = 1e3
+        else:
+            a[trash] = 1e3 * _randn(gen, dev, *a[trash].shape)
+    if misalign:
+        pool = type(pool)(*[tuple(_misaligned(a) for a in x)
+                            if isinstance(x, tuple) else _misaligned(x)
+                            for x in pool])
+    t = torch.tensor(ts, dtype=torch.int32, device=dev)
+    bidx = torch.randint(2, npages, (R, 1 + M), generator=gen, device=dev,
+                         dtype=torch.int32)
+    bidx[R - 2:] = trash
+    q = _randn(gen, dev, R, G, D)
+    got = dk.decode_attend_paged_quant(pool, q, t, bidx, nr=nr)
+    _close_exact([got], [dk.decode_attend_paged_quant_ref(
+        pool, q.double(), t, bidx, nr=nr)])
+    assert torch.equal(got, dk.decode_attend_paged_quant(pool, q, t, bidx,
+                                                         nr=nr))
+    plan = dk.plan_attend_stages(G, D, Dv, nr, M, quant=True)
+    assert plan.resident == (Lmax < 32768)
+
+
 def test_attend_plan_mirrors_the_launcher(dev):
     """``plan_attend_stages`` equals the launcher's own plan (stages, rows
-    a chunk, row quantum, shared memory) at every card test's shape and
-    past the envelope, where both refuse."""
+    a chunk, row quantum, shared memory) at every card test's shape, for
+    f32 pools and pools with int8 levels, and past the envelope, where
+    both refuse."""
     import ctypes
 
     lib = dk._lib()
@@ -828,14 +879,17 @@ def test_attend_plan_mirrors_the_launcher(dev):
               for nr in (2, 4, 8, 16, 32, 64) for nlev in (1, 4, 7, 12, 32)]
     out = (ctypes.c_int * 4)()
     for G, D, Dv, nr, nlev in shapes + [(1, 60000, 60000, 16, 5)]:
-        assert lib.h1d_decode_attend_plan(G, D, Dv, nr, nlev, out) == 0
-        try:
-            plan = dk.plan_attend_stages(G, D, Dv, nr, nlev)
-        except ValueError:
-            assert out[0] == 0, (G, D, Dv, nr, nlev)
-            continue
-        assert (plan.stages, plan.chunk_rows, plan.quantum, plan.smem) == \
-            tuple(out), (G, D, Dv, nr, nlev)
+        for quant in (0, 1):
+            assert lib.h1d_decode_attend_plan(G, D, Dv, nr, nlev, quant,
+                                              out) == 0
+            try:
+                plan = dk.plan_attend_stages(G, D, Dv, nr, nlev,
+                                             quant=bool(quant))
+            except ValueError:
+                assert out[0] == 0, (G, D, Dv, nr, nlev, quant)
+                continue
+            assert (plan.stages, plan.chunk_rows, plan.quantum,
+                    plan.smem) == tuple(out), (G, D, Dv, nr, nlev, quant)
 
 
 @pytest.mark.parametrize("Lmax,nr,D,Dv,quant", [
@@ -873,6 +927,64 @@ def test_paged_update_bit_exact_outside_trash(dev, Lmax, nr, D, Dv, quant):
             assert torch.equal(x[keep], y[keep])
             assert torch.equal(x[keep], z[keep])
             assert torch.isfinite(x.float()).all()
+
+
+def _mixed_pool(gen, dev, nlev, nr, npages, D, Dv, qlevels):
+    """A quantized pool of ``nlev`` levels, the first ``qlevels`` int8."""
+    flags = tuple(l < qlevels for l in range(nlev))
+    return _paged_pool(gen, dev, nlev, nr, npages, D, Dv, flags)
+
+
+@pytest.mark.parametrize("nlev,qlevels,D,Dv", [
+    (4, 4, 1024, 1024), (14, 0, 1024, 1024), (3, 1, 1024, 1)])
+def test_paged_quant_update_at_the_envelope_edge(dev, nlev, qlevels, D, Dv):
+    """#10 at the edge of its envelope -- widths of 1024 (32 columns a
+    lane), and 14 f32 levels of 1024, whose staged pairs take 229376 of
+    the 232448 bytes -- bit-exact against its plain version outside the
+    TRASH page over chained ticks, with identical bits on a second run."""
+    gen = torch.Generator(device=dev).manual_seed(nlev + D + Dv)
+    R, nr, npages, trash = 6, 4, 16, 1
+    assert dk.update_quant_smem(D, Dv, (1 << qlevels) - 1, nlev) \
+        <= dk.SMEM_LIMIT
+    base = _mixed_pool(gen, dev, nlev, nr, npages, D, Dv, qlevels)
+    a, b, c = _pool_clone(base), _pool_clone(base), _pool_clone(base)
+    for step in range(3):
+        t = torch.randint(0, nr << nlev, (R,), generator=gen, device=dev,
+                          dtype=torch.int32)
+        utab = torch.stack([torch.randperm(npages - 2, generator=gen,
+                                           device=dev)[:R] + 2
+                            for _ in range(nlev)], 1).to(torch.int32)
+        utab[R - 2:] = trash
+        kn, vn = _randn(gen, dev, R, D), _randn(gen, dev, R, Dv)
+        dk.update_cache_paged_quant(a, kn, vn, t, utab)
+        dk.update_cache_paged_quant(c, kn, vn, t, utab)
+        dk.update_cache_paged_quant_ref(b, kn, vn, t, utab)
+        for x, y, z in zip(_pool_arrays(a), _pool_arrays(b),
+                           _pool_arrays(c)):
+            keep = torch.ones(x.shape[0], dtype=torch.bool, device=dev)
+            keep[trash] = False
+            assert torch.equal(x[keep], y[keep])
+            assert torch.equal(x[keep], z[keep])
+
+
+@pytest.mark.parametrize("nlev,qlevels,D,Dv", [
+    (2, 2, 1025, 64), (2, 2, 64, 1025), (15, 0, 1024, 1024)])
+def test_paged_quant_update_raises_past_the_envelope(dev, nlev, qlevels, D,
+                                                     Dv):
+    """Past #10's envelope (a width over 1024; 15 f32 levels of 1024,
+    whose staged pairs exceed 232448 bytes) the wrapper raises with the
+    sizes, and nothing is written."""
+    gen = torch.Generator(device=dev).manual_seed(nlev)
+    R, nr, npages = 2, 4, 4
+    pool = _mixed_pool(gen, dev, nlev, nr, npages, D, Dv, qlevels)
+    before = _pool_clone(pool)
+    t = torch.zeros((R,), dtype=torch.int32, device=dev)
+    utab = torch.full((R, nlev), 2, dtype=torch.int32, device=dev)
+    kn, vn = _randn(gen, dev, R, D), _randn(gen, dev, R, Dv)
+    with pytest.raises(ValueError, match=f"D={D}, Dv={Dv}"):
+        dk.update_cache_paged_quant(pool, kn, vn, t, utab)
+    for x, y in zip(_pool_arrays(pool), _pool_arrays(before)):
+        assert torch.equal(x, y)
 
 
 def test_paged_smoke_engines_on_card_match_cpu(dev):

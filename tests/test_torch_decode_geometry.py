@@ -2,18 +2,23 @@
 host mirrors of ``csrc/h1d_decode.cu``) against the JAX reference's
 decode kernels, run in interpret mode on numpy inputs.
 
-#7 (``decode_attend_paged``) and #11 (``decode_attend_partial``) copy,
-of each band, only the prefix of rows that :func:`attend_band_rows`
-names, and nothing of a band that is masked whole or not owned.  Here,
-for every position of three (Lmax, nr) geometries, that rule equals the
-reference kernel's own masks (read out of its output: zero keys and
-queries give every counted key the weight 1, and one-hot values name
-the keys), and changing every row the rule leaves out leaves the
-reference's output bit-identical, while changing one row it keeps does
-not.  The launch plan's envelope is checked at every card test's
-shape.  The kernels themselves run only on the card
-(``tests/test_torch_cuda.py``)."""
+#7 (``decode_attend_paged``), #8 (``decode_attend_paged_quant``) and
+#11 (``decode_attend_partial``) copy, of each band, only the prefix of
+rows that :func:`attend_band_rows` names (#8: rounded up to the int8
+row quantum), and nothing of a band that is masked whole or not owned.
+Here, for every position of three (Lmax, nr) geometries, that rule
+equals the reference kernel's own masks (read out of its output: zero
+keys and queries give every counted key the weight 1, and one-hot
+values name the keys), and changing every row the rule leaves out
+(#8: its int8 rows and scales) leaves the reference's output
+bit-identical, while changing one row it keeps does not.  The launch
+plan's envelope is checked at every card test's shape, fp32 and int8.
+#10 (``update_cache_paged_quant``) reads every level's sibling pair
+before its carry chain writes any; a numpy mirror of that order equals
+the reference's kernel bit for bit.  The kernels themselves run only on
+the card (``tests/test_torch_cuda.py``)."""
 import functools
+import math
 
 import numpy as np
 import pytest
@@ -39,6 +44,12 @@ CHUNK = 512
 @functools.lru_cache(maxsize=None)
 def _attend_paged(nr):
     return jax.jit(functools.partial(jdk.decode_attend_paged, nr=nr,
+                                     interpret=True))
+
+
+@functools.lru_cache(maxsize=None)
+def _attend_paged_quant(nr):
+    return jax.jit(functools.partial(jdk.decode_attend_paged_quant, nr=nr,
                                      interpret=True))
 
 
@@ -143,6 +154,157 @@ def test_rows_left_out_do_not_change_paged_output(Lmax, nr):
     first = [np.ones_like(kp) for kp in keep]
     first[0][:R, 0] = False
     assert (run(_perturb(levels, first, rng)) != want).any(-1).all()
+
+
+def _quant_pool(levels, scales):
+    """A JAX ``QuantPagedH1DCache`` from per-level (k, v) data and (k, v)
+    scales."""
+    k, v = zip(*levels)
+    ks, vs = zip(*scales)
+    a = functools.partial(map, jnp.asarray)
+    return jhd.QuantPagedH1DCache(
+        k=jnp.asarray(k[0]), v=jnp.asarray(v[0]), ck=tuple(a(k[1:])),
+        cv=tuple(a(v[1:])), ksc=jnp.asarray(ks[0]), vsc=jnp.asarray(vs[0]),
+        cksc=tuple(a(ks[1:])), cvsc=tuple(a(vs[1:])))
+
+
+def _move_int8(levels, scales, keep, rng):
+    """Every int8 row and scale outside ``keep`` (per level, a mask over
+    the (pages, nr) rows) redrawn: rows uniform in [-127, 127], scales in
+    [1e-3, 1e2)."""
+    lv, sc = [], []
+    for (k, v), (ksc, vsc), kp in zip(levels, scales, keep):
+        lv.append(tuple(np.where(kp[..., None], a, rng.integers(
+            -127, 128, a.shape)).astype(np.int8) for a in (k, v)))
+        sc.append(tuple(np.where(kp, a, rng.uniform(1e-3, 1e2, a.shape))
+                        .astype(np.float32) for a in (ksc, vsc)))
+    return lv, sc
+
+
+@pytest.mark.parametrize("Lmax,nr", CASES)
+def test_rows_left_out_do_not_change_paged_quant_output(Lmax, nr):
+    """#8 on an int8 pool (every level): every row t in 0..Lmax-1 reads
+    private pages; redrawing every int8 key and value row and every
+    scale outside the prefixes ``attend_band_rows`` names with the int8
+    quantum leaves the JAX kernel's output bit-identical; redrawing band
+    0's first row (and its scales), which it always keeps, changes every
+    output."""
+    rng = np.random.default_rng(Lmax + nr + 1)
+    M = hc.num_levels(Lmax, nr)
+    nb = M + 1
+    R, G, D = Lmax, 2, 4
+    quantum = tdk.attend_quantum(D, D, nr, quant=True)
+    assert quantum == 4
+    t = np.arange(R, dtype=np.int32)
+    bidx = np.tile(np.arange(R, dtype=np.int32)[:, None], (1, nb))
+    bidx[:, 1] += R
+    pages = [2 * R if l == 0 else R for l in range(M)]
+    levels = [tuple(rng.integers(-127, 128, (n, nr, D)).astype(np.int8)
+                    for _ in range(2)) for n in pages]
+    # keys near unit normals at every level (a coarse key is a mean),
+    # values scaled by 2^l (a sum)
+    scales = [tuple(rng.uniform(1e-3, 0.02 * 2 ** (l * i), (n, nr)).astype(
+        np.float32) for i in range(2)) for l, n in enumerate(pages)]
+    q = rng.standard_normal((R, G, D)).astype(np.float32)
+    rows = tdk.attend_band_rows(t, nr, nb, quantum=quantum)
+    assert (rows % quantum == 0).all()
+    keep = [np.zeros((n, nr), bool) for n in pages]
+    for b in range(nb):
+        keep[max(b - 1, 0)][bidx[:, b]] |= _prefix(rows, nr)[:, b]
+
+    def run(lv, sc):
+        return np.asarray(_attend_paged_quant(nr)(
+            _quant_pool(lv, sc), jnp.asarray(q), jnp.asarray(t),
+            jnp.asarray(bidx)))
+    want = run(levels, scales)
+    np.testing.assert_array_equal(run(*_move_int8(levels, scales, keep,
+                                                  rng)), want)
+    first = [np.ones_like(kp) for kp in keep]
+    first[0][:R, 0] = False
+    assert (run(*_move_int8(levels, scales, first, rng)) != want).any(
+        -1).all()
+
+
+def _update_quant_mirror(levels, scales, qflags, k_new, v_new, t, utab, nr):
+    """#10's order in numpy, in place: per cache row, every level's
+    sibling pair and scales read first (page ``utab[r, l]``, rows
+    ``((t >> l) % nr) & ~1`` and the next), then the carry chain --
+    dequantize, put in the carry, requantize with fresh absmax scales
+    (int8 levels) and write -- carrying the f32 pair's mean (k) or sum
+    (v)."""
+    f32 = np.float32
+    eps, recip, half = f32(1e-12), f32(1.0 / 127.0), f32(0.5)
+    for r in range(len(t)):
+        pairs = []
+        for l in range(len(levels)):
+            page, j = utab[r, l], ((t[r] >> l) % nr) & ~1
+            pairs.append([a[page, j:j + 2].copy()
+                          for a in (*levels[l], *scales[l])])
+        carry = [k_new[r].astype(f32), v_new[r].astype(f32)]
+        for l, (pk, pv, sk, sv) in enumerate(pairs):
+            page, j = utab[r, l], ((t[r] >> l) % nr) & ~1
+            sel = (t[r] >> l) & 1
+            for i, (x, s) in enumerate(((pk, sk), (pv, sv))):
+                x = x.astype(f32) * s[:, None] if qflags[l] else x.copy()
+                x[sel] = carry[i]
+                if qflags[l]:
+                    s = np.maximum(np.abs(x).max(1), eps) * recip
+                    levels[l][i][page, j:j + 2] = np.clip(
+                        np.rint(x / s[:, None]), -127, 127).astype(np.int8)
+                    scales[l][i][page, j:j + 2] = s
+                else:
+                    levels[l][i][page, j:j + 2] = x
+                carry[i] = (x[0] + x[1]) * half if i == 0 else x[0] + x[1]
+
+
+@pytest.mark.parametrize("quant", ["all", "mixed"])
+def test_update_mirror_equals_paged_quant_kernel(quant):
+    """Five chained ticks of 6 rows, two of them inactive (every level's
+    pair on the TRASH page, which both write): the mirror of #10's order
+    (all of a row's loads, then its chain) equals the JAX
+    ``update_cache_paged_quant`` (interpret) bit for bit on every pool
+    row outside TRASH."""
+    rng = np.random.default_rng(5)
+    Lmax, nr, D, Dv, R, npages, trash = 256, 8, 4, 8, 6, 16, 1
+    M = hc.num_levels(Lmax, nr)
+    qflags = [True] * M if quant == "all" else [l < 2 for l in range(M)]
+    levels, scales = [], []
+    for l in range(M):
+        if qflags[l]:
+            levels.append([rng.integers(-127, 128, (npages, nr, w)).astype(
+                np.int8) for w in (D, Dv)])
+            scales.append([rng.uniform(1e-3, 0.05, (npages, nr)).astype(
+                np.float32) for _ in range(2)])
+        else:
+            levels.append([(rng.standard_normal((npages, nr, w)) * 2 ** l)
+                           .astype(np.float32) for w in (D, Dv)])
+            scales.append([np.ones((npages, nr), np.float32)
+                           for _ in range(2)])
+    pool = _quant_pool(levels, scales)
+    upd = jax.jit(functools.partial(jdk.update_cache_paged_quant,
+                                    interpret=True))
+    for step in range(5):
+        t = rng.integers(0, Lmax, R).astype(np.int32)
+        utab = np.stack([rng.permutation(npages - 2)[:R] + 2
+                         for _ in range(M)], 1).astype(np.int32)
+        utab[R - 2:] = trash
+        kn = rng.standard_normal((R, D)).astype(np.float32)
+        vn = rng.standard_normal((R, Dv)).astype(np.float32)
+        pool = upd(pool, jnp.asarray(kn), jnp.asarray(vn), jnp.asarray(t),
+                   jnp.asarray(utab))
+        _update_quant_mirror(levels, scales, qflags, kn, vn, t, utab, nr)
+        got = [pool.k, pool.v, pool.ksc, pool.vsc]
+        want = [levels[0][0], levels[0][1], scales[0][0], scales[0][1]]
+        for l in range(1, M):
+            got += [pool.ck[l - 1], pool.cv[l - 1], pool.cksc[l - 1],
+                    pool.cvsc[l - 1]]
+            want += [levels[l][0], levels[l][1], scales[l][0], scales[l][1]]
+        keep = np.arange(npages) != trash
+        for g, w in zip(got, want):
+            g = np.asarray(g)
+            assert g.dtype == w.dtype
+            np.testing.assert_array_equal(g[keep].view(np.uint8),
+                                          w[keep].view(np.uint8))
 
 
 def _bits(nr):
@@ -265,8 +427,42 @@ def test_plan_attend_stages_takes_every_card_shape(G, D, Dv, nr, Lmax):
         assert bigger > tdk.SMEM_LIMIT
 
 
+# every int8 shape of the card tests: G, D, Dv, nr, Lmax; odd widths at
+# nr 8 (no bulk copies: quantum 1) and nr 16 (whole 16-row bands), the
+# ring of 13 bands of D = Dv = 256
+QUANT_CARD_SHAPES = [(1, 64, 64, 16, 2048), (4, 16, 16, 8, 256),
+                     (2, 40, 24, 16, 512), (2, 16, 16, 4, 128),
+                     (2, 5, 7, 8, 256), (2, 5, 7, 16, 256),
+                     (3, 64, 40, 16, 512), (4, 256, 256, 32, 65536)]
+
+
+@pytest.mark.parametrize("G,D,Dv,nr,Lmax", QUANT_CARD_SHAPES)
+def test_plan_attend_stages_int8_takes_every_quant_card_shape(G, D, Dv, nr,
+                                                              Lmax):
+    """With int8 levels the row quantum is the rows whose 4-byte scales
+    and D- and Dv-byte rows fill 16 bytes (1 where nr is not a multiple),
+    the plan fits the card, and it keeps the f32 plan's shape: an int8
+    block and its scales fit the slot an f32 block takes."""
+    nlev = hc.num_levels(Lmax, nr)
+    plan = tdk.plan_attend_stages(G, D, Dv, nr, nlev, quant=True)
+    q = max(4, 16 // math.gcd(D, 16), 16 // math.gcd(Dv, 16))
+    assert plan.quantum == (q if nr % q == 0 else 1)
+    for W in (D, Dv):
+        if plan.quantum > 1:
+            assert (plan.quantum * W) % 16 == 0 and plan.quantum % 4 == 0
+    assert 1 <= plan.stages and plan.smem <= tdk.SMEM_LIMIT
+    assert plan.chunk_rows % plan.quantum == 0 and nr % plan.chunk_rows == 0
+    f32 = tdk.plan_attend_stages(G, D, Dv, nr, nlev)
+    assert (plan.stages, plan.chunk_rows, plan.smem, plan.resident) == \
+        (f32.stages, f32.chunk_rows, f32.smem, f32.resident)
+    cr = plan.chunk_rows
+    assert 4 * tdk._slot(cr, D, Dv, True) >= \
+        16 * -(-cr // 4) + cr * max(D, Dv)
+
+
 @pytest.mark.parametrize("G,D,Dv,nr,nlev", [
     (1, 60000, 60000, 16, 5), (1000, 64, 64, 64, 32)])
-def test_plan_attend_stages_raises_past_the_card(G, D, Dv, nr, nlev):
+@pytest.mark.parametrize("quant", [False, True])
+def test_plan_attend_stages_raises_past_the_card(G, D, Dv, nr, nlev, quant):
     with pytest.raises(ValueError, match=r"bytes of shared memory"):
-        tdk.plan_attend_stages(G, D, Dv, nr, nlev)
+        tdk.plan_attend_stages(G, D, Dv, nr, nlev, quant=quant)
