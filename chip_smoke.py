@@ -68,7 +68,11 @@ Phases (each raises on failure; nothing is caught):
    bit-exact per shard (slabs and carries) and the whole SP update (with
    the d=4 deep-level #6 step) against #6 on the unsharded cache; each
    timed as one shard's call at d=4, its bound counted from what that
-   shard's call needs; phase 4's 16 prompts as one batch padded to the
+   shard's call needs; #6 on the replicated deep tail at d=4 (one level,
+   bit-exact over 3 chained updates, timed and bounded as the row
+   ``update_cache_fused[sp_deep]``, which takes the SP path's launches
+   of #6, the ``update_cache_fused`` row the rest); phase 4's 16 prompts
+   as one batch padded to the
    2048 bucket, prefilled in a 4-way ``sp_scope`` and densely: logits
    within 1e-3, the SP caches (through ``shard_cache`` and
    ``unshard_cache``) within 1e-4 row-scaled, layer 0's bit-exact;
@@ -1398,6 +1402,44 @@ def phase_sp_kernels(dev):
         bound_ms=bms, bound_by=by, library_ms=None,
         note=f"shard {s}'s call at d={d}: its {nsh} sharded levels of "
              f"{nlev}, {own} of {R} rows its own"))
+
+    # #6 on the replicated deep tail at d=4, as SP serving runs it (every
+    # SP launch of #6): the levels past the sharded ones, at t_deep
+    if nsh >= nlev:
+        raise AssertionError(f"sp d={d}: no replicated deep level")
+
+    def deep_of(c):
+        return hd.H1DCache(c.ck[nsh - 1].clone(), c.cv[nsh - 1].clone(),
+                           tuple(a.clone() for a in c.ck[nsh:]),
+                           tuple(a.clone() for a in c.cv[nsh:]))
+    da, db = deep_of(sh), deep_of(sh)
+    for step in range(3):        # chained writes: later ones read earlier
+        dk.update_cache_fused(da, kn + step, vn - step, tabs.t_deep)
+        dk.update_cache_ref(db, kn + step, vn - step, tabs.t_deep)
+    for x, y in zip((da.k, da.v, *da.ck, *da.cv),
+                    (db.k, db.v, *db.ck, *db.cv)):
+        if not torch.equal(x, y):
+            raise AssertionError("update_cache_fused on the SP deep tail is "
+                                 "not bit-exact against update_cache_ref")
+    ndeep = 1 + len(da.ck)
+    nbytes = f4 * (2 * R * D + R + R * ndeep * 2 * 2 * D)
+    bms, by = bound(nbytes, R * ndeep * 2 * D)
+    deep_args = (da, kn, vn, tabs.t_deep)
+    rows.append(dict(
+        name="update_cache_fused[sp_deep]", route="cuda",
+        source="src/repro_torch/kernels/csrc/h1d_decode.cu",
+        replaces="src/repro/kernels/h1d_decode_kernel.py:362",
+        max_abs_err=0.0,
+        ms=time_ms(lambda: dk.update_cache_fused(*deep_args)),
+        device_ms=device_ms(lambda: dk.update_cache_fused(*deep_args)),
+        plain_ms=time_ms(lambda: dk.update_cache_ref(db, kn, vn,
+                                                     tabs.t_deep)),
+        bound_ms=bms, bound_by=by, library_ms=None,
+        note=f"#6 on the replicated deep tail at d={d}: {ndeep} of {nlev} "
+             f"levels ({da.k.shape[1]} rows) at t_deep; launches: every "
+             f"SP launch of #6"))
+    log(f"update_cache_fused[sp_deep]: bit-exact over 3 chained updates "
+        f"({ndeep} level)")
     return rows
 
 
@@ -1815,6 +1857,12 @@ def main() -> int:
                    "train": train_counts.get(key, 0),
                    "lra": lra_counts.get(key, 0),
                    "coarse_q_train": cq_counts.get(key, 0)}
+        if key == "update_cache_fused":
+            # SP serving runs #6 on the replicated deep tail alone: those
+            # launches are the [sp_deep] row's
+            by_path["sp"] = 0
+        elif key == "update_cache_fused[sp_deep]":
+            by_path["sp"] = sp_counts.get("update_cache_fused", 0)
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         row["kernel_ms"] = row["ms"]

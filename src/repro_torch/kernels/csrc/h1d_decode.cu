@@ -98,15 +98,20 @@
 // memory, chunks of rows stream through a ring of stages, keys first
 // (all scores, so the single max stays exact), then values (attend_plan,
 // mirrored by the wrappers' plan_attend_stages).
-// The f32 update kernels (#6, #9, #12) give each thread one column and
-// walk the ancestor chain in registers, one memory round trip a level.
-// The int8 update (#10) is bound by the same latency, and a level's
-// requantize needs each row's absmax first.  Every level's pair sits where
-// t and utab[r] alone say, so update_cache_quant_kernel reads them, puts
-// every level's pair (and scales) in flight at once into shared memory,
-// and then runs the chain with no memory round trip between levels: one
-// warp per chain (k or v; the two never meet), C columns a lane; the
-// carry chain itself is a
+// The update kernels give each thread one column (f32) or one warp a
+// chain (int8), and are bound by the same latency: every level's pair
+// sits where t (and utab[r]) alone say, and within one call no two
+// levels share storage, so reading every pair before the first store
+// changes no bit.  #6 and #12 run update_chain_kernel<PARTIAL>: t (and
+// owned) read, both rows of every level's pair put in flight at once
+// (cp.async into shared memory), then the carry chain and its stores:
+// two memory round trips before the chain, where a walk of the levels
+// costs one a level.  #9
+// still walks them (update_cache_kernel: its TRASH rows race between
+// CTAs).  #10 (update_cache_quant_kernel) puts every level's pair (and
+// scales) in flight at once into shared memory, and then runs the chain
+// with no memory round trip between levels: one warp per chain (k or v;
+// the two never meet), C columns a lane; the carry chain itself is a
 // select and an add a level, and what hangs off it -- each row's absmax
 // over the warp (exact and order-free), the IEEE divisions and the
 // stores -- runs after it: one lane a level for the maxima, four warps a
@@ -191,17 +196,16 @@ __host__ __device__ __forceinline__ int band_rows(int band, int t, int nr) {
   return (t % span) < span / 2 ? nr / 2 : nr;
 }
 
-// First row of the sibling pair that holds ancestor t >> l.
-template <bool PAGED>
-__device__ __forceinline__ size_t pair_row(int r, int l, int t,
-                                           const int* utab, int nlev,
-                                           int Lmax, int nr) {
-  if (PAGED)
-    return (size_t)utab[(size_t)r * nlev + l] * nr +
-           2 * (size_t)((t >> (l + 1)) & (nr / 2 - 1));
+// First row of the sibling pair of level l that holds ancestor t >> l in
+// row r's slab, an (R, Lmax >> l, W) array: pair min(t >> (l + 1),
+// Ll / 2 - 1), floored at 0 (a shift by 32 is 0 here, not undefined).
+__device__ __forceinline__ float* dense_pair(const MutLevels& lv, bool is_k,
+                                            int l, int r, int t, int Lmax,
+                                            int W) {
   const int Ll = Lmax >> l;
-  const int pair = max(min(t >> (l + 1), Ll / 2 - 1), 0);
-  return (size_t)r * Ll + 2 * (size_t)pair;
+  const int pair = max(min(l < 31 ? t >> (l + 1) : 0, Ll / 2 - 1), 0);
+  return static_cast<float*>(is_k ? lv.k[l] : lv.v[l]) +
+         ((size_t)r * Ll + 2 * (size_t)pair) * W;
 }
 
 // #5 on dense slabs; out: normalised (R, G, Dv).
@@ -287,42 +291,36 @@ decode_attend_kernel(const float* __restrict__ q, Levels lv,
   }
 }
 
-// PARTIAL: only rows with owned[r] != 0 write; every row's carry after
-// the last level goes to carry_k / carry_v (R, D / Dv).
-template <bool PAGED, bool PARTIAL>
+// #9 on a paged pool: a column a thread, the levels in order, each level's
+// pair read after the previous level's store (one memory round trip a
+// level).
 __global__ void update_cache_kernel(const float* __restrict__ knew,
                                     const float* __restrict__ vnew,
                                     const int* __restrict__ tpos,
                                     const int* __restrict__ utab,
-                                    const int* __restrict__ owned,
-                                    MutLevels lv, int Lmax, int D, int Dv,
-                                    int nr, int nlev,
-                                    float* __restrict__ carry_k,
-                                    float* __restrict__ carry_v) {
+                                    MutLevels lv, int D, int Dv, int nr,
+                                    int nlev) {
   const int r = blockIdx.x;
   const int t = tpos[r];
-  const bool own = !PARTIAL || owned[r] != 0;
   for (int c = threadIdx.x; c < D + Dv; c += blockDim.x) {
     const bool is_k = c < D;
     const int col = is_k ? c : c - D;
     const int width = is_k ? D : Dv;
     float carry = is_k ? knew[(size_t)r * D + col] : vnew[(size_t)r * Dv + col];
     for (int l = 0; l < nlev; ++l) {
-      const size_t row0 = pair_row<PAGED>(r, l, t, utab, nlev, Lmax, nr);
+      const size_t row0 = (size_t)utab[(size_t)r * nlev + l] * nr +
+                          2 * (size_t)((t >> (l + 1)) & (nr / 2 - 1));
       const int sel = (t >> l) & 1;
       float* base = static_cast<float*>(is_k ? lv.k[l] : lv.v[l]) +
                     row0 * width + col;
       const float other = base[(size_t)(1 - sel) * width];
-      float mine = carry;
-      if (own) base[(size_t)sel * width] = carry;
-      else mine = base[(size_t)sel * width];
-      if (PARTIAL || l + 1 < nlev) {
-        const float lo = sel ? other : mine;
-        const float hi = sel ? mine : other;
+      base[(size_t)sel * width] = carry;
+      if (l + 1 < nlev) {
+        const float lo = sel ? other : carry;
+        const float hi = sel ? carry : other;
         carry = is_k ? __fmul_rn(__fadd_rn(lo, hi), 0.5f) : __fadd_rn(lo, hi);
       }
     }
-    if (PARTIAL) (is_k ? carry_k : carry_v)[(size_t)r * width + col] = carry;
   }
 }
 
@@ -1301,6 +1299,93 @@ update_cache_quant_kernel(const float* __restrict__ knew,
   }
 }
 
+// ---------------------------------------------------------------------------
+// f32 dense and partial updates (#6, #12)
+// ---------------------------------------------------------------------------
+
+// Shared memory a CTA of update_chain_kernel stages its pairs in, at most:
+// the threads are cut to fit it (a column loop takes the rest).
+constexpr int CHAIN_SMEM = 48 * 1024;
+
+// #6 (dense slabs) and #12 (PARTIAL: one shard's sharded levels at the
+// shard-local t; only rows with owned[r] != 0 write, and every row's
+// carry past its last level goes to carry_k / carry_v (R, D / Dv)).  One
+// CTA per cache row, a column a thread (k's D columns, then v's Dv).
+// Every level's pair sits where t alone says and no two levels share
+// storage, so, in this order:
+//   1. t (and owned) read, one load each, both in flight;
+//   2. both rows of every level's pair put in flight at once, by
+//      cp.async into the thread's own slots of shared memory, (2 nlev,
+//      T) floats (a non-owner carries the pair as stored);
+//   3. the carry chain: an owner row's carry takes row (t >> l) & 1 of
+//      level l's pair and is stored there, the next carry is the pair's
+//      mean (k) or sum (v) in the plain version's rounding (no FMA
+//      contraction); level l + 1's pair is read from shared memory
+//      before level l's store, which the compiler must keep ahead of
+//      later shared-memory reads;
+//   4. #12's carry stored.
+// The level loops stay loops: the chain unrolled into registers
+// (levels to a compile-time bound), level 0 alone in registers, a warp
+// a level for the copies and the stores all ran slower on the card.  No
+// thread reads another's slots, so no barrier.
+template <bool PARTIAL>
+__global__ void __launch_bounds__(1024)
+update_chain_kernel(const float* __restrict__ knew,
+                    const float* __restrict__ vnew,
+                    const int* __restrict__ tpos,
+                    const int* __restrict__ owned, MutLevels lv, int Lmax,
+                    int D, int Dv, int nlev, float* __restrict__ carry_k,
+                    float* __restrict__ carry_v) {
+  extern __shared__ __align__(16) float pr[];
+  const int r = blockIdx.x, T = blockDim.x, tid = threadIdx.x;
+  const int t = tpos[r];
+  const bool own = !PARTIAL || owned[r] != 0;
+  for (int c = tid; c < D + Dv; c += T) {
+    const bool is_k = c < D;
+    const int W = is_k ? D : Dv;
+    const int col = is_k ? c : c - D;
+    float carry = is_k ? knew[(size_t)r * D + col] : vnew[(size_t)r * Dv + col];
+    for (int l = 0; l < nlev; ++l) {
+      const float* p = dense_pair(lv, is_k, l, r, t, Lmax, W) + col;
+      cp_async4(pr + 2 * l * T + tid, p);
+      cp_async4(pr + (2 * l + 1) * T + tid, p + W);
+    }
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    float x0 = pr[tid], x1 = pr[T + tid];
+    for (int l = 0; l < nlev; ++l) {
+      const int sel = (t >> l) & 1;
+      if (own) {
+        if (sel) x1 = carry;
+        else x0 = carry;
+      }
+      const float y0 = l + 1 < nlev ? pr[(2 * l + 2) * T + tid] : 0.f;
+      const float y1 = l + 1 < nlev ? pr[(2 * l + 3) * T + tid] : 0.f;
+      if (own)
+        dense_pair(lv, is_k, l, r, t, Lmax, W)[(size_t)sel * W + col] =
+            sel ? x1 : x0;
+      carry = is_k ? __fmul_rn(__fadd_rn(x0, x1), 0.5f) : __fadd_rn(x0, x1);
+      x0 = y0;
+      x1 = y1;
+    }
+    if (PARTIAL) (is_k ? carry_k : carry_v)[(size_t)r * W + col] = carry;
+  }
+}
+
+// Threads: a column each, at most 1024 and as many as CHAIN_SMEM stages
+// (2 nlev floats a thread), in whole warps.
+template <bool PARTIAL>
+int launch_chain(const float* knew, const float* vnew, const int* t,
+                 const int* owned, const MutLevels& lv, int R, int Lmax,
+                 int D, int Dv, int nlev, float* carry_k, float* carry_v,
+                 void* stream) {
+  const int fit = CHAIN_SMEM / (8 * nlev) / 32 * 32;
+  const int threads = min(min(1024, fit), (D + Dv + 31) / 32 * 32);
+  update_chain_kernel<PARTIAL>
+      <<<R, threads, 8 * nlev * threads, (cudaStream_t)stream>>>(
+          knew, vnew, t, owned, lv, Lmax, D, Dv, nlev, carry_k, carry_v);
+  return (int)cudaGetLastError();
+}
+
 Levels read_levels(const void* const* ks, const void* const* vs,
                    const void* const* kscs, const void* const* vscs,
                    unsigned qmask, int nlev) {
@@ -1396,11 +1481,8 @@ extern "C" int h1d_update_cache(const float* knew, const float* vnew,
                                 int Dv, int nlev, void* stream) {
   if (nlev < 1 || nlev > MAXLEV || R < 1) return (int)cudaErrorInvalidValue;
   const MutLevels lv = write_levels(ks, vs, nullptr, nullptr, 0u, nlev);
-  const int threads = min(1024, ((D + Dv + 31) / 32) * 32);
-  update_cache_kernel<false, false><<<R, threads, 0, (cudaStream_t)stream>>>(
-      knew, vnew, t, nullptr, nullptr, lv, Lmax, D, Dv, 0, nlev, nullptr,
-      nullptr);
-  return (int)cudaGetLastError();
+  return launch_chain<false>(knew, vnew, t, nullptr, lv, R, Lmax, D, Dv,
+                             nlev, nullptr, nullptr, stream);
 }
 
 // Paged pools: ks[l]/vs[l] level l's (NP_l, nr, D/Dv) f32 pages; utab
@@ -1414,9 +1496,8 @@ extern "C" int h1d_update_cache_paged(const float* knew, const float* vnew,
     return (int)cudaErrorInvalidValue;
   const MutLevels lv = write_levels(ks, vs, nullptr, nullptr, 0u, nlev);
   const int threads = min(1024, ((D + Dv + 31) / 32) * 32);
-  update_cache_kernel<true, false><<<R, threads, 0, (cudaStream_t)stream>>>(
-      knew, vnew, t, utab, nullptr, lv, 0, D, Dv, nr, nlev, nullptr,
-      nullptr);
+  update_cache_kernel<<<R, threads, 0, (cudaStream_t)stream>>>(
+      knew, vnew, t, utab, lv, D, Dv, nr, nlev);
   return (int)cudaGetLastError();
 }
 
@@ -1481,11 +1562,8 @@ extern "C" int h1d_update_cache_partial(const float* knew, const float* vnew,
                                         int nlev, void* stream) {
   if (nlev < 1 || nlev > MAXLEV || R < 1) return (int)cudaErrorInvalidValue;
   const MutLevels lv = write_levels(ks, vs, nullptr, nullptr, 0u, nlev);
-  const int threads = min(1024, ((D + Dv + 31) / 32) * 32);
-  update_cache_kernel<false, true><<<R, threads, 0, (cudaStream_t)stream>>>(
-      knew, vnew, t_loc, nullptr, owned, lv, Lloc, D, Dv, 0, nlev, carry_k,
-      carry_v);
-  return (int)cudaGetLastError();
+  return launch_chain<true>(knew, vnew, t_loc, owned, lv, R, Lloc, D, Dv,
+                            nlev, carry_k, carry_v, stream);
 }
 
 // The staged attend's launch plan (#7, #8, #11) for the host's mirror

@@ -41,7 +41,8 @@ run its staged attend body, which copies only the rows each band's mask
 lets through (:func:`attend_band_rows`) into shared memory, laid out by
 :func:`plan_attend_stages` (int8 rows with their scales, dequantized on
 the read); #10 stages every level's sibling pair before its carry chain
-(:func:`update_quant_smem`).
+(:func:`update_quant_smem`), and #6 and #12 put every level's pair in
+flight before theirs (any widths and level counts: no new limit).
 ``<wrapper>.launches`` counts kernel launches and ``<plain>.calls``
 counts runs of the plain version.  The page tables and the shard
 geometry are trusted: the host builds them from

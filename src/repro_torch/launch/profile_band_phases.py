@@ -2,7 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.profile_band_phases \
         [--kernel sub_bwd|band_fwd|band_bwd|decode_paged|decode_partial|
-                  decode_paged_quant|update_paged_quant] \
+                  decode_paged_quant|update_paged_quant|update_dense|
+                  update_partial] \
         [--csrc DIR] [--out PATH]
 
 Builds a copy of the kernel's source with ``%globaltimer`` stamps taken
@@ -51,6 +52,19 @@ stay in registers until the last stamp, where thread 0 stores them.
   a source with the older body (a block absmax by ``atomicMax``) is
   stamped per level: the pair loaded, the block absmax, the requantize
   and stores, the carry and end.
+* ``update_dense``: #6 (``h1d_update_cache``) on ``chip_smoke.py``'s
+  dense cache (R=64, Lmax 2048, d=64, nr=16, 7 levels) at seeded
+  positions, then on the one level the SP deep tail updates at d=4 (32
+  rows, ``t_deep``), and ``update_partial``: #12
+  (``h1d_update_cache_partial``) on shard 3's 6 sharded levels of that
+  cache split 4 ways.  ``update_chain_kernel``: t (and owned) read,
+  every level's pair copy issued, the pairs landed, the carry chain with
+  its stores, the carry; a source with the older body
+  (``update_cache_kernel<PAGED, PARTIAL>``) is stamped per level: t
+  read, the sibling loaded, the store and carry, end.  Where a phase
+  ends on loaded values, the stamp first waits for them (a compare of
+  the values that guards a store to ``g_sink``), so that it marks their
+  arrival, not their issue.
 
 ``--csrc DIR`` stamps the sources in DIR instead of this package's
 (e.g. a parent commit's, to compare the two in one call).  The stamps
@@ -60,6 +74,7 @@ not found.  Needs a CUDA card and ``nvcc``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import json
 import shutil
@@ -82,7 +97,8 @@ MAX_CTAS = 1 << 17
 # phase that ends at each stamp; stamp 0 is the start) and the anchors
 # (text of the source, or a tuple of texts of which the first found is
 # used (this tree's and an older one's), stamp, where: "after" the text,
-# "before" it or at an offset into it).
+# "before" it or at an offset into it, and optionally code run before
+# the stamp: a wait for the values the phase ends on).
 SUB_BWD = dict(
     name="sub_bwd_kernel", array="g_sub",
     phases=("start", "weights", "keys issued", "rows staged", "delta",
@@ -237,13 +253,55 @@ UPDATE_QUANT_OLD = dict(
         ("    carry = is_k ? __fmul_rn(__fadd_rn(x0, x1), 0.5f) : "
          "__fadd_rn(x0, x1);\n  }\n", 4, "after"),
     ])
+# #6 / #12: every level's pair staged before the carry chain
+UPDATE_CHAIN = dict(
+    name="update_chain_kernel", array="g_upd",
+    phases=("start", "t read", "pairs issued", "pairs landed",
+            "chain and stores", "carry, end"),
+    anchors=[
+        ("  const int t = tpos[r];\n  const bool own = !PARTIAL || "
+         "owned[r] != 0;\n  for (int c = tid;", 0, "before"),
+        ("  const bool own = !PARTIAL || owned[r] != 0;\n  for (int c = "
+         "tid;", 1, len("  const bool own = !PARTIAL || owned[r] != 0;\n"),
+         "if ((t ^ (int)own) == -7) g_sink = 1;\n"),
+        ("      cp_async4(pr + (2 * l + 1) * T + tid, p + W);\n    }\n", 2,
+         "after"),
+        ('    asm volatile("cp.async.wait_all;" ::: "memory");\n    float '
+         "x0 = pr[tid]", 3,
+         len('    asm volatile("cp.async.wait_all;" ::: "memory");\n')),
+        ("      x0 = y0;\n      x1 = y1;\n    }\n", 4, "after",
+         "if (carry == 1.5e-38f) g_sink = 1;\n"),
+        ("    if (PARTIAL) (is_k ? carry_k : carry_v)[(size_t)r * W + col] "
+         "= carry;\n  }\n", 5, "after"),
+    ])
+# #6 / #12 before it: update_cache_kernel<PAGED, PARTIAL>, one memory
+# round trip a level
+UPDATE_OLD = dict(
+    name="update_cache_kernel", array="g_upd",
+    phases=("start", "t read", "L: sibling loaded", "L: store, carry",
+            "end"),
+    anchors=[
+        ("  const int t = tpos[r];\n  const bool own = !PARTIAL || "
+         "owned[r] != 0;\n", 0, "before"),
+        ("  const bool own = !PARTIAL || owned[r] != 0;\n", 1, "after",
+         "if ((t ^ (int)own) == -7) g_sink = 1;\n"),
+        ("      const float other = base[(size_t)(1 - sel) * width];\n", 2,
+         "after", "if (other == 1.5e-38f) g_sink = 1;\n"),
+        ("        carry = is_k ? __fmul_rn(__fadd_rn(lo, hi), 0.5f) : "
+         "__fadd_rn(lo, hi);\n      }\n", 3, "after",
+         "if (carry == 1.5e-38f) g_sink = 1;\n"),
+        ("    if (PARTIAL) (is_k ? carry_k : carry_v)[(size_t)r * width + "
+         "col] = carry;\n  }\n", 4, "after"),
+    ])
 TARGETS = {"sub_bwd": ("h1d_block_bwd", [SUB_BWD]),
            "band_fwd": ("h1d_block", [BAND_FWD]),
            "band_bwd": ("h1d_block_bwd", [BAND_DQ, BAND_DKVW]),
            "decode_paged": ("h1d_decode", [ATTEND_STAGED]),
            "decode_partial": ("h1d_decode", [ATTEND_STAGED]),
            "decode_paged_quant": ("h1d_decode", [ATTEND_STAGED]),
-           "update_paged_quant": ("h1d_decode", [UPDATE_QUANT])}
+           "update_paged_quant": ("h1d_decode", [UPDATE_QUANT]),
+           "update_dense": ("h1d_decode", [UPDATE_CHAIN]),
+           "update_partial": ("h1d_decode", [UPDATE_CHAIN])}
 SIGNATURES = {"h1d_block": hb._SIGNATURES, "h1d_block_bwd": hbb._SIGNATURES,
               "h1d_decode": dk._SIGNATURES}
 
@@ -271,13 +329,13 @@ def instrumented_source(src: str, specs) -> str:
     head = ("__device__ __forceinline__ unsigned long long now_ns() {\n"
             "  unsigned long long t;\n"
             "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t));\n"
-            "  return t;\n}\n")
+            "  return t;\n}\n__device__ int g_sink;\n")
     for spec in specs:
         head += (f"__device__ unsigned long long {spec['array']}"
                  f"[{MAX_CTAS}][{len(spec['phases'])}];\n")
     src = src.replace("namespace {\n", head + "namespace {\n", 1)
     for spec in specs:
-        for line, k, where in spec["anchors"]:
+        for line, k, where, *wait in spec["anchors"]:
             if isinstance(line, tuple):
                 line = next((x for x in line if src.count(x) == 1), line[0])
             if src.count(line) != 1:
@@ -285,7 +343,7 @@ def instrumented_source(src: str, specs) -> str:
                                    f"found {src.count(line)} times: "
                                    f"{line!r}")
             at = {"before": 0, "after": len(line)}.get(where, where)
-            new = line[:at] + _stamp(spec, k) + line[at:]
+            new = line[:at] + "".join(wait) + _stamp(spec, k) + line[at:]
             src = src.replace(line, new, 1)
     tail = ""
     for i, spec in enumerate(specs):
@@ -313,6 +371,9 @@ def build(kernel: str, csrc: Path):
         specs = [ATTEND_OLD]
     if kernel == "update_paged_quant" and "atomicMax(&amax_s" in src:
         specs = [UPDATE_QUANT_OLD]
+    if kernel in ("update_dense", "update_partial") and \
+            "update_chain_kernel" not in src:
+        specs = [UPDATE_OLD]
     out = _build.BUILD_DIR / f"phases_{kernel}"
     out.mkdir(parents=True, exist_ok=True)
     (out / f"{stem}.cu").write_text(instrumented_source(src, specs))
@@ -546,13 +607,62 @@ def profile_decode(lib, specs, dev, gen, kernel):
 
             def fn(*a, nr):
                 return dk.update_cache_paged_quant(*a)
+    with _loaded(lib):
+        return _run(lib, specs, lambda: fn(*args, nr=NR), label, [R])
+
+
+@contextlib.contextmanager
+def _loaded(lib):
+    """The decode wrappers launch from ``lib`` (the instrumented library)
+    in place of the built one."""
     built = _build._LOADED.get("h1d_decode")
     _build._LOADED["h1d_decode"] = lib
-    rows = _run(lib, specs, lambda: fn(*args, nr=NR), label, [R])
-    if built is None:
-        del _build._LOADED["h1d_decode"]
+    try:
+        yield
+    finally:
+        if built is None:
+            del _build._LOADED["h1d_decode"]
+        else:
+            _build._LOADED["h1d_decode"] = built
+
+
+def profile_update(lib, specs, dev, gen, kernel):
+    """#6 (``update_dense``: a dense 7-level cache, then the SP deep
+    tail's one level at d=4) or #12 (``update_partial``: shard 3's
+    sharded levels at d=4), one call each through its wrapper with the
+    instrumented library; ``chip_smoke.py``'s shapes."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import sp_attention as sp
+
+    R, Lmax, D, NR, d = 64, 2048, 64, 16, 4
+    dense = hd.prefill_cache(
+        torch.randn((R, Lmax, D), generator=gen, device=dev),
+        torch.randn((R, Lmax, D), generator=gen, device=dev), Lmax, NR)
+    t = np.random.default_rng(100).integers(0, Lmax + 1, R)
+    t[:4] = [0, NR - 1, NR, Lmax - 1]
+    tt = torch.as_tensor(t, dtype=torch.int32, device=dev)
+    kn = torch.randn((R, D), generator=gen, device=dev)
+    tabs = sp.sp_tables(t, nr=NR, Lmax=Lmax, d=d, device=dev)
+    nsh = sp.sp_sharded_levels(Lmax, NR, d)
+    if kernel == "update_dense":
+        deep = hd.H1DCache(dense.ck[nsh - 1], dense.cv[nsh - 1],
+                           dense.ck[nsh:], dense.cv[nsh:])
+        cases = [(f"dense, R={R}, Lmax {Lmax}, {1 + len(dense.ck)} levels",
+                  lambda: dk.update_cache_fused(dense, kn, -kn, tt)),
+                 (f"SP deep tail at d={d}, {1 + len(deep.ck)} level",
+                  lambda: dk.update_cache_fused(deep, kn, -kn, tabs.t_deep))]
     else:
-        _build._LOADED["h1d_decode"] = built
+        sh = sp.shard_cache(dense, make_mesh((d,), ("data",), device=dev),
+                            NR).shards[d - 1]
+        slab = hd.H1DCache(sh.k, sh.v, sh.ck[:nsh - 1], sh.cv[:nsh - 1])
+        cases = [(f"shard {d - 1} of {d}, R={R}, {nsh} sharded levels",
+                  lambda: dk.update_cache_partial(
+                      slab, kn, -kn, tabs.t_loc[d - 1],
+                      tabs.upd_owned[d - 1]))]
+    rows = []
+    with _loaded(lib):
+        for label, launch in cases:
+            rows += _run(lib, specs, launch, label, [R])
     return rows
 
 
@@ -572,6 +682,8 @@ def main(argv=None):
            "csrc": str(args.csrc)}
     if args.kernel == "sub_bwd":
         res["levels"] = profile_sub_bwd(lib, dev, gen)
+    elif args.kernel in ("update_dense", "update_partial"):
+        res["cases"] = profile_update(lib, specs, dev, gen, args.kernel)
     elif args.kernel.startswith(("decode_", "update_")):
         res["cases"] = profile_decode(lib, specs, dev, gen, args.kernel)
     else:

@@ -514,26 +514,39 @@ def test_decode_attend_matches_plain(dev, Lmax, nr, G, D, Dv):
            [dk.decode_attend_ref(cache, q, t, nr=nr)])
 
 
-@pytest.mark.parametrize("Lmax,nr,D,Dv", [(2048, 16, 64, 64),
-                                          (128, 8, 16, 40), (16, 16, 8, 8)])
+def _clone_cache(c):
+    return hd.H1DCache(c.k.clone(), c.v.clone(),
+                       tuple(a.clone() for a in c.ck),
+                       tuple(a.clone() for a in c.cv))
+
+
+def _levels(c):
+    return (c.k, c.v, *c.ck, *c.cv)
+
+
+@pytest.mark.parametrize("Lmax,nr,D,Dv", [
+    (2048, 16, 64, 64), (128, 8, 16, 40), (16, 16, 8, 8), (256, 8, 5, 7),
+    (256, 16, 64, 5), (512, 16, 256, 256), (64, 32, 7, 5),
+    (8192, 8, 600, 600), (262144, 2, 3, 5)])
 def test_update_cache_bit_exact(dev, Lmax, nr, D, Dv):
+    """#6 against its plain version over 5 chained updates, bit-exact:
+    odd widths, D != Dv, D = Dv = 256, one level ((16, 16), (64, 32)),
+    more columns than a CTA's threads (600 + 600 at 10 levels) and 17
+    levels; rows 0 and 1 at t = Lmax (which writes the last pair) and
+    Lmax - 1."""
     gen = torch.Generator(device=dev).manual_seed(Lmax)
     R = 8
     base = hd.prefill_cache(_randn(gen, dev, R, Lmax, D),
                             _randn(gen, dev, R, Lmax, Dv), Lmax, nr)
-
-    def clone(c):
-        return hd.H1DCache(c.k.clone(), c.v.clone(),
-                           tuple(a.clone() for a in c.ck),
-                           tuple(a.clone() for a in c.cv))
-    a, b = clone(base), clone(base)
+    a, b = _clone_cache(base), _clone_cache(base)
     for step in range(5):
         t = torch.randint(0, Lmax, (R,), generator=gen, device=dev,
                           dtype=torch.int32)
+        t[0], t[1] = Lmax, Lmax - 1
         kn, vn = _randn(gen, dev, R, D), _randn(gen, dev, R, Dv)
         dk.update_cache_fused(a, kn, vn, t)
         dk.update_cache_ref(b, kn, vn, t)
-        for x, y in zip((a.k, a.v, *a.ck, *a.cv), (b.k, b.v, *b.ck, *b.cv)):
+        for x, y in zip(_levels(a), _levels(b)):
             assert torch.equal(x, y)
 
 
@@ -1098,6 +1111,83 @@ def test_sp_partial_kernels_match_plain(dev, d, Lmax, nr, G, D, Dv):
     for x, y in zip((back.k, back.v, *back.ck, *back.cv),
                     (dense.k, dense.v, *dense.ck, *dense.cv)):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("d", [2, 4])
+@pytest.mark.parametrize("Lmax,nr,D,Dv", [
+    (2048, 16, 64, 64), (256, 8, 5, 7), (512, 16, 40, 24)])
+def test_update_partial_bit_exact(dev, d, Lmax, nr, D, Dv):
+    """#12 on every shard's sharded levels over 5 chained ticks, each row
+    near a mask, pair or shard edge (position base - 2 .. base + 2,
+    clamped to [0, Lmax]): the slabs and every row's carries (owner and
+    non-owner rows) bit-exact against the plain version, with t_loc past
+    Lloc on the shards left of a row's owner."""
+    from repro_torch.parallel import sp_attention as sp
+
+    gen = torch.Generator(device=dev).manual_seed(Lmax + 10 * d)
+    base = np.array(_sp_ts(Lmax, nr, d))
+    R = len(base)
+    nsh = sp.sp_sharded_levels(Lmax, nr, d)
+    Lloc = Lmax // d
+
+    def slab():
+        ks = [_randn(gen, dev, R, (Lmax >> l) // d, D) for l in range(nsh)]
+        vs = [_randn(gen, dev, R, (Lmax >> l) // d, Dv) for l in range(nsh)]
+        return hd.H1DCache(ks[0], vs[0], tuple(ks[1:]), tuple(vs[1:]))
+    got = [slab() for _ in range(d)]
+    want = [_clone_cache(c) for c in got]
+    past = nonowner = False
+    for step in range(5):
+        t = np.clip(base - 2 + step, 0, Lmax)
+        tabs = sp.sp_tables(t, nr=nr, Lmax=Lmax, d=d, device=dev)
+        kn, vn = _randn(gen, dev, R, D), _randn(gen, dev, R, Dv)
+        for s in range(d):
+            upd = (kn, vn, tabs.t_loc[s], tabs.upd_owned[s])
+            _, ak, av = dk.update_cache_partial(got[s], *upd)
+            _, bk, bv = dk.update_cache_partial_ref(want[s], *upd)
+            for x, y in zip((*_levels(got[s]), ak, av),
+                            (*_levels(want[s]), bk, bv)):
+                assert torch.equal(x, y)
+        past |= bool((tabs.t_loc >= Lloc).any())
+        nonowner |= bool((tabs.upd_owned == 0).any())
+    assert past and nonowner
+
+
+@pytest.mark.parametrize("partial", [False, True])
+def test_update_chain_two_calls_same_bits(dev, partial):
+    """#6 (7 levels) and #12 (shard 3 of 4) at ``chip_smoke.py``'s
+    shapes, twice on two copies of one cache with the same inputs: the
+    same bits in every level and carry."""
+    from repro_torch.parallel import sp_attention as sp
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    R, Lmax, nr, D, d = 64, 2048, 16, 64, 4
+    cache = hd.prefill_cache(_randn(gen, dev, R, Lmax, D),
+                             _randn(gen, dev, R, Lmax, D), Lmax, nr)
+    t = np.random.default_rng(7).integers(0, Lmax + 1, R)
+    kn, vn = _randn(gen, dev, R, D), _randn(gen, dev, R, D)
+    if partial:
+        tabs = sp.sp_tables(t, nr=nr, Lmax=Lmax, d=d, device=dev)
+        nsh = sp.sp_sharded_levels(Lmax, nr, d)
+        Lloc = Lmax // d
+        cache = hd.H1DCache(
+            cache.k[:, -Lloc:].contiguous(), cache.v[:, -Lloc:].contiguous(),
+            tuple(a[:, -a.shape[1] // d:].contiguous()
+                  for a in cache.ck[:nsh - 1]),
+            tuple(a[:, -a.shape[1] // d:].contiguous()
+                  for a in cache.cv[:nsh - 1]))
+
+        def run(c):
+            _, ck, cv = dk.update_cache_partial(c, kn, vn, tabs.t_loc[d - 1],
+                                                tabs.upd_owned[d - 1])
+            return (*_levels(c), ck, cv)
+    else:
+        tt = torch.as_tensor(t, dtype=torch.int32, device=dev)
+
+        def run(c):
+            return _levels(dk.update_cache_fused(c, kn, vn, tt))
+    for x, y in zip(run(_clone_cache(cache)), run(_clone_cache(cache))):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
 
 
 def test_sp_wrappers_validate_operands(dev):

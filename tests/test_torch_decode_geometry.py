@@ -13,10 +13,11 @@ values name the keys), and changing every row the rule leaves out
 (#8: its int8 rows and scales) leaves the reference's output
 bit-identical, while changing one row it keeps does not.  The launch
 plan's envelope is checked at every card test's shape, fp32 and int8.
-#10 (``update_cache_paged_quant``) reads every level's sibling pair
-before its carry chain writes any; a numpy mirror of that order equals
-the reference's kernel bit for bit.  The kernels themselves run only on
-the card (``tests/test_torch_cuda.py``)."""
+#10 (``update_cache_paged_quant``), #6 (``update_cache_fused``) and #12
+(``update_cache_partial``) read every level's sibling pair before their
+carry chain writes any; a numpy mirror of that order equals the
+reference's kernel bit for bit.  The kernels themselves run only on the
+card (``tests/test_torch_cuda.py``)."""
 import functools
 import math
 
@@ -30,6 +31,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.core import h1d_decode as jhd  # noqa: E402
 from repro.kernels import h1d_decode_kernel as jdk  # noqa: E402
+from repro_torch.core import h1d_decode as thd  # noqa: E402
 from repro_torch.core import hierarchy as hc  # noqa: E402
 from repro_torch.kernels import h1d_decode_kernel as tdk  # noqa: E402
 from repro_torch.parallel import sp_attention as sp  # noqa: E402
@@ -305,6 +307,158 @@ def test_update_mirror_equals_paged_quant_kernel(quant):
             assert g.dtype == w.dtype
             np.testing.assert_array_equal(g[keep].view(np.uint8),
                                           w[keep].view(np.uint8))
+
+
+def _update_chain_mirror(levels, k_new, v_new, t, owned=None):
+    """numpy mirror of #6 / #12's order (``update_chain_kernel``), in
+    place on ``levels`` [(k, v)], level l of shape (R, Ll, D / Dv): per
+    row, both rows of every level's sibling pair read first (pair
+    ``min(t >> (l+1), Ll/2 - 1)``), then the carry chain (an owner row's
+    carry takes row ``(t >> l) & 1`` of the pair; the next carry is the
+    pair's mean (k) or sum (v)), then the taken rows stored (owner rows:
+    every row where ``owned`` is None).  Returns the carries past the
+    last level, (R, D) and (R, Dv)."""
+    f32, half = np.float32, np.float32(0.5)
+    out_k, out_v = [], []
+    for r in range(len(t)):
+        own = owned is None or owned[r] != 0
+        pairs = []
+        for l, (k, v) in enumerate(levels):
+            j = 2 * min(t[r] >> (l + 1), k.shape[1] // 2 - 1)
+            pairs.append((j, k[r, j:j + 2].copy(), v[r, j:j + 2].copy()))
+        carry = [k_new[r].astype(f32), v_new[r].astype(f32)]
+        for l, (_, pk, pv) in enumerate(pairs):
+            for i, x in enumerate((pk, pv)):
+                if own:
+                    x[(t[r] >> l) & 1] = carry[i]
+                carry[i] = (x[0] + x[1]) * half if i == 0 else x[0] + x[1]
+        if own:
+            for l, (j, pk, pv) in enumerate(pairs):
+                sel = (t[r] >> l) & 1
+                levels[l][0][r, j + sel] = pk[sel]
+                levels[l][1][r, j + sel] = pv[sel]
+        out_k.append(carry[0])
+        out_v.append(carry[1])
+    return np.stack(out_k), np.stack(out_v)
+
+
+def _edges(Lmax, nr, extra=()):
+    """Positions at pair and level boundaries (every 2^k - 1, 2^k, and
+    around nr and Lmax) and ``extra``, within [0, Lmax]."""
+    ts = {0, 1, 2, 3, nr - 1, nr, nr + 1, Lmax - 2, Lmax - 1, Lmax, *extra}
+    for k in range(1, Lmax.bit_length()):
+        ts |= {(1 << k) - 1, 1 << k}
+    return np.array(sorted(x for x in ts if 0 <= x <= Lmax), np.int32)
+
+
+def _random_levels(rng, R, Lmax, nlev, D, Dv, rows=None):
+    """(k, v) of every level l < nlev, (R, rows(l), D / Dv) float32,
+    level l scaled by 2^l as the pairwise sums grow."""
+    rows = rows or (lambda l: Lmax >> l)
+    return [tuple((rng.standard_normal((R, rows(l), w)) * 2.0 ** l)
+                  .astype(np.float32) for w in (D, Dv))
+            for l in range(nlev)]
+
+
+def _torch_slab(levels):
+    k, v = zip(*[(torch.from_numpy(a.copy()), torch.from_numpy(b.copy()))
+                 for a, b in levels])
+    return thd.H1DCache(k[0], v[0], tuple(k[1:]), tuple(v[1:]))
+
+
+def _same_bits(got, want):
+    got = np.asarray(got)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("Lmax,nr,nlev,D,Dv", [
+    (256, 8, 5, 3, 5), (2048, 16, 7, 4, 8), (32, 16, 1, 5, 7)])
+def test_update_mirror_equals_dense_kernel(Lmax, nr, nlev, D, Dv):
+    """Five chained ticks, each row near a pair or level boundary (its
+    position walks base - 2 .. base + 2, clamped to [0, Lmax]; Lmax
+    itself writes the last pair): the mirror of #6's order (every pair
+    read, then the chain, then the stores) equals the JAX
+    ``update_cache_fused`` (interpret) bit for bit, and so does the
+    port's plain version.  The last case is a one-level cache, the SP
+    deep tail's shape."""
+    rng = np.random.default_rng(Lmax + nlev)
+    base = _edges(Lmax, nr)
+    R = len(base)
+    levels = _random_levels(rng, R, Lmax, nlev, D, Dv)
+    cache = _slab(levels)
+    port = _torch_slab(levels)
+    upd = jax.jit(functools.partial(jdk.update_cache_fused, interpret=True))
+    for step in range(5):
+        t = np.clip(base - 2 + step, 0, Lmax).astype(np.int32)
+        kn = rng.standard_normal((R, D)).astype(np.float32)
+        vn = rng.standard_normal((R, Dv)).astype(np.float32)
+        cache = upd(cache, jnp.asarray(kn), jnp.asarray(vn), jnp.asarray(t))
+        _update_chain_mirror(levels, kn, vn, t)
+        tdk.update_cache_ref(port, torch.from_numpy(kn), torch.from_numpy(vn),
+                             torch.from_numpy(t))
+        got = [cache.k, cache.v, *[a for kv in zip(cache.ck, cache.cv)
+                                   for a in kv]]
+        mine = [port.k, port.v, *[a for kv in zip(port.ck, port.cv)
+                                  for a in kv]]
+        want = [a for kv in levels for a in kv]
+        for g, m, w in zip(got, mine, want):
+            _same_bits(g, w)
+            _same_bits(m.numpy(), w)
+
+
+@pytest.mark.parametrize("Lmax,nr,d", [(256, 8, 2), (256, 8, 4),
+                                       (64, 16, 4)])
+def test_update_mirror_equals_partial_kernel(Lmax, nr, d):
+    """Five chained ticks on every shard's sharded levels, rows at global
+    positions near pair, level and shard boundaries up to the global
+    length (so a shard left of the owner sees t_loc past Lloc): the
+    mirror of #12's order equals the JAX ``update_cache_partial``
+    (interpret, ``t_hi`` = Lmax) bit for bit on the slab and on the
+    carries of owner and non-owner rows, and so does the port's plain
+    version.  (64, 16, 4) shards one level."""
+    rng = np.random.default_rng(Lmax + d)
+    nsh = sp.sp_sharded_levels(Lmax, nr, d)
+    Lloc = Lmax // d
+    base = _edges(Lmax, nr, [s * Lloc + e for s in range(1, d)
+                             for e in (-1, 0, 1)])
+    R = len(base)
+    upd = jax.jit(functools.partial(jdk.update_cache_partial, t_hi=Lmax,
+                                    interpret=True))
+    slabs = [_random_levels(rng, R, Lmax, nsh, 3, 6,
+                            rows=lambda l: (Lmax >> l) // d)
+             for _ in range(d)]
+    jax_slabs = [_slab(lv) for lv in slabs]
+    port_slabs = [_torch_slab(lv) for lv in slabs]
+    for step in range(5):
+        t = np.clip(base - 2 + step, 0, Lmax)
+        tabs = sp.sp_tables(t, nr=nr, Lmax=Lmax, d=d, device="cpu")
+        kn = rng.standard_normal((R, 3)).astype(np.float32)
+        vn = rng.standard_normal((R, 6)).astype(np.float32)
+        assert int(tabs.upd_owned.sum(0).min()) == 1   # one owner a row
+        for s in range(d):
+            t_loc, own = tabs.t_loc[s].numpy(), tabs.upd_owned[s].numpy()
+            jax_slabs[s], jk, jv = upd(
+                jax_slabs[s], jnp.asarray(kn), jnp.asarray(vn),
+                jnp.asarray(t_loc), jnp.asarray(own))
+            mk, mv = _update_chain_mirror(slabs[s], kn, vn, t_loc, own)
+            _, pk, pv = tdk.update_cache_partial_ref(
+                port_slabs[s], torch.from_numpy(kn), torch.from_numpy(vn),
+                tabs.t_loc[s], tabs.upd_owned[s])
+            for g, m, w in ((jk, pk, mk), (jv, pv, mv)):
+                _same_bits(g, w)
+                _same_bits(m.numpy(), w)
+            c, pc = jax_slabs[s], port_slabs[s]
+            got = [c.k, c.v, *[a for kv in zip(c.ck, c.cv) for a in kv]]
+            mine = [pc.k, pc.v, *[a for kv in zip(pc.ck, pc.cv)
+                                  for a in kv]]
+            want = [a for kv in slabs[s] for a in kv]
+            for g, m, w in zip(got, mine, want):
+                _same_bits(g, w)
+                _same_bits(m.numpy(), w)
+        if step == 0:     # t_loc past Lloc, owners and non-owners
+            assert (tabs.t_loc.numpy() >= Lloc).any()
+            assert (tabs.upd_owned.numpy() == 0).any()
 
 
 def _bits(nr):
