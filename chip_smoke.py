@@ -189,6 +189,16 @@ def bound(nbytes: float, flops: float):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
+def update_bound(rows: int, nlev: int, d: int):
+    """#6's bound on ``rows`` rows of ``nlev`` levels, k and v ``d``
+    wide: each row reads its new k and v and its t, writes one row of
+    every level and reads the sibling of every level but the last (whose
+    carry nothing takes), where the pair's mean and sum are taken."""
+    nbytes = 4 * (2 * rows * d + rows + rows * (2 * nlev + 2 * (nlev - 1))
+                  * d)
+    return bound(nbytes, rows * (nlev - 1) * 2 * d)
+
+
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Median device time of one call, from CUDA events."""
     for _ in range(warmup):
@@ -516,8 +526,7 @@ def phase_kernels(dev):
             raise AssertionError("update_cache_fused is not bit-exact "
                                  "against update_cache_ref")
     nlev = 1 + len(cache.ck)
-    nbytes = f4 * (2 * R * D + R + R * nlev * 2 * 2 * D)
-    bms, by = bound(nbytes, R * nlev * 2 * D)
+    bms, by = update_bound(R, nlev, D)
     rows.append(dict(
         name="update_cache_fused", route="cuda",
         source="src/repro_torch/kernels/csrc/h1d_decode.cu",
@@ -1387,10 +1396,12 @@ def phase_sp_kernels(dev):
              f"their merge")]
     upd = (clone(sh, nsh), kn, vn, tabs.t_loc[s], tabs.upd_owned[s])
     # owner rows read their new row and one sibling and write one row a
-    # level; every row's carry is written
+    # level; a non-owner row's carry is its last level's pair, as stored;
+    # every row's carry is written
     own = int(tabs.upd_owned[s].sum())
-    nbytes = f4 * (2 * own * D + 2 * R + own * nsh * 2 * 2 * D + 2 * R * D)
-    bms, by = bound(nbytes, own * nsh * 2 * D)
+    nbytes = f4 * (2 * own * D + 2 * R + own * nsh * 2 * 2 * D
+                   + (R - own) * 2 * 2 * D + 2 * R * D)
+    bms, by = bound(nbytes, (own * nsh + R - own) * 2 * D)
     rows.append(dict(
         name="update_cache_partial", route="cuda",
         source="src/repro_torch/kernels/csrc/h1d_decode.cu",
@@ -1422,8 +1433,7 @@ def phase_sp_kernels(dev):
             raise AssertionError("update_cache_fused on the SP deep tail is "
                                  "not bit-exact against update_cache_ref")
     ndeep = 1 + len(da.ck)
-    nbytes = f4 * (2 * R * D + R + R * ndeep * 2 * 2 * D)
-    bms, by = bound(nbytes, R * ndeep * 2 * D)
+    bms, by = update_bound(R, ndeep, D)
     deep_args = (da, kn, vn, tabs.t_deep)
     rows.append(dict(
         name="update_cache_fused[sp_deep]", route="cuda",
@@ -1434,7 +1444,7 @@ def phase_sp_kernels(dev):
         device_ms=device_ms(lambda: dk.update_cache_fused(*deep_args)),
         plain_ms=time_ms(lambda: dk.update_cache_ref(db, kn, vn,
                                                      tabs.t_deep)),
-        bound_ms=bms, bound_by=by, library_ms=None,
+        bound_ms=bms, bound_by=by, library_ms=None, nlev=ndeep,
         note=f"#6 on the replicated deep tail at d={d}: {ndeep} of {nlev} "
              f"levels ({da.k.shape[1]} rows) at t_deep; launches: every "
              f"SP launch of #6"))
@@ -1491,10 +1501,13 @@ def phase_sp_prefill(cfg, params, fns, reqs, dev):
         f"{worst:.3g} (<= {CACHE_TOL})")
 
 
-def phase_sp_serve(cfg, params, fns, reqs, dense_stats, dev):
+def phase_sp_serve(cfg, params, fns, reqs, dense_stats, deep_levels, dev):
     """Phase 4's requests through sequence-parallel engines: (b) d=4 with
     8 slots, (c) d=2 on the first 4 requests, (d) d=4 with one slot on
-    the first.  Returns the launches of the three runs summed."""
+    the first.  Returns the launches of the three runs summed, #6's under
+    ``update_cache_fused[sp_deep]``: SP serving runs #6 on the replicated
+    deep tail alone, which must have the ``deep_levels`` levels that row
+    timed."""
     from repro_torch import kernels
     from repro_torch.core import hierarchy as hc
     from repro_torch.launch.mesh import make_mesh
@@ -1523,13 +1536,18 @@ def phase_sp_serve(cfg, params, fns, reqs, dense_stats, dev):
         outs, stats, counts = run_engine(
             eng, [(r.uid, r.prompt) for r in rs], fns)
         # #6 runs on the replicated deep levels, which d=2 does not have
-        deep = (sp.sp_sharded_levels(LMAX, cfg.nr, d)
-                < hc.num_levels(LMAX, cfg.nr))
+        ndeep = (hc.num_levels(LMAX, cfg.nr)
+                 - sp.sp_sharded_levels(LMAX, cfg.nr, d))
         missing = [k for k in kernels.SP_SERVE_KERNELS if counts[k] == 0
-                   and (deep or k != "update_cache_fused")]
+                   and (ndeep or k != "update_cache_fused")]
         if missing or counts["decode_attend_fused"]:
             raise AssertionError(f"sp {name}: kernels {missing} not launched "
                                  f"or #5 launched: {counts}")
+        if counts["update_cache_fused"] and ndeep != deep_levels:
+            raise AssertionError(f"sp {name}: #6 ran on a {ndeep}-level deep "
+                                 f"tail, its row times {deep_levels}")
+        counts["update_cache_fused[sp_deep]"] = counts.pop(
+            "update_cache_fused")
         if not sp.DISPATCHES.get("h1d_attention"):
             raise AssertionError(f"sp {name}: no prefill ran sharded")
         bad = [u for u in outs if u in guarded and outs[u] != want[u]]
@@ -1836,13 +1854,16 @@ def main() -> int:
     rows = (phase_kernels(dev) + phase_mode_kernels(dev)
             + phase_paged_kernels(dev) + phase_bwd_kernels(dev))
     t_sp = time.perf_counter()
-    rows += phase_sp_kernels(dev)
+    sp_rows = phase_sp_kernels(dev)
+    rows += sp_rows
     sp_s = time.perf_counter() - t_sp
     cfg, params, fns, reqs, serve_counts, serve_stats = phase_serve(dev)
     phase_logits(cfg, params, fns, reqs, dev)
     paged_counts = phase_paged_serve(cfg, params, fns, dev)
     t_sp = time.perf_counter()
-    sp_counts = phase_sp_serve(cfg, params, fns, reqs, serve_stats, dev)
+    sp_counts = phase_sp_serve(
+        cfg, params, fns, reqs, serve_stats,
+        next(r["nlev"] for r in sp_rows if "nlev" in r), dev)
     sp_s += time.perf_counter() - t_sp
     log(f"phase sp took {sp_s:.1f}s (kernel rows and serving)")
     del params, fns, reqs
@@ -1857,12 +1878,6 @@ def main() -> int:
                    "train": train_counts.get(key, 0),
                    "lra": lra_counts.get(key, 0),
                    "coarse_q_train": cq_counts.get(key, 0)}
-        if key == "update_cache_fused":
-            # SP serving runs #6 on the replicated deep tail alone: those
-            # launches are the [sp_deep] row's
-            by_path["sp"] = 0
-        elif key == "update_cache_fused[sp_deep]":
-            by_path["sp"] = sp_counts.get("update_cache_fused", 0)
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         row["kernel_ms"] = row["ms"]

@@ -35,23 +35,16 @@ stay in registers until the last stamp, where thread 0 stores them.
   (warp 0, key slot 0): t and bidx in hand, the key copies, the table and
   the value copies, setup; per chunk of its warp the wait for the keys,
   the scores, the sync; the max, the wait for the values, the weights,
-  the keys of a @ v, the warp's reduction, the sync; the combine;
-  a source without it (``--csrc`` of an older tree) is stamped in its
-  ``decode_attend_kernel``: start, scores, max and den, a @ v and end.
+  the keys of a @ v, the warp's reduction, the sync; the combine.
 * ``decode_paged_quant``: #8 (``h1d_decode_attend_paged_quant``) at the
   same shapes on an int8 pool (every level int8, rows quantized per row
-  from seeded normals), stamped in the staged body as above; a source
-  whose #8 still runs ``decode_attend_kernel`` (``launch_attend<
-  ADDR_PAGED, true>``) is stamped there.
+  from seeded normals), stamped in the staged body as above.
 * ``update_paged_quant``: #10 (``h1d_update_cache_paged_quant``) on that
   int8 pool with ``chip_smoke.py``'s update tables (private write pages,
   2 inactive slots on TRASH), ``update_cache_quant_kernel``: t and utab
   read and every level's pair copy issued, the pairs staged, the carry
   chain over the levels (pass A), the scales and the block's sync (B),
-  thread 0's share of the requantize and stores (C);
-  a source with the older body (a block absmax by ``atomicMax``) is
-  stamped per level: the pair loaded, the block absmax, the requantize
-  and stores, the carry and end.
+  thread 0's share of the requantize and stores (C).
 * ``update_dense``: #6 (``h1d_update_cache``) on ``chip_smoke.py``'s
   dense cache (R=64, Lmax 2048, d=64, nr=16, 7 levels) at seeded
   positions, then on the one level the SP deep tail updates at d=4 (32
@@ -59,17 +52,14 @@ stay in registers until the last stamp, where thread 0 stores them.
   (``h1d_update_cache_partial``) on shard 3's 6 sharded levels of that
   cache split 4 ways.  ``update_chain_kernel``: t (and owned) read,
   every level's pair copy issued, the pairs landed, the carry chain with
-  its stores, the carry; a source with the older body
-  (``update_cache_kernel<PAGED, PARTIAL>``) is stamped per level: t
-  read, the sibling loaded, the store and carry, end.  Where a phase
-  ends on loaded values, the stamp first waits for them (a compare of
-  the values that guards a store to ``g_sink``), so that it marks their
-  arrival, not their issue.
+  its stores, the carry.  Where a phase ends on loaded values, the stamp
+  first waits for them (a compare of the values that guards a store to
+  ``g_sink``), so that it marks their arrival, not their issue.
 
 ``--csrc DIR`` stamps the sources in DIR instead of this package's
-(e.g. a parent commit's, to compare the two in one call).  The stamps
-are inserted at fixed lines of the sources; the script fails if one is
-not found.  Needs a CUDA card and ``nvcc``.
+(e.g. a variant of the kernel, to compare the two in one call).  The
+stamps are inserted at fixed lines of the sources, this tree's; the
+script fails if one is not found.  Needs a CUDA card and ``nvcc``.
 """
 from __future__ import annotations
 
@@ -95,8 +85,7 @@ MAX_CTAS = 1 << 17
 
 # Per instrumented kernel: its stamp array, its phases (the name of the
 # phase that ends at each stamp; stamp 0 is the start) and the anchors
-# (text of the source, or a tuple of texts of which the first found is
-# used (this tree's and an older one's), stamp, where: "after" the text,
+# (text of the source, stamp, where: "after" the text,
 # "before" it or at an offset into it, and optionally code run before
 # the stamp: a wait for the values the phase ends on).
 SUB_BWD = dict(
@@ -200,28 +189,12 @@ ATTEND_STAGED = dict(
         ("          mbar_wait(bar + s, parity_of(nch + c));\n          const "
          "float* vb = ring + (size_t)s * p.slot + cv * VW;\n", 9, "after"),
         ("            const int jn = min(32, ch.n - jb);\n", 10, "before"),
-        (("            else values(std::false_type{});\n",
-          "                  acc[i].x[e] = fmaf(aj, v.x[e], acc[i].x[e]);\n"
-          "              }\n            }\n"), 11, "after"),
+        ("            else values(std::false_type{});\n", 11, "after"),
         ("#pragma unroll\n      for (int i = 0; i < GC; ++i) {\n        "
          "const float d = warp_sum(dn[i]);", 12, "before"),
         ("  __syncthreads();\n  // output partials done\n", 13, "after"),
         ("      for (int e = 0; e < VW; ++e) acc.x[e] /= fmaxf(den, 1e-9f);\n"
          "      acc.store(dst);\n    }\n  }\n", 14, "after"),
-    ])
-# the attend body before the staged one (#5/#7/#8/#11 in one template in
-# older trees, later #5/#8 alone)
-ATTEND_OLD = dict(
-    name="decode_attend_kernel", array="g_att",
-    phases=("start", "q, scores", "max, den", "a @ v, end"),
-    anchors=[
-        ("  for (int e = threadIdx.x; e < G * D; e += blockDim.x)\n    "
-         "q_s[e] = q[(size_t)r * G * D + e] * scale;\n", 0, "before"),
-        ("      s_s[g * K + kk] = mask ? acc : NEG_INF;\n    }\n  }\n  "
-         "__syncthreads();\n", 1, "after"),
-        ("  __syncthreads();\n\n  for (int o = threadIdx.x; o < G * Dv; "
-         "o += blockDim.x) {\n", 2, len("  __syncthreads();\n")),
-        ("acc / fmaxf(den_s[g], 1e-9f);\n  }\n", 3, "after"),
     ])
 # #10 with every level's pairs staged before the chain, in three passes
 UPDATE_QUANT = dict(
@@ -230,28 +203,13 @@ UPDATE_QUANT = dict(
             "A: carry chain", "B: scales, sync", "C: requantize, end"),
     anchors=[
         ("  const bool is_k = warp % 2 == 0;\n", 0, "before"),
-        ('    asm volatile("cp.async.wait_all;" ::: "memory");\n', 1,
-         "before"),
+        ('    asm volatile("cp.async.wait_all;" ::: "memory");\n'
+         "    __syncwarp();\n", 1, "before"),
         ('    asm volatile("cp.async.wait_all;" ::: "memory");\n'
          "    __syncwarp();\n", 2, "after"),
         ("    __syncwarp();\n\n    // B: lane l", 3, "before"),
         ("  // C: this part's int8 levels requantized", 4, "before"),
         ("    l = ln;\n  }\n}\n", 5, len("    l = ln;\n  }\n")),
-    ])
-# #10's body before it: one level a memory round trip, a block absmax
-UPDATE_QUANT_OLD = dict(
-    name="update_cache_quant_kernel", array="g_upd",
-    phases=("start", "L: pair loaded", "L: block absmax",
-            "L: quantize, store", "L: carry, end"),
-    anchors=[
-        ("  float carry = 0.f;\n  if (live)\n", 0, "before"),
-        ("      if (sel) x1 = carry; else x0 = carry;\n    }\n", 1, "after"),
-        ("        if (lane == 0) atomicMax(&amax_s[i], __float_as_uint(m));\n"
-         "      }\n      __syncthreads();\n", 2, "after"),
-        ("      __syncthreads();               // amax_s is reset at the "
-         "next level\n", 3, "after"),
-        ("    carry = is_k ? __fmul_rn(__fadd_rn(x0, x1), 0.5f) : "
-         "__fadd_rn(x0, x1);\n  }\n", 4, "after"),
     ])
 # #6 / #12: every level's pair staged before the carry chain
 UPDATE_CHAIN = dict(
@@ -273,25 +231,6 @@ UPDATE_CHAIN = dict(
          "if (carry == 1.5e-38f) g_sink = 1;\n"),
         ("    if (PARTIAL) (is_k ? carry_k : carry_v)[(size_t)r * W + col] "
          "= carry;\n  }\n", 5, "after"),
-    ])
-# #6 / #12 before it: update_cache_kernel<PAGED, PARTIAL>, one memory
-# round trip a level
-UPDATE_OLD = dict(
-    name="update_cache_kernel", array="g_upd",
-    phases=("start", "t read", "L: sibling loaded", "L: store, carry",
-            "end"),
-    anchors=[
-        ("  const int t = tpos[r];\n  const bool own = !PARTIAL || "
-         "owned[r] != 0;\n", 0, "before"),
-        ("  const bool own = !PARTIAL || owned[r] != 0;\n", 1, "after",
-         "if ((t ^ (int)own) == -7) g_sink = 1;\n"),
-        ("      const float other = base[(size_t)(1 - sel) * width];\n", 2,
-         "after", "if (other == 1.5e-38f) g_sink = 1;\n"),
-        ("        carry = is_k ? __fmul_rn(__fadd_rn(lo, hi), 0.5f) : "
-         "__fadd_rn(lo, hi);\n      }\n", 3, "after",
-         "if (carry == 1.5e-38f) g_sink = 1;\n"),
-        ("    if (PARTIAL) (is_k ? carry_k : carry_v)[(size_t)r * width + "
-         "col] = carry;\n  }\n", 4, "after"),
     ])
 TARGETS = {"sub_bwd": ("h1d_block_bwd", [SUB_BWD]),
            "band_fwd": ("h1d_block", [BAND_FWD]),
@@ -336,8 +275,6 @@ def instrumented_source(src: str, specs) -> str:
     src = src.replace("namespace {\n", head + "namespace {\n", 1)
     for spec in specs:
         for line, k, where, *wait in spec["anchors"]:
-            if isinstance(line, tuple):
-                line = next((x for x in line if src.count(x) == 1), line[0])
             if src.count(line) != 1:
                 raise RuntimeError(f"{spec['name']}: anchor for stamp {k} "
                                    f"found {src.count(line)} times: "
@@ -364,16 +301,6 @@ def build(kernel: str, csrc: Path):
     ``csrc``, and the specs it was stamped with."""
     stem, specs = TARGETS[kernel]
     src = (csrc / f"{stem}.cu").read_text()
-    if kernel.startswith("decode_") and "attend_staged_kernel" not in src:
-        specs = [ATTEND_OLD]
-    if kernel == "decode_paged_quant" and "launch_attend<ADDR_PAGED, true>" \
-            in src:
-        specs = [ATTEND_OLD]
-    if kernel == "update_paged_quant" and "atomicMax(&amax_s" in src:
-        specs = [UPDATE_QUANT_OLD]
-    if kernel in ("update_dense", "update_partial") and \
-            "update_chain_kernel" not in src:
-        specs = [UPDATE_OLD]
     out = _build.BUILD_DIR / f"phases_{kernel}"
     out.mkdir(parents=True, exist_ok=True)
     (out / f"{stem}.cu").write_text(instrumented_source(src, specs))
@@ -383,10 +310,9 @@ def build(kernel: str, csrc: Path):
                     str(out / f"{stem}.cu")], check=True)
     lib = ctypes.CDLL(str(lib_path))
     for fn, argtypes in SIGNATURES[stem].items():
-        f = getattr(lib, fn, None)      # an older source may lack one
-        if f is not None:
-            f.argtypes = argtypes
-            f.restype = ctypes.c_int
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
     for i in range(len(specs)):
         getattr(lib, f"read_stamps{i}").argtypes = [ctypes.c_void_p,
                                                     ctypes.c_int]

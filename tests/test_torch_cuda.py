@@ -1115,13 +1115,14 @@ def test_sp_partial_kernels_match_plain(dev, d, Lmax, nr, G, D, Dv):
 
 @pytest.mark.parametrize("d", [2, 4])
 @pytest.mark.parametrize("Lmax,nr,D,Dv", [
-    (2048, 16, 64, 64), (256, 8, 5, 7), (512, 16, 40, 24)])
+    (2048, 16, 64, 64), (256, 8, 5, 7), (512, 16, 40, 24), (64, 16, 8, 5)])
 def test_update_partial_bit_exact(dev, d, Lmax, nr, D, Dv):
     """#12 on every shard's sharded levels over 5 chained ticks, each row
     near a mask, pair or shard edge (position base - 2 .. base + 2,
     clamped to [0, Lmax]): the slabs and every row's carries (owner and
     non-owner rows) bit-exact against the plain version, with t_loc past
-    Lloc on the shards left of a row's owner."""
+    Lloc on the shards left of a row's owner.  (64, 16) at d = 4 shards
+    one level."""
     from repro_torch.parallel import sp_attention as sp
 
     gen = torch.Generator(device=dev).manual_seed(Lmax + 10 * d)

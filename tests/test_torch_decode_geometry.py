@@ -73,11 +73,18 @@ def _paged(levels):
                              cv=tuple(map(jnp.asarray, v[1:])))
 
 
+def _jax_copy(a):
+    """A JAX array of its own: ``jnp.asarray`` may share a numpy array's
+    memory on the CPU, and the update mirrors write theirs in place while
+    the JAX call dispatched before them may still be reading."""
+    return jnp.asarray(np.array(a, copy=True))
+
+
 def _slab(levels):
     k, v = zip(*levels)
-    return jhd.H1DCache(k=jnp.asarray(k[0]), v=jnp.asarray(v[0]),
-                        ck=tuple(map(jnp.asarray, k[1:])),
-                        cv=tuple(map(jnp.asarray, v[1:])))
+    return jhd.H1DCache(k=_jax_copy(k[0]), v=_jax_copy(v[0]),
+                        ck=tuple(map(_jax_copy, k[1:])),
+                        cv=tuple(map(_jax_copy, v[1:])))
 
 
 def _one_band_tables(Lmax, nb):
@@ -163,10 +170,10 @@ def _quant_pool(levels, scales):
     scales."""
     k, v = zip(*levels)
     ks, vs = zip(*scales)
-    a = functools.partial(map, jnp.asarray)
+    a = functools.partial(map, _jax_copy)
     return jhd.QuantPagedH1DCache(
-        k=jnp.asarray(k[0]), v=jnp.asarray(v[0]), ck=tuple(a(k[1:])),
-        cv=tuple(a(v[1:])), ksc=jnp.asarray(ks[0]), vsc=jnp.asarray(vs[0]),
+        k=_jax_copy(k[0]), v=_jax_copy(v[0]), ck=tuple(a(k[1:])),
+        cv=tuple(a(v[1:])), ksc=_jax_copy(ks[0]), vsc=_jax_copy(vs[0]),
         cksc=tuple(a(ks[1:])), cvsc=tuple(a(vs[1:])))
 
 
