@@ -34,10 +34,11 @@ Phases (each raises on failure; nothing is caught):
    nr=16, max_len 2048, pools of 1024+2 pages x 8 heads at every level,
    seeded page tables with private write pages and two inactive slots on
    the TRASH page; an fp32 pool, an int8 pool with every level
-   quantized and a mixed pool (``quant_levels=3``); #7's and #8's bounds
-   count the key and value rows their band masks let through (#8, timed
-   on the int8 pool: int8 rows and their scales;
-   ``bound_all_rows_ms``: every band's rows);
+   quantized and a mixed pool (``quant_levels=3``); #5's (on a dense
+   cache of the same 64 rows), #7's and #8's bounds count the key and
+   value rows their band masks let through (#8, timed on the int8 pool:
+   int8 rows and their scales; ``bound_all_rows_ms``: every band's
+   rows);
 4. serve the paper LM ``h1d-lm-53m`` at full width (seeded random
    weights) with ``ServeEngine(slots=8, max_len=2048)``: 16 requests with
    seeded prompt lengths in 64..1500 and 32 greedy tokens each; every
@@ -189,13 +190,14 @@ def bound(nbytes: float, flops: float):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
-def update_bound(rows: int, nlev: int, d: int):
-    """#6's bound on ``rows`` rows of ``nlev`` levels, k and v ``d``
-    wide: each row reads its new k and v and its t, writes one row of
-    every level and reads the sibling of every level but the last (whose
-    carry nothing takes), where the pair's mean and sum are taken."""
-    nbytes = 4 * (2 * rows * d + rows + rows * (2 * nlev + 2 * (nlev - 1))
-                  * d)
+def update_bound(rows: int, nlev: int, d: int, extra: int = 0):
+    """#6's (and #9's) bound on ``rows`` rows of ``nlev`` levels, k and v
+    ``d`` wide: each row reads its new k and v and its t, writes one row
+    of every level and reads the sibling of every level but the last
+    (whose carry nothing takes), where the pair's mean and sum are taken;
+    ``extra`` bytes beside (#9's page table)."""
+    nbytes = extra + 4 * (2 * rows * d + rows + rows * (
+        2 * nlev + 2 * (nlev - 1)) * d)
     return bound(nbytes, rows * (nlev - 1) * 2 * d)
 
 
@@ -495,10 +497,15 @@ def phase_kernels(dev):
     err, *_ = compare("decode_attend_fused", [ker], [ref], ATTN_TOL)
     Md = hc.num_levels(LMAX, NR)
     K = (Md + 1) * NR
-    nbytes = f4 * (R * K * 2 * D + qd.numel() + R + R * G * D)
-    bms, by = bound(nbytes, R * G * K * (4 * D + 4))
+    small = f4 * (qd.numel() + R + R * G * D)
+    # the keys the band masks let through, each key and value row read
+    # once, as #7's bound counts them; every band's rows beside it
+    keys = partial_keys(t, None, Md)
+    bms, by = bound(keys * 2 * D * f4 + small, keys * G * (4 * D + 4))
     rows.append(dict(
-        name="decode_attend_fused", route="cuda",
+        bound_all_rows_ms=bound(R * K * 2 * D * f4 + small,
+                                R * G * K * (4 * D + 4))[0],
+        live_keys=keys, name="decode_attend_fused", route="cuda",
         source="src/repro_torch/kernels/csrc/h1d_decode.cu",
         replaces="src/repro/kernels/h1d_decode_kernel.py:154",
         max_abs_err=err,
@@ -713,13 +720,12 @@ def phase_paged_kernels(dev):
             del a, b
         label, pool = pools[0]
         if name == "update_cache_paged":
-            # sibling row read, selected row written, per level
-            per_row = M * 2 * 2 * D * 4
+            bms, by = update_bound(R, M, D, extra=4 * utab.numel())
         else:
             # pair (and its two scales) read and rewritten, per level
             per_row = M * 2 * (2 * 2 * D + 2 * 2 * 4)
-        bms, by = bound(4 * (2 * R * D + R + utab.numel()) + R * per_row,
-                        R * M * 2 * D * 8)
+            bms, by = bound(4 * (2 * R * D + R + utab.numel())
+                            + R * per_row, R * M * 2 * D * 8)
         rows.append(dict(
             name=name, route="cuda",
             source="src/repro_torch/kernels/csrc/h1d_decode.cu",

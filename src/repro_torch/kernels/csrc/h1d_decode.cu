@@ -17,26 +17,25 @@
 // t[r], its own level-0 block (causal), the previous level-0 block, and
 // one coarse block I_l - 1 per level l = 1..M-1 under the quadrant mask,
 // with weight 2^l in the denominator only.  One max over all bands, then
-// o = (a @ v) / max(a . w, 1e-9).  Two bodies compute it:
-//   * decode_attend_kernel (#5, dense slabs): one CTA per row, each thread
-//     scores whole keys from device memory; `band_row` reads block (row,
-//     level, block) of the row's own slab, clamped as the TPU kernel's
-//     index maps are.
-//   * attend_staged_kernel<ADDR, VW> (#7 ADDR_PAGED, #11 ADDR_LOCAL, #8
-//     ADDR_QPAGED): each live band's block is one contiguous run of rows
-//     (page bidx[r, band] of the pool, or block bidx[r, band] of the row's
-//     slab in one shard's level array, whose row count per level the
-//     caller passes: a sharded level holds (Lmax >> l) / d rows, a
-//     replicated one Lmax >> l), staged in shared memory by bulk copies
-//     before any compute.  #11 also masks each band by its ownership bit
-//     owned[r, band] and writes the unnormalised partial num = a @ v, den =
-//     a . w and m = max(rowmax, -1e30) for the cross-shard merge; t stays
-//     global, so every mask compares global positions.  #8's int8 bands
-//     stage their int8 rows with the block's run of per-row scales in the
-//     slot an f32 block takes, and are dequantized on the read from shared
-//     memory (float(q) * scale, rounded, then the fmaf, as the plain
-//     version orders it); fp32 levels of a mixed pool take the f32 path in
-//     the same launch and never read their scales.
+// o = (a @ v) / max(a . w, 1e-9).  One body computes it for all four
+// attends, attend_staged_kernel<ADDR, VW> (#5 ADDR_DENSE, #7 ADDR_PAGED,
+// #11 ADDR_LOCAL, #8 ADDR_QPAGED): each live band's block is one
+// contiguous run of rows (#5: the block the TPU kernel's index maps name
+// from t alone, clamped into the level, of the row's own slab, whose
+// Lmax >> l rows a level the caller passes; #7, #8: page bidx[r, band] of
+// the pool; #11: block bidx[r, band] of the row's slab in one shard's
+// level array, whose row count per level the caller passes: a sharded
+// level holds (Lmax >> l) / d rows, a replicated one Lmax >> l), staged
+// in shared memory by bulk copies before any compute.  #11 also masks
+// each band by its ownership bit owned[r, band] and writes the
+// unnormalised partial num = a @ v, den = a . w and m = max(rowmax,
+// -1e30) for the cross-shard merge; t stays global, so every mask
+// compares global positions.  #8's int8 bands stage their int8 rows with
+// the block's run of per-row scales in the slot an f32 block takes, and
+// are dequantized on the read from shared memory (float(q) * scale,
+// rounded, then the fmaf, as the plain version orders it); fp32 levels of
+// a mixed pool take the f32 path in the same launch and never read their
+// scales.
 //
 // update_cache: per level l = 0..nlev-1 the token's ancestor t >> l sits
 // in one sibling pair at row (t >> l) & 1; that row takes the carried
@@ -62,7 +61,9 @@
 // TRASH page, so several CTAs may write the same TRASH rows; the TPU ran
 // them one after another, here they race.  Outputs do not depend on it:
 // every band that reads TRASH is masked (weight 0, exp(NEG_INF - m) = 0)
-// and the racing writes are whole finite values.  Every other write
+// and the racing writes are whole finite values (#9 and #10 read every
+// level's TRASH pair before their first store, so which garbage lands
+// there depends on the order the CTAs run in).  Every other write
 // target is private to one cache row (the engine copies shared pages on
 // write and allocates fresh ones before the tick).
 //
@@ -71,21 +72,20 @@
 // MB in all (int8: a quarter), and update touches ~2*nlev rows per row,
 // well under 1 MB: a few microseconds of memory traffic, so each launch
 // is bound by its launch latency and the chain of dependent steps inside
-// one CTA.  The old attend body (#5) is that chain: every thread scores
-// whole keys (dot over D from device memory), the max and the
-// denominator are warp reductions, and each output column walks every
-// key through a pointer read, a load and an fmaf.
-// The staged body (#7, #8, #11) cuts the chain to three memory round trips
-// (the first parameter read, t and bidx, one bulk copy) and a few
-// shared-memory steps: warp 0 reads t, bidx and owned, keeps of each band
-// only the prefix of rows its mask lets through (band 0 the rows up to
-// t, a coarse band in its first quadrant the first half, nothing of a
-// band masked whole or not owned) and, with everything resident, issues
-// every live band's key copy, then its value copy (cp.async.bulk onto
-// one mbarrier per slot, an int8 block's rows and scales as two copies on
-// one arrival; where a block is not 16-byte aligned, 4-byte cp.async of
-// f32 rows or plain loads of int8 ones), so the values arrive while the
-// keys are scored.  One warp per
+// one CTA.
+// The staged attend body cuts that chain to three memory round trips
+// (the first parameter read, t and bidx, one bulk copy; #5 reads no
+// bidx, its blocks follow from t) and a few shared-memory steps: warp 0
+// reads t, bidx and owned, keeps of each band only the prefix of rows its
+// mask lets through (band 0 the rows up to t, a coarse band in its first
+// quadrant the first half, nothing of a band masked whole or not owned;
+// #5's two level-0 bands name one block while t < nr, and band 1 is then
+// masked whole, so nothing is staged twice) and, with everything
+// resident, issues every live band's key copy, then its value copy
+// (cp.async.bulk onto one mbarrier per slot, an int8 block's rows and
+// scales as two copies on one arrival; where a block is not 16-byte
+// aligned, 4-byte cp.async of f32 rows or plain loads of int8 ones), so
+// the values arrive while the keys are scored.  One warp per
 // band (or chunk of rows): scores with a few lanes per key and float4
 // loads, the vector order rotated per key so that the keys of a quarter
 // warp hit distinct banks, each key vector reused across up to 4 query
@@ -102,13 +102,13 @@
 // chain (int8), and are bound by the same latency: every level's pair
 // sits where t (and utab[r]) alone say, and within one call no two
 // levels share storage, so reading every pair before the first store
-// changes no bit.  #6 and #12 run update_chain_kernel<PARTIAL>: t (and
-// owned) read, both rows of every level's pair put in flight at once
-// (cp.async into shared memory), then the carry chain and its stores:
-// two memory round trips before the chain, where a walk of the levels
-// costs one a level.  #9
-// still walks them (update_cache_kernel: its TRASH rows race between
-// CTAs).  #10 (update_cache_quant_kernel) puts every level's pair (and
+// changes no bit.  The three f32 updates, #6, #12 and #9, run
+// update_chain_kernel<ADDR> (ADDR_DENSE, ADDR_LOCAL, ADDR_PAGED): t (and
+// owned, or the row's page table utab[r, :]) read, both rows of every
+// level's pair put in flight at once (cp.async into shared memory), then
+// the carry chain and its stores: two memory round trips before the
+// chain, where a walk of the levels costs one a level.  #10
+// (update_cache_quant_kernel) puts every level's pair (and
 // scales) in flight at once into shared memory, and then runs the chain
 // with no memory round trip between levels: one warp per chain (k or v;
 // the two never meet), C columns a lane; the carry chain itself is a
@@ -134,16 +134,16 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr float QMAX = 127.0f;
 constexpr float RECIP_QMAX = (float)(1.0 / 127.0);
 constexpr float QEPS = (float)1e-12;
-// addressors of the staged attend body: a paged pool of f32 levels (#7),
-// one shard's slab (#11), a paged pool whose levels may be int8 (#8)
-constexpr int ADDR_PAGED = 1, ADDR_LOCAL = 2, ADDR_QPAGED = 3;
+// addressors: a paged pool of f32 levels (#7, #9), one shard's slab (#11,
+// #12), a paged pool whose levels may be int8 (#8), dense slabs (#5, #6)
+constexpr int ADDR_PAGED = 1, ADDR_LOCAL = 2, ADDR_QPAGED = 3, ADDR_DENSE = 4;
 
 struct Levels {            // every level l = 0..nlev-1, level 0 = fine
   const void* k[MAXLEV];
   const void* v[MAXLEV];
   const float* ksc[MAXLEV];   // per-row scales of int8 levels
   const float* vsc[MAXLEV];
-  int rows[MAXLEV];           // LOCAL: rows of level l in a shard's slab
+  int rows[MAXLEV];           // LOCAL, DENSE: rows of level l in a slab
   unsigned qmask;             // bit l set: level l stores int8 rows
 };
 
@@ -170,18 +170,15 @@ __device__ __forceinline__ int band_level(int band) {
   return band < 2 ? 0 : band - 1;
 }
 
-// Row, in its level's (R, Lmax >> l, width) array, of key j of `band`
-// for cache row r at position t (#5's dense slabs).
-__device__ __forceinline__ size_t band_row(int r, int band, int j, int t,
-                                           int Lmax, int nr) {
-  const int l = band_level(band);
-  const int Ll = Lmax >> l;
-  const int nbl = Ll / nr;
-  int blk;
-  if (band == 0) blk = min(max(t / nr, 0), nbl - 1);
-  else if (band == 1) blk = max(t / nr - 1, 0);
-  else blk = min(max(t / (nr << l) - 1, 0), nbl - 1);
-  return (size_t)r * Ll + (size_t)blk * nr + j;
+// Block of `band` that a dense slab of nbl blocks a level holds for a row
+// at position t, from b0 = t / nr (#5): the TPU kernel's index maps,
+// clamped into the level, with t / (nr << l) = b0 >> l (band 0 at t =
+// Lmax reads the last block, of which band_rows counts one row, as the
+// plain version does).
+__device__ __forceinline__ int dense_block(int band, int b0, int nbl) {
+  if (band == 0) return min(b0, nbl - 1);
+  if (band == 1) return max(b0 - 1, 0);
+  return min(max((b0 >> (band - 1)) - 1, 0), nbl - 1);
 }
 
 // Rows of `band` that count for a row at position t: a prefix of the
@@ -208,130 +205,8 @@ __device__ __forceinline__ float* dense_pair(const MutLevels& lv, bool is_k,
          ((size_t)r * Ll + 2 * (size_t)pair) * W;
 }
 
-// #5 on dense slabs; out: normalised (R, G, Dv).
-__global__ void __launch_bounds__(THREADS)
-decode_attend_kernel(const float* __restrict__ q, Levels lv,
-                     const int* __restrict__ tpos, float* __restrict__ out,
-                     int G, int Lmax, int D, int Dv, int nr, int nlev,
-                     float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int r = blockIdx.x;
-  const int t = tpos[r];
-  const int nbands = nlev + 1;
-  const int K = nbands * nr;
-  // value rows as pointers (a row index multiply per key serializes the
-  // loads of the dependent fmaf chain and ran markedly slower)
-  const float** vrow = reinterpret_cast<const float**>(smem);   // (K,)
-  float* q_s = reinterpret_cast<float*>(vrow + K);   // (G, D) scaled query
-  float* s_s = q_s + G * D;          // (G, K) masked scores, then weights a
-  float* w_s = s_s + G * K;          // (K,) band weights, 0 where masked
-  float* den_s = w_s + K;            // (G,)
-
-  for (int e = threadIdx.x; e < G * D; e += blockDim.x)
-    q_s[e] = q[(size_t)r * G * D + e] * scale;
-  __syncthreads();
-
-  const int b0 = t / nr;
-  for (int kk = threadIdx.x; kk < K; kk += blockDim.x) {
-    const int band = kk / nr, j = kk % nr;
-    const int l = band_level(band);
-    const size_t row = band_row(r, band, j, t, Lmax, nr);
-    bool mask;
-    float wgt;
-    if (band == 0) {
-      mask = b0 * nr + j <= t;
-      wgt = 1.f;
-    } else if (band == 1) {
-      mask = b0 >= 1;
-      wgt = 1.f;
-    } else {
-      const int span = nr << l;
-      const int Il = t / span;
-      const bool first_half_q = (t % span) < (span / 2);
-      const bool key_last_half = j >= nr / 2;
-      mask = Il >= 1 && !(first_half_q && key_last_half);
-      wgt = (float)(1 << l);
-    }
-    w_s[kk] = mask ? wgt : 0.f;
-    vrow[kk] = static_cast<const float*>(lv.v[l]) + row * Dv;
-    const float* krow = static_cast<const float*>(lv.k[l]) + row * D;
-    for (int g = 0; g < G; ++g) {
-      const float* qg = q_s + g * D;
-      float acc = 0.f;
-      for (int c = 0; c < D; ++c) acc = fmaf(qg[c], krow[c], acc);
-      s_s[g * K + kk] = mask ? acc : NEG_INF;
-    }
-  }
-  __syncthreads();
-
-  // one warp per group: single max, weights a = exp(s - m), denominator
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int g = warp; g < G; g += blockDim.x / 32) {
-    float* sg = s_s + g * K;
-    float mx = NEG_INF;
-    for (int kk = lane; kk < K; kk += 32) mx = fmaxf(mx, sg[kk]);
-    const float m = fmaxf(warp_max(mx), MIN_M);
-    float den = 0.f;
-    for (int kk = lane; kk < K; kk += 32) {
-      const float a = expf(sg[kk] - m);
-      sg[kk] = a;
-      den = fmaf(a, w_s[kk], den);
-    }
-    den = warp_sum(den);
-    if (lane == 0) den_s[g] = den;
-  }
-  __syncthreads();
-
-  for (int o = threadIdx.x; o < G * Dv; o += blockDim.x) {
-    const int g = o / Dv, c = o % Dv;
-    const float* ag = s_s + g * K;
-    float acc = 0.f;
-    for (int kk = 0; kk < K; ++kk) acc = fmaf(ag[kk], vrow[kk][c], acc);
-    out[(size_t)r * G * Dv + o] = acc / fmaxf(den_s[g], 1e-9f);
-  }
-}
-
-// #9 on a paged pool: a column a thread, the levels in order, each level's
-// pair read after the previous level's store (one memory round trip a
-// level).
-__global__ void update_cache_kernel(const float* __restrict__ knew,
-                                    const float* __restrict__ vnew,
-                                    const int* __restrict__ tpos,
-                                    const int* __restrict__ utab,
-                                    MutLevels lv, int D, int Dv, int nr,
-                                    int nlev) {
-  const int r = blockIdx.x;
-  const int t = tpos[r];
-  for (int c = threadIdx.x; c < D + Dv; c += blockDim.x) {
-    const bool is_k = c < D;
-    const int col = is_k ? c : c - D;
-    const int width = is_k ? D : Dv;
-    float carry = is_k ? knew[(size_t)r * D + col] : vnew[(size_t)r * Dv + col];
-    for (int l = 0; l < nlev; ++l) {
-      const size_t row0 = (size_t)utab[(size_t)r * nlev + l] * nr +
-                          2 * (size_t)((t >> (l + 1)) & (nr / 2 - 1));
-      const int sel = (t >> l) & 1;
-      float* base = static_cast<float*>(is_k ? lv.k[l] : lv.v[l]) +
-                    row0 * width + col;
-      const float other = base[(size_t)(1 - sel) * width];
-      base[(size_t)sel * width] = carry;
-      if (l + 1 < nlev) {
-        const float lo = sel ? other : carry;
-        const float hi = sel ? carry : other;
-        carry = is_k ? __fmul_rn(__fadd_rn(lo, hi), 0.5f) : __fadd_rn(lo, hi);
-      }
-    }
-  }
-}
-
-size_t attend_smem(int G, int D, int nlev, int nr) {
-  const int K = (nlev + 1) * nr;
-  return (size_t)K * sizeof(void*) +
-         (size_t)(G * D + G * K + K + G) * sizeof(float);
-}
-
 // ---------------------------------------------------------------------------
-// staged attend (#7, #8, #11)
+// staged attend (#5, #7, #8, #11)
 // ---------------------------------------------------------------------------
 
 constexpr int SMEM_LIMIT = 232448;   // shared memory a block may use (H100)
@@ -579,8 +454,10 @@ struct Vec {
 };
 
 // out: normalised (R, G, Dv); LOCAL: the partial num there, den and m
-// (R, G) in den_out / m_out.  bulk: every block 16-byte aligned (the
-// launcher checks the level and scale pointers and the plan's quantum).
+// (R, G) in den_out / m_out.  DENSE reads neither bidx nor owned (null):
+// band b's block follows from t (dense_block).  bulk: every block
+// 16-byte aligned (the launcher checks the level and scale pointers and
+// the plan's quantum).
 // VW = the plan's vw.  QPAGED: level l holds int8 rows where bit l of
 // lv.qmask is set (whole bands, so every branch on it is warp-uniform).
 // The parameters the first warp reads come first, the level pointers
@@ -682,7 +559,7 @@ attend_staged_kernel(const int* __restrict__ tpos,
   // rows, and its value copy after the table.  Every load of t, bidx,
   // owned and the level pointers (nb <= 33: two bands a lane) is issued
   // before the barrier set-up, whose asm the compiler does not move loads
-  // across.
+  // across; DENSE's blocks are arithmetic on t after it.
   if (warp == 0) {
     const int t = tpos[r];
     int blk2[2] = {0, 0}, own2[2] = {1, 1}, lev2[2];
@@ -690,12 +567,12 @@ attend_staged_kernel(const int* __restrict__ tpos,
     const float* vl2[2];
     const float* ks2[2] = {nullptr, nullptr};
     const float* vs2[2] = {nullptr, nullptr};
-    int rows2[2];
+    int rows2[2], nbl2[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int b = h * 32 + lane, l = band_level(min(b, nb - 1));
       if (b < nb) {
-        blk2[h] = bidx[(size_t)r * nb + b];
+        if (ADDR != ADDR_DENSE) blk2[h] = bidx[(size_t)r * nb + b];
         if (ADDR == ADDR_LOCAL) own2[h] = owned[(size_t)r * nb + b];
       }
       lev2[h] = l;
@@ -705,14 +582,18 @@ attend_staged_kernel(const int* __restrict__ tpos,
         ks2[h] = lv.ksc[l];
         vs2[h] = lv.vsc[l];
       }
-      rows2[h] = ADDR == ADDR_LOCAL ? lv.rows[l] : 0;
+      rows2[h] = ADDR == ADDR_LOCAL || ADDR == ADDR_DENSE ? lv.rows[l] : 0;
+      nbl2[h] = ADDR == ADDR_DENSE ? rows2[h] / nr : 0;
     }
     for (int s = lane; s < S; s += 32) mbar_init(bar + s, bulk ? 1 : THREADS);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     __syncwarp();
     int nk = 0, nc = 0, nl = 0;
     for (int b0 = 0; b0 < nb; b0 += 32) {
-      const int h = b0 / 32, b = b0 + lane, blk = blk2[h];
+      const int h = b0 / 32, b = b0 + lane;
+      const int blk = ADDR == ADDR_DENSE
+                          ? dense_block(min(b, nb - 1), t / nr, nbl2[h])
+                          : blk2[h];
       const float* kl = kl2[h];
       const float* vl = vl2[h];
       int tru = 0;
@@ -1022,6 +903,10 @@ int launch_staged(const float* q, const Levels& lv, const int* t,
   if (nlev < 1 || nlev > MAXLEV || R < 1 || G < 1 || D < 1 || Dv < 1 ||
       nr < 1)
     return (int)cudaErrorInvalidValue;
+  if (ADDR == ADDR_LOCAL || ADDR == ADDR_DENSE)   // a block's first row: int
+    for (int l = 0; l < nlev; ++l)
+      if ((long long)R * lv.rows[l] > 0x7fffffff)
+        return (int)cudaErrorInvalidValue;
   const bool quant = ADDR == ADDR_QPAGED && lv.qmask != 0;
   const AttendPlan p = attend_plan(G, D, Dv, nr, nlev, quant);
   if (p.stages < 1) return (int)cudaErrorInvalidValue;
@@ -1300,20 +1185,23 @@ update_cache_quant_kernel(const float* __restrict__ knew,
 }
 
 // ---------------------------------------------------------------------------
-// f32 dense and partial updates (#6, #12)
+// f32 dense, partial and paged updates (#6, #12, #9)
 // ---------------------------------------------------------------------------
 
-// Shared memory a CTA of update_chain_kernel stages its pairs in, at most:
-// the threads are cut to fit it (a column loop takes the rest).
+// Shared memory a CTA of update_chain_kernel stages its pairs (and #9 its
+// page table) in, at most: the threads are cut to fit it (a column loop
+// takes the rest).
 constexpr int CHAIN_SMEM = 48 * 1024;
 
-// #6 (dense slabs) and #12 (PARTIAL: one shard's sharded levels at the
-// shard-local t; only rows with owned[r] != 0 write, and every row's
-// carry past its last level goes to carry_k / carry_v (R, D / Dv)).  One
-// CTA per cache row, a column a thread (k's D columns, then v's Dv).
-// Every level's pair sits where t alone says and no two levels share
-// storage, so, in this order:
-//   1. t (and owned) read, one load each, both in flight;
+// #6 (ADDR_DENSE: dense slabs), #12 (ADDR_LOCAL: one shard's sharded
+// levels at the shard-local t; only rows with owned[r] != 0 write, and
+// every row's carry past its last level goes to carry_k / carry_v (R, D /
+// Dv)) and #9 (ADDR_PAGED: level l's pair on page utab[r, l] of the pool,
+// at pair_in_page).  One CTA per cache row, a column a thread (k's D
+// columns, then v's Dv).  Every level's pair sits where t (and utab[r])
+// alone say and no two levels share storage, so, in this order:
+//   1. t and owned, or t and the row's page table utab[r, :] (one lane a
+//      level, into shared memory, one barrier), read, all in flight;
 //   2. both rows of every level's pair put in flight at once, by
 //      cp.async into the thread's own slots of shared memory, (2 nlev,
 //      T) floats (a non-owner carries the pair as stored);
@@ -1327,26 +1215,41 @@ constexpr int CHAIN_SMEM = 48 * 1024;
 // The level loops stay loops: the chain unrolled into registers
 // (levels to a compile-time bound), level 0 alone in registers, a warp
 // a level for the copies and the stores all ran slower on the card.  No
-// thread reads another's slots, so no barrier.
-template <bool PARTIAL>
+// thread reads another's pair slots.
+template <int ADDR>
 __global__ void __launch_bounds__(1024)
 update_chain_kernel(const float* __restrict__ knew,
                     const float* __restrict__ vnew,
                     const int* __restrict__ tpos,
-                    const int* __restrict__ owned, MutLevels lv, int Lmax,
-                    int D, int Dv, int nlev, float* __restrict__ carry_k,
+                    const int* __restrict__ owned,
+                    const int* __restrict__ utab, MutLevels lv, int Lmax,
+                    int nr, int D, int Dv, int nlev,
+                    float* __restrict__ carry_k,
                     float* __restrict__ carry_v) {
   extern __shared__ __align__(16) float pr[];
   const int r = blockIdx.x, T = blockDim.x, tid = threadIdx.x;
+  int* page = reinterpret_cast<int*>(pr + 2 * nlev * T);   // PAGED: utab[r]
   const int t = tpos[r];
-  const bool own = !PARTIAL || owned[r] != 0;
+  const bool own = ADDR != ADDR_LOCAL || owned[r] != 0;
+  if constexpr (ADDR == ADDR_PAGED) {
+    if (tid < nlev) page[tid] = utab[(size_t)r * nlev + tid];
+    __syncthreads();
+  }
+  // first row of level l's pair in the k (is_k) or v array of width W
+  auto pair = [&](bool is_k, int l, int W) {
+    if constexpr (ADDR == ADDR_PAGED)
+      return static_cast<float*>(is_k ? lv.k[l] : lv.v[l]) +
+             ((size_t)page[l] * nr + pair_in_page(t, l, nr)) * W;
+    else
+      return dense_pair(lv, is_k, l, r, t, Lmax, W);
+  };
   for (int c = tid; c < D + Dv; c += T) {
     const bool is_k = c < D;
     const int W = is_k ? D : Dv;
     const int col = is_k ? c : c - D;
     float carry = is_k ? knew[(size_t)r * D + col] : vnew[(size_t)r * Dv + col];
     for (int l = 0; l < nlev; ++l) {
-      const float* p = dense_pair(lv, is_k, l, r, t, Lmax, W) + col;
+      const float* p = pair(is_k, l, W) + col;
       cp_async4(pr + 2 * l * T + tid, p);
       cp_async4(pr + (2 * l + 1) * T + tid, p + W);
     }
@@ -1360,29 +1263,30 @@ update_chain_kernel(const float* __restrict__ knew,
       }
       const float y0 = l + 1 < nlev ? pr[(2 * l + 2) * T + tid] : 0.f;
       const float y1 = l + 1 < nlev ? pr[(2 * l + 3) * T + tid] : 0.f;
-      if (own)
-        dense_pair(lv, is_k, l, r, t, Lmax, W)[(size_t)sel * W + col] =
-            sel ? x1 : x0;
+      if (own) pair(is_k, l, W)[(size_t)sel * W + col] = sel ? x1 : x0;
       carry = is_k ? __fmul_rn(__fadd_rn(x0, x1), 0.5f) : __fadd_rn(x0, x1);
       x0 = y0;
       x1 = y1;
     }
-    if (PARTIAL) (is_k ? carry_k : carry_v)[(size_t)r * W + col] = carry;
+    if (ADDR == ADDR_LOCAL)
+      (is_k ? carry_k : carry_v)[(size_t)r * W + col] = carry;
   }
 }
 
 // Threads: a column each, at most 1024 and as many as CHAIN_SMEM stages
-// (2 nlev floats a thread), in whole warps.
-template <bool PARTIAL>
+// (2 nlev floats a thread, after #9's page table), in whole warps.
+template <int ADDR>
 int launch_chain(const float* knew, const float* vnew, const int* t,
-                 const int* owned, const MutLevels& lv, int R, int Lmax,
-                 int D, int Dv, int nlev, float* carry_k, float* carry_v,
-                 void* stream) {
-  const int fit = CHAIN_SMEM / (8 * nlev) / 32 * 32;
+                 const int* owned, const int* utab, const MutLevels& lv,
+                 int R, int Lmax, int nr, int D, int Dv, int nlev,
+                 float* carry_k, float* carry_v, void* stream) {
+  const int tab = ADDR == ADDR_PAGED ? 4 * nlev : 0;
+  const int fit = (CHAIN_SMEM - tab) / (8 * nlev) / 32 * 32;
   const int threads = min(min(1024, fit), (D + Dv + 31) / 32 * 32);
-  update_chain_kernel<PARTIAL>
-      <<<R, threads, 8 * nlev * threads, (cudaStream_t)stream>>>(
-          knew, vnew, t, owned, lv, Lmax, D, Dv, nlev, carry_k, carry_v);
+  update_chain_kernel<ADDR>
+      <<<R, threads, 8 * nlev * threads + tab, (cudaStream_t)stream>>>(
+          knew, vnew, t, owned, utab, lv, Lmax, nr, D, Dv, nlev, carry_k,
+          carry_v);
   return (int)cudaGetLastError();
 }
 
@@ -1429,20 +1333,15 @@ extern "C" int h1d_decode_attend(const float* q, const float* k,
   Levels lv{};
   lv.k[0] = k;
   lv.v[0] = v;
+  lv.rows[0] = Lmax;
   for (int l = 0; l < ncoarse; ++l) {
     lv.k[l + 1] = ck[l];
     lv.v[l + 1] = cv[l];
+    lv.rows[l + 1] = Lmax >> (l + 1);
   }
-  const size_t smem = attend_smem(G, D, ncoarse + 1, nr);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        decode_attend_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  decode_attend_kernel<<<R, THREADS, smem, (cudaStream_t)stream>>>(
-      q, lv, t, out, G, Lmax, D, Dv, nr, ncoarse + 1, scale);
-  return (int)cudaGetLastError();
+  return launch_staged<ADDR_DENSE>(q, lv, t, nullptr, nullptr, out, nullptr,
+                                   nullptr, R, G, D, Dv, nr, ncoarse + 1,
+                                   scale, stream);
 }
 
 // Paged pools: ks[l]/vs[l] level l's (NP_l, nr, D/Dv) f32 pages for
@@ -1481,8 +1380,9 @@ extern "C" int h1d_update_cache(const float* knew, const float* vnew,
                                 int Dv, int nlev, void* stream) {
   if (nlev < 1 || nlev > MAXLEV || R < 1) return (int)cudaErrorInvalidValue;
   const MutLevels lv = write_levels(ks, vs, nullptr, nullptr, 0u, nlev);
-  return launch_chain<false>(knew, vnew, t, nullptr, lv, R, Lmax, D, Dv,
-                             nlev, nullptr, nullptr, stream);
+  return launch_chain<ADDR_DENSE>(knew, vnew, t, nullptr, nullptr, lv, R,
+                                  Lmax, 0, D, Dv, nlev, nullptr, nullptr,
+                                  stream);
 }
 
 // Paged pools: ks[l]/vs[l] level l's (NP_l, nr, D/Dv) f32 pages; utab
@@ -1495,10 +1395,8 @@ extern "C" int h1d_update_cache_paged(const float* knew, const float* vnew,
   if (nlev < 1 || nlev > MAXLEV || R < 1 || nr < 2)
     return (int)cudaErrorInvalidValue;
   const MutLevels lv = write_levels(ks, vs, nullptr, nullptr, 0u, nlev);
-  const int threads = min(1024, ((D + Dv + 31) / 32) * 32);
-  update_cache_kernel<<<R, threads, 0, (cudaStream_t)stream>>>(
-      knew, vnew, t, utab, lv, D, Dv, nr, nlev);
-  return (int)cudaGetLastError();
+  return launch_chain<ADDR_PAGED>(knew, vnew, t, nullptr, utab, lv, R, 0, nr,
+                                  D, Dv, nlev, nullptr, nullptr, stream);
 }
 
 // As h1d_update_cache_paged with int8 levels (bit l of qmask) and their
@@ -1562,11 +1460,12 @@ extern "C" int h1d_update_cache_partial(const float* knew, const float* vnew,
                                         int nlev, void* stream) {
   if (nlev < 1 || nlev > MAXLEV || R < 1) return (int)cudaErrorInvalidValue;
   const MutLevels lv = write_levels(ks, vs, nullptr, nullptr, 0u, nlev);
-  return launch_chain<true>(knew, vnew, t_loc, owned, lv, R, Lloc, D, Dv,
-                            nlev, carry_k, carry_v, stream);
+  return launch_chain<ADDR_LOCAL>(knew, vnew, t_loc, owned, nullptr, lv, R,
+                                  Lloc, 0, D, Dv, nlev, carry_k, carry_v,
+                                  stream);
 }
 
-// The staged attend's launch plan (#7, #8, #11) for the host's mirror
+// The staged attend's launch plan (#5, #7, #8, #11) for the host's mirror
 // (kernels/h1d_decode_kernel.plan_attend_stages): quant != 0 for a pool
 // with int8 levels; out[0..3] = stages, rows a chunk, row quantum, shared
 // memory bytes.

@@ -36,13 +36,14 @@ Port of the decode kernels of ``repro.kernels.h1d_decode_kernel``:
 
 Each wrapper chooses by the device of its tensors: CPU tensors take the
 plain version (mirrors of the jnp paths of ``core.h1d_decode``), CUDA
-tensors launch the kernels in ``csrc/h1d_decode.cu``.  #7, #8 and #11
-run its staged attend body, which copies only the rows each band's mask
-lets through (:func:`attend_band_rows`) into shared memory, laid out by
+tensors launch the kernels in ``csrc/h1d_decode.cu``.  All four attends
+(#5, #7, #8, #11) run its staged attend body, which copies only the rows
+each band's mask lets through (:func:`attend_band_rows`; #5 of the block
+:func:`attend_dense_blocks` names) into shared memory, laid out by
 :func:`plan_attend_stages` (int8 rows with their scales, dequantized on
 the read); #10 stages every level's sibling pair before its carry chain
-(:func:`update_quant_smem`), and #6 and #12 put every level's pair in
-flight before theirs (any widths and level counts: no new limit).
+(:func:`update_quant_smem`), and #6, #12 and #9 put every level's pair
+in flight before theirs (any widths and level counts: no new limit).
 ``<wrapper>.launches`` counts kernel launches and ``<plain>.calls``
 counts runs of the plain version.  The page tables and the shard
 geometry are trusted: the host builds them from
@@ -95,8 +96,8 @@ def _ptrs(tensors):
 
 
 # ---------------------------------------------------------------------------
-# the staged attend's geometry (#7, #8, #11) and #10's staging: host mirrors
-# of csrc/h1d_decode.cu
+# the staged attend's geometry (#5, #7, #8, #11) and #10's staging: host
+# mirrors of csrc/h1d_decode.cu
 # ---------------------------------------------------------------------------
 
 SMEM_LIMIT = 232448      # shared memory one block may use on the H100
@@ -126,6 +127,26 @@ def attend_band_rows(t, nr: int, nbands: int, owned=None, quantum: int = 1):
         rows = np.where(np.asarray(owned) > 0, rows, 0)
     return np.where(rows > 0, np.minimum(nr, -(-rows // quantum) * quantum),
                     0)
+
+
+def attend_dense_blocks(t, nr: int, Lmax: int, nbands: int):
+    """Block of each band that #5 stages for rows at positions ``t`` (R,)
+    of dense slabs (``dense_block`` in the source): the reference
+    kernel's index maps, band 0 ``min(t // nr, Lmax // nr - 1)``, band 1
+    ``max(t // nr - 1, 0)``, coarse band ``l + 1`` ``clip(t // (nr << l)
+    - 1, 0, (Lmax >> l) // nr - 1)``; its first row in the level's
+    (R, Lmax >> l, width) array is ``r * (Lmax >> l) + block * nr``.
+    Returns an (R, nbands) int64 numpy array."""
+    t = np.asarray(t, np.int64)[:, None]
+    blk = np.zeros((t.shape[0], nbands), np.int64)
+    blk[:, :1] = np.minimum(t // nr, Lmax // nr - 1)
+    if nbands > 1:
+        blk[:, 1:2] = np.maximum(t // nr - 1, 0)
+    for band in range(2, nbands):
+        l = band - 1
+        blk[:, band:band + 1] = np.clip(t // (nr << l) - 1, 0,
+                                        (Lmax >> l) // nr - 1)
+    return blk
 
 
 class AttendStages(NamedTuple):
@@ -312,9 +333,10 @@ def _attend_bands(q, t, nr: int, nbands: int, read, softmax_scale,
 def decode_attend_ref(cache, q, t, *, nr: int, softmax_scale=None):
     """Plain PyTorch batched single-token attention (mirror of the jnp
     path of ``repro.core.h1d_decode.decode_attend``).  q (R, G, D), t
-    (R,) positions.  Returns (R, G, Dv) in q.dtype."""
+    (R,) positions.  Returns (R, G, Dv) in q.dtype (float64 operands are
+    evaluated in float64)."""
     decode_attend_ref.calls += 1
-    f32 = torch.float32
+    f32 = _work_dtype(q)
     t = t.to(torch.long)
     M = hc.num_levels(cache.k.shape[-2], nr)
 
@@ -557,7 +579,8 @@ def _check_cache(cache, R, D, Dv):
 def decode_attend_fused(cache, q, t, *, nr: int, softmax_scale=None):
     """Batched single-token attention.  q (R, G, D), t (R,) int32.  CPU
     tensors take :func:`decode_attend_ref`; CUDA tensors launch
-    ``h1d_decode_attend``."""
+    ``h1d_decode_attend`` (the staged body; a shape
+    :func:`plan_attend_stages` cannot fit raises)."""
     if q.device.type == "cpu":
         return decode_attend_ref(cache, q, t, nr=nr,
                                  softmax_scale=softmax_scale)
@@ -571,6 +594,7 @@ def decode_attend_fused(cache, q, t, *, nr: int, softmax_scale=None):
                          f"Lmax={Lmax} and nr={nr} need {max(M - 1, 0)}")
     _build.expect(q, "q", (R, G, D))
     _build.expect(t, "t", (R,), torch.int32)
+    plan_attend_stages(G, D, Dv, nr, 1 + len(cache.ck))
     scale = softmax_scale if softmax_scale is not None else 1 / math.sqrt(D)
     out = torch.empty((R, G, Dv), dtype=torch.float32, device=q.device)
     _build.check(lib.h1d_decode_attend(

@@ -2,8 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.profile_band_phases \
         [--kernel sub_bwd|band_fwd|band_bwd|decode_paged|decode_partial|
-                  decode_paged_quant|update_paged_quant|update_dense|
-                  update_partial] \
+                  decode_paged_quant|decode_dense|update_paged_quant|
+                  update_dense|update_partial|update_paged] \
         [--csrc DIR] [--out PATH]
 
 Builds a copy of the kernel's source with ``%globaltimer`` stamps taken
@@ -38,7 +38,9 @@ stay in registers until the last stamp, where thread 0 stores them.
   the keys of a @ v, the warp's reduction, the sync; the combine.
 * ``decode_paged_quant``: #8 (``h1d_decode_attend_paged_quant``) at the
   same shapes on an int8 pool (every level int8, rows quantized per row
-  from seeded normals), stamped in the staged body as above.
+  from seeded normals), and ``decode_dense``: #5 (``h1d_decode_attend``)
+  on ``chip_smoke.py``'s dense cache (R=64, G=1, Lmax 2048, d=64, nr=16)
+  at seeded positions, both stamped in the staged body as above.
 * ``update_paged_quant``: #10 (``h1d_update_cache_paged_quant``) on that
   int8 pool with ``chip_smoke.py``'s update tables (private write pages,
   2 inactive slots on TRASH), ``update_cache_quant_kernel``: t and utab
@@ -50,11 +52,14 @@ stay in registers until the last stamp, where thread 0 stores them.
   positions, then on the one level the SP deep tail updates at d=4 (32
   rows, ``t_deep``), and ``update_partial``: #12
   (``h1d_update_cache_partial``) on shard 3's 6 sharded levels of that
-  cache split 4 ways.  ``update_chain_kernel``: t (and owned) read,
-  every level's pair copy issued, the pairs landed, the carry chain with
-  its stores, the carry.  Where a phase ends on loaded values, the stamp
-  first waits for them (a compare of the values that guards a store to
-  ``g_sink``), so that it marks their arrival, not their issue.
+  cache split 4 ways, and ``update_paged``: #9
+  (``h1d_update_cache_paged``) on the fp32 pool with
+  ``update_paged_quant``'s tables.  ``update_chain_kernel``: t (and
+  owned, or the page table) read, every level's pair copy issued, the
+  pairs landed, the carry chain with its stores, the carry.  Where a
+  phase ends on loaded values, the stamp first waits for them (a compare
+  of the values that guards a store to ``g_sink``), so that it marks
+  their arrival, not their issue.
 
 ``--csrc DIR`` stamps the sources in DIR instead of this package's
 (e.g. a variant of the kernel, to compare the two in one call).  The
@@ -211,17 +216,16 @@ UPDATE_QUANT = dict(
         ("  // C: this part's int8 levels requantized", 4, "before"),
         ("    l = ln;\n  }\n}\n", 5, len("    l = ln;\n  }\n")),
     ])
-# #6 / #12: every level's pair staged before the carry chain
+# #6 / #12 / #9: every level's pair staged before the carry chain
 UPDATE_CHAIN = dict(
     name="update_chain_kernel", array="g_upd",
-    phases=("start", "t read", "pairs issued", "pairs landed",
+    phases=("start", "t (utab) read", "pairs issued", "pairs landed",
             "chain and stores", "carry, end"),
     anchors=[
-        ("  const int t = tpos[r];\n  const bool own = !PARTIAL || "
-         "owned[r] != 0;\n  for (int c = tid;", 0, "before"),
-        ("  const bool own = !PARTIAL || owned[r] != 0;\n  for (int c = "
-         "tid;", 1, len("  const bool own = !PARTIAL || owned[r] != 0;\n"),
-         "if ((t ^ (int)own) == -7) g_sink = 1;\n"),
+        ("  const int t = tpos[r];\n  const bool own = ADDR != ADDR_LOCAL",
+         0, "before"),
+        ("  // first row of level l's pair in the k (is_k) or v array", 1,
+         "before", "if ((t ^ (int)own) == -7) g_sink = 1;\n"),
         ("      cp_async4(pr + (2 * l + 1) * T + tid, p + W);\n    }\n", 2,
          "after"),
         ('    asm volatile("cp.async.wait_all;" ::: "memory");\n    float '
@@ -229,8 +233,8 @@ UPDATE_CHAIN = dict(
          len('    asm volatile("cp.async.wait_all;" ::: "memory");\n')),
         ("      x0 = y0;\n      x1 = y1;\n    }\n", 4, "after",
          "if (carry == 1.5e-38f) g_sink = 1;\n"),
-        ("    if (PARTIAL) (is_k ? carry_k : carry_v)[(size_t)r * W + col] "
-         "= carry;\n  }\n", 5, "after"),
+        ("    if (ADDR == ADDR_LOCAL)\n      (is_k ? carry_k : carry_v)"
+         "[(size_t)r * W + col] = carry;\n  }\n", 5, "after"),
     ])
 TARGETS = {"sub_bwd": ("h1d_block_bwd", [SUB_BWD]),
            "band_fwd": ("h1d_block", [BAND_FWD]),
@@ -238,9 +242,11 @@ TARGETS = {"sub_bwd": ("h1d_block_bwd", [SUB_BWD]),
            "decode_paged": ("h1d_decode", [ATTEND_STAGED]),
            "decode_partial": ("h1d_decode", [ATTEND_STAGED]),
            "decode_paged_quant": ("h1d_decode", [ATTEND_STAGED]),
+           "decode_dense": ("h1d_decode", [ATTEND_STAGED]),
            "update_paged_quant": ("h1d_decode", [UPDATE_QUANT]),
            "update_dense": ("h1d_decode", [UPDATE_CHAIN]),
-           "update_partial": ("h1d_decode", [UPDATE_CHAIN])}
+           "update_partial": ("h1d_decode", [UPDATE_CHAIN]),
+           "update_paged": ("h1d_decode", [UPDATE_CHAIN])}
 SIGNATURES = {"h1d_block": hb._SIGNATURES, "h1d_block_bwd": hbb._SIGNATURES,
               "h1d_decode": dk._SIGNATURES}
 
@@ -464,7 +470,7 @@ def profile_band(lib, dev, gen, backward):
 
 
 def profile_decode(lib, specs, dev, gen, kernel):
-    """One call of #7, #11, #8 or #10 (``kernel`` as ``--kernel``)
+    """One call of #7, #11, #8, #5, #10 or #9 (``kernel`` as ``--kernel``)
     through its wrapper, with the instrumented library in place of the
     built one."""
     from repro_torch.core import quantization as qz
@@ -487,6 +493,14 @@ def profile_decode(lib, specs, dev, gen, kernel):
                                                  device=dev),
                 tabs.bidx[3], tabs.owned[3])
         fn, label = dk.decode_attend_partial, "shard 3 of 4, R=64, Lmax 2048"
+    elif kernel == "decode_dense":
+        cache = hd.prefill_cache(
+            torch.randn((R, Lmax, D), generator=gen, device=dev),
+            torch.randn((R, Lmax, D), generator=gen, device=dev), Lmax, NR)
+        t = rng.integers(0, Lmax, R)
+        t[:4] = [0, NR - 1, NR, Lmax - 1]
+        args = (cache, q, torch.as_tensor(t, dtype=torch.int32, device=dev))
+        fn, label = dk.decode_attend_fused, "dense, R=64, Lmax 2048"
     else:
         rows = (PAGES + 2) * HKV
         ks = [torch.randn((rows, NR, D), generator=gen, device=dev)
@@ -494,7 +508,7 @@ def profile_decode(lib, specs, dev, gen, kernel):
         vs = [torch.randn((rows, NR, D), generator=gen, device=dev)
               for _ in range(M)]
         pool = hd.PagedH1DCache(ks[0], vs[0], tuple(ks[1:]), tuple(vs[1:]))
-        if kernel != "decode_paged":       # every level int8, per-row scales
+        if kernel.endswith("_quant"):      # every level int8, per-row scales
             qk, qv = zip(*[(qz.quantize_int8(k, axis=-1),
                             qz.quantize_int8(v, axis=-1))
                            for k, v in zip(ks, vs)])
@@ -526,13 +540,18 @@ def profile_decode(lib, specs, dev, gen, kernel):
             "decode_paged_quant": (dk.decode_attend_paged_quant,
                                    "int8 paged, R=64, Lmax 2048")}.get(
             kernel, (None, None))
-        if kernel == "update_paged_quant":
+        if kernel.startswith("update_"):
             kn = torch.randn((R, D), generator=gen, device=dev)
             args = (pool, kn, -kn, tt, physical(upages))
-            label = "int8 paged update, R=64, Lmax 2048"
+            update, label = {
+                "update_paged": (dk.update_cache_paged,
+                                 "paged update, R=64, Lmax 2048"),
+                "update_paged_quant": (dk.update_cache_paged_quant,
+                                       "int8 paged update, R=64, Lmax "
+                                       "2048")}[kernel]
 
             def fn(*a, nr):
-                return dk.update_cache_paged_quant(*a)
+                return update(*a)
     with _loaded(lib):
         return _run(lib, specs, lambda: fn(*args, nr=NR), label, [R])
 

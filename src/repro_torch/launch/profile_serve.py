@@ -42,22 +42,22 @@ from repro_torch.parallel import sp_attention as sp
 from repro_torch.serve import paged_cache as pc
 
 # the sub-level kernels (sub_fwd_kernel, sub_bwd_kernel) also run #1 / #3
-# in coarse_causal; the other band modes are band_*_kernel<mode>.  #7, #11
-# and #8 run attend_staged_kernel<ADDR, VW> (ADDR 1, 2 and 3), #5
-# decode_attend_kernel; #6 and #12 update_chain_kernel<PARTIAL>, #9
-# update_cache_kernel.  The first key contained in a kernel's name wins.
+# in coarse_causal; the other band modes are band_*_kernel<mode>.  #7, #11,
+# #8 and #5 run attend_staged_kernel<ADDR, VW> (ADDR 1, 2, 3 and 4), and
+# #9, #12 and #6 update_chain_kernel<ADDR> (ADDR 1, 2 and 4).  The first
+# key contained in a kernel's name wins.
 OWN = {"sub_fwd_kernel<": "band_attention_sub_fwd",
        "band_fwd_kernel<": "band_attention_fwd",
        "sub_bwd_kernel<": "band_attention_sub_bwd",
        "band_dq_kernel<": "band_attention_bwd",
        "band_dkvw_kernel<": "band_attention_bwd",
-       "decode_attend_kernel(": "decode_attend_fused",
        "attend_staged_kernel<1,": "decode_attend_paged",
        "attend_staged_kernel<3,": "decode_attend_paged_quant",
        "attend_staged_kernel<2,": "decode_attend_partial",
-       "update_chain_kernel<false>": "update_cache_fused",
-       "update_chain_kernel<true>": "update_cache_partial",
-       "update_cache_kernel(": "update_cache_paged",
+       "attend_staged_kernel<4,": "decode_attend_fused",
+       "update_chain_kernel<4>": "update_cache_fused",
+       "update_chain_kernel<2>": "update_cache_partial",
+       "update_chain_kernel<1>": "update_cache_paged",
        "update_cache_quant_kernel": "update_cache_paged_quant"}
 
 

@@ -789,6 +789,32 @@ def test_paged_attend_ring_trash_rows_and_bits(dev, Lmax, nr, G, D, Dv,
     assert dk.plan_attend_stages(G, D, Dv, nr, M).resident == (Lmax < 32768)
 
 
+@pytest.mark.parametrize("Lmax,nr,G,D,Dv,misalign", STAGED)
+def test_dense_attend_ring_odd_misaligned_and_bits(dev, Lmax, nr, G, D, Dv,
+                                                   misalign):
+    """#5 on the staged body (the dense addressor) against its plain
+    version in float64 at #7's staged shapes, rows at every mask edge
+    and at t = Lmax (band 0 on the last block, clamped), and identical
+    bits on a second call.  Keys are unit normals at every level, values
+    scale by 2^l."""
+    gen = torch.Generator(device=dev).manual_seed(Lmax + nr + D + 5)
+    M = hc.num_levels(Lmax, nr)
+    ts = _ts(Lmax, nr) + [Lmax]
+    R = len(ts)
+    k = [_randn(gen, dev, R, Lmax >> l, D) for l in range(M)]
+    v = [_randn(gen, dev, R, Lmax >> l, Dv) * 2 ** l for l in range(M)]
+    if misalign:
+        k, v = [_misaligned(a) for a in k], [_misaligned(a) for a in v]
+    cache = hd.H1DCache(k[0], v[0], tuple(k[1:]), tuple(v[1:]))
+    t = torch.tensor(ts, dtype=torch.int32, device=dev)
+    q = _randn(gen, dev, R, G, D)
+    got = dk.decode_attend_fused(cache, q, t, nr=nr)
+    _close_exact([got], [dk.decode_attend_ref(_double(cache), q.double(), t,
+                                              nr=nr)])
+    assert torch.equal(got, dk.decode_attend_fused(cache, q, t, nr=nr))
+    assert dk.plan_attend_stages(G, D, Dv, nr, M).resident == (Lmax < 32768)
+
+
 @pytest.mark.parametrize("d", [2, 4])
 @pytest.mark.parametrize("Lmax,nr,G,D,Dv,misalign", STAGED[1:])
 def test_sp_partial_ring_rows_owning_nothing_and_bits(dev, d, Lmax, nr, G,
@@ -907,14 +933,20 @@ def test_attend_plan_mirrors_the_launcher(dev):
 
 @pytest.mark.parametrize("Lmax,nr,D,Dv,quant", [
     (2048, 16, 64, 64, None), (2048, 16, 64, 64, "all"),
-    (128, 8, 16, 40, "ql1"), (256, 4, 24, 8, "ql2"), (256, 32, 64, 64, None)])
+    (128, 8, 16, 40, "ql1"), (256, 4, 24, 8, "ql2"), (256, 32, 64, 64, None),
+    (128, 8, 16, 40, None), (16, 16, 8, 8, None), (256, 8, 5, 7, None),
+    (256, 16, 64, 5, None), (512, 16, 256, 256, None), (64, 32, 7, 5, None),
+    (8192, 8, 600, 600, None), (262144, 2, 3, 5, None)])
 def test_paged_update_bit_exact_outside_trash(dev, Lmax, nr, D, Dv, quant):
     """Five chained appends from 8 rows, two of them inactive (their
     update rows all on the TRASH page, as the engine builds them): the
     kernel equals the plain version bit for bit on every pool row except
-    TRASH's, and a second run of the kernel gives the same bits there."""
+    TRASH's, and a second run of the kernel gives the same bits there.
+    #9 (fp32) also at #6's envelope (``test_update_cache_bit_exact``'s
+    shapes: odd widths, D != Dv, D = Dv = 256, one level, 600 + 600
+    columns at 10 levels, 17 levels)."""
     gen = torch.Generator(device=dev).manual_seed(Lmax + nr)
-    M = hc.num_levels(Lmax, nr)
+    M = max(hc.num_levels(Lmax, nr), 1)
     R, npages, trash = 8, 40, 1
     base = _paged_pool(gen, dev, M, nr, npages, D, Dv, _quant(quant, M))
     a, b, c = _pool_clone(base), _pool_clone(base), _pool_clone(base)

@@ -2,22 +2,24 @@
 host mirrors of ``csrc/h1d_decode.cu``) against the JAX reference's
 decode kernels, run in interpret mode on numpy inputs.
 
-#7 (``decode_attend_paged``), #8 (``decode_attend_paged_quant``) and
-#11 (``decode_attend_partial``) copy, of each band, only the prefix of
-rows that :func:`attend_band_rows` names (#8: rounded up to the int8
-row quantum), and nothing of a band that is masked whole or not owned.
-Here, for every position of three (Lmax, nr) geometries, that rule
-equals the reference kernel's own masks (read out of its output: zero
-keys and queries give every counted key the weight 1, and one-hot
+#5 (``decode_attend_fused``), #7 (``decode_attend_paged``), #8
+(``decode_attend_paged_quant``) and #11 (``decode_attend_partial``)
+copy, of each band, only the prefix of rows that
+:func:`attend_band_rows` names (#8: rounded up to the int8 row quantum),
+and nothing of a band that is masked whole or not owned; #5 reads it
+from the block of the row's slab that :func:`attend_dense_blocks`
+names.  Here, for every position of three (Lmax, nr) geometries, that
+rule equals the reference kernel's own masks (read out of its output:
+zero keys and queries give every counted key the weight 1, and one-hot
 values name the keys), and changing every row the rule leaves out
 (#8: its int8 rows and scales) leaves the reference's output
 bit-identical, while changing one row it keeps does not.  The launch
 plan's envelope is checked at every card test's shape, fp32 and int8.
-#10 (``update_cache_paged_quant``), #6 (``update_cache_fused``) and #12
-(``update_cache_partial``) read every level's sibling pair before their
-carry chain writes any; a numpy mirror of that order equals the
-reference's kernel bit for bit.  The kernels themselves run only on the
-card (``tests/test_torch_cuda.py``)."""
+#10 (``update_cache_paged_quant``), #6 (``update_cache_fused``), #12
+(``update_cache_partial``) and #9 (``update_cache_paged``) read every
+level's sibling pair before their carry chain writes any; a numpy
+mirror of that order equals the reference's kernel bit for bit.  The
+kernels themselves run only on the card (``tests/test_torch_cuda.py``)."""
 import functools
 import math
 
@@ -44,6 +46,12 @@ CHUNK = 512
 
 
 @functools.lru_cache(maxsize=None)
+def _attend_fused(nr):
+    return jax.jit(functools.partial(jdk.decode_attend_fused, nr=nr,
+                                     interpret=True))
+
+
+@functools.lru_cache(maxsize=None)
 def _attend_paged(nr):
     return jax.jit(functools.partial(jdk.decode_attend_paged, nr=nr,
                                      interpret=True))
@@ -66,18 +74,18 @@ def _prefix(rows, nr):
     return np.arange(nr)[None, None, :] < rows[:, :, None]
 
 
-def _paged(levels):
-    k, v = zip(*levels)
-    return jhd.PagedH1DCache(k=jnp.asarray(k[0]), v=jnp.asarray(v[0]),
-                             ck=tuple(map(jnp.asarray, k[1:])),
-                             cv=tuple(map(jnp.asarray, v[1:])))
-
-
 def _jax_copy(a):
     """A JAX array of its own: ``jnp.asarray`` may share a numpy array's
     memory on the CPU, and the update mirrors write theirs in place while
     the JAX call dispatched before them may still be reading."""
     return jnp.asarray(np.array(a, copy=True))
+
+
+def _paged(levels):
+    k, v = zip(*levels)
+    return jhd.PagedH1DCache(k=_jax_copy(k[0]), v=_jax_copy(v[0]),
+                             ck=tuple(map(_jax_copy, k[1:])),
+                             cv=tuple(map(_jax_copy, v[1:])))
 
 
 def _slab(levels):
@@ -162,6 +170,107 @@ def test_rows_left_out_do_not_change_paged_output(Lmax, nr):
     np.testing.assert_array_equal(run(_perturb(levels, keep, rng)), want)
     first = [np.ones_like(kp) for kp in keep]
     first[0][:R, 0] = False
+    assert (run(_perturb(levels, first, rng)) != want).any(-1).all()
+
+
+# #5 on dense slabs: every position 0..Lmax (Lmax itself reads the last
+# block, clamped) of two geometries, the edge positions of a third
+DENSE_CASES = [(256, 8, False), (512, 32, False), (2048, 16, True)]
+
+
+def _dense_positions(Lmax, nr, edges):
+    return (_edges(Lmax, nr) if edges
+            else np.arange(Lmax + 1, dtype=np.int32))
+
+
+def _dense_keep(ts, Lmax, nr, nb):
+    """Per level, an (R, Lmax >> l) mask of the slab rows #5 stages: of
+    each band the prefix :func:`attend_band_rows` names, in the block
+    :func:`attend_dense_blocks` names."""
+    blocks = tdk.attend_dense_blocks(ts, nr, Lmax, nb)
+    rows = tdk.attend_band_rows(ts, nr, nb)
+    keep = [np.zeros((len(ts), Lmax >> l), bool) for l in range(nb - 1)]
+    j = np.arange(nr)[None]
+    for b in range(nb):
+        l = max(b - 1, 0)
+        idx = blocks[:, b, None] * nr + j
+        np.put_along_axis(keep[l], idx, np.take_along_axis(keep[l], idx, 1)
+                          | (j < rows[:, b, None]), 1)
+    return keep
+
+
+@pytest.mark.parametrize("Lmax,nr,edges", DENSE_CASES)
+def test_dense_blocks_equal_fused_masks(Lmax, nr, edges):
+    """Per band, the keys the JAX fused kernel counts are the prefix
+    ``attend_band_rows`` names of the block ``attend_dense_blocks``
+    names: row j of band b's named block holds a one in value column b *
+    nr + j, every other slab row zeros, keys and query are zero (every
+    counted key has weight 1), and the output is > 0 exactly on the
+    columns of the rows the mirrors name.  Where two bands of one level
+    name one block (bands 0 and 1 while t < nr, band 1 then counting
+    nothing), a column shows the rows either band counts."""
+    M = hc.num_levels(Lmax, nr)
+    nb = M + 1
+    ts = _dense_positions(Lmax, nr, edges)
+    blocks = tdk.attend_dense_blocks(ts, nr, Lmax, nb)
+    rows = tdk.attend_band_rows(ts, nr, nb)
+    lvl = np.maximum(np.arange(nb) - 1, 0)
+    j = np.arange(nr)
+    want = np.zeros((len(ts), nb, nr), bool)
+    for b in range(nb):
+        for b2 in np.flatnonzero(lvl == lvl[b]):
+            same = blocks[:, b2] == blocks[:, b]
+            want[:, b] |= same[:, None] & (j[None] < rows[:, b2, None])
+    Dv = nb * nr
+    chunk = min(len(ts), max(1, (1 << 22) // (Lmax * Dv)))
+    got = []
+    for r0 in range(0, len(ts), chunk):
+        # a full chunk every call (one compiled kernel): pad with t = 0
+        t = np.zeros(chunk, np.int32)
+        t[:len(ts[r0:r0 + chunk])] = ts[r0:r0 + chunk]
+        blk = tdk.attend_dense_blocks(t, nr, Lmax, nb)
+        levels = [(np.zeros((chunk, Lmax >> l, 1), np.float32),
+                   np.zeros((chunk, Lmax >> l, Dv), np.float32))
+                  for l in range(M)]
+        for b in range(nb):
+            v = levels[lvl[b]][1]
+            v[np.arange(chunk)[:, None], blk[:, b, None] * nr + j[None],
+              b * nr + j[None]] = 1.0
+        o = np.asarray(_attend_fused(nr)(
+            _slab(levels), jnp.zeros((chunk, 1, 1)), jnp.asarray(t)))[:, 0]
+        got.append(o[:len(ts[r0:r0 + chunk])])
+    got = np.concatenate(got).reshape(len(ts), nb, nr)
+    np.testing.assert_array_equal(got > 0, want)
+    # band 0 always counts, band 1 and every coarse band somewhere
+    assert (rows[:, 0] > 0).all() and (rows > 0).any(0).all()
+
+
+@pytest.mark.parametrize("Lmax,nr,edges", DENSE_CASES)
+def test_rows_left_out_do_not_change_fused_output(Lmax, nr, edges):
+    """Rows at every position (or the edge positions), each on its own
+    slab: moving every slab row outside the prefixes of the blocks the
+    mirrors name by up to 1e4 leaves the JAX fused kernel's output
+    bit-identical; moving band 0's first row, which is always kept,
+    changes every output."""
+    rng = np.random.default_rng(Lmax + nr + 5)
+    M = hc.num_levels(Lmax, nr)
+    nb = M + 1
+    ts = _dense_positions(Lmax, nr, edges)
+    R, G, D = len(ts), 2, 4
+    levels = [(rng.standard_normal((R, Lmax >> l, D)).astype(np.float32),
+               (rng.standard_normal((R, Lmax >> l, D)) * 2 ** l).astype(
+                   np.float32)) for l in range(M)]
+    q = rng.standard_normal((R, G, D)).astype(np.float32)
+    keep = _dense_keep(ts, Lmax, nr, nb)
+
+    def run(lv):
+        return np.asarray(_attend_fused(nr)(_slab(lv), jnp.asarray(q),
+                                            jnp.asarray(ts)))
+    want = run(levels)
+    np.testing.assert_array_equal(run(_perturb(levels, keep, rng)), want)
+    first = [np.ones_like(kp) for kp in keep]
+    blk0 = tdk.attend_dense_blocks(ts, nr, Lmax, nb)[:, 0]
+    first[0][np.arange(R), blk0 * nr] = False
     assert (run(_perturb(levels, first, rng)) != want).any(-1).all()
 
 
@@ -316,34 +425,40 @@ def test_update_mirror_equals_paged_quant_kernel(quant):
                                           w[keep].view(np.uint8))
 
 
-def _update_chain_mirror(levels, k_new, v_new, t, owned=None):
-    """numpy mirror of #6 / #12's order (``update_chain_kernel``), in
-    place on ``levels`` [(k, v)], level l of shape (R, Ll, D / Dv): per
-    row, both rows of every level's sibling pair read first (pair
-    ``min(t >> (l+1), Ll/2 - 1)``), then the carry chain (an owner row's
-    carry takes row ``(t >> l) & 1`` of the pair; the next carry is the
-    pair's mean (k) or sum (v)), then the taken rows stored (owner rows:
-    every row where ``owned`` is None).  Returns the carries past the
-    last level, (R, D) and (R, Dv)."""
+def _update_chain_mirror(levels, k_new, v_new, t, owned=None, utab=None):
+    """numpy mirror of #6 / #12 / #9's order (``update_chain_kernel``),
+    in place on ``levels`` [(k, v)], level l of shape (R, Ll, D / Dv), or
+    with ``utab`` (R, nlev) a paged pool's (pages, nr, D / Dv): per row,
+    both rows of every level's sibling pair read first (pair ``min(t >>
+    (l+1), Ll/2 - 1)`` of the row's slab; paged: pair ``(t >> (l+1)) &
+    (nr/2 - 1)`` of page ``utab[r, l]``), then the carry chain (an owner
+    row's carry takes row ``(t >> l) & 1`` of the pair; the next carry is
+    the pair's mean (k) or sum (v)), then the taken rows stored (owner
+    rows: every row where ``owned`` is None).  Returns the carries past
+    the last level, (R, D) and (R, Dv)."""
     f32, half = np.float32, np.float32(0.5)
     out_k, out_v = [], []
     for r in range(len(t)):
         own = owned is None or owned[r] != 0
         pairs = []
         for l, (k, v) in enumerate(levels):
-            j = 2 * min(t[r] >> (l + 1), k.shape[1] // 2 - 1)
-            pairs.append((j, k[r, j:j + 2].copy(), v[r, j:j + 2].copy()))
+            if utab is None:
+                p, j = r, 2 * min(t[r] >> (l + 1), k.shape[1] // 2 - 1)
+            else:
+                p, j = utab[r, l], 2 * ((t[r] >> (l + 1))
+                                        & (k.shape[1] // 2 - 1))
+            pairs.append((p, j, k[p, j:j + 2].copy(), v[p, j:j + 2].copy()))
         carry = [k_new[r].astype(f32), v_new[r].astype(f32)]
-        for l, (_, pk, pv) in enumerate(pairs):
+        for l, (_, _, pk, pv) in enumerate(pairs):
             for i, x in enumerate((pk, pv)):
                 if own:
                     x[(t[r] >> l) & 1] = carry[i]
                 carry[i] = (x[0] + x[1]) * half if i == 0 else x[0] + x[1]
         if own:
-            for l, (j, pk, pv) in enumerate(pairs):
+            for l, (p, j, pk, pv) in enumerate(pairs):
                 sel = (t[r] >> l) & 1
-                levels[l][0][r, j + sel] = pk[sel]
-                levels[l][1][r, j + sel] = pv[sel]
+                levels[l][0][p, j + sel] = pk[sel]
+                levels[l][1][p, j + sel] = pv[sel]
         out_k.append(carry[0])
         out_v.append(carry[1])
     return np.stack(out_k), np.stack(out_v)
@@ -468,6 +583,47 @@ def test_update_mirror_equals_partial_kernel(Lmax, nr, d):
             assert (tabs.upd_owned.numpy() == 0).any()
 
 
+def test_update_mirror_equals_paged_kernel():
+    """Five chained ticks of 6 rows, two of them inactive (every level's
+    pair on the TRASH page, which both write): the mirror of #9's order
+    (``update_chain_kernel`` with the paged addressor: all of a row's
+    pair reads, then its chain, then its stores) equals the JAX
+    ``update_cache_paged`` (interpret) bit for bit on every pool row
+    outside TRASH, and so does the port's plain version."""
+    rng = np.random.default_rng(9)
+    Lmax, nr, D, Dv, R, npages, trash = 256, 8, 3, 5, 6, 16, 1
+    M = hc.num_levels(Lmax, nr)
+    levels = [tuple((rng.standard_normal((npages, nr, w)) * 2.0 ** l)
+                    .astype(np.float32) for w in (D, Dv)) for l in range(M)]
+    pool = _paged(levels)
+    k, v = zip(*[(torch.from_numpy(a.copy()), torch.from_numpy(b.copy()))
+                 for a, b in levels])
+    port = thd.PagedH1DCache(k[0], v[0], tuple(k[1:]), tuple(v[1:]))
+    upd = jax.jit(functools.partial(jdk.update_cache_paged, interpret=True))
+    keep = np.arange(npages) != trash
+    for step in range(5):
+        t = rng.integers(0, Lmax + 1, R).astype(np.int32)
+        utab = np.stack([rng.permutation(npages - 2)[:R] + 2
+                         for _ in range(M)], 1).astype(np.int32)
+        utab[R - 2:] = trash
+        kn = rng.standard_normal((R, D)).astype(np.float32)
+        vn = rng.standard_normal((R, Dv)).astype(np.float32)
+        pool = upd(pool, jnp.asarray(kn), jnp.asarray(vn), jnp.asarray(t),
+                   jnp.asarray(utab))
+        _update_chain_mirror(levels, kn, vn, t, utab=utab)
+        tdk.update_cache_paged_ref(port, torch.from_numpy(kn),
+                                   torch.from_numpy(vn), torch.from_numpy(t),
+                                   torch.from_numpy(utab))
+        got = [pool.k, pool.v, *[a for kv in zip(pool.ck, pool.cv)
+                                 for a in kv]]
+        mine = [port.k, port.v, *[a for kv in zip(port.ck, port.cv)
+                                  for a in kv]]
+        want = [a for kv in levels for a in kv]
+        for g, m, w in zip(got, mine, want):
+            _same_bits(np.asarray(g)[keep], w[keep])
+            _same_bits(m.numpy()[keep], w[keep])
+
+
 def _bits(nr):
     """Value rows that spell their index: row j is 2^j in column 0 (j <
     16) or 2^(j - 16) in column 1, so a sum of distinct rows is exact."""
@@ -561,8 +717,11 @@ def test_rows_left_out_do_not_change_partial_output(Lmax, nr, d):
             assert (moved[0] == want[0]).all((1, 2))[~counts].all()
 
 
-# every shape of the card tests (tests/test_torch_cuda.py): G, D, Dv, nr,
-# Lmax; the last two need a ring (13 bands of D = Dv = 256 at G = 4)
+# every shape of the card tests (tests/test_torch_cuda.py) of the f32
+# attends, #5's (dense slabs: its own cases, the SP merge's, the smoke
+# engine's, the staged ring, odd widths and misaligned slabs) as #7's and
+# #11's: G, D, Dv, nr, Lmax; the last two need a ring (13 bands of D = Dv
+# = 256 at G = 4)
 CARD_SHAPES = [(1, 64, 64, 16, 2048), (3, 64, 64, 32, 256),
                (4, 16, 16, 8, 256), (2, 40, 24, 16, 512),
                (1, 16, 16, 8, 64), (2, 16, 16, 16, 16), (2, 5, 7, 8, 256),

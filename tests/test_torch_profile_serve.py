@@ -1,0 +1,72 @@
+"""The serving profiler (``repro_torch.launch.profile_serve``) files the
+device time of each kernel under its wrapper's row by the kernel's
+demangled name.  The decode bodies are templates on an addressor, so
+the row of an instance follows from the number each C entry point of
+``csrc/h1d_decode.cu`` launches it with: here, for every entry point,
+the name of the instance it launches maps to its wrapper, read from this
+tree's source, so a renumbered addressor cannot move a kernel's time to
+another row or to "other"."""
+import re
+
+import pytest
+
+from repro_torch.kernels import _build
+from repro_torch.launch import profile_serve as ps
+
+WRAPPERS = {"h1d_decode_attend": "decode_attend_fused",
+            "h1d_decode_attend_paged": "decode_attend_paged",
+            "h1d_decode_attend_paged_quant": "decode_attend_paged_quant",
+            "h1d_decode_attend_partial": "decode_attend_partial",
+            "h1d_update_cache": "update_cache_fused",
+            "h1d_update_cache_paged": "update_cache_paged",
+            "h1d_update_cache_partial": "update_cache_partial"}
+
+
+def _launches():
+    """(body, addressor) that each C entry point launches."""
+    src = (_build.CSRC / "h1d_decode.cu").read_text()
+    consts = {n: int(v) for n, v in re.findall(r"(ADDR_\w+) = (\d+)", src)}
+    out = {}
+    for fn, body in re.findall(r'extern "C" int (h1d_\w+)\((.*?)\n}\n', src,
+                               re.S):
+        m = re.search(r"launch_(staged|chain)<(ADDR_\w+)>", body)
+        if m:
+            out[fn] = (m.group(1), consts[m.group(2)])
+    return out
+
+
+def test_every_addressed_entry_point_is_known():
+    assert sorted(_launches()) == sorted(WRAPPERS)
+    # one addressor a body and entry point
+    for body in ("staged", "chain"):
+        addr = [a for b, a in _launches().values() if b == body]
+        assert len(addr) == len(set(addr))
+
+
+@pytest.mark.parametrize("entry", sorted(WRAPPERS))
+def test_kernel_instance_maps_to_its_wrapper(entry):
+    body, addr = _launches()[entry]
+    if body == "staged":
+        names = [f"void (anonymous namespace)::attend_staged_kernel<{addr}, "
+                 f"{vw}>(int const*, int const*, int const*, float const*, "
+                 f"float*, float*, float*, int, int, int, int, int, float, "
+                 f"int, (anonymous namespace)::AttendPlan, (anonymous "
+                 f"namespace)::Levels)" for vw in (1, 4)]
+    else:
+        names = [f"void (anonymous namespace)::update_chain_kernel<{addr}>("
+                 f"float const*, float const*, int const*, int const*, int "
+                 f"const*, (anonymous namespace)::MutLevels, int, int, int, "
+                 f"int, int, float*, float*)"]
+    for name in names:
+        assert ps._group(name) == WRAPPERS[entry], name
+
+
+@pytest.mark.parametrize("name,group", [
+    ("void (anonymous namespace)::update_cache_quant_kernel<2>(float const*"
+     ", float const*, int const*, int const*, (anonymous namespace)::"
+     "MutLevels, int, int, int, int)", "update_cache_paged_quant"),
+    ("sm90_xmma_gemm_f32f32_f32f32_f32_tn_n_tilesize128x128x8", "matmul"),
+    ("void at::native::vectorized_elementwise_kernel<4>(int, "
+     "at::native::CUDAFunctor_add<float>)", "other")])
+def test_other_kernels_group(name, group):
+    assert ps._group(name) == group
