@@ -110,7 +110,35 @@ Phases (each raises on failure; nothing is caught):
    (d) ``h1d-lm-53m`` with ``causal_mode='coarse-q'``: 3 AdamW steps
    through ``train`` (#1 and #3 in ``l0_causal`` and ``coarse_causal``
    launched, no plain version run), then its ``lm_loss`` gradient at
-   2 x 1024 as in 7.
+   2 x 1024 as in 7;
+9. ``sp train``, sequence-parallel training of ``h1d-lm-53m`` (full
+   width and depth, seeded random weights): (a) at d = 4 and d = 2 the
+   ``lm_loss`` gradient of one 2 x 1024 batch under a d-way
+   ``sp_scope`` against the unsharded gradient on the kernel path, leaf
+   by leaf as in 7 (at d = 4 levels 0-4 run per shard and level 5 is
+   gathered; at d = 2 all six run per shard); (b) at d = 4
+   ``sp_h1d_attention``'s forward and q/k/v gradients at L 1024, nr 16,
+   head dim 64, G 1 in fine-q, coarse-q and bidirectional mode against
+   the unsharded operator on the kernel path, forward within 2e-5 and
+   gradients within 1e-4, row-scaled; (c) 3 AdamW steps through
+   ``train(..., mesh=make_mesh((4,), ("data",)))`` on ``ZipfLM(seed=0)``
+   8 x 1024 batches, every loss finite, step ms and tokens/s beside
+   phase 6's.  In (a)-(c) #1-#4 launch exactly once per shard, local
+   level and layer and no plain version runs; then every distinct band
+   kernel call of (a)-(c) (by shapes and options, on the inputs it was
+   given) is held against its plain version with phase 2's and 3's
+   bounds;
+10. ``cq serve``: phase 4's 16 requests with ``causal_mode='coarse-q'``
+   (same weights, 8 slots, max_len 2048, prompts unbucketed): #1 in
+   ``l0_causal`` and ``coarse_causal`` in prefill, #5 and #6 in decode,
+   no plain version; every request whose top-2 margins all exceed 1e-3
+   gives the plain path's tokens; tokens/s, prefill ms a call and
+   decode ms a tick beside phase 4's;
+11. ``sample``: phase 4's requests with ``greedy=False, seed=0`` at 8
+   slots twice and at 1 slot: the two 8-slot runs identical, every
+   request whose top-2 margins of logits plus noise all exceed 1e-3
+   the same at 1 slot; #1, #2, #5, #6 launched, no plain version;
+   tokens/s.  (Phases 10 and 11 run after 5c, 9 after 7.)
 
 Tolerances.  Attention outputs: |kernel - plain| <= 1e-5 * max(1,
 |plain|): both are fp32 with TF32 off and differ only in summation order
@@ -1622,14 +1650,17 @@ def phase_train(dev):
                      np.mean(losses[-5:])), losses=losses,
                  launches={n: counts[n] for n in kernels.TRAIN_KERNELS})
     log(f"train: {json.dumps(stats)}")
-    return counts
+    return counts, stats
 
 
-def grads_against_plain(label, params, loss_of):
+def grads_against_plain(label, params, loss_of, run=contextlib.nullcontext,
+                        ref=plain_kernels, names=("kernel", "plain")):
     """The gradient of ``loss_of(params)`` on the kernel path against the
     plain path on the card, leaf by leaf: each leaf within GRAD_TOL of
     its largest |plain|, and elementwise within GRAD_TOL * max(1,
-    |plain|)."""
+    |plain|).  ``run`` and ``ref`` are the contexts the two gradients are
+    taken in (named ``names`` in the log): the kernel path as it is, and
+    under :func:`plain_kernels`, unless the caller says otherwise."""
     from repro_torch.tree import (tree_flatten_with_paths, tree_leaves,
                                   tree_unflatten_like)
     leaves = tree_leaves(params)
@@ -1639,8 +1670,9 @@ def grads_against_plain(label, params, loss_of):
         loss = loss_of(tree_unflatten_like(params, ps))
         return float(loss.detach()), torch.autograd.grad(loss, ps)
 
-    loss_k, got = grads()
-    with plain_kernels():
+    with run():
+        loss_k, got = grads()
+    with ref():
         loss_p, want = grads()
     paths = [p for p, _ in tree_flatten_with_paths(params)]
     worst = (0.0, 0.0, 0.0, "")
@@ -1653,7 +1685,8 @@ def grads_against_plain(label, params, loss_of):
         if scaled >= worst[1]:
             worst = (err, scaled, elem, path)
     tops = sorted(float(b.abs().max()) for b in want)
-    log(f"{label} grads: loss {loss_k:.6f} kernel vs {loss_p:.6f} plain; "
+    log(f"{label} grads: loss {loss_k:.6f} {names[0]} vs {loss_p:.6f} "
+        f"{names[1]}; "
         f"{len(paths)} leaves, largest |grad| per leaf from {tops[0]:.3g} "
         f"(median {tops[len(tops) // 2]:.3g}) to {tops[-1]:.3g}; worst "
         f"error {worst[1]:.3g} of its leaf's largest |grad| (abs "
@@ -1838,6 +1871,377 @@ def phase_lra(dev):
     return counts, cq_counts
 
 
+# ---------------------------------------------------------------------------
+# phases 9-11: SP training, coarse-q serving, sampled serving
+# ---------------------------------------------------------------------------
+
+SP_OP_FWD_TOL = 2e-5
+SP_MODES = {"fine-q": (True, "fine-q"), "coarse-q": (True, "coarse-q"),
+            "bidir": (False, "fine-q")}
+
+
+def sp_expected(d, L, layers, mode, backward=True):
+    """The launches an SP operator call makes per layer, times
+    ``layers``: #1 at level 0 and, on every level a shard keeps locally,
+    #2 (fine-q) or #1 in the coarse mode, one launch a shard each; the
+    gathered deep levels launch nothing.  ``backward`` adds #3 / #4."""
+    from repro_torch.core import hierarchy as hc
+    from repro_torch.parallel import sp_attention as sp
+    causal, causal_mode = SP_MODES[mode]
+    coarse = sp.sp_n_shallow(hc.num_levels(L, NR), L // d, NR) - 1
+    l0 = "l0_causal" if causal else "l0_bidir"
+    if causal_mode == "fine-q" and causal:
+        up = {"band_attention_sub_fwd": coarse}
+        down = {"band_attention_sub_bwd": coarse}
+    else:
+        cm = "coarse_causal" if causal else "coarse_bidir"
+        up = {f"band_attention_fwd[{cm}]": coarse}
+        down = {f"band_attention_bwd[{cm}]": coarse}
+    want = {f"band_attention_fwd[{l0}]": 1, **up}
+    if backward:
+        want.update({f"band_attention_bwd[{l0}]": 1, **down})
+    return {k: v * d * layers for k, v in want.items()}
+
+
+def need_counts(label, counts, want):
+    """``counts`` hold exactly ``want`` for its keys (the per-shard
+    launches) and no plain version ran."""
+    from repro_torch import kernels
+    bad = {k: (counts.get(k, 0), v) for k, v in want.items()
+           if counts.get(k, 0) != v}
+    if bad:
+        raise AssertionError(f"{label}: launches (got, want) {bad}")
+    plain = {n: p.calls for n, (_, p) in kernels.KERNELS.items() if p.calls}
+    if plain:
+        raise AssertionError(f"{label}: plain versions ran: {plain}")
+
+
+@contextlib.contextmanager
+def counted(into, ctx=None):
+    """Set the kernel counts to 0, run the body (inside ``ctx``), and
+    read the counts into ``into`` just after."""
+    from repro_torch import kernels
+    kernels.reset_counts()
+    with ctx if ctx is not None else contextlib.nullcontext():
+        yield
+    into.update(path_counts())
+
+
+@contextlib.contextmanager
+def band_calls(seen):
+    """Record the inputs of the first call of every distinct (wrapper,
+    shapes, options) of the four band kernels into ``seen``.  The
+    recording stands in for the wrappers as their module attribute, so
+    the launches of a run inside it count on the recording, never on
+    the kernel rows."""
+    from repro_torch.kernels import h1d_block as hb
+    from repro_torch.kernels import h1d_block_bwd as hbb
+    names = [(hb, "band_attention_fwd"), (hb, "band_attention_sub_fwd"),
+             (hbb, "band_attention_bwd"), (hbb, "band_attention_sub_bwd")]
+    saved = [(m, n, getattr(m, n)) for m, n in names]
+
+    def record(name, fn):
+        def call(*args, **kw):
+            key = (name, tuple(sorted(kw.items())),
+                   tuple(tuple(a.shape) for a in args))
+            if key not in seen:
+                seen[key] = ([a.detach().clone() for a in args], dict(kw))
+            return fn(*args, **kw)
+        call.launches, call.mode_launches = 0, {}
+        return call
+    for m, n, f in saved:
+        setattr(m, n, record(n, f))
+    try:
+        yield
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+
+
+def check_band_calls(label, seen):
+    """Every recorded call's kernel against its plain version on the same
+    inputs: forward outputs within ATTN_TOL, backward within GRAD_TOL
+    row-scaled (phases 2 and 3's bounds)."""
+    from repro_torch import kernels
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for (name, opts, shapes), (args, kw) in sorted(seen.items(),
+                                                    key=lambda x: x[0]):
+        kernel, plain = kernels.KERNELS[name]
+        bwd = name.endswith("_bwd")
+        what = f"{label} {name} {dict(opts)} q{shapes[0]} k{shapes[1]}"
+        _, e, _ = compare(what, kernel(*args, **kw), plain(*args, **kw),
+                          GRAD_TOL if bwd else ATTN_TOL,
+                          ("row", "row", "row") if bwd else ())
+        worst["bwd" if bwd else "fwd"] = max(worst["bwd" if bwd else "fwd"],
+                                             e)
+    log(f"{label}: {len(seen)} distinct band kernel calls held against "
+        f"their plain versions, worst scaled error forward "
+        f"{worst['fwd']:.3g} (<= {ATTN_TOL}), backward {worst['bwd']:.3g} "
+        f"(<= {GRAD_TOL}, row-scaled): "
+        + "; ".join(sorted({f"{n} {dict(o)} q{s[0]} k{s[1]}"
+                            for n, o, s in seen})))
+
+
+def phase_sp_train(dev, train_stats):
+    """Sequence-parallel training of ``h1d-lm-53m`` at full width and
+    depth: (a) the lm_loss gradient of one 2 x 1024 batch under a d-way
+    ``sp_scope`` (d = 4, then 2) against the unsharded gradient on the
+    kernel path, leaf by leaf; (b) at d = 4 ``sp_h1d_attention``'s
+    forward and q/k/v gradients at L 1024, nr 16, head dim 64, G 1 (16
+    rows, every third padded over its last 200 keys) in fine-q, coarse-q
+    and bidirectional mode against the unsharded operator on the kernel
+    path; (c) 3 AdamW steps through ``train(..., mesh=make_mesh((4,),
+    ("data",)))``.  In each, #1-#4 launch once per shard, level and
+    layer, exactly, and no plain version runs.  Then every distinct band
+    kernel call of (a)-(c) is held against its plain version on the
+    inputs it was given.  Returns (c)'s launches."""
+    import tempfile
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.h1d_attention import h1d_attention
+    from repro_torch.data import ZipfLM
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import get_model
+    from repro_torch.parallel import sp_attention as sp
+    from repro_torch.train import (TrainConfig, batch_to_device, train,
+                                   tokens_per_s)
+    from repro_torch.tree import tree_leaves, tree_unflatten_like
+
+    cfg = get_config("h1d-lm-53m")
+    fns = get_model(cfg)
+    layers = cfg.num_layers
+    meshes = {d: make_mesh((d,), ("data",), device=dev) for d in (4, 2)}
+
+    # (a) the whole model's gradient, sharded against unsharded
+    params = fns.init(cfg, seed=1, device=dev)
+    batch = batch_to_device(ZipfLM(vocab_size=cfg.vocab_size, seq_len=L,
+                                   batch_per_host=2, seed=0).batch(0), dev)
+    for d, mesh in meshes.items():
+        counts = {}
+        grads_against_plain(
+            f"sp train (a) d={d}", params,
+            lambda p: fns.loss(p, cfg, batch)[0],
+            run=lambda mesh=mesh, counts=counts: counted(
+                counts, sp.sp_scope(mesh)),
+            ref=contextlib.nullcontext, names=(f"sp d={d}", "unsharded"))
+        need_counts(f"sp train (a) d={d}", counts,
+                    sp_expected(d, L, layers, "fine-q"))
+
+    # (b) the operator alone, in the three modes
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rows = 16
+    w = torch.ones((rows, L), device=dev)
+    w[::3, L - 200:] = 0.0
+    worst = {}
+    for mode, (causal, causal_mode) in SP_MODES.items():
+        q = torch.randn((rows, 1, L, D), generator=gen, device=dev)
+        k = torch.randn((rows, L, D), generator=gen, device=dev)
+        v = torch.randn((rows, L, D), generator=gen, device=dev)
+        cot = torch.randn((rows, 1, L, D), generator=gen, device=dev)
+        kw = dict(nr=NR, causal=causal, causal_mode=causal_mode,
+                  kv_weight=w)
+
+        def run(fn):
+            x = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            out = fn(*x)
+            return out.detach(), torch.autograd.grad(out, x, cot)
+        counts = {}
+        with counted(counts):
+            out, g = run(lambda *x: sp.sp_h1d_attention(
+                *x, mesh=meshes[4], **kw))
+        need_counts(f"sp train (b) {mode}", counts,
+                    sp_expected(4, L, 1, mode))
+        ref_out, ref_g = run(lambda *x: h1d_attention(*x, **kw))
+        _, ef, _ = compare(f"sp operator {mode} forward", [out], [ref_out],
+                           SP_OP_FWD_TOL, ("row",))
+        _, eb, _ = compare(f"sp operator {mode} dq/dk/dv", g, ref_g,
+                           GRAD_TOL, ("row", "row", "row"))
+        worst[mode] = dict(forward=ef, backward=eb)
+    log(f"sp train (b) sp_h1d_attention d=4 against the unsharded operator "
+        f"(row-scaled; forward <= {SP_OP_FWD_TOL}, q/k/v gradients <= "
+        f"{GRAD_TOL}): {json.dumps(worst)}")
+    del params
+
+    # (c) 3 AdamW steps through train() on a 4-way mesh
+    steps, nb = 3, 8
+    data = ZipfLM(vocab_size=cfg.vocab_size, seq_len=L, batch_per_host=nb,
+                  seed=0)
+    sp_counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tc = TrainConfig(peak_lr=3e-4, warmup=5, ckpt_every=0, ckpt_dir=tmp,
+                         log_every=1)
+        sp.DISPATCHES.clear()
+        with counted(sp_counts):
+            state, metrics = train(cfg, tc, data, steps, device=dev,
+                                   mesh=meshes[4], log=log)
+    need_counts("sp train (c)", sp_counts,
+                sp_expected(4, L, layers * steps, "fine-q"))
+    if sp.DISPATCHES.get("h1d_attention") != layers * steps:
+        raise AssertionError(f"sp train (c): {sp.DISPATCHES} SP operator "
+                             f"calls for {steps} steps of {layers} layers")
+    hist = metrics["history"]
+    losses = [h["loss"] for h in hist]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"sp train (c): non-finite loss {losses}")
+    stats = dict(shards=4, steps=steps, batch=nb, seq=L, losses=losses,
+                 step_ms=[h["step_ms"] for h in hist],
+                 median_step_ms=float(np.median([h["step_ms"]
+                                                 for h in hist[1:]])),
+                 tokens_per_s=tokens_per_s(hist, nb * L),
+                 launches={k: c for k, c in sp_counts.items() if c})
+    log(f"sp train (c): {json.dumps(stats)}; unsharded (phase 6, same "
+        f"call): median step {train_stats['median_step_ms']:.1f} ms, "
+        f"{train_stats['tokens_per_s']:.0f} tokens/s")
+
+    # every distinct band kernel call of (a)-(c), kernel against plain
+    seen = {}
+    with band_calls(seen):
+        params = tree_leaves(state.params)
+        ps = [p.detach().requires_grad_(True) for p in params]
+        big = batch_to_device(data.batch(0), dev)
+        with sp.sp_scope(meshes[4]):
+            loss = fns.loss(tree_unflatten_like(state.params, ps), cfg,
+                            big)[0]
+        torch.autograd.grad(loss, ps)
+        ps = [p.detach().requires_grad_(True) for p in params]
+        with sp.sp_scope(meshes[2]):
+            loss = fns.loss(tree_unflatten_like(state.params, ps), cfg,
+                            batch)[0]
+        torch.autograd.grad(loss, ps)
+        del ps, loss
+        for causal, causal_mode in SP_MODES.values():
+            x = [torch.randn(s, generator=gen, device=dev).requires_grad_(
+                True) for s in ((rows, 1, L, D), (rows, L, D), (rows, L, D))]
+            out = sp.sp_h1d_attention(*x, mesh=meshes[4], nr=NR,
+                                      causal=causal, causal_mode=causal_mode,
+                                      kv_weight=w)
+            torch.autograd.grad(out.square().sum(), x)
+    kernels.reset_counts()
+    check_band_calls("sp train kernel shapes", seen)
+    del state, seen
+    torch.cuda.empty_cache()
+    return sp_counts
+
+
+def margins_of(eng, into):
+    """Record, for every token ``eng`` takes, the top-2 margin of what it
+    took the argmax of (the logits, plus the noise where it samples),
+    under the request's uid in ``into``."""
+    sample = eng._sample
+    drawn = {}
+    noise = eng._noise
+
+    def noted(rows, reqs, vocab, tick):
+        drawn["g"] = noise(rows, reqs, vocab, tick)
+        return drawn["g"]
+
+    def guarded(logits, rows, reqs, tick):
+        out = sample(logits, rows, reqs, tick)
+        z = logits.float() + (0 if eng.greedy else drawn["g"])
+        top2 = z.topk(2, dim=-1).values
+        gap = (top2[:, 0] - top2[:, 1]).tolist()
+        for i, r in enumerate(reqs):
+            if r is not None:
+                into.setdefault(r.uid, []).append(gap[i])
+        return out
+    eng._noise, eng._sample = noted, guarded
+    return eng
+
+
+def phase_cq_serve(cfg, params, fns, reqs, dense_stats, dev):
+    """Phase 4's 16 requests on ``h1d-lm-53m`` with ``causal_mode=
+    'coarse-q'`` (same weights, 8 slots, max_len 2048, prompts
+    unbucketed): #1 in ``l0_causal`` and ``coarse_causal`` in prefill, #5
+    and #6 in decode, no plain version; then the same requests with the
+    twelve call sites on their plain versions: every request whose
+    top-2 margins all exceed LOGIT_TOL on the kernel path gives the
+    plain path's tokens.  Returns the kernel run's launches."""
+    from repro_torch.serve import Request, ServeEngine
+
+    cq = dataclasses.replace(cfg, causal_mode="coarse-q")
+    work = [(r.uid, r.prompt) for r in reqs]
+    margins = {}
+    eng = margins_of(ServeEngine(cq, params, slots=8, max_len=LMAX), margins)
+    if eng._bucket_len(100) != 100:
+        raise AssertionError("coarse-q engine buckets its prompts")
+    outs, stats, counts = run_engine(eng, work, fns)
+    need = ("band_attention_fwd[l0_causal]",
+            "band_attention_fwd[coarse_causal]", "decode_attend_fused",
+            "update_cache_fused")
+    missing = [k for k in need if not counts.get(k)]
+    if missing or counts.get("band_attention_sub_fwd"):
+        raise AssertionError(f"cq serve: {missing} not launched, or the "
+                             f"fine-q sub level ran: {counts}")
+    del eng
+    eng = ServeEngine(cq, params, slots=8, max_len=LMAX)
+    rs = [Request(uid=u, prompt=p, max_new_tokens=PAGED_NEW)
+          for u, p in work]
+    for r in rs:
+        eng.submit(r)
+    with plain_kernels():
+        eng.run()
+    plain = {r.uid: list(r.out_tokens) for r in rs}
+    guarded = [u for u, g in margins.items() if min(g) > LOGIT_TOL]
+    bad = [u for u in guarded if outs[u] != plain[u]]
+    if bad:
+        raise AssertionError(f"cq serve: requests {bad} differ from the "
+                             f"plain path's tokens")
+    stats.update(guarded=len(guarded))
+    log(f"cq serve: {json.dumps(stats)}")
+    log(f"cq serve: every margin-guarded request ({len(guarded)} of "
+        f"{len(work)}) gave the plain path's tokens; fine-q dense engine "
+        f"(phase 4, same call): {dense_stats['tokens_per_s']:.1f} "
+        f"tokens/s, decode {dense_stats['decode_ms_per_tick']:.2f} "
+        f"ms/tick, prefill {dense_stats['prefill_ms_per_call']:.2f} "
+        f"ms/call")
+    return counts
+
+
+def phase_sample_serve(cfg, params, fns, reqs, dense_stats, dev):
+    """Phase 4's requests sampled (``greedy=False, seed=0``) at 8 slots,
+    twice, and at 1 slot: the two 8-slot runs give identical tokens, and
+    every request whose top-2 margins of logits plus noise all exceed
+    LOGIT_TOL gives the same tokens at 1 slot (a request's noise is its
+    own: no slot, batch or pad row changes it); #1, #2, #5 and #6
+    launched, no plain version.  Returns the first run's launches."""
+    from repro_torch.serve import ServeEngine
+
+    work = [(r.uid, r.prompt) for r in reqs]
+    runs, margins = {}, {}
+    for name, slots in (("a_slots8", 8), ("b_slots8", 8), ("c_slots1", 1)):
+        eng = ServeEngine(cfg, params, slots=slots, max_len=LMAX,
+                          greedy=False, seed=0)
+        if name == "a_slots8":
+            margins_of(eng, margins)
+        outs, stats, counts = run_engine(eng, work, fns)
+        runs[name] = (outs, stats, counts)
+        log(f"sample {name}: {json.dumps(stats)}")
+        del eng
+    first = runs["a_slots8"][2]
+    missing = [k for k in ("band_attention_fwd[l0_causal]",
+                           "band_attention_sub_fwd", "decode_attend_fused",
+                           "update_cache_fused") if not first.get(k)]
+    if missing:
+        raise AssertionError(f"sample: {missing} not launched")
+    a, b, c = (runs[n][0] for n in ("a_slots8", "b_slots8", "c_slots1"))
+    if a != b:
+        raise AssertionError("sample: two runs of one seed differ")
+    guarded = [u for u, g in margins.items() if min(g) > LOGIT_TOL]
+    bad = [u for u in guarded if a[u] != c[u]]
+    if bad:
+        raise AssertionError(f"sample: requests {bad} differ between 8 "
+                             f"slots and 1")
+    greedy = {r.uid: list(r.out_tokens) for r in reqs}
+    same = sum(x == y for u in a for x, y in zip(a[u], greedy[u]))
+    log(f"sample: two 8-slot runs identical; {len(guarded)} of {len(work)} "
+        f"requests guarded (top-2 margins of logits + noise > {LOGIT_TOL}) "
+        f"and equal at 1 slot ({sum(a[u] == c[u] for u in a)} of "
+        f"{len(a)} equal in all); {same} of {PAGED_NEW * len(a)} tokens "
+        f"equal phase 4's greedy ones; greedy dense engine (phase 4, same "
+        f"call): {dense_stats['tokens_per_s']:.1f} tokens/s")
+    return first
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
@@ -1872,9 +2276,17 @@ def main() -> int:
         next(r["nlev"] for r in sp_rows if "nlev" in r), dev)
     sp_s += time.perf_counter() - t_sp
     log(f"phase sp took {sp_s:.1f}s (kernel rows and serving)")
+    cq_serve_counts = phase_cq_serve(cfg, params, fns, reqs, serve_stats,
+                                     dev)
+    sample_counts = phase_sample_serve(cfg, params, fns, reqs, serve_stats,
+                                       dev)
     del params, fns, reqs
-    train_counts = phase_train(dev)
+    torch.cuda.empty_cache()
+    train_counts, train_stats = phase_train(dev)
     phase_grads(dev)
+    t_sp = time.perf_counter()
+    sp_train_counts = phase_sp_train(dev, train_stats)
+    log(f"phase sp train took {time.perf_counter() - t_sp:.1f}s")
     lra_counts, cq_counts = phase_lra(dev)
     for row in rows:
         key = row["name"]
@@ -1883,7 +2295,10 @@ def main() -> int:
                    "sp": sp_counts.get(key, 0),
                    "train": train_counts.get(key, 0),
                    "lra": lra_counts.get(key, 0),
-                   "coarse_q_train": cq_counts.get(key, 0)}
+                   "coarse_q_train": cq_counts.get(key, 0),
+                   "sp_train": sp_train_counts.get(key, 0),
+                   "cq_serve": cq_serve_counts.get(key, 0),
+                   "sample": sample_counts.get(key, 0)}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         row["kernel_ms"] = row["ms"]

@@ -27,8 +27,9 @@ log-sum-exp shift (:func:`_stream_combine`).
 Inside ``parallel.sp_attention.sp_scope(mesh)`` a sequence whose local
 slab ``L/d`` holds a whole ``nr``-row block runs the whole hierarchy
 sharded over the mesh (``sp_h1d_attention``: local kernels, halo
-epilogue, gathered deep levels; forward only).  Shorter sequences stay
-on the single-launch kernels.
+epilogue, gathered deep levels; differentiable, so a training step in
+the scope trains sequence-parallel).  Shorter sequences stay on the
+single-launch kernels.
 
 Differentiable end to end: ``band_attention`` carries the backward
 kernels, and every max and floor here is ``torch.maximum``, which splits

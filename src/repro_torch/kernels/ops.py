@@ -17,7 +17,7 @@ module attributes at call time, so rerouting ``h1d_block.<name>`` /
 
 Inside ``parallel.sp_attention.sp_scope(mesh)`` a level whose local
 query slab holds a whole query block runs sharded over the mesh
-(``sp_band_attention``, forward only); shorter shapes stay on the
+(``sp_band_attention``, differentiable); shorter shapes stay on the
 single-launch kernels.
 """
 from __future__ import annotations

@@ -3,7 +3,7 @@ the forward, backward and optimizer parts of an AdamW step of the paper
 LM.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_train \
-        [--arch h1d-lm-53m] [--batch 8] [--seq 1024] [--out PATH]
+        [--arch h1d-lm-53m] [--batch 8] [--seq 1024] [--sp N] [--out PATH]
 
 Seeded random weights and ``ZipfLM`` tokens.  The method is
 ``profile_serve``'s: for each part, the host wall time per call (ending
@@ -14,7 +14,12 @@ time by group: matrix products, this package's band kernels of the
 forward and of the backward, and the rest (eager elementwise ops,
 reductions, copies).  The parts are the loss (forward), the gradient of
 a fresh forward's loss (backward), and the optimizer update, then the
-whole ``make_train_step`` step.  Needs a CUDA card.
+whole ``make_train_step`` step.  ``--sp N`` runs every part inside
+``sp_scope`` of an ``N``-way one-axis mesh on the card, as ``train(...,
+mesh=)`` does: each attention call splits its sequence into ``N``
+shards, so the band kernels' groups count one launch a shard and the
+halo exchange, edge terms and row merges land in "other".  Needs a CUDA
+card.
 """
 from __future__ import annotations
 
@@ -26,9 +31,11 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.data import ZipfLM
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.profile_serve import profiled
 from repro_torch.models import get_model
 from repro_torch.optim import apply_updates
+from repro_torch.parallel.sp_attention import sp_scope
 from repro_torch.train import (TrainConfig, batch_to_device, init_state,
                                make_optimizer, make_train_step)
 from repro_torch.tree import tree_leaves, tree_unflatten_like
@@ -41,10 +48,13 @@ def main(argv=None):
     ap.add_argument("--seq", type=int, default=1024)
     ap.add_argument("--calls", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--sp", type=int, default=1,
+                    help="shards of a sequence-parallel mesh (1: none)")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args(argv)
 
     dev = resolve_device(None)
+    mesh = make_mesh((args.sp,), ("data",), device=dev)
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_config(args.arch)
     tc = TrainConfig(peak_lr=3e-4, warmup=5, ckpt_every=0)
@@ -60,7 +70,8 @@ def main(argv=None):
     graphs = []
 
     def loss():
-        return fns.loss(params, cfg, batch)[0]
+        with sp_scope(mesh):
+            return fns.loss(params, cfg, batch)[0]
 
     def forward():          # the graph is built, then freed with the loss
         loss()
@@ -78,10 +89,11 @@ def main(argv=None):
     step_fn = make_train_step(cfg, tc)
 
     def step():
-        step_fn(state, batch)
+        with sp_scope(mesh):
+            step_fn(state, batch)
 
     res = {"device": torch.cuda.get_device_name(dev), "arch": cfg.name,
-           "batch": args.batch, "seq": args.seq}
+           "batch": args.batch, "seq": args.seq, "sp_shards": args.sp}
     with torch.no_grad():
         optimizer()                                      # warm-up
         res["optimizer"] = profiled(optimizer, args.calls)

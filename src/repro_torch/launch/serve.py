@@ -1,15 +1,19 @@
-"""Serving CLI: batched greedy generation with the ServeEngine on
-seeded random weights.
+"""Serving CLI: batched generation with the ServeEngine on seeded
+random weights, greedy or sampled (``--sample``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch h1d-lm-53m \
         --requests 8 --slots 4 --new-tokens 16 --max-len 512
 
 runs on the CUDA card; ``--device cpu`` runs the plain PyTorch path (use
-it with ``--smoke``).  Prompt lengths are drawn from ``--seed`` in
-``[--min-prompt, --max-prompt]``.  ``--paged`` serves from the paged
-page pool (``--pool-pages``, prefix sharing, copy on write, swap
-preemption) and ``--cache-dtype int8`` stores its pages as int8
-(``--quant-levels``):
+it with ``--smoke``).  ``--seed`` seeds three things: the weights, the
+prompts (lengths drawn in ``[--min-prompt, --max-prompt]``, then their
+tokens) and, with ``--sample``, the engine's sampling noise
+(``ServeEngine(seed=)``: one stream per request, from the seed and the
+request's uid).  ``--causal-mode coarse-q`` serves the model with
+coarse-q prefill (unbucketed prompts) and the fine-q decode.
+``--paged`` serves from the paged page pool (``--pool-pages``, prefix
+sharing, copy on write, swap preemption) and ``--cache-dtype int8``
+stores its pages as int8 (``--quant-levels``):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --paged \
         --cache-dtype int8 --requests 8 --slots 4 --max-len 512
@@ -25,6 +29,7 @@ kernels (``parallel/sp_attention.py``):
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -49,7 +54,15 @@ def main(argv=None):
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--min-prompt", type=int, default=8)
     ap.add_argument("--max-prompt", type=int, default=32)
-    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seeds the weights, the prompts and, with "
+                         "--sample, the sampling noise")
+    ap.add_argument("--sample", action="store_true",
+                    help="sample each token (Gumbel-max over the logits) "
+                         "instead of taking the argmax")
+    ap.add_argument("--causal-mode", default=None,
+                    choices=["fine-q", "coarse-q"],
+                    help="override the config's causal_mode")
     ap.add_argument("--paged", action="store_true",
                     help="serve from the paged hierarchical cache pool "
                          "(prefix sharing, copy on write, preemption) "
@@ -80,12 +93,14 @@ def main(argv=None):
 
     dev = resolve_device(args.device)
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
+    if args.causal_mode is not None:
+        cfg = dataclasses.replace(cfg, causal_mode=args.causal_mode)
     params = get_model(cfg).init(cfg, seed=args.seed, device=dev)
     mesh = (make_mesh((args.sp_data,), ("data",), device=dev)
             if args.sp_data > 1 else None)
     eng = ServeEngine(cfg, params, slots=args.slots, max_len=args.max_len,
-                      mesh=mesh, paged=args.paged,
-                      pool_pages=args.pool_pages,
+                      greedy=not args.sample, seed=args.seed, mesh=mesh,
+                      paged=args.paged, pool_pages=args.pool_pages,
                       cache_dtype=args.cache_dtype,
                       quant_levels=args.quant_levels,
                       token_budget=args.token_budget,
@@ -109,8 +124,9 @@ def main(argv=None):
     total = sum(len(r.out_tokens) for r in reqs)
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu")
-    sp_note = f", {args.sp_data} shards" if args.sp_data > 1 else ""
-    print(f"[serve] {cfg.name} on {name}{sp_note}: {len(reqs)} requests, "
+    note = (f", {args.sp_data} shards" if args.sp_data > 1 else "") + (
+        ", sampled" if args.sample else "") + f", {cfg.causal_mode}"
+    print(f"[serve] {cfg.name} on {name}{note}: {len(reqs)} requests, "
           f"{total} tokens, {dt:.3f}s ({total / dt:.1f} tok/s)")
     if args.paged:
         st = eng.pool.stats

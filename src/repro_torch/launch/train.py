@@ -7,8 +7,19 @@ stream, with checkpoint/restart.
 runs ``repro_torch.train.loop.train`` on the CUDA card; ``--device cpu``
 runs the plain PyTorch path (use it with ``--smoke``).  Weights are drawn
 from ``--seed`` and so is the data (``--data zipf|hier``).  A run with a
-checkpoint under ``--ckpt-dir`` resumes from it.  Meshes, sequence
-parallelism and telemetry are later slices.
+checkpoint under ``--ckpt-dir`` resumes from it.
+
+``--sp --mesh N`` trains with sequence parallelism: every step runs
+inside ``sp_scope`` of an ``N``-way one-axis mesh (``launch.mesh``), so
+each attention call splits its sequence into ``N`` shards on the one
+device, runs the band kernels per shard (forward and backward) and
+exchanges the shard-boundary blocks:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --sp --mesh 4 \
+        --steps 20 --batch 8 --seq 1024
+
+``--mesh`` takes one axis; a ``DATAxMODEL`` shape raises, as
+``make_mesh`` does.  Telemetry is not ported.
 """
 from __future__ import annotations
 
@@ -17,6 +28,7 @@ import argparse
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data import HierarchicalLM, ZipfLM
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.train import TrainConfig, tokens_per_s, train
 
 
@@ -36,9 +48,22 @@ def main(argv=None):
     ap.add_argument("--compress", default="none", choices=["none", "int8"])
     ap.add_argument("--data", default="zipf", choices=["zipf", "hier"])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mesh", default="1",
+                    help="shards of the one 'data' axis, e.g. 4 (a "
+                         "DATAxMODEL shape raises)")
+    ap.add_argument("--sp", action="store_true",
+                    help="sequence-parallel attention: shard L over the "
+                         "--mesh axis and run the band kernels per shard "
+                         "with a halo exchange (needs --mesh N, N > 1)")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
+    shape = tuple(int(x) for x in args.mesh.split("x"))
+    mesh = make_mesh(shape, ("data", "model")[:len(shape)], device=dev)
+    if args.sp and mesh.d < 2:
+        ap.error("--sp needs --mesh N with N > 1 shards")
+    if mesh.d > 1 and not args.sp:
+        ap.error(f"--mesh {args.mesh} shards only the sequence: add --sp")
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
     tc = TrainConfig(peak_lr=args.lr, total_steps=args.steps,
                      warmup=max(10, args.steps // 20),
@@ -48,9 +73,11 @@ def main(argv=None):
     src_cls = ZipfLM if args.data == "zipf" else HierarchicalLM
     data = src_cls(vocab_size=cfg.vocab_size, seq_len=args.seq,
                    batch_per_host=args.batch, seed=args.seed)
-    print(f"[train] {cfg.name} on {dev}: batch {args.batch} x seq "
+    print(f"[train] {cfg.name} on {dev}, mesh {mesh.d} x '{mesh.axis}'"
+          f"{' (sp)' if args.sp else ''}: batch {args.batch} x seq "
           f"{args.seq}")
-    state, metrics = train(cfg, tc, data, args.steps, device=dev)
+    state, metrics = train(cfg, tc, data, args.steps, device=dev,
+                           mesh=mesh if args.sp else None)
     hist = metrics["history"]
     rate = tokens_per_s(hist, args.batch * args.seq)
     print(f"[train] done: {len(hist)} steps"

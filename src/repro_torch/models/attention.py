@@ -7,9 +7,10 @@ of a layer is a ``core.h1d_decode.H1DCache`` with ``batch * kv_heads``
 folded into its rows (row ``b*Hkv + h``); on the paged path it is a
 per-layer page pool (``core.h1d_decode.PagedH1DCache`` or
 ``QuantPagedH1DCache``) addressed through per-tick page tables.  Prefill
-and decode serve fine-q attention only (coarse-q serving, full and
-sliding-window attention are later slices and raise
-``NotImplementedError``).
+runs the operator in the config's ``causal_mode`` and builds the fine-q
+hierarchical cache either way; decode is the fine-q decode for both
+modes, as in the reference.  Full and sliding-window attention are not
+ported and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -60,13 +61,6 @@ def _project_qkv(p, cfg: ModelConfig, x, positions):
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
-
-
-def _check_fine_q(cfg: ModelConfig) -> None:
-    if cfg.causal_mode != "fine-q":
-        raise NotImplementedError(
-            f"prefill and decode serve fine-q attention; causal_mode="
-            f"{cfg.causal_mode!r} is trained and encoded, not served")
 
 
 def _attend(p, cfg: ModelConfig, q, k, v, kv_weight, causal: bool):
@@ -120,7 +114,6 @@ def attn_decode(p, cfg: ModelConfig, x, t, cache, *, page_tables=None,
     sequence-sharded cache (``parallel.sp_attention.SPCache``, inside
     ``sp_scope``) takes the tick's shard geometry ``sp_tables``."""
     _check_supported(cfg)
-    _check_fine_q(cfg)
     B = x.shape[0]
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     G = hq // hkv
@@ -151,10 +144,10 @@ def attn_decode(p, cfg: ModelConfig, x, t, cache, *, page_tables=None,
 
 
 def prefill_into_cache(p, cfg: ModelConfig, x, positions, Lmax: int):
-    """Run attention over a prefix AND build the decode cache.
-    Returns (out (B, S, d), cache)."""
+    """Run attention over a prefix (in ``cfg.causal_mode``) AND build the
+    decode cache (fine-q, from the prefix's keys and values).  Returns
+    (out (B, S, d), cache)."""
     _check_supported(cfg)
-    _check_fine_q(cfg)
     B, S, _ = x.shape
     hkv, hd = cfg.num_kv_heads, cfg.head_dim
     q, k, v = _project_qkv(p, cfg, x, positions)

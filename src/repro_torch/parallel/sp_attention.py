@@ -31,8 +31,12 @@ devices.
   kernel.  The band geometry is built on the host once per tick
   (:func:`sp_tables`) and shared by every layer.
 
-Forward only: SP training (the backward through the halo exchange) is a
-later slice.
+Differentiable: every shard's level runs through the autograd Functions
+of ``kernels.ops.band_attention`` (the backward kernels #3 and #4 per
+shard on the card), and the halo packs, edge terms, row merges and
+gathered deep levels are out-of-place tensor ops, so ``autograd``
+carries the gradient of q, k, v and ``kv_weight`` back through the
+exchange (SP training, ``train.loop.train(..., mesh=)``).
 
 Entry points: ``sp_band_attention`` (one banded level, every mode),
 ``sp_h1d_attention`` (the whole operator), ``sp_decode_attend`` /
@@ -132,12 +136,6 @@ def _local_region():
         _state.ctx = prev
 
 
-def _forward_only(*tensors) -> None:
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
-        raise NotImplementedError("SP training is a later slice")
-
-
 # ---------------------------------------------------------------------------
 # collectives over the shards' outputs, halo pack and edge correction
 # ---------------------------------------------------------------------------
@@ -210,19 +208,24 @@ def _edge_term(qe, ke, ve, we, mask):
 def _merge_rows(acc, corr, start: int):
     """LSE-merge a correction triple into rows [start, start+n) of a
     (y, dn, m) accumulator (the cross-shard epilogue of
-    ``_stream_combine``)."""
+    ``_stream_combine``).  Out of place: the merged rows are concatenated
+    with the untouched ones, so every tensor autograd saved stays
+    intact."""
     y, dn, m = acc
     yl, dl, ml = corr
-    sl = slice(start, start + yl.shape[-2])
+    n = yl.shape[-2]
+    sl = slice(start, start + n)
     m0 = m[..., sl]
     mn = torch.maximum(m0, ml)
     e0 = torch.exp(m0 - mn)
     el = torch.exp(ml - mn)
-    y, dn, m = y.clone(), dn.clone(), m.clone()
-    y[..., sl, :] = y[..., sl, :] * e0[..., None] + yl * el[..., None]
-    dn[..., sl] = dn[..., sl] * e0 + dl * el
-    m[..., sl] = mn
-    return y, dn, m
+
+    def put(a, rows, dim):
+        return torch.cat([a.narrow(dim, 0, start), rows,
+                          a.narrow(dim, start + n, a.shape[dim] - start - n)],
+                         dim)
+    return (put(y, y[..., sl, :] * e0[..., None] + yl * el[..., None], -2),
+            put(dn, dn[..., sl] * e0 + dl * el, -1), put(m, mn, -1))
 
 
 @functools.lru_cache(maxsize=1024)
@@ -274,7 +277,6 @@ def sp_band_attention(q, k, v, w, *, nr: int, mode: str, ratio: int = 1,
     from ..kernels.ops import band_attention
 
     d = mesh.d
-    _forward_only(q, k, v, w)
     _note_dispatch("band_attention")
     B, G, Lq, dk = q.shape
     dv = v.shape[-1]
@@ -343,7 +345,6 @@ def sp_h1d_attention(q, k, v, *, mesh: SPMesh, nr: int = 16, causal: bool = Fals
     d = mesh.d
     B, G, L, D = q.shape
     Dk, Dv = k.shape[-1], v.shape[-1]
-    _forward_only(q, k, v, kv_weight)
     _note_dispatch("h1d_attention")
     Lloc = _validate_sp_shape(L, d, nr, "sp_h1d_attention")
     M = hc.num_levels(L, nr)

@@ -2,14 +2,19 @@
 single-token decode with hierarchical KV caches, on dense cache slots or
 a paged page pool.
 
-Port of ``repro.serve.engine.ServeEngine`` for greedy decoding, with the
-reference's semantics:
+Port of ``repro.serve.engine.ServeEngine``, with the reference's
+semantics:
 
 * admission is planned per tick by the continuous-batching scheduler
   (``serve/scheduler.py``: token budget, chunked prefill, lookahead);
 * prompts are right-padded to power-of-two length buckets (capped at
   ``max_len``) and every planned request of one bucket is prefilled in
-  one batched call whose row count is padded to a power of two;
+  one batched call whose row count is padded to a power of two; a
+  ``causal_mode='coarse-q'`` model is served unbucketed (its prefill
+  runs the coarse-q operator, its decode the fine-q decode);
+* ``greedy=False`` samples each token as ``argmax(logits + g)`` with
+  Gumbel noise ``g`` (what ``jax.random.categorical`` computes), drawn
+  from one seeded generator per request (:meth:`ServeEngine._noise`);
 * on dense slots a slot owns ``Hkv`` consecutive rows of every cache
   array; admission writes the prefilled rows of a group in one pass;
 * ``paged=True`` serves from the paged pool (``serve/paged_cache.py``):
@@ -38,9 +43,8 @@ reference's semantics:
   a paged tick builds its two page tables once on the host and copies
   them to the card in one non-blocking transfer shared by every layer.
 
-Everything runs under ``torch.inference_mode()``.  Sampling, coarse-q
-attention and telemetry are later slices and raise
-``NotImplementedError``.
+Everything runs under ``torch.inference_mode()``.  Telemetry is not
+ported.
 """
 from __future__ import annotations
 
@@ -91,10 +95,13 @@ class ServeEngine:
     shards and prefill and decode run inside ``sp_scope(mesh)``.
     Requires ``attention='h1d'`` and a padded ``max_len`` that is a
     multiple of ``d * nr`` (one level-0 block per shard); a 1-way mesh
-    serves as without one."""
+    serves as without one.
+
+    ``greedy=False`` samples; ``seed`` seeds the noise (see
+    :meth:`_noise`)."""
 
     def __init__(self, cfg: ModelConfig, params, *, slots: int = 8,
-                 max_len: int = 512, greedy: bool = True,
+                 max_len: int = 512, greedy: bool = True, seed: int = 0,
                  overflow: str = "error", mesh=None, sp_axis: str = "data",
                  paged: bool = False,
                  pool_pages: Optional[int] = None, prefix_sharing: bool = True,
@@ -146,12 +153,19 @@ class ServeEngine:
                     f"nr={cfg.nr} block per shard on a {sp_d}-way "
                     f"'{sp_axis}' axis; use fewer shards or a longer "
                     f"max_len")
-        if not greedy:
-            raise NotImplementedError("sampling is not ported yet; the "
-                                      "engine decodes greedily")
-        if cfg.attention != "h1d" or cfg.causal_mode != "fine-q":
+        if cfg.attention != "h1d":
             raise NotImplementedError(
-                "the ported engine serves h1d fine-q attention")
+                f"the ported engine serves h1d attention, not "
+                f"{cfg.attention!r}")
+        self.greedy = greedy
+        self.seed = seed
+        # one noise generator per request in flight, keyed by id(req)
+        self._streams: Dict[int, torch.Generator] = {}
+        # prompt length bucketing pads a prompt with real (weight-1)
+        # tokens; off for h1d coarse-q, whose coarse QUERIES average the
+        # pad embeddings across cluster boundaries and shift the logits
+        # at the true last token (the reference's rule)
+        self._bucket = cfg.causal_mode == "fine-q"
         self.cache_dtype = cache_dtype
         self.quant_levels = quant_levels
         self.cfg = cfg
@@ -229,8 +243,58 @@ class ServeEngine:
         self.queue.append(QueueEntry(req=req, prompt=prompt))
 
     def _bucket_len(self, S: int) -> int:
-        """Padded prompt length: next power of two capped at max_len."""
+        """Padded prompt length: next power of two capped at max_len
+        (``S`` itself when bucketing is off for the config)."""
+        if not self._bucket:
+            return S
         return max(S, min(1 << max(S - 1, 0).bit_length(), self.max_len))
+
+    # -- sampling ------------------------------------------------------
+    def _noise(self, rows: List[int], reqs: List[Optional[Request]],
+               vocab: int, tick: bool) -> torch.Tensor:
+        """Gumbel noise ``(len(rows), vocab)`` float32 for one sampling
+        call: a prefill group (``tick=False``; ``rows`` are the
+        destination slots, then ``slots, slots+1, ...`` for the pad rows,
+        as the reference folds its per-row keys) or a decode tick
+        (``tick=True``; ``rows`` are all the slots).  ``reqs[i]`` is the
+        request whose token row ``i`` samples, or None where the token is
+        dropped (pad rows, idle slots, chunked-prefill feeds): those rows
+        get zeros.
+
+        Each request draws from its own generator, seeded from
+        ``(seed, uid)`` and advanced by ``vocab`` uniforms per sampled
+        token, so its tokens depend on neither its slot, nor the other
+        requests, nor the pad rows of its bucket.  Requests with the same
+        uid share a stream.  (A test replaces this method to hand in the
+        reference's own draws.)"""
+        g = torch.zeros((len(rows), vocab), dtype=torch.float32,
+                        device=self.device)
+        tiny = torch.finfo(torch.float32).tiny
+        for i, req in enumerate(reqs):
+            if req is None:
+                continue
+            gen = self._streams.get(id(req))
+            if gen is None:
+                gen = torch.Generator(device=self.device)
+                gen.manual_seed(int(np.random.SeedSequence(
+                    [self.seed, req.uid]).generate_state(1, np.uint64)[0]))
+                self._streams[id(req)] = gen
+            u = torch.rand(vocab, generator=gen, device=self.device)
+            g[i] = -torch.log(-torch.log(u.clamp_(min=tiny)))
+        return g
+
+    def _sample(self, logits, rows, reqs, tick: bool) -> torch.Tensor:
+        """Next tokens (int32) of ``logits`` (R, V): the argmax, or with
+        ``greedy=False`` the argmax of ``logits + g`` (``_noise``)."""
+        if not self.greedy:
+            logits = logits.float() + self._noise(rows, reqs,
+                                                  logits.shape[-1], tick)
+        return logits.argmax(-1).to(torch.int32)
+
+    def _finish(self, s: int) -> None:
+        """Release slot ``s`` whose request is done, with its noise."""
+        self._streams.pop(id(self.req[s]), None)
+        self._release(s)
 
     def _stopped(self, req: Request, tok: int) -> bool:
         return bool(req.stop_tokens) and tok in req.stop_tokens
@@ -321,7 +385,13 @@ class ServeEngine:
             kept = self._paged_admit_writes(group, dst, caches)
             if not any(kept):
                 return
-        nxt = logits.argmax(-1).to(torch.int32).cpu().numpy()
+        # a row's token is sampled where it is kept and ends the prompt
+        # (a chunked or resumed prompt drops it); pad rows past the slots
+        rows = dst + list(range(self.slots, self.slots + gp - g))
+        takers = [e.req if kept[i] and len(e.prompt) == ns[i]
+                  and e.resume_token is None else None
+                  for i, e in enumerate(group.entries)] + [None] * (gp - g)
+        nxt = self._sample(logits, rows, takers, tick=False).cpu().numpy()
 
         if not self.paged:
             # slot s owns rows [s*r, (s+1)*r) of every cache array
@@ -374,7 +444,7 @@ class ServeEngine:
                     or chunk_n >= self.max_len - 1
                     or self._stopped(req, int(nxt[i])))
             if done:
-                self._release(s)
+                self._finish(s)
             else:
                 self._activate(s)
         self._set_slots(slot_w, tok_w, pos_w)
@@ -534,7 +604,10 @@ class ServeEngine:
         else:
             logits, self.caches = self.fns.decode_step(
                 self.params, self.cfg, self.caches, self.tokens, self.pos)
-        nxt = logits.argmax(-1).to(torch.int32)
+        nxt = self._sample(
+            logits, list(range(self.slots)),
+            [self.req[s] if self.active[s] and not self.feed[s] else None
+             for s in range(self.slots)], tick=True)
         self.tokens = nxt
         # freeze finished and idle slots: only slots active for THIS
         # decode advance, so an idle slot's writes never leave the cache
@@ -557,7 +630,7 @@ class ServeEngine:
                     or int(self.pos_host[s]) >= self.max_len - 1
                     or self._stopped(req, int(nxt_host[s])))
             if done:
-                self._release(s)
+                self._finish(s)
         if feed_idx:
             self.tokens[torch.as_tensor(feed_idx, device=self.device)] = (
                 torch.as_tensor(feed_tok, dtype=torch.int32,

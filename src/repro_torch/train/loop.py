@@ -6,8 +6,11 @@ Port of ``repro.train.loop`` for one card.  ``make_train_step`` returns
 reference's: gradients come from ``torch.autograd.grad`` of the model's
 loss (the band kernels carry their own backward), the optimizer builds
 new parameter and moment tensors, and the step counters live on the
-device.  ``train`` runs the single-host loop.  Telemetry spans and the
-sharded multi-pod path are later slices.
+device.  ``train`` runs the single-host loop; with a ``mesh`` of more
+than one shard each step runs inside ``sp_scope(mesh)``, so every
+attention call shards its sequence axis (sequence-parallel training, the
+reference's ``sp_step``).  Telemetry spans and the sharded multi-pod path
+are not ported.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from .. import resolve_device
 from ..models import ModelConfig, get_model
 from ..optim import (Optimizer, adafactor, adamw, apply_updates,
                      cosine_schedule, init_error_feedback, int8_compress)
+from ..parallel.sp_attention import sp_scope
 from ..tree import tree_leaves, tree_map, tree_unflatten_like
 
 
@@ -170,9 +174,14 @@ class Watchdog:
 
 
 def train(cfg: ModelConfig, tc: TrainConfig, data_source, num_steps: int,
-          *, state: Optional[TrainState] = None, device=None, log=print):
+          *, state: Optional[TrainState] = None, device=None, mesh=None,
+          log=print):
     """Single-host training with checkpoint/restart on ``device`` (default
-    ``cuda``; raises without a card).  Returns (state, metrics): the last
+    ``cuda``; raises without a card).  ``mesh`` (an ``SPMesh``,
+    ``launch.mesh.make_mesh((d,), ("data",))``) runs every step inside
+    ``sp_scope(mesh)``: the forward and backward of each attention call
+    shard its sequence over the mesh's ``d`` shards; ``None`` or a 1-way
+    mesh trains unsharded.  Returns (state, metrics): the last
     step's metrics plus ``history``, one ``{"step", "loss", "step_ms",
     "end_s"}`` per step run: the host time of the step, ending when its
     loss is read, and that end on the ``time.perf_counter`` clock."""
@@ -194,7 +203,8 @@ def train(cfg: ModelConfig, tc: TrainConfig, data_source, num_steps: int,
     for step in range(step0, num_steps):
         batch = batch_to_device(data_source.batch(step), dev)
         t0 = time.perf_counter()
-        state, metrics = train_step(state, batch)
+        with sp_scope(mesh):
+            state, metrics = train_step(state, batch)
         loss = float(metrics["loss"])          # waits for the device
         end = time.perf_counter()
         dt = end - t0

@@ -1279,3 +1279,124 @@ def test_sp_smoke_engine_on_card_matches_dense(dev):
         assert kernels.KERNELS["decode_attend_fused"][0].launches == 0
         assert not any(p.calls for _, p in kernels.KERNELS.values())
         assert got == want
+
+
+# ---------------------------------------------------------------------------
+# SP training, coarse-q and sampled serving
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("L,nr,D,d", [(1024, 16, 64, 4), (1024, 16, 64, 2),
+                                      (256, 8, 24, 4), (512, 16, 40, 4)])
+@pytest.mark.parametrize("causal,causal_mode", [(True, "fine-q"),
+                                                (True, "coarse-q"),
+                                                (False, "fine-q")])
+def test_sp_operator_grads_on_card(dev, L, nr, D, d, causal, causal_mode):
+    """``sp_h1d_attention``'s output and its q, k, v and key-weight
+    gradients on the card against the unsharded operator's on the card
+    (forward 2e-5, gradients 1e-4, row-scaled): per-shard slabs at every
+    local level, the sub level whose query block is the whole slab, and
+    the gathered deep levels (d = 4)."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import sp_attention as sp
+
+    gen = torch.Generator(device=dev).manual_seed(L + nr + D + d)
+    B, G = 3, 2
+    w = torch.ones((B, L), device=dev)
+    w[0, L - L // 5:] = 0.0
+    x = [_randn(gen, dev, B, G, L, D), _randn(gen, dev, B, L, D),
+         _randn(gen, dev, B, L, D), w]
+    cot = _randn(gen, dev, B, G, L, D)
+    kw = dict(nr=nr, causal=causal, causal_mode=causal_mode)
+
+    def run(fn):
+        ts = [t.clone().requires_grad_(True) for t in x]
+        out = fn(*ts)
+        return out.detach(), torch.autograd.grad(out, ts, cot)
+
+    kernels.reset_counts()
+    out, g = run(lambda q, k, v, w: sp.sp_h1d_attention(
+        q, k, v, mesh=make_mesh((d,), ("data",)), kv_weight=w, **kw))
+    assert kernels.KERNELS["band_attention_bwd"][0].launches >= d
+    assert not any(p.calls for _, p in kernels.KERNELS.values())
+    ref, want = run(lambda q, k, v, w: h1d_attention(q, k, v, kv_weight=w,
+                                                     **kw))
+    for got_, want_, tol in [(out, ref, 2e-5)] + [
+            (a, b, BWD_TOL) for a, b in zip(g, want)]:
+        mag = want_.double().abs()
+        if mag.dim() > 2:
+            mag = mag.amax(-1, keepdim=True)
+        err = ((got_.double() - want_.double()).abs()
+               / mag.clamp(min=1.0)).max()
+        assert torch.isfinite(got_).all() and float(err) <= tol, float(err)
+
+
+@pytest.mark.parametrize("d", [2, 4])
+def test_sp_smoke_training_on_card_matches_cpu(dev, d, tmp_path):
+    """Two AdamW steps of the smoke model through ``train(..., mesh=)``
+    on the card (#1-#4 launched, no plain version) give the CPU path's
+    losses within 1e-4, and the unsharded card run's."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import ZipfLM
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import TrainConfig, train
+
+    cfg = get_smoke_config("h1d-lm-53m")
+    tc = TrainConfig(peak_lr=1e-3, warmup=1, total_steps=10, ckpt_every=0,
+                     ckpt_dir=str(tmp_path))
+    data = ZipfLM(vocab_size=cfg.vocab_size, seq_len=256, batch_per_host=4,
+                  seed=5)
+    losses = {}
+    for device, sharded in (("cpu", True), ("cuda", True), ("cuda", False)):
+        mesh = make_mesh((d,), ("data",), device=device) if sharded else None
+        kernels.reset_counts()
+        _, m = train(cfg, tc, data, 2, device=device, mesh=mesh,
+                     log=lambda *_: None)
+        losses[device, sharded] = [h["loss"] for h in m["history"]]
+        if device == "cuda":
+            for name in kernels.TRAIN_KERNELS:
+                kernel, plain = kernels.KERNELS[name]
+                assert kernel.launches > 0 and plain.calls == 0, name
+    for key in (("cuda", True), ("cuda", False)):
+        np.testing.assert_allclose(losses[key], losses["cpu", True],
+                                   atol=1e-4)
+
+
+def test_coarse_q_and_sampled_smoke_engines_on_card(dev):
+    """The coarse-q smoke model served on the card gives the CPU path's
+    greedy tokens (#1 in ``coarse_causal``, #5 and #6 launched, no plain
+    version run); sampled on the card, one seed gives the same tokens
+    twice and at 1, 2 and 4 slots."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import get_model
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg = dataclasses.replace(get_smoke_config("h1d-lm-53m"),
+                              causal_mode="coarse-q")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 12, 30, 9, 17, 40)]
+
+    def serve(device, slots=2, **kw):
+        params = get_model(cfg).init(cfg, seed=2, device=device)
+        eng = ServeEngine(cfg, params, slots=slots, max_len=64, **kw)
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=6)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        kernels.reset_counts()
+        eng.run()
+        return [r.out_tokens for r in reqs]
+
+    want = serve("cpu")
+    got = serve("cuda")
+    counts = kernels.mode_launches()
+    assert counts.get(("band_attention_fwd", "coarse_causal"), 0) > 0
+    for name in ("decode_attend_fused", "update_cache_fused"):
+        assert kernels.KERNELS[name][0].launches > 0
+    assert not any(p.calls for _, p in kernels.KERNELS.values())
+    assert got == want
+    sampled = serve("cuda", greedy=False, seed=4)
+    assert sampled != got
+    for slots in (2, 1, 4):
+        assert serve("cuda", slots, greedy=False, seed=4) == sampled

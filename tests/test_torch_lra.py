@@ -430,16 +430,37 @@ def test_classifier_pooling_ignores_padding():
 # the coarse-q LM
 # ---------------------------------------------------------------------------
 
-def test_coarse_q_is_trained_not_served():
-    """Prefill and decode stay fine-q: a coarse-q LM config is refused
-    there (the engine refuses it too)."""
+def test_coarse_q_prefill_matches_reference():
+    """A coarse-q LM layer's ``prefill_into_cache`` against the
+    reference's on the same weights and inputs (S = 45, padded to 64
+    with weight-0 keys, Lmax 64): the attention output within TOL (it
+    ran level 0 in ``l0_causal`` and every coarse level in
+    ``coarse_causal``, never ``sub``), and the fine-q decode cache built
+    from the prefix's keys and values within TOL at every level."""
     import dataclasses
-    cfg = dataclasses.replace(get_smoke_config(LM), causal_mode="coarse-q")
-    fns = get_model(cfg)
-    params = fns.init(cfg, seed=0, device="cpu")
-    tok = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError):
-        fns.prefill(params, cfg, {"tokens": tok}, 32)
+    jattn = importlib.import_module("repro.models.attention")
+    tattn = importlib.import_module("repro_torch.models.attention")
+    jcfg = dataclasses.replace(jax_smoke(LM), causal_mode="coarse-q")
+    tcfg = dataclasses.replace(get_smoke_config(LM), causal_mode="coarse-q")
+    jparams, _ = jax_model(jcfg).init(jax.random.PRNGKey(5), jcfg)
+    jp = jax.tree.map(lambda a: np.asarray(a)[0], jparams["layers"]["attn"])
+    tp = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg,
+                         device="cpu")["layers"][0]["attn"]
+    rng = np.random.default_rng(11)
+    B, S = 2, 45
+    x = rng.standard_normal((B, S, jcfg.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S))
+    jout, jcache = jax.jit(functools.partial(
+        jattn.prefill_into_cache, cfg=jcfg, Lmax=64))(jp, x=x,
+                                                      positions=pos)
+    kernels.reset_counts()
+    tout, tcache = tattn.prefill_into_cache(tp, tcfg, *_t(x, pos), 64)
+    assert thb.band_attention_fwd_ref.calls == 1 + 2   # levels 0, 1, 2
+    assert thb.band_attention_sub_fwd_ref.calls == 0
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), **TOL)
+    for a, b in zip((tcache.k, tcache.v, *tcache.ck, *tcache.cv),
+                    (jcache.k, jcache.v, *jcache.ck, *jcache.cv)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
 
 
 def test_coarse_q_lm_loss_and_grads_match_reference():

@@ -353,14 +353,32 @@ def test_sp_band_attention_matches_jax(d, mode, ratio):
         _close(g.numpy(), x)
 
 
-def test_sp_prefill_is_forward_only():
-    q, k, v, w = map(torch.from_numpy, _operands(64, seed=3))
-    q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="SP training"):
-        sp.sp_h1d_attention(q, k, v, mesh=_mesh(2), nr=NR, causal=True)
-    with pytest.raises(NotImplementedError, match="SP training"):
-        sp.sp_band_attention(q, k, v, w, nr=NR, mode="l0_causal",
-                             mesh=_mesh(2))
+def test_sp_prefill_takes_gradients():
+    """The SP operator and one SP level are differentiable: at L 64 over
+    2 shards their gradients of q, k, v and the key weights match the
+    unsharded port's within 1e-5 of ``1 + max`` (the reference's SP
+    gradient bound; ``test_torch_sp_train.py`` holds them to JAX)."""
+    arrays = _operands(64, seed=3)
+
+    def grads(fn):
+        ts = [torch.from_numpy(a).requires_grad_(True) for a in arrays]
+        out = fn(*ts)
+        out = out if isinstance(out, tuple) else (out,)
+        return torch.autograd.grad(sum(o.square().sum() for o in out), ts)
+
+    def close(got, want):
+        for g, x in zip(got, want):
+            assert (g - x).abs().max() <= TOL * (1 + x.abs().max())
+
+    kw = dict(nr=NR, causal=True)
+    close(grads(lambda q, k, v, w: sp.sp_h1d_attention(
+              q, k, v, mesh=_mesh(2), kv_weight=w, **kw)),
+          grads(lambda q, k, v, w: h1d_attention(q, k, v, kv_weight=w,
+                                                 **kw)))
+    close(grads(lambda *a: sp.sp_band_attention(*a, nr=NR, mode="l0_causal",
+                                                mesh=_mesh(2))),
+          grads(lambda *a: kernels.band_attention(*a, nr=NR,
+                                                  mode="l0_causal")))
 
 
 # ---------------------------------------------------------------------------
