@@ -139,6 +139,20 @@ Phases (each raises on failure; nothing is caught):
    request whose top-2 margins of logits plus noise all exceed 1e-3
    the same at 1 slot; #1, #2, #5, #6 launched, no plain version;
    tokens/s.  (Phases 10 and 11 run after 5c, 9 after 7.)
+12. ``gemma``, after 8: (a) the row ``band_attention_fwd[l0_causal_stream]``,
+   #1's streamed body against its plain version at the local layers'
+   shapes (4 kv-heads x G 2, nr 1024, d 256, L 4096 and 3072, keys live
+   to 3000; and L 1024 at nr 128, d 64), with ``library_ms`` from
+   ``scaled_dot_product_attention`` under the same mask; (b)
+   ``gemma3-4b`` at full width and depth in fp32 (34 layers: 29 local
+   at window 1024, 5 global h1d) from seeded weights, ``ServeEngine(
+   slots=4, max_len=4096)`` on 8 greedy requests of 16 tokens with
+   prompt lengths 1100..3968 (seed 0), unbucketed: the streamed #1, #1
+   and #2 (global prefill), #5 and #6 launched, no plain version;
+   tokens/s, prefill ms a call, decode ms a tick, peak memory; every
+   prompt's prefill logits within 1e-3 of the plain path's, and the
+   plain path's tokens wherever the kernel run's top-2 margins exceed
+   1e-3.
 
 Tolerances.  Attention outputs: |kernel - plain| <= 1e-5 * max(1,
 |plain|): both are fp32 with TF32 off and differ only in summation order
@@ -1156,10 +1170,11 @@ PAGED_NEW = 32
 SMALL_POOL = 160
 
 
-def run_engine(eng, workload, fns):
-    """Serve ``workload`` to the end; returns (outputs by uid, stats).
-    Prefill and decode calls are timed with a synchronize on each side;
-    the kernel counts are set to 0 just before the run."""
+def run_engine(eng, workload, fns, new_tokens=PAGED_NEW):
+    """Serve ``workload`` to the end, ``new_tokens`` a request; returns
+    (outputs by uid, stats).  Prefill and decode calls are timed with a
+    synchronize on each side; the kernel counts are set to 0 just before
+    the run."""
     from repro_torch import kernels
     from repro_torch.serve import Request
 
@@ -1176,7 +1191,7 @@ def run_engine(eng, workload, fns):
         return run
     eng.fns = fns._replace(prefill=timed("prefill", fns.prefill),
                            decode_step=timed("decode", fns.decode_step))
-    reqs = {uid: Request(uid=uid, prompt=p, max_new_tokens=PAGED_NEW)
+    reqs = {uid: Request(uid=uid, prompt=p, max_new_tokens=new_tokens)
             for uid, p in workload}
     for uid, _ in workload:
         eng.submit(reqs[uid])
@@ -1195,7 +1210,7 @@ def run_engine(eng, workload, fns):
         raise AssertionError(f"plain versions ran while serving: {plain}")
     outs = {uid: list(r.out_tokens) for uid, r in reqs.items()}
     for uid, out in outs.items():
-        if len(out) != PAGED_NEW:
+        if len(out) != new_tokens:
             raise AssertionError(f"request {uid}: {len(out)} tokens")
     ntok = sum(len(o) for o in outs.values())
     stats = dict(tokens=ntok, wall_s=wall, tokens_per_s=ntok / wall,
@@ -2242,6 +2257,202 @@ def phase_sample_serve(cfg, params, fns, reqs, dense_stats, dev):
     return first
 
 
+# ---------------------------------------------------------------------------
+# phase 12: gemma3-4b serving
+# ---------------------------------------------------------------------------
+
+GEMMA_SLOTS, GEMMA_MAX_LEN, GEMMA_NEW, GEMMA_REQUESTS = 4, 4096, 16, 8
+GEMMA_PROMPTS = (1100, 3968)          # prompt lengths, drawn with seed 0
+# (B, G, L, nr, d, keys with w > 0): gemma's local layers (one prompt's
+# 4 kv-heads, 2 q heads each, window 1024, head_dim 256) at 4 and 3
+# blocks, a 3000-token prompt padded; and one narrow window
+STREAM_CASES = ((4, 2, 4096, 1024, 256, 3000), (4, 2, 3072, 1024, 256, 3000),
+                (4, 2, 1024, 128, 64, 900))
+
+
+def causal_pairs(w, nr: int) -> int:
+    """(query, key) pairs of one (b, g) plane summed over b that
+    ``l0_causal`` admits with w > 0: row i reads the live keys of
+    (i // nr - 1) * nr .. i."""
+    B, L = w.shape
+    cs = torch.cumsum((w > 0).to(torch.int64), dim=1)
+    i = torch.arange(L, device=w.device)
+    lo = ((i // nr - 1) * nr).clamp(min=0)
+    before = torch.where(lo > 0, cs[:, (lo - 1).clamp(min=0)],
+                         torch.zeros_like(cs))
+    return int((cs - before).sum())
+
+
+def exact_causal_fwd(q, k, v, w, nr: int):
+    """The unnormalised (y, dn, m) of ``l0_causal`` in float64, dense
+    over each sequence: the witness both fp32 paths are measured
+    against."""
+    from repro_torch.kernels import h1d_block as hb
+    L = q.shape[-2]
+    i = torch.arange(L, device=q.device)
+    allow = hb.band_mask(i[:, None], i[None, :], nr, "l0_causal", L)
+    out = ([], [], [])
+    for b in range(q.shape[0]):
+        s = q[b].double() @ k[b].double().T
+        s = torch.where((allow & (w[b] > 0)[None])[None], s, -math.inf)
+        m = s.amax(-1).clamp(min=-1e30)
+        a = torch.exp(s - m[..., None])
+        for o, x in zip(out, (a @ v[b].double(), a @ w[b].double(), m)):
+            o.append(x)
+        del s, a
+    return [torch.stack(o) for o in out]
+
+
+def phase_stream_kernel(dev):
+    """#1's streamed ``l0_causal`` body against its plain version at the
+    gemma local layers' shapes (``STREAM_CASES``), timed beside the plain
+    version and ``scaled_dot_product_attention`` with the same
+    block-local mask (normalised z only; the port never calls it).  The
+    row's headline numbers are the first case's; ``cases`` lists each."""
+    from repro_torch.kernels import h1d_block as hb
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    cases, err = [], 0.0
+    for Bs, Gs, Ls, nr, d, live in STREAM_CASES:
+        if hb.check_window_fwd("l0_causal", nr, d, d) != "stream":
+            raise AssertionError(f"nr={nr}, d={d} is not on the streamed "
+                                 f"body")
+        q = torch.randn((Bs, Gs, Ls, d), generator=gen, device=dev) / \
+            math.sqrt(d)
+        k = torch.randn((Bs, Ls, d), generator=gen, device=dev)
+        w = torch.ones((Bs, Ls), device=dev)
+        w[:, live:] = 0.0
+        v = torch.randn((Bs, Ls, d), generator=gen, device=dev) * w[..., None]
+        args = (q, k, v, w)
+        label = f"band_attention_fwd[l0_causal_stream] L={Ls} nr={nr} d={d}"
+        ker = hb.band_attention_fwd(*args, nr=nr)
+        ref = hb.band_attention_fwd_ref(*args, nr=nr)
+        e, scaled, _ = compare(label, ker, ref, ATTN_TOL)
+        err = max(err, e)
+        ex = exact_causal_fwd(*args, nr)
+        f64 = {"kernel": errors(label, ker, ex)[1],
+               "plain": errors(label, ref, ex)[1]}
+        del ker, ref, ex
+        i = torch.arange(Ls, device=dev)
+        allow = hb.band_mask(i[:, None], i[None, :], nr, "l0_causal", Ls)
+        mask = (allow[None] & (w > 0)[:, None, :])[:, None]
+        kx = k[:, None].expand(Bs, Gs, Ls, d).contiguous()
+        vx = v[:, None].expand(Bs, Gs, Ls, d).contiguous()
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        flops = causal_pairs(w, nr) * Gs * (4 * d + 3)
+        nbytes = hb.band_bytes(w, nr=nr, mode="l0_causal", G=Gs, d=d, dv=d)
+        bms, by = bound(nbytes, flops)
+        case = dict(
+            B=Bs, G=Gs, L=Ls, nr=nr, d=d, live_keys=live, max_abs_err=e,
+            scaled_err=scaled, f64_scaled_err=f64,
+            ms=time_ms(lambda: hb.band_attention_fwd(*args, nr=nr)),
+            device_ms=device_ms(lambda: hb.band_attention_fwd(*args,
+                                                              nr=nr)),
+            plain_ms=time_ms(lambda: hb.band_attention_fwd_ref(*args,
+                                                               nr=nr)),
+            library_ms=time_ms(lambda: sdpa(q, kx, vx, attn_mask=mask,
+                                            scale=1.0)),
+            bound_ms=bms, bound_by=by, gflop=flops / 1e9)
+        cases.append(case)
+        log(f"{label}: {json.dumps(case)}")
+        del q, k, v, w, args, kx, vx, mask, allow
+        torch.cuda.empty_cache()
+    head = cases[0]
+    return dict(
+        name="band_attention_fwd[l0_causal_stream]", mode="l0_causal",
+        route="cuda", source="src/repro_torch/kernels/csrc/h1d_block.cu",
+        replaces="src/repro/kernels/h1d_block.py:299", max_abs_err=err,
+        **{k_: head[k_] for k_ in ("ms", "device_ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")},
+        cases=cases,
+        note="streamed body (band_stream_kernel); headline: 4 x 2 x 4096, "
+             "nr 1024, d 256, keys live to 3000; library_ms: "
+             "scaled_dot_product_attention with the same boolean mask "
+             "(normalised z), timed here only")
+
+
+def phase_gemma(dev):
+    """12. ``gemma3-4b`` at full width and depth in fp32 (34 layers, 29
+    local at window 1024 and 5 global h1d, seeded random weights):
+    ``ServeEngine(slots=4, max_len=4096)`` on 8 greedy requests of 16
+    tokens, prompt lengths 1100..3968 (seed 0).  The streamed #1 (local
+    layers), #1 and #2 (global prefill), #5 and #6 (global decode) must
+    launch and no plain version run; each prompt's prefill logits at its
+    last token against the plain path within 1e-3; the same requests on
+    the plain path give the same tokens wherever the kernel run's top-2
+    margins exceed 1e-3.  Returns the serving run's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.serve import Request, ServeEngine
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("gemma3-4b"), dtype="float32")
+    fns = get_model(cfg)
+    params = fns.init(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    lens = rng.integers(GEMMA_PROMPTS[0], GEMMA_PROMPTS[1] + 1,
+                        size=GEMMA_REQUESTS)
+    work = [(i, rng.integers(0, cfg.vocab_size, size=int(n)).astype(
+        np.int32)) for i, n in enumerate(lens)]
+    margins = {}
+    eng = margins_of(ServeEngine(cfg, params, slots=GEMMA_SLOTS,
+                                 max_len=GEMMA_MAX_LEN), margins)
+    if eng._bucket_len(GEMMA_PROMPTS[0]) != GEMMA_PROMPTS[0]:
+        raise AssertionError("gemma engine buckets its prompts")
+    torch.cuda.reset_peak_memory_stats()
+    outs, stats, counts = run_engine(eng, work, fns, new_tokens=GEMMA_NEW)
+    stats.update(weights_s=init_s, prompt_lens=[int(n) for n in lens],
+                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    need = ("band_attention_fwd[l0_causal_stream]",
+            "band_attention_fwd[l0_causal]", "band_attention_sub_fwd",
+            "decode_attend_fused", "update_cache_fused")
+    missing = [k for k in need if not counts.get(k)]
+    if missing:
+        raise AssertionError(f"gemma: {missing} not launched: {counts}")
+    del eng
+    log(f"gemma serve: {json.dumps(stats)}")
+
+    worst = 0.0
+    for uid, prompt in work:
+        tok = torch.as_tensor(prompt[None], dtype=torch.long, device=dev)
+        lk, _, _ = fns.prefill(params, cfg, {"tokens": tok}, GEMMA_MAX_LEN)
+        with plain_kernels():
+            lp, _, _ = fns.prefill(params, cfg, {"tokens": tok},
+                                   GEMMA_MAX_LEN)
+        if not torch.isfinite(lk).all() or lk.shape != (1, cfg.vocab_size):
+            raise AssertionError(f"gemma request {uid}: bad logits")
+        e = float((lk - lp).abs().max())
+        worst = max(worst, e)
+        if e > LOGIT_TOL:
+            raise AssertionError(f"gemma request {uid}: prefill logits "
+                                 f"differ by {e:.3g} > {LOGIT_TOL}")
+    eng = ServeEngine(cfg, params, slots=GEMMA_SLOTS, max_len=GEMMA_MAX_LEN)
+    rs = [Request(uid=u, prompt=p, max_new_tokens=GEMMA_NEW)
+          for u, p in work]
+    for r in rs:
+        eng.submit(r)
+    with plain_kernels():
+        eng.run()
+    plain = {r.uid: list(r.out_tokens) for r in rs}
+    guarded = [u for u, g in margins.items() if min(g) > LOGIT_TOL]
+    bad = [u for u in guarded if outs[u] != plain[u]]
+    if bad:
+        raise AssertionError(f"gemma: requests {bad} differ from the plain "
+                             f"path's tokens")
+    same = sum(x == y for u in outs for x, y in zip(outs[u], plain[u]))
+    log(f"gemma: prefill logits kernel vs plain max abs diff {worst:.3g} "
+        f"(<= {LOGIT_TOL}); {len(guarded)} of {len(work)} requests "
+        f"guarded (top-2 margins > {LOGIT_TOL}) and equal to the plain "
+        f"path ({same} of {GEMMA_NEW * len(work)} tokens equal in all); "
+        f"phase 12 took {time.perf_counter() - t0:.1f}s, weights "
+        f"{init_s:.1f}s")
+    del eng, params
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
@@ -2288,6 +2499,12 @@ def main() -> int:
     sp_train_counts = phase_sp_train(dev, train_stats)
     log(f"phase sp train took {time.perf_counter() - t_sp:.1f}s")
     lra_counts, cq_counts = phase_lra(dev)
+    torch.cuda.empty_cache()
+    t_g = time.perf_counter()
+    rows.append(phase_stream_kernel(dev))
+    gemma_counts = phase_gemma(dev)
+    log(f"phase gemma took {time.perf_counter() - t_g:.1f}s (kernel row "
+        f"and serving)")
     for row in rows:
         key = row["name"]
         by_path = {"serve": serve_counts.get(key, 0),
@@ -2298,7 +2515,8 @@ def main() -> int:
                    "coarse_q_train": cq_counts.get(key, 0),
                    "sp_train": sp_train_counts.get(key, 0),
                    "cq_serve": cq_serve_counts.get(key, 0),
-                   "sample": sample_counts.get(key, 0)}
+                   "sample": sample_counts.get(key, 0),
+                   "gemma": gemma_counts.get(key, 0)}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         row["kernel_ms"] = row["ms"]

@@ -1,20 +1,23 @@
-"""Model configs of the port: the paper's own models.
+"""Model configs of the port: the paper's own models and gemma3-4b.
 
 ``get_config(name)`` -> full config; ``get_smoke_config(name)`` -> the
-reduced same-family config for CPU tests.  The ten assigned architectures
-of the JAX package are later slices.
+reduced same-family config for CPU tests.  The other assigned
+architectures of the JAX package are later slices.
 """
 import importlib
 
 PAPER_IDS = ["h1d-lm-53m", "h1d-lm-144m", "h1d-lra-encoder"]
+ARCH_IDS = ["gemma3-4b"]
 
-_MODULES = {name: "h1d_lm" for name in PAPER_IDS}
+_MODULES = {**{name: "h1d_lm" for name in PAPER_IDS},
+            "gemma3-4b": "gemma3_4b"}
 
 
 def _module(name: str):
     if name not in _MODULES:
         raise NotImplementedError(
-            f"config {name!r} is not ported yet; available: {PAPER_IDS}")
+            f"config {name!r} is not ported yet; available: "
+            f"{PAPER_IDS + ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
 
 

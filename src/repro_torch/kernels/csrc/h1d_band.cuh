@@ -253,6 +253,24 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+// Close this thread's group of cp.async copies; wait until at most N of
+// its groups are still in flight.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // Copy nrows rows of n floats into shared rows of stride ss, columns
 // [n, round4(n)) zero.  row(r) gives the source row, or nullptr for a row
 // to zero-fill without reading.  vec: every source row is 16-byte aligned
@@ -516,6 +534,39 @@ __host__ __forceinline__ void band_dkvw_tiles(int mode, int B, int L, int d,
   while (n > 1 && bytes(n, t) > SMEM_MAX) n /= 2;
   *nkb = n;
   *tq = bytes(n, t) <= SMEM_MAX ? t : 0;
+}
+
+// ---------------------------------------------------------------------------
+// l0_causal, streamed
+// ---------------------------------------------------------------------------
+//
+// The shapes the staged body above cannot hold (nr past BAND_MAX_NR, or a
+// window whose 16-row tile exceeds SMEM_MAX): a tile of STREAM_TQ query
+// rows stays in shared memory while its key window, keys (I - 1) * nr ..
+// its last row, streams through in tiles of STREAM_TK keys.  Mirrored by
+// repro_torch.kernels.h1d_block (stream_max_tiles, stream_fwd_floats).
+
+constexpr int STREAM_THREADS = 256;
+constexpr int STREAM_TQ = 64;      // query rows a tile
+constexpr int STREAM_TK = 32;      // keys a streamed tile: one warp's ballot
+constexpr int STREAM_MAX_D = 256;  // d and dv: y stays in registers
+constexpr int STREAM_RY = 8;       // rows of a y register tile
+
+// Key tiles a query tile's window spans at most: nr keys of the block
+// before, up to nr - 1 of its own block before its first row, its rows.
+__host__ __device__ __forceinline__ int stream_max_tiles(int nr) {
+  return (2 * nr + STREAM_TQ + STREAM_TK - 1) / STREAM_TK;
+}
+
+// Shared floats of the streamed body: the query tile, two stages of keys,
+// values and key weights, the tile's a, the running m, dn and rescale of
+// each row, the list of live key tiles and its length.
+__host__ __device__ __forceinline__ size_t stream_fwd_floats(int d, int dv,
+                                                             int nr) {
+  const size_t qs = round4(d) + 4, vs = round4(dv);
+  return STREAM_TQ * qs + 2 * STREAM_TK * (qs + vs + 1) +
+         STREAM_TQ * (STREAM_TK + 4) + 3 * STREAM_TQ + stream_max_tiles(nr) +
+         1;
 }
 
 }  // namespace h1d

@@ -4,13 +4,16 @@
 //   * h1d_band_fwd     <- band_attention_fwd (_fwd_kernel), every band
 //     mode: l0_causal, l0_bidir, coarse_bidir, coarse_causal;
 //   * h1d_band_sub_fwd <- band_attention_sub_fwd (_fwd_sub_kernel), the
-//     fine-q causal level l >= 1 (fine queries x 2^l-coarser keys).
-// Both return the unnormalised float32 triple (y, dn, m) of one level:
+//     fine-q causal level l >= 1 (fine queries x 2^l-coarser keys);
+//   * h1d_band_fwd_stream <- band_attention_fwd in l0_causal where the key
+//     window is too wide to stage (a sliding window's nr = 1024; its own
+//     note is at band_stream_kernel below).
+// All return the unnormalised float32 triple (y, dn, m) of one level:
 //   s = q.k (q pre-scaled), s -> NEG_INF where band_mask fails or w <= 0,
 //   m = max(rowmax s, -1e30), a = exp(s - m), y = a @ v, dn = sum a * w.
 // A row with every key masked gives m = -1e30, y = 0, dn = 0.
 //
-// What bounds it on the H100: memory.  A query row attends at most 3*nr
+// What bounds the first two on the H100: memory.  A query row attends at most 3*nr
 // keys (2*nr causal, nr at a sub level and in coarse_causal), so one row
 // costs ~4*nr*d FLOPs against ~2*d*4 bytes of q and y: at nr=16, d=64
 // about 8-12 FLOP per byte, below the card's fp32 ridge (67 TFLOP/s over
@@ -505,6 +508,246 @@ int launch_sub(const float* q, const float* k, const float* v,
                           ratio, stream);
 }
 
+// ---------------------------------------------------------------------------
+// l0_causal, streamed (h1d_band_fwd_stream)
+// ---------------------------------------------------------------------------
+//
+// Replaces band_attention_fwd (repro/kernels/h1d_block.py:299) in
+// l0_causal where band_fwd_kernel cannot stage the key window: a sliding
+// window's block (nr = 1024 at d = 256 for gemma3-4b's local layers) puts
+// 2 nr keys of d + dv floats behind a row, ~4 MB, against the 227 KB a CTA
+// may hold.  Row i admits the keys (i / nr - 1) * nr .. i with w > 0,
+// one contiguous range, so the tile of rows t0 .. t0 + 63 reads the keys
+// from (t0 / nr - 1) * nr to its last row and nothing else.
+//
+// What bounds it: operations.  A row scores up to 2 nr keys at 4 d + 3
+// FLOPs a key against ~4 (d + dv) bytes of its own, and every key row is
+// read by nr rows: at nr = 1024, d = 256 some 500 FLOPs a byte, far past
+// the fp32 ridge (20).  fp32 FMA on CUDA cores with no TF32 (the port is
+// held to fp32 parity), so the floor is the admitted pairs' FLOPs over
+// 67 TFLOP/s.  The design keeps the FMA pipes fed from shared memory:
+//   * one CTA per (b, g, tile of 64 rows), 256 threads; the rows' q stay
+//     resident while the window's live key tiles (32 keys, one warp's
+//     ballot over their w) stream through two stages with cp.async, the
+//     next tile's copies in flight while this one is scored;
+//   * key tiles with no w > 0 are listed out before the loop, and tiles
+//     past the last row are never formed (the causal mask);
+//   * scores are 2-row x 4-key register tiles (keys 8 apart, so the 8
+//     lanes of a load phase read 8 key rows in distinct banks) in
+//     dot_tile's order; the row max and the sum over w are 8-lane
+//     shuffles; a running max rescales dn and y when it grows (the
+//     online softmax), so y leaves unnormalised against the final m;
+//   * y is an 8-row x 4-column register tile a thread (two at dv = 256)
+//     that lives across the whole loop: a @ v reads only this tile's a,
+//     and each tile's 32 terms are summed apart before they join y, the
+//     plain version's chunks of 32 keys (h1d_block.SUM_KEYS).
+// expf, not __expf.
+__global__ void __launch_bounds__(STREAM_THREADS)
+band_stream_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, const float* __restrict__ w,
+                   float* __restrict__ y, float* __restrict__ dn,
+                   float* __restrict__ m, int G, int L, int d, int dv,
+                   int nr, int vec_in, int vec_y) {
+  constexpr int TQ = STREAM_TQ, TK = STREAM_TK, NT = STREAM_THREADS;
+  constexpr int RY = STREAM_RY;
+  constexpr int MAX_IT = TQ / RY * (STREAM_MAX_D / 4) / NT;  // y tiles a thread
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int b = blockIdx.y;
+  const int tiles = (L + TQ - 1) / TQ;
+  const int g = blockIdx.x / tiles;
+  const int t0 = (blockIdx.x - g * tiles) * TQ;
+  const int rows = min(TQ, L - t0);
+  const int d4 = round4(d), dv4 = round4(dv);
+  const int qs = d4 + 4, vs = dv4, ps = TK + 4;
+  const int kw0 = max(0, (t0 / nr - 1) * nr);   // the window's first key
+  const int kend = t0 + rows - 1;               // and its last
+  const int nt = (kend - kw0 + TK) / TK;        // key tiles it spans
+  float* q_s = smem;                            // TQ x qs
+  float* k_s = q_s + TQ * qs;                   // 2 stages x TK x qs
+  float* v_s = k_s + 2 * TK * qs;               // 2 stages x TK x vs
+  float* w_s = v_s + 2 * TK * vs;               // 2 stages x TK
+  float* p_s = w_s + 2 * TK;                    // TQ x ps: this tile's a
+  float* m_s = p_s + TQ * ps;                   // running row max
+  float* dn_s = m_s + TQ;                       // running sum of a * w
+  float* sc_s = dn_s + TQ;                      // this tile's rescale
+  int* live_s = reinterpret_cast<int*>(sc_s + TQ);  // live key tiles
+  int* nlive_s = live_s + stream_max_tiles(nr);
+  const size_t row0 = ((size_t)b * G + g) * L + t0;
+  const float* wb = w + (size_t)b * L;
+
+  // list the window's key tiles that hold a key with w > 0, in order
+  for (int n = tid >> 5; n < nt; n += NT / 32) {
+    const int j = kw0 + n * TK + lane;
+    const unsigned any = __ballot_sync(FULL, j <= kend && wb[j] > 0.f);
+    if (lane == 0) live_s[n] = any != 0u;
+  }
+  for (int r = tid; r < TQ; r += NT) {
+    m_s[r] = MIN_M;
+    dn_s[r] = 0.f;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int c = 0;
+    for (int n = 0; n < nt; ++n)
+      if (live_s[n]) live_s[c++] = n;
+    *nlive_s = c;
+  }
+  __syncthreads();
+  const int nlive = *nlive_s;
+
+  // copies of live key tile n into stage s (keys past the last row zero)
+  auto stage = [&](int n, int s) {
+    const int ks = kw0 + live_s[n] * TK;
+    auto src = [&](int r, const float* base, int width) -> const float* {
+      return ks + r <= kend ? base + ((size_t)b * L + ks + r) * width
+                            : nullptr;
+    };
+    stage_rows(k_s + s * TK * qs, qs, TK, d, vec_in & VEC_K,
+               [&](int r) { return src(r, k, d); });
+    stage_rows(v_s + s * TK * vs, vs, TK, dv, vec_in & VEC_V,
+               [&](int r) { return src(r, v, dv); });
+    if (tid < TK) {
+      float* dst = w_s + s * TK + tid;
+      if (ks + tid <= kend) cp_async4(dst, wb + ks + tid);
+      else *dst = 0.f;
+    }
+  };
+  if (nlive > 0) {
+    stage_rows(q_s, qs, TQ, d, vec_in & VEC_Q, [&](int r) -> const float* {
+      return r < rows ? q + (row0 + r) * d : nullptr;
+    });
+    stage(0, 0);
+  }
+  cp_async_commit();
+
+  const int ncg = dv4 / 4, items = TQ / RY * ncg;
+  float acc[MAX_IT][RY][4];
+#pragma unroll
+  for (int it = 0; it < MAX_IT; ++it)
+#pragma unroll
+    for (int rr = 0; rr < RY; ++rr)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[it][rr][c] = 0.f;
+  // the score pass: row pair rp against keys kl, kl + 8, kl + 16, kl + 24
+  const int rp = tid >> 3, kl = tid & 7, r0 = 2 * rp;
+  for (int n = 0; n < nlive; ++n) {
+    const int s = n & 1;
+    if (n + 1 < nlive) stage(n + 1, s ^ 1);
+    cp_async_commit();
+    cp_async_wait_group<1>();                   // tile n has landed
+    __syncthreads();
+    const float* kt = k_s + s * TK * qs;
+    const float* vt = v_s + s * TK * vs;
+    const float* wt = w_s + s * TK;
+    const int ks = kw0 + live_s[n] * TK;
+
+    float sc[2][4];
+    dot_tile<2>(q_s + r0 * qs, qs, kt + kl * qs, 8 * qs, d4, sc);
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int i = t0 + r0 + rr, lo = (i / nr - 1) * nr;
+      bool ok[4];
+      float mx = NEG_INF;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int j = ks + kl + 8 * t;
+        ok[t] = j >= lo && j <= i && wt[kl + 8 * t] > 0.f;
+        if (ok[t]) mx = fmaxf(mx, sc[rr][t]);
+      }
+      for (int o = 1; o < 8; o <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, o));
+      const float mold = m_s[r0 + rr], mnew = fmaxf(mold, mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const float a = ok[t] ? expf(sc[rr][t] - mnew) : 0.f;
+        p_s[(r0 + rr) * ps + kl + 8 * t] = a;
+        sum = fmaf(a, wt[kl + 8 * t], sum);
+      }
+      // the shuffles order every lane's read of m_s before lane 0 writes
+      for (int o = 1; o < 8; o <<= 1)
+        sum += __shfl_xor_sync(FULL, sum, o);
+      if (kl == 0) {
+        const float f = expf(mold - mnew);
+        sc_s[r0 + rr] = f;
+        dn_s[r0 + rr] = fmaf(dn_s[r0 + rr], f, sum);
+        m_s[r0 + rr] = mnew;
+      }
+    }
+    __syncthreads();
+
+    // y = y * rescale + (a @ v over this tile's keys): the tile's 32
+    // terms summed apart first, so no fp32 chain runs over the window's
+    // 2 nr keys (a chain of 2048 drifts ~3e-5 from the exact sum)
+#pragma unroll
+    for (int it = 0; it < MAX_IT; ++it) {
+      const int e = tid + it * NT;
+      if (e < items) {
+        const int rg = e / ncg, c = (e - rg * ncg) * 4;
+        float part[RY][4];
+        apply_tile<RY>(p_s + rg * RY * ps, ps, vt + c, vs, TK, part);
+#pragma unroll
+        for (int rr = 0; rr < RY; ++rr) {
+          const float f = sc_s[rg * RY + rr];
+#pragma unroll
+          for (int cc = 0; cc < 4; ++cc)
+            acc[it][rr][cc] = fmaf(acc[it][rr][cc], f, part[rr][cc]);
+        }
+      }
+    }
+    __syncthreads();                            // the stage is free again
+  }
+
+#pragma unroll
+  for (int it = 0; it < MAX_IT; ++it) {
+    const int e = tid + it * NT;
+    if (e < items) {
+      const int rg = e / ncg, c = (e - rg * ncg) * 4;
+#pragma unroll
+      for (int rr = 0; rr < RY; ++rr)
+        if (rg * RY + rr < rows)
+          store4(y + (row0 + rg * RY + rr) * dv, c, dv, vec_y, acc[it][rr]);
+    }
+  }
+  for (int r = tid; r < rows; r += NT) {
+    dn[row0 + r] = dn_s[r];
+    m[row0 + r] = m_s[r];
+  }
+}
+
+size_t stream_smem(int d, int dv, int nr) {
+  return stream_fwd_floats(d, dv, nr) * sizeof(float);
+}
+
+// nr a power of two >= 2 with L % nr == 0; d, dv up to STREAM_MAX_D; the
+// shared-memory plan (which grows with nr) within SMEM_MAX.
+int launch_stream(const float* q, const float* k, const float* v,
+                  const float* w, float* y, float* dn, float* m, int B,
+                  int G, int L, int d, int dv, int nr, cudaStream_t stream) {
+  if (d < 1 || dv < 1 || d > STREAM_MAX_D || dv > STREAM_MAX_D || nr < 2 ||
+      (nr & (nr - 1)) || L % nr)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = stream_smem(d, dv, nr);
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  if (B == 0 || G == 0 || L == 0) return 0;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        band_stream_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int vec_in = (aligned16(q) && d % 4 == 0 ? VEC_Q : 0) |
+                     (aligned16(k) && d % 4 == 0 ? VEC_K : 0) |
+                     (aligned16(v) && dv % 4 == 0 ? VEC_V : 0);
+  const int vec_y = aligned16(y) && dv % 4 == 0;
+  const dim3 grid(G * ((L + STREAM_TQ - 1) / STREAM_TQ), B);
+  band_stream_kernel<<<grid, STREAM_THREADS, smem, stream>>>(
+      q, k, v, w, y, dn, m, G, L, d, dv, nr, vec_in, vec_y);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // q (B,G,L,d) pre-scaled, k (B,L,d), v (B,L,dv) pre-weighted, w (B,L)
@@ -542,4 +785,21 @@ extern "C" int h1d_band_sub_fwd(const float* q, const float* k,
                                 void* stream) {
   return launch_sub(q, k, v, w, y, dn, m, B, G, Lq, Lk, d, dv, nr, ratio,
                     (cudaStream_t)stream);
+}
+
+// l0_causal with the key window streamed through shared memory: q
+// (B,G,L,d) pre-scaled, k (B,L,d), v (B,L,dv) pre-weighted, w (B,L) ->
+// y (B,G,L,dv), dn (B,G,L), m (B,G,L), as h1d_band_fwd in l0_causal.
+extern "C" int h1d_band_fwd_stream(const float* q, const float* k,
+                                   const float* v, const float* w, float* y,
+                                   float* dn, float* m, int B, int G, int L,
+                                   int d, int dv, int nr, void* stream) {
+  return launch_stream(q, k, v, w, y, dn, m, B, G, L, d, dv, nr,
+                       (cudaStream_t)stream);
+}
+
+// Bytes of the streamed body's shared-memory plan (held by the card tests
+// to repro_torch.kernels.h1d_block.stream_fwd_floats).
+extern "C" int h1d_band_stream_smem(int d, int dv, int nr) {
+  return (int)stream_smem(d, dv, nr);
 }

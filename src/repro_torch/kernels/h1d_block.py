@@ -20,7 +20,13 @@ Each wrapper chooses by the device of its tensors: a CPU tensor takes the
 plain PyTorch version (a mirror of ``ops._blocked_jnp`` /
 ``ops._blocked_sub_jnp``), a CUDA tensor launches the kernel in
 ``csrc/h1d_block.cu``.  ``<wrapper>.launches`` counts kernel launches and
-``<plain>.calls`` counts runs of the plain version.
+``<plain>.calls`` counts runs of the plain version.  ``l0_causal`` has
+two bodies there: the staged one, which holds a tile's whole key window
+in shared memory (nr up to 64), and a streamed one for the windows too
+wide to hold (a sliding window's nr = 1024 at d = 256), which the
+wrapper takes only for the shapes the staged one refuses
+(:func:`check_window_fwd`).  Level 0 needs whole blocks only (``L % nr
+== 0``); the coarse modes need ``L = nr * 2**k``.
 """
 from __future__ import annotations
 
@@ -45,6 +51,8 @@ Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "h1d_band_fwd": [_P] * 7 + [_I] * 7 + [_P],
+    "h1d_band_fwd_stream": [_P] * 7 + [_I] * 6 + [_P],
+    "h1d_band_stream_smem": [_I] * 3,
     "h1d_band_sub_fwd": [_P] * 7 + [_I] * 8 + [_P],
 }
 
@@ -84,6 +92,17 @@ def _check_mode(mode: str) -> None:
         raise ValueError(f"unknown band mode {mode!r}")
 
 
+def _check_length(L: int, nr: int, mode: str) -> None:
+    """Level 0 (``l0_*``) needs whole blocks only, as the reference's
+    kernel does (a sliding window pads L to a multiple of the window);
+    a coarse mode needs ``L = nr * 2**k``."""
+    if not mode.startswith("l0"):
+        hc.validate_h1d_shape(L, nr)
+    elif nr < 2 or nr & (nr - 1) or L % nr:
+        raise ValueError(f"mode {mode!r} needs nr a power of two >= 2 and "
+                         f"L % nr == 0, got L={L}, nr={nr}")
+
+
 def band_offsets(mode: str) -> Tuple[int, ...]:
     """Key blocks a query block reads, relative to its own: the block
     itself and the one before, and in a bidirectional mode the one after
@@ -91,17 +110,16 @@ def band_offsets(mode: str) -> Tuple[int, ...]:
     return (0, -1) if mode.endswith("causal") else (0, -1, 1)
 
 
-def check_window(mode: str, nr: int, d: int, dv: int) -> None:
-    """What the kernels take: nr a power of two up to ``BAND_MAX_NR``
-    (64) in every mode, and any d and dv whose smallest tiles fit the
-    H100's shared memory: 16 rows a tile in the forward, dQ and dK/dV/dW
-    passes of ``l0_causal``, ``l0_bidir`` and ``coarse_bidir``
-    (``band_fwd_tq``, ``band_dkvw_tiles``); ``coarse_causal`` runs the
-    sub bodies at ratio 1 (a forward tile of 64 rows, backward tiles down
-    to 16)."""
+def band_body_takes(mode: str, nr: int, d: int, dv: int) -> bool:
+    """Whether the staged bodies take the level in both directions: nr a
+    power of two up to ``BAND_MAX_NR`` (64) in every mode, and any d and
+    dv whose smallest tiles fit the H100's shared memory: 16 rows a tile
+    in the forward, dQ and dK/dV/dW passes of ``l0_causal``, ``l0_bidir``
+    and ``coarse_bidir`` (``band_fwd_tq``, ``band_dkvw_tiles``);
+    ``coarse_causal`` runs the sub bodies at ratio 1 (a forward tile of
+    64 rows, backward tiles down to 16)."""
     if nr > BAND_MAX_NR:
-        raise ValueError(f"mode {mode!r}: the kernels take nr <= "
-                         f"{BAND_MAX_NR}, got {nr}")
+        return False
     if mode in BAND_CODES:
         big = 4 * max(band_fwd_floats(mode, 16, d, dv, nr),
                       band_dq_floats(mode, 16, d, dv, nr),
@@ -109,10 +127,32 @@ def check_window(mode: str, nr: int, d: int, dv: int) -> None:
     else:
         big = 4 * max(sub_fwd_floats(d, dv, nr, 1),
                       sub_bwd_floats(16, d, dv, nr))
-    if big > SMEM_MAX:
-        raise ValueError(f"mode {mode!r} at nr={nr}, d={d}, dv={dv} needs "
-                         f"{big} bytes of shared memory at 16 rows a tile; "
-                         f"the H100 gives a CTA {SMEM_MAX}")
+    return big <= SMEM_MAX
+
+
+def check_window_bwd(mode: str, nr: int, d: int, dv: int) -> None:
+    """What the backward kernels (#3) take: :func:`band_body_takes`."""
+    if not band_body_takes(mode, nr, d, dv):
+        raise ValueError(
+            f"mode {mode!r} at nr={nr}, d={d}, dv={dv}: the backward "
+            f"kernels take nr <= {BAND_MAX_NR} and 16-row tiles within "
+            f"{SMEM_MAX} bytes of shared memory")
+
+
+def check_window_fwd(mode: str, nr: int, d: int, dv: int) -> str:
+    """The forward body of a level: ``"band"`` (the staged bodies) for
+    every shape they take in both directions, else ``"stream"`` in
+    ``l0_causal`` where the streamed body takes it (:func:`stream_takes`);
+    raises ``ValueError`` on anything else."""
+    if band_body_takes(mode, nr, d, dv):
+        return "band"
+    if mode == "l0_causal" and stream_takes(nr, d, dv):
+        return "stream"
+    raise ValueError(
+        f"mode {mode!r} at nr={nr}, d={d}, dv={dv}: the staged bodies take "
+        f"nr <= {BAND_MAX_NR} and 16-row tiles within {SMEM_MAX} bytes of "
+        f"shared memory; past that only l0_causal streams, at d, dv <= "
+        f"{STREAM_MAX_D} and a plan within {SMEM_MAX} bytes")
 
 
 # ---------------------------------------------------------------------------
@@ -497,8 +537,65 @@ def sub_bytes(w, *, nr: int, ratio: int, G: int, d: int, dv: int,
 
 
 # ---------------------------------------------------------------------------
+# launch geometry of the streamed l0_causal body
+# ---------------------------------------------------------------------------
+#
+# Host mirrors of ``csrc/h1d_band.cuh``'s streamed body: a tile of
+# STREAM_TQ rows keeps its q in shared memory while the keys (I - 1) * nr
+# .. its last row stream through in two stages of STREAM_TK keys; a key
+# tile with no w > 0 is never copied.
+
+STREAM_TQ = 64
+STREAM_TK = 32
+STREAM_MAX_D = 256
+
+
+def stream_max_tiles(nr: int) -> int:
+    """Key tiles a query tile's window spans at most."""
+    return -(-(2 * nr + STREAM_TQ) // STREAM_TK)
+
+
+def stream_fwd_floats(d: int, dv: int, nr: int) -> int:
+    """Shared floats of the streamed body (``stream_fwd_floats``)."""
+    qs, vs = _round4(d) + 4, _round4(dv)
+    return (STREAM_TQ * qs + 2 * STREAM_TK * (qs + vs + 1)
+            + STREAM_TQ * (STREAM_TK + 4) + 3 * STREAM_TQ
+            + stream_max_tiles(nr) + 1)
+
+
+def stream_takes(nr: int, d: int, dv: int) -> bool:
+    """The streamed body's envelope: nr a power of two >= 2, d and dv up
+    to STREAM_MAX_D, its shared-memory plan within SMEM_MAX."""
+    return (nr >= 2 and nr & (nr - 1) == 0 and 1 <= d <= STREAM_MAX_D
+            and 1 <= dv <= STREAM_MAX_D
+            and 4 * stream_fwd_floats(d, dv, nr) <= SMEM_MAX)
+
+
+# ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
+
+#: keys a plain band sums in one fp32 chain
+SUM_KEYS = 32
+
+
+def _band_sums(a, vt, wt):
+    """``a @ v`` and ``a . w`` over one band's keys (a's last axis).  A
+    band wider than SUM_KEYS keys sums chunks of SUM_KEYS apart and adds
+    the chunk sums: one fp32 chain over a sliding window's 1024-key band
+    is itself ~2e-5 from the exact sum (against float64 on the card),
+    more than the kernels are held to.  Narrower bands are one einsum."""
+    nk = a.shape[-1]
+    if nk <= SUM_KEYS:
+        return (torch.einsum("bgnqk,bnkv->bgnqv", a, vt),
+                torch.einsum("bgnqk,bnk->bgnq", a, wt))
+    ac = a.unflatten(-1, (nk // SUM_KEYS, SUM_KEYS))
+    yt = torch.einsum("bgnqcj,bncjv->bgnqcv", ac,
+                      vt.unflatten(-2, (nk // SUM_KEYS, SUM_KEYS)))
+    dt = torch.einsum("bgnqcj,bncj->bgnqc", ac,
+                      wt.unflatten(-1, (nk // SUM_KEYS, SUM_KEYS)))
+    return yt.sum(-2), dt.sum(-1)
+
 
 def band_attention_fwd_ref(q, k, v, w, *, nr: int,
                            mode: str = "l0_causal") -> Triple:
@@ -508,9 +605,11 @@ def band_attention_fwd_ref(q, k, v, w, *, nr: int,
     _check_mode(mode)
     if mode == SUB_MODE:
         raise ValueError("mode 'sub' goes through band_attention_sub_fwd_ref")
+    L = q.shape[-2]
+    if mode.startswith("l0"):
+        _check_length(L, nr, mode)
     band_attention_fwd_ref.calls += 1
     f32 = torch.float32
-    L = q.shape[-2]
     qb = hc.block(q.to(f32), nr)                       # (B,G,NB,nr,d)
     kb = hc.block(k.to(f32), nr)                       # (B,NB,nr,d)
     vb = hc.block(v.to(f32), nr)
@@ -535,9 +634,7 @@ def band_attention_fwd_ref(q, k, v, w, *, nr: int,
     m = torch.clamp(m, min=_MIN_M)
     y = dn = None
     for s, vt, wt in terms:
-        a = torch.exp(s - m[..., None])
-        yt = torch.einsum("bgnqk,bnkv->bgnqv", a, vt)
-        dt = torch.einsum("bgnqk,bnk->bgnq", a, wt)
+        yt, dt = _band_sums(torch.exp(s - m[..., None]), vt, wt)
         y = yt if y is None else y + yt
         dn = dt if dn is None else dn + dt
     return (hc.unblock(y, axis=-3), hc.unblock(dn, axis=-2),
@@ -600,7 +697,10 @@ def band_attention_fwd(q, k, v, w, *, nr: int,
     """Band attention of one level in any mode but ``sub``.  CPU tensors
     take :func:`band_attention_fwd_ref`; CUDA tensors launch
     ``h1d_band_fwd`` (``coarse_causal`` runs the sub body at ratio 1
-    there).  ``.mode_launches`` counts the launches per mode."""
+    there), or ``h1d_band_fwd_stream`` for the ``l0_causal`` shapes the
+    staged body does not take (:func:`check_window_fwd`), counted under
+    ``l0_causal_stream``.  ``.mode_launches`` counts the launches per
+    mode."""
     if q.device.type == "cpu":
         return band_attention_fwd_ref(q, k, v, w, nr=nr, mode=mode)
     _check_mode(mode)
@@ -608,22 +708,29 @@ def band_attention_fwd(q, k, v, w, *, nr: int,
         raise ValueError("mode 'sub' goes through band_attention_sub_fwd")
     B, G, L, d = q.shape
     dv = v.shape[-1]
-    check_window(mode, nr, d, dv)
+    body = check_window_fwd(mode, nr, d, dv)
     lib = _lib()
-    hc.validate_h1d_shape(L, nr)
+    _check_length(L, nr, mode)
     _build.expect(q, "q", (B, G, L, d))
     _build.expect(k, "k", (B, L, d))
     _build.expect(v, "v", (B, L, dv))
     _build.expect(w, "w", (B, L))
     y, dn, m = _outputs(q, dv)
-    _build.check(lib.h1d_band_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-        y.data_ptr(), dn.data_ptr(), m.data_ptr(),
-        B, G, L, d, dv, nr, _MODE_CODES[mode], _build.stream()),
-        "h1d_band_fwd")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            y.data_ptr(), dn.data_ptr(), m.data_ptr())
+    if body == "stream":
+        _build.check(lib.h1d_band_fwd_stream(
+            *ptrs, B, G, L, d, dv, nr, _build.stream()),
+            "h1d_band_fwd_stream")
+        key = "l0_causal_stream"
+    else:
+        _build.check(lib.h1d_band_fwd(
+            *ptrs, B, G, L, d, dv, nr, _MODE_CODES[mode], _build.stream()),
+            "h1d_band_fwd")
+        key = mode
     band_attention_fwd.launches += 1
     counts = band_attention_fwd.mode_launches
-    counts[mode] = counts.get(mode, 0) + 1
+    counts[key] = counts.get(key, 0) + 1
     return y, dn, m
 
 

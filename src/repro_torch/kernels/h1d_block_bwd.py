@@ -248,7 +248,7 @@ def band_attention_bwd(q, k, v, w, y, dn, m, gy, gdn, gm, *, nr: int,
     if mode == hb.SUB_MODE:
         raise ValueError("mode 'sub' goes through band_attention_sub_bwd")
     B, G, L, d = q.shape
-    hb.check_window(mode, nr, d, v.shape[-1])
+    hb.check_window_bwd(mode, nr, d, v.shape[-1])
     lib = _lib()
     hc.validate_h1d_shape(L, nr)
     gy, gdn, gm = _operands(q, k, v, w, y, dn, m, gy, gdn, gm, L, L)

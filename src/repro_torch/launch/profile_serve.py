@@ -1,11 +1,13 @@
 """Where a serving step's time goes on the card: ``torch.profiler`` over
-one batched prefill and a run of decode steps of the paper LM.
+one batched prefill and a run of decode steps of the paper LM (or of
+another ported config, such as ``gemma3-4b``).
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         [--arch h1d-lm-53m] [--rows 8] [--prompt 1024] [--max-len 2048] \
         [--paged [--cache-dtype int8]] [--sp-data N]
 
-Seeded random weights and tokens.  ``--paged`` also profiles a paged
+Seeded random weights and tokens, in float32 (the one dtype the port
+serves; a bfloat16 config such as ``gemma3-4b`` is profiled in float32).  ``--paged`` also profiles a paged
 decode tick over the same prompts (a dense-equivalent page pool filled
 from the prefill; ``--cache-dtype int8`` quantizes every level): the
 tick's host work (``prepare_tick``, page copies, ``build_tables`` and
@@ -25,6 +27,7 @@ Needs a CUDA card.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 from collections import defaultdict
@@ -46,7 +49,8 @@ from repro_torch.serve import paged_cache as pc
 # #8 and #5 run attend_staged_kernel<ADDR, VW> (ADDR 1, 2, 3 and 4), and
 # #9, #12 and #6 update_chain_kernel<ADDR> (ADDR 1, 2 and 4).  The first
 # key contained in a kernel's name wins.
-OWN = {"sub_fwd_kernel<": "band_attention_sub_fwd",
+OWN = {"band_stream_kernel": "band_attention_fwd[l0_causal_stream]",
+       "sub_fwd_kernel<": "band_attention_sub_fwd",
        "band_fwd_kernel<": "band_attention_fwd",
        "sub_bwd_kernel<": "band_attention_sub_bwd",
        "band_dq_kernel<": "band_attention_bwd",
@@ -198,7 +202,7 @@ def main(argv=None):
 
     dev = resolve_device(None)
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_config(args.arch)
+    cfg = dataclasses.replace(get_config(args.arch), dtype="float32")
     fns = get_model(cfg)
     params = fns.init(cfg, seed=args.seed, device=dev)
     gen = torch.Generator(device=dev).manual_seed(args.seed)

@@ -18,6 +18,9 @@ stores its pages as int8 (``--quant-levels``):
     PYTHONPATH=src python -m repro_torch.launch.serve --paged \
         --cache-dtype int8 --requests 8 --slots 4 --max-len 512
 
+``--arch gemma3-4b`` serves gemma3's 5:1 local:global stack (its
+published config is bfloat16, which the port does not serve yet, so it
+raises ``NotImplementedError``; ``--smoke`` runs its fp32 smoke config).
 ``--sp-data N`` splits each layer's cache along its sequence axis into
 ``N`` shards on the one device and serves through the sequence-parallel
 kernels (``parallel/sp_attention.py``):

@@ -1,16 +1,25 @@
-"""Attention layer of the paper's models: H1D attention for training
-and encoding (causal for the LM, bidirectional for the LRA encoder),
-with prefill and single-token decode paths for the LM.
+"""Attention layer: H1D attention for training and encoding (causal for
+the LM, bidirectional for the LRA encoder) and block-local sliding-window
+attention (gemma3's local layers), with prefill and single-token decode
+paths for the LM.
 
-Port of the h1d branches of ``repro.models.attention``.  The decode cache
-of a layer is a ``core.h1d_decode.H1DCache`` with ``batch * kv_heads``
-folded into its rows (row ``b*Hkv + h``); on the paged path it is a
-per-layer page pool (``core.h1d_decode.PagedH1DCache`` or
-``QuantPagedH1DCache``) addressed through per-tick page tables.  Prefill
-runs the operator in the config's ``causal_mode`` and builds the fine-q
-hierarchical cache either way; decode is the fine-q decode for both
-modes, as in the reference.  Full and sliding-window attention are not
-ported and raise ``NotImplementedError``.
+Port of the h1d and local branches of ``repro.models.attention``.  The
+decode cache of an h1d layer is a ``core.h1d_decode.H1DCache`` with
+``batch * kv_heads`` folded into its rows (row ``b*Hkv + h``); on the
+paged path it is a per-layer page pool (``core.h1d_decode.PagedH1DCache``
+or ``QuantPagedH1DCache``) addressed through per-tick page tables.
+Prefill runs the operator in the config's ``causal_mode`` and builds the
+fine-q hierarchical cache either way; decode is the fine-q decode for
+both modes, as in the reference.
+
+A local layer (``cfg.sliding_window > 0`` and ``layer_global=False``)
+runs one band level of block size ``window`` (``l0_causal``; the
+streamed kernel on the card at a window past 64) and keeps a rolling
+cache ``{"k", "v": (B, Lc, Hkv, hd), "pos": (B, Lc) int32}`` of the last
+``Lc = min(Lmax, 2 * window)`` tokens, slot ``t % Lc``, ``pos = -1``
+where empty.  Its decode is plain torch, as the reference's is jnp
+outside any kernel.  Full attention is not ported and raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -18,17 +27,22 @@ import math
 
 import torch
 
-from ..core import h1d_decode, h1d_attention_mha
+from ..core import (h1d_decode, h1d_attention_mha, fold_kv_heads,
+                    unfold_kv_heads)
 from ..core import hierarchy as hc
+from ..kernels.ops import band_attention
 from .common import ModelConfig, dense, dense_init, rmsnorm, apply_rope
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.attention != "h1d" or cfg.sliding_window > 0:
+    if cfg.attention != "h1d":
         raise NotImplementedError(
-            f"attention={cfg.attention!r} with sliding_window="
-            f"{cfg.sliding_window} is not ported yet (this slice serves "
-            "h1d attention)")
+            f"attention={cfg.attention!r} is not ported yet (the port "
+            "serves h1d attention, with sliding-window local layers)")
+
+
+def _is_local(cfg: ModelConfig, layer_global: bool) -> bool:
+    return cfg.sliding_window > 0 and not layer_global
 
 
 def attn_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32):
@@ -63,49 +77,125 @@ def _project_qkv(p, cfg: ModelConfig, x, positions):
     return q, k, v
 
 
-def _attend(p, cfg: ModelConfig, q, k, v, kv_weight, causal: bool):
-    """H1D attention over projected (B,S,H,hd) heads and the output
-    projection.  Pads S to ``nr * 2**k`` with weight-0 keys."""
+def _pad_weights(B: int, S: int, Lp: int, kv_weight, device):
+    """(B, Lp) key weights: ``kv_weight`` (or ones) over the S tokens,
+    0 on the pad."""
+    w = torch.ones((B, Lp), dtype=torch.float32, device=device)
+    if kv_weight is not None:
+        w = w * torch.nn.functional.pad(kv_weight.to(torch.float32),
+                                        (0, Lp - S))
+    elif Lp > S:
+        w[:, S:] = 0.0
+    return w
+
+
+def _local_attention(q, k, v, window: int, causal: bool, kv_weight):
+    """Block-local sliding-window attention (the reference's
+    ``_local_attention``): one band level of block size ``window``, query
+    block I reading key blocks I - 1 and I.  q (B, L, Hq, D), k / v (B,
+    L, Hkv, D) -> (B, L, Hq, D).  L pads to a multiple of the window with
+    weight-0 keys; kv-heads fold into the batch and the GQA group into G,
+    so K/V stay 3-D and are never copied per group."""
+    B, L, _, D = q.shape
+    Lp = -(-L // window) * window
+    if Lp > L:
+        q, k, v = (torch.nn.functional.pad(a, (0, 0, 0, 0, 0, Lp - L))
+                   for a in (q, k, v))
+    w = _pad_weights(B, L, Lp, kv_weight, q.device)
+    qh, kh, vh, fold = fold_kv_heads(q, k, v)
+    wr = w.repeat_interleave(fold[1], dim=0)
+    # the kernels take contiguous operands (a fold of one sequence can be
+    # a strided view, which elementwise ops keep)
+    y, dn, _ = band_attention((qh * (1.0 / math.sqrt(D))).contiguous(),
+                              kh.contiguous(),
+                              (vh * wr[..., None]).contiguous(), wr,
+                              nr=window,
+                              mode="l0_causal" if causal else "l0_bidir")
+    z = (y / torch.clamp(dn, min=1e-9)[..., None]).to(q.dtype)
+    return unfold_kv_heads(z, fold)[:, :L]
+
+
+def _attend(p, cfg: ModelConfig, q, k, v, kv_weight, causal: bool,
+            layer_global: bool):
+    """The layer's attention over projected (B,S,H,hd) heads and the
+    output projection: the sliding window on a local layer, else H1D
+    attention with S padded to ``nr * 2**k`` by weight-0 keys."""
     B, S = q.shape[:2]
+    if _is_local(cfg, layer_global):
+        z = _local_attention(q, k, v, cfg.sliding_window, causal, kv_weight)
+        return dense(p["wo"], z.reshape(B, S, -1))
     Lp = hc.padded_length(S, cfg.nr)
     pad = Lp - S
     if pad:
         q, k, v = (torch.nn.functional.pad(a, (0, 0, 0, 0, 0, pad))
                    for a in (q, k, v))
-    w = torch.ones((B, Lp), dtype=torch.float32, device=q.device)
-    if kv_weight is not None:
-        w = w * torch.nn.functional.pad(kv_weight.to(torch.float32),
-                                        (0, pad))
-    elif pad:
-        w[:, S:] = 0.0
+    w = _pad_weights(B, S, Lp, kv_weight, q.device)
     z = h1d_attention_mha(q, k, v, nr=cfg.nr, causal=causal,
                           causal_mode=cfg.causal_mode, kv_weight=w)[:, :S]
     return dense(p["wo"], z.reshape(B, S, -1))
 
 
 def attn_apply(p, cfg: ModelConfig, x, positions, *, causal=True,
-               kv_weight=None):
+               kv_weight=None, layer_global=True):
     """Training/encoding attention, causal (the LM, fine-q or coarse-q
-    by ``cfg.causal_mode``) or bidirectional (the encoder).  x: (B, S,
-    d); positions: (B, S); kv_weight: (B, S) key weights (0 = padding)."""
+    by ``cfg.causal_mode``) or bidirectional (the encoder); a sliding
+    window where the config has one and ``layer_global`` is False.  x:
+    (B, S, d); positions: (B, S); kv_weight: (B, S) key weights (0 =
+    padding)."""
     _check_supported(cfg)
     q, k, v = _project_qkv(p, cfg, x, positions)
-    return _attend(p, cfg, q, k, v, kv_weight, causal)
+    return _attend(p, cfg, q, k, v, kv_weight, causal, layer_global)
 
 
 def init_decode_cache(cfg: ModelConfig, B: int, Lmax: int, *,
-                      dtype=torch.float32, device=None):
+                      layer_global=True, dtype=torch.float32, device=None):
     _check_supported(cfg)
+    if _is_local(cfg, layer_global):
+        Lc = min(Lmax, 2 * cfg.sliding_window)
+        shape = (B, Lc, cfg.num_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device),
+                "pos": torch.full((B, Lc), -1, dtype=torch.int32,
+                                  device=device)}
     Lmax = hc.padded_length(Lmax, cfg.nr)   # needs nr * 2**k
     return h1d_decode.init_cache(B * cfg.num_kv_heads, Lmax, cfg.head_dim,
                                  cfg.head_dim, cfg.nr, dtype=dtype,
                                  device=device)
 
 
-def attn_decode(p, cfg: ModelConfig, x, t, cache, *, page_tables=None,
-                sp_tables=None):
+def _local_decode(cfg: ModelConfig, q, k, v, t, cache):
+    """One token of a local layer against its rolling cache (the
+    reference's jnp branch): write k, v and t at slot ``t % Lc`` in
+    place, then attend every slot with ``0 <= t - pos < window``."""
+    B = q.shape[0]
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    Lc = cache["k"].shape[1]
+    rows = torch.arange(B, device=q.device)
+    slot = (t % Lc).long()
+    cache["k"][rows, slot] = k[:, 0]
+    cache["v"][rows, slot] = v[:, 0]
+    cache["pos"][rows, slot] = t.to(torch.int32)
+    pos = cache["pos"]
+    dist = t[:, None].to(torch.int32) - pos             # (B, Lc)
+    valid = (pos >= 0) & (dist >= 0) & (dist < cfg.sliding_window)
+    f32 = torch.float32
+    s = torch.einsum("bhgd,blhd->bhgl",
+                     q[:, 0].reshape(B, hkv, hq // hkv, hd).to(f32),
+                     cache["k"].to(f32)) / math.sqrt(hd)
+    s = torch.where(valid[:, None, None, :], s, hc.NEG_INF)
+    m = torch.clamp(s.amax(-1, keepdim=True), min=-1e30)
+    a = torch.exp(s - m)
+    z = torch.einsum("bhgl,blhd->bhgd", a, cache["v"].to(f32))
+    z = z / torch.clamp(a.sum(-1), min=1e-9)[..., None]
+    return z.to(q.dtype).reshape(B, 1, hq * hd)
+
+
+def attn_decode(p, cfg: ModelConfig, x, t, cache, *, layer_global=True,
+                page_tables=None, sp_tables=None):
     """Single-token decode.  x: (B, 1, d); t: (B,) int32 current position.
-    Updates ``cache`` in place; returns (out (B, 1, d), cache).
+    Updates ``cache`` in place; returns (out (B, 1, d), cache).  A local
+    layer (``layer_global=False`` under a sliding window) decodes against
+    its rolling cache.
 
     ``page_tables`` (``core.h1d_decode.PageTables``) switches to the
     paged pool: ``cache`` is then a ``PagedH1DCache`` (or, with int8
@@ -118,6 +208,8 @@ def attn_decode(p, cfg: ModelConfig, x, t, cache, *, page_tables=None,
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     G = hq // hkv
     q, k, v = _project_qkv(p, cfg, x, t[:, None])
+    if _is_local(cfg, layer_global):
+        return dense(p["wo"], _local_decode(cfg, q, k, v, t, cache)), cache
     q1 = q[:, 0].reshape(B * hkv, G, hd).contiguous()
     k1 = k[:, 0].reshape(B * hkv, hd).contiguous()
     v1 = v[:, 0].reshape(B * hkv, hd).contiguous()
@@ -143,15 +235,28 @@ def attn_decode(p, cfg: ModelConfig, x, t, cache, *, page_tables=None,
     return dense(p["wo"], z), cache
 
 
-def prefill_into_cache(p, cfg: ModelConfig, x, positions, Lmax: int):
+def prefill_into_cache(p, cfg: ModelConfig, x, positions, Lmax: int, *,
+                       layer_global=True):
     """Run attention over a prefix (in ``cfg.causal_mode``) AND build the
-    decode cache (fine-q, from the prefix's keys and values).  Returns
-    (out (B, S, d), cache)."""
+    decode cache: fine-q hierarchical from the prefix's keys and values,
+    or on a local layer the rolling cache holding the prefix's last
+    ``Lc`` tokens.  Returns (out (B, S, d), cache)."""
     _check_supported(cfg)
     B, S, _ = x.shape
     hkv, hd = cfg.num_kv_heads, cfg.head_dim
     q, k, v = _project_qkv(p, cfg, x, positions)
-    out = _attend(p, cfg, q, k, v, None, True)
+    out = _attend(p, cfg, q, k, v, None, True, layer_global)
+    if _is_local(cfg, layer_global):
+        cache = init_decode_cache(cfg, B, Lmax, layer_global=False,
+                                  dtype=k.dtype, device=k.device)
+        Lc = cache["k"].shape[1]
+        take = min(S, Lc)
+        src = torch.arange(S - take, S, device=k.device)
+        slots = src % Lc
+        cache["k"][:, slots] = k[:, S - take:]
+        cache["v"][:, slots] = v[:, S - take:]
+        cache["pos"][:, slots] = src.to(torch.int32)
+        return out, cache
     kf = k.permute(0, 2, 1, 3).reshape(B * hkv, S, hd)
     vf = v.permute(0, 2, 1, 3).reshape(B * hkv, S, hd)
     cache = h1d_decode.prefill_cache(kf, vf, hc.padded_length(Lmax, cfg.nr),

@@ -76,6 +76,14 @@ class ModelConfig:
     def torch_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
 
+    def layer_uses_global_attn(self, i: int) -> bool:
+        """Whether layer ``i`` runs the config's global attention (h1d)
+        rather than the sliding window: every layer without a cadence,
+        else the last of every ``global_every``."""
+        if self.global_every <= 0:
+            return True
+        return i % self.global_every == self.global_every - 1
+
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, *,
                scale: Optional[float] = None, dtype=torch.float32):

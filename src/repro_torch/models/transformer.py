@@ -5,7 +5,10 @@ Port of ``repro.models.transformer`` for the paper LM.  The JAX stack
 scans over layer-stacked parameters; here ``params["layers"]`` is a list
 with one dictionary per layer and the decode caches are a per-layer list,
 so the engine's slot axis of a cache array is axis 0 (axis 1 in the
-scanned JAX layout).  ``lm_forward`` and ``lm_loss`` are differentiable
+scanned JAX layout).  Under a sliding window (gemma3) layer ``i`` is
+local unless ``cfg.layer_uses_global_attn(i)``; a local layer's cache is
+its rolling ``{"k", "v", "pos"}`` dictionary, a global layer's the
+hierarchical cache.  ``lm_forward`` and ``lm_loss`` are differentiable
 (the band kernels carry their backward); prefill and decode run under
 ``torch.inference_mode()``.  MoE, SSM, hybrid and VLM families are later
 slices.
@@ -47,24 +50,37 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, dtype):
 
 
 def lm_init(cfg: ModelConfig, *, seed: int = 0, device=None) -> Dict[str, Any]:
-    """Random parameters drawn from ``seed`` on the CPU, then moved to
-    ``device`` (default ``cuda``): one seed gives the same weights on
-    every device."""
+    """Random parameters drawn from ``seed`` on the CPU, each layer moved
+    to ``device`` (default ``cuda``) as it is drawn: one seed gives the
+    same weights on every device, and a model of billions of parameters
+    never sits whole in host memory.  float32 only: bfloat16 weights and
+    caches are not ported (ROADMAP A.7)."""
     _check_family(cfg)
+    if cfg.dtype != "float32":
+        raise NotImplementedError(
+            f"dtype={cfg.dtype!r}: the port serves float32 weights and "
+            "caches only (bfloat16 is ROADMAP A.7); use "
+            "dataclasses.replace(cfg, dtype='float32')")
     dev = resolve_device(device)
     dtype = cfg.torch_dtype
     gen = torch.Generator().manual_seed(seed)
+
+    def to_dev(tree):
+        return tree_map(lambda t: t.to(dev), tree)
     params: Dict[str, Any] = {
-        "embed": {"w": torch.randn((cfg.vocab_size, cfg.d_model),
-                                   generator=gen, dtype=dtype) * 0.02},
-        "final_norm": {"g": torch.ones((cfg.d_model,), dtype=dtype)},
-        "layers": [block_init(gen, cfg, dtype)
+        "embed": to_dev({"w": torch.randn((cfg.vocab_size, cfg.d_model),
+                                          generator=gen, dtype=dtype)
+                         * 0.02}),
+        "final_norm": to_dev({"g": torch.ones((cfg.d_model,),
+                                              dtype=dtype)}),
+        "layers": [to_dev(block_init(gen, cfg, dtype))
                    for _ in range(cfg.num_layers)],
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size,
-                                       scale=0.02, dtype=dtype)
-    return tree_map(lambda t: t.to(dev), params)
+        params["lm_head"] = to_dev(dense_init(gen, cfg.d_model,
+                                              cfg.vocab_size, scale=0.02,
+                                              dtype=dtype))
+    return params
 
 
 def _embed_tokens(params, cfg: ModelConfig, tokens):
@@ -80,8 +96,9 @@ def _logits(params, cfg: ModelConfig, h):
     return logits.to(torch.float32)
 
 
-def _block_apply(lp, cfg: ModelConfig, h, positions):
-    h = h + attn_apply(lp["attn"], cfg, rmsnorm(lp["ln1"], h), positions)
+def _block_apply(lp, cfg: ModelConfig, h, positions, layer_global: bool):
+    h = h + attn_apply(lp["attn"], cfg, rmsnorm(lp["ln1"], h), positions,
+                       layer_global=layer_global)
     return h + mlp(lp["mlp"], rmsnorm(lp["ln2"], h), cfg.mlp_activation)
 
 
@@ -92,8 +109,9 @@ def lm_forward(params, cfg: ModelConfig, tokens):
     B, S = tokens.shape
     h = _embed_tokens(params, cfg, tokens)
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
-    for lp in params["layers"]:
-        h = _block_apply(lp, cfg, h, positions)
+    for i, lp in enumerate(params["layers"]):
+        h = _block_apply(lp, cfg, h, positions,
+                         cfg.layer_uses_global_attn(i))
     return _logits(params, cfg, h), 0.0
 
 
@@ -135,9 +153,10 @@ def lm_prefill(params, cfg: ModelConfig, tokens, Lmax: int, *,
     h = _embed_tokens(params, cfg, tokens)
     positions = torch.arange(S, device=dev)[None].expand(B, S)
     caches: List = []
-    for lp in params["layers"]:
-        a, cache = prefill_into_cache(lp["attn"], cfg,
-                                      rmsnorm(lp["ln1"], h), positions, Lmax)
+    for i, lp in enumerate(params["layers"]):
+        a, cache = prefill_into_cache(
+            lp["attn"], cfg, rmsnorm(lp["ln1"], h), positions, Lmax,
+            layer_global=cfg.layer_uses_global_attn(i))
         h = h + a
         h = h + mlp(lp["mlp"], rmsnorm(lp["ln2"], h), cfg.mlp_activation)
         caches.append(cache)
@@ -164,9 +183,10 @@ def lm_decode_step(params, cfg: ModelConfig, caches, token, t, *,
     the same for sequence-sharded caches, decoded inside ``sp_scope``."""
     h = _embed_tokens(params, cfg, token[:, None])
     for i, lp in enumerate(params["layers"]):
-        a, caches[i] = attn_decode(lp["attn"], cfg, rmsnorm(lp["ln1"], h), t,
-                                   caches[i], page_tables=page_tables,
-                                   sp_tables=sp_tables)
+        a, caches[i] = attn_decode(
+            lp["attn"], cfg, rmsnorm(lp["ln1"], h), t, caches[i],
+            layer_global=cfg.layer_uses_global_attn(i),
+            page_tables=page_tables, sp_tables=sp_tables)
         h = h + a
         h = h + mlp(lp["mlp"], rmsnorm(lp["ln2"], h), cfg.mlp_activation)
     return _logits(params, cfg, h)[:, 0], caches
@@ -177,5 +197,7 @@ def lm_init_decode_caches(params, cfg: ModelConfig, B: int, Lmax: int):
     device."""
     _check_family(cfg)
     dev = params["embed"]["w"].device
-    return [init_decode_cache(cfg, B, Lmax, dtype=cfg.torch_dtype, device=dev)
-            for _ in range(cfg.num_layers)]
+    return [init_decode_cache(cfg, B, Lmax,
+                              layer_global=cfg.layer_uses_global_attn(i),
+                              dtype=cfg.torch_dtype, device=dev)
+            for i in range(cfg.num_layers)]

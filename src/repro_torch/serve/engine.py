@@ -11,7 +11,9 @@ semantics:
   ``max_len``) and every planned request of one bucket is prefilled in
   one batched call whose row count is padded to a power of two; a
   ``causal_mode='coarse-q'`` model is served unbucketed (its prefill
-  runs the coarse-q operator, its decode the fine-q decode);
+  runs the coarse-q operator, its decode the fine-q decode), and so is a
+  sliding-window model (gemma3: its local layers keep a rolling cache
+  of one row per slot beside the global layers' hierarchical caches);
 * ``greedy=False`` samples each token as ``argmax(logits + g)`` with
   Gumbel noise ``g`` (what ``jax.random.categorical`` computes), drawn
   from one seeded generator per request (:meth:`ServeEngine._noise`);
@@ -142,6 +144,11 @@ class ServeEngine:
                              f"engine over sp_axis={sp_axis!r}")
         sp_d = mesh.d if mesh is not None else 1
         if sp_d > 1:
+            if cfg.sliding_window > 0:
+                raise NotImplementedError(
+                    "SP serving of a sliding-window config is not ported: "
+                    "its local layers' rolling caches have no sequence "
+                    "split")
             if cfg.attention != "h1d":
                 raise ValueError(
                     "SP serving shards the hierarchical cache's sequence "
@@ -162,10 +169,13 @@ class ServeEngine:
         # one noise generator per request in flight, keyed by id(req)
         self._streams: Dict[int, torch.Generator] = {}
         # prompt length bucketing pads a prompt with real (weight-1)
-        # tokens; off for h1d coarse-q, whose coarse QUERIES average the
-        # pad embeddings across cluster boundaries and shift the logits
-        # at the true last token (the reference's rule)
-        self._bucket = cfg.causal_mode == "fine-q"
+        # tokens; off (the reference's rules) for a sliding window, whose
+        # rolling cache keeps the LAST 2 * window rows so pads would evict
+        # real in-window keys, and for h1d coarse-q, whose coarse QUERIES
+        # average the pad embeddings across cluster boundaries and shift
+        # the logits at the true last token
+        self._bucket = (cfg.causal_mode == "fine-q"
+                        and cfg.sliding_window == 0)
         self.cache_dtype = cache_dtype
         self.quant_levels = quant_levels
         self.cfg = cfg
@@ -394,12 +404,19 @@ class ServeEngine:
         nxt = self._sample(logits, rows, takers, tick=False).cpu().numpy()
 
         if not self.paged:
-            # slot s owns rows [s*r, (s+1)*r) of every cache array
+            # slot s owns rows [s*r, (s+1)*r) of every hierarchical cache
+            # array and row s of a local layer's rolling cache, whose
+            # every slot (pos -1 where empty) the prefill's overwrites
             r = self.cfg.num_kv_heads
             rows = torch.as_tensor(
                 np.concatenate([np.arange(s * r, (s + 1) * r) for s in dst]),
                 device=self.device)
+            slots = torch.as_tensor(dst, device=self.device)
             for full, one in zip(self.caches, caches):
+                if isinstance(full, dict):
+                    for key, fa in full.items():
+                        fa.index_copy_(0, slots, one[key][:g])
+                    continue
                 if self.sp_d > 1:      # one slice per shard and level
                     sp.scatter_rows(full, one, rows)
                     continue

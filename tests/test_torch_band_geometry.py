@@ -322,16 +322,25 @@ def test_band_dkvw_ctas_own_each_key_once_with_all_its_readers(mode, nr, L,
 @pytest.mark.parametrize("mode", BAND_MODES)
 def test_band_tiles_fit_the_card_and_fill_it(mode, nr):
     """Tiles of 16-64 rows within the H100's 227 KB of shared memory,
-    halved while the grid has fewer than two CTAs per SM; check_window
-    refuses exactly the shapes whose 16-row tiles do not fit.  At the
-    LRA path's coarse levels (64 rows, L from 1024 down to 2 blocks)
-    the grid holds at least 128 CTAs."""
+    halved while the grid has fewer than two CTAs per SM; the backward
+    check refuses exactly the shapes whose 16-row tiles do not fit, and
+    the forward check keeps every other shape on the staged body (only
+    ``l0_causal`` streams the ones it refuses).  At the LRA path's
+    coarse levels (64 rows, L from 1024 down to 2 blocks) the grid holds
+    at least 128 CTAs."""
     for d, dv in ((64, 64), (128, 128), (256, 256), (40, 24)):
         fits = True
         try:
-            thb.check_window(mode, nr, d, dv)
+            thb.check_window_bwd(mode, nr, d, dv)
         except ValueError:
             fits = False
+        if fits:
+            assert thb.check_window_fwd(mode, nr, d, dv) == "band"
+        elif mode == "l0_causal":
+            assert thb.check_window_fwd(mode, nr, d, dv) == "stream"
+        else:
+            with pytest.raises(ValueError):
+                thb.check_window_fwd(mode, nr, d, dv)
         tq = thb.band_fwd_tq(mode, 64, 1, 1024, d, dv, nr)
         tqb = thb.band_fwd_tq(mode, 64, 1, 1024, d, dv, nr, backward=True)
         nkb, tk = thb.band_dkvw_tiles(mode, 64, 1024, d, dv, nr)
@@ -345,7 +354,7 @@ def test_band_tiles_fit_the_card_and_fill_it(mode, nr):
     # today's envelope stays: d, dv up to 128, nr up to 64 causal and 32
     # bidirectional
     if mode == "l0_causal" or nr <= 32:
-        thb.check_window(mode, nr, 128, 128)
+        thb.check_window_bwd(mode, nr, 128, 128)
     for L in (1024, 512, 256, 128, 64, 32):
         if L < 2 * nr:
             continue

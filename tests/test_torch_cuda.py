@@ -93,6 +93,64 @@ def test_band_fwd_matches_plain(dev, B, G, L, d, dv, nr):
     assert not y[-1, :, :nr].any() and not dn[-1, :, :nr].any()
 
 
+@pytest.mark.parametrize("blocks", [3, 4])
+@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("nr", [128, 256, 1024])
+def test_band_stream_matches_plain(dev, nr, d, G, blocks):
+    """The streamed l0_causal body (nr past the staged body's 64) against
+    the plain version: 3 and 4 blocks, a zero-weight tail that ends
+    mid-block, a row whose window starts with a whole dead block (its
+    first key tiles are skipped), and rows with no live key at all."""
+    B, L = 3, blocks * nr
+    gen = torch.Generator(device=dev).manual_seed(nr + d + G + blocks)
+    q = _randn(gen, dev, B, G, L, d) / d ** 0.5
+    k = _randn(gen, dev, B, L, d)
+    w = torch.ones((B, L), device=dev)
+    w[0, L - nr // 2 - 37:] = 0.0              # tail, as a padded prompt
+    w[1, :nr] = 0.0                            # a dead first block
+    w[2, : nr + 40] = 0.0                      # rows with no live key
+    v = _randn(gen, dev, B, L, d) * w[..., None]
+    assert hb.check_window_fwd("l0_causal", nr, d, d) == "stream"
+    kernels.reset_counts()
+    got = hb.band_attention_fwd(q, k, v, w, nr=nr)
+    assert hb.band_attention_fwd.mode_launches == {"l0_causal_stream": 1}
+    _close(got, hb.band_attention_fwd_ref(q, k, v, w, nr=nr))
+    y, dn, m = got
+    assert torch.all(m[2, :, :nr] == hb._MIN_M)
+    assert not y[2, :, :nr].any() and not dn[2, :, :nr].any()
+    for a, b in zip(got, hb.band_attention_fwd(q, k, v, w, nr=nr)):
+        assert torch.equal(a, b)
+
+
+def test_band_stream_plan_matches_launcher(dev):
+    """The host mirror of the streamed body's shared-memory plan is the
+    launcher's, byte for byte."""
+    lib = hb._lib()
+    for d, dv, nr in ((64, 64, 128), (256, 256, 1024), (40, 24, 256),
+                      (256, 128, 4096), (8, 8, 2)):
+        assert lib.h1d_band_stream_smem(d, dv, nr) == \
+            4 * hb.stream_fwd_floats(d, dv, nr)
+
+
+@pytest.mark.parametrize("mode", ["l0_causal", "l0_bidir"])
+@pytest.mark.parametrize("nr,blocks", [(16, 3), (8, 5), (64, 3)])
+def test_band_fwd_whole_blocks(dev, mode, nr, blocks):
+    """Level 0 at block counts that are not powers of two (a sliding
+    window pads L to a multiple of the window only) on the staged body."""
+    B, G, L, d = 2, 2, nr * blocks, 32
+    gen = torch.Generator(device=dev).manual_seed(nr * blocks)
+    q = _randn(gen, dev, B, G, L, d) / d ** 0.5
+    k = _randn(gen, dev, B, L, d)
+    w = torch.ones((B, L), device=dev)
+    w[1, L - nr // 2 - 3:] = 0.0
+    v = _randn(gen, dev, B, L, d) * w[..., None]
+    kernels.reset_counts()
+    got = hb.band_attention_fwd(q, k, v, w, nr=nr, mode=mode)
+    assert hb.band_attention_fwd.mode_launches == {mode: 1}
+    _close(got, hb.band_attention_fwd_ref(q, k, v, w, nr=nr, mode=mode))
+
+
 BWD_L0 = [(3, 1, 64, 64, 64, 16), (2, 2, 128, 16, 16, 8),
           (2, 4, 32, 40, 24, 8), (1, 2, 256, 128, 128, 32),
           (2, 1, 64, 8, 72, 4), (2, 3, 512, 64, 64, 16)]
@@ -561,11 +619,14 @@ def test_wrappers_validate_operands(dev):
         hb.band_attention_fwd(q.double(), k, k, w, nr=8)
     with pytest.raises(ValueError):            # unknown mode
         hb.band_attention_fwd(q, k, k, w, nr=8, mode="l1_bidir")
-    # outside the envelope: nr > 64 in every mode, and a bidirectional
-    # window of 3 x 64 keys at d = dv = 128, whose 16-row tiles exceed the
-    # card's 227 KB of shared memory
-    q128 = torch.zeros((1, 1, 256, 8), device=dev)
-    k128 = torch.zeros((1, 256, 8), device=dev)
+    # outside the staged bodies' envelope: nr > 64 in every mode, and a
+    # bidirectional window of 3 x 64 keys at d = dv = 128, whose 16-row
+    # tiles exceed the card's 227 KB of shared memory.  The backward
+    # refuses all of them; the forward too, but in l0_causal at nr 128,
+    # which the streamed body takes
+    gen = torch.Generator(device=dev).manual_seed(1)
+    q128 = _randn(gen, dev, 1, 1, 256, 8)
+    k128 = _randn(gen, dev, 1, 256, 8)
     w128 = torch.ones((1, 256), device=dev)
     qw = torch.zeros((1, 1, 128, 128), device=dev)
     kw = torch.zeros((1, 128, 128), device=dev)
@@ -573,14 +634,23 @@ def test_wrappers_validate_operands(dev):
     bad = [(mode, q128, k128, w128, 128) for mode in hb.MODES]
     bad += [(mode, qw, kw, w64, 64) for mode in ("l0_bidir", "coarse_bidir")]
     for mode, qb, kb, wb, nr in bad:
-        with pytest.raises(ValueError):
-            hb.band_attention_fwd(qb, kb, kb, wb, nr=nr, mode=mode)
         out = hb.band_attention_fwd_ref(qb, kb, kb, wb, nr=nr, mode=mode)
+        if mode == "l0_causal":
+            _close(hb.band_attention_fwd(qb, kb, kb, wb, nr=nr, mode=mode),
+                   out)
+        else:
+            with pytest.raises(ValueError):
+                hb.band_attention_fwd(qb, kb, kb, wb, nr=nr, mode=mode)
         with pytest.raises(ValueError):
             hbb.band_attention_bwd(qb, kb, kb, wb, *out, *out, nr=nr,
                                    mode=mode)
+    # whole blocks only: L = 200 is no multiple of nr = 128
+    with pytest.raises(ValueError):
+        hb.band_attention_fwd(q128[:, :, :200].contiguous(),
+                              k128[:, :200].contiguous(),
+                              k128[:, :200].contiguous(), w128[:, :200],
+                              nr=128)
     # a window of 3 x 64 keys at d = 8 is inside it now
-    gen = torch.Generator(device=dev).manual_seed(0)
     q64 = _randn(gen, dev, 1, 1, 128, 8)
     k64 = _randn(gen, dev, 1, 128, 8)
     for mode in ("l0_bidir", "coarse_bidir"):

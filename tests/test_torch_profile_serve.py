@@ -66,6 +66,9 @@ def test_kernel_instance_maps_to_its_wrapper(entry):
      ", float const*, int const*, int const*, (anonymous namespace)::"
      "MutLevels, int, int, int, int)", "update_cache_paged_quant"),
     ("sm90_xmma_gemm_f32f32_f32f32_f32_tn_n_tilesize128x128x8", "matmul"),
+    ("(anonymous namespace)::band_stream_kernel(float const*, float const*"
+     ", float const*, float const*, float*, float*, float*, int, int, int, "
+     "int, int, int, int)", "band_attention_fwd[l0_causal_stream]"),
     ("void at::native::vectorized_elementwise_kernel<4>(int, "
      "at::native::CUDAFunctor_add<float>)", "other")])
 def test_other_kernels_group(name, group):
