@@ -153,6 +153,24 @@ Phases (each raises on failure; nothing is caught):
    prompt's prefill logits within 1e-3 of the plain path's, and the
    plain path's tokens wherever the kernel run's top-2 margins exceed
    1e-3.
+13. ``gemma train``, after 12: (a) the row
+   ``band_attention_bwd[l0_causal_stream]``, #3's streamed backward
+   against its plain version at phase 12's row shape (4 x G 2, L 4096,
+   nr 1024, d 256, keys live to 3000) from the streamed forward's
+   outputs and seeded random cotangents on y, dn and m, two calls the
+   same bits, with ``library_ms`` from the backward of
+   ``scaled_dot_product_attention`` under the same mask; (b)
+   ``gemma3-4b`` at full width in fp32 cut to 6 layers (5 local, 1
+   global), ``remat=True`` with policy ``dots`` as published, seeded
+   weights, ``ZipfLM(seed=0)`` 1 x 4096 batches: the ``lm_loss``
+   gradient on the kernel path against the plain path as in 7; the same
+   gradient with ``remat_policy='none'`` within 1e-6 of each leaf's
+   largest |remat gradient|, remat with the lower peak memory; 3 AdamW
+   steps through ``train`` (which draws the weights again from seed 0):
+   every loss finite, each band path launched
+   exactly as often as the step runs it (the rematerialised forwards
+   twice: forward and recompute), no plain version; step ms, tokens/s,
+   peak memory.
 
 Tolerances.  Attention outputs: |kernel - plain| <= 1e-5 * max(1,
 |plain|): both are fp32 with TF32 off and differ only in summation order
@@ -2453,6 +2471,210 @@ def phase_gemma(dev):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 13: gemma3-4b training
+# ---------------------------------------------------------------------------
+
+GEMMA_TRAIN_LAYERS, GEMMA_TRAIN_STEPS = 6, 3
+GEMMA_TRAIN_BATCH, GEMMA_TRAIN_SEQ = 1, 4096
+# the remat gradient against the one that keeps every activation: the
+# same kernels on the same inputs (the recompute gives the forward's
+# bits); what may differ is the order of the embedding's scatter-add
+REMAT_TOL = 1e-6
+
+
+def phase_stream_bwd_kernel(dev):
+    """#3's streamed ``l0_causal`` backward against its plain version at
+    the first of ``STREAM_CASES`` (the gemma local layers' prefill shape),
+    from the streamed forward's outputs and seeded random cotangents on
+    y, dn and m; two calls give identical bits.  Timed beside the plain
+    version and the backward of ``scaled_dot_product_attention`` under
+    the same boolean mask (its q, k, v gradients of the normalised z;
+    the port never calls it)."""
+    from repro_torch.kernels import h1d_block as hb
+    from repro_torch.kernels import h1d_block_bwd as hbb
+
+    Bs, Gs, Ls, nr, d, live = STREAM_CASES[0]
+    if hb.check_window_bwd("l0_causal", nr, d, d) != "stream":
+        raise AssertionError(f"nr={nr}, d={d} is not on the streamed "
+                             f"backward")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    q = torch.randn((Bs, Gs, Ls, d), generator=gen, device=dev) / \
+        math.sqrt(d)
+    k = torch.randn((Bs, Ls, d), generator=gen, device=dev)
+    w = torch.ones((Bs, Ls), device=dev)
+    w[:, live:] = 0.0
+    v = torch.randn((Bs, Ls, d), generator=gen, device=dev) * w[..., None]
+    out = hb.band_attention_fwd(q, k, v, w, nr=nr)
+    cot = [torch.randn(t.shape, generator=gen, device=dev) for t in out]
+    args = (q, k, v, w, *out, *cot)
+    label = f"band_attention_bwd[l0_causal_stream] L={Ls} nr={nr} d={d}"
+    got = hbb.band_attention_bwd(*args, nr=nr)
+    want = hbb.band_attention_bwd_ref(*args, nr=nr)
+    err, scaled, elem = compare(label, got, want, GRAD_TOL,
+                                ("row", "row", "row"))
+    for a, b in zip(got, hbb.band_attention_bwd(*args, nr=nr)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{label}: two calls differ")
+    del got, want
+    # an admitted pair: s (2d), da (2dv), dq and dk (2d each), dv (2dv)
+    flops = causal_pairs(w, nr) * Gs * 2 * (3 * d + 2 * d)
+    nbytes = hb.band_bytes(w, nr=nr, mode="l0_causal", G=Gs, d=d, dv=d,
+                           backward=True)
+    bms, by = bound(nbytes, flops)
+    i = torch.arange(Ls, device=dev)
+    allow = hb.band_mask(i[:, None], i[None, :], nr, "l0_causal", Ls)
+    mask = (allow[None] & (w > 0)[:, None, :])[:, None]
+    xs = [q.clone().requires_grad_(True),
+          k[:, None].expand(Bs, Gs, Ls, d).contiguous().requires_grad_(True),
+          v[:, None].expand(Bs, Gs, Ls, d).contiguous().requires_grad_(True)]
+    z = torch.nn.functional.scaled_dot_product_attention(
+        *xs, attn_mask=mask, scale=1.0)
+    gz = torch.randn(z.shape, generator=gen, device=dev)
+    row = dict(
+        name="band_attention_bwd[l0_causal_stream]", mode="l0_causal",
+        route="cuda", source="src/repro_torch/kernels/csrc/h1d_block_bwd.cu",
+        replaces="src/repro/kernels/h1d_block_bwd.py:541", max_abs_err=err,
+        max_scaled_err=scaled, max_elementwise_scaled_err=elem,
+        ms=time_ms(lambda: hbb.band_attention_bwd(*args, nr=nr)),
+        device_ms=device_ms(lambda: hbb.band_attention_bwd(*args, nr=nr)),
+        plain_ms=time_ms(lambda: hbb.band_attention_bwd_ref(*args, nr=nr)),
+        library_ms=time_ms(lambda: torch.autograd.grad(
+            z, xs, gz, retain_graph=True)),
+        bound_ms=bms, bound_by=by, gflop=flops / 1e9,
+        note=f"streamed backward (stream_dq_kernel, then "
+             f"stream_dkvw_kernel: one launch is one wrapper call of the "
+             f"two); {Bs} x {Gs} x {Ls}, nr {nr}, d {d}, keys live to "
+             f"{live}; cotangents random on y, dn and m; two calls the "
+             f"same bits; library_ms: the backward of "
+             f"scaled_dot_product_attention with the same boolean mask "
+             f"(normalised z), timed here only")
+    log(f"{label}: {json.dumps(row)}")
+    del args, out, cot, xs, z, gz, mask, allow
+    torch.cuda.empty_cache()
+    return row
+
+
+def gemma_train_expected(cfg, steps: int):
+    """The launches of ``steps`` rematerialised training steps: every
+    band forward of a layer twice (the forward, then the recompute in
+    the backward), its backward once; the local layers on the streamed
+    bodies, the global ones on #1 ``l0_causal`` and #2 at every sub
+    level, #3 and #4 in the backward."""
+    from repro_torch.core import hierarchy as hc
+    local = sum(not cfg.layer_uses_global_attn(i)
+                for i in range(cfg.num_layers))
+    glob = cfg.num_layers - local
+    subs = hc.num_levels(hc.padded_length(GEMMA_TRAIN_SEQ, cfg.nr),
+                         cfg.nr) - 1
+    per_step = {"band_attention_fwd[l0_causal_stream]": 2 * local,
+                "band_attention_bwd[l0_causal_stream]": local,
+                "band_attention_fwd[l0_causal]": 2 * glob,
+                "band_attention_bwd[l0_causal]": glob,
+                "band_attention_sub_fwd": 2 * glob * subs,
+                "band_attention_sub_bwd": glob * subs}
+    return {k_: n * steps for k_, n in per_step.items()}
+
+
+def phase_gemma_train(dev):
+    """13 (b). ``gemma3-4b`` at full width in fp32, cut to 6 layers, with
+    remat (policy ``dots``): its gradient against the plain path and
+    against ``remat_policy='none'``, then 3 AdamW steps through
+    ``train``.  Returns the training run's launches."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.data import ZipfLM
+    from repro_torch.models import get_model
+    from repro_torch.train import (TrainConfig, batch_to_device,
+                                   tokens_per_s, train)
+    from repro_torch.tree import (tree_flatten_with_paths, tree_leaves,
+                                  tree_unflatten_like)
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("gemma3-4b"), dtype="float32",
+                              num_layers=GEMMA_TRAIN_LAYERS)
+    if not (cfg.remat and cfg.remat_policy == "dots"):
+        raise AssertionError("gemma3-4b trains with remat, policy dots")
+    fns = get_model(cfg)
+    params = fns.init(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    data = ZipfLM(vocab_size=cfg.vocab_size, seq_len=GEMMA_TRAIN_SEQ,
+                  batch_per_host=GEMMA_TRAIN_BATCH, seed=0)
+    batch = batch_to_device(data.batch(0), dev)
+    # (a) the kernel path against the plain path
+    grads_against_plain("gemma train", params,
+                        lambda p: fns.loss(p, cfg, batch)[0])
+
+    # (b) remat against keeping every activation, with each one's peak
+    def grads(c):
+        leaves = [p.detach().requires_grad_(True)
+                  for p in tree_leaves(params)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        loss = fns.loss(tree_unflatten_like(params, leaves), c, batch)[0]
+        g = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        return g, (torch.cuda.max_memory_allocated() - start) / 2 ** 30
+    g_remat, peak_remat = grads(cfg)
+    g_none, peak_none = grads(dataclasses.replace(cfg, remat_policy="none"))
+    worst = 0.0
+    for (path, _), a, b in zip(tree_flatten_with_paths(params), g_none,
+                               g_remat):
+        _, e, _ = compare(f"gemma remat grad {path}", [a], [b], REMAT_TOL,
+                          ("tensor",))
+        worst = max(worst, e)
+    del g_remat, g_none
+    if not peak_remat < peak_none:
+        raise AssertionError(f"gemma: remat peaks at {peak_remat:.2f} GiB "
+                             f"above the weights, no lower than "
+                             f"{peak_none:.2f} without it")
+    log(f"gemma remat: gradient with remat_policy='none' within "
+        f"{worst:.3g} (<= {REMAT_TOL:g}) of each leaf's largest |remat "
+        f"gradient|; peak above the weights {peak_remat:.2f} GiB with "
+        f"remat (dots), {peak_none:.2f} GiB without")
+
+    # (c) 3 AdamW steps through train(), which draws the same weights
+    # (seed 0) itself: a state handed in would stay referenced by this
+    # frame, its weights and moments counted in the peak beside the
+    # step's
+    del params
+    torch.cuda.empty_cache()
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tc = TrainConfig(peak_lr=3e-4, warmup=5, ckpt_every=0, ckpt_dir=tmp,
+                         log_every=1, seed=0)
+        with counted(counts):
+            state, metrics = train(cfg, tc, data, GEMMA_TRAIN_STEPS,
+                                   device=dev, log=log)
+    del state
+    need_counts("gemma train", counts,
+                gemma_train_expected(cfg, GEMMA_TRAIN_STEPS))
+    hist = metrics["history"]
+    losses = [h["loss"] for h in hist]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"gemma train: non-finite loss: {losses}")
+    tokens = GEMMA_TRAIN_BATCH * GEMMA_TRAIN_SEQ
+    stats = dict(layers=cfg.num_layers, batch=GEMMA_TRAIN_BATCH,
+                 seq=GEMMA_TRAIN_SEQ, steps=GEMMA_TRAIN_STEPS,
+                 remat_policy=cfg.remat_policy, losses=losses,
+                 first_step_ms=hist[0]["step_ms"],
+                 median_step_ms=float(np.median([h["step_ms"]
+                                                 for h in hist[1:]])),
+                 tokens_per_s=tokens_per_s(hist, tokens),
+                 peak_mem_gib=metrics["peak_mem_gib"],
+                 grad_peak_above_weights_gib=dict(
+                     remat=peak_remat, none=peak_none),
+                 weights_s=init_s,
+                 launches={k_: counts.get(k_, 0) for k_ in
+                           gemma_train_expected(cfg, 1)})
+    log(f"gemma train: {json.dumps(stats)}; phase 13 (b) took "
+        f"{time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
@@ -2505,6 +2727,11 @@ def main() -> int:
     gemma_counts = phase_gemma(dev)
     log(f"phase gemma took {time.perf_counter() - t_g:.1f}s (kernel row "
         f"and serving)")
+    t_g = time.perf_counter()
+    rows.append(phase_stream_bwd_kernel(dev))
+    gemma_train_counts = phase_gemma_train(dev)
+    log(f"phase gemma train took {time.perf_counter() - t_g:.1f}s (kernel "
+        f"row and training)")
     for row in rows:
         key = row["name"]
         by_path = {"serve": serve_counts.get(key, 0),
@@ -2516,7 +2743,8 @@ def main() -> int:
                    "sp_train": sp_train_counts.get(key, 0),
                    "cq_serve": cq_serve_counts.get(key, 0),
                    "sample": sample_counts.get(key, 0),
-                   "gemma": gemma_counts.get(key, 0)}
+                   "gemma": gemma_counts.get(key, 0),
+                   "gemma_train": gemma_train_counts.get(key, 0)}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         row["kernel_ms"] = row["ms"]

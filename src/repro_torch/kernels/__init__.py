@@ -8,8 +8,9 @@ band mode: ``l0_causal`` (the LM's level 0), ``l0_bidir`` and
 ``coarse_bidir`` (the encoder's level 0 and coarse levels) and
 ``coarse_causal`` (the coarse-q decoder's coarse levels); the ``sub``
 kernels run the fine-q LM's coarse levels.  In ``l0_causal`` the forward
-has a second, streamed body for windows too wide to stage (gemma3's
-sliding-window layers, nr = 1024), counted under ``l0_causal_stream``.
+and the backward have a second, streamed body for windows too wide to
+stage (gemma3's sliding-window layers, nr = 1024), counted under
+``l0_causal_stream``.
 
 ======================== ============================== ==================
 wrapper                  replaces (repro/kernels/...)   plain version

@@ -569,4 +569,39 @@ __host__ __device__ __forceinline__ size_t stream_fwd_floats(int d, int dv,
          1;
 }
 
+// The streamed backward (h1d_block_bwd.cu), two passes.  dQ: a tile of
+// STREAM_TQ rows keeps q and gy resident while its key window streams
+// through in tiles of STREAM_DQ_TK keys, twice (the tie count, then ds
+// and dq).  dK/dV/dW: a CTA keeps STREAM_KV_TK keys and values resident
+// while their reader rows stream through in chunks of STREAM_KV_TR.
+// Mirrored by repro_torch.kernels.h1d_block (stream_dq_tiles,
+// stream_dq_floats, stream_dkvw_floats).
+constexpr int STREAM_DQ_TK = 16;   // dQ pass: keys a streamed tile
+constexpr int STREAM_KV_TK = 32;   // dK/dV/dW pass: keys a CTA
+constexpr int STREAM_KV_TR = 32;   // dK/dV/dW pass: reader rows a chunk
+
+__host__ __device__ __forceinline__ int stream_dq_tiles(int nr) {
+  return (2 * nr + STREAM_TQ + STREAM_DQ_TK - 1) / STREAM_DQ_TK;
+}
+
+// Shared floats of the dQ pass: q and gy of the tile, two stages of keys,
+// values and key weights, this tile's ds, each row's m, gdn, gmh and gmn,
+// the list of live key tiles and its length.
+__host__ __device__ __forceinline__ size_t stream_dq_floats(int d, int dv,
+                                                            int nr) {
+  const size_t qs = round4(d) + 4, gs = round4(dv) + 4;
+  return STREAM_TQ * (qs + gs) + 2 * STREAM_DQ_TK * (qs + gs + 1) +
+         STREAM_TQ * (STREAM_DQ_TK + 4) + 4 * STREAM_TQ +
+         stream_dq_tiles(nr) + 1;
+}
+
+// Shared floats of the dK/dV/dW pass: the CTA's keys and values, two
+// stages of reader rows (q, gy and the row's m, gdn, gmn), this chunk's a
+// and ds (key-major), the keys' weights.
+__host__ __device__ __forceinline__ size_t stream_dkvw_floats(int d, int dv) {
+  const size_t qs = round4(d) + 4, gs = round4(dv) + 4;
+  return STREAM_KV_TK * (qs + gs) + 2 * STREAM_KV_TR * (qs + gs + 3) +
+         2 * STREAM_KV_TK * (STREAM_KV_TR + 4) + STREAM_KV_TK;
+}
+
 }  // namespace h1d

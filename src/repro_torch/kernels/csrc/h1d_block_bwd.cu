@@ -5,7 +5,10 @@
 //     every band mode: l0_causal, l0_bidir, coarse_bidir and
 //     coarse_causal (the last on the sub body at ratio 1);
 //   * h1d_band_sub_bwd <- band_attention_sub_bwd (_dq_sub_kernel and both
-//     the wide and the deep dK/dV/dW kernels), the fine-q causal level.
+//     the wide and the deep dK/dV/dW kernels), the fine-q causal level;
+//   * h1d_band_bwd_stream <- band_attention_bwd in l0_causal where the key
+//     window is too wide to stage (a sliding window's nr = 1024; its own
+//     note is at stream_dq_kernel below).
 // Math (h1d_block_bwd.py:10-30), per level and query row i, from the
 // saved forward inputs and outputs (q, k, v, w, y, dn, m) and the
 // cotangents (gy, gdn, gm):
@@ -984,6 +987,482 @@ int launch_sub(const float* q, const float* k, const float* v,
                           smem, stream);
 }
 
+// ---------------------------------------------------------------------------
+// l0_causal, streamed (h1d_band_bwd_stream)
+// ---------------------------------------------------------------------------
+//
+// Replaces band_attention_bwd (repro/kernels/h1d_block_bwd.py:541) in
+// l0_causal where the staged bodies cannot hold the key window: a sliding
+// window's block (nr = 1024 at d = 256, gemma3-4b's local layers), the
+// backward of band_stream_kernel (h1d_block.cu).  Row i admits the keys
+// (i / nr - 1) * nr .. i with w > 0, one contiguous range; key j is read
+// by the rows j .. (j / nr + 2) * nr - 1 of every group.
+//
+// What bounds it: operations, as the streamed forward (a key row is read
+// by up to 2 nr rows of each group; some 500 FLOPs a byte at nr = 1024,
+// d = 256 against the fp32 ridge of 20).  Two kernels on one stream, the
+// reference's own two passes (_dq_kernel, _dkvw_kernel), with no scratch
+// between them but gmn (B, G, L), no atomics and every sum in a fixed
+// order, so two calls give identical bits:
+//   * stream_dq_kernel: one CTA per (b, g, tile of STREAM_TQ rows), 256
+//     threads.  q and gy stay resident; gmh = gm - (gy . y + gdn * dn)
+//     reads y once from device memory.  The window's live key tiles
+//     (STREAM_DQ_TK keys; tiles with no w > 0 are listed out first, as
+//     the forward's ballot lists them) stream through two cp.async
+//     stages twice: the first sweep scores q . k alone and counts each
+//     row's ties s == m over the whole window (c is needed before any ds:
+//     ds = a da + (gmh / c) 1[s == m]), the second scores q . k and
+//     gy . v, forms ds and adds ds @ k into an 8-row x 4-column register
+//     tile a thread (two at d = 256), each key tile's terms summed apart
+//     before they join dq (the plain version's SUM_KEYS chunks).  Writes
+//     dq and gmn.  At d = 256 a stage of 32 keys would not fit beside the
+//     resident q and gy: 16 keys a stage (206 KB in all).
+//   * stream_dkvw_kernel: one CTA per (b, STREAM_KV_TK keys).  Its keys
+//     and values stay resident while the reader rows of every group (g,
+//     then rows in order) stream through two cp.async stages of
+//     STREAM_KV_TR rows (q, gy, m, gdn, gmn); a and ds are recomputed per
+//     (row, key), kept key-major in shared memory, and ds^T q, a^T gy (an
+//     8-key x 4-column register tile a thread, two in all) and a^T gdn
+//     (one key a thread) add each chunk's sum into their totals.  A CTA
+//     whose keys all have w <= 0 writes zeros without reading a row.
+// Both score on 1-row x 4-key register tiles in dot_tile's order, the
+// order band_stream_kernel scored in, so s == m finds the forward's
+// maximum bit for bit.  expf, not __expf.
+__global__ void __launch_bounds__(STREAM_THREADS)
+stream_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ w,
+                 const float* __restrict__ y, const float* __restrict__ dn,
+                 const float* __restrict__ m, const float* __restrict__ gy,
+                 const float* __restrict__ gdn, const float* __restrict__ gm,
+                 float* __restrict__ dq, float* __restrict__ gmn, int G,
+                 int L, int d, int dv, int nr, int vec_in, int vec_out) {
+  constexpr int TQ = STREAM_TQ, TK = STREAM_DQ_TK, NT = STREAM_THREADS;
+  constexpr int RY = STREAM_RY;
+  constexpr int MAX_IT = TQ / RY * (STREAM_MAX_D / 4) / NT;  // dq tiles a thread
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int b = blockIdx.y;
+  const int tiles = (L + TQ - 1) / TQ;
+  const int g = blockIdx.x / tiles;
+  const int t0 = (blockIdx.x - g * tiles) * TQ;
+  const int rows = min(TQ, L - t0);
+  const int d4 = round4(d), dv4 = round4(dv);
+  const int qs = d4 + 4, gs = dv4 + 4, ps = TK + 4;
+  const int kw0 = max(0, (t0 / nr - 1) * nr);   // the window's first key
+  const int kend = t0 + rows - 1;               // and its last
+  const int nt = (kend - kw0 + TK) / TK;        // key tiles it spans
+  float* q_s = smem;                            // TQ x qs
+  float* g_s = q_s + TQ * qs;                   // TQ x gs: gy
+  float* k_s = g_s + TQ * gs;                   // 2 stages x TK x qs
+  float* v_s = k_s + 2 * TK * qs;               // 2 stages x TK x gs
+  float* w_s = v_s + 2 * TK * gs;               // 2 stages x TK
+  float* p_s = w_s + 2 * TK;                    // TQ x ps: this tile's ds
+  float* m_s = p_s + TQ * ps;                   // TQ each: m, gdn, gmh, gmn
+  float* gdn_s = m_s + TQ;
+  float* gmh_s = gdn_s + TQ;
+  float* gmn_s = gmh_s + TQ;
+  int* live_s = reinterpret_cast<int*>(gmn_s + TQ);  // live key tiles
+  int* nlive_s = live_s + stream_dq_tiles(nr);
+  const size_t row0 = ((size_t)b * G + g) * L + t0;
+  const float* wb = w + (size_t)b * L;
+
+  // list the window's key tiles that hold a key with w > 0, in order
+  for (int n = tid; n < nt; n += NT) {
+    int any = 0;
+    for (int t = 0; t < TK; ++t) {
+      const int j = kw0 + n * TK + t;
+      any |= j <= kend && wb[j] > 0.f;
+    }
+    live_s[n] = any;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int c = 0;
+    for (int n = 0; n < nt; ++n)
+      if (live_s[n]) live_s[c++] = n;
+    *nlive_s = c;
+  }
+  __syncthreads();
+  const int nlive = *nlive_s;
+  if (nlive == 0) {                             // no row has a live key
+    for (int e = tid; e < rows * d; e += NT) dq[row0 * d + e] = 0.f;
+    for (int r = tid; r < rows; r += NT) gmn[row0 + r] = 0.f;
+    return;
+  }
+
+  stage_rows(q_s, qs, TQ, d, vec_in & VEC_Q, [&](int r) -> const float* {
+    return r < rows ? q + (row0 + r) * d : nullptr;
+  });
+  stage_rows(g_s, gs, TQ, dv, vec_in & VEC_GY, [&](int r) -> const float* {
+    return r < rows ? gy + (row0 + r) * dv : nullptr;
+  });
+  cp_async_commit();
+  for (int r = tid; r < TQ; r += NT) {
+    m_s[r] = r < rows ? m[row0 + r] : 0.f;
+    gdn_s[r] = r < rows ? gdn[row0 + r] : 0.f;
+  }
+  cp_async_wait();
+  __syncthreads();
+  // gmh = gm - (gy . y + gdn * dn): a warp a row, y read once
+  for (int r = tid >> 5; r < TQ; r += NT / 32) {
+    float part = 0.f;
+    if (r < rows) {
+      const float* yr = y + (row0 + r) * dv;
+      for (int c = lane; c < dv; c += 32) part = fmaf(g_s[r * gs + c], yr[c], part);
+    }
+    for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(FULL, part, o);
+    if (lane == 0)
+      gmh_s[r] = r < rows ? gm[row0 + r] - (part + gdn_s[r] * dn[row0 + r])
+                          : 0.f;
+  }
+
+  // copies of live key tile n into stage s (keys past the last row zero),
+  // the values too when `values`
+  auto stage = [&](int n, int s, bool values) {
+    const int ks = kw0 + live_s[n] * TK;
+    auto src = [&](int r, const float* base, int width) -> const float* {
+      return ks + r <= kend ? base + ((size_t)b * L + ks + r) * width
+                            : nullptr;
+    };
+    stage_rows(k_s + s * TK * qs, qs, TK, d, vec_in & VEC_K,
+               [&](int r) { return src(r, k, d); });
+    if (values)
+      stage_rows(v_s + s * TK * gs, gs, TK, dv, vec_in & VEC_V,
+                 [&](int r) { return src(r, v, dv); });
+    if (tid < TK) {
+      float* dst = w_s + s * TK + tid;
+      if (ks + tid <= kend) cp_async4(dst, wb + ks + tid);
+      else *dst = 0.f;
+    }
+  };
+  // the score pass: row r against keys kq, kq + 4, kq + 8, kq + 12 of a
+  // tile (the 8 lanes of a load phase read 4 key rows, in distinct banks)
+  const int r = tid >> 2, kq = tid & 3;
+  const int i = t0 + r, lo = (i / nr - 1) * nr;
+  const bool row_in = r < rows;
+  __syncthreads();                              // m_s, gmh_s are written
+  const float m_r = m_s[r];
+  auto admitted = [&](int j, float wj) {
+    return row_in && j >= lo && j <= i && wj > 0.f;
+  };
+
+  // sweep 1: each row's tie count c over its whole window
+  int cnt = 0;
+  stage(0, 0, false);
+  cp_async_commit();
+  for (int n = 0; n < nlive; ++n) {
+    const int s = n & 1;
+    if (n + 1 < nlive) stage(n + 1, s ^ 1, false);
+    cp_async_commit();
+    cp_async_wait_group<1>();                   // tile n has landed
+    __syncthreads();
+    const float* kt = k_s + s * TK * qs;
+    const float* wt = w_s + s * TK;
+    const int ks = kw0 + live_s[n] * TK;
+    float sc[1][4];
+    dot_tile<1>(q_s + r * qs, qs, kt + kq * qs, 4 * qs, d4, sc);
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int kk = kq + 4 * t;
+      cnt += admitted(ks + kk, wt[kk]) && sc[0][t] == m_r;
+    }
+    __syncthreads();                            // the stage is free again
+  }
+  cnt += __shfl_xor_sync(FULL, cnt, 1);
+  cnt += __shfl_xor_sync(FULL, cnt, 2);
+  if (kq == 0) {
+    const float gmn_r = cnt > 0 ? gmh_s[r] / (float)cnt : 0.f;
+    gmn_s[r] = gmn_r;
+    if (row_in) gmn[row0 + r] = gmn_r;
+  }
+  __syncthreads();
+  const float gdn_r = gdn_s[r], gmn_r = gmn_s[r];
+
+  // sweep 2: ds = a (gy . v + gdn w) + gmn 1[s == m], dq += ds @ k
+  const int ncg = d4 / 4, items = TQ / RY * ncg;
+  float acc[MAX_IT][RY][4];
+#pragma unroll
+  for (int it = 0; it < MAX_IT; ++it)
+#pragma unroll
+    for (int rr = 0; rr < RY; ++rr)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[it][rr][c] = 0.f;
+  stage(0, 0, true);
+  cp_async_commit();
+  for (int n = 0; n < nlive; ++n) {
+    const int s = n & 1;
+    if (n + 1 < nlive) stage(n + 1, s ^ 1, true);
+    cp_async_commit();
+    cp_async_wait_group<1>();
+    __syncthreads();
+    const float* kt = k_s + s * TK * qs;
+    const float* vt = v_s + s * TK * gs;
+    const float* wt = w_s + s * TK;
+    const int ks = kw0 + live_s[n] * TK;
+    float sc[1][4], da[1][4];
+    if (d4 == dv4) {
+      dot_tile2<1>(q_s + r * qs, qs, kt + kq * qs, 4 * qs, g_s + r * gs, gs,
+                   vt + kq * gs, 4 * gs, d4, sc, da);
+    } else {
+      dot_tile<1>(q_s + r * qs, qs, kt + kq * qs, 4 * qs, d4, sc);
+      dot_tile<1>(g_s + r * gs, gs, vt + kq * gs, 4 * gs, dv4, da);
+    }
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int kk = kq + 4 * t;
+      const float wj = wt[kk];
+      const float x = sc[0][t];
+      p_s[r * ps + kk] =
+          admitted(ks + kk, wj)
+              ? expf(x - m_r) * fmaf(gdn_r, wj, da[0][t]) +
+                    (x == m_r ? gmn_r : 0.f)
+              : 0.f;
+    }
+    __syncthreads();
+    // dq += ds @ k over this tile's keys, summed apart first
+#pragma unroll
+    for (int it = 0; it < MAX_IT; ++it) {
+      const int e = tid + it * NT;
+      if (e < items) {
+        const int rg = e / ncg, c = (e - rg * ncg) * 4;
+        float part[RY][4];
+        apply_tile<RY>(p_s + rg * RY * ps, ps, kt + c, qs, TK, part);
+#pragma unroll
+        for (int rr = 0; rr < RY; ++rr)
+#pragma unroll
+          for (int cc = 0; cc < 4; ++cc) acc[it][rr][cc] += part[rr][cc];
+      }
+    }
+    __syncthreads();                            // the stage is free again
+  }
+#pragma unroll
+  for (int it = 0; it < MAX_IT; ++it) {
+    const int e = tid + it * NT;
+    if (e < items) {
+      const int rg = e / ncg, c = (e - rg * ncg) * 4;
+#pragma unroll
+      for (int rr = 0; rr < RY; ++rr)
+        if (rg * RY + rr < rows)
+          store4(dq + (row0 + rg * RY + rr) * d, c, d, vec_out & VEC_DQ,
+                 acc[it][rr]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(STREAM_THREADS)
+stream_dkvw_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, const float* __restrict__ w,
+                   const float* __restrict__ m, const float* __restrict__ gy,
+                   const float* __restrict__ gdn,
+                   const float* __restrict__ gmn, float* __restrict__ dk,
+                   float* __restrict__ dvo, float* __restrict__ dw, int G,
+                   int L, int d, int dv, int nr, int vec_in, int vec_out) {
+  constexpr int TK = STREAM_KV_TK, TR = STREAM_KV_TR, NT = STREAM_THREADS;
+  constexpr int RK = STREAM_RY;                 // keys of a register tile
+  // dk and dv tiles a thread
+  constexpr int MAX_IT = TK / RK * (2 * STREAM_MAX_D / 4) / NT;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x;
+  const int b = blockIdx.y;
+  const int k0 = blockIdx.x * TK;
+  const int keys = min(TK, L - k0);
+  const int d4 = round4(d), dv4 = round4(dv);
+  const int qs = d4 + 4, gs = dv4 + 4, ps = TR + 4;
+  const size_t kb = (size_t)b * L + k0;         // the CTA's first key
+  float* k_s = smem;                            // TK x qs
+  float* v_s = k_s + TK * qs;                   // TK x gs
+  float* q_s = v_s + TK * gs;                   // 2 stages x TR x qs
+  float* g_s = q_s + 2 * TR * qs;               // 2 stages x TR x gs: gy
+  float* x_s = g_s + 2 * TR * gs;               // 2 stages x 3 x TR: m, gdn, gmn
+  float* a_s = x_s + 2 * 3 * TR;                // TK x ps: a, key-major
+  float* ds_s = a_s + TK * ps;                  // TK x ps: ds, key-major
+  float* w_s = ds_s + TK * ps;                  // TK
+
+  float wk = 0.f;
+  if (tid < TK) {
+    wk = tid < keys ? w[kb + tid] : 0.f;
+    w_s[tid] = wk;
+  }
+  if (!__syncthreads_or(wk > 0.f)) {
+    // no key here has w > 0: every gradient of these keys is 0
+    for (int e = tid; e < keys * d; e += NT) dk[kb * d + e] = 0.f;
+    for (int e = tid; e < keys * dv; e += NT) dvo[kb * dv + e] = 0.f;
+    for (int e = tid; e < keys; e += NT) dw[kb + e] = 0.f;
+    return;
+  }
+  stage_rows(k_s, qs, TK, d, vec_in & VEC_K, [&](int r) -> const float* {
+    return r < keys ? k + (kb + r) * d : nullptr;
+  });
+  stage_rows(v_s, gs, TK, dv, vec_in & VEC_V, [&](int r) -> const float* {
+    return r < keys ? v + (kb + r) * dv : nullptr;
+  });
+
+  // reader rows k0 .. rhi - 1 of every group, in chunks of TR
+  const int rhi = min(L, ((k0 + keys - 1) / nr + 2) * nr);
+  const int nch = (rhi - k0 + TR - 1) / TR, total = G * nch;
+  auto stage = [&](int n, int s) {
+    const int gg = n / nch, f0 = k0 + (n - gg * nch) * TR;
+    const size_t rowg = ((size_t)b * G + gg) * L + f0;
+    auto src = [&](int r, const float* base, int width) -> const float* {
+      return f0 + r < rhi ? base + (rowg + r) * width : nullptr;
+    };
+    stage_rows(q_s + s * TR * qs, qs, TR, d, vec_in & VEC_Q,
+               [&](int r) { return src(r, q, d); });
+    stage_rows(g_s + s * TR * gs, gs, TR, dv, vec_in & VEC_GY,
+               [&](int r) { return src(r, gy, dv); });
+    if (tid < 3 * TR) {
+      const int which = tid / TR, r = tid - which * TR;
+      const float* base = which == 0 ? m : which == 1 ? gdn : gmn;
+      float* dst = x_s + (s * 3 + which) * TR + r;
+      if (f0 + r < rhi) cp_async4(dst, base + rowg + r);
+      else *dst = 0.f;
+    }
+  };
+
+  const int nck = d4 / 4, ncv = dv4 / 4;
+  const int items_k = TK / RK * nck, items = items_k + TK / RK * ncv;
+  float acc[MAX_IT][RK][4], accw = 0.f;
+#pragma unroll
+  for (int it = 0; it < MAX_IT; ++it)
+#pragma unroll
+    for (int rr = 0; rr < RK; ++rr)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[it][rr][c] = 0.f;
+  // the score pass: row r of a chunk against keys kq, kq + 8, kq + 16,
+  // kq + 24 (the 8 lanes of a load phase read 8 key rows, in distinct
+  // banks)
+  const int r = tid >> 3, kq = tid & 7;
+  stage(0, 0);
+  cp_async_commit();
+  for (int n = 0; n < total; ++n) {
+    const int s = n & 1;
+    if (n + 1 < total) stage(n + 1, s ^ 1);
+    cp_async_commit();
+    cp_async_wait_group<1>();                   // chunk n (and k, v) landed
+    __syncthreads();
+    const int f0 = k0 + (n - n / nch * nch) * TR;
+    const float* qt = q_s + s * TR * qs;
+    const float* gt = g_s + s * TR * gs;
+    const float* xt = x_s + s * 3 * TR;
+    const int i = f0 + r, lo = (i / nr - 1) * nr;
+    const float m_i = xt[r], gdn_i = xt[TR + r], gmn_i = xt[2 * TR + r];
+    float sc[1][4], da[1][4];
+    if (d4 == dv4) {
+      dot_tile2<1>(qt + r * qs, qs, k_s + kq * qs, 8 * qs, gt + r * gs, gs,
+                   v_s + kq * gs, 8 * gs, d4, sc, da);
+    } else {
+      dot_tile<1>(qt + r * qs, qs, k_s + kq * qs, 8 * qs, d4, sc);
+      dot_tile<1>(gt + r * gs, gs, v_s + kq * gs, 8 * gs, dv4, da);
+    }
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int kk = kq + 8 * t, j = k0 + kk;
+      const float wj = w_s[kk], x = sc[0][t];
+      const bool ok = i < rhi && kk < keys && wj > 0.f && j <= i && j >= lo;
+      const float a = ok ? expf(x - m_i) : 0.f;
+      a_s[kk * ps + r] = a;
+      ds_s[kk * ps + r] =
+          ok ? a * fmaf(gdn_i, wj, da[0][t]) + (x == m_i ? gmn_i : 0.f)
+             : 0.f;
+    }
+    __syncthreads();
+    // this chunk's rows into dk (ds^T q), dv (a^T gy) and dw (a^T gdn),
+    // summed apart first
+#pragma unroll
+    for (int it = 0; it < MAX_IT; ++it) {
+      const int e = tid + it * NT;
+      if (e < items) {
+        const bool isk = e < items_k;
+        const int e2 = isk ? e : e - items_k, n4 = isk ? nck : ncv;
+        const int kg = e2 / n4, c = (e2 - kg * n4) * 4;
+        float part[RK][4];
+        if (isk)
+          apply_tile<RK>(ds_s + kg * RK * ps, ps, qt + c, qs, TR, part);
+        else
+          apply_tile<RK>(a_s + kg * RK * ps, ps, gt + c, gs, TR, part);
+#pragma unroll
+        for (int rr = 0; rr < RK; ++rr)
+#pragma unroll
+          for (int cc = 0; cc < 4; ++cc) acc[it][rr][cc] += part[rr][cc];
+      }
+    }
+    if (tid < TK) {
+      float part = 0.f;
+      for (int rr = 0; rr < TR; ++rr)
+        part = fmaf(a_s[tid * ps + rr], xt[TR + rr], part);
+      accw += part;
+    }
+    __syncthreads();                            // the stage is free again
+  }
+
+#pragma unroll
+  for (int it = 0; it < MAX_IT; ++it) {
+    const int e = tid + it * NT;
+    if (e < items) {
+      const bool isk = e < items_k;
+      const int e2 = isk ? e : e - items_k, n4 = isk ? nck : ncv;
+      const int kg = e2 / n4, c = (e2 - kg * n4) * 4;
+#pragma unroll
+      for (int rr = 0; rr < RK; ++rr) {
+        const int t = kg * RK + rr;
+        if (t >= keys) continue;
+        if (isk)
+          store4(dk + (kb + t) * d, c, d, vec_out & VEC_DK, acc[it][rr]);
+        else
+          store4(dvo + (kb + t) * dv, c, dv, vec_out & VEC_DV, acc[it][rr]);
+      }
+    }
+  }
+  if (tid < keys) dw[kb + tid] = accw;
+}
+
+size_t stream_bwd_smem(int d, int dv, int nr, int pass) {
+  return (pass == 0 ? stream_dq_floats(d, dv, nr) : stream_dkvw_floats(d, dv))
+         * sizeof(float);
+}
+
+// nr a power of two >= 2 with L % nr == 0; d, dv up to STREAM_MAX_D; both
+// passes' shared-memory plans within SMEM_MAX.
+int launch_stream(const float* q, const float* k, const float* v,
+                  const float* w, const float* y, const float* dn,
+                  const float* m, const float* gy, const float* gdn,
+                  const float* gm, float* dq, float* gmn, float* dk,
+                  float* dv_out, float* dw, int B, int G, int L, int d,
+                  int dv, int nr, cudaStream_t stream) {
+  if (d < 1 || dv < 1 || d > STREAM_MAX_D || dv > STREAM_MAX_D || nr < 2 ||
+      (nr & (nr - 1)) || L % nr)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem_dq = stream_bwd_smem(d, dv, nr, 0);
+  const size_t smem_kv = stream_bwd_smem(d, dv, nr, 1);
+  if (smem_dq > SMEM_MAX || smem_kv > SMEM_MAX)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || G == 0 || L == 0) return 0;
+  int e = set_smem(stream_dq_kernel, smem_dq);
+  if (e) return e;
+  e = set_smem(stream_dkvw_kernel, smem_kv);
+  if (e) return e;
+  const int vec_in = (aligned16(q) && d % 4 == 0 ? VEC_Q : 0) |
+                     (aligned16(k) && d % 4 == 0 ? VEC_K : 0) |
+                     (aligned16(v) && dv % 4 == 0 ? VEC_V : 0) |
+                     (aligned16(gy) && dv % 4 == 0 ? VEC_GY : 0);
+  const int vec_out = (aligned16(dq) && d % 4 == 0 ? VEC_DQ : 0) |
+                      (aligned16(dk) && d % 4 == 0 ? VEC_DK : 0) |
+                      (aligned16(dv_out) && dv % 4 == 0 ? VEC_DV : 0);
+  stream_dq_kernel<<<dim3(G * ((L + STREAM_TQ - 1) / STREAM_TQ), B),
+                     STREAM_THREADS, smem_dq, stream>>>(
+      q, k, v, w, y, dn, m, gy, gdn, gm, dq, gmn, G, L, d, dv, nr, vec_in,
+      vec_out);
+  e = (int)cudaGetLastError();
+  if (e) return e;
+  stream_dkvw_kernel<<<dim3((L + STREAM_KV_TK - 1) / STREAM_KV_TK, B),
+                       STREAM_THREADS, smem_kv, stream>>>(
+      q, k, v, w, m, gy, gdn, gmn, dk, dv_out, dw, G, L, d, dv, nr, vec_in,
+      vec_out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Saved q (B,G,L,d), k (B,L,d), v (B,L,dv), w (B,L), y (B,G,L,dv),
@@ -1035,4 +1514,27 @@ extern "C" int h1d_band_sub_bwd(const float* q, const float* k,
                                 void* stream) {
   return launch_sub(q, k, v, w, y, dn, m, gy, gdn, gm, dq, gmn, dk, dv_out,
                     dw, B, G, Lq, Lk, d, dv, nr, ratio, (cudaStream_t)stream);
+}
+
+// l0_causal with the key window streamed (the shapes the staged bodies
+// refuse; repro_torch.kernels.h1d_block.check_window_bwd): the operands and
+// results of h1d_band_bwd, no scratch.
+extern "C" int h1d_band_bwd_stream(const float* q, const float* k,
+                                   const float* v, const float* w,
+                                   const float* y, const float* dn,
+                                   const float* m, const float* gy,
+                                   const float* gdn, const float* gm,
+                                   float* dq, float* gmn, float* dk,
+                                   float* dv_out, float* dw, int B, int G,
+                                   int L, int d, int dv, int nr,
+                                   void* stream) {
+  return launch_stream(q, k, v, w, y, dn, m, gy, gdn, gm, dq, gmn, dk,
+                       dv_out, dw, B, G, L, d, dv, nr, (cudaStream_t)stream);
+}
+
+// Bytes of the streamed backward's shared-memory plan, pass 0 (dQ) or 1
+// (dK/dV/dW) (held by the card tests to repro_torch.kernels.h1d_block's
+// stream_dq_floats and stream_dkvw_floats).
+extern "C" int h1d_band_bwd_stream_smem(int d, int dv, int nr, int pass) {
+  return (int)stream_bwd_smem(d, dv, nr, pass);
 }

@@ -25,8 +25,10 @@ two bodies there: the staged one, which holds a tile's whole key window
 in shared memory (nr up to 64), and a streamed one for the windows too
 wide to hold (a sliding window's nr = 1024 at d = 256), which the
 wrapper takes only for the shapes the staged one refuses
-(:func:`check_window_fwd`).  Level 0 needs whole blocks only (``L % nr
-== 0``); the coarse modes need ``L = nr * 2**k``.
+(:func:`check_window_fwd`; the backward chooses the same way,
+:func:`check_window_bwd`, with the host mirrors of both bodies' plans
+here).  Level 0 needs whole blocks only (``L % nr == 0``); the coarse
+modes need ``L = nr * 2**k``.
 """
 from __future__ import annotations
 
@@ -130,13 +132,21 @@ def band_body_takes(mode: str, nr: int, d: int, dv: int) -> bool:
     return big <= SMEM_MAX
 
 
-def check_window_bwd(mode: str, nr: int, d: int, dv: int) -> None:
-    """What the backward kernels (#3) take: :func:`band_body_takes`."""
-    if not band_body_takes(mode, nr, d, dv):
-        raise ValueError(
-            f"mode {mode!r} at nr={nr}, d={d}, dv={dv}: the backward "
-            f"kernels take nr <= {BAND_MAX_NR} and 16-row tiles within "
-            f"{SMEM_MAX} bytes of shared memory")
+def check_window_bwd(mode: str, nr: int, d: int, dv: int) -> str:
+    """The backward body of a level (#3), as :func:`check_window_fwd`
+    chooses the forward's: ``"band"`` (the staged bodies) for every shape
+    they take, else ``"stream"`` in ``l0_causal`` where both passes of
+    the streamed backward fit (:func:`stream_bwd_takes`); raises
+    ``ValueError`` on anything else."""
+    if band_body_takes(mode, nr, d, dv):
+        return "band"
+    if mode == "l0_causal" and stream_bwd_takes(nr, d, dv):
+        return "stream"
+    raise ValueError(
+        f"mode {mode!r} at nr={nr}, d={d}, dv={dv}: the backward kernels "
+        f"take nr <= {BAND_MAX_NR} and 16-row tiles within {SMEM_MAX} "
+        f"bytes of shared memory; past that only l0_causal streams, at d, "
+        f"dv <= {STREAM_MAX_D} and plans within {SMEM_MAX} bytes")
 
 
 def check_window_fwd(mode: str, nr: int, d: int, dv: int) -> str:
@@ -569,6 +579,46 @@ def stream_takes(nr: int, d: int, dv: int) -> bool:
     return (nr >= 2 and nr & (nr - 1) == 0 and 1 <= d <= STREAM_MAX_D
             and 1 <= dv <= STREAM_MAX_D
             and 4 * stream_fwd_floats(d, dv, nr) <= SMEM_MAX)
+
+
+# The streamed backward (``csrc/h1d_block_bwd.cu``): the dQ pass keeps a
+# tile of STREAM_TQ rows' q and gy resident and streams the window in
+# tiles of STREAM_DQ_TK keys, twice; the dK/dV/dW pass keeps STREAM_KV_TK
+# keys resident and streams their reader rows in chunks of STREAM_KV_TR.
+
+STREAM_DQ_TK = 16
+STREAM_KV_TK = 32
+STREAM_KV_TR = 32
+
+
+def stream_dq_tiles(nr: int) -> int:
+    """Key tiles of the dQ pass a query tile's window spans at most."""
+    return -(-(2 * nr + STREAM_TQ) // STREAM_DQ_TK)
+
+
+def stream_dq_floats(d: int, dv: int, nr: int) -> int:
+    """Shared floats of the streamed backward's dQ pass
+    (``stream_dq_floats``)."""
+    qs, gs = _round4(d) + 4, _round4(dv) + 4
+    return (STREAM_TQ * (qs + gs) + 2 * STREAM_DQ_TK * (qs + gs + 1)
+            + STREAM_TQ * (STREAM_DQ_TK + 4) + 4 * STREAM_TQ
+            + stream_dq_tiles(nr) + 1)
+
+
+def stream_dkvw_floats(d: int, dv: int) -> int:
+    """Shared floats of the streamed backward's dK/dV/dW pass
+    (``stream_dkvw_floats``)."""
+    qs, gs = _round4(d) + 4, _round4(dv) + 4
+    return (STREAM_KV_TK * (qs + gs) + 2 * STREAM_KV_TR * (qs + gs + 3)
+            + 2 * STREAM_KV_TK * (STREAM_KV_TR + 4) + STREAM_KV_TK)
+
+
+def stream_bwd_takes(nr: int, d: int, dv: int) -> bool:
+    """The streamed backward's envelope: the streamed forward's
+    (:func:`stream_takes`), and both passes' shared-memory plans within
+    SMEM_MAX."""
+    return stream_takes(nr, d, dv) and 4 * max(
+        stream_dq_floats(d, dv, nr), stream_dkvw_floats(d, dv)) <= SMEM_MAX
 
 
 # ---------------------------------------------------------------------------

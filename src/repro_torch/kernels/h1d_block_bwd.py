@@ -54,6 +54,8 @@ Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "h1d_band_bwd": [_P] * 16 + [_I] * 7 + [_P],
+    "h1d_band_bwd_stream": [_P] * 15 + [_I] * 6 + [_P],
+    "h1d_band_bwd_stream_smem": [_I] * 4,
     "h1d_band_sub_bwd": [_P] * 15 + [_I] * 8 + [_P],
 }
 
@@ -238,8 +240,11 @@ def band_attention_bwd(q, k, v, w, y, dn, m, gy, gdn, gm, *, nr: int,
     :func:`band_attention_bwd_ref`; CUDA tensors launch ``h1d_band_bwd``
     (a dQ kernel, which also writes each row's a and ds to a scratch
     tensor, then a dK/dV/dW kernel that sums them; ``coarse_causal`` runs
-    the sub level's one fused kernel at ratio 1).  Returns (dq, dk, dv,
-    dw, gmn).
+    the sub level's one fused kernel at ratio 1), or
+    ``h1d_band_bwd_stream`` for the ``l0_causal`` shapes the staged
+    bodies do not take (:func:`h1d_block.check_window_bwd`: a dQ kernel
+    and a dK/dV/dW kernel that each recompute the scores, no scratch),
+    counted under ``l0_causal_stream``.  Returns (dq, dk, dv, dw, gmn).
     ``.mode_launches`` counts the launches per mode."""
     if q.device.type == "cpu":
         return band_attention_bwd_ref(q, k, v, w, y, dn, m, gy, gdn, gm,
@@ -248,27 +253,35 @@ def band_attention_bwd(q, k, v, w, y, dn, m, gy, gdn, gm, *, nr: int,
     if mode == hb.SUB_MODE:
         raise ValueError("mode 'sub' goes through band_attention_sub_bwd")
     B, G, L, d = q.shape
-    hb.check_window_bwd(mode, nr, d, v.shape[-1])
+    body = hb.check_window_bwd(mode, nr, d, v.shape[-1])
     lib = _lib()
-    hc.validate_h1d_shape(L, nr)
+    hb._check_length(L, nr, mode)
     gy, gdn, gm = _operands(q, k, v, w, y, dn, m, gy, gdn, gm, L, L)
     out = _outputs(q, k, v)
     dq, dk, dv, dw, gmn = out
-    # the dQ pass hands a and ds of every row's band to the dK/dV/dW pass
-    dsa = (torch.empty((B, G, L, 2 * hb.band_row_slots(mode, nr)),
-                       dtype=torch.float32, device=q.device)
-           if mode in hb.BAND_CODES else None)
-    _build.check(lib.h1d_band_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-        y.data_ptr(), dn.data_ptr(), m.data_ptr(), gy.data_ptr(),
-        gdn.data_ptr(), gm.data_ptr(), dq.data_ptr(), gmn.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
-        None if dsa is None else dsa.data_ptr(),
-        B, G, L, d, v.shape[-1], nr, hb._MODE_CODES[mode], _build.stream()),
-        "h1d_band_bwd")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            y.data_ptr(), dn.data_ptr(), m.data_ptr(), gy.data_ptr(),
+            gdn.data_ptr(), gm.data_ptr(), dq.data_ptr(), gmn.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), dw.data_ptr())
+    if body == "stream":
+        _build.check(lib.h1d_band_bwd_stream(
+            *ptrs, B, G, L, d, v.shape[-1], nr, _build.stream()),
+            "h1d_band_bwd_stream")
+        key = "l0_causal_stream"
+    else:
+        # the dQ pass hands a and ds of every row's band to the dK/dV/dW
+        # pass
+        dsa = (torch.empty((B, G, L, 2 * hb.band_row_slots(mode, nr)),
+                           dtype=torch.float32, device=q.device)
+               if mode in hb.BAND_CODES else None)
+        _build.check(lib.h1d_band_bwd(
+            *ptrs, None if dsa is None else dsa.data_ptr(),
+            B, G, L, d, v.shape[-1], nr, hb._MODE_CODES[mode],
+            _build.stream()), "h1d_band_bwd")
+        key = mode
     band_attention_bwd.launches += 1
     counts = band_attention_bwd.mode_launches
-    counts[mode] = counts.get(mode, 0) + 1
+    counts[key] = counts.get(key, 0) + 1
     return out
 
 

@@ -50,6 +50,8 @@ from repro_torch.serve import paged_cache as pc
 # #9, #12 and #6 update_chain_kernel<ADDR> (ADDR 1, 2 and 4).  The first
 # key contained in a kernel's name wins.
 OWN = {"band_stream_kernel": "band_attention_fwd[l0_causal_stream]",
+       "stream_dq_kernel": "band_attention_bwd[l0_causal_stream]",
+       "stream_dkvw_kernel": "band_attention_bwd[l0_causal_stream]",
        "sub_fwd_kernel<": "band_attention_sub_fwd",
        "band_fwd_kernel<": "band_attention_fwd",
        "sub_bwd_kernel<": "band_attention_sub_bwd",
@@ -85,11 +87,14 @@ def _wall_ms(fn, calls: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / calls
 
 
-def profiled(fn, calls: int):
+def profiled(fn, calls: int, between=None):
     """Per-call numbers of ``fn``: the wall time of ``calls`` calls run
     without the profiler (its tracing slows the host), then the device
-    time of ``calls`` more under it."""
+    time of ``calls`` more under it; ``between()``, where given, runs
+    between the two, timed by neither."""
     wall_ms = _wall_ms(fn, calls)
+    if between is not None:
+        between()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         profiled_wall_ms = _wall_ms(fn, calls)
     by_group = defaultdict(float)

@@ -1,9 +1,17 @@
 """Where a training step's time goes on the card: ``torch.profiler`` over
 the forward, backward and optimizer parts of an AdamW step of the paper
-LM.
+LM, or of another configuration the port trains.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_train \
         [--arch h1d-lm-53m] [--batch 8] [--seq 1024] [--sp N] [--out PATH]
+    PYTHONPATH=src python -m repro_torch.launch.profile_train \
+        --arch gemma3-4b --layers 6 --batch 1 --seq 4096
+
+A configuration published in bfloat16 (gemma3-4b) runs in float32, the
+only weight type the port has; ``--layers N`` cuts its depth to N layers
+(gemma3-4b: the first N of its 5:1 local:global cadence), for this
+profiler only.  The step's peak device memory is reported beside its
+times.
 
 Seeded random weights and ``ZipfLM`` tokens.  The method is
 ``profile_serve``'s: for each part, the host wall time per call (ending
@@ -24,6 +32,7 @@ card.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 
 import torch
@@ -50,13 +59,17 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--sp", type=int, default=1,
                     help="shards of a sequence-parallel mesh (1: none)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args(argv)
 
     dev = resolve_device(None)
     mesh = make_mesh((args.sp,), ("data",), device=dev)
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_config(args.arch)
+    cfg = dataclasses.replace(get_config(args.arch), dtype="float32")
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     tc = TrainConfig(peak_lr=3e-4, warmup=5, ckpt_every=0)
     state = init_state(cfg, tc, seed=args.seed, device=dev)
     fns = get_model(cfg)
@@ -93,18 +106,26 @@ def main(argv=None):
             step_fn(state, batch)
 
     res = {"device": torch.cuda.get_device_name(dev), "arch": cfg.name,
-           "batch": args.batch, "seq": args.seq, "sp_shards": args.sp}
+           "layers": cfg.num_layers, "remat": cfg.remat,
+           "remat_policy": cfg.remat_policy, "batch": args.batch,
+           "seq": args.seq, "sp_shards": args.sp}
     with torch.no_grad():
         optimizer()                                      # warm-up
         res["optimizer"] = profiled(optimizer, args.calls)
+    del grads
     forward()                                            # warm-up
     res["forward"] = profiled(forward, args.calls)
+
+    def build():
+        graphs.extend(loss() for _ in range(args.calls))
     # each backward call consumes the graph of a forward run beforehand,
     # for the unprofiled and then the profiled calls
-    graphs.extend(loss() for _ in range(2 * args.calls))
-    res["backward"] = profiled(backward, args.calls)
+    build()
+    res["backward"] = profiled(backward, args.calls, between=build)
     step()                                               # warm-up
+    torch.cuda.reset_peak_memory_stats(dev)
     res["step"] = profiled(step, args.calls)
+    res["step_peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
     res["tokens_per_s"] = (args.batch * args.seq
                            / (res["step"]["wall_ms"] / 1e3))
     text = json.dumps(res)

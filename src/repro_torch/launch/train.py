@@ -19,7 +19,10 @@ exchanges the shard-boundary blocks:
         --steps 20 --batch 8 --seq 1024
 
 ``--mesh`` takes one axis; a ``DATAxMODEL`` shape raises, as
-``make_mesh`` does.  Telemetry is not ported.
+``make_mesh`` does.  ``--arch gemma3-4b`` trains gemma3's 5:1
+local:global stack with remat, as published (its config is bfloat16,
+which the port does not serve yet, so it raises ``NotImplementedError``;
+``--smoke`` trains its fp32 smoke config).  Telemetry is not ported.
 """
 from __future__ import annotations
 

@@ -9,7 +9,9 @@ scanned JAX layout).  Under a sliding window (gemma3) layer ``i`` is
 local unless ``cfg.layer_uses_global_attn(i)``; a local layer's cache is
 its rolling ``{"k", "v", "pos"}`` dictionary, a global layer's the
 hierarchical cache.  ``lm_forward`` and ``lm_loss`` are differentiable
-(the band kernels carry their backward); prefill and decode run under
+(the band kernels carry their backward); with ``cfg.remat`` each layer
+is rematerialised in the backward (:func:`_remat`, the reference's
+``jax.checkpoint`` per layer).  Prefill and decode run under
 ``torch.inference_mode()``.  MoE, SSM, hybrid and VLM families are later
 slices.
 
@@ -22,9 +24,12 @@ Parameters (all (d_in, d_out) projections applied as ``x @ w``)::
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .. import resolve_device
 from ..tree import tree_map
@@ -102,16 +107,44 @@ def _block_apply(lp, cfg: ModelConfig, h, positions, layer_global: bool):
     return h + mlp(lp["mlp"], rmsnorm(lp["ln2"], h), cfg.mlp_activation)
 
 
+#: the weight products (a 2-D weight applied as ``x @ w`` runs as one mm
+#: on the flattened rows): JAX's ``dots_with_no_batch_dims_saveable``
+_WEIGHT_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_weight_products(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _WEIGHT_PRODUCTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ModelConfig, fn):
+    """``fn`` rematerialised in the backward (the reference's ``_remat``):
+    ``remat_policy='dots'`` keeps the outputs of the weight products and
+    recomputes the rest, ``'none'`` (or ``remat=False``) keeps every
+    activation, any other policy recomputes everything.  A recompute runs
+    the layer's kernels again on the same inputs, so it gives the
+    forward's bits."""
+    if not cfg.remat or cfg.remat_policy == "none":
+        return fn
+    if cfg.remat_policy == "dots":
+        context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                       _save_weight_products)
+        return functools.partial(checkpoint, fn, use_reentrant=False,
+                                 context_fn=context_fn)
+    return functools.partial(checkpoint, fn, use_reentrant=False)
+
+
 def lm_forward(params, cfg: ModelConfig, tokens):
     """Teacher-forced causal forward.  tokens (B, S) -> (logits (B, S, V),
-    aux_loss), aux_loss being 0 for the dense family."""
+    aux_loss), aux_loss being 0 for the dense family.  Each layer runs
+    through :func:`_remat`."""
     _check_family(cfg)
     B, S = tokens.shape
     h = _embed_tokens(params, cfg, tokens)
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     for i, lp in enumerate(params["layers"]):
-        h = _block_apply(lp, cfg, h, positions,
-                         cfg.layer_uses_global_attn(i))
+        h = _remat(cfg, _block_apply)(lp, cfg, h, positions,
+                                      cfg.layer_uses_global_attn(i))
     return _logits(params, cfg, h), 0.0
 
 

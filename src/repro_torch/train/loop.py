@@ -184,7 +184,10 @@ def train(cfg: ModelConfig, tc: TrainConfig, data_source, num_steps: int,
     mesh trains unsharded.  Returns (state, metrics): the last
     step's metrics plus ``history``, one ``{"step", "loss", "step_ms",
     "end_s"}`` per step run: the host time of the step, ending when its
-    loss is read, and that end on the ``time.perf_counter`` clock."""
+    loss is read, and that end on the ``time.perf_counter`` clock; on a
+    card also ``peak_mem_gib``, the most device memory allocated during
+    the steps (``torch.cuda.max_memory_allocated``, reset as they
+    start)."""
     from . import checkpoint as ckpt
 
     dev = resolve_device(device)
@@ -200,6 +203,8 @@ def train(cfg: ModelConfig, tc: TrainConfig, data_source, num_steps: int,
     wd = Watchdog(tc.watchdog_factor)
     metrics: Dict[str, Any] = {}
     history = []
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     for step in range(step0, num_steps):
         batch = batch_to_device(data_source.batch(step), dev)
         t0 = time.perf_counter()
@@ -218,4 +223,7 @@ def train(cfg: ModelConfig, tc: TrainConfig, data_source, num_steps: int,
         if tc.ckpt_every and (step + 1) % tc.ckpt_every == 0:
             saver.save(step + 1, state)
     saver.wait()
-    return state, dict(metrics, history=history)
+    out = dict(metrics, history=history)
+    if dev.type == "cuda":
+        out["peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    return state, out

@@ -323,22 +323,24 @@ def test_band_dkvw_ctas_own_each_key_once_with_all_its_readers(mode, nr, L,
 def test_band_tiles_fit_the_card_and_fill_it(mode, nr):
     """Tiles of 16-64 rows within the H100's 227 KB of shared memory,
     halved while the grid has fewer than two CTAs per SM; the backward
-    check refuses exactly the shapes whose 16-row tiles do not fit, and
-    the forward check keeps every other shape on the staged body (only
-    ``l0_causal`` streams the ones it refuses).  At the LRA path's
-    coarse levels (64 rows, L from 1024 down to 2 blocks) the grid holds
-    at least 128 CTAs."""
+    check keeps on the staged body exactly the shapes whose 16-row tiles
+    fit, and the forward check keeps the same shapes there (only
+    ``l0_causal`` streams the ones they refuse, in both directions).  At
+    the LRA path's coarse levels (64 rows, L from 1024 down to 2 blocks)
+    the grid holds at least 128 CTAs."""
     for d, dv in ((64, 64), (128, 128), (256, 256), (40, 24)):
-        fits = True
         try:
-            thb.check_window_bwd(mode, nr, d, dv)
+            route = thb.check_window_bwd(mode, nr, d, dv)
         except ValueError:
-            fits = False
+            route = None
+        fits = route == "band"
         if fits:
             assert thb.check_window_fwd(mode, nr, d, dv) == "band"
         elif mode == "l0_causal":
             assert thb.check_window_fwd(mode, nr, d, dv) == "stream"
+            assert route == "stream"
         else:
+            assert route is None
             with pytest.raises(ValueError):
                 thb.check_window_fwd(mode, nr, d, dv)
         tq = thb.band_fwd_tq(mode, 64, 1, 1024, d, dv, nr)

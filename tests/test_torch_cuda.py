@@ -133,6 +133,214 @@ def test_band_stream_plan_matches_launcher(dev):
             4 * hb.stream_fwd_floats(d, dv, nr)
 
 
+def _stream_operands(gen, dev, B, G, L, d, nr):
+    """Streamed-body operands: a zero-weight tail ending mid-block, a dead
+    first block, rows whose whole window has w = 0."""
+    q = _randn(gen, dev, B, G, L, d) / d ** 0.5
+    k = _randn(gen, dev, B, L, d)
+    w = torch.ones((B, L), device=dev)
+    w[0, L - nr // 2 - 37:] = 0.0
+    w[1, :nr] = 0.0
+    w[2, : nr + 40] = 0.0
+    v = _randn(gen, dev, B, L, d) * w[..., None]
+    return q, k, v, w
+
+
+@pytest.mark.parametrize("G", [1, 2, 4])
+@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("nr", [128, 256, 1024])
+def test_band_stream_bwd_matches_plain(dev, nr, d, G):
+    """The streamed l0_causal backward (#3 past the staged body's nr =
+    64) from the streamed forward's saved outputs, random cotangents on
+    y, dn and m (gm too), at 3 blocks (L not nr * 2**k): within 1e-4 of
+    the plain version; rows whose window has no live key give dq = 0 and
+    gmn = 0; two calls give identical bits."""
+    B, L = 3, 3 * nr
+    gen = torch.Generator(device=dev).manual_seed(nr + d + G)
+    q, k, v, w = _stream_operands(gen, dev, B, G, L, d, nr)
+    assert hb.check_window_bwd("l0_causal", nr, d, d) == "stream"
+    out = hb.band_attention_fwd(q, k, v, w, nr=nr)
+    args = (q, k, v, w, *out, *_cotangents(gen, dev, out))
+    kernels.reset_counts()
+    got = hbb.band_attention_bwd(*args, nr=nr)
+    assert hbb.band_attention_bwd.mode_launches == {"l0_causal_stream": 1}
+    _close_grads(got, hbb.band_attention_bwd_ref(*args, nr=nr))
+    assert not got[0][2, :, :nr].any() and not got[4][2, :, :nr].any()
+    for a, b in zip(got, hbb.band_attention_bwd(*args, nr=nr)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("G,d,nr,blocks", [(2, 256, 1024, 3), (2, 64, 128, 4),
+                                           (1, 40, 256, 3), (4, 256, 128, 5)])
+def test_band_stream_bwd_ties_and_bits(dev, G, d, nr, blocks):
+    """The streamed backward on exact scores (q and k integer-valued, so
+    every score is exact in any summation order) with the last key of
+    each block repeated as the first of the next: a key of +-3 entries,
+    and the first 8 rows of the next block aligned with it, whose max it
+    then is, so they tie at their max across two key blocks; a dead head
+    and dead keys in the middle.  Within 1e-4 of the plain version; each
+    row's tie share gmn * c sums to its gmh (c the exact tie count over
+    the whole window), rows with no live key give gmn = 0 and dq = 0;
+    identical bits twice."""
+    B, L = 2, blocks * nr
+    gen = torch.Generator(device=dev).manual_seed(L + G + d)
+    q = torch.randint(-3, 4, (B, G, L, d), generator=gen,
+                      device=dev).float() * 0.125
+    k = torch.randint(-3, 4, (B, L, d), generator=gen, device=dev).float()
+    kd = 3.0 * (2 * torch.randint(0, 2, (B, blocks - 1, d), generator=gen,
+                                  device=dev).float() - 1)
+    k[:, nr - 1:L - 1:nr] = kd
+    k[:, nr::nr] = kd
+    for J in range(1, blocks):
+        q[:, :, J * nr: J * nr + 8] = 0.125 * kd[:, None, None, J - 1]
+    w = torch.rand((B, L), generator=gen, device=dev) + 0.5
+    w[1, : nr + nr // 2] = 0.0
+    w[0, L // 2: L // 2 + nr + 8] = 0.0
+    v = _randn(gen, dev, B, L, d) * w[..., None]
+    out = hb.band_attention_fwd(q, k, v, w, nr=nr)
+    y, dn, m = out
+    cot = _cotangents(gen, dev, out)
+    args = (q, k, v, w, *out, *cot)
+    got = hbb.band_attention_bwd(*args, nr=nr)
+    _close_grads(got, hbb.band_attention_bwd_ref(*args, nr=nr))
+    for a, b in zip(got, hbb.band_attention_bwd(*args, nr=nr)):
+        assert torch.equal(a, b)
+    i = torch.arange(L, device=dev)[:, None]
+    j = torch.arange(L, device=dev)[None, :]
+    allow = (hb.band_mask(i, j, nr, "l0_causal", L)[None, None]
+             & (w > 0)[:, None, None, :])
+    dead = (~allow.any(-1)).expand(B, G, L)
+    dq, gmn = got[0], got[4]
+    assert dead.any() and not dq[dead].any() and not gmn[dead].any()
+    s = torch.einsum("bgid,bjd->bgij", q.double(), k.double())
+    top = (s == m.double()[..., None]) & allow
+    c = top.sum(-1).double()
+    gy, gdn, gm = (t.double() for t in cot)
+    gmh = gm - ((gy * y.double()).sum(-1) + gdn * dn.double())
+    assert torch.allclose(gmn.double() * c, torch.where(c > 0, gmh, 0.0),
+                          rtol=1e-5, atol=1e-5)
+    blk = top.view(B, G, L, blocks, nr).any(-1).sum(-1)
+    assert int((blk >= 2).sum()) > 0
+
+
+def test_band_stream_bwd_plan_matches_launcher(dev):
+    """The host mirrors of the streamed backward's two shared-memory
+    plans are the launcher's, byte for byte, and fit the card."""
+    lib = hbb._lib()
+    for d, dv, nr in ((64, 64, 128), (256, 256, 1024), (40, 24, 256),
+                      (256, 128, 4096), (8, 8, 2)):
+        dq = 4 * hb.stream_dq_floats(d, dv, nr)
+        kv = 4 * hb.stream_dkvw_floats(d, dv)
+        assert lib.h1d_band_bwd_stream_smem(d, dv, nr, 0) == dq
+        assert lib.h1d_band_bwd_stream_smem(d, dv, nr, 1) == kv
+        assert max(dq, kv) <= hb.SMEM_MAX
+
+
+def _close_gmn(got, want, y, dn, cot):
+    """gmn = (gm - (gy . y + gdn dn)) / c within BWD_TOL of the size of
+    the terms it is formed from (|gm| + sum |gy| |y| + |gdn dn|, at least
+    1), the row scaling of dq, dk and dv applied to gmh: at deep levels
+    dn reaches nr * ratio (2048 at ratio 128), and where the terms
+    cancel to a small gmh each fp32 side is off by up to half an ulp of
+    the terms (the kernel fuses gdn * dn into its add, the plain version
+    rounds the product first)."""
+    gy, gdn, gm = (t.double() for t in cot)
+    terms = gm.abs() + (gy.abs() * y.double().abs()).sum(-1) \
+        + (gdn * dn.double()).abs()
+    err = ((got.double() - want.double()).abs() / terms.clamp(min=1.0)).max()
+    assert float(err) <= BWD_TOL, float(err)
+
+
+def test_global_layer_backward_at_gemma_width(dev):
+    """gemma3-4b's global layer: the staged #3 l0_causal at nr 16 and #4
+    at every sub level (ratio 2 .. 128) at d = 256, G = 2 (one sequence's
+    4 kv-heads, 8 q heads), L = 4096, against their plain versions (dq,
+    dk, dv and dw as every backward row, gmn by :func:`_close_gmn`); #4
+    twice gives identical bits."""
+    gen = torch.Generator(device=dev).manual_seed(24)
+    B, G, L, D, nr = 4, 2, 4096, 256, 16
+    q = _randn(gen, dev, B, G, L, D) / D ** 0.5
+    k = _randn(gen, dev, B, L, D)
+    w = torch.ones((B, L), device=dev)
+    w[:, 3000:] = 0.0
+    v = _randn(gen, dev, B, L, D) * w[..., None]
+    assert hb.check_window_bwd("l0_causal", nr, D, D) == "band"
+
+    def check(got, want, out, cot):
+        _close_grads(got[:4], want[:4])
+        _close_gmn(got[4], want[4], out[0], out[1], cot)
+    out = hb.band_attention_fwd(q, k, v, w, nr=nr)
+    cot = _cotangents(gen, dev, out)
+    args = (q, k, v, w, *out, *cot)
+    kernels.reset_counts()
+    check(hbb.band_attention_bwd(*args, nr=nr),
+          hbb.band_attention_bwd_ref(*args, nr=nr), out, cot)
+    assert hbb.band_attention_bwd.mode_launches == {"l0_causal": 1}
+    kc, vc, wc = k, v, w
+    for lvl in range(1, hc.num_levels(L, nr)):
+        kc, _ = hc.coarsen_weighted_mean(kc, wc)
+        vc = hc.coarsen_sum(vc)
+        wc = hc.coarsen_sum(wc, axis=-1)
+        fwd = (q, kc.contiguous(), vc.contiguous(), wc.contiguous())
+        kw = dict(nr=nr, ratio=1 << lvl)
+        out = hb.band_attention_sub_fwd(*fwd, **kw)
+        cot = _cotangents(gen, dev, out)
+        args = (*fwd, *out, *cot)
+        got = hbb.band_attention_sub_bwd(*args, **kw)
+        check(got, hbb.band_attention_sub_bwd_ref(*args, **kw), out, cot)
+        for a, b in zip(got, hbb.band_attention_sub_bwd(*args, **kw)):
+            assert torch.equal(a, b)
+    assert lvl == 7
+
+
+def test_local_training_grads_on_card_match_plain(dev):
+    """The gemma smoke model at window 128 (the streamed forward and
+    backward on its local layers) under remat: its lm_loss gradient on
+    the kernels within 1e-4 of each leaf's largest |plain| on the card,
+    every band kernel of both layer kinds launched, the streamed ones
+    twice forward (remat) for each backward."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import ZipfLM
+    from repro_torch.models import get_model
+    from repro_torch.train import batch_to_device
+    from repro_torch.tree import tree_leaves, tree_unflatten_like
+
+    cfg = dataclasses.replace(get_smoke_config("gemma3-4b"),
+                              sliding_window=128, remat=True)
+    fns = get_model(cfg)
+    params = fns.init(cfg, seed=2, device=dev)
+    batch = batch_to_device(ZipfLM(vocab_size=cfg.vocab_size, seq_len=384,
+                                   batch_per_host=2, seed=4).batch(0), dev)
+
+    def grads():
+        leaves = [p.detach().requires_grad_(True)
+                  for p in tree_leaves(params)]
+        loss, _ = fns.loss(tree_unflatten_like(params, leaves), cfg, batch)
+        return torch.autograd.grad(loss, leaves)
+    kernels.reset_counts()
+    got = grads()
+    local = sum(not cfg.layer_uses_global_attn(i)
+                for i in range(cfg.num_layers))
+    assert hbb.band_attention_bwd.mode_launches["l0_causal_stream"] == local
+    assert hb.band_attention_fwd.mode_launches["l0_causal_stream"] == \
+        2 * local
+    assert hbb.band_attention_sub_bwd.launches > 0
+    assert not any(p.calls for _, p in kernels.KERNELS.values())
+    swaps = [(hb, "band_attention_fwd", hb.band_attention_fwd_ref),
+             (hb, "band_attention_sub_fwd", hb.band_attention_sub_fwd_ref),
+             (hbb, "band_attention_bwd", hbb.band_attention_bwd_ref),
+             (hbb, "band_attention_sub_bwd", hbb.band_attention_sub_bwd_ref)]
+    with pytest.MonkeyPatch.context() as mp:
+        for mod, name, fn in swaps:
+            mp.setattr(mod, name, fn)
+        want = grads()
+    for a, b in zip(got, want):
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 1e-4 * scale
+
+
 @pytest.mark.parametrize("mode", ["l0_causal", "l0_bidir"])
 @pytest.mark.parametrize("nr,blocks", [(16, 3), (8, 5), (64, 3)])
 def test_band_fwd_whole_blocks(dev, mode, nr, blocks):
@@ -621,9 +829,9 @@ def test_wrappers_validate_operands(dev):
         hb.band_attention_fwd(q, k, k, w, nr=8, mode="l1_bidir")
     # outside the staged bodies' envelope: nr > 64 in every mode, and a
     # bidirectional window of 3 x 64 keys at d = dv = 128, whose 16-row
-    # tiles exceed the card's 227 KB of shared memory.  The backward
-    # refuses all of them; the forward too, but in l0_causal at nr 128,
-    # which the streamed body takes
+    # tiles exceed the card's 227 KB of shared memory.  Both passes
+    # refuse all of them but l0_causal at nr 128, which the streamed
+    # bodies take
     gen = torch.Generator(device=dev).manual_seed(1)
     q128 = _randn(gen, dev, 1, 1, 256, 8)
     k128 = _randn(gen, dev, 1, 256, 8)
@@ -641,9 +849,15 @@ def test_wrappers_validate_operands(dev):
         else:
             with pytest.raises(ValueError):
                 hb.band_attention_fwd(qb, kb, kb, wb, nr=nr, mode=mode)
-        with pytest.raises(ValueError):
-            hbb.band_attention_bwd(qb, kb, kb, wb, *out, *out, nr=nr,
-                                   mode=mode)
+        if mode == "l0_causal":
+            _close_grads(hbb.band_attention_bwd(qb, kb, kb, wb, *out, *out,
+                                                nr=nr, mode=mode),
+                         hbb.band_attention_bwd_ref(qb, kb, kb, wb, *out,
+                                                    *out, nr=nr, mode=mode))
+        else:
+            with pytest.raises(ValueError):
+                hbb.band_attention_bwd(qb, kb, kb, wb, *out, *out, nr=nr,
+                                       mode=mode)
     # whole blocks only: L = 200 is no multiple of nr = 128
     with pytest.raises(ValueError):
         hb.band_attention_fwd(q128[:, :, :200].contiguous(),

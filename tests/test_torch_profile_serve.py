@@ -69,6 +69,14 @@ def test_kernel_instance_maps_to_its_wrapper(entry):
     ("(anonymous namespace)::band_stream_kernel(float const*, float const*"
      ", float const*, float const*, float*, float*, float*, int, int, int, "
      "int, int, int, int)", "band_attention_fwd[l0_causal_stream]"),
+    ("(anonymous namespace)::stream_dq_kernel(float const*, float const*, "
+     "float const*, float const*, float const*, float const*, float const*"
+     ", float const*, float const*, float const*, float*, float*, int, int,"
+     " int, int, int, int, int)", "band_attention_bwd[l0_causal_stream]"),
+    ("(anonymous namespace)::stream_dkvw_kernel(float const*, float const*"
+     ", float const*, float const*, float const*, float const*, float "
+     "const*, float const*, float*, float*, float*, int, int, int, int, "
+     "int, int, int)", "band_attention_bwd[l0_causal_stream]"),
     ("void at::native::vectorized_elementwise_kernel<4>(int, "
      "at::native::CUDAFunctor_add<float>)", "other")])
 def test_other_kernels_group(name, group):
