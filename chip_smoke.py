@@ -2383,7 +2383,9 @@ def phase_stream_kernel(dev):
         **{k_: head[k_] for k_ in ("ms", "device_ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")},
         cases=cases,
-        note="streamed body (band_stream_kernel); headline: 4 x 2 x 4096, "
+        note="streamed body (band_stream_kernel: 64-row tiles, 64-key "
+             "tiles, 4 x 4 score and 8 x 8 y register tiles, the longest "
+             "windows first); headline: 4 x 2 x 4096, "
              "nr 1024, d 256, keys live to 3000; library_ms: "
              "scaled_dot_product_attention with the same boolean mask "
              "(normalised z), timed here only")
@@ -2542,8 +2544,10 @@ def phase_stream_bwd_kernel(dev):
         library_ms=time_ms(lambda: torch.autograd.grad(
             z, xs, gz, retain_graph=True)),
         bound_ms=bms, bound_by=by, gflop=flops / 1e9,
-        note=f"streamed backward (stream_dq_kernel, then "
-             f"stream_dkvw_kernel: one launch is one wrapper call of the "
+        note=f"streamed backward (stream_dq_kernel: one sweep, tie lists "
+             f"of {hb.STREAM_TIES} keys a row; then stream_dkvw_kernel: "
+             f"{hb.STREAM_KV_TK} keys against {hb.STREAM_KV_TR}-row "
+             f"chunks; one launch is one wrapper call of the "
              f"two); {Bs} x {Gs} x {Ls}, nr {nr}, d {d}, keys live to "
              f"{live}; cotangents random on y, dn and m; two calls the "
              f"same bits; library_ms: the backward of "

@@ -543,14 +543,55 @@ __host__ __forceinline__ void band_dkvw_tiles(int mode, int B, int L, int d,
 // The shapes the staged body above cannot hold (nr past BAND_MAX_NR, or a
 // window whose 16-row tile exceeds SMEM_MAX): a tile of STREAM_TQ query
 // rows stays in shared memory while its key window, keys (I - 1) * nr ..
-// its last row, streams through in tiles of STREAM_TK keys.  Mirrored by
-// repro_torch.kernels.h1d_block (stream_max_tiles, stream_fwd_floats).
+// its last row, streams through in tiles of STREAM_TK keys.  Every stream
+// body runs STREAM_THREADS threads, one CTA an SM, and takes its tiles in
+// stream_slot's order.  Mirrored by repro_torch.kernels.h1d_block
+// (stream_max_tiles, stream_fwd_floats, stream_dq_floats,
+// stream_dkvw_floats).
 
 constexpr int STREAM_THREADS = 256;
 constexpr int STREAM_TQ = 64;      // query rows a tile
-constexpr int STREAM_TK = 32;      // keys a streamed tile: one warp's ballot
+constexpr int STREAM_TK = 64;      // forward: keys a streamed tile
 constexpr int STREAM_MAX_D = 256;  // d and dv: y stays in registers
-constexpr int STREAM_RY = 8;       // rows of a y register tile
+
+// Tile x of a stream grid, longest work first: the grid covers nbg (b, g)
+// planes (or b alone) of nb blocks of tpb tiles each.  The heavy blocks
+// (every block but one light block) come first, rank 0 of every heavy
+// block, then rank 1, ...; the light block's tiles, rank by rank, last.
+// *blk is the heavy block's index in [0, nb - 1), or nb - 1 for the light
+// block: the caller maps ranks and blocks to its tiles.
+__host__ __device__ __forceinline__ void stream_slot(int x, int nbg, int nb,
+                                                     int tpb, int* bg,
+                                                     int* blk, int* rank) {
+  const int heavy = nbg * (nb - 1);
+  if (x < tpb * heavy) {
+    *rank = x / heavy;
+    const int u = x - *rank * heavy;
+    *bg = u / (nb - 1);
+    *blk = u - *bg * (nb - 1);
+  } else {
+    x -= tpb * heavy;
+    *rank = x / nbg;
+    *bg = x - *rank * nbg;
+    *blk = nb - 1;
+  }
+}
+
+// Column units (4 floats) a CTA's y, dq or dk/dv register tiles are laid
+// out for: 16, 32 or 64, the least that covers n4 / 4.  A lane holds RY =
+// units / 8 rows x 2 units, so 256 lanes (128 a gradient in dK/dV/dW with
+// 32 keys) cover 64 rows.
+__host__ __device__ __forceinline__ int stream_cols(int n4) {
+  return n4 <= 64 ? 16 : n4 <= 128 ? 32 : 64;
+}
+
+// Of a streamed kernel's three register-tile layouts (RY or RK = 2, 4, 8),
+// the one stream_cols(n4) gives.
+template <typename Kernel>
+inline Kernel by_stream_cols(int n4, Kernel k2, Kernel k4, Kernel k8) {
+  const int u = stream_cols(n4);
+  return u == 16 ? k2 : u == 32 ? k4 : k8;
+}
 
 // Key tiles a query tile's window spans at most: nr keys of the block
 // before, up to nr - 1 of its own block before its first row, its rows.
@@ -558,50 +599,140 @@ __host__ __device__ __forceinline__ int stream_max_tiles(int nr) {
   return (2 * nr + STREAM_TQ + STREAM_TK - 1) / STREAM_TK;
 }
 
-// Shared floats of the streamed body: the query tile, two stages of keys,
-// values and key weights, the tile's a, the running m, dn and rescale of
-// each row, the list of live key tiles and its length.
+// Shared floats of the streamed forward: the query tile, one tile of keys,
+// one of values and the keys' weights, the tile's a, each row's rescale,
+// the list of live key tiles and its length.
 __host__ __device__ __forceinline__ size_t stream_fwd_floats(int d, int dv,
                                                              int nr) {
   const size_t qs = round4(d) + 4, vs = round4(dv);
-  return STREAM_TQ * qs + 2 * STREAM_TK * (qs + vs + 1) +
-         STREAM_TQ * (STREAM_TK + 4) + 3 * STREAM_TQ + stream_max_tiles(nr) +
-         1;
+  return STREAM_TQ * qs + STREAM_TK * (qs + vs + 1) +
+         STREAM_TQ * (STREAM_TK + 4) + STREAM_TQ + stream_max_tiles(nr) + 1;
 }
 
 // The streamed backward (h1d_block_bwd.cu), two passes.  dQ: a tile of
 // STREAM_TQ rows keeps q and gy resident while its key window streams
-// through in tiles of STREAM_DQ_TK keys, twice (the tie count, then ds
-// and dq).  dK/dV/dW: a CTA keeps STREAM_KV_TK keys and values resident
-// while their reader rows stream through in chunks of STREAM_KV_TR.
-// Mirrored by repro_torch.kernels.h1d_block (stream_dq_tiles,
-// stream_dq_floats, stream_dkvw_floats).
-constexpr int STREAM_DQ_TK = 16;   // dQ pass: keys a streamed tile
+// through once in tiles of STREAM_DQ_TK keys, each row listing up to
+// STREAM_TIES keys that tie at its max.  dK/dV/dW: a CTA keeps
+// STREAM_KV_TK keys and values resident while their reader rows stream
+// through in chunks of STREAM_KV_TR.
+constexpr int STREAM_DQ_TK = 32;   // dQ pass: keys a streamed tile
+constexpr int STREAM_TIES = 4;     // dQ pass: tied keys a row lists
 constexpr int STREAM_KV_TK = 32;   // dK/dV/dW pass: keys a CTA
-constexpr int STREAM_KV_TR = 32;   // dK/dV/dW pass: reader rows a chunk
+constexpr int STREAM_KV_TR = 64;   // dK/dV/dW pass: reader rows a chunk
 
 __host__ __device__ __forceinline__ int stream_dq_tiles(int nr) {
   return (2 * nr + STREAM_TQ + STREAM_DQ_TK - 1) / STREAM_DQ_TK;
 }
 
-// Shared floats of the dQ pass: q and gy of the tile, two stages of keys,
-// values and key weights, this tile's ds, each row's m, gdn, gmh and gmn,
-// the list of live key tiles and its length.
+// Shared floats of the dQ pass: q and gy of the tile, one tile of keys,
+// values and key weights, this tile's s and ds, each row's m, gdn and gmh,
+// its tie count and list, the list of live key tiles and its length.
 __host__ __device__ __forceinline__ size_t stream_dq_floats(int d, int dv,
                                                             int nr) {
   const size_t qs = round4(d) + 4, gs = round4(dv) + 4;
-  return STREAM_TQ * (qs + gs) + 2 * STREAM_DQ_TK * (qs + gs + 1) +
-         STREAM_TQ * (STREAM_DQ_TK + 4) + 4 * STREAM_TQ +
-         stream_dq_tiles(nr) + 1;
+  return STREAM_TQ * (qs + gs) + STREAM_DQ_TK * (qs + gs + 1) +
+         2 * STREAM_TQ * (STREAM_DQ_TK + 4) + 3 * STREAM_TQ +
+         STREAM_TQ * (1 + STREAM_TIES) + stream_dq_tiles(nr) + 1;
 }
 
-// Shared floats of the dK/dV/dW pass: the CTA's keys and values, two
-// stages of reader rows (q, gy and the row's m, gdn, gmn), this chunk's a
+// Shared floats of the dK/dV/dW pass: the CTA's keys and values, one
+// chunk of reader rows (q, gy and the rows' m, gdn, gmn), this chunk's a
 // and ds (key-major), the keys' weights.
 __host__ __device__ __forceinline__ size_t stream_dkvw_floats(int d, int dv) {
   const size_t qs = round4(d) + 4, gs = round4(dv) + 4;
-  return STREAM_KV_TK * (qs + gs) + 2 * STREAM_KV_TR * (qs + gs + 3) +
+  return STREAM_KV_TK * (qs + gs) + STREAM_KV_TR * (qs + gs + 3) +
          2 * STREAM_KV_TK * (STREAM_KV_TR + 4) + STREAM_KV_TK;
+}
+
+// acc[r][t] = a_r . b_t for R rows of a (stride as) and K rows of b
+// (stride bs) over n4 columns: dot_tile's order (one fmaf chain a pair
+// over c = 0, 1, ... from 0.f) on an R x K outer-product tile.
+template <int R, int K>
+__device__ __forceinline__ void dot_tile_rk(const float* a, int as,
+                                            const float* b, int bs, int n4,
+                                            float (&acc)[R][K]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int t = 0; t < K; ++t) acc[r][t] = 0.f;
+#pragma unroll 4
+  for (int c = 0; c < n4; c += 4) {
+    float4 x[R], y[K];
+#pragma unroll
+    for (int r = 0; r < R; ++r) x[r] = ld4(a + r * as + c);
+#pragma unroll
+    for (int t = 0; t < K; ++t) y[t] = ld4(b + t * bs + c);
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int t = 0; t < K; ++t) {
+        acc[r][t] = fmaf(x[r].x, y[t].x, acc[r][t]);
+        acc[r][t] = fmaf(x[r].y, y[t].y, acc[r][t]);
+        acc[r][t] = fmaf(x[r].z, y[t].z, acc[r][t]);
+        acc[r][t] = fmaf(x[r].w, y[t].w, acc[r][t]);
+      }
+  }
+}
+
+// part[r][0..3] and part[r][4..7] = sum_j p[r][j] * x[j][u0 .. u0+3] and
+// x[j][u1 .. u1+3] for R rows of p (stride ps) and j < jl (a multiple of
+// 4): one fmaf chain a term from 0.f, over j in order.
+template <int R>
+__device__ __forceinline__ void apply_tile8(const float* p, int ps,
+                                            const float* x, int xs, int u0,
+                                            int u1, int jl,
+                                            float (&part)[R][8]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) part[r][c] = 0.f;
+#pragma unroll 2
+  for (int j = 0; j < jl; j += 4) {
+    float4 v[4][2];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      v[t][0] = ld4(x + (j + t) * xs + u0);
+      v[t][1] = ld4(x + (j + t) * xs + u1);
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float4 a = ld4(p + r * ps + j);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const float at = lane4(a, t);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          part[r][4 * h + 0] = fmaf(at, v[t][h].x, part[r][4 * h + 0]);
+          part[r][4 * h + 1] = fmaf(at, v[t][h].y, part[r][4 * h + 1]);
+          part[r][4 * h + 2] = fmaf(at, v[t][h].z, part[r][4 * h + 2]);
+          part[r][4 * h + 3] = fmaf(at, v[t][h].w, part[r][4 * h + 3]);
+        }
+      }
+    }
+  }
+}
+
+// A lane's register tile of a 64-row x (units x 4)-column product (y, dq;
+// dk or dv over 32 keys with half the lanes): rows row0 + G * rr (rr <
+// RY, G = 64 / RY row groups) and the units u0 and u0 + units / 2.  Lanes
+// 8 apart in a warp take the next row group, neighbouring lanes the next
+// unit, so the 8 lanes of a phase read 128 contiguous bytes of x and the
+// rows of p they read lie in distinct banks.
+struct LaneTile {
+  int row0, rstep, u0, u1;
+};
+
+__device__ __forceinline__ LaneTile lane_tile(int lane_id, int units,
+                                              int rows) {
+  const int npb = units / 16;                 // 8-unit blocks of a half
+  const int w = lane_id >> 5, l = lane_id & 31;
+  const int wr = w / npb, wp = w - wr * npb;
+  LaneTile t;
+  t.rstep = rows / (units / 8);               // row groups
+  t.row0 = wr * 4 + (l >> 3);
+  t.u0 = wp * 8 + (l & 7);
+  t.u1 = t.u0 + units / 2;
+  return t;
 }
 
 }  // namespace h1d

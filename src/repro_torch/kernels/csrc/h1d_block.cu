@@ -525,39 +525,51 @@ int launch_sub(const float* q, const float* k, const float* v,
 // read by nr rows: at nr = 1024, d = 256 some 500 FLOPs a byte, far past
 // the fp32 ridge (20).  fp32 FMA on CUDA cores with no TF32 (the port is
 // held to fp32 parity), so the floor is the admitted pairs' FLOPs over
-// 67 TFLOP/s.  The design keeps the FMA pipes fed from shared memory:
-//   * one CTA per (b, g, tile of 64 rows), 256 threads; the rows' q stay
-//     resident while the window's live key tiles (32 keys, one warp's
-//     ballot over their w) stream through two stages with cp.async, the
-//     next tile's copies in flight while this one is scored;
-//   * key tiles with no w > 0 are listed out before the loop, and tiles
-//     past the last row are never formed (the causal mask);
-//   * scores are 2-row x 4-key register tiles (keys 8 apart, so the 8
-//     lanes of a load phase read 8 key rows in distinct banks) in
-//     dot_tile's order; the row max and the sum over w are 8-lane
-//     shuffles; a running max rescales dn and y when it grows (the
-//     online softmax), so y leaves unnormalised against the final m;
-//   * y is an 8-row x 4-column register tile a thread (two at dv = 256)
-//     that lives across the whole loop: a @ v reads only this tile's a,
-//     and each tile's 32 terms are summed apart before they join y, the
-//     plain version's chunks of 32 keys (h1d_block.SUM_KEYS).
+// 67 TFLOP/s, and the design keeps the FMA pipes fed from shared memory
+// with few barriers (its first form: 2 x 4 score tiles, 32-key
+// stages, three CTA barriers and a serial softmax step a tile, ran at
+// 4.0x the bound):
+//   * one CTA per (b, g, tile of 64 rows), 256 threads, one CTA an SM;
+//     tiles in stream_slot's order, the longest windows (rows late in
+//     their block) first, so the last of the ~4 waves holds short ones;
+//   * the rows' q stay resident; the window's live key tiles (64 keys:
+//     tiles with no w > 0 are listed out first, and tiles past the last
+//     row never formed) stream through one buffer of keys and one of
+//     values with cp.async, each refilled while the other is read: the
+//     values of tile n land during its scores, the keys of tile n + 1
+//     during its a @ v, so two CTA barriers a tile and no load waits;
+//   * scores are 4-row x 4-key register tiles (dot_tile_rk, dot_tile's
+//     order: bit for bit the scores the backward recomputes), each warp
+//     owning 8 whole rows of the tile, so the online softmax (row max,
+//     sum over w, the running m and dn, kept in registers) is shuffles
+//     inside the warp, with no barrier between the scores and it;
+//   * y is a register tile of 8 rows x 8 columns a lane at d = 256
+//     (lane_tile: 32 rows x 64 columns a warp, so a 16-byte load serves
+//     8 FMAs a lane), a @ v 16 shared loads for 256 FMAs; each tile's two
+//     32-key chunks are summed apart before they join y, the plain
+//     version's chunks (h1d_block.SUM_KEYS).
 // expf, not __expf.
-__global__ void __launch_bounds__(STREAM_THREADS)
+template <int RY>
+__global__ void __launch_bounds__(STREAM_THREADS, 1)
 band_stream_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, const float* __restrict__ w,
                    float* __restrict__ y, float* __restrict__ dn,
-                   float* __restrict__ m, int G, int L, int d, int dv,
+                   float* __restrict__ m, int B, int G, int L, int d, int dv,
                    int nr, int vec_in, int vec_y) {
   constexpr int TQ = STREAM_TQ, TK = STREAM_TK, NT = STREAM_THREADS;
-  constexpr int RY = STREAM_RY;
-  constexpr int MAX_IT = TQ / RY * (STREAM_MAX_D / 4) / NT;  // y tiles a thread
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int b = blockIdx.y;
-  const int tiles = (L + TQ - 1) / TQ;
-  const int g = blockIdx.x / tiles;
-  const int t0 = (blockIdx.x - g * tiles) * TQ;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int bg, blk, rank, t0;
+  if (nr >= TQ) {
+    stream_slot(blockIdx.x, B * G, L / nr, nr / TQ, &bg, &blk, &rank);
+    t0 = (blk + 1) % (L / nr) * nr + (nr / TQ - 1 - rank) * TQ;
+  } else {
+    const int tiles = (L + TQ - 1) / TQ;
+    bg = blockIdx.x / tiles;
+    t0 = (blockIdx.x - bg * tiles) * TQ;
+  }
+  const int b = bg / G;
   const int rows = min(TQ, L - t0);
   const int d4 = round4(d), dv4 = round4(dv);
   const int qs = d4 + 4, vs = dv4, ps = TK + 4;
@@ -565,27 +577,22 @@ band_stream_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int kend = t0 + rows - 1;               // and its last
   const int nt = (kend - kw0 + TK) / TK;        // key tiles it spans
   float* q_s = smem;                            // TQ x qs
-  float* k_s = q_s + TQ * qs;                   // 2 stages x TK x qs
-  float* v_s = k_s + 2 * TK * qs;               // 2 stages x TK x vs
-  float* w_s = v_s + 2 * TK * vs;               // 2 stages x TK
-  float* p_s = w_s + 2 * TK;                    // TQ x ps: this tile's a
-  float* m_s = p_s + TQ * ps;                   // running row max
-  float* dn_s = m_s + TQ;                       // running sum of a * w
-  float* sc_s = dn_s + TQ;                      // this tile's rescale
+  float* k_s = q_s + TQ * qs;                   // TK x qs
+  float* v_s = k_s + TK * qs;                   // TK x vs
+  float* w_s = v_s + TK * vs;                   // TK
+  float* p_s = w_s + TK;                        // TQ x ps: this tile's a
+  float* sc_s = p_s + TQ * ps;                  // this tile's rescale
   int* live_s = reinterpret_cast<int*>(sc_s + TQ);  // live key tiles
   int* nlive_s = live_s + stream_max_tiles(nr);
-  const size_t row0 = ((size_t)b * G + g) * L + t0;
+  const size_t row0 = (size_t)bg * L + t0;
   const float* wb = w + (size_t)b * L;
 
   // list the window's key tiles that hold a key with w > 0, in order
-  for (int n = tid >> 5; n < nt; n += NT / 32) {
+  for (int n = warp; n < nt; n += NT / 32) {
     const int j = kw0 + n * TK + lane;
-    const unsigned any = __ballot_sync(FULL, j <= kend && wb[j] > 0.f);
+    const unsigned any = __ballot_sync(FULL, j <= kend && wb[j] > 0.f) |
+                         __ballot_sync(FULL, j + 32 <= kend && wb[j + 32] > 0.f);
     if (lane == 0) live_s[n] = any != 0u;
-  }
-  for (int r = tid; r < TQ; r += NT) {
-    m_s[r] = MIN_M;
-    dn_s[r] = 0.f;
   }
   __syncthreads();
   if (tid == 0) {
@@ -597,123 +604,140 @@ band_stream_kernel(const float* __restrict__ q, const float* __restrict__ k,
   __syncthreads();
   const int nlive = *nlive_s;
 
-  // copies of live key tile n into stage s (keys past the last row zero)
-  auto stage = [&](int n, int s) {
-    const int ks = kw0 + live_s[n] * TK;
-    auto src = [&](int r, const float* base, int width) -> const float* {
-      return ks + r <= kend ? base + ((size_t)b * L + ks + r) * width
-                            : nullptr;
-    };
-    stage_rows(k_s + s * TK * qs, qs, TK, d, vec_in & VEC_K,
-               [&](int r) { return src(r, k, d); });
-    stage_rows(v_s + s * TK * vs, vs, TK, dv, vec_in & VEC_V,
-               [&](int r) { return src(r, v, dv); });
+  // copies of live key tile n: its keys and weights, or its values (keys
+  // past the last row zero)
+  auto src = [&](int n, int r, const float* base, int width) -> const float* {
+    const int j = kw0 + live_s[n] * TK + r;
+    return j <= kend ? base + ((size_t)b * L + j) * width : nullptr;
+  };
+  auto stage_keys = [&](int n) {
+    stage_rows(k_s, qs, TK, d, vec_in & VEC_K,
+               [&](int r) { return src(n, r, k, d); });
     if (tid < TK) {
-      float* dst = w_s + s * TK + tid;
-      if (ks + tid <= kend) cp_async4(dst, wb + ks + tid);
-      else *dst = 0.f;
+      const int j = kw0 + live_s[n] * TK + tid;
+      if (j <= kend) cp_async4(w_s + tid, wb + j);
+      else w_s[tid] = 0.f;
     }
+  };
+  auto stage_values = [&](int n) {
+    stage_rows(v_s, vs, TK, dv, vec_in & VEC_V,
+               [&](int r) { return src(n, r, v, dv); });
   };
   if (nlive > 0) {
     stage_rows(q_s, qs, TQ, d, vec_in & VEC_Q, [&](int r) -> const float* {
       return r < rows ? q + (row0 + r) * d : nullptr;
     });
-    stage(0, 0);
+    stage_keys(0);
   }
   cp_async_commit();
 
-  const int ncg = dv4 / 4, items = TQ / RY * ncg;
-  float acc[MAX_IT][RY][4];
+  // scores: warp w's rows 8w + rl + 2 r (r < 4) against keys kl + 16 t;
+  // the row bit lowest, so the 16 lanes of a half-warp load 8 key rows,
+  // 128 bytes in distinct banks
+  const int rl = lane & 1, kl = lane >> 1;
+  const int rs0 = warp * 8 + rl;
+  float m_r[4], dn_r[4];
 #pragma unroll
-  for (int it = 0; it < MAX_IT; ++it)
+  for (int r = 0; r < 4; ++r) {
+    m_r[r] = MIN_M;
+    dn_r[r] = 0.f;
+  }
+  // a @ v: this lane's rows lt.row0 + lt.rstep * rr, units lt.u0, lt.u1
+  const int units = 8 * RY, ncg = dv4 / 4;
+  const LaneTile lt = lane_tile(tid, units, TQ);
+  const int c0 = min(lt.u0, ncg - 1) * 4, c1 = min(lt.u1, ncg - 1) * 4;
+  float acc[RY][8];
 #pragma unroll
-    for (int rr = 0; rr < RY; ++rr)
+  for (int rr = 0; rr < RY; ++rr)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc[it][rr][c] = 0.f;
-  // the score pass: row pair rp against keys kl, kl + 8, kl + 16, kl + 24
-  const int rp = tid >> 3, kl = tid & 7, r0 = 2 * rp;
+    for (int c = 0; c < 8; ++c) acc[rr][c] = 0.f;
+
   for (int n = 0; n < nlive; ++n) {
-    const int s = n & 1;
-    if (n + 1 < nlive) stage(n + 1, s ^ 1);
+    cp_async_wait();                            // keys of tile n
+    __syncthreads();                            // a @ v of n - 1 is done
+    stage_values(n);
     cp_async_commit();
-    cp_async_wait_group<1>();                   // tile n has landed
-    __syncthreads();
-    const float* kt = k_s + s * TK * qs;
-    const float* vt = v_s + s * TK * vs;
-    const float* wt = w_s + s * TK;
     const int ks = kw0 + live_s[n] * TK;
 
-    float sc[2][4];
-    dot_tile<2>(q_s + r0 * qs, qs, kt + kl * qs, 8 * qs, d4, sc);
+    float sc[4][4];
+    dot_tile_rk<4, 4>(q_s + rs0 * qs, 2 * qs, k_s + kl * qs, 16 * qs, d4,
+                      sc);
 #pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      const int i = t0 + r0 + rr, lo = (i / nr - 1) * nr;
+    for (int r = 0; r < 4; ++r) {
+      const int row = rs0 + 2 * r, i = t0 + row, lo = (i / nr - 1) * nr;
       bool ok[4];
       float mx = NEG_INF;
 #pragma unroll
       for (int t = 0; t < 4; ++t) {
-        const int j = ks + kl + 8 * t;
-        ok[t] = j >= lo && j <= i && wt[kl + 8 * t] > 0.f;
-        if (ok[t]) mx = fmaxf(mx, sc[rr][t]);
+        const int j = ks + kl + 16 * t;
+        ok[t] = j >= lo && j <= i && w_s[kl + 16 * t] > 0.f;
+        if (ok[t]) mx = fmaxf(mx, sc[r][t]);
       }
-      for (int o = 1; o < 8; o <<= 1)
+#pragma unroll
+      for (int o = 2; o < 32; o <<= 1)
         mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, o));
-      const float mold = m_s[r0 + rr], mnew = fmaxf(mold, mx);
+      const float mnew = fmaxf(m_r[r], mx);
       float sum = 0.f;
 #pragma unroll
       for (int t = 0; t < 4; ++t) {
-        const float a = ok[t] ? expf(sc[rr][t] - mnew) : 0.f;
-        p_s[(r0 + rr) * ps + kl + 8 * t] = a;
-        sum = fmaf(a, wt[kl + 8 * t], sum);
+        const float a = ok[t] ? expf(sc[r][t] - mnew) : 0.f;
+        p_s[row * ps + kl + 16 * t] = a;
+        sum = fmaf(a, w_s[kl + 16 * t], sum);
       }
-      // the shuffles order every lane's read of m_s before lane 0 writes
-      for (int o = 1; o < 8; o <<= 1)
+#pragma unroll
+      for (int o = 2; o < 32; o <<= 1)
         sum += __shfl_xor_sync(FULL, sum, o);
-      if (kl == 0) {
-        const float f = expf(mold - mnew);
-        sc_s[r0 + rr] = f;
-        dn_s[r0 + rr] = fmaf(dn_s[r0 + rr], f, sum);
-        m_s[r0 + rr] = mnew;
-      }
+      const float f = expf(m_r[r] - mnew);
+      dn_r[r] = fmaf(dn_r[r], f, sum);
+      m_r[r] = mnew;
+      if (kl == 0) sc_s[row] = f;
     }
-    __syncthreads();
+    cp_async_wait();                            // values of tile n
+    __syncthreads();                            // a and rescales written
+    if (n + 1 < nlive) stage_keys(n + 1);
+    cp_async_commit();
 
-    // y = y * rescale + (a @ v over this tile's keys): the tile's 32
-    // terms summed apart first, so no fp32 chain runs over the window's
-    // 2 nr keys (a chain of 2048 drifts ~3e-5 from the exact sum)
+    // y = y * rescale + (a @ v over each 32-key chunk, summed apart
+    // first: one fp32 chain over the window's 2 nr keys drifts ~3e-5
+    // from the exact sum)
+    const float* pr = p_s + lt.row0 * ps;
 #pragma unroll
-    for (int it = 0; it < MAX_IT; ++it) {
-      const int e = tid + it * NT;
-      if (e < items) {
-        const int rg = e / ncg, c = (e - rg * ncg) * 4;
-        float part[RY][4];
-        apply_tile<RY>(p_s + rg * RY * ps, ps, vt + c, vs, TK, part);
+    for (int rr = 0; rr < RY; ++rr) {
+      const float f = sc_s[lt.row0 + lt.rstep * rr];
 #pragma unroll
-        for (int rr = 0; rr < RY; ++rr) {
-          const float f = sc_s[rg * RY + rr];
-#pragma unroll
-          for (int cc = 0; cc < 4; ++cc)
-            acc[it][rr][cc] = fmaf(acc[it][rr][cc], f, part[rr][cc]);
-        }
-      }
+      for (int c = 0; c < 8; ++c) acc[rr][c] *= f;
     }
-    __syncthreads();                            // the stage is free again
-  }
-
 #pragma unroll
-  for (int it = 0; it < MAX_IT; ++it) {
-    const int e = tid + it * NT;
-    if (e < items) {
-      const int rg = e / ncg, c = (e - rg * ncg) * 4;
+    for (int h = 0; h < TK; h += 32) {
+      float part[RY][8];
+      apply_tile8<RY>(pr + h, lt.rstep * ps, v_s + h * vs, vs, c0, c1, 32,
+                      part);
 #pragma unroll
       for (int rr = 0; rr < RY; ++rr)
-        if (rg * RY + rr < rows)
-          store4(y + (row0 + rg * RY + rr) * dv, c, dv, vec_y, acc[it][rr]);
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[rr][c] += part[rr][c];
     }
   }
-  for (int r = tid; r < rows; r += NT) {
-    dn[row0 + r] = dn_s[r];
-    m[row0 + r] = m_s[r];
+
+#pragma unroll
+  for (int rr = 0; rr < RY; ++rr) {
+    const int r = lt.row0 + lt.rstep * rr;
+    if (r >= rows) continue;
+    float* yr = y + (row0 + r) * dv;
+    const float lo4[4] = {acc[rr][0], acc[rr][1], acc[rr][2], acc[rr][3]};
+    const float hi4[4] = {acc[rr][4], acc[rr][5], acc[rr][6], acc[rr][7]};
+    if (lt.u0 < ncg) store4(yr, lt.u0 * 4, dv, vec_y, lo4);
+    if (lt.u1 < ncg) store4(yr, lt.u1 * 4, dv, vec_y, hi4);
+  }
+  if (kl == 0) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = rs0 + 2 * r;
+      if (row < rows) {
+        dn[row0 + row] = dn_r[r];
+        m[row0 + row] = m_r[r];
+      }
+    }
   }
 }
 
@@ -722,7 +746,8 @@ size_t stream_smem(int d, int dv, int nr) {
 }
 
 // nr a power of two >= 2 with L % nr == 0; d, dv up to STREAM_MAX_D; the
-// shared-memory plan (which grows with nr) within SMEM_MAX.
+// shared-memory plan (which grows with nr) within SMEM_MAX.  y's register
+// tile is laid out for stream_cols(dv) units.
 int launch_stream(const float* q, const float* k, const float* v,
                   const float* w, float* y, float* dn, float* m, int B,
                   int G, int L, int d, int dv, int nr, cudaStream_t stream) {
@@ -732,19 +757,21 @@ int launch_stream(const float* q, const float* k, const float* v,
   const size_t smem = stream_smem(d, dv, nr);
   if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
   if (B == 0 || G == 0 || L == 0) return 0;
+  const auto kernel =
+      by_stream_cols(round4(dv), &band_stream_kernel<2>,
+                     &band_stream_kernel<4>, &band_stream_kernel<8>);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        band_stream_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int vec_in = (aligned16(q) && d % 4 == 0 ? VEC_Q : 0) |
                      (aligned16(k) && d % 4 == 0 ? VEC_K : 0) |
                      (aligned16(v) && dv % 4 == 0 ? VEC_V : 0);
   const int vec_y = aligned16(y) && dv % 4 == 0;
-  const dim3 grid(G * ((L + STREAM_TQ - 1) / STREAM_TQ), B);
-  band_stream_kernel<<<grid, STREAM_THREADS, smem, stream>>>(
-      q, k, v, w, y, dn, m, G, L, d, dv, nr, vec_in, vec_y);
+  const int ctas = B * G * ((L + STREAM_TQ - 1) / STREAM_TQ);
+  kernel<<<ctas, STREAM_THREADS, smem, stream>>>(
+      q, k, v, w, y, dn, m, B, G, L, d, dv, nr, vec_in, vec_y);
   return (int)cudaGetLastError();
 }
 

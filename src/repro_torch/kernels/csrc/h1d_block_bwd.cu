@@ -1003,49 +1003,73 @@ int launch_sub(const float* q, const float* k, const float* v,
 // d = 256 against the fp32 ridge of 20).  Two kernels on one stream, the
 // reference's own two passes (_dq_kernel, _dkvw_kernel), with no scratch
 // between them but gmn (B, G, L), no atomics and every sum in a fixed
-// order, so two calls give identical bits:
+// order, so two calls give identical bits.  Their first form
+// swept the dQ window twice (the tie count c comes before any ds) on
+// 1-row x 4-key score tiles and ran at 8.6x the bound; the phase trace
+// put 30 % of dQ in the tie sweep and most of both passes in scores.
 //   * stream_dq_kernel: one CTA per (b, g, tile of STREAM_TQ rows), 256
-//     threads.  q and gy stay resident; gmh = gm - (gy . y + gdn * dn)
-//     reads y once from device memory.  The window's live key tiles
-//     (STREAM_DQ_TK keys; tiles with no w > 0 are listed out first, as
-//     the forward's ballot lists them) stream through two cp.async
-//     stages twice: the first sweep scores q . k alone and counts each
-//     row's ties s == m over the whole window (c is needed before any ds:
-//     ds = a da + (gmh / c) 1[s == m]), the second scores q . k and
-//     gy . v, forms ds and adds ds @ k into an 8-row x 4-column register
-//     tile a thread (two at d = 256), each key tile's terms summed apart
-//     before they join dq (the plain version's SUM_KEYS chunks).  Writes
-//     dq and gmn.  At d = 256 a stage of 32 keys would not fit beside the
-//     resident q and gy: 16 keys a stage (206 KB in all).
-//   * stream_dkvw_kernel: one CTA per (b, STREAM_KV_TK keys).  Its keys
-//     and values stay resident while the reader rows of every group (g,
-//     then rows in order) stream through two cp.async stages of
-//     STREAM_KV_TR rows (q, gy, m, gdn, gmn); a and ds are recomputed per
-//     (row, key), kept key-major in shared memory, and ds^T q, a^T gy (an
-//     8-key x 4-column register tile a thread, two in all) and a^T gdn
-//     (one key a thread) add each chunk's sum into their totals.  A CTA
-//     whose keys all have w <= 0 writes zeros without reading a row.
-// Both score on 1-row x 4-key register tiles in dot_tile's order, the
-// order band_stream_kernel scored in, so s == m finds the forward's
-// maximum bit for bit.  expf, not __expf.
-__global__ void __launch_bounds__(STREAM_THREADS)
+//     threads, the forward's stream_slot order.  q and gy stay resident;
+//     gmh = gm - (gy . y + gdn * dn) reads y once from device memory.  The
+//     window's live key tiles (STREAM_DQ_TK keys, listed as the forward
+//     lists them) stream through once.  Warps 0-3 score q . k and warps
+//     4-7 gy . v, each on 4-row x 4-key register tiles (dot_tile_rk; a
+//     warp doing both on 2 x 4 tiles would load half again as many words
+//     a FMA: tools/fma_probe.py runs 2 x 4 tiles at 38 % of the fp32
+//     peak on the H100, 4 x 4 at 57 %) into shared memory, s and
+//     da + gdn w; then every warp forms ds = a (da + gdn w) of its 8 rows
+//     and counts their ties, and all 8 warps add ds @ k into a register
+//     tile of 8 rows x 8 columns a lane (lane_tile), each key tile's terms
+//     summed apart before they join dq (the plain version's
+//     SUM_KEYS chunks).  The tie term (gmh / c) 1[s == m] needs c, known
+//     only at the window's end, so it is added after the sweep as gmn *
+//     (sum of the tied k): each row counts its ties and lists the first
+//     STREAM_TIES tied keys in key order (ballots inside the scoring
+//     warp); a row with more ties (rare past the argmax itself) rescans
+//     its window, scoring each key in dot_tile's order.  The values of
+//     tile n + 1 load during ds @ k of tile n, the keys after it.
+//   * stream_dkvw_kernel: one CTA per (b, STREAM_KV_TK keys), the longest
+//     reader ranges (keys early in their block) first.  Its keys and
+//     values stay resident while the reader rows of every group (g, then
+//     rows in order) stream through in chunks of STREAM_KV_TR rows (q,
+//     gy, m, gdn, gmn).  Warps 0-3 score q . k, warps 4-7 gy . v (4 x 4
+//     tiles, as in dQ), every warp forms a and ds of 8 rows, kept
+//     key-major in shared memory; ds^T q (the first 128 threads) and a^T
+//     gy (the others) are register tiles of 8 keys x 8 columns a lane,
+//     each chunk's two halves of 32 rows summed apart, and a^T gdn one
+//     key a thread.  A chunk of 64 rows and the resident keys fill the
+//     shared memory, so the next chunk loads after this one is read.
+//     Overlapping the copies bought nothing in two forms tried (two warp
+//     groups, one copying q and the other gy while the other computed;
+//     the next chunk's first 32 rows copied while the last 32 of this one
+//     were summed): the sums slowed by as much as the wait they hid.  A
+//     CTA whose keys all have w <= 0 writes zeros without reading a row.
+// Both score in dot_tile's order, the order band_stream_kernel scored in,
+// so s == m finds the forward's maximum bit for bit.  expf, not __expf.
+template <int RY>
+__global__ void __launch_bounds__(STREAM_THREADS, 1)
 stream_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ w,
                  const float* __restrict__ y, const float* __restrict__ dn,
                  const float* __restrict__ m, const float* __restrict__ gy,
                  const float* __restrict__ gdn, const float* __restrict__ gm,
-                 float* __restrict__ dq, float* __restrict__ gmn, int G,
-                 int L, int d, int dv, int nr, int vec_in, int vec_out) {
+                 float* __restrict__ dq, float* __restrict__ gmn, int B,
+                 int G, int L, int d, int dv, int nr, int vec_in,
+                 int vec_out) {
   constexpr int TQ = STREAM_TQ, TK = STREAM_DQ_TK, NT = STREAM_THREADS;
-  constexpr int RY = STREAM_RY;
-  constexpr int MAX_IT = TQ / RY * (STREAM_MAX_D / 4) / NT;  // dq tiles a thread
+  constexpr int NTIE = STREAM_TIES;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int b = blockIdx.y;
-  const int tiles = (L + TQ - 1) / TQ;
-  const int g = blockIdx.x / tiles;
-  const int t0 = (blockIdx.x - g * tiles) * TQ;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int bg, blk, rank, t0;
+  if (nr >= TQ) {
+    stream_slot(blockIdx.x, B * G, L / nr, nr / TQ, &bg, &blk, &rank);
+    t0 = (blk + 1) % (L / nr) * nr + (nr / TQ - 1 - rank) * TQ;
+  } else {
+    const int tiles = (L + TQ - 1) / TQ;
+    bg = blockIdx.x / tiles;
+    t0 = (blockIdx.x - bg * tiles) * TQ;
+  }
+  const int b = bg / G;
   const int rows = min(TQ, L - t0);
   const int d4 = round4(d), dv4 = round4(dv);
   const int qs = d4 + 4, gs = dv4 + 4, ps = TK + 4;
@@ -1054,27 +1078,26 @@ stream_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int nt = (kend - kw0 + TK) / TK;        // key tiles it spans
   float* q_s = smem;                            // TQ x qs
   float* g_s = q_s + TQ * qs;                   // TQ x gs: gy
-  float* k_s = g_s + TQ * gs;                   // 2 stages x TK x qs
-  float* v_s = k_s + 2 * TK * qs;               // 2 stages x TK x gs
-  float* w_s = v_s + 2 * TK * gs;               // 2 stages x TK
-  float* p_s = w_s + 2 * TK;                    // TQ x ps: this tile's ds
-  float* m_s = p_s + TQ * ps;                   // TQ each: m, gdn, gmh, gmn
+  float* k_s = g_s + TQ * gs;                   // TK x qs
+  float* v_s = k_s + TK * qs;                   // TK x gs
+  float* w_s = v_s + TK * gs;                   // TK
+  float* p_s = w_s + TK;                        // TQ x ps: this tile's ds
+  float* s_s = p_s + TQ * ps;                   // TQ x ps: this tile's s
+  float* m_s = s_s + TQ * ps;                   // TQ each: m, gdn, gmh
   float* gdn_s = m_s + TQ;
   float* gmh_s = gdn_s + TQ;
-  float* gmn_s = gmh_s + TQ;
-  int* live_s = reinterpret_cast<int*>(gmn_s + TQ);  // live key tiles
+  int* cnt_s = reinterpret_cast<int*>(gmh_s + TQ);  // TQ: ties a row
+  int* tie_s = cnt_s + TQ;                      // TQ x NTIE: tied keys
+  int* live_s = tie_s + TQ * NTIE;              // live key tiles
   int* nlive_s = live_s + stream_dq_tiles(nr);
-  const size_t row0 = ((size_t)b * G + g) * L + t0;
+  const size_t row0 = (size_t)bg * L + t0;
   const float* wb = w + (size_t)b * L;
 
   // list the window's key tiles that hold a key with w > 0, in order
-  for (int n = tid; n < nt; n += NT) {
-    int any = 0;
-    for (int t = 0; t < TK; ++t) {
-      const int j = kw0 + n * TK + t;
-      any |= j <= kend && wb[j] > 0.f;
-    }
-    live_s[n] = any;
+  for (int n = warp; n < nt; n += NT / 32) {
+    const int j = kw0 + n * TK + lane;
+    const unsigned any = __ballot_sync(FULL, j <= kend && wb[j] > 0.f);
+    if (lane == 0) live_s[n] = any != 0u;
   }
   __syncthreads();
   if (tid == 0) {
@@ -1091,12 +1114,33 @@ stream_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     return;
   }
 
+  // copies of live key tile n: its keys and weights, or its values (keys
+  // past the last row zero)
+  auto src = [&](int n, int r, const float* base, int width) -> const float* {
+    const int j = kw0 + live_s[n] * TK + r;
+    return j <= kend ? base + ((size_t)b * L + j) * width : nullptr;
+  };
+  auto stage_keys = [&](int n) {
+    stage_rows(k_s, qs, TK, d, vec_in & VEC_K,
+               [&](int r) { return src(n, r, k, d); });
+    if (tid < TK) {
+      const int j = kw0 + live_s[n] * TK + tid;
+      if (j <= kend) cp_async4(w_s + tid, wb + j);
+      else w_s[tid] = 0.f;
+    }
+  };
+  auto stage_values = [&](int n) {
+    stage_rows(v_s, gs, TK, dv, vec_in & VEC_V,
+               [&](int r) { return src(n, r, v, dv); });
+  };
   stage_rows(q_s, qs, TQ, d, vec_in & VEC_Q, [&](int r) -> const float* {
     return r < rows ? q + (row0 + r) * d : nullptr;
   });
   stage_rows(g_s, gs, TQ, dv, vec_in & VEC_GY, [&](int r) -> const float* {
     return r < rows ? gy + (row0 + r) * dv : nullptr;
   });
+  stage_keys(0);
+  stage_values(0);
   cp_async_commit();
   for (int r = tid; r < TQ; r += NT) {
     m_s[r] = r < rows ? m[row0 + r] : 0.f;
@@ -1105,7 +1149,7 @@ stream_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   cp_async_wait();
   __syncthreads();
   // gmh = gm - (gy . y + gdn * dn): a warp a row, y read once
-  for (int r = tid >> 5; r < TQ; r += NT / 32) {
+  for (int r = warp; r < TQ; r += NT / 32) {
     float part = 0.f;
     if (r < rows) {
       const float* yr = y + (row0 + r) * dv;
@@ -1117,167 +1161,193 @@ stream_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                           : 0.f;
   }
 
-  // copies of live key tile n into stage s (keys past the last row zero),
-  // the values too when `values`
-  auto stage = [&](int n, int s, bool values) {
-    const int ks = kw0 + live_s[n] * TK;
-    auto src = [&](int r, const float* base, int width) -> const float* {
-      return ks + r <= kend ? base + ((size_t)b * L + ks + r) * width
-                            : nullptr;
-    };
-    stage_rows(k_s + s * TK * qs, qs, TK, d, vec_in & VEC_K,
-               [&](int r) { return src(r, k, d); });
-    if (values)
-      stage_rows(v_s + s * TK * gs, gs, TK, dv, vec_in & VEC_V,
-                 [&](int r) { return src(r, v, dv); });
-    if (tid < TK) {
-      float* dst = w_s + s * TK + tid;
-      if (ks + tid <= kend) cp_async4(dst, wb + ks + tid);
-      else *dst = 0.f;
-    }
-  };
-  // the score pass: row r against keys kq, kq + 4, kq + 8, kq + 12 of a
-  // tile (the 8 lanes of a load phase read 4 key rows, in distinct banks)
-  const int r = tid >> 2, kq = tid & 3;
-  const int i = t0 + r, lo = (i / nr - 1) * nr;
-  const bool row_in = r < rows;
-  __syncthreads();                              // m_s, gmh_s are written
-  const float m_r = m_s[r];
-  auto admitted = [&](int j, float wj) {
-    return row_in && j >= lo && j <= i && wj > 0.f;
-  };
+  // scores: warps 0-3 score s = q . k, warps 4-7 da = gy . v, each on
+  // the rows 16 (w % 4) + rl + 4 r (r < 4) against keys kl + 8 t; then
+  // every warp forms ds of its 8 rows, 8 w + rl + 4 r (r < 2)
+  const bool sw = warp < NT / 64;
+  const int rl = lane >> 3, kl = lane & 7;
+  const int rs0 = (warp & 3) * 16 + rl, rd0 = warp * 8 + rl;
+  float x_r[4], m_r[2];                         // s warps: gdn unused
+  int cnt_r[2] = {0, 0};
+#pragma unroll
+  for (int r = 0; r < 4; ++r) x_r[r] = gdn_s[rs0 + 4 * r];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) m_r[r] = m_s[rd0 + 4 * r];
+  // ds @ k: this lane's rows lt.row0 + lt.rstep * rr, units lt.u0, lt.u1
+  const int ncg = d4 / 4;
+  const LaneTile lt = lane_tile(tid, 8 * RY, TQ);
+  const int c0 = min(lt.u0, ncg - 1) * 4, c1 = min(lt.u1, ncg - 1) * 4;
+  float acc[RY][8];
+#pragma unroll
+  for (int rr = 0; rr < RY; ++rr)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[rr][c] = 0.f;
 
-  // sweep 1: each row's tie count c over its whole window
-  int cnt = 0;
-  stage(0, 0, false);
-  cp_async_commit();
   for (int n = 0; n < nlive; ++n) {
-    const int s = n & 1;
-    if (n + 1 < nlive) stage(n + 1, s ^ 1, false);
-    cp_async_commit();
-    cp_async_wait_group<1>();                   // tile n has landed
+    cp_async_wait();                            // keys and values of n
     __syncthreads();
-    const float* kt = k_s + s * TK * qs;
-    const float* wt = w_s + s * TK;
     const int ks = kw0 + live_s[n] * TK;
-    float sc[1][4];
-    dot_tile<1>(q_s + r * qs, qs, kt + kq * qs, 4 * qs, d4, sc);
+    {
+      float sc[4][4];
+      if (sw)
+        dot_tile_rk<4, 4>(q_s + rs0 * qs, 4 * qs, k_s + kl * qs, 8 * qs, d4,
+                          sc);
+      else
+        dot_tile_rk<4, 4>(g_s + rs0 * gs, 4 * gs, v_s + kl * gs, 8 * gs,
+                          dv4, sc);
 #pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      const int kk = kq + 4 * t;
-      cnt += admitted(ks + kk, wt[kk]) && sc[0][t] == m_r;
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const int at = (rs0 + 4 * r) * ps + kl + 8 * t;
+          if (sw) s_s[at] = sc[r][t];
+          else p_s[at] = fmaf(x_r[r], w_s[kl + 8 * t], sc[r][t]);  // da + gdn w
+        }
     }
-    __syncthreads();                            // the stage is free again
-  }
-  cnt += __shfl_xor_sync(FULL, cnt, 1);
-  cnt += __shfl_xor_sync(FULL, cnt, 2);
-  if (kq == 0) {
-    const float gmn_r = cnt > 0 ? gmh_s[r] / (float)cnt : 0.f;
-    gmn_s[r] = gmn_r;
-    if (row_in) gmn[row0 + r] = gmn_r;
-  }
-  __syncthreads();
-  const float gdn_r = gdn_s[r], gmn_r = gmn_s[r];
-
-  // sweep 2: ds = a (gy . v + gdn w) + gmn 1[s == m], dq += ds @ k
-  const int ncg = d4 / 4, items = TQ / RY * ncg;
-  float acc[MAX_IT][RY][4];
-#pragma unroll
-  for (int it = 0; it < MAX_IT; ++it)
-#pragma unroll
-    for (int rr = 0; rr < RY; ++rr)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[it][rr][c] = 0.f;
-  stage(0, 0, true);
-  cp_async_commit();
-  for (int n = 0; n < nlive; ++n) {
-    const int s = n & 1;
-    if (n + 1 < nlive) stage(n + 1, s ^ 1, true);
+    __syncthreads();                            // s and da written
+    if (n + 1 < nlive) stage_values(n + 1);
     cp_async_commit();
-    cp_async_wait_group<1>();
-    __syncthreads();
-    const float* kt = k_s + s * TK * qs;
-    const float* vt = v_s + s * TK * gs;
-    const float* wt = w_s + s * TK;
-    const int ks = kw0 + live_s[n] * TK;
-    float sc[1][4], da[1][4];
-    if (d4 == dv4) {
-      dot_tile2<1>(q_s + r * qs, qs, kt + kq * qs, 4 * qs, g_s + r * gs, gs,
-                   vt + kq * gs, 4 * gs, d4, sc, da);
-    } else {
-      dot_tile<1>(q_s + r * qs, qs, kt + kq * qs, 4 * qs, d4, sc);
-      dot_tile<1>(g_s + r * gs, gs, vt + kq * gs, 4 * gs, dv4, da);
-    }
+    // ds without the tie term; the ties counted and listed
+    bool tie[2][4], anytie = false;
 #pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      const int kk = kq + 4 * t;
-      const float wj = wt[kk];
-      const float x = sc[0][t];
-      p_s[r * ps + kk] =
-          admitted(ks + kk, wj)
-              ? expf(x - m_r) * fmaf(gdn_r, wj, da[0][t]) +
-                    (x == m_r ? gmn_r : 0.f)
-              : 0.f;
-    }
-    __syncthreads();
-    // dq += ds @ k over this tile's keys, summed apart first
+    for (int r = 0; r < 2; ++r) {
+      const int row = rd0 + 4 * r, i = t0 + row, lo = (i / nr - 1) * nr;
 #pragma unroll
-    for (int it = 0; it < MAX_IT; ++it) {
-      const int e = tid + it * NT;
-      if (e < items) {
-        const int rg = e / ncg, c = (e - rg * ncg) * 4;
-        float part[RY][4];
-        apply_tile<RY>(p_s + rg * RY * ps, ps, kt + c, qs, TK, part);
-#pragma unroll
-        for (int rr = 0; rr < RY; ++rr)
-#pragma unroll
-          for (int cc = 0; cc < 4; ++cc) acc[it][rr][cc] += part[rr][cc];
+      for (int t = 0; t < 4; ++t) {
+        const int kk = kl + 8 * t, j = ks + kk;
+        const float x = s_s[row * ps + kk];
+        const bool ok = row < rows && j >= lo && j <= i && w_s[kk] > 0.f;
+        float* ds = p_s + row * ps + kk;
+        *ds = ok ? expf(x - m_r[r]) * *ds : 0.f;
+        tie[r][t] = ok && x == m_r[r];
+        anytie |= tie[r][t];
       }
     }
-    __syncthreads();                            // the stage is free again
-  }
+    if (__any_sync(FULL, anytie)) {
+      // in key order: t, then the row's 8 lanes (keys kl + 8 t)
 #pragma unroll
-  for (int it = 0; it < MAX_IT; ++it) {
-    const int e = tid + it * NT;
-    if (e < items) {
-      const int rg = e / ncg, c = (e - rg * ncg) * 4;
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const unsigned sub =
+              (__ballot_sync(FULL, tie[r][t]) >> (rl * 8)) & 0xffu;
+          const int pos = cnt_r[r] + __popc(sub & ((1u << kl) - 1u));
+          if (tie[r][t] && pos < NTIE)
+            tie_s[(rd0 + 4 * r) * NTIE + pos] = ks + kl + 8 * t;
+          cnt_r[r] += __popc(sub);
+        }
+    }
+    __syncthreads();                            // ds written
+    // dq += ds @ k over this tile's keys, summed apart first
+    {
+      float part[RY][8];
+      apply_tile8<RY>(p_s + lt.row0 * ps, lt.rstep * ps, k_s, qs, c0, c1, TK,
+                      part);
 #pragma unroll
       for (int rr = 0; rr < RY; ++rr)
-        if (rg * RY + rr < rows)
-          store4(dq + (row0 + rg * RY + rr) * d, c, d, vec_out & VEC_DQ,
-                 acc[it][rr]);
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[rr][c] += part[rr][c];
     }
+    __syncthreads();                            // the keys are read
+    if (n + 1 < nlive) stage_keys(n + 1);
+    cp_async_commit();
+  }
+
+#pragma unroll
+  for (int rr = 0; rr < RY; ++rr) {
+    const int r = lt.row0 + lt.rstep * rr;
+    if (r >= rows) continue;
+    float* out = dq + (row0 + r) * d;
+    const float lo4[4] = {acc[rr][0], acc[rr][1], acc[rr][2], acc[rr][3]};
+    const float hi4[4] = {acc[rr][4], acc[rr][5], acc[rr][6], acc[rr][7]};
+    if (lt.u0 < ncg) store4(out, lt.u0 * 4, d, vec_out & VEC_DQ, lo4);
+    if (lt.u1 < ncg) store4(out, lt.u1 * 4, d, vec_out & VEC_DQ, hi4);
+  }
+  if (kl == 0) {
+    cnt_s[rd0] = cnt_r[0];
+    cnt_s[rd0 + 4] = cnt_r[1];
+  }
+  __syncthreads();                              // dq stored, counts in
+
+  // the tie term: dq += gmn * (sum of the row's tied k, in key order), a
+  // warp a row, lanes over the columns; gmn = gmh / c
+  constexpr int CL = STREAM_MAX_D / 32;         // columns a lane
+  for (int r = warp; r < rows; r += NT / 32) {
+    const int c = cnt_s[r];
+    const float gmn_r = c > 0 ? gmh_s[r] / (float)c : 0.f;
+    if (lane == 0) gmn[row0 + r] = gmn_r;
+    if (c == 0) continue;
+    float ts[CL];
+#pragma unroll
+    for (int e = 0; e < CL; ++e) ts[e] = 0.f;
+    auto add_key = [&](int j) {
+      const float* kr = k + ((size_t)b * L + j) * d;
+#pragma unroll
+      for (int e = 0; e < CL; ++e)
+        if (lane + 32 * e < d) ts[e] += kr[lane + 32 * e];
+    };
+    if (c <= NTIE) {
+      for (int e = 0; e < c; ++e) add_key(tie_s[r * NTIE + e]);
+    } else {
+      // more ties than the list holds: rescan the window in key order,
+      // a lane a key, each score one fmaf chain over the columns
+      const int i = t0 + r, lo = max(0, (i / nr - 1) * nr);
+      const float* qr = q_s + r * qs;
+      for (int j0 = lo; j0 <= i; j0 += 32) {
+        const int j = j0 + lane;
+        bool hit = false;
+        if (j <= i && wb[j] > 0.f) {
+          const float* kr = k + ((size_t)b * L + j) * d;
+          float x = 0.f;
+          for (int cc = 0; cc < d; ++cc) x = fmaf(qr[cc], kr[cc], x);
+          hit = x == m_s[r];
+        }
+        for (unsigned hits = __ballot_sync(FULL, hit); hits;
+             hits &= hits - 1u)
+          add_key(j0 + __ffs(hits) - 1);
+      }
+    }
+    float* out = dq + (row0 + r) * d;
+#pragma unroll
+    for (int e = 0; e < CL; ++e)
+      if (lane + 32 * e < d) out[lane + 32 * e] += gmn_r * ts[e];
   }
 }
 
-__global__ void __launch_bounds__(STREAM_THREADS)
+template <int RK>
+__global__ void __launch_bounds__(STREAM_THREADS, 1)
 stream_dkvw_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, const float* __restrict__ w,
                    const float* __restrict__ m, const float* __restrict__ gy,
                    const float* __restrict__ gdn,
                    const float* __restrict__ gmn, float* __restrict__ dk,
-                   float* __restrict__ dvo, float* __restrict__ dw, int G,
-                   int L, int d, int dv, int nr, int vec_in, int vec_out) {
+                   float* __restrict__ dvo, float* __restrict__ dw, int B,
+                   int G, int L, int d, int dv, int nr, int vec_in,
+                   int vec_out) {
   constexpr int TK = STREAM_KV_TK, TR = STREAM_KV_TR, NT = STREAM_THREADS;
-  constexpr int RK = STREAM_RY;                 // keys of a register tile
-  // dk and dv tiles a thread
-  constexpr int MAX_IT = TK / RK * (2 * STREAM_MAX_D / 4) / NT;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int tid = threadIdx.x;
-  const int b = blockIdx.y;
-  const int k0 = blockIdx.x * TK;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int b, blk, rank, k0;
+  if (nr >= TK) {
+    stream_slot(blockIdx.x, B, L / nr, nr / TK, &b, &blk, &rank);
+    k0 = blk * nr + rank * TK;
+  } else {
+    const int tiles = (L + TK - 1) / TK;
+    b = blockIdx.x / tiles;
+    k0 = (blockIdx.x - b * tiles) * TK;
+  }
   const int keys = min(TK, L - k0);
   const int d4 = round4(d), dv4 = round4(dv);
   const int qs = d4 + 4, gs = dv4 + 4, ps = TR + 4;
   const size_t kb = (size_t)b * L + k0;         // the CTA's first key
   float* k_s = smem;                            // TK x qs
   float* v_s = k_s + TK * qs;                   // TK x gs
-  float* q_s = v_s + TK * gs;                   // 2 stages x TR x qs
-  float* g_s = q_s + 2 * TR * qs;               // 2 stages x TR x gs: gy
-  float* x_s = g_s + 2 * TR * gs;               // 2 stages x 3 x TR: m, gdn, gmn
-  float* a_s = x_s + 2 * 3 * TR;                // TK x ps: a, key-major
-  float* ds_s = a_s + TK * ps;                  // TK x ps: ds, key-major
+  float* q_s = v_s + TK * gs;                   // TR x qs
+  float* g_s = q_s + TR * qs;                   // TR x gs: gy
+  float* x_s = g_s + TR * gs;                   // 3 x TR: m, gdn, gmn
+  float* a_s = x_s + 3 * TR;                    // TK x ps: s, then a
+  float* ds_s = a_s + TK * ps;                  // TK x ps: da, then ds
   float* w_s = ds_s + TK * ps;                  // TK
 
   float wk = 0.f;
@@ -1302,118 +1372,125 @@ stream_dkvw_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // reader rows k0 .. rhi - 1 of every group, in chunks of TR
   const int rhi = min(L, ((k0 + keys - 1) / nr + 2) * nr);
   const int nch = (rhi - k0 + TR - 1) / TR, total = G * nch;
-  auto stage = [&](int n, int s) {
+  auto stage = [&](int n) {
     const int gg = n / nch, f0 = k0 + (n - gg * nch) * TR;
     const size_t rowg = ((size_t)b * G + gg) * L + f0;
     auto src = [&](int r, const float* base, int width) -> const float* {
       return f0 + r < rhi ? base + (rowg + r) * width : nullptr;
     };
-    stage_rows(q_s + s * TR * qs, qs, TR, d, vec_in & VEC_Q,
+    stage_rows(q_s, qs, TR, d, vec_in & VEC_Q,
                [&](int r) { return src(r, q, d); });
-    stage_rows(g_s + s * TR * gs, gs, TR, dv, vec_in & VEC_GY,
+    stage_rows(g_s, gs, TR, dv, vec_in & VEC_GY,
                [&](int r) { return src(r, gy, dv); });
     if (tid < 3 * TR) {
       const int which = tid / TR, r = tid - which * TR;
       const float* base = which == 0 ? m : which == 1 ? gdn : gmn;
-      float* dst = x_s + (s * 3 + which) * TR + r;
+      float* dst = x_s + which * TR + r;
       if (f0 + r < rhi) cp_async4(dst, base + rowg + r);
       else *dst = 0.f;
     }
   };
 
-  const int nck = d4 / 4, ncv = dv4 / 4;
-  const int items_k = TK / RK * nck, items = items_k + TK / RK * ncv;
-  float acc[MAX_IT][RK][4], accw = 0.f;
+  // scores: warps 0-3 score s = q . k, warps 4-7 da = gy . v, each on
+  // the chunk rows 16 (w % 4) + rl + 4 r (r < 4) against keys kl + 8 t;
+  // then every warp forms a and ds of its 8 rows, 8 w + rl + 4 r (r < 2)
+  const bool sw = warp < NT / 64;
+  const int rl = lane >> 3, kl = lane & 7;
+  const int rs0 = (warp & 3) * 16 + rl, rd0 = warp * 8 + rl;
+  // ds^T q (threads 0-127) or a^T gy (128-255): keys lt.row0 + lt.rstep *
+  // rr, units lt.u0, lt.u1
+  const bool isk = tid < NT / 2;
+  const int ncg = (isk ? d4 : dv4) / 4;
+  const LaneTile lt = lane_tile(isk ? tid : tid - NT / 2, 8 * RK, TK);
+  const int c0 = min(lt.u0, ncg - 1) * 4, c1 = min(lt.u1, ncg - 1) * 4;
+  const float* pa = (isk ? ds_s : a_s) + lt.row0 * ps;
+  const float* xb = isk ? q_s : g_s;
+  const int xs = isk ? qs : gs;
+  float acc[RK][8], accw = 0.f;
 #pragma unroll
-  for (int it = 0; it < MAX_IT; ++it)
+  for (int rr = 0; rr < RK; ++rr)
 #pragma unroll
-    for (int rr = 0; rr < RK; ++rr)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[it][rr][c] = 0.f;
-  // the score pass: row r of a chunk against keys kq, kq + 8, kq + 16,
-  // kq + 24 (the 8 lanes of a load phase read 8 key rows, in distinct
-  // banks)
-  const int r = tid >> 3, kq = tid & 7;
-  stage(0, 0);
+    for (int c = 0; c < 8; ++c) acc[rr][c] = 0.f;
+  stage(0);
   cp_async_commit();
   for (int n = 0; n < total; ++n) {
-    const int s = n & 1;
-    if (n + 1 < total) stage(n + 1, s ^ 1);
-    cp_async_commit();
-    cp_async_wait_group<1>();                   // chunk n (and k, v) landed
+    cp_async_wait();                            // chunk n (and k, v)
     __syncthreads();
     const int f0 = k0 + (n - n / nch * nch) * TR;
-    const float* qt = q_s + s * TR * qs;
-    const float* gt = g_s + s * TR * gs;
-    const float* xt = x_s + s * 3 * TR;
-    const int i = f0 + r, lo = (i / nr - 1) * nr;
-    const float m_i = xt[r], gdn_i = xt[TR + r], gmn_i = xt[2 * TR + r];
-    float sc[1][4], da[1][4];
-    if (d4 == dv4) {
-      dot_tile2<1>(qt + r * qs, qs, k_s + kq * qs, 8 * qs, gt + r * gs, gs,
-                   v_s + kq * gs, 8 * gs, d4, sc, da);
-    } else {
-      dot_tile<1>(qt + r * qs, qs, k_s + kq * qs, 8 * qs, d4, sc);
-      dot_tile<1>(gt + r * gs, gs, v_s + kq * gs, 8 * gs, dv4, da);
-    }
+    {
+      float sc[4][4];
+      if (sw)
+        dot_tile_rk<4, 4>(q_s + rs0 * qs, 4 * qs, k_s + kl * qs, 8 * qs, d4,
+                          sc);
+      else
+        dot_tile_rk<4, 4>(g_s + rs0 * gs, 4 * gs, v_s + kl * gs, 8 * gs,
+                          dv4, sc);
+      // s, or da + gdn w, key-major
 #pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      const int kk = kq + 8 * t, j = k0 + kk;
-      const float wj = w_s[kk], x = sc[0][t];
-      const bool ok = i < rhi && kk < keys && wj > 0.f && j <= i && j >= lo;
-      const float a = ok ? expf(x - m_i) : 0.f;
-      a_s[kk * ps + r] = a;
-      ds_s[kk * ps + r] =
-          ok ? a * fmaf(gdn_i, wj, da[0][t]) + (x == m_i ? gmn_i : 0.f)
-             : 0.f;
-    }
-    __syncthreads();
-    // this chunk's rows into dk (ds^T q), dv (a^T gy) and dw (a^T gdn),
-    // summed apart first
+      for (int r = 0; r < 4; ++r) {
+        const float gdn_i = x_s[TR + rs0 + 4 * r];
 #pragma unroll
-    for (int it = 0; it < MAX_IT; ++it) {
-      const int e = tid + it * NT;
-      if (e < items) {
-        const bool isk = e < items_k;
-        const int e2 = isk ? e : e - items_k, n4 = isk ? nck : ncv;
-        const int kg = e2 / n4, c = (e2 - kg * n4) * 4;
-        float part[RK][4];
-        if (isk)
-          apply_tile<RK>(ds_s + kg * RK * ps, ps, qt + c, qs, TR, part);
-        else
-          apply_tile<RK>(a_s + kg * RK * ps, ps, gt + c, gs, TR, part);
-#pragma unroll
-        for (int rr = 0; rr < RK; ++rr)
-#pragma unroll
-          for (int cc = 0; cc < 4; ++cc) acc[it][rr][cc] += part[rr][cc];
+        for (int t = 0; t < 4; ++t) {
+          const int at = (kl + 8 * t) * ps + rs0 + 4 * r;
+          if (sw) a_s[at] = sc[r][t];
+          else ds_s[at] = fmaf(gdn_i, w_s[kl + 8 * t], sc[r][t]);
+        }
       }
     }
-    if (tid < TK) {
-      float part = 0.f;
-      for (int rr = 0; rr < TR; ++rr)
-        part = fmaf(a_s[tid * ps + rr], xt[TR + rr], part);
-      accw += part;
+    __syncthreads();                            // s and da, key-major
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = rd0 + 4 * r, i = f0 + row, lo = (i / nr - 1) * nr;
+      const float m_i = x_s[row], gmn_i = x_s[2 * TR + row];
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int kk = kl + 8 * t, j = k0 + kk;
+        float* as = a_s + kk * ps + row;
+        float* ds = ds_s + kk * ps + row;
+        const float x = *as;
+        const bool ok = i < rhi && kk < keys && w_s[kk] > 0.f && j <= i &&
+                        j >= lo;
+        const float a = ok ? expf(x - m_i) : 0.f;
+        *as = a;
+        *ds = ok ? a * *ds + (x == m_i ? gmn_i : 0.f) : 0.f;
+      }
     }
-    __syncthreads();                            // the stage is free again
+    __syncthreads();                            // a and ds written
+    // this chunk's rows into dk (ds^T q), dv (a^T gy) and dw (a^T gdn),
+    // each half of 32 rows summed apart first
+#pragma unroll
+    for (int h = 0; h < TR; h += 32) {
+      float part[RK][8];
+      apply_tile8<RK>(pa + h, lt.rstep * ps, xb + h * xs, xs, c0, c1, 32,
+                      part);
+#pragma unroll
+      for (int rr = 0; rr < RK; ++rr)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[rr][c] += part[rr][c];
+      if (tid < TK) {
+        float pw = 0.f;
+        for (int rr = 0; rr < 32; ++rr)
+          pw = fmaf(a_s[tid * ps + h + rr], x_s[TR + h + rr], pw);
+        accw += pw;
+      }
+    }
+    __syncthreads();                            // the chunk is read
+    if (n + 1 < total) stage(n + 1);
+    cp_async_commit();
   }
 
+  float* out = isk ? dk : dvo;
+  const int width = isk ? d : dv;
+  const int vec = vec_out & (isk ? VEC_DK : VEC_DV);
 #pragma unroll
-  for (int it = 0; it < MAX_IT; ++it) {
-    const int e = tid + it * NT;
-    if (e < items) {
-      const bool isk = e < items_k;
-      const int e2 = isk ? e : e - items_k, n4 = isk ? nck : ncv;
-      const int kg = e2 / n4, c = (e2 - kg * n4) * 4;
-#pragma unroll
-      for (int rr = 0; rr < RK; ++rr) {
-        const int t = kg * RK + rr;
-        if (t >= keys) continue;
-        if (isk)
-          store4(dk + (kb + t) * d, c, d, vec_out & VEC_DK, acc[it][rr]);
-        else
-          store4(dvo + (kb + t) * dv, c, dv, vec_out & VEC_DV, acc[it][rr]);
-      }
-    }
+  for (int rr = 0; rr < RK; ++rr) {
+    const int t = lt.row0 + lt.rstep * rr;
+    if (t >= keys) continue;
+    float* o = out + (kb + t) * width;
+    const float lo4[4] = {acc[rr][0], acc[rr][1], acc[rr][2], acc[rr][3]};
+    const float hi4[4] = {acc[rr][4], acc[rr][5], acc[rr][6], acc[rr][7]};
+    if (lt.u0 < ncg) store4(o, lt.u0 * 4, width, vec, lo4);
+    if (lt.u1 < ncg) store4(o, lt.u1 * 4, width, vec, hi4);
   }
   if (tid < keys) dw[kb + tid] = accw;
 }
@@ -1424,7 +1501,9 @@ size_t stream_bwd_smem(int d, int dv, int nr, int pass) {
 }
 
 // nr a power of two >= 2 with L % nr == 0; d, dv up to STREAM_MAX_D; both
-// passes' shared-memory plans within SMEM_MAX.
+// passes' shared-memory plans within SMEM_MAX.  The register tiles are
+// laid out for stream_cols(d) units in dQ, stream_cols of the wider of d
+// and dv in dK/dV/dW.
 int launch_stream(const float* q, const float* k, const float* v,
                   const float* w, const float* y, const float* dn,
                   const float* m, const float* gy, const float* gdn,
@@ -1439,9 +1518,15 @@ int launch_stream(const float* q, const float* k, const float* v,
   if (smem_dq > SMEM_MAX || smem_kv > SMEM_MAX)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || G == 0 || L == 0) return 0;
-  int e = set_smem(stream_dq_kernel, smem_dq);
+  const auto dq_kernel =
+      by_stream_cols(round4(d), &stream_dq_kernel<2>, &stream_dq_kernel<4>,
+                     &stream_dq_kernel<8>);
+  const auto kv_kernel = by_stream_cols(
+      max(round4(d), round4(dv)), &stream_dkvw_kernel<2>,
+      &stream_dkvw_kernel<4>, &stream_dkvw_kernel<8>);
+  int e = set_smem(dq_kernel, smem_dq);
   if (e) return e;
-  e = set_smem(stream_dkvw_kernel, smem_kv);
+  e = set_smem(kv_kernel, smem_kv);
   if (e) return e;
   const int vec_in = (aligned16(q) && d % 4 == 0 ? VEC_Q : 0) |
                      (aligned16(k) && d % 4 == 0 ? VEC_K : 0) |
@@ -1450,16 +1535,14 @@ int launch_stream(const float* q, const float* k, const float* v,
   const int vec_out = (aligned16(dq) && d % 4 == 0 ? VEC_DQ : 0) |
                       (aligned16(dk) && d % 4 == 0 ? VEC_DK : 0) |
                       (aligned16(dv_out) && dv % 4 == 0 ? VEC_DV : 0);
-  stream_dq_kernel<<<dim3(G * ((L + STREAM_TQ - 1) / STREAM_TQ), B),
-                     STREAM_THREADS, smem_dq, stream>>>(
-      q, k, v, w, y, dn, m, gy, gdn, gm, dq, gmn, G, L, d, dv, nr, vec_in,
-      vec_out);
+  dq_kernel<<<B * G * ((L + STREAM_TQ - 1) / STREAM_TQ), STREAM_THREADS,
+              smem_dq, stream>>>(q, k, v, w, y, dn, m, gy, gdn, gm, dq, gmn,
+                                 B, G, L, d, dv, nr, vec_in, vec_out);
   e = (int)cudaGetLastError();
   if (e) return e;
-  stream_dkvw_kernel<<<dim3((L + STREAM_KV_TK - 1) / STREAM_KV_TK, B),
-                       STREAM_THREADS, smem_kv, stream>>>(
-      q, k, v, w, m, gy, gdn, gmn, dk, dv_out, dw, G, L, d, dv, nr, vec_in,
-      vec_out);
+  kv_kernel<<<B * ((L + STREAM_KV_TK - 1) / STREAM_KV_TK), STREAM_THREADS,
+              smem_kv, stream>>>(q, k, v, w, m, gy, gdn, gmn, dk, dv_out, dw,
+                                 B, G, L, d, dv, nr, vec_in, vec_out);
   return (int)cudaGetLastError();
 }
 

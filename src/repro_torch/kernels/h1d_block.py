@@ -35,6 +35,7 @@ from __future__ import annotations
 import ctypes
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from ..core import hierarchy as hc
@@ -550,13 +551,14 @@ def sub_bytes(w, *, nr: int, ratio: int, G: int, d: int, dv: int,
 # launch geometry of the streamed l0_causal body
 # ---------------------------------------------------------------------------
 #
-# Host mirrors of ``csrc/h1d_band.cuh``'s streamed body: a tile of
+# Host mirrors of ``csrc/h1d_band.cuh``'s streamed bodies: a tile of
 # STREAM_TQ rows keeps its q in shared memory while the keys (I - 1) * nr
-# .. its last row stream through in two stages of STREAM_TK keys; a key
-# tile with no w > 0 is never copied.
+# .. its last row stream through one tile of STREAM_TK keys at a time; a
+# key tile with no w > 0 is never copied.  Tiles run longest first
+# (``stream_slot``).
 
 STREAM_TQ = 64
-STREAM_TK = 32
+STREAM_TK = 64
 STREAM_MAX_D = 256
 
 
@@ -568,8 +570,8 @@ def stream_max_tiles(nr: int) -> int:
 def stream_fwd_floats(d: int, dv: int, nr: int) -> int:
     """Shared floats of the streamed body (``stream_fwd_floats``)."""
     qs, vs = _round4(d) + 4, _round4(dv)
-    return (STREAM_TQ * qs + 2 * STREAM_TK * (qs + vs + 1)
-            + STREAM_TQ * (STREAM_TK + 4) + 3 * STREAM_TQ
+    return (STREAM_TQ * qs + STREAM_TK * (qs + vs + 1)
+            + STREAM_TQ * (STREAM_TK + 4) + STREAM_TQ
             + stream_max_tiles(nr) + 1)
 
 
@@ -582,13 +584,15 @@ def stream_takes(nr: int, d: int, dv: int) -> bool:
 
 
 # The streamed backward (``csrc/h1d_block_bwd.cu``): the dQ pass keeps a
-# tile of STREAM_TQ rows' q and gy resident and streams the window in
-# tiles of STREAM_DQ_TK keys, twice; the dK/dV/dW pass keeps STREAM_KV_TK
-# keys resident and streams their reader rows in chunks of STREAM_KV_TR.
+# tile of STREAM_TQ rows' q and gy resident and streams the window once in
+# tiles of STREAM_DQ_TK keys, each row listing up to STREAM_TIES tied keys;
+# the dK/dV/dW pass keeps STREAM_KV_TK keys resident and streams their
+# reader rows in chunks of STREAM_KV_TR.
 
-STREAM_DQ_TK = 16
+STREAM_DQ_TK = 32
+STREAM_TIES = 4
 STREAM_KV_TK = 32
-STREAM_KV_TR = 32
+STREAM_KV_TR = 64
 
 
 def stream_dq_tiles(nr: int) -> int:
@@ -600,16 +604,16 @@ def stream_dq_floats(d: int, dv: int, nr: int) -> int:
     """Shared floats of the streamed backward's dQ pass
     (``stream_dq_floats``)."""
     qs, gs = _round4(d) + 4, _round4(dv) + 4
-    return (STREAM_TQ * (qs + gs) + 2 * STREAM_DQ_TK * (qs + gs + 1)
-            + STREAM_TQ * (STREAM_DQ_TK + 4) + 4 * STREAM_TQ
-            + stream_dq_tiles(nr) + 1)
+    return (STREAM_TQ * (qs + gs) + STREAM_DQ_TK * (qs + gs + 1)
+            + 2 * STREAM_TQ * (STREAM_DQ_TK + 4) + 3 * STREAM_TQ
+            + STREAM_TQ * (1 + STREAM_TIES) + stream_dq_tiles(nr) + 1)
 
 
 def stream_dkvw_floats(d: int, dv: int) -> int:
     """Shared floats of the streamed backward's dK/dV/dW pass
     (``stream_dkvw_floats``)."""
     qs, gs = _round4(d) + 4, _round4(dv) + 4
-    return (STREAM_KV_TK * (qs + gs) + 2 * STREAM_KV_TR * (qs + gs + 3)
+    return (STREAM_KV_TK * (qs + gs) + STREAM_KV_TR * (qs + gs + 3)
             + 2 * STREAM_KV_TK * (STREAM_KV_TR + 4) + STREAM_KV_TK)
 
 
@@ -619,6 +623,38 @@ def stream_bwd_takes(nr: int, d: int, dv: int) -> bool:
     SMEM_MAX."""
     return stream_takes(nr, d, dv) and 4 * max(
         stream_dq_floats(d, dv, nr), stream_dkvw_floats(d, dv)) <= SMEM_MAX
+
+
+def stream_tie_lists(tie, key0: int = 0):
+    """Each row's tie count and tie list as the dQ pass forms them in one
+    sweep: ``tie`` is a (rows, keys) bool array of one query tile's window
+    (key tiles of STREAM_DQ_TK from key ``key0``), True where an admitted
+    key's score equals the row's max.  A row's 8 lanes hold keys kl + 8 t
+    of a tile; per t a ballot gives each tied lane its place, the count of
+    the row's earlier ties plus the tied lanes below it, so the list holds
+    the first STREAM_TIES tied keys in key order.  Returns (counts, lists):
+    the exact count of every row, and its list (its first STREAM_TIES
+    tied keys; a row with more is rescanned in key order by the kernel)."""
+    tie = np.asarray(tie, dtype=bool)
+    rows, nk = tie.shape
+    counts = np.zeros(rows, dtype=np.int64)
+    lists = [[] for _ in range(rows)]
+    for ks in range(0, nk, STREAM_DQ_TK):
+        for t in range(4):
+            for r in range(rows):
+                ballot = 0
+                for kl in range(8):
+                    kk = ks + kl + 8 * t
+                    if kk < nk and tie[r, kk]:
+                        ballot |= 1 << kl
+                for kl in range(8):
+                    if ballot >> kl & 1:
+                        pos = counts[r] + bin(ballot & ((1 << kl) - 1)).count(
+                            "1")
+                        if pos < STREAM_TIES:
+                            lists[r].append(key0 + ks + kl + 8 * t)
+                counts[r] += bin(ballot).count("1")
+    return counts, lists
 
 
 # ---------------------------------------------------------------------------

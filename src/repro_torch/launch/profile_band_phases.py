@@ -1,9 +1,10 @@
 """Where a CTA of a band kernel spends its time, phase by phase.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_band_phases \
-        [--kernel sub_bwd|band_fwd|band_bwd|decode_paged|decode_partial|
-                  decode_paged_quant|decode_dense|update_paged_quant|
-                  update_dense|update_partial|update_paged] \
+        [--kernel sub_bwd|band_fwd|band_bwd|band_stream_fwd|band_stream_bwd|
+                  decode_paged|decode_partial|decode_paged_quant|
+                  decode_dense|update_paged_quant|update_dense|
+                  update_partial|update_paged] \
         [--csrc DIR] [--out PATH]
 
 Builds a copy of the kernel's source with ``%globaltimer`` stamps taken
@@ -25,6 +26,15 @@ stay in registers until the last stamp, where thread 0 stores them.
   ``l0_bidir`` and ``coarse_bidir`` (level 1, L=1024) at the LRA path's
   (64 rows = 8 ListOps-length sequences x 8 heads, L=2048, true lengths
   500..2000).
+* ``band_stream_fwd``: #1's streamed ``band_stream_kernel``
+  (``h1d_block.cu``) and ``band_stream_bwd``: #3's ``stream_dq_kernel``
+  and ``stream_dkvw_kernel`` (``h1d_block_bwd.cu``), at gemma3-4b's local
+  layers (``STREAM_SHAPE``: 4 x 2 x 4096, nr 1024, d 256, keys live to
+  3000), the backward from the built forward's outputs: the window
+  listing, the copies, then per key tile (forward, dQ) or reader chunk
+  (dK/dV/dW) the stage wait, the scores, the online softmax or the
+  ds step, the a @ v or the ds / a products, and the stores.  Each row
+  also carries the built wrapper's event ms.
 * ``decode_paged``: #7 (``h1d_decode_attend_paged``) at the paged
   serving shapes of ``chip_smoke.py`` (64 rows = 8 slots x 8 kv heads,
   G=1, Lmax 2048, nr=16, d=64, 1026 pages a level; 6 slots at seeded
@@ -236,6 +246,79 @@ UPDATE_CHAIN = dict(
         ("    if (ADDR == ADDR_LOCAL)\n      (is_k ? carry_k : carry_v)"
          "[(size_t)r * W + col] = carry;\n  }\n", 5, "after"),
     ])
+# The streamed l0_causal bodies: #1's band_stream_kernel, #3's
+# stream_dq_kernel and stream_dkvw_kernel.
+STREAM_FWD = dict(
+    name="band_stream_kernel", array="g_sfwd",
+    phases=("start", "window listed", "copies issued", "tile: keys wait",
+            "tile: scores", "tile: online softmax", "tile: values wait",
+            "tile: apply", "store, end"),
+    anchors=[
+        ("  // list the window's key tiles that hold a key with w > 0, in "
+         "order\n", 0, "before"),
+        ("  const int nlive = *nlive_s;\n", 1, "after"),
+        ("    stage_keys(0);\n  }\n  cp_async_commit();\n", 2, "after"),
+        ("    cp_async_wait();                            // keys of tile n\n"
+         "    __syncthreads();                            // a @ v of n - 1 "
+         "is done\n", 3, "after"),
+        ("16 * qs, d4,\n                      sc);\n", 4, "after",
+         "if (sc[3][3] == 1.5e-38f) g_sink = 1;\n"),
+        ("    cp_async_wait();                            // values of tile "
+         "n\n", 5, "before"),
+        ("    __syncthreads();                            // a and rescales "
+         "written\n", 6, "after"),
+        ("        for (int c = 0; c < 8; ++c) acc[rr][c] += part[rr][c];\n"
+         "    }\n  }\n\n#pragma unroll\n  for (int rr = 0; rr < RY; ++rr) {"
+         "\n    const int r = lt.row0", 7,
+         len("        for (int c = 0; c < 8; ++c) acc[rr][c] += "
+             "part[rr][c];\n    }\n"),
+         "if (acc[RY - 1][7] == 1.5e-38f) g_sink = 1;\n"),
+        ("        m[row0 + row] = m_r[r];\n      }\n    }\n  }\n", 8,
+         "after"),
+    ])
+STREAM_DQ = dict(
+    name="stream_dq_kernel", array="g_sdq",
+    phases=("start", "window listed", "rows staged, gmh", "tile: stage wait",
+            "tile: scores", "tile: ds, ties", "tile: ds @ k", "dq stored",
+            "tie term, end"),
+    anchors=[
+        ("  // list the window's key tiles that hold a key with w > 0, in "
+         "order\n", 0, "before"),
+        ("  const int nlive = *nlive_s;\n", 1, "after"),
+        ("  // scores: warps 0-3 score s = q . k, warps 4-7 da = gy . v, each "
+         "on\n  // the rows 16", 2, "before"),
+        ("    cp_async_wait();                            // keys and values "
+         "of n\n    __syncthreads();\n", 3, "after"),
+        ("    __syncthreads();                            // s and da "
+         "written\n", 4, "after"),
+        ("    __syncthreads();                            // ds written\n", 5,
+         "after"),
+        ("    __syncthreads();                            // the keys are "
+         "read\n", 6, "after"),
+        ("  __syncthreads();                              // dq stored, "
+         "counts in\n", 7, "after"),
+        ("      if (lane + 32 * e < d) out[lane + 32 * e] += gmn_r * ts[e];\n"
+         "  }\n", 8, "after"),
+    ])
+STREAM_DKVW = dict(
+    name="stream_dkvw_kernel", array="g_skv",
+    phases=("start", "weights, keys issued", "chunk: stage wait",
+            "chunk: scores", "chunk: a, ds", "chunk: dk/dv/dw", "store, end"),
+    anchors=[
+        ("  float* w_s = ds_s + TK * ps;                  // TK\n", 0,
+         "after"),
+        ("  // reader rows k0 .. rhi - 1 of every group, in chunks of TR\n",
+         1, "before"),
+        ("    cp_async_wait();                            // chunk n (and k, "
+         "v)\n    __syncthreads();\n", 2, "after"),
+        ("    __syncthreads();                            // s and da, "
+         "key-major\n", 3, "after"),
+        ("    __syncthreads();                            // a and ds "
+         "written\n", 4, "after"),
+        ("    __syncthreads();                            // the chunk is "
+         "read\n", 5, "after"),
+        ("  if (tid < keys) dw[kb + tid] = accw;\n", 6, "after"),
+    ])
 TARGETS = {"sub_bwd": ("h1d_block_bwd", [SUB_BWD]),
            "band_fwd": ("h1d_block", [BAND_FWD]),
            "band_bwd": ("h1d_block_bwd", [BAND_DQ, BAND_DKVW]),
@@ -246,7 +329,9 @@ TARGETS = {"sub_bwd": ("h1d_block_bwd", [SUB_BWD]),
            "update_paged_quant": ("h1d_decode", [UPDATE_QUANT]),
            "update_dense": ("h1d_decode", [UPDATE_CHAIN]),
            "update_partial": ("h1d_decode", [UPDATE_CHAIN]),
-           "update_paged": ("h1d_decode", [UPDATE_CHAIN])}
+           "update_paged": ("h1d_decode", [UPDATE_CHAIN]),
+           "band_stream_fwd": ("h1d_block", [STREAM_FWD]),
+           "band_stream_bwd": ("h1d_block_bwd", [STREAM_DQ, STREAM_DKVW])}
 SIGNATURES = {"h1d_block": hb._SIGNATURES, "h1d_block_bwd": hbb._SIGNATURES,
               "h1d_decode": dk._SIGNATURES}
 
@@ -469,6 +554,77 @@ def profile_band(lib, dev, gen, backward):
     return rows
 
 
+#: (B, G, L, nr, d, keys with w > 0): gemma3-4b's local layers at a
+#: 4096-token prefill of a 3000-token prompt (chip_smoke.STREAM_CASES[0])
+STREAM_SHAPE = (4, 2, 4096, 1024, 256, 3000)
+
+
+def _event_ms(fn, reps: int = 10) -> float:
+    """Median ms of ``fn`` between CUDA events, after one warm call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def profile_stream(lib, specs, dev, gen, backward, time_wrapper=True):
+    """#1's streamed body (``band_stream_fwd``) or #3's streamed backward
+    (``band_stream_bwd``: the dQ pass and the dK/dV/dW pass) at
+    ``STREAM_SHAPE``; the backward from the built forward's outputs (its
+    m, so s == m finds the forward's maxima) and seeded cotangents.  Each
+    row carries the uninstrumented wrapper's event ms beside the
+    stamps (``time_wrapper``: the sources stamped are this tree's)."""
+    B, G, L, nr, D, live = STREAM_SHAPE
+    q = torch.randn(B, G, L, D, generator=gen, device=dev) / D ** 0.5
+    k = torch.randn(B, L, D, generator=gen, device=dev)
+    w = torch.ones(B, L, device=dev)
+    w[:, live:] = 0.0
+    v = torch.randn(B, L, D, generator=gen, device=dev) * w[..., None]
+    label = f"gemma local {B}x{G}x{L} nr={nr} d={D} live {live}"
+    out = hb.band_attention_fwd(q, k, v, w, nr=nr)
+    tq = hb.STREAM_TQ
+    if not backward:
+        ctas = [G * -(-L // tq) * B]
+        res = [torch.empty_like(t) for t in out]
+
+        def launch():
+            _build.check(lib.h1d_band_fwd_stream(
+                *[t.data_ptr() for t in (q, k, v, w, *res)], B, G, L, D, D,
+                nr, _build.stream()), "h1d_band_fwd_stream (instrumented)")
+        rows = _run(lib, specs, launch, label, ctas)
+
+        def call():
+            return hb.band_attention_fwd(q, k, v, w, nr=nr)
+    else:
+        ctas = [G * -(-L // tq) * B, -(-L // hb.STREAM_KV_TK) * B]
+        cot = [torch.randn(t.shape, generator=gen, device=dev) for t in out]
+        args = (q, k, v, w, *out, *cot)
+        grads = (torch.empty_like(q), torch.empty(B, G, L, device=dev),
+                 torch.empty_like(k), torch.empty_like(v),
+                 torch.empty_like(w))
+
+        def launch():
+            _build.check(lib.h1d_band_bwd_stream(
+                *[t.data_ptr() for t in (*args, *grads)], B, G, L, D, D, nr,
+                _build.stream()), "h1d_band_bwd_stream (instrumented)")
+        rows = _run(lib, specs, launch, label, ctas)
+
+        def call():
+            return hbb.band_attention_bwd(*args, nr=nr)
+    if time_wrapper:
+        ms = _event_ms(call)
+        print(f"{label}: built wrapper {ms:.3f} ms a call (CUDA events)")
+        for r in rows:
+            r["wrapper_event_ms"] = ms
+    return rows
+
+
 def profile_decode(lib, specs, dev, gen, kernel):
     """One call of #7, #11, #8, #5, #10 or #9 (``kernel`` as ``--kernel``)
     through its wrapper, with the instrumented library in place of the
@@ -629,6 +785,10 @@ def main(argv=None):
         res["levels"] = profile_sub_bwd(lib, dev, gen)
     elif args.kernel in ("update_dense", "update_partial"):
         res["cases"] = profile_update(lib, specs, dev, gen, args.kernel)
+    elif args.kernel.startswith("band_stream"):
+        res["cases"] = profile_stream(
+            lib, specs, dev, gen, backward=args.kernel.endswith("bwd"),
+            time_wrapper=args.csrc.resolve() == _build.CSRC)
     elif args.kernel.startswith(("decode_", "update_")):
         res["cases"] = profile_decode(lib, specs, dev, gen, args.kernel)
     else:

@@ -93,25 +93,31 @@ def test_band_fwd_matches_plain(dev, B, G, L, d, dv, nr):
     assert not y[-1, :, :nr].any() and not dn[-1, :, :nr].any()
 
 
+# (d, dv) of the streamed bodies' card tests: every register-tile layout
+# (y's follows dv, dq's d, dk/dv's the wider; 2, 4 or 8 rows a lane at
+# widths up to 64, 128, 256) and the widths apart both ways
+STREAM_DIMS = [(64, 64), (128, 128), (256, 256), (64, 128), (128, 64)]
+
+
 @pytest.mark.parametrize("blocks", [3, 4])
 @pytest.mark.parametrize("G", [1, 2])
-@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("d,dv", STREAM_DIMS)
 @pytest.mark.parametrize("nr", [128, 256, 1024])
-def test_band_stream_matches_plain(dev, nr, d, G, blocks):
+def test_band_stream_matches_plain(dev, nr, d, dv, G, blocks):
     """The streamed l0_causal body (nr past the staged body's 64) against
     the plain version: 3 and 4 blocks, a zero-weight tail that ends
     mid-block, a row whose window starts with a whole dead block (its
     first key tiles are skipped), and rows with no live key at all."""
     B, L = 3, blocks * nr
-    gen = torch.Generator(device=dev).manual_seed(nr + d + G + blocks)
+    gen = torch.Generator(device=dev).manual_seed(nr + dv + G + blocks)
     q = _randn(gen, dev, B, G, L, d) / d ** 0.5
     k = _randn(gen, dev, B, L, d)
     w = torch.ones((B, L), device=dev)
     w[0, L - nr // 2 - 37:] = 0.0              # tail, as a padded prompt
     w[1, :nr] = 0.0                            # a dead first block
     w[2, : nr + 40] = 0.0                      # rows with no live key
-    v = _randn(gen, dev, B, L, d) * w[..., None]
-    assert hb.check_window_fwd("l0_causal", nr, d, d) == "stream"
+    v = _randn(gen, dev, B, L, dv) * w[..., None]
+    assert hb.check_window_fwd("l0_causal", nr, d, dv) == "stream"
     kernels.reset_counts()
     got = hb.band_attention_fwd(q, k, v, w, nr=nr)
     assert hb.band_attention_fwd.mode_launches == {"l0_causal_stream": 1}
@@ -133,32 +139,33 @@ def test_band_stream_plan_matches_launcher(dev):
             4 * hb.stream_fwd_floats(d, dv, nr)
 
 
-def _stream_operands(gen, dev, B, G, L, d, nr):
+def _stream_operands(gen, dev, B, G, L, d, nr, dv=None):
     """Streamed-body operands: a zero-weight tail ending mid-block, a dead
-    first block, rows whose whole window has w = 0."""
+    first block, rows whose whole window has w = 0; v of dv columns (d
+    unless given)."""
     q = _randn(gen, dev, B, G, L, d) / d ** 0.5
     k = _randn(gen, dev, B, L, d)
     w = torch.ones((B, L), device=dev)
     w[0, L - nr // 2 - 37:] = 0.0
     w[1, :nr] = 0.0
     w[2, : nr + 40] = 0.0
-    v = _randn(gen, dev, B, L, d) * w[..., None]
+    v = _randn(gen, dev, B, L, dv or d) * w[..., None]
     return q, k, v, w
 
 
 @pytest.mark.parametrize("G", [1, 2, 4])
-@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("d,dv", STREAM_DIMS)
 @pytest.mark.parametrize("nr", [128, 256, 1024])
-def test_band_stream_bwd_matches_plain(dev, nr, d, G):
+def test_band_stream_bwd_matches_plain(dev, nr, d, dv, G):
     """The streamed l0_causal backward (#3 past the staged body's nr =
     64) from the streamed forward's saved outputs, random cotangents on
     y, dn and m (gm too), at 3 blocks (L not nr * 2**k): within 1e-4 of
     the plain version; rows whose window has no live key give dq = 0 and
     gmn = 0; two calls give identical bits."""
     B, L = 3, 3 * nr
-    gen = torch.Generator(device=dev).manual_seed(nr + d + G)
-    q, k, v, w = _stream_operands(gen, dev, B, G, L, d, nr)
-    assert hb.check_window_bwd("l0_causal", nr, d, d) == "stream"
+    gen = torch.Generator(device=dev).manual_seed(nr + dv + G)
+    q, k, v, w = _stream_operands(gen, dev, B, G, L, d, nr, dv)
+    assert hb.check_window_bwd("l0_causal", nr, d, dv) == "stream"
     out = hb.band_attention_fwd(q, k, v, w, nr=nr)
     args = (q, k, v, w, *out, *_cotangents(gen, dev, out))
     kernels.reset_counts()
@@ -221,6 +228,58 @@ def test_band_stream_bwd_ties_and_bits(dev, G, d, nr, blocks):
                           rtol=1e-5, atol=1e-5)
     blk = top.view(B, G, L, blocks, nr).any(-1).sum(-1)
     assert int((blk >= 2).sum()) > 0
+
+
+# keys of block 1 (offsets from nr + 64, a 32-key tile boundary) that
+# repeat a row's max key: three in one key tile of the dQ pass, four (the
+# tie list's length) across two tiles, seven (past it: the window rescan)
+TIE_PLACES = {"one tile": (0, 3, 17), "two tiles": (30, 31, 32, 34),
+              "past the list": (0, 5, 33, 40, 70, 100, 130)}
+
+
+@pytest.mark.parametrize("place", sorted(TIE_PLACES))
+@pytest.mark.parametrize("G", [1, 2, 4])
+def test_band_stream_bwd_tie_lists(dev, G, place):
+    """The dQ pass's tie lists: exact scores (integer-valued q and k) and
+    copies of one key of +-3 entries at ``TIE_PLACES[place]`` in block 1;
+    rows late in block 1 and early in block 2 aligned with it (their max,
+    tied at every copy).  Those rows count exactly the copies (three in a
+    tile, four across two, seven past the list of hb.STREAM_TIES); each
+    row's gmn * c is its gmh; dq, dk, dv, dw within 1e-4 of the plain
+    version; identical bits twice."""
+    B, nr, d = 2, 256, 64
+    L = 3 * nr
+    gen = torch.Generator(device=dev).manual_seed(25 + G)
+    q = torch.randint(-3, 4, (B, G, L, d), generator=gen,
+                      device=dev).float() * 0.125
+    k = torch.randint(-3, 4, (B, L, d), generator=gen, device=dev).float()
+    kd = 3.0 * (2 * torch.randint(0, 2, (B, d), generator=gen,
+                                  device=dev).float() - 1)
+    copies = [nr + 64 + o for o in TIE_PLACES[place]]
+    k[:, copies] = kd[:, None]
+    rows = [*range(nr + 200, nr + 208), *range(2 * nr + 10, 2 * nr + 18)]
+    q[:, :, rows] = 0.125 * kd[:, None, None]
+    w = torch.rand((B, L), generator=gen, device=dev) + 0.5
+    v = _randn(gen, dev, B, L, d) * w[..., None]
+    out = hb.band_attention_fwd(q, k, v, w, nr=nr)
+    y, dn, m = out
+    cot = _cotangents(gen, dev, out)
+    args = (q, k, v, w, *out, *cot)
+    got = hbb.band_attention_bwd(*args, nr=nr)
+    _close_grads(got, hbb.band_attention_bwd_ref(*args, nr=nr))
+    for a, b in zip(got, hbb.band_attention_bwd(*args, nr=nr)):
+        assert torch.equal(a, b)
+    i = torch.arange(L, device=dev)[:, None]
+    j = torch.arange(L, device=dev)[None, :]
+    allow = (hb.band_mask(i, j, nr, "l0_causal", L)[None, None]
+             & (w > 0)[:, None, None, :])
+    s = torch.einsum("bgid,bjd->bgij", q.double(), k.double())
+    c = ((s == m.double()[..., None]) & allow).sum(-1)
+    assert (c[:, :, rows] == len(copies)).all()
+    gy, gdn, gm = (t.double() for t in cot)
+    gmh = gm - ((gy * y.double()).sum(-1) + gdn * dn.double())
+    assert torch.allclose(got[4].double() * c, torch.where(c > 0, gmh, 0.0),
+                          rtol=1e-5, atol=1e-5)
 
 
 def test_band_stream_bwd_plan_matches_launcher(dev):

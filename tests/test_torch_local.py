@@ -286,3 +286,20 @@ def test_stream_plan_fits_the_card(d, nr):
         with pytest.raises(ValueError):
             thb.check_window_fwd(mode, nr, d, d)
     assert not thb.stream_takes(nr, thb.STREAM_MAX_D + 4, d)
+
+
+@pytest.mark.parametrize("d,dv", [(64, 128), (128, 64)])
+@pytest.mark.parametrize("nr", [128, 256, 512, 1024])
+def test_stream_plan_fits_mixed_widths(d, dv, nr):
+    """Key and value widths apart (y's and dq's register tiles follow dv
+    and d, dK/dV/dW's the wider of the two): the streamed forward's and
+    both backward passes' plans (host mirrors of ``stream_fwd_floats``,
+    ``stream_dq_floats``, ``stream_dkvw_floats``) fit a CTA's 227 KB, and
+    both directions take these l0_causal shapes through the streamed
+    bodies."""
+    assert 4 * thb.stream_fwd_floats(d, dv, nr) <= thb.SMEM_MAX
+    assert 4 * max(thb.stream_dq_floats(d, dv, nr),
+                   thb.stream_dkvw_floats(d, dv)) <= thb.SMEM_MAX
+    assert thb.stream_bwd_takes(nr, d, dv)
+    assert thb.check_window_fwd("l0_causal", nr, d, dv) == "stream"
+    assert thb.check_window_bwd("l0_causal", nr, d, dv) == "stream"

@@ -311,3 +311,57 @@ def test_check_window_bwd_routes(d, nr):
     with pytest.raises(ValueError):
         thb.check_window_bwd("l0_causal", nr, thb.STREAM_MAX_D + 4, d)
     assert thb.check_window_bwd("l0_causal", 16, d, d) == "band"
+
+
+def _forced_ties(seed: int, place: str):
+    """(tie, key0): one dQ query tile's window of seeded integer scores
+    (keys 1024 .. 3135, 64 rows) with the row max forced onto the keys of
+    ``place``: three in one 32-key tile, four across two, seven past the
+    tie list, or ``random`` (scores in 0..5, so most rows tie many times)."""
+    rng = np.random.default_rng(seed)
+    rows, nk, key0 = 64, 2112, 1024
+    if place == "random":
+        s = rng.integers(0, 6, (rows, nk))
+    else:
+        s = rng.integers(-50, 50, (rows, nk))
+        keys = {"one tile": (64, 67, 81), "two tiles": (94, 95, 96, 98),
+                "past the list": (64, 69, 97, 104, 134, 164, 194)}[place]
+        s[:, list(keys)] = 100
+    admit = rng.random((rows, nk)) > 0.1          # w > 0 and the mask
+    m = np.where(admit, s, -1000).max(1)
+    return admit & (s == m[:, None]), key0
+
+
+@pytest.mark.parametrize("place", ["one tile", "two tiles", "past the list",
+                                   "random"])
+def test_stream_tie_lists_count_exactly(place):
+    """The dQ pass's one-sweep tie bookkeeping (host mirror
+    ``stream_tie_lists``: per key tile and lane ballot, each tied lane's
+    place from the row's earlier ties and the tied lanes below it): every
+    row's count is its exact number of ties, its list the first
+    STREAM_TIES tied keys in key order, and a row past the list is one the
+    kernel rescans; the tie term gmn * (sum of the listed or rescanned
+    keys) is the plain version's sum of gmn 1[s == m] k over the window."""
+    tie, key0 = _forced_ties(25, place)
+    counts, lists = thb.stream_tie_lists(tie, key0)
+    exact = tie.sum(1)
+    assert (counts == exact).all()
+    for r in range(tie.shape[0]):
+        tied = (np.flatnonzero(tie[r]) + key0).tolist()
+        assert lists[r] == tied[:thb.STREAM_TIES]
+    over = counts > thb.STREAM_TIES
+    assert over.any() == (place in ("past the list", "random"))
+    if place != "random":
+        assert (counts[tie.any(1)] > 0).all()
+    rng = np.random.default_rng(7)
+    k = rng.standard_normal((key0 + tie.shape[1], 8))
+    gmh = rng.standard_normal(tie.shape[0])
+    for r in range(tie.shape[0]):
+        if counts[r] == 0:
+            continue
+        gmn = gmh[r] / counts[r]
+        keys = lists[r] if counts[r] <= thb.STREAM_TIES else \
+            (np.flatnonzero(tie[r]) + key0).tolist()
+        plain = (gmn * tie[r][:, None] * k[key0:]).sum(0)
+        assert np.allclose(gmn * k[keys].sum(0), plain, rtol=1e-12,
+                           atol=1e-12)
