@@ -38,7 +38,17 @@ Phases (each raises on failure; nothing is caught):
    cache of the same 64 rows), #7's and #8's bounds count the key and
    value rows their band masks let through (#8, timed on the int8 pool:
    int8 rows and their scales; ``bound_all_rows_ms``: every band's
-   rows);
+   rows).  The bf16 instantiations, rows ``<wrapper>[bf16]``, at the
+   decode shapes the bf16 serving phases give them (4 slots, max_len
+   4096, nr 16): #5 and #6 on a bf16 cache at yi-6b's (16 rows = 4
+   slots x 4 kv-heads, G 8, head_dim 128), gemma3-4b's (16 rows, G 2,
+   head_dim 256) and qwen2.5-14b's (32 rows, G 5, head_dim 128), the
+   rest at yi-6b's: #7 and #9 on a bf16
+   pool (two rows inactive on TRASH), #8 on a pool whose level 0 is int8
+   and the rest bf16, #11 and #12 as shard 1's call at d = 2; attends
+   within 1e-5 of their plain versions on the f32 output, updates bit
+   for bit over 3 chained appends (carries in bf16), bounds counting 2
+   bytes a cache element;
 4. serve the paper LM ``h1d-lm-53m`` at full width (seeded random
    weights) with ``ServeEngine(slots=8, max_len=2048)``: 16 requests with
    seeded prompt lengths in 64..1500 and 32 greedy tokens each; every
@@ -144,15 +154,18 @@ Phases (each raises on failure; nothing is caught):
    shapes (4 kv-heads x G 2, nr 1024, d 256, L 4096 and 3072, keys live
    to 3000; and L 1024 at nr 128, d 64), with ``library_ms`` from
    ``scaled_dot_product_attention`` under the same mask; (b)
-   ``gemma3-4b`` at full width and depth in fp32 (34 layers: 29 local
-   at window 1024, 5 global h1d) from seeded weights, ``ServeEngine(
-   slots=4, max_len=4096)`` on 8 greedy requests of 16 tokens with
-   prompt lengths 1100..3968 (seed 0), unbucketed: the streamed #1, #1
-   and #2 (global prefill), #5 and #6 launched, no plain version;
-   tokens/s, prefill ms a call, decode ms a tick, peak memory; every
-   prompt's prefill logits within 1e-3 of the plain path's, and the
-   plain path's tokens wherever the kernel run's top-2 margins exceed
-   1e-3.
+   ``gemma3-4b`` at full width and depth in its published bf16 (34
+   layers: 29 local at window 1024, 5 global h1d) from seeded weights,
+   ``ServeEngine(slots=4, max_len=4096)`` on 8 greedy requests of 16
+   tokens with prompt lengths 1100..3968 (seed 0), unbucketed: the
+   streamed #1, #1 and #2 (global prefill), #5 and #6 on bf16 caches
+   launched, no plain version; tokens/s, prefill ms a call, decode ms a
+   tick, peak memory; then the same requests through an engine on the
+   plain versions, and through the kernels again with the plain run's
+   tokens handed in (teacher forcing, so both decode the same
+   contexts): every step's logits (the prefill's last position, then
+   each decode tick on the bf16 caches) within 3e-2 of the plain row's
+   largest |logit|.
 13. ``gemma train``, after 12: (a) the row
    ``band_attention_bwd[l0_causal_stream]``, #3's streamed backward
    against its plain version at phase 12's row shape (4 x G 2, L 4096,
@@ -160,19 +173,46 @@ Phases (each raises on failure; nothing is caught):
    outputs and seeded random cotangents on y, dn and m, two calls the
    same bits, with ``library_ms`` from the backward of
    ``scaled_dot_product_attention`` under the same mask; (b)
-   ``gemma3-4b`` at full width in fp32 cut to 6 layers (5 local, 1
-   global), ``remat=True`` with policy ``dots`` as published, seeded
-   weights, ``ZipfLM(seed=0)`` 1 x 4096 batches: the ``lm_loss``
-   gradient on the kernel path against the plain path as in 7; the same
-   gradient with ``remat_policy='none'`` within 1e-6 of each leaf's
-   largest |remat gradient|, remat with the lower peak memory; 3 AdamW
-   steps through ``train`` (which draws the weights again from seed 0):
-   every loss finite, each band path launched
-   exactly as often as the step runs it (the rematerialised forwards
-   twice: forward and recompute), no plain version; step ms, tokens/s,
+   ``gemma3-4b`` at full width cut to 6 layers (5 local, 1 global),
+   ``remat=True`` with policy ``dots`` as published, seeded weights,
+   ``ZipfLM(seed=0)`` 1 x 4096 batches: the ``lm_loss`` gradient on the
+   kernel path against the plain path as in 7, on the weights widened
+   to fp32 and the first batch's first sequence (the band kernels run
+   fp32 in either dtype); then in the
+   published bf16 the first
+   batch's loss within 2e-2 of the plain path's, the gradient with
+   ``remat_policy='none'`` within 1e-6 of each leaf's largest |remat
+   gradient|, remat with the lower peak memory, and 3 AdamW steps through
+   ``train`` (which draws the weights again from seed 0): every loss
+   finite, each band path launched exactly as often as the step runs it
+   (the rematerialised forwards twice: forward and recompute), no plain
+   version; step ms, tokens/s, peak memory.
+14. ``dense bf16``, after 13: ``yi-6b`` at full width cut to 16 of its
+   32 layers (G 8, head_dim 128, untied head) and ``qwen2.5-14b`` at
+   full width cut to 8 of its 48 layers (G 5, qkv bias), published
+   bf16, seeded weights drawn layer by layer on the host (their time
+   logged; the cuts keep the draw within the time limit),
+   ``ServeEngine(slots=4, max_len=4096)`` on 8 greedy requests of 16
+   tokens, prompt lengths 1000..3900 (seed 0), bucketed as the engine
+   buckets fine-q prompts: #1, #2, #5 and #6 (bf16) launched, no plain
+   version, every step's logits on the plain run's tokens against the
+   plain run's as in 12; yi-6b's requests also through a paged engine
+   (#7, #9 on bf16 pools) and a 2-way SP engine (#11, #12 on bf16
+   slabs), each on the plain run's tokens and held to its logits the
+   same way; tokens/s, prefill ms, decode ms, peak memory.
+15. ``llama train``, after 14: ``llama3.2-1b`` at full width and depth
+   (16 layers, tied embeddings), published bf16, remat policy ``dots``,
+   ``ZipfLM(seed=0)`` 2 x 4096 batches: the checks of 13 (b) (the fp32
+   gradient against the plain path at G 4, d 64, L 4096 too), then 3
+   AdamW steps (peak 1e-3) whose loss falls; step ms, tokens/s,
    peak memory.
 
-Tolerances.  Attention outputs: |kernel - plain| <= 1e-5 * max(1,
+Tolerances.  In bf16 (phases 12-15): every step's logits, on the same
+tokens, within 3e-2 of the plain row's largest |logit| (both paths
+round every activation to bf16 after f32 attention summed in other
+orders), losses within 2e-2; the
+kernels themselves keep the bounds below on bf16 caches.  Attention
+outputs: |kernel - plain| <= 1e-5 * max(1,
 |plain|): both are fp32 with TF32 off and differ only in summation order
 (~1e-7 relative), but the unnormalised (y, dn) of a coarse level grow
 with 2**l because values and key weights are pairwise sums, so the bound
@@ -202,6 +242,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -250,14 +291,16 @@ def bound(nbytes: float, flops: float):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
-def update_bound(rows: int, nlev: int, d: int, extra: int = 0):
+def update_bound(rows: int, nlev: int, d: int, extra: int = 0,
+                 es: int = 4):
     """#6's (and #9's) bound on ``rows`` rows of ``nlev`` levels, k and v
-    ``d`` wide: each row reads its new k and v and its t, writes one row
-    of every level and reads the sibling of every level but the last
-    (whose carry nothing takes), where the pair's mean and sum are taken;
-    ``extra`` bytes beside (#9's page table)."""
-    nbytes = extra + 4 * (2 * rows * d + rows + rows * (
-        2 * nlev + 2 * (nlev - 1)) * d)
+    ``d`` wide: each row reads its new k and v (f32) and its t, writes one
+    row of every level and reads the sibling of every level but the last
+    (whose carry nothing takes), where the pair's mean and sum are taken,
+    ``es`` bytes a cache element (2 for bf16); ``extra`` bytes beside
+    (#9's page table)."""
+    nbytes = extra + 4 * (2 * rows * d + rows) + es * rows * (
+        2 * nlev + 2 * (nlev - 1)) * d
     return bound(nbytes, rows * (nlev - 1) * 2 * d)
 
 
@@ -1006,12 +1049,15 @@ def phase_bwd_kernels(dev):
 
 def path_counts():
     """Launches since the last ``reset_counts``, keyed as the kernel
-    rows are: by wrapper, and for #1 and #3 also by
-    ``name[mode]``."""
+    rows are: by wrapper, and for #1 and #3 also by ``name[mode]``; a
+    decode kernel's launches on bf16 caches under ``name[bf16]``, the
+    rest (f32) under ``name``."""
     from repro_torch import kernels
     out = {n: k.launches for n, (k, _) in kernels.KERNELS.items()}
     for (n, mode), c in kernels.mode_launches().items():
         out[f"{n}[{mode}]"] = c
+        if mode == "bf16":      # the row named n is the f32 instantiation
+            out[n] -= c
     return out
 
 
@@ -1517,6 +1563,221 @@ def phase_sp_kernels(dev):
              f"SP launch of #6"))
     log(f"update_cache_fused[sp_deep]: bit-exact over 3 chained updates "
         f"({ndeep} level)")
+    return rows
+
+
+# bf16 decode rows at the serving shapes of phases 12 and 14 (4 slots,
+# max_len 4096, nr 16): (config, rows = 4 slots x kv-heads, G, head_dim).
+# The first, yi-6b's, heads the #5 and #6 rows; the paged, mixed-pool and
+# SP rows run at it
+BF16_DECODE = (("yi-6b", 16, 8, 128), ("gemma3-4b", 16, 2, 256),
+               ("qwen2.5-14b", 32, 5, 128))
+BF16_LMAX = 4096
+
+
+def phase_bf16_kernels(dev):
+    """#5 and #6 on bf16 caches against their plain versions at every
+    shape of ``BF16_DECODE``, and #7, #9, #11, #12 (and #8 on a pool whose
+    level 0 is int8, the rest bf16) at yi-6b's: attends within ATTN_TOL
+    on the f32 output, updates bit for bit over 3 chained appends (paged
+    ones outside TRASH); #11 and #12 as shard 1's call at d = 2.  Bounds
+    count 2 bytes a cache element.  Rows are named ``<wrapper>[bf16]``
+    (#5's and #6's list every shape under ``shapes``, the first at the
+    top); their launches are the wrappers' bf16 launches."""
+    from repro_torch.core import h1d_decode as hd
+    from repro_torch.core import hierarchy as hc
+    from repro_torch.kernels import h1d_decode_kernel as dk
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import sp_attention as sp
+
+    bf = torch.bfloat16
+    Lb = BF16_LMAX
+    gen = torch.Generator(device=dev).manual_seed(26)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    src = "src/repro_torch/kernels/csrc/h1d_decode.cu"
+    rows = []
+
+    def measured(kernel, plain, err, bms_by, **extra):
+        bms, by = bms_by
+        return dict(max_abs_err=err, ms=time_ms(kernel),
+                    device_ms=device_ms(kernel), plain_ms=time_ms(plain),
+                    bound_ms=bms, bound_by=by, **extra)
+
+    def row(name, replaces, note, numbers, **extra):
+        rows.append(dict(
+            name=f"{name}[bf16]", route="cuda", source=src,
+            replaces=f"src/repro/kernels/h1d_decode_kernel.py:{replaces}",
+            library_ms=None, note=note, **numbers, **extra))
+        log(f"{name}[bf16]: max abs err {numbers['max_abs_err']:.3g}; "
+            f"{note}")
+
+    def clone(c):
+        return type(c)(*[tuple(a.clone() for a in x) if isinstance(x, tuple)
+                         else x.clone() for x in c])
+
+    M = hc.num_levels(Lb, NR)
+    attends, updates = [], []
+    for arch, Rb, Gb, Db in BF16_DECODE:
+        cache = hd.prefill_cache(randn(Rb, Lb, Db).to(bf),
+                                 randn(Rb, Lb, Db).to(bf), Lb, NR)
+        q = randn(Rb, Gb, Db).to(bf).float()
+        t = torch.randint(1000, Lb - 16, (Rb,), generator=gen, device=dev,
+                          dtype=torch.int32)
+        t[:4] = torch.tensor([0, NR - 1, NR, Lb - 1], dtype=torch.int32)
+        small = 4 * (q.numel() + Rb + Rb * Gb * Db)
+        keys = partial_keys(t, None, M)
+        err, *_ = compare(f"decode_attend_fused[bf16] {arch}",
+                          [dk.decode_attend_fused(cache, q, t, nr=NR)],
+                          [dk.decode_attend_ref(cache, q, t, nr=NR)],
+                          ATTN_TOL)
+        attends.append(measured(
+            lambda: dk.decode_attend_fused(cache, q, t, nr=NR),
+            lambda: dk.decode_attend_ref(cache, q, t, nr=NR), err,
+            bound(keys * 2 * Db * 2 + small, keys * Gb * (4 * Db + 4)),
+            arch=arch, R=Rb, G=Gb, D=Db, live_keys=keys))
+        kn, vn = randn(Rb, Db).to(bf), randn(Rb, Db).to(bf)
+        a, b = clone(cache), clone(cache)
+        for step in range(3):
+            tt = (t + step).clamp(max=Lb - 1)
+            dk.update_cache_fused(a, kn, vn * (step + 1), tt)
+            dk.update_cache_ref(b, kn, vn * (step + 1), tt)
+        if not all(torch.equal(x, y) for x, y in zip(pool_arrays(a),
+                                                      pool_arrays(b))):
+            raise AssertionError(f"update_cache_fused[bf16] {arch}: not "
+                                 f"bit-exact")
+        updates.append(measured(
+            lambda: dk.update_cache_fused(a, kn, vn, t),
+            lambda: dk.update_cache_ref(b, kn, vn, t), 0.0,
+            update_bound(Rb, M, Db, es=2), arch=arch, R=Rb, G=Gb, D=Db))
+        log(f"{arch} R {Rb}, G {Gb}, D {Db}: decode_attend_fused[bf16] "
+            f"within {err:.3g}, update_cache_fused[bf16] bit-exact")
+        if len(attends) == 1:
+            head = (Rb, Gb, Db, cache, q, t, kn, vn, small, keys)
+        del a, b
+    Rb, Gb, Db, cache, q, t, kn, vn, small, keys = head
+    where = ", ".join(f"{e['arch']} (R {e['R']}, G {e['G']}, D {e['D']})"
+                      for e in attends)
+    row("decode_attend_fused", 154,
+        f"Lmax {Lb} at {where}; top: {attends[0]['arch']}, "
+        f"{keys} band keys unmasked", attends[0], shapes=attends)
+    row("update_cache_fused", 362,
+        f"{M} levels at {where}; bit-exact over 3 chained updates; top: "
+        f"{updates[0]['arch']}", updates[0], shapes=updates)
+
+    # paged: a pool of 4 slots' pages (Lb / NR fine pages a slot, fewer
+    # a coarse level) x 4 kv-heads + ZERO/TRASH, rows 14 and 15 inactive
+    hkv = Rb // 4
+    npages = [(4 * max((Lb >> l) // NR, 1) + 2) * hkv for l in range(M)]
+
+    def pool(int8_level0):
+        ks = [randn(n, NR, Db) for n in npages]
+        vs = [randn(n, NR, Db) * 2 ** l for l, n in enumerate(npages)]
+        if not int8_level0:
+            return hd.PagedH1DCache(ks[0].to(bf), vs[0].to(bf),
+                                    tuple(x.to(bf) for x in ks[1:]),
+                                    tuple(x.to(bf) for x in vs[1:]))
+        from repro_torch.core import quantization as qz
+        qk, sk = qz.quantize_int8(ks[0], axis=-1)
+        qv, sv = qz.quantize_int8(vs[0], axis=-1)
+        ones = [torch.ones((n, NR), device=dev) for n in npages[1:]]
+        return hd.QuantPagedH1DCache(
+            qk, qv, tuple(x.to(bf) for x in ks[1:]),
+            tuple(x.to(bf) for x in vs[1:]), sk[..., 0].contiguous(),
+            sv[..., 0].contiguous(), tuple(ones), tuple(o.clone()
+                                                        for o in ones))
+    bfp, mixed = pool(False), pool(True)
+    trash = TRASH * hkv
+    bidx = torch.stack([torch.randint(2 * hkv, n, (Rb,), generator=gen,
+                                      device=dev)
+                        for n in [npages[0]] + npages], 1).to(torch.int32)
+    utab = torch.stack([torch.randperm(n - 2 * hkv, generator=gen,
+                                       device=dev)[:Rb] + 2 * hkv
+                        for n in npages], 1).to(torch.int32)
+    bidx[Rb - 2:] = trash
+    utab[Rb - 2:] = trash
+    for name, kern, plain, pl, replaces in (
+            ("decode_attend_paged", dk.decode_attend_paged,
+             dk.decode_attend_paged_ref, bfp, 426),
+            ("decode_attend_paged_quant", dk.decode_attend_paged_quant,
+             dk.decode_attend_paged_quant_ref, mixed, 482)):
+        err, *_ = compare(f"{name}[bf16]", [kern(pl, q, t, bidx, nr=NR)],
+                          [plain(pl, q, t, bidx, nr=NR)], ATTN_TOL)
+        # a bf16 key and value row a key; in the mixed pool level 0's two
+        # bands int8 rows (D bytes) and their 4-byte scales
+        k8 = 0
+        if pl is mixed:
+            lvl0 = torch.zeros((Rb, M + 1), dtype=torch.int32, device=dev)
+            lvl0[:, :2] = 1
+            k8 = partial_keys(t, lvl0, M)
+        nbytes = k8 * 2 * (Db + 4) + (keys - k8) * 2 * 2 * Db
+        row(name, replaces,
+            "level 0 int8, levels 1.. bf16 (no path serves it: #10 takes "
+            "no bf16 level)" if k8 else "bf16 pool",
+            measured(lambda: kern(pl, q, t, bidx, nr=NR),
+                     lambda: plain(pl, q, t, bidx, nr=NR), err,
+                     bound(nbytes + small + 4 * bidx.numel(),
+                           keys * Gb * (4 * Db + 4)), live_keys=keys))
+    a, b = clone(bfp), clone(bfp)
+    for step in range(3):
+        tt = (t + step).clamp(max=Lb - 1)
+        dk.update_cache_paged(a, kn, vn * (step + 1), tt, utab)
+        dk.update_cache_paged_ref(b, kn, vn * (step + 1), tt, utab)
+    for x, y in zip(pool_arrays(a), pool_arrays(b)):
+        keep = torch.ones(x.shape[0], dtype=torch.bool, device=dev)
+        keep[trash:trash + hkv] = False
+        if not torch.equal(x[keep], y[keep]):
+            raise AssertionError("update_cache_paged[bf16] is not bit-exact "
+                                 "outside TRASH")
+    row("update_cache_paged", 567,
+        f"{M} levels; bit-exact outside TRASH over 3 chained updates",
+        measured(lambda: dk.update_cache_paged(a, kn, vn, t, utab),
+                 lambda: dk.update_cache_paged_ref(b, kn, vn, t, utab), 0.0,
+                 update_bound(Rb, M, Db, extra=4 * utab.numel(), es=2)))
+
+    # SP at d = 2: shard 1's calls
+    d = 2
+    mesh = make_mesh((d,), ("data",), device=dev)
+    sc = sp.shard_cache(cache, mesh, NR)
+    tabs = sp.sp_tables(t.cpu().numpy(), nr=NR, Lmax=Lb, d=d, device=dev)
+    nsh = sp.sp_sharded_levels(Lb, NR, d)
+    sh = sc.shards[1]
+    args = (sh, q, t, tabs.bidx[1], tabs.owned[1])
+    err, *_ = compare("decode_attend_partial[bf16]",
+                      dk.decode_attend_partial(*args, nr=NR),
+                      dk.decode_attend_partial_ref(*args, nr=NR), ATTN_TOL)
+    pkeys = partial_keys(t, tabs.owned[1], 1 + len(sh.ck))
+    row("decode_attend_partial", 267,
+        f"shard 1's call at d = {d}: {pkeys} band keys owned and unmasked",
+        measured(lambda: dk.decode_attend_partial(*args, nr=NR),
+                 lambda: dk.decode_attend_partial_ref(*args, nr=NR), err,
+                 bound(pkeys * 2 * Db * 2 + small
+                       + 4 * Rb * (2 + 2 * (M + 1)),
+                       pkeys * Gb * (4 * Db + 4))))
+
+    def slab(c):
+        return hd.H1DCache(c.k.clone(), c.v.clone(),
+                           tuple(x.clone() for x in c.ck[:nsh - 1]),
+                           tuple(x.clone() for x in c.cv[:nsh - 1]))
+    a, b = slab(sh), slab(sh)
+    upd = (kn, vn, tabs.t_loc[1], tabs.upd_owned[1])
+    _, ak, av = dk.update_cache_partial(a, *upd)
+    _, bk, bv = dk.update_cache_partial_ref(b, *upd)
+    if not all(torch.equal(x, y) for x, y in zip(
+            (*pool_arrays(a), ak, av), (*pool_arrays(b), bk, bv))):
+        raise AssertionError("update_cache_partial[bf16] is not bit-exact")
+    own = int(tabs.upd_owned[1].sum())
+    row("update_cache_partial", 807,
+        f"shard 1's call at d = {d}: {nsh} sharded levels, {own} of {Rb} "
+        f"rows its own; carries in bf16",
+        measured(lambda: dk.update_cache_partial(a, *upd),
+                 lambda: dk.update_cache_partial_ref(b, *upd), 0.0,
+                 bound(4 * (2 * own * Db + 2 * Rb)
+                       + 2 * (own * nsh * 2 * 2 * Db
+                              + (Rb - own) * 2 * 2 * Db + 2 * Rb * Db),
+                       (own * nsh + Rb - own) * 2 * Db)))
     return rows
 
 
@@ -2280,6 +2541,11 @@ def phase_sample_serve(cfg, params, fns, reqs, dense_stats, dev):
 # ---------------------------------------------------------------------------
 
 GEMMA_SLOTS, GEMMA_MAX_LEN, GEMMA_NEW, GEMMA_REQUESTS = 4, 4096, 16, 8
+# bf16 serving: every step's logits within 3e-2 of the plain row's
+# largest magnitude, on the same tokens (both paths round every
+# activation to bf16, after f32 attention summed in other orders); bf16
+# training: losses within 2e-2 of the plain path's
+BF16_LOGIT_TOL, BF16_LOSS_TOL = 3e-2, 2e-2
 GEMMA_PROMPTS = (1100, 3968)          # prompt lengths, drawn with seed 0
 # (B, G, L, nr, d, keys with w > 0): gemma's local layers (one prompt's
 # 4 kv-heads, 2 q heads each, window 1024, head_dim 256) at 4 and 3
@@ -2391,84 +2657,148 @@ def phase_stream_kernel(dev):
              "(normalised z), timed here only")
 
 
-def phase_gemma(dev):
-    """12. ``gemma3-4b`` at full width and depth in fp32 (34 layers, 29
-    local at window 1024 and 5 global h1d, seeded random weights):
-    ``ServeEngine(slots=4, max_len=4096)`` on 8 greedy requests of 16
-    tokens, prompt lengths 1100..3968 (seed 0).  The streamed #1 (local
-    layers), #1 and #2 (global prefill), #5 and #6 (global decode) must
-    launch and no plain version run; each prompt's prefill logits at its
-    last token against the plain path within 1e-3; the same requests on
-    the plain path give the same tokens wherever the kernel run's top-2
-    margins exceed 1e-3.  Returns the serving run's launches."""
-    from repro_torch.configs import get_config
-    from repro_torch.models import get_model
-    from repro_torch.serve import Request, ServeEngine
-
-    t0 = time.perf_counter()
-    cfg = dataclasses.replace(get_config("gemma3-4b"), dtype="float32")
-    fns = get_model(cfg)
-    params = fns.init(cfg, seed=0, device=dev)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+def bf16_prompts(vocab: int, lo: int, hi: int, n: int):
+    """``n`` seeded (seed 0) prompts of lengths in [lo, hi]."""
     rng = np.random.default_rng(0)
-    lens = rng.integers(GEMMA_PROMPTS[0], GEMMA_PROMPTS[1] + 1,
-                        size=GEMMA_REQUESTS)
-    work = [(i, rng.integers(0, cfg.vocab_size, size=int(n)).astype(
-        np.int32)) for i, n in enumerate(lens)]
-    margins = {}
-    eng = margins_of(ServeEngine(cfg, params, slots=GEMMA_SLOTS,
-                                 max_len=GEMMA_MAX_LEN), margins)
-    if eng._bucket_len(GEMMA_PROMPTS[0]) != GEMMA_PROMPTS[0]:
-        raise AssertionError("gemma engine buckets its prompts")
-    torch.cuda.reset_peak_memory_stats()
-    outs, stats, counts = run_engine(eng, work, fns, new_tokens=GEMMA_NEW)
-    stats.update(weights_s=init_s, prompt_lens=[int(n) for n in lens],
-                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
-    need = ("band_attention_fwd[l0_causal_stream]",
-            "band_attention_fwd[l0_causal]", "band_attention_sub_fwd",
-            "decode_attend_fused", "update_cache_fused")
-    missing = [k for k in need if not counts.get(k)]
-    if missing:
-        raise AssertionError(f"gemma: {missing} not launched: {counts}")
-    del eng
-    log(f"gemma serve: {json.dumps(stats)}")
+    lens = rng.integers(lo, hi + 1, size=n)
+    return [(i, rng.integers(0, vocab, size=int(m)).astype(np.int32))
+            for i, m in enumerate(lens)]
 
-    worst = 0.0
-    for uid, prompt in work:
-        tok = torch.as_tensor(prompt[None], dtype=torch.long, device=dev)
-        lk, _, _ = fns.prefill(params, cfg, {"tokens": tok}, GEMMA_MAX_LEN)
-        with plain_kernels():
-            lp, _, _ = fns.prefill(params, cfg, {"tokens": tok},
-                                   GEMMA_MAX_LEN)
-        if not torch.isfinite(lk).all() or lk.shape != (1, cfg.vocab_size):
-            raise AssertionError(f"gemma request {uid}: bad logits")
-        e = float((lk - lp).abs().max())
-        worst = max(worst, e)
-        if e > LOGIT_TOL:
-            raise AssertionError(f"gemma request {uid}: prefill logits "
-                                 f"differ by {e:.3g} > {LOGIT_TOL}")
-    eng = ServeEngine(cfg, params, slots=GEMMA_SLOTS, max_len=GEMMA_MAX_LEN)
-    rs = [Request(uid=u, prompt=p, max_new_tokens=GEMMA_NEW)
+
+def teacher_forced(eng, logits, tokens=None):
+    """Record every logits row ``eng`` takes a token from (fp32, one row
+    a step: the prefill's last position, then each decode tick's) under
+    its request's uid in ``logits``; with ``tokens`` (lists by uid), make
+    the engine take ``tokens[uid][i]`` as the request's i-th token in
+    place of its own argmax, so that engines handed the same tokens
+    decode the same contexts."""
+    sample = eng._sample
+
+    def forced(z, rows, reqs, tick):
+        out = sample(z, rows, reqs, tick)
+        for i, r in enumerate(reqs):
+            if r is not None:
+                seen = logits.setdefault(r.uid, [])
+                if tokens is not None:
+                    out[i] = tokens[r.uid][len(seen)]
+                seen.append(z[i].float().clone())
+        return out
+    eng._sample = forced
+    return eng
+
+
+def plain_engine_run(cfg, params, work, slots, max_len, new_tokens,
+                     **engine_kw):
+    """The requests ``work`` through an engine on the plain versions,
+    greedy: (tokens by uid, every step's logits by uid)."""
+    from repro_torch.serve import Request, ServeEngine
+    logits = {}
+    eng = teacher_forced(ServeEngine(cfg, params, slots=slots,
+                                     max_len=max_len, **engine_kw), logits)
+    rs = [Request(uid=u, prompt=p, max_new_tokens=new_tokens)
           for u, p in work]
     for r in rs:
         eng.submit(r)
     with plain_kernels():
         eng.run()
-    plain = {r.uid: list(r.out_tokens) for r in rs}
-    guarded = [u for u, g in margins.items() if min(g) > LOGIT_TOL]
-    bad = [u for u in guarded if outs[u] != plain[u]]
-    if bad:
-        raise AssertionError(f"gemma: requests {bad} differ from the plain "
-                             f"path's tokens")
-    same = sum(x == y for u in outs for x, y in zip(outs[u], plain[u]))
-    log(f"gemma: prefill logits kernel vs plain max abs diff {worst:.3g} "
-        f"(<= {LOGIT_TOL}); {len(guarded)} of {len(work)} requests "
-        f"guarded (top-2 margins > {LOGIT_TOL}) and equal to the plain "
-        f"path ({same} of {GEMMA_NEW * len(work)} tokens equal in all); "
-        f"phase 12 took {time.perf_counter() - t0:.1f}s, weights "
-        f"{init_s:.1f}s")
-    del eng, params
+    return {r.uid: list(r.out_tokens) for r in rs}, logits
+
+
+def logits_vs_plain(label, got, want):
+    """Every step's logits of every request, kernel path (``got``, taken
+    by :func:`teacher_forced` on the plain run's tokens, so the contexts
+    are the plain run's) against the plain run's (``want``): finite, of
+    the plain rows' width, within BF16_LOGIT_TOL of the plain row's
+    largest |logit|.  Step 0 is the prefill's last position, the others
+    decode ticks on the caches.  Returns (worst scaled error at step 0,
+    worst at the decode steps, steps compared, steps whose argmax is the
+    plain run's token)."""
+    worst, n, same = [0.0, 0.0], 0, 0
+    for u, ref in want.items():
+        if len(got.get(u, ())) != len(ref):
+            raise AssertionError(f"{label}: request {u} took "
+                                 f"{len(got.get(u, ()))} steps, the plain "
+                                 f"run {len(ref)}")
+        for i, (a, b) in enumerate(zip(got[u], ref)):
+            if a.shape != b.shape or not torch.isfinite(a).all():
+                raise AssertionError(f"{label}: request {u} step {i}: bad "
+                                     f"logits")
+            e = float((a - b).abs().max() / b.abs().max())
+            if e > BF16_LOGIT_TOL:
+                raise AssertionError(f"{label}: request {u} step {i}: "
+                                     f"logits differ by {e:.3g} of max "
+                                     f"|plain| > {BF16_LOGIT_TOL}")
+            worst[i > 0] = max(worst[i > 0], e)
+            n += 1
+            same += int(a.argmax() == b.argmax())
+    return worst[0], worst[1], n, same
+
+
+def forced_run(label, eng, work, fns, tokens, plain_logits):
+    """``run_engine`` of ``eng`` on ``work`` with every request handed
+    the plain run's ``tokens`` (:func:`teacher_forced`), its logits held
+    to the plain run's at every step (:func:`logits_vs_plain`).  Returns
+    (stats, launches)."""
+    logits = {}
+    teacher_forced(eng, logits, tokens)
+    _, stats, counts = run_engine(eng, work, fns, new_tokens=GEMMA_NEW)
+    pre, dec, n, same = logits_vs_plain(label, logits, plain_logits)
+    log(f"{label}: logits with the plain run's tokens within {pre:.3g} "
+        f"(prefill) and {dec:.3g} (decode) of max |plain| (<= "
+        f"{BF16_LOGIT_TOL}) at all {n} steps; argmax the plain token at "
+        f"{same}")
+    return stats, counts
+
+
+def phase_gemma(dev):
+    """12. ``gemma3-4b`` at full width and depth in its published bf16
+    (34 layers: 29 local at window 1024, 5 global h1d; seeded random
+    weights): ``ServeEngine(slots=4, max_len=4096)`` on 8 greedy requests
+    of 16 tokens, prompt lengths 1100..3968 (seed 0).  The streamed #1
+    (local layers), #1 and #2 (global prefill), #5 and #6 on bf16 caches
+    (global decode) must launch and no plain version run; then the same
+    requests on the plain versions, and again on the kernels with the
+    plain run's tokens, every step's logits held to the plain run's
+    (``forced_run``).  Returns the serving run's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.serve import ServeEngine
+
+    t0 = time.perf_counter()
+    cfg = get_config("gemma3-4b")
+    if cfg.dtype != "bfloat16":
+        raise AssertionError("gemma3-4b is published in bfloat16")
+    fns = get_model(cfg)
+    params = fns.init(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    work = bf16_prompts(cfg.vocab_size, *GEMMA_PROMPTS, GEMMA_REQUESTS)
+    eng = ServeEngine(cfg, params, slots=GEMMA_SLOTS, max_len=GEMMA_MAX_LEN)
+    if eng._bucket_len(GEMMA_PROMPTS[0]) != GEMMA_PROMPTS[0]:
+        raise AssertionError("gemma engine buckets its prompts")
+    torch.cuda.reset_peak_memory_stats()
+    outs, stats, counts = run_engine(eng, work, fns, new_tokens=GEMMA_NEW)
+    stats.update(dtype=cfg.dtype, weights_s=init_s,
+                 prompt_lens=[len(p) for _, p in work],
+                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    need = ("band_attention_fwd[l0_causal_stream]",
+            "band_attention_fwd[l0_causal]", "band_attention_sub_fwd",
+            "decode_attend_fused[bf16]", "update_cache_fused[bf16]")
+    missing = [k for k in need if not counts.get(k)]
+    if missing:
+        raise AssertionError(f"gemma: {missing} not launched: {counts}")
+    del eng
+    log(f"gemma serve: {json.dumps(stats)}")
+    plain, plain_logits = plain_engine_run(cfg, params, work, GEMMA_SLOTS,
+                                           GEMMA_MAX_LEN, GEMMA_NEW)
+    same = sum(x == y for u in plain for x, y in zip(outs[u], plain[u]))
+    forced_run("gemma", ServeEngine(cfg, params, slots=GEMMA_SLOTS,
+                                    max_len=GEMMA_MAX_LEN),
+               work, fns, plain, plain_logits)
+    log(f"gemma: {same} of {GEMMA_NEW * len(work)} greedy tokens equal to "
+        f"the plain run's; phase 12 took {time.perf_counter() - t0:.1f}s, "
+        f"weights {init_s:.1f}s")
+    del params
     torch.cuda.empty_cache()
     return counts
 
@@ -2559,56 +2889,74 @@ def phase_stream_bwd_kernel(dev):
     return row
 
 
-def gemma_train_expected(cfg, steps: int):
-    """The launches of ``steps`` rematerialised training steps: every
-    band forward of a layer twice (the forward, then the recompute in
-    the backward), its backward once; the local layers on the streamed
-    bodies, the global ones on #1 ``l0_causal`` and #2 at every sub
-    level, #3 and #4 in the backward."""
+def train_expected(cfg, steps: int, seq: int):
+    """The launches of ``steps`` rematerialised training steps at sequence
+    length ``seq``: every band forward of a layer twice (the forward,
+    then the recompute in the backward), its backward once; local layers
+    on the streamed bodies, global ones on #1 ``l0_causal`` and #2 at
+    every sub level, #3 and #4 in the backward."""
     from repro_torch.core import hierarchy as hc
     local = sum(not cfg.layer_uses_global_attn(i)
                 for i in range(cfg.num_layers))
     glob = cfg.num_layers - local
-    subs = hc.num_levels(hc.padded_length(GEMMA_TRAIN_SEQ, cfg.nr),
-                         cfg.nr) - 1
+    subs = hc.num_levels(hc.padded_length(seq, cfg.nr), cfg.nr) - 1
     per_step = {"band_attention_fwd[l0_causal_stream]": 2 * local,
                 "band_attention_bwd[l0_causal_stream]": local,
                 "band_attention_fwd[l0_causal]": 2 * glob,
                 "band_attention_bwd[l0_causal]": glob,
                 "band_attention_sub_fwd": 2 * glob * subs,
                 "band_attention_sub_bwd": glob * subs}
-    return {k_: n * steps for k_, n in per_step.items()}
+    return {k_: n * steps for k_, n in per_step.items() if n}
 
 
-def phase_gemma_train(dev):
-    """13 (b). ``gemma3-4b`` at full width in fp32, cut to 6 layers, with
-    remat (policy ``dots``): its gradient against the plain path and
-    against ``remat_policy='none'``, then 3 AdamW steps through
-    ``train``.  Returns the training run's launches."""
+def bf16_training(label, cfg, batch_size, seq, steps, tc_kw, falls, dev):
+    """A bf16 configuration with remat (policy ``dots``) from seed-0
+    weights (one ``init_state``, drawn once) on ``ZipfLM(seed=0)``
+    batches of ``batch_size`` x ``seq``: (a) the first batch's loss on
+    the kernel path within BF16_LOSS_TOL of the plain path's; (b) the
+    gradient with ``remat_policy='none'`` within REMAT_TOL of each leaf's
+    largest |remat gradient| (the same kernels on the same inputs), remat
+    with the lower peak; then the ``lm_loss`` gradient of the weights
+    widened to fp32 on the first batch's first sequence, kernel path
+    against plain path as in 7 (the band kernels run fp32 in either
+    dtype, and fp32 holds them, forward and backward, to GRAD_TOL); (c)
+    ``steps`` AdamW steps through ``train`` from that
+    state (handed over, so no other reference keeps it): every loss
+    finite, the first the kernel loss of (a), the last below the first
+    where ``falls``; each band path launched exactly as often as the
+    steps run it, no plain version.  Returns (launches, stats)."""
     import tempfile
-    from repro_torch.configs import get_config
     from repro_torch.data import ZipfLM
     from repro_torch.models import get_model
     from repro_torch.train import (TrainConfig, batch_to_device,
-                                   tokens_per_s, train)
+                                   init_state, tokens_per_s, train)
     from repro_torch.tree import (tree_flatten_with_paths, tree_leaves,
-                                  tree_unflatten_like)
+                                  tree_map, tree_unflatten_like)
 
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(get_config("gemma3-4b"), dtype="float32",
-                              num_layers=GEMMA_TRAIN_LAYERS)
-    if not (cfg.remat and cfg.remat_policy == "dots"):
-        raise AssertionError("gemma3-4b trains with remat, policy dots")
+    if not (cfg.dtype == "bfloat16" and cfg.remat
+            and cfg.remat_policy == "dots"):
+        raise AssertionError(f"{label}: trains in bf16 with remat, dots")
     fns = get_model(cfg)
-    params = fns.init(cfg, seed=0, device=dev)
+    tmp = tempfile.TemporaryDirectory()
+    tc = TrainConfig(ckpt_every=0, ckpt_dir=tmp.name, log_every=1, seed=0,
+                     **tc_kw)
+    box = [init_state(cfg, tc, seed=0, device=dev)]
+    params = box[0].params
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    data = ZipfLM(vocab_size=cfg.vocab_size, seq_len=GEMMA_TRAIN_SEQ,
-                  batch_per_host=GEMMA_TRAIN_BATCH, seed=0)
+    data = ZipfLM(vocab_size=cfg.vocab_size, seq_len=seq,
+                  batch_per_host=batch_size, seed=0)
     batch = batch_to_device(data.batch(0), dev)
-    # (a) the kernel path against the plain path
-    grads_against_plain("gemma train", params,
-                        lambda p: fns.loss(p, cfg, batch)[0])
+
+    # (a) the first batch's loss, kernel path against plain path
+    with torch.no_grad():
+        loss_k = float(fns.loss(params, cfg, batch)[0])
+        with plain_kernels():
+            loss_p = float(fns.loss(params, cfg, batch)[0])
+    if not abs(loss_k - loss_p) <= BF16_LOSS_TOL:
+        raise AssertionError(f"{label}: loss {loss_k} on the kernels, "
+                             f"{loss_p} on the plain path")
 
     # (b) remat against keeping every activation, with each one's peak
     def grads(c):
@@ -2623,46 +2971,60 @@ def phase_gemma_train(dev):
         return g, (torch.cuda.max_memory_allocated() - start) / 2 ** 30
     g_remat, peak_remat = grads(cfg)
     g_none, peak_none = grads(dataclasses.replace(cfg, remat_policy="none"))
-    worst = 0.0
+    worst, equal = 0.0, 0
     for (path, _), a, b in zip(tree_flatten_with_paths(params), g_none,
                                g_remat):
-        _, e, _ = compare(f"gemma remat grad {path}", [a], [b], REMAT_TOL,
+        _, e, _ = compare(f"{label} remat grad {path}", [a], [b], REMAT_TOL,
                           ("tensor",))
         worst = max(worst, e)
-    del g_remat, g_none
+        equal += int(torch.equal(a, b))
+    nleaves = len(g_remat)
+    del g_remat, g_none, params
     if not peak_remat < peak_none:
-        raise AssertionError(f"gemma: remat peaks at {peak_remat:.2f} GiB "
+        raise AssertionError(f"{label}: remat peaks at {peak_remat:.2f} GiB "
                              f"above the weights, no lower than "
                              f"{peak_none:.2f} without it")
-    log(f"gemma remat: gradient with remat_policy='none' within "
-        f"{worst:.3g} (<= {REMAT_TOL:g}) of each leaf's largest |remat "
-        f"gradient|; peak above the weights {peak_remat:.2f} GiB with "
-        f"remat (dots), {peak_none:.2f} GiB without")
+    log(f"{label}: first-batch loss {loss_k:.6f} on the kernels, "
+        f"{loss_p:.6f} plain (<= {BF16_LOSS_TOL}); gradient with "
+        f"remat_policy='none' within {worst:.3g} (<= {REMAT_TOL:g}) of each "
+        f"leaf's largest |remat gradient|, {equal} of {nleaves} leaves bit "
+        f"for bit; peak above the weights {peak_remat:.2f} GiB with remat "
+        f"(dots), {peak_none:.2f} GiB without")
 
-    # (c) 3 AdamW steps through train(), which draws the same weights
-    # (seed 0) itself: a state handed in would stay referenced by this
-    # frame, its weights and moments counted in the peak beside the
-    # step's
-    del params
+    # the fp32 gradient, kernel path against plain path
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    wide = tree_map(lambda p: p.float(), box[0].params)
+    first = {k_: v[:1] for k_, v in batch.items()}
+    grads_against_plain(f"{label} (fp32)", wide,
+                        lambda p: fns.loss(p, f32, first)[0])
+    del wide, first
+
+    # (c) AdamW steps through train(), after the checks' leftovers are
+    # collected (with the fp32 check before (b), (b) ran out of memory)
+    gc.collect()
     torch.cuda.empty_cache()
     counts = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        tc = TrainConfig(peak_lr=3e-4, warmup=5, ckpt_every=0, ckpt_dir=tmp,
-                         log_every=1, seed=0)
-        with counted(counts):
-            state, metrics = train(cfg, tc, data, GEMMA_TRAIN_STEPS,
-                                   device=dev, log=log)
+    with tmp, counted(counts):
+        state, metrics = train(cfg, tc, data, steps, state=box.pop(),
+                               device=dev, log=log)
+    dtypes = {str(p.dtype) for p in tree_leaves(state.params)}
     del state
-    need_counts("gemma train", counts,
-                gemma_train_expected(cfg, GEMMA_TRAIN_STEPS))
+    need_counts(label, counts, train_expected(cfg, steps, seq))
     hist = metrics["history"]
     losses = [h["loss"] for h in hist]
     if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"gemma train: non-finite loss: {losses}")
-    tokens = GEMMA_TRAIN_BATCH * GEMMA_TRAIN_SEQ
-    stats = dict(layers=cfg.num_layers, batch=GEMMA_TRAIN_BATCH,
-                 seq=GEMMA_TRAIN_SEQ, steps=GEMMA_TRAIN_STEPS,
-                 remat_policy=cfg.remat_policy, losses=losses,
+        raise AssertionError(f"{label}: non-finite loss: {losses}")
+    if abs(losses[0] - loss_k) > BF16_LOSS_TOL:
+        raise AssertionError(f"{label}: first step's loss {losses[0]} is "
+                             f"not the first batch's {loss_k}")
+    if falls and not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: the loss does not fall: {losses}")
+    if dtypes != {"torch.bfloat16"}:
+        raise AssertionError(f"{label}: weights no longer bf16: {dtypes}")
+    tokens = batch_size * seq
+    stats = dict(layers=cfg.num_layers, dtype=cfg.dtype, batch=batch_size,
+                 seq=seq, steps=steps, remat_policy=cfg.remat_policy,
+                 losses=losses, first_loss_plain=loss_p,
                  first_step_ms=hist[0]["step_ms"],
                  median_step_ms=float(np.median([h["step_ms"]
                                                  for h in hist[1:]])),
@@ -2672,10 +3034,139 @@ def phase_gemma_train(dev):
                      remat=peak_remat, none=peak_none),
                  weights_s=init_s,
                  launches={k_: counts.get(k_, 0) for k_ in
-                           gemma_train_expected(cfg, 1)})
-    log(f"gemma train: {json.dumps(stats)}; phase 13 (b) took "
+                           train_expected(cfg, 1, seq)})
+    log(f"{label}: {json.dumps(stats)}; took "
         f"{time.perf_counter() - t0:.1f}s")
     torch.cuda.empty_cache()
+    return counts, stats
+
+
+def phase_gemma_train(dev):
+    """13 (b). ``gemma3-4b`` at full width cut to 6 layers, with remat
+    (policy ``dots``), in its published bf16: ``bf16_training``'s checks
+    and 3 AdamW steps.  Returns the training run's launches."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("gemma3-4b"),
+                              num_layers=GEMMA_TRAIN_LAYERS)
+    counts, _ = bf16_training(
+        "gemma train", cfg, GEMMA_TRAIN_BATCH, GEMMA_TRAIN_SEQ,
+        GEMMA_TRAIN_STEPS, dict(peak_lr=3e-4, warmup=5), False, dev)
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phases 14-15: dense bf16 serving (yi-6b, qwen2.5-14b) and llama3.2-1b
+# training
+# ---------------------------------------------------------------------------
+
+# (arch, layers): yi-6b cut to 16 of its 32 layers and qwen2.5-14b to 8
+# of its 48: the card's host draws ~30 M parameters a second
+# (``lm_init``, one CPU generator), so yi's 6.06 B took 204 s; both run at
+# full depth through ``launch.serve`` outside the smoke
+DENSE_BF16 = (("yi-6b", 16), ("qwen2.5-14b", 8))
+DENSE_PROMPTS, DENSE_REQUESTS = (1000, 3900), 8
+LLAMA_TRAIN_BATCH, LLAMA_TRAIN_SEQ, LLAMA_TRAIN_STEPS = 2, 4096, 3
+
+
+def phase_dense_bf16(dev):
+    """14. ``yi-6b`` and ``qwen2.5-14b`` at full width (16 and 8 layers,
+    ``DENSE_BF16``) in their published bf16 from seeded weights:
+    ``ServeEngine(slots=4, max_len=4096)`` on 8 greedy requests of 16
+    tokens, prompt lengths 1000..3900 (seed 0): #1 and #2 (h1d prefill at
+    G 8 and G 5, head_dim 128), #5 and #6 on bf16 caches launched, no
+    plain version; then the plain run and the kernels on its tokens,
+    every step's logits held to it (``forced_run``).  yi-6b's requests
+    also through a paged engine (#7, #9 on bf16 pools) and a 2-way SP
+    engine (#11, #12 on bf16 slabs; at max_len 4096 every level is
+    sharded, so no #6), each on the plain run's tokens and held to its
+    logits the same way.  Returns the launches of every serving run."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import get_model
+    from repro_torch.serve import ServeEngine
+    from repro_torch.tree import tree_leaves
+
+    total = {}
+
+    def add(counts):
+        for k_, n in counts.items():
+            total[k_] = total.get(k_, 0) + n
+
+    for arch, layers in DENSE_BF16:
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        fns = get_model(cfg)
+        params = fns.init(cfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        nparam = sum(p.numel() for p in tree_leaves(params))
+        work = bf16_prompts(cfg.vocab_size, *DENSE_PROMPTS, DENSE_REQUESTS)
+        eng = ServeEngine(cfg, params, slots=GEMMA_SLOTS,
+                          max_len=GEMMA_MAX_LEN)
+        torch.cuda.reset_peak_memory_stats()
+        outs, stats, counts = run_engine(eng, work, fns, new_tokens=GEMMA_NEW)
+        stats.update(arch=arch, layers=cfg.num_layers, dtype=cfg.dtype,
+                     params=nparam, weights_s=init_s,
+                     prompt_lens=[len(p) for _, p in work],
+                     peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        need = ("band_attention_fwd[l0_causal]", "band_attention_sub_fwd",
+                "decode_attend_fused[bf16]", "update_cache_fused[bf16]")
+        missing = [k_ for k_ in need if not counts.get(k_)]
+        if missing:
+            raise AssertionError(f"{arch}: {missing} not launched: {counts}")
+        add(counts)
+        del eng
+        log(f"{arch} serve: {json.dumps(stats)}")
+        plain, plain_logits = plain_engine_run(
+            cfg, params, work, GEMMA_SLOTS, GEMMA_MAX_LEN, GEMMA_NEW)
+        same = sum(x == y for u in plain for x, y in zip(outs[u], plain[u]))
+        log(f"{arch}: {same} of {GEMMA_NEW * len(work)} greedy tokens equal "
+            f"to the plain run's")
+        runs = [("dense", {}, ())]
+        if arch == "yi-6b":
+            runs += [("paged", dict(paged=True),
+                      ("decode_attend_paged[bf16]",
+                       "update_cache_paged[bf16]")),
+                     ("sp d=2", dict(mesh=make_mesh((2,), ("data",),
+                                                    device=dev)),
+                      ("decode_attend_partial[bf16]",
+                       "update_cache_partial[bf16]"))]
+        for kind, kw, need in runs:
+            eng = ServeEngine(cfg, params, slots=GEMMA_SLOTS,
+                              max_len=GEMMA_MAX_LEN, **kw)
+            st, c = forced_run(f"{arch} {kind}", eng, work, fns, plain,
+                               plain_logits)
+            missing = [k_ for k_ in need if not c.get(k_)]
+            if missing:
+                raise AssertionError(f"{arch} {kind}: {missing} not "
+                                     f"launched: {c}")
+            if kind != "dense":     # its launches: the run above
+                add(c)
+                log(f"{arch} {kind}: tokens/s {st['tokens_per_s']:.1f}, "
+                    f"decode ms a tick {st['decode_ms_per_tick']:.2f}, "
+                    f"prefill ms a call {st['prefill_ms_per_call']:.1f}")
+            del eng
+        log(f"{arch}: phase 14 part took {time.perf_counter() - t0:.1f}s, "
+            f"weights {init_s:.1f}s")
+        del params, plain_logits
+        torch.cuda.empty_cache()
+    return total
+
+
+def phase_llama_train(dev):
+    """15. ``llama3.2-1b`` at full width and depth in its published bf16
+    (16 layers, tied embeddings, remat policy ``dots``): ``bf16_training``
+    at 2 x 4096 (its gradient held to the plain path's at G 4, d 64, L
+    4096 on the weights widened to fp32), 3 AdamW steps (peak 1e-3, one
+    warm-up step at rate 0, so the third loss is taken after one update),
+    the loss falling.  Returns the training run's launches."""
+    from repro_torch.configs import get_config
+    cfg = get_config("llama3.2-1b")
+    counts, _ = bf16_training(
+        "llama train", cfg, LLAMA_TRAIN_BATCH, LLAMA_TRAIN_SEQ,
+        LLAMA_TRAIN_STEPS, dict(peak_lr=1e-3, warmup=1), True, dev)
     return counts
 
 
@@ -2688,9 +3179,10 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    log("TF32 off for matmul and cuDNN: the plain versions are full fp32")
+    from repro_torch import exact_products
+    exact_products()
+    log("TF32 off for matmul and cuDNN: the plain versions are full fp32; "
+        "bf16 products sum in fp32")
     dev = torch.device("cuda")
 
     from repro_torch.kernels import _build
@@ -2699,7 +3191,8 @@ def main() -> int:
     log(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f}s")
 
     rows = (phase_kernels(dev) + phase_mode_kernels(dev)
-            + phase_paged_kernels(dev) + phase_bwd_kernels(dev))
+            + phase_paged_kernels(dev) + phase_bwd_kernels(dev)
+            + phase_bf16_kernels(dev))
     t_sp = time.perf_counter()
     sp_rows = phase_sp_kernels(dev)
     rows += sp_rows
@@ -2736,6 +3229,14 @@ def main() -> int:
     gemma_train_counts = phase_gemma_train(dev)
     log(f"phase gemma train took {time.perf_counter() - t_g:.1f}s (kernel "
         f"row and training)")
+    t_g = time.perf_counter()
+    dense_bf16_counts = phase_dense_bf16(dev)
+    log(f"phase 14 (dense bf16 serving) took "
+        f"{time.perf_counter() - t_g:.1f}s")
+    t_g = time.perf_counter()
+    llama_train_counts = phase_llama_train(dev)
+    log(f"phase 15 (llama3.2-1b bf16 training) took "
+        f"{time.perf_counter() - t_g:.1f}s")
     for row in rows:
         key = row["name"]
         by_path = {"serve": serve_counts.get(key, 0),
@@ -2748,7 +3249,9 @@ def main() -> int:
                    "cq_serve": cq_serve_counts.get(key, 0),
                    "sample": sample_counts.get(key, 0),
                    "gemma": gemma_counts.get(key, 0),
-                   "gemma_train": gemma_train_counts.get(key, 0)}
+                   "gemma_train": gemma_train_counts.get(key, 0),
+                   "dense_bf16": dense_bf16_counts.get(key, 0),
+                   "llama_train": llama_train_counts.get(key, 0)}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         row["kernel_ms"] = row["ms"]

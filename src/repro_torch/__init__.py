@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "exact_products"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -31,3 +31,13 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def exact_products() -> None:
+    """The card's matrix products in the reference's numerics: float32
+    products in full float32 (no TF32) and bfloat16 products summed in
+    float32 (no reduced-precision reduction), as the TPU's matrix unit
+    sums them."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

@@ -1,16 +1,19 @@
-"""Model configs of the port: the paper's own models and gemma3-4b.
+"""Model configs of the port: the paper's own models and the dense
+assigned architectures (yi-6b, qwen2.5-14b, llama3.2-1b, gemma3-4b), all
+four published in bfloat16.
 
 ``get_config(name)`` -> full config; ``get_smoke_config(name)`` -> the
-reduced same-family config for CPU tests.  The other assigned
-architectures of the JAX package are later slices.
+reduced same-family config for CPU tests.  The MoE, SSM, VLM and
+encoder-decoder architectures of the JAX package are later slices.
 """
 import importlib
 
 PAPER_IDS = ["h1d-lm-53m", "h1d-lm-144m", "h1d-lra-encoder"]
-ARCH_IDS = ["gemma3-4b"]
+ARCH_IDS = ["yi-6b", "qwen2.5-14b", "llama3.2-1b", "gemma3-4b"]
 
 _MODULES = {**{name: "h1d_lm" for name in PAPER_IDS},
-            "gemma3-4b": "gemma3_4b"}
+            "yi-6b": "yi_6b", "qwen2.5-14b": "qwen2_5_14b",
+            "llama3.2-1b": "llama3_2_1b", "gemma3-4b": "gemma3_4b"}
 
 
 def _module(name: str):

@@ -2,9 +2,8 @@
 
 Port of ``repro.configs.gemma3_4b``.  Local layers: block-local sliding
 window (1024), through the streamed ``l0_causal`` kernel.  Global layers
-(every sixth): H1D.  The published config is bfloat16, which the port
-does not serve yet (``lm_init`` raises); run it with
-``dataclasses.replace(cfg, dtype="float32")``.
+(every sixth): H1D.  Published in bfloat16: weights, activations and
+caches bf16, the band kernels fed f32 (``models.attention``).
 """
 from repro_torch.models.common import ModelConfig
 

@@ -7,7 +7,9 @@ on the caller's side), so this module imports neither ``jax`` nor the
 JAX package.  The dense JAX stack keeps its layers stacked on a leading
 axis (it scans over them); the port keeps one dictionary per layer.
 Every projection has the same (d_in, d_out) layout in both packages, so
-no weight is transposed.
+no weight is transposed.  bfloat16 leaves (``ml_dtypes.bfloat16``
+arrays on the numpy side) are carried bit for bit through their 16-bit
+pattern, so neither side of the copy needs ``ml_dtypes``.
 """
 from __future__ import annotations
 
@@ -55,5 +57,14 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, *,
     if "head" in tree:
         out["head"] = {k: tree["head"][k] for k in ("w", "b")
                        if k in tree["head"]}
-    return tree_map(
-        lambda a: torch.from_numpy(np.array(a, copy=True)).to(dev), out)
+    return tree_map(lambda a: _tensor(a).to(dev), out)
+
+
+def _tensor(a) -> torch.Tensor:
+    """A numpy leaf as a CPU tensor of the same dtype and bits; numpy
+    knows bfloat16 only through ``ml_dtypes``, whose arrays are read as
+    their int16 bit patterns and viewed as ``torch.bfloat16``."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True))

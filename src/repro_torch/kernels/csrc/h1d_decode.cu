@@ -18,9 +18,9 @@
 // one coarse block I_l - 1 per level l = 1..M-1 under the quadrant mask,
 // with weight 2^l in the denominator only.  One max over all bands, then
 // o = (a @ v) / max(a . w, 1e-9).  One body computes it for all four
-// attends, attend_staged_kernel<ADDR, VW> (#5 ADDR_DENSE, #7 ADDR_PAGED,
-// #11 ADDR_LOCAL, #8 ADDR_QPAGED): each live band's block is one
-// contiguous run of rows (#5: the block the TPU kernel's index maps name
+// attends, attend_staged_kernel<ADDR, VW, E> (#5 ADDR_DENSE, #7
+// ADDR_PAGED, #11 ADDR_LOCAL, #8 ADDR_QPAGED): each live band's block is
+// one contiguous run of rows (#5: the block the TPU kernel's index maps name
 // from t alone, clamped into the level, of the row's own slab, whose
 // Lmax >> l rows a level the caller passes; #7, #8: page bidx[r, band] of
 // the pool; #11: block bidx[r, band] of the row's slab in one shard's
@@ -56,6 +56,17 @@
 // its carry is the f32 pair before quantization.  Every product and sum
 // of the update path is an explicitly rounded intrinsic, so no FMA
 // contraction can leave the plain version's bits.
+//
+// Cache element.  Every body but #10's also takes bf16 levels (the
+// reference keeps its decode caches in the model's dtype): the staged
+// attend, attend_staged_kernel<ADDR, VW, E>, copies a bf16 block as it
+// is into the slot an f32 block takes and widens each value on the read
+// (exact), so its arithmetic is the f32 one; update_chain_kernel<ADDR,
+// E> reads each stored row widened, runs the carry chain unrounded in
+// f32 and rounds each stored row (and #12's carry) to nearest even, as
+// the reference's Pallas update does (_update_kernel: pk.astype(dtype)
+// on the store, the f32 pair carried).  q, k_new and v_new arrive f32
+// (the wrappers widen bf16 operands, exactly) and the attends write f32.
 //
 // Page tables: inactive engine rows all point their update rows at the
 // TRASH page, so several CTAs may write the same TRASH rows; the TPU ran
@@ -103,7 +114,7 @@
 // sits where t (and utab[r]) alone say, and within one call no two
 // levels share storage, so reading every pair before the first store
 // changes no bit.  The three f32 updates, #6, #12 and #9, run
-// update_chain_kernel<ADDR> (ADDR_DENSE, ADDR_LOCAL, ADDR_PAGED): t (and
+// update_chain_kernel<ADDR, E> (ADDR_DENSE, ADDR_LOCAL, ADDR_PAGED): t (and
 // owned, or the row's page table utab[r, :]) read, both rows of every
 // level's pair put in flight at once (cp.async into shared memory), then
 // the carry chain and its stores: two memory round trips before the
@@ -116,6 +127,7 @@
 // over the warp (exact and order-free), the IEEE divisions and the
 // stores -- runs after it: one lane a level for the maxima, four warps a
 // chain for the requantize, so no level waits on another's.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -196,12 +208,12 @@ __host__ __device__ __forceinline__ int band_rows(int band, int t, int nr) {
 // First row of the sibling pair of level l that holds ancestor t >> l in
 // row r's slab, an (R, Lmax >> l, W) array: pair min(t >> (l + 1),
 // Ll / 2 - 1), floored at 0 (a shift by 32 is 0 here, not undefined).
-__device__ __forceinline__ float* dense_pair(const MutLevels& lv, bool is_k,
-                                            int l, int r, int t, int Lmax,
-                                            int W) {
+template <typename E>
+__device__ __forceinline__ E* dense_pair(const MutLevels& lv, bool is_k, int l,
+                                        int r, int t, int Lmax, int W) {
   const int Ll = Lmax >> l;
   const int pair = max(min(l < 31 ? t >> (l + 1) : 0, Ll / 2 - 1), 0);
-  return static_cast<float*>(is_k ? lv.k[l] : lv.v[l]) +
+  return static_cast<E*>(is_k ? lv.k[l] : lv.v[l]) +
          ((size_t)r * Ll + 2 * (size_t)pair) * W;
 }
 
@@ -286,13 +298,21 @@ inline AttendPlan attend_layout(int G, int D, int Dv, int nr, int nlev,
 // stages as fit, its chunks halved from nr rows while fewer than 2 fit
 // (never below `quantum` rows, the granule that keeps every bulk copy a
 // multiple of 16 bytes: 4 rows when D or Dv is not a multiple of 4; with
-// int8 levels (`quant`) the rows whose 4-byte scales and D- and Dv-byte
-// rows are all multiples of 16, 4 or more; 1 where nr is not a multiple,
-// and then no bulk copies).  stages = 0: not even one chunk fits.
+// bf16 levels (`half`) the rows whose 2D- and 2Dv-byte rows are
+// multiples of 16; with int8 levels (`quant`) the rows whose 4-byte
+// scales and D- and Dv-byte rows are all multiples of 16, 4 or more,
+// which covers bf16 and f32 rows too; 1 where nr is not a multiple, and
+// then no bulk copies).  A bf16 block takes the slot an f32 block takes,
+// so the plan's shape is the f32 plan's.  stages = 0: not even one chunk
+// fits.
 inline AttendPlan attend_plan(int G, int D, int Dv, int nr, int nlev,
-                              bool quant) {
+                              bool quant, bool half) {
   const int nb = nlev + 1;
   int quantum = (D % 4 == 0 && Dv % 4 == 0) || nr % 4 ? 1 : 4;
+  if (half) {                      // bf16 rows: 2-byte values
+    quantum = max(rows16(2 * D), rows16(2 * Dv));
+    if (nr % quantum) quantum = 1;
+  }
   if (quant) {
     quantum = max(4, max(rows16(D), rows16(Dv)));
     if (nr % quantum) quantum = 1;
@@ -356,7 +376,7 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
 }
 
 // One bulk copy that completes on `bar`, after announcing its bytes.
-__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
                                           int bytes, uint64_t* bar) {
   bulk_expect(bar, bytes);
   bulk_load(dst, src, bytes, bar);
@@ -445,6 +465,30 @@ struct Vec {
     }
     return v;
   }
+  // VW bf16 values from p (8-byte aligned where VW = 4), each widened
+  // exactly (a bf16 is the high half of the f32 it widens to: the shifts
+  // and masks are __bfloat162float)
+  __device__ __forceinline__ static Vec loadh(const __nv_bfloat16* p) {
+    Vec v;
+    if constexpr (VW == 4) {
+      const uint2 w = *reinterpret_cast<const uint2*>(p);
+      v.x[0] = __uint_as_float(w.x << 16);
+      v.x[1] = __uint_as_float(w.x & 0xffff0000u);
+      v.x[2] = __uint_as_float(w.y << 16);
+      v.x[3] = __uint_as_float(w.y & 0xffff0000u);
+    } else {
+      v.x[0] = __bfloat162float(*p);
+    }
+    return v;
+  }
+  // VW values from element i of a staged slot that holds E rows
+  template <typename E>
+  __device__ __forceinline__ static Vec row(const float* slot, size_t i) {
+    if constexpr (std::is_same<E, float>::value)
+      return load(slot + i);
+    else
+      return loadh(reinterpret_cast<const __nv_bfloat16*>(slot) + i);
+  }
   __device__ __forceinline__ void store(float* p) const {
     if constexpr (VW == 4)
       *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
@@ -460,9 +504,11 @@ struct Vec {
 // the plan's quantum).
 // VW = the plan's vw.  QPAGED: level l holds int8 rows where bit l of
 // lv.qmask is set (whole bands, so every branch on it is warp-uniform).
-// The parameters the first warp reads come first, the level pointers
-// last (other constant-cache lines).
-template <int ADDR, int VW>
+// E: the element of the levels that are not int8 (float, or
+// __nv_bfloat16 staged as it is, in the first half of an f32 slot, and
+// widened on the read).  The parameters the first warp reads come first,
+// the level pointers last (other constant-cache lines).
+template <int ADDR, int VW, typename E>
 __global__ void __launch_bounds__(THREADS, 1)
 attend_staged_kernel(const int* __restrict__ tpos,
                      const int* __restrict__ bidx,
@@ -494,6 +540,7 @@ attend_staged_kernel(const int* __restrict__ tpos,
   const int r = blockIdx.x, tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int S = p.stages, cr = p.cr, Gq = G == 1 ? 1 : ceil_to(G, 4);
+  constexpr int ES = sizeof(E);
   auto is8 = [&](int l) {
     return ADDR == ADDR_QPAGED && ((lv.qmask >> l) & 1u);
   };
@@ -532,14 +579,18 @@ attend_staged_kernel(const int* __restrict__ tpos,
       }
       return;
     }
-    const float* src =
-        static_cast<const float*>(isv ? lv.v[l] : lv.k[l]) + row * width;
+    const E* src = static_cast<const E*>(isv ? lv.v[l] : lv.k[l]) +
+                   row * width;
     if (bulk) {
-      bulk_copy(dst, src, rows * width * 4, bar + s);
-    } else {
+      bulk_copy(dst, src, rows * width * ES, bar + s);
+    } else if constexpr (ES == 4) {
       for (int e = tid; e < rows * width; e += THREADS)
         cp_async4(dst + e, src + e);
       cp_async_arrive(bar + s);
+    } else {                       // bf16 rows of any width: plain loads
+      E* dh = reinterpret_cast<E*>(dst);
+      for (int e = tid; e < rows * width; e += THREADS) dh[e] = src[e];
+      mbar_arrive(bar + s);
     }
   };
   // bulk: warp 0's lanes issue one item each; else every thread copies
@@ -563,8 +614,8 @@ attend_staged_kernel(const int* __restrict__ tpos,
   if (warp == 0) {
     const int t = tpos[r];
     int blk2[2] = {0, 0}, own2[2] = {1, 1}, lev2[2];
-    const float* kl2[2];
-    const float* vl2[2];
+    const E* kl2[2];
+    const E* vl2[2];
     const float* ks2[2] = {nullptr, nullptr};
     const float* vs2[2] = {nullptr, nullptr};
     int rows2[2], nbl2[2];
@@ -576,8 +627,8 @@ attend_staged_kernel(const int* __restrict__ tpos,
         if (ADDR == ADDR_LOCAL) own2[h] = owned[(size_t)r * nb + b];
       }
       lev2[h] = l;
-      kl2[h] = static_cast<const float*>(lv.k[l]);
-      vl2[h] = static_cast<const float*>(lv.v[l]);
+      kl2[h] = static_cast<const E*>(lv.k[l]);
+      vl2[h] = static_cast<const E*>(lv.v[l]);
       if (ADDR == ADDR_QPAGED) {
         ks2[h] = lv.ksc[l];
         vs2[h] = lv.vsc[l];
@@ -594,8 +645,8 @@ attend_staged_kernel(const int* __restrict__ tpos,
       const int blk = ADDR == ADDR_DENSE
                           ? dense_block(min(b, nb - 1), t / nr, nbl2[h])
                           : blk2[h];
-      const float* kl = kl2[h];
-      const float* vl = vl2[h];
+      const E* kl = kl2[h];
+      const E* vl = vl2[h];
       int tru = 0;
       if (b < nb) {
         tru = band_rows(b, t, nr);
@@ -610,7 +661,7 @@ attend_staged_kernel(const int* __restrict__ tpos,
                    p.qoff, bar + b);
       else if (early)                   // keys first: the scores wait on them
         bulk_copy(ring + (size_t)b * p.slot, kl + (size_t)row * D,
-                  cnt * D * 4, bar + b);
+                  cnt * D * ES, bar + b);
       const int nchk = (cnt + cr - 1) / cr;
       int kc = cnt, cc = nchk;                  // inclusive scans
       for (int off = 1; off < 32; off <<= 1) {
@@ -636,7 +687,7 @@ attend_staged_kernel(const int* __restrict__ tpos,
                    p.qoff, bar + nb + b);
       else if (early)
         bulk_copy(ring + (size_t)(nb + b) * p.slot, vl + (size_t)row * Dv,
-                  cnt * Dv * 4, bar + nb + b);
+                  cnt * Dv * ES, bar + nb + b);
       nk += __shfl_sync(FULL, kc, 31);
       nc += __shfl_sync(FULL, cc, 31);
       nl += __popc(live);
@@ -728,7 +779,8 @@ attend_staged_kernel(const int* __restrict__ tpos,
                 const Vec<VW> kv =
                     decltype(int8)::value
                         ? Vec<VW>::load8(kb8 + j * D + cv * VW, ks)
-                        : Vec<VW>::load(kb + j * D + cv * VW);
+                        : Vec<VW>::template row<E>(
+                              kb, (size_t)j * D + cv * VW);
 #pragma unroll
                 for (int i = 0; i < GC; ++i) {
                   const Vec<VW> qv =
@@ -797,10 +849,9 @@ attend_staged_kernel(const int* __restrict__ tpos,
           const Chunk ch = chunk(c);
           const int s = slot_of(nch + c, nch, ch.ib);
           mbar_wait(bar + s, parity_of(nch + c));
-          const float* vb = ring + (size_t)s * p.slot + cv * VW;
+          const float* vs = ring + (size_t)s * p.slot;
           const bool q8 = is8(band_level(tb_band[ch.ib]));
-          const float* vsc = ring + (size_t)s * p.slot;
-          const int8_t* vb8 = reinterpret_cast<const int8_t*>(vsc + p.qoff) +
+          const int8_t* vb8 = reinterpret_cast<const int8_t*>(vs + p.qoff) +
                               cv * VW;
           const float wgt = (float)(1 << band_level(tb_band[ch.ib]));
           for (int jb = 0; jb < ch.n; jb += 32) {
@@ -819,8 +870,9 @@ attend_staged_kernel(const int* __restrict__ tpos,
                 Vec<VW> v{};
                 if (act && j < jn)
                   v = decltype(int8)::value
-                          ? Vec<VW>::load8(vb8 + (jb + j) * Dv, vsc[jb + j])
-                          : Vec<VW>::load(vb + (size_t)(jb + j) * Dv);
+                          ? Vec<VW>::load8(vb8 + (jb + j) * Dv, vs[jb + j])
+                          : Vec<VW>::template row<E>(
+                                vs, (size_t)(jb + j) * Dv + cv * VW);
 #pragma unroll
                 for (int i = 0; i < GC; ++i) {
                   const float aj = __shfl_sync(FULL, a[i], j & 31);
@@ -895,11 +947,12 @@ attend_staged_kernel(const int* __restrict__ tpos,
   }
 }
 
+// half: the levels that are not int8 hold bf16 rows.
 template <int ADDR>
 int launch_staged(const float* q, const Levels& lv, const int* t,
                   const int* bidx, const int* owned, float* out, float* den,
                   float* m, int R, int G, int D, int Dv, int nr, int nlev,
-                  float scale, void* stream) {
+                  float scale, int half, void* stream) {
   if (nlev < 1 || nlev > MAXLEV || R < 1 || G < 1 || D < 1 || Dv < 1 ||
       nr < 1)
     return (int)cudaErrorInvalidValue;
@@ -908,7 +961,7 @@ int launch_staged(const float* q, const Levels& lv, const int* t,
       if ((long long)R * lv.rows[l] > 0x7fffffff)
         return (int)cudaErrorInvalidValue;
   const bool quant = ADDR == ADDR_QPAGED && lv.qmask != 0;
-  const AttendPlan p = attend_plan(G, D, Dv, nr, nlev, quant);
+  const AttendPlan p = attend_plan(G, D, Dv, nr, nlev, quant, half != 0);
   if (p.stages < 1) return (int)cudaErrorInvalidValue;
   auto at16 = [](const void* a) {
     return reinterpret_cast<uintptr_t>(a) % 16 == 0;
@@ -919,10 +972,14 @@ int launch_staged(const float* q, const Levels& lv, const int* t,
     if (quant && ((lv.qmask >> l) & 1u))
       aligned = aligned && at16(lv.ksc[l]) && at16(lv.vsc[l]);
   }
-  const int bulk = aligned && (p.quantum > 1 || (!quant && D % 4 == 0 &&
-                                                 Dv % 4 == 0)) ? 1 : 0;
-  auto kernel = p.vw == 4 ? attend_staged_kernel<ADDR, 4>
-                          : attend_staged_kernel<ADDR, 1>;
+  const int vec = half ? 8 : 4;   // values in 16 bytes
+  const int bulk = aligned && (p.quantum > 1 || (!quant && D % vec == 0 &&
+                                                 Dv % vec == 0)) ? 1 : 0;
+  using BF = __nv_bfloat16;
+  auto kernel = half ? (p.vw == 4 ? attend_staged_kernel<ADDR, 4, BF>
+                                  : attend_staged_kernel<ADDR, 1, BF>)
+                     : (p.vw == 4 ? attend_staged_kernel<ADDR, 4, float>
+                                  : attend_staged_kernel<ADDR, 1, float>);
   if (p.smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
@@ -1193,13 +1250,35 @@ update_cache_quant_kernel(const float* __restrict__ knew,
 // takes the rest).
 constexpr int CHAIN_SMEM = 48 * 1024;
 
+// The cache element E: float, or __nv_bfloat16 (read widened, stored
+// rounded to nearest even, the chain itself in f32: the reference's
+// Pallas update).  A bf16 pair is read by plain loads into the f32
+// slots (cp.async copies 4 bytes at least).
+template <typename E>
+__device__ __forceinline__ E to_elem(float x) {
+  if constexpr (std::is_same<E, float>::value)
+    return x;
+  else
+    return __float2bfloat16_rn(x);
+}
+
+__device__ __forceinline__ void stage_elem(float* dst, const float* src) {
+  cp_async4(dst, src);
+}
+
+__device__ __forceinline__ void stage_elem(float* dst,
+                                           const __nv_bfloat16* src) {
+  *dst = __bfloat162float(*src);
+}
+
 // #6 (ADDR_DENSE: dense slabs), #12 (ADDR_LOCAL: one shard's sharded
 // levels at the shard-local t; only rows with owned[r] != 0 write, and
 // every row's carry past its last level goes to carry_k / carry_v (R, D /
-// Dv)) and #9 (ADDR_PAGED: level l's pair on page utab[r, l] of the pool,
-// at pair_in_page).  One CTA per cache row, a column a thread (k's D
-// columns, then v's Dv).  Every level's pair sits where t (and utab[r])
-// alone say and no two levels share storage, so, in this order:
+// Dv), rounded to E as the reference stores it) and #9 (ADDR_PAGED: level
+// l's pair on page utab[r, l] of the pool, at pair_in_page).  One CTA per
+// cache row, a column a thread (k's D columns, then v's Dv).  Every
+// level's pair sits where t (and utab[r]) alone say and no two levels
+// share storage, so, in this order:
 //   1. t and owned, or t and the row's page table utab[r, :] (one lane a
 //      level, into shared memory, one barrier), read, all in flight;
 //   2. both rows of every level's pair put in flight at once, by
@@ -1216,16 +1295,15 @@ constexpr int CHAIN_SMEM = 48 * 1024;
 // (levels to a compile-time bound), level 0 alone in registers, a warp
 // a level for the copies and the stores all ran slower on the card.  No
 // thread reads another's pair slots.
-template <int ADDR>
+template <int ADDR, typename E>
 __global__ void __launch_bounds__(1024)
 update_chain_kernel(const float* __restrict__ knew,
                     const float* __restrict__ vnew,
                     const int* __restrict__ tpos,
                     const int* __restrict__ owned,
                     const int* __restrict__ utab, MutLevels lv, int Lmax,
-                    int nr, int D, int Dv, int nlev,
-                    float* __restrict__ carry_k,
-                    float* __restrict__ carry_v) {
+                    int nr, int D, int Dv, int nlev, E* __restrict__ carry_k,
+                    E* __restrict__ carry_v) {
   extern __shared__ __align__(16) float pr[];
   const int r = blockIdx.x, T = blockDim.x, tid = threadIdx.x;
   int* page = reinterpret_cast<int*>(pr + 2 * nlev * T);   // PAGED: utab[r]
@@ -1238,10 +1316,10 @@ update_chain_kernel(const float* __restrict__ knew,
   // first row of level l's pair in the k (is_k) or v array of width W
   auto pair = [&](bool is_k, int l, int W) {
     if constexpr (ADDR == ADDR_PAGED)
-      return static_cast<float*>(is_k ? lv.k[l] : lv.v[l]) +
+      return static_cast<E*>(is_k ? lv.k[l] : lv.v[l]) +
              ((size_t)page[l] * nr + pair_in_page(t, l, nr)) * W;
     else
-      return dense_pair(lv, is_k, l, r, t, Lmax, W);
+      return dense_pair<E>(lv, is_k, l, r, t, Lmax, W);
   };
   for (int c = tid; c < D + Dv; c += T) {
     const bool is_k = c < D;
@@ -1249,9 +1327,9 @@ update_chain_kernel(const float* __restrict__ knew,
     const int col = is_k ? c : c - D;
     float carry = is_k ? knew[(size_t)r * D + col] : vnew[(size_t)r * Dv + col];
     for (int l = 0; l < nlev; ++l) {
-      const float* p = pair(is_k, l, W) + col;
-      cp_async4(pr + 2 * l * T + tid, p);
-      cp_async4(pr + (2 * l + 1) * T + tid, p + W);
+      const E* p = pair(is_k, l, W) + col;
+      stage_elem(pr + 2 * l * T + tid, p);
+      stage_elem(pr + (2 * l + 1) * T + tid, p + W);
     }
     asm volatile("cp.async.wait_all;" ::: "memory");
     float x0 = pr[tid], x1 = pr[T + tid];
@@ -1263,30 +1341,39 @@ update_chain_kernel(const float* __restrict__ knew,
       }
       const float y0 = l + 1 < nlev ? pr[(2 * l + 2) * T + tid] : 0.f;
       const float y1 = l + 1 < nlev ? pr[(2 * l + 3) * T + tid] : 0.f;
-      if (own) pair(is_k, l, W)[(size_t)sel * W + col] = sel ? x1 : x0;
+      if (own)
+        pair(is_k, l, W)[(size_t)sel * W + col] = to_elem<E>(sel ? x1 : x0);
       carry = is_k ? __fmul_rn(__fadd_rn(x0, x1), 0.5f) : __fadd_rn(x0, x1);
       x0 = y0;
       x1 = y1;
     }
     if (ADDR == ADDR_LOCAL)
-      (is_k ? carry_k : carry_v)[(size_t)r * W + col] = carry;
+      (is_k ? carry_k : carry_v)[(size_t)r * W + col] = to_elem<E>(carry);
   }
 }
 
 // Threads: a column each, at most 1024 and as many as CHAIN_SMEM stages
 // (2 nlev floats a thread, after #9's page table), in whole warps.
+// half: the levels (and #12's carries) hold bf16.
 template <int ADDR>
 int launch_chain(const float* knew, const float* vnew, const int* t,
                  const int* owned, const int* utab, const MutLevels& lv,
                  int R, int Lmax, int nr, int D, int Dv, int nlev,
-                 float* carry_k, float* carry_v, void* stream) {
+                 void* carry_k, void* carry_v, int half, void* stream) {
   const int tab = ADDR == ADDR_PAGED ? 4 * nlev : 0;
   const int fit = (CHAIN_SMEM - tab) / (8 * nlev) / 32 * 32;
   const int threads = min(min(1024, fit), (D + Dv + 31) / 32 * 32);
-  update_chain_kernel<ADDR>
-      <<<R, threads, 8 * nlev * threads + tab, (cudaStream_t)stream>>>(
-          knew, vnew, t, owned, utab, lv, Lmax, nr, D, Dv, nlev, carry_k,
-          carry_v);
+  const int smem = 8 * nlev * threads + tab;
+  using BF = __nv_bfloat16;
+  if (half)
+    update_chain_kernel<ADDR, BF><<<R, threads, smem, (cudaStream_t)stream>>>(
+        knew, vnew, t, owned, utab, lv, Lmax, nr, D, Dv, nlev,
+        static_cast<BF*>(carry_k), static_cast<BF*>(carry_v));
+  else
+    update_chain_kernel<ADDR, float>
+        <<<R, threads, smem, (cudaStream_t)stream>>>(
+            knew, vnew, t, owned, utab, lv, Lmax, nr, D, Dv, nlev,
+            static_cast<float*>(carry_k), static_cast<float*>(carry_v));
   return (int)cudaGetLastError();
 }
 
@@ -1319,15 +1406,18 @@ MutLevels write_levels(void* const* ks, void* const* vs, void* const* kscs,
 
 }  // namespace
 
+// Every level array below holds f32, or bf16 where half != 0; q, k_new,
+// v_new and the attends' outputs are f32.
+//
 // q (R,G,D), fine k (R,Lmax,D), v (R,Lmax,Dv), coarse ck[l-1]
 // (R,Lmax>>l,D) and cv[l-1] for l = 1..ncoarse, t (R,) int32
 // -> out (R,G,Dv), normalised.
-extern "C" int h1d_decode_attend(const float* q, const float* k,
-                                 const float* v, const void* const* ck,
+extern "C" int h1d_decode_attend(const float* q, const void* k,
+                                 const void* v, const void* const* ck,
                                  const void* const* cv, const int* t,
                                  float* out, int R, int G, int Lmax, int D,
                                  int Dv, int nr, int ncoarse, float scale,
-                                 void* stream) {
+                                 int half, void* stream) {
   if (ncoarse < 0 || ncoarse + 1 > MAXLEV || R < 1)
     return (int)cudaErrorInvalidValue;
   Levels lv{};
@@ -1341,35 +1431,37 @@ extern "C" int h1d_decode_attend(const float* q, const float* k,
   }
   return launch_staged<ADDR_DENSE>(q, lv, t, nullptr, nullptr, out, nullptr,
                                    nullptr, R, G, D, Dv, nr, ncoarse + 1,
-                                   scale, stream);
+                                   scale, half, stream);
 }
 
-// Paged pools: ks[l]/vs[l] level l's (NP_l, nr, D/Dv) f32 pages for
+// Paged pools: ks[l]/vs[l] level l's (NP_l, nr, D/Dv) pages for
 // l = 0..nlev-1; bidx (R, nlev+1) int32 physical pool rows per band.
 extern "C" int h1d_decode_attend_paged(const float* q, const void* const* ks,
                                        const void* const* vs, const int* t,
                                        const int* bidx, float* out, int R,
                                        int G, int D, int Dv, int nr,
-                                       int nlev, float scale, void* stream) {
+                                       int nlev, float scale, int half,
+                                       void* stream) {
   if (nlev < 1 || nlev > MAXLEV) return (int)cudaErrorInvalidValue;
   const Levels lv = read_levels(ks, vs, nullptr, nullptr, 0u, nlev);
   return launch_staged<ADDR_PAGED>(q, lv, t, bidx, nullptr, out, nullptr,
                                    nullptr, R, G, D, Dv, nr, nlev, scale,
-                                   stream);
+                                   half, stream);
 }
 
 // As h1d_decode_attend_paged; level l stores int8 pages when bit l of
-// qmask is set, with per-row f32 scales kscs[l]/vscs[l] (NP_l, nr).
+// qmask is set, with per-row f32 scales kscs[l]/vscs[l] (NP_l, nr); the
+// other levels f32, or bf16 where half != 0.
 extern "C" int h1d_decode_attend_paged_quant(
     const float* q, const void* const* ks, const void* const* vs,
     const void* const* kscs, const void* const* vscs, int qmask,
     const int* t, const int* bidx, float* out, int R, int G, int D, int Dv,
-    int nr, int nlev, float scale, void* stream) {
+    int nr, int nlev, float scale, int half, void* stream) {
   if (nlev < 1 || nlev > MAXLEV) return (int)cudaErrorInvalidValue;
   const Levels lv = read_levels(ks, vs, kscs, vscs, (unsigned)qmask, nlev);
   return launch_staged<ADDR_QPAGED>(q, lv, t, bidx, nullptr, out, nullptr,
                                     nullptr, R, G, D, Dv, nr, nlev, scale,
-                                    stream);
+                                    half, stream);
 }
 
 // k_new (R,D), v_new (R,Dv), t (R,) int32; ks[l]/vs[l] are level l's
@@ -1377,30 +1469,32 @@ extern "C" int h1d_decode_attend_paged_quant(
 extern "C" int h1d_update_cache(const float* knew, const float* vnew,
                                 const int* t, void* const* ks,
                                 void* const* vs, int R, int Lmax, int D,
-                                int Dv, int nlev, void* stream) {
+                                int Dv, int nlev, int half, void* stream) {
   if (nlev < 1 || nlev > MAXLEV || R < 1) return (int)cudaErrorInvalidValue;
   const MutLevels lv = write_levels(ks, vs, nullptr, nullptr, 0u, nlev);
   return launch_chain<ADDR_DENSE>(knew, vnew, t, nullptr, nullptr, lv, R,
                                   Lmax, 0, D, Dv, nlev, nullptr, nullptr,
-                                  stream);
+                                  half, stream);
 }
 
-// Paged pools: ks[l]/vs[l] level l's (NP_l, nr, D/Dv) f32 pages; utab
+// Paged pools: ks[l]/vs[l] level l's (NP_l, nr, D/Dv) pages; utab
 // (R, nlev) int32 physical pool rows of the ancestor pages.
 extern "C" int h1d_update_cache_paged(const float* knew, const float* vnew,
                                       const int* t, const int* utab,
                                       void* const* ks, void* const* vs,
                                       int R, int D, int Dv, int nr, int nlev,
-                                      void* stream) {
+                                      int half, void* stream) {
   if (nlev < 1 || nlev > MAXLEV || R < 1 || nr < 2)
     return (int)cudaErrorInvalidValue;
   const MutLevels lv = write_levels(ks, vs, nullptr, nullptr, 0u, nlev);
   return launch_chain<ADDR_PAGED>(knew, vnew, t, nullptr, utab, lv, R, 0, nr,
-                                  D, Dv, nlev, nullptr, nullptr, stream);
+                                  D, Dv, nlev, nullptr, nullptr, half,
+                                  stream);
 }
 
 // As h1d_update_cache_paged with int8 levels (bit l of qmask) and their
-// per-row scales kscs[l]/vscs[l] (NP_l, nr), rewritten in place.  D and
+// per-row scales kscs[l]/vscs[l] (NP_l, nr), rewritten in place; the
+// other levels f32 (no bf16: the wrapper raises for a bf16 level).  D and
 // Dv up to 1024 (32 columns a lane), and one row's staged pairs, every
 // level's k and v pair and scales (chain_bytes), within SMEM_LIMIT.
 extern "C" int h1d_update_cache_paged_quant(
@@ -1432,7 +1526,7 @@ extern "C" int h1d_update_cache_paged_quant(
   return (int)cudaGetLastError();
 }
 
-// One shard's slab: ks[l]/vs[l] level l's (R, rows[l], D/Dv) f32 arrays
+// One shard's slab: ks[l]/vs[l] level l's (R, rows[l], D/Dv) arrays
 // for l = 0..nlev-1 (rows: host array, each a multiple of nr); bidx and
 // owned (R, nlev+1) int32 local block index and ownership bit per band; t
 // (R,) global positions -> num (R,G,Dv), den (R,G), m (R,G), unnormalised.
@@ -1440,40 +1534,41 @@ extern "C" int h1d_decode_attend_partial(
     const float* q, const void* const* ks, const void* const* vs,
     const int* rows, const int* t, const int* bidx, const int* owned,
     float* num, float* den, float* m, int R, int G, int D, int Dv, int nr,
-    int nlev, float scale, void* stream) {
+    int nlev, float scale, int half, void* stream) {
   if (nlev < 1 || nlev > MAXLEV) return (int)cudaErrorInvalidValue;
   Levels lv = read_levels(ks, vs, nullptr, nullptr, 0u, nlev);
   for (int l = 0; l < nlev; ++l) lv.rows[l] = rows[l];
   return launch_staged<ADDR_LOCAL>(q, lv, t, bidx, owned, num, den, m, R, G,
-                                   D, Dv, nr, nlev, scale, stream);
+                                   D, Dv, nr, nlev, scale, half, stream);
 }
 
 // One shard's sharded levels: ks[l]/vs[l] (R, Lloc>>l, D/Dv) for
 // l = 0..nlev-1, updated in place on rows with owned[r] != 0; t_loc (R,)
 // shard-local positions (may exceed Lloc) -> carry_k (R,D), carry_v
-// (R,Dv).
+// (R,Dv) in the levels' element type.
 extern "C" int h1d_update_cache_partial(const float* knew, const float* vnew,
                                         const int* t_loc, const int* owned,
                                         void* const* ks, void* const* vs,
-                                        float* carry_k, float* carry_v,
-                                        int R, int Lloc, int D, int Dv,
-                                        int nlev, void* stream) {
+                                        void* carry_k, void* carry_v, int R,
+                                        int Lloc, int D, int Dv, int nlev,
+                                        int half, void* stream) {
   if (nlev < 1 || nlev > MAXLEV || R < 1) return (int)cudaErrorInvalidValue;
   const MutLevels lv = write_levels(ks, vs, nullptr, nullptr, 0u, nlev);
   return launch_chain<ADDR_LOCAL>(knew, vnew, t_loc, owned, nullptr, lv, R,
                                   Lloc, 0, D, Dv, nlev, carry_k, carry_v,
-                                  stream);
+                                  half, stream);
 }
 
 // The staged attend's launch plan (#5, #7, #8, #11) for the host's mirror
 // (kernels/h1d_decode_kernel.plan_attend_stages): quant != 0 for a pool
-// with int8 levels; out[0..3] = stages, rows a chunk, row quantum, shared
-// memory bytes.
+// with int8 levels, half != 0 for bf16 levels; out[0..3] = stages, rows a
+// chunk, row quantum, shared memory bytes.
 extern "C" int h1d_decode_attend_plan(int G, int D, int Dv, int nr, int nlev,
-                                      int quant, int* out) {
+                                      int quant, int half, int* out) {
   if (nlev < 1 || nlev > MAXLEV || G < 1 || D < 1 || Dv < 1 || nr < 1)
     return (int)cudaErrorInvalidValue;
-  const AttendPlan p = attend_plan(G, D, Dv, nr, nlev, quant != 0);
+  const AttendPlan p = attend_plan(G, D, Dv, nr, nlev, quant != 0,
+                                   half != 0);
   out[0] = p.stages;
   out[1] = p.cr;
   out[2] = p.quantum;

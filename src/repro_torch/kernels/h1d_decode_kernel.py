@@ -44,7 +44,16 @@ each band's mask lets through (:func:`attend_band_rows`; #5 of the block
 the read); #10 stages every level's sibling pair before its carry chain
 (:func:`update_quant_smem`), and #6, #12 and #9 put every level's pair
 in flight before theirs (any widths and level counts: no new limit).
-``<wrapper>.launches`` counts kernel launches and ``<plain>.calls``
+Caches are float32 or bfloat16 (:data:`CACHE_DTYPES`; the int8 pool's
+update takes float32 levels beside its int8 ones), as the reference keeps
+them in the model's dtype.  The updates follow the reference's Pallas
+update: one unrounded f32 carry chain, each stored row rounded to the
+cache dtype (its jnp path rounds every level before averaging, 1-2 bf16
+ulps apart from level 2 up; in fp32 the two agree bit for bit).  The
+attends widen every row to f32; q, k_new and v_new are widened by the
+wrappers, and an attend returns ``q.dtype`` where the reference does.
+``<wrapper>.launches`` counts kernel launches (launches on bf16 levels
+also under ``<wrapper>.mode_launches["bf16"]``) and ``<plain>.calls``
 counts runs of the plain version.  The page tables and the shard
 geometry are trusted: the host builds them from
 ``serve.paged_cache.PagePool`` and ``parallel.sp_attention.sp_tables``.
@@ -67,23 +76,29 @@ _MIN_M = -1e30
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _PP = ctypes.POINTER(ctypes.c_void_p)
 _F = ctypes.c_float
+# every entry point but #10's and the plan's ends in (..., half, stream):
+# half = 1 where the cache levels hold bfloat16
 _SIGNATURES = {
     "h1d_decode_attend": [_P, _P, _P, _PP, _PP, _P, _P] + [_I] * 7
-                         + [_F, _P],
+                         + [_F, _I, _P],
     "h1d_decode_attend_paged": [_P, _PP, _PP, _P, _P, _P] + [_I] * 6
-                               + [_F, _P],
+                               + [_F, _I, _P],
     "h1d_decode_attend_paged_quant": [_P, _PP, _PP, _PP, _PP, _I, _P, _P,
-                                      _P] + [_I] * 6 + [_F, _P],
-    "h1d_update_cache": [_P, _P, _P, _PP, _PP] + [_I] * 5 + [_P],
-    "h1d_update_cache_paged": [_P, _P, _P, _P, _PP, _PP] + [_I] * 5 + [_P],
+                                      _P] + [_I] * 6 + [_F, _I, _P],
+    "h1d_update_cache": [_P, _P, _P, _PP, _PP] + [_I] * 6 + [_P],
+    "h1d_update_cache_paged": [_P, _P, _P, _P, _PP, _PP] + [_I] * 6 + [_P],
     "h1d_update_cache_paged_quant": [_P, _P, _P, _P, _PP, _PP, _PP, _PP]
                                     + [_I] * 6 + [_P],
     "h1d_decode_attend_partial": [_P, _PP, _PP] + [_P] * 7 + [_I] * 6
-                                 + [_F, _P],
+                                 + [_F, _I, _P],
     "h1d_update_cache_partial": [_P, _P, _P, _P, _PP, _PP, _P, _P]
-                                + [_I] * 5 + [_P],
-    "h1d_decode_attend_plan": [_I] * 6 + [_P],
+                                + [_I] * 6 + [_P],
+    "h1d_decode_attend_plan": [_I] * 7 + [_P],
 }
+
+#: cache element types the kernels take (``half`` = 1 for bfloat16); the
+#: int8 pool's update (#10) takes float32 levels beside its int8 ones
+CACHE_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _lib():
@@ -194,30 +209,39 @@ def _attend_smem(G, D, Dv, nr, nlev, stages, cr, quant=False):
     return off + 4 * (2 * warps * G + 6 * (nb + 1) + 3)
 
 
-def attend_quantum(D: int, Dv: int, nr: int, quant: bool = False) -> int:
+def attend_quantum(D: int, Dv: int, nr: int, quant: bool = False,
+                   half: bool = False) -> int:
     """Rows a staged band is rounded up to, so that every bulk copy is a
     multiple of 16 bytes: f32 levels 4 where D or Dv is not a multiple of
-    4 (and nr is), else 1; a pool with int8 levels (``quant``) the rows
-    whose 4-byte scales and D- and Dv-byte int8 rows all fill 16 bytes (4
-    at D = 64), or 1 where nr is not a multiple of it (no bulk copies
-    then)."""
+    4 (and nr is), else 1; bf16 levels (``half``) the rows whose 2D- and
+    2Dv-byte rows fill 16 bytes (1 where D and Dv are multiples of 8); a
+    pool with int8 levels (``quant``) the rows whose 4-byte scales and D-
+    and Dv-byte int8 rows all fill 16 bytes (4 at D = 64), which its f32
+    or bf16 levels' rows fill too; each 1 where nr is not a multiple of it
+    (no bulk copies then)."""
     if quant:
         q = max(4, _rows16(D), _rows16(Dv))
+        return 1 if nr % q else q
+    if half:
+        q = max(_rows16(2 * D), _rows16(2 * Dv))
         return 1 if nr % q else q
     return 1 if (D % 4 == 0 and Dv % 4 == 0) or nr % 4 else 4
 
 
 def plan_attend_stages(G: int, D: int, Dv: int, nr: int, nlev: int,
-                       quant: bool = False) -> AttendStages:
+                       quant: bool = False,
+                       half: bool = False) -> AttendStages:
     """The staged attend's launch plan, as ``attend_plan`` in
     ``csrc/h1d_decode.cu`` computes it (``quant``: the pool has int8
-    levels): every band's keys and values resident (2 (nlev + 1) slots of
-    nr rows) where that fits in :data:`SMEM_LIMIT`; else a ring of as many
-    slots as fit, its chunks halved from nr rows while fewer than 2 fit
-    (never below :func:`attend_quantum`).  Raises ``ValueError`` with the
-    sizes where not even one chunk fits."""
+    levels; ``half``: its other levels are bf16, staged in the slots f32
+    rows take, so only the quantum changes): every band's keys and values
+    resident (2 (nlev + 1) slots of nr rows) where that fits in
+    :data:`SMEM_LIMIT`; else a ring of as many slots as fit, its chunks
+    halved from nr rows while fewer than 2 fit (never below
+    :func:`attend_quantum`).  Raises ``ValueError`` with the sizes where
+    not even one chunk fits."""
     nb = nlev + 1
-    quantum = attend_quantum(D, Dv, nr, quant)
+    quantum = attend_quantum(D, Dv, nr, quant, half)
     smem = _attend_smem(G, D, Dv, nr, nlev, 2 * nb, nr, quant)
     if smem <= SMEM_LIMIT:
         return AttendStages(2 * nb, nr, quantum, smem, True)
@@ -362,33 +386,50 @@ def decode_attend_ref(cache, q, t, *, nr: int, softmax_scale=None):
 decode_attend_ref.calls = 0
 
 
+def _carry_pair(carry, stored, sel):
+    """One level of the f32 carry chain: the sibling pair (R, 2, W) as
+    the reference's Pallas update holds it, widened, with the carry in
+    row ``sel`` (R,) (2: in neither).  Returns (row 0, row 1)."""
+    stored = stored.to(carry.dtype)
+    return (torch.where((sel == 0)[:, None], carry, stored[:, 0]),
+            torch.where((sel == 1)[:, None], carry, stored[:, 1]))
+
+
 def _update_pairs(cache, k_new, v_new, t, owned=None):
-    """The ancestor walk shared by the plain dense updates, in place: at
+    """The ancestor walk shared by the plain dense updates, in place, in
+    the reference's Pallas numerics (``_update_kernel``): one unrounded
+    f32 carry chain, each stored row rounded to the cache dtype.  At
     level l the token's ancestor ``t >> l`` sits in sibling pair
     ``min(t >> (l+1), npairs - 1)`` (the kernels' clamp, so an
-    out-of-range ``t`` writes the last pair as they do) at row
-    ``(t >> l) & 1``; the next level's carry is the pair's mean (k) or sum
-    (v).  With ``owned`` (R,) only its nonzero rows write, and the carry
-    past the last level is returned."""
+    out-of-range ``t`` writes the last pair as they do) at row ``(t >>
+    l) & 1``; the next level's carry is the f32 pair's mean (k) or sum
+    (v).  With ``owned`` (R,) only its nonzero rows write (a non-owner
+    carries its pair as stored), and the carry past the last level is
+    returned in f32."""
     R = k_new.shape[0]
     rows = torch.arange(R, device=k_new.device)
     t = t.to(torch.long)
-    write = None if owned is None else (owned != 0)[:, None]
-    carry_k, carry_v = k_new.to(cache.k.dtype), v_new.to(cache.v.dtype)
+    own = None if owned is None else (owned != 0)
+    f32 = _work_dtype(cache.k)
+    carry_k, carry_v = k_new.to(f32), v_new.to(f32)
     nlev = 1 + len(cache.ck)
     for l, (k, v) in enumerate(zip((cache.k, *cache.ck),
                                    (cache.v, *cache.cv))):
         lo = 2 * torch.clamp(t >> (l + 1), max=k.shape[1] // 2 - 1)
-        hi = lo + 1
-        row = lo + ((t >> l) & 1)
-        if write is not None:
-            carry_k = torch.where(write, carry_k, k[rows, row])
-            carry_v = torch.where(write, carry_v, v[rows, row])
-        k[rows, row] = carry_k
-        v[rows, row] = carry_v
+        sel = (t >> l) & 1
+        if own is not None:        # a non-owner puts no row in its pair
+            sel = torch.where(own, sel, 2)
+        pair = torch.stack((lo, lo + 1), dim=1)
+        k0, k1 = _carry_pair(carry_k, k[rows[:, None], pair], sel)
+        v0, v1 = _carry_pair(carry_v, v[rows[:, None], pair], sel)
+        w = rows if own is None else rows[own]
+        row = (lo + sel.clamp(max=1))[w]
+        pick = (sel[w] == 1)[:, None]
+        k[w, row] = torch.where(pick, k1[w], k0[w]).to(k.dtype)
+        v[w, row] = torch.where(pick, v1[w], v0[w]).to(v.dtype)
         if owned is not None or l + 1 < nlev:
-            carry_k = (k[rows, lo] + k[rows, hi]) * 0.5     # Eq. 25/26
-            carry_v = v[rows, lo] + v[rows, hi]             # Eq. 27
+            carry_k = (k0 + k1) * 0.5                       # Eq. 25/26
+            carry_v = v0 + v1                               # Eq. 27
     return carry_k, carry_v
 
 
@@ -436,10 +477,11 @@ def update_cache_partial_ref(cache, k_new, v_new, t_loc, owned):
     ``owned != 0`` write, at the shard-local ``t_loc`` (the pair index
     clamps, the sibling parity keeps the unclamped bits).  Returns
     ``(cache, carry_k (R, D), carry_v (R, Dv))``, the pair mean / sum
-    past the last level (from the unchanged pair on non-owner rows)."""
+    past the last level (from the unchanged pair on non-owner rows),
+    rounded to the cache dtype as the reference's kernel stores it."""
     update_cache_partial_ref.calls += 1
     carry_k, carry_v = _update_pairs(cache, k_new, v_new, t_loc, owned)
-    return cache, carry_k, carry_v
+    return cache, carry_k.to(cache.k.dtype), carry_v.to(cache.v.dtype)
 
 
 update_cache_partial_ref.calls = 0
@@ -498,22 +540,30 @@ decode_attend_paged_quant_ref.calls = 0
 
 
 def update_cache_paged_ref(pool, k_new, v_new, t, utab):
-    """Plain paged ancestor update, in place (mirror of the fp32 jnp path
-    of ``repro.core.h1d_decode.update_cache_paged``).  k_new (R, D),
-    v_new (R, Dv), t (R,), utab (R, 1 + levels)."""
+    """Plain paged ancestor update, in place, in the numerics of the
+    reference's Pallas ``update_cache_paged`` (one f32 carry chain, each
+    stored row rounded to the pool dtype; in fp32 the jnp path's bits).
+    k_new (R, D), v_new (R, Dv), t (R,), utab (R, 1 + levels): level l's
+    pair on page ``utab[:, l]`` at rows ``((t >> l) % nr) & ~1`` and the
+    one after."""
     update_cache_paged_ref.calls += 1
     t = t.to(torch.long)
     utab = utab.to(torch.long)
     nr = pool.k.shape[-2]
-    row0 = t % nr
-    pool.k[utab[:, 0], row0] = k_new.to(pool.k.dtype)
-    pool.v[utab[:, 0], row0] = v_new.to(pool.v.dtype)
-    page, base, k_lo, v_lo = utab[:, 0], row0 & ~1, pool.k, pool.v
-    for l, (ckl, cvl) in enumerate(zip(pool.ck, pool.cv), start=1):
-        rowl = (t >> l) % nr
-        ckl[utab[:, l], rowl] = (k_lo[page, base] + k_lo[page, base + 1]) * 0.5
-        cvl[utab[:, l], rowl] = v_lo[page, base] + v_lo[page, base + 1]
-        page, base, k_lo, v_lo = utab[:, l], rowl & ~1, ckl, cvl
+    f32 = _work_dtype(pool.k)
+    carry_k, carry_v = k_new.to(f32), v_new.to(f32)
+    two = torch.arange(2, device=t.device)
+    for l, (k, v) in enumerate(zip((pool.k, *pool.ck), (pool.v, *pool.cv))):
+        page = utab[:, l]
+        row = (t >> l) % nr
+        sel = (t >> l) & 1
+        pair = (row & ~1)[:, None] + two[None, :]
+        k0, k1 = _carry_pair(carry_k, k[page[:, None], pair], sel)
+        v0, v1 = _carry_pair(carry_v, v[page[:, None], pair], sel)
+        k[page, row] = carry_k.to(k.dtype)
+        v[page, row] = carry_v.to(v.dtype)
+        carry_k = (k0 + k1) * 0.5                           # Eq. 25/26
+        carry_v = v0 + v1                                   # Eq. 27
     return pool
 
 
@@ -566,59 +616,92 @@ update_cache_paged_quant_ref.calls = 0
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
+def _elem(dtype, what: str) -> int:
+    """``half`` for a cache element type the kernels take; raises for
+    any other."""
+    if dtype not in CACHE_DTYPES:
+        raise ValueError(f"{what}: the decode kernels take float32 or "
+                         f"bfloat16 caches, got {dtype}")
+    return int(dtype == torch.bfloat16)
+
+
+def _f32(x):
+    """A kernel operand widened to float32 (exact from bfloat16)."""
+    return x.to(torch.float32).contiguous()
+
+
+def _count(wrapper, half: int) -> None:
+    """One launch of ``wrapper``; a launch on bf16 levels also counts
+    under ``mode_launches["bf16"]`` (its own row on the card)."""
+    wrapper.launches += 1
+    if half:
+        wrapper.mode_launches["bf16"] = (
+            wrapper.mode_launches.get("bf16", 0) + 1)
+
+
 def _check_cache(cache, R, D, Dv):
+    """Validate a dense cache (every level of one element type); returns
+    (Lmax, half)."""
     Lmax = cache.k.shape[-2]
-    _build.expect(cache.k, "cache.k", (R, Lmax, D))
-    _build.expect(cache.v, "cache.v", (R, Lmax, Dv))
+    dt = cache.k.dtype
+    half = _elem(dt, "cache.k")
+    _build.expect(cache.k, "cache.k", (R, Lmax, D), dt)
+    _build.expect(cache.v, "cache.v", (R, Lmax, Dv), dt)
     for l, (ckl, cvl) in enumerate(zip(cache.ck, cache.cv), start=1):
-        _build.expect(ckl, f"cache.ck[{l - 1}]", (R, Lmax >> l, D))
-        _build.expect(cvl, f"cache.cv[{l - 1}]", (R, Lmax >> l, Dv))
-    return Lmax
+        _build.expect(ckl, f"cache.ck[{l - 1}]", (R, Lmax >> l, D), dt)
+        _build.expect(cvl, f"cache.cv[{l - 1}]", (R, Lmax >> l, Dv), dt)
+    return Lmax, half
 
 
 def decode_attend_fused(cache, q, t, *, nr: int, softmax_scale=None):
-    """Batched single-token attention.  q (R, G, D), t (R,) int32.  CPU
-    tensors take :func:`decode_attend_ref`; CUDA tensors launch
-    ``h1d_decode_attend`` (the staged body; a shape
-    :func:`plan_attend_stages` cannot fit raises)."""
+    """Batched single-token attention.  q (R, G, D), t (R,) int32; the
+    cache float32 or bfloat16.  CPU tensors take
+    :func:`decode_attend_ref`; CUDA tensors launch ``h1d_decode_attend``
+    (the staged body; a shape :func:`plan_attend_stages` cannot fit
+    raises).  Returns (R, G, Dv) in ``q.dtype``, computed in f32 (a bf16
+    q is widened first, as the reference's kernel widens it)."""
     if q.device.type == "cpu":
         return decode_attend_ref(cache, q, t, nr=nr,
                                  softmax_scale=softmax_scale)
     lib = _lib()
     R, G, D = q.shape
     Dv = cache.v.shape[-1]
-    Lmax = _check_cache(cache, R, D, Dv)
+    Lmax, half = _check_cache(cache, R, D, Dv)
     M = hc.num_levels(Lmax, nr)
     if len(cache.ck) != max(M - 1, 0):
         raise ValueError(f"cache has {len(cache.ck)} coarse levels, "
                          f"Lmax={Lmax} and nr={nr} need {max(M - 1, 0)}")
-    _build.expect(q, "q", (R, G, D))
+    qf = _f32(q)
+    _build.expect(qf, "q", (R, G, D))
     _build.expect(t, "t", (R,), torch.int32)
-    plan_attend_stages(G, D, Dv, nr, 1 + len(cache.ck))
+    plan_attend_stages(G, D, Dv, nr, 1 + len(cache.ck), half=bool(half))
     scale = softmax_scale if softmax_scale is not None else 1 / math.sqrt(D)
     out = torch.empty((R, G, Dv), dtype=torch.float32, device=q.device)
     _build.check(lib.h1d_decode_attend(
-        q.data_ptr(), cache.k.data_ptr(), cache.v.data_ptr(),
+        qf.data_ptr(), cache.k.data_ptr(), cache.v.data_ptr(),
         _ptrs(cache.ck), _ptrs(cache.cv), t.data_ptr(), out.data_ptr(),
-        R, G, Lmax, D, Dv, nr, len(cache.ck), float(scale),
+        R, G, Lmax, D, Dv, nr, len(cache.ck), float(scale), half,
         _build.stream()), "h1d_decode_attend")
-    decode_attend_fused.launches += 1
-    return out
+    _count(decode_attend_fused, half)
+    return out.to(q.dtype)
 
 
 decode_attend_fused.launches = 0
+decode_attend_fused.mode_launches = {}
 
 
 def update_cache_fused(cache, k_new, v_new, t):
-    """In-place cache append.  k_new (R, D), v_new (R, Dv), t (R,) int32.
-    CPU tensors take :func:`update_cache_ref`; CUDA tensors launch
-    ``h1d_update_cache``.  Returns ``cache``."""
+    """In-place cache append.  k_new (R, D), v_new (R, Dv), t (R,) int32;
+    the cache float32 or bfloat16 (each stored row rounded to it, the
+    carry chain in f32).  CPU tensors take :func:`update_cache_ref`; CUDA
+    tensors launch ``h1d_update_cache``.  Returns ``cache``."""
     if k_new.device.type == "cpu":
         return update_cache_ref(cache, k_new, v_new, t)
     lib = _lib()
     R, D = k_new.shape
     Dv = v_new.shape[-1]
-    Lmax = _check_cache(cache, R, D, Dv)
+    Lmax, half = _check_cache(cache, R, D, Dv)
+    k_new, v_new = _f32(k_new), _f32(v_new)
     _build.expect(k_new, "k_new", (R, D))
     _build.expect(v_new, "v_new", (R, Dv))
     _build.expect(t, "t", (R,), torch.int32)
@@ -626,13 +709,14 @@ def update_cache_fused(cache, k_new, v_new, t):
     vs = [cache.v, *cache.cv]
     _build.check(lib.h1d_update_cache(
         k_new.data_ptr(), v_new.data_ptr(), t.data_ptr(), _ptrs(ks),
-        _ptrs(vs), R, Lmax, D, Dv, len(ks), _build.stream()),
+        _ptrs(vs), R, Lmax, D, Dv, len(ks), half, _build.stream()),
         "h1d_update_cache")
-    update_cache_fused.launches += 1
+    _count(update_cache_fused, half)
     return cache
 
 
 update_cache_fused.launches = 0
+update_cache_fused.mode_launches = {}
 
 
 # ---------------------------------------------------------------------------
@@ -641,49 +725,55 @@ update_cache_fused.launches = 0
 
 def _check_pool(pool, nr: int, D: int, Dv: int, quant: bool):
     """Validate a paged pool's levels; returns (ks, vs, kscs, vscs,
-    qmask).  Levels of an fp32 pool are float32; a quantized pool's
-    levels are int8 (with (NP_l, nr) f32 scales) or float32."""
+    qmask, half).  Levels of an unquantized pool are all float32 or all
+    bfloat16; a quantized pool's levels are int8 (with (NP_l, nr) f32
+    scales) or, all of one type, float32 or bfloat16."""
     ks, vs = [pool.k, *pool.ck], [pool.v, *pool.cv]
     if not 1 <= len(ks) <= 32:
         raise ValueError(f"pool has {len(ks)} levels; 1..32 supported")
     kscs = vscs = None
     if quant:
         kscs, vscs = [pool.ksc, *pool.cksc], [pool.vsc, *pool.cvsc]
+    plain = [k.dtype for k in ks if not (quant and k.dtype == torch.int8)]
+    fdt = plain[0] if plain else torch.float32
+    half = _elem(fdt, "pool levels")
     qmask = 0
     for l, (k, v) in enumerate(zip(ks, vs)):
         n = k.shape[0]
         is_q = quant and k.dtype == torch.int8
-        dt = torch.int8 if is_q else torch.float32
+        dt = torch.int8 if is_q else fdt
         _build.expect(k, f"pool level {l} k", (n, nr, D), dt)
         _build.expect(v, f"pool level {l} v", (n, nr, Dv), dt)
         if is_q:
             qmask |= 1 << l
             _build.expect(kscs[l], f"pool level {l} k scales", (n, nr))
             _build.expect(vscs[l], f"pool level {l} v scales", (n, nr))
-    return ks, vs, kscs, vscs, qmask
+    return ks, vs, kscs, vscs, qmask, half
 
 
 def _attend_paged_launch(fn, pool, q, t, bidx, nr, softmax_scale, quant):
     lib = _lib()
     R, G, D = q.shape
     Dv = pool.v.shape[-1]
-    ks, vs, kscs, vscs, qmask = _check_pool(pool, nr, D, Dv, quant)
-    _build.expect(q, "q", (R, G, D))
+    ks, vs, kscs, vscs, qmask, half = _check_pool(pool, nr, D, Dv, quant)
+    qf = _f32(q)
+    _build.expect(qf, "q", (R, G, D))
     _build.expect(t, "t", (R,), torch.int32)
     _build.expect(bidx, "bidx", (R, 1 + len(ks)), torch.int32)
-    plan_attend_stages(G, D, Dv, nr, len(ks), quant=qmask != 0)
+    plan_attend_stages(G, D, Dv, nr, len(ks), quant=qmask != 0,
+                       half=bool(half))
     scale = softmax_scale if softmax_scale is not None else 1 / math.sqrt(D)
     out = torch.empty((R, G, Dv), dtype=torch.float32, device=q.device)
-    head = (q.data_ptr(), _ptrs(ks), _ptrs(vs))
+    head = (qf.data_ptr(), _ptrs(ks), _ptrs(vs))
     tail = (t.data_ptr(), bidx.data_ptr(), out.data_ptr(), R, G, D, Dv, nr,
-            len(ks), float(scale), _build.stream())
+            len(ks), float(scale), half, _build.stream())
     if quant:
         err = lib.h1d_decode_attend_paged_quant(
             *head, _ptrs(kscs), _ptrs(vscs), qmask, *tail)
     else:
         err = lib.h1d_decode_attend_paged(*head, *tail)
     _build.check(err, fn)
-    return out
+    return out.to(q.dtype), half
 
 
 def decode_attend_paged(pool, q, t, bidx, *, nr: int, softmax_scale=None):
@@ -694,13 +784,14 @@ def decode_attend_paged(pool, q, t, bidx, *, nr: int, softmax_scale=None):
     if q.device.type == "cpu":
         return decode_attend_paged_ref(pool, q, t, bidx, nr=nr,
                                        softmax_scale=softmax_scale)
-    out = _attend_paged_launch("h1d_decode_attend_paged", pool, q, t, bidx,
-                               nr, softmax_scale, quant=False)
-    decode_attend_paged.launches += 1
+    out, half = _attend_paged_launch("h1d_decode_attend_paged", pool, q, t,
+                                     bidx, nr, softmax_scale, quant=False)
+    _count(decode_attend_paged, half)
     return out
 
 
 decode_attend_paged.launches = 0
+decode_attend_paged.mode_launches = {}
 
 
 def decode_attend_paged_quant(pool, q, t, bidx, *, nr: int,
@@ -711,13 +802,15 @@ def decode_attend_paged_quant(pool, q, t, bidx, *, nr: int,
     if q.device.type == "cpu":
         return decode_attend_paged_quant_ref(pool, q, t, bidx, nr=nr,
                                              softmax_scale=softmax_scale)
-    out = _attend_paged_launch("h1d_decode_attend_paged_quant", pool, q, t,
-                               bidx, nr, softmax_scale, quant=True)
-    decode_attend_paged_quant.launches += 1
+    out, half = _attend_paged_launch("h1d_decode_attend_paged_quant", pool,
+                                     q, t, bidx, nr, softmax_scale,
+                                     quant=True)
+    _count(decode_attend_paged_quant, half)
     return out
 
 
 decode_attend_paged_quant.launches = 0
+decode_attend_paged_quant.mode_launches = {}
 
 
 def _update_paged_launch(fn, pool, k_new, v_new, t, utab, quant):
@@ -725,7 +818,11 @@ def _update_paged_launch(fn, pool, k_new, v_new, t, utab, quant):
     R, D = k_new.shape
     Dv = v_new.shape[-1]
     nr = pool.k.shape[-2]
-    ks, vs, kscs, vscs, qmask = _check_pool(pool, nr, D, Dv, quant)
+    ks, vs, kscs, vscs, qmask, half = _check_pool(pool, nr, D, Dv, quant)
+    if quant and half:
+        raise ValueError("the int8 pool's update takes float32 levels "
+                         "beside its int8 ones, not bfloat16 (ROADMAP B)")
+    k_new, v_new = _f32(k_new), _f32(v_new)
     _build.expect(k_new, "k_new", (R, D))
     _build.expect(v_new, "v_new", (R, Dv))
     _build.expect(t, "t", (R,), torch.int32)
@@ -744,14 +841,14 @@ def _update_paged_launch(fn, pool, k_new, v_new, t, utab, quant):
                 f"memory; the H100 gives {SMEM_LIMIT}")
     head = (k_new.data_ptr(), v_new.data_ptr(), t.data_ptr(),
             utab.data_ptr(), _ptrs(ks), _ptrs(vs))
-    tail = (R, D, Dv, nr, len(ks), _build.stream())
+    tail = (R, D, Dv, nr, len(ks))
     if quant:
         err = lib.h1d_update_cache_paged_quant(
-            *head, _ptrs(kscs), _ptrs(vscs), qmask, *tail)
+            *head, _ptrs(kscs), _ptrs(vscs), qmask, *tail, _build.stream())
     else:
-        err = lib.h1d_update_cache_paged(*head, *tail)
+        err = lib.h1d_update_cache_paged(*head, *tail, half, _build.stream())
     _build.check(err, fn)
-    return pool
+    return half
 
 
 def update_cache_paged(pool, k_new, v_new, t, utab):
@@ -761,13 +858,14 @@ def update_cache_paged(pool, k_new, v_new, t, utab):
     ``h1d_update_cache_paged``.  Returns ``pool``."""
     if k_new.device.type == "cpu":
         return update_cache_paged_ref(pool, k_new, v_new, t, utab)
-    _update_paged_launch("h1d_update_cache_paged", pool, k_new, v_new, t,
-                         utab, quant=False)
-    update_cache_paged.launches += 1
+    half = _update_paged_launch("h1d_update_cache_paged", pool, k_new, v_new,
+                                t, utab, quant=False)
+    _count(update_cache_paged, half)
     return pool
 
 
 update_cache_paged.launches = 0
+update_cache_paged.mode_launches = {}
 
 
 def update_cache_paged_quant(pool, k_new, v_new, t, utab):
@@ -805,20 +903,23 @@ def decode_attend_partial(cache, q, t, bidx, owned, *, nr: int,
     ks, vs = [cache.k, *cache.ck], [cache.v, *cache.cv]
     if len(ks) > 32:
         raise ValueError(f"cache has {len(ks)} levels; 1..32 supported")
+    dt = cache.k.dtype
+    half = _elem(dt, "cache.k")
     rows = []
     for l, (k, v) in enumerate(zip(ks, vs)):
         n = k.shape[1]
         if n < nr or n % nr:
             raise ValueError(f"level {l} holds {n} rows, not a positive "
                              f"multiple of nr={nr}")
-        _build.expect(k, f"level {l} k", (R, n, D))
-        _build.expect(v, f"level {l} v", (R, n, Dv))
+        _build.expect(k, f"level {l} k", (R, n, D), dt)
+        _build.expect(v, f"level {l} v", (R, n, Dv), dt)
         rows.append(n)
+    q = _f32(q)
     _build.expect(q, "q", (R, G, D))
     _build.expect(t, "t", (R,), torch.int32)
     _build.expect(bidx, "bidx", (R, 1 + len(ks)), torch.int32)
     _build.expect(owned, "owned", (R, 1 + len(ks)), torch.int32)
-    plan_attend_stages(G, D, Dv, nr, len(ks))
+    plan_attend_stages(G, D, Dv, nr, len(ks), half=bool(half))
     scale = softmax_scale if softmax_scale is not None else 1 / math.sqrt(D)
     f32 = torch.float32
     num = torch.empty((R, G, Dv), dtype=f32, device=q.device)
@@ -828,12 +929,13 @@ def decode_attend_partial(cache, q, t, bidx, owned, *, nr: int,
         q.data_ptr(), _ptrs(ks), _ptrs(vs), (ctypes.c_int * len(rows))(*rows),
         t.data_ptr(), bidx.data_ptr(), owned.data_ptr(), num.data_ptr(),
         den.data_ptr(), m.data_ptr(), R, G, D, Dv, nr, len(ks), float(scale),
-        _build.stream()), "h1d_decode_attend_partial")
-    decode_attend_partial.launches += 1
+        half, _build.stream()), "h1d_decode_attend_partial")
+    _count(decode_attend_partial, half)
     return num, den, m
 
 
 decode_attend_partial.launches = 0
+decode_attend_partial.mode_launches = {}
 
 
 def update_cache_partial(cache, k_new, v_new, t_loc, owned):
@@ -841,28 +943,30 @@ def update_cache_partial(cache, k_new, v_new, t_loc, owned):
     D), v_new (R, Dv), t_loc and owned (R,) int32.  CPU tensors take
     :func:`update_cache_partial_ref`; CUDA tensors launch
     ``h1d_update_cache_partial``.  Returns ``(cache, carry_k,
-    carry_v)``."""
+    carry_v)``, the carries in the cache dtype."""
     if k_new.device.type == "cpu":
         return update_cache_partial_ref(cache, k_new, v_new, t_loc, owned)
     lib = _lib()
     R, D = k_new.shape
     Dv = v_new.shape[-1]
-    Lloc = _check_cache(cache, R, D, Dv)
+    Lloc, half = _check_cache(cache, R, D, Dv)
+    k_new, v_new = _f32(k_new), _f32(v_new)
     _build.expect(k_new, "k_new", (R, D))
     _build.expect(v_new, "v_new", (R, Dv))
     _build.expect(t_loc, "t_loc", (R,), torch.int32)
     _build.expect(owned, "owned", (R,), torch.int32)
     ks = [cache.k, *cache.ck]
     vs = [cache.v, *cache.cv]
-    carry_k = torch.empty((R, D), dtype=torch.float32, device=k_new.device)
-    carry_v = torch.empty((R, Dv), dtype=torch.float32, device=k_new.device)
+    carry_k = torch.empty((R, D), dtype=cache.k.dtype, device=k_new.device)
+    carry_v = torch.empty((R, Dv), dtype=cache.v.dtype, device=k_new.device)
     _build.check(lib.h1d_update_cache_partial(
         k_new.data_ptr(), v_new.data_ptr(), t_loc.data_ptr(),
         owned.data_ptr(), _ptrs(ks), _ptrs(vs), carry_k.data_ptr(),
-        carry_v.data_ptr(), R, Lloc, D, Dv, len(ks), _build.stream()),
+        carry_v.data_ptr(), R, Lloc, D, Dv, len(ks), half, _build.stream()),
         "h1d_update_cache_partial")
-    update_cache_partial.launches += 1
+    _count(update_cache_partial, half)
     return cache, carry_k, carry_v
 
 
 update_cache_partial.launches = 0
+update_cache_partial.mode_launches = {}

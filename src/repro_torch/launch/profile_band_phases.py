@@ -191,8 +191,8 @@ ATTEND_STAGED = dict(
          "bulk:\n", 0, "before"),
         ("      const int cnt = tru ? min(nr, ceil_to(tru, p.quantum)) : 0;\n",
          1, "after"),
-        ("                  cnt * D * 4, bar + b);\n", 2, "after"),
-        ("                  cnt * Dv * 4, bar + nb + b);\n", 3, "after"),
+        ("                  cnt * D * ES, bar + b);\n", 2, "after"),
+        ("                  cnt * Dv * ES, bar + nb + b);\n", 3, "after"),
         ("  __syncthreads();\n  // setup done\n", 4, "after"),
         ("      mbar_wait(bar + s, parity_of(c));\n      const float* kb = "
          "ring + (size_t)s * p.slot;\n", 5, "after"),
@@ -202,7 +202,7 @@ ATTEND_STAGED = dict(
         ("      for (int cv0 = 0; cv0 < ncv_v; cv0 += VL) {      // "
          "warp-uniform\n", 8, "before"),
         ("          mbar_wait(bar + s, parity_of(nch + c));\n          const "
-         "float* vb = ring + (size_t)s * p.slot + cv * VW;\n", 9, "after"),
+         "float* vs = ring + (size_t)s * p.slot;\n", 9, "after"),
         ("            const int jn = min(32, ch.n - jb);\n", 10, "before"),
         ("            else values(std::false_type{});\n", 11, "after"),
         ("#pragma unroll\n      for (int i = 0; i < GC; ++i) {\n        "
@@ -236,7 +236,7 @@ UPDATE_CHAIN = dict(
          0, "before"),
         ("  // first row of level l's pair in the k (is_k) or v array", 1,
          "before", "if ((t ^ (int)own) == -7) g_sink = 1;\n"),
-        ("      cp_async4(pr + (2 * l + 1) * T + tid, p + W);\n    }\n", 2,
+        ("      stage_elem(pr + (2 * l + 1) * T + tid, p + W);\n    }\n", 2,
          "after"),
         ('    asm volatile("cp.async.wait_all;" ::: "memory");\n    float '
          "x0 = pr[tid]", 3,
@@ -244,7 +244,7 @@ UPDATE_CHAIN = dict(
         ("      x0 = y0;\n      x1 = y1;\n    }\n", 4, "after",
          "if (carry == 1.5e-38f) g_sink = 1;\n"),
         ("    if (ADDR == ADDR_LOCAL)\n      (is_k ? carry_k : carry_v)"
-         "[(size_t)r * W + col] = carry;\n  }\n", 5, "after"),
+         "[(size_t)r * W + col] = to_elem<E>(carry);\n  }\n", 5, "after"),
     ])
 # The streamed l0_causal bodies: #1's band_stream_kernel, #3's
 # stream_dq_kernel and stream_dkvw_kernel.

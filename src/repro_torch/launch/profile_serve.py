@@ -4,10 +4,12 @@ another ported config, such as ``gemma3-4b``).
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         [--arch h1d-lm-53m] [--rows 8] [--prompt 1024] [--max-len 2048] \
-        [--paged [--cache-dtype int8]] [--sp-data N]
+        [--paged [--cache-dtype int8]] [--sp-data N] [--dtype float32]
 
-Seeded random weights and tokens, in float32 (the one dtype the port
-serves; a bfloat16 config such as ``gemma3-4b`` is profiled in float32).  ``--paged`` also profiles a paged
+Seeded random weights and tokens, in the config's published dtype
+(``--dtype`` overrides it: ``--dtype float32`` profiles a bfloat16 config
+such as ``gemma3-4b`` in float32, as the port ran it before bfloat16).
+``--paged`` also profiles a paged
 decode tick over the same prompts (a dense-equivalent page pool filled
 from the prefill; ``--cache-dtype int8`` quantizes every level): the
 tick's host work (``prepare_tick``, page copies, ``build_tables`` and
@@ -36,7 +38,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch import resolve_device
+from repro_torch import exact_products, resolve_device
 from repro_torch.configs import get_config
 from repro_torch.core import hierarchy as hc
 from repro_torch.launch.mesh import make_mesh
@@ -46,9 +48,10 @@ from repro_torch.serve import paged_cache as pc
 
 # the sub-level kernels (sub_fwd_kernel, sub_bwd_kernel) also run #1 / #3
 # in coarse_causal; the other band modes are band_*_kernel<mode>.  #7, #11,
-# #8 and #5 run attend_staged_kernel<ADDR, VW> (ADDR 1, 2, 3 and 4), and
-# #9, #12 and #6 update_chain_kernel<ADDR> (ADDR 1, 2 and 4).  The first
-# key contained in a kernel's name wins.
+# #8 and #5 run attend_staged_kernel<ADDR, VW, E> (ADDR 1, 2, 3 and 4), and
+# #9, #12 and #6 update_chain_kernel<ADDR, E> (ADDR 1, 2 and 4), E the
+# cache element (float or __nv_bfloat16).  The first key contained in a
+# kernel's name wins.
 OWN = {"band_stream_kernel": "band_attention_fwd[l0_causal_stream]",
        "stream_dq_kernel": "band_attention_bwd[l0_causal_stream]",
        "stream_dkvw_kernel": "band_attention_bwd[l0_causal_stream]",
@@ -61,9 +64,9 @@ OWN = {"band_stream_kernel": "band_attention_fwd[l0_causal_stream]",
        "attend_staged_kernel<3,": "decode_attend_paged_quant",
        "attend_staged_kernel<2,": "decode_attend_partial",
        "attend_staged_kernel<4,": "decode_attend_fused",
-       "update_chain_kernel<4>": "update_cache_fused",
-       "update_chain_kernel<2>": "update_cache_partial",
-       "update_chain_kernel<1>": "update_cache_paged",
+       "update_chain_kernel<4,": "update_cache_fused",
+       "update_chain_kernel<2,": "update_cache_partial",
+       "update_chain_kernel<1,": "update_cache_paged",
        "update_cache_quant_kernel": "update_cache_paged_quant"}
 
 
@@ -73,8 +76,8 @@ def _group(name: str) -> str:
         if key in compact:
             return label
     low = name.lower()
-    if "gemm" in low or "gemv" in low or "cutlass" in low or "xmma" in low:
-        return "matmul"
+    if any(k in low for k in ("gemm", "gemv", "cutlass", "xmma", "nvjet")):
+        return "matmul"     # nvjet: cuBLAS's bf16 tensor-core kernels
     return "other"
 
 
@@ -202,12 +205,15 @@ def main(argv=None):
     ap.add_argument("--sp-data", type=int, default=1,
                     help="also profile a sequence-parallel decode tick over "
                          "N shards")
+    ap.add_argument("--dtype", default=None, choices=["float32", "bfloat16"],
+                    help="weights and caches (default: the config's)")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args(argv)
 
     dev = resolve_device(None)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = dataclasses.replace(get_config(args.arch), dtype="float32")
+    exact_products()
+    cfg = get_config(args.arch)
+    cfg = dataclasses.replace(cfg, dtype=args.dtype or cfg.dtype)
     fns = get_model(cfg)
     params = fns.init(cfg, seed=args.seed, device=dev)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -222,7 +228,7 @@ def main(argv=None):
 
     prefill()                                           # warm-up
     res = {"device": torch.cuda.get_device_name(dev), "arch": cfg.name,
-           "rows": args.rows, "prompt": args.prompt,
+           "dtype": cfg.dtype, "rows": args.rows, "prompt": args.prompt,
            "max_len": args.max_len}
     res["prefill"] = profiled(prefill, 3)
 

@@ -7,8 +7,9 @@ LM, or of another configuration the port trains.
     PYTHONPATH=src python -m repro_torch.launch.profile_train \
         --arch gemma3-4b --layers 6 --batch 1 --seq 4096
 
-A configuration published in bfloat16 (gemma3-4b) runs in float32, the
-only weight type the port has; ``--layers N`` cuts its depth to N layers
+A configuration runs in its published dtype (gemma3-4b, llama3.2-1b:
+bfloat16), or in ``--dtype``'s (``--dtype float32`` as the port ran
+gemma3-4b before bfloat16); ``--layers N`` cuts its depth to N layers
 (gemma3-4b: the first N of its 5:1 local:global cadence), for this
 profiler only.  The step's peak device memory is reported beside its
 times.
@@ -37,7 +38,7 @@ import json
 
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import exact_products, resolve_device
 from repro_torch.configs import get_config
 from repro_torch.data import ZipfLM
 from repro_torch.launch.mesh import make_mesh
@@ -61,13 +62,16 @@ def main(argv=None):
                     help="shards of a sequence-parallel mesh (1: none)")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth to this many layers")
+    ap.add_argument("--dtype", default=None, choices=["float32", "bfloat16"],
+                    help="weights (default: the config's)")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args(argv)
 
     dev = resolve_device(None)
     mesh = make_mesh((args.sp,), ("data",), device=dev)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = dataclasses.replace(get_config(args.arch), dtype="float32")
+    exact_products()
+    cfg = get_config(args.arch)
+    cfg = dataclasses.replace(cfg, dtype=args.dtype or cfg.dtype)
     if args.layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
     tc = TrainConfig(peak_lr=3e-4, warmup=5, ckpt_every=0)
@@ -106,7 +110,7 @@ def main(argv=None):
             step_fn(state, batch)
 
     res = {"device": torch.cuda.get_device_name(dev), "arch": cfg.name,
-           "layers": cfg.num_layers, "remat": cfg.remat,
+           "dtype": cfg.dtype, "layers": cfg.num_layers, "remat": cfg.remat,
            "remat_policy": cfg.remat_policy, "batch": args.batch,
            "seq": args.seq, "sp_shards": args.sp}
     with torch.no_grad():

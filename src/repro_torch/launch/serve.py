@@ -18,9 +18,10 @@ stores its pages as int8 (``--quant-levels``):
     PYTHONPATH=src python -m repro_torch.launch.serve --paged \
         --cache-dtype int8 --requests 8 --slots 4 --max-len 512
 
-``--arch gemma3-4b`` serves gemma3's 5:1 local:global stack (its
-published config is bfloat16, which the port does not serve yet, so it
-raises ``NotImplementedError``; ``--smoke`` runs its fp32 smoke config).
+``--arch`` takes every config of ``repro_torch.configs``: the dense
+assigned ones (yi-6b, qwen2.5-14b, llama3.2-1b, gemma3-4b with its 5:1
+local:global stack) run at their published bfloat16, weights and caches
+alike; ``--smoke`` runs a config's fp32 smoke config.
 ``--sp-data N`` splits each layer's cache along its sequence axis into
 ``N`` shards on the one device and serves through the sequence-parallel
 kernels (``parallel/sp_attention.py``):
@@ -38,11 +39,12 @@ import time
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import exact_products, resolve_device
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import get_model
 from repro_torch.serve import Request, ServeEngine
+from repro_torch.tree import tree_leaves
 
 
 def main(argv=None):
@@ -95,10 +97,18 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
+    exact_products()
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
     if args.causal_mode is not None:
         cfg = dataclasses.replace(cfg, causal_mode=args.causal_mode)
+    t_w = time.perf_counter()
     params = get_model(cfg).init(cfg, seed=args.seed, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    print(f"[serve] {cfg.name}: {cfg.num_layers} layers, "
+          f"{sum(p.numel() for p in tree_leaves(params)) / 1e9:.2f} B "
+          f"parameters in {cfg.dtype}, drawn in "
+          f"{time.perf_counter() - t_w:.1f}s")
     mesh = (make_mesh((args.sp_data,), ("data",), device=dev)
             if args.sp_data > 1 else None)
     eng = ServeEngine(cfg, params, slots=args.slots, max_len=args.max_len,
@@ -131,6 +141,9 @@ def main(argv=None):
         ", sampled" if args.sample else "") + f", {cfg.causal_mode}"
     print(f"[serve] {cfg.name} on {name}{note}: {len(reqs)} requests, "
           f"{total} tokens, {dt:.3f}s ({total / dt:.1f} tok/s)")
+    if dev.type == "cuda":
+        print(f"[serve] peak device memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
     if args.paged:
         st = eng.pool.stats
         print(f"[serve] paged ({eng.cache_dtype}): pages="

@@ -19,16 +19,17 @@ exchanges the shard-boundary blocks:
         --steps 20 --batch 8 --seq 1024
 
 ``--mesh`` takes one axis; a ``DATAxMODEL`` shape raises, as
-``make_mesh`` does.  ``--arch gemma3-4b`` trains gemma3's 5:1
-local:global stack with remat, as published (its config is bfloat16,
-which the port does not serve yet, so it raises ``NotImplementedError``;
-``--smoke`` trains its fp32 smoke config).  Telemetry is not ported.
+``make_mesh`` does.  ``--arch`` takes every config of
+``repro_torch.configs`` at its published dtype (llama3.2-1b and gemma3-4b
+in bfloat16 with remat; AdamW keeps f32 moments and applies each update
+in the parameter's dtype); ``--smoke`` trains a config's fp32 smoke
+config.  Telemetry is not ported.
 """
 from __future__ import annotations
 
 import argparse
 
-from repro_torch import resolve_device
+from repro_torch import exact_products, resolve_device
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data import HierarchicalLM, ZipfLM
 from repro_torch.launch.mesh import make_mesh
@@ -61,6 +62,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
+    exact_products()
     shape = tuple(int(x) for x in args.mesh.split("x"))
     mesh = make_mesh(shape, ("data", "model")[:len(shape)], device=dev)
     if args.sp and mesh.d < 2:

@@ -104,11 +104,15 @@ def _local_attention(q, k, v, window: int, causal: bool, kv_weight):
     w = _pad_weights(B, L, Lp, kv_weight, q.device)
     qh, kh, vh, fold = fold_kv_heads(q, k, v)
     wr = w.repeat_interleave(fold[1], dim=0)
-    # the kernels take contiguous operands (a fold of one sequence can be
-    # a strided view, which elementwise ops keep)
-    y, dn, _ = band_attention((qh * (1.0 / math.sqrt(D))).contiguous(),
-                              kh.contiguous(),
-                              (vh * wr[..., None]).contiguous(), wr,
+    # the reference scales q in its own dtype and hands the band math f32
+    # v * w; its band math widens q and k to f32 itself, the kernels take
+    # f32 operands, so q and k are widened here (exact).  The kernels also
+    # take contiguous operands (a fold of one sequence can be a strided
+    # view, which elementwise ops keep)
+    f32 = torch.float32
+    qs = (qh * (1.0 / math.sqrt(D))).to(f32)
+    y, dn, _ = band_attention(qs.contiguous(), kh.to(f32).contiguous(),
+                              (vh * wr[..., None]).to(f32).contiguous(), wr,
                               nr=window,
                               mode="l0_causal" if causal else "l0_bidir")
     z = (y / torch.clamp(dn, min=1e-9)[..., None]).to(q.dtype)

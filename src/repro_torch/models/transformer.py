@@ -58,14 +58,9 @@ def lm_init(cfg: ModelConfig, *, seed: int = 0, device=None) -> Dict[str, Any]:
     """Random parameters drawn from ``seed`` on the CPU, each layer moved
     to ``device`` (default ``cuda``) as it is drawn: one seed gives the
     same weights on every device, and a model of billions of parameters
-    never sits whole in host memory.  float32 only: bfloat16 weights and
-    caches are not ported (ROADMAP A.7)."""
+    never sits whole in host memory.  Every leaf is drawn in
+    ``cfg.dtype`` (float32 or bfloat16), as the reference draws them."""
     _check_family(cfg)
-    if cfg.dtype != "float32":
-        raise NotImplementedError(
-            f"dtype={cfg.dtype!r}: the port serves float32 weights and "
-            "caches only (bfloat16 is ROADMAP A.7); use "
-            "dataclasses.replace(cfg, dtype='float32')")
     dev = resolve_device(device)
     dtype = cfg.torch_dtype
     gen = torch.Generator().manual_seed(seed)
@@ -93,6 +88,9 @@ def _embed_tokens(params, cfg: ModelConfig, tokens):
 
 
 def _logits(params, cfg: ModelConfig, h):
+    # the reference's grad_dtype_boundary (a cast of the cotangent to h's
+    # dtype) needs no port: autograd already hands a bf16 h a bf16
+    # cotangent
     h = rmsnorm(params["final_norm"], h)
     if cfg.tie_embeddings:
         logits = h @ params["embed"]["w"].to(h.dtype).T

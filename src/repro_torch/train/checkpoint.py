@@ -13,9 +13,11 @@ without ``COMMIT``), which ``latest_step`` ignores, so a restart resumes
 from the last complete checkpoint.  Leaf paths follow
 ``repro_torch.tree`` (JAX's path names), and ``restore`` loads each leaf
 onto the device of the matching leaf of ``like`` unless given a
-``device``.  ``AsyncCheckpointer`` copies the tree to host memory on the
-caller's thread and writes it on a background thread, so the train loop
-blocks only on a save that is still running.
+``device``.  A bfloat16 leaf, which numpy has no type for, is stored as
+its uint16 bit pattern with ``"dtype": "bfloat16"`` in the manifest and
+restored bit for bit.  ``AsyncCheckpointer`` copies the tree to host
+memory on the caller's thread and writes it on a background thread, so
+the train loop blocks only on a save that is still running.
 """
 from __future__ import annotations
 
@@ -32,9 +34,19 @@ import torch
 from ..tree import tree_flatten_with_paths, tree_map, tree_map_with_path
 
 
-def _host(x) -> np.ndarray:
-    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+def _host(x):
+    """A leaf in host memory: a CPU tensor, or a numpy array."""
+    return x.detach().cpu() if isinstance(x, torch.Tensor) \
         else np.asarray(x)
+
+
+def _stored(x):
+    """(the array written to disk, the manifest's dtype) of a leaf."""
+    x = _host(x)
+    if isinstance(x, torch.Tensor) and x.dtype == torch.bfloat16:
+        return x.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+    arr = x.numpy() if isinstance(x, torch.Tensor) else x
+    return arr, str(arr.dtype)
 
 
 def save(ckpt_dir: str, step: int, tree: Any) -> str:
@@ -46,11 +58,11 @@ def save(ckpt_dir: str, step: int, tree: Any) -> str:
     os.makedirs(tmp)
     manifest = {"step": step, "leaves": []}
     for i, (path, leaf) in enumerate(tree_flatten_with_paths(tree)):
-        arr = _host(leaf)
+        arr, dtype = _stored(leaf)
         fname = f"arr_{i:05d}.npy"
         np.save(os.path.join(tmp, fname), arr)
         manifest["leaves"].append(
-            {"path": path, "file": fname, "dtype": str(arr.dtype),
+            {"path": path, "file": fname, "dtype": dtype,
              "shape": list(arr.shape)})
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
@@ -81,8 +93,12 @@ def restore(ckpt_dir: str, step: int, like: Any, *, device=None) -> Any:
         by_path = {e["path"]: e for e in json.load(f)["leaves"]}
 
     def load(p, ref):
-        arr = np.load(os.path.join(path, by_path[p]["file"]))
+        entry = by_path[p]
+        arr = np.load(os.path.join(path, entry["file"]))
         dev = device if device is not None else getattr(ref, "device", "cpu")
+        if entry["dtype"] == "bfloat16":
+            return torch.from_numpy(arr.view(np.int16)).view(
+                torch.bfloat16).to(dev)
         return torch.from_numpy(arr).to(dev)
 
     return tree_map_with_path(load, like)

@@ -23,7 +23,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch import kernels  # noqa: E402
+from repro_torch import exact_products, kernels  # noqa: E402
 from repro_torch.core import h1d_decode as hd  # noqa: E402
 from repro_torch.core import hierarchy as hc  # noqa: E402
 from repro_torch.core.h1d_attention import h1d_attention  # noqa: E402
@@ -41,7 +41,7 @@ BWD_TOL = 1e-4
 def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    torch.backends.cuda.matmul.allow_tf32 = False
+    exact_products()
     return torch.device("cuda")
 
 
@@ -74,9 +74,13 @@ def _cotangents(gen, dev, out):
     return [_randn(gen, dev, *t.shape) for t in out]
 
 
+# the GQA groups of qwen2.5-14b (5) and yi-6b (8) at head width 128
+WIDE_GQA = [(2, 5, 256, 128, 128, 16), (2, 8, 256, 128, 128, 16)]
+
+
 @pytest.mark.parametrize("B,G,L,d,dv,nr", [
     (3, 1, 64, 64, 64, 16), (2, 2, 128, 16, 16, 8), (2, 4, 32, 40, 24, 8),
-    (1, 2, 256, 128, 128, 32), (2, 1, 64, 8, 72, 4)])
+    (1, 2, 256, 128, 128, 32), (2, 1, 64, 8, 72, 4), *WIDE_GQA])
 def test_band_fwd_matches_plain(dev, B, G, L, d, dv, nr):
     gen = torch.Generator(device=dev).manual_seed(L + G)
     q = _randn(gen, dev, B, G, L, d) / d ** 0.5
@@ -420,7 +424,7 @@ def test_band_fwd_whole_blocks(dev, mode, nr, blocks):
 
 BWD_L0 = [(3, 1, 64, 64, 64, 16), (2, 2, 128, 16, 16, 8),
           (2, 4, 32, 40, 24, 8), (1, 2, 256, 128, 128, 32),
-          (2, 1, 64, 8, 72, 4), (2, 3, 512, 64, 64, 16)]
+          (2, 1, 64, 8, 72, 4), (2, 3, 512, 64, 64, 16), *WIDE_GQA]
 
 
 @pytest.mark.parametrize("B,G,L,d,dv,nr", BWD_L0)
@@ -446,7 +450,8 @@ def test_band_bwd_matches_plain(dev, B, G, L, d, dv, nr):
 
 @pytest.mark.parametrize("G,L,d,nr", [(1, 1024, 64, 16), (2, 128, 16, 8),
                                       (4, 256, 40, 4), (3, 64, 128, 4),
-                                      (2, 2048, 128, 32)])
+                                      (2, 2048, 128, 32), (5, 512, 128, 16),
+                                      (8, 512, 128, 16)])
 def test_band_sub_bwd_matches_plain_every_level(dev, G, L, d, nr):
     """Every sub level of a hierarchy (ratio 2 up to L / (2 nr), so 32
     at the first and last cases) on the coarsened chain."""
@@ -500,7 +505,8 @@ def test_h1d_attention_grads_on_card_match_plain(dev):
 
 
 @pytest.mark.parametrize("G,L,d,nr", [(1, 256, 64, 16), (2, 128, 16, 8),
-                                      (3, 64, 40, 4)])
+                                      (3, 64, 40, 4), (5, 512, 128, 16),
+                                      (8, 512, 128, 16)])
 def test_band_sub_fwd_matches_plain_every_level(dev, G, L, d, nr):
     gen = torch.Generator(device=dev).manual_seed(G * L)
     B = 2
@@ -1250,8 +1256,8 @@ def test_paged_quant_attend_staged_ring_odd_misaligned_and_bits(
 def test_attend_plan_mirrors_the_launcher(dev):
     """``plan_attend_stages`` equals the launcher's own plan (stages, rows
     a chunk, row quantum, shared memory) at every card test's shape, for
-    f32 pools and pools with int8 levels, and past the envelope, where
-    both refuse."""
+    f32 and bf16 caches and pools with int8 levels beside either, and past
+    the envelope, where both refuse."""
     import ctypes
 
     lib = dk._lib()
@@ -1261,17 +1267,19 @@ def test_attend_plan_mirrors_the_launcher(dev):
               for nr in (2, 4, 8, 16, 32, 64) for nlev in (1, 4, 7, 12, 32)]
     out = (ctypes.c_int * 4)()
     for G, D, Dv, nr, nlev in shapes + [(1, 60000, 60000, 16, 5)]:
-        for quant in (0, 1):
+        for quant, half in ((0, 0), (1, 0), (0, 1), (1, 1)):
             assert lib.h1d_decode_attend_plan(G, D, Dv, nr, nlev, quant,
-                                              out) == 0
+                                              half, out) == 0
+            key = (G, D, Dv, nr, nlev, quant, half)
             try:
                 plan = dk.plan_attend_stages(G, D, Dv, nr, nlev,
-                                             quant=bool(quant))
+                                             quant=bool(quant),
+                                             half=bool(half))
             except ValueError:
-                assert out[0] == 0, (G, D, Dv, nr, nlev, quant)
+                assert out[0] == 0, key
                 continue
             assert (plan.stages, plan.chunk_rows, plan.quantum,
-                    plan.smem) == tuple(out), (G, D, Dv, nr, nlev, quant)
+                    plan.smem) == tuple(out), key
 
 
 @pytest.mark.parametrize("Lmax,nr,D,Dv,quant", [
@@ -1743,3 +1751,200 @@ def test_coarse_q_and_sampled_smoke_engines_on_card(dev):
     assert sampled != got
     for slots in (2, 1, 4):
         assert serve("cuda", slots, greedy=False, seed=4) == sampled
+
+
+# ---------------------------------------------------------------------------
+# bf16 caches (#5-#9, #11, #12): the published dtype of the dense configs
+# ---------------------------------------------------------------------------
+
+BF16 = torch.bfloat16
+# the GQA groups of gemma3-4b (2), llama3.2-1b (4), qwen2.5-14b (5) and
+# yi-6b (8), at the head widths of the assigned configs
+BF16_SHAPES = [(G, D) for G in (2, 4, 5, 8) for D in (64, 128, 256)]
+
+
+def _bf16(c):
+    """A cache or pool with every float level in bf16 (int8 levels and
+    the scales as they are)."""
+    def cast(a):
+        return a.to(BF16) if a.dtype == torch.float32 and a.dim() == 3 else a
+    return type(c)(*[tuple(cast(a) for a in x) if isinstance(x, tuple)
+                     else cast(x) for x in c])
+
+
+def _q16(gen, dev, *shape):
+    """f32 values a bf16 projection gives (the wrappers widen them)."""
+    return _randn(gen, dev, *shape).to(BF16).float()
+
+
+@pytest.mark.parametrize("G,D", BF16_SHAPES)
+def test_bf16_dense_attend_and_update_match_plain(dev, G, D):
+    """#5 and #6 on a bf16 cache (Lmax 2048, nr 16) at every mask edge:
+    the attend within 1e-5 of its plain version on the f32 output (a bf16
+    q gives that output rounded to bf16), two calls the same bits; the
+    update over 5 chained appends of bf16 rows bit for bit, rows 0 and 1
+    at t = Lmax and Lmax - 1."""
+    Lmax, nr = 2048, 16
+    gen = torch.Generator(device=dev).manual_seed(G * D)
+    ts = _ts(Lmax, nr)
+    R = len(ts)
+    cache = hd.prefill_cache(_randn(gen, dev, R, Lmax, D).to(BF16),
+                             _randn(gen, dev, R, Lmax, D).to(BF16), Lmax, nr)
+    assert cache.ck[0].dtype == BF16
+    q = _q16(gen, dev, R, G, D)
+    t = torch.tensor(ts, dtype=torch.int32, device=dev)
+    kernels.reset_counts()
+    got = dk.decode_attend_fused(cache, q, t, nr=nr)
+    _close([got], [dk.decode_attend_ref(cache, q, t, nr=nr)])
+    assert torch.equal(got, dk.decode_attend_fused(cache, q, t, nr=nr))
+    half = dk.decode_attend_fused(cache, q.to(BF16), t, nr=nr)
+    assert half.dtype == BF16 and torch.equal(half, got.to(BF16))
+    assert dk.decode_attend_fused.mode_launches == {"bf16": 3}
+    a, b = _clone_cache(cache), _clone_cache(cache)
+    for step in range(5):
+        tu = torch.randint(0, Lmax, (R,), generator=gen, device=dev,
+                           dtype=torch.int32)
+        tu[0], tu[1] = Lmax, Lmax - 1
+        kn = _randn(gen, dev, R, D).to(BF16)
+        vn = _randn(gen, dev, R, D).to(BF16)
+        dk.update_cache_fused(a, kn, vn, tu)
+        dk.update_cache_ref(b, kn, vn, tu)
+        for x, y in zip(_levels(a), _levels(b)):
+            assert x.dtype == BF16 and torch.equal(x, y)
+    assert dk.update_cache_fused.mode_launches == {"bf16": 5}
+
+
+@pytest.mark.parametrize("G,D", BF16_SHAPES)
+def test_bf16_paged_kernels_match_plain(dev, G, D):
+    """#7 and #9 on a bf16 pool (Lmax 2048, nr 16; inactive rows on the
+    TRASH page), #8 on a pool whose level 0 is int8 and the rest bf16:
+    attends within 1e-5 on the f32 output of the plain version evaluated
+    in float64 on the same bf16 rows (values scale by 2^l, so at D 128
+    and 256 the fp32 plain version can be ~1e-5 off itself, as in the
+    staged f32 cases), the update over 5 chained appends bit for bit
+    outside TRASH.  #10 refuses the bf16 levels."""
+    from repro_torch.core import quantization as qz
+
+    Lmax, nr = 2048, 16
+    gen = torch.Generator(device=dev).manual_seed(3 * G * D)
+    M = hc.num_levels(Lmax, nr)
+    ts = _ts(Lmax, nr)
+    R, npages, trash = len(ts), 3 * len(ts) + 2, 1
+    # keys unit normals at every level (a coarse key is a mean), values
+    # scaled by 2^l (a sum), as the staged cases build them
+    k = [_randn(gen, dev, npages, nr, D) for _ in range(M)]
+    v = [_randn(gen, dev, npages, nr, D) * 2 ** l for l in range(M)]
+    pool = _bf16(hd.PagedH1DCache(k[0], v[0], tuple(k[1:]), tuple(v[1:])))
+    (qk, sk), (qv, sv) = (qz.quantize_int8(x, axis=-1) for x in (k[0], v[0]))
+    ones = tuple(torch.ones((npages, nr), device=dev) for _ in range(M - 1))
+    mixed = hd.QuantPagedH1DCache(qk, qv, pool.ck, pool.cv, sk[..., 0],
+                                  sv[..., 0], ones, ones)
+    assert pool.k.dtype == BF16 and mixed.k.dtype == torch.int8
+    assert mixed.ck[0].dtype == BF16
+    t = torch.tensor(ts, dtype=torch.int32, device=dev)
+    bidx = torch.randint(0, npages, (R, 1 + M), generator=gen, device=dev,
+                         dtype=torch.int32)
+    q = _q16(gen, dev, R, G, D)
+    _close_exact([dk.decode_attend_paged(pool, q, t, bidx, nr=nr)],
+                 [dk.decode_attend_paged_ref(pool, q.double(), t, bidx,
+                                             nr=nr)])
+    _close_exact([dk.decode_attend_paged_quant(mixed, q, t, bidx, nr=nr)],
+                 [dk.decode_attend_paged_quant_ref(mixed, q.double(), t,
+                                                   bidx, nr=nr)])
+    a, b = _pool_clone(pool), _pool_clone(pool)
+    keep = torch.ones(npages, dtype=torch.bool, device=dev)
+    keep[trash] = False
+    for step in range(5):
+        tu = torch.randint(0, Lmax, (R,), generator=gen, device=dev,
+                           dtype=torch.int32)
+        utab = torch.stack([torch.randperm(npages - 2, generator=gen,
+                                           device=dev)[:R] + 2
+                            for _ in range(M)], 1).to(torch.int32)
+        utab[R - 2:] = trash
+        kn = _randn(gen, dev, R, D).to(BF16)
+        vn = _randn(gen, dev, R, D).to(BF16)
+        dk.update_cache_paged(a, kn, vn, tu, utab)
+        dk.update_cache_paged_ref(b, kn, vn, tu, utab)
+        for x, y in zip(_pool_arrays(a), _pool_arrays(b)):
+            assert x.dtype == BF16 and torch.equal(x[keep], y[keep])
+    with pytest.raises(ValueError, match="bfloat16"):
+        dk.update_cache_paged_quant(mixed, kn, vn, tu, utab)
+
+
+@pytest.mark.parametrize("G,D", BF16_SHAPES)
+def test_bf16_partial_kernels_match_plain(dev, G, D):
+    """#11 and #12 on every shard of a bf16 cache split 4 ways (Lmax
+    2048, nr 16): the partial attend within 1e-5 of its plain version,
+    the partial update bit for bit with its carries in bf16, and the
+    whole SP update (#12, then #6 on the replicated levels from the
+    rounded carry) bit for bit against #6 on the unsharded cache."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import sp_attention as sp
+
+    Lmax, nr, d = 2048, 16, 4
+    gen = torch.Generator(device=dev).manual_seed(5 * G * D)
+    ts = _sp_ts(Lmax, nr, d)
+    R = len(ts)
+    dense = hd.prefill_cache(_randn(gen, dev, R, Lmax, D).to(BF16),
+                             _randn(gen, dev, R, Lmax, D).to(BF16), Lmax, nr)
+    mesh = make_mesh((d,), ("data",))
+    sc = sp.shard_cache(dense, mesh, nr)
+    q = _q16(gen, dev, R, G, D)
+    t = torch.tensor(ts, dtype=torch.int32, device=dev)
+    tabs = sp.sp_tables(np.array(ts), nr=nr, Lmax=Lmax, d=d, device=dev)
+    for s, sh in enumerate(sc.shards):
+        _close(dk.decode_attend_partial(sh, q, t, tabs.bidx[s],
+                                        tabs.owned[s], nr=nr),
+               dk.decode_attend_partial_ref(sh, q, t, tabs.bidx[s],
+                                            tabs.owned[s], nr=nr))
+    nsh = sp.sp_sharded_levels(Lmax, nr, d)
+    kn = _randn(gen, dev, R, D).to(BF16)
+    vn = _randn(gen, dev, R, D).to(BF16)
+    for s, sh in enumerate(sc.shards):
+        def slab(c):
+            return hd.H1DCache(c.k.clone(), c.v.clone(),
+                               tuple(a.clone() for a in c.ck[:nsh - 1]),
+                               tuple(a.clone() for a in c.cv[:nsh - 1]))
+        a, b = slab(sh), slab(sh)
+        _, ak, av = dk.update_cache_partial(a, kn, vn, tabs.t_loc[s],
+                                            tabs.upd_owned[s])
+        _, bk, bv = dk.update_cache_partial_ref(b, kn, vn, tabs.t_loc[s],
+                                                tabs.upd_owned[s])
+        assert ak.dtype == av.dtype == BF16
+        for x, y in zip((a.k, a.v, *a.ck, *a.cv, ak, av),
+                        (b.k, b.v, *b.ck, *b.cv, bk, bv)):
+            assert torch.equal(x, y)
+    with sp.sp_scope(mesh):
+        hd.update_cache(sc, kn, vn, t, tables=tabs)
+    dk.update_cache_fused(dense, kn, vn, t)
+    back = sp.unshard_cache(sc)
+    for x, y in zip(_levels(back), _levels(dense)):
+        assert torch.equal(x, y)
+
+
+def test_decode_wrappers_refuse_other_cache_dtypes(dev):
+    """A cache element the kernels do not take (float16) raises before
+    any launch, in every decode wrapper that takes a cache."""
+    Lmax, nr, R, D = 64, 8, 2, 16
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cache = hd.prefill_cache(_randn(gen, dev, R, Lmax, D).half(),
+                             _randn(gen, dev, R, Lmax, D).half(), Lmax, nr)
+    q, kn = _randn(gen, dev, R, 1, D), _randn(gen, dev, R, D)
+    t = torch.zeros((R,), dtype=torch.int32, device=dev)
+    M = hc.num_levels(Lmax, nr)
+    pool = _paged_pool(gen, dev, M, nr, 4, D, D, None)
+    pool = type(pool)(*[tuple(a.half() for a in x) if isinstance(x, tuple)
+                        else x.half() for x in pool])
+    tabs = torch.zeros((R, 1 + M), dtype=torch.int32, device=dev)
+    kernels.reset_counts()
+    calls = [lambda: dk.decode_attend_fused(cache, q, t, nr=nr),
+             lambda: dk.update_cache_fused(cache, kn, kn, t),
+             lambda: dk.decode_attend_paged(pool, q, t, tabs, nr=nr),
+             lambda: dk.update_cache_paged(pool, kn, kn, t, tabs[:, :M]),
+             lambda: dk.decode_attend_partial(cache, q, t, tabs, tabs,
+                                              nr=nr),
+             lambda: dk.update_cache_partial(cache, kn, kn, t, t)]
+    for call in calls:
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            call()
+    assert not any(k.launches for k, _ in kernels.KERNELS.values())

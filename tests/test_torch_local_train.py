@@ -279,13 +279,19 @@ def test_adamw_losses_match_jax(adamw_parity, step):
     assert np.isfinite(tl) and abs(jl - tl) <= LOSS_ATOL, (step, jl, tl)
 
 
-def test_train_cli_refuses_bf16_and_trains_the_smoke_config(tmp_path,
-                                                            capsys):
+def test_train_cli_takes_bf16_and_trains_the_smoke_config(tmp_path,
+                                                          capsys):
     """``--arch gemma3-4b`` behaves as the serving CLI: the published
-    bfloat16 config raises, ``--smoke`` trains the fp32 smoke config."""
-    with pytest.raises(NotImplementedError, match="A.7"):
-        train_cli.main(["--arch", ARCH, "--device", "cpu", "--steps", "1",
-                        "--ckpt-dir", str(tmp_path)])
+    config is bfloat16, and the bf16 smoke config's training state holds
+    bf16 weights and f32 AdamW moments (no full config is drawn on the
+    CPU); ``--smoke`` trains the fp32 smoke config."""
+    from repro_torch.configs import get_config
+    assert get_config(ARCH).dtype == "bfloat16"
+    bcfg = dataclasses.replace(get_smoke_config(ARCH), dtype="bfloat16")
+    bstate = tloop.init_state(bcfg, tloop.TrainConfig(), device="cpu")
+    assert {t.dtype for t in tree_leaves(bstate.params)} == {torch.bfloat16}
+    assert {t.dtype for t in tree_leaves(bstate.opt_state)
+            if t.is_floating_point()} == {torch.float32}
     state = train_cli.main(["--arch", ARCH, "--smoke", "--device", "cpu",
                             "--steps", "2", "--batch", "2", "--seq", "48",
                             "--ckpt-dir", str(tmp_path)])

@@ -22,6 +22,10 @@ WRAPPERS = {"h1d_decode_attend": "decode_attend_fused",
             "h1d_update_cache_partial": "update_cache_partial"}
 
 
+#: the cache elements each decode body is instantiated for
+ELEMS = ("float", "__nv_bfloat16")
+
+
 def _launches():
     """(body, addressor) that each C entry point launches."""
     src = (_build.CSRC / "h1d_decode.cu").read_text()
@@ -48,15 +52,15 @@ def test_kernel_instance_maps_to_its_wrapper(entry):
     body, addr = _launches()[entry]
     if body == "staged":
         names = [f"void (anonymous namespace)::attend_staged_kernel<{addr}, "
-                 f"{vw}>(int const*, int const*, int const*, float const*, "
-                 f"float*, float*, float*, int, int, int, int, int, float, "
-                 f"int, (anonymous namespace)::AttendPlan, (anonymous "
-                 f"namespace)::Levels)" for vw in (1, 4)]
+                 f"{vw}, {e}>(int const*, int const*, int const*, float "
+                 f"const*, float*, float*, float*, int, int, int, int, int, "
+                 f"float, int, (anonymous namespace)::AttendPlan, (anonymous "
+                 f"namespace)::Levels)" for vw in (1, 4) for e in ELEMS]
     else:
-        names = [f"void (anonymous namespace)::update_chain_kernel<{addr}>("
-                 f"float const*, float const*, int const*, int const*, int "
-                 f"const*, (anonymous namespace)::MutLevels, int, int, int, "
-                 f"int, int, float*, float*)"]
+        names = [f"void (anonymous namespace)::update_chain_kernel<{addr}, "
+                 f"{e}>(float const*, float const*, int const*, int const*, "
+                 f"int const*, (anonymous namespace)::MutLevels, int, int, "
+                 f"int, int, int, {e}*, {e}*)" for e in ELEMS]
     for name in names:
         assert ps._group(name) == WRAPPERS[entry], name
 
@@ -66,6 +70,7 @@ def test_kernel_instance_maps_to_its_wrapper(entry):
      ", float const*, int const*, int const*, (anonymous namespace)::"
      "MutLevels, int, int, int, int)", "update_cache_paged_quant"),
     ("sm90_xmma_gemm_f32f32_f32f32_f32_tn_n_tilesize128x128x8", "matmul"),
+    ("nvjet_tst_320x128_64x3_1x2_h_bz_coopB_NNT", "matmul"),
     ("(anonymous namespace)::band_stream_kernel(float const*, float const*"
      ", float const*, float const*, float*, float*, float*, int, int, int, "
      "int, int, int, int)", "band_attention_fwd[l0_causal_stream]"),
