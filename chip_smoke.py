@@ -172,21 +172,24 @@ Phases (each raises on failure; nothing is caught):
    nr 1024, d 256, keys live to 3000) from the streamed forward's
    outputs and seeded random cotangents on y, dn and m, two calls the
    same bits, with ``library_ms`` from the backward of
-   ``scaled_dot_product_attention`` under the same mask; (b)
-   ``gemma3-4b`` at full width cut to 6 layers (5 local, 1 global),
-   ``remat=True`` with policy ``dots`` as published, seeded weights,
-   ``ZipfLM(seed=0)`` 1 x 4096 batches: the ``lm_loss`` gradient on the
-   kernel path against the plain path as in 7, on the weights widened
-   to fp32 and the first batch's first sequence (the band kernels run
-   fp32 in either dtype); then in the
-   published bf16 the first
-   batch's loss within 2e-2 of the plain path's, the gradient with
-   ``remat_policy='none'`` within 1e-6 of each leaf's largest |remat
-   gradient|, remat with the lower peak memory, and 3 AdamW steps through
-   ``train`` (which draws the weights again from seed 0): every loss
-   finite, each band path launched exactly as often as the step runs it
-   (the rematerialised forwards twice: forward and recompute), no plain
-   version; step ms, tokens/s, peak memory.
+   ``scaled_dot_product_attention`` under the same mask; (b) on phase
+   12's weights (drawn once, from the seed ``init_state`` would use),
+   ``remat=True`` with policy ``dots`` as published, ``ZipfLM(seed=0)``
+   1 x 4096 batches: on the first 6 layers (5 local, 1 global) the
+   first batch's loss within 2e-2 of the plain path's, the gradient
+   with ``remat_policy='none'`` within 1e-6 of each leaf's largest
+   |remat gradient|, remat with the lower peak memory, and the
+   ``lm_loss`` gradient on the kernel path against the plain path as in
+   7 on the weights widened to fp32 and the first sequence (the band
+   kernels run fp32 in either dtype); the in-place AdamW update against
+   the functional one, bit for bit over 3 steps, on a 2-layer tree of
+   the same weights (the embedding in row chunks); then 3 AdamW steps
+   at all 34 layers through ``train``, in place (a step consumes its
+   state): every loss finite, the first the kernel path's loss of the
+   first batch, each band path launched exactly as often as the step
+   runs it (the rematerialised forwards twice: forward and recompute),
+   no plain version, peak memory below the card's; step ms, tokens/s,
+   peak memory.
 14. ``dense bf16``, after 13: ``yi-6b`` at full width cut to 16 of its
    32 layers (G 8, head_dim 128, untied head) and ``qwen2.5-14b`` at
    full width cut to 8 of its 48 layers (G 5, qkv bias), published
@@ -206,6 +209,29 @@ Phases (each raises on failure; nothing is caught):
    gradient against the plain path at G 4, d 64, L 4096 too), then 3
    AdamW steps (peak 1e-3) whose loss falls; step ms, tokens/s,
    peak memory.
+16. ``full``, after 15: the paper's full-attention baseline and the
+   dense oracles.  (a) ``h1d_dense_oracle`` against ``h1d_attention``
+   on the kernel path (B 2, G 4, L 1024, d 64, nr 16, seeded key
+   weights with zeros) in fine-q, coarse-q and bidirectional mode,
+   within 2e-5 + 1e-4 |oracle| (the reference's tolerance,
+   ``tests/test_h1d_attention.py``); ``band_attention_ref`` against #1
+   in every mode and #2 at every sub level at phase 2's shapes, within
+   1e-5 * max(1, |oracle|).  (b) ``h1d-lm-53m`` with
+   ``attention='full'`` at full width and depth on phase 4's traffic
+   (16 requests, prompts 64..1500, 32 greedy tokens, 8 slots, max_len
+   2048, bucketed): no kernel runs, every step's logits within 1e-3 of
+   a teacher-forced full-sequence forward's; tokens/s, prefill ms and
+   tick ms beside phase 4's.  (c) the same model, 3 AdamW steps at 8 x
+   1024 on phase 6's ``ZipfLM(seed=0)`` batches and schedule: losses
+   finite, the last below the first; step ms, tokens/s, peak memory
+   beside phase 6's.  (d) the LRA
+   encoder with ``attention='full'``, and with full attention in a
+   16-token window (Table 1's "local": #1 ``l0_bidir`` at nr 16 once a
+   layer, its logits within 1e-3 of the plain path's) on phase 8a's
+   held-out batch; sequences/s.  (e) ``bench_scaling``'s sweep (B 1, G
+   1, d 32, nr 16, L 256..16384, causal): ``h1d_attention`` on the
+   kernels and ``dense_attention``, ms by CUDA events and log-log
+   slopes, on a line of their own (``{"scaling": ...}``).
 
 Tolerances.  In bf16 (phases 12-15): every step's logits, on the same
 tokens, within 3e-2 of the plain row's largest |logit| (both paths
@@ -243,6 +269,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import importlib
 import json
 import math
 import subprocess
@@ -2541,6 +2568,9 @@ def phase_sample_serve(cfg, params, fns, reqs, dense_stats, dev):
 # ---------------------------------------------------------------------------
 
 GEMMA_SLOTS, GEMMA_MAX_LEN, GEMMA_NEW, GEMMA_REQUESTS = 4, 4096, 16, 8
+# phase 12's weights, which phase 13 trains: ``init_state``'s draw with
+# ``TrainConfig.seed`` = GEMMA_SEED, drawn once (~130 s on the host)
+GEMMA_SEED = 0
 # bf16 serving: every step's logits within 3e-2 of the plain row's
 # largest magnitude, on the same tokens (both paths round every
 # activation to bf16, after f32 attention summed in other orders); bf16
@@ -2752,14 +2782,15 @@ def forced_run(label, eng, work, fns, tokens, plain_logits):
 
 def phase_gemma(dev):
     """12. ``gemma3-4b`` at full width and depth in its published bf16
-    (34 layers: 29 local at window 1024, 5 global h1d; seeded random
-    weights): ``ServeEngine(slots=4, max_len=4096)`` on 8 greedy requests
-    of 16 tokens, prompt lengths 1100..3968 (seed 0).  The streamed #1
-    (local layers), #1 and #2 (global prefill), #5 and #6 on bf16 caches
-    (global decode) must launch and no plain version run; then the same
-    requests on the plain versions, and again on the kernels with the
-    plain run's tokens, every step's logits held to the plain run's
-    (``forced_run``).  Returns the serving run's launches."""
+    (34 layers: 29 local at window 1024, 5 global h1d; random weights
+    from seed GEMMA_SEED): ``ServeEngine(slots=4, max_len=4096)`` on 8
+    greedy requests of 16 tokens, prompt lengths 1100..3968 (seed 0).
+    The streamed #1 (local layers), #1 and #2 (global prefill), #5 and #6
+    on bf16 caches (global decode) must launch and no plain version run;
+    then the same requests on the plain versions, and again on the
+    kernels with the plain run's tokens, every step's logits held to the
+    plain run's (``forced_run``).  Returns (the serving run's launches,
+    the weights), the weights for phase 13 to train."""
     from repro_torch.configs import get_config
     from repro_torch.models import get_model
     from repro_torch.serve import ServeEngine
@@ -2769,7 +2800,7 @@ def phase_gemma(dev):
     if cfg.dtype != "bfloat16":
         raise AssertionError("gemma3-4b is published in bfloat16")
     fns = get_model(cfg)
-    params = fns.init(cfg, seed=0, device=dev)
+    params = fns.init(cfg, seed=GEMMA_SEED, device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     work = bf16_prompts(cfg.vocab_size, *GEMMA_PROMPTS, GEMMA_REQUESTS)
@@ -2798,9 +2829,10 @@ def phase_gemma(dev):
     log(f"gemma: {same} of {GEMMA_NEW * len(work)} greedy tokens equal to "
         f"the plain run's; phase 12 took {time.perf_counter() - t0:.1f}s, "
         f"weights {init_s:.1f}s")
-    del params
+    del plain_logits
+    gc.collect()
     torch.cuda.empty_cache()
-    return counts
+    return counts, params
 
 
 # ---------------------------------------------------------------------------
@@ -2909,45 +2941,26 @@ def train_expected(cfg, steps: int, seq: int):
     return {k_: n * steps for k_, n in per_step.items() if n}
 
 
-def bf16_training(label, cfg, batch_size, seq, steps, tc_kw, falls, dev):
-    """A bf16 configuration with remat (policy ``dots``) from seed-0
-    weights (one ``init_state``, drawn once) on ``ZipfLM(seed=0)``
-    batches of ``batch_size`` x ``seq``: (a) the first batch's loss on
-    the kernel path within BF16_LOSS_TOL of the plain path's; (b) the
+def bf16_checks(label, cfg, params, batch):
+    """The checks of a bf16 configuration with remat (policy ``dots``) on
+    ``params`` (left as they are) and one batch: (a) its loss on the
+    kernel path within BF16_LOSS_TOL of the plain path's; (b) the
     gradient with ``remat_policy='none'`` within REMAT_TOL of each leaf's
     largest |remat gradient| (the same kernels on the same inputs), remat
     with the lower peak; then the ``lm_loss`` gradient of the weights
-    widened to fp32 on the first batch's first sequence, kernel path
-    against plain path as in 7 (the band kernels run fp32 in either
-    dtype, and fp32 holds them, forward and backward, to GRAD_TOL); (c)
-    ``steps`` AdamW steps through ``train`` from that
-    state (handed over, so no other reference keeps it): every loss
-    finite, the first the kernel loss of (a), the last below the first
-    where ``falls``; each band path launched exactly as often as the
-    steps run it, no plain version.  Returns (launches, stats)."""
-    import tempfile
-    from repro_torch.data import ZipfLM
+    widened to fp32 on the batch's first sequence, kernel path against
+    plain path as in 7 (the band kernels run fp32 in either dtype, and
+    fp32 holds them, forward and backward, to GRAD_TOL).  Returns (the
+    kernel loss, the plain loss, the gradient peaks above the weights by
+    remat policy)."""
     from repro_torch.models import get_model
-    from repro_torch.train import (TrainConfig, batch_to_device,
-                                   init_state, tokens_per_s, train)
     from repro_torch.tree import (tree_flatten_with_paths, tree_leaves,
                                   tree_map, tree_unflatten_like)
 
-    t0 = time.perf_counter()
     if not (cfg.dtype == "bfloat16" and cfg.remat
             and cfg.remat_policy == "dots"):
         raise AssertionError(f"{label}: trains in bf16 with remat, dots")
     fns = get_model(cfg)
-    tmp = tempfile.TemporaryDirectory()
-    tc = TrainConfig(ckpt_every=0, ckpt_dir=tmp.name, log_every=1, seed=0,
-                     **tc_kw)
-    box = [init_state(cfg, tc, seed=0, device=dev)]
-    params = box[0].params
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    data = ZipfLM(vocab_size=cfg.vocab_size, seq_len=seq,
-                  batch_per_host=batch_size, seed=0)
-    batch = batch_to_device(data.batch(0), dev)
 
     # (a) the first batch's loss, kernel path against plain path
     with torch.no_grad():
@@ -2979,7 +2992,7 @@ def bf16_training(label, cfg, batch_size, seq, steps, tc_kw, falls, dev):
         worst = max(worst, e)
         equal += int(torch.equal(a, b))
     nleaves = len(g_remat)
-    del g_remat, g_none, params
+    del g_remat, g_none
     if not peak_remat < peak_none:
         raise AssertionError(f"{label}: remat peaks at {peak_remat:.2f} GiB "
                              f"above the weights, no lower than "
@@ -2991,21 +3004,36 @@ def bf16_training(label, cfg, batch_size, seq, steps, tc_kw, falls, dev):
         f"for bit; peak above the weights {peak_remat:.2f} GiB with remat "
         f"(dots), {peak_none:.2f} GiB without")
 
-    # the fp32 gradient, kernel path against plain path
+    # the fp32 gradient, kernel path against plain path (after (b): run
+    # before it, its leftovers left (b) out of memory)
     f32 = dataclasses.replace(cfg, dtype="float32")
-    wide = tree_map(lambda p: p.float(), box[0].params)
+    wide = tree_map(lambda p: p.float(), params)
     first = {k_: v[:1] for k_, v in batch.items()}
     grads_against_plain(f"{label} (fp32)", wide,
                         lambda p: fns.loss(p, f32, first)[0])
     del wide, first
-
-    # (c) AdamW steps through train(), after the checks' leftovers are
-    # collected (with the fp32 check before (b), (b) ran out of memory)
     gc.collect()
     torch.cuda.empty_cache()
+    return loss_k, loss_p, dict(remat=peak_remat, none=peak_none)
+
+
+def bf16_steps(label, cfg, tc, state, data, steps, first_loss, falls,
+               **stats):
+    """``steps`` AdamW steps through ``train`` from ``state``, which they
+    consume (the in-place update writes its tensors): every loss finite,
+    the first within BF16_LOSS_TOL of
+    ``first_loss`` (the kernel path's loss of the first batch), the last
+    below the first where ``falls``, the weights still bf16; each band
+    path launched exactly as often as the steps run it, no plain version;
+    peak memory below the card's.  Returns (launches, stats)."""
+    from repro_torch.train import tokens_per_s, train
+    from repro_torch.tree import tree_leaves
+
+    batch_size, seq = data.batch_per_host, data.seq_len
+    dev = state.params["embed"]["w"].device
     counts = {}
-    with tmp, counted(counts):
-        state, metrics = train(cfg, tc, data, steps, state=box.pop(),
+    with counted(counts):
+        state, metrics = train(cfg, tc, data, steps, state=state,
                                device=dev, log=log)
     dtypes = {str(p.dtype) for p in tree_leaves(state.params)}
     del state
@@ -3014,43 +3042,152 @@ def bf16_training(label, cfg, batch_size, seq, steps, tc_kw, falls, dev):
     losses = [h["loss"] for h in hist]
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{label}: non-finite loss: {losses}")
-    if abs(losses[0] - loss_k) > BF16_LOSS_TOL:
+    if abs(losses[0] - first_loss) > BF16_LOSS_TOL:
         raise AssertionError(f"{label}: first step's loss {losses[0]} is "
-                             f"not the first batch's {loss_k}")
+                             f"not the first batch's {first_loss}")
     if falls and not losses[-1] < losses[0]:
         raise AssertionError(f"{label}: the loss does not fall: {losses}")
     if dtypes != {"torch.bfloat16"}:
         raise AssertionError(f"{label}: weights no longer bf16: {dtypes}")
+    capacity = torch.cuda.get_device_properties(dev).total_memory / 2 ** 30
+    if not metrics["peak_mem_gib"] < capacity:
+        raise AssertionError(f"{label}: peak {metrics['peak_mem_gib']:.2f} "
+                             f"GiB, the card holds {capacity:.2f}")
     tokens = batch_size * seq
     stats = dict(layers=cfg.num_layers, dtype=cfg.dtype, batch=batch_size,
                  seq=seq, steps=steps, remat_policy=cfg.remat_policy,
-                 losses=losses, first_loss_plain=loss_p,
-                 first_step_ms=hist[0]["step_ms"],
+                 losses=losses, first_step_ms=hist[0]["step_ms"],
                  median_step_ms=float(np.median([h["step_ms"]
                                                  for h in hist[1:]])),
                  tokens_per_s=tokens_per_s(hist, tokens),
                  peak_mem_gib=metrics["peak_mem_gib"],
-                 grad_peak_above_weights_gib=dict(
-                     remat=peak_remat, none=peak_none),
-                 weights_s=init_s,
+                 card_gib=capacity, **stats,
                  launches={k_: counts.get(k_, 0) for k_ in
                            train_expected(cfg, 1, seq)})
-    log(f"{label}: {json.dumps(stats)}; took "
-        f"{time.perf_counter() - t0:.1f}s")
+    log(f"{label}: {json.dumps(stats)}")
     torch.cuda.empty_cache()
     return counts, stats
 
 
-def phase_gemma_train(dev):
-    """13 (b). ``gemma3-4b`` at full width cut to 6 layers, with remat
-    (policy ``dots``), in its published bf16: ``bf16_training``'s checks
-    and 3 AdamW steps.  Returns the training run's launches."""
+def bf16_training(label, cfg, batch_size, seq, steps, tc_kw, falls, dev):
+    """A bf16 configuration with remat (policy ``dots``) from seed-0
+    weights (one ``init_state``, drawn once) on ``ZipfLM(seed=0)``
+    batches of ``batch_size`` x ``seq``: :func:`bf16_checks` on the first
+    batch, then :func:`bf16_steps` from that state.  Returns (launches,
+    stats)."""
+    import tempfile
+    from repro_torch.data import ZipfLM
+    from repro_torch.train import TrainConfig, batch_to_device, init_state
+
+    t0 = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    tc = TrainConfig(ckpt_every=0, ckpt_dir=tmp.name, log_every=1, seed=0,
+                     **tc_kw)
+    state = init_state(cfg, tc, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    data = ZipfLM(vocab_size=cfg.vocab_size, seq_len=seq,
+                  batch_per_host=batch_size, seed=0)
+    batch = batch_to_device(data.batch(0), dev)
+    loss_k, loss_p, peaks = bf16_checks(label, cfg, state.params, batch)
+    with tmp:
+        counts, stats = bf16_steps(
+            label, cfg, tc, state, data, steps, loss_k, falls,
+            first_loss_plain=loss_p, grad_peak_above_weights_gib=peaks,
+            weights_s=init_s)
+    log(f"{label}: took {time.perf_counter() - t0:.1f}s")
+    return counts, stats
+
+
+def update_in_place_check(params, layers: int):
+    """The in-place AdamW update against the functional one, bit for bit,
+    on the card: 3 steps of both on clones of a ``layers``-layer tree of
+    ``params`` (the 262144 x 2560 embedding in row chunks) with seeded
+    bf16 gradients whose global norm the clip cuts."""
+    from repro_torch import optim
+    from repro_torch.tree import tree_leaves, tree_map
+
+    tree = {"embed": params["embed"], "final_norm": params["final_norm"],
+            "layers": params["layers"][:layers]}
+    p_in = tree_map(lambda t: t.clone(), tree)
+    p_fn = tree_map(lambda t: t.clone(), tree)
+    opt = optim.adamw(optim.cosine_schedule(3e-4, 1, 10), weight_decay=0.1,
+                      clip_norm=1.0)
+    s_in, s_fn = opt.init(p_in), opt.init(p_fn)
+    gen = torch.Generator(device=tree["embed"]["w"].device).manual_seed(13)
+    for _ in range(3):
+        g = tree_map(lambda t: (torch.randn(t.shape, generator=gen,
+                                            device=t.device) * 1e-3
+                                ).to(t.dtype), tree)
+        upd, s_fn = opt.update(tree_map(lambda t: t.clone(), g), s_fn, p_fn)
+        p_fn = optim.apply_updates(p_fn, upd)
+        del upd
+        s_in = opt.update_(g, s_in, p_in)
+        del g
+    same = [torch.equal(a, b) for a, b in zip(tree_leaves((p_in, s_in)),
+                                              tree_leaves((p_fn, s_fn)))]
+    n = sum(t.numel() for t in tree_leaves(p_in))
+    del p_in, p_fn, s_in, s_fn
+    torch.cuda.empty_cache()
+    if not all(same):
+        raise AssertionError(f"in-place AdamW: {same.count(False)} of "
+                             f"{len(same)} leaves differ from the "
+                             f"functional update")
+    chunks = importlib.import_module("repro_torch.optim.adamw")._row_chunks(
+        tree["embed"]["w"])
+    log(f"in-place AdamW: {len(same)} leaves (parameters, moments) of a "
+        f"{layers}-layer gemma3-4b tree ({n} parameters, the embedding in "
+        f"{len(chunks)} row chunks) equal to the functional update bit for "
+        f"bit over 3 steps")
+
+
+def phase_gemma_train(dev, box):
+    """13 (b). ``gemma3-4b`` in its published bf16 with remat (policy
+    ``dots``) on phase 12's weights (popped from ``box``; phase 12 drew
+    them from seed 0, as ``init_state`` would with ``TrainConfig.seed``
+    0): :func:`bf16_checks` on its first 6 layers (5 local, 1 global: a
+    view of the same tensors), the in-place AdamW update against the
+    functional one on a 2-layer tree, then 3 AdamW steps at all 34
+    layers through ``train`` (the in-place update).  Returns the training
+    run's launches."""
+    import tempfile
     from repro_torch.configs import get_config
-    cfg = dataclasses.replace(get_config("gemma3-4b"),
-                              num_layers=GEMMA_TRAIN_LAYERS)
-    counts, _ = bf16_training(
-        "gemma train", cfg, GEMMA_TRAIN_BATCH, GEMMA_TRAIN_SEQ,
-        GEMMA_TRAIN_STEPS, dict(peak_lr=3e-4, warmup=5), False, dev)
+    from repro_torch.data import ZipfLM
+    from repro_torch.models import get_model
+    from repro_torch.train import (TrainConfig, TrainState, batch_to_device,
+                                   make_optimizer)
+
+    t0 = time.perf_counter()
+    cfg = get_config("gemma3-4b")
+    params = box.pop()
+    data = ZipfLM(vocab_size=cfg.vocab_size, seq_len=GEMMA_TRAIN_SEQ,
+                  batch_per_host=GEMMA_TRAIN_BATCH, seed=0)
+    batch = batch_to_device(data.batch(0), dev)
+    six = dataclasses.replace(cfg, num_layers=GEMMA_TRAIN_LAYERS)
+    view = {"embed": params["embed"], "final_norm": params["final_norm"],
+            "layers": params["layers"][:GEMMA_TRAIN_LAYERS]}
+    loss6_k, loss6_p, peaks = bf16_checks(
+        f"gemma train ({GEMMA_TRAIN_LAYERS} layers)", six, view, batch)
+    del view
+    update_in_place_check(params, 2)
+
+    tmp = tempfile.TemporaryDirectory()
+    tc = TrainConfig(ckpt_every=0, ckpt_dir=tmp.name, log_every=1,
+                     seed=GEMMA_SEED, peak_lr=3e-4, warmup=5)
+    with torch.no_grad():
+        loss_k = float(get_model(cfg).loss(params, cfg, batch)[0])
+    torch.cuda.synchronize()
+    t_init = time.perf_counter()
+    state = TrainState(torch.zeros((), dtype=torch.int32, device=dev),
+                       params, make_optimizer(tc).init(params), None)
+    del params
+    with tmp:
+        counts, _ = bf16_steps(
+            "gemma train", cfg, tc, state, data, GEMMA_TRAIN_STEPS, loss_k,
+            False, first_loss_6_layers=dict(kernel=loss6_k, plain=loss6_p),
+            grad_peak_above_weights_gib_6_layers=peaks,
+            moments_init_s=time.perf_counter() - t_init)
+    log(f"phase 13 (b) took {time.perf_counter() - t0:.1f}s")
     return counts
 
 
@@ -3170,6 +3307,326 @@ def phase_llama_train(dev):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 16: full attention (the paper's baseline) and the dense oracles
+# ---------------------------------------------------------------------------
+
+# the operator against its dense reconstruction: B, G, L, d (nr = NR), at
+# the reference's own tolerance for it (tests/test_h1d_attention.py)
+ORACLE_B, ORACLE_G, ORACLE_L, ORACLE_D = 2, 4, 1024, 64
+ORACLE_ATOL, ORACLE_RTOL = 2e-5, 1e-4
+FULL_NEW, FULL_TRAIN_STEPS = 32, 3
+# benchmarks/bench_lra_listops.py's "local" encoder: full attention in a
+# 16-token window on every layer
+LOCAL_WINDOW = 16
+# benchmarks/bench_scaling.py: B 1, G 1, d 32, nr 16, causal fine-q
+SCALING_D = 32
+SCALING_LS = (256, 512, 1024, 2048, 4096, 8192, 16384)
+
+
+def oracle_close(label, got, want):
+    """|got - want| <= ORACLE_ATOL + ORACLE_RTOL * |want| everywhere;
+    returns the largest |got - want| and the largest share of the
+    bound."""
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{label}: bad output {tuple(got.shape)}")
+    diff = (got.double() - want.double()).abs()
+    share = float((diff / (ORACLE_ATOL + ORACLE_RTOL
+                           * want.double().abs())).max())
+    if share > 1.0:
+        raise AssertionError(f"{label}: {float(diff.max()):.3g} off the "
+                             f"dense oracle, {share:.3g}x the bound")
+    return float(diff.max()), share
+
+
+def phase_oracles(dev):
+    """16 (a).  ``h1d_dense_oracle`` against ``h1d_attention`` on the
+    kernel path (B 2, G 4, L 1024, d 64, nr 16, seeded key weights with
+    zeros) in fine-q, coarse-q and bidirectional mode, each mode's band
+    kernels launched and no plain version run; then
+    ``band_attention_ref`` against #1 in every mode and #2 at every sub
+    level at phase 2's shapes (the LM's for ``l0_causal`` and ``sub``,
+    the LRA path's for the bidirectional and coarse modes), within
+    ATTN_TOL * max(1, |oracle|).  Comparisons only: no launch here counts
+    on a path."""
+    from repro_torch.core import h1d_attention, h1d_dense_oracle
+    from repro_torch.core import hierarchy as hc
+    from repro_torch.kernels import band_attention_ref
+    from repro_torch.kernels import h1d_block as hb
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+    Bo, Go, Lo, Do = ORACLE_B, ORACLE_G, ORACLE_L, ORACLE_D
+    q = torch.randn((Bo, Go, Lo, Do), generator=gen, device=dev)
+    k = torch.randn((Bo, Lo, Do), generator=gen, device=dev)
+    v = torch.randn((Bo, Lo, Do), generator=gen, device=dev)
+    w = torch.rand((Bo, Lo), generator=gen, device=dev) + 0.5
+    w[0, Lo - 300:] = 0.0
+    w[1, torch.randint(0, Lo, (Lo // 8,), generator=gen, device=dev)] = 0.0
+    modes = {"fine-q": (True, ("band_attention_fwd[l0_causal]",
+                               "band_attention_sub_fwd")),
+             "coarse-q": (True, ("band_attention_fwd[l0_causal]",
+                                 "band_attention_fwd[coarse_causal]")),
+             "bidirectional": (False, ("band_attention_fwd[l0_bidir]",
+                                       "band_attention_fwd[coarse_bidir]"))}
+    for name, (causal, need) in modes.items():
+        mode = "coarse-q" if name == "coarse-q" else "fine-q"
+        counts = {}
+        with torch.inference_mode(), counted(counts):
+            got = h1d_attention(q, k, v, nr=NR, causal=causal,
+                                causal_mode=mode, kv_weight=w)
+        missing = [n for n in need if not counts.get(n)]
+        if missing:
+            raise AssertionError(f"oracle {name}: {missing} not launched")
+        need_counts(f"oracle {name}", counts, {})
+        want = h1d_dense_oracle(q, k, v, nr=NR, causal=causal,
+                                causal_mode=mode, kv_weight=w)
+        err, share = oracle_close(f"h1d_attention {name}", got, want)
+        log(f"oracle: h1d_attention {name} on the kernels within {err:.3g} "
+            f"of h1d_dense_oracle ({share:.3g} of atol {ORACLE_ATOL:g} + "
+            f"rtol {ORACLE_RTOL:g} |oracle|)")
+
+    # the band kernels against the dense band oracle, every mode
+    cases = []
+    _, _, q, k, v, w = band_inputs(dev)
+    cases.append(("l0_causal", 0, 1, (q, k, v, w)))
+    kc, vc, wc = k, v, w
+    for lvl in range(1, hc.num_levels(L, NR)):
+        kc, _ = hc.coarsen_weighted_mean(kc, wc)
+        vc = hc.coarsen_sum(vc, axis=-2)
+        wc = hc.coarsen_sum(wc, axis=-1)
+        cases.append(("sub", lvl, 1 << lvl, (q, kc.contiguous(),
+                                             vc.contiguous(),
+                                             wc.contiguous())))
+    _, lq, lk, lv, lw = lra_band_inputs(dev)
+    for mode in NEW_MODES:
+        cases += [(mode, lvl, 1, args)
+                  for lvl, args in lra_levels(mode, lq, lk, lv, lw)]
+    worst = {}
+    for mode, lvl, ratio, args in cases:
+        if mode == "sub":
+            ker = hb.band_attention_sub_fwd(*args, nr=NR, ratio=ratio)
+        else:
+            ker = hb.band_attention_fwd(*args, nr=NR, mode=mode)
+        ref = band_attention_ref(*args, nr=NR, mode=mode, ratio=ratio)
+        e, *_ = compare(f"{mode} level {lvl} against band_attention_ref",
+                        ker, ref, ATTN_TOL)
+        worst[mode] = max(worst.get(mode, 0.0), e)
+        del ker, ref
+    log(f"oracle: #1 / #2 against band_attention_ref in {len(cases)} "
+        f"calls, max abs error by mode {json.dumps(worst)} (<= {ATTN_TOL:g}"
+        f" * max(1, |oracle|))")
+
+
+def phase_full_serve(dev, dense_stats):
+    """16 (b).  ``h1d-lm-53m`` with ``attention='full'`` (as
+    ``bench_lm_perplexity.lm_cfg`` builds it) at full width and depth,
+    seeded weights, on phase 4's traffic: 16 requests, prompts 64..1500
+    (seed 0), 32 greedy tokens, ``ServeEngine(slots=8, max_len=2048)``,
+    bucketed.  No kernel and no plain version runs (full attention is
+    plain torch, as the reference's is jnp).  Every step's logits (the
+    prefill's last position, then each decode tick's on the dense
+    caches) within LOGIT_TOL of a teacher-forced full-sequence forward's
+    at the same position.  Returns the launches (none)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.serve import ServeEngine
+
+    cfg = dataclasses.replace(get_config("h1d-lm-53m"), attention="full")
+    fns = get_model(cfg)
+    params = fns.init(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(0)
+    work = [(i, rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32))
+            for i, n in enumerate(rng.integers(64, 1501, size=16))]
+    eng = ServeEngine(cfg, params, slots=8, max_len=2048)
+    if eng._bucket_len(100) != 128:
+        raise AssertionError("full attention: prompts not bucketed")
+    steps = {}
+    teacher_forced(eng, steps)
+    outs, stats, counts = run_engine(eng, work, fns, new_tokens=FULL_NEW)
+    if any(counts.values()):
+        raise AssertionError(f"full serve: kernels launched "
+                             f"{ {k_: c for k_, c in counts.items() if c} }")
+    if {type(c) for c in eng.caches} != {dict}:
+        raise AssertionError("full serve: caches are not dense")
+    del eng
+    worst = 0.0
+    with torch.inference_mode():
+        for uid, prompt in work:
+            seq = np.concatenate([prompt, np.asarray(outs[uid][:-1],
+                                                     np.int32)])
+            tok = torch.as_tensor(seq[None], dtype=torch.long, device=dev)
+            full = fns.forward(params, cfg, tok)[0][0, len(prompt) - 1:]
+            got = torch.stack(steps[uid])
+            if got.shape != full.shape or not torch.isfinite(got).all():
+                raise AssertionError(f"full serve: request {uid}: bad "
+                                     f"logits {tuple(got.shape)}")
+            e = float((got - full).abs().max())
+            if e > LOGIT_TOL:
+                raise AssertionError(f"full serve: request {uid}: decode "
+                                     f"logits {e:.3g} off the forward's")
+            worst = max(worst, e)
+    stats.update(requests=len(work), max_len=2048, slots=8,
+                 logits_vs_forward_max_abs=worst,
+                 h1d=dict(tokens_per_s=dense_stats["tokens_per_s"],
+                          prefill_ms_per_call=dense_stats[
+                              "prefill_ms_per_call"],
+                          decode_ms_per_tick=dense_stats[
+                              "decode_ms_per_tick"]))
+    log(f"full serve: every step's logits within {worst:.3g} (<= "
+        f"{LOGIT_TOL}) of the teacher-forced forward; {json.dumps(stats)}")
+    return counts
+
+
+def phase_full_train(dev, h1d_stats):
+    """16 (c).  The full-attention ``h1d-lm-53m`` at 8 x 1024 on phase
+    6's data and schedule (``ZipfLM(seed=0)``, peak 3e-4, warmup 5; on
+    ``HierarchicalLM``, whose batches draw fresh roots, the loss of 3
+    steps does not fall: 10.5002, 10.4995, 10.5103 on the card): 3 AdamW
+    steps through ``train``, no kernel launched, every loss finite and
+    the last below the first.  Returns the launches."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.data import ZipfLM
+    from repro_torch.train import TrainConfig, tokens_per_s, train
+
+    cfg = dataclasses.replace(get_config("h1d-lm-53m"), attention="full")
+    batch, seq = 8, 1024
+    data = ZipfLM(vocab_size=cfg.vocab_size, seq_len=seq,
+                  batch_per_host=batch, seed=0)
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp, counted(counts):
+        tc = TrainConfig(peak_lr=3e-4, warmup=5, ckpt_every=0, ckpt_dir=tmp,
+                         log_every=1)
+        _, metrics = train(cfg, tc, data, FULL_TRAIN_STEPS, device=dev,
+                           log=log)
+    need_counts("full train", counts, {k_: 0 for k_ in counts})
+    hist = metrics["history"]
+    losses = [h["loss"] for h in hist]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"full train: non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"full train: the loss does not fall: {losses}")
+    stats = dict(steps=FULL_TRAIN_STEPS, batch=batch, seq=seq,
+                 losses=losses, step_ms=[h["step_ms"] for h in hist],
+                 tokens_per_s=tokens_per_s(hist, batch * seq),
+                 peak_mem_gib=metrics["peak_mem_gib"],
+                 h1d=dict(median_step_ms=h1d_stats["median_step_ms"],
+                          tokens_per_s=h1d_stats["tokens_per_s"]))
+    log(f"full train: {json.dumps(stats)}")
+    return counts
+
+
+def phase_full_encoder(dev):
+    """16 (d).  The LRA encoder (``h1d-lra-encoder`` at full width and
+    depth, seeded weights) with ``attention='full'`` and with full
+    attention in a LOCAL_WINDOW-token window on every layer (Table 1's
+    "local"), each classifying phase 8a's held-out ListOps batch (64 x
+    2048, seed 999) three times: the full encoder launches no kernel, the
+    windowed one #1 ``l0_bidir`` at nr 16 once a layer a call, its logits
+    within LOGIT_TOL of its plain path's.  Returns the launches of the
+    timed calls."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import ListOps
+    from repro_torch.models import classifier_init, classifier_logits
+    from repro_torch.train import batch_to_device
+
+    held = batch_to_device(ListOps(seq_len=LRA_L, batch_per_host=64,
+                                   seed=999).batch(0), dev)
+    total = {}
+    for kind, kw in (("full", dict(attention="full")),
+                     ("local", dict(attention="full",
+                                    sliding_window=LOCAL_WINDOW,
+                                    global_every=10 ** 6))):
+        cfg = dataclasses.replace(get_config("h1d-lra-encoder"), **kw)
+        params = classifier_init(cfg, NUM_CLASSES, seed=0, device=dev)
+
+        def classify():
+            with torch.inference_mode():
+                return classifier_logits(params, cfg, held["tokens"],
+                                         held["mask"])
+        classify()                          # warm-up
+        counts, walls = {}, []
+        with counted(counts):
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits = classify()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+        if logits.shape != (64, NUM_CLASSES) or not torch.isfinite(
+                logits).all():
+            raise AssertionError(f"{kind} encoder: bad logits")
+        want = ({"band_attention_fwd[l0_bidir]": 3 * cfg.num_layers,
+                 "band_attention_fwd": 3 * cfg.num_layers}
+                if kind == "local" else {})
+        need_counts(f"{kind} encoder", counts,
+                    {k_: want.get(k_, 0) for k_ in set(counts) | set(want)})
+        diff = None
+        if kind == "local":
+            with plain_kernels():
+                ref = classify()
+            diff = float((logits - ref).abs().max())
+            if diff > LOGIT_TOL:
+                raise AssertionError(f"local encoder: logits differ by "
+                                     f"{diff:.3g} > {LOGIT_TOL}")
+        for k_, c in counts.items():
+            total[k_] = total.get(k_, 0) + c
+        stats = dict(window=cfg.sliding_window, wall_ms_per_call=walls,
+                     classifications_per_s=64 / (np.median(walls) / 1e3),
+                     kernel_vs_plain_max_abs=diff)
+        log(f"{kind} encoder: {json.dumps(stats)}")
+        del params
+        torch.cuda.empty_cache()
+    return total
+
+
+def phase_scaling(dev):
+    """16 (e).  ``bench_scaling``'s sweep on the card: ``h1d_attention``
+    (causal fine-q, kernel path) and ``dense_attention`` (causal) at B 1,
+    G 1, d 32, nr 16, L 256..16384, median ms of 10 calls by CUDA events;
+    the log-log slope of each.  A line of its own; no assertion on the
+    times."""
+    from repro_torch.core import dense_attention, h1d_attention
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = []
+    with torch.inference_mode():
+        for Ls in SCALING_LS:
+            q = torch.randn((1, 1, Ls, SCALING_D), generator=gen, device=dev)
+            k = torch.randn((1, Ls, SCALING_D), generator=gen, device=dev)
+            v = torch.randn((1, Ls, SCALING_D), generator=gen, device=dev)
+            h = time_ms(lambda: h1d_attention(q, k, v, nr=NR, causal=True,
+                                              causal_mode="fine-q"),
+                        iters=10, warmup=2)
+            f = time_ms(lambda: dense_attention(q, k, v, causal=True),
+                        iters=10, warmup=2)
+            rows.append(dict(L=Ls, h1d_ms=h, full_ms=f))
+    logL = np.log([r["L"] for r in rows])
+    out = dict(scaling=rows, d=SCALING_D, nr=NR,
+               slope_h1d=float(np.polyfit(logL, np.log(
+                   [r["h1d_ms"] for r in rows]), 1)[0]),
+               slope_full=float(np.polyfit(logL, np.log(
+                   [r["full_ms"] for r in rows]), 1)[0]))
+    print(json.dumps(out), flush=True)
+
+
+def phase_full(dev, serve_stats, train_stats):
+    """16.  Full attention and the dense oracles: (a) the oracles against
+    the kernel paths, (b) serving, (c) training, (d) the encoder, (e) the
+    scaling sweep.  Returns the launches of (b)-(d)."""
+    t0 = time.perf_counter()
+    phase_oracles(dev)
+    counts = {}
+    for part in (phase_full_serve(dev, serve_stats),
+                 phase_full_train(dev, train_stats),
+                 phase_full_encoder(dev)):
+        for k_, c in part.items():
+            counts[k_] = counts.get(k_, 0) + c
+    phase_scaling(dev)
+    log(f"phase 16 (full attention) took {time.perf_counter() - t0:.1f}s")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
@@ -3221,12 +3678,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     t_g = time.perf_counter()
     rows.append(phase_stream_kernel(dev))
-    gemma_counts = phase_gemma(dev)
+    gemma_counts, gemma_params = phase_gemma(dev)
     log(f"phase gemma took {time.perf_counter() - t_g:.1f}s (kernel row "
         f"and serving)")
     t_g = time.perf_counter()
     rows.append(phase_stream_bwd_kernel(dev))
-    gemma_train_counts = phase_gemma_train(dev)
+    box = [gemma_params]        # phase 13 trains, and consumes, them
+    del gemma_params
+    gemma_train_counts = phase_gemma_train(dev, box)
     log(f"phase gemma train took {time.perf_counter() - t_g:.1f}s (kernel "
         f"row and training)")
     t_g = time.perf_counter()
@@ -3237,6 +3696,7 @@ def main() -> int:
     llama_train_counts = phase_llama_train(dev)
     log(f"phase 15 (llama3.2-1b bf16 training) took "
         f"{time.perf_counter() - t_g:.1f}s")
+    full_counts = phase_full(dev, serve_stats, train_stats)
     for row in rows:
         key = row["name"]
         by_path = {"serve": serve_counts.get(key, 0),
@@ -3251,7 +3711,8 @@ def main() -> int:
                    "gemma": gemma_counts.get(key, 0),
                    "gemma_train": gemma_train_counts.get(key, 0),
                    "dense_bf16": dense_bf16_counts.get(key, 0),
-                   "llama_train": llama_train_counts.get(key, 0)}
+                   "llama_train": llama_train_counts.get(key, 0),
+                   "full": full_counts.get(key, 0)}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         row["kernel_ms"] = row["ms"]

@@ -10,7 +10,8 @@ band mode: ``l0_causal`` (the LM's level 0), ``l0_bidir`` and
 kernels run the fine-q LM's coarse levels.  In ``l0_causal`` the forward
 and the backward have a second, streamed body for windows too wide to
 stage (gemma3's sliding-window layers, nr = 1024), counted under
-``l0_causal_stream``.
+``l0_causal_stream``.  ``ref.band_attention_ref`` is the dense oracle of
+#1 and #2 (one masked product over every key), for tests and the smoke.
 
 ======================== ============================== ==================
 wrapper                  replaces (repro/kernels/...)   plain version
@@ -60,6 +61,7 @@ from .h1d_decode_kernel import (decode_attend_fused, update_cache_fused,
                                 update_cache_partial,
                                 update_cache_partial_ref)
 from .ops import band_attention
+from .ref import band_attention_ref
 
 #: (kernel wrapper, its plain version) for every kernel of the package
 KERNELS = {
@@ -125,7 +127,8 @@ def mode_launches() -> dict:
             for mode, n in getattr(kernel, "mode_launches", {}).items()}
 
 
-__all__ = ["band_attention", "band_attention_fwd", "band_attention_sub_fwd",
+__all__ = ["band_attention", "band_attention_ref", "band_attention_fwd",
+           "band_attention_sub_fwd",
            "band_attention_fwd_ref", "band_attention_sub_fwd_ref",
            "band_attention_bwd", "band_attention_sub_bwd",
            "band_attention_bwd_ref", "band_attention_sub_bwd_ref",

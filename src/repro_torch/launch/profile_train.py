@@ -22,8 +22,9 @@ over wall time; one stream, so kernels do not overlap) and the device
 time by group: matrix products, this package's band kernels of the
 forward and of the backward, and the rest (eager elementwise ops,
 reductions, copies).  The parts are the loss (forward), the gradient of
-a fresh forward's loss (backward), and the optimizer update, then the
-whole ``make_train_step`` step.  ``--sp N`` runs every part inside
+a fresh forward's loss (backward), and the optimizer's in-place update,
+then the whole ``make_train_step`` step (each call updates the same
+state again).  ``--sp N`` runs every part inside
 ``sp_scope`` of an ``N``-way one-axis mesh on the card, as ``train(...,
 mesh=)`` does: each attention call splits its sequence into ``N``
 shards, so the band kernels' groups count one launch a shard and the
@@ -44,7 +45,6 @@ from repro_torch.data import ZipfLM
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.profile_serve import profiled
 from repro_torch.models import get_model
-from repro_torch.optim import apply_updates
 from repro_torch.parallel.sp_attention import sp_scope
 from repro_torch.train import (TrainConfig, batch_to_device, init_state,
                                make_optimizer, make_train_step)
@@ -99,9 +99,8 @@ def main(argv=None):
     grads = tree_unflatten_like(
         state.params, list(torch.autograd.grad(loss(), leaves)))
 
-    def optimizer():
-        upd, _ = opt.update(grads, state.opt_state, state.params)
-        apply_updates(state.params, upd)
+    def optimizer():        # in place, as the step runs it
+        opt.update_(grads, state.opt_state, state.params)
 
     step_fn = make_train_step(cfg, tc)
 

@@ -1,25 +1,31 @@
-"""Attention layer: H1D attention for training and encoding (causal for
-the LM, bidirectional for the LRA encoder) and block-local sliding-window
-attention (gemma3's local layers), with prefill and single-token decode
-paths for the LM.
+"""Attention layer: H1D attention (the paper), full attention (its
+baseline) and block-local sliding-window attention (gemma3's local
+layers), for training and encoding (causal for the LM, bidirectional for
+the LRA encoder), with prefill and single-token decode paths for the LM.
 
-Port of the h1d and local branches of ``repro.models.attention``.  The
-decode cache of an h1d layer is a ``core.h1d_decode.H1DCache`` with
-``batch * kv_heads`` folded into its rows (row ``b*Hkv + h``); on the
-paged path it is a per-layer page pool (``core.h1d_decode.PagedH1DCache``
-or ``QuantPagedH1DCache``) addressed through per-tick page tables.
-Prefill runs the operator in the config's ``causal_mode`` and builds the
-fine-q hierarchical cache either way; decode is the fine-q decode for
-both modes, as in the reference.
+Port of ``repro.models.attention``.  The decode cache of an h1d layer is
+a ``core.h1d_decode.H1DCache`` with ``batch * kv_heads`` folded into its
+rows (row ``b*Hkv + h``); on the paged path it is a per-layer page pool
+(``core.h1d_decode.PagedH1DCache`` or ``QuantPagedH1DCache``) addressed
+through per-tick page tables.  Prefill runs the operator in the config's
+``causal_mode`` and builds the fine-q hierarchical cache either way;
+decode is the fine-q decode for both modes, as in the reference.
 
-A local layer (``cfg.sliding_window > 0`` and ``layer_global=False``)
-runs one band level of block size ``window`` (``l0_causal``; the
-streamed kernel on the card at a window past 64) and keeps a rolling
-cache ``{"k", "v": (B, Lc, Hkv, hd), "pos": (B, Lc) int32}`` of the last
-``Lc = min(Lmax, 2 * window)`` tokens, slot ``t % Lc``, ``pos = -1``
-where empty.  Its decode is plain torch, as the reference's is jnp
-outside any kernel.  Full attention is not ported and raises
-``NotImplementedError``.
+A full layer (``attention='full'``) runs ``core.ref_attention.
+dense_attention`` in plain torch, as the reference runs it in jnp (no
+TPU kernel stands behind it), with kv-heads folded into the batch so
+that K/V are never copied per GQA group.  Its decode cache is the dense
+``{"k", "v": (B, Lmax, Hkv, hd), "pos": (B, Lmax) int32}``, slot ``t``,
+``pos = -1`` where empty.
+
+A local layer (``cfg.sliding_window > 0`` and ``layer_global=False``,
+checked first, so a full config with a window is local there too) runs
+one band level of block size ``window`` (``l0_causal`` or ``l0_bidir``;
+the streamed kernel on the card at a causal window past 64) and keeps a
+rolling cache of the same layout holding the last ``Lc = min(Lmax, 2 *
+window)`` tokens, slot ``t % Lc``.  Full and local layers decode through
+one plain-torch branch, as the reference's is one jnp branch outside any
+kernel; only the local one tests the window.
 """
 from __future__ import annotations
 
@@ -27,18 +33,18 @@ import math
 
 import torch
 
-from ..core import (h1d_decode, h1d_attention_mha, fold_kv_heads,
-                    unfold_kv_heads)
+from ..core import (dense_attention, h1d_decode, h1d_attention_mha,
+                    fold_kv_heads, unfold_kv_heads)
 from ..core import hierarchy as hc
 from ..kernels.ops import band_attention
 from .common import ModelConfig, dense, dense_init, rmsnorm, apply_rope
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.attention != "h1d":
-        raise NotImplementedError(
-            f"attention={cfg.attention!r} is not ported yet (the port "
-            "serves h1d attention, with sliding-window local layers)")
+    """The reference's ``attn_apply`` takes ``h1d`` and ``full`` and
+    raises ``ValueError`` for any other name."""
+    if cfg.attention not in ("h1d", "full"):
+        raise ValueError(cfg.attention)
 
 
 def _is_local(cfg: ModelConfig, layer_global: bool) -> bool:
@@ -119,14 +125,30 @@ def _local_attention(q, k, v, window: int, causal: bool, kv_weight):
     return unfold_kv_heads(z, fold)[:, :L]
 
 
+def _full_attention(q, k, v, causal: bool, kv_weight):
+    """Full softmax attention over (B, S, H, hd) heads (the reference's
+    ``dense_attention`` branch): kv-heads fold into the batch and the GQA
+    group into G, so K/V stay 3-D and are never copied per group.
+    Returns (B, S, Hq, hd) in q's dtype."""
+    qh, kh, vh, fold = fold_kv_heads(q, k, v)
+    if kv_weight is not None:
+        kv_weight = kv_weight.repeat_interleave(fold[1], dim=0)
+    z = dense_attention(qh, kh, vh, causal=causal, kv_weight=kv_weight)
+    return unfold_kv_heads(z, fold)
+
+
 def _attend(p, cfg: ModelConfig, q, k, v, kv_weight, causal: bool,
             layer_global: bool):
     """The layer's attention over projected (B,S,H,hd) heads and the
-    output projection: the sliding window on a local layer, else H1D
-    attention with S padded to ``nr * 2**k`` by weight-0 keys."""
+    output projection: the sliding window on a local layer, else full
+    attention, or H1D attention with S padded to ``nr * 2**k`` by
+    weight-0 keys."""
     B, S = q.shape[:2]
     if _is_local(cfg, layer_global):
         z = _local_attention(q, k, v, cfg.sliding_window, causal, kv_weight)
+        return dense(p["wo"], z.reshape(B, S, -1))
+    if cfg.attention == "full":
+        z = _full_attention(q, k, v, causal, kv_weight)
         return dense(p["wo"], z.reshape(B, S, -1))
     Lp = hc.padded_length(S, cfg.nr)
     pad = Lp - S
@@ -142,8 +164,9 @@ def _attend(p, cfg: ModelConfig, q, k, v, kv_weight, causal: bool,
 def attn_apply(p, cfg: ModelConfig, x, positions, *, causal=True,
                kv_weight=None, layer_global=True):
     """Training/encoding attention, causal (the LM, fine-q or coarse-q
-    by ``cfg.causal_mode``) or bidirectional (the encoder); a sliding
-    window where the config has one and ``layer_global`` is False.  x:
+    by ``cfg.causal_mode``) or bidirectional (the encoder), H1D or full
+    by ``cfg.attention``; a sliding window where the config has one and
+    ``layer_global`` is False.  x:
     (B, S, d); positions: (B, S); kv_weight: (B, S) key weights (0 =
     padding)."""
     _check_supported(cfg)
@@ -153,24 +176,29 @@ def attn_apply(p, cfg: ModelConfig, x, positions, *, causal=True,
 
 def init_decode_cache(cfg: ModelConfig, B: int, Lmax: int, *,
                       layer_global=True, dtype=torch.float32, device=None):
+    """A zero decode cache: the hierarchical cache of an h1d layer, else
+    the dense ``{"k", "v", "pos"}`` cache of ``Lmax`` rows (a local
+    layer's rolling one of ``min(Lmax, 2 * window)``)."""
     _check_supported(cfg)
-    if _is_local(cfg, layer_global):
-        Lc = min(Lmax, 2 * cfg.sliding_window)
-        shape = (B, Lc, cfg.num_kv_heads, cfg.head_dim)
-        return {"k": torch.zeros(shape, dtype=dtype, device=device),
-                "v": torch.zeros(shape, dtype=dtype, device=device),
-                "pos": torch.full((B, Lc), -1, dtype=torch.int32,
-                                  device=device)}
-    Lmax = hc.padded_length(Lmax, cfg.nr)   # needs nr * 2**k
-    return h1d_decode.init_cache(B * cfg.num_kv_heads, Lmax, cfg.head_dim,
-                                 cfg.head_dim, cfg.nr, dtype=dtype,
-                                 device=device)
+    local = _is_local(cfg, layer_global)
+    if cfg.attention == "h1d" and not local:
+        Lmax = hc.padded_length(Lmax, cfg.nr)   # needs nr * 2**k
+        return h1d_decode.init_cache(B * cfg.num_kv_heads, Lmax,
+                                     cfg.head_dim, cfg.head_dim, cfg.nr,
+                                     dtype=dtype, device=device)
+    Lc = min(Lmax, 2 * cfg.sliding_window) if local else Lmax
+    shape = (B, Lc, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos": torch.full((B, Lc), -1, dtype=torch.int32,
+                              device=device)}
 
 
-def _local_decode(cfg: ModelConfig, q, k, v, t, cache):
-    """One token of a local layer against its rolling cache (the
-    reference's jnp branch): write k, v and t at slot ``t % Lc`` in
-    place, then attend every slot with ``0 <= t - pos < window``."""
+def _dense_decode(cfg: ModelConfig, q, k, v, t, cache, local: bool):
+    """One token of a full or local layer against its dense or rolling
+    cache (the reference's shared jnp branch): write k, v and t at slot
+    ``t % Lc`` in place, then attend every slot with ``0 <= t - pos``
+    (and ``< window`` on a local layer)."""
     B = q.shape[0]
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     Lc = cache["k"].shape[1]
@@ -181,7 +209,9 @@ def _local_decode(cfg: ModelConfig, q, k, v, t, cache):
     cache["pos"][rows, slot] = t.to(torch.int32)
     pos = cache["pos"]
     dist = t[:, None].to(torch.int32) - pos             # (B, Lc)
-    valid = (pos >= 0) & (dist >= 0) & (dist < cfg.sliding_window)
+    valid = (pos >= 0) & (dist >= 0)
+    if local:
+        valid = valid & (dist < cfg.sliding_window)
     f32 = torch.float32
     s = torch.einsum("bhgd,blhd->bhgl",
                      q[:, 0].reshape(B, hkv, hq // hkv, hd).to(f32),
@@ -197,9 +227,10 @@ def _local_decode(cfg: ModelConfig, q, k, v, t, cache):
 def attn_decode(p, cfg: ModelConfig, x, t, cache, *, layer_global=True,
                 page_tables=None, sp_tables=None):
     """Single-token decode.  x: (B, 1, d); t: (B,) int32 current position.
-    Updates ``cache`` in place; returns (out (B, 1, d), cache).  A local
-    layer (``layer_global=False`` under a sliding window) decodes against
-    its rolling cache.
+    Updates ``cache`` in place; returns (out (B, 1, d), cache).  A full
+    layer decodes against its dense cache, a local layer
+    (``layer_global=False`` under a sliding window) against its rolling
+    cache.
 
     ``page_tables`` (``core.h1d_decode.PageTables``) switches to the
     paged pool: ``cache`` is then a ``PagedH1DCache`` (or, with int8
@@ -212,8 +243,10 @@ def attn_decode(p, cfg: ModelConfig, x, t, cache, *, layer_global=True,
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     G = hq // hkv
     q, k, v = _project_qkv(p, cfg, x, t[:, None])
-    if _is_local(cfg, layer_global):
-        return dense(p["wo"], _local_decode(cfg, q, k, v, t, cache)), cache
+    local = _is_local(cfg, layer_global)
+    if local or cfg.attention == "full":
+        z = _dense_decode(cfg, q, k, v, t, cache, local)
+        return dense(p["wo"], z), cache
     q1 = q[:, 0].reshape(B * hkv, G, hd).contiguous()
     k1 = k[:, 0].reshape(B * hkv, hd).contiguous()
     v1 = v[:, 0].reshape(B * hkv, hd).contiguous()
@@ -243,15 +276,16 @@ def prefill_into_cache(p, cfg: ModelConfig, x, positions, Lmax: int, *,
                        layer_global=True):
     """Run attention over a prefix (in ``cfg.causal_mode``) AND build the
     decode cache: fine-q hierarchical from the prefix's keys and values,
-    or on a local layer the rolling cache holding the prefix's last
-    ``Lc`` tokens.  Returns (out (B, S, d), cache)."""
+    or on a full or local layer the dense or rolling cache holding the
+    prefix's last ``min(S, Lc)`` tokens.  Returns (out (B, S, d),
+    cache)."""
     _check_supported(cfg)
     B, S, _ = x.shape
     hkv, hd = cfg.num_kv_heads, cfg.head_dim
     q, k, v = _project_qkv(p, cfg, x, positions)
     out = _attend(p, cfg, q, k, v, None, True, layer_global)
-    if _is_local(cfg, layer_global):
-        cache = init_decode_cache(cfg, B, Lmax, layer_global=False,
+    if _is_local(cfg, layer_global) or cfg.attention == "full":
+        cache = init_decode_cache(cfg, B, Lmax, layer_global=layer_global,
                                   dtype=k.dtype, device=k.device)
         Lc = cache["k"].shape[1]
         take = min(S, Lc)

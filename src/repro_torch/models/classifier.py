@@ -1,10 +1,10 @@
 """Encoder classifier for LRA-style tasks (paper section 8.1).
 
-Port of ``repro.models.classifier``: a bidirectional H1D encoder
-(embedding, pre-norm blocks with RoPE positions, final RMSNorm), masked
-mean pooling over the true tokens and a linear ``head`` to
-``num_classes`` -- the configuration the paper uses on the Long Range
-Arena benchmark (``h1d-lra-encoder``).  Differentiable: the band kernels
+Port of ``repro.models.classifier``: a bidirectional H1D (or full, or
+sliding-window) encoder (embedding, pre-norm blocks with RoPE positions,
+final RMSNorm), masked mean pooling over the true tokens and a linear
+``head`` to ``num_classes`` -- the configuration the paper uses on the
+Long Range Arena benchmark (``h1d-lra-encoder``).  Differentiable: the band kernels
 of the bidirectional and coarse modes carry their backward.
 
 Parameters::
@@ -50,13 +50,19 @@ def classifier_init(cfg: ModelConfig, num_classes: int, *, seed: int = 0,
 def classifier_logits(params, cfg: ModelConfig, tokens, mask=None):
     """tokens (B, S) int, mask (B, S) 0/1 or None -> float32 logits
     (B, num_classes).  The mask weights the keys of every layer and the
-    mean pooling."""
+    mean pooling.  Under a sliding window a layer that
+    ``cfg.layer_uses_global_attn`` leaves local attends within its
+    window (``l0_bidir``), as the LM's layers do: the reference's
+    classifier passes no ``layer_global`` and so runs every layer global,
+    which makes its Table 1 "local" encoder (``attention='full'`` with
+    ``window=16``) a full one (ROADMAP C)."""
     B, S = tokens.shape
     h = params["embed"]["w"][tokens.long()].to(cfg.torch_dtype)
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
-    for lp in params["layers"]:
+    for i, lp in enumerate(params["layers"]):
         h = h + attn_apply(lp["attn"], cfg, rmsnorm(lp["ln1"], h), positions,
-                           causal=False, kv_weight=mask)
+                           causal=False, kv_weight=mask,
+                           layer_global=cfg.layer_uses_global_attn(i))
         h = h + mlp(lp["mlp"], rmsnorm(lp["ln2"], h), cfg.mlp_activation)
     h = rmsnorm(params["final_norm"], h)
     if mask is not None:

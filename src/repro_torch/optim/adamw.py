@@ -9,6 +9,15 @@ same float32 arithmetic, step for step::
     updates, state = opt.update(grads, state, params)
     params = apply_updates(params, updates)
 
+Each optimizer also has an in-place form, ``state = opt.update_(grads,
+state, params)``, what the reference's donated train step lets XLA do:
+it clips ``grads`` in place and writes the moments and ``params`` in
+place, leaf by leaf, so no second tree of moments, updates or parameters
+ever exists.  It runs the functional update's expressions on the same
+operands, so it gives the same bits; AdamW takes a leaf of more than
+``CHUNK_ELEMS`` entries in row chunks (the arithmetic is elementwise),
+which bounds its temporaries.
+
 Parameters, gradients and states are trees of tensors (``repro_torch.
 tree``); step counters are int32 scalars on the parameters' device, so a
 step never waits on the host.  Weight decay applies to every leaf, norms
@@ -28,7 +37,8 @@ F32 = torch.float32
 
 class Optimizer(NamedTuple):
     init: Callable
-    update: Callable
+    update: Callable      # (grads, state, params) -> (updates, state)
+    update_: Callable     # (grads, state, params) -> state, in place
 
 
 def apply_updates(params, updates):
@@ -40,10 +50,24 @@ def global_norm(tree) -> torch.Tensor:
                           for x in tree_leaves(tree)))
 
 
+def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+
+
 def clip_by_global_norm(grads, max_norm: float):
     norm = global_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    scale = _clip_scale(norm, max_norm)
     return tree_map(lambda g: g * scale.to(g.dtype), grads), norm
+
+
+def clip_by_global_norm_(grads, max_norm: float):
+    """:func:`clip_by_global_norm` in place: scales every leaf of
+    ``grads`` and returns (grads, norm)."""
+    norm = global_norm(grads)
+    scale = _clip_scale(norm, max_norm)
+    for g in tree_leaves(grads):
+        g.mul_(scale.to(g.dtype))
+    return grads, norm
 
 
 # ---------------------------------------------------------------------------
@@ -86,6 +110,42 @@ def _per_leaf(upd, grads, *trees):
             for i in range(len(out[0]))]
 
 
+#: the most entries of a leaf that an in-place AdamW update takes at once
+#: (64 MiB an f32 temporary); gemma3-4b's 262144 x 2560 embedding takes
+#: 41 row chunks in place of 2.5 GiB temporaries
+CHUNK_ELEMS = 1 << 24
+
+
+def _row_chunks(p: torch.Tensor):
+    """Index expressions covering ``p``: ``...`` for a leaf of at most
+    CHUNK_ELEMS entries, else slices of its leading axis."""
+    if p.ndim == 0 or p.numel() <= CHUNK_ELEMS:
+        return (...,)
+    rows = max(1, CHUNK_ELEMS // (p.numel() // p.shape[0]))
+    return tuple(slice(i, i + rows) for i in range(0, p.shape[0], rows))
+
+
+def _leaf_(upd, idx, g, p, moments):
+    """One in-place step of ``upd`` on ``p[idx]`` and its moments; its
+    temporaries die on return, before the next chunk or leaf."""
+    u, *new = upd(g[idx], *(m[idx] for m in moments), p[idx])
+    for m, n in zip(moments, new):
+        m[idx].copy_(n)
+    p[idx].add_(u.to(p.dtype))
+
+
+@torch.no_grad()
+def _per_leaf_(upd, grads, params, *trees, chunked: bool):
+    """Apply ``upd(g, *leaves, p)`` -> (update, *new_leaves) leaf by leaf
+    in place: each new leaf is copied into its tree's leaf and the update
+    added to ``p`` as :func:`apply_updates` adds it.  ``chunked`` runs a
+    large leaf (and its moments, of its shape) in :func:`_row_chunks`."""
+    flat = [tree_leaves(t) for t in (grads, params, *trees)]
+    for g, p, *moments in zip(*flat):
+        for idx in (_row_chunks(p) if chunked else (...,)):
+            _leaf_(upd, idx, g, p, moments)
+
+
 # ---------------------------------------------------------------------------
 # AdamW
 # ---------------------------------------------------------------------------
@@ -104,10 +164,7 @@ def adamw(lr: Callable, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
         return AdamWState(_step0(params), tree_map(zeros, params),
                           tree_map(zeros, params))
 
-    def update(grads, state, params):
-        if clip_norm is not None:
-            grads, _ = clip_by_global_norm(grads, clip_norm)
-        step = state.step + 1
+    def leaf_update(step):
         stepf = step.to(F32)
         lr_t = lr(step)
         bc1 = 1 - b1 ** stepf
@@ -120,11 +177,25 @@ def adamw(lr: Callable, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
             u = -(lr_t * ((m / bc1) / (torch.sqrt(v / bc2) + eps)
                           + weight_decay * p.to(F32)))
             return u, m, v
+        return upd
 
-        updates, mu, nu = _per_leaf(upd, grads, state.mu, state.nu, params)
+    def update(grads, state, params):
+        if clip_norm is not None:
+            grads, _ = clip_by_global_norm(grads, clip_norm)
+        step = state.step + 1
+        updates, mu, nu = _per_leaf(leaf_update(step), grads, state.mu,
+                                    state.nu, params)
         return updates, AdamWState(step, mu, nu)
 
-    return Optimizer(init, update)
+    def update_(grads, state, params):
+        if clip_norm is not None:
+            clip_by_global_norm_(grads, clip_norm)
+        step = state.step + 1
+        _per_leaf_(leaf_update(step), grads, params, state.mu, state.nu,
+                   chunked=True)
+        return AdamWState(step, state.mu, state.nu)
+
+    return Optimizer(init, update, update_)
 
 
 # ---------------------------------------------------------------------------
@@ -154,8 +225,7 @@ def adafactor(lr: Callable, decay=0.8, eps=1e-30,
         return AdafactorState(_step0(params), tree_map(vr_init, params),
                               tree_map(vc_init, params))
 
-    def update(grads, state, params):
-        step = state.step + 1
+    def leaf_update(step):
         stepf = step.to(F32)
         beta = 1.0 - stepf ** (-decay)
         lr_t = lr(step)
@@ -177,8 +247,20 @@ def adafactor(lr: Callable, decay=0.8, eps=1e-30,
             rms = torch.sqrt(torch.mean(u * u))
             u = u / torch.clamp(rms / clip_threshold, min=1.0)
             return -lr_t * u, vr, vc
+        return upd
 
-        updates, vr, vc = _per_leaf(upd, grads, state.vr, state.vc, params)
+    def update(grads, state, params):
+        step = state.step + 1
+        updates, vr, vc = _per_leaf(leaf_update(step), grads, state.vr,
+                                    state.vc, params)
         return updates, AdafactorState(step, vr, vc)
 
-    return Optimizer(init, update)
+    def update_(grads, state, params):
+        # the factored moments are small and the update's RMS spans the
+        # whole leaf: one pass a leaf
+        step = state.step + 1
+        _per_leaf_(leaf_update(step), grads, params, state.vr, state.vc,
+                   chunked=False)
+        return AdafactorState(step, state.vr, state.vc)
+
+    return Optimizer(init, update, update_)

@@ -1,6 +1,7 @@
 """Batched serving engine: continuous batching over prefill +
-single-token decode with hierarchical KV caches, on dense cache slots or
-a paged page pool.
+single-token decode with hierarchical KV caches (or, for
+``attention='full'``, dense ones), on dense cache slots or a paged page
+pool.
 
 Port of ``repro.serve.engine.ServeEngine``, with the reference's
 semantics:
@@ -17,8 +18,10 @@ semantics:
 * ``greedy=False`` samples each token as ``argmax(logits + g)`` with
   Gumbel noise ``g`` (what ``jax.random.categorical`` computes), drawn
   from one seeded generator per request (:meth:`ServeEngine._noise`);
-* on dense slots a slot owns ``Hkv`` consecutive rows of every cache
-  array; admission writes the prefilled rows of a group in one pass;
+* on dense slots a slot owns ``Hkv`` consecutive rows of every
+  hierarchical cache array and row ``s`` of a full or local layer's
+  ``{"k", "v", "pos"}`` cache; admission writes the prefilled rows of a
+  group in one pass;
 * ``paged=True`` serves from the paged pool (``serve/paged_cache.py``):
   device memory is bounded by ``pool_pages``, not ``slots * max_len``;
   prompt-prefix pages are shared across requests with copy-on-write,
@@ -160,10 +163,6 @@ class ServeEngine:
                     f"nr={cfg.nr} block per shard on a {sp_d}-way "
                     f"'{sp_axis}' axis; use fewer shards or a longer "
                     f"max_len")
-        if cfg.attention != "h1d":
-            raise NotImplementedError(
-                f"the ported engine serves h1d attention, not "
-                f"{cfg.attention!r}")
         self.greedy = greedy
         self.seed = seed
         # one noise generator per request in flight, keyed by id(req)
@@ -173,9 +172,12 @@ class ServeEngine:
         # rolling cache keeps the LAST 2 * window rows so pads would evict
         # real in-window keys, and for h1d coarse-q, whose coarse QUERIES
         # average the pad embeddings across cluster boundaries and shift
-        # the logits at the true last token
-        self._bucket = (cfg.causal_mode == "fine-q"
-                        and cfg.sliding_window == 0)
+        # the logits at the true last token; on for full attention, whose
+        # pads sit past the true length in causal order and in cache
+        # slots each overwritten before its position comes up
+        self._bucket = (cfg.sliding_window == 0
+                        and (cfg.attention != "h1d"
+                             or cfg.causal_mode == "fine-q"))
         self.cache_dtype = cache_dtype
         self.quant_levels = quant_levels
         self.cfg = cfg
@@ -405,8 +407,9 @@ class ServeEngine:
 
         if not self.paged:
             # slot s owns rows [s*r, (s+1)*r) of every hierarchical cache
-            # array and row s of a local layer's rolling cache, whose
-            # every slot (pos -1 where empty) the prefill's overwrites
+            # array and row s of a full or local layer's dense or rolling
+            # cache, whose every slot (pos -1 where empty) the prefill's
+            # overwrites
             r = self.cfg.num_kv_heads
             rows = torch.as_tensor(
                 np.concatenate([np.arange(s * r, (s + 1) * r) for s in dst]),

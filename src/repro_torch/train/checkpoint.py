@@ -35,8 +35,10 @@ from ..tree import tree_flatten_with_paths, tree_map, tree_map_with_path
 
 
 def _host(x):
-    """A leaf in host memory: a CPU tensor, or a numpy array."""
-    return x.detach().cpu() if isinstance(x, torch.Tensor) \
+    """A leaf in host memory: a CPU tensor, or a numpy array.  A tensor
+    is always copied, a CPU one too: a train step updates the state's
+    tensors in place while the saver's thread writes the copy."""
+    return x.detach().to("cpu", copy=True) if isinstance(x, torch.Tensor) \
         else np.asarray(x)
 
 

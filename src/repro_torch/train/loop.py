@@ -2,11 +2,12 @@
 compression hook, checkpoint/restart, watchdog.
 
 Port of ``repro.train.loop`` for one card.  ``make_train_step`` returns
-``train_step(state, batch) -> (state, metrics)``, functional like the
-reference's: gradients come from ``torch.autograd.grad`` of the model's
-loss (the band kernels carry their own backward), the optimizer builds
-new parameter and moment tensors, and the step counters live on the
-device.  ``train`` runs the single-host loop; with a ``mesh`` of more
+``train_step(state, batch) -> (state, metrics)``, which consumes its
+input state as the reference's donated step does: gradients come from
+``torch.autograd.grad`` of the model's loss (the band kernels carry
+their own backward), the optimizer's in-place update
+(``Optimizer.update_``) writes the parameters and moments in place, and
+the step counters live on the device.  ``train`` runs the single-host loop; with a ``mesh`` of more
 than one shard each step runs inside ``sp_scope(mesh)``, so every
 attention call shards its sequence axis (sequence-parallel training, the
 reference's ``sp_step``).  Telemetry spans and the sharded multi-pod path
@@ -23,8 +24,8 @@ import torch
 
 from .. import resolve_device
 from ..models import ModelConfig, get_model
-from ..optim import (Optimizer, adafactor, adamw, apply_updates,
-                     cosine_schedule, init_error_feedback, int8_compress)
+from ..optim import (Optimizer, adafactor, adamw, cosine_schedule,
+                     init_error_feedback, int8_compress)
 from ..parallel.sp_attention import sp_scope
 from ..tree import tree_leaves, tree_map, tree_unflatten_like
 
@@ -91,6 +92,13 @@ def batch_to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, Any]:
 def make_train_step(cfg: ModelConfig, tc: TrainConfig) -> Callable:
     """Returns train_step(state, batch) -> (state, metrics).
 
+    The step consumes ``state``, as the reference's donated jit
+    (``donate_argnums=(0,)``) does: the returned state holds the same
+    parameter and moment tensors, updated in place, so a caller that
+    reads the old state after a step must clone it first.  Each leaf's
+    update gives the bits of the functional ``update`` then
+    ``apply_updates``.
+
     Gradient accumulation splits the leading batch dim into
     ``tc.grad_accum`` microbatches and takes the mean of their gradients
     and losses (the reference's scan); the other metrics are the last
@@ -118,16 +126,18 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig) -> Callable:
             n = tc.grad_accum
             micro = {k: v.reshape((n, v.shape[0] // n) + tuple(v.shape[1:]))
                      for k, v in batch.items()}
-            gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                  device=p.device),
-                            state.params)
+            grads = tree_map(lambda p: torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device), state.params)
             lsum = 0.0
             for i in range(n):
                 loss, metrics, g = value_and_grad(
                     state.params, {k: v[i] for k, v in micro.items()})
-                gsum = tree_map(torch.add, gsum, g)
+                for a, b in zip(tree_leaves(grads), tree_leaves(g)):
+                    a.add_(b)
+                del g
                 lsum = lsum + loss
-            grads = tree_map(lambda g: g / n, gsum)
+            for a in tree_leaves(grads):
+                a.div_(n)
             loss = lsum / n
         else:
             loss, metrics, grads = value_and_grad(state.params, batch)
@@ -136,11 +146,12 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig) -> Callable:
         if tc.compress_grads == "int8":
             grads, ef = int8_compress(grads, ef)
 
-        updates, opt_state = opt.update(grads, state.opt_state, state.params)
-        params = apply_updates(state.params, updates)
+        opt_state = opt.update_(grads, state.opt_state, state.params)
+        del grads
         metrics = dict(metrics)
         metrics["loss"] = loss
-        return TrainState(state.step + 1, params, opt_state, ef), metrics
+        return TrainState(state.step + 1, state.params, opt_state,
+                          ef), metrics
 
     return train_step
 

@@ -1948,3 +1948,124 @@ def test_decode_wrappers_refuse_other_cache_dtypes(dev):
         with pytest.raises(ValueError, match="float32 or bfloat16"):
             call()
     assert not any(k.launches for k, _ in kernels.KERNELS.values())
+
+
+# ---------------------------------------------------------------------------
+# the dense oracles, full attention and the in-place optimizer update
+# ---------------------------------------------------------------------------
+
+ORACLE_TOL = dict(atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("causal,mode", [(True, "fine-q"),
+                                         (True, "coarse-q"),
+                                         (False, "fine-q")])
+def test_h1d_attention_kernels_match_dense_oracle(dev, causal, mode):
+    """The operator on the band kernels against ``h1d_dense_oracle`` at G
+    3, L 512, d 48, nr 8, key weights in (0.5, 1.5) with zeros, at the
+    reference's own tolerance for it."""
+    from repro_torch.core import h1d_dense_oracle
+    gen = torch.Generator(device=dev).manual_seed(3)
+    B, G, L, d, nr = 2, 3, 512, 48, 8
+    q = _randn(gen, dev, B, G, L, d)
+    k = _randn(gen, dev, B, L, d)
+    v = _randn(gen, dev, B, L, d)
+    w = torch.rand((B, L), generator=gen, device=dev) + 0.5
+    w[0, L - 100:] = 0.0
+    w[1, ::7] = 0.0
+    kernels.reset_counts()
+    got = h1d_attention(q, k, v, nr=nr, causal=causal, causal_mode=mode,
+                        kv_weight=w)
+    assert kernels.KERNELS["band_attention_fwd"][0].launches > 0
+    assert not any(p.calls for _, p in kernels.KERNELS.values())
+    want = h1d_dense_oracle(q, k, v, nr=nr, causal=causal, causal_mode=mode,
+                            kv_weight=w)
+    torch.testing.assert_close(got, want, **ORACLE_TOL)
+
+
+@pytest.mark.parametrize("mode,ratio", [("l0_causal", 1), ("l0_bidir", 1),
+                                        ("coarse_causal", 1),
+                                        ("coarse_bidir", 1), ("sub", 2),
+                                        ("sub", 8)])
+def test_band_kernels_match_band_ref(dev, mode, ratio):
+    """#1 in every mode and #2 against ``band_attention_ref`` (one masked
+    product over every key) at G 2, L 256, d 32, nr 16, weight-0 keys."""
+    gen = torch.Generator(device=dev).manual_seed(ratio)
+    B, G, L, d, nr = 3, 2, 256, 32, 16
+    Lk = L // ratio if mode == "sub" else L
+    q = _randn(gen, dev, B, G, L, d) / 4
+    k = _randn(gen, dev, B, Lk, d)
+    w = torch.ones((B, Lk), device=dev)
+    w[0, Lk // 2:] = 0.0
+    v = _randn(gen, dev, B, Lk, d) * w[..., None]
+    if mode == "sub":
+        got = hb.band_attention_sub_fwd(q, k, v, w, nr=nr, ratio=ratio)
+    else:
+        got = hb.band_attention_fwd(q, k, v, w, nr=nr, mode=mode)
+    _close(got, kernels.band_attention_ref(q, k, v, w, nr=nr, mode=mode,
+                                           ratio=ratio))
+
+
+def test_in_place_adamw_is_bit_equal_on_card(dev):
+    """The in-place AdamW update against the functional one on the card,
+    bf16 leaves with one past CHUNK_ELEMS (two row chunks), three steps
+    with the clip active: parameters and moments the same bits, the
+    tensors kept in place."""
+    import importlib
+    from repro_torch import optim
+    adamw_mod = importlib.import_module("repro_torch.optim.adamw")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows = adamw_mod.CHUNK_ELEMS // 512 + 100
+    params = {"big": _randn(gen, dev, rows, 512).bfloat16(),
+              "small": [_randn(gen, dev, 7).bfloat16()]}
+    assert len(adamw_mod._row_chunks(params["big"])) == 2
+    opt = optim.adamw(optim.cosine_schedule(1e-2, 1, 10))
+    p_fn = {"big": params["big"].clone(), "small": [params["small"][0].clone()]}
+    s_in, s_fn = opt.init(params), opt.init(p_fn)
+    ptrs = [t.data_ptr() for t in (params["big"], s_in.mu["big"])]
+    for _ in range(3):
+        g = {"big": _randn(gen, dev, rows, 512).bfloat16(),
+             "small": [_randn(gen, dev, 7).bfloat16()]}
+        upd, s_fn = opt.update({"big": g["big"].clone(),
+                                "small": [g["small"][0].clone()]}, s_fn, p_fn)
+        p_fn = optim.apply_updates(p_fn, upd)
+        s_in = opt.update_(g, s_in, params)
+    for a, b in ((params["big"], p_fn["big"]),
+                 (params["small"][0], p_fn["small"][0]),
+                 (s_in.mu["big"], s_fn.mu["big"]),
+                 (s_in.nu["big"], s_fn.nu["big"])):
+        assert torch.equal(a, b)
+    assert [t.data_ptr() for t in (params["big"], s_in.mu["big"])] == ptrs
+
+
+def test_full_attention_smoke_on_card_matches_cpu(dev):
+    """The smoke LM with ``attention='full'`` (GQA 2): logits on the card
+    within 1e-4 of the CPU's from the same seed, and the engine's greedy
+    tokens the same on both, no kernel launched on the card."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import get_model
+    from repro_torch.serve import Request, ServeEngine
+    cfg = dataclasses.replace(get_smoke_config("h1d-lm-53m"),
+                              attention="full", num_kv_heads=2)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (9, 33, 20)]
+    logits, outs = {}, {}
+    for device in ("cpu", "cuda"):
+        params = get_model(cfg).init(cfg, seed=2, device=device)
+        tok = torch.as_tensor(prompts[1][None], dtype=torch.long,
+                              device=device)
+        logits[device] = get_model(cfg).forward(params, cfg, tok)[0].cpu()
+        eng = ServeEngine(cfg, params, slots=2, max_len=64)
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=6)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        kernels.reset_counts()
+        eng.run()
+        assert not any(k.launches for k, _ in kernels.KERNELS.values())
+        outs[device] = [r.out_tokens for r in reqs]
+    torch.testing.assert_close(logits["cuda"], logits["cpu"], atol=1e-4,
+                               rtol=0)
+    assert outs["cuda"] == outs["cpu"]
