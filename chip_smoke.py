@@ -190,9 +190,9 @@ Phases (each raises on failure; nothing is caught):
    runs it (the rematerialised forwards twice: forward and recompute),
    no plain version, peak memory below the card's; step ms, tokens/s,
    peak memory.
-14. ``dense bf16``, after 13: ``yi-6b`` at full width cut to 16 of its
+14. ``dense bf16``, after 13: ``yi-6b`` at full width cut to 4 of its
    32 layers (G 8, head_dim 128, untied head) and ``qwen2.5-14b`` at
-   full width cut to 8 of its 48 layers (G 5, qkv bias), published
+   full width cut to 2 of its 48 layers (G 5, qkv bias), published
    bf16, seeded weights drawn layer by layer on the host (their time
    logged; the cuts keep the draw within the time limit),
    ``ServeEngine(slots=4, max_len=4096)`` on 8 greedy requests of 16
@@ -233,7 +233,43 @@ Phases (each raises on failure; nothing is caught):
    kernels and ``dense_attention``, ms by CUDA events and log-log
    slopes, on a line of their own (``{"scaling": ...}``).
 
-Tolerances.  In bf16 (phases 12-15): every step's logits, on the same
+17. ``families``: the MoE and VLM families.  (a), with the kernel rows
+   of 2-3 before any model phase: rows
+   ``<name>@<arch>``: #1 ``l0_causal``, #2, #3 and #4 at one sequence's
+   kv-heads of ``qwen2-moe-a2.7b`` (16 rows, G 1) and ``llava-next-34b``
+   (8 rows, G 7), head_dim 128, L 4096, every other row right-padded
+   past 3000, q, k, v rounded to bf16; #5 and #6 on bf16 caches at
+   qwen2-moe's decode shape (64 rows, G 1) and llava's (16 rows, G 7),
+   #7 and #9 on a bf16 pool at qwen2-moe's; each held to its plain
+   version as in 2, 3 and the bf16 rows, its launches those of the phase
+   17 paths that run that shape.  After 16: (b) ``qwen2-moe-a2.7b`` at full width,
+   4 of its 24 layers (2.90 B parameters), bf16, seeded weights:
+   ``ServeEngine(slots=4, max_len=4096)``, bucketed, on 8 greedy
+   requests of 16 tokens, prompt lengths 1000..3900 (seed 0): #1, #2,
+   #5, #6 launched, no plain version; then the plain run and the kernels
+   on its tokens on dense slots and on a paged bf16 pool (#7, #9), every
+   call of the port's routing function logged on both sides (by
+   wrapping ``models.ffn.route`` here): each position whose experts
+   differ counted, the first differing layer of each a near tie in the
+   plain run (its gap between the k-th and (k+1)-th router logit within
+   ``2 * 2^-8 * max_e sum_d |x_d| |r_de|``, what rounding every router
+   input element by one bf16 ulp can move two logits apart), and every
+   step whose token's experts agreed in every layer held to the plain
+   run's logits as in 12 (at least 3/4 of the steps).  (c) on (b)'s
+   weights, the checks of 13 (b) at 1 x 4096 on ``ZipfLM(seed=0)`` (the
+   fp32 gradient's plain pass routed to the kernel pass's experts; any
+   flip is reported with its gap) and 3 in-place AdamW steps through
+   ``train``: step ms, tokens/s, peak memory, the aux loss.  (d)
+   ``llava-next-34b`` at full width, 2 of its 60 layers (2.03 B):
+   ``lm_prefill`` of 576 seeded patch embeddings (numpy, seed 0, x 0.02)
+   and a 1024-token prompt at B 2, Lmax 4096, then 16 decode steps, the
+   kernels on the plain run's tokens, every step's logits held as in 12
+   (#1, #2, #5, #6 launched).  (e) one in-place AdamW step at 1 x (576 +
+   3520) with ``patch_embeds`` on (d)'s weights.  The kernel line's
+   ``launches_by_path`` holds ``moe`` ((b): the first kernel run and the
+   paged run), ``moe_train`` ((c)'s steps) and ``vlm`` ((d), (e)).
+
+Tolerances.  In bf16 (phases 12-15, 17): every step's logits, on the same
 tokens, within 3e-2 of the plain row's largest |logit| (both paths
 round every activation to bf16 after f32 attention summed in other
 orders), losses within 2e-2; the
@@ -2941,7 +2977,7 @@ def train_expected(cfg, steps: int, seq: int):
     return {k_: n * steps for k_, n in per_step.items() if n}
 
 
-def bf16_checks(label, cfg, params, batch):
+def bf16_checks(label, cfg, params, batch, grad_ctx=None):
     """The checks of a bf16 configuration with remat (policy ``dots``) on
     ``params`` (left as they are) and one batch: (a) its loss on the
     kernel path within BF16_LOSS_TOL of the plain path's; (b) the
@@ -2950,9 +2986,11 @@ def bf16_checks(label, cfg, params, batch):
     with the lower peak; then the ``lm_loss`` gradient of the weights
     widened to fp32 on the batch's first sequence, kernel path against
     plain path as in 7 (the band kernels run fp32 in either dtype, and
-    fp32 holds them, forward and backward, to GRAD_TOL).  Returns (the
-    kernel loss, the plain loss, the gradient peaks above the weights by
-    remat policy)."""
+    fp32 holds them, forward and backward, to GRAD_TOL; ``grad_ctx``,
+    where given, holds the ``run`` and ``ref`` contexts of that
+    comparison, :func:`grads_against_plain`'s).  Returns (the kernel
+    loss, the plain loss, the gradient peaks above the weights by remat
+    policy)."""
     from repro_torch.models import get_model
     from repro_torch.tree import (tree_flatten_with_paths, tree_leaves,
                                   tree_map, tree_unflatten_like)
@@ -3010,7 +3048,8 @@ def bf16_checks(label, cfg, params, batch):
     wide = tree_map(lambda p: p.float(), params)
     first = {k_: v[:1] for k_, v in batch.items()}
     grads_against_plain(f"{label} (fp32)", wide,
-                        lambda p: fns.loss(p, f32, first)[0])
+                        lambda p: fns.loss(p, f32, first)[0],
+                        **(grad_ctx or {}))
     del wide, first
     gc.collect()
     torch.cuda.empty_cache()
@@ -3023,7 +3062,8 @@ def bf16_steps(label, cfg, tc, state, data, steps, first_loss, falls,
     consume (the in-place update writes its tensors): every loss finite,
     the first within BF16_LOSS_TOL of
     ``first_loss`` (the kernel path's loss of the first batch), the last
-    below the first where ``falls``, the weights still bf16; each band
+    below the first where ``falls``, every weight in its dtype still
+    (bf16; a MoE router f32); each band
     path launched exactly as often as the steps run it, no plain version;
     peak memory below the card's.  Returns (launches, stats)."""
     from repro_torch.train import tokens_per_s, train
@@ -3032,10 +3072,11 @@ def bf16_steps(label, cfg, tc, state, data, steps, first_loss, falls,
     batch_size, seq = data.batch_per_host, data.seq_len
     dev = state.params["embed"]["w"].device
     counts = {}
+    before = [p.dtype for p in tree_leaves(state.params)]
     with counted(counts):
         state, metrics = train(cfg, tc, data, steps, state=state,
                                device=dev, log=log)
-    dtypes = {str(p.dtype) for p in tree_leaves(state.params)}
+    kept = before == [p.dtype for p in tree_leaves(state.params)]
     del state
     need_counts(label, counts, train_expected(cfg, steps, seq))
     hist = metrics["history"]
@@ -3047,8 +3088,9 @@ def bf16_steps(label, cfg, tc, state, data, steps, first_loss, falls,
                              f"not the first batch's {first_loss}")
     if falls and not losses[-1] < losses[0]:
         raise AssertionError(f"{label}: the loss does not fall: {losses}")
-    if dtypes != {"torch.bfloat16"}:
-        raise AssertionError(f"{label}: weights no longer bf16: {dtypes}")
+    if not (kept and torch.bfloat16 in before):
+        raise AssertionError(f"{label}: the weights left their dtypes "
+                             f"(bf16, a MoE router f32)")
     capacity = torch.cuda.get_device_properties(dev).total_memory / 2 ** 30
     if not metrics["peak_mem_gib"] < capacity:
         raise AssertionError(f"{label}: peak {metrics['peak_mem_gib']:.2f} "
@@ -3056,7 +3098,8 @@ def bf16_steps(label, cfg, tc, state, data, steps, first_loss, falls,
     tokens = batch_size * seq
     stats = dict(layers=cfg.num_layers, dtype=cfg.dtype, batch=batch_size,
                  seq=seq, steps=steps, remat_policy=cfg.remat_policy,
-                 losses=losses, first_step_ms=hist[0]["step_ms"],
+                 losses=losses, aux=[h["aux"] for h in hist],
+                 first_step_ms=hist[0]["step_ms"],
                  median_step_ms=float(np.median([h["step_ms"]
                                                  for h in hist[1:]])),
                  tokens_per_s=tokens_per_s(hist, tokens),
@@ -3196,17 +3239,20 @@ def phase_gemma_train(dev, box):
 # training
 # ---------------------------------------------------------------------------
 
-# (arch, layers): yi-6b cut to 16 of its 32 layers and qwen2.5-14b to 8
+# (arch, layers): yi-6b cut to 4 of its 32 layers and qwen2.5-14b to 2
 # of its 48: the card's host draws ~30 M parameters a second
-# (``lm_init``, one CPU generator), so yi's 6.06 B took 204 s; both run at
+# (``lm_init``, one CPU generator), so yi's 6.06 B took 204 s; since phase
+# 17 joined the smoke their draws are cut (16 and 8 layers took 100 and
+# 108 s) so that the whole stays near its earlier time; the kernels'
+# shapes, and so every check, do not depend on the depth; both run at
 # full depth through ``launch.serve`` outside the smoke
-DENSE_BF16 = (("yi-6b", 16), ("qwen2.5-14b", 8))
+DENSE_BF16 = (("yi-6b", 4), ("qwen2.5-14b", 2))
 DENSE_PROMPTS, DENSE_REQUESTS = (1000, 3900), 8
 LLAMA_TRAIN_BATCH, LLAMA_TRAIN_SEQ, LLAMA_TRAIN_STEPS = 2, 4096, 3
 
 
 def phase_dense_bf16(dev):
-    """14. ``yi-6b`` and ``qwen2.5-14b`` at full width (16 and 8 layers,
+    """14. ``yi-6b`` and ``qwen2.5-14b`` at full width (4 and 2 layers,
     ``DENSE_BF16``) in their published bf16 from seeded weights:
     ``ServeEngine(slots=4, max_len=4096)`` on 8 greedy requests of 16
     tokens, prompt lengths 1000..3900 (seed 0): #1 and #2 (h1d prefill at
@@ -3627,6 +3673,808 @@ def phase_full(dev, serve_stats, train_stats):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the MoE and VLM families (qwen2-moe-a2.7b, llava-next-34b)
+# ---------------------------------------------------------------------------
+
+# qwen2-moe-a2.7b at full width cut to 4 of its 24 layers (2.90 B
+# parameters) and llava-next-34b to 2 of its 60 (2.03 B): the host draws
+# ~30 M parameters a second; qwen2-moe runs at full depth through
+# ``launch.serve`` outside the smoke
+MOE_ARCH, MOE_LAYERS = "qwen2-moe-a2.7b", 4
+MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 1, 4096, 3
+VLM_ARCH, VLM_LAYERS = "llava-next-34b", 2
+VLM_BATCH, VLM_PROMPT, VLM_DECODE, VLM_MAX_LEN = 2, 1024, 16, 4096
+VLM_TRAIN_SEQ = 3520            # + 576 patch positions = 4096
+# the kernel rows at the shapes these paths give the kernels for the
+# first time: (arch, kv-heads of one sequence (the band rows), G,
+# head_dim, decode rows (4 slots, or llava's 2 prompts, x kv-heads), the
+# phase 17 paths that launch the kernels at that shape)
+FAMILY_SHAPES = (("qwen2-moe-a2.7b", 16, 1, 128, 64, ("moe", "moe_train")),
+                 ("llava-next-34b", 8, 7, 128, 16, ("vlm",)))
+FAMILY_L = 4096
+# one bf16 ulp, relative: rounding one router input element x_d to bf16
+# moves it by at most |x_d| * 2^-8, so router logit e by at most 2^-8 *
+# sum_d |x_d| |r_de|; two logits' difference by at most twice the
+# largest such sum.  A routing flip between two runs whose router inputs
+# differ only by such roundings needs the plain path's gap between its
+# k-th and (k+1)-th router logit (the log of the gates' ratio) below
+# that bound
+BF16_ULP = 2.0 ** -8
+
+
+def family_pairs(dev, mode, Lk, ratio, wk, Lq, g):
+    """(query, key) pairs the band admits on this run's weights, G ``g``."""
+    from repro_torch.kernels import h1d_block as hb
+    i = torch.arange(Lq, device=dev)[:, None]
+    j = torch.arange(Lk, device=dev)[None, :]
+    allow = hb.band_mask(i, j, NR, mode, Lk, ratio)
+    return int((allow[None] & (wk > 0)[:, None, :]).sum()) * g
+
+
+def family_bwd_compare(label, got, want, args):
+    """#3's or #4's outputs against its plain version: dq, dk, dv
+    row-scaled and dw elementwise as in phase 3; gmn = (gm - gy.y -
+    gdn dn) / c scaled by max(1, |gm| + sum_v |gy_v y_v| + |gdn dn|) of
+    its row: a cancelling sum whose terms grow with 2^l at a coarse level
+    (y and dn sum 2^l fine rows), so fp32 rounding is bounded by the
+    terms, not by the sum, as for dq, dk and dv's row scale.  Returns
+    (max abs error, max scaled error, gmn's elementwise-scaled error,
+    reported beside)."""
+    err, scaled, _ = compare(label, got[:4], want[:4], GRAD_TOL,
+                             ("row", "row", "row"))
+    y, dn, _, gy, gdn, gm = args[4:]
+    terms = gm.abs() + (gy * y).abs().sum(-1) + (gdn * dn).abs()
+    diff = (got[4] - want[4]).abs()
+    g_scaled = float((diff / terms.clamp(min=1.0)).max())
+    g_elem = float((diff / want[4].abs().clamp(min=1.0)).max())
+    if g_scaled > GRAD_TOL:
+        raise AssertionError(f"{label}: gmn disagrees with its plain "
+                             f"version: {g_scaled:.3g} of its terms > "
+                             f"{GRAD_TOL:g}")
+    return max(err, float(diff.max())), max(scaled, g_scaled), g_elem
+
+
+def phase_family_kernels(dev):
+    """17 (a).  #1 (``l0_causal``), #2, #3 and #4 at one sequence's
+    kv-heads of qwen2-moe-a2.7b (16 rows, G 1) and llava-next-34b (8
+    rows, G 7), head_dim 128, L 4096 (every other row right-padded past
+    3000), q, k and v rounded to bf16 and widened as the bf16 models
+    widen them; #5 and #6 on bf16 caches (Lmax 4096) at qwen2-moe's
+    decode shape (64 rows = 4 slots x 16, G 1) and llava's (16 rows = 2
+    prompts x 8, G 7), #7 and #9 on a bf16 pool at qwen2-moe's.  Each
+    held to its plain version: forwards and attends within ATTN_TOL,
+    backwards within GRAD_TOL (:func:`family_bwd_compare`), updates bit
+    for bit over 3 chained appends.  Rows ``<name>@<arch>``; their launches are those
+    of the phase 17 paths that run the shape."""
+    from repro_torch.core import h1d_decode as hd
+    from repro_torch.core import hierarchy as hc
+    from repro_torch.kernels import h1d_block as hb
+    from repro_torch.kernels import h1d_block_bwd as hbb
+    from repro_torch.kernels import h1d_decode_kernel as dk
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(28)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    rows = []
+
+    def add(name, src, replaces, arch, paths, numbers, note, **extra):
+        rows.append(dict(name=f"{name}@{arch}", route="cuda",
+                         source=f"src/repro_torch/kernels/csrc/{src}",
+                         replaces=f"src/repro/kernels/{replaces}",
+                         library_ms=None, paths=list(paths), note=note,
+                         **numbers, **extra))
+        log(f"{name}@{arch}: max abs err {numbers['max_abs_err']:.3g}, "
+            f"{numbers['ms']:.4f} ms, device {numbers['device_ms']:.4f} "
+            f"ms, bound {numbers['bound_ms']:.5f} ms, plain "
+            f"{numbers['plain_ms']:.3f} ms; {note}")
+
+    def timed(kernel, plain, err, bms_by):
+        return dict(max_abs_err=err, ms=time_ms(kernel),
+                    device_ms=device_ms(kernel), plain_ms=time_ms(plain),
+                    bound_ms=bms_by[0], bound_by=bms_by[1])
+
+    for arch, hkv, g, d, R, paths in FAMILY_SHAPES:
+        Lf = FAMILY_L
+        q = (randn(hkv, g, Lf, d) / math.sqrt(d)).to(bf).float()
+        k = randn(hkv, Lf, d).to(bf).float()
+        w = torch.ones((hkv, Lf), device=dev)
+        w[1::2, 3000:] = 0.0
+        v = randn(hkv, Lf, d).to(bf).float() * w[..., None]
+        shape = f"{hkv} rows x G {g}, L {Lf}, d {d}"
+
+        # #1 and #3 at level 0
+        fwd = (q, k, v, w)
+        out = hb.band_attention_fwd(*fwd, nr=NR, mode="l0_causal")
+        err, *_ = compare(f"band_attention_fwd@{arch}", out,
+                          hb.band_attention_fwd_ref(*fwd, nr=NR,
+                                                    mode="l0_causal"),
+                          ATTN_TOL)
+        pairs = family_pairs(dev, "l0_causal", Lf, 1, w, Lf, g)
+        add("band_attention_fwd[l0_causal]", "h1d_block.cu",
+            "h1d_block.py:299", arch, paths,
+            timed(lambda: hb.band_attention_fwd(*fwd, nr=NR),
+                  lambda: hb.band_attention_fwd_ref(*fwd, nr=NR), err,
+                  bound(hb.band_bytes(w, nr=NR, mode="l0_causal", G=g,
+                                      d=d, dv=d), pairs * (4 * d + 3))),
+            shape, mode="l0_causal")
+        cot = tuple(randn(*t.shape) for t in out)
+        args = (*fwd, *out, *cot)
+        e3, s3, gm3 = family_bwd_compare(
+            f"band_attention_bwd@{arch}",
+            hbb.band_attention_bwd(*args, nr=NR),
+            hbb.band_attention_bwd_ref(*args, nr=NR), args)
+        add("band_attention_bwd[l0_causal]", "h1d_block_bwd.cu",
+            "h1d_block_bwd.py:541", arch, paths,
+            timed(lambda: hbb.band_attention_bwd(*args, nr=NR),
+                  lambda: hbb.band_attention_bwd_ref(*args, nr=NR), e3,
+                  bound(hb.band_bytes(w, nr=NR, mode="l0_causal", G=g,
+                                      d=d, dv=d, backward=True),
+                        pairs * (10 * d + 5))),
+            f"{shape}; {BWD_LAUNCH}", mode="l0_causal", max_scaled_err=s3,
+            gmn_elementwise_scaled_err=gm3)
+        del out, cot, args
+
+        # #2 and #4 at every sub level of the coarsened chain
+        M = hc.num_levels(Lf, NR)
+        kc, vc, wc = k, v, w
+        tot = {n: dict(err=0.0, ms=0.0, device_ms=0.0, plain_ms=0.0,
+                       nbytes=0, flops=0) for n in ("fwd", "bwd")}
+        gm_elem = 0.0
+        for lvl in range(1, M):
+            ratio = 1 << lvl
+            kc, _ = hc.coarsen_weighted_mean(kc, wc)
+            vc = hc.coarsen_sum(vc, axis=-2)
+            wc = hc.coarsen_sum(wc, axis=-1)
+            sub = (q, kc.contiguous(), vc.contiguous(), wc.contiguous())
+            out = hb.band_attention_sub_fwd(*sub, nr=NR, ratio=ratio)
+            ef, *_ = compare(f"band_attention_sub_fwd@{arch} ratio {ratio}",
+                             out, hb.band_attention_sub_fwd_ref(
+                                 *sub, nr=NR, ratio=ratio), ATTN_TOL)
+            cot = tuple(randn(*t.shape) for t in out)
+            bargs = (*sub, *out, *cot)
+            eb, _, gmb = family_bwd_compare(
+                f"band_attention_sub_bwd@{arch} ratio {ratio}",
+                hbb.band_attention_sub_bwd(*bargs, nr=NR, ratio=ratio),
+                hbb.band_attention_sub_bwd_ref(*bargs, nr=NR, ratio=ratio),
+                bargs)
+            gm_elem = max(gm_elem, gmb)
+            sp_ = family_pairs(dev, "sub", Lf // ratio, ratio, sub[3], Lf, g)
+            for n, e, kern, plain, per in (
+                    ("fwd", ef, lambda: hb.band_attention_sub_fwd(
+                        *sub, nr=NR, ratio=ratio),
+                     lambda: hb.band_attention_sub_fwd_ref(
+                         *sub, nr=NR, ratio=ratio), 4 * d + 3),
+                    ("bwd", eb, lambda: hbb.band_attention_sub_bwd(
+                        *bargs, nr=NR, ratio=ratio),
+                     lambda: hbb.band_attention_sub_bwd_ref(
+                         *bargs, nr=NR, ratio=ratio), 10 * d + 5)):
+                t = tot[n]
+                t["err"] = max(t["err"], e)
+                t["ms"] += time_ms(kern)
+                t["device_ms"] += device_ms(kern)
+                t["plain_ms"] += time_ms(plain)
+                t["nbytes"] += hb.sub_bytes(sub[3], nr=NR, ratio=ratio, G=g,
+                                            d=d, dv=d, backward=n == "bwd")
+                t["flops"] += sp_ * per
+            del out, cot, bargs
+        span = f"the {M - 1} sub levels (ratio 2..{1 << (M - 1)}) of {shape}"
+        for n, name, src, rep, note in (
+                ("fwd", "band_attention_sub_fwd", "h1d_block.cu",
+                 "h1d_block.py:245", span),
+                ("bwd", "band_attention_sub_bwd", "h1d_block_bwd.cu",
+                 "h1d_block_bwd.py:399", f"{span}; {SUB_BWD_LAUNCH}")):
+            t = tot[n]
+            add(name, src, rep, arch, paths,
+                dict(max_abs_err=t["err"], ms=t["ms"],
+                     device_ms=t["device_ms"], plain_ms=t["plain_ms"],
+                     **dict(zip(("bound_ms", "bound_by"),
+                                bound(t["nbytes"], t["flops"])))), note,
+                **({"gmn_elementwise_scaled_err": gm_elem} if n == "bwd"
+                   else {}))
+        del q, k, v, w, kc, vc, wc
+
+        # #5 and #6 on a bf16 cache at the decode shape
+        Lb = BF16_LMAX
+        Md = hc.num_levels(Lb, NR)
+        cache = hd.prefill_cache(randn(R, Lb, d).to(bf),
+                                 randn(R, Lb, d).to(bf), Lb, NR)
+        qd = randn(R, g, d).to(bf).float()
+        t = torch.randint(1000, Lb - 16, (R,), generator=gen, device=dev,
+                          dtype=torch.int32)
+        t[:4] = torch.tensor([0, NR - 1, NR, Lb - 1], dtype=torch.int32)
+        small = 4 * (qd.numel() + R + R * g * d)
+        keys = partial_keys(t, None, Md)
+        err, *_ = compare(f"decode_attend_fused[bf16]@{arch}",
+                          [dk.decode_attend_fused(cache, qd, t, nr=NR)],
+                          [dk.decode_attend_ref(cache, qd, t, nr=NR)],
+                          ATTN_TOL)
+        dshape = f"{R} rows x G {g}, D {d}, Lmax {Lb}"
+        add("decode_attend_fused[bf16]", "h1d_decode.cu",
+            "h1d_decode_kernel.py:154", arch, paths,
+            timed(lambda: dk.decode_attend_fused(cache, qd, t, nr=NR),
+                  lambda: dk.decode_attend_ref(cache, qd, t, nr=NR), err,
+                  bound(keys * 2 * d * 2 + small, keys * g * (4 * d + 4))),
+            f"{dshape}: {keys} band keys unmasked", live_keys=keys)
+        kn, vn = randn(R, d).to(bf), randn(R, d).to(bf)
+
+        def clone(c):
+            return type(c)(*[tuple(a.clone() for a in x)
+                             if isinstance(x, tuple) else x.clone()
+                             for x in c])
+        a, b = clone(cache), clone(cache)
+        for step in range(3):
+            tt = (t + step).clamp(max=Lb - 1)
+            dk.update_cache_fused(a, kn, vn * (step + 1), tt)
+            dk.update_cache_ref(b, kn, vn * (step + 1), tt)
+        if not all(torch.equal(x, y) for x, y in zip(pool_arrays(a),
+                                                      pool_arrays(b))):
+            raise AssertionError(f"update_cache_fused[bf16]@{arch}: not "
+                                 f"bit-exact")
+        add("update_cache_fused[bf16]", "h1d_decode.cu",
+            "h1d_decode_kernel.py:362", arch, paths,
+            timed(lambda: dk.update_cache_fused(a, kn, vn, t),
+                  lambda: dk.update_cache_ref(b, kn, vn, t), 0.0,
+                  update_bound(R, Md, d, es=2)),
+            f"{dshape}, {Md} levels: bit-exact over 3 chained updates")
+        del a, b, cache
+        if arch != MOE_ARCH:
+            continue
+
+        # #7 and #9 on a bf16 pool: 4 slots' pages x kv-heads + ZERO/TRASH,
+        # the last two rows inactive on TRASH
+        npages = [(4 * max((Lb >> lv) // NR, 1) + 2) * hkv
+                  for lv in range(Md)]
+        pool = hd.PagedH1DCache(
+            randn(npages[0], NR, d).to(bf), randn(npages[0], NR, d).to(bf),
+            tuple(randn(n, NR, d).to(bf) for n in npages[1:]),
+            tuple((randn(n, NR, d) * 2 ** (lv + 1)).to(bf)
+                  for lv, n in enumerate(npages[1:])))
+        trash = TRASH * hkv
+        bidx = torch.stack([torch.randint(2 * hkv, n, (R,), generator=gen,
+                                          device=dev)
+                            for n in [npages[0]] + npages], 1).to(torch.int32)
+        utab = torch.stack([torch.randperm(n - 2 * hkv, generator=gen,
+                                           device=dev)[:R] + 2 * hkv
+                            for n in npages], 1).to(torch.int32)
+        bidx[R - 2:] = trash
+        utab[R - 2:] = trash
+        err, *_ = compare(f"decode_attend_paged[bf16]@{arch}",
+                          [dk.decode_attend_paged(pool, qd, t, bidx, nr=NR)],
+                          [dk.decode_attend_paged_ref(pool, qd, t, bidx,
+                                                      nr=NR)], ATTN_TOL)
+        add("decode_attend_paged[bf16]", "h1d_decode.cu",
+            "h1d_decode_kernel.py:426", arch, paths,
+            timed(lambda: dk.decode_attend_paged(pool, qd, t, bidx, nr=NR),
+                  lambda: dk.decode_attend_paged_ref(pool, qd, t, bidx,
+                                                     nr=NR), err,
+                  bound(keys * 2 * d * 2 + small + 4 * bidx.numel(),
+                        keys * g * (4 * d + 4))),
+            f"{dshape}, bf16 pool: {keys} band keys unmasked",
+            live_keys=keys)
+        a, b = clone(pool), clone(pool)
+        for step in range(3):
+            tt = (t + step).clamp(max=Lb - 1)
+            dk.update_cache_paged(a, kn, vn * (step + 1), tt, utab)
+            dk.update_cache_paged_ref(b, kn, vn * (step + 1), tt, utab)
+        for x, y in zip(pool_arrays(a), pool_arrays(b)):
+            keep = torch.ones(x.shape[0], dtype=torch.bool, device=dev)
+            keep[trash:trash + hkv] = False
+            if not torch.equal(x[keep], y[keep]):
+                raise AssertionError(f"update_cache_paged[bf16]@{arch}: not "
+                                     f"bit-exact outside TRASH")
+        add("update_cache_paged[bf16]", "h1d_decode.cu",
+            "h1d_decode_kernel.py:567", arch, paths,
+            timed(lambda: dk.update_cache_paged(a, kn, vn, t, utab),
+                  lambda: dk.update_cache_paged_ref(b, kn, vn, t, utab), 0.0,
+                  update_bound(R, Md, d, extra=4 * utab.numel(), es=2)),
+            f"{dshape}, {Md} levels: bit-exact outside TRASH over 3 "
+            f"chained updates")
+        del a, b, pool
+    torch.cuda.empty_cache()
+    return rows
+
+
+@contextlib.contextmanager
+def routes_logged(log_, force=None, flips=None):
+    """Wrap the port's routing function (``models.ffn.route``, from this
+    script: the package has no such switch) so that each call appends
+    {"top_i", "router", "gap", "tau"} to ``log_``: the chosen experts,
+    the router's identity, and per position the gap between the k-th
+    and (k+1)-th router logit and the bf16 rounding bound (BF16_ULP's
+    comment).  With ``force`` ({router: top_i}, a kernel pass's first
+    routing of each layer), a call whose own experts differ from the
+    forced ones at some position appends (gap, tau) of each such
+    position to ``flips`` and routes to the forced experts (the plain
+    pass of a gradient then takes the kernel pass's experts)."""
+    from repro_torch.models import ffn
+    real = ffn.route
+    done = set()
+
+    def logged(p, cfg, x):
+        top_w, top_i, rank, aux, C = out = real(p, cfg, x)
+        with torch.no_grad():
+            r = p["router"].detach()
+            z = x.detach().float() @ r
+            top = z.topk(cfg.moe_top_k + 1, dim=-1).values
+            gap = top[..., -2] - top[..., -1]
+            tau = 2 * BF16_ULP * (x.detach().float().abs() @ r.abs()).amax(-1)
+        key = r.data_ptr()
+        log_.append(dict(top_i=top_i.detach(), router=key, gap=gap, tau=tau))
+        if force is not None:
+            want = force[key]
+            differ = (top_i.sort(-1).values != want.sort(-1).values).any(-1)
+            if bool(differ.any()):
+                if key not in done:      # not again in a remat recompute
+                    flips.extend(zip(gap[differ].tolist(),
+                                     tau[differ].tolist()))
+                done.add(key)
+                gates = torch.softmax(x.float() @ p["router"], dim=-1)
+                return ffn.assign(cfg, gates, want)
+        return out
+    ffn.route = logged
+    try:
+        yield
+    finally:
+        ffn.route = real
+
+
+def first_routes(log_):
+    """{router: top_i} of each layer's first call in ``log_``."""
+    out = {}
+    for rec in log_:
+        out.setdefault(rec["router"], rec["top_i"])
+    return out
+
+
+def moe_engine_run(eng, work, fns, tokens=None, plain=False):
+    """``run_engine`` of ``eng`` on ``work`` (with ``plain``, a run on the
+    plain versions, which ``run_engine`` refuses, and no stats) with
+    every route call logged and every logits row the engine takes a
+    token from recorded (:func:`teacher_forced`; with ``tokens``, the
+    plain run's, handed in), and for each (uid, step) the route calls
+    between its engine call's start and its sampling, its row in that
+    call and its position (a prefill row's last true token; 0 in a
+    decode tick).  Returns (stats, launches, logits, routes, steps)."""
+    from repro_torch.serve import Request
+    logits, routes, steps = {}, [], {}
+    teacher_forced(eng, logits, tokens)
+    mark, true_len = [0], [None]
+    sample = eng._sample
+
+    def sampled(z, rows, reqs, tick):
+        out = sample(z, rows, reqs, tick)
+        for i, r in enumerate(reqs):
+            if r is not None:
+                pos = 0 if tick else int(true_len[0][i]) - 1
+                steps[(r.uid, len(logits[r.uid]) - 1)] = (
+                    mark[0], len(routes), i, pos)
+        mark[0] = len(routes)
+        return out
+    eng._sample = sampled
+
+    base = fns.prefill
+
+    def prefill(*a, **kw):
+        true_len[0] = kw["true_len"].cpu()
+        return base(*a, **kw)
+    fns = fns._replace(prefill=prefill)
+    stats = counts = None
+    with routes_logged(routes):
+        if plain:
+            eng.fns = fns
+            for u, p in work:
+                eng.submit(Request(uid=u, prompt=p,
+                                   max_new_tokens=GEMMA_NEW))
+            with plain_kernels():
+                eng.run()
+        else:
+            _, stats, counts = run_engine(eng, work, fns,
+                                          new_tokens=GEMMA_NEW)
+    return stats, counts, logits, routes, steps
+
+
+def routing_flips(label, got, want, steps):
+    """Positions whose set of experts differs between two route logs of
+    the same schedule (``got`` the kernel run's, ``want`` the plain
+    run's), engine call by engine call (``steps``: the plain run's
+    (uid, step) -> (first route call, end, row, position)).  A flip in a
+    clean context -- its request had no flip in an earlier engine call
+    (whose caches it reads), and no earlier layer of this call flipped
+    a position at or before it (fine-q attention reads no later one;
+    a flip moves the capacity ranks of later positions only) -- must be
+    a near tie in the plain run: its gap between the k-th and (k+1)-th
+    router logit within the bf16 rounding bound ``tau``.  Later flips
+    follow from an earlier one (a flipped token's output moves by a
+    whole expert's share and reaches later tokens through attention and
+    the caches) and are counted apart, with their largest gap; so are
+    the flips of rows no request owns (a bucket's dummy rows, idle
+    slots).  Returns (per route call the (B, S) mask of the positions
+    that differ in that or an earlier layer of its engine call, a
+    summary)."""
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} route calls, the plain "
+                             f"run {len(want)}")
+    owners = {}
+    for (uid, _), (lo, hi, row, _) in steps.items():
+        owners.setdefault((lo, hi), {})[row] = uid
+    masks = [None] * len(want)
+    tainted = set()
+    out = dict(positions_compared=0, clean_flips=0, downstream_flips=0,
+               unowned_flips=0, clean_largest_gap=None,
+               clean_largest_gap_over_bound=0.0,
+               downstream_largest_gap=None)
+    for (lo, hi), rows in sorted(owners.items()):
+        prev = None
+        first = {}          # row -> first position flipped in this call
+        hit = set()
+        for c in range(lo, hi):
+            a, b = got[c], want[c]
+            if a["top_i"].shape != b["top_i"].shape:
+                raise AssertionError(f"{label}: route shapes differ")
+            differ = (a["top_i"].sort(-1).values
+                      != b["top_i"].sort(-1).values).any(-1)
+            out["positions_compared"] += differ.numel()
+            for r, pos in zip(*[t.tolist() for t in torch.nonzero(
+                    differ, as_tuple=True)]):
+                gap, tau = float(b["gap"][r, pos]), float(b["tau"][r, pos])
+                if r not in rows:
+                    out["unowned_flips"] += 1
+                elif rows[r] in tainted or first.get(r, pos + 1) <= pos:
+                    out["downstream_flips"] += 1
+                    out["downstream_largest_gap"] = max(
+                        out["downstream_largest_gap"] or 0.0, gap)
+                else:
+                    out["clean_flips"] += 1
+                    out["clean_largest_gap"] = max(
+                        out["clean_largest_gap"] or 0.0, gap)
+                    out["clean_largest_gap_over_bound"] = max(
+                        out["clean_largest_gap_over_bound"], gap / tau)
+                    if gap > tau:
+                        raise AssertionError(
+                            f"{label}: a routing flip in a clean context "
+                            f"(request {rows[r]}, position {pos}) where the "
+                            f"plain run's top-k router logit gap {gap:.4g} "
+                            f"exceeds the bf16 rounding bound {tau:.4g}")
+                hit.add(r)
+            for r in set(torch.nonzero(differ.any(-1)).flatten().tolist()):
+                p0 = int(torch.nonzero(differ[r])[0])
+                first[r] = min(first.get(r, p0), p0)
+            prev = differ if prev is None else prev | differ
+            masks[c] = prev.clone()
+        tainted |= {rows[r] for r in hit if r in rows}
+    return masks, out
+
+
+def moe_logits_vs_plain(label, got, want, flipped, steps_got, steps_want):
+    """:func:`logits_vs_plain` for a MoE model: every step whose token's
+    experts agreed in every layer (``flipped``: per route call, the
+    positions that differ so far in their engine call) within
+    BF16_LOGIT_TOL of max |plain|; the steps whose token flipped are
+    counted and left out.  Returns (steps held, steps left out, worst
+    scaled error)."""
+    if steps_got != steps_want:
+        raise AssertionError(f"{label}: the two runs' schedules differ")
+    held, skipped, worst = 0, 0, 0.0
+    for (uid, i), (lo, hi, row, pos) in steps_want.items():
+        if bool(flipped[hi - 1][row, pos]):
+            skipped += 1
+            continue
+        a, b = got[uid][i], want[uid][i]
+        if a.shape != b.shape or not torch.isfinite(a).all():
+            raise AssertionError(f"{label}: request {uid} step {i}: bad "
+                                 f"logits")
+        e = float((a - b).abs().max() / b.abs().max())
+        if e > BF16_LOGIT_TOL:
+            raise AssertionError(f"{label}: request {uid} step {i}: logits "
+                                 f"differ by {e:.3g} of max |plain| > "
+                                 f"{BF16_LOGIT_TOL}")
+        worst = max(worst, e)
+        held += 1
+    return held, skipped, worst
+
+
+def phase_moe(dev):
+    """17 (b), (c).  ``qwen2-moe-a2.7b`` at full width, MOE_LAYERS layers,
+    in its published bf16 from seed-0 weights.  (b) ``ServeEngine(slots=4,
+    max_len=4096)``, bucketed, on 8 greedy requests of 16 tokens with
+    prompt lengths 1000..3900 (seed 0): the kernel run (#1, #2, #5, #6
+    launched, no plain version), the plain run, then the kernels on the
+    plain run's tokens on dense slots and on a paged bf16 pool (#7, #9),
+    each route call logged on both sides (:func:`routing_flips`: flips
+    counted, each a bounded near tie) and every step whose routes agreed
+    held to the plain run's logits.  (c) on the same weights,
+    ``bf16_checks`` at 1 x 4096 on ``ZipfLM(seed=0)`` (the fp32
+    gradient's plain pass routed to the kernel pass's experts, any flip
+    reported with its gap) and 3 in-place AdamW steps through
+    ``train``.  Returns the launches of (b) and of (c)."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.data import ZipfLM
+    from repro_torch.models import get_model
+    from repro_torch.serve import ServeEngine
+    from repro_torch.train import (TrainConfig, TrainState, batch_to_device,
+                                   make_optimizer)
+    from repro_torch.tree import tree_leaves
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_LAYERS)
+    if cfg.dtype != "bfloat16" or cfg.family != "moe":
+        raise AssertionError(f"{MOE_ARCH} is a bf16 MoE config")
+    fns = get_model(cfg)
+    params = fns.init(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    nparam = sum(p.numel() for p in tree_leaves(params))
+    work = bf16_prompts(cfg.vocab_size, *DENSE_PROMPTS, DENSE_REQUESTS)
+
+    # (b) serving
+    eng = ServeEngine(cfg, params, slots=GEMMA_SLOTS, max_len=GEMMA_MAX_LEN)
+    if not eng._bucket:
+        raise AssertionError(f"{MOE_ARCH}: the engine does not bucket")
+    torch.cuda.reset_peak_memory_stats()
+    outs, stats, counts = run_engine(eng, work, fns, new_tokens=GEMMA_NEW)
+    stats.update(arch=MOE_ARCH, layers=cfg.num_layers, params=nparam,
+                 weights_s=init_s, prompt_lens=[len(p) for _, p in work],
+                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    need = ("band_attention_fwd[l0_causal]", "band_attention_sub_fwd",
+            "decode_attend_fused[bf16]", "update_cache_fused[bf16]")
+    missing = [k_ for k_ in need if not counts.get(k_)]
+    if missing:
+        raise AssertionError(f"moe: {missing} not launched: {counts}")
+    serve_counts = dict(counts)
+    del eng
+    log(f"moe serve: {json.dumps(stats)}")
+    eng = ServeEngine(cfg, params, slots=GEMMA_SLOTS, max_len=GEMMA_MAX_LEN)
+    _, _, p_logits, p_routes, p_steps = moe_engine_run(eng, work, fns,
+                                                       plain=True)
+    del eng
+    plain = {u: [int(z.argmax()) for z in p_logits[u]] for u in p_logits}
+    same = sum(x == y for u in plain for x, y in zip(outs[u], plain[u]))
+    log(f"moe: {same} of {GEMMA_NEW * len(work)} greedy tokens equal to "
+        f"the plain run's")
+    for kind, kw, need in (("dense", {}, ()),
+                           ("paged", dict(paged=True),
+                            ("decode_attend_paged[bf16]",
+                             "update_cache_paged[bf16]"))):
+        eng = ServeEngine(cfg, params, slots=GEMMA_SLOTS,
+                          max_len=GEMMA_MAX_LEN, **kw)
+        st, c, k_logits, k_routes, k_steps = moe_engine_run(
+            eng, work, fns, plain)
+        del eng
+        masks, flips = routing_flips(f"moe {kind}", k_routes, p_routes,
+                                     p_steps)
+        held, skipped, worst = moe_logits_vs_plain(
+            f"moe {kind}", k_logits, p_logits, masks, k_steps, p_steps)
+        missing = [k_ for k_ in need if not c.get(k_)]
+        if missing:
+            raise AssertionError(f"moe {kind}: {missing} not launched: {c}")
+        if held < 0.75 * (held + skipped):
+            raise AssertionError(f"moe {kind}: routes flipped at {skipped} "
+                                 f"of {held + skipped} steps")
+        if kind == "paged":
+            for k_, n in c.items():
+                serve_counts[k_] = serve_counts.get(k_, 0) + n
+        log(f"moe {kind} (the plain run's tokens): routing "
+            f"{json.dumps(flips)}; logits within {worst:.3g} of max |plain| "
+            f"(<= {BF16_LOGIT_TOL}) at {held} steps, {skipped} steps whose "
+            f"token's experts flipped left out; tokens/s "
+            f"{st['tokens_per_s']:.1f}, prefill ms a call "
+            f"{st['prefill_ms_per_call']:.1f}, decode ms a tick "
+            f"{st['decode_ms_per_tick']:.2f}")
+        del k_logits, k_routes, masks
+    del p_logits, p_routes
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 17 (b) took {time.perf_counter() - t0:.1f}s, weights "
+        f"{init_s:.1f}s")
+
+    # (c) training on (b)'s weights
+    t1 = time.perf_counter()
+    data = ZipfLM(vocab_size=cfg.vocab_size, seq_len=MOE_TRAIN_SEQ,
+                  batch_per_host=MOE_TRAIN_BATCH, seed=0)
+    batch = batch_to_device(data.batch(0), dev)
+    kernel_log, plain_log, flips = [], [], []
+
+    @contextlib.contextmanager
+    def forced():
+        with plain_kernels(), routes_logged(
+                plain_log, first_routes(kernel_log), flips):
+            yield
+    loss_k, loss_p, peaks = bf16_checks(
+        "moe train", cfg, params, batch,
+        grad_ctx=dict(run=lambda: routes_logged(kernel_log), ref=forced))
+    log(f"moe train (fp32 gradient): {len(flips)} routing flips between "
+        f"the kernel and plain passes"
+        + (f", (gap, bound) {flips[:8]}" if flips else "")
+        + "; the plain pass took the kernel pass's experts")
+    del kernel_log, plain_log
+    tmp = tempfile.TemporaryDirectory()
+    tc = TrainConfig(ckpt_every=0, ckpt_dir=tmp.name, log_every=1, seed=0,
+                     peak_lr=3e-4, warmup=5)
+    state = TrainState(torch.zeros((), dtype=torch.int32, device=dev),
+                       params, make_optimizer(tc).init(params), None)
+    del params
+    with tmp:
+        train_counts, _ = bf16_steps(
+            "moe train", cfg, tc, state, data, MOE_TRAIN_STEPS, loss_k,
+            False, first_loss_plain=loss_p,
+            grad_peak_above_weights_gib=peaks, fp32_grad_flips=len(flips))
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 17 (c) took {time.perf_counter() - t1:.1f}s")
+    return serve_counts, train_counts
+
+
+class PatchLM:
+    """``ZipfLM`` batches with seeded patch embeddings (numpy, seed 0, x
+    0.02) of ``patches`` positions before the tokens."""
+
+    def __init__(self, cfg, seq, batch, patches):
+        from repro_torch.data import ZipfLM
+        self.tokens = ZipfLM(vocab_size=cfg.vocab_size, seq_len=seq,
+                             batch_per_host=batch, seed=0)
+        self.seq_len, self.batch_per_host = seq, batch
+        self.patch = (np.random.default_rng(0).standard_normal(
+            (batch, patches, cfg.d_model)) * 0.02).astype(np.float32)
+
+    def batch(self, step):
+        return dict(self.tokens.batch(step), patch_embeds=self.patch)
+
+
+def phase_vlm(dev):
+    """17 (d), (e).  ``llava-next-34b`` at full width, VLM_LAYERS layers,
+    bf16, seed-0 weights.  (d) ``lm_prefill`` of 576 seeded patch
+    embeddings (numpy, seed 0, x 0.02) and a 1024-token prompt at B 2,
+    Lmax 4096, then 16 greedy decode steps: first on the plain versions,
+    then on the kernels with the plain run's tokens (#1, #2, #5, #6
+    launched, no plain version), every step's logits within
+    BF16_LOGIT_TOL of max |plain|.  (e) one in-place AdamW step at 1 x
+    (576 + 3520) with ``patch_embeds`` on the same weights: its first
+    loss within BF16_LOSS_TOL of the plain path's, #1-#4 launched as the
+    remat step runs them, the weights still bf16.  Returns the launches
+    of (d) and (e)."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.train import (TrainConfig, TrainState, batch_to_device,
+                                   make_optimizer, make_train_step)
+    from repro_torch.tree import tree_leaves
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(VLM_ARCH), num_layers=VLM_LAYERS)
+    fns = get_model(cfg)
+    params = fns.init(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    nparam = sum(p.numel() for p in tree_leaves(params))
+    rng = np.random.default_rng(0)
+    patch = torch.as_tensor((rng.standard_normal(
+        (VLM_BATCH, cfg.prefix_len, cfg.d_model)) * 0.02).astype(np.float32),
+        device=dev)
+    prompt = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (VLM_BATCH, VLM_PROMPT)).astype(np.int32),
+        device=dev)
+    batch = {"tokens": prompt, "patch_embeds": patch}
+
+    def generate(tokens=None):
+        """Prefill, then VLM_DECODE steps (greedy, or ``tokens``): (every
+        step's logits, the tokens, prefill ms, decode ms a step)."""
+        torch.cuda.synchronize()
+        a = time.perf_counter()
+        logits, caches, pos = fns.prefill(params, cfg, batch, VLM_MAX_LEN)
+        torch.cuda.synchronize()
+        pre_ms = (time.perf_counter() - a) * 1e3
+        if not torch.equal(pos.cpu(), torch.full(
+                (VLM_BATCH,), cfg.prefix_len + VLM_PROMPT, dtype=torch.int32)):
+            raise AssertionError(f"vlm: next positions {pos.tolist()}")
+        seen, toks = [logits.float().clone()], []
+        a = time.perf_counter()
+        for i in range(VLM_DECODE):
+            tok = (logits.argmax(-1).to(torch.int32) if tokens is None
+                   else tokens[i])
+            toks.append(tok)
+            logits, caches = fns.decode_step(params, cfg, caches, tok, pos)
+            pos = pos + 1
+            seen.append(logits.float().clone())
+        torch.cuda.synchronize()
+        return seen, toks, pre_ms, (time.perf_counter() - a) * 1e3 / VLM_DECODE
+
+    with plain_kernels():
+        want, toks, _, _ = generate()
+    counts = {}
+    torch.cuda.reset_peak_memory_stats()
+    with counted(counts):
+        got, _, pre_ms, dec_ms = generate(toks)
+    need = ("band_attention_fwd[l0_causal]", "band_attention_sub_fwd",
+            "decode_attend_fused[bf16]", "update_cache_fused[bf16]")
+    missing = [k_ for k_ in need if not counts.get(k_)]
+    if missing:
+        raise AssertionError(f"vlm: {missing} not launched: {counts}")
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a.shape != b.shape or not torch.isfinite(a).all():
+            raise AssertionError(f"vlm step {i}: bad logits")
+        e = float(((a - b).abs().amax(-1) / b.abs().amax(-1)).max())
+        if e > BF16_LOGIT_TOL:
+            raise AssertionError(f"vlm step {i}: logits differ by {e:.3g} "
+                                 f"of max |plain| > {BF16_LOGIT_TOL}")
+        worst = max(worst, e)
+    stats = dict(arch=VLM_ARCH, layers=cfg.num_layers, params=nparam,
+                 weights_s=init_s, batch=VLM_BATCH, patches=cfg.prefix_len,
+                 prompt=VLM_PROMPT, prefill_ms=pre_ms,
+                 decode_ms_per_step=dec_ms,
+                 tokens_per_s=VLM_BATCH / (dec_ms / 1e3),
+                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                 logits_worst_over_max_plain=worst,
+                 launches={k_: n for k_, n in counts.items() if n})
+    log(f"vlm serve (the plain run's tokens): {json.dumps(stats)}")
+    del want, got
+
+    # (e) one AdamW step with the patch prefix
+    data = PatchLM(cfg, VLM_TRAIN_SEQ, 1, cfg.prefix_len)
+    tb = batch_to_device(data.batch(0), dev)
+    with torch.no_grad():
+        loss_k = float(fns.loss(params, cfg, tb)[0])
+        with plain_kernels():
+            loss_p = float(fns.loss(params, cfg, tb)[0])
+    if not abs(loss_k - loss_p) <= BF16_LOSS_TOL:
+        raise AssertionError(f"vlm train: loss {loss_k} on the kernels, "
+                             f"{loss_p} on the plain path")
+    tmp = tempfile.TemporaryDirectory()
+    tc = TrainConfig(ckpt_every=0, ckpt_dir=tmp.name, seed=0, peak_lr=3e-4,
+                     warmup=1)
+    state = TrainState(torch.zeros((), dtype=torch.int32, device=dev),
+                       params, make_optimizer(tc).init(params), None)
+    del params
+    step = make_train_step(cfg, tc)
+    train_counts = {}
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    a = time.perf_counter()
+    with counted(train_counts):
+        state, m = step(state, tb)
+        loss = float(m["loss"])
+    step_ms = (time.perf_counter() - a) * 1e3
+    need_counts("vlm train", train_counts, train_expected(
+        cfg, 1, cfg.prefix_len + VLM_TRAIN_SEQ))
+    dtypes = {str(p.dtype) for p in tree_leaves(state.params)}
+    if not (math.isfinite(loss) and abs(loss - loss_k) <= BF16_LOSS_TOL
+            and dtypes == {"torch.bfloat16"}):
+        raise AssertionError(f"vlm train: loss {loss} (first batch's "
+                             f"{loss_k}), weights {dtypes}")
+    tstats = dict(seq=cfg.prefix_len + VLM_TRAIN_SEQ, loss=loss,
+                  first_loss_kernel=loss_k, first_loss_plain=loss_p,
+                  step_ms=step_ms,
+                  peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    log(f"vlm train: {json.dumps(tstats)}")
+    del state, tmp
+    for k_, n in train_counts.items():
+        counts[k_] = counts.get(k_, 0) + n
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 17 (d), (e) took {time.perf_counter() - t0:.1f}s, weights "
+        f"{init_s:.1f}s")
+    return counts
+
+
+def phase_families(dev):
+    """17 (b)-(e).  The MoE and VLM families: qwen2-moe-a2.7b served and
+    trained, llava-next-34b prefilled with a patch prefix, decoded and
+    trained ((a), the kernel rows at their new shapes, runs with the
+    other kernel rows, before any model phase).  Returns {"moe",
+    "moe_train", "vlm": launches}."""
+    t0 = time.perf_counter()
+    moe, moe_train = phase_moe(dev)
+    vlm = phase_vlm(dev)
+    log(f"phase 17 (b)-(e) took {time.perf_counter() - t0:.1f}s")
+    return dict(moe=moe, moe_train=moe_train, vlm=vlm)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
@@ -3650,6 +4498,9 @@ def main() -> int:
     rows = (phase_kernels(dev) + phase_mode_kernels(dev)
             + phase_paged_kernels(dev) + phase_bwd_kernels(dev)
             + phase_bf16_kernels(dev))
+    t_f = time.perf_counter()
+    rows += phase_family_kernels(dev)
+    log(f"phase 17 (a) took {time.perf_counter() - t_f:.1f}s")
     t_sp = time.perf_counter()
     sp_rows = phase_sp_kernels(dev)
     rows += sp_rows
@@ -3697,8 +4548,17 @@ def main() -> int:
     log(f"phase 15 (llama3.2-1b bf16 training) took "
         f"{time.perf_counter() - t_g:.1f}s")
     full_counts = phase_full(dev, serve_stats, train_stats)
+    family_counts = phase_families(dev)
     for row in rows:
-        key = row["name"]
+        # a row name@arch holds its wrapper at arch's shape: its launches
+        # are those of the phase 17 paths that run that shape
+        key, _, arch = row["name"].partition("@")
+        if arch:
+            row["launches_by_path"] = {
+                p: family_counts[p].get(key, 0) for p in row.pop("paths")}
+            row["launches"] = sum(row["launches_by_path"].values())
+            row["kernel_ms"] = row["ms"]
+            continue
         by_path = {"serve": serve_counts.get(key, 0),
                    "paged": paged_counts.get(key, 0),
                    "sp": sp_counts.get(key, 0),
@@ -3712,7 +4572,8 @@ def main() -> int:
                    "gemma_train": gemma_train_counts.get(key, 0),
                    "dense_bf16": dense_bf16_counts.get(key, 0),
                    "llama_train": llama_train_counts.get(key, 0),
-                   "full": full_counts.get(key, 0)}
+                   "full": full_counts.get(key, 0),
+                   **{p: c.get(key, 0) for p, c in family_counts.items()}}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         row["kernel_ms"] = row["ms"]

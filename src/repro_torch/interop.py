@@ -22,9 +22,23 @@ from . import resolve_device
 from .models.common import ModelConfig
 from .tree import tree_map
 
-# what every layer must hold: block -> entries
-_LAYER_KEYS = {"ln1": ("g",), "attn": ("wq", "wkv", "wo"), "ln2": ("g",),
-               "mlp": ("wg", "wu", "wd")}
+# what every layer must hold, by the layer's kind: block -> entries
+_COMMON_KEYS = {"ln1": ("g",), "attn": ("wq", "wkv", "wo"), "ln2": ("g",)}
+_MLP_KEYS = ("wg", "wu", "wd")
+
+
+def _layer_keys(cfg: ModelConfig) -> Dict[str, tuple]:
+    """Block -> entries a layer of ``cfg`` holds: ``mlp``'s gated MLP, or
+    a MoE layer's router and experts (with the shared expert and its gate,
+    or the dense residual branch, where the config has them)."""
+    if cfg.moe_experts <= 0:
+        return {**_COMMON_KEYS, "mlp": _MLP_KEYS}
+    moe = ("router", "w1", "w3", "w2")
+    if cfg.moe_shared_d_ff:
+        moe += ("shared", "shared_gate")
+    if cfg.moe_dense_residual:
+        moe += ("residual",)
+    return {**_COMMON_KEYS, "moe": moe}
 
 
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, *,
@@ -34,7 +48,9 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, *,
     ``final_norm.g``, ``lm_head.w`` (untied heads only), the classifier's
     ``head.w`` (and ``head.b``) when the tree has a ``head``, and per
     layer ``ln1.g``, ``ln2.g``, ``attn.{wq,wkv,wo}`` (with any bias and
-    q/k norms) and ``mlp.{wg,wu,wd}``."""
+    q/k norms) and ``mlp.{wg,wu,wd}``, or in a MoE layer
+    ``moe.{router,w1,w3,w2}`` with ``moe.shared.{wg,wu,wd}`` and
+    ``moe.shared_gate`` or ``moe.residual.{wg,wu,wd}``."""
     dev = resolve_device(device)
     layers = tree["layers"]
     if isinstance(layers, dict):          # the scanned stack: unstack
@@ -44,8 +60,9 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, *,
     if len(layers) != cfg.num_layers:
         raise ValueError(f"tree holds {len(layers)} layers, cfg has "
                          f"{cfg.num_layers}")
+    need = _layer_keys(cfg)
     for i, lp in enumerate(layers):
-        missing = [f"layers[{i}].{b}.{k}" for b, keys in _LAYER_KEYS.items()
+        missing = [f"layers[{i}].{b}.{k}" for b, keys in need.items()
                    for k in keys if k not in lp.get(b, {})]
         if missing:
             raise KeyError(f"JAX tree lacks {missing}")

@@ -4,7 +4,8 @@ another ported config, such as ``gemma3-4b``).
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         [--arch h1d-lm-53m] [--rows 8] [--prompt 1024] [--max-len 2048] \
-        [--paged [--cache-dtype int8]] [--sp-data N] [--dtype float32]
+        [--paged [--cache-dtype int8]] [--sp-data N] [--dtype float32] \
+        [--layers N]
 
 Seeded random weights and tokens, in the config's published dtype
 (``--dtype`` overrides it: ``--dtype float32`` profiles a bfloat16 config
@@ -23,8 +24,12 @@ prints, per call, the host wall time (ending in a synchronize, measured
 without the profiler), the summed device time of the kernels it ran
 (measured under it), the device busy share (device time over wall time;
 one stream, so kernels do not overlap) and the device time by kernel,
-grouped into this package's kernels, matrix products and the rest.
-Needs a CUDA card.
+grouped into this package's kernels, matrix products and the rest; a
+mixture-of-experts layer's routing, dispatch, combine and expert
+products (every kernel launched inside its ``moe`` profiler range, and
+by the backward of the ops run there) form a group ``moe`` of their own.
+``--layers N`` cuts the config's depth to N layers (``qwen2-moe-a2.7b``'s
+24 take ~8 minutes to draw on the host).  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -81,6 +86,45 @@ def _group(name: str) -> str:
     return "other"
 
 
+#: the profiler range (``record_function``) of a MoE layer's routed part
+#: (``models.ffn.moe_apply``), whose kernels, and those of its ops'
+#: backward, form a group of this name
+MOE_RANGE = "moe"
+
+
+def moe_device_us(events):
+    """Device microseconds of the kernels MOE_RANGE owns, by the group
+    :func:`_group` would file them under: every kernel launched by an op
+    inside the range, and by the backward of such an op (autograd runs a
+    backward node under the sequence number of the forward op that made
+    it).  ``events``: the profiler's ``FunctionEvent``s
+    (``prof.events()``)."""
+    out = defaultdict(float)
+    owned, seen = set(), set()
+
+    def walk(evt):
+        if id(evt) in seen:
+            return
+        seen.add(id(evt))
+        for k in evt.kernels:
+            out[_group(k.name)] += k.duration
+        if evt.sequence_nr >= 0:
+            owned.add(evt.sequence_nr)
+        for child in evt.cpu_children:
+            walk(child)
+
+    cpu = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CPU]
+    for evt in cpu:
+        if evt.name == MOE_RANGE:
+            walk(evt)
+    for evt in cpu:
+        if (evt.name.startswith("autograd::engine::evaluate_function")
+                and evt.sequence_nr in owned):
+            walk(evt)
+    return out
+
+
 def _wall_ms(fn, calls: int) -> float:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -98,17 +142,24 @@ def profiled(fn, calls: int, between=None):
     wall_ms = _wall_ms(fn, calls)
     if between is not None:
         between()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    # CPU activity too: a range's ops, and the kernels they launch, come
+    # from the CPU side of the trace
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         profiled_wall_ms = _wall_ms(fn, calls)
     by_group = defaultdict(float)
     kernels = []
     for evt in prof.key_averages():
         us = evt.self_device_time_total
-        if us <= 0 or evt.device_type != torch.autograd.DeviceType.CUDA:
+        if (us <= 0 or evt.device_type != torch.autograd.DeviceType.CUDA
+                or evt.key == MOE_RANGE):  # the range's span on the stream
             continue
         by_group[_group(evt.key)] += us / calls / 1e3
         kernels.append((us / calls / 1e3, evt.count // calls, evt.key[:90]))
     device_ms = sum(by_group.values())
+    for group, us in moe_device_us(prof.events()).items():
+        by_group[group] -= us / calls / 1e3
+        by_group[MOE_RANGE] += us / calls / 1e3
     kernels.sort(reverse=True)
     return {"wall_ms": wall_ms, "profiled_wall_ms": profiled_wall_ms,
             "device_ms": device_ms,
@@ -207,6 +258,8 @@ def main(argv=None):
                          "N shards")
     ap.add_argument("--dtype", default=None, choices=["float32", "bfloat16"],
                     help="weights and caches (default: the config's)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args(argv)
 
@@ -214,6 +267,8 @@ def main(argv=None):
     exact_products()
     cfg = get_config(args.arch)
     cfg = dataclasses.replace(cfg, dtype=args.dtype or cfg.dtype)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     fns = get_model(cfg)
     params = fns.init(cfg, seed=args.seed, device=dev)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -228,8 +283,8 @@ def main(argv=None):
 
     prefill()                                           # warm-up
     res = {"device": torch.cuda.get_device_name(dev), "arch": cfg.name,
-           "dtype": cfg.dtype, "rows": args.rows, "prompt": args.prompt,
-           "max_len": args.max_len}
+           "dtype": cfg.dtype, "layers": cfg.num_layers, "rows": args.rows,
+           "prompt": args.prompt, "max_len": args.max_len}
     res["prefill"] = profiled(prefill, 3)
 
     logits, caches, pos = state["out"]

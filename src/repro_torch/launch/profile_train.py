@@ -6,6 +6,8 @@ LM, or of another configuration the port trains.
         [--arch h1d-lm-53m] [--batch 8] [--seq 1024] [--sp N] [--out PATH]
     PYTHONPATH=src python -m repro_torch.launch.profile_train \
         --arch gemma3-4b --layers 6 --batch 1 --seq 4096
+    PYTHONPATH=src python -m repro_torch.launch.profile_train \
+        --arch qwen2-moe-a2.7b --layers 4 --batch 1 --seq 4096
 
 A configuration runs in its published dtype (gemma3-4b, llama3.2-1b:
 bfloat16), or in ``--dtype``'s (``--dtype float32`` as the port ran
@@ -20,8 +22,12 @@ in a synchronize, measured without the profiler), the summed device time
 of the kernels it ran (measured under it), the busy share (device time
 over wall time; one stream, so kernels do not overlap) and the device
 time by group: matrix products, this package's band kernels of the
-forward and of the backward, and the rest (eager elementwise ops,
-reductions, copies).  The parts are the loss (forward), the gradient of
+forward and of the backward, a MoE layer's routing, dispatch, combine
+and expert products (``moe``: the kernels of its profiler range, and of
+the backward of its ops where their forward ran in the same part, so
+the ``step`` part holds the whole of it and the ``backward`` part only
+the remat recompute) and the rest (eager elementwise ops, reductions,
+copies).  The parts are the loss (forward), the gradient of
 a fresh forward's loss (backward), and the optimizer's in-place update,
 then the whole ``make_train_step`` step (each call updates the same
 state again).  ``--sp N`` runs every part inside

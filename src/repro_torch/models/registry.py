@@ -14,7 +14,8 @@ from . import transformer as T
 
 class ModelFns(NamedTuple):
     init: Callable          # (cfg, *, seed, device) -> params
-    forward: Callable       # (params, cfg, tokens) -> (logits, aux)
+    forward: Callable       # (params, cfg, tokens, *, prefix_embeds=None)
+                            #   -> (logits, aux)
     loss: Callable          # (params, cfg, batch) -> (loss, metrics)
     prefill: Callable       # (params, cfg, batch, Lmax, *, true_len=None)
                             #   -> (logits, caches, pos)
@@ -25,7 +26,9 @@ class ModelFns(NamedTuple):
 
 
 def _lm_prefill(params, cfg, batch, Lmax, *, true_len=None):
-    return T.lm_prefill(params, cfg, batch["tokens"], Lmax, true_len=true_len)
+    return T.lm_prefill(params, cfg, batch["tokens"], Lmax,
+                        prefix_embeds=batch.get("patch_embeds"),
+                        true_len=true_len)
 
 
 def get_model(cfg: ModelConfig) -> ModelFns:

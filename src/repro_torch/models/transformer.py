@@ -1,5 +1,5 @@
-"""Decoder-only transformer LM (family ``dense``): forward, training
-loss, prefill and single-token decode.
+"""Decoder-only transformer LM (families ``dense``, ``moe`` and ``vlm``):
+forward, training loss, prefill and single-token decode.
 
 Port of ``repro.models.transformer`` for the paper LM.  The JAX stack
 scans over layer-stacked parameters; here ``params["layers"]`` is a list
@@ -12,8 +12,11 @@ hierarchical cache.  ``lm_forward`` and ``lm_loss`` are differentiable
 (the band kernels carry their backward); with ``cfg.remat`` each layer
 is rematerialised in the backward (:func:`_remat`, the reference's
 ``jax.checkpoint`` per layer).  Prefill and decode run under
-``torch.inference_mode()``.  MoE, SSM, hybrid and VLM families are later
-slices.
+``torch.inference_mode()``.  A ``moe`` layer (:func:`block_kind`) holds
+``moe`` in place of ``mlp`` and adds its load-balancing loss to the
+forward's aux; ``prefix_embeds`` (a VLM's patch embeddings) run before
+the tokens in the forward and the prefill.  The SSM, hybrid and
+encoder-decoder families are later slices.
 
 Parameters (all (d_in, d_out) projections applied as ``x @ w``)::
 
@@ -21,9 +24,13 @@ Parameters (all (d_in, d_out) projections applied as ``x @ w``)::
      ["lm_head": {"w": (d, V)}]        # only without tied embeddings
      "layers": [{"ln1": {"g"}, "attn": {"wq", "wkv", "wo"},
                  "ln2": {"g"}, "mlp": {"wg", "wu", "wd"}}, ...]}
+
+with ``"moe": {"router", "w1", "w3", "w2", ["shared", "shared_gate"],
+["residual"]}`` in place of ``"mlp"`` in a ``moe`` layer.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Any, Dict, List
 
@@ -36,22 +43,41 @@ from ..tree import tree_map
 from .attention import (attn_init, attn_apply, attn_decode,
                         init_decode_cache, prefill_into_cache)
 from .common import ModelConfig, dense, dense_init, rmsnorm
-from .ffn import mlp_init, mlp
+from .ffn import mlp_init, mlp, moe_init, moe_apply
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.moe_experts > 0 or cfg.prefix_len:
+    if cfg.family in ("ssm", "hybrid", "encdec"):
         raise NotImplementedError(
-            f"family={cfg.family!r} (moe_experts={cfg.moe_experts}, "
-            f"prefix_len={cfg.prefix_len}) is not ported yet; this slice "
-            "serves the dense decoder")
+            f"family={cfg.family!r} is not ported yet: the port runs the "
+            "dense, moe and vlm decoders; mamba2 (ssm), zamba2 (hybrid) "
+            "and the encoder-decoder come later")
 
 
-def block_init(gen: torch.Generator, cfg: ModelConfig, dtype):
-    return {"ln1": {"g": torch.ones((cfg.d_model,), dtype=dtype)},
-            "attn": attn_init(gen, cfg, dtype),
-            "ln2": {"g": torch.ones((cfg.d_model,), dtype=dtype)},
-            "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, dtype)}
+def block_kind(cfg: ModelConfig, i: int) -> str:
+    """``moe`` for every layer of a config with experts, else ``dense``
+    (the reference's ``block_kind`` for the ported families)."""
+    return "moe" if cfg.moe_experts > 0 else "dense"
+
+
+def block_init(gen: torch.Generator, cfg: ModelConfig, dtype,
+               kind: str = "dense"):
+    p = {"ln1": {"g": torch.ones((cfg.d_model,), dtype=dtype)},
+         "attn": attn_init(gen, cfg, dtype),
+         "ln2": {"g": torch.ones((cfg.d_model,), dtype=dtype)}}
+    if kind == "moe":
+        p["moe"] = moe_init(gen, cfg, dtype)
+    else:
+        p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, dtype)
+    return p
+
+
+def _ffn(lp, cfg: ModelConfig, x):
+    """The layer's feed-forward on ``x``: (out, aux), aux 0.0 for a dense
+    layer."""
+    if "moe" in lp:
+        return moe_apply(lp["moe"], cfg, x, cfg.mlp_activation)
+    return mlp(lp["mlp"], x, cfg.mlp_activation), 0.0
 
 
 def lm_init(cfg: ModelConfig, *, seed: int = 0, device=None) -> Dict[str, Any]:
@@ -59,7 +85,9 @@ def lm_init(cfg: ModelConfig, *, seed: int = 0, device=None) -> Dict[str, Any]:
     to ``device`` (default ``cuda``) as it is drawn: one seed gives the
     same weights on every device, and a model of billions of parameters
     never sits whole in host memory.  Every leaf is drawn in
-    ``cfg.dtype`` (float32 or bfloat16), as the reference draws them."""
+    ``cfg.dtype`` (float32 or bfloat16), as the reference draws them,
+    but a MoE router, which is always float32.  On ``device="meta"``
+    nothing is drawn: the tree holds every leaf's shape and dtype."""
     _check_family(cfg)
     dev = resolve_device(device)
     dtype = cfg.torch_dtype
@@ -67,24 +95,31 @@ def lm_init(cfg: ModelConfig, *, seed: int = 0, device=None) -> Dict[str, Any]:
 
     def to_dev(tree):
         return tree_map(lambda t: t.to(dev), tree)
-    params: Dict[str, Any] = {
-        "embed": to_dev({"w": torch.randn((cfg.vocab_size, cfg.d_model),
-                                          generator=gen, dtype=dtype)
-                         * 0.02}),
-        "final_norm": to_dev({"g": torch.ones((cfg.d_model,),
-                                              dtype=dtype)}),
-        "layers": [to_dev(block_init(gen, cfg, dtype))
-                   for _ in range(cfg.num_layers)],
-    }
-    if not cfg.tie_embeddings:
-        params["lm_head"] = to_dev(dense_init(gen, cfg.d_model,
-                                              cfg.vocab_size, scale=0.02,
-                                              dtype=dtype))
+    with (torch.device("meta") if dev.type == "meta"
+          else contextlib.nullcontext()):
+        params: Dict[str, Any] = {
+            "embed": to_dev({"w": torch.randn((cfg.vocab_size, cfg.d_model),
+                                              generator=gen, dtype=dtype)
+                             * 0.02}),
+            "final_norm": to_dev({"g": torch.ones((cfg.d_model,),
+                                                  dtype=dtype)}),
+            "layers": [to_dev(block_init(gen, cfg, dtype, block_kind(cfg, i)))
+                       for i in range(cfg.num_layers)],
+        }
+        if not cfg.tie_embeddings:
+            params["lm_head"] = to_dev(dense_init(gen, cfg.d_model,
+                                                  cfg.vocab_size, scale=0.02,
+                                                  dtype=dtype))
     return params
 
 
-def _embed_tokens(params, cfg: ModelConfig, tokens):
-    return params["embed"]["w"][tokens].to(cfg.torch_dtype)
+def _embed_tokens(params, cfg: ModelConfig, tokens, prefix_embeds=None):
+    """Token embeddings (B, S, d) in the model's dtype, after
+    ``prefix_embeds`` (B, P, d) where given."""
+    h = params["embed"]["w"][tokens].to(cfg.torch_dtype)
+    if prefix_embeds is None:
+        return h
+    return torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
 
 
 def _logits(params, cfg: ModelConfig, h):
@@ -100,9 +135,11 @@ def _logits(params, cfg: ModelConfig, h):
 
 
 def _block_apply(lp, cfg: ModelConfig, h, positions, layer_global: bool):
+    """One layer: (h, aux)."""
     h = h + attn_apply(lp["attn"], cfg, rmsnorm(lp["ln1"], h), positions,
                        layer_global=layer_global)
-    return h + mlp(lp["mlp"], rmsnorm(lp["ln2"], h), cfg.mlp_activation)
+    m, aux = _ffn(lp, cfg, rmsnorm(lp["ln2"], h))
+    return h + m, aux
 
 
 #: the weight products (a 2-D weight applied as ``x @ w`` runs as one mm
@@ -132,26 +169,32 @@ def _remat(cfg: ModelConfig, fn):
     return functools.partial(checkpoint, fn, use_reentrant=False)
 
 
-def lm_forward(params, cfg: ModelConfig, tokens):
-    """Teacher-forced causal forward.  tokens (B, S) -> (logits (B, S, V),
-    aux_loss), aux_loss being 0 for the dense family.  Each layer runs
-    through :func:`_remat`."""
+def lm_forward(params, cfg: ModelConfig, tokens, *, prefix_embeds=None):
+    """Teacher-forced causal forward.  tokens (B, S) [after prefix_embeds
+    (B, P, d), positions running over both] -> (logits (B, S, V) of the
+    token positions only, aux_loss): the layers' MoE losses summed, 0.0
+    for a dense stack.  Each layer runs through :func:`_remat`."""
     _check_family(cfg)
-    B, S = tokens.shape
-    h = _embed_tokens(params, cfg, tokens)
-    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    h = _embed_tokens(params, cfg, tokens, prefix_embeds)
+    B, L = h.shape[:2]
+    positions = torch.arange(L, device=tokens.device)[None].expand(B, L)
+    aux_total = 0.0
     for i, lp in enumerate(params["layers"]):
-        h = _remat(cfg, _block_apply)(lp, cfg, h, positions,
-                                      cfg.layer_uses_global_attn(i))
-    return _logits(params, cfg, h), 0.0
+        h, aux = _remat(cfg, _block_apply)(lp, cfg, h, positions,
+                                           cfg.layer_uses_global_attn(i))
+        aux_total = aux_total + aux
+    logits = _logits(params, cfg, h)
+    return logits[:, L - tokens.shape[1]:], aux_total
 
 
 def lm_loss(params, cfg: ModelConfig, batch):
-    """batch: tokens (B, S) [+ loss_mask (B, S)].  Next-token cross
-    entropy through ``logsumexp``; returns (loss, {"nll", "aux",
+    """batch: tokens (B, S) [+ patch_embeds (B, P, d), loss_mask (B, S)].
+    Next-token cross entropy of the token positions through
+    ``logsumexp``, plus the MoE aux loss; returns (loss, {"nll", "aux",
     "ntok"})."""
     tokens = batch["tokens"]
-    logits, aux = lm_forward(params, cfg, tokens)
+    logits, aux = lm_forward(params, cfg, tokens,
+                             prefix_embeds=batch.get("patch_embeds"))
     tgt = tokens[:, 1:].long()
     lgt = logits[:, :-1]
     mask = batch.get("loss_mask")
@@ -168,34 +211,35 @@ def lm_loss(params, cfg: ModelConfig, batch):
 
 @torch.inference_mode()
 def lm_prefill(params, cfg: ModelConfig, tokens, Lmax: int, *,
-               true_len=None):
-    """Teacher-forced pass over the prompt that also builds the decode
-    caches.  Returns (last_logits (B, V), caches (list per layer),
-    next_pos (B,) int32).
+               prefix_embeds=None, true_len=None):
+    """Teacher-forced pass over the prompt (after ``prefix_embeds`` (B, P,
+    d), where given) that also builds the decode caches.  Returns
+    (last_logits (B, V), caches (list per layer), next_pos (B,) int32).
 
     ``true_len`` (int, or a per-row (B,) tensor): logical prompt lengths
     when ``tokens`` is right-padded to a length bucket; logits and
-    next_pos then refer to position ``true_len - 1`` of each row.  The
-    padded tail is never attended by decode (causal attention) and each
-    of its cache rows is overwritten before its position comes up."""
+    next_pos then refer to position ``P + true_len - 1`` of each row.
+    The padded tail is never attended by decode (causal attention) and
+    each of its cache rows is overwritten before its position comes up.
+    A MoE layer's aux loss is dropped."""
     _check_family(cfg)
-    B, S = tokens.shape
     dev = tokens.device
-    h = _embed_tokens(params, cfg, tokens)
-    positions = torch.arange(S, device=dev)[None].expand(B, S)
+    h = _embed_tokens(params, cfg, tokens, prefix_embeds)
+    B, L = h.shape[:2]
+    positions = torch.arange(L, device=dev)[None].expand(B, L)
     caches: List = []
     for i, lp in enumerate(params["layers"]):
         a, cache = prefill_into_cache(
             lp["attn"], cfg, rmsnorm(lp["ln1"], h), positions, Lmax,
             layer_global=cfg.layer_uses_global_attn(i))
         h = h + a
-        h = h + mlp(lp["mlp"], rmsnorm(lp["ln2"], h), cfg.mlp_activation)
+        h = h + _ffn(lp, cfg, rmsnorm(lp["ln2"], h))[0]
         caches.append(cache)
     if true_len is None:
-        tl = torch.full((B,), S, dtype=torch.int32, device=dev)
+        tl = torch.full((B,), L, dtype=torch.int32, device=dev)
     else:
-        tl = torch.as_tensor(true_len, dtype=torch.int32,
-                             device=dev).expand(B).contiguous()
+        tl = (torch.as_tensor(true_len, dtype=torch.int32, device=dev)
+              + (L - tokens.shape[1])).expand(B).contiguous()
     # per-row logical lengths: gather each row's last true token
     last = h[torch.arange(B, device=dev), tl.long() - 1][:, None]
     return _logits(params, cfg, last)[:, 0], caches, tl
@@ -219,7 +263,7 @@ def lm_decode_step(params, cfg: ModelConfig, caches, token, t, *,
             layer_global=cfg.layer_uses_global_attn(i),
             page_tables=page_tables, sp_tables=sp_tables)
         h = h + a
-        h = h + mlp(lp["mlp"], rmsnorm(lp["ln2"], h), cfg.mlp_activation)
+        h = h + _ffn(lp, cfg, rmsnorm(lp["ln2"], h))[0]
     return _logits(params, cfg, h)[:, 0], caches
 
 

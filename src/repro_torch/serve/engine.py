@@ -168,14 +168,17 @@ class ServeEngine:
         # one noise generator per request in flight, keyed by id(req)
         self._streams: Dict[int, torch.Generator] = {}
         # prompt length bucketing pads a prompt with real (weight-1)
-        # tokens; off (the reference's rules) for a sliding window, whose
+        # tokens; off (the reference's rules) for the recurrent families
+        # (ssm, hybrid), whose prefill scan over the pads would corrupt the
+        # state, for encdec, and for a sliding window, whose
         # rolling cache keeps the LAST 2 * window rows so pads would evict
         # real in-window keys, and for h1d coarse-q, whose coarse QUERIES
         # average the pad embeddings across cluster boundaries and shift
         # the logits at the true last token; on for full attention, whose
         # pads sit past the true length in causal order and in cache
         # slots each overwritten before its position comes up
-        self._bucket = (cfg.sliding_window == 0
+        self._bucket = (cfg.family not in ("ssm", "hybrid", "encdec")
+                        and cfg.sliding_window == 0
                         and (cfg.attention != "h1d"
                              or cfg.causal_mode == "fine-q"))
         self.cache_dtype = cache_dtype

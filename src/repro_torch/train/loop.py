@@ -193,9 +193,10 @@ def train(cfg: ModelConfig, tc: TrainConfig, data_source, num_steps: int,
     ``sp_scope(mesh)``: the forward and backward of each attention call
     shard its sequence over the mesh's ``d`` shards; ``None`` or a 1-way
     mesh trains unsharded.  Returns (state, metrics): the last
-    step's metrics plus ``history``, one ``{"step", "loss", "step_ms",
-    "end_s"}`` per step run: the host time of the step, ending when its
-    loss is read, and that end on the ``time.perf_counter`` clock; on a
+    step's metrics plus ``history``, one ``{"step", "loss", "aux",
+    "step_ms", "end_s"}`` per step run: the loss and its MoE aux part as
+    numbers, the host time of the step, ending when its loss is read,
+    and that end on the ``time.perf_counter`` clock; on a
     card also ``peak_mem_gib``, the most device memory allocated during
     the steps (``torch.cuda.max_memory_allocated``, reset as they
     start)."""
@@ -224,13 +225,16 @@ def train(cfg: ModelConfig, tc: TrainConfig, data_source, num_steps: int,
         loss = float(metrics["loss"])          # waits for the device
         end = time.perf_counter()
         dt = end - t0
-        history.append({"step": step, "loss": loss, "step_ms": dt * 1e3,
-                        "end_s": end})
+        aux = float(metrics.get("aux", 0.0))
+        history.append({"step": step, "loss": loss, "aux": aux,
+                        "step_ms": dt * 1e3, "end_s": end})
         if wd.observe(dt):
             log(f"[watchdog] step {step} took {dt:.3f}s "
                 f"(ema {wd.ema:.3f}s) -- straggler suspected")
         if step % tc.log_every == 0:
-            log(f"step {step}: loss={loss:.4f} ({dt*1e3:.1f} ms)")
+            log(f"step {step}: loss={loss:.4f}"
+                + (f" aux={aux:.6f}" if aux else "")
+                + f" ({dt*1e3:.1f} ms)")
         if tc.ckpt_every and (step + 1) % tc.ckpt_every == 0:
             saver.save(step + 1, state)
     saver.wait()

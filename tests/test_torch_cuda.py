@@ -1759,8 +1759,10 @@ def test_coarse_q_and_sampled_smoke_engines_on_card(dev):
 
 BF16 = torch.bfloat16
 # the GQA groups of gemma3-4b (2), llama3.2-1b (4), qwen2.5-14b (5) and
-# yi-6b (8), at the head widths of the assigned configs
-BF16_SHAPES = [(G, D) for G in (2, 4, 5, 8) for D in (64, 128, 256)]
+# yi-6b (8), at the head widths of the assigned configs; qwen2-moe-a2.7b
+# (G 1) and llava-next-34b (G 7) at their head width 128
+BF16_SHAPES = [(G, D) for G in (2, 4, 5, 8) for D in (64, 128, 256)] + [
+    (1, 128), (7, 128)]
 
 
 def _bf16(c):
@@ -2069,3 +2071,65 @@ def test_full_attention_smoke_on_card_matches_cpu(dev):
     torch.testing.assert_close(logits["cuda"], logits["cpu"], atol=1e-4,
                                rtol=0)
     assert outs["cuda"] == outs["cpu"]
+
+
+# ---------------------------------------------------------------------------
+# mixture of experts (models/ffn.py: plain products, sorts and gathers)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("d,E,k,ff,cf", [(64, 8, 2, 32, 8.0),
+                                         (64, 8, 2, 32, 0.25),
+                                         (256, 60, 4, 176, 1.25)])
+def test_moe_apply_on_card_matches_cpu(dev, d, E, k, ff, cf):
+    """``moe_apply`` (with a shared expert) on the card against its CPU
+    run on the same fp32 inputs: the same experts and ranks (so the same
+    drops), the output within 2e-5 * max(1, |cpu|) and the aux loss
+    within 1e-6 (the products sum in other orders), the input's and the
+    router's gradients within 1e-4 of their largest |cpu|; two forward
+    calls on the card the same bits (no atomics in the forward), in fp32
+    and in bf16, and two bf16 input gradients the same bits."""
+    from repro_torch.models import ffn
+    from repro_torch.models.common import ModelConfig
+    cfg = ModelConfig(d_model=d, moe_experts=E, moe_top_k=k, moe_d_ff=ff,
+                      moe_shared_d_ff=2 * ff, moe_capacity_factor=cf)
+    p = ffn.moe_init(torch.Generator().manual_seed(E + k), cfg)
+    p["shared_gate"] = torch.randn((d, 1), generator=torch.Generator()
+                                   .manual_seed(1)) * 0.5
+    x = torch.randn((2, 256, d), generator=torch.Generator().manual_seed(2))
+    cuda = {n: (v.to(dev) if torch.is_tensor(v) else
+                {m: {"w": w["w"].to(dev)} for m, w in v.items()})
+            for n, v in p.items()}
+    for a, b in zip(ffn.route(p, cfg, x)[1:3],
+                    ffn.route(cuda, cfg, x.to(dev))[1:3]):
+        assert torch.equal(a, b.cpu())
+
+    def run(params, xx):
+        leaves = [params["router"].clone().requires_grad_(True),
+                  xx.clone().requires_grad_(True)]
+        out, aux = ffn.moe_apply(dict(params, router=leaves[0]), cfg,
+                                 leaves[1])
+        g = torch.autograd.grad((out * out).sum() + aux, leaves)
+        return out.detach(), aux.detach(), g
+    want, waux, wg = run(p, x)
+    got, aux, g = run(cuda, x.to(dev))
+    err = ((got.cpu().double() - want.double()).abs()
+           / want.double().abs().clamp(min=1.0)).max()
+    assert float(err) <= 2e-5 and abs(float(aux) - float(waux)) <= 1e-6
+    for a, b in zip(g, wg):
+        assert float((a.cpu() - b).abs().max() / b.abs().max()) <= 1e-4
+    again, _ = ffn.moe_apply(cuda, cfg, x.to(dev))
+    assert torch.equal(again, ffn.moe_apply(cuda, cfg, x.to(dev))[0])
+    half = {n: (v if n == "router" else
+                v.to(BF16) if torch.is_tensor(v) else
+                {m: {"w": w["w"].to(BF16)} for m, w in v.items()})
+            for n, v in cuda.items()}
+    xb = x.to(dev).to(BF16)
+    one, _ = ffn.moe_apply(half, cfg, xb)
+    assert one.dtype == BF16 and torch.equal(one,
+                                             ffn.moe_apply(half, cfg, xb)[0])
+
+    def input_grad():           # the dispatch's backward sums in order
+        xx = xb.clone().requires_grad_(True)
+        out, aux = ffn.moe_apply(half, cfg, xx)
+        return torch.autograd.grad((out.float() ** 2).sum() + aux, xx)[0]
+    assert torch.equal(input_grad(), input_grad())

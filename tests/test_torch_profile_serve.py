@@ -86,3 +86,52 @@ def test_kernel_instance_maps_to_its_wrapper(entry):
      "at::native::CUDAFunctor_add<float>)", "other")])
 def test_other_kernels_group(name, group):
     assert ps._group(name) == group
+
+
+def _event(name, kernels=(), children=(), seq=-1, cpu=True):
+    """A stand-in for the profiler's ``FunctionEvent``: name, device type,
+    kernels (``Kernel(name, device, duration)``), children, sequence
+    number."""
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import Kernel
+    return SimpleNamespace(
+        name=name, sequence_nr=seq, cpu_children=list(children),
+        device_type=DeviceType.CPU if cpu else DeviceType.CUDA,
+        kernels=[Kernel(k, 0, us) for k, us in kernels])
+
+
+GEMM = "sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x32"
+ELEM = ("void at::native::vectorized_elementwise_kernel<4>(int, "
+        "at::native::CUDAFunctor_add<float>)")
+
+
+def test_moe_range_takes_its_kernels_and_their_backward():
+    """Kernels launched by ops inside a ``moe`` range (a product, a
+    gather) and by the backward of those ops go to the group ``moe``, by
+    the group they would otherwise join; the same kinds of kernels
+    outside the range, and the backward of other ops, do not."""
+    bmm = _event("aten::bmm", [(GEMM, 30.0)], seq=7)
+    gather = _event("aten::gather", [(ELEM, 5.0)], seq=8)
+    moe = _event("moe", children=[_event("aten::matmul", children=[bmm]),
+                                  gather])
+    other = _event("aten::mm", [(GEMM, 100.0)], seq=9)
+    back = _event("autograd::engine::evaluate_function: BmmBackward0",
+                  children=[_event("BmmBackward0", children=[_event(
+                      "aten::bmm", [(GEMM, 40.0), (GEMM, 20.0)])])], seq=7)
+    back_other = _event("autograd::engine::evaluate_function: MmBackward0",
+                        children=[_event("aten::mm", [(GEMM, 200.0)])],
+                        seq=9)
+    stream = _event("moe", [(ELEM, 999.0)], cpu=False)   # the GPU span
+    got = ps.moe_device_us([moe, bmm, gather, other, back, back_other,
+                            stream])
+    assert dict(got) == {"matmul": 90.0, "other": 5.0}
+
+
+def test_no_range_moves_nothing():
+    """A dense model's events hold no ``moe`` range: nothing moves."""
+    evts = [_event("aten::mm", [(GEMM, 10.0)], seq=1),
+            _event("autograd::engine::evaluate_function: MmBackward0",
+                   children=[_event("aten::mm", [(GEMM, 20.0)])], seq=1)]
+    assert dict(ps.moe_device_us(evts)) == {}
