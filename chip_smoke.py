@@ -190,9 +190,9 @@ Phases (each raises on failure; nothing is caught):
    runs it (the rematerialised forwards twice: forward and recompute),
    no plain version, peak memory below the card's; step ms, tokens/s,
    peak memory.
-14. ``dense bf16``, after 13: ``yi-6b`` at full width cut to 4 of its
+14. ``dense bf16``, after 13: ``yi-6b`` at full width cut to 2 of its
    32 layers (G 8, head_dim 128, untied head) and ``qwen2.5-14b`` at
-   full width cut to 2 of its 48 layers (G 5, qkv bias), published
+   full width cut to 1 of its 48 layers (G 5, qkv bias), published
    bf16, seeded weights drawn layer by layer on the host (their time
    logged; the cuts keep the draw within the time limit),
    ``ServeEngine(slots=4, max_len=4096)`` on 8 greedy requests of 16
@@ -243,7 +243,7 @@ Phases (each raises on failure; nothing is caught):
    #7 and #9 on a bf16 pool at qwen2-moe's; each held to its plain
    version as in 2, 3 and the bf16 rows, its launches those of the phase
    17 paths that run that shape.  After 16: (b) ``qwen2-moe-a2.7b`` at full width,
-   4 of its 24 layers (2.90 B parameters), bf16, seeded weights:
+   2 of its 24 layers (1.76 B parameters), bf16, seeded weights:
    ``ServeEngine(slots=4, max_len=4096)``, bucketed, on 8 greedy
    requests of 16 tokens, prompt lengths 1000..3900 (seed 0): #1, #2,
    #5, #6 launched, no plain version; then the plain run and the kernels
@@ -260,7 +260,7 @@ Phases (each raises on failure; nothing is caught):
    fp32 gradient's plain pass routed to the kernel pass's experts; any
    flip is reported with its gap) and 3 in-place AdamW steps through
    ``train``: step ms, tokens/s, peak memory, the aux loss.  (d)
-   ``llava-next-34b`` at full width, 2 of its 60 layers (2.03 B):
+   ``llava-next-34b`` at full width, 1 of its 60 layers (1.48 B):
    ``lm_prefill`` of 576 seeded patch embeddings (numpy, seed 0, x 0.02)
    and a 1024-token prompt at B 2, Lmax 4096, then 16 decode steps, the
    kernels on the plain run's tokens, every step's logits held as in 12
@@ -268,8 +268,37 @@ Phases (each raises on failure; nothing is caught):
    3520) with ``patch_embeds`` on (d)'s weights.  The kernel line's
    ``launches_by_path`` holds ``moe`` ((b): the first kernel run and the
    paged run), ``moe_train`` ((c)'s steps) and ``vlm`` ((d), (e)).
+18. ``ssm families``: the SSM and hybrid families.  (a), with phase 17's
+   rows: ``<name>@zamba2-1.2b``, #1 ``l0_causal``, #2, #3 and #4 at one
+   zamba2 sequence's 32 kv-heads x G 1, head_dim 64, L 4096, and #5 and
+   #6 on bf16 caches at its decode shape (128 rows = 4 slots x 32, D
+   64, Lmax 4096), held as phase 17 holds its rows.  After 17: (b)
+   ``mamba2-1.3b`` at full width (d 2048, d_inner 4096, 64 heads, N
+   128, chunk 256), 8 of its 48 layers, bf16, seeded weights: one mixer
+   in fp32 on the card against the CPU at S 4096 (chunk 256) and 4093
+   (chunk 1), within 1e-4 of the CPU's largest entry; ``ssd_chunked``
+   against ``ssd_reference`` on the card within the reference's bound
+   (atol 2e-4, rtol 1e-3); on 2 layers in fp32 a 300-token prefill
+   against the same prompt decoded token by token from zero state, the
+   last logits within 2e-4 of max |logit|; ``lm_prefill`` ms at 1 x
+   4096 and 1 x 4093; ``ServeEngine(slots=4, max_len=4096)`` on 8
+   greedy requests of 16 tokens, prompts 1000..3900 (seed 0),
+   unbucketed (no kernel runs); 3 in-place AdamW steps at 1 x 4096 on
+   one repeated batch (remat and no remat gradients bit for bit, the
+   loss falling).  (c)
+   ``zamba2-1.2b`` at full width, 12 of its 38 layers (two invocations
+   of the shared h1d block), bf16: served as 14 serves (#1, #2, #5, #6
+   launched; every step's logits on the plain run's tokens within 3e-2
+   of max |plain|), then 13 (b)'s checks at 1 x 4096 (the fp32
+   gradient against the plain path; the mixers' A_log and dt_bias,
+   sums over the sequence that cancel, within 1e-3 of their largest
+   |plain|: two plain paths differ by 3.1e-4 there) and 3 in-place
+   AdamW steps, #3 and
+   #4 launched once an invocation a step (the shared block runs outside
+   the remat).  ``launches_by_path`` holds ``ssm``, ``ssm_train``,
+   ``hybrid`` and ``hybrid_train``.
 
-Tolerances.  In bf16 (phases 12-15, 17): every step's logits, on the same
+Tolerances.  In bf16 (phases 12-15, 17, 18): every step's logits, on the same
 tokens, within 3e-2 of the plain row's largest |logit| (both paths
 round every activation to bf16 after f32 attention summed in other
 orders), losses within 2e-2; the
@@ -2011,10 +2040,12 @@ def phase_train(dev):
 
 
 def grads_against_plain(label, params, loss_of, run=contextlib.nullcontext,
-                        ref=plain_kernels, names=("kernel", "plain")):
+                        ref=plain_kernels, names=("kernel", "plain"),
+                        leaf_tol=None):
     """The gradient of ``loss_of(params)`` on the kernel path against the
     plain path on the card, leaf by leaf: each leaf within GRAD_TOL of
-    its largest |plain|, and elementwise within GRAD_TOL * max(1,
+    its largest |plain| (a leaf whose path ends in a key of ``leaf_tol``:
+    within that key's value), and elementwise within GRAD_TOL * max(1,
     |plain|).  ``run`` and ``ref`` are the contexts the two gradients are
     taken in (named ``names`` in the log): the kernel path as it is, and
     under :func:`plain_kernels`, unless the caller says otherwise."""
@@ -2034,8 +2065,10 @@ def grads_against_plain(label, params, loss_of, run=contextlib.nullcontext,
     paths = [p for p, _ in tree_flatten_with_paths(params)]
     worst = (0.0, 0.0, 0.0, "")
     for path, a, b in zip(paths, got, want):
-        err, scaled, elem = compare(f"{label} grad {path}", [a], [b],
-                                    GRAD_TOL, ("tensor",))
+        tol = next((t for end, t in (leaf_tol or {}).items()
+                    if path.endswith(end)), GRAD_TOL)
+        err, scaled, elem = compare(f"{label} grad {path}", [a], [b], tol,
+                                    ("tensor",))
         if elem > GRAD_TOL:
             raise AssertionError(f"{label} grad {path}: elementwise-scaled "
                                  f"error {elem:.3g} > {GRAD_TOL:g}")
@@ -2962,12 +2995,22 @@ def train_expected(cfg, steps: int, seq: int):
     length ``seq``: every band forward of a layer twice (the forward,
     then the recompute in the backward), its backward once; local layers
     on the streamed bodies, global ones on #1 ``l0_causal`` and #2 at
-    every sub level, #3 and #4 in the backward."""
+    every sub level, #3 and #4 in the backward.  An ssm stack launches
+    none; a hybrid's shared block runs outside the remat, so each of its
+    invocations runs its band forwards once and its backwards once."""
     from repro_torch.core import hierarchy as hc
+    subs = hc.num_levels(hc.padded_length(seq, cfg.nr), cfg.nr) - 1
+    if cfg.family in ("ssm", "hybrid"):
+        inv = (sum(cfg.layer_is_attn(i) for i in range(cfg.num_layers))
+               if cfg.family == "hybrid" else 0)
+        per_step = {"band_attention_fwd[l0_causal]": inv,
+                    "band_attention_bwd[l0_causal]": inv,
+                    "band_attention_sub_fwd": inv * subs,
+                    "band_attention_sub_bwd": inv * subs}
+        return {k_: n * steps for k_, n in per_step.items() if n}
     local = sum(not cfg.layer_uses_global_attn(i)
                 for i in range(cfg.num_layers))
     glob = cfg.num_layers - local
-    subs = hc.num_levels(hc.padded_length(seq, cfg.nr), cfg.nr) - 1
     per_step = {"band_attention_fwd[l0_causal_stream]": 2 * local,
                 "band_attention_bwd[l0_causal_stream]": local,
                 "band_attention_fwd[l0_causal]": 2 * glob,
@@ -2977,7 +3020,8 @@ def train_expected(cfg, steps: int, seq: int):
     return {k_: n * steps for k_, n in per_step.items() if n}
 
 
-def bf16_checks(label, cfg, params, batch, grad_ctx=None):
+def bf16_checks(label, cfg, params, batch, grad_ctx=None, bit_exact=False,
+                plain_grads=True):
     """The checks of a bf16 configuration with remat (policy ``dots``) on
     ``params`` (left as they are) and one batch: (a) its loss on the
     kernel path within BF16_LOSS_TOL of the plain path's; (b) the
@@ -2988,7 +3032,10 @@ def bf16_checks(label, cfg, params, batch, grad_ctx=None):
     plain path as in 7 (the band kernels run fp32 in either dtype, and
     fp32 holds them, forward and backward, to GRAD_TOL; ``grad_ctx``,
     where given, holds the ``run`` and ``ref`` contexts of that
-    comparison, :func:`grads_against_plain`'s).  Returns (the kernel
+    comparison, :func:`grads_against_plain`'s).  With ``bit_exact`` the
+    two gradients of (b) must be equal bit for bit; ``plain_grads=False``
+    leaves out the fp32 comparison (a model without attention launches no
+    kernel, so its plain path is its kernel path).  Returns (the kernel
     loss, the plain loss, the gradient peaks above the weights by remat
     policy)."""
     from repro_torch.models import get_model
@@ -3031,6 +3078,10 @@ def bf16_checks(label, cfg, params, batch, grad_ctx=None):
         equal += int(torch.equal(a, b))
     nleaves = len(g_remat)
     del g_remat, g_none
+    if bit_exact and equal != nleaves:
+        raise AssertionError(f"{label}: {nleaves - equal} of {nleaves} "
+                             f"gradient leaves differ between remat and "
+                             f"none")
     if not peak_remat < peak_none:
         raise AssertionError(f"{label}: remat peaks at {peak_remat:.2f} GiB "
                              f"above the weights, no lower than "
@@ -3042,6 +3093,10 @@ def bf16_checks(label, cfg, params, batch, grad_ctx=None):
         f"for bit; peak above the weights {peak_remat:.2f} GiB with remat "
         f"(dots), {peak_none:.2f} GiB without")
 
+    if not plain_grads:
+        gc.collect()
+        torch.cuda.empty_cache()
+        return loss_k, loss_p, dict(remat=peak_remat, none=peak_none)
     # the fp32 gradient, kernel path against plain path (after (b): run
     # before it, its leftovers left (b) out of memory)
     f32 = dataclasses.replace(cfg, dtype="float32")
@@ -3239,20 +3294,21 @@ def phase_gemma_train(dev, box):
 # training
 # ---------------------------------------------------------------------------
 
-# (arch, layers): yi-6b cut to 4 of its 32 layers and qwen2.5-14b to 2
+# (arch, layers): yi-6b cut to 2 of its 32 layers and qwen2.5-14b to 1
 # of its 48: the card's host draws ~30 M parameters a second
 # (``lm_init``, one CPU generator), so yi's 6.06 B took 204 s; since phase
 # 17 joined the smoke their draws are cut (16 and 8 layers took 100 and
-# 108 s) so that the whole stays near its earlier time; the kernels'
-# shapes, and so every check, do not depend on the depth; both run at
-# full depth through ``launch.serve`` outside the smoke
-DENSE_BF16 = (("yi-6b", 4), ("qwen2.5-14b", 2))
+# 108 s; 4 and 2 until phase 18 joined) so that the whole stays near its
+# earlier time; the kernels' shapes, and so every check, do not depend on
+# the depth; both run at full depth through ``launch.serve`` outside the
+# smoke
+DENSE_BF16 = (("yi-6b", 2), ("qwen2.5-14b", 1))
 DENSE_PROMPTS, DENSE_REQUESTS = (1000, 3900), 8
 LLAMA_TRAIN_BATCH, LLAMA_TRAIN_SEQ, LLAMA_TRAIN_STEPS = 2, 4096, 3
 
 
 def phase_dense_bf16(dev):
-    """14. ``yi-6b`` and ``qwen2.5-14b`` at full width (4 and 2 layers,
+    """14. ``yi-6b`` and ``qwen2.5-14b`` at full width (2 and 1 layers,
     ``DENSE_BF16``) in their published bf16 from seeded weights:
     ``ServeEngine(slots=4, max_len=4096)`` on 8 greedy requests of 16
     tokens, prompt lengths 1000..3900 (seed 0): #1 and #2 (h1d prefill at
@@ -3677,13 +3733,14 @@ def phase_full(dev, serve_stats, train_stats):
 # phase 17: the MoE and VLM families (qwen2-moe-a2.7b, llava-next-34b)
 # ---------------------------------------------------------------------------
 
-# qwen2-moe-a2.7b at full width cut to 4 of its 24 layers (2.90 B
-# parameters) and llava-next-34b to 2 of its 60 (2.03 B): the host draws
-# ~30 M parameters a second; qwen2-moe runs at full depth through
+# qwen2-moe-a2.7b at full width cut to 2 of its 24 layers (1.76 B
+# parameters) and llava-next-34b to 1 of its 60 (1.48 B): the host draws
+# ~30 M parameters a second (4 and 2 layers, 2.90 and 2.03 B, until
+# phase 18 joined the smoke); qwen2-moe runs at full depth through
 # ``launch.serve`` outside the smoke
-MOE_ARCH, MOE_LAYERS = "qwen2-moe-a2.7b", 4
+MOE_ARCH, MOE_LAYERS = "qwen2-moe-a2.7b", 2
 MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 1, 4096, 3
-VLM_ARCH, VLM_LAYERS = "llava-next-34b", 2
+VLM_ARCH, VLM_LAYERS = "llava-next-34b", 1
 VLM_BATCH, VLM_PROMPT, VLM_DECODE, VLM_MAX_LEN = 2, 1024, 16, 4096
 VLM_TRAIN_SEQ = 3520            # + 576 patch positions = 4096
 # the kernel rows at the shapes these paths give the kernels for the
@@ -3691,7 +3748,8 @@ VLM_TRAIN_SEQ = 3520            # + 576 patch positions = 4096
 # head_dim, decode rows (4 slots, or llava's 2 prompts, x kv-heads), the
 # phase 17 paths that launch the kernels at that shape)
 FAMILY_SHAPES = (("qwen2-moe-a2.7b", 16, 1, 128, 64, ("moe", "moe_train")),
-                 ("llava-next-34b", 8, 7, 128, 16, ("vlm",)))
+                 ("llava-next-34b", 8, 7, 128, 16, ("vlm",)),
+                 ("zamba2-1.2b", 32, 1, 64, 128, ("hybrid", "hybrid_train")))
 FAMILY_L = 4096
 # one bf16 ulp, relative: rounding one router input element x_d to bf16
 # moves it by at most |x_d| * 2^-8, so router logit e by at most 2^-8 *
@@ -3736,13 +3794,15 @@ def family_bwd_compare(label, got, want, args):
 
 
 def phase_family_kernels(dev):
-    """17 (a).  #1 (``l0_causal``), #2, #3 and #4 at one sequence's
-    kv-heads of qwen2-moe-a2.7b (16 rows, G 1) and llava-next-34b (8
-    rows, G 7), head_dim 128, L 4096 (every other row right-padded past
+    """17 (a) and 18 (a).  #1 (``l0_causal``), #2, #3 and #4 at one
+    sequence's kv-heads of qwen2-moe-a2.7b (16 rows, G 1) and
+    llava-next-34b (8 rows, G 7), head_dim 128, and of zamba2-1.2b (32
+    rows, G 1, head_dim 64), L 4096 (every other row right-padded past
     3000), q, k and v rounded to bf16 and widened as the bf16 models
     widen them; #5 and #6 on bf16 caches (Lmax 4096) at qwen2-moe's
-    decode shape (64 rows = 4 slots x 16, G 1) and llava's (16 rows = 2
-    prompts x 8, G 7), #7 and #9 on a bf16 pool at qwen2-moe's.  Each
+    decode shape (64 rows = 4 slots x 16, G 1), llava's (16 rows = 2
+    prompts x 8, G 7) and zamba2's (128 rows = 4 slots x 32, G 1), #7
+    and #9 on a bf16 pool at qwen2-moe's.  Each
     held to its plain version: forwards and attends within ATTN_TOL,
     backwards within GRAD_TOL (:func:`family_bwd_compare`), updates bit
     for bit over 3 chained appends.  Rows ``<name>@<arch>``; their launches are those
@@ -4475,6 +4535,352 @@ def phase_families(dev):
     return dict(moe=moe, moe_train=moe_train, vlm=vlm)
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the SSM and hybrid families (mamba2-1.3b, zamba2-1.2b)
+# ---------------------------------------------------------------------------
+
+# mamba2-1.3b at full width cut to 8 of its 48 layers (0.32 B parameters)
+# and zamba2-1.2b to 12 of its 38 (0.46 B: two invocations of the shared
+# block): the host draws ~30 M parameters a second; both run at full
+# depth through ``launch.serve`` outside the smoke
+SSM_ARCH, SSM_LAYERS = "mamba2-1.3b", 8
+HYBRID_ARCH, HYBRID_LAYERS = "zamba2-1.2b", 12
+SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, SSM_TRAIN_STEPS = 1, 4096, 3
+# the mixer's sequence lengths: 4096 runs chunk 256, 4093 (prime) chunk 1
+SSM_LENS = (4096, 4093)
+# the mixer on the card against the CPU (fp32 both, products of depth
+# 2048-4096 summed in other orders), of the CPU's largest |entry|
+MIXER_TOL = 1e-4
+# ssd_chunked against ssd_reference: the reference's own bound
+# (tests/test_ssm.py)
+SSD_ATOL, SSD_RTOL = 2e-4, 1e-3
+# prefill against token-by-token decode (fp32, 2 layers), of max |logit|
+PREFILL_DECODE_TOL, PREFILL_DECODE_LEN = 2e-4, 300
+# the fp32 gradient of a mixer's per-head leaves (A_log, dt_bias), sums
+# over every position and head dim whose terms cancel down to a largest
+# |entry| of 1e-5..5e-4: two plain paths (the card's and the CPU's) sit
+# up to 3.1e-4 of it apart on A_log at zamba2's 12 layers, 1 x 4096
+# (``tools/grad_noise.py``), so these leaves are held to 1e-3 of their
+# largest |plain| (and elementwise to GRAD_TOL, as every leaf)
+SSM_SUM_LEAVES = {"mixer/A_log": 1e-3, "mixer/dt_bias": 1e-3}
+
+
+def mixer_vs_cpu(cfg, dev):
+    """One full-width Mamba2 mixer in fp32 (``mamba2_init`` from seed 0
+    on the CPU) on the card against the same function on the CPU, at
+    each of SSM_LENS: out, h and the convolution state within MIXER_TOL
+    of the CPU's largest entry.  Returns {S: (chunk, worst error, card
+    ms)}."""
+    from repro_torch.models import ssm
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    p = ssm.mamba2_init(torch.Generator().manual_seed(0), f32)
+    cuda = {k_: ({n: t.to(dev) for n, t in v.items()}
+                 if isinstance(v, dict) else v.to(dev))
+            for k_, v in p.items()}
+    out = {}
+    for S in SSM_LENS:
+        x = torch.randn((1, S, cfg.d_model),
+                        generator=torch.Generator().manual_seed(S))
+        want, wst = ssm.mamba2_apply(p, f32, x, return_state=True)
+        xd = x.to(dev)
+        got, st = ssm.mamba2_apply(cuda, f32, xd, return_state=True)
+        worst = 0.0
+        for name, a, b in (("out", got, want), ("h", st.h, wst.h),
+                           ("conv", st.conv, wst.conv)):
+            _, e, _ = compare(f"mamba2 mixer S {S} {name} (card vs cpu)",
+                              [a.cpu()], [b], MIXER_TOL, ("tensor",))
+            worst = max(worst, e)
+        del got, st, want, wst
+        with torch.inference_mode():
+            ms = time_ms(lambda: ssm.mamba2_apply(cuda, f32, xd), iters=3,
+                         warmup=1)
+        out[S] = (ssm._chunk_len(cfg, S), worst, ms)
+        log(f"mamba2 mixer (fp32, d {cfg.d_model}, S {S}, chunk "
+            f"{out[S][0]}): card within {worst:.3g} of the CPU's largest "
+            f"|entry| (<= {MIXER_TOL:g}); {ms:.2f} ms a call on the card")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def ssd_vs_reference(cfg, dev):
+    """``ssd_chunked`` (chunk 256) against the per-step ``ssd_reference``
+    on the card at mamba2's heads (B 1, S 4096, 64 heads of 64, G 1, N
+    128), inputs drawn as the reference's test draws them: |got - want|
+    <= SSD_ATOL + SSD_RTOL |want| for y and h.  Returns the worst of
+    |got - want| / (SSD_ATOL + SSD_RTOL |want|)."""
+    from repro_torch.models import ssm
+    _, H, G, N, _ = ssm.mamba2_dims(cfg)
+    S, P = SSM_LENS[0], cfg.ssm_head_dim
+    gen = torch.Generator(device=dev).manual_seed(18)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    x, dt = randn(1, S, H, P), torch.nn.functional.softplus(randn(1, S, H))
+    A = -torch.exp(randn(H))
+    Bm, Cm = 0.3 * randn(1, S, G, N), 0.3 * randn(1, S, G, N)
+    with torch.inference_mode():
+        got = ssm.ssd_chunked(x, dt, A, Bm, Cm, chunk=cfg.ssm_chunk)
+        want = ssm.ssd_reference(x, dt, A, Bm, Cm)
+    worst = 0.0
+    for name, a, b in zip(("y", "h"), got, want):
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"ssd_chunked: non-finite {name}")
+        r = float(((a - b).abs() / (SSD_ATOL + SSD_RTOL * b.abs())).max())
+        if r > 1.0:
+            raise AssertionError(f"ssd_chunked {name} against ssd_reference: "
+                                 f"{r:.3g} of the bound atol {SSD_ATOL:g} + "
+                                 f"rtol {SSD_RTOL:g}")
+        worst = max(worst, r)
+    log(f"ssd_chunked (chunk {cfg.ssm_chunk}) against ssd_reference at S "
+        f"{S}, {H} heads, N {N}: worst {worst:.3g} of atol {SSD_ATOL:g} + "
+        f"rtol {SSD_RTOL:g} |reference|")
+    return worst
+
+
+def prefill_vs_decode(cfg, params, dev):
+    """The first 2 layers of ``params`` widened to fp32: ``lm_prefill`` of
+    a PREFILL_DECODE_LEN-token prompt (seed 0), then the same prompt token
+    by token through ``lm_decode_step`` from zero state: the last logits
+    within PREFILL_DECODE_TOL of the prefill's largest |logit|.  Returns
+    that error."""
+    from repro_torch.models import get_model
+    from repro_torch.tree import tree_map
+    two = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    fns = get_model(two)
+    wide = tree_map(lambda t: t.float(),
+                    {"embed": params["embed"],
+                     "final_norm": params["final_norm"],
+                     "layers": params["layers"][:2]})
+    tok = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, PREFILL_DECODE_LEN)), device=dev)
+    want, _, _ = fns.prefill(wide, two, {"tokens": tok}, GEMMA_MAX_LEN)
+    caches = fns.init_caches(wide, two, 1, GEMMA_MAX_LEN)
+    for i in range(PREFILL_DECODE_LEN):
+        got, caches = fns.decode_step(
+            wide, two, caches, tok[:, i],
+            torch.full((1,), i, dtype=torch.int32, device=dev))
+    e = float((got - want).abs().max() / want.abs().max())
+    if not (torch.isfinite(got).all() and e <= PREFILL_DECODE_TOL):
+        raise AssertionError(f"mamba2: decode's last logits {e:.3g} of max "
+                             f"|prefill logit| from the prefill's (> "
+                             f"{PREFILL_DECODE_TOL:g})")
+    log(f"mamba2 (fp32, 2 layers): {PREFILL_DECODE_LEN} decode steps from "
+        f"zero state end within {e:.3g} of the prefill's last logits (<= "
+        f"{PREFILL_DECODE_TOL:g} of max |logit|)")
+    del wide, caches
+    return e
+
+
+def prefill_ms(cfg, params, fns, S, dev, calls=2):
+    """Median wall ms of one ``lm_prefill`` of a 1 x S prompt (after one
+    warm-up call), a synchronize on each side."""
+    tok = torch.as_tensor(np.random.default_rng(S).integers(
+        0, cfg.vocab_size, (1, S)), device=dev)
+    times = []
+    for i in range(calls + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fns.prefill(params, cfg, {"tokens": tok}, GEMMA_MAX_LEN)
+        torch.cuda.synchronize()
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return float(np.median(times))
+
+
+class RepeatedBatch:
+    """``ZipfLM(seed=0)``'s first batch at every step: a loss that falls
+    over the steps then shows the updates descend, which the batch-to-batch
+    spread of a fresh model's loss (11.2 and 9.2 on its first two batches
+    at the same mamba2 weights) would hide."""
+
+    def __init__(self, vocab, seq, batch):
+        from repro_torch.data import ZipfLM
+        self.zipf = ZipfLM(vocab_size=vocab, seq_len=seq,
+                           batch_per_host=batch, seed=0)
+        self.seq_len, self.batch_per_host = seq, batch
+
+    def batch(self, step):
+        return self.zipf.batch(0)
+
+
+def family_train(label, cfg, params, dev, **checks):
+    """``bf16_checks`` on ``ZipfLM(seed=0)``'s first 1 x 4096 batch, then
+    3 in-place AdamW steps on that batch (:class:`RepeatedBatch`; peak
+    1e-4, no warm-up: at 1e-3 one step took mamba2's loss from 11.2 to
+    16.4) through ``train`` from ``params``, which they consume; the loss
+    must fall.  Returns (launches, stats)."""
+    import tempfile
+    from repro_torch.train import (TrainConfig, TrainState, batch_to_device,
+                                   make_optimizer)
+    data = RepeatedBatch(cfg.vocab_size, SSM_TRAIN_SEQ, SSM_TRAIN_BATCH)
+    batch = batch_to_device(data.batch(0), dev)
+    loss_k, loss_p, peaks = bf16_checks(label, cfg, params, batch, **checks)
+    del batch
+    tmp = tempfile.TemporaryDirectory()
+    tc = TrainConfig(ckpt_every=0, ckpt_dir=tmp.name, log_every=1, seed=0,
+                     peak_lr=1e-4, warmup=0)
+    state = TrainState(torch.zeros((), dtype=torch.int32, device=dev),
+                       params, make_optimizer(tc).init(params), None)
+    del params
+    with tmp:
+        counts, stats = bf16_steps(label, cfg, tc, state, data,
+                                   SSM_TRAIN_STEPS, loss_k, True,
+                                   first_loss_plain=loss_p,
+                                   grad_peak_above_weights_gib=peaks)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, stats
+
+
+def family_weights(arch, layers, family, dev):
+    """(cfg, fns, params, draw seconds, parameter count) of ``arch`` cut to
+    ``layers`` layers, bf16, seed 0."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.tree import tree_leaves
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    if cfg.dtype != "bfloat16" or cfg.family != family or not cfg.remat:
+        raise AssertionError(f"{arch}: a bf16 {family} config with remat")
+    fns = get_model(cfg)
+    params = fns.init(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    return (cfg, fns, params, time.perf_counter() - t0,
+            sum(p.numel() for p in tree_leaves(params)))
+
+
+def phase_ssm(dev):
+    """18 (b).  ``mamba2-1.3b`` at full width (d 2048, d_inner 4096, 64
+    heads, N 128, chunk 256), SSM_LAYERS layers, bf16, seed-0 weights:
+    one mixer in fp32 on the card against the CPU at S 4096 and 4093
+    (chunk 1), ``ssd_chunked`` against ``ssd_reference`` on the card,
+    prefill against decode on 2 layers in fp32; ``lm_prefill`` ms at
+    4096 and 4093; ``ServeEngine(slots=4, max_len=4096)`` on 8 greedy
+    requests of 16 tokens, prompts 1000..3900 (seed 0, unbucketed); 3
+    in-place AdamW steps at 1 x 4096 (remat and no remat gradients bit
+    for bit, the loss falling).  No kernel runs on this path.  Returns
+    the launches of serving and of training."""
+    from repro_torch.serve import ServeEngine
+
+    t0 = time.perf_counter()
+    cfg, fns, params, init_s, nparam = family_weights(SSM_ARCH, SSM_LAYERS,
+                                                      "ssm", dev)
+    mixer = mixer_vs_cpu(cfg, dev)
+    ssd = ssd_vs_reference(cfg, dev)
+    pd = prefill_vs_decode(cfg, params, dev)
+    with torch.inference_mode():
+        pre = {S: prefill_ms(cfg, params, fns, S, dev) for S in SSM_LENS}
+    log(f"mamba2 ({cfg.num_layers} layers, bf16) lm_prefill of 1 x S: "
+        + ", ".join(f"S {S} (chunk {mixer[S][0]}) {ms:.1f} ms"
+                    for S, ms in pre.items()))
+
+    work = bf16_prompts(cfg.vocab_size, *DENSE_PROMPTS, DENSE_REQUESTS)
+    lens = [len(p) for _, p in work]
+    if all(n % cfg.ssm_chunk == 0 for n in lens):
+        raise AssertionError(f"mamba2: every prompt length {lens} is a "
+                             f"multiple of {cfg.ssm_chunk}")
+    eng = ServeEngine(cfg, params, slots=GEMMA_SLOTS, max_len=GEMMA_MAX_LEN)
+    if eng._bucket:
+        raise AssertionError("mamba2: the engine buckets the prompts")
+    torch.cuda.reset_peak_memory_stats()
+    outs, stats, counts = run_engine(eng, work, fns, new_tokens=GEMMA_NEW)
+    del eng
+    if any(counts.values()):
+        raise AssertionError(f"mamba2 serve launched kernels: {counts}")
+    if not all(0 <= t < cfg.vocab_size for o in outs.values() for t in o):
+        raise AssertionError("mamba2 serve: a token out of the vocabulary")
+    from repro_torch.models.ssm import _chunk_len
+    stats.update(arch=SSM_ARCH, layers=cfg.num_layers, params=nparam,
+                 weights_s=init_s, prompt_lens=lens,
+                 prompt_chunks=[_chunk_len(cfg, n) for n in lens],
+                 prefill_ms_1x4096=pre[SSM_LENS[0]],
+                 prefill_ms_1x4093=pre[SSM_LENS[1]],
+                 mixer_vs_cpu={S: v[1] for S, v in mixer.items()},
+                 mixer_ms={S: v[2] for S, v in mixer.items()},
+                 ssd_vs_reference=ssd, prefill_vs_decode=pd,
+                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    log(f"ssm serve: {json.dumps(stats)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 18 (b) serving took {time.perf_counter() - t0:.1f}s, "
+        f"weights {init_s:.1f}s")
+    t1 = time.perf_counter()
+    train_counts, _ = family_train("ssm train", cfg, params, dev,
+                                   bit_exact=True, plain_grads=False)
+    del params
+    if any(train_counts.values()):
+        raise AssertionError(f"mamba2 training launched kernels: "
+                             f"{train_counts}")
+    log(f"phase 18 (b) training took {time.perf_counter() - t1:.1f}s")
+    return counts, train_counts
+
+
+def phase_hybrid(dev):
+    """18 (c).  ``zamba2-1.2b`` at full width (d 2048, 32 heads of 64,
+    d_ff 8192, N 64, nr 16), HYBRID_LAYERS layers (two invocations of
+    the shared block), bf16, seed-0 weights: ``ServeEngine(slots=4,
+    max_len=4096)`` on phase 14's traffic, unbucketed (#1, #2, #5, #6
+    launched, no plain version), then the plain run and the kernels on
+    its tokens, every step's logits held to it (``forced_run``); 3
+    in-place AdamW steps at 1 x 4096 after ``bf16_checks`` (the fp32
+    gradient against the plain path; #3 and #4 launched exactly as the
+    shared block runs them).  Returns the launches of serving and of
+    training."""
+    from repro_torch.serve import ServeEngine
+
+    t0 = time.perf_counter()
+    cfg, fns, params, init_s, nparam = family_weights(
+        HYBRID_ARCH, HYBRID_LAYERS, "hybrid", dev)
+    work = bf16_prompts(cfg.vocab_size, *DENSE_PROMPTS, DENSE_REQUESTS)
+    eng = ServeEngine(cfg, params, slots=GEMMA_SLOTS, max_len=GEMMA_MAX_LEN)
+    if eng._bucket:
+        raise AssertionError("zamba2: the engine buckets the prompts")
+    torch.cuda.reset_peak_memory_stats()
+    outs, stats, counts = run_engine(eng, work, fns, new_tokens=GEMMA_NEW)
+    del eng
+    stats.update(arch=HYBRID_ARCH, layers=cfg.num_layers, params=nparam,
+                 weights_s=init_s, prompt_lens=[len(p) for _, p in work],
+                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    need = ("band_attention_fwd[l0_causal]", "band_attention_sub_fwd",
+            "decode_attend_fused[bf16]", "update_cache_fused[bf16]")
+    missing = [k_ for k_ in need if not counts.get(k_)]
+    if missing:
+        raise AssertionError(f"zamba2: {missing} not launched: {counts}")
+    log(f"hybrid serve: {json.dumps(stats)}")
+    plain, plain_logits = plain_engine_run(
+        cfg, params, work, GEMMA_SLOTS, GEMMA_MAX_LEN, GEMMA_NEW)
+    same = sum(x == y for u in plain for x, y in zip(outs[u], plain[u]))
+    log(f"zamba2: {same} of {GEMMA_NEW * len(work)} greedy tokens equal to "
+        f"the plain run's")
+    eng = ServeEngine(cfg, params, slots=GEMMA_SLOTS, max_len=GEMMA_MAX_LEN)
+    forced_run("zamba2 dense", eng, work, fns, plain, plain_logits)
+    del eng, plain_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 18 (c) serving took {time.perf_counter() - t0:.1f}s, "
+        f"weights {init_s:.1f}s")
+    t1 = time.perf_counter()
+    train_counts, _ = family_train("hybrid train", cfg, params, dev,
+                                   grad_ctx=dict(leaf_tol=SSM_SUM_LEAVES))
+    del params
+    log(f"phase 18 (c) training took {time.perf_counter() - t1:.1f}s")
+    return counts, train_counts
+
+
+def phase_ssm_families(dev):
+    """18 (b)-(c) ((a), the kernel rows at zamba2's shapes, runs with
+    phase 17's).  Returns {"ssm", "ssm_train", "hybrid", "hybrid_train":
+    launches}."""
+    ssm, ssm_train = phase_ssm(dev)
+    hybrid, hybrid_train = phase_hybrid(dev)
+    return dict(ssm=ssm, ssm_train=ssm_train, hybrid=hybrid,
+                hybrid_train=hybrid_train)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
@@ -4500,7 +4906,7 @@ def main() -> int:
             + phase_bf16_kernels(dev))
     t_f = time.perf_counter()
     rows += phase_family_kernels(dev)
-    log(f"phase 17 (a) took {time.perf_counter() - t_f:.1f}s")
+    log(f"phases 17 (a) and 18 (a) took {time.perf_counter() - t_f:.1f}s")
     t_sp = time.perf_counter()
     sp_rows = phase_sp_kernels(dev)
     rows += sp_rows
@@ -4549,9 +4955,13 @@ def main() -> int:
         f"{time.perf_counter() - t_g:.1f}s")
     full_counts = phase_full(dev, serve_stats, train_stats)
     family_counts = phase_families(dev)
+    t_s = time.perf_counter()
+    family_counts.update(phase_ssm_families(dev))
+    log(f"phase 18 (b)-(c) (the SSM and hybrid families) took "
+        f"{time.perf_counter() - t_s:.1f}s")
     for row in rows:
         # a row name@arch holds its wrapper at arch's shape: its launches
-        # are those of the phase 17 paths that run that shape
+        # are those of the phase 17 and 18 paths that run that shape
         key, _, arch = row["name"].partition("@")
         if arch:
             row["launches_by_path"] = {

@@ -20,19 +20,26 @@ import torch
 
 from . import resolve_device
 from .models.common import ModelConfig
-from .tree import tree_map
+from .tree import tree_leaves, tree_map
 
 # what every layer must hold, by the layer's kind: block -> entries
 _COMMON_KEYS = {"ln1": ("g",), "attn": ("wq", "wkv", "wo"), "ln2": ("g",)}
 _MLP_KEYS = ("wg", "wu", "wd")
+_DENSE_KEYS = {**_COMMON_KEYS, "mlp": _MLP_KEYS}
+_SSM_KEYS = {"ln": ("g",), "mixer": ("in_proj", "out_proj", "conv_w",
+                                     "conv_b", "A_log", "D", "dt_bias",
+                                     "norm")}
 
 
 def _layer_keys(cfg: ModelConfig) -> Dict[str, tuple]:
-    """Block -> entries a layer of ``cfg`` holds: ``mlp``'s gated MLP, or
-    a MoE layer's router and experts (with the shared expert and its gate,
-    or the dense residual branch, where the config has them)."""
+    """Block -> entries a layer of ``cfg`` holds: an ssm or hybrid
+    layer's norm and Mamba2 mixer, ``mlp``'s gated MLP, or a MoE layer's
+    router and experts (with the shared expert and its gate, or the dense
+    residual branch, where the config has them)."""
+    if cfg.family in ("ssm", "hybrid"):
+        return _SSM_KEYS
     if cfg.moe_experts <= 0:
-        return {**_COMMON_KEYS, "mlp": _MLP_KEYS}
+        return _DENSE_KEYS
     moe = ("router", "w1", "w3", "w2")
     if cfg.moe_shared_d_ff:
         moe += ("shared", "shared_gate")
@@ -50,31 +57,43 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, *,
     layer ``ln1.g``, ``ln2.g``, ``attn.{wq,wkv,wo}`` (with any bias and
     q/k norms) and ``mlp.{wg,wu,wd}``, or in a MoE layer
     ``moe.{router,w1,w3,w2}`` with ``moe.shared.{wg,wu,wd}`` and
-    ``moe.shared_gate`` or ``moe.residual.{wg,wu,wd}``."""
+    ``moe.shared_gate`` or ``moe.residual.{wg,wu,wd}``; in an ssm or
+    hybrid layer ``ln.g`` and ``mixer.{in_proj.w, out_proj.w, conv_w,
+    conv_b, A_log, D, dt_bias, norm.g}`` (``A_log``, ``D`` and
+    ``dt_bias`` float32, as the reference keeps them), and a hybrid's
+    ``shared`` dense layer and ``shared_proj`` list."""
     dev = resolve_device(device)
     layers = tree["layers"]
     if isinstance(layers, dict):          # the scanned stack: unstack
-        n = np.asarray(layers["ln1"]["g"]).shape[0]
+        n = np.asarray(tree_leaves(layers)[0]).shape[0]
         layers = [tree_map(lambda a, i=i: np.asarray(a)[i], layers)
                   for i in range(n)]
     if len(layers) != cfg.num_layers:
         raise ValueError(f"tree holds {len(layers)} layers, cfg has "
                          f"{cfg.num_layers}")
-    need = _layer_keys(cfg)
-    for i, lp in enumerate(layers):
-        missing = [f"layers[{i}].{b}.{k}" for b, keys in need.items()
-                   for k in keys if k not in lp.get(b, {})]
-        if missing:
-            raise KeyError(f"JAX tree lacks {missing}")
+    _require(layers, "layers", _layer_keys(cfg))
     out: Dict[str, Any] = {"embed": {"w": tree["embed"]["w"]},
                            "final_norm": {"g": tree["final_norm"]["g"]},
                            "layers": layers}
+    if cfg.family == "hybrid":
+        _require([tree["shared"]], "shared", _DENSE_KEYS)
+        out["shared"] = tree["shared"]
+        out["shared_proj"] = list(tree["shared_proj"])
     if not cfg.tie_embeddings:
         out["lm_head"] = {"w": tree["lm_head"]["w"]}
     if "head" in tree:
         out["head"] = {k: tree["head"][k] for k in ("w", "b")
                        if k in tree["head"]}
     return tree_map(lambda a: _tensor(a).to(dev), out)
+
+
+def _require(layers, name: str, need: Dict[str, tuple]) -> None:
+    """Raise KeyError naming every entry of ``need`` a layer lacks."""
+    for i, lp in enumerate(layers):
+        missing = [f"{name}[{i}].{b}.{k}" for b, keys in need.items()
+                   for k in keys if k not in lp.get(b, {})]
+        if missing:
+            raise KeyError(f"JAX tree lacks {missing}")
 
 
 def _tensor(a) -> torch.Tensor:

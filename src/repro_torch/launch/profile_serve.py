@@ -27,7 +27,9 @@ one stream, so kernels do not overlap) and the device time by kernel,
 grouped into this package's kernels, matrix products and the rest; a
 mixture-of-experts layer's routing, dispatch, combine and expert
 products (every kernel launched inside its ``moe`` profiler range, and
-by the backward of the ops run there) form a group ``moe`` of their own.
+by the backward of the ops run there) form a group ``moe`` of their own,
+and a Mamba2 layer's SSD core (``mamba2-1.3b``, ``zamba2-1.2b``: its
+``ssd`` range) a group ``ssd``.
 ``--layers N`` cuts the config's depth to N layers (``qwen2-moe-a2.7b``'s
 24 take ~8 minutes to draw on the host).  Needs a CUDA card.
 """
@@ -48,6 +50,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import hierarchy as hc
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import get_model
+from repro_torch.models.ssm import SSD_RANGE
 from repro_torch.parallel import sp_attention as sp
 from repro_torch.serve import paged_cache as pc
 
@@ -90,14 +93,17 @@ def _group(name: str) -> str:
 #: (``models.ffn.moe_apply``), whose kernels, and those of its ops'
 #: backward, form a group of this name
 MOE_RANGE = "moe"
+#: the profiler ranges whose kernels form a group of their own: the MoE's
+#: and the SSD core's (``models.ssm.SSD_RANGE``)
+RANGES = (MOE_RANGE, SSD_RANGE)
 
 
-def moe_device_us(events):
-    """Device microseconds of the kernels MOE_RANGE owns, by the group
-    :func:`_group` would file them under: every kernel launched by an op
-    inside the range, and by the backward of such an op (autograd runs a
-    backward node under the sequence number of the forward op that made
-    it).  ``events``: the profiler's ``FunctionEvent``s
+def range_device_us(events, name: str):
+    """Device microseconds of the kernels the range ``name`` owns, by the
+    group :func:`_group` would file them under: every kernel launched by
+    an op inside the range, and by the backward of such an op (autograd
+    runs a backward node under the sequence number of the forward op that
+    made it).  ``events``: the profiler's ``FunctionEvent``s
     (``prof.events()``)."""
     out = defaultdict(float)
     owned, seen = set(), set()
@@ -116,7 +122,7 @@ def moe_device_us(events):
     cpu = [e for e in events
            if e.device_type == torch.autograd.DeviceType.CPU]
     for evt in cpu:
-        if evt.name == MOE_RANGE:
+        if evt.name == name:
             walk(evt)
     for evt in cpu:
         if (evt.name.startswith("autograd::engine::evaluate_function")
@@ -152,14 +158,16 @@ def profiled(fn, calls: int, between=None):
     for evt in prof.key_averages():
         us = evt.self_device_time_total
         if (us <= 0 or evt.device_type != torch.autograd.DeviceType.CUDA
-                or evt.key == MOE_RANGE):  # the range's span on the stream
+                or evt.key in RANGES):  # a range's span on the stream
             continue
         by_group[_group(evt.key)] += us / calls / 1e3
         kernels.append((us / calls / 1e3, evt.count // calls, evt.key[:90]))
     device_ms = sum(by_group.values())
-    for group, us in moe_device_us(prof.events()).items():
-        by_group[group] -= us / calls / 1e3
-        by_group[MOE_RANGE] += us / calls / 1e3
+    events = prof.events()
+    for name in RANGES:
+        for group, us in range_device_us(events, name).items():
+            by_group[group] -= us / calls / 1e3
+            by_group[name] += us / calls / 1e3
     kernels.sort(reverse=True)
     return {"wall_ms": wall_ms, "profiled_wall_ms": profiled_wall_ms,
             "device_ms": device_ms,

@@ -8,6 +8,8 @@ LM, or of another configuration the port trains.
         --arch gemma3-4b --layers 6 --batch 1 --seq 4096
     PYTHONPATH=src python -m repro_torch.launch.profile_train \
         --arch qwen2-moe-a2.7b --layers 4 --batch 1 --seq 4096
+    PYTHONPATH=src python -m repro_torch.launch.profile_train \
+        --arch mamba2-1.3b --layers 8 --batch 1 --seq 4096
 
 A configuration runs in its published dtype (gemma3-4b, llama3.2-1b:
 bfloat16), or in ``--dtype``'s (``--dtype float32`` as the port ran
@@ -26,7 +28,8 @@ forward and of the backward, a MoE layer's routing, dispatch, combine
 and expert products (``moe``: the kernels of its profiler range, and of
 the backward of its ops where their forward ran in the same part, so
 the ``step`` part holds the whole of it and the ``backward`` part only
-the remat recompute) and the rest (eager elementwise ops, reductions,
+the remat recompute), a Mamba2 layer's SSD core (``ssd``, the same way)
+and the rest (eager elementwise ops, reductions,
 copies).  The parts are the loss (forward), the gradient of
 a fresh forward's loss (backward), and the optimizer's in-place update,
 then the whole ``make_train_step`` step (each call updates the same

@@ -18,10 +18,13 @@ stores its pages as int8 (``--quant-levels``):
     PYTHONPATH=src python -m repro_torch.launch.serve --paged \
         --cache-dtype int8 --requests 8 --slots 4 --max-len 512
 
-``--arch`` takes every config of ``repro_torch.configs``: the dense
-assigned ones (yi-6b, qwen2.5-14b, llama3.2-1b, gemma3-4b with its 5:1
-local:global stack) run at their published bfloat16, weights and caches
-alike; ``--smoke`` runs a config's fp32 smoke config.
+``--arch`` takes every config of ``repro_torch.configs``: the assigned
+ones (yi-6b, qwen2.5-14b, llama3.2-1b, gemma3-4b with its 5:1
+local:global stack, the MoE and VLM ones, mamba2-1.3b and zamba2-1.2b,
+whose prompts are served unpadded and whose SSM states sit one row a
+slot) run at their published bfloat16, weights and caches alike;
+``--smoke`` runs a config's fp32 smoke config and ``--layers N`` cuts
+its depth to N layers.
 ``--sp-data N`` splits each layer's cache along its sequence axis into
 ``N`` shards on the one device and serves through the sequence-parallel
 kernels (``parallel/sp_attention.py``):
@@ -51,6 +54,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="h1d-lm-53m")
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers")
     ap.add_argument("--device", default=None, choices=["cuda", "cpu"],
                     help="default: cuda (raises when no card is present)")
     ap.add_argument("--requests", type=int, default=8)
@@ -101,6 +106,8 @@ def main(argv=None):
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
     if args.causal_mode is not None:
         cfg = dataclasses.replace(cfg, causal_mode=args.causal_mode)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     t_w = time.perf_counter()
     params = get_model(cfg).init(cfg, seed=args.seed, device=dev)
     if dev.type == "cuda":

@@ -20,14 +20,16 @@ exchanges the shard-boundary blocks:
 
 ``--mesh`` takes one axis; a ``DATAxMODEL`` shape raises, as
 ``make_mesh`` does.  ``--arch`` takes every config of
-``repro_torch.configs`` at its published dtype (llama3.2-1b and gemma3-4b
-in bfloat16 with remat; AdamW keeps f32 moments and applies each update
-in the parameter's dtype); ``--smoke`` trains a config's fp32 smoke
-config.  Telemetry is not ported.
+``repro_torch.configs`` at its published dtype (llama3.2-1b, gemma3-4b,
+mamba2-1.3b and zamba2-1.2b in bfloat16 with remat; AdamW keeps f32
+moments and applies each update in the parameter's dtype); ``--smoke``
+trains a config's fp32 smoke config and ``--layers N`` cuts its depth to
+N layers.  Telemetry is not ported.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 from repro_torch import exact_products, resolve_device
 from repro_torch.configs import get_config, get_smoke_config
@@ -40,6 +42,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="h1d-lm-53m")
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers")
     ap.add_argument("--device", default=None, choices=["cuda", "cpu"],
                     help="default: cuda (raises when no card is present)")
     ap.add_argument("--steps", type=int, default=100)
@@ -70,6 +74,8 @@ def main(argv=None):
     if mesh.d > 1 and not args.sp:
         ap.error(f"--mesh {args.mesh} shards only the sequence: add --sp")
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     tc = TrainConfig(peak_lr=args.lr, total_steps=args.steps,
                      warmup=max(10, args.steps // 20),
                      ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,

@@ -1,5 +1,5 @@
-"""The paper's models in PyTorch: the decoder LM (dense family) and the
-LRA encoder classifier."""
+"""The models in PyTorch: the decoder LM (the dense, moe, vlm, ssm and
+hybrid families) and the LRA encoder classifier."""
 from .common import ModelConfig
 from .registry import get_model, ModelFns
 from .classifier import classifier_init, classifier_logits, classifier_loss

@@ -84,6 +84,11 @@ class ModelConfig:
             return True
         return i % self.global_every == self.global_every - 1
 
+    def layer_is_attn(self, i: int) -> bool:
+        """hybrid (zamba2): whether the shared attention block runs after
+        layer ``i``: the last of every ``hybrid_attn_every``."""
+        return i % self.hybrid_attn_every == self.hybrid_attn_every - 1
+
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, *,
                scale: Optional[float] = None, dtype=torch.float32):

@@ -1,7 +1,8 @@
 """Unified model API: init / forward / loss / prefill / decode_step /
 init_caches.
 
-Port of ``repro.models.registry`` for the decoder-only stack.  The
+Port of ``repro.models.registry`` for the decoder-only stack: the
+dense, moe, vlm, ssm (mamba2) and hybrid (zamba2) families.  The
 encoder-decoder family comes later.
 """
 from __future__ import annotations

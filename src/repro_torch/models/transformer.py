@@ -1,5 +1,5 @@
-"""Decoder-only transformer LM (families ``dense``, ``moe`` and ``vlm``):
-forward, training loss, prefill and single-token decode.
+"""Decoder-only LM (families ``dense``, ``moe``, ``vlm``, ``ssm`` and
+``hybrid``): forward, training loss, prefill and single-token decode.
 
 Port of ``repro.models.transformer`` for the paper LM.  The JAX stack
 scans over layer-stacked parameters; here ``params["layers"]`` is a list
@@ -15,8 +15,17 @@ is rematerialised in the backward (:func:`_remat`, the reference's
 ``torch.inference_mode()``.  A ``moe`` layer (:func:`block_kind`) holds
 ``moe`` in place of ``mlp`` and adds its load-balancing loss to the
 forward's aux; ``prefix_embeds`` (a VLM's patch embeddings) run before
-the tokens in the forward and the prefill.  The SSM, hybrid and
-encoder-decoder families are later slices.
+the tokens in the forward and the prefill.  Every layer of an ``ssm``
+(mamba2) or ``hybrid`` (zamba2) stack is an ``ssm`` block, a Mamba2
+mixer (``models/ssm.py``) behind an RMSNorm, whose decode cache is an
+``SSMState``; a hybrid also holds one ``shared`` dense attention block,
+run after every layer ``i`` with ``cfg.layer_is_attn(i)`` on
+``shared_proj[inv](cat[h, e0])`` (``e0`` the embeddings, ``inv`` the
+invocation), its output added as ``h + (h2 - xin)``.  The shared block
+runs outside the per-layer remat, as in the reference, and its weights
+take gradient from every invocation; its hierarchical cache follows the
+SSM state of the layer it runs after in the cache list.  The
+encoder-decoder family is a later slice.
 
 Parameters (all (d_in, d_out) projections applied as ``x @ w``)::
 
@@ -26,7 +35,11 @@ Parameters (all (d_in, d_out) projections applied as ``x @ w``)::
                  "ln2": {"g"}, "mlp": {"wg", "wu", "wd"}}, ...]}
 
 with ``"moe": {"router", "w1", "w3", "w2", ["shared", "shared_gate"],
-["residual"]}`` in place of ``"mlp"`` in a ``moe`` layer.
+["residual"]}`` in place of ``"mlp"`` in a ``moe`` layer; an ``ssm``
+layer is ``{"ln": {"g"}, "mixer": {"in_proj", "out_proj", "conv_w",
+"conv_b", "A_log", "D", "dt_bias", "norm"}}``, and a hybrid adds
+``"shared"`` (a dense layer) and ``"shared_proj": [{"w": (2d, d)}, ...]``,
+one per invocation.
 """
 from __future__ import annotations
 
@@ -44,24 +57,32 @@ from .attention import (attn_init, attn_apply, attn_decode,
                         init_decode_cache, prefill_into_cache)
 from .common import ModelConfig, dense, dense_init, rmsnorm
 from .ffn import mlp_init, mlp, moe_init, moe_apply
+from .ssm import (SSMState, mamba2_apply, mamba2_decode, mamba2_dims,
+                  mamba2_init)
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family in ("ssm", "hybrid", "encdec"):
+    if cfg.family == "encdec":
         raise NotImplementedError(
-            f"family={cfg.family!r} is not ported yet: the port runs the "
-            "dense, moe and vlm decoders; mamba2 (ssm), zamba2 (hybrid) "
-            "and the encoder-decoder come later")
+            "family='encdec' is not ported yet: the port runs the dense, "
+            "moe, vlm, ssm and hybrid decoders; the encoder-decoder comes "
+            "later")
 
 
 def block_kind(cfg: ModelConfig, i: int) -> str:
-    """``moe`` for every layer of a config with experts, else ``dense``
-    (the reference's ``block_kind`` for the ported families)."""
+    """The reference's ``block_kind``: ``ssm`` for every layer of an ssm
+    or hybrid stack (a hybrid's attention is the shared block, run
+    besides), ``moe`` for a config with experts, else ``dense``."""
+    if cfg.family in ("ssm", "hybrid"):
+        return "ssm"
     return "moe" if cfg.moe_experts > 0 else "dense"
 
 
 def block_init(gen: torch.Generator, cfg: ModelConfig, dtype,
                kind: str = "dense"):
+    if kind == "ssm":
+        return {"ln": {"g": torch.ones((cfg.d_model,), dtype=dtype)},
+                "mixer": mamba2_init(gen, cfg, dtype)}
     p = {"ln1": {"g": torch.ones((cfg.d_model,), dtype=dtype)},
          "attn": attn_init(gen, cfg, dtype),
          "ln2": {"g": torch.ones((cfg.d_model,), dtype=dtype)}}
@@ -86,7 +107,8 @@ def lm_init(cfg: ModelConfig, *, seed: int = 0, device=None) -> Dict[str, Any]:
     same weights on every device, and a model of billions of parameters
     never sits whole in host memory.  Every leaf is drawn in
     ``cfg.dtype`` (float32 or bfloat16), as the reference draws them,
-    but a MoE router, which is always float32.  On ``device="meta"``
+    but a MoE router and a Mamba2 mixer's ``A_log``, ``D`` and
+    ``dt_bias``, which are always float32.  On ``device="meta"``
     nothing is drawn: the tree holds every leaf's shape and dtype."""
     _check_family(cfg)
     dev = resolve_device(device)
@@ -110,6 +132,12 @@ def lm_init(cfg: ModelConfig, *, seed: int = 0, device=None) -> Dict[str, Any]:
             params["lm_head"] = to_dev(dense_init(gen, cfg.d_model,
                                                   cfg.vocab_size, scale=0.02,
                                                   dtype=dtype))
+        if cfg.family == "hybrid":
+            params["shared"] = to_dev(block_init(gen, cfg, dtype, "dense"))
+            params["shared_proj"] = [      # one per invocation
+                to_dev(dense_init(gen, 2 * cfg.d_model, cfg.d_model,
+                                  dtype=dtype))
+                for i in range(cfg.num_layers) if cfg.layer_is_attn(i)]
     return params
 
 
@@ -136,6 +164,8 @@ def _logits(params, cfg: ModelConfig, h):
 
 def _block_apply(lp, cfg: ModelConfig, h, positions, layer_global: bool):
     """One layer: (h, aux)."""
+    if "mixer" in lp:
+        return h + mamba2_apply(lp["mixer"], cfg, rmsnorm(lp["ln"], h)), 0.0
     h = h + attn_apply(lp["attn"], cfg, rmsnorm(lp["ln1"], h), positions,
                        layer_global=layer_global)
     m, aux = _ffn(lp, cfg, rmsnorm(lp["ln2"], h))
@@ -169,20 +199,33 @@ def _remat(cfg: ModelConfig, fn):
     return functools.partial(checkpoint, fn, use_reentrant=False)
 
 
+def _shared_input(params, inv: int, h, e0):
+    """The hybrid's shared block input of invocation ``inv``."""
+    return dense(params["shared_proj"][inv], torch.cat([h, e0], dim=-1))
+
+
 def lm_forward(params, cfg: ModelConfig, tokens, *, prefix_embeds=None):
     """Teacher-forced causal forward.  tokens (B, S) [after prefix_embeds
     (B, P, d), positions running over both] -> (logits (B, S, V) of the
     token positions only, aux_loss): the layers' MoE losses summed, 0.0
-    for a dense stack.  Each layer runs through :func:`_remat`."""
+    for a dense stack.  Each layer runs through :func:`_remat`; a
+    hybrid's shared block runs after its layers, outside the remat."""
     _check_family(cfg)
     h = _embed_tokens(params, cfg, tokens, prefix_embeds)
+    e0 = h
     B, L = h.shape[:2]
     positions = torch.arange(L, device=tokens.device)[None].expand(B, L)
     aux_total = 0.0
+    inv = 0
     for i, lp in enumerate(params["layers"]):
         h, aux = _remat(cfg, _block_apply)(lp, cfg, h, positions,
                                            cfg.layer_uses_global_attn(i))
         aux_total = aux_total + aux
+        if cfg.family == "hybrid" and cfg.layer_is_attn(i):
+            xin = _shared_input(params, inv, h, e0)
+            h2, _ = _block_apply(params["shared"], cfg, xin, positions, True)
+            h = h + (h2 - xin)        # the residual of the shared block only
+            inv += 1
     logits = _logits(params, cfg, h)
     return logits[:, L - tokens.shape[1]:], aux_total
 
@@ -220,21 +263,28 @@ def lm_prefill(params, cfg: ModelConfig, tokens, Lmax: int, *,
     when ``tokens`` is right-padded to a length bucket; logits and
     next_pos then refer to position ``P + true_len - 1`` of each row.
     The padded tail is never attended by decode (causal attention) and
-    each of its cache rows is overwritten before its position comes up.
-    A MoE layer's aux loss is dropped."""
+    each of its cache rows is overwritten before its position comes up;
+    an SSM layer's state runs over the whole of ``tokens`` (the engine
+    does not pad these families).  A MoE layer's aux loss is dropped."""
     _check_family(cfg)
     dev = tokens.device
     h = _embed_tokens(params, cfg, tokens, prefix_embeds)
+    e0 = h
     B, L = h.shape[:2]
     positions = torch.arange(L, device=dev)[None].expand(B, L)
     caches: List = []
+    inv = 0
     for i, lp in enumerate(params["layers"]):
-        a, cache = prefill_into_cache(
-            lp["attn"], cfg, rmsnorm(lp["ln1"], h), positions, Lmax,
-            layer_global=cfg.layer_uses_global_attn(i))
-        h = h + a
-        h = h + _ffn(lp, cfg, rmsnorm(lp["ln2"], h))[0]
+        h, cache = _block_prefill(lp, cfg, h, positions, Lmax,
+                                  cfg.layer_uses_global_attn(i))
         caches.append(cache)
+        if cfg.family == "hybrid" and cfg.layer_is_attn(i):
+            xin = _shared_input(params, inv, h, e0)
+            h2, cache = _block_prefill(params["shared"], cfg, xin, positions,
+                                       Lmax, True)
+            h = h + (h2 - xin)
+            caches.append(cache)
+            inv += 1
     if true_len is None:
         tl = torch.full((B,), L, dtype=torch.int32, device=dev)
     else:
@@ -245,11 +295,39 @@ def lm_prefill(params, cfg: ModelConfig, tokens, Lmax: int, *,
     return _logits(params, cfg, last)[:, 0], caches, tl
 
 
+def _block_prefill(lp, cfg: ModelConfig, h, positions, Lmax: int,
+                   layer_global: bool):
+    """One layer over the prompt: (h, its decode cache)."""
+    if "mixer" in lp:
+        out, state = mamba2_apply(lp["mixer"], cfg, rmsnorm(lp["ln"], h),
+                                  return_state=True)
+        return h + out, state
+    a, cache = prefill_into_cache(lp["attn"], cfg, rmsnorm(lp["ln1"], h),
+                                  positions, Lmax, layer_global=layer_global)
+    h = h + a
+    return h + _ffn(lp, cfg, rmsnorm(lp["ln2"], h))[0], cache
+
+
+def _block_decode(lp, cfg: ModelConfig, h, t, cache, layer_global: bool,
+                  page_tables, sp_tables):
+    """One layer on one token: (h, its updated cache)."""
+    if "mixer" in lp:
+        out, state = mamba2_decode(lp["mixer"], cfg, rmsnorm(lp["ln"], h),
+                                   cache)
+        return h + out, state
+    a, cache = attn_decode(lp["attn"], cfg, rmsnorm(lp["ln1"], h), t, cache,
+                           layer_global=layer_global,
+                           page_tables=page_tables, sp_tables=sp_tables)
+    h = h + a
+    return h + _ffn(lp, cfg, rmsnorm(lp["ln2"], h))[0], cache
+
+
 @torch.inference_mode()
 def lm_decode_step(params, cfg: ModelConfig, caches, token, t, *,
                    page_tables=None, sp_tables=None):
     """One decode step.  token (B,) int, t (B,) int32 positions.  Updates
-    each layer's cache in place; returns (logits (B, V), caches).
+    each attention layer's cache in place and puts each SSM layer's new
+    state in its place in the list; returns (logits (B, V), caches).
 
     ``page_tables`` (``core.h1d_decode.PageTables``) switches the layers
     onto the paged pools (``caches`` then holds one pool per layer);
@@ -257,22 +335,45 @@ def lm_decode_step(params, cfg: ModelConfig, caches, token, t, *,
     whole stack.  ``sp_tables`` (``parallel.sp_attention.SPTables``) is
     the same for sequence-sharded caches, decoded inside ``sp_scope``."""
     h = _embed_tokens(params, cfg, token[:, None])
+    e0 = h
+    ci = inv = 0
     for i, lp in enumerate(params["layers"]):
-        a, caches[i] = attn_decode(
-            lp["attn"], cfg, rmsnorm(lp["ln1"], h), t, caches[i],
-            layer_global=cfg.layer_uses_global_attn(i),
-            page_tables=page_tables, sp_tables=sp_tables)
-        h = h + a
-        h = h + _ffn(lp, cfg, rmsnorm(lp["ln2"], h))[0]
+        h, caches[ci] = _block_decode(
+            lp, cfg, h, t, caches[ci], cfg.layer_uses_global_attn(i),
+            page_tables, sp_tables)
+        ci += 1
+        if cfg.family == "hybrid" and cfg.layer_is_attn(i):
+            xin = _shared_input(params, inv, h, e0)
+            h2, caches[ci] = _block_decode(params["shared"], cfg, xin, t,
+                                           caches[ci], True, page_tables,
+                                           sp_tables)
+            h = h + (h2 - xin)
+            ci += 1
+            inv += 1
     return _logits(params, cfg, h)[:, 0], caches
 
 
 def lm_init_decode_caches(params, cfg: ModelConfig, B: int, Lmax: int):
-    """Fresh (zero) decode caches, one per layer, on the parameters'
+    """Fresh (zero) decode caches, one per layer (a hybrid's shared block
+    adds one after each layer it runs after), on the parameters'
     device."""
     _check_family(cfg)
     dev = params["embed"]["w"].device
-    return [init_decode_cache(cfg, B, Lmax,
-                              layer_global=cfg.layer_uses_global_attn(i),
-                              dtype=cfg.torch_dtype, device=dev)
-            for i in range(cfg.num_layers)]
+    caches: List = []
+    for i in range(cfg.num_layers):
+        if block_kind(cfg, i) == "ssm":
+            _, H, _, N, conv_dim = mamba2_dims(cfg)
+            caches.append(SSMState(
+                torch.zeros((B, H, N, cfg.ssm_head_dim), dtype=torch.float32,
+                            device=dev),
+                torch.zeros((B, cfg.ssm_conv_width - 1, conv_dim),
+                            dtype=cfg.torch_dtype, device=dev)))
+        else:
+            caches.append(init_decode_cache(
+                cfg, B, Lmax, layer_global=cfg.layer_uses_global_attn(i),
+                dtype=cfg.torch_dtype, device=dev))
+        if cfg.family == "hybrid" and cfg.layer_is_attn(i):
+            caches.append(init_decode_cache(cfg, B, Lmax,
+                                            dtype=cfg.torch_dtype,
+                                            device=dev))
+    return caches

@@ -20,8 +20,10 @@ semantics:
   from one seeded generator per request (:meth:`ServeEngine._noise`);
 * on dense slots a slot owns ``Hkv`` consecutive rows of every
   hierarchical cache array and row ``s`` of a full or local layer's
-  ``{"k", "v", "pos"}`` cache; admission writes the prefilled rows of a
-  group in one pass;
+  ``{"k", "v", "pos"}`` cache and of an SSM layer's state (mamba2,
+  zamba2: ``models.ssm.SSMState``, whose idle slots advance every tick
+  until admission overwrites them, as in the reference); admission
+  writes the prefilled rows of a group in one pass;
 * ``paged=True`` serves from the paged pool (``serve/paged_cache.py``):
   device memory is bounded by ``pool_pages``, not ``slots * max_len``;
   prompt-prefix pages are shared across requests with copy-on-write,
@@ -61,6 +63,7 @@ import torch
 
 from ..core import hierarchy as hc
 from ..models import ModelConfig, get_model
+from ..models.ssm import SSMState
 from ..parallel import sp_attention as sp
 from . import paged_cache as pc
 from .scheduler import ContinuousBatchingScheduler, QueueEntry
@@ -147,6 +150,12 @@ class ServeEngine:
                              f"engine over sp_axis={sp_axis!r}")
         sp_d = mesh.d if mesh is not None else 1
         if sp_d > 1:
+            if cfg.family in ("ssm", "hybrid"):
+                raise NotImplementedError(
+                    f"SP serving of family={cfg.family!r} is not ported: "
+                    "an SSM layer's recurrent state has no sequence axis "
+                    "to split (the reference keeps it whole on every "
+                    "shard)")
             if cfg.sliding_window > 0:
                 raise NotImplementedError(
                     "SP serving of a sliding-window config is not ported: "
@@ -412,17 +421,23 @@ class ServeEngine:
             # slot s owns rows [s*r, (s+1)*r) of every hierarchical cache
             # array and row s of a full or local layer's dense or rolling
             # cache, whose every slot (pos -1 where empty) the prefill's
-            # overwrites
+            # overwrites, and of an SSM layer's state (h and conv)
             r = self.cfg.num_kv_heads
-            rows = torch.as_tensor(
-                np.concatenate([np.arange(s * r, (s + 1) * r) for s in dst]),
-                device=self.device)
             slots = torch.as_tensor(dst, device=self.device)
+            rows = None
             for full, one in zip(self.caches, caches):
                 if isinstance(full, dict):
                     for key, fa in full.items():
                         fa.index_copy_(0, slots, one[key][:g])
                     continue
+                if isinstance(full, SSMState):
+                    for fa, oa in zip(full, one):
+                        fa.index_copy_(0, slots, oa[:g])
+                    continue
+                if rows is None:
+                    rows = torch.as_tensor(
+                        np.concatenate([np.arange(s * r, (s + 1) * r)
+                                        for s in dst]), device=self.device)
                 if self.sp_d > 1:      # one slice per shard and level
                     sp.scatter_rows(full, one, rows)
                     continue

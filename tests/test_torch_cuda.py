@@ -2133,3 +2133,146 @@ def test_moe_apply_on_card_matches_cpu(dev, d, E, k, ff, cf):
         out, aux = ffn.moe_apply(half, cfg, xx)
         return torch.autograd.grad((out.float() ** 2).sum() + aux, xx)[0]
     assert torch.equal(input_grad(), input_grad())
+
+
+# ---------------------------------------------------------------------------
+# the SSM and hybrid families (models/ssm.py: the SSD in plain products;
+# zamba2's shared attention block on the band and decode kernels)
+# ---------------------------------------------------------------------------
+
+def _rel(got, want):
+    """max |got - want| over max |want|, want on the CPU."""
+    want = want.double()
+    return float((got.cpu().double() - want).abs().max()
+                 / want.abs().max().clamp(min=1e-30))
+
+
+@pytest.mark.parametrize("S", [512, 509])
+def test_mamba2_full_width_mixer_on_card_matches_cpu(dev, S):
+    """One mamba2-1.3b mixer at full width (d 2048, d_inner 4096, 64
+    heads of 64, N 128, chunk 256) in fp32 on the card against the same
+    function on the CPU: S 512 runs chunk 256, S 509 (prime) chunk 1.
+    Output, h and the convolution state within 1e-4 of the CPU's largest
+    entry (products of depth 2048-4096 summed in other orders)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+    cfg = dataclasses.replace(get_config("mamba2-1.3b"), dtype="float32")
+    p = ssm.mamba2_init(torch.Generator().manual_seed(0), cfg)
+    x = torch.randn((1, S, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    want, wst = ssm.mamba2_apply(p, cfg, x, return_state=True)
+    cuda = {k: ({"g": v["g"].to(dev)} if k == "norm" else
+                {"w": v["w"].to(dev)} if isinstance(v, dict) else v.to(dev))
+            for k, v in p.items()}
+    got, st = ssm.mamba2_apply(cuda, cfg, x.to(dev), return_state=True)
+    for a, b in ((got, want), (st.h, wst.h), (st.conv, wst.conv)):
+        assert torch.isfinite(a).all() and _rel(a, b) <= 1e-4
+    assert ssm._chunk_len(cfg, S) == (256 if S == 512 else 1)
+
+
+def test_zamba2_smoke_kernel_path_matches_cpu(dev):
+    """zamba2-smoke (6 Mamba2 layers, the shared h1d block after layers 2
+    and 5) on the card, kernels launched, against the plain path on the
+    CPU from the same seed: logits within 1e-4, every leaf's gradient
+    within 1e-4 of its largest |cpu| (#1-#4 launched), and the engine's
+    greedy tokens on 3 unbucketed requests at 2 slots (#5, #6 launched)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import get_model
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.tree import tree_leaves, tree_unflatten_like
+    cfg = get_smoke_config("zamba2-1.2b")
+    fns = get_model(cfg)
+    rng = np.random.default_rng(0)
+    tok = rng.integers(0, cfg.vocab_size, (2, 100))
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (13, 21, 30)]
+    out = {}
+    for device in ("cpu", "cuda"):
+        params = fns.init(cfg, seed=2, device=device)
+        leaves = [t.detach().requires_grad_(True)
+                  for t in tree_leaves(params)]
+        batch = {"tokens": torch.as_tensor(tok, device=device)}
+        kernels.reset_counts()
+        logits = fns.forward(tree_unflatten_like(params, leaves), cfg,
+                             batch["tokens"])[0]
+        loss = fns.loss(tree_unflatten_like(params, leaves), cfg, batch)[0]
+        grads = torch.autograd.grad(loss, leaves)
+        launched = {n for n, (k, _) in kernels.KERNELS.items()
+                    if k.launches}
+        eng = ServeEngine(cfg, params, slots=2, max_len=64)
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=6)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        kernels.reset_counts()
+        eng.run()
+        served = {n for n, (k, _) in kernels.KERNELS.items() if k.launches}
+        out[device] = (logits.detach().cpu(), [g.cpu() for g in grads],
+                       [r.out_tokens for r in reqs], launched, served)
+    (wl, wg, wt, _, _), (gl, gg, gt, launched, served) = (out["cpu"],
+                                                          out["cuda"])
+    torch.testing.assert_close(gl, wl, atol=1e-4, rtol=0)
+    for a, b in zip(gg, wg):
+        assert torch.isfinite(a).all() and _rel(a, b) <= 1e-4
+    assert gt == wt
+    assert {"band_attention_fwd", "band_attention_sub_fwd",
+            "band_attention_bwd", "band_attention_sub_bwd"} <= launched
+    assert {"decode_attend_fused", "update_cache_fused",
+            "band_attention_fwd", "band_attention_sub_fwd"} <= served
+
+
+def test_band_and_decode_kernels_at_zamba2_heads(dev):
+    """#1-#4 at one zamba2 sequence's 32 kv-heads x G 1, head_dim 64, L
+    2048, nr 16 (every other row padded past 1500, q, k, v rounded to
+    bf16), every sub level; #5 and #6 on a bf16 cache at its decode shape
+    (4 slots x 32 = 128 rows, D 64, Lmax 4096): each within its bound of
+    the plain version, the updates bit for bit over 3 appends."""
+    R, G, L, d, nr = 32, 1, 2048, 64, 16
+    gen = torch.Generator(device=dev).manual_seed(29)
+    q = _q16(gen, dev, R, G, L, d) / d ** 0.5
+    k = _q16(gen, dev, R, L, d)
+    w = torch.ones((R, L), device=dev)
+    w[1::2, 1500:] = 0.0
+    v = _q16(gen, dev, R, L, d) * w[..., None]
+    out = hb.band_attention_fwd(q, k, v, w, nr=nr)
+    _close(out, hb.band_attention_fwd_ref(q, k, v, w, nr=nr))
+    args = (q, k, v, w, *out, *_cotangents(gen, dev, out))
+    _close_grads(hbb.band_attention_bwd(*args, nr=nr),
+                 hbb.band_attention_bwd_ref(*args, nr=nr))
+    kc, vc, wc = k, v, w
+    for lvl in range(1, hc.num_levels(L, nr)):
+        kc, _ = hc.coarsen_weighted_mean(kc, wc)
+        vc = hc.coarsen_sum(vc, axis=-2)
+        wc = hc.coarsen_sum(wc, axis=-1)
+        sub = (q, kc.contiguous(), vc.contiguous(), wc.contiguous())
+        so = hb.band_attention_sub_fwd(*sub, nr=nr, ratio=1 << lvl)
+        _close(so, hb.band_attention_sub_fwd_ref(*sub, nr=nr,
+                                                 ratio=1 << lvl))
+        bargs = (*sub, *so, *_cotangents(gen, dev, so))
+        got = hbb.band_attention_sub_bwd(*bargs, nr=nr, ratio=1 << lvl)
+        want = hbb.band_attention_sub_bwd_ref(*bargs, nr=nr, ratio=1 << lvl)
+        _close_grads(got[:4], want[:4])
+        # gmn cancels terms that grow with 2^l: scaled by its terms
+        y, dn, _, gy, gdn, gm = bargs[4:]
+        terms = gm.abs() + (gy * y).abs().sum(-1) + (gdn * dn).abs()
+        assert float(((got[4] - want[4]).abs()
+                      / terms.clamp(min=1.0)).max()) <= BWD_TOL
+    Rd, Lmax = 4 * R, 4096
+    cache = hd.prefill_cache(_randn(gen, dev, Rd, Lmax, d).to(BF16),
+                             _randn(gen, dev, Rd, Lmax, d).to(BF16), Lmax, nr)
+    qd = _q16(gen, dev, Rd, G, d)
+    t = torch.randint(0, Lmax, (Rd,), generator=gen, device=dev,
+                      dtype=torch.int32)
+    t[:4] = torch.tensor([0, nr - 1, nr, Lmax - 1], dtype=torch.int32)
+    _close([dk.decode_attend_fused(cache, qd, t, nr=nr)],
+           [dk.decode_attend_ref(cache, qd, t, nr=nr)])
+    a, b = _clone_cache(cache), _clone_cache(cache)
+    for step in range(3):
+        kn = _randn(gen, dev, Rd, d).to(BF16)
+        vn = _randn(gen, dev, Rd, d).to(BF16)
+        tt = (t + step).clamp(max=Lmax - 1)
+        dk.update_cache_fused(a, kn, vn, tt)
+        dk.update_cache_ref(b, kn, vn, tt)
+    for x, y in zip(_levels(a), _levels(b)):
+        assert torch.equal(x, y)

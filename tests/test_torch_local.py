@@ -275,7 +275,7 @@ def test_cli_serves_the_smoke_config(capsys):
     # the published bf16 configs are served, so only an architecture
     # that is not ported raises (naming those that are); none is drawn
     with pytest.raises(NotImplementedError, match="yi-6b"):
-        serve_cli.main(["--arch", "mamba2-1.3b", "--device", "cpu"])
+        serve_cli.main(["--arch", "seamless-m4t-medium", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("d", [64, 128, 256])

@@ -124,8 +124,8 @@ def test_moe_range_takes_its_kernels_and_their_backward():
                         children=[_event("aten::mm", [(GEMM, 200.0)])],
                         seq=9)
     stream = _event("moe", [(ELEM, 999.0)], cpu=False)   # the GPU span
-    got = ps.moe_device_us([moe, bmm, gather, other, back, back_other,
-                            stream])
+    got = ps.range_device_us([moe, bmm, gather, other, back, back_other,
+                              stream], ps.MOE_RANGE)
     assert dict(got) == {"matmul": 90.0, "other": 5.0}
 
 
@@ -134,4 +134,22 @@ def test_no_range_moves_nothing():
     evts = [_event("aten::mm", [(GEMM, 10.0)], seq=1),
             _event("autograd::engine::evaluate_function: MmBackward0",
                    children=[_event("aten::mm", [(GEMM, 20.0)])], seq=1)]
-    assert dict(ps.moe_device_us(evts)) == {}
+    assert dict(ps.range_device_us(evts, ps.MOE_RANGE)) == {}
+
+
+def test_ssd_range_is_a_group_of_its_own():
+    """An ``ssd`` range (the Mamba2 SSD core) takes its kernels and their
+    backward as ``moe`` does, and neither range takes the other's."""
+    assert ps.RANGES == ("moe", "ssd")
+    ein = _event("aten::bmm", [(GEMM, 12.0)], seq=3)
+    scan = _event("aten::add", [(ELEM, 2.0)], seq=4)
+    ssd = _event("ssd", children=[_event("aten::einsum", children=[ein]),
+                                  scan])
+    back = _event("autograd::engine::evaluate_function: BmmBackward0",
+                  children=[_event("aten::bmm", [(GEMM, 7.0)])], seq=3)
+    moe = _event("moe", children=[_event("aten::mm", [(GEMM, 50.0)],
+                                         seq=5)])
+    evts = [ssd, ein, scan, back, moe]
+    assert dict(ps.range_device_us(evts, "ssd")) == {"matmul": 19.0,
+                                                     "other": 2.0}
+    assert dict(ps.range_device_us(evts, "moe")) == {"matmul": 50.0}
