@@ -297,8 +297,35 @@ Phases (each raises on failure; nothing is caught):
    #4 launched once an invocation a step (the shared block runs outside
    the remat).  ``launches_by_path`` holds ``ssm``, ``ssm_train``,
    ``hybrid`` and ``hybrid_train``.
+19. ``encdec``: the encoder-decoder family, ``seamless-m4t-medium`` (12
+   encoder and 12 decoder layers, d 1024, 16 heads of 64, d_ff 4096,
+   vocabulary 256206, nr 16).  (a), with phase 17's rows:
+   ``<name>[<mode>]@seamless-m4t-medium``, #1 and #3 in ``l0_bidir`` and
+   ``coarse_bidir`` (coarse levels 1..7, each logged) at one clip's
+   encoder attention: 16 heads x G 1, L 4096, d 64, q, k, v rounded to
+   bf16, keys live to a seeded length in 3000..4096; held as phases 2-3
+   hold theirs.  After 18, at full width and depth in the published bf16
+   from seed-0 weights drawn once (~30 s): (b1) 4 clips of 4096 seeded
+   stub frames, an 8-token target prefix each, 32 greedy tokens at Lmax
+   1024 (``DECODER_LEN``); (b2) 3 single clips of 1000..4000 frames
+   (none a multiple of 16: the encoder pads), target prefixes of
+   100..300 tokens, 16 tokens each; each through ``prefill`` and
+   ``decode_step`` on the plain path, then the kernels on its tokens:
+   every step's logits and every layer's ``mem_k`` / ``mem_v`` within
+   3e-2 of max |plain|; #1 in ``l0_bidir``, ``coarse_bidir`` and
+   ``l0_causal``, #2, #5 and #6 (bf16) launched, no plain version;
+   prefill ms, tick ms, tokens/s, peak memory.  (c) on those weights
+   (consumed), one repeated batch of 1 x 4096 frames (``frame_weight`` 0
+   past a seeded length in 3000..4096) and 1024 target tokens: the loss
+   on the kernels within 2e-2 of the plain path's; the fp32 gradient of
+   the first 2 + 2 layers against the plain path as in 7; 3 in-place
+   AdamW steps with remat through ``train``: the loss falls, each band
+   path launched exactly as the steps run it (#1 and #3 in all three
+   modes, #2, #4), no plain version; step ms, tokens/s (live frames and
+   target tokens), peak memory.  ``launches_by_path`` holds ``encdec``
+   and ``encdec_train``.
 
-Tolerances.  In bf16 (phases 12-15, 17, 18): every step's logits, on the same
+Tolerances.  In bf16 (phases 12-15, 17-19): every step's logits, on the same
 tokens, within 3e-2 of the plain row's largest |logit| (both paths
 round every activation to bf16 after f32 attention summed in other
 orders), losses within 2e-2; the
@@ -512,14 +539,15 @@ def lra_band_inputs(dev):
 
 def lra_levels(mode, q, k, v, w):
     """(level, (q, k, v, w)) of every launch of ``mode`` in one encoder
-    (or coarse-q) attention: level 0 for l0_bidir; the coarse levels 1..6
-    of the coarsened chain (queries too, as h1d_attention runs them)."""
+    (or coarse-q) attention: level 0 for l0_bidir; the coarse levels of
+    the coarsened chain (queries too, as h1d_attention runs them): 1..6
+    at the LRA path's L 2048, 1..7 at the encoder-decoder's 4096."""
     from repro_torch.core import hierarchy as hc
     if mode.startswith("l0"):
         return [(0, (q, k, v, w))]
     out = []
     qc, kc, vc, wc = q, k, v, w
-    for lvl in range(1, hc.num_levels(LRA_L, NR)):
+    for lvl in range(1, hc.num_levels(q.shape[-2], NR)):
         kc, _ = hc.coarsen_weighted_mean(kc, wc)
         qc, _ = hc.coarsen_weighted_mean(qc, wc)
         vc = hc.coarsen_sum(vc, axis=-2)
@@ -4881,6 +4909,437 @@ def phase_ssm_families(dev):
                 hybrid_train=hybrid_train)
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the encoder-decoder family (seamless-m4t-medium)
+# ---------------------------------------------------------------------------
+
+# seamless-m4t-medium at full width and depth (12 encoder and 12 decoder
+# layers, 977.8 M parameters, 28-31 s to draw on the host), published bf16
+ED_ARCH = "seamless-m4t-medium"
+# the reference's train_4k frame axis for this config (launch/specs.py)
+ED_FRAMES = 4096
+# (b1): 4 clips of ED_FRAMES frames, an 8-token target prefix each, 32
+# greedy tokens; (b2): 3 single clips of seeded frame counts in
+# 1000..4000 (none a multiple of 16), seeded target prefixes of 100..300
+# tokens (an 8-token prefix pads to one level-0 block, whose prefill runs
+# no sub level: these run #2 at the decoder's coarse levels), 16 tokens
+ED_CLIPS, ED_PREFIX, ED_NEW = 4, 8, 32
+ED_SINGLE, ED_SINGLE_FRAMES, ED_SINGLE_PREFIX, ED_SINGLE_NEW = (
+    3, (1000, 4000), (100, 300), 16)
+# (c): 3 in-place AdamW steps at 1 x ED_FRAMES frames (live to a seeded
+# length in 3000..4096) and DECODER_LEN target tokens, one repeated
+# batch; the fp32 gradient against the plain path at 2 + 2 layers
+ED_TRAIN_STEPS, ED_GRAD_LAYERS, ED_LIVE = 3, 2, (3000, 4096)
+# the kernel rows at one clip's 16 heads (G 1, head_dim 64) and L 4096,
+# their launches those of the phase 19 paths
+ED_PATHS = ("encdec", "encdec_train")
+
+
+def encdec_frames(cfg, B, Se, seed, dev):
+    """Seeded stub frames (``models.encdec.stub_frames``), (B, Se, d) f32
+    on ``dev``."""
+    from repro_torch.models.encdec import stub_frames
+    return torch.from_numpy(stub_frames(cfg, B, Se, seed=seed)[0]).to(dev)
+
+
+def phase_encdec_kernels(dev):
+    """19 (a).  #1 and #3 in ``l0_bidir`` and ``coarse_bidir`` (every
+    coarse level 1..7, queries coarsened too, as the encoder runs them) at
+    one seamless-m4t-medium clip's encoder attention: 16 rows (heads), G
+    1, L 4096, d 64, q, k, v rounded to bf16 and widened as the bf16
+    model widens them, keys live to a seeded true length in 3000..4096
+    and padded past it.  Held to their plain versions with phases 2's and
+    3's limits (the backward as :func:`family_bwd_compare` holds it);
+    bounds from ``h1d_block.band_bytes`` (live rows), the all-rows bound
+    beside; each level logged.  Rows ``<name>@seamless-m4t-medium``."""
+    from repro_torch.kernels import h1d_block as hb
+    from repro_torch.kernels import h1d_block_bwd as hbb
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(30)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    hkv, d, Lf = 16, 64, ED_FRAMES
+    live = int(torch.randint(ED_LIVE[0], ED_LIVE[1] + 1, (1,),
+                             generator=gen, device=dev))
+    q = (randn(hkv, 1, Lf, d) / math.sqrt(d)).to(bf).float()
+    k = randn(hkv, Lf, d).to(bf).float()
+    w = (torch.arange(Lf, device=dev) < live).float().expand(hkv, Lf)
+    w = w.contiguous()
+    v = randn(hkv, Lf, d).to(bf).float() * w[..., None]
+    shape = f"{hkv} rows x G 1, L {Lf}, d {d}, keys live to {live}"
+    rows = []
+    for mode in ("l0_bidir", "coarse_bidir"):
+        tot = {n: dict(err=0.0, scaled=0.0, gmn=0.0, ms=0.0, device_ms=0.0,
+                       plain_ms=0.0, nbytes=0, all_bytes=0, flops=0,
+                       levels=[]) for n in ("fwd", "bwd")}
+        levels = lra_levels(mode, q, k, v, w)
+        for lvl, fwd in levels:
+            Lq = fwd[0].shape[-2]
+            out = hb.band_attention_fwd(*fwd, nr=NR, mode=mode)
+            ef, *_ = compare(f"band_attention_fwd {mode}@{ED_ARCH} level "
+                             f"{lvl}", out, hb.band_attention_fwd_ref(
+                                 *fwd, nr=NR, mode=mode), ATTN_TOL)
+            cot = tuple(randn(*t.shape) for t in out)
+            args = (*fwd, *out, *cot)
+            eb, sb, gb = family_bwd_compare(
+                f"band_attention_bwd {mode}@{ED_ARCH} level {lvl}",
+                hbb.band_attention_bwd(*args, nr=NR, mode=mode),
+                hbb.band_attention_bwd_ref(*args, nr=NR, mode=mode), args)
+            pairs = family_pairs(dev, mode, Lq, 1, fwd[3], Lq, 1)
+            nout = {"fwd": sum(t.numel() for t in out),
+                    "bwd": sum(t.numel() for t in fwd) + hkv * Lq}
+            for n, e, kern, plain, per in (
+                    ("fwd", ef, lambda: hb.band_attention_fwd(
+                        *fwd, nr=NR, mode=mode),
+                     lambda: hb.band_attention_fwd_ref(*fwd, nr=NR,
+                                                       mode=mode),
+                     4 * d + 3),
+                    ("bwd", eb, lambda: hbb.band_attention_bwd(
+                        *args, nr=NR, mode=mode),
+                     lambda: hbb.band_attention_bwd_ref(*args, nr=NR,
+                                                        mode=mode),
+                     10 * d + 5)):
+                t = tot[n]
+                ms, dms = time_ms(kern), device_ms(kern)
+                nbytes = hb.band_bytes(fwd[3], nr=NR, mode=mode, G=1, d=d,
+                                       dv=d, backward=n == "bwd")
+                ins = fwd if n == "fwd" else args
+                all_bytes = 4 * (sum(x.numel() for x in ins) + nout[n])
+                t["err"] = max(t["err"], e)
+                t["ms"] += ms
+                t["device_ms"] += dms
+                t["plain_ms"] += time_ms(plain)
+                t["nbytes"] += nbytes
+                t["all_bytes"] += all_bytes
+                t["flops"] += pairs * per
+                lb = bound(nbytes, pairs * per)[0]
+                t["levels"].append(dict(level=lvl, L=Lq, device_ms=dms,
+                                        bound_ms=lb))
+                log(f"band_attention_{n} {mode}@{ED_ARCH} level {lvl} (L="
+                    f"{Lq}): max abs err {e:.3g}; device {dms:.4f} ms, "
+                    f"bound {lb:.5f} ms (live rows; every row "
+                    f"{bound(all_bytes, pairs * per)[0]:.5f})")
+            tot["bwd"]["scaled"] = max(tot["bwd"]["scaled"], sb)
+            tot["bwd"]["gmn"] = max(tot["bwd"]["gmn"], gb)
+            del out, cot, args
+        span = ("level 0" if len(levels) == 1 else
+                f"the {len(levels)} coarse levels (L={Lf >> 1}.."
+                f"{Lf >> len(levels)})")
+        for n, name, src, rep in (
+                ("fwd", "band_attention_fwd", "h1d_block.cu",
+                 "h1d_block.py:299"),
+                ("bwd", "band_attention_bwd", "h1d_block_bwd.cu",
+                 "h1d_block_bwd.py:541")):
+            t = tot[n]
+            bms, by = bound(t["nbytes"], t["flops"])
+            note = (f"sum over {span} of one clip's encoder attention, "
+                    f"{shape}; " + (f"{BWD_LAUNCH}; " if n == "bwd" else "")
+                    + LIVE_NOTE)
+            row = dict(name=f"{name}[{mode}]@{ED_ARCH}", mode=mode,
+                       route="cuda",
+                       source=f"src/repro_torch/kernels/csrc/{src}",
+                       replaces=f"src/repro/kernels/{rep}",
+                       max_abs_err=t["err"], ms=t["ms"],
+                       device_ms=t["device_ms"], plain_ms=t["plain_ms"],
+                       bound_ms=bms, bound_by=by, library_ms=None,
+                       bound_all_rows_ms=bound(t["all_bytes"],
+                                               t["flops"])[0],
+                       levels=t["levels"], paths=list(ED_PATHS), note=note)
+            if n == "bwd":
+                row.update(max_scaled_err=t["scaled"],
+                           gmn_elementwise_scaled_err=t["gmn"])
+            rows.append(row)
+            log(f"{row['name']}: max abs err {t['err']:.3g}, "
+                f"{t['ms']:.4f} ms, device {t['device_ms']:.4f} ms, bound "
+                f"{bms:.5f} ms, plain {t['plain_ms']:.3f} ms; {note}")
+    del q, k, v, w
+    torch.cuda.empty_cache()
+    return rows
+
+
+def encdec_generate(params, cfg, fns, frames, prefix, new, forced=None):
+    """Greedy generation through the encoder-decoder's own entry points:
+    ``prefill`` (the encoder, then the decoder over ``prefix``, Lmax
+    DECODER_LEN), then ``new - 1`` decode steps; with ``forced`` (B, new)
+    each step takes those tokens in place of its argmax, so that two runs
+    handed the same tokens decode the same contexts.  A synchronize on
+    each side of every call.  Returns (tokens (B, new), each step's
+    logits (B, V) f32, the caches, prefill ms, each tick's ms)."""
+    from repro_torch.configs.seamless_m4t_medium import DECODER_LEN
+
+    def pick(z, i):
+        return z.argmax(-1) if forced is None else forced[:, i]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches, pos = fns.prefill(
+        params, cfg, {"frames": frames, "tokens": prefix}, DECODER_LEN)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    seen, toks, ticks = [logits], [pick(logits, 0)], []
+    for i in range(1, new):
+        t0 = time.perf_counter()
+        logits, caches = fns.decode_step(params, cfg, caches, toks[-1], pos)
+        torch.cuda.synchronize()
+        ticks.append((time.perf_counter() - t0) * 1e3)
+        seen.append(logits)
+        toks.append(pick(logits, i))
+        pos = pos + 1
+    return torch.stack(toks, 1), seen, caches, prefill_ms, ticks
+
+
+def encdec_vs_plain(label, got, want, caches, plain_caches):
+    """Every step's logits of every row (the kernel run handed the plain
+    run's tokens) within BF16_LOGIT_TOL of the plain row's largest
+    |logit|, and every layer's encoder memory (``mem_k``, ``mem_v``)
+    within it of the plain memory's largest |entry|.  Returns (worst at
+    the prefill, worst at the decode steps, worst memory error, steps
+    whose argmax is the plain one, steps)."""
+    worst, same, n = [0.0, 0.0], 0, 0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a.shape != b.shape or not torch.isfinite(a).all():
+            raise AssertionError(f"{label}: step {i}: bad logits")
+        e = ((a - b).abs().amax(-1) / b.abs().amax(-1)).max().item()
+        if e > BF16_LOGIT_TOL:
+            raise AssertionError(f"{label}: step {i}: logits differ by "
+                                 f"{e:.3g} of max |plain| > "
+                                 f"{BF16_LOGIT_TOL}")
+        worst[i > 0] = max(worst[i > 0], e)
+        same += int((a.argmax(-1) == b.argmax(-1)).sum())
+        n += a.shape[0]
+    mem = 0.0
+    for li, (c, p) in enumerate(zip(caches, plain_caches)):
+        for key in ("mem_k", "mem_v"):
+            e = float((c[key] - p[key]).abs().max() / p[key].abs().max())
+            if e > BF16_LOGIT_TOL:
+                raise AssertionError(f"{label}: layer {li} {key} differs by "
+                                     f"{e:.3g} of max |plain| > "
+                                     f"{BF16_LOGIT_TOL}")
+            mem = max(mem, e)
+    return worst[0], worst[1], mem, same, n
+
+
+def encdec_request(label, params, cfg, fns, frames, prefix, new, counts):
+    """One serving request (or batch of clips): the plain run, then the
+    kernels on its tokens (launches added into ``counts``), held to it
+    with :func:`encdec_vs_plain`.  Returns the kernel run's numbers."""
+    with plain_kernels():
+        ptok, plogits, pcaches, _, _ = encdec_generate(
+            params, cfg, fns, frames, prefix, new)
+    one = {}
+    with counted(one):
+        tok, logits, caches, pre, ticks = encdec_generate(
+            params, cfg, fns, frames, prefix, new, forced=ptok)
+    for key_, c in one.items():
+        counts[key_] = counts.get(key_, 0) + c
+    need_launched(label, one, ())
+    pre_e, dec_e, mem_e, same, n = encdec_vs_plain(label, logits, plogits,
+                                                   caches, pcaches)
+    if not bool(((tok >= 0) & (tok < cfg.vocab_size)).all()):
+        raise AssertionError(f"{label}: a token out of the vocabulary")
+    wall = pre + sum(ticks)
+    out = dict(rows=int(frames.shape[0]), frames=int(frames.shape[1]),
+               prefix=int(prefix.shape[1]), new_tokens=new,
+               prefill_ms=pre, tick_ms=float(np.median(ticks)),
+               tokens_per_s=tok.numel() / (wall / 1e3),
+               logits_err_prefill=pre_e, logits_err_decode=dec_e,
+               memory_err=mem_e, argmax_same=f"{same}/{n}")
+    log(f"{label}: {json.dumps(out)}")
+    del plogits, pcaches, logits, caches
+    return out
+
+
+def encdec_expected(cfg, steps: int, Se: int, Sd: int):
+    """The band launches of ``steps`` rematerialised encdec steps: every
+    layer's band forwards twice (the forward, then the recompute in the
+    backward), its backwards once; an encoder layer runs ``l0_bidir`` and
+    ``coarse_bidir`` at each of its coarse levels, a decoder layer
+    ``l0_causal`` and the sub levels."""
+    from repro_torch.core import hierarchy as hc
+    enc = hc.num_levels(hc.padded_length(Se, cfg.nr), cfg.nr) - 1
+    dec = hc.num_levels(hc.padded_length(Sd, cfg.nr), cfg.nr) - 1
+    Le, Ld = cfg.encoder_layers, cfg.num_layers
+    per_step = {"band_attention_fwd[l0_bidir]": 2 * Le,
+                "band_attention_bwd[l0_bidir]": Le,
+                "band_attention_fwd[coarse_bidir]": 2 * Le * enc,
+                "band_attention_bwd[coarse_bidir]": Le * enc,
+                "band_attention_fwd[l0_causal]": 2 * Ld,
+                "band_attention_bwd[l0_causal]": Ld,
+                "band_attention_sub_fwd": 2 * Ld * dec,
+                "band_attention_sub_bwd": Ld * dec}
+    return {k_: n * steps for k_, n in per_step.items()}
+
+
+class EncdecBatch:
+    """One seeded encdec batch at every step (as :class:`RepeatedBatch`):
+    1 x ED_FRAMES stub frames, ``frame_weight`` 0 past a seeded true
+    length in ED_LIVE, DECODER_LEN target tokens from ``ZipfLM``."""
+
+    def __init__(self, cfg):
+        from repro_torch.configs.seamless_m4t_medium import DECODER_LEN
+        from repro_torch.data import ZipfLM
+        from repro_torch.models.encdec import stub_frames
+        rng = np.random.default_rng(19)
+        self.live = int(rng.integers(ED_LIVE[0], ED_LIVE[1] + 1))
+        frames, fw = stub_frames(cfg, 1, ED_FRAMES, seed=19,
+                                 true_len=[self.live])
+        self.data = {"frames": frames, "frame_weight": fw,
+                     "tokens": ZipfLM(vocab_size=cfg.vocab_size,
+                                      seq_len=DECODER_LEN, batch_per_host=1,
+                                      seed=0).batch(0)["tokens"]}
+        self.seq_len, self.batch_per_host = DECODER_LEN, 1
+
+    def batch(self, step):
+        return self.data
+
+
+def phase_encdec(dev):
+    """19 (b)-(c).  ``seamless-m4t-medium`` at full width and depth (12 +
+    12 layers, d 1024, 16 heads of 64, vocabulary 256206), bf16, seed-0
+    weights drawn once: (b1) 4 clips of 4096 stub frames with an 8-token
+    target prefix each, 32 greedy tokens at Lmax DECODER_LEN; (b2) 3
+    single clips of 1000..4000 frames (the encoder pads them), prefixes
+    of 100..300 tokens, 16 tokens each; each the plain run, then the
+    kernels on its tokens: every step's logits and every layer's encoder
+    memory within 3e-2 of max |plain|; #1 in ``l0_bidir``,
+    ``coarse_bidir`` and ``l0_causal``, #2, #5 and #6 (bf16) launched, no
+    plain version.  (c) on the same weights (which the steps consume) at
+    1 x 4096 frames (live to a seeded length in 3000..4096) and 1024
+    tokens: the loss on the kernels against the plain path within 2e-2;
+    the fp32 gradient at 2 + 2 layers against the plain path (each leaf
+    within GRAD_TOL of its largest |plain|); 3 in-place AdamW steps with
+    remat through ``train``: the loss falls, each band path launched
+    exactly as the steps run it, no plain version.  Returns {"encdec",
+    "encdec_train": launches}."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.train import (TrainConfig, TrainState, batch_to_device,
+                                   make_optimizer, tokens_per_s, train)
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t0 = time.perf_counter()
+    cfg = get_config(ED_ARCH)
+    if not (cfg.dtype == "bfloat16" and cfg.family == "encdec"
+            and cfg.remat and cfg.remat_policy == "dots"):
+        raise AssertionError(f"{ED_ARCH}: a bf16 encdec config with remat")
+    fns = get_model(cfg)
+    params = fns.init(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    nparam = sum(p.numel() for p in tree_leaves(params))
+    log(f"{ED_ARCH}: {cfg.encoder_layers} + {cfg.num_layers} layers, "
+        f"{nparam} parameters in {cfg.dtype}, drawn in {init_s:.1f}s")
+
+    # (b) serving
+    rng = np.random.default_rng(0)
+    counts = {}
+    torch.cuda.reset_peak_memory_stats()
+    frames = encdec_frames(cfg, ED_CLIPS, ED_FRAMES, 0, dev)
+    prefix = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                          (ED_CLIPS, ED_PREFIX)), device=dev)
+    b1 = encdec_request("encdec (b1)", params, cfg, fns, frames, prefix,
+                        ED_NEW, counts)
+    b2 = []
+    lens = rng.integers(*ED_SINGLE_FRAMES, size=ED_SINGLE * 2)
+    lens = [int(n) for n in lens if n % 16][:ED_SINGLE]
+    for i, n in enumerate(lens):
+        frames = encdec_frames(cfg, 1, n, 1 + i, dev)
+        m = int(rng.integers(ED_SINGLE_PREFIX[0], ED_SINGLE_PREFIX[1] + 1))
+        prefix = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, m)),
+                                 device=dev)
+        b2.append(encdec_request(f"encdec (b2) request {i}", params, cfg,
+                                 fns, frames, prefix, ED_SINGLE_NEW, counts))
+    del frames, prefix
+    need_launched("encdec serve", counts,
+                  [("band_attention_fwd", "l0_bidir"),
+                   ("band_attention_fwd", "coarse_bidir"),
+                   ("band_attention_fwd", "l0_causal"),
+                   ("decode_attend_fused", "bf16"),
+                   ("update_cache_fused", "bf16")])
+    if not counts.get("band_attention_sub_fwd"):
+        raise AssertionError(f"encdec serve: #2 not launched: {counts}")
+    serve_stats = dict(arch=ED_ARCH, params=nparam, weights_s=init_s,
+                       b1=b1, b2=b2,
+                       peak_mem_gib=torch.cuda.max_memory_allocated()
+                       / 2 ** 30)
+    log(f"encdec serve: {json.dumps(serve_stats)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 19 (b) took {time.perf_counter() - t0:.1f}s, weights "
+        f"{init_s:.1f}s")
+
+    # (c) training
+    t1 = time.perf_counter()
+    data = EncdecBatch(cfg)
+    batch = batch_to_device(data.batch(0), dev)
+    with torch.no_grad():
+        loss_k = float(fns.loss(params, cfg, batch)[0])
+        with plain_kernels():
+            loss_p = float(fns.loss(params, cfg, batch)[0])
+    if not abs(loss_k - loss_p) <= BF16_LOSS_TOL:
+        raise AssertionError(f"encdec train: loss {loss_k} on the kernels, "
+                             f"{loss_p} on the plain path")
+    f32 = dataclasses.replace(cfg, dtype="float32",
+                              encoder_layers=ED_GRAD_LAYERS,
+                              num_layers=ED_GRAD_LAYERS)
+    cut = {**params, "encoder": params["encoder"][:ED_GRAD_LAYERS],
+           "decoder": params["decoder"][:ED_GRAD_LAYERS]}
+    wide = tree_map(lambda p: p.float(), cut)
+    grads_against_plain(f"encdec ({ED_GRAD_LAYERS} + {ED_GRAD_LAYERS} "
+                        f"layers, fp32)", wide,
+                        lambda p: fns.loss(p, f32, batch)[0])
+    del cut, wide, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.TemporaryDirectory()
+    tc = TrainConfig(ckpt_every=0, ckpt_dir=tmp.name, log_every=1, seed=0,
+                     peak_lr=1e-4, warmup=0)
+    state = TrainState(torch.zeros((), dtype=torch.int32, device=dev),
+                       params, make_optimizer(tc).init(params), None)
+    del params
+    train_counts = {}
+    with tmp, counted(train_counts):
+        state, metrics = train(cfg, tc, data, ED_TRAIN_STEPS, state=state,
+                               device=dev, log=log)
+    del state
+    need_counts("encdec train", train_counts,
+                encdec_expected(cfg, ED_TRAIN_STEPS, ED_FRAMES,
+                                data.seq_len))
+    hist = metrics["history"]
+    losses = [h["loss"] for h in hist]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"encdec train: non-finite loss: {losses}")
+    if abs(losses[0] - loss_k) > BF16_LOSS_TOL:
+        raise AssertionError(f"encdec train: first step's loss {losses[0]} "
+                             f"is not the batch's {loss_k}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"encdec train: the loss does not fall: "
+                             f"{losses}")
+    tokens = data.live + data.seq_len
+    stats = dict(layers=[cfg.encoder_layers, cfg.num_layers],
+                 frames=ED_FRAMES, live_frames=data.live,
+                 target_tokens=data.seq_len, steps=ED_TRAIN_STEPS,
+                 remat_policy=cfg.remat_policy, losses=losses,
+                 first_loss_plain=loss_p,
+                 first_step_ms=hist[0]["step_ms"],
+                 median_step_ms=float(np.median([h["step_ms"]
+                                                 for h in hist[1:]])),
+                 tokens_per_s=tokens_per_s(hist, tokens),
+                 peak_mem_gib=metrics["peak_mem_gib"],
+                 launches={k_: train_counts.get(k_, 0) for k_ in
+                           encdec_expected(cfg, 1, ED_FRAMES,
+                                           data.seq_len)})
+    log(f"encdec train: {json.dumps(stats)} (tokens/s counts the live "
+        f"frames and the target tokens of a step)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 19 (c) took {time.perf_counter() - t1:.1f}s")
+    return {"encdec": counts, "encdec_train": train_counts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
@@ -4906,7 +5365,9 @@ def main() -> int:
             + phase_bf16_kernels(dev))
     t_f = time.perf_counter()
     rows += phase_family_kernels(dev)
-    log(f"phases 17 (a) and 18 (a) took {time.perf_counter() - t_f:.1f}s")
+    rows += phase_encdec_kernels(dev)
+    log(f"phases 17 (a), 18 (a) and 19 (a) took "
+        f"{time.perf_counter() - t_f:.1f}s")
     t_sp = time.perf_counter()
     sp_rows = phase_sp_kernels(dev)
     rows += sp_rows
@@ -4959,9 +5420,13 @@ def main() -> int:
     family_counts.update(phase_ssm_families(dev))
     log(f"phase 18 (b)-(c) (the SSM and hybrid families) took "
         f"{time.perf_counter() - t_s:.1f}s")
+    t_s = time.perf_counter()
+    family_counts.update(phase_encdec(dev))
+    log(f"phase 19 (b)-(c) (the encoder-decoder) took "
+        f"{time.perf_counter() - t_s:.1f}s")
     for row in rows:
         # a row name@arch holds its wrapper at arch's shape: its launches
-        # are those of the phase 17 and 18 paths that run that shape
+        # are those of the phase 17-19 paths that run that shape
         key, _, arch = row["name"].partition("@")
         if arch:
             row["launches_by_path"] = {

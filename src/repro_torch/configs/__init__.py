@@ -1,23 +1,24 @@
-"""Model configs of the port: the paper's own models, the dense assigned
-architectures (yi-6b, qwen2.5-14b, llama3.2-1b, gemma3-4b), the MoE ones
-(qwen2-moe-a2.7b, arctic-480b), the VLM backbone (llava-next-34b), the
-SSM (mamba2-1.3b) and the hybrid (zamba2-1.2b), all nine published in
-bfloat16.
+"""Model configs of the port: the paper's own models and the ten
+assigned architectures, all published in bfloat16: the dense ones
+(yi-6b, qwen2.5-14b, llama3.2-1b, gemma3-4b), the encoder-decoder
+(seamless-m4t-medium), the MoE ones (qwen2-moe-a2.7b, arctic-480b), the
+VLM backbone (llava-next-34b), the SSM (mamba2-1.3b) and the hybrid
+(zamba2-1.2b).
 
 ``get_config(name)`` -> full config; ``get_smoke_config(name)`` -> the
-reduced same-family config for CPU tests.  The encoder-decoder
-architecture of the JAX package (seamless-m4t-medium) is a later slice.
+reduced same-family config for CPU tests.
 """
 import importlib
 
 PAPER_IDS = ["h1d-lm-53m", "h1d-lm-144m", "h1d-lra-encoder"]
 ARCH_IDS = ["yi-6b", "qwen2.5-14b", "llama3.2-1b", "gemma3-4b",
-            "qwen2-moe-a2.7b", "arctic-480b", "llava-next-34b",
-            "mamba2-1.3b", "zamba2-1.2b"]
+            "seamless-m4t-medium", "qwen2-moe-a2.7b", "arctic-480b",
+            "llava-next-34b", "mamba2-1.3b", "zamba2-1.2b"]
 
 _MODULES = {**{name: "h1d_lm" for name in PAPER_IDS},
             "yi-6b": "yi_6b", "qwen2.5-14b": "qwen2_5_14b",
             "llama3.2-1b": "llama3_2_1b", "gemma3-4b": "gemma3_4b",
+            "seamless-m4t-medium": "seamless_m4t_medium",
             "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
             "arctic-480b": "arctic_480b",
             "llava-next-34b": "llava_next_34b",

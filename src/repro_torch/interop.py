@@ -1,11 +1,12 @@
 """Parameters of the JAX package in the port's layout.
 
-``params_from_jax`` takes the JAX LM's or the JAX encoder classifier's
-parameter tree with every leaf
+``params_from_jax`` takes the JAX LM's, encoder-decoder's or encoder
+classifier's parameter tree with every leaf
 already converted to a numpy array (``jax.tree.map(np.asarray, params)``
 on the caller's side), so this module imports neither ``jax`` nor the
 JAX package.  The dense JAX stack keeps its layers stacked on a leading
-axis (it scans over them); the port keeps one dictionary per layer.
+axis (it scans over them); the port keeps one dictionary per layer (the
+encoder-decoder's layers are lists on both sides).
 Every projection has the same (d_in, d_out) layout in both packages, so
 no weight is transposed.  bfloat16 leaves (``ml_dtypes.bfloat16``
 arrays on the numpy side) are carried bit for bit through their 16-bit
@@ -26,6 +27,7 @@ from .tree import tree_leaves, tree_map
 _COMMON_KEYS = {"ln1": ("g",), "attn": ("wq", "wkv", "wo"), "ln2": ("g",)}
 _MLP_KEYS = ("wg", "wu", "wd")
 _DENSE_KEYS = {**_COMMON_KEYS, "mlp": _MLP_KEYS}
+_DECODER_KEYS = {**_DENSE_KEYS, "lnx": ("g",), "xattn": ("wq", "wkv", "wo")}
 _SSM_KEYS = {"ln": ("g",), "mixer": ("in_proj", "out_proj", "conv_w",
                                      "conv_b", "A_log", "D", "dt_bias",
                                      "norm")}
@@ -61,8 +63,11 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, *,
     hybrid layer ``ln.g`` and ``mixer.{in_proj.w, out_proj.w, conv_w,
     conv_b, A_log, D, dt_bias, norm.g}`` (``A_log``, ``D`` and
     ``dt_bias`` float32, as the reference keeps them), and a hybrid's
-    ``shared`` dense layer and ``shared_proj`` list."""
+    ``shared`` dense layer and ``shared_proj`` list.  An encoder-decoder
+    tree (``cfg.family == 'encdec'``) goes through :func:`_encdec`."""
     dev = resolve_device(device)
+    if cfg.family == "encdec":
+        return tree_map(lambda a: _tensor(a).to(dev), _encdec(tree, cfg))
     layers = tree["layers"]
     if isinstance(layers, dict):          # the scanned stack: unstack
         n = np.asarray(tree_leaves(layers)[0]).shape[0]
@@ -85,6 +90,27 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, *,
         out["head"] = {k: tree["head"][k] for k in ("w", "b")
                        if k in tree["head"]}
     return tree_map(lambda a: _tensor(a).to(dev), out)
+
+
+def _encdec(tree: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
+    """The encoder-decoder's tree (numpy leaves): ``embed.w``,
+    ``lm_head.w``, ``enc_norm.g``, ``dec_norm.g`` and its two lists of
+    layers, which the reference keeps as lists (never stacked): per
+    encoder layer ``ln1``, ``attn``, ``ln2``, ``mlp``, per decoder layer
+    also ``lnx`` and ``xattn.{wq,wkv,wo}``."""
+    out: Dict[str, Any] = {"embed": {"w": tree["embed"]["w"]},
+                           "lm_head": {"w": tree["lm_head"]["w"]},
+                           "enc_norm": {"g": tree["enc_norm"]["g"]},
+                           "dec_norm": {"g": tree["dec_norm"]["g"]}}
+    for name, n, need in (("encoder", cfg.encoder_layers, _DENSE_KEYS),
+                          ("decoder", cfg.num_layers, _DECODER_KEYS)):
+        layers = list(tree[name])
+        if len(layers) != n:
+            raise ValueError(f"tree holds {len(layers)} {name} layers, cfg "
+                             f"has {n}")
+        _require(layers, name, need)
+        out[name] = [{b: lp[b] for b in need} for lp in layers]
+    return out
 
 
 def _require(layers, name: str, need: Dict[str, tuple]) -> None:

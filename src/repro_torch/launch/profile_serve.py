@@ -31,7 +31,19 @@ by the backward of the ops run there) form a group ``moe`` of their own,
 and a Mamba2 layer's SSD core (``mamba2-1.3b``, ``zamba2-1.2b``: its
 ``ssd`` range) a group ``ssd``.
 ``--layers N`` cuts the config's depth to N layers (``qwen2-moe-a2.7b``'s
-24 take ~8 minutes to draw on the host).  Needs a CUDA card.
+24 take ~8 minutes to draw on the host).  The encoder-decoder
+(``seamless-m4t-medium``, whose ``--layers`` cuts the encoder and the
+decoder alike) prefills ``--rows`` clips of ``--frames`` seeded stub
+frames (the encoder, then the decoder over a ``--prompt``-token target
+prefix) and decodes from there; its cross-attention (``xattn``: the
+encoder memory's projection, the queries' and the dense attention) is a
+group of its own:
+
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+        --arch seamless-m4t-medium --rows 4 --frames 4096 --prompt 8 \
+        --max-len 1024
+
+Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -50,6 +62,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import hierarchy as hc
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import get_model
+from repro_torch.models.encdec import XATTN_RANGE, stub_frames
 from repro_torch.models.ssm import SSD_RANGE
 from repro_torch.parallel import sp_attention as sp
 from repro_torch.serve import paged_cache as pc
@@ -93,9 +106,10 @@ def _group(name: str) -> str:
 #: (``models.ffn.moe_apply``), whose kernels, and those of its ops'
 #: backward, form a group of this name
 MOE_RANGE = "moe"
-#: the profiler ranges whose kernels form a group of their own: the MoE's
-#: and the SSD core's (``models.ssm.SSD_RANGE``)
-RANGES = (MOE_RANGE, SSD_RANGE)
+#: the profiler ranges whose kernels form a group of their own: the
+#: MoE's, the SSD core's (``models.ssm.SSD_RANGE``) and the
+#: encoder-decoder's cross-attention (``models.encdec.XATTN_RANGE``)
+RANGES = (MOE_RANGE, SSD_RANGE, XATTN_RANGE)
 
 
 def range_device_us(events, name: str):
@@ -268,6 +282,8 @@ def main(argv=None):
                     help="weights and caches (default: the config's)")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth to this many layers")
+    ap.add_argument("--frames", type=int, default=4096,
+                    help="encoder-decoder: stub frames per clip")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args(argv)
 
@@ -275,14 +291,21 @@ def main(argv=None):
     exact_products()
     cfg = get_config(args.arch)
     cfg = dataclasses.replace(cfg, dtype=args.dtype or cfg.dtype)
+    encdec = cfg.family == "encdec"
+    if encdec and (args.paged or args.sp_data > 1):
+        ap.error("the encoder-decoder decodes on dense caches only")
     if args.layers is not None:
-        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+        cfg = dataclasses.replace(cfg, num_layers=args.layers, **(
+            {"encoder_layers": args.layers} if encdec else {}))
     fns = get_model(cfg)
     params = fns.init(cfg, seed=args.seed, device=dev)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     tokens = torch.randint(0, cfg.vocab_size, (args.rows, args.prompt),
                            generator=gen, device=dev)
     batch = {"tokens": tokens}
+    if encdec:
+        batch["frames"] = torch.as_tensor(stub_frames(
+            cfg, args.rows, args.frames, seed=args.seed)[0], device=dev)
     state = {}
 
     @torch.inference_mode()
@@ -292,7 +315,9 @@ def main(argv=None):
     prefill()                                           # warm-up
     res = {"device": torch.cuda.get_device_name(dev), "arch": cfg.name,
            "dtype": cfg.dtype, "layers": cfg.num_layers, "rows": args.rows,
-           "prompt": args.prompt, "max_len": args.max_len}
+           "prompt": args.prompt, "max_len": args.max_len,
+           **({"frames": args.frames, "encoder_layers": cfg.encoder_layers}
+              if encdec else {})}
     res["prefill"] = profiled(prefill, 3)
 
     logits, caches, pos = state["out"]

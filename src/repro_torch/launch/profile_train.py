@@ -11,6 +11,15 @@ LM, or of another configuration the port trains.
     PYTHONPATH=src python -m repro_torch.launch.profile_train \
         --arch mamba2-1.3b --layers 8 --batch 1 --seq 4096
 
+The encoder-decoder (``seamless-m4t-medium``) trains on ``--batch``
+clips of ``--seq`` seeded stub frames (every frame live) and
+``DECODER_LEN`` (1024) ``ZipfLM`` target tokens; ``--layers`` cuts its
+encoder and decoder alike, its cross-attention is a group ``xattn`` of
+its own, and its tokens per second count frames and target tokens:
+
+    PYTHONPATH=src python -m repro_torch.launch.profile_train \
+        --arch seamless-m4t-medium --batch 1 --seq 4096
+
 A configuration runs in its published dtype (gemma3-4b, llama3.2-1b:
 bfloat16), or in ``--dtype``'s (``--dtype float32`` as the port ran
 gemma3-4b before bfloat16); ``--layers N`` cuts its depth to N layers
@@ -28,7 +37,8 @@ forward and of the backward, a MoE layer's routing, dispatch, combine
 and expert products (``moe``: the kernels of its profiler range, and of
 the backward of its ops where their forward ran in the same part, so
 the ``step`` part holds the whole of it and the ``backward`` part only
-the remat recompute), a Mamba2 layer's SSD core (``ssd``, the same way)
+the remat recompute), a Mamba2 layer's SSD core (``ssd``, the same
+way), the encoder-decoder's cross-attention (``xattn``, the same way)
 and the rest (eager elementwise ops, reductions,
 copies).  The parts are the loss (forward), the gradient of
 a fresh forward's loss (backward), and the optimizer's in-place update,
@@ -50,10 +60,12 @@ import torch
 
 from repro_torch import exact_products, resolve_device
 from repro_torch.configs import get_config
+from repro_torch.configs.seamless_m4t_medium import DECODER_LEN
 from repro_torch.data import ZipfLM
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.profile_serve import profiled
 from repro_torch.models import get_model
+from repro_torch.models.encdec import stub_frames
 from repro_torch.parallel.sp_attention import sp_scope
 from repro_torch.train import (TrainConfig, batch_to_device, init_state,
                                make_optimizer, make_train_step)
@@ -81,15 +93,22 @@ def main(argv=None):
     exact_products()
     cfg = get_config(args.arch)
     cfg = dataclasses.replace(cfg, dtype=args.dtype or cfg.dtype)
+    encdec = cfg.family == "encdec"
     if args.layers is not None:
-        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+        cfg = dataclasses.replace(cfg, num_layers=args.layers, **(
+            {"encoder_layers": args.layers} if encdec else {}))
     tc = TrainConfig(peak_lr=3e-4, warmup=5, ckpt_every=0)
     state = init_state(cfg, tc, seed=args.seed, device=dev)
     fns = get_model(cfg)
     opt = make_optimizer(tc)
-    batch = batch_to_device(
-        ZipfLM(vocab_size=cfg.vocab_size, seq_len=args.seq,
-               batch_per_host=args.batch, seed=args.seed).batch(0), dev)
+    tokens = DECODER_LEN if encdec else args.seq
+    batch = ZipfLM(vocab_size=cfg.vocab_size, seq_len=tokens,
+                   batch_per_host=args.batch, seed=args.seed).batch(0)
+    if encdec:
+        batch["frames"], batch["frame_weight"] = stub_frames(
+            cfg, args.batch, args.seq, seed=args.seed)
+        tokens += args.seq
+    batch = batch_to_device(batch, dev)
     leaves = [p.detach().requires_grad_(True)
               for p in tree_leaves(state.params)]
     params = tree_unflatten_like(state.params, leaves)
@@ -120,7 +139,9 @@ def main(argv=None):
     res = {"device": torch.cuda.get_device_name(dev), "arch": cfg.name,
            "dtype": cfg.dtype, "layers": cfg.num_layers, "remat": cfg.remat,
            "remat_policy": cfg.remat_policy, "batch": args.batch,
-           "seq": args.seq, "sp_shards": args.sp}
+           "seq": args.seq, "sp_shards": args.sp,
+           **({"encoder_layers": cfg.encoder_layers,
+               "target_tokens": DECODER_LEN} if encdec else {})}
     with torch.no_grad():
         optimizer()                                      # warm-up
         res["optimizer"] = profiled(optimizer, args.calls)
@@ -138,7 +159,7 @@ def main(argv=None):
     torch.cuda.reset_peak_memory_stats(dev)
     res["step"] = profiled(step, args.calls)
     res["step_peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
-    res["tokens_per_s"] = (args.batch * args.seq
+    res["tokens_per_s"] = (args.batch * tokens
                            / (res["step"]["wall_ms"] / 1e3))
     text = json.dumps(res)
     print(text)

@@ -24,7 +24,9 @@ local:global stack, the MoE and VLM ones, mamba2-1.3b and zamba2-1.2b,
 whose prompts are served unpadded and whose SSM states sit one row a
 slot) run at their published bfloat16, weights and caches alike;
 ``--smoke`` runs a config's fp32 smoke config and ``--layers N`` cuts
-its depth to N layers.
+its depth to N layers.  The encoder-decoder (seamless-m4t-medium) is
+refused, as the engine refuses it, before any weight is drawn: its
+prefill and decode step (``models/encdec.py``) serve it directly.
 ``--sp-data N`` splits each layer's cache along its sequence axis into
 ``N`` shards on the one device and serves through the sequence-parallel
 kernels (``parallel/sp_attention.py``):
@@ -47,6 +49,7 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import get_model
 from repro_torch.serve import Request, ServeEngine
+from repro_torch.serve.engine import ENCDEC_REFUSAL
 from repro_torch.tree import tree_leaves
 
 
@@ -106,6 +109,8 @@ def main(argv=None):
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
     if args.causal_mode is not None:
         cfg = dataclasses.replace(cfg, causal_mode=args.causal_mode)
+    if cfg.family == "encdec":     # refused before any weight is drawn
+        raise NotImplementedError(ENCDEC_REFUSAL)
     if args.layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
     t_w = time.perf_counter()

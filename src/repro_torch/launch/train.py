@@ -24,7 +24,9 @@ exchanges the shard-boundary blocks:
 mamba2-1.3b and zamba2-1.2b in bfloat16 with remat; AdamW keeps f32
 moments and applies each update in the parameter's dtype); ``--smoke``
 trains a config's fp32 smoke config and ``--layers N`` cuts its depth to
-N layers.  Telemetry is not ported.
+N layers.  The encoder-decoder (seamless-m4t-medium) is refused before
+any weight is drawn: the data sources make no audio frames (the JAX
+package has none either).  Telemetry is not ported.
 """
 from __future__ import annotations
 
@@ -74,6 +76,12 @@ def main(argv=None):
     if mesh.d > 1 and not args.sp:
         ap.error(f"--mesh {args.mesh} shards only the sequence: add --sp")
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
+    if cfg.family == "encdec":     # refused before any weight is drawn
+        raise NotImplementedError(
+            f"{cfg.name}: an encoder-decoder batch needs 'frames', and this "
+            f"CLI's data sources (zipf, hier) make tokens only; train "
+            f"family='encdec' through train.loop.make_train_step on batches "
+            f"with frames")
     if args.layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
     tc = TrainConfig(peak_lr=args.lr, total_steps=args.steps,

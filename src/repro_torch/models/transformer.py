@@ -25,7 +25,8 @@ invocation), its output added as ``h + (h2 - xin)``.  The shared block
 runs outside the per-layer remat, as in the reference, and its weights
 take gradient from every invocation; its hierarchical cache follows the
 SSM state of the layer it runs after in the cache list.  The
-encoder-decoder family is a later slice.
+encoder-decoder family is ``models/encdec.py``'s; these functions refuse
+it.
 
 Parameters (all (d_in, d_out) projections applied as ``x @ w``)::
 
@@ -64,9 +65,8 @@ from .ssm import (SSMState, mamba2_apply, mamba2_decode, mamba2_dims,
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family == "encdec":
         raise NotImplementedError(
-            "family='encdec' is not ported yet: the port runs the dense, "
-            "moe, vlm, ssm and hybrid decoders; the encoder-decoder comes "
-            "later")
+            "family='encdec' is not a decoder-only stack: its init, loss, "
+            "prefill and decode are models/encdec.py's (get_model)")
 
 
 def block_kind(cfg: ModelConfig, i: int) -> str:

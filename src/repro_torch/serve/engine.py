@@ -50,8 +50,10 @@ semantics:
   a paged tick builds its two page tables once on the host and copies
   them to the card in one non-blocking transfer shared by every layer.
 
-Everything runs under ``torch.inference_mode()``.  Telemetry is not
-ported.
+Everything runs under ``torch.inference_mode()``.  The encoder-decoder
+family is refused, as the reference refuses it (its prefill needs each
+request's frames; ``models/encdec.py``'s prefill and decode step serve
+it directly).  Telemetry is not ported.
 """
 from __future__ import annotations
 
@@ -67,6 +69,12 @@ from ..models.ssm import SSMState
 from ..parallel import sp_attention as sp
 from . import paged_cache as pc
 from .scheduler import ContinuousBatchingScheduler, QueueEntry
+
+
+#: the reference engine's refusal of the encoder-decoder family
+ENCDEC_REFUSAL = ("ServeEngine targets decoder-only families; enc-dec "
+                  "serving goes through launch/serve.py with per-request "
+                  "encoder runs")
 
 
 @dataclasses.dataclass
@@ -130,6 +138,8 @@ class ServeEngine:
             raise ValueError("cache_dtype='int8' requires paged=True: the "
                              "dense slab cache has no per-page scale "
                              "side-band")
+        if cfg.family == "encdec":
+            raise NotImplementedError(ENCDEC_REFUSAL)
         if overflow not in ("error", "truncate"):
             raise ValueError(f"unknown overflow policy {overflow!r}")
         if paged:
@@ -179,14 +189,14 @@ class ServeEngine:
         # prompt length bucketing pads a prompt with real (weight-1)
         # tokens; off (the reference's rules) for the recurrent families
         # (ssm, hybrid), whose prefill scan over the pads would corrupt the
-        # state, for encdec, and for a sliding window, whose
+        # state, and for a sliding window, whose
         # rolling cache keeps the LAST 2 * window rows so pads would evict
         # real in-window keys, and for h1d coarse-q, whose coarse QUERIES
         # average the pad embeddings across cluster boundaries and shift
         # the logits at the true last token; on for full attention, whose
         # pads sit past the true length in causal order and in cache
         # slots each overwritten before its position comes up
-        self._bucket = (cfg.family not in ("ssm", "hybrid", "encdec")
+        self._bucket = (cfg.family not in ("ssm", "hybrid")
                         and cfg.sliding_window == 0
                         and (cfg.attention != "h1d"
                              or cfg.causal_mode == "fine-q"))

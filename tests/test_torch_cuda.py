@@ -2276,3 +2276,90 @@ def test_band_and_decode_kernels_at_zamba2_heads(dev):
         dk.update_cache_ref(b, kn, vn, tt)
     for x, y in zip(_levels(a), _levels(b)):
         assert torch.equal(x, y)
+
+
+def _encdec_smoke(device):
+    """seamless-smoke (2 + 2 layers, nr 8, head_dim 16) from seed 3 on
+    ``device``, and a seeded batch: 2 clips of 45 frames (row 1 live to
+    30), 24 target tokens."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import get_model
+    from repro_torch.models.encdec import stub_frames
+    cfg = get_smoke_config("seamless-m4t-medium")
+    fns = get_model(cfg)
+    frames, fw = stub_frames(cfg, 2, 45, seed=3, true_len=(45, 30))
+    tok = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 24))
+    batch = {"frames": torch.as_tensor(frames, device=device),
+             "frame_weight": torch.as_tensor(fw, device=device),
+             "tokens": torch.as_tensor(tok, device=device)}
+    return cfg, fns, fns.init(cfg, seed=3, device=device), batch
+
+
+def test_encdec_smoke_training_on_card_matches_cpu(dev):
+    """The encoder-decoder smoke model's loss and every leaf's gradient
+    (remat on and off) on the card, kernels launched, against the plain
+    path on the CPU from the same seed: the loss within 1e-4, each leaf
+    within 1e-4 of its largest |cpu|; #1 and #3 launched in ``l0_bidir``
+    and ``coarse_bidir`` (the encoder) and ``l0_causal`` (the decoder),
+    #2 and #4 at the decoder's sub levels."""
+    import dataclasses
+    from repro_torch.tree import tree_leaves, tree_unflatten_like
+    for remat in (False, True):
+        out = {}
+        for device in ("cpu", "cuda"):
+            cfg, fns, params, batch = _encdec_smoke(device)
+            cfg = dataclasses.replace(cfg, remat=remat)
+            leaves = [t.detach().requires_grad_(True)
+                      for t in tree_leaves(params)]
+            kernels.reset_counts()
+            loss = fns.loss(tree_unflatten_like(params, leaves), cfg,
+                            batch)[0]
+            grads = torch.autograd.grad(loss, leaves)
+            out[device] = (float(loss.detach()), [g.cpu() for g in grads],
+                           kernels.mode_launches(),
+                           {n for n, (k, _) in kernels.KERNELS.items()
+                            if k.launches})
+        (wl, wg, _, _), (gl, gg, modes, launched) = out["cpu"], out["cuda"]
+        assert abs(gl - wl) <= 1e-4
+        for a, b in zip(gg, wg):
+            assert torch.isfinite(a).all() and _rel(a, b) <= 1e-4
+        for name in ("band_attention_fwd", "band_attention_bwd"):
+            for mode in ("l0_bidir", "coarse_bidir", "l0_causal"):
+                assert modes.get((name, mode)), (name, mode, modes)
+        assert {"band_attention_sub_fwd", "band_attention_sub_bwd"} <= launched
+
+
+@pytest.mark.parametrize("B", [2, 1])
+def test_encdec_smoke_greedy_on_card_matches_cpu(dev, B):
+    """Encoder prefill of a 40-token target prefix (the decoder's prefill
+    runs #2 at its sub levels), then 8 greedy decode steps at Lmax 64, on
+    the card against the CPU: the same tokens, the prefill's logits within
+    1e-4; #1 in ``l0_bidir``, ``coarse_bidir`` and ``l0_causal``, #2, #5
+    and #6 launched (B = 1 through the uniform-position decode)."""
+    out = {}
+    for device in ("cpu", "cuda"):
+        cfg, fns, params, batch = _encdec_smoke(device)
+        prefix = torch.as_tensor(np.random.default_rng(4).integers(
+            0, cfg.vocab_size, (B, 40)), device=device)
+        kernels.reset_counts()
+        logits, caches, pos = fns.prefill(
+            params, cfg, {"frames": batch["frames"][:B], "tokens": prefix},
+            64)
+        first = logits.cpu()
+        toks = [logits.argmax(-1)]
+        for _ in range(8):
+            logits, caches = fns.decode_step(params, cfg, caches, toks[-1],
+                                             pos)
+            toks.append(logits.argmax(-1))
+            pos = pos + 1
+        out[device] = (first, torch.stack(toks, 1).cpu(),
+                       kernels.mode_launches(),
+                       {n for n, (k, _) in kernels.KERNELS.items()
+                        if k.launches})
+    (wl, wt, _, _), (gl, gt, modes, launched) = out["cpu"], out["cuda"]
+    torch.testing.assert_close(gl, wl, atol=1e-4, rtol=0)
+    assert torch.equal(gt, wt)
+    for mode in ("l0_bidir", "coarse_bidir", "l0_causal"):
+        assert modes.get(("band_attention_fwd", mode)), (mode, modes)
+    assert {"band_attention_sub_fwd", "decode_attend_fused",
+            "update_cache_fused"} <= launched

@@ -266,16 +266,41 @@ def test_engine_refusals_and_no_bucketing(smoke):
             if t.is_floating_point()} == {torch.bfloat16}
 
 
-def test_cli_serves_the_smoke_config(capsys):
+def test_cli_serves_the_smoke_config(capsys, monkeypatch):
+    """The CLI serves the smoke config.  An architecture that is not a
+    config of the port raises, naming those that are; the
+    encoder-decoder (seamless-m4t-medium) is refused by the serve CLI and
+    by ServeEngine with the reference engine's text, and by the train
+    CLI, each before any weight is drawn."""
     reqs = serve_cli.main(["--arch", ARCH, "--smoke", "--device", "cpu",
                            "--requests", "3", "--slots", "2",
                            "--new-tokens", "3", "--max-len", "64"])
     assert [len(r.out_tokens) for r in reqs] == [3, 3, 3]
     assert "gemma3-4b-smoke" in capsys.readouterr().out
-    # the published bf16 configs are served, so only an architecture
-    # that is not ported raises (naming those that are); none is drawn
-    with pytest.raises(NotImplementedError, match="yi-6b"):
-        serve_cli.main(["--arch", "seamless-m4t-medium", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="yi-6b.*seamless-m4t"):
+        serve_cli.main(["--arch", "whisper-large", "--device", "cpu"])
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import encdec
+
+    def drawn(*a, **kw):
+        raise AssertionError("a weight was drawn")
+    monkeypatch.setattr(encdec, "encdec_init", drawn)
+    ecfg = jax_smoke("seamless-m4t-medium")
+    with pytest.raises(NotImplementedError) as want:
+        JaxEngine(ecfg, None, slots=2, max_len=64)
+    for argv in (["--arch", "seamless-m4t-medium", "--device", "cpu"],
+                 ["--arch", "seamless-m4t-medium", "--smoke", "--device",
+                  "cpu"]):
+        with pytest.raises(NotImplementedError) as got:
+            serve_cli.main(argv)
+        assert str(got.value) == str(want.value)
+    with pytest.raises(NotImplementedError) as got:
+        ServeEngine(get_smoke_config("seamless-m4t-medium"), None, slots=2,
+                    max_len=64)
+    assert str(got.value) == str(want.value)
+    with pytest.raises(NotImplementedError, match="frames"):
+        train_cli.main(["--arch", "seamless-m4t-medium", "--smoke",
+                        "--device", "cpu", "--steps", "1"])
 
 
 @pytest.mark.parametrize("d", [64, 128, 256])

@@ -140,7 +140,7 @@ def test_no_range_moves_nothing():
 def test_ssd_range_is_a_group_of_its_own():
     """An ``ssd`` range (the Mamba2 SSD core) takes its kernels and their
     backward as ``moe`` does, and neither range takes the other's."""
-    assert ps.RANGES == ("moe", "ssd")
+    assert ps.RANGES == ("moe", "ssd", "xattn")
     ein = _event("aten::bmm", [(GEMM, 12.0)], seq=3)
     scan = _event("aten::add", [(ELEM, 2.0)], seq=4)
     ssd = _event("ssd", children=[_event("aten::einsum", children=[ein]),
@@ -153,3 +153,24 @@ def test_ssd_range_is_a_group_of_its_own():
     assert dict(ps.range_device_us(evts, "ssd")) == {"matmul": 19.0,
                                                      "other": 2.0}
     assert dict(ps.range_device_us(evts, "moe")) == {"matmul": 50.0}
+
+
+def test_xattn_range_is_a_group_of_its_own():
+    """The encoder-decoder's ``xattn`` range (its cross-attention: the
+    memory's projection, the queries' and the dense attention) takes its
+    kernels and their backward; a band kernel outside it stays its
+    wrapper's, and neither ``ssd`` nor ``moe`` takes any of it."""
+    proj = _event("aten::mm", [(GEMM, 8.0)], seq=11)
+    soft = _event("aten::exp", [(ELEM, 3.0)], seq=12)
+    xattn = _event("xattn", children=[proj, soft])
+    band = _event("h1d_band_fwd", [(
+        "void (anonymous namespace)::band_fwd_kernel<1>(float const*)",
+        4.0)])
+    back = _event("autograd::engine::evaluate_function: ExpBackward0",
+                  children=[_event("aten::mul", [(ELEM, 1.5)])], seq=12)
+    evts = [xattn, proj, soft, band, back]
+    assert dict(ps.range_device_us(evts, "xattn")) == {"matmul": 8.0,
+                                                       "other": 4.5}
+    assert dict(ps.range_device_us(evts, "ssd")) == {}
+    assert dict(ps.range_device_us(evts, "moe")) == {}
+    assert ps._group(band.kernels[0].name) == "band_attention_fwd"
