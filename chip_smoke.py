@@ -28,7 +28,10 @@ Phases (each raises on failure; nothing is caught):
    band row's bound counts only what the work needs
    (``h1d_block.sub_bytes``, ``h1d_block.band_bytes``): the rows with a
    live key and the key blocks some row reads, every output written,
-   and ``bound_all_rows_ms`` beside it counts every row and key;
+   and ``bound_all_rows_ms`` beside it counts every row and key the
+   band admits by position (the telemetry's count of the launch's
+   record, ``repro_torch.obs.traffic``; so do #5's, #7's and #8's and
+   ``update_bound``);
    The four paged decode kernels are held against their plain versions
    at paged serving shapes: 64 rows (8 slots x 8 kv-heads), G=1, d=64,
    nr=16, max_len 2048, pools of 1024+2 pages x 8 heads at every level,
@@ -325,6 +328,30 @@ Phases (each raises on failure; nothing is caught):
    target tokens), peak memory.  ``launches_by_path`` holds ``encdec``
    and ``encdec_train``.
 
+20. ``telemetry``, after 19: ``repro_torch.obs`` through the CLIs on
+   ``h1d-lm-53m`` at full size.  (a) ``launch.serve`` as phase 4 serves
+   it (8 slots, max_len 2048, prompts 64..1500, seed 0, 16 greedy
+   tokens): 8 requests dense, then 4 ``--paged --cache-dtype int8``, 4
+   ``--paged`` (fp32) and 4 ``--sp-data 2``, each with ``--trace-out``,
+   ``--prom-out`` and ``--metrics-jsonl`` into a temporary directory;
+   (b) ``launch.train``, 2 steps at 2 x 1024, ``--telemetry
+   --trace-out``.  (c) For each run: the trace (with kernel traffic),
+   the snapshot, every JSONL line and the Prometheus text (with
+   ``repro_kernel_launches_total``, ``repro_serve_ttft_s_bucket``,
+   ``repro_serve_itl_s_bucket`` and ``repro_serve_ticks_total``; train:
+   ``repro_train_steps_total``) pass the port's validators, no trace
+   event dropped; every family's ``kernel.launches`` equals its
+   wrappers' launches in the run and its ``kernel.hbm_*_bytes`` the
+   traffic model's sum over the run's launch records; the ``serve.tick``
+   (``train.step``) spans number ``serve.ticks`` (``train.steps``); no
+   plain version runs; the runs launch all twelve families.  The dense
+   run also with telemetry off (a warm-up, then three turns of off and
+   ``--telemetry`` alone): every run's greedy tokens equal the first's.
+   (d) TTFT and ITL p50/p99, ticks, tokens/s (on and off), the host cost
+   of one ``decode_attend_fused`` call with telemetry off and on, and
+   per family the launches, GB moved and GFLOP, each beside the card's
+   name and power limit.  ``launches_by_path`` holds ``telemetry``.
+
 Tolerances.  In bf16 (phases 12-15, 17-19): every step's logits, on the same
 tokens, within 3e-2 of the plain row's largest |logit| (both paths
 round every activation to bf16 after f32 attention summed in other
@@ -358,6 +385,7 @@ package is missing beside this file.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -410,17 +438,29 @@ def bound(nbytes: float, flops: float):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
-def update_bound(rows: int, nlev: int, d: int, extra: int = 0,
+def update_bound(rows: int, nlev: int, d: int, table_cols: int = 0,
                  es: int = 4):
     """#6's (and #9's) bound on ``rows`` rows of ``nlev`` levels, k and v
     ``d`` wide: each row reads its new k and v (f32) and its t, writes one
     row of every level and reads the sibling of every level but the last
     (whose carry nothing takes), where the pair's mean and sum are taken,
-    ``es`` bytes a cache element (2 for bf16); ``extra`` bytes beside
-    (#9's page table)."""
-    nbytes = extra + 4 * (2 * rows * d + rows) + es * rows * (
-        2 * nlev + 2 * (nlev - 1)) * d
-    return bound(nbytes, rows * (nlev - 1) * 2 * d)
+    ``es`` bytes a cache element (2 for bf16); ``table_cols`` int32
+    columns of a page table beside (#9's).  The telemetry's count
+    (``repro_torch.obs.traffic.update_traffic``)."""
+    from repro_torch.obs import traffic
+    read, write, flops = traffic.update_traffic(rows, nlev, d, d, es,
+                                                table_cols)
+    return bound(read + write, flops)
+
+
+def all_rows(rec):
+    """(bytes, FLOPs) of one launch on every row and key its band admits
+    by position, whatever the key weights: the telemetry's count of the
+    launch record ``rec`` (``repro_torch.obs.traffic``), the ``all rows``
+    bound beside each live-row bound."""
+    from repro_torch.obs import traffic
+    b = traffic.record_hbm_bytes(rec)
+    return b["read_bytes"] + b["write_bytes"], traffic.record_flops(rec)
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -575,13 +615,14 @@ def phase_mode_kernels(dev):
     """#1 in the three modes of the LRA and coarse-q paths against its
     plain version, at the LRA path's shapes: one row per mode, summed
     over its levels."""
+    from repro_torch.analysis import contracts
     from repro_torch.kernels import h1d_block as hb
 
     _, q, k, v, w = lra_band_inputs(dev)
     rows = []
     for mode in NEW_MODES:
         tot = dict(err=0.0, ms=0.0, device_ms=0.0, plain_ms=0.0, nbytes=0,
-                   flops=0, all_bytes=0, levels=[])
+                   flops=0, all_bytes=0, all_flops=0, levels=[])
         levels = lra_levels(mode, q, k, v, w)
         for lvl, args in levels:
             ker = hb.band_attention_fwd(*args, nr=NR, mode=mode)
@@ -599,17 +640,19 @@ def phase_mode_kernels(dev):
             Lq = args[0].shape[-2]
             flops = band_pairs(dev, mode, Lq, 1, args[3], Lq=Lq) * (4 * D + 3)
             nbytes = live_bytes(args[3], mode)
-            all_bytes = 4 * (sum(t.numel() for t in args)
-                             + B * G * Lq * (D + 2))
+            all_bytes, all_flops = all_rows(contracts.band_fwd(
+                *args, nr=NR, mode=mode))
             tot["flops"] += flops
             tot["nbytes"] += nbytes
             tot["all_bytes"] += all_bytes
+            tot["all_flops"] += all_flops
             lb = bound(nbytes, flops)[0]
             tot["levels"].append(dict(level=lvl, L=Lq, device_ms=dms,
                                       bound_ms=lb))
             log(f"band_attention_fwd {mode} level {lvl} (L={Lq}): max abs "
                 f"err {e:.3g}; device {dms:.4f} ms, bound {lb:.5f} ms "
-                f"(live rows; every row {bound(all_bytes, flops)[0]:.5f})")
+                f"(live rows; every row "
+                f"{bound(all_bytes, all_flops)[0]:.5f})")
         bms, by = bound(tot["nbytes"], tot["flops"])
         span = ("level 0" if len(levels) == 1 else
                 f"the {len(levels)} coarse levels (L={LRA_L >> 1}.."
@@ -621,7 +664,7 @@ def phase_mode_kernels(dev):
             max_abs_err=tot["err"], ms=tot["ms"],
             device_ms=tot["device_ms"], plain_ms=tot["plain_ms"],
             bound_ms=bms, bound_by=by, library_ms=None,
-            bound_all_rows_ms=bound(tot["all_bytes"], tot["flops"])[0],
+            bound_all_rows_ms=bound(tot["all_bytes"], tot["all_flops"])[0],
             levels=tot["levels"],
             note=f"sum over {span} of one L={LRA_L} attention, 64 rows "
                  f"padded to true lengths 500..2000; {LIVE_NOTE}"))
@@ -629,6 +672,7 @@ def phase_mode_kernels(dev):
 
 
 def phase_kernels(dev):
+    from repro_torch.analysis import contracts
     from repro_torch.core import hierarchy as hc
     from repro_torch.core import h1d_decode as hd
     from repro_torch.kernels import h1d_block as hb
@@ -646,8 +690,6 @@ def phase_kernels(dev):
     ker = hb.band_attention_fwd(q, k, v, w, nr=NR, mode="l0_causal")
     ref = hb.band_attention_fwd_ref(q, k, v, w, nr=NR, mode="l0_causal")
     err, *_ = compare("band_attention_fwd", ker, ref, ATTN_TOL)
-    all_bytes = f4 * (q.numel() + k.numel() + v.numel() + w.numel()
-                      + B * G * L * (D + 2))
     flops = pairs("l0_causal", L, 1, w) * (4 * D + 3)
     bms, by = bound(live_bytes(w, "l0_causal"), flops)
     rows.append(dict(
@@ -662,7 +704,8 @@ def phase_kernels(dev):
         plain_ms=time_ms(lambda: hb.band_attention_fwd_ref(q, k, v, w,
                                                            nr=NR)),
         bound_ms=bms, bound_by=by, library_ms=None,
-        bound_all_rows_ms=bound(all_bytes, flops)[0], note=LIVE_NOTE))
+        bound_all_rows_ms=bound(*all_rows(contracts.band_fwd(
+            q, k, v, w, nr=NR, mode="l0_causal")))[0], note=LIVE_NOTE))
     log(f"band_attention_fwd: max abs err {err:.3g}")
 
     # -- sub levels 1..M-1 on the coarsened chain, as h1d_attention runs
@@ -719,15 +762,14 @@ def phase_kernels(dev):
     ref = dk.decode_attend_ref(cache, qd, t, nr=NR)
     err, *_ = compare("decode_attend_fused", [ker], [ref], ATTN_TOL)
     Md = hc.num_levels(LMAX, NR)
-    K = (Md + 1) * NR
     small = f4 * (qd.numel() + R + R * G * D)
     # the keys the band masks let through, each key and value row read
     # once, as #7's bound counts them; every band's rows beside it
     keys = partial_keys(t, None, Md)
     bms, by = bound(keys * 2 * D * f4 + small, keys * G * (4 * D + 4))
     rows.append(dict(
-        bound_all_rows_ms=bound(R * K * 2 * D * f4 + small,
-                                R * G * K * (4 * D + 4))[0],
+        bound_all_rows_ms=bound(*all_rows(contracts.decode_attend(
+            cache, qd, t, nr=NR)))[0],
         live_keys=keys, name="decode_attend_fused", route="cuda",
         source="src/repro_torch/kernels/csrc/h1d_decode.cu",
         replaces="src/repro/kernels/h1d_decode_kernel.py:154",
@@ -862,6 +904,7 @@ def same_outside_trash(a, b):
 
 def phase_paged_kernels(dev):
     """#7-#10 against their plain versions at paged serving shapes."""
+    from repro_torch.analysis import contracts
     from repro_torch.core import hierarchy as hc
     from repro_torch.kernels import h1d_decode_kernel as dk
 
@@ -870,21 +913,8 @@ def phase_paged_kernels(dev):
     fp32, int8, mixed = paged_pools(dev, gen, M)
     t, bidx, utab = paged_tables(dev, M)
     qd = torch.randn((R, G, D), generator=gen, device=dev)
-    K = (M + 1) * NR
-    flops = R * G * K * (4 * D + 4)
     small = 4 * (qd.numel() + R + bidx.numel() + R * G * D)
     rows = []
-
-    def lvl_bytes(qmask_levels):
-        """Bytes of one gathered key row plus value row per band."""
-        per = []
-        for band in range(M + 1):
-            l = 0 if band < 2 else band - 1
-            per.append(2 * D + 8 if l < qmask_levels else 8 * D)
-        return NR * sum(per)
-
-    row_bytes = {"fp32": lvl_bytes(0), "int8": lvl_bytes(M),
-                 "mixed": lvl_bytes(3)}
     for name, kernel, plain, pools in (
             ("decode_attend_paged", dk.decode_attend_paged,
              dk.decode_attend_paged_ref, [("fp32", fp32)]),
@@ -898,12 +928,12 @@ def phase_paged_kernels(dev):
             e, *_ = compare(f"{name} ({label})", [got], [want], ATTN_TOL)
             err = max(err, e)
         label, pool = pools[0]
-        bms, by = bound(R * row_bytes[label] + small, flops)
         # the keys the band masks let through, each key and value row read
         # once (int8: its D bytes and 4-byte scale); every band's rows
         # beside it
         keys = partial_keys(t, None, M)
-        extra = dict(bound_all_rows_ms=bms, live_keys=keys)
+        extra = dict(bound_all_rows_ms=bound(*all_rows(getattr(
+            contracts, name)(pool, qd, t, bidx, nr=NR)))[0], live_keys=keys)
         live_row = 8 * D if label == "fp32" else 2 * D + 8
         bms, by = bound(keys * live_row + small, keys * G * (4 * D + 4))
         rows.append(dict(
@@ -943,7 +973,7 @@ def phase_paged_kernels(dev):
             del a, b
         label, pool = pools[0]
         if name == "update_cache_paged":
-            bms, by = update_bound(R, M, D, extra=4 * utab.numel())
+            bms, by = update_bound(R, M, D, table_cols=utab.shape[1])
         else:
             # pair (and its two scales) read and rewritten, per level
             per_row = M * 2 * (2 * 2 * D + 2 * 2 * 4)
@@ -1001,12 +1031,12 @@ def phase_bwd_kernels(dev):
     the forward kernels' saved outputs and seeded random cotangents.
     Both fp32 paths are also held against :func:`exact_grads`, reported
     beside them (the grounds of the row-scaled bound)."""
+    from repro_torch.analysis import contracts
     from repro_torch.core import hierarchy as hc
     from repro_torch.kernels import h1d_block as hb
     from repro_torch.kernels import h1d_block_bwd as hbb
 
     _, randn, q, k, v, w = band_inputs(dev)
-    f4 = 4
     # dq, dk, dv are stacks of vectors; dw and gmn scalars per row
     rows3 = ("row", "row", "row")
 
@@ -1035,16 +1065,18 @@ def phase_bwd_kernels(dev):
             f"{witness['plain']['abs']:.3g} row "
             f"{witness['plain']['row_scaled']:.3g} elem "
             f"{witness['plain']['elem_scaled']:.3g}; near ties {near}")
-        # the rows with a live key and the key blocks some row reads
-        all_bytes = f4 * (sum(t.numel() for t in args)
-                          + sum(t.numel() for t in got))
+        # the rows with a live key and the key blocks some row reads; all
+        # rows beside them
         if mask_mode == "sub":
             nbytes = hb.sub_bytes(fwd[3], nr=NR, ratio=ratio, G=G, d=D,
                                   dv=D, backward=True)
+            rec = contracts.sub_bwd(*fwd, nr=NR, ratio=ratio)
         else:
             nbytes = live_bytes(fwd[3], mask_mode, backward=True)
+            rec = contracts.band_bwd(*fwd, nr=NR, mode=mask_mode)
+        all_bytes, all_flops = all_rows(rec)
         return dict(err=err, scaled=scaled, elem=elem, nbytes=nbytes,
-                    all_bytes=all_bytes,
+                    all_bytes=all_bytes, all_flops=all_flops,
                     witness=witness,
                     ms=time_ms(lambda: kernel(*args, **kw)),
                     device_ms=device_ms(lambda: kernel(*args, **kw)),
@@ -1068,7 +1100,7 @@ def phase_bwd_kernels(dev):
         max_elementwise_scaled_err=r["elem"], f64_witness=[r["witness"]],
         ms=r["ms"], device_ms=r["device_ms"], plain_ms=r["plain_ms"],
         bound_ms=bms, bound_by=by, library_ms=None,
-        bound_all_rows_ms=bound(r["all_bytes"], flops)[0],
+        bound_all_rows_ms=bound(r["all_bytes"], r["all_flops"])[0],
         note=f"{BWD_LAUNCH}; {LIVE_NOTE}"))
     log(f"band_attention_bwd: max abs err {r['err']:.3g}, scaled "
         f"{r['scaled']:.3g} (elementwise {r['elem']:.3g})")
@@ -1121,7 +1153,7 @@ def phase_bwd_kernels(dev):
     for mode in NEW_MODES:
         tot = dict(err=0.0, scaled=0.0, elem=0.0, ms=0.0, device_ms=0.0,
                    plain_ms=0.0, nbytes=0, flops=0, witness=[], all_bytes=0,
-                   levels=[])
+                   all_flops=0, levels=[])
         levels = lra_levels(mode, q, k, v, w)
         for lvl, fwd in levels:
             Lq = fwd[0].shape[-2]
@@ -1130,7 +1162,7 @@ def phase_bwd_kernels(dev):
                     f"band_attention_bwd {mode} level {lvl}", mode,
                     randn=lra_randn, nr=NR, mode=mode)
             for key in ("ms", "device_ms", "plain_ms", "nbytes",
-                        "all_bytes"):
+                        "all_bytes", "all_flops"):
                 tot[key] += r[key]
             for key in ("err", "scaled", "elem"):
                 tot[key] = max(tot[key], r[key])
@@ -1144,7 +1176,8 @@ def phase_bwd_kernels(dev):
                 f"err {r['err']:.3g}, scaled {r['scaled']:.3g} "
                 f"(elementwise {r['elem']:.3g}), {r['ms']:.3f} ms; device "
                 f"{r['device_ms']:.4f} ms, bound {lb:.5f} ms (live rows; "
-                f"every row {bound(r['all_bytes'], flops)[0]:.5f})")
+                f"every row "
+                f"{bound(r['all_bytes'], r['all_flops'])[0]:.5f})")
         bms, by = bound(tot["nbytes"], tot["flops"])
         span = ("level 0" if len(levels) == 1 else
                 f"the {len(levels)} coarse levels (L={LRA_L >> 1}.."
@@ -1158,7 +1191,7 @@ def phase_bwd_kernels(dev):
             f64_witness=tot["witness"], ms=tot["ms"],
             device_ms=tot["device_ms"], plain_ms=tot["plain_ms"],
             bound_ms=bms, bound_by=by, library_ms=None,
-            bound_all_rows_ms=bound(tot["all_bytes"], tot["flops"])[0],
+            bound_all_rows_ms=bound(tot["all_bytes"], tot["all_flops"])[0],
             levels=tot["levels"],
             note=f"sum over {span} of one L={LRA_L} attention, 64 rows "
                  f"padded to true lengths 500..2000; "
@@ -1855,7 +1888,7 @@ def phase_bf16_kernels(dev):
         f"{M} levels; bit-exact outside TRASH over 3 chained updates",
         measured(lambda: dk.update_cache_paged(a, kn, vn, t, utab),
                  lambda: dk.update_cache_paged_ref(b, kn, vn, t, utab), 0.0,
-                 update_bound(Rb, M, Db, extra=4 * utab.numel(), es=2)))
+                 update_bound(Rb, M, Db, table_cols=utab.shape[1], es=2)))
 
     # SP at d = 2: shard 1's calls
     d = 2
@@ -4058,7 +4091,7 @@ def phase_family_kernels(dev):
             "h1d_decode_kernel.py:567", arch, paths,
             timed(lambda: dk.update_cache_paged(a, kn, vn, t, utab),
                   lambda: dk.update_cache_paged_ref(b, kn, vn, t, utab), 0.0,
-                  update_bound(R, Md, d, extra=4 * utab.numel(), es=2)),
+                  update_bound(R, Md, d, table_cols=utab.shape[1], es=2)),
             f"{dshape}, {Md} levels: bit-exact outside TRASH over 3 "
             f"chained updates")
         del a, b, pool
@@ -4952,6 +4985,7 @@ def phase_encdec_kernels(dev):
     3's limits (the backward as :func:`family_bwd_compare` holds it);
     bounds from ``h1d_block.band_bytes`` (live rows), the all-rows bound
     beside; each level logged.  Rows ``<name>@seamless-m4t-medium``."""
+    from repro_torch.analysis import contracts
     from repro_torch.kernels import h1d_block as hb
     from repro_torch.kernels import h1d_block_bwd as hbb
 
@@ -4973,8 +5007,8 @@ def phase_encdec_kernels(dev):
     rows = []
     for mode in ("l0_bidir", "coarse_bidir"):
         tot = {n: dict(err=0.0, scaled=0.0, gmn=0.0, ms=0.0, device_ms=0.0,
-                       plain_ms=0.0, nbytes=0, all_bytes=0, flops=0,
-                       levels=[]) for n in ("fwd", "bwd")}
+                       plain_ms=0.0, nbytes=0, all_bytes=0, all_flops=0,
+                       flops=0, levels=[]) for n in ("fwd", "bwd")}
         levels = lra_levels(mode, q, k, v, w)
         for lvl, fwd in levels:
             Lq = fwd[0].shape[-2]
@@ -4989,8 +5023,6 @@ def phase_encdec_kernels(dev):
                 hbb.band_attention_bwd(*args, nr=NR, mode=mode),
                 hbb.band_attention_bwd_ref(*args, nr=NR, mode=mode), args)
             pairs = family_pairs(dev, mode, Lq, 1, fwd[3], Lq, 1)
-            nout = {"fwd": sum(t.numel() for t in out),
-                    "bwd": sum(t.numel() for t in fwd) + hkv * Lq}
             for n, e, kern, plain, per in (
                     ("fwd", ef, lambda: hb.band_attention_fwd(
                         *fwd, nr=NR, mode=mode),
@@ -5006,14 +5038,15 @@ def phase_encdec_kernels(dev):
                 ms, dms = time_ms(kern), device_ms(kern)
                 nbytes = hb.band_bytes(fwd[3], nr=NR, mode=mode, G=1, d=d,
                                        dv=d, backward=n == "bwd")
-                ins = fwd if n == "fwd" else args
-                all_bytes = 4 * (sum(x.numel() for x in ins) + nout[n])
+                all_bytes, all_flops = all_rows(getattr(
+                    contracts, f"band_{n}")(*fwd, nr=NR, mode=mode))
                 t["err"] = max(t["err"], e)
                 t["ms"] += ms
                 t["device_ms"] += dms
                 t["plain_ms"] += time_ms(plain)
                 t["nbytes"] += nbytes
                 t["all_bytes"] += all_bytes
+                t["all_flops"] += all_flops
                 t["flops"] += pairs * per
                 lb = bound(nbytes, pairs * per)[0]
                 t["levels"].append(dict(level=lvl, L=Lq, device_ms=dms,
@@ -5021,7 +5054,7 @@ def phase_encdec_kernels(dev):
                 log(f"band_attention_{n} {mode}@{ED_ARCH} level {lvl} (L="
                     f"{Lq}): max abs err {e:.3g}; device {dms:.4f} ms, "
                     f"bound {lb:.5f} ms (live rows; every row "
-                    f"{bound(all_bytes, pairs * per)[0]:.5f})")
+                    f"{bound(all_bytes, all_flops)[0]:.5f})")
             tot["bwd"]["scaled"] = max(tot["bwd"]["scaled"], sb)
             tot["bwd"]["gmn"] = max(tot["bwd"]["gmn"], gb)
             del out, cot, args
@@ -5046,7 +5079,7 @@ def phase_encdec_kernels(dev):
                        device_ms=t["device_ms"], plain_ms=t["plain_ms"],
                        bound_ms=bms, bound_by=by, library_ms=None,
                        bound_all_rows_ms=bound(t["all_bytes"],
-                                               t["flops"])[0],
+                                               t["all_flops"])[0],
                        levels=t["levels"], paths=list(ED_PATHS), note=note)
             if n == "bwd":
                 row.update(max_scaled_err=t["scaled"],
@@ -5340,6 +5373,276 @@ def phase_encdec(dev):
     return {"encdec": counts, "encdec_train": train_counts}
 
 
+# ---------------------------------------------------------------------------
+# phase 20: telemetry through the serving and training CLIs
+# ---------------------------------------------------------------------------
+
+# h1d-lm-53m at full size through ``launch.serve`` at phase 4's settings
+# (8 slots, max_len 2048, prompts 64..1500; the CLI's seed-0 weights and
+# prompts), 16 greedy tokens: 8 requests dense, 4 in each of the
+# int8-paged, fp32-paged and SP runs
+TELEMETRY_SERVE = ("--arch", "h1d-lm-53m", "--slots", "8", "--new-tokens",
+                   "16", "--max-len", "2048", "--min-prompt", "64",
+                   "--max-prompt", "1500", "--seed", "0")
+TELEMETRY_RUNS = (("dense", ("--requests", "8")),
+                  ("paged int8", ("--requests", "4", "--paged",
+                                  "--cache-dtype", "int8")),
+                  ("paged fp32", ("--requests", "4", "--paged")),
+                  ("sp d=2", ("--requests", "4", "--sp-data", "2")))
+# ``launch.train`` on h1d-lm-53m: 2 steps at 2 x 1024
+TELEMETRY_TRAIN = ("--arch", "h1d-lm-53m", "--steps", "2", "--batch", "2",
+                   "--seq", "1024")
+SERVE_PROM = ("repro_kernel_launches_total", "repro_serve_ttft_s_bucket",
+              "repro_serve_itl_s_bucket", "repro_serve_ticks_total")
+TRAIN_PROM = ("repro_kernel_launches_total", "repro_train_steps_total")
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def cli_run(main_fn, argv):
+    """``main_fn(argv)`` with its standard output captured and logged;
+    returns (its result, the output)."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = main_fn(list(argv))
+    for line in buf.getvalue().splitlines():
+        log(f"  {line}")
+    return out, buf.getvalue()
+
+
+def telemetry_run(label, main_fn, argv, prom_need, spans, tmp):
+    """One CLI run with telemetry on, its launch records captured, and
+    phase 20 (c)'s checks: the documents pass the port's validators (the
+    trace with kernel traffic, no event dropped), every family's
+    ``kernel.launches`` equals its wrappers' launches in the run and its
+    ``kernel.hbm_*_bytes`` the traffic model's sum over the run's
+    records, each band record's bytes ``band_bytes`` / ``sub_bytes``
+    (:func:`band_bytes_check`), ``spans[0]`` spans number ``spans[1]``,
+    no plain version ran.  Returns (result, output, the run's :func:`path_counts`,
+    snapshot)."""
+    from repro_torch import kernels, obs
+    from repro_torch.analysis import contracts
+    from repro_torch.obs import export, traffic
+    obs.disable()
+    obs.reset()
+    kernels.reset_counts()
+    with contracts.capture() as records:
+        out, text = cli_run(main_fn, argv)
+    torch.cuda.synchronize()
+    obs.disable()
+    launches = {n: k.launches for n, (k, _) in kernels.KERNELS.items()}
+    plain = {n: p.calls for n, (_, p) in kernels.KERNELS.items() if p.calls}
+    snap = export.snapshot()
+    trace = json.loads((tmp / "trace.json").read_text())
+    prom = ((tmp / "m.prom").read_text() if (tmp / "m.prom").exists()
+            else export.prometheus_text())
+    errs = (export.validate_chrome_trace(trace, require_kernel_traffic=True)
+            + export.validate_snapshot(snap)
+            + export.validate_prometheus_text(prom, prom_need))
+    if (tmp / "m.jsonl").exists():
+        for line in (tmp / "m.jsonl").read_text().splitlines():
+            errs += export.validate_snapshot(json.loads(line))
+    if trace["metadata"].get("dropped_events"):
+        errs.append(f"{trace['metadata']['dropped_events']} trace events "
+                    f"dropped")
+    if plain:
+        errs.append(f"plain versions ran: {plain}")
+    c = snap["metrics"]["counters"]
+    for name, fam in kernels.FAMILY.items():
+        got = c.get(f"kernel.launches{{family={fam}}}", 0)
+        recs = [r for r in records if r.family == fam]
+        if got != launches[name] or len(recs) != got:
+            errs.append(f"{fam}: kernel.launches {got}, {name}.launches "
+                        f"{launches[name]}, {len(recs)} records")
+        for d in ("read", "write"):
+            want = sum(traffic.record_hbm_bytes(r)[f"{d}_bytes"]
+                       for r in recs)
+            if c.get(f"kernel.hbm_{d}_bytes{{family={fam}}}", 0) != want:
+                errs.append(f"{fam}: kernel.hbm_{d}_bytes != {want}")
+    errs += band_bytes_check(records, dev=torch.device("cuda"))
+    nspans = sum(e["name"] == spans[0] for e in trace["traceEvents"])
+    if nspans != c.get(spans[1]):
+        errs.append(f"{nspans} {spans[0]} spans, {spans[1]} = "
+                    f"{c.get(spans[1])}")
+    if errs:
+        raise AssertionError(f"telemetry {label}: {errs}")
+    obs.reset()
+    return out, text, path_counts(), snap
+
+
+def band_bytes_check(records, dev):
+    """Each distinct band record of a run (#1-#4) held to the count made
+    apart from the traffic model: ``band_bytes`` / ``sub_bytes`` (the sub
+    body at ratio 1 in ``coarse_causal``) on all-ones key weights of the
+    record's shapes, on the card.  Returns the disagreements."""
+    from repro_torch.kernels import h1d_block as hb
+    from repro_torch.obs import traffic
+    errs = []
+    seen = set()
+    for r in records:
+        if r.family not in ("band_fwd", "sub_fwd", "band_bwd", "sub_bwd") \
+                or id(r) in seen:
+            continue
+        seen.add(id(r))
+        B, G, _, d = r.operand("q").shape
+        m = r.meta
+        w = torch.ones(r.operand("w").shape, device=dev)
+        kw = dict(nr=m["nr"], G=G, d=d, dv=m["dv"],
+                  backward=r.family.endswith("_bwd"))
+        if m["mode"] in ("sub", "coarse_causal"):
+            want = hb.sub_bytes(w, ratio=m["ratio"], **kw)
+        else:
+            want = hb.band_bytes(w, mode=m["mode"], **kw)
+        b = traffic.record_hbm_bytes(r)
+        if b["read_bytes"] + b["write_bytes"] != want:
+            errs.append(f"{r.describe()}: traffic {b}, band/sub_bytes "
+                        f"{want}")
+    return errs
+
+
+def hook_cost_us(dev, calls: int = 500):
+    """Host microseconds a ``decode_attend_fused`` call takes at the
+    serving shape (64 rows, Lmax 2048) with telemetry off and on, in
+    turns (off, on, off, on; each ``calls`` calls ending in a
+    synchronize): the difference is what the launch record and its
+    accounting cost a launch."""
+    from repro_torch import obs
+    from repro_torch.core import h1d_decode as hd
+    from repro_torch.kernels import h1d_decode_kernel as dk
+    gen = torch.Generator(device=dev).manual_seed(20)
+    cache = hd.prefill_cache(
+        torch.randn((R, LMAX, D), generator=gen, device=dev),
+        torch.randn((R, LMAX, D), generator=gen, device=dev), LMAX, NR)
+    q = torch.randn((R, G, D), generator=gen, device=dev)
+    t = torch.randint(0, LMAX, (R,), generator=gen, device=dev,
+                      dtype=torch.int32)
+    out = {"off": [], "on": []}
+    for mode in ("off", "on", "off", "on"):
+        (obs.enable if mode == "on" else obs.disable)()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            dk.decode_attend_fused(cache, q, t, nr=NR)
+        torch.cuda.synchronize()
+        out[mode].append((time.perf_counter() - t0) / calls * 1e6)
+    obs.disable()
+    obs.reset()
+    return out
+
+
+def phase_telemetry(dev):
+    """20.  ``repro_torch.obs`` on the card through the CLIs: the dense,
+    int8-paged, fp32-paged and SP serving runs of ``TELEMETRY_RUNS`` with
+    every telemetry option writing into a temporary directory, and
+    ``TELEMETRY_TRAIN`` with ``--telemetry --trace-out``; each held by
+    :func:`telemetry_run`, the runs together launching all twelve
+    families.  The dense run also with telemetry off (a warm-up, then
+    three turns of off and ``--telemetry`` alone): every run's greedy
+    tokens equal the first's.  Logs TTFT, ITL, ticks and tokens/s, the
+    per-launch cost (:func:`hook_cost_us`), and per family the launches,
+    GB moved and GFLOP, each beside the card's name and power limit.
+    Returns the launches by kernel row over the checked runs
+    (:func:`path_counts`)."""
+    import re
+    import tempfile
+
+    from repro_torch import kernels, obs
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch import train as train_cli
+
+    card = card_line()
+    t0 = time.perf_counter()
+    total = collections.Counter()
+    fams = collections.Counter()
+
+    def rate(text):
+        return float(re.search(r"\(([0-9.]+) tok/s\)", text).group(1))
+
+    def dense_run(*extra):
+        reqs, text = cli_run(serve_cli.main, TELEMETRY_SERVE
+                             + TELEMETRY_RUNS[0][1] + extra)
+        obs.disable()
+        obs.reset()
+        return [r.out_tokens for r in reqs], rate(text)
+
+    tokens_off, _ = dense_run()             # warm-up
+    rates = {"off": [], "on": []}
+    for _ in range(3):
+        for mode, extra in (("off", ()), ("on", ("--telemetry",))):
+            tokens, r = dense_run(*extra)
+            if tokens != tokens_off:
+                raise AssertionError(f"telemetry {mode}: dense greedy tokens "
+                                     f"differ from the first run's")
+            rates[mode].append(r)
+    log(f"telemetry dense tok/s: off {rates['off']}, on {rates['on']}, "
+        f"median off {np.median(rates['off'])}, on "
+        f"{np.median(rates['on'])} ({card})")
+    cost = hook_cost_us(dev)
+    log(f"telemetry decode_attend_fused call, host us (64 rows, Lmax "
+        f"{LMAX}): off {[round(x, 2) for x in cost['off']]}, on "
+        f"{[round(x, 2) for x in cost['on']]}, difference of the means "
+        f"{np.mean(cost['on']) - np.mean(cost['off']):.2f} ({card})")
+    for label, extra in TELEMETRY_RUNS:
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            argv = (TELEMETRY_SERVE + extra + (
+                "--trace-out", str(tmp / "trace.json"), "--prom-out",
+                str(tmp / "m.prom"), "--metrics-jsonl", str(tmp / "m.jsonl"),
+                "--metrics-period", "1"))
+            reqs, text, counts, snap = telemetry_run(
+                label, serve_cli.main, argv, SERVE_PROM,
+                ("serve.tick", "serve.ticks"), tmp)
+        hs, cs = snap["metrics"]["histograms"], snap["metrics"]["counters"]
+        if label == "dense" and [r.out_tokens for r in reqs] != tokens_off:
+            raise AssertionError("telemetry dense: greedy tokens differ "
+                                 "from the run with telemetry off")
+        lat = {n: (hs[n]["p50"] * 1e3, hs[n]["p99"] * 1e3)
+               for n in ("serve.ttft_s", "serve.itl_s")}
+        log(f"telemetry {label}: {len(reqs)} requests, TTFT p50 "
+            f"{lat['serve.ttft_s'][0]:.3f} ms p99 "
+            f"{lat['serve.ttft_s'][1]:.3f} ms, ITL p50 "
+            f"{lat['serve.itl_s'][0]:.3f} ms p99 "
+            f"{lat['serve.itl_s'][1]:.3f} ms, ticks {cs['serve.ticks']}, "
+            f"{rate(text)} tok/s ({card})")
+        total.update(counts)
+        fams.update({k: v for k, v in cs.items() if k.startswith("kernel.")})
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        _, _, counts, snap = telemetry_run(
+            "train", train_cli.main, TELEMETRY_TRAIN + (
+                "--telemetry", "--trace-out", str(tmp / "trace.json"),
+                "--ckpt-dir", str(tmp / "ckpt")),
+            TRAIN_PROM, ("train.step", "train.steps"), tmp)
+    h = snap["metrics"]["histograms"]["train.step_s"]
+    log(f"telemetry train: {snap['metrics']['counters']['train.steps']} "
+        f"steps, step p50 {h['p50'] * 1e3:.1f} ms, loss "
+        f"{snap['metrics']['gauges']['train.loss']:.4f} ({card})")
+    total.update(counts)
+    fams.update({k: v for k, v in snap["metrics"]["counters"].items()
+                 if k.startswith("kernel.")})
+    missing = [f for f in kernels.FAMILY.values()
+               if not fams.get(f"kernel.launches{{family={f}}}")]
+    if missing:
+        raise AssertionError(f"telemetry: families never launched: "
+                             f"{missing}")
+    for f in kernels.FAMILY.values():
+        moved = (fams[f"kernel.hbm_read_bytes{{family={f}}}"]
+                 + fams[f"kernel.hbm_write_bytes{{family={f}}}"])
+        log(f"telemetry {f}: {fams[f'kernel.launches{{family={f}}}']} "
+            f"launches, {moved / 1e9:.4f} GB, "
+            f"{fams[f'kernel.flops{{family={f}}}'] / 1e9:.4f} GFLOP "
+            f"(all rows; {card})")
+    log(f"phase 20 (telemetry) took {time.perf_counter() - t0:.1f}s")
+    return dict(total)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
@@ -5424,6 +5727,7 @@ def main() -> int:
     family_counts.update(phase_encdec(dev))
     log(f"phase 19 (b)-(c) (the encoder-decoder) took "
         f"{time.perf_counter() - t_s:.1f}s")
+    telemetry_counts = phase_telemetry(dev)
     for row in rows:
         # a row name@arch holds its wrapper at arch's shape: its launches
         # are those of the phase 17-19 paths that run that shape
@@ -5448,6 +5752,7 @@ def main() -> int:
                    "dense_bf16": dense_bf16_counts.get(key, 0),
                    "llama_train": llama_train_counts.get(key, 0),
                    "full": full_counts.get(key, 0),
+                   "telemetry": telemetry_counts.get(key, 0),
                    **{p: c.get(key, 0) for p, c in family_counts.items()}}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
@@ -5455,11 +5760,7 @@ def main() -> int:
     log(f"all phases took {time.perf_counter() - t0:.1f}s, build included")
 
     print(json.dumps({"kernels": rows}))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(smi)
+    print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -84,6 +84,23 @@ KERNELS = {
     "update_cache_partial": (update_cache_partial, update_cache_partial_ref),
 }
 
+#: the launch record's family (``analysis.contracts``, the reference's
+#: names) of every kernel wrapper
+FAMILY = {
+    "band_attention_fwd": "band_fwd",
+    "band_attention_sub_fwd": "sub_fwd",
+    "band_attention_bwd": "band_bwd",
+    "band_attention_sub_bwd": "sub_bwd",
+    "decode_attend_fused": "decode_attend",
+    "update_cache_fused": "decode_update",
+    "decode_attend_paged": "decode_attend_paged",
+    "decode_attend_paged_quant": "decode_attend_paged_quant",
+    "update_cache_paged": "decode_update_paged",
+    "update_cache_paged_quant": "decode_update_paged_quant",
+    "decode_attend_partial": "decode_attend_partial",
+    "update_cache_partial": "decode_update_partial",
+}
+
 #: the kernels a dense-slot serving run launches, those a paged serving
 #: run adds (#7/#9 on fp32 pools, #8/#10 on int8 pools), those a
 #: sequence-parallel serving run launches (#6 on the replicated deep
@@ -140,6 +157,7 @@ __all__ = ["band_attention", "band_attention_ref", "band_attention_fwd",
            "update_cache_paged_quant_ref", "decode_attend_partial",
            "decode_attend_partial_ref", "update_cache_partial",
            "update_cache_partial_ref", "MODES", "SUB_MODE", "KERNELS",
+           "FAMILY",
            "SERVE_KERNELS", "PAGED_SERVE_KERNELS", "SP_SERVE_KERNELS",
            "TRAIN_KERNELS",
            "LRA_KERNELS", "COARSE_Q_KERNELS", "reset_counts",

@@ -735,4 +735,18 @@ __device__ __forceinline__ LaneTile lane_tile(int lane_id, int units,
   return t;
 }
 
+// The grids of the kernels that a library's last launch on the calling
+// thread ran, as its launcher built them: {x, y} of the first kernel, then
+// of the second ({0, 0} where the launch runs one).  Each library (each
+// .cu file) keeps its own copy and exports it for the wrappers' launch
+// records (h1d_band_fwd_last_grid, h1d_band_bwd_last_grid).
+static thread_local int last_grid[4];
+
+__host__ inline void note_grid(int x0, int y0, int x1 = 0, int y1 = 0) {
+  last_grid[0] = x0;
+  last_grid[1] = y0;
+  last_grid[2] = x1;
+  last_grid[3] = y1;
+}
+
 }  // namespace h1d

@@ -280,6 +280,7 @@ int launch_ry(const float* q, const float* k, const float* v, const float* w,
                      (aligned16(v) && dv % 4 == 0 ? VEC_V : 0);
   const int vec_y = aligned16(y) && dv % 4 == 0;
   const dim3 grid(G * ((L + tq - 1) / tq), B);
+  note_grid(grid.x, grid.y);
   // Lq and Lk stay two arguments: as one, the body compiled to slower code
   band_fwd_kernel<MODE, RY><<<grid, BAND_THREADS, smem, stream>>>(
       q, k, v, w, y, dn, m, G, L, L, d, dv, nr, tq, vec_in, vec_y);
@@ -486,6 +487,7 @@ int launch_sub_ry(const float* q, const float* k, const float* v,
                      (aligned16(v) && dv % 4 == 0 ? VEC_V : 0);
   const int vec_y = aligned16(y) && dv % 4 == 0;
   const dim3 grid(G * ((Lq + SUB_TQ - 1) / SUB_TQ), B);
+  note_grid(grid.x, grid.y);
   sub_fwd_kernel<RY><<<grid, SUB_THREADS, smem, stream>>>(
       q, k, v, w, y, dn, m, G, Lq, Lk, d, dv, nr, ratio, vec_in, vec_y);
   return (int)cudaGetLastError();
@@ -770,6 +772,7 @@ int launch_stream(const float* q, const float* k, const float* v,
                      (aligned16(v) && dv % 4 == 0 ? VEC_V : 0);
   const int vec_y = aligned16(y) && dv % 4 == 0;
   const int ctas = B * G * ((L + STREAM_TQ - 1) / STREAM_TQ);
+  note_grid(ctas, 1);
   kernel<<<ctas, STREAM_THREADS, smem, stream>>>(
       q, k, v, w, y, dn, m, B, G, L, d, dv, nr, vec_in, vec_y);
   return (int)cudaGetLastError();
@@ -786,6 +789,7 @@ extern "C" int h1d_band_fwd(const float* q, const float* k, const float* v,
                             int B, int G, int L, int d, int dv, int nr,
                             int mode, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
+  h1d::note_grid(0, 0);
   switch (mode) {
     case h1d::L0_BIDIR:
       return launch<h1d::L0_BIDIR>(q, k, v, w, y, dn, m, B, G, L, d, dv, nr,
@@ -810,6 +814,7 @@ extern "C" int h1d_band_sub_fwd(const float* q, const float* k,
                                 float* dn, float* m, int B, int G, int Lq,
                                 int Lk, int d, int dv, int nr, int ratio,
                                 void* stream) {
+  h1d::note_grid(0, 0);
   return launch_sub(q, k, v, w, y, dn, m, B, G, Lq, Lk, d, dv, nr, ratio,
                     (cudaStream_t)stream);
 }
@@ -821,6 +826,7 @@ extern "C" int h1d_band_fwd_stream(const float* q, const float* k,
                                    const float* v, const float* w, float* y,
                                    float* dn, float* m, int B, int G, int L,
                                    int d, int dv, int nr, void* stream) {
+  h1d::note_grid(0, 0);
   return launch_stream(q, k, v, w, y, dn, m, B, G, L, d, dv, nr,
                        (cudaStream_t)stream);
 }
@@ -829,4 +835,11 @@ extern "C" int h1d_band_fwd_stream(const float* q, const float* k,
 // to repro_torch.kernels.h1d_block.stream_fwd_floats).
 extern "C" int h1d_band_stream_smem(int d, int dv, int nr) {
   return (int)stream_smem(d, dv, nr);
+}
+
+// The grids of this library's last launch on the calling thread
+// (h1d::note_grid) into out[4]: what the wrappers' launch records carry.
+extern "C" int h1d_band_fwd_last_grid(int* out) {
+  for (int i = 0; i < 4; ++i) out[i] = h1d::last_grid[i];
+  return 0;
 }

@@ -533,16 +533,17 @@ int launch_ry(const float* q, const float* k, const float* v, const float* w,
   const int vec_out = (aligned16(dq) && d % 4 == 0 ? VEC_DQ : 0) |
                       (aligned16(dk) && d % 4 == 0 ? VEC_DK : 0) |
                       (aligned16(dv_out) && dv % 4 == 0 ? VEC_DV : 0);
+  const int nbk = L / nr;
+  const dim3 grid_dq(G * ((L + tq - 1) / tq), B);
+  const dim3 grid_kv((nbk + nkb - 1) / nkb, B);
+  note_grid(grid_dq.x, grid_dq.y, grid_kv.x, grid_kv.y);
   // Lq and Lk stay two arguments: as one, the body compiled to slower code
-  band_dq_kernel<MODE, RY><<<dim3(G * ((L + tq - 1) / tq), B), BAND_THREADS,
-                             smem_dq, stream>>>(
+  band_dq_kernel<MODE, RY><<<grid_dq, BAND_THREADS, smem_dq, stream>>>(
       q, k, v, w, y, dn, m, gy, gdn, gm, dq, gmn, dsa, G, L, L, d, dv, nr, tq,
       vec_in, vec_out);
   e = (int)cudaGetLastError();
   if (e) return e;
-  const int nbk = L / nr;
-  band_dkvw_kernel<MODE><<<dim3((nbk + nkb - 1) / nkb, B), BAND_THREADS,
-                           smem_kv, stream>>>(
+  band_dkvw_kernel<MODE><<<grid_kv, BAND_THREADS, smem_kv, stream>>>(
       q, w, gy, gdn, dsa, dk, dv_out, dw, G, L, L, d, dv, nr, nkb, tk, vec_in,
       vec_out);
   return (int)cudaGetLastError();
@@ -941,6 +942,7 @@ int launch_sub_ry(const float* q, const float* k, const float* v,
   const int nb = (Lk + nr - 1) / nr;          // query blocks = key blocks
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(nb * S, B);
+  note_grid(cfg.gridDim.x, cfg.gridDim.y);
   cfg.blockDim = dim3(SUB_THREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -1535,13 +1537,15 @@ int launch_stream(const float* q, const float* k, const float* v,
   const int vec_out = (aligned16(dq) && d % 4 == 0 ? VEC_DQ : 0) |
                       (aligned16(dk) && d % 4 == 0 ? VEC_DK : 0) |
                       (aligned16(dv_out) && dv % 4 == 0 ? VEC_DV : 0);
-  dq_kernel<<<B * G * ((L + STREAM_TQ - 1) / STREAM_TQ), STREAM_THREADS,
-              smem_dq, stream>>>(q, k, v, w, y, dn, m, gy, gdn, gm, dq, gmn,
-                                 B, G, L, d, dv, nr, vec_in, vec_out);
+  const int ctas_dq = B * G * ((L + STREAM_TQ - 1) / STREAM_TQ);
+  const int ctas_kv = B * ((L + STREAM_KV_TK - 1) / STREAM_KV_TK);
+  note_grid(ctas_dq, 1, ctas_kv, 1);
+  dq_kernel<<<ctas_dq, STREAM_THREADS, smem_dq, stream>>>(
+      q, k, v, w, y, dn, m, gy, gdn, gm, dq, gmn, B, G, L, d, dv, nr, vec_in,
+      vec_out);
   e = (int)cudaGetLastError();
   if (e) return e;
-  kv_kernel<<<B * ((L + STREAM_KV_TK - 1) / STREAM_KV_TK), STREAM_THREADS,
-              smem_kv, stream>>>(q, k, v, w, m, gy, gdn, gmn, dk, dv_out, dw,
+  kv_kernel<<<ctas_kv, STREAM_THREADS, smem_kv, stream>>>(q, k, v, w, m, gy, gdn, gmn, dk, dv_out, dw,
                                  B, G, L, d, dv, nr, vec_in, vec_out);
   return (int)cudaGetLastError();
 }
@@ -1562,6 +1566,7 @@ extern "C" int h1d_band_bwd(const float* q, const float* k, const float* v,
                             float* gmn, float* dk, float* dv_out, float* dw,
                             float* dsa, int B, int G, int L, int d, int dv,
                             int nr, int mode, void* stream) {
+  h1d::note_grid(0, 0);
   const cudaStream_t st = (cudaStream_t)stream;
   switch (mode) {
     case h1d::L0_BIDIR:
@@ -1595,6 +1600,7 @@ extern "C" int h1d_band_sub_bwd(const float* q, const float* k,
                                 float* dw, int B, int G, int Lq, int Lk,
                                 int d, int dv, int nr, int ratio,
                                 void* stream) {
+  h1d::note_grid(0, 0);
   return launch_sub(q, k, v, w, y, dn, m, gy, gdn, gm, dq, gmn, dk, dv_out,
                     dw, B, G, Lq, Lk, d, dv, nr, ratio, (cudaStream_t)stream);
 }
@@ -1611,6 +1617,7 @@ extern "C" int h1d_band_bwd_stream(const float* q, const float* k,
                                    float* dv_out, float* dw, int B, int G,
                                    int L, int d, int dv, int nr,
                                    void* stream) {
+  h1d::note_grid(0, 0);
   return launch_stream(q, k, v, w, y, dn, m, gy, gdn, gm, dq, gmn, dk,
                        dv_out, dw, B, G, L, d, dv, nr, (cudaStream_t)stream);
 }
@@ -1620,4 +1627,11 @@ extern "C" int h1d_band_bwd_stream(const float* q, const float* k,
 // stream_dq_floats and stream_dkvw_floats).
 extern "C" int h1d_band_bwd_stream_smem(int d, int dv, int nr, int pass) {
   return (int)stream_bwd_smem(d, dv, nr, pass);
+}
+
+// The grids of this library's last launch on the calling thread
+// (h1d::note_grid) into out[4]: what the wrappers' launch records carry.
+extern "C" int h1d_band_bwd_last_grid(int* out) {
+  for (int i = 0; i < 4; ++i) out[i] = h1d::last_grid[i];
+  return 0;
 }

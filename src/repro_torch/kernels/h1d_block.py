@@ -20,7 +20,9 @@ Each wrapper chooses by the device of its tensors: a CPU tensor takes the
 plain PyTorch version (a mirror of ``ops._blocked_jnp`` /
 ``ops._blocked_sub_jnp``), a CUDA tensor launches the kernel in
 ``csrc/h1d_block.cu``.  ``<wrapper>.launches`` counts kernel launches and
-``<plain>.calls`` counts runs of the plain version.  ``l0_causal`` has
+``<plain>.calls`` counts runs of the plain version; while a hook or a
+capture of ``analysis.contracts`` is open, a launch also hands over its
+record (the CUDA grid that the launcher reports, :func:`last_grid`).  ``l0_causal`` has
 two bodies there: the staged one, which holds a tile's whole key window
 in shared memory (nr up to 64), and a streamed one for the windows too
 wide to hold (a sliding window's nr = 1024 at d = 256), which the
@@ -38,6 +40,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..analysis import contracts
 from ..core import hierarchy as hc
 from . import _build
 
@@ -54,6 +57,7 @@ Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "h1d_band_fwd": [_P] * 7 + [_I] * 7 + [_P],
+    "h1d_band_fwd_last_grid": [_P],
     "h1d_band_fwd_stream": [_P] * 7 + [_I] * 6 + [_P],
     "h1d_band_stream_smem": [_I] * 3,
     "h1d_band_sub_fwd": [_P] * 7 + [_I] * 8 + [_P],
@@ -771,6 +775,15 @@ def _lib():
     return _build.library("h1d_block", _SIGNATURES)
 
 
+def last_grid(fn) -> Tuple[Tuple[int, int], ...]:
+    """The (x, y) grid of each kernel that a band library's last launch
+    ran, as its launcher built it: ``fn`` is the library's
+    ``h1d_band_*_last_grid``."""
+    g = (ctypes.c_int * 4)()
+    fn(ctypes.addressof(g))
+    return ((g[0], g[1]),) if g[2] == 0 else ((g[0], g[1]), (g[2], g[3]))
+
+
 def _outputs(q, dv):
     B, G, L, _ = q.shape
     return (torch.empty((B, G, L, dv), dtype=torch.float32, device=q.device),
@@ -817,6 +830,10 @@ def band_attention_fwd(q, k, v, w, *, nr: int,
     band_attention_fwd.launches += 1
     counts = band_attention_fwd.mode_launches
     counts[key] = counts.get(key, 0) + 1
+    if contracts.ACTIVE:
+        contracts.record(contracts.band_fwd(
+            q, k, v, w, nr=nr, mode=mode, body=body,
+            grid=last_grid(lib.h1d_band_fwd_last_grid)))
     return y, dn, m
 
 
@@ -848,6 +865,10 @@ def band_attention_sub_fwd(q, k, v, w, *, nr: int, ratio: int) -> Triple:
         y.data_ptr(), dn.data_ptr(), m.data_ptr(),
         B, G, Lq, Lk, d, dv, nr, ratio, _build.stream()), "h1d_band_sub_fwd")
     band_attention_sub_fwd.launches += 1
+    if contracts.ACTIVE:
+        contracts.record(contracts.sub_fwd(
+            q, k, v, w, nr=nr, ratio=ratio,
+            grid=last_grid(lib.h1d_band_fwd_last_grid)))
     return y, dn, m
 
 

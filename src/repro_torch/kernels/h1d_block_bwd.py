@@ -32,7 +32,10 @@ plain PyTorch version (the same block layout and einsums as
 ``h1d_block.band_attention_fwd_ref`` / ``_sub_fwd_ref``, so its
 recomputed scores are bit for bit the plain forward's), a CUDA tensor
 launches the kernels in ``csrc/h1d_block_bwd.cu``.  ``<wrapper>.launches``
-counts kernel launches and ``<plain>.calls`` runs of the plain version.
+counts kernel launches and ``<plain>.calls`` runs of the plain version;
+while a hook or a capture of ``analysis.contracts`` is open, a launch
+also hands over its record (the CUDA grids that the launcher reports,
+:func:`h1d_block.last_grid`).
 """
 from __future__ import annotations
 
@@ -41,6 +44,7 @@ from typing import Tuple
 
 import torch
 
+from ..analysis import contracts
 from ..core import hierarchy as hc
 from . import _build
 # the module, not its names: core -> kernels.ops -> here runs while
@@ -54,6 +58,7 @@ Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "h1d_band_bwd": [_P] * 16 + [_I] * 7 + [_P],
+    "h1d_band_bwd_last_grid": [_P],
     "h1d_band_bwd_stream": [_P] * 15 + [_I] * 6 + [_P],
     "h1d_band_bwd_stream_smem": [_I] * 4,
     "h1d_band_sub_bwd": [_P] * 15 + [_I] * 8 + [_P],
@@ -282,6 +287,10 @@ def band_attention_bwd(q, k, v, w, y, dn, m, gy, gdn, gm, *, nr: int,
     band_attention_bwd.launches += 1
     counts = band_attention_bwd.mode_launches
     counts[key] = counts.get(key, 0) + 1
+    if contracts.ACTIVE:
+        contracts.record(contracts.band_bwd(
+            q, k, v, w, nr=nr, mode=mode, body=body,
+            grid=hb.last_grid(lib.h1d_band_bwd_last_grid)))
     return out
 
 
@@ -317,6 +326,10 @@ def band_attention_sub_bwd(q, k, v, w, y, dn, m, gy, gdn, gm, *, nr: int,
         B, G, Lq, Lk, d, v.shape[-1], nr, ratio, _build.stream()),
         "h1d_band_sub_bwd")
     band_attention_sub_bwd.launches += 1
+    if contracts.ACTIVE:
+        contracts.record(contracts.sub_bwd(
+            q, k, v, w, nr=nr, ratio=ratio,
+            grid=hb.last_grid(lib.h1d_band_bwd_last_grid)))
     return out
 
 

@@ -54,7 +54,9 @@ attends widen every row to f32; q, k_new and v_new are widened by the
 wrappers, and an attend returns ``q.dtype`` where the reference does.
 ``<wrapper>.launches`` counts kernel launches (launches on bf16 levels
 also under ``<wrapper>.mode_launches["bf16"]``) and ``<plain>.calls``
-counts runs of the plain version.  The page tables and the shard
+counts runs of the plain version; while a hook or a capture of
+``analysis.contracts`` is open, a launch also hands over its record
+(grid (R,): one CTA a row).  The page tables and the shard
 geometry are trusted: the host builds them from
 ``serve.paged_cache.PagePool`` and ``parallel.sp_attention.sp_tables``.
 """
@@ -67,6 +69,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..analysis import contracts
 from ..core import hierarchy as hc
 from ..core import quantization as qz
 from . import _build
@@ -683,6 +686,9 @@ def decode_attend_fused(cache, q, t, *, nr: int, softmax_scale=None):
         R, G, Lmax, D, Dv, nr, len(cache.ck), float(scale), half,
         _build.stream()), "h1d_decode_attend")
     _count(decode_attend_fused, half)
+    if contracts.ACTIVE:
+        contracts.record(contracts.decode_attend(cache, q, t, nr=nr,
+                                                 grid=((R,),)))
     return out.to(q.dtype)
 
 
@@ -712,6 +718,9 @@ def update_cache_fused(cache, k_new, v_new, t):
         _ptrs(vs), R, Lmax, D, Dv, len(ks), half, _build.stream()),
         "h1d_update_cache")
     _count(update_cache_fused, half)
+    if contracts.ACTIVE:
+        contracts.record(contracts.decode_update(cache, k_new, v_new, t,
+                                                 grid=((R,),)))
     return cache
 
 
@@ -787,6 +796,9 @@ def decode_attend_paged(pool, q, t, bidx, *, nr: int, softmax_scale=None):
     out, half = _attend_paged_launch("h1d_decode_attend_paged", pool, q, t,
                                      bidx, nr, softmax_scale, quant=False)
     _count(decode_attend_paged, half)
+    if contracts.ACTIVE:
+        contracts.record(contracts.decode_attend_paged(
+            pool, q, t, bidx, nr=nr, grid=((q.shape[0],),)))
     return out
 
 
@@ -806,6 +818,9 @@ def decode_attend_paged_quant(pool, q, t, bidx, *, nr: int,
                                      q, t, bidx, nr, softmax_scale,
                                      quant=True)
     _count(decode_attend_paged_quant, half)
+    if contracts.ACTIVE:
+        contracts.record(contracts.decode_attend_paged_quant(
+            pool, q, t, bidx, nr=nr, grid=((q.shape[0],),)))
     return out
 
 
@@ -861,6 +876,9 @@ def update_cache_paged(pool, k_new, v_new, t, utab):
     half = _update_paged_launch("h1d_update_cache_paged", pool, k_new, v_new,
                                 t, utab, quant=False)
     _count(update_cache_paged, half)
+    if contracts.ACTIVE:
+        contracts.record(contracts.decode_update_paged(
+            pool, k_new, v_new, t, utab, grid=((k_new.shape[0],),)))
     return pool
 
 
@@ -877,6 +895,9 @@ def update_cache_paged_quant(pool, k_new, v_new, t, utab):
     _update_paged_launch("h1d_update_cache_paged_quant", pool, k_new, v_new,
                          t, utab, quant=True)
     update_cache_paged_quant.launches += 1
+    if contracts.ACTIVE:
+        contracts.record(contracts.decode_update_paged_quant(
+            pool, k_new, v_new, t, utab, grid=((k_new.shape[0],),)))
     return pool
 
 
@@ -931,6 +952,9 @@ def decode_attend_partial(cache, q, t, bidx, owned, *, nr: int,
         den.data_ptr(), m.data_ptr(), R, G, D, Dv, nr, len(ks), float(scale),
         half, _build.stream()), "h1d_decode_attend_partial")
     _count(decode_attend_partial, half)
+    if contracts.ACTIVE:
+        contracts.record(contracts.decode_attend_partial(
+            cache, q, t, bidx, owned, nr=nr, grid=((R,),)))
     return num, den, m
 
 
@@ -965,6 +989,9 @@ def update_cache_partial(cache, k_new, v_new, t_loc, owned):
         carry_v.data_ptr(), R, Lloc, D, Dv, len(ks), half, _build.stream()),
         "h1d_update_cache_partial")
     _count(update_cache_partial, half)
+    if contracts.ACTIVE:
+        contracts.record(contracts.decode_update_partial(
+            cache, k_new, v_new, t_loc, owned, grid=((R,),)))
     return cache, carry_k, carry_v
 
 

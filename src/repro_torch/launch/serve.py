@@ -34,6 +34,15 @@ kernels (``parallel/sp_attention.py``):
     PYTHONPATH=src python -m repro_torch.launch.serve --sp-data 4 \
         --requests 16 --slots 8 --new-tokens 32 --max-len 2048 \
         --max-prompt 1500
+
+``--telemetry`` turns on ``repro_torch.obs`` (the engine's metrics and
+spans, every kernel launch's accounting); ``--trace-out`` (a Chrome
+trace, Perfetto-loadable), ``--prom-out`` (Prometheus text) and
+``--metrics-jsonl`` (a snapshot line every ``--metrics-period`` seconds
+while serving, and one at the end) write its documents and imply it:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --telemetry \
+        --trace-out trace.json --prom-out metrics.prom
 """
 from __future__ import annotations
 
@@ -44,7 +53,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch import exact_products, resolve_device
+from repro_torch import exact_products, obs, resolve_device
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import get_model
@@ -102,10 +111,31 @@ def main(argv=None):
                     help="sequence-parallel degree: split the hierarchical "
                          "KV cache over an N-way 'data' axis and run the "
                          "decode kernels per shard")
+    ap.add_argument("--telemetry", action="store_true",
+                    help="enable repro_torch.obs metrics, serve-tick spans "
+                         "and kernel-launch accounting (implied by "
+                         "--trace-out / --prom-out / --metrics-jsonl)")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write a Chrome trace-event JSON "
+                         "(Perfetto-loadable) at exit")
+    ap.add_argument("--prom-out", default=None, metavar="PATH",
+                    help="write a Prometheus text exposition at exit")
+    ap.add_argument("--metrics-jsonl", default=None, metavar="PATH",
+                    help="append periodic metrics snapshots as JSON "
+                         "lines while serving")
+    ap.add_argument("--metrics-period", type=float, default=10.0,
+                    help="--metrics-jsonl emission period in seconds")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
     exact_products()
+    telemetry = bool(args.telemetry or args.trace_out or args.prom_out
+                     or args.metrics_jsonl)
+    if telemetry:
+        obs.enable()
+    emitter = (obs.export.JsonlEmitter(args.metrics_jsonl,
+                                       args.metrics_period)
+               if args.metrics_jsonl else None)
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
     if args.causal_mode is not None:
         cfg = dataclasses.replace(cfg, causal_mode=args.causal_mode)
@@ -142,7 +172,13 @@ def main(argv=None):
     if dev.type == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
-    eng.run()
+    if emitter is None:
+        eng.run()
+    else:
+        while eng.queue or eng.active.any():
+            eng.step()
+            emitter.maybe_emit()
+        emitter.emit()       # short runs still get a line at the end
     if dev.type == "cuda":
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
@@ -163,6 +199,16 @@ def main(argv=None):
               f"cow={st.cow_copies} evict={st.evictions} "
               f"preempt={eng.preemptions} hit_rate="
               f"{st.prefix_hit_rate():.3f}")
+    if telemetry:
+        if args.trace_out:
+            obs.export.write_trace(args.trace_out)
+            print(f"[serve] telemetry: trace -> {args.trace_out}")
+        if args.prom_out:
+            obs.export.write_prometheus(args.prom_out)
+            print(f"[serve] telemetry: prometheus -> {args.prom_out}")
+        c = obs.export.snapshot()["metrics"]["counters"]
+        print(f"[serve] telemetry: ticks={c.get('serve.ticks', 0)} "
+              f"finished={c.get('serve.finished', 0)}")
     return reqs
 
 

@@ -26,14 +26,17 @@ moments and applies each update in the parameter's dtype); ``--smoke``
 trains a config's fp32 smoke config and ``--layers N`` cuts its depth to
 N layers.  The encoder-decoder (seamless-m4t-medium) is refused before
 any weight is drawn: the data sources make no audio frames (the JAX
-package has none either).  Telemetry is not ported.
+package has none either).  ``--telemetry`` turns on ``repro_torch.obs``
+(a ``train.step`` span and the ``train.*`` metrics a step, every kernel
+launch's accounting); ``--trace-out`` writes its Chrome trace at exit
+and implies it.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 
-from repro_torch import exact_products, resolve_device
+from repro_torch import exact_products, obs, resolve_device
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data import HierarchicalLM, ZipfLM
 from repro_torch.launch.mesh import make_mesh
@@ -65,10 +68,19 @@ def main(argv=None):
                     help="sequence-parallel attention: shard L over the "
                          "--mesh axis and run the band kernels per shard "
                          "with a halo exchange (needs --mesh N, N > 1)")
+    ap.add_argument("--telemetry", action="store_true",
+                    help="enable repro_torch.obs metrics, train-step spans "
+                         "and kernel-launch accounting (implied by "
+                         "--trace-out)")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write a Chrome trace-event JSON "
+                         "(Perfetto-loadable) at exit")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
     exact_products()
+    if args.telemetry or args.trace_out:
+        obs.enable()
     shape = tuple(int(x) for x in args.mesh.split("x"))
     mesh = make_mesh(shape, ("data", "model")[:len(shape)], device=dev)
     if args.sp and mesh.d < 2:
@@ -103,6 +115,9 @@ def main(argv=None):
           + (f", last loss {hist[-1]['loss']:.4f}, first step "
              f"{hist[0]['step_ms']:.1f} ms" if hist else "")
           + (f", {rate:.0f} tokens/s after it" if rate else ""))
+    if args.trace_out:
+        obs.export.write_trace(args.trace_out)
+        print(f"[train] telemetry: trace -> {args.trace_out}")
     return state
 
 

@@ -57,6 +57,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..core import hierarchy as hc
 from ..core.h1d_decode import H1DCache
 from ..kernels import h1d_block
@@ -66,13 +67,17 @@ NEG_INF = hc.NEG_INF
 _MIN_M = -1e30
 
 #: SP dispatches per operation (``band_attention``, ``h1d_attention``,
-#: ``decode_attend``, ``update_cache``), the reference's ``sp.dispatches``
-#: counter; clear it with ``DISPATCHES.clear()``
+#: ``decode_attend``, ``update_cache``); clear it with
+#: ``DISPATCHES.clear()``
 DISPATCHES: Dict[str, int] = {}
 
 
-def _note_dispatch(op: str) -> None:
+def _note_dispatch(op: str, shards: int) -> None:
+    """One SP dispatch of ``op`` over ``shards`` shards: counted here and,
+    with telemetry on, as the reference's ``sp.dispatches{op, shards}``
+    (the port counts every call, the reference every traced shape)."""
     DISPATCHES[op] = DISPATCHES.get(op, 0) + 1
+    obs.counter("sp.dispatches", op=op, shards=shards).inc()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -277,7 +282,7 @@ def sp_band_attention(q, k, v, w, *, nr: int, mode: str, ratio: int = 1,
     from ..kernels.ops import band_attention
 
     d = mesh.d
-    _note_dispatch("band_attention")
+    _note_dispatch("band_attention", d)
     B, G, Lq, dk = q.shape
     dv = v.shape[-1]
     Lk = k.shape[1]
@@ -345,7 +350,7 @@ def sp_h1d_attention(q, k, v, *, mesh: SPMesh, nr: int = 16, causal: bool = Fals
     d = mesh.d
     B, G, L, D = q.shape
     Dk, Dv = k.shape[-1], v.shape[-1]
-    _note_dispatch("h1d_attention")
+    _note_dispatch("h1d_attention", d)
     Lloc = _validate_sp_shape(L, d, nr, "sp_h1d_attention")
     M = hc.num_levels(L, nr)
     fine_q = causal and causal_mode == "fine-q"
@@ -712,7 +717,7 @@ def sp_decode_attend(cache, q, t, *, nr: int, softmax_scale=None,
     m)`` triples merge with one pmax and one psum.  ``tables``: this
     tick's :func:`sp_tables`."""
     _check_shards(cache, mesh.d)
-    _note_dispatch("decode_attend")
+    _note_dispatch("decode_attend", mesh.d)
     D = q.shape[-1]
     scale = softmax_scale if softmax_scale is not None else 1 / math.sqrt(D)
     # t stays GLOBAL inside the partial kernel: the band masks compare
@@ -740,7 +745,7 @@ def sp_update_cache(cache, k_new, v_new, t, *, mesh: SPMesh,
     update kernel at ``t >> nsh``; ``tables``: this tick's
     :func:`sp_tables`, built from ``t``."""
     _check_shards(cache, mesh.d)
-    _note_dispatch("update_cache")
+    _note_dispatch("update_cache", mesh.d)
     nsh = _sp_layout(cache)[3]
     nlev = 1 + len(cache.shards[0].ck)
     carries = []

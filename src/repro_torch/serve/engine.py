@@ -53,16 +53,30 @@ semantics:
 Everything runs under ``torch.inference_mode()``.  The encoder-decoder
 family is refused, as the reference refuses it (its prefill needs each
 request's frames; ``models/encdec.py``'s prefill and decode step serve
-it directly).  Telemetry is not ported.
+it directly).
+
+Telemetry (``repro_torch.obs``, behind ``obs.enabled()``) as the
+reference records it: ``serve.requests`` at submit; TTFT
+(``serve.ttft_s``), inter-token latency (``serve.itl_s``) and request
+latency (``serve.request_latency_s``), keyed by request so that they
+survive preemption; per tick ``serve.ticks``, ``serve.queue_depth``,
+``serve.active_slots``, ``serve.token_budget_util``, ``pool.occupancy``
+and the pool's counters as deltas (``pool.*``); ``serve.admissions``,
+``serve.preemptions``, ``serve.restores``; the spans ``serve.tick``,
+``serve.admit``, ``serve.prepare`` and ``serve.decode`` (the layers'
+dispatch: eager launches return before the device runs them, and the
+tick ends in the host's read of the sampled tokens).
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .. import obs
 from ..core import hierarchy as hc
 from ..models import ModelConfig, get_model
 from ..models.ssm import SSMState
@@ -258,6 +272,15 @@ class ServeEngine:
         self._serial = 0
         self.preemptions = 0
         self.queue: List[QueueEntry] = []
+        # telemetry bookkeeping: submit and last-token wall-clock marks
+        # keyed by id(req) (TTFT, inter-token latency), this tick's
+        # admitted prefill tokens (token-budget use) and the pool counters
+        # last mirrored into obs (as deltas); written only while
+        # obs.enabled()
+        self._t_submit: Dict[int, float] = {}
+        self._t_last: Dict[int, float] = {}
+        self._tick_prefill_tokens = 0
+        self._pool_seen: Dict[str, int] = {}
 
     # ------------------------------------------------------------------
     def submit(self, req: Request):
@@ -275,6 +298,52 @@ class ServeEngine:
                     f"with overflow='truncate'")
         req.out_tokens = []
         self.queue.append(QueueEntry(req=req, prompt=prompt))
+        if obs.enabled():
+            self._t_submit[id(req)] = time.perf_counter()
+            obs.counter("serve.requests").inc()
+
+    # -- telemetry -----------------------------------------------------
+    def _note_token(self, req: Request) -> None:
+        """TTFT on a request's first generated token, inter-token latency
+        on every later one."""
+        now = time.perf_counter()
+        rid = id(req)
+        if len(req.out_tokens) == 1:
+            t0 = self._t_submit.get(rid)
+            if t0 is not None:
+                obs.histogram("serve.ttft_s").observe(now - t0)
+        else:
+            last = self._t_last.get(rid)
+            if last is not None:
+                obs.histogram("serve.itl_s").observe(now - last)
+        self._t_last[rid] = now
+
+    def _note_finish(self, req: Request) -> None:
+        obs.counter("serve.finished").inc()
+        rid = id(req)
+        self._t_last.pop(rid, None)
+        t0 = self._t_submit.pop(rid, None)
+        if t0 is not None:
+            obs.histogram("serve.request_latency_s").observe(
+                time.perf_counter() - t0)
+
+    def _tick_obs(self, n_active: int) -> None:
+        """Per-tick gauges and counters (telemetry on only)."""
+        obs.counter("serve.ticks").inc()
+        obs.gauge("serve.queue_depth").set(len(self.queue))
+        obs.gauge("serve.active_slots").set(n_active)
+        budget = self.sched.token_budget
+        if budget:
+            used = self._tick_prefill_tokens + n_active
+            obs.gauge("serve.token_budget_util").set(used / budget)
+        self._tick_prefill_tokens = 0
+        if self.paged:
+            obs.gauge("pool.occupancy").set(self.pool.occupancy())
+            for k, v in self.pool.stats.snapshot().items():
+                delta = v - self._pool_seen.get(k, 0)
+                if delta:
+                    obs.counter(f"pool.{k}").inc(delta)
+                    self._pool_seen[k] = v
 
     def _bucket_len(self, S: int) -> int:
         """Padded prompt length: next power of two capped at max_len
@@ -464,6 +533,9 @@ class ServeEngine:
             s = dst[i]
             req = entry.req
             chunk_n = int(ns[i])
+            if obs.enabled():
+                obs.counter("serve.admissions").inc()
+                self._tick_prefill_tokens += chunk_n
             self.pos_host[s] = chunk_n
             self._admitted[s] = entry.prompt
             slot_w.append(s)
@@ -486,12 +558,16 @@ class ServeEngine:
             self.feed[s] = []
             self.req[s] = req
             req.out_tokens.append(int(nxt[i]))
+            if obs.enabled():
+                self._note_token(req)
             # the first token may already end the request: the slot then
             # never activates, so max_new_tokens is a hard cap
             done = (len(req.out_tokens) >= req.max_new_tokens
                     or chunk_n >= self.max_len - 1
                     or self._stopped(req, int(nxt[i])))
             if done:
+                if obs.enabled():
+                    self._note_finish(req)
                 self._finish(s)
             else:
                 self._activate(s)
@@ -563,6 +639,7 @@ class ServeEngine:
         self.queue.insert(0, entry)
         self._release(victim)
         self.preemptions += 1
+        obs.counter("serve.preemptions").inc()
 
     def _try_restore(self, entry: QueueEntry, s: int) -> bool:
         """Swap-in a preempted entry into free slot ``s``; False when
@@ -584,6 +661,7 @@ class ServeEngine:
         self._set_slots([s], [int(entry.restore["tok"])],
                         [int(entry.restore["pos"])])
         self._activate(s)
+        obs.counter("serve.restores").inc()
         return True
 
     def _paged_prepare(self):
@@ -625,19 +703,29 @@ class ServeEngine:
     def step(self) -> int:
         """One engine tick: admit + one decode step for all slots.
         Returns the number of active slots."""
-        self._admit()
+        with obs.span("serve.tick", tid=obs.TRACK_SERVE):
+            n = self._step()
+        if obs.enabled():
+            self._tick_obs(n)
+        return n
+
+    def _step(self) -> int:
+        with obs.span("serve.admit", tid=obs.TRACK_SERVE):
+            self._admit()
         if not self.active.any():
             return 0
         if self.paged:
-            self._paged_prepare()
+            with obs.span("serve.prepare", tid=obs.TRACK_SERVE):
+                self._paged_prepare()
             if not self.active.any():        # everything preempted
                 return 0
             tabs = pc.tables_to_device(
                 *self.pool.build_tables(self.pos_host, self.active,
                                         self.cfg.num_kv_heads), self.device)
-            logits, self.caches = self.fns.decode_step(
-                self.params, self.cfg, self.caches, self.tokens, self.pos,
-                page_tables=tabs)
+            with obs.span("serve.decode", tid=obs.TRACK_SERVE):
+                logits, self.caches = self.fns.decode_step(
+                    self.params, self.cfg, self.caches, self.tokens,
+                    self.pos, page_tables=tabs)
         elif self.sp_d > 1:
             # every row of a slot decodes its position; the geometry of
             # this tick serves every layer
@@ -645,13 +733,16 @@ class ServeEngine:
                 np.repeat(self.pos_host, self.cfg.num_kv_heads),
                 nr=self.cfg.nr, Lmax=self.Lmax, d=self.sp_d,
                 device=self.device)
-            with sp.sp_scope(self.mesh):
+            with obs.span("serve.decode", tid=obs.TRACK_SERVE), \
+                    sp.sp_scope(self.mesh):
                 logits, self.caches = self.fns.decode_step(
                     self.params, self.cfg, self.caches, self.tokens,
                     self.pos, sp_tables=tabs)
         else:
-            logits, self.caches = self.fns.decode_step(
-                self.params, self.cfg, self.caches, self.tokens, self.pos)
+            with obs.span("serve.decode", tid=obs.TRACK_SERVE):
+                logits, self.caches = self.fns.decode_step(
+                    self.params, self.cfg, self.caches, self.tokens,
+                    self.pos)
         nxt = self._sample(
             logits, list(range(self.slots)),
             [self.req[s] if self.active[s] and not self.feed[s] else None
@@ -674,10 +765,14 @@ class ServeEngine:
                 continue
             req = self.req[s]
             req.out_tokens.append(int(nxt_host[s]))
+            if obs.enabled():
+                self._note_token(req)
             done = (len(req.out_tokens) >= req.max_new_tokens
                     or int(self.pos_host[s]) >= self.max_len - 1
                     or self._stopped(req, int(nxt_host[s])))
             if done:
+                if obs.enabled():
+                    self._note_finish(req)
                 self._finish(s)
         if feed_idx:
             self.tokens[torch.as_tensor(feed_idx, device=self.device)] = (

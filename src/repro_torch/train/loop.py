@@ -10,8 +10,11 @@ their own backward), the optimizer's in-place update
 the step counters live on the device.  ``train`` runs the single-host loop; with a ``mesh`` of more
 than one shard each step runs inside ``sp_scope(mesh)``, so every
 attention call shards its sequence axis (sequence-parallel training, the
-reference's ``sp_step``).  Telemetry spans and the sharded multi-pod path
-are not ported.
+reference's ``sp_step``).  With telemetry on (``repro_torch.obs``) each
+step is a ``train.step`` span (args ``step``) that ends when its loss is
+read, and feeds ``train.steps``, ``train.step_s`` and ``train.loss``; a
+watchdog alarm counts ``train.watchdog_alarms``.  The sharded multi-pod
+path is not ported.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import obs, resolve_device
 from ..models import ModelConfig, get_model
 from ..optim import (Optimizer, adafactor, adamw, cosine_schedule,
                      init_error_feedback, int8_compress)
@@ -220,15 +223,22 @@ def train(cfg: ModelConfig, tc: TrainConfig, data_source, num_steps: int,
     for step in range(step0, num_steps):
         batch = batch_to_device(data_source.batch(step), dev)
         t0 = time.perf_counter()
-        with sp_scope(mesh):
-            state, metrics = train_step(state, batch)
-        loss = float(metrics["loss"])          # waits for the device
+        with obs.span("train.step", tid=obs.TRACK_TRAIN,
+                      args={"step": step}):
+            with sp_scope(mesh):
+                state, metrics = train_step(state, batch)
+            loss = float(metrics["loss"])      # waits for the device
         end = time.perf_counter()
         dt = end - t0
+        if obs.enabled():
+            obs.counter("train.steps").inc()
+            obs.histogram("train.step_s").observe(dt)
+            obs.gauge("train.loss").set(loss)
         aux = float(metrics.get("aux", 0.0))
         history.append({"step": step, "loss": loss, "aux": aux,
                         "step_ms": dt * 1e3, "end_s": end})
         if wd.observe(dt):
+            obs.counter("train.watchdog_alarms").inc()
             log(f"[watchdog] step {step} took {dt:.3f}s "
                 f"(ema {wd.ema:.3f}s) -- straggler suspected")
         if step % tc.log_every == 0:

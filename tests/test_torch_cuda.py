@@ -2363,3 +2363,142 @@ def test_encdec_smoke_greedy_on_card_matches_cpu(dev, B):
         assert modes.get(("band_attention_fwd", mode)), (mode, modes)
     assert {"band_attention_sub_fwd", "decode_attend_fused",
             "update_cache_fused"} <= launched
+
+
+# ---------------------------------------------------------------------------
+# telemetry: every launch accounted (repro_torch.obs)
+# ---------------------------------------------------------------------------
+
+def _telemetry_call(name, gen, dev):
+    """A call of kernel wrapper ``name`` at a small shape, and what its
+    launch records must equal: the band bytes on all-ones key weights
+    (``band_bytes`` / ``sub_bytes``), or the wrapper's operands' shapes."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import sp_attention as sp
+
+    B, G, L, d, nr = 2, 2, 128, 16, 16
+    q = _randn(gen, dev, B, G, L, d)
+    k, v = _randn(gen, dev, B, L, d), _randn(gen, dev, B, L, d)
+    w = torch.ones((B, L), device=dev)
+    band = dict(nr=nr, G=G, d=d, dv=d)
+    if name in ("band_attention_fwd", "band_attention_bwd"):
+        fwd = (q, k, v, w)
+        out = hb.band_attention_fwd(*fwd, nr=nr)
+        bwd = name.endswith("bwd")
+        kernel = hbb.band_attention_bwd if bwd else hb.band_attention_fwd
+        args = fwd + (out + tuple(_cotangents(gen, dev, out)) if bwd else ())
+        want = hb.band_bytes(w, mode="l0_causal", backward=bwd, **band)
+        return lambda: kernel(*args, nr=nr), want
+    if name in ("band_attention_sub_fwd", "band_attention_sub_bwd"):
+        ratio = 4
+        fwd = (q, k[:, :L // ratio].contiguous(), v[:, :L // ratio]
+               .contiguous(), w[:, :L // ratio].contiguous())
+        out = hb.band_attention_sub_fwd(*fwd, nr=nr, ratio=ratio)
+        bwd = name.endswith("bwd")
+        kernel = (hbb.band_attention_sub_bwd if bwd
+                  else hb.band_attention_sub_fwd)
+        args = fwd + (out + tuple(_cotangents(gen, dev, out)) if bwd else ())
+        want = hb.sub_bytes(fwd[3], ratio=ratio, backward=bwd, **band)
+        return lambda: kernel(*args, nr=nr, ratio=ratio), want
+    Lmax = 256
+    M = hc.num_levels(Lmax, nr)
+    ts = _sp_ts(Lmax, nr, 2)[:-1]             # in range: no Lmax
+    R = len(ts)
+    t = torch.tensor(ts, dtype=torch.int32, device=dev)
+    qd = _randn(gen, dev, R, G, d)
+    kn, vn = _randn(gen, dev, R, d), _randn(gen, dev, R, d)
+    cache = hd.prefill_cache(_randn(gen, dev, R, Lmax, d),
+                             _randn(gen, dev, R, Lmax, d), Lmax, nr)
+    npages = 3 * R + 2
+    bidx = torch.randint(0, npages, (R, 1 + M), generator=gen, device=dev,
+                         dtype=torch.int32)
+    utab = torch.stack([torch.randperm(npages, generator=gen,
+                                       device=dev)[:R] for _ in range(M)],
+                       1).to(torch.int32)
+    quant = name.endswith("_quant")
+    pool = _paged_pool(gen, dev, M, nr, npages, d, d,
+                       _quant("all" if quant else None, M))
+    mesh = make_mesh((2,), ("data",), device=dev)
+    sh = sp.shard_cache(cache, mesh, nr).shards[1]
+    tabs = sp.sp_tables(np.array(ts), nr=nr, Lmax=Lmax, d=2, device=dev)
+    nsh = sp.sp_sharded_levels(Lmax, nr, 2)
+    slab = hd.H1DCache(sh.k, sh.v, sh.ck[:nsh - 1], sh.cv[:nsh - 1])
+    calls = {
+        "decode_attend_fused": (
+            lambda: dk.decode_attend_fused(cache, qd, t, nr=nr),
+            (cache.k, cache.v, *cache.ck, *cache.cv)),
+        "update_cache_fused": (
+            lambda: dk.update_cache_fused(cache, kn, vn, t),
+            (cache.k, cache.v, *cache.ck, *cache.cv)),
+        "decode_attend_paged": (
+            lambda: dk.decode_attend_paged(pool, qd, t, bidx, nr=nr),
+            (bidx, *_pool_arrays(pool))),
+        "decode_attend_paged_quant": (
+            lambda: dk.decode_attend_paged_quant(pool, qd, t, bidx, nr=nr),
+            (bidx, *_pool_arrays(pool))),
+        "update_cache_paged": (
+            lambda: dk.update_cache_paged(pool, kn, vn, t, utab),
+            (utab, *_pool_arrays(pool))),
+        "update_cache_paged_quant": (
+            lambda: dk.update_cache_paged_quant(pool, kn, vn, t, utab),
+            (utab, *_pool_arrays(pool))),
+        "decode_attend_partial": (
+            lambda: dk.decode_attend_partial(sh, qd, t, tabs.bidx[1],
+                                             tabs.owned[1], nr=nr),
+            (tabs.bidx[1], tabs.owned[1], sh.k, sh.v, *sh.ck, *sh.cv)),
+        "update_cache_partial": (
+            lambda: dk.update_cache_partial(slab, kn, vn, tabs.t_loc[1],
+                                            tabs.upd_owned[1]),
+            (tabs.upd_owned[1], slab.k, slab.v, *slab.ck, *slab.cv)),
+    }
+    call, operands = calls[name]
+    return call, sorted(tuple(x.shape) for x in operands)
+
+
+@pytest.mark.parametrize("name", list(kernels.KERNELS))
+def test_telemetry_counts_every_launch(dev, name):
+    """With telemetry on, one call of each of the twelve wrappers: the
+    ``kernel.launches`` counter of its family rises by exactly the
+    wrapper's ``.launches`` delta, each launch hands over one record of
+    that family, and the counted bytes are the traffic model's: for the
+    band kernels ``band_bytes`` / ``sub_bytes`` on all-ones weights, for
+    the decode kernels the record's operands are the wrapper's, shape
+    for shape."""
+    from repro_torch import obs
+    from repro_torch.analysis import contracts
+    from repro_torch.obs import traffic
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    call, want = _telemetry_call(name, gen, dev)
+    fam = kernels.FAMILY[name]
+    wrapper = kernels.KERNELS[name][0]
+    obs.disable()
+    obs.reset()
+    obs.enable()
+    try:
+        before = wrapper.launches
+        with contracts.capture() as buf:
+            call()
+        torch.cuda.synchronize()
+        delta = wrapper.launches - before
+        c = obs.export.snapshot()["metrics"]["counters"]
+    finally:
+        obs.disable()
+        obs.reset()
+    assert delta == 1
+    assert c[f"kernel.launches{{family={fam}}}"] == delta
+    assert [r.family for r in buf] == [fam] * delta
+    (rec,) = buf
+    # the grids the launcher reports: the staged backward runs its dQ and
+    # dK/dV/dW kernels, every other launch one kernel
+    two = fam == "band_bwd" and rec.meta["mode"] != "coarse_causal"
+    assert len(rec.grid) == (2 if two else 1), rec.describe()
+    assert all(n > 0 for g in rec.grid for n in g)
+    b = traffic.record_hbm_bytes(rec)
+    assert c[f"kernel.hbm_read_bytes{{family={fam}}}"] == b["read_bytes"]
+    assert c[f"kernel.hbm_write_bytes{{family={fam}}}"] == b["write_bytes"]
+    if isinstance(want, int):
+        assert b["read_bytes"] + b["write_bytes"] == want
+    else:
+        shapes = {tuple(o.shape) for o in rec.inputs}
+        assert all(s in shapes for s in want), (want, rec.describe())
