@@ -351,8 +351,36 @@ Phases (each raises on failure; nothing is caught):
    of one ``decode_attend_fused`` call with telemetry off and on, and
    per family the launches, GB moved and GFLOP, each beside the card's
    name and power limit.  ``launches_by_path`` holds ``telemetry``.
+21. ``sp families``: sequence-parallel serving (d = 2 on the one card)
+   of the sliding-window, hybrid and SSM configs at full width in their
+   published bf16.  (a) With the kernel rows: #11 and #12 on bf16 slabs
+   (Lmax 4096) on every shard against their plain versions at gemma3-4b's
+   decode shape (16 rows = 4 slots x 4 kv-heads, G 2, D 256) and
+   zamba2-1.2b's (128 rows, G 1, D 64), attends within 1e-5, updates
+   and carries bit for bit over 3 chained appends; the streamed #1 at
+   the per-shard shape of gemma's SP prefill (4 kv-heads x G 2 x 1024
+   rows, nr 1024, d 256) on both shards against its plain version, and
+   the whole SP band (local launches + halo edge term) against the plain
+   unsharded level, its y / dn within 2e-5 row-scaled as phase 9 holds
+   the SP operator; rows ``<name>@<arch>-sp``.  (b) After
+   phase 12: gemma3-4b cut to 6 of 34 layers of phase 12's weights (one
+   5:1 local/global period), ``ServeEngine(slots=4, max_len=4096)`` on 8
+   greedy requests of 16 tokens, prompts 1000..3900 (seed 0, unbucketed:
+   those padded to 2048 or 4096 keep a whole window a shard, so their
+   local layers run the streamed body per shard), without a mesh, then
+   with ``mesh=make_mesh((2,), ("data",))`` on the mesh-free run's
+   tokens; (c) zamba2-1.2b at phase 18's 12 layers and weights, after
+   its plain run, on the plain run's tokens (the shared block's caches
+   sharded, the SSM states whole); (d) mamba2-1.3b at phase 18's 8
+   layers and weights, on its mesh-free run's tokens (every cache whole,
+   no kernel).  Each SP run: every step's logits within 3e-2 of the
+   mesh-free run's largest |logit|; for gemma and zamba2 #11 and #12
+   launched in bf16 and #5 never (and for gemma the streamed #1), for
+   mamba2 no launch, no SP dispatch and no sharded cache; telemetry on,
+   every family's ``kernel.launches`` equal to its wrappers' launches.
+   ``launches_by_path`` holds ``gemma_sp``, ``hybrid_sp`` and ``ssm_sp``.
 
-Tolerances.  In bf16 (phases 12-15, 17-19): every step's logits, on the same
+Tolerances.  In bf16 (phases 12-15, 17-19, 21): every step's logits, on the same
 tokens, within 3e-2 of the plain row's largest |logit| (both paths
 round every activation to bf16 after f32 attention summed in other
 orders), losses within 2e-2; the
@@ -4844,7 +4872,9 @@ def phase_ssm(dev):
     if all(n % cfg.ssm_chunk == 0 for n in lens):
         raise AssertionError(f"mamba2: every prompt length {lens} is a "
                              f"multiple of {cfg.ssm_chunk}")
-    eng = ServeEngine(cfg, params, slots=GEMMA_SLOTS, max_len=GEMMA_MAX_LEN)
+    logits = {}
+    eng = teacher_forced(ServeEngine(cfg, params, slots=GEMMA_SLOTS,
+                                     max_len=GEMMA_MAX_LEN), logits)
     if eng._bucket:
         raise AssertionError("mamba2: the engine buckets the prompts")
     torch.cuda.reset_peak_memory_stats()
@@ -4870,6 +4900,11 @@ def phase_ssm(dev):
     log(f"phase 18 (b) serving took {time.perf_counter() - t0:.1f}s, "
         f"weights {init_s:.1f}s")
     t1 = time.perf_counter()
+    sp_counts, _ = sp_family_run("mamba2-1.3b sp d=2", cfg, params, fns,
+                                 work, outs, logits, dev, False)
+    del logits
+    log(f"phase 21 (d) took {time.perf_counter() - t1:.1f}s")
+    t1 = time.perf_counter()
     train_counts, _ = family_train("ssm train", cfg, params, dev,
                                    bit_exact=True, plain_grads=False)
     del params
@@ -4877,7 +4912,7 @@ def phase_ssm(dev):
         raise AssertionError(f"mamba2 training launched kernels: "
                              f"{train_counts}")
     log(f"phase 18 (b) training took {time.perf_counter() - t1:.1f}s")
-    return counts, train_counts
+    return counts, train_counts, sp_counts
 
 
 def phase_hybrid(dev):
@@ -4919,27 +4954,34 @@ def phase_hybrid(dev):
         f"the plain run's")
     eng = ServeEngine(cfg, params, slots=GEMMA_SLOTS, max_len=GEMMA_MAX_LEN)
     forced_run("zamba2 dense", eng, work, fns, plain, plain_logits)
-    del eng, plain_logits
-    gc.collect()
-    torch.cuda.empty_cache()
+    del eng
     log(f"phase 18 (c) serving took {time.perf_counter() - t0:.1f}s, "
         f"weights {init_s:.1f}s")
+    t1 = time.perf_counter()
+    sp_counts, _ = sp_family_run("zamba2-1.2b sp d=2", cfg, params, fns,
+                                 work, plain, plain_logits, dev, True)
+    del plain_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 21 (c) took {time.perf_counter() - t1:.1f}s")
     t1 = time.perf_counter()
     train_counts, _ = family_train("hybrid train", cfg, params, dev,
                                    grad_ctx=dict(leaf_tol=SSM_SUM_LEAVES))
     del params
     log(f"phase 18 (c) training took {time.perf_counter() - t1:.1f}s")
-    return counts, train_counts
+    return counts, train_counts, sp_counts
 
 
 def phase_ssm_families(dev):
     """18 (b)-(c) ((a), the kernel rows at zamba2's shapes, runs with
-    phase 17's).  Returns {"ssm", "ssm_train", "hybrid", "hybrid_train":
-    launches}."""
-    ssm, ssm_train = phase_ssm(dev)
-    hybrid, hybrid_train = phase_hybrid(dev)
+    phase 17's), with 21 (c)-(d) on their weights before they train.
+    Returns {"ssm", "ssm_train", "hybrid", "hybrid_train", "ssm_sp",
+    "hybrid_sp": launches}."""
+    ssm, ssm_train, ssm_sp = phase_ssm(dev)
+    hybrid, hybrid_train, hybrid_sp = phase_hybrid(dev)
     return dict(ssm=ssm, ssm_train=ssm_train, hybrid=hybrid,
-                hybrid_train=hybrid_train)
+                hybrid_train=hybrid_train, ssm_sp=ssm_sp,
+                hybrid_sp=hybrid_sp)
 
 
 # ---------------------------------------------------------------------------
@@ -5643,6 +5685,313 @@ def phase_telemetry(dev):
     return dict(total)
 
 
+# ---------------------------------------------------------------------------
+# phase 21: SP serving of the sliding-window, SSM and hybrid configs
+# ---------------------------------------------------------------------------
+
+SP_FAMILY_D = 2
+# gemma3-4b cut to one 5:1 local/global period (6 of 34 layers) of phase
+# 12's full-depth weights; zamba2-1.2b and mamba2-1.3b at phase 18's
+# depths on phase 18's weights, served before those weights train
+SP_GEMMA_LAYERS = 6
+# the decode kernels at the shapes these SP paths give them: (arch,
+# rows = 4 slots x kv-heads, G, head_dim, the phase-21 path)
+SP_FAMILY_SHAPES = (("gemma3-4b", 16, 2, 256, "gemma_sp"),
+                    ("zamba2-1.2b", 128, 1, 64, "hybrid_sp"))
+# the streamed #1 per shard in gemma's SP prefill: one prompt's 4
+# kv-heads x G 2, a 1782-token prompt padded to 2048 -> 1024 rows a shard
+# at d = 2, window (nr) 1024, head_dim 256, keys live to 758 on shard 1
+SP_STREAM = (4, 2, 2048, 1024, 256, 1782)
+
+
+def phase_sp_family_kernels(dev):
+    """21 (a).  #11 and #12 on bf16 slabs against their plain versions on
+    every shard at d = 2, Lmax 4096, at gemma3-4b's decode shape (16 rows,
+    G 2, D 256) and zamba2-1.2b's (128 rows, G 1, D 64): attends within
+    ATTN_TOL on the f32 triple, updates and carries bit for bit over 3
+    chained appends, each timed as shard 1's call; the streamed #1 at
+    the per-shard shape of gemma's SP prefill (``SP_STREAM``), held to
+    its plain version on each shard's slab, and the whole SP band
+    (``sp_band_attention``: the local launches and the halo edge term)
+    to the plain version of the unsharded level, y / dn within
+    SP_OP_FWD_TOL row-scaled,
+    timed on shard 1 beside the plain version and
+    ``scaled_dot_product_attention``.  Rows ``<name>@<arch>-sp``; their
+    launches are those of the phase 21 path that runs the shape."""
+    from repro_torch.core import h1d_decode as hd
+    from repro_torch.kernels import h1d_block as hb
+    from repro_torch.kernels import h1d_decode_kernel as dk
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import sp_attention as sp
+
+    bf = torch.bfloat16
+    Lb, d = BF16_LMAX, SP_FAMILY_D
+    Lloc = Lb // d
+    gen = torch.Generator(device=dev).manual_seed(32)
+    mesh = make_mesh((d,), ("data",), device=dev)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    rows = []
+
+    def add(name, src, replaces, arch, path, numbers, note, **extra):
+        rows.append(dict(name=f"{name}@{arch}-sp", route="cuda",
+                         source=f"src/repro_torch/kernels/csrc/{src}",
+                         replaces=f"src/repro/kernels/{replaces}",
+                         paths=[path], note=note, **numbers, **extra))
+        log(f"{name}@{arch}-sp: max abs err {numbers['max_abs_err']:.3g}, "
+            f"{numbers['ms']:.4f} ms, device {numbers['device_ms']:.4f} "
+            f"ms, bound {numbers['bound_ms']:.5f} ms, plain "
+            f"{numbers['plain_ms']:.3f} ms; {note}")
+
+    def timed(kernel, plain, err, bms_by, library=None):
+        return dict(max_abs_err=err, ms=time_ms(kernel),
+                    device_ms=device_ms(kernel), plain_ms=time_ms(plain),
+                    bound_ms=bms_by[0], bound_by=bms_by[1],
+                    library_ms=None if library is None else time_ms(library))
+
+    def slab(c, nsh):
+        return hd.H1DCache(c.k.clone(), c.v.clone(),
+                           tuple(x.clone() for x in c.ck[:nsh - 1]),
+                           tuple(x.clone() for x in c.cv[:nsh - 1]))
+
+    for arch, Rb, Gb, Db, path in SP_FAMILY_SHAPES:
+        cache = hd.prefill_cache(randn(Rb, Lb, Db).to(bf),
+                                 randn(Rb, Lb, Db).to(bf), Lb, NR)
+        q = randn(Rb, Gb, Db).to(bf).float()
+        t = torch.randint(0, Lb, (Rb,), generator=gen, device=dev,
+                          dtype=torch.int32)
+        edges = [0, NR - 1, NR, Lloc - 1, Lloc, Lb - 1]
+        t[:len(edges)] = torch.tensor(edges, dtype=torch.int32)
+        sc = sp.shard_cache(cache, mesh, NR)
+        tabs = sp.sp_tables(t.cpu().numpy(), nr=NR, Lmax=Lb, d=d, device=dev)
+        nsh = sp.sp_sharded_levels(Lb, NR, d)
+        nlev = 1 + len(cache.ck)
+        small = 4 * (q.numel() + Rb + Rb * Gb * Db)
+        kn, vn = randn(Rb, Db).to(bf), randn(Rb, Db).to(bf)
+        err = 0.0
+        for s, sh in enumerate(sc.shards):
+            args = (sh, q, t, tabs.bidx[s], tabs.owned[s])
+            e, *_ = compare(f"decode_attend_partial[bf16] {arch} shard {s}",
+                            dk.decode_attend_partial(*args, nr=NR),
+                            dk.decode_attend_partial_ref(*args, nr=NR),
+                            ATTN_TOL)
+            err = max(err, e)
+            a, b = slab(sh, nsh), slab(sh, nsh)
+            for step in range(3):
+                tt = (t + step).clamp(max=Lb - 1)
+                tl = sp.sp_tables(tt.cpu().numpy(), nr=NR, Lmax=Lb, d=d,
+                                  device=dev)
+                upd = (kn, vn * (step + 1), tl.t_loc[s], tl.upd_owned[s])
+                _, ak, av = dk.update_cache_partial(a, *upd)
+                _, bk, bv = dk.update_cache_partial_ref(b, *upd)
+                if not all(torch.equal(x, y) for x, y in zip(
+                        (*pool_arrays(a), ak, av), (*pool_arrays(b), bk, bv))):
+                    raise AssertionError(f"update_cache_partial[bf16] {arch} "
+                                         f"shard {s}: not bit-exact")
+        sh = sc.shards[1]
+        args = (sh, q, t, tabs.bidx[1], tabs.owned[1])
+        pkeys = partial_keys(t, tabs.owned[1], nlev)
+        add("decode_attend_partial[bf16]", "h1d_decode.cu",
+            "h1d_decode_kernel.py:267", arch, path,
+            timed(lambda: dk.decode_attend_partial(*args, nr=NR),
+                  lambda: dk.decode_attend_partial_ref(*args, nr=NR), err,
+                  bound(pkeys * 2 * Db * 2 + small
+                        + 4 * Rb * (2 + 2 * (nlev + 1)),
+                        pkeys * Gb * (4 * Db + 4))),
+            f"every shard at d = {d} within ATTN_TOL; timed: shard 1's "
+            f"call, {pkeys} band keys owned and unmasked",
+            R=Rb, G=Gb, D=Db)
+        a, b = slab(sh, nsh), slab(sh, nsh)
+        upd = (kn, vn, tabs.t_loc[1], tabs.upd_owned[1])
+        own = int(tabs.upd_owned[1].sum())
+        add("update_cache_partial[bf16]", "h1d_decode.cu",
+            "h1d_decode_kernel.py:807", arch, path,
+            timed(lambda: dk.update_cache_partial(a, *upd),
+                  lambda: dk.update_cache_partial_ref(b, *upd), 0.0,
+                  bound(4 * (2 * own * Db + 2 * Rb)
+                        + 2 * (own * nsh * 2 * 2 * Db
+                               + (Rb - own) * 2 * 2 * Db + 2 * Rb * Db),
+                        (own * nsh + Rb - own) * 2 * Db)),
+            f"every shard at d = {d} bit for bit over 3 chained appends; "
+            f"timed: shard 1's call, {nsh} sharded levels, {own} of {Rb} "
+            f"rows its own",
+            R=Rb, G=Gb, D=Db)
+        del cache, sc, tabs, a, b
+        torch.cuda.empty_cache()
+
+    # the streamed #1 per shard, and the whole SP band at gemma's window
+    Bs, Gs, Ls, nr, ds, live = SP_STREAM
+    if hb.check_window_fwd("l0_causal", nr, ds, ds) != "stream":
+        raise AssertionError(f"nr={nr}, d={ds} is not on the streamed body")
+    q = (randn(Bs, Gs, Ls, ds) / math.sqrt(ds))
+    k = randn(Bs, Ls, ds)
+    w = torch.ones((Bs, Ls), device=dev)
+    w[:, live:] = 0.0
+    v = randn(Bs, Ls, ds) * w[..., None]
+    # the normalised output the local layer takes (y / dn), row-scaled as
+    # phase 9 holds the SP operator: the halo merge rescales each row's
+    # unnormalised sums by another exponent
+    z = [y / dn.clamp(min=1e-9)[..., None] for y, dn, _ in (
+        sp.sp_band_attention(q, k, v, w, nr=nr, mode="l0_causal",
+                             mesh=mesh),
+        hb.band_attention_fwd_ref(q, k, v, w, nr=nr))]
+    op_err, op_scaled, _ = compare(
+        f"sp_band_attention l0_causal nr={nr} d={ds} L={Ls} at d={d} "
+        f"(y / dn)", z[:1], z[1:], SP_OP_FWD_TOL, ("row",))
+    del z
+    L1 = Ls // d
+    shards = [(q[:, :, s * L1:(s + 1) * L1].contiguous(),
+               k[:, s * L1:(s + 1) * L1].contiguous(),
+               v[:, s * L1:(s + 1) * L1].contiguous(),
+               w[:, s * L1:(s + 1) * L1].contiguous()) for s in range(d)]
+    err = 0.0
+    for s, sargs in enumerate(shards):
+        e, *_ = compare(f"band_attention_fwd[l0_causal_stream] shard {s} "
+                        f"L={L1}", hb.band_attention_fwd(*sargs, nr=nr),
+                        hb.band_attention_fwd_ref(*sargs, nr=nr), ATTN_TOL)
+        err = max(err, e)
+    sargs = shards[1]
+    ws = sargs[3]
+    i = torch.arange(L1, device=dev)
+    allow = hb.band_mask(i[:, None], i[None, :], nr, "l0_causal", L1)
+    mask = (allow[None] & (ws > 0)[:, None, :])[:, None]
+    kx = sargs[1][:, None].expand(Bs, Gs, L1, ds).contiguous()
+    vx = sargs[2][:, None].expand(Bs, Gs, L1, ds).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    add("band_attention_fwd[l0_causal_stream]", "h1d_block.cu",
+        "h1d_block.py:299", "gemma3-4b", "gemma_sp",
+        timed(lambda: hb.band_attention_fwd(*sargs, nr=nr),
+              lambda: hb.band_attention_fwd_ref(*sargs, nr=nr), err,
+              bound(hb.band_bytes(ws, nr=nr, mode="l0_causal", G=Gs, d=ds,
+                                  dv=ds),
+                    causal_pairs(ws, nr) * Gs * (4 * ds + 3)),
+              library=lambda: sdpa(sargs[0], kx, vx, attn_mask=mask,
+                                   scale=1.0)),
+        f"{Bs} x G {Gs} x L {L1} a shard (a {live}-token prompt padded to "
+        f"{Ls}, d = {d}), nr {nr}, d {ds}, every shard within ATTN_TOL; "
+        f"timed: shard 1 (keys live to {live - L1}); the whole SP band "
+        f"(launches + halo edge term), y / dn, within {op_scaled:.3g} "
+        f"row-scaled of the plain unsharded level's (<= {SP_OP_FWD_TOL}); "
+        f"library_ms: "
+        f"scaled_dot_product_attention with the same mask, timed here only",
+        mode="l0_causal", sp_op_max_abs_err=op_err,
+        sp_op_scaled_err=op_scaled)
+    del q, k, v, w, shards, sargs, kx, vx, mask
+    torch.cuda.empty_cache()
+    return rows
+
+
+def sp_family_run(label, cfg, params, fns, work, tokens, ref_logits, dev,
+                  sharded: bool):
+    """One of 21 (b)-(d): ``ServeEngine(slots=4, max_len=4096,
+    mesh=make_mesh((2,), ...))`` on ``work`` with every request handed the
+    mesh-free run's ``tokens``, every step's logits held to the mesh-free
+    run's ``ref_logits`` (:func:`forced_run`, BF16_LOGIT_TOL), telemetry
+    on.  ``sharded``: #11 and #12 launched in bf16, #5 never, the SP band
+    or operator dispatched at prefill, every hierarchical cache sharded;
+    else (mamba2) no cache sharded, no dispatch and no kernel launched.
+    Every family's ``kernel.launches`` equals its wrappers' launches.
+    Returns (the run's launches, its SP dispatches by operation)."""
+    from repro_torch import kernels, obs
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.obs import export
+    from repro_torch.parallel import sp_attention as sp
+    from repro_torch.serve import ServeEngine
+
+    eng = ServeEngine(cfg, params, slots=GEMMA_SLOTS, max_len=GEMMA_MAX_LEN,
+                      mesh=make_mesh((SP_FAMILY_D,), ("data",), device=dev))
+    kinds = collections.Counter(type(c).__name__ for c in eng.caches)
+    obs.disable()
+    obs.reset()
+    sp.DISPATCHES.clear()
+    obs.enable()
+    stats, counts = forced_run(label, eng, work, fns, tokens, ref_logits)
+    torch.cuda.synchronize()
+    obs.disable()
+    c = export.snapshot()["metrics"]["counters"]
+    launches = {n: k.launches for n, (k, _) in kernels.KERNELS.items()}
+    bad = {fam: (c.get(f"kernel.launches{{family={fam}}}", 0),
+                 launches[name])
+           for name, fam in kernels.FAMILY.items()
+           if c.get(f"kernel.launches{{family={fam}}}", 0) != launches[name]}
+    if bad:
+        raise AssertionError(f"{label}: kernel.launches (telemetry, "
+                             f"wrappers) differ: {bad}")
+    obs.reset()
+    dispatches = dict(sp.DISPATCHES)
+    if sharded:
+        need = ("decode_attend_partial[bf16]", "update_cache_partial[bf16]")
+        missing = [k_ for k_ in need if not counts.get(k_)]
+        fused = (counts.get("decode_attend_fused", 0)
+                 + counts.get("decode_attend_fused[bf16]", 0))
+        if missing or fused or not kinds.get("SPCache") \
+                or kinds.get("H1DCache") or not dispatches:
+            raise AssertionError(f"{label}: {missing} not launched, "
+                                 f"decode_attend_fused {fused}, caches "
+                                 f"{dict(kinds)}, dispatches {dispatches}: "
+                                 f"{counts}")
+    elif any(counts.values()) or dispatches or kinds.get("SPCache"):
+        raise AssertionError(f"{label}: launches {counts}, dispatches "
+                             f"{dispatches}, caches {dict(kinds)}")
+    log(f"{label}: caches {dict(kinds)}, SP dispatches {dispatches}, "
+        f"telemetry launches equal to the wrappers' "
+        f"({sum(launches.values())}); tokens/s {stats['tokens_per_s']:.1f}, "
+        f"decode ms a tick {stats['decode_ms_per_tick']:.2f}, prefill ms a "
+        f"call {stats['prefill_ms_per_call']:.1f} ({card_line()})")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, dispatches
+
+
+def phase_sp_gemma(dev, params):
+    """21 (b).  ``gemma3-4b`` at full width in bf16, SP_GEMMA_LAYERS
+    layers of phase 12's weights (one local/global period: 5 local layers
+    at window 1024, 1 global h1d): the mesh-free engine on phase 18's
+    traffic (8 requests of 16 tokens, prompts 1000..3900, seed 0; those
+    padded to 2048 or 4096 take the SP band per shard under the mesh),
+    then :func:`sp_family_run` at d = 2 on its tokens.  Returns the SP
+    run's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.serve import ServeEngine
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("gemma3-4b"),
+                              num_layers=SP_GEMMA_LAYERS)
+    cut = dict(params, layers=params["layers"][:SP_GEMMA_LAYERS])
+    fns = get_model(cfg)
+    work = bf16_prompts(cfg.vocab_size, *DENSE_PROMPTS, DENSE_REQUESTS)
+    lens = [len(p) for _, p in work]
+    if not any(-(-n // cfg.sliding_window) * cfg.sliding_window
+               // SP_FAMILY_D % cfg.sliding_window == 0 for n in lens):
+        raise AssertionError(f"gemma sp: no prompt of {lens} keeps a whole "
+                             f"window a shard")
+    logits = {}
+    eng = teacher_forced(ServeEngine(cfg, cut, slots=GEMMA_SLOTS,
+                                     max_len=GEMMA_MAX_LEN), logits)
+    outs, stats, _ = run_engine(eng, work, fns, new_tokens=GEMMA_NEW)
+    del eng
+    log(f"gemma sp: mesh-free run of {cfg.num_layers} layers, tokens/s "
+        f"{stats['tokens_per_s']:.1f}")
+    counts, dispatches = sp_family_run("gemma3-4b sp d=2", cfg, cut, fns,
+                                       work, outs, logits, dev, True)
+    # the local layers' band under SP (the global layers' operator counts
+    # as h1d_attention), on the streamed body per shard
+    if not (counts.get("band_attention_fwd[l0_causal_stream]")
+            and dispatches.get("band_attention")):
+        raise AssertionError(f"gemma sp: the local layers' SP band never "
+                             f"ran: {counts}, {dispatches}")
+    del logits, cut
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 21 (b) took {time.perf_counter() - t0:.1f}s")
+    return counts
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
@@ -5671,6 +6020,9 @@ def main() -> int:
     rows += phase_encdec_kernels(dev)
     log(f"phases 17 (a), 18 (a) and 19 (a) took "
         f"{time.perf_counter() - t_f:.1f}s")
+    t_f = time.perf_counter()
+    rows += phase_sp_family_kernels(dev)
+    log(f"phase 21 (a) took {time.perf_counter() - t_f:.1f}s")
     t_sp = time.perf_counter()
     sp_rows = phase_sp_kernels(dev)
     rows += sp_rows
@@ -5702,6 +6054,7 @@ def main() -> int:
     gemma_counts, gemma_params = phase_gemma(dev)
     log(f"phase gemma took {time.perf_counter() - t_g:.1f}s (kernel row "
         f"and serving)")
+    gemma_sp_counts = phase_sp_gemma(dev, gemma_params)
     t_g = time.perf_counter()
     rows.append(phase_stream_bwd_kernel(dev))
     box = [gemma_params]        # phase 13 trains, and consumes, them
@@ -5719,6 +6072,7 @@ def main() -> int:
         f"{time.perf_counter() - t_g:.1f}s")
     full_counts = phase_full(dev, serve_stats, train_stats)
     family_counts = phase_families(dev)
+    family_counts["gemma_sp"] = gemma_sp_counts
     t_s = time.perf_counter()
     family_counts.update(phase_ssm_families(dev))
     log(f"phase 18 (b)-(c) (the SSM and hybrid families) took "

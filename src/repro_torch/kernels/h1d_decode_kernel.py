@@ -167,6 +167,17 @@ def attend_dense_blocks(t, nr: int, Lmax: int, nbands: int):
     return blk
 
 
+def update_pair_index(t, rows: int, level: int):
+    """Sibling pair of a level of ``rows`` rows that an update at
+    position ``t`` writes (``dense_pair`` in the source, shared by #6 and
+    #12, and by the plain versions' ancestor walk): ancestor ``t >>
+    level`` sits in pair ``min(t >> (level + 1), rows // 2 - 1)``, floored
+    at 0, at row ``(t >> level) & 1`` of it.  ``t`` may be an array; a
+    shard's slab takes its local position and rows.  Returns int64."""
+    t = np.asarray(t, np.int64)
+    return np.maximum(np.minimum(t >> (level + 1), rows // 2 - 1), 0)
+
+
 class AttendStages(NamedTuple):
     stages: int          # ring slots (2 (nlev + 1) when all bands fit)
     chunk_rows: int      # rows a slot holds

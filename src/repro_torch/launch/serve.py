@@ -27,13 +27,20 @@ slot) run at their published bfloat16, weights and caches alike;
 its depth to N layers.  The encoder-decoder (seamless-m4t-medium) is
 refused, as the engine refuses it, before any weight is drawn: its
 prefill and decode step (``models/encdec.py``) serve it directly.
-``--sp-data N`` splits each layer's cache along its sequence axis into
-``N`` shards on the one device and serves through the sequence-parallel
-kernels (``parallel/sp_attention.py``):
+``--sp-data N`` splits each h1d layer's hierarchical cache along its
+sequence axis into ``N`` shards on the one device and serves through the
+sequence-parallel kernels (``parallel/sp_attention.py``), for every
+family the engine serves: gemma3-4b's local layers keep their rolling
+caches whole (their window band runs per shard where a padded prompt
+keeps a whole window a shard), mamba2-1.3b's and zamba2-1.2b's SSM
+states stay whole, and zamba2's shared attention block is sharded:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --sp-data 4 \
         --requests 16 --slots 8 --new-tokens 32 --max-len 2048 \
         --max-prompt 1500
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
+        --smoke --device cpu --sp-data 2 --requests 3 --slots 2 \
+        --new-tokens 4 --max-len 64
 
 ``--telemetry`` turns on ``repro_torch.obs`` (the engine's metrics and
 spans, every kernel launch's accounting); ``--trace-out`` (a Chrome

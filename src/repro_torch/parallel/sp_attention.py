@@ -41,7 +41,9 @@ exchange (SP training, ``train.loop.train(..., mesh=)``).
 Entry points: ``sp_band_attention`` (one banded level, every mode),
 ``sp_h1d_attention`` (the whole operator), ``sp_decode_attend`` /
 ``sp_update_cache`` (the decode tick), ``shard_cache`` /
-``unshard_cache`` / ``scatter_rows`` (cache layout), ``sp_scope`` /
+``unshard_cache`` / ``scatter_rows`` (one hierarchical cache's layout),
+``shard_caches`` / ``unshard_caches`` (a model's mixed cache list: only
+the hierarchical caches shard), ``sp_scope`` /
 ``sp_ctx`` (the callers in ``core/`` and ``kernels/ops.py`` route through
 this module inside ``sp_scope(mesh)``).
 """
@@ -569,10 +571,18 @@ def _cache_of(levels) -> H1DCache:
     return H1DCache(k=ks[0], v=vs[0], ck=tuple(ks[1:]), cv=tuple(vs[1:]))
 
 
+def _need(cache, kind, what: str) -> None:
+    if not isinstance(cache, kind):
+        raise TypeError(f"{what} takes a {kind.__name__}, got "
+                        f"{type(cache).__name__}")
+
+
 def shard_cache(cache: H1DCache, mesh: SPMesh, nr: int) -> SPCache:
     """Copy a dense cache into the ``mesh.d`` shards (each slab on its
     shard's device).  Raises ``ValueError`` when the fine level cannot
-    keep an ``nr``-row block per shard."""
+    keep an ``nr``-row block per shard, ``TypeError`` for any other
+    cache than an ``H1DCache``."""
+    _need(cache, H1DCache, "shard_cache")
     d = mesh.d
     nsh = _shardable_levels(cache.k.shape[-2], nr, d)
     return SPCache(shards=tuple(
@@ -585,6 +595,7 @@ def shard_cache(cache: H1DCache, mesh: SPMesh, nr: int) -> SPCache:
 def unshard_cache(cache: SPCache) -> H1DCache:
     """The dense cache of a sharded one: sharded levels concatenated in
     shard order, replicated levels from shard 0."""
+    _need(cache, SPCache, "unshard_cache")
     d, _, _, nsh = _sp_layout(cache)
     per_shard = [_levels(sh) for sh in cache.shards]
     return _cache_of([
@@ -597,6 +608,8 @@ def scatter_rows(cache: SPCache, dense: H1DCache, rows) -> None:
     """Write the first ``len(rows)`` rows of the dense cache ``dense``
     into rows ``rows`` of every shard's slab (admission of a prefilled
     group: one slice per shard and level)."""
+    _need(cache, SPCache, "scatter_rows")
+    _need(dense, H1DCache, "scatter_rows")
     d, _, _, nsh = _sp_layout(cache)
     n = rows.numel()
     src = _levels(dense)
@@ -604,6 +617,23 @@ def scatter_rows(cache: SPCache, dense: H1DCache, rows) -> None:
         for l, (dst, one) in enumerate(zip(_levels(sh), src)):
             for a, b in zip(dst, one):
                 a.index_copy_(0, rows, _part(b[:n], l, s, d, nsh))
+
+
+def shard_caches(caches, mesh: SPMesh, nr: int) -> list:
+    """A model's per-layer cache list with every hierarchical cache
+    sharded (:func:`shard_cache`) and every other cache -- a full or
+    local layer's ``{"k", "v", "pos"}`` dict, an SSM layer's state --
+    kept whole, as the reference keeps it on every shard."""
+    return [shard_cache(c, mesh, nr) if isinstance(c, H1DCache) else c
+            for c in caches]
+
+
+def unshard_caches(caches) -> list:
+    """The inverse of :func:`shard_caches`: every ``SPCache`` of the list
+    unsharded (:func:`unshard_cache`), every other cache passed
+    through."""
+    return [unshard_cache(c) if isinstance(c, SPCache) else c
+            for c in caches]
 
 
 # ---------------------------------------------------------------------------

@@ -33,13 +33,17 @@ semantics:
   scales (``quant_levels``: levels ``[0, n)``, -1 = all).  The dense
   slot path stays as the oracle;
 * ``mesh=`` (``launch.mesh.make_mesh((d,), ("data",))``) serves with
-  the hierarchical cache split along its sequence axis over the mesh's
-  ``d`` shards (``parallel/sp_attention.py``): each layer's cache is one
-  slab per shard, prefill runs the band kernels per shard with a halo
-  exchange, and every decode tick runs the partial attend and update
-  kernels per shard, merged across shards; the tick's shard geometry is
-  built once on the host and copied to the card in one transfer shared
-  by every layer;
+  the hierarchical caches split along their sequence axis over the
+  mesh's ``d`` shards (``parallel/sp_attention.py``): each h1d layer's
+  cache is one slab per shard, prefill runs the band kernels per shard
+  with a halo exchange (a local layer's window band too, where its
+  padded prompt keeps a whole window per shard), and every decode tick
+  runs the partial attend and update kernels per shard, merged across
+  shards; the tick's shard geometry is built once on the host and
+  copied to the card in one transfer shared by every layer.  A local
+  layer's rolling cache and an SSM layer's state stay whole, as the
+  reference keeps them on every shard; a stack with no hierarchical
+  cache (mamba2) builds no geometry;
 * prompts longer than ``max_len - 1`` are rejected or tail-truncated at
   ``submit`` (``overflow``);
 * generation ends at ``max_new_tokens``, a full cache, or a stop token
@@ -120,12 +124,14 @@ class ServeEngine:
     scheduler for either path.
 
     ``mesh`` (an ``SPMesh`` on the engine's device, whose axis must be
-    ``sp_axis``) enables sequence-parallel serving: the dense slot
-    caches are split along their sequence axis over the mesh's ``d``
-    shards and prefill and decode run inside ``sp_scope(mesh)``.
-    Requires ``attention='h1d'`` and a padded ``max_len`` that is a
-    multiple of ``d * nr`` (one level-0 block per shard); a 1-way mesh
-    serves as without one.
+    ``sp_axis``) enables sequence-parallel serving: the hierarchical
+    slot caches are split along their sequence axis over the mesh's
+    ``d`` shards (rolling caches and SSM states stay whole) and prefill
+    and decode run inside ``sp_scope(mesh)``.  Requires
+    ``attention='h1d'`` and a padded ``max_len`` that is a multiple of
+    ``d * nr`` (one level-0 block per shard), as the reference does, for
+    every family it serves (dense, MoE, VLM, sliding-window, SSM,
+    hybrid); a 1-way mesh serves as without one.
 
     ``greedy=False`` samples; ``seed`` seeds the noise (see
     :meth:`_noise`)."""
@@ -174,17 +180,6 @@ class ServeEngine:
                              f"engine over sp_axis={sp_axis!r}")
         sp_d = mesh.d if mesh is not None else 1
         if sp_d > 1:
-            if cfg.family in ("ssm", "hybrid"):
-                raise NotImplementedError(
-                    f"SP serving of family={cfg.family!r} is not ported: "
-                    "an SSM layer's recurrent state has no sequence axis "
-                    "to split (the reference keeps it whole on every "
-                    "shard)")
-            if cfg.sliding_window > 0:
-                raise NotImplementedError(
-                    "SP serving of a sliding-window config is not ported: "
-                    "its local layers' rolling caches have no sequence "
-                    "split")
             if cfg.attention != "h1d":
                 raise ValueError(
                     "SP serving shards the hierarchical cache's sequence "
@@ -251,8 +246,8 @@ class ServeEngine:
                 self.caches = self.fns.init_caches(params, cfg, slots,
                                                    max_len)
                 if sp_d > 1:
-                    self.caches = [sp.shard_cache(c, mesh, cfg.nr)
-                                   for c in self.caches]
+                    self.caches = sp.shard_caches(self.caches, mesh,
+                                                  cfg.nr)
             self.tokens = torch.zeros((slots,), dtype=torch.int32,
                                       device=self.device)
             self.pos = torch.zeros((slots,), dtype=torch.int32,
@@ -728,11 +723,14 @@ class ServeEngine:
                     self.pos, page_tables=tabs)
         elif self.sp_d > 1:
             # every row of a slot decodes its position; the geometry of
-            # this tick serves every layer
-            tabs = sp.sp_tables(
-                np.repeat(self.pos_host, self.cfg.num_kv_heads),
-                nr=self.cfg.nr, Lmax=self.Lmax, d=self.sp_d,
-                device=self.device)
+            # this tick serves every sharded layer (none: every cache is
+            # whole, as an SSM stack's, and no table is built)
+            tabs = None
+            if any(isinstance(c, sp.SPCache) for c in self.caches):
+                tabs = sp.sp_tables(
+                    np.repeat(self.pos_host, self.cfg.num_kv_heads),
+                    nr=self.cfg.nr, Lmax=self.Lmax, d=self.sp_d,
+                    device=self.device)
             with obs.span("serve.decode", tid=obs.TRACK_SERVE), \
                     sp.sp_scope(self.mesh):
                 logits, self.caches = self.fns.decode_step(

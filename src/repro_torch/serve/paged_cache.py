@@ -2,9 +2,11 @@
 H-Matrix cache layout.
 
 Port of ``repro.serve.paged_cache``.  The host allocator is the
-reference's numpy and Python, copied line for line (without its opt-in
-``REPRO_POOL_CHECK`` hook, which imports the JAX package's model
-checker); the device side is PyTorch and updates the pools in place.
+reference's numpy and Python, copied line for line, with its opt-in
+``REPRO_POOL_CHECK=1`` hook (:meth:`PagePool._maybe_check`), which runs
+the port's own model checker's invariants (``analysis/pool_model.py``)
+after every mutating op; the device side is PyTorch and updates the
+pools in place.
 
 The dense serving cache pins ``Lmax`` rows (plus the coarse pyramid)
 per slot, so device memory -- not FLOPs -- caps concurrency.  This
@@ -43,6 +45,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import os
 from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -237,6 +240,25 @@ class PagePool:
             else:
                 self.free[l].append(page)
 
+    def _maybe_check(self, *, slot: Optional[int] = None,
+                     t: Optional[int] = None) -> None:
+        """Opt-in runtime invariant mode (``REPRO_POOL_CHECK=1``): run
+        the model checker's invariant functions after a mutating op, so
+        serving and ``analysis/pool_model.py`` share ONE invariant
+        definition.  ``slot``/``t`` additionally run the tick write-set
+        postconditions.  Raises ``AssertionError`` on a violation."""
+        if not os.environ.get("REPRO_POOL_CHECK"):
+            return
+        from ..analysis import pool_model
+        vs = pool_model.check_pool_invariants(self)
+        if slot is not None and t is not None:
+            vs += pool_model.check_tick_postconditions(self, slot, t)
+        if vs:
+            raise AssertionError(
+                "REPRO_POOL_CHECK: pool invariant violated:\n"
+                + "\n".join(f"  [{v.kind}] {v.operand}: {v.detail}"
+                            for v in vs))
+
     # -- request lifecycle ---------------------------------------------
     def admit(self, slot: int, tokens: np.ndarray, *,
               share: bool = True) -> Dict[int, List[Tuple[int, int]]]:
@@ -286,7 +308,9 @@ class PagePool:
                     self._unregister(l, p)
                 self.table[l][slot, blk] = -1
                 self._decref(l, p)
+            self._maybe_check()
             raise
+        self._maybe_check()
         return writes
 
     def release_slot(self, slot: int) -> None:
@@ -298,6 +322,7 @@ class PagePool:
             for blk in np.nonzero(row >= 0)[0]:
                 self._decref(l, int(row[blk]))
             row[:] = -1
+        self._maybe_check()
 
     def admit_snapshot(self, slot: int,
                        blocks: Dict[int, Sequence[int]],
@@ -315,6 +340,7 @@ class PagePool:
                 self._map(slot, l, int(b), p)
                 pairs.append((int(b), p))
             out[l] = pairs
+        self._maybe_check()
         return out
 
     def prepare_tick(self, slot: int, t: int,
@@ -346,6 +372,7 @@ class PagePool:
                 self.stats.cow_copies += 1
             elif (l, p) in self.key_of:
                 self._unregister(l, p)
+        self._maybe_check(slot=slot, t=t)
 
     # -- per-tick device tables ----------------------------------------
     def build_tables(self, pos: np.ndarray, active: np.ndarray,

@@ -246,11 +246,14 @@ def engine_tokens(smoke_, n_new=6, max_len=64):
     assert all(isinstance(c, SSMState) for c in eng.caches[:1])
 
 
-def refusals(smoke_):
+def paged_refused_sp_serves(smoke_):
     """Paged serving refuses the family (a ValueError, as for any
-    non-uniform stack); a 2-way SP mesh raises NotImplementedError naming
-    the recurrent state."""
+    non-uniform stack); a 2-way SP mesh serves it, every SSM state whole
+    and only a hybrid's shared-block caches sharded, with the mesh-free
+    engine's tokens (``test_torch_sp_families.py`` holds them to the JAX
+    engine's)."""
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.sp_attention import SPCache
     _, _, tcfg, tp = smoke_
     try:
         ServeEngine(tcfg, tp, slots=2, max_len=64, paged=True)
@@ -258,13 +261,19 @@ def refusals(smoke_):
         assert "uniform h1d attention stack" in str(e)
     else:
         raise AssertionError("paged serving was not refused")
-    try:
-        ServeEngine(tcfg, tp, slots=2, max_len=64,
-                    mesh=make_mesh((2,), ("data",), device="cpu"))
-    except NotImplementedError as e:
-        assert "recurrent state" in str(e)
-    else:
-        raise AssertionError("SP serving was not refused")
+    outs = []
+    for mesh in (None, make_mesh((2,), ("data",), device="cpu")):
+        eng = ServeEngine(tcfg, tp, slots=2, max_len=64, mesh=mesh)
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=3)
+                for i, p in enumerate(_prompts(tcfg.vocab_size))]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        outs.append([list(r.out_tokens) for r in reqs])
+    assert outs[0] == outs[1]
+    kinds = {type(c) for c in eng.caches}
+    assert kinds == ({SSMState, SPCache} if tcfg.family == "hybrid"
+                     else {SSMState})
 
 
 def train_steps(arch):

@@ -243,7 +243,9 @@ def test_engine_greedy_tokens_match_jax(smoke):
 def test_engine_refusals_and_no_bucketing(smoke):
     """Sliding-window prompts are never bucket-padded (pads would evict
     real keys from the rolling cache); paged serving is refused as the
-    reference refuses it and SP serving is not ported.  The published
+    reference refuses it, and SP serving shards the global layers'
+    hierarchical caches while the local layers' rolling caches stay
+    whole (``test_torch_sp_families.py`` holds its tokens).  The published
     config is bfloat16, and the bf16 smoke config initialises with bf16
     leaves and serves from bf16 rolling and hierarchical caches."""
     _, _, tcfg, tparams = smoke
@@ -252,9 +254,12 @@ def test_engine_refusals_and_no_bucketing(smoke):
     assert [type(c) for c in eng.caches].count(dict) == 4
     with pytest.raises(ValueError, match="uniform h1d"):
         ServeEngine(tcfg, tparams, slots=2, max_len=96, paged=True)
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        ServeEngine(tcfg, tparams, slots=2, max_len=96,
-                    mesh=make_mesh((2,), ("data",), device="cpu"))
+    spe = ServeEngine(tcfg, tparams, slots=2, max_len=96,
+                      mesh=make_mesh((2,), ("data",), device="cpu"))
+    assert [type(c).__name__ for c in spe.caches] == [
+        "dict", "dict", "SPCache", "dict", "dict", "SPCache"]
+    out = _serve(spe, Request, _prompts(tcfg.vocab_size)[:2], n_new=3)
+    assert [len(o) for o in out] == [3, 3]
     assert get_config(ARCH).dtype == "bfloat16"
     bcfg = dataclasses.replace(tcfg, dtype="bfloat16")
     bparams = get_model(bcfg).init(bcfg, device="cpu")

@@ -13,8 +13,9 @@ The engine tests run the reference's ``_workload`` schedules from
 ``tests/test_paged.py`` on the ``h1d-lm-53m`` smoke config through both
 engines in lockstep: after every ``step()`` the generated tokens and
 the host pool state (tables, refcounts, free lists, counters,
-preemptions) are equal, and the reference's model checker finds no
-violated invariant in the port's pool.  So that a near-tie fails loudly
+preemptions) are equal, and the port's model checker
+(``repro_torch.analysis.pool_model``) finds no violated invariant in
+the port's pool.  So that a near-tie fails loudly
 instead of flaking, every generated token's top-2 logit margin is
 checked to exceed 1e-3 on the port's teacher-forced logits."""
 import numpy as np
@@ -25,7 +26,7 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
-from repro.analysis import pool_model  # noqa: E402
+from repro_torch.analysis import pool_model  # noqa: E402
 from repro.configs import get_smoke_config as jax_smoke  # noqa: E402
 from repro.core import h1d_decode as jhd  # noqa: E402
 from repro.core import quantization as jqz  # noqa: E402

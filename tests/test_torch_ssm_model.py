@@ -47,7 +47,8 @@ def test_engine_tokens_match_jax_manual_greedy(smoke):
 
 
 def test_paged_and_sp_serving_refused(smoke):
-    fam.refusals(smoke)
+    """Paged serving is refused; a 2-way SP mesh serves the family."""
+    fam.paged_refused_sp_serves(smoke)
 
 
 def test_in_place_train_step_matches_reference():
