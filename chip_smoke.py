@@ -379,6 +379,26 @@ Phases (each raises on failure; nothing is caught):
    mamba2 no launch, no SP dispatch and no sharded cache; telemetry on,
    every family's ``kernel.launches`` equal to its wrappers' launches.
    ``launches_by_path`` holds ``gemma_sp``, ``hybrid_sp`` and ``ssm_sp``.
+22. ``kernels section`` (run first, right after the build, ~10 s):
+   ``repro_torch.analysis``'s checker, shared memory and launch policy
+   on the card.  (a) One ``contracts.capture()`` around ``launch.serve``
+   on h1d-lm-53m dense, paged int8, paged fp32 and SP d = 2 (2 requests,
+   4 tokens each), one ``launch.train`` step at 2 x 1024 and a bf16
+   decode at yi-6b's shape, under a fresh policy with no table: every
+   record checks clean, its grid read back from the launcher equals the
+   checker's mirror, its ``smem`` the shared memory the launcher set,
+   registers at most 255 and at least one CTA an SM; one line per
+   family.  (b) Every candidate of ``band_fwd`` / ``band_bwd``
+   (``l0_causal``) and ``sub_bwd`` (every sub level) at the LM's
+   training shape forced through ``tq=``, and every stage plan of #7
+   and #8 at the paged serving shape through a table entry: within 1e-5
+   (forward, attends) and 1e-4 (backward) of the plain versions.  (c)
+   ``autotune_band`` of ``band_fwd`` and ``band_bwd`` there into a
+   temporary ``$REPRO_TUNE_CACHE``; a fresh policy that cannot measure
+   applies each table (source ``table``), the launches at the tables'
+   tiles match the plain versions, the digest moves.  (d) Every decision
+   of (a) is ``default``.  (e) The records at the kernel table's shapes
+   (PERF.md), held as (a)'s.  (f) The host cost of a policy resolution.
 
 Tolerances.  In bf16 (phases 12-15, 17-19, 21): every step's logits, on the same
 tokens, within 3e-2 of the plain row's largest |logit| (both paths
@@ -5992,6 +6012,466 @@ def phase_sp_gemma(dev, params):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the kernels section of analysis/ on the card
+# ---------------------------------------------------------------------------
+
+# (a)'s runs: launch.serve on h1d-lm-53m dense, paged int8, paged fp32 and
+# SP d=2 (2 requests of 64..1500 tokens, 4 new tokens each), then
+# launch.train one step at 2 x 1024; the bf16 decode at yi-6b's shape
+KSEC_SERVE = ("--arch", "h1d-lm-53m", "--slots", "2", "--new-tokens", "4",
+              "--max-len", "2048", "--min-prompt", "64", "--max-prompt",
+              "1500", "--seed", "0", "--requests", "2")
+KSEC_RUNS = ((), ("--paged", "--cache-dtype", "int8"), ("--paged",),
+             ("--sp-data", "2"))
+KSEC_TRAIN = ("--arch", "h1d-lm-53m", "--steps", "1", "--batch", "2",
+              "--seq", "1024")
+# the bf16 decode: 16 rows (4 slots x 4 kv-heads), G 8, head_dim 128
+KSEC_BF16 = (16, 8, 128)
+
+
+def ksec_records(dev, tmp):
+    """22 (a): one ``contracts.capture()`` around the runs of
+    ``KSEC_RUNS`` / ``KSEC_TRAIN`` and the bf16 decode, under a fresh
+    policy over an empty table directory whose resolutions (one a
+    launch) are counted by (family, source).  Returns (records, launches by record, counts)."""
+    from repro_torch.analysis import contracts
+    from repro_torch.core import h1d_decode as hd
+    from repro_torch.kernels import h1d_decode_kernel as dk
+    from repro_torch.kernels import tuning
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch import train as train_cli
+
+    policy = tuning.KernelPolicy(cache_dir=str(tmp / "empty"))
+    sources = collections.Counter()
+    resolve = policy.resolve
+
+    def counted(family, **kw):
+        cfg, source = resolve(family, **kw)
+        sources[(family, source)] += 1
+        return cfg, source
+    policy.resolve = counted
+    prev = tuning.set_policy(policy)
+    try:
+        with contracts.capture() as recs:
+            for extra in KSEC_RUNS:
+                cli_run(serve_cli.main, KSEC_SERVE + extra)
+            cli_run(train_cli.main, KSEC_TRAIN + (
+                "--ckpt-dir", str(tmp / "ckpt")))
+            rows, g, d = KSEC_BF16
+            gen = torch.Generator(device=dev).manual_seed(22)
+            cache = hd.init_cache(rows, LMAX, d, d, NR, dtype=torch.bfloat16,
+                                  device=dev)
+            t = torch.full((rows,), 700, dtype=torch.int32, device=dev)
+            for _ in range(2):
+                kn = torch.randn((rows, d), generator=gen, device=dev)
+                dk.update_cache_fused(cache, kn, kn, t)
+                dk.decode_attend_fused(cache, torch.randn(
+                    (rows, g, d), generator=gen, device=dev), t, nr=NR)
+                t += 1
+    finally:
+        tuning.set_policy(prev)
+    by_id = collections.Counter(id(r) for r in recs)
+    unique = list({id(r): r for r in recs}.values())
+    return unique, by_id, sources
+
+
+def ksec_forced(dev):
+    """22 (b): every candidate of ``band_fwd``, ``band_bwd`` (l0_causal)
+    and ``sub_bwd`` (every sub level) at the LM's training shape forced
+    through ``tq=``, and every stage plan of #7 and #8 at the paged
+    serving shape forced through a table entry, each against its plain
+    version (1e-5 forward and attends, 1e-4 backward).  Returns
+    {family: [(tile, max scaled error), ...]}."""
+    from repro_torch.core import hierarchy as hc
+    from repro_torch.kernels import h1d_block as hb
+    from repro_torch.kernels import h1d_block_bwd as hbb
+    from repro_torch.kernels import h1d_decode_kernel as dk
+    from repro_torch.kernels import tuning
+
+    _, randn, q, k, v, w = band_inputs(dev)
+    rows3 = ("row", "row", "row")
+    out = collections.defaultdict(list)
+    pol = tuning.get_policy()
+    shape = dict(L=L, nr=NR, mode="l0_causal", B=B, G=G, d=D, dv=D)
+    want = hb.band_attention_fwd_ref(q, k, v, w, nr=NR, mode="l0_causal")
+    for cand in pol.candidates("band_fwd", **shape):
+        tile = tuning.tile_of(cand)
+        got = hb.band_attention_fwd(q, k, v, w, nr=NR, mode="l0_causal",
+                                    tq=tile)
+        out["band_fwd"].append((tile, compare(
+            f"band_attention_fwd tq={tile}", got, want, ATTN_TOL)[1]))
+    cot = tuple(randn(*t.shape) for t in want)
+    args = (q, k, v, w, *want, *cot)
+    plain = hbb.band_attention_bwd_ref(*args, nr=NR, mode="l0_causal")
+    for cand in pol.candidates("band_bwd", **shape):
+        tile = tuning.tile_of(cand)
+        got = hbb.band_attention_bwd(*args, nr=NR, mode="l0_causal", tq=tile)
+        out["band_bwd"].append((tile, compare(
+            f"band_attention_bwd tq={tile}", got, plain, GRAD_TOL,
+            rows3)[1]))
+    kc, vc, wc = k, v, w
+    for lvl in range(1, hc.num_levels(L, NR)):
+        ratio = 1 << lvl
+        kc, _ = hc.coarsen_weighted_mean(kc, wc)
+        vc = hc.coarsen_sum(vc, axis=-2)
+        wc = hc.coarsen_sum(wc, axis=-1)
+        fwd = (q, kc.contiguous(), vc.contiguous(), wc.contiguous())
+        y = hb.band_attention_sub_fwd_ref(*fwd, nr=NR, ratio=ratio)
+        args = (*fwd, *y, *(randn(*t.shape) for t in y))
+        plain = hbb.band_attention_sub_bwd_ref(*args, nr=NR, ratio=ratio)
+        for cand in pol.candidates("sub_bwd", L=L, nr=NR, mode="sub",
+                                   ratio=ratio, B=B, G=G, d=D, dv=D):
+            tile = tuning.tile_of(cand)
+            got = hbb.band_attention_sub_bwd(*args, nr=NR, ratio=ratio,
+                                             tq=tile)
+            out["sub_bwd"].append((dict(tile, ratio=ratio), compare(
+                f"band_attention_sub_bwd ratio={ratio} {tile}", got, plain,
+                GRAD_TOL, rows3)[1]))
+    refused = ksec_refusals(q, k, v, w, want, cot)
+    M = hc.num_levels(LMAX, NR)
+    fp32, int8, _ = paged_pools(dev, torch.Generator(device=dev)
+                                .manual_seed(22), M)
+    t, bidx, _ = paged_tables(dev, M)
+    qd = torch.randn((R, 1, D), generator=torch.Generator(device=dev)
+                     .manual_seed(23), device=dev)
+    for fam, pool, quant, fn, ref in (
+            ("decode_attend_paged", fp32, False, dk.decode_attend_paged,
+             dk.decode_attend_paged_ref),
+            ("decode_attend_paged_quant", int8, True,
+             dk.decode_attend_paged_quant, dk.decode_attend_paged_quant_ref)):
+        want = ref(pool, qd, t, bidx, nr=NR)
+        key = tuning.decode_key(G=1, d=D, dv=D, nr=NR, levels=M, quant=quant)
+        for cand in pol.candidates(fam, G=1, d=D, dv=D, nr=NR, levels=M,
+                                   quant=quant):
+            forced = tuning.KernelPolicy(cache_dir=str(ROOT / "build" /
+                                                       "no-tables"))
+            forced._tables[fam] = {key: {"cr": cand["cr"]}}
+            prev = tuning.set_policy(forced)
+            try:
+                got = fn(pool, qd, t, bidx, nr=NR)
+            finally:
+                tuning.set_policy(prev)
+            if forced.decisions[-1]["source"] != "table":
+                raise AssertionError(f"{fam}: the table's plan was not "
+                                     f"applied: {forced.decisions[-1]}")
+            out[fam].append(({"cr": cand["cr"], "stages": cand["stages"]},
+                             compare(f"{fam} cr={cand['cr']}", (got,),
+                                     (want,), ATTN_TOL)[1]))
+        # a table's chunk that is no candidate is legalized to the
+        # largest one below it; the launcher itself refuses it (below)
+        forced = tuning.KernelPolicy(cache_dir=str(ROOT / "build" /
+                                                   "no-tables"))
+        forced._tables[fam] = {key: {"cr": 3}}
+        cfg, src = forced.resolve(fam, G=1, d=D, dv=D, nr=NR, levels=M,
+                                  quant=quant, dtype="float32")
+        below = [c["cr"] for c in pol.candidates(
+            fam, G=1, d=D, dv=D, nr=NR, levels=M, quant=quant)
+            if c["cr"] <= 3]
+        want_src = "table" if below else "default"
+        if src != want_src or (below and cfg["cr"] != max(below)):
+            raise AssertionError(f"{fam}: cr 3 legalized to {cfg} ({src})")
+    lib = dk._lib()
+    ks, vs = [fp32.k, *fp32.ck], [fp32.v, *fp32.cv]
+    outp = torch.empty((R, 1, D), device=dev)
+    refused["decode_attend_paged cr 3"] = lib.h1d_decode_attend_paged(
+        qd.data_ptr(), dk._ptrs(ks), dk._ptrs(vs), t.data_ptr(),
+        bidx.data_ptr(), outp.data_ptr(), R, 1, D, D, NR, M, 0.125, 0, 3,
+        _stream())
+    if not all(refused.values()):
+        raise AssertionError(f"a launcher took a tile that does not fit: "
+                             f"{refused}")
+    out["refused"] = [(name, rc) for name, rc in refused.items()]
+    return out
+
+
+def _stream():
+    from repro_torch.kernels import _build
+    return _build.stream()
+
+
+def ksec_refusals(q, k, v, w, fwd, cot):
+    """22 (b): each launcher returns an error code, and launches nothing,
+    for a tile that does not fit: #1 at 48 rows, #3 at 3 key blocks, #4
+    at 3 splits (#5-#8's chunk of 3 rows in :func:`ksec_forced`)."""
+    import ctypes
+
+    from repro_torch.kernels import h1d_block as hb
+    from repro_torch.kernels import h1d_block_bwd as hbb
+
+    y = torch.empty_like(fwd[0])
+    dn, m = torch.empty_like(fwd[1]), torch.empty_like(fwd[2])
+    ptrs = [x.data_ptr() for x in (q, k, v, w, y, dn, m)]
+    code = hb._MODE_CODES["l0_causal"]
+    out = {"h1d_band_fwd tq 48": hb._lib().h1d_band_fwd(
+        *ptrs, B, G, L, D, D, NR, code, 48, _stream())}
+    grads = [torch.empty_like(x) for x in (q, k, v)] + [
+        torch.empty_like(w), torch.empty_like(fwd[1])]
+    dsa = torch.empty((B, G, L, 2 * hb.band_row_slots("l0_causal", NR)),
+                      device=q.device)
+    saved = [x.data_ptr() for x in (q, k, v, w, *fwd, *cot)]
+    gp = [grads[0].data_ptr(), grads[4].data_ptr(), grads[1].data_ptr(),
+          grads[2].data_ptr(), grads[3].data_ptr()]
+    lib = hbb._lib()
+    out["h1d_band_bwd (32, 3, 32)"] = lib.h1d_band_bwd(
+        *saved, *gp, dsa.data_ptr(), B, G, L, D, D, NR, code,
+        (ctypes.c_int * 3)(32, 3, 32), _stream())
+    Lk = L // 32
+    kc, vc, wc = k[:, :Lk].contiguous(), v[:, :Lk].contiguous(), \
+        w[:, :Lk].contiguous()
+    out["h1d_band_sub_bwd splits 3"] = lib.h1d_band_sub_bwd(
+        *[x.data_ptr() for x in (q, kc, vc, wc, *fwd, *cot)],
+        grads[0].data_ptr(), grads[4].data_ptr(),
+        *[torch.empty_like(x).data_ptr() for x in (kc, vc, wc)],
+        B, G, L, Lk, D, D, NR, 32, 3, _stream())
+    torch.cuda.synchronize()
+    return out
+
+
+def ksec_round_trip(dev, tmp):
+    """22 (c): ``autotune_band`` of ``band_fwd`` (l0_causal) and
+    ``band_bwd`` at the LM's training shape into a temporary
+    ``$REPRO_TUNE_CACHE``; a fresh policy whose ``_measure`` is None
+    applies each table with source ``table``, a launch at the table's
+    tile matches the plain version, and the digest moves."""
+    import os
+    from repro_torch.kernels import h1d_block as hb
+    from repro_torch.kernels import h1d_block_bwd as hbb
+    from repro_torch.kernels import tuning
+
+    cache = tmp / "tune"
+    old = os.environ.get("REPRO_TUNE_CACHE")
+    os.environ["REPRO_TUNE_CACHE"] = str(cache)
+    try:
+        p = tuning.KernelPolicy()
+        d0 = p.tuning_digest()
+        entries = {fam: p.autotune_band(L=L, nr=NR, mode="l0_causal", d=D,
+                                        B=B, G=G, family=fam)
+                   for fam in ("band_fwd", "band_bwd")}
+        p2 = tuning.KernelPolicy()
+        p2._measure = None       # any measurement would raise TypeError
+        if p2.tuning_digest() == d0:
+            raise AssertionError("tuning_digest did not move with a table")
+        prev = tuning.set_policy(p2)
+        try:
+            _, randn, q, k, v, w = band_inputs(dev)
+            y = hb.band_attention_fwd(q, k, v, w, nr=NR, mode="l0_causal")
+            got_f = p2.decisions[-1]
+            cot = tuple(randn(*t.shape) for t in y)
+            gr = hbb.band_attention_bwd(q, k, v, w, *y, *cot, nr=NR,
+                                        mode="l0_causal")
+            got_b = p2.decisions[-1]
+        finally:
+            tuning.set_policy(prev)
+        for fam, dec in (("band_fwd", got_f), ("band_bwd", got_b)):
+            if dec["source"] != "table" or tuning.tile_of(
+                    dec["config"]) != tuning.tile_of(entries[fam]):
+                raise AssertionError(f"{fam}: table {entries[fam]} not "
+                                     f"applied: {dec}")
+        compare("band_attention_fwd at the table's tile", y,
+                hb.band_attention_fwd_ref(q, k, v, w, nr=NR,
+                                          mode="l0_causal"), ATTN_TOL)
+        compare("band_attention_bwd at the table's tile", gr,
+                hbb.band_attention_bwd_ref(q, k, v, w, *y, *cot, nr=NR,
+                                           mode="l0_causal"), GRAD_TOL,
+                ("row", "row", "row"))
+    finally:
+        if old is None:
+            os.environ.pop("REPRO_TUNE_CACHE", None)
+        else:
+            os.environ["REPRO_TUNE_CACHE"] = old
+    return entries
+
+
+def ksec_table_shapes(dev):
+    """22 (e): the launch record of each kernel at the primary shape of
+    its PERF.md table row, under the default policy: #1 / #3 in
+    ``l0_causal`` and #2 / #4 at every sub level at the LM's training
+    shape (64 x G 1, L 1024, d 64); #1 / #3 in the LRA modes (each
+    mode's first level, 64 x L 2048); the streamed #1 / #3 (4 x G 2, L
+    4096, nr 1024, d 256); #5 / #6 on a dense f32 cache and #7-#10 on the
+    f32 and int8 pools at R 64, Lmax 2048.  Returns [(label, record)]."""
+    from repro_torch.analysis import contracts
+    from repro_torch.core import h1d_decode as hd
+    from repro_torch.core import hierarchy as hc
+    from repro_torch.kernels import h1d_block as hb
+    from repro_torch.kernels import h1d_block_bwd as hbb
+    from repro_torch.kernels import h1d_decode_kernel as dk
+
+    out = []
+
+    def take(label, fn, *args, **kw):
+        with contracts.capture() as recs:
+            res = fn(*args, **kw)
+        out.extend((label, r) for r in recs)
+        return res
+
+    def band(label, fwd, bwd, args, randn, **kw):
+        y = take(f"{label} fwd", fwd, *args, **kw)
+        cot = tuple(randn(*t.shape) for t in y)
+        take(f"{label} bwd", bwd, *args, *y, *cot, **kw)
+
+    _, randn, q, k, v, w = band_inputs(dev)
+    band("l0_causal LM", hb.band_attention_fwd, hbb.band_attention_bwd,
+         (q, k, v, w), randn, nr=NR, mode="l0_causal")
+    kc, vc, wc = k, v, w
+    for lvl in range(1, hc.num_levels(L, NR)):
+        kc, _ = hc.coarsen_weighted_mean(kc, wc)
+        vc = hc.coarsen_sum(vc, axis=-2)
+        wc = hc.coarsen_sum(wc, axis=-1)
+        band(f"sub ratio {1 << lvl} LM", hb.band_attention_sub_fwd,
+             hbb.band_attention_sub_bwd,
+             (q, kc.contiguous(), vc.contiguous(), wc.contiguous()), randn,
+             nr=NR, ratio=1 << lvl)
+    lra_randn, lq, lk, lv, lw = lra_band_inputs(dev)
+    for mode in NEW_MODES:
+        lvl, args = lra_levels(mode, lq, lk, lv, lw)[0]
+        band(f"{mode} LRA level {lvl}", hb.band_attention_fwd,
+             hbb.band_attention_bwd, args, lra_randn, nr=NR, mode=mode)
+    Bs, Gs, Ls, nrs, ds, live = STREAM_CASES[0]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    sq = torch.randn((Bs, Gs, Ls, ds), generator=gen, device=dev) / 16
+    sk = torch.randn((Bs, Ls, ds), generator=gen, device=dev)
+    sw = (torch.arange(Ls, device=dev) < live).float().expand(Bs, Ls)
+    band("l0_causal_stream gemma", hb.band_attention_fwd,
+         hbb.band_attention_bwd, (sq, sk, sk.clone(), sw.contiguous()),
+         lambda *sh: torch.randn(sh, generator=gen, device=dev), nr=nrs,
+         mode="l0_causal")
+    M = hc.num_levels(LMAX, NR)
+    cache = hd.init_cache(R, LMAX, D, D, NR, device=dev)
+    t = torch.full((R,), 777, dtype=torch.int32, device=dev)
+    qd = torch.randn((R, 1, D), generator=gen, device=dev)
+    kn = torch.randn((R, D), generator=gen, device=dev)
+    take("f32 R 64 dense", dk.decode_attend_fused, cache, qd, t, nr=NR)
+    take("f32 R 64 dense", dk.update_cache_fused, cache, kn, kn, t)
+    fp32, int8, _ = paged_pools(dev, gen, M)
+    tt, bidx, utab = paged_tables(dev, M)
+    take("f32 R 64 paged", dk.decode_attend_paged, fp32, qd, tt, bidx, nr=NR)
+    take("f32 R 64 paged", dk.update_cache_paged, fp32, kn, kn, tt, utab)
+    take("int8 R 64 paged", dk.decode_attend_paged_quant, int8, qd, tt, bidx,
+         nr=NR)
+    take("int8 R 64 paged", dk.update_cache_paged_quant, int8, kn, kn, tt,
+         utab)
+    return out
+
+
+def resolve_cost_us(calls: int = 20000):
+    """22 (f): host microseconds of one launch policy resolution, per
+    family kind, on a shape the policy has seen (a memo hit)."""
+    from repro_torch.kernels import tuning
+    p = tuning.KernelPolicy(cache_dir=str(ROOT / "build" / "no-tables"))
+    shapes = (("band_fwd", dict(L=L, nr=NR, mode="l0_causal", B=B, G=G, d=D,
+                                dv=D)),
+              ("decode_attend", dict(G=1, d=D, dv=D, nr=NR, levels=7,
+                                     quant=False, dtype="float32")),
+              ("decode_update", dict(rows=R, d=D, dv=D, levels=7,
+                                     dtype="float32")))
+    out = {}
+    for fam, kw in shapes:
+        p.resolve(fam, **kw)
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            p.resolve(fam, **kw)
+        out[fam] = (time.perf_counter() - t0) / calls * 1e6
+    return out
+
+
+def phase_kernels_section(dev):
+    """22.  ``repro_torch.analysis``'s kernels section on the card:
+    (a) every launch record of :func:`ksec_records` checks clean
+    (``analysis.checker``), its grid read back from the launcher equals
+    the grid the checker's mirror derives for its tile, its ``smem``
+    (the plan mirrors') equals what the launcher set, its registers are
+    at most 255 and it fits at least one CTA an SM; one line per family
+    with tile, grid, smem, registers and CTAs/SM; (b) :func:`ksec_forced`;
+    (c) :func:`ksec_round_trip`; (d) with no table every decision of (a)
+    has source ``default`` (and (a)'s grids and smem are those of the
+    launchers' own rules, which received 0); (e) the records at the
+    PERF.md table's shapes (:func:`ksec_table_shapes`), held as (a)'s;
+    (f) the host cost of a policy resolution (:func:`resolve_cost_us`).
+    Returns the records."""
+    import tempfile
+
+    from repro_torch import kernels
+    from repro_torch.analysis import checker, vmem
+    from repro_torch.kernels import tuning
+
+    card = card_line()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        recs, launches, sources = ksec_records(dev, tmp)
+        bad = [(r.family, str(v)) for r in recs
+               for v in checker.check_contract(r)]
+        if bad:
+            raise AssertionError(f"phase 22 (a): violations: {bad[:8]}")
+        fams = collections.defaultdict(list)
+        for r in recs:
+            want = checker.launch_grid(r.family, r.meta)
+            if tuple(r.grid) != want:
+                raise AssertionError(f"{r.family}: launcher grid {r.grid} "
+                                     f"!= mirror {want} ({r.meta})")
+            if tuple(r.meta.get("smem_set", ())) != tuple(r.smem):
+                raise AssertionError(f"{r.family}: launcher smem "
+                                     f"{r.meta.get('smem_set')} != mirror "
+                                     f"{r.smem}")
+            if not r.regs or max(r.regs) > 255 or min(r.ctas_per_sm) < 1:
+                raise AssertionError(f"{r.family}: regs {r.regs}, CTAs/SM "
+                                     f"{r.ctas_per_sm}")
+            if vmem.record_smem_bytes(r) > vmem.default_budget():
+                raise AssertionError(f"{r.family}: smem over the budget")
+            fams[r.family].append(r)
+        missing = set(kernels.FAMILY.values()) - set(fams)
+        if missing:
+            raise AssertionError(f"phase 22 (a): no record of {missing}")
+        for fam in sorted(fams):
+            top = max(fams[fam], key=lambda r: launches[id(r)])
+            kinds = collections.Counter(
+                (str(r.meta.get("tile")), "bf16" if r.meta.get("half")
+                 else "f32", r.smem, r.regs, r.ctas_per_sm)
+                for r in fams[fam])
+            log(f"22 {fam}: {len(fams[fam])} records, "
+                f"{sum(launches[id(r)] for r in fams[fam])} launches; the "
+                f"most launched: tile {top.meta.get('tile')}, grid "
+                f"{[list(g) for g in top.grid]}, smem {list(top.smem)} B, "
+                f"regs {list(top.regs)}, CTAs/SM {list(top.ctas_per_sm)}; "
+                f"(tile, dtype, smem, regs, CTAs/SM) x records: "
+                f"{sorted(kinds.items())} ({card})")
+        not_default = {k: n for k, n in sources.items() if k[1] != "default"}
+        if not_default or not sources:
+            raise AssertionError(f"phase 22 (d): decisions not from the "
+                                 f"defaults: {not_default}")
+        log(f"22 (d): {sum(sources.values())} decisions, all 'default', "
+            f"over {len({f for f, _ in sources})} families")
+        forced = ksec_forced(dev)
+        for fam, res in forced.items():
+            log(f"22 (b) {fam}: " + "; ".join(
+                f"{tile} {err:.3g}" if isinstance(err, float)
+                else f"{tile}: rc {err}" for tile, err in res))
+        entries = ksec_round_trip(dev, tmp)
+        for fam, e in entries.items():
+            log(f"22 (c) {fam}: measured {e.get('measured')}, chose "
+                f"{tuning.tile_of(e)} at {e['us']} us ({card})")
+        seen = set()
+        for label, r in ksec_table_shapes(dev):
+            if checker.check_contract(r) or tuple(r.grid) != \
+                    checker.launch_grid(r.family, r.meta) or \
+                    tuple(r.meta["smem_set"]) != tuple(r.smem):
+                raise AssertionError(f"22 (e) {label}: {r.describe()}")
+            if (label, id(r)) in seen:
+                continue
+            seen.add((label, id(r)))
+            log(f"22 (e) {label} {r.family}: tile {r.meta.get('tile')}, "
+                f"grid {[list(g) for g in r.grid]}, smem {list(r.smem)} B, "
+                f"regs {list(r.regs)}, CTAs/SM {list(r.ctas_per_sm)} "
+                f"({card})")
+        log(f"22 (f) policy resolution, host us a launch: "
+            f"{ {f: round(us, 3) for f, us in resolve_cost_us().items()} } "
+            f"({card})")
+    log(f"phase 22 (kernels section) took {time.perf_counter() - t0:.1f}s")
+    return recs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
@@ -6011,6 +6491,7 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _build.build(_build.sources())
     log(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f}s")
+    phase_kernels_section(dev)
 
     rows = (phase_kernels(dev) + phase_mode_kernels(dev)
             + phase_paged_kernels(dev) + phase_bwd_kernels(dev)

@@ -9,10 +9,16 @@
   layer's :class:`~repro_torch.serve.paged_cache.PagePool`, with
   replayable minimized counterexamples (also behind the pool's
   ``REPRO_POOL_CHECK=1`` hook).
-* :mod:`.violation` -- the record both checkers report.
-* ``python -m repro_torch.analysis.check`` -- the gate: ``--dist``,
-  ``--pool`` and ``--json`` reports.  The reference's kernels section
-  (its ``checker``, ``vmem`` and ``tuning``) is not ported yet.
+* :mod:`.checker` -- what each CTA of a launch record reads and writes,
+  from the kernels' host mirrors: in bounds, outputs written once,
+  in-place updates aliased, tables within their domains, the launchers'
+  grids and shared memory.
+* :mod:`.vmem` -- each launch's shared memory from the launchers' plan
+  mirrors, and the budget the launch policy (``kernels.tuning``) drops
+  candidates against.
+* :mod:`.violation` -- the record every checker reports.
+* ``python -m repro_torch.analysis.check`` -- the gate: the kernels
+  section (the default), ``--dist``, ``--pool`` and ``--json`` reports.
 
 Only ``contracts`` is imported eagerly (the kernels import it).
 """

@@ -13,6 +13,7 @@ the package on a machine without ``nvcc`` or a card.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -84,6 +85,18 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
     return out
 
 
+@functools.lru_cache(maxsize=1)
+def kernels_digest() -> str:
+    """First 12 hex digits of a sha256 over every kernel source
+    (``csrc/*.cu`` and ``*.cuh``, in name order) and the ``nvcc`` flags:
+    the inputs a library's build is keyed by (:func:`_target`)."""
+    h = hashlib.sha256()
+    for path in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
+        h.update(path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:12]
+
+
 def sources():
     """Stems of every kernel source under ``csrc/``."""
     return sorted(p.stem for p in CSRC.glob("*.cu"))
@@ -128,3 +141,38 @@ def expect(t: torch.Tensor, name: str, shape, dtype=torch.float32) -> None:
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def launch_signatures(prefix: str) -> Dict[str, list]:
+    """``argtypes`` of the readers a library exports for the launch
+    records (``csrc/launch_info.cuh``): ``<prefix>_last_smem`` and
+    ``<prefix>_last_attrs``."""
+    return {f"{prefix}_last_smem": [ctypes.c_void_p],
+            f"{prefix}_last_attrs": [ctypes.c_void_p]}
+
+
+def last_smem(lib: ctypes.CDLL, prefix: str):
+    """The dynamic shared memory, in bytes, of each kernel that the
+    library's last launch ran, as its launcher set it."""
+    out = (ctypes.c_int * 2)()
+    getattr(lib, f"{prefix}_last_smem")(ctypes.addressof(out))
+    return (out[0],) if out[1] == 0 else (out[0], out[1])
+
+
+def last_launch(lib: ctypes.CDLL, prefix: str):
+    """(shared memory, registers, CTAs an SM) of each kernel that the
+    library's last launch ran (:func:`last_smem`, :func:`last_attrs`)."""
+    return (last_smem(lib, prefix), *last_attrs(lib, prefix))
+
+
+def last_attrs(lib: ctypes.CDLL, prefix: str):
+    """((registers, ...), (CTAs an SM, ...)) of each kernel that the
+    library's last launch ran: ``cudaFuncGetAttributes``' ``numRegs`` and
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` at the launch's block
+    and dynamic shared memory."""
+    out = (ctypes.c_int * 8)()
+    check(getattr(lib, f"{prefix}_last_attrs")(ctypes.addressof(out)),
+          f"{prefix}_last_attrs")
+    n = 1 if out[6] == 0 and out[4] == 0 else 2
+    return (tuple(out[4 * i] for i in range(n)),
+            tuple(out[4 * i + 3] for i in range(n)))

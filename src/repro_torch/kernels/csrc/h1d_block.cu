@@ -59,6 +59,7 @@
 #include <math.h>
 
 #include "h1d_band.cuh"
+#include "launch_info.cuh"
 
 namespace {
 
@@ -281,6 +282,7 @@ int launch_ry(const float* q, const float* k, const float* v, const float* w,
   const int vec_y = aligned16(y) && dv % 4 == 0;
   const dim3 grid(G * ((L + tq - 1) / tq), B);
   note_grid(grid.x, grid.y);
+  h1d_info::note(0, band_fwd_kernel<MODE, RY>, BAND_THREADS, smem);
   // Lq and Lk stay two arguments: as one, the body compiled to slower code
   band_fwd_kernel<MODE, RY><<<grid, BAND_THREADS, smem, stream>>>(
       q, k, v, w, y, dn, m, G, L, L, d, dv, nr, tq, vec_in, vec_y);
@@ -288,16 +290,21 @@ int launch_ry(const float* q, const float* k, const float* v, const float* w,
 }
 
 // nr a power of two in [2, BAND_MAX_NR]; any d and dv whose 16-row tile
-// fits the card's shared memory (band_fwd_tq).
+// fits the card's shared memory (band_fwd_tq).  tile: rows a tile, 16 or
+// 32 within SMEM_MAX (the policy's choice, kernels/tuning.py), or 0 for
+// band_fwd_tq's.
 template <int MODE>
 int launch(const float* q, const float* k, const float* v, const float* w,
            float* y, float* dn, float* m, int B, int G, int L, int d, int dv,
-           int nr, cudaStream_t stream) {
+           int nr, int tile, cudaStream_t stream) {
   if (d < 1 || dv < 1 || nr < 2 || nr > BAND_MAX_NR || (nr & (nr - 1)) ||
       L % nr)
     return (int)cudaErrorInvalidValue;
+  if (tile != 0 && ((tile != 16 && tile != BAND_TQ) ||
+                    4 * band_fwd_floats(MODE, tile, d, dv, nr) > SMEM_MAX))
+    return (int)cudaErrorInvalidValue;
   if (B == 0 || G == 0 || L == 0) return 0;
-  const int tq = band_fwd_tq(MODE, B, G, L, d, dv, nr, false);
+  const int tq = tile ? tile : band_fwd_tq(MODE, B, G, L, d, dv, nr, false);
   if (tq == 0) return (int)cudaErrorInvalidValue;
   if (nr >= 4)
     return launch_ry<MODE, 4>(q, k, v, w, y, dn, m, B, G, L, d, dv, nr, tq,
@@ -488,6 +495,7 @@ int launch_sub_ry(const float* q, const float* k, const float* v,
   const int vec_y = aligned16(y) && dv % 4 == 0;
   const dim3 grid(G * ((Lq + SUB_TQ - 1) / SUB_TQ), B);
   note_grid(grid.x, grid.y);
+  h1d_info::note(0, sub_fwd_kernel<RY>, SUB_THREADS, smem);
   sub_fwd_kernel<RY><<<grid, SUB_THREADS, smem, stream>>>(
       q, k, v, w, y, dn, m, G, Lq, Lk, d, dv, nr, ratio, vec_in, vec_y);
   return (int)cudaGetLastError();
@@ -773,6 +781,7 @@ int launch_stream(const float* q, const float* k, const float* v,
   const int vec_y = aligned16(y) && dv % 4 == 0;
   const int ctas = B * G * ((L + STREAM_TQ - 1) / STREAM_TQ);
   note_grid(ctas, 1);
+  h1d_info::note(0, kernel, STREAM_THREADS, smem);
   kernel<<<ctas, STREAM_THREADS, smem, stream>>>(
       q, k, v, w, y, dn, m, B, G, L, d, dv, nr, vec_in, vec_y);
   return (int)cudaGetLastError();
@@ -783,24 +792,27 @@ int launch_stream(const float* q, const float* k, const float* v,
 // q (B,G,L,d) pre-scaled, k (B,L,d), v (B,L,dv) pre-weighted, w (B,L)
 // -> y (B,G,L,dv), dn (B,G,L), m (B,G,L); mode is an h1d::Mode.
 // coarse_causal reads only the block before a row's own: the sub body
-// at ratio 1.
+// at ratio 1.  tile: rows a tile (16 or 32; coarse_causal: SUB_TQ), 0 for
+// the launcher's own rule; a tile that does not fit is an error.
 extern "C" int h1d_band_fwd(const float* q, const float* k, const float* v,
                             const float* w, float* y, float* dn, float* m,
                             int B, int G, int L, int d, int dv, int nr,
-                            int mode, void* stream) {
+                            int mode, int tile, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   h1d::note_grid(0, 0);
+  h1d_info::clear();
   switch (mode) {
     case h1d::L0_BIDIR:
       return launch<h1d::L0_BIDIR>(q, k, v, w, y, dn, m, B, G, L, d, dv, nr,
-                                   st);
+                                   tile, st);
     case h1d::L0_CAUSAL:
       return launch<h1d::L0_CAUSAL>(q, k, v, w, y, dn, m, B, G, L, d, dv, nr,
-                                    st);
+                                    tile, st);
     case h1d::COARSE_BIDIR:
       return launch<h1d::COARSE_BIDIR>(q, k, v, w, y, dn, m, B, G, L, d, dv,
-                                       nr, st);
+                                       nr, tile, st);
     case h1d::COARSE_CAUSAL:
+      if (tile != 0 && tile != h1d::SUB_TQ) return (int)cudaErrorInvalidValue;
       return launch_sub(q, k, v, w, y, dn, m, B, G, L, L, d, dv, nr, 1, st);
     default:
       return (int)cudaErrorInvalidValue;
@@ -815,6 +827,7 @@ extern "C" int h1d_band_sub_fwd(const float* q, const float* k,
                                 int Lk, int d, int dv, int nr, int ratio,
                                 void* stream) {
   h1d::note_grid(0, 0);
+  h1d_info::clear();
   return launch_sub(q, k, v, w, y, dn, m, B, G, Lq, Lk, d, dv, nr, ratio,
                     (cudaStream_t)stream);
 }
@@ -827,6 +840,7 @@ extern "C" int h1d_band_fwd_stream(const float* q, const float* k,
                                    float* dn, float* m, int B, int G, int L,
                                    int d, int dv, int nr, void* stream) {
   h1d::note_grid(0, 0);
+  h1d_info::clear();
   return launch_stream(q, k, v, w, y, dn, m, B, G, L, d, dv, nr,
                        (cudaStream_t)stream);
 }
@@ -842,4 +856,15 @@ extern "C" int h1d_band_stream_smem(int d, int dv, int nr) {
 extern "C" int h1d_band_fwd_last_grid(int* out) {
   for (int i = 0; i < 4; ++i) out[i] = h1d::last_grid[i];
   return 0;
+}
+
+// The dynamic shared memory of this library's last launch on the calling
+// thread, and its kernel's registers, static shared memory, most threads
+// and CTAs an SM (launch_info.cuh), for the wrappers' launch records.
+extern "C" int h1d_band_fwd_last_smem(int* out) {
+  return h1d_info::last_smem(out);
+}
+
+extern "C" int h1d_band_fwd_last_attrs(int* out) {
+  return h1d_info::last_attrs(out);
 }

@@ -72,6 +72,7 @@
 #include <math.h>
 
 #include "h1d_band.cuh"
+#include "launch_info.cuh"
 
 namespace {
 
@@ -537,6 +538,8 @@ int launch_ry(const float* q, const float* k, const float* v, const float* w,
   const dim3 grid_dq(G * ((L + tq - 1) / tq), B);
   const dim3 grid_kv((nbk + nkb - 1) / nkb, B);
   note_grid(grid_dq.x, grid_dq.y, grid_kv.x, grid_kv.y);
+  h1d_info::note(0, band_dq_kernel<MODE, RY>, BAND_THREADS, smem_dq);
+  h1d_info::note(1, band_dkvw_kernel<MODE>, BAND_THREADS, smem_kv);
   // Lq and Lk stay two arguments: as one, the body compiled to slower code
   band_dq_kernel<MODE, RY><<<grid_dq, BAND_THREADS, smem_dq, stream>>>(
       q, k, v, w, y, dn, m, gy, gdn, gm, dq, gmn, dsa, G, L, L, d, dv, nr, tq,
@@ -550,20 +553,40 @@ int launch_ry(const float* q, const float* k, const float* v, const float* w,
 }
 
 // nr a power of two in [2, BAND_MAX_NR]; any d and dv whose 16-row tiles
-// fit the card's shared memory (band_fwd_tq, band_dkvw_tiles).
+// fit the card's shared memory (band_fwd_tq, band_dkvw_tiles).  tile (the
+// policy's choice, kernels/tuning.py; null or 0s for the launcher's own
+// rules): {dQ rows a tile, 16 or 32; key blocks a dK/dV/dW CTA, a power
+// of two up to BAND_KEYS / nr and L / nr; its reader rows a chunk, 16 or
+// 32}, each within SMEM_MAX.
 template <int MODE>
 int launch(const float* q, const float* k, const float* v, const float* w,
            const float* y, const float* dn, const float* m, const float* gy,
            const float* gdn, const float* gm, float* dq, float* gmn,
            float* dk, float* dv_out, float* dw, float* dsa, int B, int G,
-           int L, int d, int dv, int nr, cudaStream_t stream) {
+           int L, int d, int dv, int nr, const int* tile,
+           cudaStream_t stream) {
   if (d < 1 || dv < 1 || nr < 2 || nr > BAND_MAX_NR || (nr & (nr - 1)) ||
       L % nr || dsa == nullptr || !aligned16(dsa))
     return (int)cudaErrorInvalidValue;
+  const int t_dq = tile ? tile[0] : 0, t_kb = tile ? tile[1] : 0,
+            t_kv = tile ? tile[2] : 0;
+  const int most_kb = BAND_KEYS > nr ? BAND_KEYS / nr : 1;
+  if ((t_dq != 0 && ((t_dq != 16 && t_dq != BAND_TQ) ||
+                     4 * band_dq_floats(MODE, t_dq, d, dv, nr) > SMEM_MAX)) ||
+      ((t_kb != 0) != (t_kv != 0)) ||
+      (t_kb != 0 &&
+       (t_kb > most_kb || t_kb > L / nr || (t_kb & (t_kb - 1)) ||
+        (t_kv != 16 && t_kv != BAND_KV_TQ) ||
+        4 * band_dkvw_floats(MODE, t_kb, t_kv, d, dv, nr) > SMEM_MAX)))
+    return (int)cudaErrorInvalidValue;
   if (B == 0 || G == 0 || L == 0) return 0;
-  const int tq = band_fwd_tq(MODE, B, G, L, d, dv, nr, true);
+  const int tq = t_dq ? t_dq : band_fwd_tq(MODE, B, G, L, d, dv, nr, true);
   int nkb, tk;
   band_dkvw_tiles(MODE, B, L, d, dv, nr, &nkb, &tk);
+  if (t_kb) {
+    nkb = t_kb;
+    tk = t_kv;
+  }
   if (tq == 0 || tk == 0) return (int)cudaErrorInvalidValue;
   if (nr >= 4)
     return launch_ry<MODE, 4>(q, k, v, w, y, dn, m, gy, gdn, gm, dq, gmn, dk,
@@ -943,6 +966,7 @@ int launch_sub_ry(const float* q, const float* k, const float* v,
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(nb * S, B);
   note_grid(cfg.gridDim.x, cfg.gridDim.y);
+  h1d_info::note(0, sub_bwd_kernel<RY>, SUB_THREADS, smem);
   cfg.blockDim = dim3(SUB_THREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -961,20 +985,28 @@ int launch_sub_ry(const float* q, const float* k, const float* v,
 }
 
 // nr a power of two in [2, 64], Lq = Lk * ratio; tiles of 64 rows, or 32
-// or 16 where the shared memory of 64 exceeds the card's 227 KB.
+// or 16 where the shared memory of 64 exceeds the card's 227 KB.  splits:
+// CTAs (one cluster) a key block, 1, 2, 4 or 8 dividing G * nq / SUB_TQ
+// (1 where nq < SUB_TQ) -- the policy's choice, kernels/tuning.py -- or 0
+// for sub_bwd_splits'.
 int launch_sub(const float* q, const float* k, const float* v,
                const float* w, const float* y, const float* dn,
                const float* m, const float* gy, const float* gdn,
                const float* gm, float* dq, float* gmn, float* dk,
                float* dv_out, float* dw, int B, int G, int Lq, int Lk, int d,
-               int dv, int nr, int ratio, cudaStream_t stream) {
+               int dv, int nr, int ratio, int splits, cudaStream_t stream) {
   if (d < 1 || dv < 1 || nr < 2 || nr > SUB_TQ || (nr & (nr - 1)) ||
       ratio < 1 || Lq != Lk * ratio)
+    return (int)cudaErrorInvalidValue;
+  const int nq = nr * ratio;
+  if (splits != 0 &&
+      (splits < 1 || splits > SUB_MAX_SPLIT || (splits & (splits - 1)) ||
+       (nq < SUB_TQ ? splits != 1 : (G * (nq / SUB_TQ)) % splits != 0)))
     return (int)cudaErrorInvalidValue;
   if (B == 0 || G == 0 || Lq == 0) return 0;
   // tiles of a power of two rows in [16, 64]: no more than a CTA's rows,
   // and within the card's 227 KB of shared memory
-  const int S = sub_bwd_splits(G, nr * ratio);
+  const int S = splits ? splits : sub_bwd_splits(G, nq);
   int tq = SUB_TQ;
   while (tq > 16 && (tq / 2 >= G * nr * ratio / S ||
                      sub_bwd_floats(tq, d, dv, nr) * sizeof(float) > 232448))
@@ -1540,6 +1572,8 @@ int launch_stream(const float* q, const float* k, const float* v,
   const int ctas_dq = B * G * ((L + STREAM_TQ - 1) / STREAM_TQ);
   const int ctas_kv = B * ((L + STREAM_KV_TK - 1) / STREAM_KV_TK);
   note_grid(ctas_dq, 1, ctas_kv, 1);
+  h1d_info::note(0, dq_kernel, STREAM_THREADS, smem_dq);
+  h1d_info::note(1, kv_kernel, STREAM_THREADS, smem_kv);
   dq_kernel<<<ctas_dq, STREAM_THREADS, smem_dq, stream>>>(
       q, k, v, w, y, dn, m, gy, gdn, gm, dq, gmn, B, G, L, d, dv, nr, vec_in,
       vec_out);
@@ -1558,39 +1592,44 @@ int launch_stream(const float* q, const float* k, const float* v,
 // mode is an h1d::Mode (coarse_causal on the sub body at ratio 1).  dsa:
 // scratch of B*G*L rows of 2 * band_count(mode) * 4 * key_groups(nr)
 // floats, 16-byte aligned, for l0_causal, l0_bidir and coarse_bidir
-// (unused in coarse_causal).
+// (unused in coarse_causal).  tile: null, or three ints (launch above;
+// coarse_causal: tile[0] the splits of launch_sub), 0 for the launcher's
+// own rule; a tile that does not fit is an error.
 extern "C" int h1d_band_bwd(const float* q, const float* k, const float* v,
                             const float* w, const float* y, const float* dn,
                             const float* m, const float* gy,
                             const float* gdn, const float* gm, float* dq,
                             float* gmn, float* dk, float* dv_out, float* dw,
                             float* dsa, int B, int G, int L, int d, int dv,
-                            int nr, int mode, void* stream) {
+                            int nr, int mode, const int* tile, void* stream) {
   h1d::note_grid(0, 0);
+  h1d_info::clear();
   const cudaStream_t st = (cudaStream_t)stream;
   switch (mode) {
     case h1d::L0_BIDIR:
       return launch<h1d::L0_BIDIR>(q, k, v, w, y, dn, m, gy, gdn, gm, dq, gmn,
                                    dk, dv_out, dw, dsa, B, G, L, d, dv, nr,
-                                   st);
+                                   tile, st);
     case h1d::L0_CAUSAL:
       return launch<h1d::L0_CAUSAL>(q, k, v, w, y, dn, m, gy, gdn, gm, dq,
                                     gmn, dk, dv_out, dw, dsa, B, G, L, d, dv,
-                                    nr, st);
+                                    nr, tile, st);
     case h1d::COARSE_BIDIR:
       return launch<h1d::COARSE_BIDIR>(q, k, v, w, y, dn, m, gy, gdn, gm, dq,
                                        gmn, dk, dv_out, dw, dsa, B, G, L, d,
-                                       dv, nr, st);
+                                       dv, nr, tile, st);
     case h1d::COARSE_CAUSAL:
       return launch_sub(q, k, v, w, y, dn, m, gy, gdn, gm, dq, gmn, dk,
-                        dv_out, dw, B, G, L, L, d, dv, nr, 1, st);
+                        dv_out, dw, B, G, L, L, d, dv, nr, 1,
+                        tile ? tile[0] : 0, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
 // The same for mode sub: fine q (B,G,Lq,d) against coarse k (B,Lk,d),
-// v (B,Lk,dv), w (B,Lk), Lq = Lk * ratio.
+// v (B,Lk,dv), w (B,Lk), Lq = Lk * ratio; splits as launch_sub's (0: its
+// own rule).
 extern "C" int h1d_band_sub_bwd(const float* q, const float* k,
                                 const float* v, const float* w,
                                 const float* y, const float* dn,
@@ -1598,11 +1637,13 @@ extern "C" int h1d_band_sub_bwd(const float* q, const float* k,
                                 const float* gdn, const float* gm, float* dq,
                                 float* gmn, float* dk, float* dv_out,
                                 float* dw, int B, int G, int Lq, int Lk,
-                                int d, int dv, int nr, int ratio,
+                                int d, int dv, int nr, int ratio, int splits,
                                 void* stream) {
   h1d::note_grid(0, 0);
+  h1d_info::clear();
   return launch_sub(q, k, v, w, y, dn, m, gy, gdn, gm, dq, gmn, dk, dv_out,
-                    dw, B, G, Lq, Lk, d, dv, nr, ratio, (cudaStream_t)stream);
+                    dw, B, G, Lq, Lk, d, dv, nr, ratio, splits,
+                    (cudaStream_t)stream);
 }
 
 // l0_causal with the key window streamed (the shapes the staged bodies
@@ -1618,6 +1659,7 @@ extern "C" int h1d_band_bwd_stream(const float* q, const float* k,
                                    int L, int d, int dv, int nr,
                                    void* stream) {
   h1d::note_grid(0, 0);
+  h1d_info::clear();
   return launch_stream(q, k, v, w, y, dn, m, gy, gdn, gm, dq, gmn, dk,
                        dv_out, dw, B, G, L, d, dv, nr, (cudaStream_t)stream);
 }
@@ -1634,4 +1676,15 @@ extern "C" int h1d_band_bwd_stream_smem(int d, int dv, int nr, int pass) {
 extern "C" int h1d_band_bwd_last_grid(int* out) {
   for (int i = 0; i < 4; ++i) out[i] = h1d::last_grid[i];
   return 0;
+}
+
+// The dynamic shared memory of this library's last launch on the calling
+// thread, and its kernels' registers, static shared memory, most threads
+// and CTAs an SM (launch_info.cuh), for the wrappers' launch records.
+extern "C" int h1d_band_bwd_last_smem(int* out) {
+  return h1d_info::last_smem(out);
+}
+
+extern "C" int h1d_band_bwd_last_attrs(int* out) {
+  return h1d_info::last_attrs(out);
 }

@@ -134,6 +134,8 @@
 
 #include <type_traits>
 
+#include "launch_info.cuh"
+
 namespace {
 
 constexpr float NEG_INF = -3.4028234663852886e38f;   // hierarchy.NEG_INF
@@ -304,9 +306,13 @@ inline AttendPlan attend_layout(int G, int D, int Dv, int nr, int nlev,
 // which covers bf16 and f32 rows too; 1 where nr is not a multiple, and
 // then no bulk copies).  A bf16 block takes the slot an f32 block takes,
 // so the plan's shape is the f32 plan's.  stages = 0: not even one chunk
-// fits.
+// fits.  chunk_rows (the policy's choice, kernels/tuning.py; 0 for the
+// rule above): rows a chunk, nr halved j >= 0 times to a multiple of the
+// quantum; every band resident where cr = nr and that fits, else a ring of
+// as many stages of cr rows as fit (stages = 0 where none does, or cr is
+// not such a chunk).
 inline AttendPlan attend_plan(int G, int D, int Dv, int nr, int nlev,
-                              bool quant, bool half) {
+                              bool quant, bool half, int chunk_rows = 0) {
   const int nb = nlev + 1;
   int quantum = (D % 4 == 0 && Dv % 4 == 0) || nr % 4 ? 1 : 4;
   if (half) {                      // bf16 rows: 2-byte values
@@ -319,6 +325,31 @@ inline AttendPlan attend_plan(int G, int D, int Dv, int nr, int nlev,
   }
   AttendPlan p = attend_layout(G, D, Dv, nr, nlev, 2 * nb, nr, quantum,
                                quant);
+  if (chunk_rows != 0) {
+    const int cr = chunk_rows;
+    bool chunk = false;
+    for (int c = nr; c >= 1 && c % quantum == 0; c /= 2) {
+      chunk = chunk || c == cr;
+      if (c % 2) break;
+    }
+    if (!chunk) {
+      p.stages = 0;
+      return p;
+    }
+    if (cr == nr && p.smem <= SMEM_LIMIT) return p;
+    const int most = 2 * nb * ((nr + cr - 1) / cr);
+    const AttendPlan none =
+        attend_layout(G, D, Dv, nr, nlev, 0, cr, quantum, quant);
+    const int per = 4 * none.slot + 8;
+    const int fit = none.smem > SMEM_LIMIT ? 0 : (SMEM_LIMIT - none.smem) / per;
+    int S = fit < most ? fit : most;
+    while (S > 0 && attend_layout(G, D, Dv, nr, nlev, S, cr, quantum,
+                                  quant).smem > SMEM_LIMIT)
+      --S;
+    p = attend_layout(G, D, Dv, nr, nlev, S, cr, quantum, quant);
+    p.resident = 0;
+    return p;
+  }
   if (p.smem <= SMEM_LIMIT) return p;
   for (int cr = nr;; cr /= 2) {
     const int most = 2 * nb * ((nr + cr - 1) / cr);
@@ -952,7 +983,7 @@ template <int ADDR>
 int launch_staged(const float* q, const Levels& lv, const int* t,
                   const int* bidx, const int* owned, float* out, float* den,
                   float* m, int R, int G, int D, int Dv, int nr, int nlev,
-                  float scale, int half, void* stream) {
+                  float scale, int half, int cr, void* stream) {
   if (nlev < 1 || nlev > MAXLEV || R < 1 || G < 1 || D < 1 || Dv < 1 ||
       nr < 1)
     return (int)cudaErrorInvalidValue;
@@ -961,7 +992,7 @@ int launch_staged(const float* q, const Levels& lv, const int* t,
       if ((long long)R * lv.rows[l] > 0x7fffffff)
         return (int)cudaErrorInvalidValue;
   const bool quant = ADDR == ADDR_QPAGED && lv.qmask != 0;
-  const AttendPlan p = attend_plan(G, D, Dv, nr, nlev, quant, half != 0);
+  const AttendPlan p = attend_plan(G, D, Dv, nr, nlev, quant, half != 0, cr);
   if (p.stages < 1) return (int)cudaErrorInvalidValue;
   auto at16 = [](const void* a) {
     return reinterpret_cast<uintptr_t>(a) % 16 == 0;
@@ -985,6 +1016,7 @@ int launch_staged(const float* q, const Levels& lv, const int* t,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
     if (e != cudaSuccess) return (int)e;
   }
+  h1d_info::note(0, kernel, THREADS, p.smem, R);
   kernel<<<R, THREADS, p.smem, (cudaStream_t)stream>>>(
       t, bidx, owned, q, out, den, m, G, D, Dv, nr, nlev, scale, bulk, p, lv);
   return (int)cudaGetLastError();
@@ -1365,6 +1397,9 @@ int launch_chain(const float* knew, const float* vnew, const int* t,
   const int threads = min(min(1024, fit), (D + Dv + 31) / 32 * 32);
   const int smem = 8 * nlev * threads + tab;
   using BF = __nv_bfloat16;
+  h1d_info::note(0, half ? (const void*)update_chain_kernel<ADDR, BF>
+                         : (const void*)update_chain_kernel<ADDR, float>,
+                 threads, smem, R);
   if (half)
     update_chain_kernel<ADDR, BF><<<R, threads, smem, (cudaStream_t)stream>>>(
         knew, vnew, t, owned, utab, lv, Lmax, nr, D, Dv, nlev,
@@ -1417,7 +1452,8 @@ extern "C" int h1d_decode_attend(const float* q, const void* k,
                                  const void* const* cv, const int* t,
                                  float* out, int R, int G, int Lmax, int D,
                                  int Dv, int nr, int ncoarse, float scale,
-                                 int half, void* stream) {
+                                 int half, int cr, void* stream) {
+  h1d_info::clear();
   if (ncoarse < 0 || ncoarse + 1 > MAXLEV || R < 1)
     return (int)cudaErrorInvalidValue;
   Levels lv{};
@@ -1431,7 +1467,7 @@ extern "C" int h1d_decode_attend(const float* q, const void* k,
   }
   return launch_staged<ADDR_DENSE>(q, lv, t, nullptr, nullptr, out, nullptr,
                                    nullptr, R, G, D, Dv, nr, ncoarse + 1,
-                                   scale, half, stream);
+                                   scale, half, cr, stream);
 }
 
 // Paged pools: ks[l]/vs[l] level l's (NP_l, nr, D/Dv) pages for
@@ -1441,12 +1477,13 @@ extern "C" int h1d_decode_attend_paged(const float* q, const void* const* ks,
                                        const int* bidx, float* out, int R,
                                        int G, int D, int Dv, int nr,
                                        int nlev, float scale, int half,
-                                       void* stream) {
+                                       int cr, void* stream) {
+  h1d_info::clear();
   if (nlev < 1 || nlev > MAXLEV) return (int)cudaErrorInvalidValue;
   const Levels lv = read_levels(ks, vs, nullptr, nullptr, 0u, nlev);
   return launch_staged<ADDR_PAGED>(q, lv, t, bidx, nullptr, out, nullptr,
                                    nullptr, R, G, D, Dv, nr, nlev, scale,
-                                   half, stream);
+                                   half, cr, stream);
 }
 
 // As h1d_decode_attend_paged; level l stores int8 pages when bit l of
@@ -1456,12 +1493,13 @@ extern "C" int h1d_decode_attend_paged_quant(
     const float* q, const void* const* ks, const void* const* vs,
     const void* const* kscs, const void* const* vscs, int qmask,
     const int* t, const int* bidx, float* out, int R, int G, int D, int Dv,
-    int nr, int nlev, float scale, int half, void* stream) {
+    int nr, int nlev, float scale, int half, int cr, void* stream) {
+  h1d_info::clear();
   if (nlev < 1 || nlev > MAXLEV) return (int)cudaErrorInvalidValue;
   const Levels lv = read_levels(ks, vs, kscs, vscs, (unsigned)qmask, nlev);
   return launch_staged<ADDR_QPAGED>(q, lv, t, bidx, nullptr, out, nullptr,
                                     nullptr, R, G, D, Dv, nr, nlev, scale,
-                                    half, stream);
+                                    half, cr, stream);
 }
 
 // k_new (R,D), v_new (R,Dv), t (R,) int32; ks[l]/vs[l] are level l's
@@ -1470,6 +1508,7 @@ extern "C" int h1d_update_cache(const float* knew, const float* vnew,
                                 const int* t, void* const* ks,
                                 void* const* vs, int R, int Lmax, int D,
                                 int Dv, int nlev, int half, void* stream) {
+  h1d_info::clear();
   if (nlev < 1 || nlev > MAXLEV || R < 1) return (int)cudaErrorInvalidValue;
   const MutLevels lv = write_levels(ks, vs, nullptr, nullptr, 0u, nlev);
   return launch_chain<ADDR_DENSE>(knew, vnew, t, nullptr, nullptr, lv, R,
@@ -1484,6 +1523,7 @@ extern "C" int h1d_update_cache_paged(const float* knew, const float* vnew,
                                       void* const* ks, void* const* vs,
                                       int R, int D, int Dv, int nr, int nlev,
                                       int half, void* stream) {
+  h1d_info::clear();
   if (nlev < 1 || nlev > MAXLEV || R < 1 || nr < 2)
     return (int)cudaErrorInvalidValue;
   const MutLevels lv = write_levels(ks, vs, nullptr, nullptr, 0u, nlev);
@@ -1501,6 +1541,7 @@ extern "C" int h1d_update_cache_paged_quant(
     const float* knew, const float* vnew, const int* t, const int* utab,
     void* const* ks, void* const* vs, void* const* kscs, void* const* vscs,
     int qmask, int R, int D, int Dv, int nr, int nlev, void* stream) {
+  h1d_info::clear();
   if (nlev < 1 || nlev > MAXLEV || R < 1 || nr < 2 || D < 1 || Dv < 1 ||
       D > 1024 || Dv > 1024)
     return (int)cudaErrorInvalidValue;
@@ -1521,6 +1562,7 @@ extern "C" int h1d_update_cache_paged_quant(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
+  h1d_info::note(0, kernel, 64 * UPD_PARTS, smem, R);
   kernel<<<R, 64 * UPD_PARTS, smem, (cudaStream_t)stream>>>(
       knew, vnew, t, utab, lv, D, Dv, nr, nlev);
   return (int)cudaGetLastError();
@@ -1534,12 +1576,13 @@ extern "C" int h1d_decode_attend_partial(
     const float* q, const void* const* ks, const void* const* vs,
     const int* rows, const int* t, const int* bidx, const int* owned,
     float* num, float* den, float* m, int R, int G, int D, int Dv, int nr,
-    int nlev, float scale, int half, void* stream) {
+    int nlev, float scale, int half, int cr, void* stream) {
+  h1d_info::clear();
   if (nlev < 1 || nlev > MAXLEV) return (int)cudaErrorInvalidValue;
   Levels lv = read_levels(ks, vs, nullptr, nullptr, 0u, nlev);
   for (int l = 0; l < nlev; ++l) lv.rows[l] = rows[l];
   return launch_staged<ADDR_LOCAL>(q, lv, t, bidx, owned, num, den, m, R, G,
-                                   D, Dv, nr, nlev, scale, half, stream);
+                                   D, Dv, nr, nlev, scale, half, cr, stream);
 }
 
 // One shard's sharded levels: ks[l]/vs[l] (R, Lloc>>l, D/Dv) for
@@ -1552,6 +1595,7 @@ extern "C" int h1d_update_cache_partial(const float* knew, const float* vnew,
                                         void* carry_k, void* carry_v, int R,
                                         int Lloc, int D, int Dv, int nlev,
                                         int half, void* stream) {
+  h1d_info::clear();
   if (nlev < 1 || nlev > MAXLEV || R < 1) return (int)cudaErrorInvalidValue;
   const MutLevels lv = write_levels(ks, vs, nullptr, nullptr, 0u, nlev);
   return launch_chain<ADDR_LOCAL>(knew, vnew, t_loc, owned, nullptr, lv, R,
@@ -1574,4 +1618,20 @@ extern "C" int h1d_decode_attend_plan(int G, int D, int Dv, int nr, int nlev,
   out[2] = p.quantum;
   out[3] = p.smem;
   return 0;
+}
+
+// The grid ((R, 1): one CTA a row) and dynamic shared memory of this
+// library's last launch on the calling thread, and its kernel's
+// registers, static shared memory, most threads and CTAs an SM
+// (launch_info.cuh), for the wrappers' launch records.
+extern "C" int h1d_decode_last_grid(int* out) {
+  return h1d_info::last_grid(out);
+}
+
+extern "C" int h1d_decode_last_smem(int* out) {
+  return h1d_info::last_smem(out);
+}
+
+extern "C" int h1d_decode_last_attrs(int* out) {
+  return h1d_info::last_attrs(out);
 }

@@ -42,7 +42,7 @@ import torch
 
 from ..analysis import contracts
 from ..core import hierarchy as hc
-from . import _build
+from . import _build, tuning
 
 NEG_INF = -3.0e38
 _MIN_M = -1e30
@@ -56,11 +56,12 @@ Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "h1d_band_fwd": [_P] * 7 + [_I] * 7 + [_P],
+    "h1d_band_fwd": [_P] * 7 + [_I] * 8 + [_P],
     "h1d_band_fwd_last_grid": [_P],
     "h1d_band_fwd_stream": [_P] * 7 + [_I] * 6 + [_P],
     "h1d_band_stream_smem": [_I] * 3,
     "h1d_band_sub_fwd": [_P] * 7 + [_I] * 8 + [_P],
+    **_build.launch_signatures("h1d_band_fwd"),
 }
 
 
@@ -492,6 +493,18 @@ def sub_bwd_splits(G: int, nq: int) -> int:
     return s
 
 
+def sub_bwd_tq(G: int, nq: int, S: int, d: int, dv: int, nr: int) -> int:
+    """Rows a tile of the sub backward at S splits (``launch_sub`` in
+    ``csrc/h1d_block_bwd.cu``): SUB_TQ, halved down to 16 while half of it
+    still holds a CTA's G * nq / S rows or its shared memory exceeds
+    SMEM_MAX."""
+    tq = SUB_TQ
+    while tq > 16 and (tq // 2 >= G * nq // S
+                       or 4 * sub_bwd_floats(tq, d, dv, nr) > SMEM_MAX):
+        tq //= 2
+    return tq
+
+
 def sub_pair_items(rows: int, p0: int, nq: int, nkg: int, nkgh: int):
     """(row, key group, lanes) of every item of the score pass on a tile of
     ``rows`` rows from position ``p0`` of its query block: a row pair
@@ -791,15 +804,23 @@ def _outputs(q, dv):
             torch.empty((B, G, L), dtype=torch.float32, device=q.device))
 
 
-def band_attention_fwd(q, k, v, w, *, nr: int,
-                       mode: str = "l0_causal") -> Triple:
+def _record_launch(lib, prefix: str):
+    """The launcher's grid of the last launch, and (read once per record)
+    the shared memory it set, its kernels' registers and CTAs an SM."""
+    return dict(grid=last_grid(getattr(lib, f"{prefix}_last_grid")),
+                attrs=lambda: _build.last_launch(lib, prefix))
+
+
+def band_attention_fwd(q, k, v, w, *, nr: int, mode: str = "l0_causal",
+                       tq=None) -> Triple:
     """Band attention of one level in any mode but ``sub``.  CPU tensors
     take :func:`band_attention_fwd_ref`; CUDA tensors launch
     ``h1d_band_fwd`` (``coarse_causal`` runs the sub body at ratio 1
     there), or ``h1d_band_fwd_stream`` for the ``l0_causal`` shapes the
     staged body does not take (:func:`check_window_fwd`), counted under
-    ``l0_causal_stream``.  ``.mode_launches`` counts the launches per
-    mode."""
+    ``l0_causal_stream``.  The rows a tile come from the launch policy
+    (``tuning.get_policy``): ``tq`` (rows, or a candidate's fields)
+    overrides it.  ``.mode_launches`` counts the launches per mode."""
     if q.device.type == "cpu":
         return band_attention_fwd_ref(q, k, v, w, nr=nr, mode=mode)
     _check_mode(mode)
@@ -814,6 +835,8 @@ def band_attention_fwd(q, k, v, w, *, nr: int,
     _build.expect(k, "k", (B, L, d))
     _build.expect(v, "v", (B, L, dv))
     _build.expect(w, "w", (B, L))
+    cfg, src = tuning.get_policy().resolve(
+        "band_fwd", override=tq, L=L, nr=nr, mode=mode, B=B, G=G, d=d, dv=dv)
     y, dn, m = _outputs(q, dv)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
             y.data_ptr(), dn.data_ptr(), m.data_ptr())
@@ -823,8 +846,10 @@ def band_attention_fwd(q, k, v, w, *, nr: int,
             "h1d_band_fwd_stream")
         key = "l0_causal_stream"
     else:
+        # 0: the launcher's own rule, which the default mirrors
         _build.check(lib.h1d_band_fwd(
-            *ptrs, B, G, L, d, dv, nr, _MODE_CODES[mode], _build.stream()),
+            *ptrs, B, G, L, d, dv, nr, _MODE_CODES[mode],
+            0 if src == "default" else cfg["tq"], _build.stream()),
             "h1d_band_fwd")
         key = mode
     band_attention_fwd.launches += 1
@@ -833,7 +858,7 @@ def band_attention_fwd(q, k, v, w, *, nr: int,
     if contracts.ACTIVE:
         contracts.record(contracts.band_fwd(
             q, k, v, w, nr=nr, mode=mode, body=body,
-            grid=last_grid(lib.h1d_band_fwd_last_grid)))
+            tile=tuning.tile_of(cfg), **_record_launch(lib, "h1d_band_fwd")))
     return y, dn, m
 
 
@@ -841,10 +866,12 @@ band_attention_fwd.launches = 0
 band_attention_fwd.mode_launches = {}
 
 
-def band_attention_sub_fwd(q, k, v, w, *, nr: int, ratio: int) -> Triple:
+def band_attention_sub_fwd(q, k, v, w, *, nr: int, ratio: int,
+                           tq=None) -> Triple:
     """Fine-q causal level (mode ``sub``).  CPU tensors take
     :func:`band_attention_sub_fwd_ref`; CUDA tensors launch
-    ``h1d_band_sub_fwd``."""
+    ``h1d_band_sub_fwd``, whose tile is SUB_TQ at compile time (an
+    override ``tq`` is logged and changes nothing)."""
     if q.device.type == "cpu":
         return band_attention_sub_fwd_ref(q, k, v, w, nr=nr, ratio=ratio)
     lib = _lib()
@@ -859,6 +886,9 @@ def band_attention_sub_fwd(q, k, v, w, *, nr: int, ratio: int) -> Triple:
     _build.expect(k, "k", (B, Lk, d))
     _build.expect(v, "v", (B, Lk, dv))
     _build.expect(w, "w", (B, Lk))
+    cfg, _ = tuning.get_policy().resolve(
+        "sub_fwd", override=tq, L=Lq, nr=nr, mode=SUB_MODE, ratio=ratio, B=B,
+        G=G, d=d, dv=dv)
     y, dn, m = _outputs(q, dv)
     _build.check(lib.h1d_band_sub_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
@@ -867,8 +897,8 @@ def band_attention_sub_fwd(q, k, v, w, *, nr: int, ratio: int) -> Triple:
     band_attention_sub_fwd.launches += 1
     if contracts.ACTIVE:
         contracts.record(contracts.sub_fwd(
-            q, k, v, w, nr=nr, ratio=ratio,
-            grid=last_grid(lib.h1d_band_fwd_last_grid)))
+            q, k, v, w, nr=nr, ratio=ratio, tile=tuning.tile_of(cfg),
+            **_record_launch(lib, "h1d_band_fwd")))
     return y, dn, m
 
 

@@ -46,7 +46,7 @@ import torch
 
 from ..analysis import contracts
 from ..core import hierarchy as hc
-from . import _build
+from . import _build, tuning
 # the module, not its names: core -> kernels.ops -> here runs while
 # h1d_block is still being imported
 from . import h1d_block as hb
@@ -57,11 +57,12 @@ Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "h1d_band_bwd": [_P] * 16 + [_I] * 7 + [_P],
+    "h1d_band_bwd": [_P] * 16 + [_I] * 7 + [_P, _P],
     "h1d_band_bwd_last_grid": [_P],
     "h1d_band_bwd_stream": [_P] * 15 + [_I] * 6 + [_P],
     "h1d_band_bwd_stream_smem": [_I] * 4,
-    "h1d_band_sub_bwd": [_P] * 15 + [_I] * 8 + [_P],
+    "h1d_band_sub_bwd": [_P] * 15 + [_I] * 9 + [_P],
+    **_build.launch_signatures("h1d_band_bwd"),
 }
 
 
@@ -240,7 +241,7 @@ def _outputs(q, k, v):
 
 
 def band_attention_bwd(q, k, v, w, y, dn, m, gy, gdn, gm, *, nr: int,
-                       mode: str = "l0_causal") -> Grads:
+                       mode: str = "l0_causal", tq=None) -> Grads:
     """Backward of one level in any mode but ``sub``.  CPU tensors take
     :func:`band_attention_bwd_ref`; CUDA tensors launch ``h1d_band_bwd``
     (a dQ kernel, which also writes each row's a and ds to a scratch
@@ -249,8 +250,12 @@ def band_attention_bwd(q, k, v, w, y, dn, m, gy, gdn, gm, *, nr: int,
     ``h1d_band_bwd_stream`` for the ``l0_causal`` shapes the staged
     bodies do not take (:func:`h1d_block.check_window_bwd`: a dQ kernel
     and a dK/dV/dW kernel that each recompute the scores, no scratch),
-    counted under ``l0_causal_stream``.  Returns (dq, dk, dv, dw, gmn).
-    ``.mode_launches`` counts the launches per mode."""
+    counted under ``l0_causal_stream``.  The tiles come from the launch
+    policy (``tuning.get_policy``: the dQ pass's rows a tile and the
+    dK/dV/dW pass's key blocks a CTA and reader rows; ``coarse_causal``
+    its splits); ``tq`` (the dQ rows, or a candidate's fields) overrides
+    it.  Returns (dq, dk, dv, dw, gmn).  ``.mode_launches`` counts the
+    launches per mode."""
     if q.device.type == "cpu":
         return band_attention_bwd_ref(q, k, v, w, y, dn, m, gy, gdn, gm,
                                       nr=nr, mode=mode)
@@ -262,6 +267,9 @@ def band_attention_bwd(q, k, v, w, y, dn, m, gy, gdn, gm, *, nr: int,
     lib = _lib()
     hb._check_length(L, nr, mode)
     gy, gdn, gm = _operands(q, k, v, w, y, dn, m, gy, gdn, gm, L, L)
+    cfg, src = tuning.get_policy().resolve(
+        "band_bwd", override=tq, L=L, nr=nr, mode=mode, B=B, G=G, d=d,
+        dv=v.shape[-1])
     out = _outputs(q, k, v)
     dq, dk, dv, dw, gmn = out
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
@@ -279,9 +287,13 @@ def band_attention_bwd(q, k, v, w, y, dn, m, gy, gdn, gm, *, nr: int,
         dsa = (torch.empty((B, G, L, 2 * hb.band_row_slots(mode, nr)),
                            dtype=torch.float32, device=q.device)
                if mode in hb.BAND_CODES else None)
+        # null: the launcher's own rules, which the default mirrors
+        tile = None if src == "default" else (ctypes.c_int * 3)(
+            *([cfg["splits"], 0, 0] if "splits" in cfg
+              else [cfg["tq"], cfg["nkb"], cfg["tk"]]))
         _build.check(lib.h1d_band_bwd(
             *ptrs, None if dsa is None else dsa.data_ptr(),
-            B, G, L, d, v.shape[-1], nr, hb._MODE_CODES[mode],
+            B, G, L, d, v.shape[-1], nr, hb._MODE_CODES[mode], tile,
             _build.stream()), "h1d_band_bwd")
         key = mode
     band_attention_bwd.launches += 1
@@ -290,7 +302,8 @@ def band_attention_bwd(q, k, v, w, y, dn, m, gy, gdn, gm, *, nr: int,
     if contracts.ACTIVE:
         contracts.record(contracts.band_bwd(
             q, k, v, w, nr=nr, mode=mode, body=body,
-            grid=hb.last_grid(lib.h1d_band_bwd_last_grid)))
+            tile=tuning.tile_of(cfg),
+            **hb._record_launch(lib, "h1d_band_bwd")))
     return out
 
 
@@ -299,12 +312,15 @@ band_attention_bwd.mode_launches = {}
 
 
 def band_attention_sub_bwd(q, k, v, w, y, dn, m, gy, gdn, gm, *, nr: int,
-                           ratio: int) -> Grads:
+                           ratio: int, tq=None) -> Grads:
     """Fine-q causal level backward (mode ``sub``).  CPU tensors take
     :func:`band_attention_sub_bwd_ref`; CUDA tensors launch
     ``h1d_band_sub_bwd`` (one fused kernel: dq, gmn and the key block's
-    dk, dv, dw from one recomputation of each score).  Returns (dq, dk,
-    dv, dw, gmn)."""
+    dk, dv, dw from one recomputation of each score) with the CTAs a key
+    block (one cluster) from the launch policy (``tuning.get_policy``);
+    ``tq`` (a candidate's fields, ``{"splits": S}``) overrides it; rows a
+    tile, which follow the splits, are no choice.  Returns (dq, dk, dv,
+    dw, gmn)."""
     if q.device.type == "cpu":
         return band_attention_sub_bwd_ref(q, k, v, w, y, dn, m, gy, gdn, gm,
                                           nr=nr, ratio=ratio)
@@ -316,6 +332,9 @@ def band_attention_sub_bwd(q, k, v, w, y, dn, m, gy, gdn, gm, *, nr: int,
                          f"Lq == Lk * ratio, got {Lq=}, {Lk=}, {ratio=}")
     hc.validate_h1d_shape(Lq, nr)
     gy, gdn, gm = _operands(q, k, v, w, y, dn, m, gy, gdn, gm, Lq, Lk)
+    cfg, src = tuning.get_policy().resolve(
+        "sub_bwd", override=tq, L=Lq, nr=nr, mode=hb.SUB_MODE, ratio=ratio,
+        B=B, G=G, d=d, dv=v.shape[-1])
     out = _outputs(q, k, v)
     dq, dk, dv, dw, gmn = out
     _build.check(lib.h1d_band_sub_bwd(
@@ -323,13 +342,14 @@ def band_attention_sub_bwd(q, k, v, w, y, dn, m, gy, gdn, gm, *, nr: int,
         y.data_ptr(), dn.data_ptr(), m.data_ptr(), gy.data_ptr(),
         gdn.data_ptr(), gm.data_ptr(), dq.data_ptr(), gmn.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
-        B, G, Lq, Lk, d, v.shape[-1], nr, ratio, _build.stream()),
+        B, G, Lq, Lk, d, v.shape[-1], nr, ratio,
+        0 if src == "default" else cfg["splits"], _build.stream()),
         "h1d_band_sub_bwd")
     band_attention_sub_bwd.launches += 1
     if contracts.ACTIVE:
         contracts.record(contracts.sub_bwd(
-            q, k, v, w, nr=nr, ratio=ratio,
-            grid=hb.last_grid(lib.h1d_band_bwd_last_grid)))
+            q, k, v, w, nr=nr, ratio=ratio, tile=tuning.tile_of(cfg),
+            **hb._record_launch(lib, "h1d_band_bwd")))
     return out
 
 

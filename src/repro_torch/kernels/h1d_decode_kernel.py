@@ -72,7 +72,7 @@ import torch
 from ..analysis import contracts
 from ..core import hierarchy as hc
 from ..core import quantization as qz
-from . import _build
+from . import _build, tuning
 
 _MIN_M = -1e30
 
@@ -83,20 +83,22 @@ _F = ctypes.c_float
 # half = 1 where the cache levels hold bfloat16
 _SIGNATURES = {
     "h1d_decode_attend": [_P, _P, _P, _PP, _PP, _P, _P] + [_I] * 7
-                         + [_F, _I, _P],
+                         + [_F, _I, _I, _P],
     "h1d_decode_attend_paged": [_P, _PP, _PP, _P, _P, _P] + [_I] * 6
-                               + [_F, _I, _P],
+                               + [_F, _I, _I, _P],
     "h1d_decode_attend_paged_quant": [_P, _PP, _PP, _PP, _PP, _I, _P, _P,
-                                      _P] + [_I] * 6 + [_F, _I, _P],
+                                      _P] + [_I] * 6 + [_F, _I, _I, _P],
     "h1d_update_cache": [_P, _P, _P, _PP, _PP] + [_I] * 6 + [_P],
     "h1d_update_cache_paged": [_P, _P, _P, _P, _PP, _PP] + [_I] * 6 + [_P],
     "h1d_update_cache_paged_quant": [_P, _P, _P, _P, _PP, _PP, _PP, _PP]
                                     + [_I] * 6 + [_P],
     "h1d_decode_attend_partial": [_P, _PP, _PP] + [_P] * 7 + [_I] * 6
-                                 + [_F, _I, _P],
+                                 + [_F, _I, _I, _P],
     "h1d_update_cache_partial": [_P, _P, _P, _P, _PP, _PP, _P, _P]
                                 + [_I] * 6 + [_P],
     "h1d_decode_attend_plan": [_I] * 7 + [_P],
+    "h1d_decode_last_grid": [_P],
+    **_build.launch_signatures("h1d_decode"),
 }
 
 #: cache element types the kernels take (``half`` = 1 for bfloat16); the
@@ -242,9 +244,21 @@ def attend_quantum(D: int, Dv: int, nr: int, quant: bool = False,
     return 1 if (D % 4 == 0 and Dv % 4 == 0) or nr % 4 else 4
 
 
+def attend_chunks(nr: int, quantum: int):
+    """Rows a ring stage may hold: nr halved while a multiple of the row
+    quantum (``attend_plan``'s walk)."""
+    out, cr = [], nr
+    while cr >= 1 and cr % quantum == 0:
+        out.append(cr)
+        if cr % 2:
+            break
+        cr //= 2
+    return out
+
+
 def plan_attend_stages(G: int, D: int, Dv: int, nr: int, nlev: int,
-                       quant: bool = False,
-                       half: bool = False) -> AttendStages:
+                       quant: bool = False, half: bool = False,
+                       cr: int = None) -> AttendStages:
     """The staged attend's launch plan, as ``attend_plan`` in
     ``csrc/h1d_decode.cu`` computes it (``quant``: the pool has int8
     levels; ``half``: its other levels are bf16, staged in the slots f32
@@ -253,22 +267,26 @@ def plan_attend_stages(G: int, D: int, Dv: int, nr: int, nlev: int,
     :data:`SMEM_LIMIT`; else a ring of as many slots as fit, its chunks
     halved from nr rows while fewer than 2 fit (never below
     :func:`attend_quantum`).  Raises ``ValueError`` with the sizes where
-    not even one chunk fits."""
+    not even one chunk fits.  ``cr`` (the launch policy's choice,
+    ``tuning``) forces the rows a chunk: resident where ``cr = nr`` and
+    every band fits, else a ring of as many stages as fit; ``stages = 0``
+    where none does or ``cr`` is not one of :func:`attend_chunks`."""
     nb = nlev + 1
     quantum = attend_quantum(D, Dv, nr, quant, half)
     smem = _attend_smem(G, D, Dv, nr, nlev, 2 * nb, nr, quant)
+    if cr:
+        if cr not in attend_chunks(nr, quantum):
+            return AttendStages(0, cr, quantum, smem, False)
+        if cr == nr and smem <= SMEM_LIMIT:
+            return AttendStages(2 * nb, nr, quantum, smem, True)
+        S = _ring_stages(G, D, Dv, nr, nlev, cr, quant)
+        return AttendStages(S, cr, quantum, _attend_smem(
+            G, D, Dv, nr, nlev, S, cr, quant), False)
     if smem <= SMEM_LIMIT:
         return AttendStages(2 * nb, nr, quantum, smem, True)
     cr = nr
     while True:
-        most = 2 * nb * -(-nr // cr)
-        fixed = _attend_smem(G, D, Dv, nr, nlev, 0, cr, quant)
-        per = 4 * _slot(cr, D, Dv, quant) + 8
-        S = 0 if fixed > SMEM_LIMIT else min(most, (SMEM_LIMIT - fixed)
-                                              // per)
-        while S > 0 and _attend_smem(G, D, Dv, nr, nlev, S, cr,
-                                     quant) > SMEM_LIMIT:
-            S -= 1
+        S = _ring_stages(G, D, Dv, nr, nlev, cr, quant)
         if S >= 2 or cr % 2 or (cr // 2) % quantum:
             break
         cr //= 2
@@ -282,7 +300,34 @@ def plan_attend_stages(G: int, D: int, Dv: int, nr: int, nlev: int,
                                                      cr, quant), False)
 
 
+def _ring_stages(G, D, Dv, nr, nlev, cr, quant):
+    """Stages of ``cr`` rows that fit beside the rest of the plan."""
+    most = 2 * (nlev + 1) * -(-nr // cr)
+    fixed = _attend_smem(G, D, Dv, nr, nlev, 0, cr, quant)
+    per = 4 * _slot(cr, D, Dv, quant) + 8
+    S = 0 if fixed > SMEM_LIMIT else min(most, (SMEM_LIMIT - fixed) // per)
+    while S > 0 and _attend_smem(G, D, Dv, nr, nlev, S, cr,
+                                 quant) > SMEM_LIMIT:
+        S -= 1
+    return S
+
+
 UPDATE_MAX_WIDTH = 1024     # #10: 32 columns a lane of a chain's warp
+#: #10's threads: a warp a chain, 4 chains (``UPD_PARTS``) a CTA
+UPDATE_QUANT_THREADS = 256
+#: #6, #9, #12: shared memory their staging may take (``CHAIN_SMEM``)
+CHAIN_SMEM = 48 * 1024
+
+
+def update_chain_plan(D: int, Dv: int, nlev: int, paged: bool = False):
+    """(threads, shared memory bytes) of #6, #9 and #12 (``launch_chain``
+    in the source): a column a thread, at most 1024 and as many as
+    CHAIN_SMEM stages (2 nlev floats a thread, after #9's page table row
+    of nlev ints), in whole warps."""
+    tab = 4 * nlev if paged else 0
+    fit = (CHAIN_SMEM - tab) // (8 * nlev) // 32 * 32
+    threads = min(1024, fit, -(-(D + Dv) // 32) * 32)
+    return threads, 8 * nlev * threads + tab
 
 
 def update_quant_smem(D: int, Dv: int, qmask: int, nlev: int) -> int:
@@ -653,6 +698,32 @@ def _count(wrapper, half: int) -> None:
             wrapper.mode_launches.get("bf16", 0) + 1)
 
 
+def _attend_tile(family, G, D, Dv, nr, nlev, quant, half):
+    """The launch policy's plan of a staged attend (``tuning``): its
+    config and the chunk rows the launcher takes (0: its own rule, which
+    the default mirrors; :func:`plan_attend_stages` raises where no plan
+    fits)."""
+    cfg, src = tuning.get_policy().resolve(
+        family, G=G, d=D, dv=Dv, nr=nr, levels=nlev, quant=quant,
+        dtype="bfloat16" if half else "float32")
+    return cfg, 0 if src == "default" else cfg["cr"]
+
+
+def _update_tile(family, R, D, Dv, nlev, half):
+    cfg, _ = tuning.get_policy().resolve(
+        family, rows=R, d=D, dv=Dv, levels=nlev,
+        dtype="bfloat16" if half else "float32")
+    return cfg
+
+
+def _record_launch(lib):
+    """The launcher's grid of the last launch, and (read once per record)
+    the shared memory it set, its kernel's registers and CTAs an SM."""
+    from .h1d_block import last_grid
+    return dict(grid=last_grid(lib.h1d_decode_last_grid),
+                attrs=lambda: _build.last_launch(lib, "h1d_decode"))
+
+
 def _check_cache(cache, R, D, Dv):
     """Validate a dense cache (every level of one element type); returns
     (Lmax, half)."""
@@ -688,18 +759,20 @@ def decode_attend_fused(cache, q, t, *, nr: int, softmax_scale=None):
     qf = _f32(q)
     _build.expect(qf, "q", (R, G, D))
     _build.expect(t, "t", (R,), torch.int32)
-    plan_attend_stages(G, D, Dv, nr, 1 + len(cache.ck), half=bool(half))
+    cfg, cr = _attend_tile("decode_attend", G, D, Dv, nr, 1 + len(cache.ck),
+                           False, bool(half))
     scale = softmax_scale if softmax_scale is not None else 1 / math.sqrt(D)
     out = torch.empty((R, G, Dv), dtype=torch.float32, device=q.device)
     _build.check(lib.h1d_decode_attend(
         qf.data_ptr(), cache.k.data_ptr(), cache.v.data_ptr(),
         _ptrs(cache.ck), _ptrs(cache.cv), t.data_ptr(), out.data_ptr(),
-        R, G, Lmax, D, Dv, nr, len(cache.ck), float(scale), half,
+        R, G, Lmax, D, Dv, nr, len(cache.ck), float(scale), half, cr,
         _build.stream()), "h1d_decode_attend")
     _count(decode_attend_fused, half)
     if contracts.ACTIVE:
-        contracts.record(contracts.decode_attend(cache, q, t, nr=nr,
-                                                 grid=((R,),)))
+        contracts.record(contracts.decode_attend(
+            cache, q, t, nr=nr, tile=tuning.tile_of(cfg),
+            **_record_launch(lib)))
     return out.to(q.dtype)
 
 
@@ -724,14 +797,16 @@ def update_cache_fused(cache, k_new, v_new, t):
     _build.expect(t, "t", (R,), torch.int32)
     ks = [cache.k, *cache.ck]
     vs = [cache.v, *cache.cv]
+    cfg = _update_tile("decode_update", R, D, Dv, len(ks), half)
     _build.check(lib.h1d_update_cache(
         k_new.data_ptr(), v_new.data_ptr(), t.data_ptr(), _ptrs(ks),
         _ptrs(vs), R, Lmax, D, Dv, len(ks), half, _build.stream()),
         "h1d_update_cache")
     _count(update_cache_fused, half)
     if contracts.ACTIVE:
-        contracts.record(contracts.decode_update(cache, k_new, v_new, t,
-                                                 grid=((R,),)))
+        contracts.record(contracts.decode_update(
+            cache, k_new, v_new, t, tile=tuning.tile_of(cfg),
+            **_record_launch(lib)))
     return cache
 
 
@@ -771,7 +846,8 @@ def _check_pool(pool, nr: int, D: int, Dv: int, quant: bool):
     return ks, vs, kscs, vscs, qmask, half
 
 
-def _attend_paged_launch(fn, pool, q, t, bidx, nr, softmax_scale, quant):
+def _attend_paged_launch(fn, family, pool, q, t, bidx, nr, softmax_scale,
+                         quant):
     lib = _lib()
     R, G, D = q.shape
     Dv = pool.v.shape[-1]
@@ -780,20 +856,20 @@ def _attend_paged_launch(fn, pool, q, t, bidx, nr, softmax_scale, quant):
     _build.expect(qf, "q", (R, G, D))
     _build.expect(t, "t", (R,), torch.int32)
     _build.expect(bidx, "bidx", (R, 1 + len(ks)), torch.int32)
-    plan_attend_stages(G, D, Dv, nr, len(ks), quant=qmask != 0,
-                       half=bool(half))
+    cfg, cr = _attend_tile(family, G, D, Dv, nr, len(ks), qmask != 0,
+                           bool(half))
     scale = softmax_scale if softmax_scale is not None else 1 / math.sqrt(D)
     out = torch.empty((R, G, Dv), dtype=torch.float32, device=q.device)
     head = (qf.data_ptr(), _ptrs(ks), _ptrs(vs))
     tail = (t.data_ptr(), bidx.data_ptr(), out.data_ptr(), R, G, D, Dv, nr,
-            len(ks), float(scale), half, _build.stream())
+            len(ks), float(scale), half, cr, _build.stream())
     if quant:
         err = lib.h1d_decode_attend_paged_quant(
             *head, _ptrs(kscs), _ptrs(vscs), qmask, *tail)
     else:
         err = lib.h1d_decode_attend_paged(*head, *tail)
     _build.check(err, fn)
-    return out.to(q.dtype), half
+    return out.to(q.dtype), half, cfg, lib
 
 
 def decode_attend_paged(pool, q, t, bidx, *, nr: int, softmax_scale=None):
@@ -804,12 +880,14 @@ def decode_attend_paged(pool, q, t, bidx, *, nr: int, softmax_scale=None):
     if q.device.type == "cpu":
         return decode_attend_paged_ref(pool, q, t, bidx, nr=nr,
                                        softmax_scale=softmax_scale)
-    out, half = _attend_paged_launch("h1d_decode_attend_paged", pool, q, t,
-                                     bidx, nr, softmax_scale, quant=False)
+    out, half, cfg, lib = _attend_paged_launch(
+        "h1d_decode_attend_paged", "decode_attend_paged", pool, q, t, bidx,
+        nr, softmax_scale, quant=False)
     _count(decode_attend_paged, half)
     if contracts.ACTIVE:
         contracts.record(contracts.decode_attend_paged(
-            pool, q, t, bidx, nr=nr, grid=((q.shape[0],),)))
+            pool, q, t, bidx, nr=nr, tile=tuning.tile_of(cfg),
+            **_record_launch(lib)))
     return out
 
 
@@ -825,13 +903,14 @@ def decode_attend_paged_quant(pool, q, t, bidx, *, nr: int,
     if q.device.type == "cpu":
         return decode_attend_paged_quant_ref(pool, q, t, bidx, nr=nr,
                                              softmax_scale=softmax_scale)
-    out, half = _attend_paged_launch("h1d_decode_attend_paged_quant", pool,
-                                     q, t, bidx, nr, softmax_scale,
-                                     quant=True)
+    out, half, cfg, lib = _attend_paged_launch(
+        "h1d_decode_attend_paged_quant", "decode_attend_paged_quant", pool,
+        q, t, bidx, nr, softmax_scale, quant=True)
     _count(decode_attend_paged_quant, half)
     if contracts.ACTIVE:
         contracts.record(contracts.decode_attend_paged_quant(
-            pool, q, t, bidx, nr=nr, grid=((q.shape[0],),)))
+            pool, q, t, bidx, nr=nr, tile=tuning.tile_of(cfg),
+            **_record_launch(lib)))
     return out
 
 
@@ -839,7 +918,7 @@ decode_attend_paged_quant.launches = 0
 decode_attend_paged_quant.mode_launches = {}
 
 
-def _update_paged_launch(fn, pool, k_new, v_new, t, utab, quant):
+def _update_paged_launch(fn, family, pool, k_new, v_new, t, utab, quant):
     lib = _lib()
     R, D = k_new.shape
     Dv = v_new.shape[-1]
@@ -865,6 +944,7 @@ def _update_paged_launch(fn, pool, k_new, v_new, t, utab, quant):
                 f"D={D}, Dv={Dv}, {len(ks)} levels (int8 mask {qmask:#x}): "
                 f"one row's sibling pairs need {smem} bytes of shared "
                 f"memory; the H100 gives {SMEM_LIMIT}")
+    cfg = _update_tile(family, R, D, Dv, len(ks), half)
     head = (k_new.data_ptr(), v_new.data_ptr(), t.data_ptr(),
             utab.data_ptr(), _ptrs(ks), _ptrs(vs))
     tail = (R, D, Dv, nr, len(ks))
@@ -874,7 +954,7 @@ def _update_paged_launch(fn, pool, k_new, v_new, t, utab, quant):
     else:
         err = lib.h1d_update_cache_paged(*head, *tail, half, _build.stream())
     _build.check(err, fn)
-    return half
+    return half, cfg, lib
 
 
 def update_cache_paged(pool, k_new, v_new, t, utab):
@@ -884,12 +964,14 @@ def update_cache_paged(pool, k_new, v_new, t, utab):
     ``h1d_update_cache_paged``.  Returns ``pool``."""
     if k_new.device.type == "cpu":
         return update_cache_paged_ref(pool, k_new, v_new, t, utab)
-    half = _update_paged_launch("h1d_update_cache_paged", pool, k_new, v_new,
-                                t, utab, quant=False)
+    half, cfg, lib = _update_paged_launch(
+        "h1d_update_cache_paged", "decode_update_paged", pool, k_new, v_new,
+        t, utab, quant=False)
     _count(update_cache_paged, half)
     if contracts.ACTIVE:
         contracts.record(contracts.decode_update_paged(
-            pool, k_new, v_new, t, utab, grid=((k_new.shape[0],),)))
+            pool, k_new, v_new, t, utab, tile=tuning.tile_of(cfg),
+            **_record_launch(lib)))
     return pool
 
 
@@ -903,12 +985,14 @@ def update_cache_paged_quant(pool, k_new, v_new, t, utab):
     ``h1d_update_cache_paged_quant``.  Returns ``pool``."""
     if k_new.device.type == "cpu":
         return update_cache_paged_quant_ref(pool, k_new, v_new, t, utab)
-    _update_paged_launch("h1d_update_cache_paged_quant", pool, k_new, v_new,
-                         t, utab, quant=True)
+    _, cfg, lib = _update_paged_launch(
+        "h1d_update_cache_paged_quant", "decode_update_paged_quant", pool,
+        k_new, v_new, t, utab, quant=True)
     update_cache_paged_quant.launches += 1
     if contracts.ACTIVE:
         contracts.record(contracts.decode_update_paged_quant(
-            pool, k_new, v_new, t, utab, grid=((k_new.shape[0],),)))
+            pool, k_new, v_new, t, utab, tile=tuning.tile_of(cfg),
+            **_record_launch(lib)))
     return pool
 
 
@@ -951,7 +1035,8 @@ def decode_attend_partial(cache, q, t, bidx, owned, *, nr: int,
     _build.expect(t, "t", (R,), torch.int32)
     _build.expect(bidx, "bidx", (R, 1 + len(ks)), torch.int32)
     _build.expect(owned, "owned", (R, 1 + len(ks)), torch.int32)
-    plan_attend_stages(G, D, Dv, nr, len(ks), half=bool(half))
+    cfg, cr = _attend_tile("decode_attend_partial", G, D, Dv, nr, len(ks),
+                           False, bool(half))
     scale = softmax_scale if softmax_scale is not None else 1 / math.sqrt(D)
     f32 = torch.float32
     num = torch.empty((R, G, Dv), dtype=f32, device=q.device)
@@ -961,11 +1046,12 @@ def decode_attend_partial(cache, q, t, bidx, owned, *, nr: int,
         q.data_ptr(), _ptrs(ks), _ptrs(vs), (ctypes.c_int * len(rows))(*rows),
         t.data_ptr(), bidx.data_ptr(), owned.data_ptr(), num.data_ptr(),
         den.data_ptr(), m.data_ptr(), R, G, D, Dv, nr, len(ks), float(scale),
-        half, _build.stream()), "h1d_decode_attend_partial")
+        half, cr, _build.stream()), "h1d_decode_attend_partial")
     _count(decode_attend_partial, half)
     if contracts.ACTIVE:
         contracts.record(contracts.decode_attend_partial(
-            cache, q, t, bidx, owned, nr=nr, grid=((R,),)))
+            cache, q, t, bidx, owned, nr=nr, tile=tuning.tile_of(cfg),
+            **_record_launch(lib)))
     return num, den, m
 
 
@@ -994,6 +1080,7 @@ def update_cache_partial(cache, k_new, v_new, t_loc, owned):
     vs = [cache.v, *cache.cv]
     carry_k = torch.empty((R, D), dtype=cache.k.dtype, device=k_new.device)
     carry_v = torch.empty((R, Dv), dtype=cache.v.dtype, device=k_new.device)
+    cfg = _update_tile("decode_update_partial", R, D, Dv, len(ks), half)
     _build.check(lib.h1d_update_cache_partial(
         k_new.data_ptr(), v_new.data_ptr(), t_loc.data_ptr(),
         owned.data_ptr(), _ptrs(ks), _ptrs(vs), carry_k.data_ptr(),
@@ -1002,7 +1089,8 @@ def update_cache_partial(cache, k_new, v_new, t_loc, owned):
     _count(update_cache_partial, half)
     if contracts.ACTIVE:
         contracts.record(contracts.decode_update_partial(
-            cache, k_new, v_new, t_loc, owned, grid=((R,),)))
+            cache, k_new, v_new, t_loc, owned, tile=tuning.tile_of(cfg),
+            **_record_launch(lib)))
     return cache, carry_k, carry_v
 
 

@@ -395,7 +395,8 @@ def build(kernel: str, csrc: Path):
     out = _build.BUILD_DIR / f"phases_{kernel}"
     out.mkdir(parents=True, exist_ok=True)
     (out / f"{stem}.cu").write_text(instrumented_source(src, specs))
-    shutil.copy(csrc / "h1d_band.cuh", out / "h1d_band.cuh")
+    for header in csrc.glob("*.cuh"):
+        shutil.copy(header, out / header.name)
     lib_path = out / f"{stem}_phases.so"
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib_path),
                     str(out / f"{stem}.cu")], check=True)
@@ -500,7 +501,7 @@ def profile_sub_bwd(lib, dev, gen):
         def launch():
             _build.check(lib.h1d_band_sub_bwd(
                 *[t.data_ptr() for t in ins + grads], B, G, L, Lk, D, D, NR,
-                ratio, _build.stream()), "h1d_band_sub_bwd (instrumented)")
+                ratio, 0, _build.stream()), "h1d_band_sub_bwd (instrumented)")
         rows += _run(lib, [SUB_BWD], launch, f"ratio {ratio}", [ctas])
     return rows
 
@@ -533,7 +534,8 @@ def profile_band(lib, dev, gen, backward):
             def launch():
                 _build.check(lib.h1d_band_fwd(
                     *[t.data_ptr() for t in (*args, *out)], B, G, L, D, D,
-                    NR, code, _build.stream()), "h1d_band_fwd (instrumented)")
+                    NR, code, 0, _build.stream()),
+                    "h1d_band_fwd (instrumented)")
             rows += _run(lib, [BAND_FWD], launch, label, ctas)
             continue
         nkb, _ = hb.band_dkvw_tiles(mode, B, L, D, D, NR)
@@ -548,7 +550,7 @@ def profile_band(lib, dev, gen, backward):
         def launch():
             _build.check(lib.h1d_band_bwd(
                 *[t.data_ptr() for t in (*args, *out, *cot, *grads)], B, G,
-                L, D, D, NR, code, _build.stream()),
+                L, D, D, NR, code, None, _build.stream()),
                 "h1d_band_bwd (instrumented)")
         rows += _run(lib, [BAND_DQ, BAND_DKVW], launch, label, ctas)
     return rows

@@ -62,6 +62,7 @@ import torch
 
 from repro_torch import exact_products, obs, resolve_device
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.kernels.tuning import canonical_impl
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import get_model
 from repro_torch.serve import Request, ServeEngine
@@ -114,6 +115,11 @@ def main(argv=None):
     ap.add_argument("--lookahead", type=int, default=0,
                     help="admission may skip up to this many queued "
                          "requests that do not fit")
+    ap.add_argument("--decode-impl", default=None,
+                    help="the reference's decode backend string (auto | jnp "
+                         "| pallas | pallas_interpret): validated, selects "
+                         "nothing (the device does); default: the "
+                         "config's")
     ap.add_argument("--sp-data", type=int, default=1,
                     help="sequence-parallel degree: split the hierarchical "
                          "KV cache over an N-way 'data' axis and run the "
@@ -144,6 +150,9 @@ def main(argv=None):
                                        args.metrics_period)
                if args.metrics_jsonl else None)
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
+    if args.decode_impl is not None:
+        cfg = dataclasses.replace(cfg, decode_impl=args.decode_impl)
+    canonical_impl(cfg.decode_impl)   # before any weight is drawn
     if args.causal_mode is not None:
         cfg = dataclasses.replace(cfg, causal_mode=args.causal_mode)
     if cfg.family == "encdec":     # refused before any weight is drawn

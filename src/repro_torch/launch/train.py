@@ -39,6 +39,7 @@ import dataclasses
 from repro_torch import exact_products, obs, resolve_device
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data import HierarchicalLM, ZipfLM
+from repro_torch.kernels.tuning import canonical_impl
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.train import TrainConfig, tokens_per_s, train
 
@@ -68,6 +69,11 @@ def main(argv=None):
                     help="sequence-parallel attention: shard L over the "
                          "--mesh axis and run the band kernels per shard "
                          "with a halo exchange (needs --mesh N, N > 1)")
+    ap.add_argument("--attn-impl", default=None,
+                    help="the reference's attention backend string (auto | "
+                         "jnp | pallas | pallas_interpret): validated, "
+                         "selects nothing (the device does); default: the "
+                         "config's")
     ap.add_argument("--telemetry", action="store_true",
                     help="enable repro_torch.obs metrics, train-step spans "
                          "and kernel-launch accounting (implied by "
@@ -88,6 +94,9 @@ def main(argv=None):
     if mesh.d > 1 and not args.sp:
         ap.error(f"--mesh {args.mesh} shards only the sequence: add --sp")
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
+    if args.attn_impl is not None:
+        cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
+    canonical_impl(cfg.attn_impl)     # before any weight is drawn
     if cfg.family == "encdec":     # refused before any weight is drawn
         raise NotImplementedError(
             f"{cfg.name}: an encoder-decoder batch needs 'frames', and this "

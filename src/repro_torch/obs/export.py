@@ -24,8 +24,6 @@ what they check.
 from __future__ import annotations
 
 import collections
-import functools
-import hashlib
 import json
 import math
 import re
@@ -34,34 +32,28 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from ..kernels._build import kernels_digest  # noqa: F401 (re-exported)
 from . import metrics as _m
 from . import tracing as _t
 
 
-@functools.lru_cache(maxsize=1)
-def kernels_digest() -> str:
-    """First 12 hex digits of a sha256 over every kernel source
-    (``csrc/*.cu`` and ``*.cuh``, in name order) and the ``nvcc`` flags:
-    the inputs a kernel library's build is keyed by
-    (``kernels._build._target``)."""
-    from ..kernels import _build
-    h = hashlib.sha256()
-    for path in sorted(_build.CSRC.glob("*.cu")) + sorted(
-            _build.CSRC.glob("*.cuh")):
-        h.update(path.read_bytes())
-    h.update(" ".join(_build.NVCC_FLAGS).encode())
-    return h.hexdigest()[:12]
-
-
 def tuning_snapshot() -> Dict[str, Any]:
-    """The reference's ``tuning`` section: the backend (``cuda`` when a
-    card is present, else ``cpu``) and :func:`kernels_digest`.  The port
-    has no tile table yet, so no decision is logged."""
+    """The reference's ``tuning`` section from the process's launch policy
+    (``kernels.tuning.get_policy``): its backend (``cuda`` when a card is
+    present, else ``cpu``), :meth:`~repro_torch.kernels.tuning.KernelPolicy.tuning_digest`
+    (the defaults, the tables and :func:`kernels_digest`) and the decision
+    log aggregated to {family: {source: count}}."""
+    from ..kernels.tuning import get_policy
+    p = get_policy()
+    agg: Dict[str, Dict[str, int]] = collections.defaultdict(
+        lambda: collections.defaultdict(int))
+    for d in p.decisions:
+        agg[d["family"]][d["source"]] += 1
     return {
-        "backend": "cuda" if torch.cuda.is_available() else "cpu",
-        "tuning_digest": kernels_digest(),
-        "decisions": {},
-        "decision_log_len": 0,
+        "backend": p.backend,
+        "tuning_digest": p.tuning_digest(),
+        "decisions": {f: dict(s) for f, s in sorted(agg.items())},
+        "decision_log_len": len(p.decisions),
     }
 
 

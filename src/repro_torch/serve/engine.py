@@ -82,6 +82,7 @@ import torch
 
 from .. import obs
 from ..core import hierarchy as hc
+from ..kernels.tuning import canonical_impl
 from ..models import ModelConfig, get_model
 from ..models.ssm import SSMState
 from ..parallel import sp_attention as sp
@@ -146,6 +147,9 @@ class ServeEngine:
                  preempt_mode: str = "swap",
                  cache_dtype: Optional[str] = None,
                  quant_levels: Optional[int] = None):
+        # a typo'd decode_impl fails here, as the reference's engine does;
+        # a valid one selects nothing (the tensors' device does)
+        canonical_impl(cfg.decode_impl)
         if preempt_mode not in ("swap", "recompute"):
             raise ValueError(f"unknown preempt_mode {preempt_mode!r}")
         if cache_dtype is None:

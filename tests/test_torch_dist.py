@@ -177,8 +177,8 @@ def test_all_dist_kinds_are_catchable():
 
 def test_check_cli_dist_report(tmp_path, capsys):
     """``--dist --json PATH``: the reference's report schema, no
-    violation, exit 0; ``--kernels`` names the ROADMAP item it waits
-    for."""
+    violation, exit 0; ``--kernels`` runs the kernels section beside it
+    and leaves it out of the dist report."""
     path = tmp_path / "r.json"
     assert check.main(["--dist", "--json", str(path)]) == 0
     out = capsys.readouterr().out
@@ -191,5 +191,7 @@ def test_check_cli_dist_report(tmp_path, capsys):
     assert rep["violations"] == [] and rep["ok"] is True
     assert rep["dist"]["configs"] == 24 and rep["dist"]["checks"] > 0
     assert isinstance(rep["runtime_s"], float)
-    with pytest.raises(NotImplementedError, match="A.13"):
-        check.main(["--kernels"])
+    capsys.readouterr()
+    assert check.main(["--kernels", "--family", "decode_update"]) == 0
+    out = capsys.readouterr().out
+    assert "checked" in out and "dist:" not in out

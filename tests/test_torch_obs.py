@@ -41,6 +41,7 @@ from repro_torch.core import h1d_decode as hd  # noqa: E402
 from repro_torch.core import hierarchy as hc  # noqa: E402
 from repro_torch.kernels import h1d_block as hb  # noqa: E402
 from repro_torch.kernels import h1d_block_bwd as hbb  # noqa: E402
+from repro_torch.kernels import tuning  # noqa: E402
 from repro_torch.obs import export, metrics, traffic  # noqa: E402
 
 META = torch.device("meta")
@@ -280,7 +281,7 @@ def test_chrome_trace_matches_reference_without_timestamps(tmp_path):
     md = got["metadata"]
     assert md["backend"] == "cpu" and md["device"] == "cpu"
     assert md["xla_flags"] == ""
-    assert md["tuning_digest"] == export.kernels_digest()
+    assert md["tuning_digest"] == tuning.get_policy().tuning_digest()
     for validate in (export.validate_chrome_trace,
                      rexport.validate_chrome_trace):
         assert validate(got, require_kernel_traffic=True) == []
@@ -288,10 +289,15 @@ def test_chrome_trace_matches_reference_without_timestamps(tmp_path):
 
 def test_snapshot_passes_both_validators(tmp_path):
     _populate(obs)
-    snap = export.snapshot()
+    policy = tuning.KernelPolicy(cache_dir=str(tmp_path / "tune"))
+    prev = tuning.set_policy(policy)
+    try:
+        snap = export.snapshot()
+    finally:
+        tuning.set_policy(prev)
     assert snap["schema"] == "repro.obs.snapshot/1"
     assert snap["tuning"] == {"backend": "cpu",
-                              "tuning_digest": export.kernels_digest(),
+                              "tuning_digest": policy.tuning_digest(),
                               "decisions": {}, "decision_log_len": 0}
     h = snap["metrics"]["histograms"]["serve.ttft_s"]
     assert h["count"] == 4 and h["min"] == pytest.approx(1e-3)
