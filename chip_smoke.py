@@ -399,6 +399,27 @@ Phases (each raises on failure; nothing is caught):
    tiles match the plain versions, the digest moves.  (d) Every decision
    of (a) is ``default``.  (e) The records at the kernel table's shapes
    (PERF.md), held as (a)'s.  (f) The host cost of a policy resolution.
+23. Planning (``parallel/{sharding,pipeline}.py``, ``launch/{specs,
+   dryrun,roofline}.py``), last: (a) ``h1d-lm-53m`` at full width (fp32,
+   6 layers) split into 3 pipeline stages of 2 layers, 6 microbatches
+   of 1 x 1024 tokens through ``pipeline_apply`` on the card: hidden
+   states within 2e-5 of the same layers applied in sequence, every
+   gradient leaf within 1e-4 of its largest |sequential|, and #1-#4's
+   launches equal to the sequential run's; (b) the dry run's per-card
+   argument bytes on a 1 x 1 mesh against the growth of
+   ``torch.cuda.memory_allocated()`` when the port builds the same
+   arguments on the card by its own entry points, within 1 %:
+   ``llama3.2-1b`` train at 1 x 4096, the parameters by the model's
+   init, the AdamW state by the optimizer's init on them, the batch;
+   ``yi-6b`` decode at 1 x 32768, the caches by the model's cache init,
+   token and position (its parameters are placed beside them, undrawn
+   and not measured: the init's CPU draw of 6.06 G would take
+   minutes); (c) one ``llama3.2-1b`` train step at 1 x 4096
+   on the card, its FLOPs counted there (``FlopCounterMode`` and the
+   kernels' launch records) within 1 % of the roofline's u / 2u
+   extrapolation on meta tensors, its device ms (CUDA events) printed
+   beside the roofline bound; (d) the whole dry run, 80 cells on meta
+   tensors over up to 8 processes: every cell ok.
 
 Tolerances.  In bf16 (phases 12-15, 17-19, 21): every step's logits, on the same
 tokens, within 3e-2 of the plain row's largest |logit| (both paths
@@ -4682,7 +4703,7 @@ def mixer_vs_cpu(cfg, dev):
     ms)}."""
     from repro_torch.models import ssm
     f32 = dataclasses.replace(cfg, dtype="float32")
-    p = ssm.mamba2_init(torch.Generator().manual_seed(0), f32)
+    p, _ = ssm.mamba2_init(torch.Generator().manual_seed(0), f32)
     cuda = {k_: ({n: t.to(dev) for n, t in v.items()}
                  if isinstance(v, dict) else v.to(dev))
             for k_, v in p.items()}
@@ -6472,6 +6493,267 @@ def phase_kernels_section(dev):
     return recs
 
 
+# ---------------------------------------------------------------------------
+# phase 23: planning -- the pipeline, the dry run and the roofline
+# ---------------------------------------------------------------------------
+
+PIPE_STAGES, PIPE_MICRO, PIPE_SEQ = 3, 6, 1024
+PIPE_HIDDEN_TOL, PIPE_GRAD_TOL = 2e-5, 1e-4
+ALLOC_TOL, FLOP_TOL = 0.01, 0.01
+PLAN_CELLS = (("llama3.2-1b", (4096, 1, "train")),
+              ("yi-6b", (32768, 1, "decode")))
+
+
+def phase_pipeline(dev):
+    """23 (a): see the module docstring.  Returns the pipelined run's
+    launches."""
+    import functools
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import pipeline_apply
+    from repro_torch.tree import tree_leaves, tree_map
+
+    card = card_line()
+    cfg = get_config("h1d-lm-53m")
+    S, M, L = PIPE_STAGES, PIPE_MICRO, cfg.num_layers
+    if cfg.dtype != "float32" or L % S:
+        raise AssertionError(f"23 (a): {cfg.dtype}, {L} layers")
+    per = L // S
+    params = T.lm_init(cfg, seed=0, device=dev)
+    layers = [tree_map(lambda t: t.requires_grad_(True), lp)
+              for lp in params["layers"]]
+    gen = torch.Generator(device=dev).manual_seed(23)
+    tokens = torch.randint(0, cfg.vocab_size, (M, PIPE_SEQ), generator=gen,
+                           device=dev)
+    x0 = T._embed_tokens(params, cfg, tokens).detach()[:, None]
+    cot = torch.randn(x0.shape, generator=gen, device=dev)
+    positions = torch.arange(PIPE_SEQ, device=dev)[None]
+
+    def layer(lp, h, i):
+        return T._block_apply(lp, cfg, h, positions,
+                              cfg.layer_uses_global_attn(i))[0]
+
+    def stage_fn(sp, h):        # sp: the stage's layers, in order
+        return functools.reduce(lambda h, j: layer(sp[j], h, j),
+                                range(per), h)
+
+    def run(piped):
+        kernels.reset_counts()
+        x = x0.clone().requires_grad_(True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if piped:
+            stacked = [tree_map(lambda *ls: torch.stack(ls),
+                                *[layers[s * per + j] for s in range(S)])
+                       for j in range(per)]
+            out = pipeline_apply(stage_fn, stacked, x,
+                                 mesh=make_mesh((S,), ("stage",), dev))
+        else:
+            out = torch.stack([functools.reduce(
+                lambda h, i: layer(layers[i], h, i), range(L), x[m])
+                for m in range(M)])
+        leaves = [x] + [t for lp in layers for t in tree_leaves(lp)]
+        grads = torch.autograd.grad((out * cot).sum(), leaves)
+        torch.cuda.synchronize()
+        return out.detach(), grads, path_counts(), \
+            (time.perf_counter() - t0) * 1e3
+
+    run(True)                   # warm-up: the first launches' host setup
+    out, grads, counts, ms = run(True)
+    seq_out, seq_grads, seq_counts, seq_ms = run(False)
+    err = float((out - seq_out).abs().max())
+    if not err <= PIPE_HIDDEN_TOL:
+        raise AssertionError(f"23 (a): hidden states {err:.3g} from the "
+                             f"sequential run")
+    worst = max(float((g - w).abs().max()) / max(float(w.abs().max()),
+                                                 1e-30)
+                for g, w in zip(grads, seq_grads))
+    if not worst <= PIPE_GRAD_TOL:
+        raise AssertionError(f"23 (a): a gradient leaf {worst:.3g} of its "
+                             f"largest |sequential|")
+    band = {k: c for k, c in counts.items()
+            if k.split("[")[0] in kernels.TRAIN_KERNELS}
+    seq_band = {k: seq_counts[k] for k in band}
+    if band != seq_band or not all(band[k] for k in kernels.TRAIN_KERNELS):
+        raise AssertionError(f"23 (a): launches {band} != sequential "
+                             f"{seq_band}")
+    log(f"23 (a) pipeline of h1d-lm-53m (fp32), {S} stages x {per} layers, "
+        f"{M} microbatches of 1 x {PIPE_SEQ}: hidden {err:.3g} from the "
+        f"sequential run, worst gradient leaf {worst:.3g} of its largest; "
+        f"band launches {band} equal; host ms with the backward: pipeline "
+        f"{ms:.1f}, sequential {seq_ms:.1f} ({card})")
+    return counts
+
+
+def plan_arguments(cfg, shape, dev):
+    """The cell's arguments built on ``dev`` by the port's own entry
+    points (``launch.dryrun.cell_args``' structure), and the growth of
+    ``torch.cuda.memory_allocated()`` over the groups the check holds
+    to the dry run.  Train: the parameters by the model's init (drawn
+    from seed 0 on the CPU, each layer moved to the card as it is
+    drawn), the AdamW state by the optimizer's init on them, the batch;
+    every group measured.  Decode: the caches by the model's cache init,
+    token and position, measured; the parameters beside them are placed
+    first, undrawn, at the meta tree's shapes and are not measured (the
+    init's CPU draw of ``yi-6b``'s 6.06 G parameters would take minutes;
+    the train cell holds the init's own tree to the dry run).  Returns
+    (args, measured groups, bytes grown, init seconds)."""
+    from repro_torch.launch import specs as S
+    from repro_torch.models import get_model
+    from repro_torch.train.loop import TrainConfig, TrainState, \
+        make_optimizer
+    from repro_torch.tree import tree_map
+
+    kind, seq, batch = S.cell(cfg, shape)
+    model = get_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    if kind != "train":
+        params = tree_map(lambda t: torch.empty_like(t, device=dev),
+                          S.param_struct(cfg, 1))
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    if kind == "train":
+        params = model.init(cfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        state = TrainState(torch.zeros((), dtype=torch.int32, device=dev),
+                           params, make_optimizer(TrainConfig()).init(params),
+                           None)
+        tokens = torch.randint(0, cfg.vocab_size, (batch, seq),
+                               generator=gen, device=dev, dtype=torch.int32)
+        args, groups = (state, {"tokens": tokens}), ("step", "params",
+                                                     "opt_state", "batch")
+    else:
+        caches = model.init_caches(params, cfg, batch, seq)
+        zeros = torch.zeros((batch,), dtype=torch.int32, device=dev)
+        init_s = time.perf_counter() - t0
+        args, groups = (params, caches, zeros, zeros.clone()), ("caches",
+                                                                "token", "t")
+    torch.cuda.synchronize()
+    return args, groups, torch.cuda.memory_allocated(dev) - before, init_s
+
+
+def phase_plan_cells(dev):
+    """23 (b) and (c): see the module docstring.  Returns (c)'s
+    launches."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import roofline as R
+    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16
+    from repro_torch.parallel import abstract_mesh
+    from repro_torch.train.loop import TrainConfig, make_train_step
+
+    card = card_line()
+    mesh = abstract_mesh((1, 1), ("data", "model"))
+    counts = {}
+    for arch, shape in PLAN_CELLS:
+        cfg = get_config(arch)
+        _, meta_args, groups = D.cell_args(cfg, shape, 1)
+        in_sh, _ = D.cell_shardings(cfg, shape, mesh, meta_args)
+        want = D.argument_bytes(meta_args, groups, in_sh, mesh)
+        args, groups, got, init_s = plan_arguments(cfg, shape, dev)
+        held = {g: want[g] for g in groups}
+        total = sum(held.values())
+        rel = abs(got - total) / total
+        if not rel <= ALLOC_TOL:
+            raise AssertionError(f"23 (b) {arch} {shape}: allocated {got} "
+                                 f"B, the dry run says {total} B {held}")
+        log(f"23 (b) {arch} {shape[2]} at {shape[1]} x {shape[0]}: the dry "
+            f"run's bytes {total} ({held}; all groups {want}), allocated "
+            f"on the card by the port's entry points {got} ({init_s:.1f}s), "
+            f"{rel * 100:.4f} % apart ({card})")
+        if shape[2] == "train":
+            meas = R._measure(cfg, shape, mesh)["total"]
+            step = make_train_step(cfg, TrainConfig())
+            kernels.reset_counts()
+            with R.Count() as c:
+                state, metrics = step(*args)
+                loss = float(metrics["loss"])
+            torch.cuda.synchronize()
+            counts = path_counts()
+            got_f = c.totals()
+            rel_f = abs(got_f["flops"] - meas["flops"]) / meas["flops"]
+            if not (rel_f <= FLOP_TOL and math.isfinite(loss)):
+                raise AssertionError(
+                    f"23 (c) {arch}: FLOPs counted on the card {got_f} vs the "
+                    f"roofline's {meas}, loss {loss}")
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            state, metrics = step(state, args[1])
+            ev[1].record()
+            torch.cuda.synchronize()
+            ms = ev[0].elapsed_time(ev[1])
+            terms = {"compute_ms": meas["flops"] / PEAK_FLOPS_BF16 * 1e3,
+                     "memory_ms": meas["bytes"] / HBM_BW * 1e3}
+            top = max(terms.values())
+            log(f"23 (c) {arch} train step at 1 x {shape[0]}: FLOPs counted "
+                f"during the step on the card, by the roofline's counters, "
+                f"{got_f['flops']:.6g} (matmul "
+                f"{got_f['matmul_flops']:.6g}, kernels "
+                f"{got_f['kernel_flops']:.6g}, {got_f['kernel_launches']:.0f}"
+                f" launches), the roofline's extrapolation "
+                f"{meas['flops']:.6g}, {rel_f * 100:.4f} % apart; modelled "
+                f"eager bytes {meas['bytes']:.6g}; step {ms:.3f} device ms "
+                f"(CUDA events, the second step), roofline terms "
+                f"{ {k: round(v, 3) for k, v in terms.items()} }: bound "
+                f"{top:.3f} ms, {top / ms * 100:.1f} % of the step ({card})")
+            del state, metrics
+        del args
+    return counts
+
+
+def phase_full_dryrun():
+    """23 (d): every dry-run cell on meta tensors, over the dry run's
+    processes, into a temporary directory."""
+    import os
+    import tempfile
+    from repro_torch.launch import dryrun as D
+
+    card = card_line()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        recs = D.run_all(out_dir=tmp, verbose=False)
+    secs = time.perf_counter() - t0
+    bad = [(r["arch"], r["shape"], r["mesh"], r.get("error")) for r in recs
+           if not r["ok"]]
+    by = collections.defaultdict(dict)
+    for r in recs:
+        if r["ok"]:
+            m = r["memory"]
+            by[(r["arch"], r["shape"])][r["mesh"]] = (
+                round(m["argument_size_in_bytes"] / 2 ** 30, 3),
+                round((m["output_size_in_bytes"]
+                       - m["output_aliased_bytes"]) / 2 ** 30, 3), r["fits"])
+    for (arch, shape), meshes in sorted(by.items()):
+        log(f"23 (d) {arch} {shape}: per card GiB (arguments, outputs not "
+            f"aliasing them, fits) {meshes} ({card})")
+    log(f"23 (d) dry run: {len(recs) - len(bad)} of {len(recs)} cells ok "
+        f"in {secs:.1f}s over {min(D.JOBS, os.cpu_count())} processes; "
+        f"card memory "
+        f"{recs[0].get('card_memory_bytes')} B "
+        f"({recs[0].get('card_memory_source')}) ({card})")
+    if bad or len(recs) != 80:
+        raise AssertionError(f"23 (d): {len(recs)} cells, failures {bad}")
+
+
+def phase_planning(dev):
+    """23: (a)-(d).  Returns the launches of (a) and (c)."""
+    t0 = time.perf_counter()
+    counts = {"pipeline": phase_pipeline(dev)}
+    torch.cuda.empty_cache()
+    counts["roofline_step"] = phase_plan_cells(dev)
+    torch.cuda.empty_cache()
+    phase_full_dryrun()
+    log(f"phase 23 (planning) took {time.perf_counter() - t0:.1f}s")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
@@ -6563,6 +6845,7 @@ def main() -> int:
     log(f"phase 19 (b)-(c) (the encoder-decoder) took "
         f"{time.perf_counter() - t_s:.1f}s")
     telemetry_counts = phase_telemetry(dev)
+    family_counts.update(phase_planning(dev))
     for row in rows:
         # a row name@arch holds its wrapper at arch's shape: its launches
         # are those of the phase 17-19 paths that run that shape

@@ -6,7 +6,8 @@ VLM backbone (llava-next-34b), the SSM (mamba2-1.3b) and the hybrid
 (zamba2-1.2b).
 
 ``get_config(name)`` -> full config; ``get_smoke_config(name)`` -> the
-reduced same-family config for CPU tests.
+reduced same-family config for CPU tests; ``SHAPES`` the per-arch input
+shapes of the dry run and the roofline (``launch/``).
 """
 import importlib
 
@@ -23,6 +24,14 @@ _MODULES = {**{name: "h1d_lm" for name in PAPER_IDS},
             "arctic-480b": "arctic_480b",
             "llava-next-34b": "llava_next_34b",
             "mamba2-1.3b": "mamba2_1_3b", "zamba2-1.2b": "zamba2_1_2b"}
+
+# (seq_len, global_batch, kind)
+SHAPES = {
+    "train_4k": (4096, 256, "train"),
+    "prefill_32k": (32768, 32, "prefill"),
+    "decode_32k": (32768, 128, "decode"),
+    "long_500k": (524288, 1, "decode"),
+}
 
 
 def _module(name: str):

@@ -23,6 +23,8 @@ from typing import Dict, Iterable
 
 import torch
 
+from ..analysis import contracts
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -131,8 +133,9 @@ def stream() -> int:
 
 
 def expect(t: torch.Tensor, name: str, shape, dtype=torch.float32) -> None:
-    """Validate a kernel operand: CUDA, dtype, exact shape, contiguous."""
-    if t.device.type != "cuda":
+    """Validate a kernel operand: CUDA (or meta, :func:`on_meta`), dtype,
+    exact shape, contiguous."""
+    if t.device.type not in ("cuda", "meta"):
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
@@ -176,3 +179,28 @@ def last_attrs(lib: ctypes.CDLL, prefix: str):
     n = 1 if out[6] == 0 and out[4] == 0 else 2
     return (tuple(out[4 * i] for i in range(n)),
             tuple(out[4 * i + 3] for i in range(n)))
+
+
+def on_meta(operands, record, *args, **kw) -> bool:
+    """Whether a wrapper's ``operands`` (every tensor it hands its kernel;
+    ``None`` entries are skipped) are meta tensors.  A wrapper asks once
+    its operands are validated and its outputs made: on meta it returns
+    those empty outputs, of the kernel's shapes and dtypes, and builds,
+    launches and counts nothing (``launch.specs``, ``dryrun`` and
+    ``roofline`` run the models on meta tensors).  While a hook is
+    registered or a ``contracts.capture()`` is open it also hands over
+    the launch record ``record(*args, **kw)``, with the grid the launcher
+    would build.  The route is all or nothing: a set that mixes meta with
+    CUDA tensors raises ValueError, whichever operand comes first.  A CPU
+    tensor takes the plain version before this point and an all-CUDA set
+    answers False."""
+    kinds = {t.device.type for t in operands if t is not None}
+    if "meta" not in kinds:
+        return False
+    if kinds != {"meta"}:
+        raise ValueError(f"kernel operands mix meta with "
+                         f"{sorted(kinds - {'meta'})} tensors: the meta "
+                         f"route takes meta operands only")
+    if contracts.ACTIVE:
+        contracts.record(record(*args, **kw))
+    return True

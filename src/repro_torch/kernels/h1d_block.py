@@ -829,7 +829,6 @@ def band_attention_fwd(q, k, v, w, *, nr: int, mode: str = "l0_causal",
     B, G, L, d = q.shape
     dv = v.shape[-1]
     body = check_window_fwd(mode, nr, d, dv)
-    lib = _lib()
     _check_length(L, nr, mode)
     _build.expect(q, "q", (B, G, L, d))
     _build.expect(k, "k", (B, L, d))
@@ -838,6 +837,10 @@ def band_attention_fwd(q, k, v, w, *, nr: int, mode: str = "l0_causal",
     cfg, src = tuning.get_policy().resolve(
         "band_fwd", override=tq, L=L, nr=nr, mode=mode, B=B, G=G, d=d, dv=dv)
     y, dn, m = _outputs(q, dv)
+    if _build.on_meta((q, k, v, w), contracts.band_fwd, q, k, v, w, nr=nr,
+                      mode=mode, body=body, tile=tuning.tile_of(cfg)):
+        return y, dn, m
+    lib = _lib()
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
             y.data_ptr(), dn.data_ptr(), m.data_ptr())
     if body == "stream":
@@ -874,7 +877,6 @@ def band_attention_sub_fwd(q, k, v, w, *, nr: int, ratio: int,
     override ``tq`` is logged and changes nothing)."""
     if q.device.type == "cpu":
         return band_attention_sub_fwd_ref(q, k, v, w, nr=nr, ratio=ratio)
-    lib = _lib()
     B, G, Lq, d = q.shape
     Lk = k.shape[1]
     dv = v.shape[-1]
@@ -890,6 +892,10 @@ def band_attention_sub_fwd(q, k, v, w, *, nr: int, ratio: int,
         "sub_fwd", override=tq, L=Lq, nr=nr, mode=SUB_MODE, ratio=ratio, B=B,
         G=G, d=d, dv=dv)
     y, dn, m = _outputs(q, dv)
+    if _build.on_meta((q, k, v, w), contracts.sub_fwd, q, k, v, w, nr=nr,
+                      ratio=ratio, tile=tuning.tile_of(cfg)):
+        return y, dn, m
+    lib = _lib()
     _build.check(lib.h1d_band_sub_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
         y.data_ptr(), dn.data_ptr(), m.data_ptr(),

@@ -264,13 +264,17 @@ def band_attention_bwd(q, k, v, w, y, dn, m, gy, gdn, gm, *, nr: int,
         raise ValueError("mode 'sub' goes through band_attention_sub_bwd")
     B, G, L, d = q.shape
     body = hb.check_window_bwd(mode, nr, d, v.shape[-1])
-    lib = _lib()
     hb._check_length(L, nr, mode)
     gy, gdn, gm = _operands(q, k, v, w, y, dn, m, gy, gdn, gm, L, L)
     cfg, src = tuning.get_policy().resolve(
         "band_bwd", override=tq, L=L, nr=nr, mode=mode, B=B, G=G, d=d,
         dv=v.shape[-1])
     out = _outputs(q, k, v)
+    if _build.on_meta((q, k, v, w, y, dn, m, gy, gdn, gm), contracts.band_bwd,
+                      q, k, v, w, nr=nr, mode=mode, body=body,
+                      tile=tuning.tile_of(cfg)):
+        return out
+    lib = _lib()
     dq, dk, dv, dw, gmn = out
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
             y.data_ptr(), dn.data_ptr(), m.data_ptr(), gy.data_ptr(),
@@ -324,7 +328,6 @@ def band_attention_sub_bwd(q, k, v, w, y, dn, m, gy, gdn, gm, *, nr: int,
     if q.device.type == "cpu":
         return band_attention_sub_bwd_ref(q, k, v, w, y, dn, m, gy, gdn, gm,
                                           nr=nr, ratio=ratio)
-    lib = _lib()
     B, G, Lq, d = q.shape
     Lk = k.shape[1]
     if ratio < 2 or ratio & (ratio - 1) or Lq != Lk * ratio:
@@ -336,6 +339,11 @@ def band_attention_sub_bwd(q, k, v, w, y, dn, m, gy, gdn, gm, *, nr: int,
         "sub_bwd", override=tq, L=Lq, nr=nr, mode=hb.SUB_MODE, ratio=ratio,
         B=B, G=G, d=d, dv=v.shape[-1])
     out = _outputs(q, k, v)
+    if _build.on_meta((q, k, v, w, y, dn, m, gy, gdn, gm), contracts.sub_bwd,
+                      q, k, v, w, nr=nr, ratio=ratio,
+                      tile=tuning.tile_of(cfg)):
+        return out
+    lib = _lib()
     dq, dk, dv, dw, gmn = out
     _build.check(lib.h1d_band_sub_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),

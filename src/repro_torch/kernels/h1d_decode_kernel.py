@@ -748,7 +748,6 @@ def decode_attend_fused(cache, q, t, *, nr: int, softmax_scale=None):
     if q.device.type == "cpu":
         return decode_attend_ref(cache, q, t, nr=nr,
                                  softmax_scale=softmax_scale)
-    lib = _lib()
     R, G, D = q.shape
     Dv = cache.v.shape[-1]
     Lmax, half = _check_cache(cache, R, D, Dv)
@@ -763,6 +762,11 @@ def decode_attend_fused(cache, q, t, *, nr: int, softmax_scale=None):
                            False, bool(half))
     scale = softmax_scale if softmax_scale is not None else 1 / math.sqrt(D)
     out = torch.empty((R, G, Dv), dtype=torch.float32, device=q.device)
+    if _build.on_meta((qf, t, cache.k, cache.v, *cache.ck, *cache.cv),
+                      contracts.decode_attend, cache, q, t, nr=nr,
+                      tile=tuning.tile_of(cfg)):
+        return out.to(q.dtype)
+    lib = _lib()
     _build.check(lib.h1d_decode_attend(
         qf.data_ptr(), cache.k.data_ptr(), cache.v.data_ptr(),
         _ptrs(cache.ck), _ptrs(cache.cv), t.data_ptr(), out.data_ptr(),
@@ -787,7 +791,6 @@ def update_cache_fused(cache, k_new, v_new, t):
     tensors launch ``h1d_update_cache``.  Returns ``cache``."""
     if k_new.device.type == "cpu":
         return update_cache_ref(cache, k_new, v_new, t)
-    lib = _lib()
     R, D = k_new.shape
     Dv = v_new.shape[-1]
     Lmax, half = _check_cache(cache, R, D, Dv)
@@ -798,6 +801,10 @@ def update_cache_fused(cache, k_new, v_new, t):
     ks = [cache.k, *cache.ck]
     vs = [cache.v, *cache.cv]
     cfg = _update_tile("decode_update", R, D, Dv, len(ks), half)
+    if _build.on_meta((k_new, v_new, t, *ks, *vs), contracts.decode_update,
+                      cache, k_new, v_new, t, tile=tuning.tile_of(cfg)):
+        return cache
+    lib = _lib()
     _build.check(lib.h1d_update_cache(
         k_new.data_ptr(), v_new.data_ptr(), t.data_ptr(), _ptrs(ks),
         _ptrs(vs), R, Lmax, D, Dv, len(ks), half, _build.stream()),
@@ -848,7 +855,8 @@ def _check_pool(pool, nr: int, D: int, Dv: int, quant: bool):
 
 def _attend_paged_launch(fn, family, pool, q, t, bidx, nr, softmax_scale,
                          quant):
-    lib = _lib()
+    """Validate and launch; returns (out, half, cfg, lib), lib None where
+    a meta ``q`` took the meta route (its record handed over)."""
     R, G, D = q.shape
     Dv = pool.v.shape[-1]
     ks, vs, kscs, vscs, qmask, half = _check_pool(pool, nr, D, Dv, quant)
@@ -860,6 +868,11 @@ def _attend_paged_launch(fn, family, pool, q, t, bidx, nr, softmax_scale,
                            bool(half))
     scale = softmax_scale if softmax_scale is not None else 1 / math.sqrt(D)
     out = torch.empty((R, G, Dv), dtype=torch.float32, device=q.device)
+    if _build.on_meta((qf, t, bidx, *ks, *vs, *(kscs or ()), *(vscs or ())),
+                      getattr(contracts, family), pool, q, t, bidx, nr=nr,
+                      tile=tuning.tile_of(cfg)):
+        return out.to(q.dtype), half, cfg, None
+    lib = _lib()
     head = (qf.data_ptr(), _ptrs(ks), _ptrs(vs))
     tail = (t.data_ptr(), bidx.data_ptr(), out.data_ptr(), R, G, D, Dv, nr,
             len(ks), float(scale), half, cr, _build.stream())
@@ -883,6 +896,8 @@ def decode_attend_paged(pool, q, t, bidx, *, nr: int, softmax_scale=None):
     out, half, cfg, lib = _attend_paged_launch(
         "h1d_decode_attend_paged", "decode_attend_paged", pool, q, t, bidx,
         nr, softmax_scale, quant=False)
+    if lib is None:
+        return out
     _count(decode_attend_paged, half)
     if contracts.ACTIVE:
         contracts.record(contracts.decode_attend_paged(
@@ -906,6 +921,8 @@ def decode_attend_paged_quant(pool, q, t, bidx, *, nr: int,
     out, half, cfg, lib = _attend_paged_launch(
         "h1d_decode_attend_paged_quant", "decode_attend_paged_quant", pool,
         q, t, bidx, nr, softmax_scale, quant=True)
+    if lib is None:
+        return out
     _count(decode_attend_paged_quant, half)
     if contracts.ACTIVE:
         contracts.record(contracts.decode_attend_paged_quant(
@@ -919,7 +936,8 @@ decode_attend_paged_quant.mode_launches = {}
 
 
 def _update_paged_launch(fn, family, pool, k_new, v_new, t, utab, quant):
-    lib = _lib()
+    """Validate and launch; returns (half, cfg, lib), lib None where a
+    meta ``k_new`` took the meta route (its record handed over)."""
     R, D = k_new.shape
     Dv = v_new.shape[-1]
     nr = pool.k.shape[-2]
@@ -945,6 +963,11 @@ def _update_paged_launch(fn, family, pool, k_new, v_new, t, utab, quant):
                 f"one row's sibling pairs need {smem} bytes of shared "
                 f"memory; the H100 gives {SMEM_LIMIT}")
     cfg = _update_tile(family, R, D, Dv, len(ks), half)
+    if _build.on_meta((k_new, v_new, t, utab, *ks, *vs, *(kscs or ()),
+                       *(vscs or ())), getattr(contracts, family), pool,
+                      k_new, v_new, t, utab, tile=tuning.tile_of(cfg)):
+        return half, cfg, None
+    lib = _lib()
     head = (k_new.data_ptr(), v_new.data_ptr(), t.data_ptr(),
             utab.data_ptr(), _ptrs(ks), _ptrs(vs))
     tail = (R, D, Dv, nr, len(ks))
@@ -967,6 +990,8 @@ def update_cache_paged(pool, k_new, v_new, t, utab):
     half, cfg, lib = _update_paged_launch(
         "h1d_update_cache_paged", "decode_update_paged", pool, k_new, v_new,
         t, utab, quant=False)
+    if lib is None:
+        return pool
     _count(update_cache_paged, half)
     if contracts.ACTIVE:
         contracts.record(contracts.decode_update_paged(
@@ -988,6 +1013,8 @@ def update_cache_paged_quant(pool, k_new, v_new, t, utab):
     _, cfg, lib = _update_paged_launch(
         "h1d_update_cache_paged_quant", "decode_update_paged_quant", pool,
         k_new, v_new, t, utab, quant=True)
+    if lib is None:
+        return pool
     update_cache_paged_quant.launches += 1
     if contracts.ACTIVE:
         contracts.record(contracts.decode_update_paged_quant(
@@ -1013,7 +1040,6 @@ def decode_attend_partial(cache, q, t, bidx, owned, *, nr: int,
     if q.device.type == "cpu":
         return decode_attend_partial_ref(cache, q, t, bidx, owned, nr=nr,
                                          softmax_scale=softmax_scale)
-    lib = _lib()
     R, G, D = q.shape
     Dv = cache.v.shape[-1]
     ks, vs = [cache.k, *cache.ck], [cache.v, *cache.cv]
@@ -1042,6 +1068,11 @@ def decode_attend_partial(cache, q, t, bidx, owned, *, nr: int,
     num = torch.empty((R, G, Dv), dtype=f32, device=q.device)
     den = torch.empty((R, G), dtype=f32, device=q.device)
     m = torch.empty((R, G), dtype=f32, device=q.device)
+    if _build.on_meta((q, t, bidx, owned, *ks, *vs),
+                      contracts.decode_attend_partial, cache, q, t, bidx,
+                      owned, nr=nr, tile=tuning.tile_of(cfg)):
+        return num, den, m
+    lib = _lib()
     _build.check(lib.h1d_decode_attend_partial(
         q.data_ptr(), _ptrs(ks), _ptrs(vs), (ctypes.c_int * len(rows))(*rows),
         t.data_ptr(), bidx.data_ptr(), owned.data_ptr(), num.data_ptr(),
@@ -1067,7 +1098,6 @@ def update_cache_partial(cache, k_new, v_new, t_loc, owned):
     carry_v)``, the carries in the cache dtype."""
     if k_new.device.type == "cpu":
         return update_cache_partial_ref(cache, k_new, v_new, t_loc, owned)
-    lib = _lib()
     R, D = k_new.shape
     Dv = v_new.shape[-1]
     Lloc, half = _check_cache(cache, R, D, Dv)
@@ -1081,6 +1111,11 @@ def update_cache_partial(cache, k_new, v_new, t_loc, owned):
     carry_k = torch.empty((R, D), dtype=cache.k.dtype, device=k_new.device)
     carry_v = torch.empty((R, Dv), dtype=cache.v.dtype, device=k_new.device)
     cfg = _update_tile("decode_update_partial", R, D, Dv, len(ks), half)
+    if _build.on_meta((k_new, v_new, t_loc, owned, *ks, *vs),
+                      contracts.decode_update_partial, cache, k_new,
+                      v_new, t_loc, owned, tile=tuning.tile_of(cfg)):
+        return cache, carry_k, carry_v
+    lib = _lib()
     _build.check(lib.h1d_update_cache_partial(
         k_new.data_ptr(), v_new.data_ptr(), t_loc.data_ptr(),
         owned.data_ptr(), _ptrs(ks), _ptrs(vs), carry_k.data_ptr(),

@@ -1,14 +1,32 @@
-"""Mesh construction for sequence-parallel serving.
+"""Mesh construction: the production mesh description and the one-axis
+mesh the port runs on.
 
-Port of ``repro.launch.mesh.make_mesh`` for the one axis the port
-shards: every shard of the mesh sits on one device (the reference's
-fabricated host devices share one CPU the same way)."""
+Port of ``repro.launch.mesh``.  :func:`make_production_mesh` describes
+an H100 fleet for the sharding rules, the dry run and the roofline (a
+:class:`~repro_torch.parallel.sharding.Mesh`: axes and sizes, no
+devices).  :func:`make_mesh` builds the one-axis
+:class:`~repro_torch.parallel.sp_attention.SPMesh` that sequence-parallel
+serving and training and the pipeline run on, every shard on one device
+(the reference's fabricated host devices share one CPU the same way)."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.parallel.sharding import Mesh, abstract_mesh
 from repro_torch.parallel.sp_attention import SPMesh
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """``(32, 8)`` over ``("data", "model")``: 256 H100s, tensor
+    parallelism inside one 8-card NVLink node and data parallelism across
+    the 32 nodes; ``multi_pod`` doubles it, ``(2, 32, 8)`` over ``("pod",
+    "data", "model")``.  The reference's TPU mesh is ``(16, 16)``: a TPU
+    pod's torus carries TP over 16 chips, while an H100's NVLink domain is
+    its node of 8, past which traffic leaves for the slower network."""
+    if multi_pod:
+        return abstract_mesh((2, 32, 8), ("pod", "data", "model"))
+    return abstract_mesh((32, 8), ("data", "model"))
 
 
 def make_mesh(shape, axes, device=None) -> SPMesh:
@@ -23,3 +41,13 @@ def make_mesh(shape, axes, device=None) -> SPMesh:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return SPMesh(axis=axes[0], devices=(dev,) * shape[0])
+
+
+#: the card the roofline's terms are for, at the power limit of PERF.md's
+#: runs: NVIDIA H100 80GB HBM3, 700 W (SXM5).  Datasheet figures, not
+#: measurements: dense BF16 tensor-core peak and HBM3 bandwidth.  No
+#: link bandwidth: the port computes no collective term yet.
+CARD = "NVIDIA H100 80GB HBM3, 700 W"
+PEAK_FLOPS_BF16 = 989.4e12    # FLOP/s, dense
+HBM_BW = 3.35e12              # bytes/s
+HBM_BYTES = 80e9              # bytes, the 80 GB of the card's name

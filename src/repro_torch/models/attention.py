@@ -30,6 +30,7 @@ kernel; only the local one tests the window.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -37,7 +38,8 @@ from ..core import (dense_attention, h1d_decode, h1d_attention_mha,
                     fold_kv_heads, unfold_kv_heads)
 from ..core import hierarchy as hc
 from ..kernels.ops import band_attention
-from .common import ModelConfig, dense, dense_init, rmsnorm, apply_rope
+from .common import (ModelConfig, apply_rope, dense, dense_init, norm_init,
+                     rmsnorm)
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -51,19 +53,30 @@ def _is_local(cfg: ModelConfig, layer_global: bool) -> bool:
     return cfg.sliding_window > 0 and not layer_global
 
 
-def attn_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32):
+def attn_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
+              *, tp: Optional[int] = None):
+    """The projections ``wq``, ``wkv`` (k and v fused), ``wo`` (+ biases,
+    + ``qn`` / ``kn``).  Their specs are the reference's head-aware ones:
+    ``wq`` / ``wkv`` shard their outputs only when ``tp`` divides the
+    query / kv head count, ``wo`` its input."""
     hq, hkv, hd, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_model
-    p = {"wq": dense_init(gen, d, hq * hd, dtype=dtype),
-         "wkv": dense_init(gen, d, 2 * hkv * hd, dtype=dtype),
-         "wo": dense_init(gen, hq * hd, d, scale=1.0 / math.sqrt(hq * hd),
-                          dtype=dtype)}
+    heads = tp or 1
+    p, s = {}, {}
+    p["wq"], s["wq"] = dense_init(gen, d, hq * hd, dtype=dtype,
+                                  out_shard=hq % heads == 0, tp=tp)
+    p["wkv"], s["wkv"] = dense_init(gen, d, 2 * hkv * hd, dtype=dtype,
+                                    out_shard=hkv % heads == 0, tp=tp)
+    p["wo"], s["wo"] = dense_init(gen, hq * hd, d,
+                                  scale=1.0 / math.sqrt(hq * hd), dtype=dtype,
+                                  in_shard=True, out_shard=False, tp=tp)
     if cfg.qkv_bias:
-        p["wq"]["b"] = torch.zeros((hq * hd,), dtype=dtype)
-        p["wkv"]["b"] = torch.zeros((2 * hkv * hd,), dtype=dtype)
+        for n, width in (("wq", hq * hd), ("wkv", 2 * hkv * hd)):
+            p[n]["b"] = torch.zeros((width,), dtype=dtype)
+            s[n]["b"] = s[n]["w"][1:]
     if cfg.qk_norm:
-        p["qn"] = {"g": torch.ones((hd,), dtype=dtype)}
-        p["kn"] = {"g": torch.ones((hd,), dtype=dtype)}
-    return p
+        for n in ("qn", "kn"):
+            p[n], s[n] = norm_init(hd, dtype)
+    return p, s
 
 
 def _project_qkv(p, cfg: ModelConfig, x, positions):

@@ -16,35 +16,42 @@ Parameters::
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
 from .. import resolve_device
 from ..tree import tree_map
 from .attention import attn_apply
-from .common import ModelConfig, dense, dense_init, rmsnorm
+from .common import (ModelConfig, dense, dense_init, embed_init, norm_init,
+                     rmsnorm, twin)
 from .ffn import mlp
 from .transformer import block_init
 
 
 def classifier_init(cfg: ModelConfig, num_classes: int, *, seed: int = 0,
-                    device=None) -> Dict[str, Any]:
+                    device=None, tp: Optional[int] = None,
+                    specs: bool = False):
     """Random parameters drawn from ``seed`` with an explicit
     ``torch.Generator`` on the CPU, then moved to ``device`` (default
-    ``cuda``), as ``lm_init``."""
+    ``cuda``), as ``lm_init``; ``specs=True`` returns ``(params,
+    specs)`` for TP degree ``tp`` (the head replicated)."""
     dev = resolve_device(device)
     dtype = cfg.torch_dtype
     gen = torch.Generator().manual_seed(seed)
-    params: Dict[str, Any] = {
-        "embed": {"w": torch.randn((cfg.vocab_size, cfg.d_model),
-                                   generator=gen, dtype=dtype) * 0.02},
-        "layers": [block_init(gen, cfg, dtype)
-                   for _ in range(cfg.num_layers)],
-        "final_norm": {"g": torch.ones((cfg.d_model,), dtype=dtype)},
-        "head": dense_init(gen, cfg.d_model, num_classes, dtype=dtype),
-    }
-    return tree_map(lambda t: t.to(dev), params)
+    d = cfg.d_model
+    params: Dict[str, Any] = {}
+    spec: Dict[str, Any] = {}
+    params["embed"], spec["embed"] = embed_init(gen, cfg.vocab_size, d,
+                                                dtype, tp=tp)
+    layers = [block_init(gen, cfg, dtype, tp=tp)
+              for _ in range(cfg.num_layers)]
+    params["layers"] = [p for p, _ in layers]
+    spec["layers"] = [s for _, s in layers]
+    params["final_norm"], spec["final_norm"] = norm_init(d, dtype)
+    params["head"], spec["head"] = dense_init(
+        gen, d, num_classes, dtype=dtype, out_shard=False, tp=tp)
+    return twin(tree_map(lambda t: t.to(dev), params), spec, specs)
 
 
 def classifier_logits(params, cfg: ModelConfig, tokens, mask=None):

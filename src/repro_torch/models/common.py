@@ -7,6 +7,15 @@ one package reads the same in the other; fields of families or features
 this slice does not serve are carried but rejected where used.
 Parameters are plain dictionaries of tensors; a dense weight has shape
 (d_in, d_out) and is applied as ``x @ w``, as in the JAX package.
+
+Every init function also builds the tensor-parallel spec of each leaf
+it draws, beside the leaf, and returns ``(params, specs)`` (the model
+inits only when asked, ``specs=True``).  A spec is a plain tuple
+with one entry per dimension, ``None`` or a mesh axis name
+(``parallel.sharding`` maps them onto a mesh).  The TP degree is the
+init's ``tp`` argument (the reference reads it from ``set_mesh_axes``):
+an axis shards over ``"model"`` only when ``tp`` divides its size, and
+``tp=None`` makes no sharding decision, as in the reference.
 """
 from __future__ import annotations
 
@@ -90,12 +99,46 @@ class ModelConfig:
         return i % self.hybrid_attn_every == self.hybrid_attn_every - 1
 
 
+TP_AXIS = "model"
+
+
+def shard_if_divisible(size: int, tp: Optional[int]) -> Optional[str]:
+    """``"model"`` when the TP degree ``tp`` divides ``size``, else None
+    (replicated); ``tp=None`` decides nothing."""
+    return TP_AXIS if tp and size % tp == 0 else None
+
+
+def twin(params, specs, with_specs: bool):
+    """What a model init returns: ``(params, specs)`` when asked, else
+    the parameters alone."""
+    return (params, specs) if with_specs else params
+
+
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, *,
-               scale: Optional[float] = None, dtype=torch.float32):
+               scale: Optional[float] = None, dtype=torch.float32,
+               in_shard: bool = False, out_shard: bool = True,
+               tp: Optional[int] = None):
     """2D projection weight (d_in, d_out), drawn on the CPU from ``gen``
-    (so the same seed gives the same weights on every device)."""
+    (so the same seed gives the same weights on every device).  Its spec
+    shards ``d_in`` (``in_shard``) and ``d_out`` (``out_shard``) where
+    ``tp`` divides them."""
     s = scale if scale is not None else 1.0 / math.sqrt(d_in)
-    return {"w": torch.randn((d_in, d_out), generator=gen, dtype=dtype) * s}
+    p = {"w": torch.randn((d_in, d_out), generator=gen, dtype=dtype) * s}
+    spec = (shard_if_divisible(d_in, tp) if in_shard else None,
+            shard_if_divisible(d_out, tp) if out_shard else None)
+    return p, {"w": spec}
+
+
+def norm_init(d: int, dtype):
+    """An RMSNorm's gain, ones (d,); replicated."""
+    return {"g": torch.ones((d,), dtype=dtype)}, {"g": (None,)}
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int, dtype, *,
+               tp: Optional[int] = None):
+    """The token embedding (vocab, d), its rows over ``"model"``."""
+    p = {"w": torch.randn((vocab, d), generator=gen, dtype=dtype) * 0.02}
+    return p, {"w": (shard_if_divisible(vocab, tp), None)}
 
 
 def dense(p, x: torch.Tensor) -> torch.Tensor:

@@ -30,7 +30,7 @@ rematerialised in the backward (``transformer._remat``).
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -40,7 +40,8 @@ from .. import resolve_device
 from ..core import dense_attention
 from ..tree import tree_map
 from .attention import attn_apply, attn_decode, attn_init, prefill_into_cache
-from .common import ModelConfig, dense, dense_init, rmsnorm
+from .common import (ModelConfig, dense, dense_init, embed_init, norm_init,
+                     rmsnorm, twin)
 from .ffn import mlp, mlp_init
 from .transformer import _remat
 
@@ -49,8 +50,10 @@ from .transformer import _remat
 XATTN_RANGE = "xattn"
 
 
-def _xattn_init(gen: torch.Generator, cfg: ModelConfig, dtype):
-    return attn_init(gen, cfg, dtype)   # the same projection structure
+def _xattn_init(gen: torch.Generator, cfg: ModelConfig, dtype, *,
+                tp: Optional[int] = None):
+    # the same projection structure
+    return attn_init(gen, cfg, dtype, tp=tp)
 
 
 def _xattn_apply(p, cfg: ModelConfig, x, mem_k, mem_v, *, mem_weight=None):
@@ -85,50 +88,48 @@ def _xattn_memory(p, cfg: ModelConfig, enc_h):
         return k.reshape(B, Se, hkv, hd), v.reshape(B, Se, hkv, hd)
 
 
-def _norm(d: int, dtype):
-    return {"g": torch.ones((d,), dtype=dtype)}
-
-
-def encdec_init(cfg: ModelConfig, *, seed: int = 0,
-                device=None) -> Dict[str, Any]:
+def encdec_init(cfg: ModelConfig, *, seed: int = 0, device=None,
+                tp: Optional[int] = None, specs: bool = False):
     """Random parameters drawn as ``transformer.lm_init`` draws them: from
     ``seed`` on the CPU, in ``cfg.dtype``, each layer moved to ``device``
     (default ``cuda``) as it is drawn; on ``device="meta"`` only the
-    shapes and dtypes."""
+    shapes and dtypes.  ``specs=True`` returns ``(params, specs)`` for
+    TP degree ``tp``, as ``lm_init``."""
     dev = resolve_device(device)
     dtype = cfg.torch_dtype
     d = cfg.d_model
     gen = torch.Generator().manual_seed(seed)
+    params: Dict[str, Any] = {}
+    spec: Dict[str, Any] = {}
 
-    def to_dev(tree):
-        return tree_map(lambda t: t.to(dev), tree)
-
-    def enc_layer():
-        return {"ln1": _norm(d, dtype), "attn": attn_init(gen, cfg, dtype),
-                "ln2": _norm(d, dtype),
-                "mlp": mlp_init(gen, d, cfg.d_ff, dtype)}
-
-    def dec_layer():
-        return {"ln1": _norm(d, dtype), "attn": attn_init(gen, cfg, dtype),
-                "lnx": _norm(d, dtype),
-                "xattn": _xattn_init(gen, cfg, dtype),
-                "ln2": _norm(d, dtype),
-                "mlp": mlp_init(gen, d, cfg.d_ff, dtype)}
+    def layer(cross: bool):
+        """One encoder (or, ``cross``, decoder) layer, on ``dev``."""
+        parts = [("ln1", norm_init(d, dtype)),
+                 ("attn", attn_init(gen, cfg, dtype, tp=tp))]
+        if cross:
+            parts += [("lnx", norm_init(d, dtype)),
+                      ("xattn", _xattn_init(gen, cfg, dtype, tp=tp))]
+        parts += [("ln2", norm_init(d, dtype)),
+                  ("mlp", mlp_init(gen, d, cfg.d_ff, dtype, tp=tp))]
+        return (tree_map(lambda t: t.to(dev), {n: p for n, (p, _) in parts}),
+                {n: s for n, (_, s) in parts})
 
     with (torch.device("meta") if dev.type == "meta"
           else contextlib.nullcontext()):
-        return {
-            "embed": to_dev({"w": torch.randn((cfg.vocab_size, d),
-                                              generator=gen, dtype=dtype)
-                             * 0.02}),
-            "lm_head": to_dev(dense_init(gen, d, cfg.vocab_size, scale=0.02,
-                                         dtype=dtype)),
-            "enc_norm": to_dev(_norm(d, dtype)),
-            "dec_norm": to_dev(_norm(d, dtype)),
-            "encoder": [to_dev(enc_layer())
-                        for _ in range(cfg.encoder_layers)],
-            "decoder": [to_dev(dec_layer()) for _ in range(cfg.num_layers)],
-        }
+        for name, (p, s) in (
+                ("embed", embed_init(gen, cfg.vocab_size, d, dtype, tp=tp)),
+                ("lm_head", dense_init(gen, d, cfg.vocab_size, scale=0.02,
+                                       dtype=dtype, tp=tp)),
+                ("enc_norm", norm_init(d, dtype)),
+                ("dec_norm", norm_init(d, dtype))):
+            params[name] = tree_map(lambda t: t.to(dev), p)
+            spec[name] = s
+        for name, n, cross in (("encoder", cfg.encoder_layers, False),
+                               ("decoder", cfg.num_layers, True)):
+            built = [layer(cross) for _ in range(n)]
+            params[name] = [p for p, _ in built]
+            spec[name] = [s for _, s in built]
+    return twin(params, spec, specs)
 
 
 def stub_frames(cfg: ModelConfig, B: int, Se: int, *, seed: int = 0,

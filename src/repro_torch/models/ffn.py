@@ -25,17 +25,25 @@ branches run beside the routed experts.  The routed part runs inside a
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch.profiler import record_function
 
-from .common import ModelConfig, activation, dense, dense_init
+from .common import (ModelConfig, activation, dense, dense_init,
+                     shard_if_divisible)
 
 
-def mlp_init(gen: torch.Generator, d: int, d_ff: int, dtype=torch.float32):
-    return {"wg": dense_init(gen, d, d_ff, dtype=dtype),
-            "wu": dense_init(gen, d, d_ff, dtype=dtype),
-            "wd": dense_init(gen, d_ff, d, dtype=dtype)}
+def mlp_init(gen: torch.Generator, d: int, d_ff: int, dtype=torch.float32,
+             *, tp: Optional[int] = None):
+    """Gate ``wg`` and up ``wu`` (d, d_ff), their outputs over
+    ``"model"``; down ``wd`` (d_ff, d), its input."""
+    p, s = {}, {}
+    for n, din, dout, down in (("wg", d, d_ff, False), ("wu", d, d_ff, False),
+                               ("wd", d_ff, d, True)):
+        p[n], s[n] = dense_init(gen, din, dout, dtype=dtype, in_shard=down,
+                                out_shard=not down, tp=tp)
+    return p, s
 
 
 def mlp(p, x: torch.Tensor, act_name: str) -> torch.Tensor:
@@ -47,12 +55,14 @@ def mlp(p, x: torch.Tensor, act_name: str) -> torch.Tensor:
 # mixture of experts
 # ---------------------------------------------------------------------------
 
-def moe_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32):
+def moe_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
+             *, tp: Optional[int] = None):
     """The reference's leaves and scales: ``router`` (d, E) always f32,
     ``w1`` / ``w3`` (E, d, ff) and ``w2`` (E, ff, d) in ``dtype``; with
     ``moe_shared_d_ff`` a gated MLP ``shared`` and its zero gate
     ``shared_gate`` (d, 1); with ``moe_dense_residual`` a gated MLP
-    ``residual`` of ``d_ff``."""
+    ``residual`` of ``d_ff``.  The experts shard over ``"model"`` where
+    ``tp`` divides E (expert parallelism); router and gate replicate."""
     E, d, ff = cfg.moe_experts, cfg.d_model, cfg.moe_d_ff
 
     def randn(shape, dt, scale):
@@ -62,12 +72,18 @@ def moe_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32):
          "w1": randn((E, d, ff), dtype, sc),
          "w3": randn((E, d, ff), dtype, sc),
          "w2": randn((E, ff, d), dtype, 1.0 / math.sqrt(ff))}
+    e_ax = shard_if_divisible(E, tp)
+    s = {"router": (None, None), "w1": (e_ax, None, None),
+         "w3": (e_ax, None, None), "w2": (e_ax, None, None)}
     if cfg.moe_shared_d_ff:
-        p["shared"] = mlp_init(gen, d, cfg.moe_shared_d_ff, dtype)
+        p["shared"], s["shared"] = mlp_init(gen, d, cfg.moe_shared_d_ff,
+                                            dtype, tp=tp)
         p["shared_gate"] = torch.zeros((d, 1), dtype=dtype)
+        s["shared_gate"] = (None, None)
     if cfg.moe_dense_residual:
-        p["residual"] = mlp_init(gen, d, cfg.d_ff, dtype)
-    return p
+        p["residual"], s["residual"] = mlp_init(gen, d, cfg.d_ff, dtype,
+                                                tp=tp)
+    return p, s
 
 
 def moe_capacity(cfg: ModelConfig, S: int) -> int:
@@ -108,7 +124,11 @@ def assign(cfg: ModelConfig, gates: torch.Tensor, top_i: torch.Tensor):
     top_w = torch.gather(gates, -1, top_i)
     top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
     pe = gates.mean(dim=(0, 1))
-    fe = torch.bincount(top_i.reshape(-1), minlength=E).float() / (B * S * k)
+    # the assignments of each expert (a bincount, which meta tensors
+    # lack: launch.specs runs the model on them)
+    flat = top_i.reshape(-1)
+    fe = (torch.zeros(E, dtype=flat.dtype, device=flat.device)
+          .scatter_add_(0, flat, torch.ones_like(flat)).float() / (B * S * k))
     aux = cfg.moe_aux_loss * E * torch.sum(fe * pe)
     # per sequence: sort the S*k assignments by expert (stable, so within
     # an expert tokens rank in sequence order and a bucket's pad tail

@@ -26,13 +26,14 @@ convolution, (B, W - 1, conv_dim) in the model's dtype.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
-from .common import ModelConfig, dense, dense_init, rmsnorm
+from .common import (ModelConfig, dense, dense_init, norm_init, rmsnorm,
+                     shard_if_divisible)
 
 #: the profiler range of the SSD core (``ssd_chunked``, ``ssd_step``)
 SSD_RANGE = "ssd"
@@ -162,25 +163,35 @@ def mamba2_dims(cfg: ModelConfig):
     return d_inner, H, G, N, conv_dim
 
 
-def mamba2_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32):
+def mamba2_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
+                *, tp: Optional[int] = None):
     """The mixer's parameters, drawn on the CPU from ``gen``.  ``A_log``,
     ``D`` and ``dt_bias`` are float32 in every model dtype, as in the
-    reference."""
+    reference.  Specs: ``in_proj``'s output and ``out_proj``'s input and
+    the convolution's channels over ``"model"`` where ``tp`` divides
+    them; the per-head vectors and the norm replicated."""
     d = cfg.d_model
     d_inner, H, G, N, conv_dim = mamba2_dims(cfg)
     d_in_proj = 2 * d_inner + 2 * G * N + H
     f32 = torch.float32
-    return {
-        "in_proj": dense_init(gen, d, d_in_proj, dtype=dtype),
-        "out_proj": dense_init(gen, d_inner, d, dtype=dtype),
+    p, s = {}, {}
+    p["in_proj"], s["in_proj"] = dense_init(gen, d, d_in_proj, dtype=dtype,
+                                            tp=tp)
+    p["out_proj"], s["out_proj"] = dense_init(
+        gen, d_inner, d, dtype=dtype, in_shard=True, out_shard=False, tp=tp)
+    conv_ax = shard_if_divisible(conv_dim, tp)
+    p.update({
         "conv_w": torch.randn((cfg.ssm_conv_width, conv_dim), generator=gen,
                               dtype=dtype) * 0.1,
         "conv_b": torch.zeros((conv_dim,), dtype=dtype),
         "A_log": torch.log(torch.linspace(1.0, float(H), H, dtype=f32)),
         "D": torch.ones((H,), dtype=f32),
         "dt_bias": torch.zeros((H,), dtype=f32),
-        "norm": {"g": torch.ones((d_inner,), dtype=dtype)},
-    }
+    })
+    s.update({"conv_w": (None, conv_ax), "conv_b": (conv_ax,),
+              "A_log": (None,), "D": (None,), "dt_bias": (None,)})
+    p["norm"], s["norm"] = norm_init(d_inner, dtype)
+    return p, s
 
 
 def _split_in_proj(cfg: ModelConfig, zxbcdt):

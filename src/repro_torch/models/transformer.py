@@ -46,7 +46,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
@@ -56,7 +56,8 @@ from .. import resolve_device
 from ..tree import tree_map
 from .attention import (attn_init, attn_apply, attn_decode,
                         init_decode_cache, prefill_into_cache)
-from .common import ModelConfig, dense, dense_init, rmsnorm
+from .common import (ModelConfig, dense, dense_init, embed_init, norm_init,
+                     rmsnorm, twin)
 from .ffn import mlp_init, mlp, moe_init, moe_apply
 from .ssm import (SSMState, mamba2_apply, mamba2_decode, mamba2_dims,
                   mamba2_init)
@@ -79,18 +80,23 @@ def block_kind(cfg: ModelConfig, i: int) -> str:
 
 
 def block_init(gen: torch.Generator, cfg: ModelConfig, dtype,
-               kind: str = "dense"):
+               kind: str = "dense", *, tp: Optional[int] = None):
+    """One layer of ``kind`` (``dense``, ``moe`` or ``ssm``) and its specs,
+    the reference's stacked layer spec without the leading layer axis."""
+    d = cfg.d_model
+    p, s = {}, {}
     if kind == "ssm":
-        return {"ln": {"g": torch.ones((cfg.d_model,), dtype=dtype)},
-                "mixer": mamba2_init(gen, cfg, dtype)}
-    p = {"ln1": {"g": torch.ones((cfg.d_model,), dtype=dtype)},
-         "attn": attn_init(gen, cfg, dtype),
-         "ln2": {"g": torch.ones((cfg.d_model,), dtype=dtype)}}
+        p["ln"], s["ln"] = norm_init(d, dtype)
+        p["mixer"], s["mixer"] = mamba2_init(gen, cfg, dtype, tp=tp)
+        return p, s
+    p["ln1"], s["ln1"] = norm_init(d, dtype)
+    p["attn"], s["attn"] = attn_init(gen, cfg, dtype, tp=tp)
+    p["ln2"], s["ln2"] = norm_init(d, dtype)
     if kind == "moe":
-        p["moe"] = moe_init(gen, cfg, dtype)
+        p["moe"], s["moe"] = moe_init(gen, cfg, dtype, tp=tp)
     else:
-        p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, dtype)
-    return p
+        p["mlp"], s["mlp"] = mlp_init(gen, d, cfg.d_ff, dtype, tp=tp)
+    return p, s
 
 
 def _ffn(lp, cfg: ModelConfig, x):
@@ -101,7 +107,8 @@ def _ffn(lp, cfg: ModelConfig, x):
     return mlp(lp["mlp"], x, cfg.mlp_activation), 0.0
 
 
-def lm_init(cfg: ModelConfig, *, seed: int = 0, device=None) -> Dict[str, Any]:
+def lm_init(cfg: ModelConfig, *, seed: int = 0, device=None,
+            tp: Optional[int] = None, specs: bool = False):
     """Random parameters drawn from ``seed`` on the CPU, each layer moved
     to ``device`` (default ``cuda``) as it is drawn: one seed gives the
     same weights on every device, and a model of billions of parameters
@@ -109,36 +116,48 @@ def lm_init(cfg: ModelConfig, *, seed: int = 0, device=None) -> Dict[str, Any]:
     ``cfg.dtype`` (float32 or bfloat16), as the reference draws them,
     but a MoE router and a Mamba2 mixer's ``A_log``, ``D`` and
     ``dt_bias``, which are always float32.  On ``device="meta"``
-    nothing is drawn: the tree holds every leaf's shape and dtype."""
+    nothing is drawn: the tree holds every leaf's shape and dtype.
+
+    ``specs=True`` returns ``(params, specs)``: the reference's spec
+    tree for TP degree ``tp`` (``None``: nothing sharded), its scanned
+    layer stack a list of per-layer specs here, as the layers are."""
     _check_family(cfg)
     dev = resolve_device(device)
     dtype = cfg.torch_dtype
     gen = torch.Generator().manual_seed(seed)
+    d = cfg.d_model
+    params: Dict[str, Any] = {}
+    spec: Dict[str, Any] = {}
 
-    def to_dev(tree):
-        return tree_map(lambda t: t.to(dev), tree)
+    def put(name, built):
+        p, s = built
+        params[name], spec[name] = _to(p, dev), s
+
     with (torch.device("meta") if dev.type == "meta"
           else contextlib.nullcontext()):
-        params: Dict[str, Any] = {
-            "embed": to_dev({"w": torch.randn((cfg.vocab_size, cfg.d_model),
-                                              generator=gen, dtype=dtype)
-                             * 0.02}),
-            "final_norm": to_dev({"g": torch.ones((cfg.d_model,),
-                                                  dtype=dtype)}),
-            "layers": [to_dev(block_init(gen, cfg, dtype, block_kind(cfg, i)))
-                       for i in range(cfg.num_layers)],
-        }
+        put("embed", embed_init(gen, cfg.vocab_size, d, dtype, tp=tp))
+        put("final_norm", norm_init(d, dtype))
+        params["layers"], spec["layers"] = [], []
+        for i in range(cfg.num_layers):        # each moved as it is drawn
+            p, s = block_init(gen, cfg, dtype, block_kind(cfg, i), tp=tp)
+            params["layers"].append(_to(p, dev))
+            spec["layers"].append(s)
         if not cfg.tie_embeddings:
-            params["lm_head"] = to_dev(dense_init(gen, cfg.d_model,
-                                                  cfg.vocab_size, scale=0.02,
-                                                  dtype=dtype))
+            put("lm_head", dense_init(gen, d, cfg.vocab_size, scale=0.02,
+                                      dtype=dtype, tp=tp))
         if cfg.family == "hybrid":
-            params["shared"] = to_dev(block_init(gen, cfg, dtype, "dense"))
-            params["shared_proj"] = [      # one per invocation
-                to_dev(dense_init(gen, 2 * cfg.d_model, cfg.d_model,
-                                  dtype=dtype))
-                for i in range(cfg.num_layers) if cfg.layer_is_attn(i)]
-    return params
+            put("shared", block_init(gen, cfg, dtype, "dense", tp=tp))
+            params["shared_proj"], spec["shared_proj"] = [], []
+            for i in range(cfg.num_layers):
+                if cfg.layer_is_attn(i):       # one per invocation
+                    p, s = dense_init(gen, 2 * d, d, dtype=dtype, tp=tp)
+                    params["shared_proj"].append(_to(p, dev))
+                    spec["shared_proj"].append(s)
+    return twin(params, spec, specs)
+
+
+def _to(tree, dev):
+    return tree_map(lambda t: t.to(dev), tree)
 
 
 def _embed_tokens(params, cfg: ModelConfig, tokens, prefix_embeds=None):

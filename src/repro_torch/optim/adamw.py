@@ -118,8 +118,9 @@ CHUNK_ELEMS = 1 << 24
 
 def _row_chunks(p: torch.Tensor):
     """Index expressions covering ``p``: ``...`` for a leaf of at most
-    CHUNK_ELEMS entries, else slices of its leading axis."""
-    if p.ndim == 0 or p.numel() <= CHUNK_ELEMS:
+    CHUNK_ELEMS entries or on the meta device (no temporaries there),
+    else slices of its leading axis."""
+    if p.ndim == 0 or p.numel() <= CHUNK_ELEMS or p.device.type == "meta":
         return (...,)
     rows = max(1, CHUNK_ELEMS // (p.numel() // p.shape[0]))
     return tuple(slice(i, i + rows) for i in range(0, p.shape[0], rows))

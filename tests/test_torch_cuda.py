@@ -2092,7 +2092,7 @@ def test_moe_apply_on_card_matches_cpu(dev, d, E, k, ff, cf):
     from repro_torch.models.common import ModelConfig
     cfg = ModelConfig(d_model=d, moe_experts=E, moe_top_k=k, moe_d_ff=ff,
                       moe_shared_d_ff=2 * ff, moe_capacity_factor=cf)
-    p = ffn.moe_init(torch.Generator().manual_seed(E + k), cfg)
+    p, _ = ffn.moe_init(torch.Generator().manual_seed(E + k), cfg)
     p["shared_gate"] = torch.randn((d, 1), generator=torch.Generator()
                                    .manual_seed(1)) * 0.5
     x = torch.randn((2, 256, d), generator=torch.Generator().manual_seed(2))
@@ -2158,7 +2158,7 @@ def test_mamba2_full_width_mixer_on_card_matches_cpu(dev, S):
     from repro_torch.configs import get_config
     from repro_torch.models import ssm
     cfg = dataclasses.replace(get_config("mamba2-1.3b"), dtype="float32")
-    p = ssm.mamba2_init(torch.Generator().manual_seed(0), cfg)
+    p, _ = ssm.mamba2_init(torch.Generator().manual_seed(0), cfg)
     x = torch.randn((1, S, cfg.d_model),
                     generator=torch.Generator().manual_seed(1))
     want, wst = ssm.mamba2_apply(p, cfg, x, return_state=True)
@@ -2502,3 +2502,48 @@ def test_telemetry_counts_every_launch(dev, name):
     else:
         shapes = {tuple(o.shape) for o in rec.inputs}
         assert all(s in shapes for s in want), (want, rec.describe())
+
+
+@pytest.mark.parametrize("name", list(kernels.KERNELS))
+def test_cuda_tensors_never_take_the_meta_route(dev, name, monkeypatch):
+    """Each wrapper asks ``_build.on_meta`` on CUDA operands and is told
+    no: it launches its kernel (one launch counted), and the meta route
+    (empty outputs, nothing launched) stays for meta tensors alone."""
+    from repro_torch.kernels import _build
+
+    asked = []
+    real = _build.on_meta
+
+    def spy(operands, *args, **kw):
+        out = real(operands, *args, **kw)
+        kinds = {o.device.type for o in operands if o is not None}
+        asked.append(("".join(sorted(kinds)), out))
+        return out
+    monkeypatch.setattr(_build, "on_meta", spy)
+    call, _ = _telemetry_call(name, torch.Generator(device=dev)
+                              .manual_seed(5), dev)
+    wrapper = kernels.KERNELS[name][0]
+    before = wrapper.launches
+    call()
+    torch.cuda.synchronize()
+    assert wrapper.launches - before == 1
+    assert asked and all(a == ("cuda", False) for a in asked), asked
+
+
+@pytest.mark.parametrize("meta_first", [True, False])
+def test_mixed_meta_and_cuda_operands_raise(dev, meta_first):
+    """The meta route is all or nothing: a CUDA ``q`` with meta ``k``,
+    ``v``, ``w`` raises before any launch, and so does a meta ``q`` with
+    CUDA ``k``, ``v``, ``w``."""
+    from repro_torch.kernels import h1d_block
+    B, G, L, d, nr = 1, 2, 64, 16, 16
+    shapes = ((B, G, L, d), (B, L, d), (B, L, d), (B, L))
+    q, k, v, w = (torch.ones(s, device=dev) for s in shapes)
+    if meta_first:
+        q = q.to("meta")
+    else:
+        k, v, w = (t.to("meta") for t in (k, v, w))
+    before = h1d_block.band_attention_fwd.launches
+    with pytest.raises(ValueError, match="mix meta"):
+        h1d_block.band_attention_fwd(q, k, v, w, nr=nr)
+    assert h1d_block.band_attention_fwd.launches == before

@@ -192,9 +192,14 @@ def _meta(*shape):
 def test_wrappers_raise_on_cuda_request_without_card():
     """No card: the entry points refuse a CUDA request and the kernel
     wrappers raise for non-CPU tensors instead of running the plain
-    version."""
+    version.  Meta tensors take the wrappers' meta route (empty outputs,
+    nothing launched, checked in ``test_torch_launch_plan.py``); with
+    that route shut, as it is for a CUDA tensor, the same calls ask for
+    the kernel library, which needs a card, and raise."""
+    from repro_torch.kernels import _build
     kernels.reset_counts()
-    with mock.patch("torch.cuda.is_available", return_value=False):
+    with mock.patch("torch.cuda.is_available", return_value=False), \
+            mock.patch.object(_build, "on_meta", return_value=False):
         with pytest.raises(RuntimeError):
             repro_torch.resolve_device()
         with pytest.raises(RuntimeError):
@@ -205,17 +210,19 @@ def test_wrappers_raise_on_cuda_request_without_card():
         B, L, d = 2, 32, 8
         q, k, v, w = _meta(B, 1, L, d), _meta(B, L, d), _meta(B, L, d), \
             _meta(B, L)
+        # the sub level's coarse operands, valid ones: the wrappers check
+        # their operands before they ask for the library
+        kc, vc, wc = _meta(B, L // 2, d), _meta(B, L // 2, d), \
+            _meta(B, L // 2)
         with pytest.raises(RuntimeError):
             kernels.band_attention_fwd(q, k, v, w, nr=8)
         with pytest.raises(RuntimeError):
-            kernels.band_attention_sub_fwd(q, k[:, :16], v[:, :16], w[:, :16],
-                                           nr=8, ratio=2)
+            kernels.band_attention_sub_fwd(q, kc, vc, wc, nr=8, ratio=2)
         m = _meta(B, 1, L)
         with pytest.raises(RuntimeError):
             kernels.band_attention_bwd(q, k, v, w, q, m, m, q, m, m, nr=8)
         with pytest.raises(RuntimeError):
-            kernels.band_attention_sub_bwd(q, k[:, :16], v[:, :16],
-                                           w[:, :16], q, m, m, q, m, m,
+            kernels.band_attention_sub_bwd(q, kc, vc, wc, q, m, m, q, m, m,
                                            nr=8, ratio=2)
         cache = thd.H1DCache(_meta(B, L, d), _meta(B, L, d),
                              (_meta(B, L // 2, d),), (_meta(B, L // 2, d),))

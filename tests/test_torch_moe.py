@@ -190,7 +190,8 @@ def test_init_leaves_and_scales():
     _, tcfg = _cfgs(1.25, E=16, moe_shared_d_ff=48, moe_dense_residual=True,
                     d_ff=40)
     tcfg = dataclasses.replace(tcfg, d_model=256, moe_d_ff=512)
-    p = ffn.moe_init(torch.Generator().manual_seed(0), tcfg, torch.bfloat16)
+    p, _ = ffn.moe_init(torch.Generator().manual_seed(0), tcfg,
+                          torch.bfloat16)
     assert p["router"].dtype == torch.float32
     assert p["router"].shape == (256, 16)
     assert {p[k].dtype for k in ("w1", "w3", "w2")} == {torch.bfloat16}

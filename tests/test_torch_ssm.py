@@ -206,8 +206,8 @@ def test_mixer_parameters_keep_float32_in_bf16():
     """``mamba2_init`` in bf16: A_log, D and dt_bias stay float32 (and
     hold the reference's values), the rest is bf16."""
     _, tcfg, _, _ = _mixer()
-    p = tssm.mamba2_init(torch.Generator().manual_seed(0), tcfg,
-                         torch.bfloat16)
+    p, _ = tssm.mamba2_init(torch.Generator().manual_seed(0), tcfg,
+                            torch.bfloat16)
     dtypes = tree_map(lambda a: a.dtype, p)
     assert {dtypes[k] for k in ("A_log", "D", "dt_bias")} == {torch.float32}
     assert {dtypes[k] for k in ("conv_w", "conv_b")} == {torch.bfloat16}
