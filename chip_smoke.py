@@ -420,6 +420,28 @@ Phases (each raises on failure; nothing is caught):
    extrapolation on meta tensors, its device ms (CUDA events) printed
    beside the roofline bound; (d) the whole dry run, 80 cells on meta
    tensors over up to 8 processes: every cell ok.
+24. ``ranks``, last: one shard a process (``parallel/group.py``), 2 ranks
+   started by ``torch.distributed.run`` on the normal CLIs, both on the
+   one card (``--device cuda:0``, gloo: NCCL refuses two ranks on one
+   card).  (a) ``launch.serve --sp-data 2`` on ``h1d-lm-53m`` at full
+   width serves phase 5c (c)'s 4 requests (8 slots, max_len 2048, 32
+   tokens): every rank's tokens equal that one-process d = 2 run's, and
+   phase 4's where its margins guard them; each rank launches #1, #2,
+   #11 and #12 half as often as the one-process run, #6 as often as
+   half of its (none: d = 2 keeps no replicated deep level at 2048) and
+   no plain version; rank 0's median decode tick and the part of it in
+   collectives (each timed between synchronizations).  (b)
+   ``launch.train --sp --mesh 2``, 3 steps at 4 x 1024: every rank's
+   losses within 1e-5 of max(1, |loss|) of the same command line run in
+   this process (the one-process layout), parameters bit-identical
+   across ranks, #1-#4 half the one-process launches.  (c)
+   ``tools/pipeline_ranks.py``: ``pipeline_apply`` at S = 2, a stage a
+   rank (phase 23 (a)'s model in 2 stages of 3 layers, 4 microbatches of
+   1 x 1024): hidden states and gradients as 23 (a) against the
+   sequential run in each rank's process, band launches half of it.
+   With two or more cards (a)-(c) run again, a card a rank (NCCL);
+   with one, a line says that leg did not run.  A rank that fails fails
+   the phase.  ``launches_by_path`` holds ``ranks``.
 
 Tolerances.  In bf16 (phases 12-15, 17-19, 21): every step's logits, on the same
 tokens, within 3e-2 of the plain row's largest |logit| (both paths
@@ -2079,6 +2101,7 @@ def phase_sp_serve(cfg, params, fns, reqs, dense_stats, deep_levels, dev):
     runs = {"b_d4": (4, 8, reqs), "c_d2": (2, 8, reqs[:4]),
             "d_d4_slots1": (4, 1, reqs[:1])}
     total = {}
+    kept = {}
     for name, (d, slots, rs) in runs.items():
         eng = ServeEngine(cfg, params, slots=slots, max_len=LMAX,
                           mesh=make_mesh((d,), ("data",), device=dev))
@@ -2109,6 +2132,7 @@ def phase_sp_serve(cfg, params, fns, reqs, dense_stats, deep_levels, dev):
         stats.update(shards=d, slots=slots, guarded=sum(u in guarded
                                                         for u in outs),
                      sp_dispatches=dict(sp.DISPATCHES))
+        kept[name] = (outs, stats, counts, guarded)
         del eng
         torch.cuda.empty_cache()
         log(f"sp {name}: {json.dumps(stats)}")
@@ -2117,7 +2141,7 @@ def phase_sp_serve(cfg, params, fns, reqs, dense_stats, deep_levels, dev):
         f"{dense_stats['tokens_per_s']:.1f} tokens/s, decode "
         f"{dense_stats['decode_ms_per_tick']:.2f} ms/tick, prefill "
         f"{dense_stats['prefill_ms_per_call']:.2f} ms/call")
-    return total
+    return total, kept
 
 
 def phase_train(dev):
@@ -6754,6 +6778,239 @@ def phase_planning(dev):
     return counts
 
 
+# phase 24: one shard a process (parallel/group.py), 2 ranks through
+# torchrun on the CLIs
+RANKS = 2
+RANK_PROMPTS = 4              # phase 5c (c)'s requests: reqs[:4], 8 slots
+RANK_TRAIN = ("--steps", "3", "--batch", "4", "--seq", "1024")
+RANK_LOSS_TOL = 1e-5          # of max(1, |loss|): fp32 in another order
+RANK_TIMEOUT = 300
+
+
+def torchrun(label, argv, tmp):
+    """``argv`` under ``torch.distributed.run --standalone`` on RANKS
+    ranks; its output logged, every process stopped.  Raises when any
+    rank failed."""
+    import os
+    import signal
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="4")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(RANKS)] + list(argv)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=tmp, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=RANK_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        raise AssertionError(f"24 {label}: no end in {RANK_TIMEOUT} s:\n"
+                             f"{out[-4000:]}") from None
+    for line in out.splitlines():
+        if "socket.cpp" not in line and "OMP_NUM_THREADS" not in line \
+                and set(line) != {"*"}:
+            log(f"  {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"24 {label}: exit {proc.returncode}")
+    log(f"24 {label}: {RANKS} ranks in {time.perf_counter() - t0:.1f}s "
+        f"(start-up included)")
+
+
+def rank_reports(tmp, name):
+    return [json.loads((Path(tmp) / name.replace("{rank}", str(r)))
+                       .read_text()) for r in range(RANKS)]
+
+
+def rank_launches(reports):
+    """The reports' kernel launches summed over ranks, keyed as
+    ``path_counts``; no plain version may have run."""
+    total = collections.Counter()
+    for rep in reports:
+        plain = {k: c for k, c in rep["launches"].items()
+                 if k.startswith("plain:") and c}
+        if plain:
+            raise AssertionError(f"24: rank {rep['rank']} ran plain "
+                                 f"versions: {plain}")
+        total.update({k: c for k, c in rep["launches"].items()
+                      if not k.startswith("plain:")})
+    return dict(total)
+
+
+def ranks_serve(tmp, device, sp_run, serve_tokens, prompts):
+    """24 (a): launch.serve --sp-data 2 on phase 5c (c)'s requests."""
+    outs, stats, counts, guarded = sp_run
+    (Path(tmp) / "prompts.json").write_text(json.dumps(
+        [p.tolist() for p in prompts]))
+    torchrun("(a) serve", ["-m", "repro_torch.launch.serve", "--sp-data",
+                           str(RANKS), "--prompts", "prompts.json",
+                           "--slots", "8", "--max-len", str(LMAX),
+                           "--new-tokens", str(PAGED_NEW), "--rank-report",
+                           "serve.{rank}.json"] + device, tmp)
+    reps = rank_reports(tmp, "serve.{rank}.json")
+    for rep in reps:        # SP serving runs #6 on the deep levels alone
+        rep["launches"]["update_cache_fused[sp_deep]"] = rep["launches"].pop(
+            "update_cache_fused")
+    got = reps[0]["tokens"]
+    want = [outs[u] for u in range(len(prompts))]
+    if any(rep["tokens"] != want for rep in reps):
+        raise AssertionError(f"24 (a): ranks' tokens {got} differ from the "
+                             f"one-process d = 2 engine's {want}")
+    bad = [u for u in range(len(prompts))
+           if u in guarded and got[u] != serve_tokens[u]]
+    if bad:
+        raise AssertionError(f"24 (a): requests {bad} differ from phase 4")
+    for rep in reps:
+        mine = {k: c for k, c in rep["launches"].items()
+                if not k.startswith("plain:")}
+        for k in ("band_attention_fwd", "band_attention_sub_fwd",
+                  "decode_attend_partial", "update_cache_partial"):
+            if not counts[k] or 2 * mine[k] != counts[k]:
+                raise AssertionError(f"24 (a): rank {rep['rank']} launched "
+                                     f"{k} {mine[k]} times, the one-process "
+                                     f"layout {counts[k]}")
+        deep = "update_cache_fused[sp_deep]"
+        if mine["decode_attend_fused"] or \
+                2 * mine[deep] != counts.get(deep, 0):
+            raise AssertionError(f"24 (a): #5 / #6 launches {mine}")
+    ticks = [st for st in reps[0]["steps"] if not st["admitted"]]
+    tick_ms = float(np.median([st["ms"] for st in ticks]))
+    comm_ms = float(np.median([st["comm_ms"] for st in ticks]))
+    log(f"24 (a) serve, {RANKS} ranks ({reps[0]['backend']}, "
+        f"{reps[0]['placement']}): the one-process d = 2 engine's tokens "
+        f"on every rank ({sum(u in guarded for u in range(len(prompts)))} "
+        f"margin-guarded, phase 4's); launches per rank "
+        f"{json.dumps({k: c for k, c in reps[0]['launches'].items() if c})}"
+        f" = half of the one-process layout's; {len(ticks)} decode ticks: "
+        f"median {tick_ms:.2f} ms a tick on rank 0 (engine step, sampling "
+        f"included, collectives timed between synchronizations), "
+        f"{comm_ms:.2f} ms in collectives ({comm_ms / tick_ms:.1%}); "
+        f"collectives {json.dumps(reps[0]['collectives'])}; the "
+        f"one-process d = 2 engine: decode {stats['decode_ms_per_tick']:.2f}"
+        f" ms a tick (decode_step alone), {stats['tokens_per_s']:.1f} "
+        f"tokens/s; {len(ticks)} ticks ({card_line()})")
+    return reps
+
+
+def ranks_train(tmp, device):
+    """24 (b): launch.train --sp --mesh 2, 3 steps, against the same CLI
+    line in this process (the one-process layout)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_cli
+    from repro_torch.parallel import sp_attention as sp
+
+    torchrun("(b) train", ["-m", "repro_torch.launch.train", "--sp",
+                           "--mesh", str(RANKS), "--ckpt-dir", "ck_ranks",
+                           "--rank-report", "train.{rank}.json",
+                           *RANK_TRAIN] + device, tmp)
+    reps = rank_reports(tmp, "train.{rank}.json")
+    seen = {}
+    real = train_cli.train
+
+    def spy(*a, **kw):
+        state, metrics = real(*a, **kw)
+        seen.update(metrics)
+        return state, metrics
+    train_cli.train = spy
+    counts = {}
+    sp.DISPATCHES.clear()
+    try:
+        with counted(counts):
+            cli_run(train_cli.main, ["--sp", "--mesh", str(RANKS),
+                                     "--ckpt-dir", str(Path(tmp) / "ck_one"),
+                                     *RANK_TRAIN])
+    finally:
+        train_cli.train = real
+    layers = get_config("h1d-lm-53m").num_layers
+    if sp.DISPATCHES.get("h1d_attention") != 3 * layers:
+        raise AssertionError(f"24 (b): the one-process run's SP calls "
+                             f"{sp.DISPATCHES}")
+    want = [h["loss"] for h in seen["history"]]
+    worst = 0.0
+    for rep in reps:
+        got = [h["loss"] for h in rep["history"]]
+        worst = max(worst, max(abs(a - b) / max(1.0, abs(b))
+                               for a, b in zip(got, want)))
+        if len(got) != len(want) or worst > RANK_LOSS_TOL:
+            raise AssertionError(f"24 (b): rank {rep['rank']} losses {got}, "
+                                 f"one process {want}")
+        if rep["params"] != reps[0]["params"]:
+            raise AssertionError("24 (b): the ranks' parameters differ")
+        mine = rep["launches"]
+        for k in ("band_attention_fwd", "band_attention_sub_fwd",
+                  "band_attention_bwd", "band_attention_sub_bwd"):
+            if not counts.get(k) or 2 * mine[k] != counts[k]:
+                raise AssertionError(f"24 (b): rank {rep['rank']} launched "
+                                     f"{k} {mine[k]} times, one process "
+                                     f"{counts.get(k)}")
+    log(f"24 (b) train, {RANKS} ranks: losses {[h['loss'] for h in reps[0]['history']]} "
+        f"against one process {want} (worst {worst:.3g} of max(1, |loss|)"
+        f"), parameters bit-identical across ranks ({reps[0]['params'][:16]}"
+        f"), band launches half the one-process run's; step ms "
+        f"{[round(h['step_ms'], 1) for h in reps[0]['history']]} against "
+        f"{[round(h['step_ms'], 1) for h in seen['history']]} "
+        f"({card_line()})")
+    return reps
+
+
+def ranks_pipeline(tmp, device):
+    """24 (c): pipeline_apply at S = 2, h1d-lm-53m's 6 layers in 2 stages
+    of 3, 4 microbatches of 1 x 1024 (tools/pipeline_ranks.py)."""
+    torchrun("(c) pipeline", [str(ROOT / "tools" / "pipeline_ranks.py"),
+                              "--layers", "6", "--micro", "4", "--seq",
+                              "1024", "--out", "pipe.{rank}.json"] + device,
+             tmp)
+    reps = rank_reports(tmp, "pipe.{rank}.json")
+    for rep in reps:
+        if not (rep["hidden"] <= PIPE_HIDDEN_TOL
+                and rep["x_grad"] <= PIPE_GRAD_TOL
+                and rep["stage_grad"] <= PIPE_GRAD_TOL):
+            raise AssertionError(f"24 (c): rank {rep['rank']}: {rep}")
+        seq = rep["sequential_launches"]
+        if not all(seq[k] and RANKS * rep["launches"][k] == seq[k]
+                   for k in seq):
+            raise AssertionError(f"24 (c): launches {rep['launches']} "
+                                 f"against the sequential run's {seq}")
+    log(f"24 (c) pipeline, {RANKS} stages a rank: hidden "
+        f"{max(r['hidden'] for r in reps):.3g}, gradients "
+        f"{max(max(r['x_grad'], r['stage_grad']) for r in reps):.3g} of "
+        f"their largest, band launches per rank half the sequential run's; "
+        f"host ms with the backward {[round(r['ms'], 1) for r in reps]} "
+        f"against sequential {[round(r['sequential_ms'], 1) for r in reps]}"
+        f" ({card_line()})")
+    return reps
+
+
+def phase_ranks(sp_run, serve_tokens, prompts):
+    """24: see the module docstring.  Returns the launches of the ranks'
+    runs (shared card, and NCCL where it ran), summed over ranks."""
+    import tempfile
+    t0 = time.perf_counter()
+    legs = [("shared card, gloo", ["--device", "cuda:0"])]
+    n = torch.cuda.device_count()
+    if n >= RANKS:
+        legs.append(("a card a rank, NCCL", []))
+    else:
+        log(f"24: the NCCL leg did not run: {n} card visible, and it needs "
+            f"{RANKS}, one a rank")
+    total = collections.Counter()
+    for label, device in legs:
+        log(f"24: {label}")
+        with tempfile.TemporaryDirectory() as tmp:
+            for reps in (ranks_serve(tmp, device, sp_run, serve_tokens,
+                                     prompts),
+                         ranks_train(tmp, device)):
+                total.update(rank_launches(reps))
+            pipe = ranks_pipeline(tmp, device)
+            total.update(rank_launches([
+                dict(rank=r["rank"], launches=r["launches"])
+                for r in pipe]))
+    log(f"24: launches of the ranks' runs, every rank and leg summed: "
+        f"{json.dumps(dict(total))}")
+    log(f"phase 24 (ranks) took {time.perf_counter() - t0:.1f}s")
+    return dict(total)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
@@ -6794,7 +7051,7 @@ def main() -> int:
     phase_logits(cfg, params, fns, reqs, dev)
     paged_counts = phase_paged_serve(cfg, params, fns, dev)
     t_sp = time.perf_counter()
-    sp_counts = phase_sp_serve(
+    sp_counts, sp_runs = phase_sp_serve(
         cfg, params, fns, reqs, serve_stats,
         next(r["nlev"] for r in sp_rows if "nlev" in r), dev)
     sp_s += time.perf_counter() - t_sp
@@ -6803,6 +7060,9 @@ def main() -> int:
                                      dev)
     sample_counts = phase_sample_serve(cfg, params, fns, reqs, serve_stats,
                                        dev)
+    # phase 24 serves phase 5c (c)'s requests again, one shard a rank
+    serve_tokens = {r.uid: list(r.out_tokens) for r in reqs}
+    rank_prompts = [r.prompt for r in reqs[:RANK_PROMPTS]]
     del params, fns, reqs
     torch.cuda.empty_cache()
     train_counts, train_stats = phase_train(dev)
@@ -6846,6 +7106,9 @@ def main() -> int:
         f"{time.perf_counter() - t_s:.1f}s")
     telemetry_counts = phase_telemetry(dev)
     family_counts.update(phase_planning(dev))
+    torch.cuda.empty_cache()
+    family_counts["ranks"] = phase_ranks(sp_runs["c_d2"], serve_tokens,
+                                         rank_prompts)
     for row in rows:
         # a row name@arch holds its wrapper at arch's shape: its launches
         # are those of the phase 17-19 paths that run that shape

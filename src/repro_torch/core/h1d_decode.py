@@ -16,7 +16,8 @@ points go through the wrappers in ``kernels.h1d_decode_kernel``, which
 run the plain version on CPU tensors and the CUDA kernel on CUDA tensors.
 
 A sequence-sharded cache (``parallel.sp_attention.SPCache``, one slab per
-shard) is decoded inside ``sp_scope(mesh)``: every entry point below then
+shard this process holds: every shard, or on a rank its own) is decoded
+inside ``sp_scope(mesh)``: every entry point below then
 routes through ``parallel.sp_attention`` (per-shard partial kernels over
 the owned blocks, merged with one pmax and one psum; ``tables`` carries
 the tick's shard geometry, built once and shared by every layer).
@@ -91,9 +92,10 @@ def _sp_decode_ctx(cache, tables):
     if not isinstance(cache, sp.SPCache):
         return None
     mesh = sp.sp_ctx()
-    if mesh is None or mesh.d != len(cache.shards):
+    if mesh is None or len(mesh.shards) != len(cache.shards):
         raise ValueError(f"a cache of {len(cache.shards)} shards is decoded "
-                         f"inside sp_scope(mesh) of as many shards")
+                         f"inside sp_scope(mesh) of as many shards (on a "
+                         f"rank: its own one)")
     if tables is None:
         raise ValueError("a sharded cache is decoded with the tick's shard "
                          "geometry: pass tables=sp_tables(t, ...)")

@@ -6,13 +6,16 @@ an H100 fleet for the sharding rules, the dry run and the roofline (a
 :class:`~repro_torch.parallel.sharding.Mesh`: axes and sizes, no
 devices).  :func:`make_mesh` builds the one-axis
 :class:`~repro_torch.parallel.sp_attention.SPMesh` that sequence-parallel
-serving and training and the pipeline run on, every shard on one device
-(the reference's fabricated host devices share one CPU the same way)."""
+serving and training and the pipeline run on: one shard a process inside
+an initialised process group (``parallel.group``, ``torchrun``), else
+every shard in this process on one device (the reference's fabricated
+host devices share one CPU the same way)."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.parallel import group
 from repro_torch.parallel.sharding import Mesh, abstract_mesh
 from repro_torch.parallel.sp_attention import SPMesh
 
@@ -30,13 +33,30 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
 
 
 def make_mesh(shape, axes, device=None) -> SPMesh:
-    """A ``shape[0]``-way :class:`SPMesh` over axis ``axes[0]``, every
-    shard on ``resolve_device(device)`` (``cuda`` unless ``device`` says
-    otherwise; raises without a card)."""
+    """A ``shape[0]``-way :class:`SPMesh` over axis ``axes[0]``.  Inside a
+    process group (``parallel.group.current()``) of ``shape[0]`` ranks it
+    is the rank form, this rank's shard on the group's device; else every
+    shard sits on ``resolve_device(device)`` in this process (``cuda``
+    unless ``device`` says otherwise; raises without a card).  A mesh of
+    more than one axis (tensor parallelism over ``DATAxMODEL``) raises."""
     shape, axes = tuple(shape), tuple(axes)
     if len(shape) != 1 or len(axes) != 1:
-        raise NotImplementedError(f"a mesh of one axis, got shape {shape} "
-                                  f"over axes {axes}")
+        raise NotImplementedError(
+            f"a mesh of one axis, got shape {shape} over axes {axes}: "
+            f"tensor parallelism over a DATAxMODEL mesh is not ported; the "
+            f"port shards the sequence, one shard a process under torchrun "
+            f"or every shard in one process")
+    g = group.current()
+    if g is not None:
+        if shape[0] != g.world:
+            raise ValueError(f"a {shape[0]}-way mesh in a group of {g.world} "
+                             f"ranks: the rank form runs one shard a rank")
+        dev = None if device is None else resolve_device(device)
+        if dev is not None and (dev.type != g.device.type or dev.index
+                                not in (None, g.device.index)):
+            raise ValueError(f"this rank's shard sits on {g.device}, not "
+                             f"{dev}")
+        return SPMesh(axis=axes[0], devices=(g.device,), group=g)
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())

@@ -42,6 +42,23 @@ states stay whole, and zamba2's shared attention block is sharded:
         --smoke --device cpu --sp-data 2 --requests 3 --slots 2 \
         --new-tokens 4 --max-len 64
 
+Under ``torchrun`` (``python -m torch.distributed.run --nproc-per-node
+N``) ``--sp-data N`` serves h1d-lm-53m's hierarchical caches one shard a
+process (``parallel/group.py``): every rank draws the same weights and
+requests and runs the same engine loop, holding its own shard of each
+slot's cache; rank 0 alone prints.  Each
+rank runs on its own card (``cuda:LOCAL_RANK``, NCCL); ``--device
+cuda:0`` puts every rank on card 0 (gloo, as NCCL refuses two ranks on
+one card) and ``--device cpu`` on the CPU (gloo):
+
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \
+        -m repro_torch.launch.serve --sp-data 2 --requests 4 --slots 4 \
+        --max-len 2048 --max-prompt 1500
+
+``--prompts PATH`` serves the prompts of a JSON list of token lists
+instead of drawn ones; ``--rank-report PATH`` writes each rank's
+tokens, launches, collectives and per-tick times (``launch/ranks.py``).
+
 ``--telemetry`` turns on ``repro_torch.obs`` (the engine's metrics and
 spans, every kernel launch's accounting); ``--trace-out`` (a Chrome
 trace, Perfetto-loadable), ``--prom-out`` (Prometheus text) and
@@ -55,16 +72,19 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import time
 
 import numpy as np
 import torch
 
-from repro_torch import exact_products, obs, resolve_device
+from repro_torch import exact_products, kernels, obs, resolve_device
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.kernels.tuning import canonical_impl
+from repro_torch.launch import ranks
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import get_model
+from repro_torch.parallel import group as grp
 from repro_torch.serve import Request, ServeEngine
 from repro_torch.serve.engine import ENCDEC_REFUSAL
 from repro_torch.tree import tree_leaves
@@ -76,8 +96,10 @@ def main(argv=None):
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth to this many layers")
-    ap.add_argument("--device", default=None, choices=["cuda", "cpu"],
-                    help="default: cuda (raises when no card is present)")
+    ap.add_argument("--device", default=None,
+                    help="cuda, cuda:N or cpu; default: cuda (raises when "
+                         "no card is present; under torchrun each rank's "
+                         "own card)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--new-tokens", type=int, default=16)
@@ -123,7 +145,15 @@ def main(argv=None):
     ap.add_argument("--sp-data", type=int, default=1,
                     help="sequence-parallel degree: split the hierarchical "
                          "KV cache over an N-way 'data' axis and run the "
-                         "decode kernels per shard")
+                         "decode kernels per shard (under torchrun: one "
+                         "shard a rank, N the world size)")
+    ap.add_argument("--prompts", default=None, metavar="PATH",
+                    help="serve the prompts of this JSON list of token "
+                         "lists instead of --requests drawn ones")
+    ap.add_argument("--rank-report", default=None, metavar="PATH",
+                    help="under torchrun: each rank writes its tokens, "
+                         "launches, collectives and tick times to PATH with "
+                         "{rank} replaced")
     ap.add_argument("--telemetry", action="store_true",
                     help="enable repro_torch.obs metrics, serve-tick spans "
                          "and kernel-launch accounting (implied by "
@@ -140,7 +170,20 @@ def main(argv=None):
                     help="--metrics-jsonl emission period in seconds")
     args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
+    g, joined = ranks.join(args.device)
+    try:
+        return _serve(args, g)
+    finally:
+        if joined:
+            grp.destroy()
+
+
+def _serve(args, g):
+    if g is not None and args.sp_data != g.world:
+        raise ValueError(f"under torchrun --sp-data is the world size "
+                         f"{g.world}, one shard a rank; got {args.sp_data}")
+    dev = g.device if g is not None else resolve_device(args.device)
+    say = print if g is None or g.rank == 0 else (lambda *a, **k: None)
     exact_products()
     telemetry = bool(args.telemetry or args.trace_out or args.prom_out
                      or args.metrics_jsonl)
@@ -163,7 +206,7 @@ def main(argv=None):
     params = get_model(cfg).init(cfg, seed=args.seed, device=dev)
     if dev.type == "cuda":
         torch.cuda.synchronize()
-    print(f"[serve] {cfg.name}: {cfg.num_layers} layers, "
+    say(f"[serve] {cfg.name}: {cfg.num_layers} layers, "
           f"{sum(p.numel() for p in tree_leaves(params)) / 1e9:.2f} B "
           f"parameters in {cfg.dtype}, drawn in "
           f"{time.perf_counter() - t_w:.1f}s")
@@ -177,54 +220,81 @@ def main(argv=None):
                       token_budget=args.token_budget,
                       prefill_chunk=args.prefill_chunk,
                       lookahead=args.lookahead)
-    rng = np.random.default_rng(args.seed)
+    if args.prompts:
+        with open(args.prompts) as f:
+            prompts = [np.asarray(p, np.int32) for p in json.load(f)]
+    else:
+        rng = np.random.default_rng(args.seed)
+        prompts = []
+        for _ in range(args.requests):
+            n = int(rng.integers(args.min_prompt, args.max_prompt + 1))
+            prompts.append(rng.integers(0, cfg.vocab_size,
+                                        size=n).astype(np.int32))
     reqs = []
-    for i in range(args.requests):
-        n = int(rng.integers(args.min_prompt, args.max_prompt + 1))
-        prompt = rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+    for i, prompt in enumerate(prompts):
         reqs.append(Request(uid=i, prompt=prompt,
                             max_new_tokens=args.new_tokens))
         eng.submit(reqs[-1])
+    report = g is not None and args.rank_report
+    steps = []
+    if report:
+        kernels.reset_counts()
+        grp.STATS.clear()
+        grp.STATS.timed = True
     if dev.type == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
-    if emitter is None:
-        eng.run()
-    else:
-        while eng.queue or eng.active.any():
-            eng.step()
+    while eng.queue or eng.active.any():
+        if report:       # each tick's wall and its collectives' share
+            serial, comm = eng._serial, grp.STATS.total_s()
+            t_s = time.perf_counter()
+        eng.step()
+        if report:
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            steps.append(dict(ms=(time.perf_counter() - t_s) * 1e3,
+                              comm_ms=(grp.STATS.total_s() - comm) * 1e3,
+                              admitted=eng._serial - serial))
+        if emitter is not None:
             emitter.maybe_emit()
+    if emitter is not None:
         emitter.emit()       # short runs still get a line at the end
     if dev.type == "cuda":
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    grp.STATS.timed = False
+    tokens = [list(r.out_tokens) for r in reqs]
+    if report:
+        ranks.write_report(args.rank_report, g, tokens=tokens, steps=steps,
+                           wall_s=dt)
     total = sum(len(r.out_tokens) for r in reqs)
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu")
     note = (f", {args.sp_data} shards" if args.sp_data > 1 else "") + (
+        f" on {g.world} ranks ({g.backend})" if g is not None else "") + (
         ", sampled" if args.sample else "") + f", {cfg.causal_mode}"
-    print(f"[serve] {cfg.name} on {name}{note}: {len(reqs)} requests, "
-          f"{total} tokens, {dt:.3f}s ({total / dt:.1f} tok/s)")
+    say(f"[serve] {cfg.name} on {name}{note}: {len(reqs)} requests, "
+        f"{total} tokens, {dt:.3f}s ({total / dt:.1f} tok/s)")
     if dev.type == "cuda":
-        print(f"[serve] peak device memory "
-              f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
+        say(f"[serve] peak device memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
     if args.paged:
         st = eng.pool.stats
-        print(f"[serve] paged ({eng.cache_dtype}): pages="
-              f"{eng.pool.usable(0)} shared={st.shared_maps} "
-              f"cow={st.cow_copies} evict={st.evictions} "
-              f"preempt={eng.preemptions} hit_rate="
-              f"{st.prefix_hit_rate():.3f}")
+        say(f"[serve] paged ({eng.cache_dtype}): pages="
+            f"{eng.pool.usable(0)} shared={st.shared_maps} "
+            f"cow={st.cow_copies} evict={st.evictions} "
+            f"preempt={eng.preemptions} hit_rate="
+            f"{st.prefix_hit_rate():.3f}")
     if telemetry:
         if args.trace_out:
             obs.export.write_trace(args.trace_out)
-            print(f"[serve] telemetry: trace -> {args.trace_out}")
+            say(f"[serve] telemetry: trace -> {args.trace_out}")
         if args.prom_out:
             obs.export.write_prometheus(args.prom_out)
-            print(f"[serve] telemetry: prometheus -> {args.prom_out}")
+            say(f"[serve] telemetry: prometheus -> {args.prom_out}")
         c = obs.export.snapshot()["metrics"]["counters"]
-        print(f"[serve] telemetry: ticks={c.get('serve.ticks', 0)} "
-              f"finished={c.get('serve.finished', 0)}")
+        say(f"[serve] telemetry: ticks={c.get('serve.ticks', 0)} "
+            f"finished={c.get('serve.finished', 0)}")
     return reqs
 
 

@@ -18,6 +18,20 @@ exchanges the shard-boundary blocks:
     PYTHONPATH=src python -m repro_torch.launch.train --sp --mesh 4 \
         --steps 20 --batch 8 --seq 1024
 
+Under ``torchrun`` (``python -m torch.distributed.run --nproc-per-node
+N``) ``--sp --mesh N`` runs one shard a process (``parallel/group.py``):
+every rank draws the same weights and batches, runs its shard of each
+attention call and ends each step with the same parameters; rank 0
+alone logs and writes checkpoints.  Each rank runs on its own card
+(NCCL); ``--device cuda:0`` puts every rank on card 0 (gloo) and
+``--device cpu`` on the CPU (gloo).  ``--rank-report PATH`` writes each
+rank's losses, launches, collectives and a digest of its parameters
+(``launch/ranks.py``):
+
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \
+        -m repro_torch.launch.train --sp --mesh 2 --steps 20 \
+        --batch 8 --seq 1024
+
 ``--mesh`` takes one axis; a ``DATAxMODEL`` shape raises, as
 ``make_mesh`` does.  ``--arch`` takes every config of
 ``repro_torch.configs`` at its published dtype (llama3.2-1b, gemma3-4b,
@@ -36,11 +50,13 @@ from __future__ import annotations
 import argparse
 import dataclasses
 
-from repro_torch import exact_products, obs, resolve_device
+from repro_torch import exact_products, kernels, obs, resolve_device
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data import HierarchicalLM, ZipfLM
 from repro_torch.kernels.tuning import canonical_impl
+from repro_torch.launch import ranks
 from repro_torch.launch.mesh import make_mesh
+from repro_torch.parallel import group as grp
 from repro_torch.train import TrainConfig, tokens_per_s, train
 
 
@@ -50,8 +66,10 @@ def main(argv=None):
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth to this many layers")
-    ap.add_argument("--device", default=None, choices=["cuda", "cpu"],
-                    help="default: cuda (raises when no card is present)")
+    ap.add_argument("--device", default=None,
+                    help="cuda, cuda:N or cpu; default: cuda (raises when "
+                         "no card is present; under torchrun each rank's "
+                         "own card)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=512)
@@ -81,9 +99,24 @@ def main(argv=None):
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="write a Chrome trace-event JSON "
                          "(Perfetto-loadable) at exit")
+    ap.add_argument("--rank-report", default=None, metavar="PATH",
+                    help="under torchrun: each rank writes its losses, "
+                         "launches, collectives and parameter digest to "
+                         "PATH with {rank} replaced")
     args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
+    g, joined = ranks.join(args.device)
+    try:
+        return _train(ap, args, g)
+    finally:
+        if joined:
+            grp.destroy()
+
+
+def _train(ap, args, g):
+    dev = g.device if g is not None else resolve_device(args.device)
+    lead = g is None or g.rank == 0
+    say = print if lead else (lambda *a, **k: None)
     exact_products()
     if args.telemetry or args.trace_out:
         obs.enable()
@@ -113,20 +146,29 @@ def main(argv=None):
     src_cls = ZipfLM if args.data == "zipf" else HierarchicalLM
     data = src_cls(vocab_size=cfg.vocab_size, seq_len=args.seq,
                    batch_per_host=args.batch, seed=args.seed)
-    print(f"[train] {cfg.name} on {dev}, mesh {mesh.d} x '{mesh.axis}'"
-          f"{' (sp)' if args.sp else ''}: batch {args.batch} x seq "
-          f"{args.seq}")
+    say(f"[train] {cfg.name} on {dev}, mesh {mesh.d} x '{mesh.axis}'"
+        f"{' (sp)' if args.sp else ''}"
+        f"{f' on {g.world} ranks ({g.backend})' if g is not None else ''}"
+        f": batch {args.batch} x seq {args.seq}")
+    report = g is not None and args.rank_report
+    if report:
+        kernels.reset_counts()
+        grp.STATS.clear()
     state, metrics = train(cfg, tc, data, args.steps, device=dev,
-                           mesh=mesh if args.sp else None)
+                           mesh=mesh if args.sp else None,
+                           log=print if lead else (lambda *a: None))
     hist = metrics["history"]
+    if report:
+        ranks.write_report(args.rank_report, g, history=hist,
+                           params=ranks.digest(state.params))
     rate = tokens_per_s(hist, args.batch * args.seq)
-    print(f"[train] done: {len(hist)} steps"
-          + (f", last loss {hist[-1]['loss']:.4f}, first step "
-             f"{hist[0]['step_ms']:.1f} ms" if hist else "")
-          + (f", {rate:.0f} tokens/s after it" if rate else ""))
-    if args.trace_out:
+    say(f"[train] done: {len(hist)} steps"
+        + (f", last loss {hist[-1]['loss']:.4f}, first step "
+           f"{hist[0]['step_ms']:.1f} ms" if hist else "")
+        + (f", {rate:.0f} tokens/s after it" if rate else ""))
+    if args.trace_out and lead:
         obs.export.write_trace(args.trace_out)
-        print(f"[train] telemetry: trace -> {args.trace_out}")
+        say(f"[train] telemetry: trace -> {args.trace_out}")
     return state
 
 

@@ -1,6 +1,7 @@
 """Distribution: sharding rules over a mesh description, GPipe pipelining
-and sequence-parallel serving over a sharded hierarchical KV cache (one
-controller, shards on one device in this slice)."""
+and sequence-parallel serving and training over a sharded hierarchical
+KV cache, every shard in one process or one shard a process over a
+``torch.distributed`` group (``group.py``)."""
 from .pipeline import pipeline_apply
 from .sharding import (Mesh, NamedSharding, abstract_mesh, batch_shardings,
                        cache_shardings, dp_axes, dp_size, param_shardings,

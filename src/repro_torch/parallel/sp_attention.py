@@ -1,15 +1,25 @@
 """Sequence-parallel (SP) execution: the hierarchical operator and the
 decode tick over a sequence-sharded KV cache.
 
-Port of ``repro.parallel.sp_attention`` with one controller.  Where the
-reference runs its body once per device of a ``shard_map`` mesh, this
-module loops over the ``d`` shards of an :class:`SPMesh` in one process,
-and the collectives are plain tensor ops over the shards' outputs:
-``ppermute`` is taking the neighbour's tensor (zeros at the edge),
-``all_gather`` a ``torch.cat`` in shard order, ``pmax`` a
-``torch.stack(...).amax(0)`` and ``psum`` a sum in shard order.  Every
-shard of this slice sits on one device, so no tensor moves between
-devices.
+Port of ``repro.parallel.sp_attention``.  An :class:`SPMesh` takes one of
+two forms, and both run the same shard bodies (band launches, halo
+packs, ``_edge_term``, ``_merge_rows``, the partial attend and update):
+
+* one process: the body runs once per shard of the mesh in a loop, every
+  shard on one device, and the collectives are tensor ops over the
+  shards' outputs: ``ppermute`` is taking the neighbour's tensor (zeros
+  at the edge), ``all_gather`` a ``torch.cat`` in shard order, ``pmax`` a
+  ``torch.stack(...).amax(0)`` and ``psum`` a sum in shard order;
+* ranks: one shard a process over a ``torch.distributed`` group
+  (``parallel/group.py``; ``launch.mesh.make_mesh`` inside an
+  initialised group builds it).  A rank runs the body of its own shard
+  only, on its own device, and the collectives are the group's:
+  ``ppermute`` by ``batch_isend_irecv``, ``all_gather``, and all-reduces
+  for ``pmax`` and ``psum``.  The operator takes replicated q, k, v (every
+  rank holds the whole sequence, as every rank computes the layers
+  around the attention), scatters them by rank and gathers the output
+  for replicated use; ``group.py`` sets out the gradient of each step.
+  A rank computes exactly the bits of its shard in the loop.
 
 * Prefill: each shard runs the band kernels (``kernels.ops``) on its
   local ``L/d`` rows.  The banded structure is translation-invariant by
@@ -22,21 +32,24 @@ devices.
   the gathered transition-level coarse KV (<= ``d * nr / 2`` rows).
 * Decode: the cache's fine level and the coarse levels that keep a whole
   ``nr``-row block per shard are sharded along the sequence
-  (:class:`SPCache`, one ``H1DCache`` slab per shard); the deeper levels
-  are replicated.  Each shard's partial attend kernel reads the bands it
-  owns at shard-local block indices, the partial ``(num, den, m)``
-  triples merge with one pmax and one psum; a token's sharded ancestors
-  all live on one shard, which alone writes them, and the carried row
-  updates every shard's replicated deep levels with the dense update
-  kernel.  The band geometry is built on the host once per tick
-  (:func:`sp_tables`) and shared by every layer.
+  (:class:`SPCache`, one ``H1DCache`` slab per shard this process
+  holds: every shard in one process, its own on a rank); the deeper
+  levels are replicated.  Each shard's partial attend kernel reads the
+  bands it owns at shard-local block indices, the partial ``(num, den,
+  m)`` triples merge with one pmax and one psum; a token's sharded
+  ancestors all live on one shard, which alone writes them, and the
+  carried row (a psum with one non-zero term, so exact) updates every
+  shard's replicated deep levels with the dense update kernel.  The band
+  geometry is built on the host once per tick (:func:`sp_tables`) and
+  shared by every layer.
 
 Differentiable: every shard's level runs through the autograd Functions
 of ``kernels.ops.band_attention`` (the backward kernels #3 and #4 per
-shard on the card), and the halo packs, edge terms, row merges and
-gathered deep levels are out-of-place tensor ops, so ``autograd``
-carries the gradient of q, k, v and ``kv_weight`` back through the
-exchange (SP training, ``train.loop.train(..., mesh=)``).
+shard on the card), and the halo packs, edge terms, row merges,
+gathered deep levels and the ranks' collectives are out-of-place tensor
+ops or autograd Functions, so ``autograd`` carries the gradient of q, k,
+v and ``kv_weight`` back through the exchange (SP training,
+``train.loop.train(..., mesh=)``).
 
 Entry points: ``sp_band_attention`` (one banded level, every mode),
 ``sp_h1d_attention`` (the whole operator), ``sp_decode_attend`` /
@@ -54,7 +67,7 @@ import functools
 import math
 import threading
 from contextlib import contextmanager
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -64,6 +77,7 @@ from ..core import hierarchy as hc
 from ..core.h1d_decode import H1DCache
 from ..kernels import h1d_block
 from ..kernels import h1d_decode_kernel as dk
+from . import group as grp
 
 NEG_INF = hc.NEG_INF
 _MIN_M = -1e30
@@ -84,24 +98,53 @@ def _note_dispatch(op: str, shards: int) -> None:
 
 @dataclasses.dataclass(frozen=True)
 class SPMesh:
-    """A one-axis mesh of ``d = len(devices)`` shards: the axis name and
-    one device per shard (``launch.mesh.make_mesh`` builds it).  Shards on
-    several devices are a later slice and raise."""
+    """A one-axis mesh of ``d`` shards (``launch.mesh.make_mesh`` builds
+    it), in one of two forms:
+
+    * one process (``group`` None): one device per shard, ``d =
+      len(devices)``, every shard on the same device; this process runs
+      every shard.  Shards on distinct devices in one process raise: they
+      take the rank form;
+    * ranks (``group``, a ``parallel.group.RankGroup``): one shard a
+      process, ``d`` the group's world size; ``devices`` holds this
+      rank's device alone and this process runs shard ``group.rank``."""
     axis: str
     devices: Tuple[torch.device, ...]
+    group: Optional[grp.RankGroup] = None
 
     def __post_init__(self):
         if not self.devices:
             raise ValueError("an SPMesh needs at least one shard")
         if len(set(self.devices)) > 1:
             raise NotImplementedError(
-                "shards on several devices are a later slice; every shard "
-                f"of this mesh must sit on one device, got {self.devices}")
+                "shards on distinct devices run one shard a process: "
+                "join a process group (parallel.group, torchrun) and "
+                "build the mesh with launch.mesh.make_mesh; every shard "
+                f"of a one-process mesh sits on one device, got "
+                f"{self.devices}")
+        if self.group is not None and (
+                len(self.devices) != 1
+                or self.devices[0] != self.group.device):
+            raise ValueError(f"a rank's mesh holds its own device "
+                             f"{self.group.device}, got {self.devices}")
 
     @property
     def d(self) -> int:
         """The number of shards."""
-        return len(self.devices)
+        return self.group.world if self.group is not None else len(
+            self.devices)
+
+    @property
+    def shards(self) -> range:
+        """The shards this process computes: all of them, or its rank's."""
+        if self.group is not None:
+            return range(self.group.rank, self.group.rank + 1)
+        return range(len(self.devices))
+
+    @property
+    def device(self) -> torch.device:
+        """The device this process's shards sit on."""
+        return self.devices[0]
 
 
 # ---------------------------------------------------------------------------
@@ -147,26 +190,53 @@ def _local_region():
 # collectives over the shards' outputs, halo pack and edge correction
 # ---------------------------------------------------------------------------
 
-def _split(x, d: int, dim: int):
-    """The ``d`` shards of ``x`` along ``dim``, each contiguous."""
-    return [c.contiguous() for c in torch.chunk(x, d, dim)]
+# the collectives of the two mesh forms: lists over the shards this
+# process computes (``mesh.shards``), every shard or its rank's alone
+
+def _split(x, mesh: SPMesh, dim: int) -> List[torch.Tensor]:
+    """The shards of a replicated ``x`` along ``dim``, each contiguous."""
+    if mesh.group is not None:
+        return [grp.scatter(x, mesh.group, dim)]
+    return [c.contiguous() for c in torch.chunk(x, mesh.d, dim)]
 
 
-def _ppermute_right(xs):
+def _ppermute_right(xs, mesh: SPMesh):
     """Shard s receives shard s-1's tensor; shard 0 receives zeros, which
     the global masks and w > 0 kill anyway."""
+    if mesh.group is not None:
+        return [grp.ppermute_right(xs[0], mesh.group)]
     return [torch.zeros_like(xs[0])] + list(xs[:-1])
 
 
-def _ppermute_left(xs):
+def _ppermute_left(xs, mesh: SPMesh):
+    if mesh.group is not None:
+        return [grp.ppermute_left(xs[0], mesh.group)]
     return list(xs[1:]) + [torch.zeros_like(xs[-1])]
 
 
-def _psum(xs):
+def _psum(xs, mesh: SPMesh):
+    if mesh.group is not None:
+        return grp.psum(xs[0], mesh.group)
     out = xs[0]
     for x in xs[1:]:
         out = out + x
     return out
+
+
+def _pmax(xs, mesh: SPMesh):
+    if mesh.group is not None:
+        return grp.pmax(xs[0], mesh.group)
+    return torch.stack(xs).amax(0)
+
+
+def _gather(xs, mesh: SPMesh, dim: int, grad: str):
+    """Every shard's tensor concatenated along ``dim`` in shard order.
+    ``grad`` (``group.all_gather``): ``"slice"`` where every shard uses
+    the result alike (the output), ``"sum"`` where each uses it for its
+    own rows (the deep levels' coarse KV)."""
+    if mesh.group is not None:
+        return grp.all_gather(xs[0], mesh.group, dim, grad)
+    return torch.cat(xs, dim)
 
 
 def _pack_kvw(k, v, w):
@@ -301,36 +371,37 @@ def sp_band_attention(q, k, v, w, *, nr: int, mode: str, ratio: int = 1,
     else:
         nq = nr
     kloc = Lk // d
-    qs, ks, vs, ws = (_split(q, d, 2), _split(k, d, 1), _split(v, d, 1),
-                      _split(w, d, 1))
+    qs, ks, vs, ws = (_split(q, mesh, 2), _split(k, mesh, 1),
+                      _split(v, mesh, 1), _split(w, mesh, 1))
     # one packed halo buffer per direction
     prev = _ppermute_right([_pack_kvw(a[:, -nr:], b[:, -nr:], c[:, -nr:])
-                            for a, b, c in zip(ks, vs, ws)])
+                            for a, b, c in zip(ks, vs, ws)], mesh)
     if not causal:
         nxt = _ppermute_left([_pack_kvw(a[:, :nr], b[:, :nr], c[:, :nr])
-                              for a, b, c in zip(ks, vs, ws)])
+                              for a, b, c in zip(ks, vs, ws)], mesh)
     outs = []
-    for s in range(d):
-        qloc = qs[s]
+    for i, s in enumerate(mesh.shards):
+        qloc = qs[i]
         with _local_region():
-            acc = band_attention(qloc, ks[s], vs[s], ws[s], nr=nr, mode=mode,
+            acc = band_attention(qloc, ks[i], vs[i], ws[i], nr=nr, mode=mode,
                                  ratio=ratio)
         # left boundary: the first query block attends the left
         # neighbour's last key block (masked out by the local call)
-        kh, vh, wh = _unpack_kvw(prev[s], dk, dv)
+        kh, vh, wh = _unpack_kvw(prev[i], dk, dv)
         q0 = s * lloc if sub else s * kloc
         acc = _merge_rows(acc, _edge_term(
             qloc[:, :, :nq], kh, vh, wh,
             _halo_mask(mode, nr, ratio, Lk, q0, s * kloc - nr, nq, nr,
                        q.device)), 0)
         if not causal:
-            kn, vn, wn = _unpack_kvw(nxt[s], dk, dv)
+            kn, vn, wn = _unpack_kvw(nxt[i], dk, dv)
             acc = _merge_rows(acc, _edge_term(
                 qloc[:, :, -nr:], kn, vn, wn,
                 _halo_mask(mode, nr, ratio, Lk, s * kloc + kloc - nr,
                            (s + 1) * kloc, nr, nr, q.device)), lloc - nr)
         outs.append(acc)
-    return tuple(torch.cat(parts, dim=2) for parts in zip(*outs))
+    return tuple(_gather(list(parts), mesh, 2, "slice")
+                 for parts in zip(*outs))
 
 
 # ---------------------------------------------------------------------------
@@ -371,8 +442,8 @@ def sp_h1d_attention(q, k, v, *, mesh: SPMesh, nr: int = 16, causal: bool = Fals
     # n_shallow (if any) only seeds the deep-level gather
     n_pyr = min(M - 1, n_shallow)
     shards = []
-    for qs, ks, vs, ws in zip(_split(q, d, 2), _split(k, d, 1),
-                              _split(v, d, 1), _split(w_in, d, 1)):
+    for qs, ks, vs, ws in zip(_split(q, mesh, 2), _split(k, mesh, 1),
+                              _split(v, mesh, 1), _split(w_in, mesh, 1)):
         qs = qs.to(f32) * scale
         ks = ks.to(f32)
         vs = vs.to(f32) * ws[..., None]
@@ -391,10 +462,11 @@ def sp_h1d_attention(q, k, v, *, mesh: SPMesh, nr: int = 16, causal: bool = Fals
 
     # ---- one packed halo exchange per direction ----------------------
     prev_halo = _ppermute_right([sp_halo_pack(*sh[:3], n_shallow, nr,
-                                              "prev") for sh in shards])
+                                              "prev") for sh in shards], mesh)
     if not causal:
         next_halo = _ppermute_left([sp_halo_pack(*sh[:3], n_shallow, nr,
-                                                 "next") for sh in shards])
+                                                 "next") for sh in shards],
+                                   mesh)
 
     def halo(buf, l):
         return _unpack_kvw(buf[:, l * nr:(l + 1) * nr], Dk, Dv)
@@ -404,11 +476,11 @@ def sp_h1d_attention(q, k, v, *, mesh: SPMesh, nr: int = 16, causal: bool = Fals
     deep = []
     if n_shallow < M:
         lt = n_shallow
-        kg, vg, wg = (torch.cat([sh[i][lt] for sh in shards], dim=1)
+        kg, vg, wg = (_gather([sh[i][lt] for sh in shards], mesh, 1, "sum")
                       for i in range(3))
         if not fine_q:
-            qg = torch.cat([sh[3][lt] for sh in shards], dim=2)
-            wqg = torch.cat([sh[4][lt] for sh in shards], dim=1)
+            qg = _gather([sh[3][lt] for sh in shards], mesh, 2, "sum")
+            wqg = _gather([sh[4][lt] for sh in shards], mesh, 1, "sum")
         for l in range(lt, M):
             lkg = L >> l
             if fine_q:
@@ -426,19 +498,20 @@ def sp_h1d_attention(q, k, v, *, mesh: SPMesh, nr: int = 16, causal: bool = Fals
                     wqg = hc.coarsen_sum(wqg, axis=-1)
 
     outs = []
-    for s, (kc_l, vc_l, wc_l, qc_l, _) in enumerate(shards):
+    for i, (s, (kc_l, vc_l, wc_l, qc_l, _)) in enumerate(zip(mesh.shards,
+                                                             shards)):
         qs = qc_l[0]
         # ---- level 0 seeds the streaming accumulator -----------------
         with _local_region():
             acc = band_attention(qs, kc_l[0], vc_l[0], wc_l[0], nr=nr,
                                  mode=l0_mode)
-        kh, vh, wh = halo(prev_halo[s], 0)
+        kh, vh, wh = halo(prev_halo[i], 0)
         acc = _merge_rows(acc, _edge_term(
             qs[:, :, :nr], kh, vh, wh,
             _halo_mask(l0_mode, nr, 1, L, s * Lloc, s * Lloc - nr, nr, nr,
                        dev)), 0)
         if not causal:
-            kh, vh, wh = halo(next_halo[s], 0)
+            kh, vh, wh = halo(next_halo[i], 0)
             acc = _merge_rows(acc, _edge_term(
                 qs[:, :, -nr:], kh, vh, wh,
                 _halo_mask(l0_mode, nr, 1, L, (s + 1) * Lloc - nr,
@@ -449,7 +522,7 @@ def sp_h1d_attention(q, k, v, *, mesh: SPMesh, nr: int = 16, causal: bool = Fals
             kc, vc, wc = kc_l[l], vc_l[l], wc_l[l]
             cl = Lloc >> l                     # local coarse length
             lkg = L >> l                       # global coarse length
-            kh, vh, wh = halo(prev_halo[s], l)
+            kh, vh, wh = halo(prev_halo[i], l)
             if fine_q:
                 ratio = 1 << l
                 with _local_region():
@@ -472,7 +545,7 @@ def sp_h1d_attention(q, k, v, *, mesh: SPMesh, nr: int = 16, causal: bool = Fals
                                nr, nr, dev))
                 yl, dl, ml = _merge_rows((yl, dl, ml), corr, 0)
                 if not causal:
-                    kh, vh, wh = halo(next_halo[s], l)
+                    kh, vh, wh = halo(next_halo[i], l)
                     corr = _edge_term(
                         qc[:, :, -nr:], kh, vh, wh,
                         _halo_mask(coarse_mode, nr, 1, lkg, (s + 1) * cl - nr,
@@ -502,7 +575,7 @@ def sp_h1d_attention(q, k, v, *, mesh: SPMesh, nr: int = 16, causal: bool = Fals
 
         y, dn, _ = acc
         outs.append(y / torch.clamp(dn, min=1e-9)[..., None])
-    return torch.cat(outs, dim=2).to(v.dtype)
+    return _gather(outs, mesh, 2, "slice").to(v.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -511,9 +584,11 @@ def sp_h1d_attention(q, k, v, *, mesh: SPMesh, nr: int = 16, causal: bool = Fals
 
 class SPCache(NamedTuple):
     """A decode cache split along its sequence axis: one ``H1DCache``
-    slab per shard, in shard order.  Levels ``l < sp_sharded_levels``
-    (the fine level first) keep their ``1/d`` rows of the sequence in
-    each slab; deeper levels are replicated, one copy per shard."""
+    slab per shard this process holds (``mesh.shards``: every shard in
+    shard order in one process, its own on a rank).  Levels ``l <
+    sp_sharded_levels`` (the fine level first) keep their ``1/d`` rows of
+    the sequence in each slab; deeper levels are replicated, one copy per
+    shard."""
     shards: Tuple[H1DCache, ...]
 
 
@@ -538,11 +613,12 @@ def _shardable_levels(Lmax: int, nr: int, d: int) -> int:
     return nsh
 
 
-def _sp_layout(cache: SPCache):
-    """(d, Lmax, nr, nsh) of a sharded cache: a cache of ``nlev`` levels
-    has Lmax = nr << nlev (``init_cache`` builds num_levels(Lmax, nr)
-    levels, fine included)."""
-    d = len(cache.shards)
+def _sp_layout(cache: SPCache, mesh: Optional[SPMesh] = None):
+    """(d, Lmax, nr, nsh) of a sharded cache of ``mesh`` (None: one
+    process holding every shard): a cache of ``nlev`` levels has Lmax =
+    nr << nlev (``init_cache`` builds num_levels(Lmax, nr) levels, fine
+    included)."""
+    d = len(cache.shards) if mesh is None else mesh.d
     Lmax = cache.shards[0].k.shape[-2] * d
     nr = Lmax >> (1 + len(cache.shards[0].ck))
     return d, Lmax, nr, _shardable_levels(Lmax, nr, d)
@@ -578,42 +654,47 @@ def _need(cache, kind, what: str) -> None:
 
 
 def shard_cache(cache: H1DCache, mesh: SPMesh, nr: int) -> SPCache:
-    """Copy a dense cache into the ``mesh.d`` shards (each slab on its
-    shard's device).  Raises ``ValueError`` when the fine level cannot
-    keep an ``nr``-row block per shard, ``TypeError`` for any other
-    cache than an ``H1DCache``."""
+    """Copy a dense cache into the slabs of the shards this process holds
+    (``mesh.shards``, on ``mesh.device``).  Raises ``ValueError`` when
+    the fine level cannot keep an ``nr``-row block per shard,
+    ``TypeError`` for any other cache than an ``H1DCache``."""
     _need(cache, H1DCache, "shard_cache")
     d = mesh.d
     nsh = _shardable_levels(cache.k.shape[-2], nr, d)
     return SPCache(shards=tuple(
-        _cache_of([(_copy(_part(k, l, s, d, nsh), dev),
-                    _copy(_part(v, l, s, d, nsh), dev))
+        _cache_of([(_copy(_part(k, l, s, d, nsh), mesh.device),
+                    _copy(_part(v, l, s, d, nsh), mesh.device))
                    for l, (k, v) in enumerate(_levels(cache))])
-        for s, dev in enumerate(mesh.devices)))
+        for s in mesh.shards))
 
 
-def unshard_cache(cache: SPCache) -> H1DCache:
+def unshard_cache(cache: SPCache, mesh: Optional[SPMesh] = None) -> H1DCache:
     """The dense cache of a sharded one: sharded levels concatenated in
-    shard order, replicated levels from shard 0."""
+    shard order, replicated levels from the first slab.  On a rank mesh
+    the sharded levels are all-gathered, so every rank gets the whole
+    cache; ``mesh`` None is one process holding every shard."""
     _need(cache, SPCache, "unshard_cache")
-    d, _, _, nsh = _sp_layout(cache)
+    d, _, _, nsh = _sp_layout(cache, mesh)
+    if mesh is None:
+        mesh = SPMesh("data", (cache.shards[0].k.device,) * d)
     per_shard = [_levels(sh) for sh in cache.shards]
     return _cache_of([
-        tuple(torch.cat([lv[l][i] for lv in per_shard], dim=1) if l < nsh
-              else per_shard[0][l][i] for i in range(2))
+        tuple(_gather([lv[l][i] for lv in per_shard], mesh, 1, "slice")
+              if l < nsh else per_shard[0][l][i] for i in range(2))
         for l in range(len(per_shard[0]))])
 
 
-def scatter_rows(cache: SPCache, dense: H1DCache, rows) -> None:
+def scatter_rows(cache: SPCache, dense: H1DCache, rows,
+                 mesh: SPMesh) -> None:
     """Write the first ``len(rows)`` rows of the dense cache ``dense``
-    into rows ``rows`` of every shard's slab (admission of a prefilled
-    group: one slice per shard and level)."""
+    into rows ``rows`` of every slab this process holds (``mesh.shards``;
+    admission of a prefilled group: one slice per shard and level)."""
     _need(cache, SPCache, "scatter_rows")
     _need(dense, H1DCache, "scatter_rows")
-    d, _, _, nsh = _sp_layout(cache)
+    d, _, _, nsh = _sp_layout(cache, mesh)
     n = rows.numel()
     src = _levels(dense)
-    for s, sh in enumerate(cache.shards):
+    for s, sh in zip(mesh.shards, cache.shards):
         for l, (dst, one) in enumerate(zip(_levels(sh), src)):
             for a, b in zip(dst, one):
                 a.index_copy_(0, rows, _part(b[:n], l, s, d, nsh))
@@ -732,10 +813,12 @@ def sp_tables(t, *, nr: int, Lmax: int, d: int, device) -> SPTables:
 # sequence-sharded decode
 # ---------------------------------------------------------------------------
 
-def _check_shards(cache, d: int) -> None:
-    if not isinstance(cache, SPCache) or len(cache.shards) != d:
-        raise ValueError(f"SP decode on a {d}-way mesh takes an SPCache of "
-                         f"{d} shards (shard_cache), got {type(cache)}")
+def _check_shards(cache, mesh: SPMesh) -> None:
+    n = len(mesh.shards)
+    if not isinstance(cache, SPCache) or len(cache.shards) != n:
+        raise ValueError(f"SP decode on a {mesh.d}-way mesh takes an SPCache "
+                         f"of the {n} shards this process holds "
+                         f"(shard_cache), got {type(cache)}")
 
 
 def sp_decode_attend(cache, q, t, *, nr: int, softmax_scale=None,
@@ -746,7 +829,7 @@ def sp_decode_attend(cache, q, t, *, nr: int, softmax_scale=None,
     attend kernel over the bands it owns, then the partial ``(num, den,
     m)`` triples merge with one pmax and one psum.  ``tables``: this
     tick's :func:`sp_tables`."""
-    _check_shards(cache, mesh.d)
+    _check_shards(cache, mesh)
     _note_dispatch("decode_attend", mesh.d)
     D = q.shape[-1]
     scale = softmax_scale if softmax_scale is not None else 1 / math.sqrt(D)
@@ -755,11 +838,13 @@ def sp_decode_attend(cache, q, t, *, nr: int, softmax_scale=None,
     nums, dens, ms = zip(*(
         dk.decode_attend_partial(sh, q, t, tables.bidx[s], tables.owned[s],
                                  nr=nr, softmax_scale=scale)
-        for s, sh in enumerate(cache.shards)))
-    mg = torch.stack(ms).amax(0)
+        for s, sh in zip(mesh.shards, cache.shards)))
+    mg = _pmax(list(ms), mesh)
     es = [torch.exp(m - mg) for m in ms]
-    num = _psum([n * e[..., None] for n, e in zip(nums, es)])
-    den = _psum([dn * e for dn, e in zip(dens, es)])
+    # num and den in one buffer: the merge is one pmax and one psum
+    nd = _psum([torch.cat([n * e[..., None], (dn * e)[..., None]], -1)
+                for n, dn, e in zip(nums, dens, es)], mesh)
+    num, den = nd[..., :-1], nd[..., -1]
     return (num / torch.clamp(den, min=1e-9)[..., None]).to(q.dtype)
 
 
@@ -774,12 +859,12 @@ def sp_update_cache(cache, k_new, v_new, t, *, mesh: SPMesh,
     and every shard's replicated deep levels take it through the dense
     update kernel at ``t >> nsh``; ``tables``: this tick's
     :func:`sp_tables`, built from ``t``."""
-    _check_shards(cache, mesh.d)
+    _check_shards(cache, mesh)
     _note_dispatch("update_cache", mesh.d)
-    nsh = _sp_layout(cache)[3]
+    nsh = _sp_layout(cache, mesh)[3]
     nlev = 1 + len(cache.shards[0].ck)
     carries = []
-    for s, sh in enumerate(cache.shards):
+    for s, sh in zip(mesh.shards, cache.shards):
         sharded = H1DCache(k=sh.k, v=sh.v, ck=sh.ck[:nsh - 1],
                            cv=sh.cv[:nsh - 1])
         _, ck, cv = dk.update_cache_partial(sharded, k_new, v_new,
@@ -787,10 +872,14 @@ def sp_update_cache(cache, k_new, v_new, t, *, mesh: SPMesh,
                                             tables.upd_owned[s])
         carries.append((ck, cv, tables.upd_owned[s][:, None]))
     if nsh < nlev:
-        # the owner's carried row (exact: every other term is a zero),
-        # then the replicated deep levels with the dense kernel
-        carry_k = _psum([ck * own for ck, _, own in carries])
-        carry_v = _psum([cv * own for _, cv, own in carries])
+        # the owner's carried row (exact: every other term is a zero; k
+        # and v in one buffer, one psum), then the replicated deep levels
+        # with the dense kernel
+        dkey = carries[0][0].shape[-1]
+        carry = _psum([torch.cat([ck, cv], -1) * own
+                       for ck, cv, own in carries], mesh)
+        carry_k = carry[..., :dkey].contiguous()
+        carry_v = carry[..., dkey:].contiguous()
         for sh in cache.shards:
             deep = H1DCache(k=sh.ck[nsh - 1], v=sh.cv[nsh - 1],
                             ck=sh.ck[nsh:], cv=sh.cv[nsh:])

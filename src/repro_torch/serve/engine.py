@@ -43,7 +43,12 @@ semantics:
   copied to the card in one transfer shared by every layer.  A local
   layer's rolling cache and an SSM layer's state stay whole, as the
   reference keeps them on every shard; a stack with no hierarchical
-  cache (mamba2) builds no geometry;
+  cache (mamba2) builds no geometry.  On a rank mesh (one shard a
+  process, ``parallel/group.py``) every rank runs this same engine loop
+  on the same requests (SPMD), holding only its own shard of each slot's
+  hierarchical caches; the merged logits, and so the tokens, are the
+  same on every rank (``REPRO_RANK_CHECK=1`` all-gathers each sampled
+  batch and asserts it);
 * prompts longer than ``max_len - 1`` are rejected or tail-truncated at
   ``submit`` (``overflow``);
 * generation ends at ``max_new_tokens``, a full cache, or a stop token
@@ -74,6 +79,7 @@ tick ends in the host's read of the sampled tokens).
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -85,6 +91,7 @@ from ..core import hierarchy as hc
 from ..kernels.tuning import canonical_impl
 from ..models import ModelConfig, get_model
 from ..models.ssm import SSMState
+from ..parallel import group as grp
 from ..parallel import sp_attention as sp
 from . import paged_cache as pc
 from .scheduler import ContinuousBatchingScheduler, QueueEntry
@@ -128,7 +135,8 @@ class ServeEngine:
     ``sp_axis``) enables sequence-parallel serving: the hierarchical
     slot caches are split along their sequence axis over the mesh's
     ``d`` shards (rolling caches and SSM states stay whole) and prefill
-    and decode run inside ``sp_scope(mesh)``.  Requires
+    and decode run inside ``sp_scope(mesh)``; on a rank mesh each rank
+    runs the engine on the same requests and holds its own shard.  Requires
     ``attention='h1d'`` and a padded ``max_len`` that is a multiple of
     ``d * nr`` (one level-0 block per shard), as the reference does, for
     every family it serves (dense, MoE, VLM, sliding-window, SSM,
@@ -225,9 +233,12 @@ class ServeEngine:
         self.device = params["embed"]["w"].device
         self.mesh = mesh
         self.sp_d = sp_d
-        if sp_d > 1 and mesh.devices[0] != self.device:
-            raise ValueError(f"the mesh's shards sit on {mesh.devices[0]}, "
+        if sp_d > 1 and mesh.device != self.device:
+            raise ValueError(f"the mesh's shards sit on {mesh.device}, "
                              f"the parameters on {self.device}")
+        # SPMD debug check: every rank samples the same tokens
+        self._rank_check = (sp_d > 1 and mesh.group is not None
+                            and bool(os.environ.get("REPRO_RANK_CHECK")))
         self.sched = ContinuousBatchingScheduler(
             token_budget=token_budget, lookahead=lookahead,
             prefill_chunk=prefill_chunk)
@@ -391,7 +402,14 @@ class ServeEngine:
         if not self.greedy:
             logits = logits.float() + self._noise(rows, reqs,
                                                   logits.shape[-1], tick)
-        return logits.argmax(-1).to(torch.int32)
+        tok = logits.argmax(-1).to(torch.int32)
+        if self._rank_check:
+            every = grp.all_gather(tok[None], self.mesh.group, 0, "slice")
+            if not bool((every == tok).all()):
+                raise AssertionError(
+                    f"REPRO_RANK_CHECK: the ranks sampled different tokens: "
+                    f"{every.tolist()}")
+        return tok
 
     def _finish(self, s: int) -> None:
         """Release slot ``s`` whose request is done, with its noise."""
@@ -517,7 +535,7 @@ class ServeEngine:
                         np.concatenate([np.arange(s * r, (s + 1) * r)
                                         for s in dst]), device=self.device)
                 if self.sp_d > 1:      # one slice per shard and level
-                    sp.scatter_rows(full, one, rows)
+                    sp.scatter_rows(full, one, rows, self.mesh)
                     continue
                 for fa, oa in zip((full.k, full.v, *full.ck, *full.cv),
                                   (one.k, one.v, *one.ck, *one.cv)):

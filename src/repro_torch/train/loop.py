@@ -10,7 +10,10 @@ their own backward), the optimizer's in-place update
 the step counters live on the device.  ``train`` runs the single-host loop; with a ``mesh`` of more
 than one shard each step runs inside ``sp_scope(mesh)``, so every
 attention call shards its sequence axis (sequence-parallel training, the
-reference's ``sp_step``).  With telemetry on (``repro_torch.obs``) each
+reference's ``sp_step``); on a rank mesh (one shard a process,
+``parallel/group.py``) every rank runs the loop on the same batches,
+ends each step with the same parameters, and rank 0 alone writes the
+checkpoints.  With telemetry on (``repro_torch.obs``) each
 step is a ``train.step`` span (args ``step``) that ends when its loss is
 read, and feeds ``train.steps``, ``train.step_s`` and ``train.loss``; a
 watchdog alarm counts ``train.watchdog_alarms``.  The sharded multi-pod
@@ -194,8 +197,9 @@ def train(cfg: ModelConfig, tc: TrainConfig, data_source, num_steps: int,
     ``cuda``; raises without a card).  ``mesh`` (an ``SPMesh``,
     ``launch.mesh.make_mesh((d,), ("data",))``) runs every step inside
     ``sp_scope(mesh)``: the forward and backward of each attention call
-    shard its sequence over the mesh's ``d`` shards; ``None`` or a 1-way
-    mesh trains unsharded.  Returns (state, metrics): the last
+    shard its sequence over the mesh's ``d`` shards (on a rank mesh, one
+    shard a process: rank 0 alone saves checkpoints, every rank restores
+    them); ``None`` or a 1-way mesh trains unsharded.  Returns (state, metrics): the last
     step's metrics plus ``history``, one ``{"step", "loss", "aux",
     "step_ms", "end_s"}`` per step run: the loss and its MoE aux part as
     numbers, the host time of the step, ending when its loss is read,
@@ -213,6 +217,8 @@ def train(cfg: ModelConfig, tc: TrainConfig, data_source, num_steps: int,
             state = ckpt.restore(tc.ckpt_dir, start, state)
             log(f"[restart] resumed from step {start}")
     step0 = int(state.step)
+    # a rank mesh writes its checkpoints from rank 0 alone
+    lead = mesh is None or mesh.group is None or mesh.group.rank == 0
     train_step = make_train_step(cfg, tc)
     saver = ckpt.AsyncCheckpointer(tc.ckpt_dir)
     wd = Watchdog(tc.watchdog_factor)
@@ -245,7 +251,7 @@ def train(cfg: ModelConfig, tc: TrainConfig, data_source, num_steps: int,
             log(f"step {step}: loss={loss:.4f}"
                 + (f" aux={aux:.6f}" if aux else "")
                 + f" ({dt*1e3:.1f} ms)")
-        if tc.ckpt_every and (step + 1) % tc.ckpt_every == 0:
+        if tc.ckpt_every and (step + 1) % tc.ckpt_every == 0 and lead:
             saver.save(step + 1, state)
     saver.wait()
     out = dict(metrics, history=history)
