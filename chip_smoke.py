@@ -47,8 +47,9 @@ Phases (each raises on failure; nothing is caught):
    slots x 4 kv-heads, G 8, head_dim 128), gemma3-4b's (16 rows, G 2,
    head_dim 256) and qwen2.5-14b's (32 rows, G 5, head_dim 128), the
    rest at yi-6b's: #7 and #9 on a bf16
-   pool (two rows inactive on TRASH), #8 on a pool whose level 0 is int8
-   and the rest bf16, #11 and #12 as shard 1's call at d = 2; attends
+   pool (two rows inactive on TRASH), #8 and #10 (phase 25 (a)) on a
+   pool whose level 0 is int8 and the rest bf16, #11 and #12 as shard
+   1's call at d = 2; attends
    within 1e-5 of their plain versions on the f32 output, updates bit
    for bit over 3 chained appends (carries in bf16), bounds counting 2
    bytes a cache element;
@@ -157,8 +158,10 @@ Phases (each raises on failure; nothing is caught):
    shapes (4 kv-heads x G 2, nr 1024, d 256, L 4096 and 3072, keys live
    to 3000; and L 1024 at nr 128, d 64), with ``library_ms`` from
    ``scaled_dot_product_attention`` under the same mask; (b)
-   ``gemma3-4b`` at full width and depth in its published bf16 (34
-   layers: 29 local at window 1024, 5 global h1d) from seeded weights,
+   ``gemma3-4b`` at full width in its published bf16, cut to 12 of its
+   34 layers (10 local at window 1024, 2 global h1d: two 5:1 periods;
+   drawing all 34 on the host took 154.5 s of the 1200) from seeded
+   weights,
    ``ServeEngine(slots=4, max_len=4096)`` on 8 greedy requests of 16
    tokens with prompt lengths 1100..3968 (seed 0), unbucketed: the
    streamed #1, #1 and #2 (global prefill), #5 and #6 on bf16 caches
@@ -187,7 +190,7 @@ Phases (each raises on failure; nothing is caught):
    kernels run fp32 in either dtype); the in-place AdamW update against
    the functional one, bit for bit over 3 steps, on a 2-layer tree of
    the same weights (the embedding in row chunks); then 3 AdamW steps
-   at all 34 layers through ``train``, in place (a step consumes its
+   at phase 12's 12 layers through ``train``, in place (a step consumes its
    state): every loss finite, the first the kernel path's loss of the
    first batch, each band path launched exactly as often as the step
    runs it (the rematerialised forwards twice: forward and recompute),
@@ -363,7 +366,7 @@ Phases (each raises on failure; nothing is caught):
    the whole SP band (local launches + halo edge term) against the plain
    unsharded level, its y / dn within 2e-5 row-scaled as phase 9 holds
    the SP operator; rows ``<name>@<arch>-sp``.  (b) After
-   phase 12: gemma3-4b cut to 6 of 34 layers of phase 12's weights (one
+   phase 12: gemma3-4b cut to the first 6 of phase 12's 12 layers (one
    5:1 local/global period), ``ServeEngine(slots=4, max_len=4096)`` on 8
    greedy requests of 16 tokens, prompts 1000..3900 (seed 0, unbucketed:
    those padded to 2048 or 4096 keep a whole window a shard, so their
@@ -442,6 +445,34 @@ Phases (each raises on failure; nothing is caught):
    With two or more cards (a)-(c) run again, a card a rank (NCCL);
    with one, a line says that leg did not run.  A rank that fails fails
    the phase.  ``launches_by_path`` holds ``ranks``.
+25. ``int8 + bf16`` and ``tp train``: (a), with the bf16 kernel rows,
+   the row ``update_cache_paged_quant[bf16]``: #10 at yi-6b's decode
+   shape (16 rows, D 128, Lmax 4096) on a pool whose level 0 is int8
+   and the rest bf16, bit for bit against its plain version outside
+   TRASH over 3 chained appends, timed and bounded as the other update
+   rows.  (b) In phase 14's yi-6b loop, on the weights drawn there:
+   ``ServeEngine(paged=True, cache_dtype="int8", quant_levels=1)`` on
+   the plain versions, then on the kernels with that run's tokens, every
+   step's logits within 3e-2 of the plain run's largest |logit|
+   (``forced_run``: quantization moves logits, so the oracle is a plain
+   run of the same int8 pool); #8 and #10 launched on bf16 levels, no
+   plain version.  (c) Last: ``launch.train --mesh 1x2``, ``2x1`` and
+   ``2x2`` (``parallel/tensor.py``: tensor parallelism over the model
+   axis, data parallelism over the data axis), started by
+   ``torch.distributed.run`` with ``--device cuda:0`` (gloo), each 3
+   steps of ``h1d-lm-53m`` at full width and depth at 4 x 1024: every
+   rank's losses within 1e-6 relative of the same command line run in
+   this process without a mesh, the gathered parameters' digest equal on
+   every rank; the whole state after step 3 (the mesh's checkpoint,
+   gathered and written by rank 0) against the one-process run's: the
+   parameters within 1e-5 absolute, each AdamW moment leaf within 2e-5 of
+   its largest |entry| (AdamW's update is nearly blind to a gradient's
+   scale, its moments are not: a gradient summed M times shows there);
+   #1-#4 launched per rank as often as in one process, no plain version;
+   rank 0's collectives a step by axis, calls, MB and ms (timed between
+   synchronizations).  With 2 or 4 cards the meshes that
+   fit run again, a card a rank (NCCL); with one, a line says that leg
+   did not run.  ``launches_by_path`` holds ``tp_train``.
 
 Tolerances.  In bf16 (phases 12-15, 17-19, 21): every step's logits, on the same
 tokens, within 3e-2 of the plain row's largest |logit| (both paths
@@ -1821,8 +1852,9 @@ BF16_LMAX = 4096
 
 def phase_bf16_kernels(dev):
     """#5 and #6 on bf16 caches against their plain versions at every
-    shape of ``BF16_DECODE``, and #7, #9, #11, #12 (and #8 on a pool whose
-    level 0 is int8, the rest bf16) at yi-6b's: attends within ATTN_TOL
+    shape of ``BF16_DECODE``, and #7, #9, #11, #12 (and #8 and #10 on a
+    pool whose level 0 is int8, the rest bf16) at yi-6b's: attends within
+    ATTN_TOL
     on the f32 output, updates bit for bit over 3 chained appends (paged
     ones outside TRASH); #11 and #12 as shard 1's call at d = 2.  Bounds
     count 2 bytes a cache element.  Rows are named ``<wrapper>[bf16]``
@@ -1958,8 +1990,8 @@ def phase_bf16_kernels(dev):
             k8 = partial_keys(t, lvl0, M)
         nbytes = k8 * 2 * (Db + 4) + (keys - k8) * 2 * 2 * Db
         row(name, replaces,
-            "level 0 int8, levels 1.. bf16 (no path serves it: #10 takes "
-            "no bf16 level)" if k8 else "bf16 pool",
+            "level 0 int8, levels 1.. bf16 (yi-6b's int8 pool at "
+            "quant_levels 1, phase 25 (b))" if k8 else "bf16 pool",
             measured(lambda: kern(pl, q, t, bidx, nr=NR),
                      lambda: plain(pl, q, t, bidx, nr=NR), err,
                      bound(nbytes + small + 4 * bidx.numel(),
@@ -1980,6 +2012,33 @@ def phase_bf16_kernels(dev):
         measured(lambda: dk.update_cache_paged(a, kn, vn, t, utab),
                  lambda: dk.update_cache_paged_ref(b, kn, vn, t, utab), 0.0,
                  update_bound(Rb, M, Db, table_cols=utab.shape[1], es=2)))
+
+    # 25 (a): #10 on the pool whose level 0 is int8 and the rest bf16
+    a, b = clone(mixed), clone(mixed)
+    for step in range(3):
+        tt = (t + step).clamp(max=Lb - 1)
+        dk.update_cache_paged_quant(a, kn, vn * (step + 1), tt, utab)
+        dk.update_cache_paged_quant_ref(b, kn, vn * (step + 1), tt, utab)
+    for x, y in zip(pool_arrays(a), pool_arrays(b)):
+        keep = torch.ones(x.shape[0], dtype=torch.bool, device=dev)
+        keep[trash:trash + hkv] = False
+        if not torch.equal(x[keep], y[keep]):
+            raise AssertionError("update_cache_paged_quant[bf16] is not "
+                                 "bit-exact outside TRASH")
+    # per row, k and v: level 0's int8 pair and two scales read and
+    # rewritten; a bf16 level's new row written and its sibling read
+    # (the last level's sibling feeds no carry); the new rows (f32), t and
+    # the page table read
+    nbytes = Rb * (2 * (2 * 2 * Db + 2 * 2 * 4)
+                   + 2 * 2 * Db * ((M - 1) + (M - 2))
+                   + 4 * (2 * Db + 1 + M))
+    flops = Rb * 2 * Db * (2 * 8 + 2 * (M - 1))
+    row("update_cache_paged_quant", 678,
+        f"{M} levels, level 0 int8, levels 1.. bf16 (quant_levels 1, "
+        f"phase 25 (a)); bit-exact outside TRASH over 3 chained updates",
+        measured(lambda: dk.update_cache_paged_quant(a, kn, vn, t, utab),
+                 lambda: dk.update_cache_paged_quant_ref(b, kn, vn, t, utab),
+                 0.0, bound(nbytes, flops)))
 
     # SP at d = 2: shard 1's calls
     d = 2
@@ -2792,8 +2851,11 @@ def phase_sample_serve(cfg, params, fns, reqs, dense_stats, dev):
 
 GEMMA_SLOTS, GEMMA_MAX_LEN, GEMMA_NEW, GEMMA_REQUESTS = 4, 4096, 16, 8
 # phase 12's weights, which phase 13 trains: ``init_state``'s draw with
-# ``TrainConfig.seed`` = GEMMA_SEED, drawn once (~130 s on the host)
+# ``TrainConfig.seed`` = GEMMA_SEED, drawn once; 12 of the 34 layers (all
+# 34 took 154.5 s of drawing on the host), the first 6 of them phases 13
+# (b) and 21 (b) take
 GEMMA_SEED = 0
+GEMMA_LAYERS = 12
 # bf16 serving: every step's logits within 3e-2 of the plain row's
 # largest magnitude, on the same tokens (both paths round every
 # activation to bf16, after f32 attention summed in other orders); bf16
@@ -3004,9 +3066,10 @@ def forced_run(label, eng, work, fns, tokens, plain_logits):
 
 
 def phase_gemma(dev):
-    """12. ``gemma3-4b`` at full width and depth in its published bf16
-    (34 layers: 29 local at window 1024, 5 global h1d; random weights
-    from seed GEMMA_SEED): ``ServeEngine(slots=4, max_len=4096)`` on 8
+    """12. ``gemma3-4b`` at full width in its published bf16, cut to
+    GEMMA_LAYERS of its 34 layers (10 local at window 1024, 2 global
+    h1d; random weights from seed GEMMA_SEED, the first 12 layers of the
+    34-layer draw): ``ServeEngine(slots=4, max_len=4096)`` on 8
     greedy requests of 16 tokens, prompt lengths 1100..3968 (seed 0).
     The streamed #1 (local layers), #1 and #2 (global prefill), #5 and #6
     on bf16 caches (global decode) must launch and no plain version run;
@@ -3022,6 +3085,7 @@ def phase_gemma(dev):
     cfg = get_config("gemma3-4b")
     if cfg.dtype != "bfloat16":
         raise AssertionError("gemma3-4b is published in bfloat16")
+    cfg = dataclasses.replace(cfg, num_layers=GEMMA_LAYERS)
     fns = get_model(cfg)
     params = fns.init(cfg, seed=GEMMA_SEED, device=dev)
     torch.cuda.synchronize()
@@ -3399,9 +3463,9 @@ def phase_gemma_train(dev, box):
     them from seed 0, as ``init_state`` would with ``TrainConfig.seed``
     0): :func:`bf16_checks` on its first 6 layers (5 local, 1 global: a
     view of the same tensors), the in-place AdamW update against the
-    functional one on a 2-layer tree, then 3 AdamW steps at all 34
-    layers through ``train`` (the in-place update).  Returns the training
-    run's launches."""
+    functional one on a 2-layer tree, then 3 AdamW steps at its
+    GEMMA_LAYERS layers through ``train`` (the in-place update).  Returns
+    the training run's launches."""
     import tempfile
     from repro_torch.configs import get_config
     from repro_torch.data import ZipfLM
@@ -3410,7 +3474,8 @@ def phase_gemma_train(dev, box):
                                    make_optimizer)
 
     t0 = time.perf_counter()
-    cfg = get_config("gemma3-4b")
+    cfg = dataclasses.replace(get_config("gemma3-4b"),
+                              num_layers=GEMMA_LAYERS)
     params = box.pop()
     data = ZipfLM(vocab_size=cfg.vocab_size, seq_len=GEMMA_TRAIN_SEQ,
                   batch_per_host=GEMMA_TRAIN_BATCH, seed=0)
@@ -3472,7 +3537,11 @@ def phase_dense_bf16(dev):
     also through a paged engine (#7, #9 on bf16 pools) and a 2-way SP
     engine (#11, #12 on bf16 slabs; at max_len 4096 every level is
     sharded, so no #6), each on the plain run's tokens and held to its
-    logits the same way.  Returns the launches of every serving run."""
+    logits the same way; and (25 (b)) through a paged int8 engine at
+    ``quant_levels=1`` (level 0 int8, the rest bf16: #8 and #10 on bf16
+    levels), held to a plain run of the same int8 pool (quantization
+    moves the logits off the dense run's).  Returns the launches of every
+    serving run."""
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import get_model
@@ -3541,11 +3610,42 @@ def phase_dense_bf16(dev):
                     f"decode ms a tick {st['decode_ms_per_tick']:.2f}, "
                     f"prefill ms a call {st['prefill_ms_per_call']:.1f}")
             del eng
+        if arch == "yi-6b":
+            add(int8_bf16_run(cfg, params, fns, work))
         log(f"{arch}: phase 14 part took {time.perf_counter() - t0:.1f}s, "
             f"weights {init_s:.1f}s")
         del params, plain_logits
         torch.cuda.empty_cache()
     return total
+
+
+def int8_bf16_run(cfg, params, fns, work):
+    """25 (b): ``work`` through ``ServeEngine(paged=True,
+    cache_dtype="int8", quant_levels=1)`` on bf16 weights, on a plain run
+    of the same pool's tokens, its logits held to that run's
+    (``forced_run``): #8 and #10 launched on bf16 levels, no plain
+    version.  Returns the kernel run's launches."""
+    from repro_torch.serve import ServeEngine
+    kw = dict(paged=True, cache_dtype="int8", quant_levels=1)
+    plain, plain_logits = plain_engine_run(
+        cfg, params, work, GEMMA_SLOTS, GEMMA_MAX_LEN, GEMMA_NEW, **kw)
+    eng = ServeEngine(cfg, params, slots=GEMMA_SLOTS, max_len=GEMMA_MAX_LEN,
+                      **kw)
+    levels = [str(a.dtype) for a in (eng.caches[0].k, *eng.caches[0].ck)]
+    if levels[0] != "torch.int8" or set(levels[1:]) != {"torch.bfloat16"}:
+        raise AssertionError(f"25 (b): pool levels {levels}")
+    st, c = forced_run(f"25 (b) {cfg.name} paged int8, quant_levels 1", eng,
+                       work, fns, plain, plain_logits)
+    need = ("decode_attend_paged_quant[bf16]", "update_cache_paged_quant[bf16]")
+    missing = [k_ for k_ in need if not c.get(k_)]
+    if missing:
+        raise AssertionError(f"25 (b): {missing} not launched: {c}")
+    log(f"25 (b) {cfg.name} paged int8 (level 0 int8, {len(levels) - 1} bf16 "
+        f"levels): tokens/s {st['tokens_per_s']:.1f}, decode ms a tick "
+        f"{st['decode_ms_per_tick']:.2f}, prefill ms a call "
+        f"{st['prefill_ms_per_call']:.1f}; launches "
+        f"{json.dumps({k_: c[k_] for k_ in need})} ({card_line()})")
+    return c
 
 
 def phase_llama_train(dev):
@@ -5755,8 +5855,8 @@ def phase_telemetry(dev):
 # ---------------------------------------------------------------------------
 
 SP_FAMILY_D = 2
-# gemma3-4b cut to one 5:1 local/global period (6 of 34 layers) of phase
-# 12's full-depth weights; zamba2-1.2b and mamba2-1.3b at phase 18's
+# gemma3-4b cut to one 5:1 local/global period (6 layers) of phase 12's
+# weights; zamba2-1.2b and mamba2-1.3b at phase 18's
 # depths on phase 18's weights, served before those weights train
 SP_GEMMA_LAYERS = 6
 # the decode kernels at the shapes these SP paths give them: (arch,
@@ -6787,15 +6887,16 @@ RANK_LOSS_TOL = 1e-5          # of max(1, |loss|): fp32 in another order
 RANK_TIMEOUT = 300
 
 
-def torchrun(label, argv, tmp):
-    """``argv`` under ``torch.distributed.run --standalone`` on RANKS
+def torchrun(label, argv, tmp, nproc=RANKS):
+    """``argv`` under ``torch.distributed.run --standalone`` on ``nproc``
     ranks; its output logged, every process stopped.  Raises when any
     rank failed."""
     import os
     import signal
-    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="4")
+    env = dict(os.environ, PYTHONPATH=str(SRC),
+               OMP_NUM_THREADS=str(max(1, 8 // nproc)))
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc-per-node", str(RANKS)] + list(argv)
+           "--nproc-per-node", str(nproc)] + list(argv)
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=tmp, env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True,
@@ -6805,21 +6906,21 @@ def torchrun(label, argv, tmp):
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, signal.SIGKILL)
         out, _ = proc.communicate()
-        raise AssertionError(f"24 {label}: no end in {RANK_TIMEOUT} s:\n"
+        raise AssertionError(f"{label}: no end in {RANK_TIMEOUT} s:\n"
                              f"{out[-4000:]}") from None
     for line in out.splitlines():
         if "socket.cpp" not in line and "OMP_NUM_THREADS" not in line \
                 and set(line) != {"*"}:
             log(f"  {line}")
     if proc.returncode != 0:
-        raise AssertionError(f"24 {label}: exit {proc.returncode}")
-    log(f"24 {label}: {RANKS} ranks in {time.perf_counter() - t0:.1f}s "
+        raise AssertionError(f"{label}: exit {proc.returncode}")
+    log(f"{label}: {nproc} ranks in {time.perf_counter() - t0:.1f}s "
         f"(start-up included)")
 
 
-def rank_reports(tmp, name):
+def rank_reports(tmp, name, nproc=RANKS):
     return [json.loads((Path(tmp) / name.replace("{rank}", str(r)))
-                       .read_text()) for r in range(RANKS)]
+                       .read_text()) for r in range(nproc)]
 
 
 def rank_launches(reports):
@@ -6842,7 +6943,7 @@ def ranks_serve(tmp, device, sp_run, serve_tokens, prompts):
     outs, stats, counts, guarded = sp_run
     (Path(tmp) / "prompts.json").write_text(json.dumps(
         [p.tolist() for p in prompts]))
-    torchrun("(a) serve", ["-m", "repro_torch.launch.serve", "--sp-data",
+    torchrun("24 (a) serve", ["-m", "repro_torch.launch.serve", "--sp-data",
                            str(RANKS), "--prompts", "prompts.json",
                            "--slots", "8", "--max-len", str(LMAX),
                            "--new-tokens", str(PAGED_NEW), "--rank-report",
@@ -6899,7 +7000,7 @@ def ranks_train(tmp, device):
     from repro_torch.launch import train as train_cli
     from repro_torch.parallel import sp_attention as sp
 
-    torchrun("(b) train", ["-m", "repro_torch.launch.train", "--sp",
+    torchrun("24 (b) train", ["-m", "repro_torch.launch.train", "--sp",
                            "--mesh", str(RANKS), "--ckpt-dir", "ck_ranks",
                            "--rank-report", "train.{rank}.json",
                            *RANK_TRAIN] + device, tmp)
@@ -6956,7 +7057,7 @@ def ranks_train(tmp, device):
 def ranks_pipeline(tmp, device):
     """24 (c): pipeline_apply at S = 2, h1d-lm-53m's 6 layers in 2 stages
     of 3, 4 microbatches of 1 x 1024 (tools/pipeline_ranks.py)."""
-    torchrun("(c) pipeline", [str(ROOT / "tools" / "pipeline_ranks.py"),
+    torchrun("24 (c) pipeline", [str(ROOT / "tools" / "pipeline_ranks.py"),
                               "--layers", "6", "--micro", "4", "--seq",
                               "1024", "--out", "pipe.{rank}.json"] + device,
              tmp)
@@ -7008,6 +7109,145 @@ def phase_ranks(sp_run, serve_tokens, prompts):
     log(f"24: launches of the ranks' runs, every rank and leg summed: "
         f"{json.dumps(dict(total))}")
     log(f"phase 24 (ranks) took {time.perf_counter() - t0:.1f}s")
+    return dict(total)
+
+
+# phase 25 (c): training over a DATAxMODEL mesh, one shard a process
+TP_MESHES = ("1x2", "2x1", "2x2")
+# the mesh's run against the one-process run, fp32 in another order (the
+# vocabulary's logsumexp in parts, the row-parallel psums, the data axis'
+# gradient sum): the losses, relative; after step 3 the parameters,
+# absolute, and each AdamW moment leaf, of its largest |entry|.  On an
+# H100 (gloo, one card) the three meshes read at most 9.66e-08, 1.26e-06
+# and 1.87e-06; a row-parallel output whose backward sums over the model
+# axis read 0.99 on the moments (the smoke config, 1x2 on the CPU)
+TP_LOSS_RTOL = 1e-6
+TP_PARAM_ATOL = 1e-5
+TP_MOMENT_RTOL = 2e-5
+
+
+def tp_state_gap(ck_dir, want_state):
+    """(max |parameter| gap, max moment gap of its leaf's largest |entry|)
+    between the mesh's step-3 checkpoint in ``ck_dir`` and the
+    one-process run's final state."""
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.tree import tree_leaves
+    got = ckpt.restore(ck_dir, 3, want_state)
+    param = max(float((a - b).abs().max()) for a, b in zip(
+        tree_leaves(got.params), tree_leaves(want_state.params)))
+    moment = 0.0
+    for f in ("mu", "nu"):
+        for a, b in zip(tree_leaves(getattr(got.opt_state, f)),
+                        tree_leaves(getattr(want_state.opt_state, f))):
+            top = float(b.abs().max())
+            gap = float((a - b).abs().max())
+            moment = max(moment, gap / top if top else gap)
+    return param, moment
+
+
+def tp_train(tmp, mesh, device, want, want_state, counts, leg):
+    """25 (c): ``launch.train --mesh DxM`` on h1d-lm-53m, 3 steps at 4 x
+    1024, one shard a rank: every rank's losses within TP_LOSS_RTOL of
+    the one-process run's ``want``, the gathered parameters' digest the
+    same on every rank, the step-3 state within TP_PARAM_ATOL and
+    TP_MOMENT_RTOL of ``want_state``, #1-#4 launched on every rank as
+    often as in one process (a rank runs every layer and level on its
+    heads or rows), no plain version.  Returns the reports."""
+    D, M = (int(n) for n in mesh.split("x"))
+    name = f"tp{mesh}.{leg}.{{rank}}.json"
+    ck_dir = Path(tmp) / f"ck_{mesh}.{leg}"
+    torchrun(f"25 (c) {mesh}", ["-m", "repro_torch.launch.train", "--mesh",
+                                mesh, "--ckpt-dir", str(ck_dir),
+                                "--ckpt-every", "3", "--rank-report", name,
+                                *RANK_TRAIN] + device, tmp, nproc=D * M)
+    reps = rank_reports(tmp, name, D * M)
+    worst = 0.0
+    for rep in reps:
+        got = [h["loss"] for h in rep["history"]]
+        if len(got) != len(want):
+            raise AssertionError(f"25 (c) {mesh}: rank {rep['rank']} ran "
+                                 f"{len(got)} steps")
+        worst = max(worst, max(abs(a - b) / abs(b) for a, b in zip(got, want)))
+        if worst > TP_LOSS_RTOL:
+            raise AssertionError(f"25 (c) {mesh}: rank {rep['rank']} losses "
+                                 f"{got}, one process {want}")
+        if rep["params"] != reps[0]["params"]:
+            raise AssertionError(f"25 (c) {mesh}: the gathered parameters "
+                                 f"differ across ranks")
+        mine = rep["launches"]
+        for k in ("band_attention_fwd", "band_attention_sub_fwd",
+                  "band_attention_bwd", "band_attention_sub_bwd"):
+            if not counts.get(k) or mine[k] != counts[k]:
+                raise AssertionError(f"25 (c) {mesh}: rank {rep['rank']} "
+                                     f"launched {k} {mine[k]} times, one "
+                                     f"process {counts.get(k)}")
+    param_gap, moment_gap = tp_state_gap(str(ck_dir), want_state)
+    if param_gap > TP_PARAM_ATOL or moment_gap > TP_MOMENT_RTOL:
+        raise AssertionError(f"25 (c) {mesh}: the step-3 state misses one "
+                             f"process's: parameters {param_gap:.3g} "
+                             f"absolute, moments {moment_gap:.3g} of a "
+                             f"leaf's largest")
+    steps = len(want)
+    axes = {a: dict(calls=row["calls"] / steps,
+                    ms=row["seconds"] * 1e3 / steps,
+                    mb=row["bytes"] / steps / 2 ** 20)
+            for a, row in reps[0]["collectives"]["by_axis"].items()}
+    log(f"25 (c) {mesh} ({reps[0]['backend']}, {reps[0]['placement']}): "
+        f"losses {[h['loss'] for h in reps[0]['history']]} against one "
+        f"process {want} (worst {worst:.3g} relative), gathered parameters "
+        f"the same on all {D * M} ranks ({reps[0]['params'][:16]}); step-3 "
+        f"state against one process: parameters {param_gap:.3g} absolute, "
+        f"AdamW moments {moment_gap:.3g} of a leaf's largest; step ms "
+        f"{[round(h['step_ms'], 1) for h in reps[0]['history']]}; rank 0's "
+        f"collectives a step by axis (each timed between synchronizations) "
+        f"{json.dumps(axes)} ({card_line()})")
+    return reps
+
+
+def phase_tp_train():
+    """25 (c): see the module docstring.  Returns the launches of the
+    meshes' runs, every rank summed."""
+    import tempfile
+    from repro_torch.launch import train as train_cli
+
+    t0 = time.perf_counter()
+    seen, counts = {}, {}
+    real = train_cli.train
+
+    def spy(*a, **kw):
+        state, metrics = real(*a, **kw)
+        seen.update(metrics, state=state)
+        return state, metrics
+    train_cli.train = spy
+    total = collections.Counter()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            with counted(counts):
+                cli_run(train_cli.main, ["--ckpt-dir",
+                                         str(Path(tmp) / "ck_one"),
+                                         *RANK_TRAIN])
+            want = [h["loss"] for h in seen["history"]]
+            log(f"25 (c) one process: losses {want}, step ms "
+                f"{[round(h['step_ms'], 1) for h in seen['history']]}")
+            n = torch.cuda.device_count()
+            legs = [("shared card, gloo", ["--device", "cuda:0"],
+                     TP_MESHES)]
+            own = tuple(m for m in TP_MESHES
+                        if int(m[0]) * int(m[2]) <= n)
+            if n >= 2:
+                legs.append(("a card a rank, NCCL", [], own))
+            else:
+                log(f"25 (c): the NCCL leg did not run: {n} card visible, "
+                    f"and it needs one a rank")
+            for leg, (label, device, meshes) in enumerate(legs):
+                log(f"25 (c): {label}")
+                for mesh in meshes:
+                    total.update(rank_launches(tp_train(
+                        tmp, mesh, device, want, seen["state"], counts,
+                        leg)))
+    finally:
+        train_cli.train = real
+    log(f"phase 25 (c) took {time.perf_counter() - t0:.1f}s")
     return dict(total)
 
 
@@ -7109,6 +7349,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     family_counts["ranks"] = phase_ranks(sp_runs["c_d2"], serve_tokens,
                                          rank_prompts)
+    family_counts["tp_train"] = phase_tp_train()
     for row in rows:
         # a row name@arch holds its wrapper at arch's shape: its launches
         # are those of the phase 17-19 paths that run that shape

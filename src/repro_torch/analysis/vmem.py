@@ -96,7 +96,8 @@ def launch_smem(family: str, meta: Dict[str, Any]) -> Tuple[int, ...]:
                                      half=bool(meta["half"]), cr=cr)
         return (plan.smem,)
     if family == "decode_update_paged_quant":
-        return (dk.update_quant_smem(d, dv, meta["qmask"], nlev),)
+        return (dk.update_quant_smem(d, dv, meta["qmask"], nlev,
+                                     bool(meta["half"])),)
     return (dk.update_chain_plan(d, dv, nlev,
                                  paged=family == "decode_update_paged")[1],)
 

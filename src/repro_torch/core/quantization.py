@@ -36,10 +36,14 @@ def int8_scale(x: torch.Tensor, axis: Axis = None) -> torch.Tensor:
     return torch.clamp(amax, min=EPS) * RECIP_QMAX
 
 
-def quantize_int8(x: torch.Tensor, axis: Axis = None):
-    """Returns ``(q int8, scale float32)``."""
+def quantize_int8(x: torch.Tensor, axis: Axis = None,
+                  scale: Optional[torch.Tensor] = None):
+    """Returns ``(q int8, scale float32)``; ``scale``, where given, is
+    used in place of ``x``'s own (a shard of a tensor quantized with the
+    whole tensor's)."""
     x = x.to(torch.float32)
-    scale = int8_scale(x, axis=axis)
+    if scale is None:
+        scale = int8_scale(x, axis=axis)
     q = torch.clamp(torch.round(x / scale), -QMAX, QMAX).to(torch.int8)
     return q, scale
 

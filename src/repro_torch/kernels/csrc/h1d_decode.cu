@@ -57,14 +57,15 @@
 // of the update path is an explicitly rounded intrinsic, so no FMA
 // contraction can leave the plain version's bits.
 //
-// Cache element.  Every body but #10's also takes bf16 levels (the
-// reference keeps its decode caches in the model's dtype): the staged
-// attend, attend_staged_kernel<ADDR, VW, E>, copies a bf16 block as it
-// is into the slot an f32 block takes and widens each value on the read
-// (exact), so its arithmetic is the f32 one; update_chain_kernel<ADDR,
-// E> reads each stored row widened, runs the carry chain unrounded in
-// f32 and rounds each stored row (and #12's carry) to nearest even, as
-// the reference's Pallas update does (_update_kernel: pk.astype(dtype)
+// Cache element.  Every body also takes bf16 levels (the reference keeps
+// its decode caches in the model's dtype; #10 beside its int8 ones): the
+// staged attend, attend_staged_kernel<ADDR, VW, E>, copies a bf16 block
+// as it is into the slot an f32 block takes and widens each value on the
+// read (exact), so its arithmetic is the f32 one; update_chain_kernel<
+// ADDR, E> and update_cache_quant_kernel (its `half` argument) read each
+// stored row widened, run the carry chain unrounded in f32 and round each
+// stored row (and #12's carry) to nearest even, as the reference's Pallas
+// updates do (_update_kernel, _update_paged_quant_kernel: pk.astype(dtype)
 // on the store, the f32 pair carried).  q, k_new and v_new arrive f32
 // (the wrappers widen bf16 operands, exactly) and the attends write f32.
 //
@@ -1027,18 +1028,21 @@ int launch_staged(const float* q, const Levels& lv, const int* t,
 // ---------------------------------------------------------------------------
 
 // Bytes of one level in a chain's shared memory: its sibling pair as
-// staged (two rows of W f32 or int8 values); an int8 level then its two
-// staged scales, the f32 pair after the carry is put in, and each lane's
-// absmax of both rows (2 x 32 floats).  Every part 16-byte aligned.
-__host__ __device__ __forceinline__ int pair_bytes(int W, bool q8) {
+// staged (two rows of W int8, f32 or, where `half`, bf16 values); an
+// int8 level then its two staged scales, the f32 pair after the carry is
+// put in, and each lane's absmax of both rows (2 x 32 floats).  Every
+// part 16-byte aligned.
+__host__ __device__ __forceinline__ int pair_bytes(int W, bool q8,
+                                                   bool half) {
   return q8 ? ceil_to(2 * W, 16) + 16 + ceil_to(8 * W, 16) + 256
-            : ceil_to(8 * W, 16);
+            : ceil_to((half ? 4 : 8) * W, 16);
 }
 
 __host__ __device__ __forceinline__ int chain_bytes(int W, unsigned qmask,
-                                                    int nlev) {
+                                                    int nlev, bool half) {
   int n = 0;
-  for (int l = 0; l < nlev; ++l) n += pair_bytes(W, (qmask >> l) & 1u);
+  for (int l = 0; l < nlev; ++l)
+    n += pair_bytes(W, (qmask >> l) & 1u, half);
   return n;
 }
 
@@ -1074,8 +1078,11 @@ __device__ __forceinline__ void lane_stage(unsigned char* dst,
 // scales) sit where t and utab[r] alone say, so lane l of warps 0 and 1
 // reads t and utab[r, l] and puts level l's pair in flight at once with
 // every other lane's.  Then, with no memory round trip between levels:
-//   A. warps 0 and 1 run the carry chain: per level the pair dequantized,
-//      the carry put in, an f32 level stored, an int8 level's f32 pair
+//   A. warps 0 and 1 run the carry chain: per level the pair dequantized
+//      (an int8 level) or widened (a bf16 one), the carry put in, an f32
+//      level stored, a bf16 level stored rounded to nearest even (the
+//      reference's Pallas update: pk.astype(dtype) on the store, the f32
+//      pair carried), an int8 level's f32 pair
 //      and each lane's absmax of both rows kept in shared memory, the
 //      pair's mean (k) or sum (v) carried;
 //   B. lane l takes int8 level l's row maxima over the 32 lanes (exact,
@@ -1091,7 +1098,7 @@ update_cache_quant_kernel(const float* __restrict__ knew,
                           const float* __restrict__ vnew,
                           const int* __restrict__ tpos,
                           const int* __restrict__ utab, MutLevels lv, int D,
-                          int Dv, int nr, int nlev) {
+                          int Dv, int nr, int nlev, int half) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int r = blockIdx.x, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const bool is_k = warp % 2 == 0;
@@ -1099,7 +1106,8 @@ update_cache_quant_kernel(const float* __restrict__ knew,
   const int W = is_k ? D : Dv;
   const int t = tpos[r];
   const int upage = lane < nlev ? utab[(size_t)r * nlev + lane] : 0;
-  unsigned char* buf = smem + (is_k ? 0 : chain_bytes(D, lv.qmask, nlev));
+  unsigned char* buf =
+      smem + (is_k ? 0 : chain_bytes(D, lv.qmask, nlev, half));
   const int q2 = ceil_to(2 * W, 16), f8 = ceil_to(8 * W, 16);
   if (part == 0) {
     const float* fresh = (is_k ? knew : vnew) + (size_t)r * W;
@@ -1110,9 +1118,9 @@ update_cache_quant_kernel(const float* __restrict__ knew,
     // lane l: level l's first pair row and its offset
     const bool q8l = lane < nlev && ((lv.qmask >> lane) & 1u);
     const size_t row0l = (size_t)upage * nr + pair_in_page(t, lane, nr);
-    const int offl = chain_bytes(W, lv.qmask, lane < nlev ? lane : 0);
+    const int offl = chain_bytes(W, lv.qmask, lane < nlev ? lane : 0, half);
     if (lane < nlev) {
-      const int es = q8l ? 1 : 4;
+      const int es = q8l ? 1 : half ? 2 : 4;
       lane_stage(buf + offl,
                  static_cast<const unsigned char*>(is_k ? lv.k[lane]
                                                         : lv.v[lane]) +
@@ -1141,6 +1149,15 @@ update_cache_quant_kernel(const float* __restrict__ knew,
           x0[i] = c < W ? __fmul_rn((float)pr[c], s0) : 0.f;
           x1[i] = c < W ? __fmul_rn((float)pr[W + c], s1) : 0.f;
         }
+      } else if (half) {              // bf16: widened, exactly
+        const __nv_bfloat16* pr =
+            reinterpret_cast<const __nv_bfloat16*>(buf + off);
+#pragma unroll
+        for (int i = 0; i < C; ++i) {
+          const int c = lane + 32 * i;
+          x0[i] = c < W ? __bfloat162float(pr[c]) : 0.f;
+          x1[i] = c < W ? __bfloat162float(pr[W + c]) : 0.f;
+        }
       } else {
         const float* pr = reinterpret_cast<const float*>(buf + off);
 #pragma unroll
@@ -1156,7 +1173,7 @@ update_cache_quant_kernel(const float* __restrict__ knew,
     for (int l = 0, off = 0; l < nlev; ++l) {
       const bool q8 = (lv.qmask >> l) & 1u;
       const int sel = (t >> l) & 1;
-      const int next = off + pair_bytes(W, q8);
+      const int next = off + pair_bytes(W, q8, half);
       float x0[C], x1[C];
 #pragma unroll
       for (int i = 0; i < C; ++i) {   // columns past W: carry 0, stay 0
@@ -1183,13 +1200,26 @@ update_cache_quant_kernel(const float* __restrict__ knew,
       } else {
         const size_t row0 =
             (size_t)__shfl_sync(FULL, upage, l) * nr + pair_in_page(t, l, nr);
-        float* b = static_cast<float*>(is_k ? lv.k[l] : lv.v[l]) + row0 * W;
+        void* base = is_k ? lv.k[l] : lv.v[l];
+        if (half) {
+          __nv_bfloat16* b = static_cast<__nv_bfloat16*>(base) + row0 * W;
 #pragma unroll
-        for (int i = 0; i < C; ++i) {
-          const int c = lane + 32 * i;
-          if (c < W) {
-            b[c] = x0[i];
-            b[W + c] = x1[i];
+          for (int i = 0; i < C; ++i) {
+            const int c = lane + 32 * i;
+            if (c < W) {
+              b[c] = __float2bfloat16_rn(x0[i]);
+              b[W + c] = __float2bfloat16_rn(x1[i]);
+            }
+          }
+        } else {
+          float* b = static_cast<float*>(base) + row0 * W;
+#pragma unroll
+          for (int i = 0; i < C; ++i) {
+            const int c = lane + 32 * i;
+            if (c < W) {
+              b[c] = x0[i];
+              b[W + c] = x1[i];
+            }
           }
         }
       }
@@ -1229,7 +1259,7 @@ update_cache_quant_kernel(const float* __restrict__ knew,
   auto next8 = [&](int l, int& off) {    // this part's first int8 level >= l
     for (; l < nlev && !(((lv.qmask >> l) & 1u) && l % UPD_PARTS == part);
          ++l)
-      off += pair_bytes(W, (lv.qmask >> l) & 1u);
+      off += pair_bytes(W, (lv.qmask >> l) & 1u, half);
     return l;
   };
   auto f32_pair = [&](int off, float (&z0)[C], float (&z1)[C], float& s0,
@@ -1258,7 +1288,7 @@ update_cache_quant_kernel(const float* __restrict__ knew,
     const size_t row0 =
         (size_t)__shfl_sync(FULL, upage, l) * nr + pair_in_page(t, l, nr);
     int8_t* b = static_cast<int8_t*>(is_k ? lv.k[l] : lv.v[l]) + row0 * W;
-    off += pair_bytes(W, true);
+    off += pair_bytes(W, true, half);
     const int ln = next8(l + 1, off);
     if (ln < nlev) f32_pair(off, z0, z1, s0, s1);
 #pragma unroll
@@ -1534,21 +1564,23 @@ extern "C" int h1d_update_cache_paged(const float* knew, const float* vnew,
 
 // As h1d_update_cache_paged with int8 levels (bit l of qmask) and their
 // per-row scales kscs[l]/vscs[l] (NP_l, nr), rewritten in place; the
-// other levels f32 (no bf16: the wrapper raises for a bf16 level).  D and
+// other levels f32, or bf16 where half != 0 (one unrounded f32 carry
+// chain through every level, each stored bf16 row rounded once).  D and
 // Dv up to 1024 (32 columns a lane), and one row's staged pairs, every
 // level's k and v pair and scales (chain_bytes), within SMEM_LIMIT.
 extern "C" int h1d_update_cache_paged_quant(
     const float* knew, const float* vnew, const int* t, const int* utab,
     void* const* ks, void* const* vs, void* const* kscs, void* const* vscs,
-    int qmask, int R, int D, int Dv, int nr, int nlev, void* stream) {
+    int qmask, int R, int D, int Dv, int nr, int nlev, int half,
+    void* stream) {
   h1d_info::clear();
   if (nlev < 1 || nlev > MAXLEV || R < 1 || nr < 2 || D < 1 || Dv < 1 ||
       D > 1024 || Dv > 1024)
     return (int)cudaErrorInvalidValue;
   const MutLevels lv = write_levels(ks, vs, kscs, vscs, (unsigned)qmask,
                                     nlev);
-  const int smem = chain_bytes(D, lv.qmask, nlev) +
-                   chain_bytes(Dv, lv.qmask, nlev);
+  const int smem = chain_bytes(D, lv.qmask, nlev, half != 0) +
+                   chain_bytes(Dv, lv.qmask, nlev, half != 0);
   if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   const int cols = (max(D, Dv) + 31) / 32;
   auto kernel = cols <= 1 ? update_cache_quant_kernel<1>
@@ -1564,7 +1596,7 @@ extern "C" int h1d_update_cache_paged_quant(
   }
   h1d_info::note(0, kernel, 64 * UPD_PARTS, smem, R);
   kernel<<<R, 64 * UPD_PARTS, smem, (cudaStream_t)stream>>>(
-      knew, vnew, t, utab, lv, D, Dv, nr, nlev);
+      knew, vnew, t, utab, lv, D, Dv, nr, nlev, half != 0);
   return (int)cudaGetLastError();
 }
 

@@ -23,7 +23,8 @@ Port of the decode kernels of ``repro.kernels.h1d_decode_kernel``:
   per-row scales before the band math; the update dequantizes the pair,
   puts in the new row and requantizes both rows in place with fresh
   absmax scales, carrying the f32 pair before quantization upward.
-  fp32 levels of a mixed pool leave their scales untouched.
+  float32 or bfloat16 levels of a mixed pool leave their scales
+  untouched.
 * :func:`decode_attend_partial` / :func:`update_cache_partial` -- the
   dense bodies on ONE shard's slab of a sequence-sharded cache
   (``parallel.sp_attention``): the attend reads each band's block at the
@@ -44,9 +45,9 @@ each band's mask lets through (:func:`attend_band_rows`; #5 of the block
 the read); #10 stages every level's sibling pair before its carry chain
 (:func:`update_quant_smem`), and #6, #12 and #9 put every level's pair
 in flight before theirs (any widths and level counts: no new limit).
-Caches are float32 or bfloat16 (:data:`CACHE_DTYPES`; the int8 pool's
-update takes float32 levels beside its int8 ones), as the reference keeps
-them in the model's dtype.  The updates follow the reference's Pallas
+Caches are float32 or bfloat16 (:data:`CACHE_DTYPES`; an int8 pool's
+other levels are one of the two), as the reference keeps them in the
+model's dtype.  The updates follow the reference's Pallas
 update: one unrounded f32 carry chain, each stored row rounded to the
 cache dtype (its jnp path rounds every level before averaging, 1-2 bf16
 ulps apart from level 2 up; in fp32 the two agree bit for bit).  The
@@ -79,7 +80,7 @@ _MIN_M = -1e30
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _PP = ctypes.POINTER(ctypes.c_void_p)
 _F = ctypes.c_float
-# every entry point but #10's and the plan's ends in (..., half, stream):
+# every entry point but the plan's ends in (..., half, stream):
 # half = 1 where the cache levels hold bfloat16
 _SIGNATURES = {
     "h1d_decode_attend": [_P, _P, _P, _PP, _PP, _P, _P] + [_I] * 7
@@ -91,7 +92,7 @@ _SIGNATURES = {
     "h1d_update_cache": [_P, _P, _P, _PP, _PP] + [_I] * 6 + [_P],
     "h1d_update_cache_paged": [_P, _P, _P, _P, _PP, _PP] + [_I] * 6 + [_P],
     "h1d_update_cache_paged_quant": [_P, _P, _P, _P, _PP, _PP, _PP, _PP]
-                                    + [_I] * 6 + [_P],
+                                    + [_I] * 7 + [_P],
     "h1d_decode_attend_partial": [_P, _PP, _PP] + [_P] * 7 + [_I] * 6
                                  + [_F, _I, _I, _P],
     "h1d_update_cache_partial": [_P, _P, _P, _P, _PP, _PP, _P, _P]
@@ -101,8 +102,8 @@ _SIGNATURES = {
     **_build.launch_signatures("h1d_decode"),
 }
 
-#: cache element types the kernels take (``half`` = 1 for bfloat16); the
-#: int8 pool's update (#10) takes float32 levels beside its int8 ones
+#: cache element types the kernels take (``half`` = 1 for bfloat16); an
+#: int8 pool's other levels are one of them
 CACHE_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -330,16 +331,17 @@ def update_chain_plan(D: int, Dv: int, nlev: int, paged: bool = False):
     return threads, 8 * nlev * threads + tab
 
 
-def update_quant_smem(D: int, Dv: int, qmask: int, nlev: int) -> int:
+def update_quant_smem(D: int, Dv: int, qmask: int, nlev: int,
+                      half: bool = False) -> int:
     """Shared memory #10 takes for one cache row (``chain_bytes`` in the
     source): per level its k pair and its v pair as staged, two rows of
-    f32 or int8 values each; an int8 level (bit l of ``qmask``) also the
-    two staged scales, the f32 pair once the carry is put in and each
-    lane's absmax of both rows (2 x 32 floats); every part 16-byte
-    aligned."""
+    int8, f32 or (``half``) bf16 values each; an int8 level (bit l of
+    ``qmask``) also the two staged scales, the f32 pair once the carry is
+    put in and each lane's absmax of both rows (2 x 32 floats); every
+    part 16-byte aligned."""
     def pair(W, q8):
         return (_ceil_to(2 * W, 16) + 16 + _ceil_to(8 * W, 16) + 256 if q8
-                else _ceil_to(8 * W, 16))
+                else _ceil_to((4 if half else 8) * W, 16))
     return sum(pair(D, qmask >> l & 1) + pair(Dv, qmask >> l & 1)
                for l in range(nlev))
 
@@ -631,11 +633,14 @@ update_cache_paged_ref.calls = 0
 
 def update_cache_paged_quant_ref(pool, k_new, v_new, t, utab):
     """Plain quantized paged update, in place (mirror of
-    ``repro.core.h1d_decode._update_cache_paged_quant_jnp``): every level
+    ``repro.core.h1d_decode._update_cache_paged_quant_jnp``, and of the
+    reference's Pallas ``_update_paged_quant_kernel``): every level
     rewrites its whole sibling pair -- dequantize, put in the new row,
     requantize both rows with fresh per-row scales -- and carries the f32
-    pair before quantization (mean for k, sum for v).  fp32 levels write
-    the pair as it is and leave their scales untouched."""
+    pair before quantization (mean for k, sum for v).  Levels that are
+    not int8 (float32, or bfloat16) write the pair rounded to their dtype
+    and leave their scales untouched; the carry stays unrounded f32
+    through every level."""
     update_cache_paged_quant_ref.calls += 1
     f32 = torch.float32
     t = t.to(torch.long)
@@ -942,9 +947,6 @@ def _update_paged_launch(fn, family, pool, k_new, v_new, t, utab, quant):
     Dv = v_new.shape[-1]
     nr = pool.k.shape[-2]
     ks, vs, kscs, vscs, qmask, half = _check_pool(pool, nr, D, Dv, quant)
-    if quant and half:
-        raise ValueError("the int8 pool's update takes float32 levels "
-                         "beside its int8 ones, not bfloat16 (ROADMAP B)")
     k_new, v_new = _f32(k_new), _f32(v_new)
     _build.expect(k_new, "k_new", (R, D))
     _build.expect(v_new, "v_new", (R, Dv))
@@ -956,7 +958,7 @@ def _update_paged_launch(fn, family, pool, k_new, v_new, t, utab, quant):
         if max(D, Dv) > UPDATE_MAX_WIDTH:
             raise ValueError(f"D={D}, Dv={Dv}: the int8 update takes widths "
                              f"up to {UPDATE_MAX_WIDTH} (32 columns a lane)")
-        smem = update_quant_smem(D, Dv, qmask, len(ks))
+        smem = update_quant_smem(D, Dv, qmask, len(ks), bool(half))
         if smem > SMEM_LIMIT:
             raise ValueError(
                 f"D={D}, Dv={Dv}, {len(ks)} levels (int8 mask {qmask:#x}): "
@@ -973,7 +975,8 @@ def _update_paged_launch(fn, family, pool, k_new, v_new, t, utab, quant):
     tail = (R, D, Dv, nr, len(ks))
     if quant:
         err = lib.h1d_update_cache_paged_quant(
-            *head, _ptrs(kscs), _ptrs(vscs), qmask, *tail, _build.stream())
+            *head, _ptrs(kscs), _ptrs(vscs), qmask, *tail, half,
+            _build.stream())
     else:
         err = lib.h1d_update_cache_paged(*head, *tail, half, _build.stream())
     _build.check(err, fn)
@@ -1010,12 +1013,12 @@ def update_cache_paged_quant(pool, k_new, v_new, t, utab):
     ``h1d_update_cache_paged_quant``.  Returns ``pool``."""
     if k_new.device.type == "cpu":
         return update_cache_paged_quant_ref(pool, k_new, v_new, t, utab)
-    _, cfg, lib = _update_paged_launch(
+    half, cfg, lib = _update_paged_launch(
         "h1d_update_cache_paged_quant", "decode_update_paged_quant", pool,
         k_new, v_new, t, utab, quant=True)
     if lib is None:
         return pool
-    update_cache_paged_quant.launches += 1
+    _count(update_cache_paged_quant, half)
     if contracts.ACTIVE:
         contracts.record(contracts.decode_update_paged_quant(
             pool, k_new, v_new, t, utab, tile=tuning.tile_of(cfg),
@@ -1024,6 +1027,7 @@ def update_cache_paged_quant(pool, k_new, v_new, t, utab):
 
 
 update_cache_paged_quant.launches = 0
+update_cache_paged_quant.mode_launches = {}
 
 
 # ---------------------------------------------------------------------------

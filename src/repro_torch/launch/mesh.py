@@ -1,5 +1,5 @@
-"""Mesh construction: the production mesh description and the one-axis
-mesh the port runs on.
+"""Mesh construction: the production mesh description and the meshes
+the port runs on.
 
 Port of ``repro.launch.mesh``.  :func:`make_production_mesh` describes
 an H100 fleet for the sharding rules, the dry run and the roofline (a
@@ -9,7 +9,9 @@ devices).  :func:`make_mesh` builds the one-axis
 serving and training and the pipeline run on: one shard a process inside
 an initialised process group (``parallel.group``, ``torchrun``), else
 every shard in this process on one device (the reference's fabricated
-host devices share one CPU the same way)."""
+host devices share one CPU the same way); and the ``DATAxMODEL``
+:class:`~repro_torch.parallel.tensor.RankMesh` that tensor- and
+data-parallel training runs on, one shard a process."""
 from __future__ import annotations
 
 import torch
@@ -18,6 +20,7 @@ from repro_torch import resolve_device
 from repro_torch.parallel import group
 from repro_torch.parallel.sharding import Mesh, abstract_mesh
 from repro_torch.parallel.sp_attention import SPMesh
+from repro_torch.parallel.tensor import RankMesh
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
@@ -32,20 +35,25 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     return abstract_mesh((32, 8), ("data", "model"))
 
 
-def make_mesh(shape, axes, device=None) -> SPMesh:
+def make_mesh(shape, axes, device=None):
     """A ``shape[0]``-way :class:`SPMesh` over axis ``axes[0]``.  Inside a
     process group (``parallel.group.current()``) of ``shape[0]`` ranks it
     is the rank form, this rank's shard on the group's device; else every
     shard sits on ``resolve_device(device)`` in this process (``cuda``
-    unless ``device`` says otherwise; raises without a card).  A mesh of
-    more than one axis (tensor parallelism over ``DATAxMODEL``) raises."""
+    unless ``device`` says otherwise; raises without a card).
+
+    ``shape = (D, M)`` over ``("data", "model")`` is a :class:`RankMesh`
+    inside a group of ``D * M`` ranks: rank r at ``(r // M, r % M)``, its
+    model row on adjacent ranks (``parallel.group.axis_groups``).  Outside
+    a group only the 1x1 mesh stands (one process, no collective); any
+    other raises."""
     shape, axes = tuple(shape), tuple(axes)
+    if len(shape) == 2 and axes == ("data", "model"):
+        return _rank_mesh(shape, device)
     if len(shape) != 1 or len(axes) != 1:
-        raise NotImplementedError(
-            f"a mesh of one axis, got shape {shape} over axes {axes}: "
-            f"tensor parallelism over a DATAxMODEL mesh is not ported; the "
-            f"port shards the sequence, one shard a process under torchrun "
-            f"or every shard in one process")
+        raise ValueError(f"a mesh of one axis or a DATAxMODEL mesh over "
+                         f"('data', 'model'), got shape {shape} over axes "
+                         f"{axes}")
     g = group.current()
     if g is not None:
         if shape[0] != g.world:
@@ -57,10 +65,38 @@ def make_mesh(shape, axes, device=None) -> SPMesh:
             raise ValueError(f"this rank's shard sits on {g.device}, not "
                              f"{dev}")
         return SPMesh(axis=axes[0], devices=(g.device,), group=g)
+    return SPMesh(axis=axes[0], devices=(_here(device),) * shape[0])
+
+
+def _here(device) -> torch.device:
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    return SPMesh(axis=axes[0], devices=(dev,) * shape[0])
+    return dev
+
+
+def _rank_mesh(shape, device) -> RankMesh:
+    D, M = (int(n) for n in shape)
+    if D < 1 or M < 1:
+        raise ValueError(f"a {D}x{M} mesh")
+    g = group.current()
+    if g is None:
+        if D * M > 1:
+            raise NotImplementedError(
+                f"a {D}x{M} DATAxMODEL mesh runs one shard a process: start "
+                f"{D * M} ranks under torchrun (python -m "
+                f"torch.distributed.run --nproc-per-node {D * M} ...); one "
+                f"process runs the 1x1 mesh only")
+        return RankMesh((1, 1), _here(device))
+    if D * M != g.world:
+        raise ValueError(f"a {D}x{M} DATAxMODEL mesh in a group of {g.world} "
+                         f"ranks: it runs one shard a rank, {D * M} ranks")
+    if device is not None and resolve_device(device).type != g.device.type:
+        raise ValueError(f"this rank's shard sits on {g.device}, not "
+                         f"{device}")
+    data, model = group.axis_groups(g, (D, M))
+    return RankMesh((D, M), g.device, data=data if D > 1 else None,
+                    model=model if M > 1 else None)
 
 
 #: the card the roofline's terms are for, at the power limit of PERF.md's

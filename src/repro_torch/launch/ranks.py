@@ -11,8 +11,10 @@ group (a test's worker, ``parallel.group.init``) uses that group.  With
 ``--rank-report PATH`` each rank writes a JSON document to ``PATH`` with
 ``{rank}`` replaced by its rank: its kernel launches by wrapper and by
 ``wrapper[mode]``, the plain versions' calls, its collectives' calls,
-bytes and seconds (``parallel.group.STATS``, timed), and what the CLI
-adds (tokens, per-step times, losses, a digest of the parameters).
+bytes and seconds (``parallel.group.STATS``, timed; on a ``DATAxMODEL``
+mesh also ``by_axis``: each axis group's, ``op@axis`` counted under
+``axis``, the world's under ``world``), and what the CLI adds (tokens,
+per-step times, losses, a digest of the parameters).
 """
 from __future__ import annotations
 
@@ -59,15 +61,35 @@ def digest(tree) -> str:
     return h.hexdigest()
 
 
-def write_report(path: str, g: grp.RankGroup, **fields) -> str:
+def by_axis(stats: grp.CommStats) -> dict:
+    """The collectives' calls, bytes and seconds summed by axis group
+    (``op@axis`` under ``axis``, the world's ops under ``world``)."""
+    out: dict = {}
+    for field, table in (("calls", stats.calls), ("bytes", stats.nbytes),
+                         ("seconds", stats.seconds)):
+        for op, n in table.items():
+            axis = op.partition("@")[2] or "world"
+            row = out.setdefault(axis, {"calls": 0, "bytes": 0,
+                                        "seconds": 0.0})
+            row[field] += n
+    return out
+
+
+def collectives() -> dict:
+    """The collectives' calls, bytes and seconds so far, by op and by
+    axis (``parallel.group.STATS``)."""
+    return dict(calls=dict(grp.STATS.calls), bytes=dict(grp.STATS.nbytes),
+                seconds=dict(grp.STATS.seconds), by_axis=by_axis(grp.STATS))
+
+
+def write_report(path: str, g: grp.RankGroup, comm=None, **fields) -> str:
     """This rank's report (module docstring) at ``path`` with ``{rank}``
-    replaced; returns the path written."""
+    replaced; ``comm`` the collectives to report (default: all so far,
+    :func:`collectives`).  Returns the path written."""
     out = path.replace("{rank}", str(g.rank))
     doc = dict(rank=g.rank, world=g.world, device=str(g.device),
                placement=g.placement, backend=g.backend, launches=counts(),
-               collectives=dict(calls=dict(grp.STATS.calls),
-                                bytes=dict(grp.STATS.nbytes),
-                                seconds=dict(grp.STATS.seconds)),
+               collectives=comm if comm is not None else collectives(),
                **fields)
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
     with open(out, "w") as f:

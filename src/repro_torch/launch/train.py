@@ -32,8 +32,23 @@ rank's losses, launches, collectives and a digest of its parameters
         -m repro_torch.launch.train --sp --mesh 2 --steps 20 \
         --batch 8 --seq 1024
 
-``--mesh`` takes one axis; a ``DATAxMODEL`` shape raises, as
-``make_mesh`` does.  ``--arch`` takes every config of
+``--mesh DxM`` trains over a ``DATAxMODEL`` mesh of ``D * M`` ranks,
+one shard a process (``parallel/tensor.py``): tensor parallelism over
+the M ranks of a model row (column- and row-parallel products, the rank's
+heads, a vocabulary split by rows), data parallelism over the D rows
+(each takes its rows of the batch, the gradients summed once a step).
+Every rank draws the whole tree from ``--seed`` and keeps its shards; a
+checkpoint holds whole leaves (global rank 0 writes it) and restores on
+any mesh.  Under a model axis larger than 1 only the dense family runs
+and ``--sp`` is refused (ROADMAP A.14); ``--mesh Dx1 --sp`` is ``--mesh
+D --sp``.  ``--rank-report`` then digests the gathered parameters and
+counts the collectives by axis:
+
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \
+        -m repro_torch.launch.train --mesh 2x2 --steps 20 --batch 8 \
+        --seq 1024
+
+``--arch`` takes every config of
 ``repro_torch.configs`` at its published dtype (llama3.2-1b, gemma3-4b,
 mamba2-1.3b and zamba2-1.2b in bfloat16 with remat; AdamW keeps f32
 moments and applies each update in the parameter's dtype); ``--smoke``
@@ -57,7 +72,9 @@ from repro_torch.kernels.tuning import canonical_impl
 from repro_torch.launch import ranks
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.parallel import group as grp
+from repro_torch.parallel.sharding import unshard_params
 from repro_torch.train import TrainConfig, tokens_per_s, train
+from repro_torch.train.loop import param_specs
 
 
 def main(argv=None):
@@ -81,8 +98,8 @@ def main(argv=None):
     ap.add_argument("--data", default="zipf", choices=["zipf", "hier"])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh", default="1",
-                    help="shards of the one 'data' axis, e.g. 4 (a "
-                         "DATAxMODEL shape raises)")
+                    help="DATAxMODEL, e.g. 4x2 (one shard a process under "
+                         "torchrun), or N, the sequence shards of --sp")
     ap.add_argument("--sp", action="store_true",
                     help="sequence-parallel attention: shard L over the "
                          "--mesh axis and run the band kernels per shard "
@@ -121,10 +138,18 @@ def _train(ap, args, g):
     if args.telemetry or args.trace_out:
         obs.enable()
     shape = tuple(int(x) for x in args.mesh.split("x"))
+    if len(shape) == 2 and args.sp:
+        if shape[1] > 1:
+            raise NotImplementedError(
+                f"--sp with a model axis ({args.mesh}) is not ported: "
+                f"sequence parallelism shards the one 'data' axis "
+                f"(ROADMAP A.14)")
+        shape = shape[:1]
     mesh = make_mesh(shape, ("data", "model")[:len(shape)], device=dev)
-    if args.sp and mesh.d < 2:
+    tp = len(shape) == 2
+    if not tp and args.sp and mesh.d < 2:
         ap.error("--sp needs --mesh N with N > 1 shards")
-    if mesh.d > 1 and not args.sp:
+    if not tp and mesh.d > 1 and not args.sp:
         ap.error(f"--mesh {args.mesh} shards only the sequence: add --sp")
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
     if args.attn_impl is not None:
@@ -146,21 +171,30 @@ def _train(ap, args, g):
     src_cls = ZipfLM if args.data == "zipf" else HierarchicalLM
     data = src_cls(vocab_size=cfg.vocab_size, seq_len=args.seq,
                    batch_per_host=args.batch, seed=args.seed)
-    say(f"[train] {cfg.name} on {dev}, mesh {mesh.d} x '{mesh.axis}'"
+    where = (f"mesh {mesh.D}x{mesh.M} over ('data', 'model')" if tp else
+             f"mesh {mesh.d} x '{mesh.axis}'")
+    say(f"[train] {cfg.name} on {dev}, {where}"
         f"{' (sp)' if args.sp else ''}"
         f"{f' on {g.world} ranks ({g.backend})' if g is not None else ''}"
         f": batch {args.batch} x seq {args.seq}")
     report = g is not None and args.rank_report
-    if report:
+    if report:                 # each collective timed between synchronizations
         kernels.reset_counts()
         grp.STATS.clear()
-    state, metrics = train(cfg, tc, data, args.steps, device=dev,
-                           mesh=mesh if args.sp else None,
-                           log=print if lead else (lambda *a: None))
+        grp.STATS.timed = True
+    try:
+        state, metrics = train(cfg, tc, data, args.steps, device=dev,
+                               mesh=mesh if args.sp or tp else None,
+                               log=print if lead else (lambda *a: None))
+    finally:
+        grp.STATS.timed = False
     hist = metrics["history"]
     if report:
-        ranks.write_report(args.rank_report, g, history=hist,
-                           params=ranks.digest(state.params))
+        comm, params = ranks.collectives(), state.params
+        if tp:      # the whole tree, gathered on every rank after the steps
+            params = unshard_params(params, param_specs(cfg, mesh), mesh)
+        ranks.write_report(args.rank_report, g, comm=comm, history=hist,
+                           params=ranks.digest(params))
     rate = tokens_per_s(hist, args.batch * args.seq)
     say(f"[train] done: {len(hist)} steps"
         + (f", last loss {hist[-1]['loss']:.4f}, first step "

@@ -26,6 +26,15 @@ rolling cache of the same layout holding the last ``Lc = min(Lmax, 2 *
 window)`` tokens, slot ``t % Lc``.  Full and local layers decode through
 one plain-torch branch, as the reference's is one jnp branch outside any
 kernel; only the local one tests the window.
+
+Under a model axis (``parallel.tensor``, training on a ``DATAxMODEL``
+mesh) a column-parallel ``wq`` gives a rank its ``hq / M`` heads, and the
+layer runs on them alone: ``wkv``'s own shard holds the k and v columns
+of the rank's kv heads (split by head, ``[K_m | V_m]``), or, where ``hkv``
+does not divide over the axis and ``wkv`` stays whole, the rank takes the
+columns of the kv heads its q heads read; the band kernels run per rank
+on those heads, and ``wo``'s row-parallel product sums the heads' parts.
+A replicated ``wq`` runs the whole layer on every rank.
 """
 from __future__ import annotations
 
@@ -38,6 +47,7 @@ from ..core import (dense_attention, h1d_decode, h1d_attention_mha,
                     fold_kv_heads, unfold_kv_heads)
 from ..core import hierarchy as hc
 from ..kernels.ops import band_attention
+from ..parallel import tensor
 from .common import (ModelConfig, apply_rope, dense, dense_init, norm_init,
                      rmsnorm)
 
@@ -79,18 +89,69 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
     return p, s
 
 
+def _heads_sharded(p) -> bool:
+    """Whether this rank runs its own heads only (a column-parallel
+    ``wq`` under a model axis)."""
+    return tensor.sharded(p["wq"]["w"], 1)
+
+
+def _rank_kv_heads(cfg: ModelConfig, hl: int, m: int):
+    """[h0, h1) of the kv heads that q heads ``[m hl, (m + 1) hl)`` read
+    (kv head ``h // G``): whole groups, or a part of one group."""
+    G = cfg.num_heads // cfg.num_kv_heads
+    if hl % G and G % hl:
+        raise NotImplementedError(
+            f"{cfg.num_heads} q heads over {cfg.num_kv_heads} kv heads: a "
+            f"rank's {hl} q heads cut across GQA groups of {G}; tensor "
+            f"parallelism takes whole groups or parts of one (ROADMAP A.14)")
+    h0 = m * hl // G
+    return h0, h0 + max(hl // G, 1)
+
+
+def _rank_qkv(p, cfg: ModelConfig, x):
+    """This rank's q heads and the k | v columns of the kv heads they
+    read, from one :func:`~repro_torch.parallel.tensor.copy_to` of ``x``;
+    a replicated ``wkv``'s weights (used here for this rank's heads only)
+    and the q / k norms' gains pass through ``copy_to`` too, so each sums
+    its rank-partial gradient over the axis."""
+    q, kv = tensor.column(x, p["wq"], p["wkv"]) if tensor.sharded(
+        p["wkv"]["w"], 1) else (tensor.column(x, p["wq"])[0], None)
+    norms = {n: {"g": tensor.copy_to(p[n]["g"])} for n in ("qn", "kn")
+             if n in p}
+    if kv is None:
+        hd, hkv = cfg.head_dim, cfg.num_kv_heads
+        h0, h1 = _rank_kv_heads(cfg, q.shape[-1] // hd,
+                                tensor.model_group().rank)
+        cols = [slice(h0 * hd, h1 * hd),
+                slice((hkv + h0) * hd, (hkv + h1) * hd)]
+        w = tensor.copy_to(p["wkv"]["w"])
+        kv = tensor.copy_to(x) @ torch.cat([w[:, c] for c in cols],
+                                           1).to(x.dtype)
+        if "b" in p["wkv"]:
+            b = tensor.copy_to(p["wkv"]["b"])
+            kv = kv + torch.cat([b[c] for c in cols]).to(kv.dtype)
+    return q, kv, norms
+
+
 def _project_qkv(p, cfg: ModelConfig, x, positions):
     """q (B,S,Hq,hd), k/v (B,S,Hkv,hd); the fused ``wkv`` holds k in its
-    first half and v in its second."""
+    first half and v in its second (on a rank's shard, its heads' k then
+    their v).  Under a model axis, this rank's heads (module
+    docstring)."""
     B, S, _ = x.shape
-    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = dense(p["wq"], x).reshape(B, S, hq, hd)
-    k, v = torch.chunk(dense(p["wkv"], x), 2, dim=-1)
-    k = k.reshape(B, S, hkv, hd)
-    v = v.reshape(B, S, hkv, hd)
+    hd = cfg.head_dim
+    norms = p
+    if _heads_sharded(p):
+        q, kv, norms = _rank_qkv(p, cfg, x)
+    else:
+        q, kv = dense(p["wq"], x), dense(p["wkv"], x)
+    q = q.reshape(B, S, -1, hd)
+    k, v = torch.chunk(kv, 2, dim=-1)
+    k = k.reshape(B, S, -1, hd)
+    v = v.reshape(B, S, -1, hd)
     if cfg.qk_norm:
-        q = rmsnorm(p["qn"], q)
-        k = rmsnorm(p["kn"], k)
+        q = rmsnorm(norms["qn"], q)
+        k = rmsnorm(norms["kn"], k)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -150,6 +211,13 @@ def _full_attention(q, k, v, causal: bool, kv_weight):
     return unfold_kv_heads(z, fold)
 
 
+def _out(p, z):
+    """``wo`` over the heads' outputs (B, S, H, hd): row-parallel where
+    this rank ran its own heads."""
+    B, S = z.shape[:2]
+    return tensor.row(p["wo"], z.reshape(B, S, -1), _heads_sharded(p))
+
+
 def _attend(p, cfg: ModelConfig, q, k, v, kv_weight, causal: bool,
             layer_global: bool):
     """The layer's attention over projected (B,S,H,hd) heads and the
@@ -158,11 +226,10 @@ def _attend(p, cfg: ModelConfig, q, k, v, kv_weight, causal: bool,
     weight-0 keys."""
     B, S = q.shape[:2]
     if _is_local(cfg, layer_global):
-        z = _local_attention(q, k, v, cfg.sliding_window, causal, kv_weight)
-        return dense(p["wo"], z.reshape(B, S, -1))
+        return _out(p, _local_attention(q, k, v, cfg.sliding_window, causal,
+                                        kv_weight))
     if cfg.attention == "full":
-        z = _full_attention(q, k, v, causal, kv_weight)
-        return dense(p["wo"], z.reshape(B, S, -1))
+        return _out(p, _full_attention(q, k, v, causal, kv_weight))
     Lp = hc.padded_length(S, cfg.nr)
     pad = Lp - S
     if pad:
@@ -171,7 +238,7 @@ def _attend(p, cfg: ModelConfig, q, k, v, kv_weight, causal: bool,
     w = _pad_weights(B, S, Lp, kv_weight, q.device)
     z = h1d_attention_mha(q, k, v, nr=cfg.nr, causal=causal,
                           causal_mode=cfg.causal_mode, kv_weight=w)[:, :S]
-    return dense(p["wo"], z.reshape(B, S, -1))
+    return _out(p, z)
 
 
 def attn_apply(p, cfg: ModelConfig, x, positions, *, causal=True,

@@ -38,6 +38,7 @@ from torch.profiler import record_function
 
 from .. import resolve_device
 from ..core import dense_attention
+from ..parallel import tensor
 from ..tree import tree_map
 from .attention import attn_apply, attn_decode, attn_init, prefill_into_cache
 from .common import (ModelConfig, dense, dense_init, embed_init, norm_init,
@@ -203,13 +204,19 @@ def encdec_forward(params, cfg: ModelConfig, batch):
 def encdec_loss(params, cfg: ModelConfig, batch):
     """Next-token cross entropy over every target position (the
     reference's: no loss mask), through ``logsumexp``; returns (nll,
-    {"nll"})."""
+    {"nll"}).  Over a data axis of D ranks (``parallel.tensor``) a
+    rank's loss is its rows' mean over D, its part of the whole batch's
+    mean (every rank holds as many rows), and ``nll`` the whole batch's."""
     logits, _ = encdec_forward(params, cfg, batch)
     tokens = batch["tokens"]
     lgt = logits[:, :-1]
     gold = torch.gather(lgt, -1, tokens[:, 1:].long()[..., None])[..., 0]
     nll = (torch.logsumexp(lgt, dim=-1) - gold).mean()
-    return nll, {"nll": nll}
+    D = tensor.data_size()
+    if D == 1:
+        return nll, {"nll": nll}
+    nll = nll / D
+    return nll, {"nll": tensor.data_sum(nll)}
 
 
 @torch.inference_mode()

@@ -30,8 +30,8 @@ from typing import Optional
 import torch
 from torch.profiler import record_function
 
-from .common import (ModelConfig, activation, dense, dense_init,
-                     shard_if_divisible)
+from ..parallel import tensor
+from .common import ModelConfig, activation, dense_init, shard_if_divisible
 
 
 def mlp_init(gen: torch.Generator, d: int, d_ff: int, dtype=torch.float32,
@@ -47,8 +47,12 @@ def mlp_init(gen: torch.Generator, d: int, d_ff: int, dtype=torch.float32,
 
 
 def mlp(p, x: torch.Tensor, act_name: str) -> torch.Tensor:
+    """``wd(act(wg x) * wu x)``; under a model axis (``parallel.tensor``)
+    ``wg`` and ``wu`` column-parallel and ``wd`` row-parallel, by their
+    specs."""
     act = activation(act_name)
-    return dense(p["wd"], act(dense(p["wg"], x)) * dense(p["wu"], x))
+    g, u = tensor.column(x, p["wg"], p["wu"])
+    return tensor.row(p["wd"], act(g) * u, tensor.sharded(p["wg"]["w"], 1))
 
 
 # ---------------------------------------------------------------------------
@@ -117,18 +121,25 @@ def assign(cfg: ModelConfig, gates: torch.Tensor, top_i: torch.Tensor):
     ``moe_aux_loss * E * sum_e f_e P_e`` (P_e the mean gate over all B*S
     positions, f_e the share of assignments, a count with no gradient)
     and the capacity C of the call's length.  Returns (top_w, top_i,
-    rank, aux, C)."""
+    rank, aux, C).
+
+    Over a data axis of D ranks (``parallel.tensor``, each holding B of
+    the D*B rows) f_e counts every rank's assignments, and a rank's aux
+    takes its own rows' part of P_e, ``mean / D``: the ranks' aux sum to
+    the whole batch's, and so do their gradients."""
     B, S, E = gates.shape
     k = top_i.shape[-1]
     C = moe_capacity(cfg, S)
+    D = tensor.data_size()
     top_w = torch.gather(gates, -1, top_i)
     top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
-    pe = gates.mean(dim=(0, 1))
+    pe = gates.mean(dim=(0, 1)) / D
     # the assignments of each expert (a bincount, which meta tensors
     # lack: launch.specs runs the model on them)
     flat = top_i.reshape(-1)
-    fe = (torch.zeros(E, dtype=flat.dtype, device=flat.device)
-          .scatter_add_(0, flat, torch.ones_like(flat)).float() / (B * S * k))
+    counts = (torch.zeros(E, dtype=flat.dtype, device=flat.device)
+              .scatter_add_(0, flat, torch.ones_like(flat)).float())
+    fe = tensor.data_sum(counts) / (D * B * S * k)
     aux = cfg.moe_aux_loss * E * torch.sum(fe * pe)
     # per sequence: sort the S*k assignments by expert (stable, so within
     # an expert tokens rank in sequence order and a bucket's pad tail

@@ -53,6 +53,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from .. import resolve_device
+from ..parallel import tensor
 from ..tree import tree_map
 from .attention import (attn_init, attn_apply, attn_decode,
                         init_decode_cache, prefill_into_cache)
@@ -162,8 +163,10 @@ def _to(tree, dev):
 
 def _embed_tokens(params, cfg: ModelConfig, tokens, prefix_embeds=None):
     """Token embeddings (B, S, d) in the model's dtype, after
-    ``prefix_embeds`` (B, P, d) where given."""
-    h = params["embed"]["w"][tokens].to(cfg.torch_dtype)
+    ``prefix_embeds`` (B, P, d) where given; over a vocabulary split by
+    a model axis each rank looks up its rows and the ranks' rows are
+    summed (``parallel.tensor.embed``)."""
+    h = tensor.embed(params["embed"]["w"], tokens).to(cfg.torch_dtype)
     if prefix_embeds is None:
         return h
     return torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
@@ -173,11 +176,16 @@ def _logits(params, cfg: ModelConfig, h):
     # the reference's grad_dtype_boundary (a cast of the cotangent to h's
     # dtype) needs no port: autograd already hands a bf16 h a bf16
     # cotangent
+    # under a model axis the logits of this rank's vocabulary rows (tied)
+    # or columns (lm_head) only
     h = rmsnorm(params["final_norm"], h)
     if cfg.tie_embeddings:
-        logits = h @ params["embed"]["w"].to(h.dtype).T
+        w = params["embed"]["w"]
+        if tensor.sharded(w, 0):
+            h = tensor.copy_to(h)
+        logits = h @ w.to(h.dtype).T
     else:
-        logits = dense(params["lm_head"], h)
+        logits, = tensor.column(h, params["lm_head"])
     return logits.to(torch.float32)
 
 
@@ -253,7 +261,12 @@ def lm_loss(params, cfg: ModelConfig, batch):
     """batch: tokens (B, S) [+ patch_embeds (B, P, d), loss_mask (B, S)].
     Next-token cross entropy of the token positions through
     ``logsumexp``, plus the MoE aux loss; returns (loss, {"nll", "aux",
-    "ntok"})."""
+    "ntok"}).  Over a vocabulary split by a model axis the cross entropy
+    runs on each rank's logits (``parallel.tensor.sharded_xent``); over a
+    data axis the loss divides by the tokens of every data rank, so it is
+    this rank's part of the whole batch's mean (the data ranks' parts sum
+    to it, and so do their gradients, the MoE aux's too: ``ffn.assign``),
+    and ``nll``, ``aux`` and ``ntok`` are the whole batch's."""
     tokens = batch["tokens"]
     logits, aux = lm_forward(params, cfg, tokens,
                              prefix_embeds=batch.get("patch_embeds"))
@@ -262,13 +275,21 @@ def lm_loss(params, cfg: ModelConfig, batch):
     mask = batch.get("loss_mask")
     mask = (torch.ones(tgt.shape, dtype=torch.float32, device=lgt.device)
             if mask is None else mask[:, 1:].to(torch.float32))
-    logz = torch.logsumexp(lgt, dim=-1)
-    gold = torch.gather(lgt, -1, tgt[..., None])[..., 0]
-    nll = (logz - gold) * mask
-    ntok = mask.sum()
+    head = params["embed" if cfg.tie_embeddings else "lm_head"]["w"]
+    vocab = tensor.vocab_range(head, 0 if cfg.tie_embeddings else 1)
+    if vocab is None:
+        logz = torch.logsumexp(lgt, dim=-1)
+        gold = torch.gather(lgt, -1, tgt[..., None])[..., 0]
+        nll = (logz - gold) * mask
+    else:
+        nll = tensor.sharded_xent(lgt, tgt, vocab[0]) * mask
+    ntok = tensor.data_sum(mask.sum())
     denom = torch.clamp(ntok, min=1.0)
     loss = nll.sum() / denom + aux
-    return loss, {"nll": nll.sum() / denom, "aux": aux, "ntok": ntok}
+    if isinstance(aux, torch.Tensor):
+        aux = tensor.data_sum(aux)
+    return loss, {"nll": tensor.data_sum(nll.sum()) / denom, "aux": aux,
+                  "ntok": ntok}
 
 
 @torch.inference_mode()

@@ -45,25 +45,34 @@ def apply_updates(params, updates):
     return tree_map(lambda p, u: p + u.to(p.dtype), params, updates)
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(F32)))
-                          for x in tree_leaves(tree)))
+def global_norm(tree, shards=None) -> torch.Tensor:
+    """The L2 norm over every leaf.  ``shards``
+    (``parallel.tensor.LeafShards``): the squares of the leaves split
+    over a model axis are summed over it, each replicated leaf counted
+    once, so every rank gets the whole tree's norm."""
+    sq = [torch.sum(torch.square(x.to(F32))) for x in tree_leaves(tree)]
+    if shards is None:
+        return torch.sqrt(sum(sq))
+    split = [s for s, f in zip(sq, shards.flags) if f]
+    whole = [s for s, f in zip(sq, shards.flags) if not f]
+    return torch.sqrt(sum(whole) + shards.psum(sum(split) + torch.zeros(
+        (), dtype=F32, device=sq[0].device)))
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
     return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    norm = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, shards=None):
+    norm = global_norm(grads, shards)
     scale = _clip_scale(norm, max_norm)
     return tree_map(lambda g: g * scale.to(g.dtype), grads), norm
 
 
-def clip_by_global_norm_(grads, max_norm: float):
+def clip_by_global_norm_(grads, max_norm: float, shards=None):
     """:func:`clip_by_global_norm` in place: scales every leaf of
     ``grads`` and returns (grads, norm)."""
-    norm = global_norm(grads)
+    norm = global_norm(grads, shards)
     scale = _clip_scale(norm, max_norm)
     for g in tree_leaves(grads):
         g.mul_(scale.to(g.dtype))
@@ -158,7 +167,10 @@ class AdamWState(NamedTuple):
 
 
 def adamw(lr: Callable, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
-          clip_norm: Optional[float] = 1.0) -> Optimizer:
+          clip_norm: Optional[float] = 1.0, shards=None) -> Optimizer:
+    """``shards`` (``parallel.tensor.LeafShards``): the parameters are
+    this rank's shards of a model axis, and the clip takes the whole
+    tree's norm (:func:`global_norm`); the update is elementwise."""
     def init(params):
         def zeros(p):
             return torch.zeros_like(p, dtype=F32)
@@ -182,7 +194,7 @@ def adamw(lr: Callable, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
 
     def update(grads, state, params):
         if clip_norm is not None:
-            grads, _ = clip_by_global_norm(grads, clip_norm)
+            grads, _ = clip_by_global_norm(grads, clip_norm, shards)
         step = state.step + 1
         updates, mu, nu = _per_leaf(leaf_update(step), grads, state.mu,
                                     state.nu, params)
@@ -190,7 +202,7 @@ def adamw(lr: Callable, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
 
     def update_(grads, state, params):
         if clip_norm is not None:
-            clip_by_global_norm_(grads, clip_norm)
+            clip_by_global_norm_(grads, clip_norm, shards)
         step = state.step + 1
         _per_leaf_(leaf_update(step), grads, params, state.mu, state.nu,
                    chunked=True)

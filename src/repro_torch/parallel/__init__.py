@@ -1,7 +1,8 @@
 """Distribution: sharding rules over a mesh description, GPipe pipelining
 and sequence-parallel serving and training over a sharded hierarchical
 KV cache, every shard in one process or one shard a process over a
-``torch.distributed`` group (``group.py``)."""
+``torch.distributed`` group (``group.py``), and tensor- and
+data-parallel training over a ``DATAxMODEL`` mesh (``tensor.py``)."""
 from .pipeline import pipeline_apply
 from .sharding import (Mesh, NamedSharding, abstract_mesh, batch_shardings,
                        cache_shardings, dp_axes, dp_size, param_shardings,

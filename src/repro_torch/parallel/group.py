@@ -22,7 +22,19 @@ The collectives are autograd Functions with the reference's semantics:
 :func:`ppermute` (an edge rank of an open shift receives zeros; the
 backward is the opposite shift; ``cyclic`` is the pipeline's ring),
 :func:`all_gather` (tiled along ``dim``), :func:`psum`, :func:`pmax`
-(no gradient, as ``jax.lax.pmax`` has none) and :func:`scatter`.
+(no gradient, as ``jax.lax.pmax`` has none) and :func:`scatter`.  Each
+runs over one :class:`RankGroup`: the whole world, or one axis of a
+two-axis mesh (:func:`axis_groups`: a data column or a model row, each a
+``dist.new_group`` of its own).
+
+Tensor parallelism (``parallel/tensor.py``) adds the conjugate pair of
+Megatron's column- and row-parallel products: :func:`copy_to` (identity
+forward, psum backward) where a replicated activation enters a
+column-parallel product, and :func:`reduce_from` (psum forward,
+identity backward) where a row-parallel product's partial sums leave.
+:func:`psum`'s psum backward is the pipeline's rule; at a row-parallel
+output, whose upstream gradient every rank of the row already holds
+whole, it would multiply that gradient by the row's size.
 
 Gradients across the boundary between replicated and sharded values.
 Outside the attention every rank computes the same thing, so a
@@ -56,10 +68,11 @@ transport, :func:`_p2p`.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
-from typing import Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -75,17 +88,28 @@ _WHY = {"own": "every rank owns its card",
 
 @dataclasses.dataclass(frozen=True)
 class RankGroup:
-    """This process's place in the group: its rank, the world size, the
-    device its shard lives on, the placement of the ranks (``own``,
-    ``shared`` or ``cpu``) and the backend that placement takes."""
+    """This process's place in a group: its rank within the group, the
+    group's size, the device its shard lives on, the placement of the
+    ranks (``own``, ``shared`` or ``cpu``) and the backend that placement
+    takes.  The world is the default group (``pg`` None, ``ranks`` empty,
+    no ``axis``); a group of one mesh axis holds its ``dist.new_group``
+    handle ``pg``, the global ranks it spans in order and its axis name,
+    which the collectives' counts carry (``psum@model``)."""
     rank: int
     world: int
     device: torch.device
     placement: str
+    pg: Any = None
+    ranks: Tuple[int, ...] = ()
+    axis: str = ""
 
     @property
     def backend(self) -> str:
         return BACKENDS[self.placement]
+
+    def peer(self, r: int) -> int:
+        """The global rank of the group's rank ``r``."""
+        return self.ranks[r] if self.ranks else r
 
 
 @dataclasses.dataclass
@@ -93,8 +117,10 @@ class CommStats:
     """Collective calls, bytes sent and seconds of host wall, by op.  The
     seconds are counted only with ``timed`` on, which synchronizes the
     card before and after each call so that a collective's time is its
-    own and not the kernels queued ahead of it."""
+    own and not the kernels queued ahead of it.  Nothing is counted
+    inside :meth:`paused`."""
     timed: bool = False
+    counting: bool = True
     calls: Dict[str, int] = dataclasses.field(default_factory=dict)
     nbytes: Dict[str, int] = dataclasses.field(default_factory=dict)
     seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
@@ -107,8 +133,20 @@ class CommStats:
     def total_s(self) -> float:
         return sum(self.seconds.values())
 
+    @contextlib.contextmanager
+    def paused(self):
+        """Count no collective inside: a checkpoint's gathers, which are
+        no step's."""
+        was, self.counting = self.counting, False
+        try:
+            yield
+        finally:
+            self.counting = was
+
 
 _current: Optional[RankGroup] = None
+#: the axis groups built in this process, by mesh shape
+_axis_groups: Dict[Tuple[int, int], Tuple[RankGroup, RankGroup]] = {}
 #: the collectives' counts (``STATS.timed = True`` to time them too)
 STATS = CommStats()
 
@@ -194,8 +232,39 @@ def destroy() -> None:
     """Leave the group (every rank calls it at the end)."""
     global _current
     if _current is not None:
+        _axis_groups.clear()
         dist.destroy_process_group()
         _current = None
+
+
+def axis_groups(g: RankGroup, shape) -> Tuple[RankGroup, RankGroup]:
+    """(data group, model group) of this rank on a ``(D, M)`` mesh over
+    the world ``g`` of ``D * M`` ranks.  Rank r sits at ``(r // M, r %
+    M)``: its model row holds ranks ``[d M, (d + 1) M)``, adjacent ones
+    (one NVLink node under torchrun), and its data column ranks ``m, m +
+    M, ...``.  Every rank creates every row and every column, in the same
+    order (``dist.new_group`` is collective over the world), once a
+    shape."""
+    D, M = shape
+    if D * M != g.world or g.pg is not None:
+        raise ValueError(f"a {D}x{M} mesh needs the world of {D * M} ranks, "
+                         f"got a group of {g.world}")
+    if (D, M) not in _axis_groups:
+        d, m = divmod(g.rank, M)
+        mine = {}
+        for axis, sets in (("model", [[i * M + j for j in range(M)]
+                                      for i in range(D)]),
+                           ("data", [[i * M + j for i in range(D)]
+                                     for j in range(M)])):
+            for ranks in sets:
+                pg = dist.new_group(ranks)
+                if g.rank in ranks:
+                    mine[axis] = RankGroup(
+                        rank=ranks.index(g.rank), world=len(ranks),
+                        device=g.device, placement=g.placement, pg=pg,
+                        ranks=tuple(ranks), axis=axis)
+        _axis_groups[(D, M)] = (mine["data"], mine["model"])
+    return _axis_groups[(D, M)]
 
 
 # ---------------------------------------------------------------------------
@@ -203,13 +272,18 @@ def destroy() -> None:
 # ---------------------------------------------------------------------------
 
 class _counted:
-    """Count one collective call of ``op`` moving ``nbytes``; with
+    """Count one collective call of ``op`` over ``g`` moving ``nbytes``
+    (under ``op@axis`` for a group of one mesh axis); with
     ``STATS.timed`` on, time it between two synchronizations."""
 
-    def __init__(self, op: str, nbytes: int, device: torch.device):
-        self.op, self.nbytes, self.device = op, nbytes, device
+    def __init__(self, op: str, nbytes: int, g: RankGroup):
+        self.op = f"{op}@{g.axis}" if g.axis else op
+        self.nbytes, self.device = nbytes, g.device
 
     def __enter__(self):
+        self.on = STATS.counting
+        if not self.on:
+            return
         STATS.calls[self.op] = STATS.calls.get(self.op, 0) + 1
         STATS.nbytes[self.op] = STATS.nbytes.get(self.op, 0) + self.nbytes
         if STATS.timed:
@@ -218,7 +292,7 @@ class _counted:
             self.t0 = time.perf_counter()
 
     def __exit__(self, *exc):
-        if STATS.timed and exc[0] is None:
+        if self.on and STATS.timed and exc[0] is None:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             STATS.seconds[self.op] = (STATS.seconds.get(self.op, 0.0)
@@ -247,11 +321,11 @@ def _p2p(x: torch.Tensor, g: RankGroup, dst: Optional[int],
         send, recv = x, torch.empty_like(x)
     ops = []
     if dst is not None:
-        ops.append(dist.P2POp(dist.isend, send, dst))
+        ops.append(dist.P2POp(dist.isend, send, g.peer(dst), g.pg))
     if src is not None:
-        ops.append(dist.P2POp(dist.irecv, recv, src))
+        ops.append(dist.P2POp(dist.irecv, recv, g.peer(src), g.pg))
     with _counted("ppermute", x.numel() * x.element_size() * (
-            dst is not None), x.device):
+            dst is not None), g):
         if ops:
             for work in dist.batch_isend_irecv(ops):
                 work.wait()
@@ -263,16 +337,33 @@ def _p2p(x: torch.Tensor, g: RankGroup, dst: Optional[int],
 def _all_gather(x: torch.Tensor, g: RankGroup, dim: int) -> torch.Tensor:
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(g.world)]
-    with _counted("all_gather", x.numel() * x.element_size(), x.device):
-        dist.all_gather(parts, x)
+    with _counted("all_gather", x.numel() * x.element_size(), g):
+        dist.all_gather(parts, x, group=g.pg)
     return torch.cat(parts, dim)
 
 
-def _all_reduce(x: torch.Tensor, g: RankGroup, op, name: str):
-    out = x.contiguous().clone()
-    with _counted(name, out.numel() * out.element_size(), x.device):
-        dist.all_reduce(out, op=op)
-    return out
+#: the reductions of :func:`all_reduce_`: (torch's op, the name counted)
+_REDUCE = {"sum": (dist.ReduceOp.SUM, "psum"),
+           "max": (dist.ReduceOp.MAX, "pmax")}
+
+
+def all_reduce_(x: torch.Tensor, g: RankGroup, op: str = "sum"):
+    """Reduce the contiguous ``x`` over every rank of ``g`` in place
+    (``op`` ``"sum"`` or ``"max"``) and return it, counted as a psum or
+    a pmax.  No gradient: for values autograd does not follow (a token
+    count, the loss reported, the gradients summed over the data axis, a
+    norm's or a scale's partial values).  Inside a forward use
+    :func:`psum`, :func:`pmax` or :func:`reduce_from`."""
+    if not x.is_contiguous():
+        raise ValueError("all_reduce_ reduces a contiguous tensor in place")
+    rop, name = _REDUCE[op]
+    with _counted(name, x.numel() * x.element_size(), g):
+        dist.all_reduce(x, op=rop, group=g.pg)
+    return x
+
+
+def _all_reduce(x: torch.Tensor, g: RankGroup, op: str) -> torch.Tensor:
+    return all_reduce_(x.contiguous().clone(), g, op)
 
 
 def _slice(x: torch.Tensor, g: RankGroup, dim: int) -> torch.Tensor:
@@ -332,7 +423,7 @@ class _AllGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy):
         if ctx.grad == "sum":           # rule 3: a reduce-scatter
-            gy = _all_reduce(gy, ctx.g, dist.ReduceOp.SUM, "psum")
+            gy = _all_reduce(gy, ctx.g, "sum")
         return _slice(gy, ctx.g, ctx.dim), None, None, None
 
 
@@ -370,11 +461,11 @@ class _PSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, g):
         ctx.g = g
-        return _all_reduce(x, g, dist.ReduceOp.SUM, "psum")
+        return _all_reduce(x, g, "sum")
 
     @staticmethod
     def backward(ctx, gy):
-        return _all_reduce(gy, ctx.g, dist.ReduceOp.SUM, "psum"), None
+        return _all_reduce(gy, ctx.g, "sum"), None
 
 
 def psum(x: torch.Tensor, g: RankGroup) -> torch.Tensor:
@@ -386,7 +477,7 @@ def psum(x: torch.Tensor, g: RankGroup) -> torch.Tensor:
 class _PMax(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, g):
-        out = _all_reduce(x, g, dist.ReduceOp.MAX, "pmax")
+        out = _all_reduce(x, g, "max")
         ctx.mark_non_differentiable(out)
         return out
 
@@ -399,3 +490,40 @@ def pmax(x: torch.Tensor, g: RankGroup) -> torch.Tensor:
     """The elementwise max over every rank's ``x``, on every rank; not
     differentiable (the decode merge's shift)."""
     return _PMax.apply(x, g)
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.g = g
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, gy):
+        return _all_reduce(gy, ctx.g, "sum"), None
+
+
+def copy_to(x: torch.Tensor, g: RankGroup) -> torch.Tensor:
+    """``x`` as it is, where a value every rank of ``g`` holds enters
+    work split over the group (a column-parallel product, a replicated
+    weight used for this rank's heads only).  Backward: a psum, as each
+    rank holds the gradient of its own part of the work."""
+    return _CopyTo.apply(x, g)
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g):
+        return _all_reduce(x, g, "sum")
+
+    @staticmethod
+    def backward(ctx, gy):
+        return gy, None
+
+
+def reduce_from(x: torch.Tensor, g: RankGroup) -> torch.Tensor:
+    """The sum of every rank's partial ``x`` (a row-parallel product's
+    output, a sharded vocabulary's exp sum), on every rank.  Backward:
+    the upstream gradient as it is, which every rank already holds
+    whole."""
+    return _ReduceFrom.apply(x, g)

@@ -21,6 +21,17 @@ entry per dimension, ``None``, an axis name or a tuple of axis names
 holds (``launch.dryrun``).  The reference's ``axis_type_kwargs`` is a
 shim over JAX versions' mesh constructors and has no counterpart.
 
+:func:`shard_params` cuts one rank's shards of a parameter tree from
+the whole tree by its specs, on a ``parallel.tensor.RankMesh`` (one
+shard a process), and :func:`unshard_params` all-gathers them back.
+The fused ``wkv`` (k and v in one ``(d, 2 hkv hd)`` projection) splits
+by head: rank m holds the k columns of its kv heads and the v columns
+of the same heads, ``[K_m | V_m]``, so that ``models/attention.py``'s
+``torch.chunk(..., 2)`` still parts k from v on a shard (a contiguous
+split would give rank 0 all of k and rank 1 all of v).  A card holds
+the same bytes either way, so :func:`per_device_bytes` reads the specs
+alone.
+
 The port's decode caches are per layer (the reference stacks a scanned
 model's caches on a leading layer axis), so the layer offset of the
 cache rule is always 0; every leaf of a cache tree -- ``H1DCache``
@@ -241,3 +252,81 @@ def leaf_shardings(tree, specs) -> list:
     if len(tree) != len(specs):
         raise ValueError(f"{len(tree)} subtrees but {len(specs)} specs")
     return [p for t, s in zip(tree, specs) for p in leaf_shardings(t, s)]
+
+
+# ---------------------------------------------------------------------------
+# one rank's shards of a parameter tree
+# ---------------------------------------------------------------------------
+
+def spec_leaves(specs) -> list:
+    """The spec leaves of an init's spec tree in the order
+    ``tree_leaves`` walks its parameters (dict keys sorted, lists in
+    order)."""
+    if is_spec(specs):
+        return [specs]
+    if isinstance(specs, dict):
+        return [s for k in sorted(specs) for s in spec_leaves(specs[k])]
+    return [s for x in specs for s in spec_leaves(x)]
+
+
+def _model_dims(spec) -> list:
+    dims = []
+    for i, ax in enumerate(spec):
+        if ax == "model":
+            dims.append(i)
+        elif ax is not None and ax != ():
+            raise NotImplementedError(
+                f"spec {spec}: one shard a process splits leaves over "
+                f"'model' only")
+    return dims
+
+
+def _parts(path: str, dim: int, ndim: int) -> int:
+    """How many parts the split axis ``dim`` of the leaf at ``path``
+    fuses, each cut on its own: 2 for ``wkv``'s output axis (k's heads,
+    then v's, so rank m takes ``[K_m | V_m]``), 1 for any other."""
+    return 2 if dim == ndim - 1 and path.split("/")[-2:-1] == ["wkv"] else 1
+
+
+def _cut(path, t, spec, M, m):
+    for dim in _model_dims(spec):
+        k = _parts(path, dim, t.dim())
+        t = torch.cat([torch.chunk(part, M, dim)[m]
+                       for part in torch.chunk(t, k, dim)], dim)
+    return t.contiguous()
+
+
+def shard_params(params, specs, mesh):
+    """This rank's shards of ``params`` (the whole tree, every rank's
+    draw from the same seed) under the init's ``specs`` on ``mesh`` (a
+    ``parallel.tensor.RankMesh``): each axis over ``"model"`` cut into
+    M equal parts, part m kept (``wkv`` part by part, :func:`_parts`);
+    replicated leaves as they are."""
+    from ..tree import tree_flatten_with_paths, tree_unflatten_like
+    M, m = mesh.M, mesh.coords[1]
+    flat = tree_flatten_with_paths(params)
+    sl = spec_leaves(specs)
+    return tree_unflatten_like(params, [
+        _cut(path, t, s, M, m) if M > 1 else t
+        for (path, t), s in zip(flat, sl)])
+
+
+@torch.no_grad()
+def unshard_params(params, specs, mesh):
+    """The whole tree from every rank's shards (:func:`shard_params`'
+    inverse): an all-gather over the model group for each split leaf,
+    the same on every rank."""
+    from ..tree import tree_flatten_with_paths, tree_unflatten_like
+    from . import group as grp
+    g = mesh.model
+    flat = tree_flatten_with_paths(params)
+    if g is None:
+        return params
+    out = []
+    for (path, t), spec in zip(flat, spec_leaves(specs)):
+        for dim in _model_dims(spec):
+            k = _parts(path, dim, t.dim())
+            t = torch.cat([grp.all_gather(part, g, dim, grad="slice")
+                           for part in torch.chunk(t, k, dim)], dim)
+        out.append(t)
+    return tree_unflatten_like(params, out)

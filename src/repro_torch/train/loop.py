@@ -13,11 +13,18 @@ attention call shards its sequence axis (sequence-parallel training, the
 reference's ``sp_step``); on a rank mesh (one shard a process,
 ``parallel/group.py``) every rank runs the loop on the same batches,
 ends each step with the same parameters, and rank 0 alone writes the
-checkpoints.  With telemetry on (``repro_torch.obs``) each
+checkpoints.  A ``DATAxMODEL`` mesh (``parallel.tensor.RankMesh``, one
+shard a process) trains the rank's shards of the parameters: every rank
+draws the whole tree from the seed (or restores the whole checkpoint)
+and keeps its shards (``parallel.sharding.shard_params``), each step
+runs inside ``tp_scope`` on the data rank's rows of every microbatch,
+the gradients are summed over ``"data"`` once a step, after
+accumulation, and the clip's norm and the int8 compressor's scales are
+the whole leaves'; checkpoints gather whole leaves, which global rank 0
+writes in the one-process format.  With telemetry on (``repro_torch.obs``) each
 step is a ``train.step`` span (args ``step``) that ends when its loss is
 read, and feeds ``train.steps``, ``train.step_s`` and ``train.loss``; a
-watchdog alarm counts ``train.watchdog_alarms``.  The sharded multi-pod
-path is not ported.
+watchdog alarm counts ``train.watchdog_alarms``.
 """
 from __future__ import annotations
 
@@ -32,6 +39,9 @@ from .. import obs, resolve_device
 from ..models import ModelConfig, get_model
 from ..optim import (Optimizer, adafactor, adamw, cosine_schedule,
                      init_error_feedback, int8_compress)
+from ..parallel import group as grp
+from ..parallel import tensor
+from ..parallel.sharding import shard_params, spec_leaves, unshard_params
 from ..parallel.sp_attention import sp_scope
 from ..tree import tree_leaves, tree_map, tree_unflatten_like
 
@@ -68,12 +78,58 @@ def resolve_model_config(cfg: ModelConfig, tc: TrainConfig) -> ModelConfig:
     return dataclasses.replace(cfg, causal_mode=tc.attn_causal_mode)
 
 
-def make_optimizer(tc: TrainConfig) -> Optimizer:
+def check_optimizer(tc: TrainConfig, shards) -> None:
+    """Refuse Adafactor where ``shards`` (``parallel.tensor.LeafShards``)
+    says the step's leaves are shards of a model axis: its factored
+    moments need whole rows and columns."""
+    if tc.optimizer == "adafactor" and shards is not None:
+        raise NotImplementedError(
+            "Adafactor factors its second moment over whole rows and "
+            "columns, which a model axis splits; train with AdamW")
+
+
+def make_optimizer(tc: TrainConfig, shards=None) -> Optimizer:
+    """``shards`` (``parallel.tensor.LeafShards``): the step's leaves are
+    shards of a model axis (:func:`check_optimizer`)."""
+    check_optimizer(tc, shards)
     sched = cosine_schedule(tc.peak_lr, tc.warmup, tc.total_steps)
     if tc.optimizer == "adafactor":
         return adafactor(sched)
     return adamw(sched, weight_decay=tc.weight_decay,
-                 clip_norm=tc.clip_norm)
+                 clip_norm=tc.clip_norm, shards=shards)
+
+
+def param_specs(cfg: ModelConfig, mesh) -> list:
+    """The spec of every parameter leaf (``tree_leaves`` order) on a
+    ``DATAxMODEL`` mesh: the model init's specs at TP degree M, read on
+    the meta device (nothing drawn)."""
+    _, specs = get_model(cfg).init(cfg, device="meta", tp=mesh.M,
+                                   specs=True)
+    return spec_leaves(specs)
+
+
+def _param_trees(fn, state: TrainState) -> TrainState:
+    """``state`` with ``fn`` applied to each of its parameter-shaped
+    trees: the parameters, the optimizer's moments, the error-feedback
+    residual (the step counters as they are)."""
+    opt = state.opt_state
+    opt = type(opt)(*[f if isinstance(f, torch.Tensor) else fn(f)
+                      for f in opt])
+    ef = (None if state.ef_state is None
+          else type(state.ef_state)(fn(state.ef_state.residual)))
+    return TrainState(state.step, fn(state.params), opt, ef)
+
+
+def shard_state(state: TrainState, specs, mesh) -> TrainState:
+    """This rank's shards of a whole state (every parameter-shaped tree
+    cut as ``parallel.sharding.shard_params`` cuts the parameters)."""
+    return _param_trees(lambda t: shard_params(t, specs, mesh), state)
+
+
+def unshard_state(state: TrainState, specs, mesh) -> TrainState:
+    """The whole state from every rank's shards (collective: every rank
+    of the model axis calls it)."""
+    return _param_trees(lambda t: unshard_params(t, specs, mesh), state)
 
 
 def init_state(cfg: ModelConfig, tc: TrainConfig, *,
@@ -95,7 +151,27 @@ def batch_to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, Any]:
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
 
 
-def make_train_step(cfg: ModelConfig, tc: TrainConfig) -> Callable:
+def loss_and_grads(fns, cfg: ModelConfig, params, batch, *, mesh=None,
+                   specs=None):
+    """(loss, metrics, grads) of one (micro)batch.  On a ``DATAxMODEL``
+    ``mesh`` (``specs``: every leaf's, ``param_specs``) ``params`` are
+    this rank's shards and ``batch`` its data rows: the forward and
+    backward run inside ``tp_scope``, the loss returned is the whole
+    batch's and the gradients this data rank's part of the whole batch's
+    (:func:`make_train_step` sums them over ``"data"``)."""
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    with tensor.tp_scope(mesh), tensor.bound(leaves, specs or ()):
+        loss, metrics = fns.loss(tree_unflatten_like(params, leaves), cfg,
+                                 batch)
+        grads = torch.autograd.grad(loss, leaves)
+        loss = tensor.data_sum(loss.detach())
+    metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v
+               for k, v in metrics.items()}
+    return loss, metrics, tree_unflatten_like(params, list(grads))
+
+
+def make_train_step(cfg: ModelConfig, tc: TrainConfig, *, mesh=None,
+                    specs=None) -> Callable:
     """Returns train_step(state, batch) -> (state, metrics).
 
     The step consumes ``state``, as the reference's donated jit
@@ -109,25 +185,28 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig) -> Callable:
     ``tc.grad_accum`` microbatches and takes the mean of their gradients
     and losses (the reference's scan); the other metrics are the last
     microbatch's.  ``compress_grads='topk'`` raises: the step applies
-    only int8 compression so far."""
+    only int8 compression so far.
+
+    On a ``DATAxMODEL`` ``mesh`` (``parallel.tensor.RankMesh``; ``specs``
+    every leaf's spec, :func:`param_specs`) the state holds this rank's
+    shards and ``batch`` the whole step's rows, of which the step takes
+    its data rank's (:func:`~repro_torch.parallel.tensor.data_rows`)."""
     if tc.compress_grads == "topk":
         raise NotImplementedError("compress_grads='topk' is not applied by "
                                   "the train step yet; use 'int8' or 'none'")
     cfg = resolve_model_config(cfg, tc)
+    if mesh is not None:
+        tensor.check_family(cfg, mesh.M)
     fns = get_model(cfg)
-    opt = make_optimizer(tc)
+    shards = tensor.LeafShards.of(mesh, specs) if specs else None
+    opt = make_optimizer(tc, shards)
 
     def value_and_grad(params, batch):
-        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
-        loss, metrics = fns.loss(tree_unflatten_like(params, leaves), cfg,
-                                 batch)
-        grads = torch.autograd.grad(loss, leaves)
-        metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v
-                   for k, v in metrics.items()}
-        return loss.detach(), metrics, tree_unflatten_like(params,
-                                                           list(grads))
+        return loss_and_grads(fns, cfg, params, batch, mesh=mesh,
+                              specs=specs)
 
     def train_step(state: TrainState, batch):
+        batch = tensor.data_rows(batch, mesh, tc.grad_accum)
         if tc.grad_accum > 1:
             n = tc.grad_accum
             micro = {k: v.reshape((n, v.shape[0] // n) + tuple(v.shape[1:]))
@@ -147,10 +226,11 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig) -> Callable:
             loss = lsum / n
         else:
             loss, metrics, grads = value_and_grad(state.params, batch)
+        tensor.reduce_grads(tree_leaves(grads), mesh)
 
         ef = state.ef_state
         if tc.compress_grads == "int8":
-            grads, ef = int8_compress(grads, ef)
+            grads, ef = int8_compress(grads, ef, shards)
 
         opt_state = opt.update_(grads, state.opt_state, state.params)
         del grads
@@ -206,20 +286,39 @@ def train(cfg: ModelConfig, tc: TrainConfig, data_source, num_steps: int,
     and that end on the ``time.perf_counter`` clock; on a
     card also ``peak_mem_gib``, the most device memory allocated during
     the steps (``torch.cuda.max_memory_allocated``, reset as they
-    start)."""
+    start).
+
+    A ``DATAxMODEL`` ``mesh`` (``parallel.tensor.RankMesh``) trains this
+    rank's shards on its data rows (module docstring): a given ``state``
+    is whole and is sharded here, the returned one holds the shards;
+    every rank gathers the whole state for a checkpoint (gathers that
+    ``group.STATS`` does not count: they are no step's), which global
+    rank 0 writes, and a restore reads the whole tree and shards it, so
+    a checkpoint moves between meshes."""
     from . import checkpoint as ckpt
 
-    dev = resolve_device(device)
+    tp = mesh if isinstance(mesh, tensor.RankMesh) else None
+    specs = None
+    if tp is not None:           # refused before any weight is drawn
+        tensor.check_family(resolve_model_config(cfg, tc), tp.M)
+        specs = param_specs(cfg, tp)
+        check_optimizer(tc, tensor.LeafShards.of(tp, specs))
+        dev = tp.device
+    else:
+        dev = resolve_device(device)
     if state is None:
         state = init_state(cfg, tc, device=dev)
         start = ckpt.latest_step(tc.ckpt_dir)
         if start is not None:
             state = ckpt.restore(tc.ckpt_dir, start, state)
             log(f"[restart] resumed from step {start}")
+    if tp is not None:
+        state = shard_state(state, specs, tp)
     step0 = int(state.step)
     # a rank mesh writes its checkpoints from rank 0 alone
-    lead = mesh is None or mesh.group is None or mesh.group.rank == 0
-    train_step = make_train_step(cfg, tc)
+    lead = (tp.lead if tp is not None else
+            mesh is None or mesh.group is None or mesh.group.rank == 0)
+    train_step = make_train_step(cfg, tc, mesh=tp, specs=specs)
     saver = ckpt.AsyncCheckpointer(tc.ckpt_dir)
     wd = Watchdog(tc.watchdog_factor)
     metrics: Dict[str, Any] = {}
@@ -231,7 +330,7 @@ def train(cfg: ModelConfig, tc: TrainConfig, data_source, num_steps: int,
         t0 = time.perf_counter()
         with obs.span("train.step", tid=obs.TRACK_TRAIN,
                       args={"step": step}):
-            with sp_scope(mesh):
+            with sp_scope(None if tp is not None else mesh):
                 state, metrics = train_step(state, batch)
             loss = float(metrics["loss"])      # waits for the device
         end = time.perf_counter()
@@ -251,8 +350,14 @@ def train(cfg: ModelConfig, tc: TrainConfig, data_source, num_steps: int,
             log(f"step {step}: loss={loss:.4f}"
                 + (f" aux={aux:.6f}" if aux else "")
                 + f" ({dt*1e3:.1f} ms)")
-        if tc.ckpt_every and (step + 1) % tc.ckpt_every == 0 and lead:
-            saver.save(step + 1, state)
+        if tc.ckpt_every and (step + 1) % tc.ckpt_every == 0:
+            if tp is None:
+                whole = state
+            else:
+                with grp.STATS.paused():
+                    whole = unshard_state(state, specs, tp)
+            if lead:
+                saver.save(step + 1, whole)
     saver.wait()
     out = dict(metrics, history=history)
     if dev.type == "cuda":

@@ -123,8 +123,7 @@ def pipeline(inp, g, out):
 
 def refusals(g, out):
     caught = []
-    for shape, axes, err in [((g.world, 2), ("data", "model"),
-                              NotImplementedError),
+    for shape, axes, err in [((g.world, 2), ("data", "model"), ValueError),
                              ((g.world + 1,), ("data",), ValueError)]:
         try:
             make_mesh(shape, axes)

@@ -1364,6 +1364,44 @@ def test_paged_quant_update_at_the_envelope_edge(dev, nlev, qlevels, D, Dv):
 
 
 @pytest.mark.parametrize("nlev,qlevels,D,Dv", [
+    (12, 1, 128, 128), (4, 1, 1024, 1024), (28, 0, 1024, 1024),
+    (3, 1, 1024, 1), (5, 2, 40, 24)])
+def test_paged_quant_update_bf16_levels_match_plain(dev, nlev, qlevels, D,
+                                                    Dv):
+    """#10 on pools whose first ``qlevels`` levels are int8 and the rest
+    bf16 -- yi-6b's decode width over 12 levels, widths of 1024, 28 bf16
+    levels of 1024 (their staged pairs take 229376 of the 232448 bytes),
+    odd widths -- bit-exact against its plain version outside the TRASH
+    page over chained ticks, a second run the same bits."""
+    gen = torch.Generator(device=dev).manual_seed(7 * nlev + D + Dv)
+    R, nr, npages, trash = 6, 4, 16, 1
+    assert dk.update_quant_smem(D, Dv, (1 << qlevels) - 1, nlev, True) \
+        <= dk.SMEM_LIMIT
+    base = _bf16(_mixed_pool(gen, dev, nlev, nr, npages, D, Dv, qlevels))
+    assert base.ck[-1].dtype == BF16
+    a, b, c = _pool_clone(base), _pool_clone(base), _pool_clone(base)
+    dk.update_cache_paged_quant.mode_launches = {}
+    for step in range(3):
+        t = torch.randint(0, nr << nlev, (R,), generator=gen, device=dev,
+                          dtype=torch.int32)
+        utab = torch.stack([torch.randperm(npages - 2, generator=gen,
+                                           device=dev)[:R] + 2
+                            for _ in range(nlev)], 1).to(torch.int32)
+        utab[R - 2:] = trash
+        kn, vn = _randn(gen, dev, R, D), _randn(gen, dev, R, Dv)
+        dk.update_cache_paged_quant(a, kn, vn, t, utab)
+        dk.update_cache_paged_quant(c, kn, vn, t, utab)
+        dk.update_cache_paged_quant_ref(b, kn, vn, t, utab)
+        for x, y, z in zip(_pool_arrays(a), _pool_arrays(b),
+                           _pool_arrays(c)):
+            keep = torch.ones(x.shape[0], dtype=torch.bool, device=dev)
+            keep[trash] = False
+            assert torch.equal(x[keep], y[keep])
+            assert torch.equal(x[keep], z[keep])
+    assert dk.update_cache_paged_quant.mode_launches == {"bf16": 6}
+
+
+@pytest.mark.parametrize("nlev,qlevels,D,Dv", [
     (2, 2, 1025, 64), (2, 2, 64, 1025), (15, 0, 1024, 1024)])
 def test_paged_quant_update_raises_past_the_envelope(dev, nlev, qlevels, D,
                                                      Dv):
@@ -1823,8 +1861,10 @@ def test_bf16_paged_kernels_match_plain(dev, G, D):
     attends within 1e-5 on the f32 output of the plain version evaluated
     in float64 on the same bf16 rows (values scale by 2^l, so at D 128
     and 256 the fp32 plain version can be ~1e-5 off itself, as in the
-    staged f32 cases), the update over 5 chained appends bit for bit
-    outside TRASH.  #10 refuses the bf16 levels."""
+    staged f32 cases), the updates over 5 chained appends bit for bit
+    outside TRASH: #9 on the bf16 pool, #10 on the mixed one (its int8
+    level requantized, its bf16 levels rounded from one f32 carry
+    chain), counted as bf16 launches."""
     from repro_torch.core import quantization as qz
 
     Lmax, nr = 2048, 16
@@ -1854,6 +1894,7 @@ def test_bf16_paged_kernels_match_plain(dev, G, D):
                  [dk.decode_attend_paged_quant_ref(mixed, q.double(), t,
                                                    bidx, nr=nr)])
     a, b = _pool_clone(pool), _pool_clone(pool)
+    qa, qb = _pool_clone(mixed), _pool_clone(mixed)
     keep = torch.ones(npages, dtype=torch.bool, device=dev)
     keep[trash] = False
     for step in range(5):
@@ -1869,8 +1910,11 @@ def test_bf16_paged_kernels_match_plain(dev, G, D):
         dk.update_cache_paged_ref(b, kn, vn, tu, utab)
         for x, y in zip(_pool_arrays(a), _pool_arrays(b)):
             assert x.dtype == BF16 and torch.equal(x[keep], y[keep])
-    with pytest.raises(ValueError, match="bfloat16"):
-        dk.update_cache_paged_quant(mixed, kn, vn, tu, utab)
+        dk.update_cache_paged_quant(qa, kn, vn, tu, utab)
+        dk.update_cache_paged_quant_ref(qb, kn, vn, tu, utab)
+        for x, y in zip(_pool_arrays(qa), _pool_arrays(qb)):
+            assert torch.equal(x[keep], y[keep])
+    assert dk.update_cache_paged_quant.mode_launches["bf16"] >= 5
 
 
 @pytest.mark.parametrize("G,D", BF16_SHAPES)

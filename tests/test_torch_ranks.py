@@ -24,8 +24,8 @@ reference on the same numpy inputs and holds the ranks to it:
 * ``pipeline_apply`` at S = 2 and 4: within 1e-5 of the reference's
   ``pipeline_apply`` (a subprocess on fabricated host devices), its
   gradients within 1e-6 of the sequential application's;
-* the backend rule, and the refusals (a DATAxMODEL mesh, a mesh whose
-  size is not the world's, distinct devices in one process).
+* the backend rule, and the refusals (a DATAxMODEL or one-axis mesh
+  whose size is not the world's, distinct devices in one process).
 """
 import functools
 import json
@@ -460,8 +460,8 @@ def test_pipeline_on_ranks(worlds, ref_pipeline, S):
 
 @pytest.mark.parametrize("d", [2, 4])
 def test_rank_refusals(worlds, d):
-    """Inside a group: a DATAxMODEL mesh raises NotImplementedError, a
-    mesh of another size than the world ValueError."""
+    """Inside a group: a DATAxMODEL mesh or a one-axis mesh of another
+    size than the world raises ValueError."""
     for r in worlds[d]["ranks"]:
         a, b = r["refusals"]
         assert "DATAxMODEL" in a

@@ -209,7 +209,7 @@ def test_train_cli_sp(tmp_path, capsys):
     (["--sp", "--mesh", "2x2"], NotImplementedError)])
 def test_train_cli_mesh_guards(argv, err, tmp_path):
     """``--sp`` needs a mesh of more than one shard, a mesh needs
-    ``--sp``, and a DATAxMODEL shape raises as ``make_mesh`` does."""
+    ``--sp``, and ``--sp`` with a model axis raises (ROADMAP A.14)."""
     with pytest.raises(err):
         train_cli.main(["--smoke", "--device", "cpu", "--steps", "1",
                         "--ckpt-dir", str(tmp_path)] + argv)
